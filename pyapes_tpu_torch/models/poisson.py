@@ -25,8 +25,7 @@ class PoissonSolver:
         self.var = Field("phi", 1, mesh, {"domain": bc_config, "obstacle": None})
         self.coeff = coeff
         # Plain boxes are separable: the fast-diagonalization direct
-        # solve; a non-separable equation falls back to MG-PCG, which is
-        # ported in a later slice (and raises until then).
+        # solve; a non-separable equation falls back to MG-PCG.
         cfg = {
             "method": "fastdiag",
             "fd_fallback": "cg",

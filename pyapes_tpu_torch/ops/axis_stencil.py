@@ -1,113 +1,73 @@
-"""Per-axis 3-point stencil apply: the hand-written Hopper kernel and its
-wrapper (the port's counterpart of ``pyapes_tpu/ops/pallas_stencil.py``).
+"""Per-axis 3-point stencil apply, and the apply fused with the CG
+alpha-dot: the hand-written Hopper kernels and their wrappers (the port's
+counterpart of the axis-stencil kernels of ``pyapes_tpu/ops/pallas_stencil*.py``).
 
-Replaces three Pallas TPU kernels that compute one function —
-``pallas_stencil.py::pallas_axis_stencil`` (2-D and 3-D tiled),
+``axis_stencil`` replaces three Pallas TPU kernels that compute one
+function — ``pallas_stencil.py::pallas_axis_stencil`` (2-D and 3-D tiled),
 ``pallas_stencil_db.py::pallas_axis_stencil_db`` (3-D, double-buffered
 ghost DMAs) and ``pallas_stencil_v3.py::pallas_axis_stencil_v3`` (3-D,
 slab-resident) — with ONE CUDA kernel, ``csrc/axis_stencil.cu``, for any
 grid of at least 3 nodes per axis: the TPU's (8, 128) tiling gates,
 pad-and-crop and in-register row selection do not apply on the card.
+``axis_stencil_dot`` replaces ``pallas_stencil_db.py::pallas_axis_stencil_dot``
+and ``pallas_stencil_v3.py::pallas_axis_stencil_dot_v3`` (3-D): the same
+apply plus ``sum(x * A x)`` per component, so CG never re-reads ``d`` and
+``A d`` for its alpha-dot.
 
-What bounds it: the apply does ~7 multiply-adds per point against 8 bytes
-(f32) of compulsory traffic (read x, write out), far below the card's
-FLOP-to-byte balance — it is HBM-bound, and its floor is about two grids
-of device-memory traffic per apply. The design aims at that traffic
-without shared-memory tiling: one thread per output point with the last
-axis along ``threadIdx.x``, so the centre, +-1 last-axis and output
-accesses coalesce; the +-1 rows and planes are re-reads that consecutive
-blocks (which walk the grid in memory order) find in L1/L2 (50 MB holds
-dozens of 512^2 planes), so x is fetched from HBM about once. The torus
-wrap is index arithmetic, the per-axis coefficient vectors are a few KB
-read through the read-only cache, and the sum accumulates in the input
-dtype (f32 or f64). ``cp.async``/TMA plane tiling is later work.
+What bounds them: the apply does ~7 multiply-adds per point against 2-4
+bytes each way (bf16/f32) of compulsory traffic (read x, write out), far
+below the card's FLOP-to-byte balance — they are HBM-bound, and the floor
+is about two grids of device-memory traffic per apply. The design aims at
+that traffic without shared-memory tiling: one thread per output point
+with the last axis along ``threadIdx.x``, so the centre, +-1 last-axis and
+output accesses coalesce; the +-1 rows and planes are re-reads that
+consecutive blocks (which walk the grid in memory order) find in L1/L2
+(50 MB holds dozens of 512^2 planes), so x is fetched from HBM about once.
+The torus wrap is index arithmetic, the per-axis coefficient vectors are a
+few KB read through the cache, and the sum accumulates in
+``promote(dtype, f32)`` (bf16 is loaded, widened to f32 and rounded once
+on store). The dot kernel reduces each 128-thread block with warp shuffles
+into one partial; the wrapper sums the partials with ``torch.sum`` in a
+fixed order (no atomics, so a solve's ``itr`` is the same every run).
+``cp.async``/TMA plane tiling is later work.
 
-``axis_stencil(coeffs, x)`` launches the kernel for a CUDA tensor (or
-raises), and calls the plain ``ops.stencil.apply_axis_stencil`` for a CPU
-tensor. ``axis_stencil.launches`` counts kernel launches.
+Each wrapper launches its kernel for a CUDA tensor (or raises) and calls
+the plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
-from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+from pyapes_tpu_torch.ops import cuda_build
+from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, apply_axis_stencil_dot
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "axis_stencil.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
-
-
-class Build(NamedTuple):
-    path: Path
-    seconds: float
-    """Compile time of this call (0.0 when the library was already built)."""
-    log: str
-    """nvcc/ptxas output (registers, spills) of a fresh build, else ''."""
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("axis_stencil: nvcc not found (PATH or $CUDA_HOME/bin)")
-
-
-def build() -> Build:
-    """Compile ``csrc/axis_stencil.cu`` into ``build/`` unless a library
-    keyed by the hash of the source and flags is already there."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"axis_stencil_{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return Build(lib, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    tic = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"axis_stencil: nvcc failed:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return Build(lib, time.perf_counter() - tic, proc.stdout + proc.stderr)
+_THREADS = 128  # threads per block of both kernels (csrc/axis_stencil.cu)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
-    lib.pyapes_axis_stencil.argtypes = [ctypes.c_int] * 6 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_void_p,
-    ]
+    lib = cuda_build.load("axis_stencil")
+    P = ctypes.c_void_p
+    lib.pyapes_axis_stencil.argtypes = [ctypes.c_int] * 6 + [P, P, ctypes.POINTER(P), P]
     lib.pyapes_axis_stencil.restype = ctypes.c_int
-    lib.pyapes_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.pyapes_cuda_error_string.restype = ctypes.c_char_p
+    lib.pyapes_axis_stencil_dot.argtypes = [ctypes.c_int] * 5 + [P, P, P, ctypes.POINTER(P), P]
+    lib.pyapes_axis_stencil_dot.restype = ctypes.c_int
     return lib
 
 
 def check_inputs(coeffs, x: torch.Tensor) -> None:
-    """Raise on what the kernel does not take: dtype other than f32/f64,
-    1-3 mesh axes, a non-contiguous ``x``, a 5-point axis, coefficient
-    vectors of the wrong length, dtype, device or layout, an axis with fewer
-    than 3 nodes, or a grid beyond the launch limits."""
+    """Raise on what the kernels do not take: dtype other than
+    bf16/f32/f64, 1-3 mesh axes, a non-contiguous ``x``, a 5-point axis,
+    coefficient vectors of the wrong length, dtype, device or layout, an
+    axis with fewer than 3 nodes, or a grid beyond the launch limits."""
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"axis_stencil: dtype {x.dtype} not supported (f32, f64)")
+        raise TypeError(f"axis_stencil: dtype {x.dtype} not supported (bf16, f32, f64)")
     ndim = x.ndim - 1
     if not 1 <= ndim <= 3:
         raise ValueError(f"axis_stencil: x must be (vdim, *nx) with 1-3 mesh axes, got {tuple(x.shape)}")
@@ -137,6 +97,17 @@ def check_inputs(coeffs, x: torch.Tensor) -> None:
         raise ValueError(f"axis_stencil: grid {tuple(x.shape)} exceeds the launch limits")
 
 
+def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor):
+    """The library (loading it first: a CUDA tensor never falls back to the
+    plain version), then the checked coefficient pointers and stream."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn_name}: unsupported device {x.device}")
+    lib = _lib()
+    check_inputs(coeffs, x)
+    ptrs = [c.data_ptr() for cs in coeffs for c in cs] + [0] * (3 * (4 - x.ndim))
+    return lib, (ctypes.c_void_p * 9)(*ptrs), torch.cuda.current_stream(x.device).cuda_stream
+
+
 def axis_stencil(coeffs, x: torch.Tensor) -> torch.Tensor:
     """``sum_a ap_a x[+1] + ac_a x + am_a x[-1]`` over mesh axes, torus wrap.
 
@@ -148,25 +119,45 @@ def axis_stencil(coeffs, x: torch.Tensor) -> torch.Tensor:
     launches the kernel on the current stream, or raises."""
     if x.device.type == "cpu":
         return apply_axis_stencil(coeffs, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"axis_stencil: unsupported device {x.device}")
-    check_inputs(coeffs, x)
+    lib, cptrs, stream = _cuda_launch_args("axis_stencil", coeffs, x)
     ndim = x.ndim - 1
     n = list(x.shape[1:]) + [1] * (3 - ndim)
-    ptrs = [c.data_ptr() for cs in coeffs for c in cs] + [0] * (3 * (3 - ndim))
     out = torch.empty_like(x)
-    lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.pyapes_axis_stencil(
             _DTYPE_CODE[x.dtype], ndim, x.shape[0], *n,
-            x.data_ptr(), out.data_ptr(), (ctypes.c_void_p * 9)(*ptrs),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), out.data_ptr(), cptrs, stream,
         )
-    if err != 0:
-        msg = lib.pyapes_cuda_error_string(err).decode()
-        raise RuntimeError(f"axis_stencil: kernel launch failed: {msg} ({err})")
+    cuda_build.check(lib, err, "axis_stencil")
     axis_stencil.launches += 1
     return out
 
 
+def axis_stencil_dot(coeffs, x: torch.Tensor):
+    """``(A x, sum(x * A x))`` per component for a 3-D ``x``; the dot is
+    taken in ``promote(dtype, f32)`` from the unrounded ``A x`` and comes
+    back shaped ``(vdim, 1, 1, 1)``.
+
+    A CPU tensor goes to the plain ``apply_axis_stencil_dot``; a CUDA
+    tensor launches the kernel on the current stream, or raises."""
+    if x.device.type == "cpu":
+        return apply_axis_stencil_dot(coeffs, x)
+    lib, cptrs, stream = _cuda_launch_args("axis_stencil_dot", coeffs, x)
+    if x.ndim != 4:
+        raise ValueError(f"axis_stencil_dot: x must be (vdim, nx, ny, nz), got {tuple(x.shape)}")
+    vdim, n0, n1, n2 = x.shape
+    out = torch.empty_like(x)
+    cdt = torch.promote_types(x.dtype, torch.float32)
+    partial = torch.empty((vdim, n0 * n1 * -(-n2 // _THREADS)), dtype=cdt, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.pyapes_axis_stencil_dot(
+            _DTYPE_CODE[x.dtype], vdim, n0, n1, n2,
+            x.data_ptr(), out.data_ptr(), partial.data_ptr(), cptrs, stream,
+        )
+    cuda_build.check(lib, err, "axis_stencil_dot")
+    axis_stencil_dot.launches += 1
+    return out, partial.sum(dim=1).reshape(vdim, 1, 1, 1)
+
+
 axis_stencil.launches = 0
+axis_stencil_dot.launches = 0

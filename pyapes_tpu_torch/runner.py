@@ -1,7 +1,13 @@
-"""Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; slice 1:
-the ``poisson`` subcommand).
+"""Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
+``poisson`` subcommand).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --device cuda
+    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg --device cuda
+
+``--mg`` asks for MG-preconditioned CG explicitly (``method: "cg",
+precond: "mg"``); without it the separable problem takes the fastdiag
+direct solve. (The JAX runner's ``--mg`` only sets ``precond`` and reaches
+MG-PCG through a fault of its fastdiag probe; see ROADMAP.)
 
 prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``, the
 JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
@@ -25,7 +31,10 @@ def _run_poisson(args) -> dict:
 
     box = Box[tuple(slice(0, 1) for _ in range(args.dim))]
     mesh = Mesh(box, None, [args.n] * args.dim, device=args.device, dtype=args.dtype)
-    model = PoissonSolver(mesh, poisson_bcs(args.dim), config={"tol": args.tol, "max_it": args.max_it})
+    cfg = {"tol": args.tol, "max_it": args.max_it}
+    if args.mg:
+        cfg.update({"method": "cg", "precond": "mg"})
+    model = PoissonSolver(mesh, poisson_bcs(args.dim), config=cfg)
     rhs = poisson_rhs_nd(mesh, model.var)
     tic = time.perf_counter()
     model.solve(rhs)
@@ -51,6 +60,7 @@ def main(argv=None) -> None:
 
     sp = sub.add_parser("poisson", parents=[common])
     sp.add_argument("--dim", type=int, default=2, choices=[1, 2, 3])
+    sp.add_argument("--mg", action="store_true", help="MG-preconditioned CG")
 
     args = p.parse_args(argv)
     print(json.dumps(_run_poisson(args)))

@@ -2,9 +2,11 @@
 term records -> descriptors and per-call params, method resolution, the
 content-keyed cache of eigen-factors, and the report.
 
-Ported: ``method: "fastdiag"`` on Cartesian grids with Dirichlet, Neumann
-and Symmetry faces. ``cg``/``bicgstab`` (and so the ``fd_fallback`` of a
-non-separable equation), multigrid, periodic axes, obstacles and domain
+Ported: ``method`` ``"fastdiag"``, ``"cg"`` and ``"bicgstab"`` (so the
+``fd_fallback`` of a non-separable equation resolves to a working
+method), with ``precond`` ``"mg"`` (the multigrid V-cycle, ``mg_opts``) or
+None, on Cartesian grids with Dirichlet, Neumann and Symmetry faces. The
+FD preconditioner (``precond: "fd"``), periodic axes, obstacles and domain
 decomposition are ported in later slices and raise
 ``NotImplementedError`` — never a silent detour to another path.
 """
@@ -18,7 +20,12 @@ import torch
 
 from pyapes_tpu_torch.mesh.tools import boundary_slicer
 from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np
-from pyapes_tpu_torch.solver.linalg.build import build_solver, fastdiag_factors, fd_separable
+from pyapes_tpu_torch.solver.linalg.build import (
+    _MG_CACHE,
+    build_solver,
+    fastdiag_factors,
+    fd_separable,
+)
 from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
 
 
@@ -40,6 +47,7 @@ _FD_CACHE_MAX = 16
 
 def clear_cache() -> None:
     _FD_CACHE.clear()
+    _MG_CACHE.clear()
 
 
 def _cached_factors(tparams, slicer, x0):
@@ -106,6 +114,9 @@ def _check_config(config) -> None:
             raise NotImplementedError(f"linalg: config {k!r} is ported in a later slice")
     if config.get("sync", True) is False:
         raise NotImplementedError("linalg: sync=False is ported in a later slice")
+    precond = config.get("precond")
+    if precond not in (None, "mg"):
+        raise NotImplementedError(f"linalg: precond {precond!r} is ported in a later slice")
     fd_opts = dict(config.get("fd_opts") or {})
     if fd_opts.pop("precision", "highest") != "highest" or fd_opts:
         raise NotImplementedError(
@@ -141,18 +152,25 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
 
     if method == "fastdiag" and config.get("fd_fallback"):
         method = _fd_fallback_method(config, term_descs, tparams, var.bcs, mesh)
-    if method != "fastdiag":
-        raise NotImplementedError(f"linalg: method {method!r} is ported in a later slice")
 
-    if not fd_separable(term_descs, tparams):
-        raise ValueError(
-            "fastdiag: equation must be one 3-point axis term (laplacian) "
-            "with a scalar coefficient"
-        )
     slicer = tuple(boundary_slicer(mesh.dim, var.bcs, mesh.coord_sys))
-    fd = _cached_factors(tparams, slicer, x0)
+    fd = None
+    if method == "fastdiag":
+        if not fd_separable(term_descs, tparams):
+            raise ValueError(
+                "fastdiag: equation must be one 3-point axis term (laplacian) "
+                "with a scalar coefficient"
+            )
+        fd = _cached_factors(tparams, slicer, x0)
     grid = mesh.grid
-    fn = build_solver(config, mesh, x0, grid, term_descs, var.bcs, tol, max_it, fd, slicer)
+    fn, sym_vecs = build_solver(
+        config, mesh, x0, grid, term_descs, tparams, var.bcs, method,
+        config.get("criterion", "delta"), tol, max_it, slicer, fd,
+    )
+    if sym_vecs is not None:
+        # the operator is row-scaled to symmetric; scale b identically
+        for d in sym_vecs:
+            rhs = rhs * d
 
     bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in var.bcs)
     x_final, itr, tol_final, hist = fn(x0, rhs, tparams, bc_vals)
@@ -160,9 +178,11 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         raise RuntimeError(f"Invalid tolerance detected! tol: {tol_final}")
     var.VAR = x_final
 
-    # the stall exit can stop before max_it at the dtype's accuracy
-    # floor: converged means the tolerance was MET
-    out: ReportType = {"itr": itr, "tol": tol_final, "converge": tol_final <= tol}
+    # Krylov: converged means the loop stopped before max_it (the JAX
+    # rule); fastdiag's stall exit can stop before max_it at the dtype's
+    # accuracy floor, so there converged means the tolerance was MET
+    converge = tol_final <= tol if method == "fastdiag" else itr < max_it
+    out: ReportType = {"itr": itr, "tol": tol_final, "converge": converge}
     if config.get("report", False):
         print(f"\n{method.upper()}: The solution converged after {itr} iteration.")
         print(f"\ttolerance: {tol_final}")

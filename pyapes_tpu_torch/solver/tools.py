@@ -17,8 +17,8 @@ from pyapes_tpu_torch.variables import Field
 class FDMSolverConfig(TypedDict, total=False):
     method: str
     """"fastdiag" (direct fast-diagonalization solve for separable
-    laplacian operators, ``solver/fastdiag.py``). "cg" / "bicgstab" are
-    ported in a later slice and raise ``NotImplementedError``."""
+    laplacian operators, ``solver/fastdiag.py``), "cg" (symmetric systems)
+    or "bicgstab" (nonsymmetric systems)."""
     tol: float
     max_it: int
     report: bool
@@ -26,16 +26,24 @@ class FDMSolverConfig(TypedDict, total=False):
     """"delta" or "residual"; fastdiag always reports the true relative
     residual."""
     precond: str
-    """Ignored by fastdiag (a direct solver), as in the JAX package."""
+    """"mg" (geometric multigrid V-cycle, ``solver/multigrid.py``) or None,
+    for cg/bicgstab; ignored by fastdiag (a direct solver), as in the JAX
+    package. "fd" is ported in a later slice and raises."""
     fd_opts: dict
     """Fast-diagonalization options: {"precision": "highest"} (true-f32
     transforms, the only setting ported)."""
     fd_fallback: str
     """With method "fastdiag": the Krylov method to use when the equation
-    is NOT separable (those methods are not ported yet, so a non-separable
-    equation raises ``NotImplementedError``)."""
+    is NOT separable."""
     mg_opts: dict
-    """Ignored by fastdiag."""
+    """Multigrid knobs: {"dtype" (cycle dtype, e.g. "bfloat16"; the Krylov
+    loop keeps the solve's dtype), "n_pre", "n_post", "n_coarse", "omega",
+    "smoother" ("jacobi" | "rbgs" | "chebyshev"), "fmg" (full-multigrid
+    initial guess), "fmg_cycles", "fuse_rz" (PCG dot(r, z) inside the last
+    smooth), "transfers" ("strided" | "matrix")}. Ignored by fastdiag."""
+    donate: bool
+    """Accepted for the JAX package's configs: the port's loops never write
+    the caller's initial guess, so there is nothing to donate."""
     nullspace: str
     """"mean" solves singular all-Neumann systems on the zero-mean
     quotient space (compatibility-projected RHS)."""

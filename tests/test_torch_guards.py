@@ -1,10 +1,12 @@
 """Guards on the port's boundaries: it never imports JAX, CUDA is never
-silently replaced by the CPU, the unported features raise instead of
-taking another path, and the CPU path never counts a kernel launch."""
+silently replaced by the CPU (a kernel wrapper given a CUDA tensor
+launches or raises), the unported features raise instead of taking
+another path, and the CPU path never counts a kernel launch."""
 import os
 import re
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 
@@ -13,6 +15,8 @@ torch = pytest.importorskip("torch")
 from pyapes_tpu_torch.backend import Device  # noqa: E402
 from pyapes_tpu_torch.geometry import Box, Cylinder  # noqa: E402
 from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
+from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
+from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, FDC, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
@@ -79,8 +83,12 @@ def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError):
         if case == "periodic":
             _field("periodic")
-        elif case in ("cg", "bicgstab"):
-            _solve({"method": case})
+        elif case == "cg":  # the FD preconditioner of the Krylov methods
+            _solve({"method": "cg", "precond": "fd"})
+        elif case == "bicgstab":  # a Krylov solve on a periodic problem
+            var = _field("periodic")
+            Solver({"fdm": {"method": "bicgstab", "precond": "mg"}}).set_eq(
+                FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
         elif case == "decomp":
             _solve({"decomp": {"axes": (0,)}})
         elif case == "kernel":
@@ -110,3 +118,52 @@ def test_solve_on_cpu_counts_no_launch():
     rep = _solve({})
     assert rep["converge"] and rep["itr"] >= 1
     assert axis_stencil.launches == before == 0
+
+
+# (module, wrapper, its plain version, a call with a CUDA "tensor")
+_WRAPPERS = {
+    "axis_stencil": (axis_mod, "axis_stencil", "apply_axis_stencil", lambda f, t: f((), t)),
+    "axis_stencil_dot": (axis_mod, "axis_stencil_dot", "apply_axis_stencil_dot",
+                         lambda f, t: f((), t)),
+    "jacobi3d": (jacobi_mod, "jacobi3d", "apply_jacobi3d",
+                 lambda f, t: f(t, t, (1.0,) * 3, 1.0, 0.1, (0, 1, 2))),
+    "jacobi3d_dot": (jacobi_mod, "jacobi3d_dot", "apply_jacobi3d_dot",
+                     lambda f, t: f(t, t, (1.0,) * 3, 1.0, 0.1, (0, 1, 2))),
+    "jacobi3d_x2": (jacobi_mod, "jacobi3d_x2", "apply_jacobi3d_x2",
+                    lambda f, t: f(None, t, (1.0,) * 3, 0.1, (0, 1, 2), from_zero=True)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_cuda_tensor_never_falls_back_to_plain(name, monkeypatch):
+    """With the kernel library unloadable, a CUDA tensor raises: the
+    wrapper neither computes the plain result nor counts a launch."""
+    mod, fn_name, plain_name, call = _WRAPPERS[name]
+
+    def no_lib():
+        raise RuntimeError("kernel library cannot be loaded")
+
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(mod, "_lib", no_lib)
+    monkeypatch.setattr(mod, plain_name, plain)
+    fn = getattr(mod, fn_name)
+    before = fn.launches
+    fake_cuda = SimpleNamespace(device=torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="cannot be loaded"):
+        call(fn, fake_cuda)
+    assert fn.launches == before
+
+
+def test_mgpcg_on_cpu_counts_no_launch():
+    var = _field()
+    s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-8, "max_it": 50,
+                        "criterion": "residual",
+                        "mg_opts": {"fmg": True, "fuse_rz": True, "n_post": 1}}})
+    s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+    fns = [axis_mod.axis_stencil, axis_mod.axis_stencil_dot, jacobi_mod.jacobi3d,
+           jacobi_mod.jacobi3d_dot, jacobi_mod.jacobi3d_x2]
+    rep = s.solve()
+    assert rep["converge"]
+    assert [f.launches for f in fns] == [0] * len(fns)
