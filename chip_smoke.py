@@ -12,8 +12,11 @@ Phases, report lines before the last:
    (one ``nvcc`` each, started together); print ptxas registers/spills.
 3. kernel — each kernel against its plain PyTorch version on the card
    (axis stencil: five shapes; stencil alpha-dot and the Jacobi family:
-   five shapes x f32/bf16/f64 x their variants, dots included), and kernel
-   vs plain timed at 512^3 (CUDA events).
+   five shapes x f32/bf16/f64 x their variants, dots included; the
+   variable-Γ diffusion apply and Jacobi pass: the same shapes plus a 2-D
+   grid x f32/bf16/f64 x isotropic/stacked Γ x arithmetic/harmonic faces x
+   no/Neumann surgery x the three Jacobi modes), and kernel vs plain timed
+   at 512^3 (CUDA events).
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -22,11 +25,17 @@ Phases, report lines before the last:
    V(2,2), FMG, fused r.z) at 512^3, and a V(1,1) fused-r.z config at
    256^3 (where the Jacobi + dot kernel runs): the same checks, each
    kernel's launches per solve, the true residual in f32 and f64.
-6. model — ``PoissonSolver`` on the runner's 3-D problem at 65^3 and 129^3
+6. Darcy variable-Γ MG-PCG path — ``bench.py``'s ``bench_darcy`` problem
+   (256^3 f32, Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), bf16 V(2,2) FMG)
+   through ``Solver.solve``: the same checks, the true residual
+   recomputed with the plain variable-Γ operator.
+7. model — ``PoissonSolver`` on the runner's 3-D problem at 65^3 and 129^3
    (f64): convergence, and the error against the exact solution equal to
-   the predicted discretization error.
+   the predicted discretization error; the runner's ``darcy`` case (2-D,
+   harmonic faces, MG-BiCGSTAB, f64) at 65^2 against the JAX package's
+   numbers and at 1025^2: flux balance and the Wiener bounds.
 
-Every kernel launch count is set to 0 just before each path (phases 4-6)
+Every kernel launch count is set to 0 just before each path (phases 4-7)
 and read just after; a kernel of a path that launched no time there fails
 the run. Then one JSON line of per-kernel numbers, and as the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
@@ -74,7 +83,23 @@ KERNELS = [
      "pyapes_tpu_torch/csrc/jacobi3d.cu", "pyapes_tpu/ops/pallas_stencil_db.py:570"),
     ("jacobi3d_x2", "pyapes_tpu_torch.ops.jacobi",
      "pyapes_tpu_torch/csrc/jacobi3d.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:881"),
+    ("diff_field", "pyapes_tpu_torch.ops.diff_field",
+     "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:519"),
+    ("diff_jacobi", "pyapes_tpu_torch.ops.diff_field",
+     "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:694"),
 ]
+# the variable-Γ kernels: the 3-D shapes plus a 2-D grid; per shape and
+# dtype four (stacked Γ, face rule, Neumann surgery) combinations that
+# cover each option
+VG_SHAPES = KERNEL3D_SHAPES + [(1, 1025, 1025)]
+VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
+             (True, "arithmetic", True), (True, "harmonic", False)]
+N_DARCY = 256
+# bench.py's bench_darcy configuration
+DARCY_MG = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True}
+# the JAX package's `runner darcy --n 65 --dtype double` (avg arithmetic) and
+# `--avg harmonic`: k_eff on the CPU, float64
+DARCY65_K_EFF = {"arithmetic": 0.8474604795147054, "harmonic": 0.8394676532747538}
 # bench.py's PYAPES_BENCH_METHOD=cg configuration
 BENCH_MG = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True,
             "fuse_rz": True}
@@ -299,15 +324,99 @@ def phase_kernel_slice2(dev):
     return worst, timing
 
 
-def _solve_path(dev, n, cfg, label):
+def _vg_cases(shape, inv, beta, x, b, g, avg, neumann):
+    """(kernel name, variant, kernel call, plain call) for the variable-Γ
+    apply and the three Jacobi modes at one input."""
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
+
+    nd = len(shape) - 1
+    mixed = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
+    surg = mixed[:nd] if neumann else (("none", "none"),) * nd
+    axes = tuple(range(nd))
+    omega = 0.857
+    cases = [("diff_field", "", lambda: diff_field(x, g, inv, surg, avg),
+              lambda: P.apply_diff_field(x, g, inv, surg, avg))]
+    for mode in ("smooth", "smooth0", "resid"):
+        xm = None if mode == "smooth0" else x
+        cases.append((
+            "diff_jacobi", mode,
+            lambda xm=xm, mode=mode: diff_jacobi(xm, b, g, inv, surg, avg, omega, axes, mode),
+            lambda xm=xm, mode=mode: P.apply_diff_jacobi(xm, b, g, inv, surg, avg, omega, axes,
+                                                         mode),
+        ))
+    return cases
+
+
+def phase_kernel_vargamma(dev):
+    """The variable-Γ diffusion apply and Jacobi pass against their plain
+    versions at every shape x dtype x (Γ layout, face rule, surgery) x
+    mode; kernel vs plain timed at 512^3 (f32 for the apply, the outer
+    operator's dtype; bf16 for the Jacobi pass, the cycle dtype)."""
+    import torch
+
+    worst, timing = {}, {}
+    timed = {("diff_field", "", "float32"), ("diff_jacobi", "smooth", "bfloat16")}
+    for seed, shape in enumerate(VG_SHAPES):
+        for dtname in DTYPES:
+            dtype = getattr(torch, dtname)
+            inv, beta, x, b, _ = _level_inputs(shape, dtype, dev, 200 + seed)
+            gen = torch.Generator(device=dev).manual_seed(300 + seed)
+            nd = len(shape) - 1
+            gstack = (1.0 + torch.rand((nd, *shape[1:]), generator=gen, device=dev)).to(dtype)
+            parts = []
+            for aniso, avg, neumann in VG_COMBOS:
+                g = gstack if aniso else gstack[0]
+                for name, variant, kern, plain in _vg_cases(shape, inv, beta, x, b, g, avg,
+                                                             neumann):
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    if got.dtype != ref.dtype or got.shape != ref.shape:
+                        raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
+                                           f"{tuple(got.shape)}")
+                    err = (got.double() - ref.double()).abs().max().item()
+                    limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                    tag = (f"{name}{'[' + variant + ']' if variant else ''}"
+                           f"({'stacked' if aniso else 'iso'},{avg[:4]},"
+                           f"{'neu' if neumann else 'none'})")
+                    parts.append(f"{tag} {err:.2e}/{limit:.2e}{'' if err <= limit else ' FAIL'}")
+                    if not err <= limit:
+                        print(f"[3 kernel] {tuple(shape)} {dtname}: " + "; ".join(parts),
+                              flush=True)
+                        raise RuntimeError(f"chip_smoke: {name} {variant} disagrees with its "
+                                           f"plain version at {shape} {dtname}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+                    if (shape[1] == N_MAIN and not aniso and avg == "arithmetic"
+                            and (name, variant, dtname) in timed):
+                        timing[name] = (_time_ms(kern), _time_ms(plain))
+                    del got, ref
+            print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: " + "; ".join(parts), flush=True)
+            del x, b, gstack
+    for name, (ms, plain_ms) in timing.items():
+        grids = 3 if name == "diff_field" else 4
+        size = 4 if name == "diff_field" else 2
+        gbs = grids * N_MAIN**3 * size / (ms * 1e-3) / 1e9
+        print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'} time: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel "
+              f"moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
+    return worst, timing
+
+
+def _solve_path(dev, n, cfg, label, darcy=False):
     """One warm-up and three timed solves of the 3-D f32 all-Dirichlet
-    random-RHS Poisson problem through the public API; returns its stats
-    (launches per timed solve included)."""
+    random-RHS Poisson problem through the public API (with ``darcy``:
+    ``bench_darcy``'s variable-Γ problem); returns its stats (launches per
+    timed solve included) and the solution."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
-    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, laplacian_axis_coeffs
+    from pyapes_tpu_torch.ops.stencil import (
+        apply_axis_stencil,
+        apply_diff_field,
+        div_surgery_info,
+        laplacian_axis_coeffs,
+    )
     from pyapes_tpu_torch.solver.fdm import FDM
     from pyapes_tpu_torch.solver.ops import Solver
     from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
@@ -320,12 +429,16 @@ def _solve_path(dev, n, cfg, label):
                 init_val=0.0)
     g = torch.Generator(device=mesh.device).manual_seed(0)
     rhs = torch.randn((1, n, n, n), generator=g, device=mesh.device, dtype=torch.float32)
+    coeff = 1.0
+    if darcy:
+        coeff = torch.exp(0.8 * torch.sin(2 * pi * mesh.X) * torch.sin(2 * pi * mesh.Y)
+                          * torch.sin(2 * pi * mesh.Z)).contiguous()
     solver = Solver({"fdm": cfg})
     fdm = FDM()
 
     torch.cuda.synchronize()
     tic = time.perf_counter()
-    solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+    solver.set_eq(fdm.laplacian(coeff, var) == rhs)
     solver.solve()
     torch.cuda.synchronize()
     first = time.perf_counter() - tic
@@ -334,7 +447,7 @@ def _solve_path(dev, n, cfg, label):
     walls, reports, per_solve = [], [], []
     for _ in range(3):
         var.set_var_tensor(torch.zeros_like(var()))
-        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        solver.set_eq(fdm.laplacian(coeff, var) == rhs)
         torch.cuda.synchronize()
         before = _counts()
         tic = time.perf_counter()
@@ -348,14 +461,24 @@ def _solve_path(dev, n, cfg, label):
             raise RuntimeError(f"chip_smoke: {label} {n}^3 solve did not converge: {rep}")
     peak = torch.cuda.max_memory_allocated()
 
-    # True relative residual, recomputed with the PLAIN stencil.
+    # True relative residual, recomputed with the PLAIN operator.
     x = var()
     inner = (slice(None),) + (slice(1, -1),) * 3
-    coeffs = coeffs_from_numpy(laplacian_axis_coeffs(mesh, var.bcs), mesh.device, torch.float32)
-    res32 = ((rhs - apply_axis_stencil(coeffs, x))[inner].norm() / rhs[inner].norm()).item()
-    c64 = tuple(tuple(c.double() for c in cs) for cs in coeffs)
+    if darcy:
+        inv = tuple(1.0 / float(d) ** 2 for d in mesh.dx_np)
+        surg = div_surgery_info(var.bcs, 3)
+
+        def plain_A(v, dtype):
+            return apply_diff_field(v.to(dtype), coeff.to(dtype), inv, surg)
+    else:
+        c32 = coeffs_from_numpy(laplacian_axis_coeffs(mesh, var.bcs), mesh.device, torch.float32)
+
+        def plain_A(v, dtype):
+            return apply_axis_stencil(tuple(tuple(c.to(dtype) for c in cs) for cs in c32),
+                                      v.to(dtype))
+    res32 = ((rhs - plain_A(x, torch.float32))[inner].norm() / rhs[inner].norm()).item()
     r64 = rhs.double()
-    res64 = ((r64 - apply_axis_stencil(c64, x.double()))[inner].norm() / r64[inner].norm()).item()
+    res64 = ((r64 - plain_A(x, torch.float64))[inner].norm() / r64[inner].norm()).item()
     med = statistics.median(walls)
     stats = {
         "path": label, "n": n, "itr": [r["itr"] for r in reports],
@@ -405,6 +528,29 @@ def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str):
     return counts
 
 
+def phase_darcy(dev, n: int = N_DARCY):
+    """The variable-Γ path: ``bench_darcy``'s problem through
+    ``Solver.solve`` (CG, Γ-aware MG, bf16 V(2,2), FMG); both variable-Γ
+    kernels must launch in every timed solve."""
+    _reset_counts()
+    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400,
+           "criterion": "residual", "mg_opts": DARCY_MG}
+    label = f"Darcy variable-Γ MG-PCG {n}^3 bf16 V(2,2) FMG"
+    stats, x = _solve_path(dev, n, cfg, label, darcy=True)
+    counts = _counts()
+    for ls in stats["launches_per_solve"]:
+        missing = [k for k in ("diff_field", "diff_jacobi") if ls[k] == 0]
+        if missing:
+            raise RuntimeError(f"chip_smoke: {label} did not launch {missing}: {ls}")
+    if not (stats["true_rel_residual_f32"] <= 1e-5 and stats["true_rel_residual_f64"] <= 1e-5):
+        raise RuntimeError(f"chip_smoke: {label} true residual {stats['true_rel_residual_f32']:.3e}"
+                           f" / {stats['true_rel_residual_f64']:.3e} > 1e-5")
+    if not bool(x.isfinite().all()) or tuple(x.shape) != (1, n, n, n):
+        raise RuntimeError(f"chip_smoke: {label} solution is not finite of shape (1, {n}^3)")
+    print(f"[6 Darcy path] {json.dumps(stats)}", flush=True)
+    return counts
+
+
 def _poisson_model_error(n: int) -> tuple[float, float, dict]:
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
@@ -424,6 +570,22 @@ def _poisson_model_error(n: int) -> tuple[float, float, dict]:
     return rel, predicted, model.report
 
 
+def _darcy_model(n: int, avg: str) -> dict:
+    from pyapes_tpu_torch import runner
+
+    out = runner.run(["darcy", "--n", str(n), "--avg", avg, "--dtype", "double",
+                      "--device", "cuda"])
+    q_in, q_out, k = out["flux_in"], out["flux_out"], out["k_eff"]
+    if not out["report"]["converge"]:
+        raise RuntimeError(f"chip_smoke: runner darcy {n}^2 did not converge: {out}")
+    # the JAX runner demo's gates: 2% flux balance, the Wiener bounds
+    if not abs(q_in - q_out) <= 0.02 * abs(q_in):
+        raise RuntimeError(f"chip_smoke: runner darcy {n}^2 flux imbalance: {out}")
+    if not out["k_harmonic"] - 1e-6 <= k <= out["k_arithmetic"] + 1e-6:
+        raise RuntimeError(f"chip_smoke: runner darcy {n}^2 k_eff outside the Wiener bounds: {out}")
+    return out
+
+
 def phase_model():
     _reset_counts()
     out = {}
@@ -437,7 +599,7 @@ def phase_model():
         out[n] = (rel, predicted, rep)
     ratio = out[65][0] / out[129][0]
     print(
-        "[6 model] PoissonSolver f64: "
+        "[7 model] PoissonSolver f64: "
         + "; ".join(f"{n}^3 itr={r['itr']} tol={r['tol']:.2e} rel_err={e:.4e} "
                     f"(predicted {p:.4e})" for n, (e, p, r) in out.items())
         + f"; error ratio 65->129 = {ratio:.3f} (second order: ~4)",
@@ -446,7 +608,22 @@ def phase_model():
     counts = _counts()
     if counts["axis_stencil"] == 0:
         raise RuntimeError("chip_smoke: the model path launched no axis-stencil kernel")
-    return {"axis_stencil": counts["axis_stencil"]}
+    # a 65^2 run of each face rule against the JAX package's numbers; the
+    # path's own size, 1025^2 with harmonic faces, with its launch counts
+    for avg, k_ref in DARCY65_K_EFF.items():
+        small = _darcy_model(65, avg)
+        if not abs(small["k_eff"] - k_ref) <= 1e-9 * k_ref:
+            raise RuntimeError(f"chip_smoke: runner darcy 65^2 {avg} k_eff {small['k_eff']!r} "
+                               f"differs from the JAX package's {k_ref!r}")
+    _reset_counts()
+    big = _darcy_model(1025, "harmonic")
+    dcounts = _counts()
+    if dcounts["diff_field"] == 0 or dcounts["diff_jacobi"] == 0:
+        raise RuntimeError(f"chip_smoke: the Darcy model launched no variable-Γ kernel: {dcounts}")
+    print(f"[7 model] runner darcy 65^2 f64 k_eff matches the JAX package (arithmetic, "
+          f"harmonic); 1025^2 f64 harmonic: {json.dumps(big)}", flush=True)
+    return {"axis_stencil": counts["axis_stencil"], "diff_field": dcounts["diff_field"],
+            "diff_jacobi": dcounts["diff_jacobi"]}
 
 
 def main() -> None:
@@ -456,8 +633,9 @@ def main() -> None:
     phase_build()
     worst1, timing1 = phase_kernel(dev)
     worst2, timing2 = phase_kernel_slice2(dev)
-    worst = {"axis_stencil": worst1, **worst2}
-    timing = {"axis_stencil": timing1, **timing2}
+    worst3, timing3 = phase_kernel_vargamma(dev)
+    worst = {"axis_stencil": worst1, **worst2, **worst3}
+    timing = {"axis_stencil": timing1, **timing2, **timing3}
 
     launches = {name: 0 for name, _, _, _ in KERNELS}
     path_counts = [
@@ -466,6 +644,7 @@ def main() -> None:
                     f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG fuse_rz"),
         phase_mgpcg(dev, N_V11, V11_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_dot"),
                     f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz"),
+        phase_darcy(dev),
         phase_model(),
     ]
     for counts in path_counts:

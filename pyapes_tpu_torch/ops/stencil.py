@@ -1,18 +1,19 @@
-"""Structured per-axis stencils (PyTorch port of the slice-1 part of
-``pyapes_tpu/ops/stencil.py``).
+"""Structured stencils (PyTorch port of the per-axis coefficient stencils
+and the variable-Γ operator of ``pyapes_tpu/ops/stencil.py``).
 
 Every implicit operator with domain-face BCs has coefficients that are
 separable per axis and vary only along that axis, so the stencil is stored
 as per-axis 1-D vectors ``(ap, ac, am)`` of length ``nx[axis]`` (built on
 the host in float64, then cast) and applied as a sum over axes.
 
-``apply_axis_stencil`` / ``apply_axis_stencil_dot`` and the Jacobi family
-``apply_jacobi3d`` / ``apply_jacobi3d_dot`` / ``apply_jacobi3d_x2`` here
+``apply_axis_stencil`` / ``apply_axis_stencil_dot``, the Jacobi family
+``apply_jacobi3d`` / ``apply_jacobi3d_dot`` / ``apply_jacobi3d_x2`` and
+the variable-Γ pair ``apply_diff_field`` / ``apply_diff_jacobi`` here
 are the PLAIN PyTorch versions of the Hopper kernels in
-``ops/axis_stencil.py`` and ``ops/jacobi.py``: the CPU path, and the
-oracles the kernels are held against on the card. Like the JAX kernels
-they compute in ``promote(dtype, float32)`` and round only the output to
-the storage dtype (bf16 storage: f32 arithmetic).
+``ops/axis_stencil.py``, ``ops/jacobi.py`` and ``ops/diff_field.py``: the
+CPU path, and the oracles the kernels are held against on the card. Like
+the JAX kernels they compute in ``promote(dtype, float32)`` and round only
+the output to the storage dtype (bf16 storage: f32 arithmetic).
 """
 from __future__ import annotations
 
@@ -151,6 +152,135 @@ def apply_jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero=False, emit_dot=
     if emit_dot:
         return z.to(b.dtype), _vdot(bc, z)
     return z.to(b.dtype)
+
+
+def div_surgery_info(bcs, mesh_dim: int) -> tuple:
+    """Per-axis ``(lower_kind, upper_kind)`` BC descriptors of the
+    variable-Γ operator: "neumann" for Neumann/Symmetry faces, "periodic",
+    else "none" (the JAX package's ``div_surgery_info``)."""
+    info = [["none", "none"] for _ in range(mesh_dim)]
+    for bc in bcs or []:
+        side = 0 if bc.bc_n_dir < 0 else 1
+        if bc.bc_type in ("neumann", "symmetry"):
+            info[bc.bc_face_dim][side] = "neumann"
+        elif bc.bc_type == "periodic":
+            info[bc.bc_face_dim][side] = "periodic"
+    return tuple(tuple(p) for p in info)
+
+
+def _face(a: torch.Tensor, b: torch.Tensor, avg: str) -> torch.Tensor:
+    """Face value of Γ between two nodes: arithmetic ``(a + b) / 2`` or
+    harmonic ``2 a b / (a + b)`` (the flux-continuous rule)."""
+    if avg == "harmonic":
+        return (2.0 * a) * b / (a + b)
+    return 0.5 * (a + b)
+
+
+def _gamma_faces(gamma: torch.Tensor, nd: int, avg: str):
+    """Per mesh axis ``(gp, gm)``: the face values of Γ toward the +1 and
+    -1 neighbours (torus wrap), shaped ``(1, *nx)``. ``gamma``: isotropic
+    ``(*nx)``, or stacked ``(nd, *nx)`` with axis j diffusing with
+    ``gamma[j]``."""
+    aniso = gamma.ndim == nd + 1 and gamma.shape[0] == nd
+    for j in range(nd):
+        gj = gamma[j] if aniso else gamma
+        g = gj[None] if gj.ndim == nd else gj
+        yield (_face(g, torch.roll(g, -1, 1 + j), avg),
+               _face(g, torch.roll(g, 1, 1 + j), avg))
+
+
+def _row(ax: int, i: int) -> tuple:
+    return (slice(None),) * ax + (i,)
+
+
+def _diff_field_c(x, gamma, inv_dx2, surgery, avg) -> torch.Tensor:
+    """``∂_j (Γ ∂_j x)`` in the compute dtype (unrounded), flux form."""
+    cdt = _cdt(x.dtype)
+    xc = x.to(cdt)
+    out = torch.zeros_like(xc)
+    for j, (gp, gm) in enumerate(_gamma_faces(gamma.to(cdt), x.ndim - 1, avg)):
+        ax = 1 + j
+        inv = float(inv_dx2[j])
+        term = gp * (torch.roll(xc, -1, ax) - xc) - gm * (xc - torch.roll(xc, 1, ax))
+        out = out + term * inv
+        lo, up = surgery[j]
+        if lo == "neumann":
+            c0 = gm[_row(ax, 1)] * inv
+            out[_row(ax, 1)] += c0 * (
+                (4.0 / 3.0) * xc[_row(ax, 1)] - (1.0 / 3.0) * xc[_row(ax, 2)] - xc[_row(ax, 0)]
+            )
+        if up == "neumann":
+            c0 = gp[_row(ax, -2)] * inv
+            out[_row(ax, -2)] += c0 * (
+                (4.0 / 3.0) * xc[_row(ax, -2)] - (1.0 / 3.0) * xc[_row(ax, -3)] - xc[_row(ax, -1)]
+            )
+    return out
+
+
+def apply_diff_field(x, gamma, inv_dx2, surgery, avg: str = "arithmetic") -> torch.Tensor:
+    """Conservative variable-coefficient Laplacian ``∂_j (Γ_j ∂_j x)``
+    (port of the JAX package's ``apply_diff_field``; plain version of
+    ``pallas_advect.py::pallas_diff_field``):
+
+        out_i = Σ_j [ Γ_{i+½} (x_{i+1} - x_i) - Γ_{i-½} (x_i - x_{i-1}) ] / dx_j²
+
+    ``x``: ``(vdim, *nx)``; ``gamma``: isotropic ``(*nx)`` or stacked
+    ``(dim, *nx)`` (diagonal-tensor diffusivity); ``avg``: "arithmetic" or
+    "harmonic" face values. ``surgery``: per-axis ``(lower, upper)`` kinds;
+    "neumann" eliminates the boundary node from the adjacent row through
+    ``x_b = 4/3 x_1 - 1/3 x_2``, ADDITIVELY with the pre-surgery face
+    coefficient (``c0 = Γ_{1-½}/dx²``, resp. ``Γ_{n-2+½}/dx²``). Neighbours
+    wrap (torus). Computes in ``promote(dtype, f32)``, rounds once."""
+    return _diff_field_c(x, gamma, inv_dx2, surgery, avg).to(x.dtype)
+
+
+def diff_diag(gamma, inv_dx2, surgery, avg: str = "arithmetic") -> torch.Tensor:
+    """True per-point diagonal ``(1, *nx)`` of the variable-Γ operator, in
+    the compute dtype, built as the kernels build it in registers: per axis
+    ``cc = -(cp + cm)`` from the face coefficients, plus ``4/3 c0`` on a
+    Neumann-surgered row."""
+    nd = len(inv_dx2)
+    cdt = _cdt(gamma.dtype)
+    acc = None
+    for j, (gp, gm) in enumerate(_gamma_faces(gamma.to(cdt), nd, avg)):
+        ax = 1 + j
+        inv = float(inv_dx2[j])
+        cp, cm = gp * inv, gm * inv
+        d = -(cp + cm)
+        lo, up = surgery[j]
+        if lo == "neumann":
+            d[_row(ax, 1)] += (4.0 / 3.0) * cm[_row(ax, 1)]
+        if up == "neumann":
+            d[_row(ax, -2)] += (4.0 / 3.0) * cp[_row(ax, -2)]
+        acc = d if acc is None else acc + d
+    return acc
+
+
+def apply_diff_jacobi(x, b, g, inv_dx2, surgery, avg="arithmetic", omega=2.0 / 3.0,
+                      mask_axes=(0, 1, 2), mode="smooth") -> torch.Tensor:
+    """One variable-Γ V-cycle pass (plain version of
+    ``pallas_advect.py::pallas_diff_jacobi``), ``A = A(Γ)`` of
+    ``apply_diff_field`` and ``diag`` of ``diff_diag``:
+
+        smooth:  x + omega mask (b - A x) / diag
+        smooth0: omega mask b / diag          (x not read; may be None)
+        resid:   mask (b - A x)
+
+    ``mask`` zeroes the global first and last rows of each axis in
+    ``mask_axes``. ``x``, ``b``: ``(vdim, *nx)``; ``g`` as ``gamma`` of
+    ``apply_diff_field``. Computes in ``promote(dtype, f32)``, rounds once."""
+    cdt = _cdt(b.dtype)
+    r = b.to(cdt)
+    if mode != "smooth0":
+        r = r - _diff_field_c(x, g, inv_dx2, surgery, avg)
+    keep = _boundary_row_mask(b.shape[1:], mask_axes, cdt, b.device) != 0
+    r = torch.where(keep, r, 0.0)
+    if mode == "resid":
+        return r.to(b.dtype)
+    step = float(omega) * r / diff_diag(g, inv_dx2, surgery, avg)
+    if mode == "smooth":
+        step = x.to(cdt) + step
+    return step.to(b.dtype)
 
 
 def _aligned_bcs(bcs, axis: int):

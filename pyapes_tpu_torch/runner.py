@@ -1,16 +1,22 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
-``poisson`` subcommand).
+``poisson`` and ``darcy`` subcommands).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --device cuda
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg --device cuda
+    python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic --device cuda
 
 ``--mg`` asks for MG-preconditioned CG explicitly (``method: "cg",
 precond: "mg"``); without it the separable problem takes the fastdiag
 direct solve. (The JAX runner's ``--mg`` only sets ``precond`` and reaches
 MG-PCG through a fault of its fastdiag probe; see ROADMAP.)
 
-prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``, the
-JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
+``darcy`` is the heterogeneous-permeability pressure solve (2-D,
+conservative variable-Γ Laplacian, Γ-aware MG-BiCGSTAB, pressure 1 / 0 on
+the x faces, zero-flux y faces); it adds the inlet/outlet fluxes, the
+effective permeability and its Wiener (harmonic/arithmetic mean) bounds.
+
+Each prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``,
+the JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
 after the solution is on the device (the solve reads its tolerance back
 every pass, and the runner synchronises before stopping the clock).
 """
@@ -44,7 +50,49 @@ def _run_poisson(args) -> dict:
     return {"report": dict(model.report), "wall_s": wall, "n": args.n}
 
 
-def main(argv=None) -> None:
+def _run_darcy(args) -> dict:
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.testing.darcy import inlet_outlet_flux, log_normal_permeability
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import mixed_bcs
+
+    n = args.n
+    mesh = Mesh(Box[0:1, 0:1], None, [n, n], device=args.device, dtype=args.dtype)
+    K = log_normal_permeability(mesh, seed=args.seed, contrast=args.contrast)
+    bcs = mixed_bcs([1.0, 0.0, 0.0, 0.0], ["dirichlet", "dirichlet", "neumann", "neumann"])
+    pf = Field("p", 1, mesh, {"domain": bcs}, init_val=0.0)
+    solver = Solver({"fdm": {"method": "bicgstab", "tol": args.tol, "max_it": args.max_it,
+                             "report": False, "criterion": "residual", "precond": "mg"}})
+    fdm = FDM()
+    tic = time.perf_counter()
+    solver.set_eq(fdm.laplacian(K, pf, avg=args.avg) == 0.0)
+    rep = solver.solve()
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+
+    ph = pf()[0].double().cpu().numpy()
+    q_in, q_out = inlet_outlet_flux(K, ph, mesh)
+    return {
+        "report": dict(rep),
+        "wall_s": wall,
+        "n": n,
+        "flux_in": q_in,
+        "flux_out": q_out,
+        "k_eff": 0.5 * (q_in + q_out),
+        "k_harmonic": float(1.0 / np.mean(1.0 / K)),
+        "k_arithmetic": float(np.mean(K)),
+    }
+
+
+def run(argv=None) -> dict:
+    """Parse the command line ``argv`` and run its case; returns the
+    JSON-able result that ``main`` prints."""
     p = argparse.ArgumentParser(prog="pyapes_tpu_torch.runner")
     sub = p.add_subparsers(dest="case", required=True)
 
@@ -62,8 +110,19 @@ def main(argv=None) -> None:
     sp.add_argument("--dim", type=int, default=2, choices=[1, 2, 3])
     sp.add_argument("--mg", action="store_true", help="MG-preconditioned CG")
 
+    sd = sub.add_parser("darcy", parents=[common])
+    sd.add_argument("--seed", type=int, default=7)
+    sd.add_argument("--contrast", type=float, default=-2.5,
+                    help="log-permeability of the inclusions")
+    sd.add_argument("--avg", default="arithmetic", choices=["arithmetic", "harmonic"],
+                    help="face-transmissibility rule")
+
     args = p.parse_args(argv)
-    print(json.dumps(_run_poisson(args)))
+    return (_run_darcy if args.case == "darcy" else _run_poisson)(args)
+
+
+def main(argv=None) -> None:
+    print(json.dumps(run(argv)))
 
 
 if __name__ == "__main__":

@@ -5,19 +5,22 @@ The DSL surface is the JAX package's — ``solver.set_eq(fdm.laplacian(1.0,
 var) == rhs)`` builds an equation record — and each operator stores the
 per-axis structured stencil (host numpy vectors; ``ops/stencil.py``).
 
-Ported: ``Operators`` and the scalar-coefficient ``Laplacian``. A
-spatially varying coefficient, ``grad``, ``div``, ``conv``, ``custom`` and
-``ddt`` are ported in later slices and raise ``NotImplementedError``.
+Ported: ``Operators`` and the ``Laplacian`` with a scalar coefficient or
+a spatially varying one (the conservative variable-Γ operator, isotropic
+or diagonal-tensor Γ). ``grad``, ``div``, ``conv``, ``custom`` and ``ddt``
+are ported in later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
-from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+from pyapes_tpu_torch.ops.diff_field import diff_field
+from pyapes_tpu_torch.ops.stencil import div_surgery_info, laplacian_axis_coeffs
 from pyapes_tpu_torch.solver.fdc import FDC
 from pyapes_tpu_torch.solver.types import DiscretizerConfigType, OPStype
 from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
@@ -97,25 +100,33 @@ class Operators:
 
 
 class Laplacian(Operators):
-    r"""Implicit Laplacian :math:`\Gamma \partial_j \partial_j \Phi` with a
-    scalar coefficient (reference ``fdm.py:108-169``)."""
+    r"""Implicit Laplacian :math:`\partial_j (\Gamma \partial_j \Phi)`
+    (reference ``fdm.py:108-169``)."""
 
-    def __call__(self, *inputs: Any) -> "Laplacian":
+    def __call__(self, *inputs: Any, avg: str = "arithmetic") -> "Laplacian":
         if len(inputs) == 2:
             coeff = inputs[0]
             if isinstance(coeff, int):
                 coeff = float(coeff)
             var = inputs[1]
+            if isinstance(coeff, (tuple, list)):
+                # per-axis (diagonal-tensor) diffusivity: stacked (dim, *nx),
+                # axis j diffusing with coeff[j]; scalars broadcast
+                coeff = torch.stack([
+                    torch.as_tensor(c, device=var.mesh.device).to(torch.float64)
+                    .broadcast_to(tuple(var.mesh.nx))
+                    for c in coeff
+                ])
         elif len(inputs) == 1:
             coeff = None
             var = inputs[0]
         else:
             raise TypeError("FDM: invalid input type!")
         assert isinstance(var, Field), "FDM Laplacian: var must be a Field!"
-        if coeff is not None and not isinstance(coeff, float):
-            raise NotImplementedError(
-                "FDM Laplacian: a spatially varying coefficient is ported in a later slice"
-            )
+        if coeff is not None and np.ndim(coeff) >= var.mesh.dim:
+            # spatially varying: the CONSERVATIVE ∂_j (Γ(x) ∂_j φ), a
+            # per-point operand (the scalar path would be Γ ∇²φ)
+            return self._call_var_gamma(coeff, var, avg)
 
         self._var = var
         self._ops = {
@@ -135,6 +146,66 @@ class Laplacian(Operators):
             }
         }
         return self
+
+    def _call_var_gamma(self, coeff, var: Field, avg: str = "arithmetic") -> "Laplacian":
+        """Variable-coefficient (heterogeneous-diffusivity) Laplacian, on
+        Cartesian meshes with Dirichlet and zero-flux Neumann/Symmetry
+        faces. The Neumann boundary-node elimination carries the local face
+        Γ, which makes the surgered rows nonsymmetric: solve Neumann cases
+        with BiCGSTAB (all-Dirichlet systems are SPD).
+
+        ``coeff``: a tensor or numpy array of shape ``nx`` (isotropic) or
+        ``(dim, *nx)`` (diagonal-tensor Γ); ``avg`` ("arithmetic" |
+        "harmonic") picks the face-value rule."""
+        assert avg in ("arithmetic", "harmonic"), avg
+        mesh = var.mesh
+        if mesh.coord_sys != "xyz":
+            raise NotImplementedError("fdm.laplacian(gamma_array, var): rz meshes not supported")
+        for bc in var.bcs or []:
+            if bc.bc_type == "neumann" and bc.bc_val not in (None, 0, 0.0):
+                raise NotImplementedError(
+                    "fdm.laplacian(gamma_array, var): nonzero Neumann flux values are not "
+                    "wired into the RHS yet"
+                )
+            if bc.bc_type in ("obstacle_dirichlet", "obstacle_neumann"):
+                raise NotImplementedError(
+                    "fdm.laplacian(gamma_array, var): obstacle BCs are not supported yet"
+                )
+        gamma = torch.as_tensor(coeff)
+        if gamma.ndim == mesh.dim + 1 and gamma.shape[0] == 1:
+            gamma = gamma[0]
+        want = (mesh.dim, *mesh.nx) if gamma.ndim == mesh.dim + 1 else tuple(mesh.nx)
+        if tuple(gamma.shape) != want:
+            raise ValueError(f"fdm.laplacian: gamma shape {tuple(gamma.shape)} != {want}")
+        self._var = var
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop_var_gamma,
+                "target": var,
+                "param": (gamma,),
+                "sign": 1.0,
+                "other": {
+                    "var_gamma": True,
+                    "surgery": div_surgery_info(var.bcs, mesh.dim),
+                    "inv_dx2": tuple(1.0 / float(d) ** 2 for d in mesh.dx_np),
+                    "avg": avg,
+                },
+                "axis_coeffs": None,
+                "A_coeffs": None,
+                "adv": None,
+                "limiter": None,
+                "dt": None,
+                "adjust_rhs": None,
+            }
+        }
+        return self
+
+    @staticmethod
+    def Aop_var_gamma(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
+        g = rec["param"][0].to(device=x.device, dtype=x.dtype).contiguous()
+        o = rec["other"]
+        return diff_field(x, g, o["inv_dx2"], o["surgery"], o["avg"])
 
     @property
     def var(self) -> Field:

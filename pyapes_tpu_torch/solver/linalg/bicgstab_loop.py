@@ -19,11 +19,14 @@ from pyapes_tpu_torch.solver.linalg.cg_loop import _nan0, _r0_norm
 from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum
 
 
-def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None, fmg_init=None):
+def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None, fmg_init=None,
+                   precond_setup=None):
     """Build ``bicg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``;
     arguments as ``cg_loop.build_cg``."""
 
     def bicg_fn(x0, rhs, tparams, bc_vals=()):
+        if precond_setup is not None:
+            precond_setup(tparams)
         M_ = M.build()
 
         def apply_bcs_(v):

@@ -1,7 +1,8 @@
 """Solver assembly (port of ``pyapes_tpu/solver/linalg.py::_build_solver``
 and ``_make_mg_spec``): the active-set mask, the operator over the stencil
 kernels, the eigen-factors and refinement loop of fastdiag, and the
-CG/BiCGSTAB loops with the multigrid preconditioner, the symmetrizing row
+CG/BiCGSTAB loops with the multigrid preconditioner (Γ-aware for
+variable-Γ terms, streamed in by ``precond_setup``), the symmetrizing row
 scale of Neumann faces and the fused operator/preconditioner dots."""
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from pyapes_tpu_torch.backend import np_dtype
 from pyapes_tpu_torch.mesh.tools import interior_mask_device
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot
+from pyapes_tpu_torch.ops.diff_field import diff_field
 from pyapes_tpu_torch.solver.fastdiag import FastDiag, axis_matrix_np
 from pyapes_tpu_torch.solver.linalg.bicgstab_loop import build_bicgstab
 from pyapes_tpu_torch.solver.linalg.cg_loop import build_cg
@@ -41,14 +43,18 @@ class _MaskSpec:
 
 def _make_Aop(term_descs, stencil_fn=axis_stencil) -> Callable:
     """``Aop(x, tparams) = sum_terms sign * param * stencil(x)``. Every
-    3-point axis term goes through ``stencil_fn`` — the Hopper kernel on a
-    CUDA tensor (for every grid shape; the JAX package's "auto" gate used
-    its kernel only for TPU-aligned shapes)."""
+    3-point axis term goes through ``stencil_fn`` and every variable-Γ term
+    through ``diff_field`` — the Hopper kernels on a CUDA tensor (for every
+    grid shape; the JAX package's "auto" gate used its kernels only for
+    TPU-aligned shapes)."""
 
     def Aop(x, tparams):
         out = None
-        for (kind, _, sign, has_param), tp in zip(term_descs, tparams):
-            r = stencil_fn(tp["axis"], x)
+        for (kind, _, sign, has_param, surgery, form), tp in zip(term_descs, tparams):
+            if kind == "diff_field":
+                r = diff_field(x, tp["gamma"], form[0], surgery, form[1])
+            else:
+                r = stencil_fn(tp["axis"], x)
             scale = sign * (tp["param"] if has_param else 1.0)
             if scale != 1.0:
                 r = r * scale
@@ -118,22 +124,26 @@ def _axis_fields(vecs, dim: int, dtype):
     )
 
 
-def make_mg_spec(config, x0, bcs, mesh) -> MGSpec:
+def make_mg_spec(config, x0, bcs, mesh, term_descs) -> MGSpec:
     """The multigrid spec of ``precond: "mg"`` (``_make_mg_spec`` of the JAX
-    package): per-axis face kinds for the level surgery, the cycle dtype and
-    the ``mg_opts`` knobs; cached by its key."""
+    package): per-axis face kinds for the level surgery, the Γ-aware
+    hierarchy for variable-Γ equations (face rule of the first such term),
+    the cycle dtype and the ``mg_opts`` knobs; cached by its key."""
     mg_opts = dict(config.get("mg_opts") or {})
     cycle_dtype = mg_opts.pop("dtype", None)
     fk = [["dirichlet", "dirichlet"] for _ in range(mesh.dim)]
     for bc in bcs or []:
         if bc.bc_type in ("neumann", "symmetry"):
             fk[bc.bc_face_dim][0 if bc.bc_n_dir < 0 else 1] = "neumann"
+    vg = [d for d in term_descs if d[0] == "diff_field"]
     spec = MGSpec(
         x0.shape[1:],
         [float(l) for l in np.asarray(mesh._lx_np)],
         dtype=x0.dtype,
         cycle_dtype=cycle_dtype,
         face_kinds=tuple(tuple(p) for p in fk),
+        var_gamma=bool(vg),
+        vg_avg=vg[0][5][1] if vg else "arithmetic",
         device=x0.device,
         **mg_opts,
     )
@@ -153,7 +163,7 @@ def _make_Aop_dot(term_descs, tparams, dim: int):
     coefficient vectors once per solve. None otherwise."""
     if not (dim == 3 and fd_separable(term_descs, tparams)):
         return None
-    _, _, sign0, has_p0 = term_descs[0]
+    sign0, has_p0 = term_descs[0][2:4]
 
     def Aop_dot(tp):
         scale = sign0 * (tp[0]["param"] if has_p0 else 1.0)
@@ -176,9 +186,12 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     Aop = _make_Aop(term_descs)
     project_mean = config.get("nullspace") == "mean"
     dvs, any_scale = _neumann_row_scale_vecs(mesh, bcs)
+    # variable-Γ terms take no 3/2 row scale: their surgered-row asymmetry
+    # is Γ-dependent, not the fixed 2/3-vs-1 the scale repairs
+    any_scale = any_scale and all(d[0] == "axis" for d in term_descs)
 
     if method == "fastdiag":
-        _, _, sign0, has_p0 = term_descs[0]
+        sign0, has_p0 = term_descs[0][2:4]
 
         def scalars(tp):
             # (c_ax, c_dt) of the eigen-symbol from this call's term params
@@ -196,11 +209,19 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
         )
         return fn, None
 
-    mg = make_mg_spec(config, x0, bcs, mesh) if config.get("precond") == "mg" else None
+    mg = (make_mg_spec(config, x0, bcs, mesh, term_descs)
+          if config.get("precond") == "mg" else None)
     fmg_init = mg.fmg_initializer() if mg is not None and mg.fmg_init else None
     precond = mg.preconditioner() if mg is not None else None
+    precond_setup = None
+    if mg is not None and mg.var_gamma:
+        i_vg = next(i for i, d in enumerate(term_descs) if d[0] == "diff_field")
+
+        def precond_setup(tp):
+            mg.set_gamma(tp[i_vg]["gamma"])
     if method == "bicgstab":
-        fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond, fmg_init=fmg_init)
+        fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,
+                            fmg_init=fmg_init, precond_setup=precond_setup)
         return fn, None
 
     # Symmetrization row scaling (CG + Neumann/Symmetry faces): the
@@ -232,6 +253,6 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     fn = build_cg(
         Aop, apply_bcs, M, tol, max_it, criterion, precond,
         project_mean=project_mean, Aop_dot=Aop_dot, fmg_init=fmg_init,
-        precond_dot=precond_dot, null_shift=null_shift,
+        precond_dot=precond_dot, null_shift=null_shift, precond_setup=precond_setup,
     )
     return fn, sym_vecs

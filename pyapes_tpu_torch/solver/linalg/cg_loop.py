@@ -29,7 +29,7 @@ def _r0_norm(r: torch.Tensor) -> torch.Tensor:
 def build_cg(
     Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None,
     project_mean=False, Aop_dot=None, fmg_init=None, precond_dot=None,
-    null_shift=None,
+    null_shift=None, precond_setup=None,
 ):
     """Build ``cg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``.
 
@@ -47,9 +47,14 @@ def build_cg(
         precond_dot: ``r -> (P(r), sum(r * P(r)))``, or None.
         null_shift: deferred left-null-vector row-scale field for the
             row-scaled eliminated-Neumann system (None: constant).
+        precond_setup: ``tparams -> None``, run once per call before the
+            FMG start and the loop (streams a variable-Γ term's Γ into the
+            V-cycle hierarchy; device work only), or None.
     """
 
     def cg_fn(x0, rhs, tparams, bc_vals=()):
+        if precond_setup is not None:
+            precond_setup(tparams)
         M_ = M.build()
         n_act = M_.sum()
 

@@ -5,7 +5,9 @@ content-keyed cache of eigen-factors, and the report.
 Ported: ``method`` ``"fastdiag"``, ``"cg"`` and ``"bicgstab"`` (so the
 ``fd_fallback`` of a non-separable equation resolves to a working
 method), with ``precond`` ``"mg"`` (the multigrid V-cycle, ``mg_opts``) or
-None, on Cartesian grids with Dirichlet, Neumann and Symmetry faces. The
+None, on Cartesian grids with Dirichlet, Neumann and Symmetry faces, for
+the constant-coefficient (``axis``) and variable-Γ (``diff_field``)
+Laplacian. The
 FD preconditioner (``precond: "fd"``), periodic axes, obstacles and domain
 decomposition are ported in later slices and raise
 ``NotImplementedError`` — never a silent detour to another path.
@@ -67,17 +69,28 @@ def _cached_factors(tparams, slicer, x0):
 
 def _term_descriptor(rec) -> tuple:
     """Static (hashable) description of one equation term:
-    ``(kind, name, sign, has_param)``."""
+    ``(kind, name, sign, has_param, surgery, form)``. ``kind`` "axis" (the
+    per-axis coefficient stencil; surgery and form None) or "diff_field"
+    (the variable-Γ Laplacian; ``surgery`` the per-axis BC kinds, ``form``
+    ``(inv_dx2, avg)``)."""
     name = rec["name"].lower()
+    if name == "laplacian" and (rec.get("other") or {}).get("var_gamma"):
+        o = rec["other"]
+        return ("diff_field", name, float(rec["sign"]), False, o["surgery"],
+                (o["inv_dx2"], o["avg"]))
     if name != "laplacian" or rec.get("axis_coeffs") is None:
         raise NotImplementedError(f"linalg: {rec['name']} terms are ported in a later slice")
-    return ("axis", name, float(rec["sign"]), rec["param"][0] is not None)
+    return ("axis", name, float(rec["sign"]), rec["param"][0] is not None, None, None)
 
 
 def _term_params(rec, desc, x0: torch.Tensor) -> dict:
-    """Per-call operands of one term: the coefficient vectors on the device
+    """Per-call operands of one term: Γ on the solve's device and dtype
+    (``diff_field``); else the coefficient vectors on the device
     (``axis``), their host copies for the factorization (``axis_np``) and
     the scalar coefficient."""
+    if desc[0] == "diff_field":
+        g = torch.as_tensor(rec["param"][0], dtype=x0.dtype, device=x0.device)
+        return {"gamma": g.contiguous()}
     p = {
         "axis": coeffs_from_numpy(rec["axis_coeffs"], x0.device, x0.dtype),
         "axis_np": rec["axis_coeffs"],

@@ -30,12 +30,26 @@ dot-emitting sweep for the last post-smooth when ``fuse_rz`` fuses the PCG
 through the axis-stencil kernel. The JAX package's TPU tiling gates are
 not carried over: on the card every level shape takes the kernels.
 
+Variable-Γ hierarchies (``var_gamma``, the heterogeneous-diffusivity
+operator ``∂_j (Γ ∂_j e)``): ``set_gamma`` samples the fine Γ down the
+levels and keeps each level's Γ; it runs once per solve call, before the
+Krylov loop, so a new Γ on a cached spec takes effect at once. Every
+level applies through the ``ops/diff_field.py`` kernels (``diff_field``;
+Jacobi smooth, first smooth from zero and residual through
+``diff_jacobi``, which rebuilds the diagonal in registers), on 2-D and
+3-D levels, isotropic or stacked Γ. A level's per-point diagonal field
+is built at its first use in a call: only the rbgs and Chebyshev
+smoothers read it (XLA drops it unread in the JAX package). The fixed
+3/2 Neumann row scale does not apply (the surgered rows are
+Γ-dependent), and neither do the constant-coefficient Jacobi kernels nor
+the fused ``dot(r, z)``.
+
 All device constants of the hierarchy (masks, coefficient vectors,
 diagonals, transfer matrices) are built once per spec and cached, so a
 V-cycle makes no host-to-device copy — the PCG loop's only host sync
-stays its tolerance read. Periodic axes, rz meshes, variable-Γ
-hierarchies and domain decomposition are ported in later slices and
-raise ``NotImplementedError``.
+stays its tolerance read. Periodic axes, rz meshes and domain
+decomposition are ported in later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,8 +60,9 @@ import torch
 
 from pyapes_tpu_torch.mesh.tools import interior_mask_device
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
+from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2
-from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node
+from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node, diff_diag
 
 
 @lru_cache(maxsize=None)
@@ -95,6 +110,8 @@ class MGSpec:
         cycle_dtype: V-cycle dtype (default: ``dtype``), e.g. "bfloat16".
         face_kinds: per axis ``(lower, upper)`` of "dirichlet"/"neumann".
         device: where the cycle runs.
+        var_gamma: variable-Γ level operators (``set_gamma`` before the
+            cycle), with ``vg_avg`` ("arithmetic"/"harmonic") face values.
         The other knobs are the JAX package's (``n_pre``, ``n_post``,
         ``n_coarse``, ``omega``, ``smoother``, ``fmg``, ``fmg_cycles``,
         ``fuse_rz``, ``transfers``).
@@ -119,16 +136,24 @@ class MGSpec:
         decomp=None,
         face_kinds=None,
         var_gamma: bool = False,
+        vg_avg: str = "arithmetic",
         transfers: str = "strided",
         device="cpu",
     ):
-        if paxes or rz or var_gamma or decomp is not None:
+        if paxes or rz or decomp is not None:
             raise NotImplementedError(
-                "MGSpec: periodic axes, rz meshes, variable-Γ hierarchies and "
-                "domain decomposition are ported in later slices"
+                "MGSpec: periodic axes, rz meshes and domain decomposition are "
+                "ported in later slices"
             )
         assert transfers in ("matrix", "strided")
         assert smoother in ("jacobi", "rbgs", "chebyshev")
+        assert vg_avg in ("arithmetic", "harmonic")
+        self.var_gamma = bool(var_gamma)
+        self.vg_avg = vg_avg
+        if self.var_gamma:
+            fuse_rz = False  # the dot kernels hard-code the constant stencil
+        self._g_levels = None
+        self._gd_levels = None
         self.shape = tuple(shape)
         self.lengths = tuple(float(l) for l in lengths)
         self.dtype = _as_torch_dtype(dtype)
@@ -161,6 +186,7 @@ class MGSpec:
             self.shape, self.lengths, str(self.dtype), str(self.cdtype), self.n_pre,
             self.n_post, self.n_coarse, self.omega, self.smoother, self.fmg_init,
             self.fmg_cycles, self.fuse_rz, self.face_kinds, self.transfers, str(self.device),
+            self.var_gamma, self.vg_avg,
         )
 
     # -- host hierarchy (numpy, bit-equal to the JAX package) -------------
@@ -224,6 +250,57 @@ class MGSpec:
             _interp_matrix_np(n_t, n_s) @ self._bc_extend_matrix_np(n_t, axis)
         ) * ((n_t - 1) / (n_s - 1))
 
+    # -- variable-Γ levels (per solve call) -------------------------------
+    def _vg_surgery(self):
+        """Per-axis ``(lower, upper)`` kinds of the variable-Γ level
+        operators: the face kinds, Dirichlet read as "none"."""
+        return tuple(
+            tuple("neumann" if k == "neumann" else "none" for k in fk) for fk in self.face_kinds
+        )
+
+    def _downsample_g(self, g, shape_t):
+        """Restrict a level's Γ to the next level by endpoint-aligned linear
+        SAMPLING (exact subsampling on vertex-aligned 2x levels): a
+        coefficient field is sampled, not full-weighted like a residual.
+        Stacked ``(dim, *shape)`` Γ keeps its leading axis."""
+        iso = g.ndim == len(shape_t)
+        g = g[None] if iso else g
+        for j, n_t in enumerate(shape_t):
+            n_s = g.shape[1 + j]
+            if n_s != n_t:
+                g = self._contract(g.contiguous(), self._sample_mat(n_s, n_t), j)
+        return g[0] if iso else g
+
+    def _sample_mat(self, n_s, n_t):
+        """``(n_s, n_t)`` endpoint-aligned sampling matrix ``P^T`` (cycle
+        dtype) of ``_downsample_g``."""
+        return self._const(("gsample", n_s, n_t),
+                           lambda: self._tensor(_interp_matrix_np(n_s, n_t).T))
+
+    def set_gamma(self, gamma) -> None:
+        """The solver's ``precond_setup`` hook: cast the fine Γ to the
+        cycle dtype, sample it down the hierarchy and keep every level's Γ
+        (each level's diagonal is built at its first use, ``_diag``).
+        Device work only, once per solve call before the Krylov loop, so a
+        new Γ on a cached spec is used at once."""
+        assert self.var_gamma
+        g = torch.as_tensor(gamma, device=self.device).to(self.cdtype).contiguous()
+        levels = [g]
+        for shape in self.shapes[1:]:
+            levels.append(self._downsample_g(levels[-1], shape))
+        self._g_levels = levels
+        self._gd_levels = [None] * len(levels)
+
+    def _gamma(self, shape):
+        if self._g_levels is None:
+            raise RuntimeError("MGSpec: set_gamma was not called before the cycle")
+        return self._g_levels[self.shapes.index(tuple(shape))]
+
+    def _vg_pass(self, x, b, shape, mode):
+        """One ``diff_jacobi`` pass ("smooth", "smooth0" or "resid")."""
+        return diff_jacobi(x, b, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
+                           self.vg_avg, self.omega, tuple(range(len(shape))), mode)
+
     # -- device constants (built once per spec, then cached) --------------
     def _const(self, key, make):
         if key not in self._consts:
@@ -260,7 +337,16 @@ class MGSpec:
     def _diag(self, shape):
         """Jacobi diagonal: the interior scalar on unsurgered levels; the
         true diagonal ``D * sum_j ac_j / d_j`` of the scaled operator on
-        surgered levels."""
+        surgered levels; under ``var_gamma`` the true per-point diagonal
+        of the level's Γ operator (the kernels' in-register one), in the
+        cycle dtype, built at its first use after ``set_gamma``."""
+        if self.var_gamma:
+            g = self._gamma(shape)
+            lvl = self.shapes.index(tuple(shape))
+            if self._gd_levels[lvl] is None:
+                self._gd_levels[lvl] = diff_diag(
+                    g, self._inv_dx2(shape), self._vg_surgery(), self.vg_avg).to(self.cdtype)
+            return self._gd_levels[lvl]
         if not self._surgery:
             return -2.0 * sum(self._inv_dx2(shape))
 
@@ -295,14 +381,17 @@ class MGSpec:
         loop (a copy to the device inside the loop would be a sync)."""
         for lvl, shape in enumerate(self.shapes):
             self._mask(shape)
-            self._level_coeffs(shape)
-            if self._surgery:
-                self._dfield(shape)
-                self._diag(shape)
+            if not self.var_gamma:  # Γ levels are per call (set_gamma)
+                self._level_coeffs(shape)
+                if self._surgery:
+                    self._dfield(shape)
+                    self._diag(shape)
             if self.smoother == "rbgs":
                 self._parity(shape)
             if lvl + 1 < len(self.shapes):
                 for j, (nf, nc) in enumerate(zip(shape, self.shapes[lvl + 1])):
+                    if nf != nc and self.var_gamma:
+                        self._sample_mat(nf, nc)
                     if nf != nc and not (self.transfers == "strided" and self._strided_ok(nf, nc)):
                         self._tmat(nf, nc, j)
                         self._tmat(nc, nf, j)
@@ -311,11 +400,15 @@ class MGSpec:
     def _kernels(self, shape) -> bool:
         """Whether the fused Jacobi kernels serve this level: they hard-code
         the plain 3-D central Laplacian."""
-        return len(shape) == 3 and not self._surgery
+        return len(shape) == 3 and not self._surgery and not self.var_gamma
 
     def _apply_A(self, x, shape):
         """Scaled level operator ``D A`` (``D = 1`` without surgery),
-        through the axis-stencil kernel."""
+        through the axis-stencil kernel; the variable-Γ operator (unscaled)
+        through the diff-field kernel."""
+        if self.var_gamma:
+            return diff_field(x, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
+                              self.vg_avg)
         out = axis_stencil(self._level_coeffs(shape), x)
         if self._surgery:
             out = out * self._dfield(shape)
@@ -370,6 +463,10 @@ class MGSpec:
             return self._cheby_smooth(x, b, shape, mask, n_iter)
         if self.smoother == "rbgs":
             return self._rbgs_sweeps(x, b, shape, mask, n_iter, order)
+        if self.var_gamma:
+            for _ in range(n_iter):
+                x = self._vg_pass(x, b, shape, "smooth")
+            return x
         om_over_diag = self.omega / self._diag(shape)
         remaining = n_iter
         if remaining >= 2 and self._kernels(shape):
@@ -385,6 +482,8 @@ class MGSpec:
         return x
 
     def _residual(self, x, b, shape, mask):
+        if self.var_gamma:
+            return self._vg_pass(x, b, shape, "resid")
         fused = self._fused(x, b, shape, 0.0, 1.0)
         if fused is not None:
             return fused
@@ -400,6 +499,11 @@ class MGSpec:
             x = self._color_update(x, b, shape, mask, par, 1 - order)
             if n_iter > 1:
                 x = self._rbgs_sweeps(x, b, shape, mask, n_iter - 1, order)
+            return x
+        if self.var_gamma:
+            x = self._vg_pass(None, b, shape, "smooth0")
+            if n_iter > 1:
+                x = self._smooth(x, b, shape, mask, n_iter - 1)
             return x
         if n_iter == 2 and self._kernels(shape):
             # fused pre-pair: (omega/D) b then one sweep, one memory pass
@@ -522,9 +626,9 @@ class MGSpec:
 
     def can_fuse_rz(self) -> bool:
         """Whether the dot-emitting level-0 post-smooth serves the PCG
-        ``dot(r, z)``: the kernels hard-code the unsurgered 3-D stencil, and
-        the fused cycle has a coarse level (a one-level hierarchy is a
-        plain coarse smooth)."""
+        ``dot(r, z)``: the kernels hard-code the unsurgered constant-Γ 3-D
+        stencil, and the fused cycle has a coarse level (a one-level
+        hierarchy is a plain coarse smooth)."""
         return (
             self.fuse_rz and self.smoother == "jacobi" and self.n_post >= 1
             and self._kernels(self.shape) and len(self.shapes) > 1

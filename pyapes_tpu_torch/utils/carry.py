@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 This system has no learned weights: its state is field values, per-axis
-coefficient vectors and fast-diagonalization factors. These helpers turn
+coefficient vectors, variable diffusivities Γ and fast-diagonalization
+factors. These helpers turn
 arrays of the JAX package (handed over as numpy) into the port's tensors,
 so both packages can compute from the same state. The solver uses
 ``coeffs_from_numpy`` for its own host-built coefficient vectors too.
@@ -40,3 +41,10 @@ def coeffs_from_numpy(coeffs, device, dtype) -> tuple:
         tuple(_tensor(c, device=device, dtype=dtype).contiguous() for c in cs)
         for cs in coeffs
     )
+
+
+def gamma_from_numpy(g, like: torch.Tensor) -> torch.Tensor:
+    """A diffusivity Γ of the JAX package (isotropic ``(*nx)`` or stacked
+    ``(dim, *nx)``, as numpy) as a contiguous tensor in ``like``'s dtype
+    and device."""
+    return _tensor(np.ascontiguousarray(g), like=like).contiguous()

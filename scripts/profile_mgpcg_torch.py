@@ -2,9 +2,13 @@
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU.
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
+    python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
 
 The problem is ``chip_smoke.py``'s MG-PCG path (``bench.py``'s cg config:
-3-D f32 all-Dirichlet random RHS, tol 1e-6, bf16 V(2,2), FMG, fused r.z).
+3-D f32 all-Dirichlet random RHS, tol 1e-6, bf16 V(2,2), FMG, fused r.z),
+or with ``--darcy`` its variable-Γ path (``bench.py``'s ``bench_darcy``:
+Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), the same cycle without the fused
+r.z, max_it 400).
 After one warm-up solve, ``torch.profiler`` records one solve; the script
 prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
@@ -31,6 +35,8 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("diff_jacobi (Hopper)", ("diff_jacobi_kernel",)),
+    ("diff_field (Hopper)", ("diff_field_kernel",)),
     ("jacobi3d_x2 (Hopper)", ("jacobi3d_x2_kernel",)),
     ("jacobi3d / jacobi3d_dot (Hopper)", ("jacobi3d_kernel",)),
     ("axis_stencil_dot (Hopper)", ("axis_stencil_dot_kernel",)),
@@ -60,7 +66,8 @@ def _union_ms(intervals, lo, hi) -> float:
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--n", type=int, default=512)
+    p.add_argument("--n", type=int, default=None, help="grid size (512, or 256 with --darcy)")
+    p.add_argument("--darcy", action="store_true", help="the variable-Γ path")
     p.add_argument("--out", default="chiprun_out/profile_mgpcg")
     args = p.parse_args()
 
@@ -81,20 +88,25 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    n = args.n
+    n = args.n or (256 if args.darcy else 512)
     mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
     var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")}, init_val=0.0)
     rhs = torch.randn((1, n, n, n), generator=torch.Generator(device="cuda").manual_seed(0),
                       device="cuda")
+    coeff = 1.0
+    if args.darcy:
+        coeff = torch.exp(0.8 * torch.sin(2 * torch.pi * mesh.X) * torch.sin(2 * torch.pi * mesh.Y)
+                          * torch.sin(2 * torch.pi * mesh.Z)).contiguous()
     solver = Solver({"fdm": {
-        "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 200, "criterion": "residual",
+        "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400 if args.darcy else 200,
+        "criterion": "residual",
         "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
-                    "fmg": True, "fuse_rz": True}}})
+                    "fmg": True, "fuse_rz": not args.darcy}}})
     fdm = FDM()
 
     def one_solve(annotate=False):
         var.set_var_tensor(torch.zeros_like(var()))
-        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        solver.set_eq(fdm.laplacian(coeff, var) == rhs)
         torch.cuda.synchronize()
         tic = time.perf_counter()
         if annotate:
@@ -133,7 +145,8 @@ def main() -> None:
         g[0] += cnt
         g[1] += ms
     summary = {
-        "card": smi, "n": n, "itr": rep["itr"], "tol": rep["tol"],
+        "card": smi, "case": "darcy" if args.darcy else "poisson", "n": n, "itr": rep["itr"],
+        "tol": rep["tol"],
         "wall_unprofiled_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,
         "range_ms": range_ms, "device_busy_union_ms": busy_ms,
         "device_kernel_sum_ms": sum(ms for _, ms in rows.values()),

@@ -17,10 +17,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot  # noqa: E402
+from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi  # noqa: E402
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2  # noqa: E402
 from pyapes_tpu_torch.ops.stencil import (  # noqa: E402
     apply_axis_stencil,
     apply_axis_stencil_dot,
+    apply_diff_field,
+    apply_diff_jacobi,
     apply_jacobi3d,
     apply_jacobi3d_dot,
     apply_jacobi3d_x2,
@@ -33,6 +36,11 @@ DOT_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5}
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
 # chip_smoke.py's kernel shapes (vdim, nx, ny, nz) minus the 512^3 one
 SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17)]
+# the variable-Γ kernels: those plus 2-D grids; chip_smoke.py's (stacked Γ,
+# face rule, Neumann surgery) combinations
+VG_SHAPES = SHAPES + [(1, 65, 130), (2, 17, 9)]
+VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
+             (True, "arithmetic", True), (True, "harmonic", False)]
 
 
 @pytest.fixture
@@ -139,6 +147,31 @@ def test_jacobi_kernels_match_plain(cuda, shape, dtype, variant):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("combo", range(len(VG_COMBOS)))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", VG_SHAPES)
+def test_diff_kernels_match_plain(cuda, shape, dtype, combo):
+    """``diff_field`` and the three ``diff_jacobi`` modes against their
+    plain versions on every row (the kernels wrap as ``torch.roll``)."""
+    aniso, avg, neumann = VG_COMBOS[combo]
+    inv, _, x, b = _level(shape, dtype, cuda, seed=5)
+    nd = len(shape) - 1
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    g = (1.0 + torch.rand(((nd,) if aniso else ()) + shape[1:], generator=gen,
+                          dtype=torch.float64)).to(cuda, dtype)
+    mixed = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
+    surg = mixed[:nd] if neumann else (("none", "none"),) * nd
+    axes = tuple(range(nd))
+    before = (diff_field.launches, diff_jacobi.launches)
+    _close(diff_field(x, g, inv, surg, avg), apply_diff_field(x, g, inv, surg, avg), dtype)
+    for mode in ("smooth", "smooth0", "resid"):
+        xm = None if mode == "smooth0" else x
+        _close(diff_jacobi(xm, b, g, inv, surg, avg, 0.857, axes, mode),
+               apply_diff_jacobi(xm, b, g, inv, surg, avg, 0.857, axes, mode), dtype)
+    torch.cuda.synchronize()
+    assert (diff_field.launches, diff_jacobi.launches) == (before[0] + 1, before[1] + 3)
+
+
 def test_x2_equals_two_single_sweeps_f64(cuda):
     inv, beta, x, b = _level((2, 17, 9, 33), torch.float64, cuda, seed=3)
     axes = (0, 1, 2)
@@ -202,6 +235,41 @@ def test_cuda_mgpcg_matches_cpu(cuda, mg_opts):
         if dev == "cuda":
             assert grew[:2] == [True, True]
             assert grew[2] or grew[3]
+        out.append((rep["itr"], var()[0].cpu().numpy()))
+    assert out[0][0] == out[1][0]
+    assert np.abs(out[0][1] - out[1][1]).max() <= 1e-10 * np.abs(out[0][1]).max()
+
+
+@pytest.mark.parametrize("case", ["cg_dirichlet_3d", "bicgstab_neumann_harmonic_2d"])
+def test_cuda_var_gamma_solve_matches_cpu(cuda, case):
+    """The variable-Γ slice end to end on the card (f64 cycle) equals the
+    CPU run: same iterations, and both variable-Γ kernels launched."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs
+
+    rng = np.random.default_rng(7)
+    if case == "cg_dirichlet_3d":
+        nx, bcs, method, avg = [33, 17, 40], homogeneous_bcs(3, 0.0, "dirichlet"), "cg", "arithmetic"
+    else:
+        nx, method, avg = [65, 47], "bicgstab", "harmonic"
+        bcs = mixed_bcs([1.0, 0.0, 0.0, 0.0], ["dirichlet", "dirichlet", "neumann", "neumann"])
+    gamma = np.exp(rng.standard_normal(nx))
+    rhs = rng.standard_normal((1, *nx))
+    out = []
+    for dev in ("cpu", "cuda"):
+        mesh = Mesh(Box[tuple(slice(0, 1) for _ in nx)], None, nx, device=dev, dtype="double")
+        var = Field("p", 1, mesh, {"domain": bcs}, init_val=0.0)
+        s = Solver({"fdm": {"method": method, "precond": "mg", "tol": 1e-10, "max_it": 200,
+                            "criterion": "residual", "mg_opts": {"fmg": True}}})
+        s.set_eq(FDM().laplacian(gamma, var, avg=avg) == torch.from_numpy(rhs).to(dev))
+        before = (diff_field.launches, diff_jacobi.launches)
+        rep = s.solve()
+        assert rep["converge"]
+        grew = (diff_field.launches > before[0], diff_jacobi.launches > before[1])
+        assert grew == ((True, True) if dev == "cuda" else (False, False))
         out.append((rep["itr"], var()[0].cpu().numpy()))
     assert out[0][0] == out[1][0]
     assert np.abs(out[0][1] - out[1][1]).max() <= 1e-10 * np.abs(out[0][1]).max()

@@ -16,11 +16,12 @@ from pyapes_tpu_torch.backend import Device  # noqa: E402
 from pyapes_tpu_torch.geometry import Box, Cylinder  # noqa: E402
 from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
+from pyapes_tpu_torch.ops import diff_field as diff_mod  # noqa: E402
 from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, FDC, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
-from pyapes_tpu_torch.variables.bcs import homogeneous_bcs  # noqa: E402
+from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pyapes_tpu_torch")
@@ -101,8 +102,11 @@ def test_unported_features_raise(case):
             Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9])
         elif case == "rz":
             Mesh(Cylinder[0:1, 0:1], None, [9, 9])
-        elif case == "var_gamma":
-            FDM().laplacian(torch.ones(6, 6, 6, dtype=torch.float64), _field())
+        elif case == "var_gamma":  # a nonzero Neumann flux of a variable-Γ Laplacian
+            mesh = Mesh(Box[0:1, 0:1], None, [6, 6], dtype="double")
+            var = Field("p", 1, mesh, {"domain": mixed_bcs(
+                [1.0, 0.0, 0.0, 0.0], ["neumann", "dirichlet", "dirichlet", "dirichlet"])})
+            FDM().laplacian(torch.ones(6, 6, dtype=torch.float64), var)
         elif case == "ddt":
             FDM().ddt(_field())
         elif case == "grad":
@@ -131,6 +135,11 @@ _WRAPPERS = {
                      lambda f, t: f(t, t, (1.0,) * 3, 1.0, 0.1, (0, 1, 2))),
     "jacobi3d_x2": (jacobi_mod, "jacobi3d_x2", "apply_jacobi3d_x2",
                     lambda f, t: f(None, t, (1.0,) * 3, 0.1, (0, 1, 2), from_zero=True)),
+    "diff_field": (diff_mod, "diff_field", "apply_diff_field",
+                   lambda f, t: f(t, t, (1.0,) * 3, (("none", "none"),) * 3)),
+    "diff_jacobi": (diff_mod, "diff_jacobi", "apply_diff_jacobi",
+                    lambda f, t: f(None, t, t, (1.0,) * 3, (("none", "none"),) * 3,
+                                   mode="smooth0")),
 }
 
 
@@ -154,6 +163,61 @@ def test_cuda_tensor_never_falls_back_to_plain(name, monkeypatch):
     with pytest.raises(RuntimeError, match="cannot be loaded"):
         call(fn, fake_cuda)
     assert fn.launches == before
+
+
+def _vg_args(shape=(5, 6, 7), dtype=torch.float64, g_shape=None, device="cpu"):
+    x = torch.zeros((1, *shape), dtype=dtype, device=device)
+    g = torch.ones(g_shape or shape, dtype=dtype, device=device)
+    return x, g, (1.0,) * len(shape), (("none", "none"),) * len(shape)
+
+
+@pytest.mark.parametrize(
+    "case, exc",
+    [("float16", TypeError), ("int", TypeError), ("gamma_dtype", TypeError),
+     ("1d", ValueError), ("2_nodes", ValueError), ("gamma_shape", ValueError),
+     ("noncontiguous", ValueError), ("periodic_surgery", ValueError), ("avg", ValueError),
+     ("mode", ValueError), ("mask_axes", ValueError), ("x_shape", ValueError),
+     ("meta_device", ValueError)],
+)
+def test_diff_wrappers_reject_what_the_kernels_do_not_take(case, exc):
+    """The variable-Γ wrappers raise on an unsupported dtype, shape, layout,
+    option or device, on the CPU path as on the card."""
+    x, g, inv, surg = _vg_args()
+    args = dict(x=x, b=x, g=g, inv=inv, surg=surg, avg="arithmetic", mode="smooth", axes=(0, 1, 2))
+    if case in ("float16", "int"):
+        x, g, inv, surg = _vg_args(dtype=torch.float16 if case == "float16" else torch.int32)
+        args.update(x=x, b=x, g=g)
+    elif case == "gamma_dtype":
+        args["g"] = g.float()
+    elif case == "1d":
+        x, g, inv, surg = _vg_args(shape=(9,))
+        args.update(x=x, b=x, g=g, inv=inv, surg=surg, axes=(0,))
+    elif case == "2_nodes":
+        x, g, inv, surg = _vg_args(shape=(5, 2, 7))
+        args.update(x=x, b=x, g=g)
+    elif case == "gamma_shape":
+        args["g"] = torch.ones((2, 5, 6, 7), dtype=torch.float64)
+    elif case == "noncontiguous":
+        args["g"] = torch.ones((7, 6, 5), dtype=torch.float64).transpose(0, 2)
+    elif case == "periodic_surgery":
+        args["surg"] = (("periodic", "periodic"),) + surg[1:]
+    elif case == "avg":
+        args["avg"] = "geometric"
+    elif case == "mode":
+        args["mode"] = "smooth2"
+    elif case == "mask_axes":
+        args["axes"] = (0, 3)
+    elif case == "x_shape":
+        args["x"] = torch.zeros((2, 5, 6, 7), dtype=torch.float64)
+    else:
+        x, g, inv, surg = _vg_args(device="meta")
+        args.update(x=x, b=x, g=g)
+    with pytest.raises(exc):
+        if case in ("mode", "mask_axes", "x_shape"):
+            diff_mod.diff_jacobi(args["x"], args["b"], args["g"], args["inv"], args["surg"],
+                                 args["avg"], 0.7, args["axes"], args["mode"])
+        else:
+            diff_mod.diff_field(args["x"], args["g"], args["inv"], args["surg"], args["avg"])
 
 
 def test_mgpcg_on_cpu_counts_no_launch():

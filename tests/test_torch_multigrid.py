@@ -132,6 +132,6 @@ def test_bf16_cycle_dtype_and_cast_shell():
 
 
 def test_unported_options_raise():
-    for kw in ({"paxes": (0,)}, {"rz": True}, {"var_gamma": True}, {"decomp": object()}):
+    for kw in ({"paxes": (0,)}, {"rz": True}, {"decomp": object()}):
         with pytest.raises(NotImplementedError):
             pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), **kw)
