@@ -34,10 +34,29 @@ Phases, report lines before the last:
    the predicted discretization error; the runner's ``darcy`` case (2-D,
    harmonic faces, MG-BiCGSTAB, f64) at 65^2 against the JAX package's
    numbers and at 1025^2: flux balance and the Wiener bounds.
+8. advection kernels — the per-point Div and Conv kernels and the 5-point
+   axis stencil against their plain versions (the 3-D shapes, a 2-D and a
+   1-D grid, a 3-node axis with Neumann faces on both sides, mixed 3/5-point
+   axes; f32/bf16/f64; every limiter, both Div forms, the surgery kinds
+   none/neumann/periodic, scalar and vector targets), timed against the
+   plain versions at 256^3 and 512^3 f32.
+9. implicit-advection paths, f32 on one card, through the models' ``step``:
+   ``BurgersND`` at 257^3 on the periodic box (Taylor-Green start, 3 steps
+   of dt 0.01: 9 BiCGSTAB + FD-preconditioner solves through the convection
+   kernel); ``AdvectionDiffusion`` at 256^3 with a velocity field (upwind,
+   the Div kernel, 5 steps of dt 1e-3) and with a constant velocity and
+   QUICK (the 5-point kernel, 3 steps); per path the wall per step (median
+   after the first, warm-up, step), ``itr`` per solve, kernel launches per
+   step, peak memory, and the true relative residual of the last solve
+   recomputed with the plain operators in f64. Then ``BurgersND`` at 257^3
+   in f64 (the JAX test's precision) from an x-only field (the 1-D exact
+   solution, nu = 0.25, 10 steps): v and w stay zero, u stays
+   y/z-independent and matches the 1-D exact solution (the JAX package's
+   gates).
 
-Every kernel launch count is set to 0 just before each path (phases 4-7)
-and read just after; a kernel of a path that launched no time there fails
-the run. Then one JSON line of per-kernel numbers, and as the LAST line
+Every kernel launch count is set to 0 just before each path (phases 4-7,
+9) and read just after; a kernel of a path that launched no time there
+fails the run. Then one JSON line of per-kernel numbers, and as the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
 a non-zero exit, with no result line.
 """
@@ -87,6 +106,12 @@ KERNELS = [
      "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:519"),
     ("diff_jacobi", "pyapes_tpu_torch.ops.diff_field",
      "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:694"),
+    ("conv_component", "pyapes_tpu_torch.ops.advect",
+     "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:296"),
+    ("advect_pair", "pyapes_tpu_torch.ops.advect",
+     "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:357"),
+    ("axis_stencil5", "pyapes_tpu_torch.ops.axis_stencil",
+     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
 ]
 # the variable-Γ kernels: the 3-D shapes plus a 2-D grid; per shape and
 # dtype four (stacked Γ, face rule, Neumann surgery) combinations that
@@ -104,6 +129,20 @@ DARCY65_K_EFF = {"arithmetic": 0.8474604795147054, "harmonic": 0.839467653274753
 BENCH_MG = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True,
             "fuse_rz": True}
 V11_MG = {**BENCH_MG, "n_pre": 1, "n_post": 1}
+# the advection kernels: the 3-D shapes (512^3 is timed separately), a
+# 3-node axis (axis 0, Neumann on both faces in the "neumann" kind), a 2-D
+# and a 1-D grid
+ADV_SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17), (3, 3, 9, 11),
+              (1, 65, 130), (2, 300)]
+ADV_SURGERY = {  # per kind, the (lower, upper) faces of axes 0, 1, 2
+    "none": (("none", "none"),) * 3,
+    "neumann": (("neumann", "neumann"),) * 3,
+    "mixed": (("periodic", "neumann"), ("none", "periodic"), ("neumann", "none")),
+}
+DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "conservative"),
+                ("quick", "conservative")]
+N_ADV = (256, 512)  # timed sizes (f32)
+N_PATH = 256  # the implicit-advection paths' grid (Burgers: 257 nodes, 256 on the torus)
 
 
 def _wrappers() -> dict:
@@ -402,6 +441,363 @@ def phase_kernel_vargamma(dev):
     return worst, timing
 
 
+def _adv_inputs(shape, dtype, dev, seed):
+    """A target, advectors (Div: as many components as the target; Conv:
+    one per axis), base vectors of the unit box, and 5-point coefficients
+    with axes 0 and 2 of 5 vectors and axis 1 of 3."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.float64 if dtype == torch.float64 else torch.float32
+    nd = len(shape) - 1
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, device=dev, dtype=gen).to(dtype)
+
+    base = tuple(tuple(torch.full((n,), v, device=dev, dtype=gen).to(dtype)
+                       for v in (0.5 * (n - 1), 0.0, -0.5 * (n - 1))) for n in shape[1:])
+    c5 = tuple(tuple(rnd(n) for _ in range(3 if j == 1 else 5)) for j, n in enumerate(shape[1:]))
+    return rnd(*shape), rnd(*shape), rnd(nd, *shape[1:]), base, c5
+
+
+def _adv_cases(shape, x, adv, adv_conv, base, c5):
+    """(kernel name, variant, kernel call, plain call) of the three
+    advection kernels at one input."""
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil5
+
+    nd = len(shape) - 1
+    cases = []
+    for kind, surg in ADV_SURGERY.items():
+        surg = surg[:nd]
+        for lim, form in DIV_VARIANTS:
+            for xs, av, tag in ((x, adv, f"vdim{shape[0]}"), (x[:1], adv[:1], "scalar")):
+                cases.append(("advect_pair", f"{lim},{form[:4]},{kind},{tag}",
+                              lambda xs=xs, av=av, lim=lim, form=form, surg=surg:
+                              advect_pair(xs, av, base, lim, surg, form),
+                              lambda xs=xs, av=av, lim=lim, form=form, surg=surg:
+                              P.apply_div_field(xs, av, base, lim, surg, form)))
+        for lim in ("none", "upwind", "quick"):
+            cases.append(("conv_component", f"{lim},{kind}",
+                          lambda lim=lim, surg=surg: conv_component(x, adv_conv, base, lim, surg),
+                          lambda lim=lim, surg=surg: P.apply_conv_field(x, adv_conv, base, lim,
+                                                                        surg)))
+    cases.append(("axis_stencil5", "mixed 3/5", lambda: axis_stencil5(c5, x),
+                  lambda: P.apply_axis_stencil(c5, x)))
+    return cases
+
+
+def phase_kernel_advect(dev):
+    """The Div and Conv kernels and the 5-point axis stencil against their
+    plain versions at every shape x dtype x case; kernel vs plain timed at
+    256^3 and 512^3 f32 on the paths' cases (Div upwind, Conv central,
+    QUICK's 5-point axes)."""
+    import torch
+
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil5
+
+    worst = {}
+    for seed, shape in enumerate(ADV_SHAPES):
+        for dtname in DTYPES:
+            dtype = getattr(torch, dtname)
+            x, adv, adv_conv, base, c5 = _adv_inputs(shape, dtype, dev, 400 + seed)
+            parts, fails = [], []
+            for name, variant, kern, plain in _adv_cases(shape, x, adv, adv_conv, base, c5):
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                if got.dtype != ref.dtype or got.shape != ref.shape:
+                    raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
+                                       f"{tuple(got.shape)}")
+                err = (got.double() - ref.double()).abs().max().item()
+                limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                worst[name] = max(worst.get(name, 0.0), err)
+                parts.append(err / limit if limit > 0 else (0.0 if err == 0 else float("inf")))
+                if not err <= limit:
+                    fails.append(f"{name}[{variant}] {err:.2e}/{limit:.2e}")
+            print(f"[8 advection kernels] {tuple(shape)} {dtname}: {len(parts)} cases, worst "
+                  f"err/limit {max(parts):.3f}{'; FAIL ' + '; '.join(fails) if fails else ''}",
+                  flush=True)
+            if fails:
+                raise RuntimeError(f"chip_smoke: advection kernels disagree with their plain "
+                                   f"versions at {shape} {dtname}: {fails}")
+            del x, adv, adv_conv
+    timing = {}
+    for n in N_ADV:
+        shape = (1, n, n, n)
+        x, adv, adv_conv, base, _ = _adv_inputs(shape, torch.float32, dev, 500 + n)
+        c5 = tuple(tuple(torch.randn(n, device=dev) for _ in range(5)) for _ in range(3))
+        surg = ADV_SURGERY["none"]
+        timed = {
+            "advect_pair": (lambda: advect_pair(x, adv, base, "upwind", surg),
+                            lambda: P.apply_div_field(x, adv, base, "upwind", surg), 3),
+            "conv_component": (lambda: conv_component(x, adv_conv, base, "none", surg),
+                               lambda: P.apply_conv_field(x, adv_conv, base, "none", surg), 5),
+            "axis_stencil5": (lambda: axis_stencil5(c5, x),
+                              lambda: P.apply_axis_stencil(c5, x), 2),
+        }
+        for name, (kern, plain, grids) in timed.items():
+            got, ref = kern(), plain()
+            err = (got - ref).abs().max().item()
+            limit = REL_TOL["float32"] * ref.abs().max().item()
+            if not err <= limit:
+                raise RuntimeError(f"chip_smoke: {name} disagrees at {n}^3: {err} > {limit}")
+            worst[name] = max(worst[name], err)
+            del got, ref
+            ms, plain_ms = _time_ms(kern), _time_ms(plain)
+            timing.setdefault(name, {})[n] = (ms, plain_ms)
+            gbs = grids * n**3 * 4 / (ms * 1e-3) / 1e9
+            print(f"[8 advection kernels] {name} {n}^3 f32 time: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel moves >= "
+                  f"{gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
+        del x, adv, adv_conv, c5
+    return worst, {name: t[N_PATH] for name, t in timing.items()}
+
+
+def _true_residual(solver) -> float:
+    """The TRUE relative residual ``|b - A x| / |b|`` of the solver's last
+    equation over its active set, recomputed in f64 with the plain
+    operators on the reduced torus of its periodic axes."""
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
+
+    var = solver.var
+    nd = var.mesh.dim
+    per = [sum(bc.bc_type == "periodic" and bc.bc_face_dim == j for bc in var.bcs) == 2
+           for j in range(nd)]
+    red = (slice(None),) + tuple(slice(None, -1) if p else slice(None) for p in per)
+
+    def vecs(cs_all):  # host vectors on the reduced torus, as f64 tensors
+        out = []
+        for j, cs in enumerate(cs_all):
+            if per[j]:
+                cs = [np.full(len(c) - 1, c[(len(c) - 1) // 2]) for c in cs]
+            out.append(tuple(torch.as_tensor(np.asarray(c, np.float64), device=var().device)
+                             for c in cs))
+        return tuple(out)
+
+    x, b = var()[red].double(), solver.rhs[red].double()
+    ax = torch.zeros_like(x)
+    for rec in solver.eqs.values():
+        if rec["name"] == "Ddt":
+            t = x * (ddt_leading_coeff(rec) / rec["dt"])
+        elif rec.get("adv") is not None:
+            o = rec["other"]
+            surg = tuple(("none", "none") if per[j] else k for j, k in enumerate(o["surgery"]))
+            adv = rec["adv"][red].double()
+            if rec["name"] == "Conv":
+                t = P.apply_conv_field(x, adv, vecs(o["base"]), rec["limiter"], surg)
+            else:
+                t = P.apply_div_field(x, adv, vecs(o["base"]), rec["limiter"], surg, o["form"])
+        else:
+            t = P.apply_axis_stencil(vecs(rec["axis_coeffs"]), x)
+            if rec["name"] == "Laplacian" and rec["param"][0] is not None:
+                t = t * float(rec["param"][0])
+        ax = ax + rec["sign"] * t
+    inner = (slice(None),) + tuple(slice(None) if p else slice(1, -1) for p in per)
+    res, bn = (b - ax)[inner].norm().item(), b[inner].norm().item()
+    return res / bn if bn > 0 else res  # a zero RHS (w of Taylor-Green): the absolute one
+
+
+def _drive_steps(model, solver, n_steps: int, label: str, required: tuple) -> dict:
+    """Step a model ``n_steps`` times through its public ``step``: wall per
+    step (median after the first, warm-up, step), ``itr`` per solve,
+    launches per step (every kernel in ``required`` in every step), peak
+    memory over the steps after the first (the check's f64 temporaries left
+    out) and what was allocated when that window opened, and each solve of
+    the last step's true residual (recomputed after the step's wall is
+    taken); every solve must converge."""
+    import torch
+
+    reports, residuals = [], []
+    real_solve = solver.solve
+
+    def solve():
+        rep = real_solve()
+        reports.append(dict(rep))
+        if len(walls) == n_steps - 1:
+            torch.cuda.synchronize()
+            peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+            tic = time.perf_counter()
+            residuals.append(_true_residual(solver))
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - tic
+            torch.cuda.reset_peak_memory_stats()
+        return rep
+
+    solver.solve = solve
+    walls, per_step, spent, peak, start = [], [], [0.0], [0], 0
+    torch.cuda.synchronize()
+    for k in range(n_steps):
+        if k == 1:
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+        before = _counts()
+        tic = time.perf_counter()
+        model.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tic - spent[0])
+        after = _counts()
+        per_step.append({name: after[name] - before[name] for name in after
+                         if after[name] > before[name]})
+    solver.solve = real_solve
+    bad = [r for r in reports if not r["converge"]]
+    if bad:
+        raise RuntimeError(f"chip_smoke: {label}: a solve did not converge: {bad}")
+    missing = [(k, name) for k, ls in enumerate(per_step) for name in required if not ls.get(name)]
+    if missing:
+        raise RuntimeError(f"chip_smoke: {label}: steps launched no {missing}: {per_step}")
+    return {
+        "path": label, "steps": n_steps, "wall_s": walls,
+        "wall_s_per_step_median": statistics.median(walls[1:]),
+        "itr": [r["itr"] for r in reports], "tol": [r["tol"] for r in reports],
+        "launches_per_step": per_step,
+        "peak_mem_gib": max(peak[0], torch.cuda.max_memory_allocated()) / 2**30,
+        "mem_at_window_start_gib": start / 2**30, "true_rel_residual_f64_last_step": residuals,
+    }
+
+
+# the solves' criterion is BiCGSTAB's recursive residual (absolute, the
+# models' "delta" criterion), which keeps falling past what an f32 iterate
+# can hold; the true residual of the f32 solution is held to this bound
+TRUE_RES_F32 = 1e-5
+
+
+def _check_path(stats) -> None:
+    worst = max(stats["true_rel_residual_f64_last_step"])
+    if not worst <= TRUE_RES_F32:
+        raise RuntimeError(f"chip_smoke: {stats['path']} true residual {worst:.3e} > "
+                           f"{TRUE_RES_F32}")
+
+
+def phase_burgers(dev, n: int = N_PATH) -> dict:
+    """``BurgersND`` at (n+1)^3 f32 on the periodic box, Taylor-Green start,
+    3 steps of dt 0.01 (BiCGSTAB + the frozen diffusion+dt FD
+    preconditioner, tol 1e-8, the model's defaults)."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import BurgersND
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [n + 1] * 3, device=str(dev),
+                dtype="single")
+    X, Y, Z = mesh.X, mesh.Y, mesh.Z
+    init = [(torch.sin(X) * torch.cos(Y) * torch.cos(Z))[None],
+            (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None], torch.zeros((1, *mesh.nx))]
+    clear_cache()  # the earlier phases' cached hierarchies and factors
+    model = BurgersND(mesh, nu=0.1, init_vals=init)
+    _reset_counts()
+    stats = _drive_steps(_Stepper(model, 0.01), model.solver, 3,
+                         f"BurgersND {n + 1}^3 f32 Taylor-Green",
+                         ("conv_component", "axis_stencil"))
+    counts = _counts()
+    _check_path(stats)
+    u = torch.cat([v() for v in model.vel])
+    if not bool(u.isfinite().all()) or tuple(u.shape) != (3, n + 1, n + 1, n + 1):
+        raise RuntimeError("chip_smoke: BurgersND velocity is not finite of shape (3, n^3)")
+    print(f"[9 Burgers path] {json.dumps(stats)}", flush=True)
+    return counts
+
+
+class _Stepper:
+    """``step()`` of a model at a fixed dt."""
+
+    def __init__(self, model, dt):
+        self.model, self.dt = model, dt
+
+    def step(self):
+        self.model.step(self.dt)
+
+
+def phase_advdiff(dev, n: int = N_PATH) -> dict:
+    """``AdvectionDiffusion`` at n^3 f32 on the unit box with homogeneous
+    Dirichlet faces, eps = 0.01, a Gaussian blob: (a) the velocity field
+    1 + 0.5 sin 2πx sin 2πy sin 2πz, upwind, 5 steps of dt 1e-3; (b) the
+    constant velocity 1 with QUICK, 3 steps."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import AdvectionDiffusion
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
+    X, Y, Z = mesh.X, mesh.Y, mesh.Z
+    blob = torch.exp(-((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2) / (2 * 0.1**2))[None]
+    vel = (1.0 + 0.5 * torch.sin(2 * pi * X) * torch.sin(2 * pi * Y)
+           * torch.sin(2 * pi * Z))[None].contiguous()
+    counts = {}
+    for velocity, limiter, steps, required, label in (
+        (vel, "upwind", 5, ("advect_pair", "axis_stencil"),
+         f"AdvectionDiffusion {n}^3 f32 velocity field, upwind"),
+        (1.0, "quick", 3, ("axis_stencil5", "axis_stencil"),
+         f"AdvectionDiffusion {n}^3 f32 constant velocity, QUICK"),
+    ):
+        model = None
+        clear_cache()
+        model = AdvectionDiffusion(mesh, homogeneous_bcs(3, 0.0, "dirichlet"), velocity=velocity,
+                                   epsilon=0.01, limiter=limiter, init_val=blob)
+        _reset_counts()
+        stats = _drive_steps(_Stepper(model, 1e-3), model.solver, steps, label, required)
+        for name, c in _counts().items():
+            counts[name] = counts.get(name, 0) + c
+        _check_path(stats)
+        phi = model.var()
+        if not bool(phi.isfinite().all()) or tuple(phi.shape) != (1, n, n, n):
+            raise RuntimeError(f"chip_smoke: {label}: phi is not finite of shape (1, n^3)")
+        print(f"[9 advection-diffusion path] {json.dumps(stats)}", flush=True)
+    return counts
+
+
+def phase_burgers_xonly(dev, n: int = N_PATH) -> None:
+    """``BurgersND`` at (n+1)^3 f64 from an x-only field, the 1-D exact
+    solution (nu = 0.25) broadcast along y and z, v = w = 0, 10 steps of dt
+    0.01 (f64, as the JAX test: 1e-6 of y/z spread is ~2 f32 ulps of u ~ 4,
+    below the rounding of an f32 eigen-transform):
+    v and w stay below 1e-6, u y/z-independent to 1e-6, and u matches the
+    1-D exact solution to a relative L2 error under 0.05 (and a max error
+    under 1.2, the scheme's floor at the front) — the JAX package's gates
+    (``tests/test_models.py:376-409``)."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import BurgersND
+    from pyapes_tpu_torch.testing.burgers import burger_exact_nd
+
+    nu, dt, steps = 0.25, 0.01, 10
+    mesh1 = Mesh(Box[0:2 * pi], None, [n + 1], device=str(dev), dtype="double")
+    mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [n + 1] * 3, device=str(dev),
+                dtype="double")
+    u0 = burger_exact_nd(mesh1, nu, 0.0)[None, :, None, None].expand(1, n + 1, n + 1, n + 1)
+    zero = torch.zeros((1, *mesh.nx))
+    model = BurgersND(mesh, nu=nu, init_vals=[u0.contiguous(), zero, zero])
+    tic = time.perf_counter()
+    model.run(dt, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    u, v, w = (f()[0] for f in model.vel)
+    vw = max(v.abs().max().item(), w.abs().max().item())
+    spread = (u - u[:, :1, :1]).abs().max().item()
+    exact = burger_exact_nd(mesh1, nu, dt * steps)
+    err = u[:, 0, 0] - exact
+    rel_l2 = (err.norm() / exact.norm()).item()
+    out = {"steps": steps, "wall_s": wall, "max_abs_vw": vw, "max_yz_spread_u": spread,
+           "rel_l2_vs_exact": rel_l2, "max_abs_err": err.abs().max().item(),
+           "last_itr": model.report["itr"]}
+    if not (vw < 1e-6 and spread < 1e-6 and rel_l2 < 0.05 and out["max_abs_err"] < 1.2):
+        raise RuntimeError(f"chip_smoke: x-only Burgers {n + 1}^3 failed its gates: {out}")
+    print(f"[9 Burgers x-only check] {n + 1}^3 f64 nu={nu}: {json.dumps(out)}", flush=True)
+
+
 def _solve_path(dev, n, cfg, label, darcy=False):
     """One warm-up and three timed solves of the 3-D f32 all-Dirichlet
     random-RHS Poisson problem through the public API (with ``darcy``:
@@ -634,8 +1030,9 @@ def main() -> None:
     worst1, timing1 = phase_kernel(dev)
     worst2, timing2 = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
-    worst = {"axis_stencil": worst1, **worst2, **worst3}
-    timing = {"axis_stencil": timing1, **timing2, **timing3}
+    worst4, timing4 = phase_kernel_advect(dev)
+    worst = {"axis_stencil": worst1, **worst2, **worst3, **worst4}
+    timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4}
 
     launches = {name: 0 for name, _, _, _ in KERNELS}
     path_counts = [
@@ -646,7 +1043,10 @@ def main() -> None:
                     f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz"),
         phase_darcy(dev),
         phase_model(),
+        phase_burgers(dev),
+        phase_advdiff(dev),
     ]
+    phase_burgers_xonly(dev)
     for counts in path_counts:
         for name, c in counts.items():
             launches[name] += c
@@ -654,6 +1054,8 @@ def main() -> None:
     if never:
         raise RuntimeError(f"chip_smoke: the main paths never launched {never}")
 
+    print(f"[10 kernels] ms/plain_ms: the advection kernels at {N_PATH}^3 f32 (their paths' "
+          f"grid), the others at {N_MAIN}^3 (512^3 bf16 for the Jacobi family)", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

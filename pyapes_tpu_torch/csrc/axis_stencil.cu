@@ -16,6 +16,10 @@
 // partials in a fixed order. Replaces pallas_stencil_db.py::
 // pallas_axis_stencil_dot and pallas_stencil_v3.py::pallas_axis_stencil_dot_v3.
 //
+// axis_stencil5_kernel (1-3-D) adds the offsets +-2 of the 5-point (QUICK)
+// axes: app_a x(+2) + ... + amm_a x(-2), a 3-point axis passed with null
+// app/amm; replaces pallas_stencil_v3.py::pallas_axis_stencil_v5.
+//
 // The Python wrapper and the design note are in ops/axis_stencil.py.
 // Plain C interface, loaded with ctypes.
 
@@ -112,6 +116,49 @@ axis_stencil_dot_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// Per mesh axis (app, ap, ac, am, amm); app/amm null on a 3-point axis.
+template <typename T>
+struct AxisCoeffs5 {
+  const T* c[3][5];
+};
+
+// The 5-point stencil: the grid viewed as in axis_stencil_kernel, mesh
+// axis m on padded axis m + 3 - NDIM, offsets wrapped on the torus (any
+// n >= 3: one correction reaches +-2).
+template <typename T, int NDIM>
+__global__ void __launch_bounds__(kThreads)
+axis_stencil5_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     AxisCoeffs5<T> cf, int N0, int N1, int N2) {
+  using C = typename Compute<T>::type;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= N2) return;
+  const int j = blockIdx.y;
+  const int slab = blockIdx.z;  // component * N0 + i
+  const int64_t p = ((int64_t)slab * N1 + j) * N2 + k;
+  const int idx[3] = {slab % N0, j, k};
+  const int nn[3] = {N0, N1, N2};
+  const int64_t stride[3] = {(int64_t)N1 * N2, (int64_t)N2, 1};
+  const C xc = to_c(x[p]);
+  C acc = C(0);
+#pragma unroll
+  for (int m = 0; m < NDIM; ++m) {
+    const int a = m + 3 - NDIM;
+    const int n = nn[a], i = idx[a];
+    const int64_t s = stride[a];
+    const int ip = (i + 1 == n) ? 0 : i + 1;
+    const int im = (i == 0) ? n - 1 : i - 1;
+    acc += to_c(cf.c[m][1][i]) * to_c(x[p + (int64_t)(ip - i) * s]) + to_c(cf.c[m][2][i]) * xc +
+           to_c(cf.c[m][3][i]) * to_c(x[p + (int64_t)(im - i) * s]);
+    if (cf.c[m][0] != nullptr) {
+      const int ipp = (i + 2 >= n) ? i + 2 - n : i + 2;
+      const int imm = (i < 2) ? i - 2 + n : i - 2;
+      acc += to_c(cf.c[m][0][i]) * to_c(x[p + (int64_t)(ipp - i) * s]) +
+             to_c(cf.c[m][4][i]) * to_c(x[p + (int64_t)(imm - i) * s]);
+    }
+  }
+  store(&out[p], acc);
+}
+
 template <typename T>
 AxisCoeffs<T> make_coeffs(const void* const* coeffs) {
   AxisCoeffs<T> c;
@@ -174,6 +221,30 @@ cudaError_t run(int dtype, int ndim, int vdim, const int* n, const void* x,
   return cudaErrorInvalidValue;
 }
 
+template <typename T, int NDIM>
+cudaError_t launch5(const void* x, void* out, const void* const* coeffs, int vdim,
+                    const int* n, cudaStream_t stream) {
+  int N[3];
+  const dim3 grid = grid_of<NDIM>(vdim, n, N);
+  AxisCoeffs5<T> c;
+  for (int m = 0; m < 3; ++m)
+    for (int t = 0; t < 5; ++t) c.c[m][t] = static_cast<const T*>(coeffs[5 * m + t]);
+  axis_stencil5_kernel<T, NDIM><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), c, N[0], N[1], N[2]);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch5(int ndim, const void* x, void* out, const void* const* coeffs, int vdim,
+                      const int* n, cudaStream_t s) {
+  switch (ndim) {
+    case 1: return launch5<T, 1>(x, out, coeffs, vdim, n, s);
+    case 2: return launch5<T, 2>(x, out, coeffs, vdim, n, s);
+    case 3: return launch5<T, 3>(x, out, coeffs, vdim, n, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -199,6 +270,19 @@ int pyapes_axis_stencil_dot(int dtype, int vdim, int n0, int n1, int n2,
   const int n[3] = {n0, n1, n2};
   return run(dtype, 3, vdim, n, x, out, partial, coeffs,
              static_cast<cudaStream_t>(stream));
+}
+
+// As pyapes_axis_stencil with 5-point axes. coeffs: 15 device pointers
+// (app, ap, ac, am, amm) per mesh axis, app = amm = NULL on a 3-point axis.
+int pyapes_axis_stencil5(int dtype, int ndim, int vdim, int n0, int n1, int n2,
+                         const void* x, void* out, const void* const* coeffs,
+                         void* stream) {
+  const int n[3] = {n0, n1, n2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch5<float>(ndim, x, out, coeffs, vdim, n, s);
+  if (dtype == 1) return dispatch5<double>(ndim, x, out, coeffs, vdim, n, s);
+  if (dtype == 2) return dispatch5<__nv_bfloat16>(ndim, x, out, coeffs, vdim, n, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -12,7 +12,11 @@ pad-and-crop and in-register row selection do not apply on the card.
 ``axis_stencil_dot`` replaces ``pallas_stencil_db.py::pallas_axis_stencil_dot``
 and ``pallas_stencil_v3.py::pallas_axis_stencil_dot_v3`` (3-D): the same
 apply plus ``sum(x * A x)`` per component, so CG never re-reads ``d`` and
-``A d`` for its alpha-dot.
+``A d`` for its alpha-dot. ``axis_stencil5`` replaces
+``pallas_stencil_v3.py::pallas_axis_stencil_v5``: the apply with 5-point
+(QUICK, offsets +-2) axes mixed with 3-point ones, 1-3-D, on the same
+design (a 3-point axis skips the +-2 loads); ``axis_stencil`` hands a
+5-point equation to it.
 
 What bounds them: the apply does ~7 multiply-adds per point against 2-4
 bytes each way (bf16/f32) of compulsory traffic (read x, write out), far
@@ -58,14 +62,18 @@ def _lib() -> ctypes.CDLL:
     lib.pyapes_axis_stencil.restype = ctypes.c_int
     lib.pyapes_axis_stencil_dot.argtypes = [ctypes.c_int] * 5 + [P, P, P, ctypes.POINTER(P), P]
     lib.pyapes_axis_stencil_dot.restype = ctypes.c_int
+    lib.pyapes_axis_stencil5.argtypes = [ctypes.c_int] * 6 + [P, P, ctypes.POINTER(P), P]
+    lib.pyapes_axis_stencil5.restype = ctypes.c_int
     return lib
 
 
-def check_inputs(coeffs, x: torch.Tensor) -> None:
+def check_inputs(coeffs, x: torch.Tensor, points=(3, 5)) -> None:
     """Raise on what the kernels do not take: dtype other than
-    bf16/f32/f64, 1-3 mesh axes, a non-contiguous ``x``, a 5-point axis,
-    coefficient vectors of the wrong length, dtype, device or layout, an
-    axis with fewer than 3 nodes, or a grid beyond the launch limits."""
+    bf16/f32/f64, 1-3 mesh axes, a non-contiguous ``x``, an axis entry of
+    other than 3 or 5 vectors, a 5-point axis where ``points`` is ``(3,)``
+    (the alpha-dot kernel: CG operators are 3-point), coefficient vectors
+    of the wrong length, dtype, device or layout, an axis with fewer than 3
+    nodes, or a grid beyond the launch limits."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"axis_stencil: dtype {x.dtype} not supported (bf16, f32, f64)")
     ndim = x.ndim - 1
@@ -76,10 +84,11 @@ def check_inputs(coeffs, x: torch.Tensor) -> None:
     if len(coeffs) != ndim:
         raise ValueError(f"axis_stencil: {len(coeffs)} coefficient axes for {ndim} mesh axes")
     for a, cs in enumerate(coeffs):
-        if len(cs) != 3:
-            raise NotImplementedError(
-                "axis_stencil: 5-point (QUICK) axes are ported in a later slice"
-            )
+        if len(cs) not in (3, 5):
+            raise ValueError(f"axis_stencil: axis {a} has {len(cs)} coefficient vectors (3 or 5)")
+        if len(cs) not in points:
+            raise NotImplementedError(f"axis_stencil: axis {a} is 5-point; this kernel takes "
+                                      "3-point axes only")
         n = x.shape[1 + a]
         if n < 3:
             raise ValueError(f"axis_stencil: axis {a} has {n} < 3 nodes")
@@ -97,15 +106,23 @@ def check_inputs(coeffs, x: torch.Tensor) -> None:
         raise ValueError(f"axis_stencil: grid {tuple(x.shape)} exceeds the launch limits")
 
 
-def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor):
+def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,)):
     """The library (loading it first: a CUDA tensor never falls back to the
-    plain version), then the checked coefficient pointers and stream."""
+    plain version), then the checked coefficient pointers and stream:
+    ``(ap, ac, am)`` per axis, or with ``points=(3, 5)`` ``(app, ap, ac,
+    am, amm)`` per axis with null ``app``/``amm`` on a 3-point axis."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
     lib = _lib()
-    check_inputs(coeffs, x)
-    ptrs = [c.data_ptr() for cs in coeffs for c in cs] + [0] * (3 * (4 - x.ndim))
-    return lib, (ctypes.c_void_p * 9)(*ptrs), torch.cuda.current_stream(x.device).cuda_stream
+    check_inputs(coeffs, x, points)
+    width = max(points)
+    ptrs = []
+    for cs in coeffs:
+        p = [c.data_ptr() for c in cs]
+        ptrs += [None, *p, None] if width == 5 and len(cs) == 3 else p
+    ptrs += [None] * (width * (4 - x.ndim))
+    return (lib, (ctypes.c_void_p * (3 * width))(*ptrs),
+            torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def axis_stencil(coeffs, x: torch.Tensor) -> torch.Tensor:
@@ -116,7 +133,10 @@ def axis_stencil(coeffs, x: torch.Tensor) -> torch.Tensor:
         x: field values ``(vdim, *nx)``.
 
     A CPU tensor goes to the plain ``apply_axis_stencil``; a CUDA tensor
-    launches the kernel on the current stream, or raises."""
+    launches the kernel on the current stream, or raises. An equation with
+    a 5-point axis goes to ``axis_stencil5``."""
+    if any(len(cs) == 5 for cs in coeffs):
+        return axis_stencil5(coeffs, x)
     if x.device.type == "cpu":
         return apply_axis_stencil(coeffs, x)
     lib, cptrs, stream = _cuda_launch_args("axis_stencil", coeffs, x)
@@ -159,5 +179,28 @@ def axis_stencil_dot(coeffs, x: torch.Tensor):
     return out, partial.sum(dim=1).reshape(vdim, 1, 1, 1)
 
 
+def axis_stencil5(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """``sum_a`` of each axis' 5-point ``app x[+2] + ap x[+1] + ac x + am
+    x[-1] + amm x[-2]`` (or 3-point ``(ap, ac, am)``) terms, torus wrap.
+
+    A CPU tensor goes to the plain ``apply_axis_stencil``; a CUDA tensor
+    launches the 5-point kernel on the current stream, or raises."""
+    if x.device.type == "cpu":
+        return apply_axis_stencil(coeffs, x)
+    lib, cptrs, stream = _cuda_launch_args("axis_stencil5", coeffs, x, points=(3, 5))
+    ndim = x.ndim - 1
+    n = list(x.shape[1:]) + [1] * (3 - ndim)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.pyapes_axis_stencil5(
+            _DTYPE_CODE[x.dtype], ndim, x.shape[0], *n,
+            x.data_ptr(), out.data_ptr(), cptrs, stream,
+        )
+    cuda_build.check(lib, err, "axis_stencil5")
+    axis_stencil5.launches += 1
+    return out
+
+
 axis_stencil.launches = 0
 axis_stencil_dot.launches = 0
+axis_stencil5.launches = 0

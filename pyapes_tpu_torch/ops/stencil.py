@@ -6,12 +6,14 @@ separable per axis and vary only along that axis, so the stencil is stored
 as per-axis 1-D vectors ``(ap, ac, am)`` of length ``nx[axis]`` (built on
 the host in float64, then cast) and applied as a sum over axes.
 
-``apply_axis_stencil`` / ``apply_axis_stencil_dot``, the Jacobi family
-``apply_jacobi3d`` / ``apply_jacobi3d_dot`` / ``apply_jacobi3d_x2`` and
-the variable-Γ pair ``apply_diff_field`` / ``apply_diff_jacobi`` here
-are the PLAIN PyTorch versions of the Hopper kernels in
-``ops/axis_stencil.py``, ``ops/jacobi.py`` and ``ops/diff_field.py``: the
-CPU path, and the oracles the kernels are held against on the card. Like
+``apply_axis_stencil`` (3- and 5-point axes) / ``apply_axis_stencil_dot``,
+the Jacobi family ``apply_jacobi3d`` / ``apply_jacobi3d_dot`` /
+``apply_jacobi3d_x2``, the variable-Γ pair ``apply_diff_field`` /
+``apply_diff_jacobi`` and the per-point advection pair
+``apply_div_field`` / ``apply_conv_field`` here are the PLAIN PyTorch
+versions of the Hopper kernels in ``ops/axis_stencil.py``,
+``ops/jacobi.py``, ``ops/diff_field.py`` and ``ops/advect.py``: the CPU
+path, and the oracles the kernels are held against on the card. Like
 the JAX kernels they compute in ``promote(dtype, float32)`` and round only
 the output to the storage dtype (bf16 storage: f32 arithmetic).
 """
@@ -307,6 +309,200 @@ def _eliminate_boundary_node(ap, ac, am, lower: bool) -> None:
         ac[-2] += (4.0 / 3.0) * c0
         am[-2] += -(1.0 / 3.0) * c0
         ap[-2] = 0.0
+
+
+def div_axis_coeffs(mesh, bcs, gamma: float, limiter: str = "none", dtype=None) -> tuple:
+    """Per-axis divergence coefficients for a spatially constant advection
+    ``gamma``, with BC surgery, as host numpy (the JAX package's
+    ``div_axis_coeffs``, built in float64 by the same code, then cast).
+
+    * ``"none"`` (central): ``(gamma, 0, -gamma) / (2 dx)``;
+    * ``"upwind"``: ``gamma_max (phi_i - phi_{i-1}) / dx + gamma_min
+      (phi_{i+1} - phi_i) / dx``;
+    * ``"quick"``: the 3rd-order upwind-biased QUICK 5-vectors ``(app, ap,
+      ac, am, amm)``, first-order upwind on the boundary-adjacent rows.
+
+    ``div_axis_coeffs(mesh, None, 1.0, "none")`` are the geometry-only base
+    vectors of the per-point advection operators (``apply_div_field``)."""
+    dtype = np_dtype(dtype or mesh.dtype.float)
+    rz = mesh.coord_sys == "rz"
+    out = []
+    g_min = min(gamma, 0.0)
+    g_max = max(gamma, 0.0)
+    for j in range(mesh.dim):
+        n = mesh.nx[j]
+        dxj = float(mesh.dx_np[j])
+        if limiter == "none":
+            ap = gamma * np.ones(n)
+            ac = np.zeros(n)
+            am = -gamma * np.ones(n)
+            if rz and j == 0:
+                r = np.asarray(mesh._x_np[0])
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    ac = gamma * np.nan_to_num(2.0 * dxj / r, nan=0.0, posinf=0.0, neginf=0.0)
+        elif limiter in ("upwind", "quick"):
+            up_ap = 2.0 * g_min * np.ones(n)
+            up_ac = 2.0 * (g_max - g_min) * np.ones(n)
+            up_am = -2.0 * g_max * np.ones(n)
+            rz_term = np.zeros(n)
+            if rz and j == 0:
+                r = np.asarray(mesh._x_np[0])
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    rz_term = 2.0 * gamma * np.nan_to_num(
+                        dxj / r, nan=0.0, posinf=0.0, neginf=0.0
+                    )
+            if limiter == "upwind":
+                ap, ac, am = up_ap, up_ac + rz_term, up_am
+                app = amm = None
+            else:
+                # QUICK face interpolation, advective form (pre 1/(2 dx))
+                app = (-g_min / 4.0) * np.ones(n)
+                ap = ((3 * g_max + 7 * g_min) / 4.0) * np.ones(n)
+                ac = (3 * (g_max - g_min) / 4.0) * np.ones(n) + rz_term
+                am = (-(7 * g_max + 3 * g_min) / 4.0) * np.ones(n)
+                amm = (g_max / 4.0) * np.ones(n)
+                for idx in (1, -2):  # the +-2 reach would cross the face
+                    ap[idx] = up_ap[idx]
+                    ac[idx] = up_ac[idx] + rz_term[idx]
+                    am[idx] = up_am[idx]
+                    app[idx] = 0.0
+                    amm[idx] = 0.0
+        else:
+            raise NotImplementedError(f"div: limiter {limiter} not supported")
+        for bc in _aligned_bcs(bcs, j):
+            if bc.bc_type in ("neumann", "symmetry"):
+                _eliminate_boundary_node(ap, ac, am, bc.bc_n_dir < 0)
+        scale = 2.0 * dxj
+        vecs = (app, ap, ac, am, amm) if limiter == "quick" else (ap, ac, am)
+        out.append(tuple(np.asarray(c / scale, dtype=dtype) for c in vecs))
+    return tuple(out)
+
+
+def _adv_axis_coeffs(a, base, j: int, limiter: str, form: str, kinds):
+    """Per-point coefficients ``(cpp, cp, cc, cm, cmm)`` (``cpp``/``cmm``
+    None unless QUICK) of mesh axis ``j`` for the advecting component ``a``
+    (``(*nx)``, compute dtype) and the axis' geometry-only base vectors
+    ``(ap0, ac0, am0)``, with the boundary-row surgery of ``kinds`` =
+    ``(lower, upper)`` applied IN SEQUENCE (the upper edit reads what the
+    lower one left: on a 3-node axis both edit row 1), as the JAX
+    package's ``apply_div_field``/``apply_conv_field``."""
+    shape = [1] * a.ndim
+    shape[j] = -1
+    apb, acb, amb = (c.to(a.dtype).reshape(shape) for c in base)
+    inv_2dx = apb.abs()  # |ap0| == 1/(2 dx_j)
+    cpp = cmm = None
+    if limiter == "none":
+        if form == "conservative":  # flux form: neighbour advection
+            cp = apb * torch.roll(a, -1, j)
+            cm = amb * torch.roll(a, 1, j)
+        else:  # advective form a d(phi)/dx
+            cp = apb * a
+            cm = amb * a
+        cc = acb * a
+    elif limiter in ("upwind", "quick"):
+        g_min = torch.clamp(a, max=0.0)
+        g_max = torch.clamp(a, min=0.0)
+        up_cp = 2.0 * inv_2dx * g_min
+        up_cc = 2.0 * inv_2dx * (g_max - g_min) + acb * a
+        up_cm = -2.0 * inv_2dx * g_max
+        if limiter == "upwind":
+            cp, cc, cm = up_cp, up_cc, up_cm
+        else:
+            s = 2.0 * inv_2dx  # == 1/dx
+            cpp = -s * g_min / 8.0
+            cp = s * (3 * g_max + 7 * g_min) / 8.0
+            cc = s * 3 * (g_max - g_min) / 8.0 + acb * a
+            cm = -s * (7 * g_max + 3 * g_min) / 8.0
+            cmm = s * g_max / 8.0
+            for idx in (1, -2):  # first-order upwind next to the faces
+                sel = _row(j, idx)
+                cp[sel] = up_cp[sel]
+                cc[sel] = up_cc[sel]
+                cm[sel] = up_cm[sel]
+                cpp[sel] = 0.0
+                cmm[sel] = 0.0
+    else:
+        raise NotImplementedError(f"advection: limiter {limiter} not supported")
+    lo, up = kinds  # cp, cc, cm are fresh full-grid tensors: edited in place
+    if lo == "neumann":  # boundary-node elimination (_eliminate_boundary_node)
+        sel = _row(j, 1)
+        c0 = cm[sel].clone()
+        cc[sel] += (4.0 / 3.0) * c0
+        cp[sel] += -(1.0 / 3.0) * c0
+        cm[sel] = 0.0
+    elif lo == "periodic":
+        cm[_row(j, 1)] = 0.0
+    if up == "neumann":
+        sel = _row(j, -2)
+        c0 = cp[sel].clone()
+        cc[sel] += (4.0 / 3.0) * c0
+        cm[sel] += -(1.0 / 3.0) * c0
+        cp[sel] = 0.0
+    elif up == "periodic":
+        cp[_row(j, -2)] = 0.0
+    return cpp, cp, cc, cm, cmm
+
+
+def _adv_term(x, coeffs, ax: int):
+    """``sum_o c_o x[+o]`` along array axis ``ax`` (torus wrap)."""
+    cpp, cp, cc, cm, cmm = coeffs
+    term = cp * torch.roll(x, -1, ax) + cc * x + cm * torch.roll(x, 1, ax)
+    if cpp is not None:
+        term = term + cpp * torch.roll(x, -2, ax) + cmm * torch.roll(x, 2, ax)
+    return term
+
+
+def apply_div_field(x, adv, base_coeffs, limiter: str, surgery, form: str = "conservative"):
+    """Divergence with a spatially varying advecting field (plain version
+    of ``pallas_advect.py::pallas_advect_pair``; the JAX package's
+    ``apply_div_field``): a scalar field summed over ``(axis, component)``
+    diagonal pairs, shape ``(1, *nx)``.
+
+    Axis j advects component ``j`` of ``x`` with ``adv[j]`` (a scalar
+    target: ``x[0]`` with ``adv[0]`` on every axis; a one-component
+    ``adv`` drives every axis).
+
+    Args:
+        x: target ``(vdim, *nx)``.
+        adv: advecting values ``(vdim | 1, *nx)``.
+        base_coeffs: per axis the geometry-only ``(ap0, ac0, am0)`` 1-D
+            tensors (``div_axis_coeffs(mesh, None, 1.0, "none")``).
+        limiter: "none" (central), "upwind" or "quick".
+        surgery: per-axis ``(lower, upper)`` kinds "none" / "neumann" /
+            "periodic" (``div_surgery_info``).
+        form: "conservative" (flux form, neighbour advection) or
+            "advective" (central only).
+
+    Computes in ``promote(dtype, f32)`` and rounds once."""
+    cdt = _cdt(x.dtype)
+    xc, ac = x.to(cdt), adv.to(cdt)
+    vdim = x.shape[0]
+    out = torch.zeros_like(xc[:1])
+    for j in range(x.ndim - 1):
+        i = j if vdim > 1 else 0
+        a = ac[i] if ac.shape[0] > 1 else ac[0]
+        coeffs = _adv_axis_coeffs(a, base_coeffs[j], j, limiter, form, surgery[j])
+        out = out + _adv_term(xc[i], coeffs, j)[None]
+    return out.to(x.dtype)
+
+
+def apply_conv_field(x, adv, base_coeffs, limiter: str, surgery):
+    """Convection ``u_j d(phi_i)/dx_j`` per component (plain version of
+    ``pallas_advect.py::pallas_conv_component``; the JAX package's
+    ``apply_conv_field``): advective form, axis j advected by ``adv[j]``.
+
+    ``x``: ``(vdim, *nx)``; ``adv``: ``(dim, *nx)``; other arguments as
+    ``apply_div_field``. Computes in ``promote(dtype, f32)``, rounds once."""
+    nd = x.ndim - 1
+    if adv.shape[0] != nd:
+        raise ValueError("conv: adv needs one component per mesh axis")
+    cdt = _cdt(x.dtype)
+    xc, ac = x.to(cdt), adv.to(cdt)
+    out = torch.zeros_like(xc)
+    for j in range(nd):
+        coeffs = _adv_axis_coeffs(ac[j], base_coeffs[j], j, limiter, "advective", surgery[j])
+        out = out + _adv_term(xc, tuple(None if c is None else c[None] for c in coeffs), 1 + j)
+    return out.to(x.dtype)
 
 
 def laplacian_axis_coeffs(mesh, bcs, dtype=None) -> tuple:

@@ -1,9 +1,10 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
-``poisson`` and ``darcy`` subcommands).
+``poisson``, ``darcy`` and ``burgers`` subcommands).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --device cuda
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg --device cuda
     python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic --device cuda
+    python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100 --device cuda
 
 ``--mg`` asks for MG-preconditioned CG explicitly (``method: "cg",
 precond: "mg"``); without it the separable problem takes the fastdiag
@@ -14,6 +15,11 @@ MG-PCG through a fault of its fastdiag probe; see ROADMAP.)
 conservative variable-Γ Laplacian, Γ-aware MG-BiCGSTAB, pressure 1 / 0 on
 the x faces, zero-flux y faces); it adds the inlet/outlet fluxes, the
 effective permeability and its Wiener (harmonic/arithmetic mean) bounds.
+
+``burgers`` steps the 1-D viscous Burgers model on the periodic ``[0,
+2π]`` (``nu = 0.1``, backward Euler, Picard-linearized advection, the FD
+preconditioner), as the JAX runner; it adds ``steps`` and the final
+time ``t``.
 
 Each prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``,
 the JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
@@ -90,6 +96,26 @@ def _run_darcy(args) -> dict:
     }
 
 
+def _run_burgers(args) -> dict:
+    from math import pi
+
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import Burgers1D
+
+    mesh = Mesh(Box[0 : 2 * pi], None, [args.n], device=args.device, dtype=args.dtype)
+    model = Burgers1D(mesh, nu=0.1)
+    tic = time.perf_counter()
+    for _ in range(args.steps):
+        model.step(args.dt)
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+    return {"wall_s": wall, "steps": args.steps, "t": model.var.t}
+
+
 def run(argv=None) -> dict:
     """Parse the command line ``argv`` and run its case; returns the
     JSON-able result that ``main`` prints."""
@@ -117,8 +143,12 @@ def run(argv=None) -> dict:
     sd.add_argument("--avg", default="arithmetic", choices=["arithmetic", "harmonic"],
                     help="face-transmissibility rule")
 
+    sb = sub.add_parser("burgers", parents=[common])
+    sb.add_argument("--dt", type=float, default=0.01)
+    sb.add_argument("--steps", type=int, default=100)
+
     args = p.parse_args(argv)
-    return (_run_darcy if args.case == "darcy" else _run_poisson)(args)
+    return {"poisson": _run_poisson, "darcy": _run_darcy, "burgers": _run_burgers}[args.case](args)
 
 
 def main(argv=None) -> None:

@@ -166,3 +166,38 @@ class FastDiag:
         else:
             y = y / sym[None]
         return self._transform(self.inv, y)
+
+
+class FDPrecond:
+    """Fast-diagonalization PRECONDITIONER of the Krylov loops (the JAX
+    package's ``FDPrecond``): the same eigen-solve as the direct method,
+    applied to the residual's active set, ``z = (c_ax sum_j T_j + c_dt
+    I)^{-1} r``. The equation scalars (``c_ax``, ``c_dt = 1/dt``) are
+    staged per solve call through ``set_scalars`` (the Krylov loops'
+    ``precond_setup`` hook), so a new ``dt`` or coefficient is used at once
+    and never re-factorizes.
+
+    ``pre_scale``: the CG row scale's inverse ``1/D`` on the active set
+    (``(1, *active)``), or None: the CG loop solves ``D A x = D b``, whose
+    inverse is ``A^{-1} D^{-1}``."""
+
+    def __init__(self, fd: FastDiag, act_sel, pseudo: bool = False, pre_scale=None):
+        self.fd = fd
+        self.act_sel = act_sel
+        self.pseudo = pseudo
+        self.pre_scale = pre_scale
+        self.c_ax = 1.0
+        self.c_dt = 0.0
+
+    def set_scalars(self, c_ax, c_dt) -> None:
+        self.c_ax = c_ax
+        self.c_dt = c_dt
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        ra = r[self.act_sel]
+        if self.pre_scale is not None:
+            ra = ra * self.pre_scale
+        e = self.fd.solve(ra.contiguous(), self.c_ax, self.c_dt, pseudo=self.pseudo)
+        z = torch.zeros_like(r)
+        z[self.act_sel] = e
+        return z

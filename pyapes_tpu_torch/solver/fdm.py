@@ -1,14 +1,18 @@
-"""Implicit-operator DSL ``FDM`` (OpenFOAM ``fvm``-like), PyTorch port of the
-slice-1 part of ``pyapes_tpu/solver/fdm.py``.
+"""Implicit-operator DSL ``FDM`` (OpenFOAM ``fvm``-like), PyTorch port of
+``pyapes_tpu/solver/fdm.py``.
 
 The DSL surface is the JAX package's — ``solver.set_eq(fdm.laplacian(1.0,
 var) == rhs)`` builds an equation record — and each operator stores the
-per-axis structured stencil (host numpy vectors; ``ops/stencil.py``).
+per-axis structured stencil (host numpy vectors; ``ops/stencil.py``) or,
+for a per-point coefficient, the operand the kernels stream.
 
-Ported: ``Operators`` and the ``Laplacian`` with a scalar coefficient or
-a spatially varying one (the conservative variable-Γ operator, isotropic
-or diagonal-tensor Γ). ``grad``, ``div``, ``conv``, ``custom`` and ``ddt``
-are ported in later slices and raise ``NotImplementedError``.
+Ported: ``Operators``, the ``Laplacian`` with a scalar coefficient or a
+spatially varying one (the conservative variable-Γ operator, isotropic or
+diagonal-tensor Γ), ``Div`` (constant advection: 3- or 5-point axis
+vectors; an advecting field: the per-point ``div_field`` term), ``Conv``
+(the vector convection ``conv_field`` term) and ``Ddt`` (backward Euler,
+BDF2). ``grad`` and ``custom`` are ported in later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,10 +22,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
 from pyapes_tpu_torch.ops.diff_field import diff_field
-from pyapes_tpu_torch.ops.stencil import div_surgery_info, laplacian_axis_coeffs
-from pyapes_tpu_torch.solver.fdc import FDC
+from pyapes_tpu_torch.ops.stencil import (
+    div_axis_coeffs,
+    div_surgery_info,
+    laplacian_axis_coeffs,
+)
+from pyapes_tpu_torch.solver.fdc import FDC, conv_rhs_adjust
 from pyapes_tpu_torch.solver.types import DiscretizerConfigType, OPStype
 from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
 from pyapes_tpu_torch.variables import Field
@@ -219,6 +228,176 @@ class Laplacian(Operators):
         return out if coeff is None else out * coeff
 
 
+def _adv_tensor(u, var: Field) -> torch.Tensor:
+    """An advecting argument (Field, tensor or array) as a tensor in the
+    target's dtype and device, frozen at equation-build time."""
+    x = var()
+    a = u() if isinstance(u, Field) else u
+    return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+
+
+class Div(Operators):
+    r"""Implicit divergence :math:`\partial_j (u_j \phi_i)` (reference
+    ``fdm.py:321-402``).
+
+    * Constant advection (float): the coefficients fold into the per-axis
+      stencil (central, upwind, or QUICK's 5-vectors).
+    * Field/array advection: the advecting values are FROZEN at
+      equation-build time and multiplied in at apply time (Picard
+      linearization; outer sweeps via the solver's ``picard`` config) —
+      the per-point ``div_field`` term.
+    """
+
+    def __call__(self, *inputs: Any) -> "Div":
+        if len(inputs) == 2:
+            var_j, var_i = inputs
+        elif len(inputs) == 1:
+            var_j, var_i = 1.0, inputs[0]
+        else:
+            raise TypeError("FDM: invalid input type!")
+        assert isinstance(var_i, Field), "FDM Div: var_i must be a Field!"
+        if isinstance(var_j, int):
+            var_j = float(var_j)
+        config = self.config or {"div": {"limiter": "none", "edge": False}}
+        limiter = config.get("div", {}).get("limiter", "none")
+        form = config.get("div", {}).get("form", "conservative")
+        self._var_i = var_i
+        mesh = var_i.mesh
+        if isinstance(var_j, float):
+            axis_coeffs = div_axis_coeffs(mesh, var_i.bcs, var_j, limiter)
+            adv = base = surgery = None
+        else:
+            adv = _adv_tensor(var_j, var_i)
+            axis_coeffs = None
+            base = div_axis_coeffs(mesh, None, 1.0, "none")
+            surgery = div_surgery_info(var_i.bcs, mesh.dim)
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop,
+                "target": var_i,
+                "param": (var_j, config),
+                "sign": 1.0,
+                "other": {"base": base, "surgery": surgery, "form": form},
+                "axis_coeffs": axis_coeffs,
+                "A_coeffs": None,
+                "adv": adv,
+                "limiter": limiter,
+                "dt": None,
+                "adjust_rhs": lambda vj=var_j, vi=var_i, cfg=config: FDC(cfg).div.adjust_rhs(
+                    vj, vi, cfg),
+            }
+        }
+        return self
+
+    @property
+    def var(self) -> Field:
+        return self._var_i
+
+    @staticmethod
+    def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
+        if rec["adv"] is None:
+            return axis_stencil(coeffs_from_numpy(rec["axis_coeffs"], x.device, x.dtype), x)
+        o = rec["other"]
+        return advect_pair(x, rec["adv"].to(x.dtype).contiguous(),
+                           coeffs_from_numpy(o["base"], x.device, x.dtype), rec["limiter"],
+                           o["surgery"], o["form"])
+
+
+class Conv(Operators):
+    r"""Implicit convection :math:`u_j \partial \phi_i / \partial x_j` for
+    vector targets (reference ``fdm.py:405-468``): advective form, one
+    advecting component per MESH AXIS, frozen at equation-build time (the
+    ``conv_field`` term)."""
+
+    def __call__(self, u, var: Field) -> "Conv":
+        assert isinstance(var, Field), "FDM Conv: var must be a Field!"
+        adv = _adv_tensor(u, var)
+        assert adv.shape[0] == var.mesh.dim, (
+            "FDM Conv: advecting field needs one component per mesh axis"
+        )
+        config = self.config or {"div": {"limiter": "none", "edge": False}}
+        limiter = config.get("div", {}).get("limiter", "none")
+        mesh = var.mesh
+        self._var = var
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop,
+                "target": var,
+                "param": (u, config),
+                "sign": 1.0,
+                "other": {"base": div_axis_coeffs(mesh, None, 1.0, "none"),
+                          "surgery": div_surgery_info(var.bcs, mesh.dim), "form": "advective"},
+                "axis_coeffs": None,
+                "A_coeffs": None,
+                "adv": adv,
+                "limiter": limiter,
+                "dt": None,
+                "adjust_rhs": lambda a=adv, v=var, lim=limiter: conv_rhs_adjust(a, v, lim),
+            }
+        }
+        return self
+
+    @property
+    def var(self) -> Field:
+        return self._var
+
+    @staticmethod
+    def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
+        o = rec["other"]
+        return conv_component(x, rec["adv"].to(x.dtype).contiguous(),
+                              coeffs_from_numpy(o["base"], x.device, x.dtype), rec["limiter"],
+                              o["surgery"])
+
+
+class Ddt(Operators):
+    r"""Implicit time derivative (reference ``fdm.py:530-575``): backward
+    Euler contributes ``x / dt`` to the operator and ``var_old / dt`` to the
+    RHS; BDF2 (``scheme="bdf2"``) ``1.5 x / dt`` and ``(2 var_old - 0.5
+    var_oold) / dt``, bootstrapping as backward Euler until two history
+    levels exist."""
+
+    def __call__(self, var: Field, scheme: str = "euler") -> "Ddt":
+        dt = var.dt  # raises if not set
+        assert scheme in ("euler", "bdf2")
+        self._var = var
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop,
+                "target": var,
+                "param": (dt,),
+                "sign": 1.0,
+                "other": {"scheme": scheme},
+                "axis_coeffs": None,
+                "A_coeffs": None,
+                "adv": None,
+                "limiter": None,
+                "dt": dt,
+                "adjust_rhs": None,
+            }
+        }
+        return self
+
+    @property
+    def var(self) -> Field:
+        return self._var
+
+    @staticmethod
+    def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
+        """Linear part only: ``c0 x / dt`` (c0 = 1.5 for active BDF2)."""
+        return ddt_leading_coeff(rec) * x / rec["dt"]
+
+
+def ddt_leading_coeff(rec) -> float:
+    """1.5 when BDF2 is requested AND two history levels exist, else 1.0
+    (reference ``fdm.py:577-584``)."""
+    if (rec["other"] or {}).get("scheme") != "bdf2":
+        return 1.0
+    return 1.5 if rec["target"].n_hist >= 2 else 1.0
+
+
 class _Unported(Operators):
     """An FDM operator of a later slice: calling it raises."""
 
@@ -237,8 +416,11 @@ class FDM:
     def __init__(self, config: DiscretizerConfigType | None = None) -> None:
         self.laplacian = Laplacian()
         self.grad = _Unported("grad")
-        self.div = _Unported("div")
-        self.conv = _Unported("conv")
+        self.div = Div()
+        self.conv = Conv()
         self.custom = _Unported("custom")
-        self.ddt = _Unported("ddt")
+        self.ddt = Ddt()
         self.config = config
+        if config is not None:
+            self.div.update_config(config)
+            self.conv.update_config(config)

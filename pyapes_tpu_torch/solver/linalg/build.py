@@ -1,9 +1,11 @@
 """Solver assembly (port of ``pyapes_tpu/solver/linalg.py::_build_solver``
 and ``_make_mg_spec``): the active-set mask, the operator over the stencil
-kernels, the eigen-factors and refinement loop of fastdiag, and the
-CG/BiCGSTAB loops with the multigrid preconditioner (Γ-aware for
-variable-Γ terms, streamed in by ``precond_setup``), the symmetrizing row
-scale of Neumann faces and the fused operator/preconditioner dots."""
+and advection kernels, the eigen-factors and refinement loop of fastdiag,
+and the CG/BiCGSTAB loops with the multigrid preconditioner (Γ-aware for
+variable-Γ terms, streamed in by ``precond_setup``) or the
+fast-diagonalization preconditioner (its equation scalars streamed the
+same way), the symmetrizing row scale of Neumann faces and the fused
+operator/preconditioner dots."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -14,9 +16,10 @@ import torch
 
 from pyapes_tpu_torch.backend import np_dtype
 from pyapes_tpu_torch.mesh.tools import interior_mask_device
+from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot
 from pyapes_tpu_torch.ops.diff_field import diff_field
-from pyapes_tpu_torch.solver.fastdiag import FastDiag, axis_matrix_np
+from pyapes_tpu_torch.solver.fastdiag import FastDiag, FDPrecond, axis_matrix_np
 from pyapes_tpu_torch.solver.linalg.bicgstab_loop import build_bicgstab
 from pyapes_tpu_torch.solver.linalg.cg_loop import build_cg
 from pyapes_tpu_torch.solver.linalg.fastdiag_loop import build_fastdiag
@@ -28,6 +31,12 @@ from pyapes_tpu_torch.variables.bcs import apply_bcs_fn
 # every solve of the same structure. Bounded LRU.
 _MG_CACHE: OrderedDict = OrderedDict()
 _MG_CACHE_MAX = 8
+# Eigen-factors by CONTENT: the per-axis matrices' bytes, dtype and device
+# are all they depend on, so a time-stepping or repeated solve (a new dt
+# included: it streams through the symbol) re-factorizes nothing. Bounded
+# LRU.
+_FD_CACHE: OrderedDict = OrderedDict()
+_FD_CACHE_MAX = 16
 
 
 class _MaskSpec:
@@ -42,36 +51,46 @@ class _MaskSpec:
 
 
 def _make_Aop(term_descs, stencil_fn=axis_stencil) -> Callable:
-    """``Aop(x, tparams) = sum_terms sign * param * stencil(x)``. Every
-    3-point axis term goes through ``stencil_fn`` and every variable-Γ term
-    through ``diff_field`` — the Hopper kernels on a CUDA tensor (for every
-    grid shape; the JAX package's "auto" gate used its kernels only for
-    TPU-aligned shapes)."""
+    """``Aop(x, tparams) = sum_terms sign * term(x)``: an axis term is
+    ``param * stencil_fn(x)`` (a 5-point axis goes to the 5-point kernel),
+    a variable-Γ term ``diff_field``, a per-point advection term
+    ``advect_pair`` (Div) or ``conv_component`` (Conv), a ddt term ``x *
+    inv_dt`` — the Hopper kernels on a CUDA tensor, for every grid shape
+    (the JAX package's "auto" gate used its kernels only for TPU-aligned
+    shapes). A Div's ``(1, *nx)`` contribution broadcasts over the
+    components, as in the JAX package."""
 
     def Aop(x, tparams):
         out = None
-        for (kind, _, sign, has_param, surgery, form), tp in zip(term_descs, tparams):
-            if kind == "diff_field":
+        for (kind, _, sign, has_param, surgery, form, limiter), tp in zip(term_descs, tparams):
+            scale = sign
+            if kind == "ddt":
+                r, scale = x, sign * tp["inv_dt"]
+            elif kind == "diff_field":
                 r = diff_field(x, tp["gamma"], form[0], surgery, form[1])
+            elif kind == "div_field":
+                r = advect_pair(x, tp["adv"], tp["base"], limiter, surgery, form)
+            elif kind == "conv_field":
+                r = conv_component(x, tp["adv"], tp["base"], limiter, surgery)
             else:
                 r = stencil_fn(tp["axis"], x)
-            scale = sign * (tp["param"] if has_param else 1.0)
+                if has_param:
+                    scale = sign * tp["param"]
             if scale != 1.0:
                 r = r * scale
             out = r if out is None else out + r
-        return out
+        return out if out.shape == x.shape else out.expand(x.shape).contiguous()
 
     return Aop
 
 
-def _neumann_row_scale_vecs(mesh, bcs) -> tuple[list[np.ndarray], bool]:
-    """Per-axis row-scale vectors for the Neumann/Symmetry elimination
-    asymmetry (``A[1,2]=2/3`` vs ``A[2,1]=1``; 3/2 on the surgered rows).
-    Returns ``(dvs, any_scale)``."""
+def _neumann_row_scale_vecs(nx, bcs) -> tuple[list[np.ndarray], bool]:
+    """Per-axis row-scale vectors (``nx``: the solve's grid) for the
+    Neumann/Symmetry elimination asymmetry (``A[1,2]=2/3`` vs
+    ``A[2,1]=1``; 3/2 on the surgered rows). Returns ``(dvs, any_scale)``."""
     dvs = []
     any_scale = False
-    for j in range(mesh.dim):
-        n = mesh.nx[j]
+    for j, n in enumerate(nx):
         dv = np.ones(n)
         for bc in bcs:
             if bc.bc_type in ("neumann", "symmetry") and bc.bc_face_dim == j:
@@ -95,24 +114,110 @@ def _null_shift_field(vecs, device):
     return build
 
 
+def _ids(term_descs, kind: str) -> list[int]:
+    return [i for i, d in enumerate(term_descs) if d[0] == kind]
+
+
 def fd_separable(term_descs, tparams) -> bool:
     """Whether the equation is exactly one constant-coefficient 3-point
-    axis term — the Kronecker sum the direct solve inverts."""
+    axis term plus any number of ddt terms — the Kronecker sum (shifted by
+    ``c_dt I``) the direct solve inverts."""
+    ax = _ids(term_descs, "axis")
     return (
-        len(term_descs) == 1
-        and term_descs[0][0] == "axis"
-        and all(len(cs) == 3 for cs in tparams[0]["axis_np"])
+        len(ax) == 1
+        and all(d[0] in ("axis", "ddt") for d in term_descs)
+        and all(len(cs) == 3 for cs in tparams[ax[0]]["axis_np"])
     )
 
 
-def fastdiag_factors(tparams, slicer, dtype, device) -> FastDiag:
-    """Eigen-factors of the (separable) active-set operator: host ``eigh``
-    of one n x n matrix per axis, uploaded to ``device``."""
-    mats = [
-        axis_matrix_np(*cs, active=sl, periodic=False)
-        for cs, sl in zip(tparams[0]["axis_np"], slicer)
-    ]
-    return FastDiag(mats, dtype=dtype, device=device)
+def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fastdiag"):
+    """The axis terms the fast-diagonalization solve inverts and the one
+    whose scalar streams (``linalg.py::_fd_setup``): the DIRECT solve needs
+    one 3-point axis term plus ddt terms; the PRECONDITIONER also takes
+    other terms and leaves the non-separable ones out, and with several
+    axis terms sums their matrices with the current ``sign * param``
+    weights frozen in (``c_ax`` then pins to 1; ``c_dt`` streams). Returns
+    ``(terms, i_ax)``, ``terms`` the ``(weight, axis_np)`` pairs whose
+    weighted per-axis matrices sum to the inverted operator. Raises
+    ValueError for what it cannot take."""
+    ax_ids, ddt_ids = _ids(term_descs, "axis"), _ids(term_descs, "ddt")
+    exact_ax = len(ax_ids) == 1 and len(ax_ids) + len(ddt_ids) == len(term_descs)
+    ok = (ax_ids and (exact_ax or for_precond)
+          and all(len(cs) == 3 for i in ax_ids for cs in tparams[i]["axis_np"]))
+    if not ok:
+        raise ValueError(
+            f"{why}: equation must be one 3-point axis term (laplacian) plus ddt terms with "
+            "scalar coefficients"
+            + (" (precond 'fd' also accepts extra terms, which it leaves out)" if for_precond
+               else "")
+        )
+    if len(ax_ids) == 1:
+        return ((1.0, tparams[ax_ids[0]]["axis_np"]),), ax_ids[0]
+    return tuple((term_descs[i][2] * (tparams[i]["param"] if term_descs[i][3] else 1.0),
+                  tparams[i]["axis_np"]) for i in ax_ids), None
+
+
+def fastdiag_factors(terms, slicer, paxes, dtype, device) -> FastDiag:
+    """Eigen-factors of the summed, weighted per-axis active-set matrices
+    of ``terms`` (host ``eigh``, uploaded to ``device``), cached by the
+    coefficient vectors, weights, active set, periodic axes, dtype and
+    device — all they depend on; a new ``dt`` streams through the symbol
+    and re-factorizes nothing. Raises ValueError when an axis is not
+    diagonally symmetrizable."""
+    key = (str(dtype), str(device), tuple((s.start, s.stop) for s in slicer), tuple(paxes),
+           tuple((w, tuple((c.dtype.str, c.tobytes()) for cs in axis_np for c in cs))
+                 for w, axis_np in terms))
+    if key not in _FD_CACHE:
+        mats = None
+        for w, axis_np in terms:
+            mi = [w * axis_matrix_np(*cs, active=sl, periodic=j in paxes)
+                  for j, (cs, sl) in enumerate(zip(axis_np, slicer))]
+            mats = mi if mats is None else [a + m for a, m in zip(mats, mi)]
+        _FD_CACHE[key] = FastDiag(mats, dtype=dtype, device=device)
+        while len(_FD_CACHE) > _FD_CACHE_MAX:
+            _FD_CACHE.popitem(last=False)
+    _FD_CACHE.move_to_end(key)
+    return _FD_CACHE[key]
+
+
+def _fd_scalars(term_descs, i_ax):
+    """``tparams -> (c_ax, c_dt)`` of the eigen-symbol: the streamed axis
+    term's ``sign * param`` (1 when the weights are frozen into the
+    matrices, ``i_ax`` None) and ``sum sign * inv_dt`` of the ddt terms."""
+    ddt = [(term_descs[i][2], i) for i in _ids(term_descs, "ddt")]
+
+    def scalars(tp):
+        c_ax = 1.0
+        if i_ax is not None:
+            c_ax = term_descs[i_ax][2] * (tp[i_ax]["param"] if term_descs[i_ax][3] else 1.0)
+        c_dt = 0.0
+        for s, i in ddt:
+            c_dt = c_dt + s * tp[i]["inv_dt"]
+        return c_ax, c_dt
+
+    return scalars
+
+
+def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=None):
+    """The FD preconditioner and its per-call scalar hook; ``(None, None)``
+    when the equation has no usable separable part and ``fd_fallback`` is
+    set (an unpreconditioned solve, as the JAX package)."""
+    try:
+        terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, for_precond=True,
+                               why="precond 'fd'")
+        fd = fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device)
+    except ValueError:
+        if config.get("fd_fallback"):
+            return None, None
+        raise
+    p = FDPrecond(fd, (slice(None),) + tuple(slicer), pseudo=config.get("nullspace") == "mean",
+                  pre_scale=pre_scale)
+    scalars = _fd_scalars(term_descs, i_ax)
+
+    def setup(tp):
+        p.set_scalars(*scalars(tp))
+
+    return p, setup
 
 
 def _axis_fields(vecs, dim: int, dtype):
@@ -124,7 +229,7 @@ def _axis_fields(vecs, dim: int, dtype):
     )
 
 
-def make_mg_spec(config, x0, bcs, mesh, term_descs) -> MGSpec:
+def make_mg_spec(config, x0, bcs, mesh, term_descs, paxes=()) -> MGSpec:
     """The multigrid spec of ``precond: "mg"`` (``_make_mg_spec`` of the JAX
     package): per-axis face kinds for the level surgery, the Γ-aware
     hierarchy for variable-Γ equations (face rule of the first such term),
@@ -141,6 +246,7 @@ def make_mg_spec(config, x0, bcs, mesh, term_descs) -> MGSpec:
         [float(l) for l in np.asarray(mesh._lx_np)],
         dtype=x0.dtype,
         cycle_dtype=cycle_dtype,
+        paxes=tuple(paxes),
         face_kinds=tuple(tuple(p) for p in fk),
         var_gamma=bool(vg),
         vg_avg=vg[0][5][1] if vg else "arithmetic",
@@ -157,71 +263,62 @@ def make_mg_spec(config, x0, bcs, mesh, term_descs) -> MGSpec:
 
 def _make_Aop_dot(term_descs, tparams, dim: int):
     """The CG operator fused with its alpha-dot, when the equation is one
-    3-point axis term with a scalar coefficient on a 3-D grid (the JAX
-    conditions without its TPU shape gate): ``tparams -> (d -> (A d,
-    sum(d * A d)))`` with the term's ``sign * param`` folded into the
-    coefficient vectors once per solve. None otherwise."""
+    3-point axis term with a scalar coefficient plus any ddt terms on a
+    3-D grid (the JAX conditions without its TPU shape gate): ``tparams ->
+    (d -> (A d, sum(d * A d)))`` with the term's ``sign * param`` folded
+    into the coefficient vectors and the ddt shift ``sum sign * inv_dt``
+    into the axis-0 centre vector, once per solve. None otherwise."""
     if not (dim == 3 and fd_separable(term_descs, tparams)):
         return None
-    sign0, has_p0 = term_descs[0][2:4]
+    i_ax = _ids(term_descs, "axis")[0]
+    sign0, has_p0 = term_descs[i_ax][2:4]
+    shift = _fd_scalars(term_descs, None)
 
     def Aop_dot(tp):
-        scale = sign0 * (tp[0]["param"] if has_p0 else 1.0)
-        coeffs = tuple(tuple((c * scale).contiguous() for c in cs) for cs in tp[0]["axis"])
+        scale = sign0 * (tp[i_ax]["param"] if has_p0 else 1.0)
+        coeffs = [[(c * scale).contiguous() for c in cs] for cs in tp[i_ax]["axis"]]
+        c_dt = shift(tp)[1]
+        if c_dt:
+            coeffs[0][1] = coeffs[0][1] + c_dt
         return lambda d: axis_stencil_dot(coeffs, d)
 
     return Aop_dot
 
 
 def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, criterion,
-                 tol, max_it, slicer, fd=None):
-    """Assemble the solve of ``method`` (``fd``: the fastdiag factors);
-    returns ``fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)`` and
-    the row-scale fields ``sym_vecs`` the RHS must be multiplied by (None:
-    no scaling). Everything here is host work, redone per call, so nothing
-    cached can hold a stale BC or mask (the MG hierarchy is keyed by its
-    structure)."""
-    M = _MaskSpec(tuple(mesh.nx), slicer, x0.dtype, x0.device)
+                 tol, max_it, slicer, paxes=()):
+    """Assemble the solve of ``method`` on the (periodic-reduced) grid of
+    ``x0``; returns ``fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol,
+    hist)`` and the row-scale fields ``sym_vecs`` the RHS must be
+    multiplied by (None: no scaling). Everything here is host work, redone
+    per call, so nothing cached can hold a stale BC, mask or scalar (the
+    MG hierarchy is keyed by its structure, the eigen-factors by their
+    matrices)."""
+    M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device)
     apply_bcs = apply_bcs_fn(bcs, grid)
     Aop = _make_Aop(term_descs)
     project_mean = config.get("nullspace") == "mean"
-    dvs, any_scale = _neumann_row_scale_vecs(mesh, bcs)
-    # variable-Γ terms take no 3/2 row scale: their surgered-row asymmetry
-    # is Γ-dependent, not the fixed 2/3-vs-1 the scale repairs
-    any_scale = any_scale and all(d[0] == "axis" for d in term_descs)
+    act_sel = (slice(None),) + tuple(slicer)
+    dvs, any_scale = _neumann_row_scale_vecs(x0.shape[1:], bcs)
+    # only diffusion/transient equations of constant coefficients take the
+    # 3/2 row scale: a variable-Γ term's surgered-row asymmetry is
+    # Γ-dependent, and advection is nonsymmetric anyway
+    any_scale = any_scale and all(d[1] in ("laplacian", "ddt") and d[0] in ("axis", "ddt")
+                                  for d in term_descs)
 
     if method == "fastdiag":
-        sign0, has_p0 = term_descs[0][2:4]
-
-        def scalars(tp):
-            # (c_ax, c_dt) of the eigen-symbol from this call's term params
-            return sign0 * (tp[0]["param"] if has_p0 else 1.0), 0.0
-
+        terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes)
         null_shift = None
         if project_mean and any_scale:
             null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
         fn = build_fastdiag(
-            Aop, apply_bcs, M, tol, max_it, fd,
-            act_sel=(slice(None),) + slicer,
-            scalars=scalars,
+            Aop, apply_bcs, M, tol, max_it,
+            fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device),
+            act_sel=act_sel,
+            scalars=_fd_scalars(term_descs, i_ax),
             project_mean=project_mean,
             null_shift=null_shift,
         )
-        return fn, None
-
-    mg = (make_mg_spec(config, x0, bcs, mesh, term_descs)
-          if config.get("precond") == "mg" else None)
-    fmg_init = mg.fmg_initializer() if mg is not None and mg.fmg_init else None
-    precond = mg.preconditioner() if mg is not None else None
-    precond_setup = None
-    if mg is not None and mg.var_gamma:
-        i_vg = next(i for i, d in enumerate(term_descs) if d[0] == "diff_field")
-
-        def precond_setup(tp):
-            mg.set_gamma(tp[i_vg]["gamma"])
-    if method == "bicgstab":
-        fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,
-                            fmg_init=fmg_init, precond_setup=precond_setup)
         return fn, None
 
     # Symmetrization row scaling (CG + Neumann/Symmetry faces): the
@@ -230,8 +327,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     # kron_j D_j) restores exact symmetry, so CG on D A x = D b is rigorous
     # and matches the symmetrized V-cycle.
     sym_vecs = None
-    Aop_dot = None
-    if any_scale:
+    if method == "cg" and any_scale:
         sym_vecs = tuple(
             torch.as_tensor(v, device=x0.device)[None]
             for v in _axis_fields(dvs, mesh.dim, x0.dtype)
@@ -243,8 +339,32 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             for d in sym_vecs:
                 out = out * d
             return out
-    else:
-        Aop_dot = _make_Aop_dot(term_descs, tparams, mesh.dim)
+
+    precond_kind = config.get("precond")
+    mg = precond = precond_setup = None
+    if precond_kind in ("fd", "fastdiag"):
+        pre_scale = None
+        if sym_vecs is not None:
+            # the eigen-solve inverts A, so it sees D^-1 r: (D A)^-1 exactly
+            pre_scale = 1.0 / _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype),
+                                                x0.device)()[act_sel]
+        precond, precond_setup = _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0,
+                                                  pre_scale)
+    elif precond_kind == "mg":
+        mg = make_mg_spec(config, x0, bcs, mesh, term_descs, paxes)
+        precond = mg.preconditioner()
+        if mg.var_gamma:
+            i_vg = _ids(term_descs, "diff_field")[0]
+
+            def precond_setup(tp):
+                mg.set_gamma(tp[i_vg]["gamma"])
+    fmg_init = mg.fmg_initializer() if mg is not None and mg.fmg_init else None
+    if method == "bicgstab":
+        fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,
+                            fmg_init=fmg_init, precond_setup=precond_setup)
+        return fn, None
+
+    Aop_dot = _make_Aop_dot(term_descs, tparams, mesh.dim) if sym_vecs is None else None
     # fused dot(r, z): the interior mask is exactly the MG mask here
     precond_dot = mg.preconditioner_dot() if mg is not None and mg.can_fuse_rz() else None
     null_shift = None

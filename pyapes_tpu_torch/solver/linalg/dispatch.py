@@ -1,20 +1,23 @@
 """Linear-solve dispatch (port of ``pyapes_tpu/solver/linalg.py::solve``):
-term records -> descriptors and per-call params, method resolution, the
-content-keyed cache of eigen-factors, and the report.
+term records -> descriptors and per-call params, the torus reduction of
+periodic axes, method resolution, and the report.
 
 Ported: ``method`` ``"fastdiag"``, ``"cg"`` and ``"bicgstab"`` (so the
 ``fd_fallback`` of a non-separable equation resolves to a working
-method), with ``precond`` ``"mg"`` (the multigrid V-cycle, ``mg_opts``) or
-None, on Cartesian grids with Dirichlet, Neumann and Symmetry faces, for
-the constant-coefficient (``axis``) and variable-Γ (``diff_field``)
-Laplacian. The
-FD preconditioner (``precond: "fd"``), periodic axes, obstacles and domain
-decomposition are ported in later slices and raise
-``NotImplementedError`` — never a silent detour to another path.
+method), with ``precond`` ``"mg"`` (the multigrid V-cycle, ``mg_opts``),
+``"fd"`` (the fast-diagonalization preconditioner) or None, on Cartesian
+grids with Dirichlet, Neumann, Symmetry and periodic faces (an axis with
+both faces periodic is solved on the reduced torus: the duplicate seam
+node is dropped, every node is active, the stencil wraps, and the seam is
+re-appended after the solve), for the term kinds ``axis`` (constant
+coefficients, 3- or 5-point), ``diff_field`` (variable-Γ Laplacian),
+``div_field`` / ``conv_field`` (per-point advection) and ``ddt``. MG on a
+periodic axis, obstacles and domain decomposition are ported in later
+slices and raise ``NotImplementedError`` — never a silent detour to
+another path.
 """
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import TypedDict
 
 import numpy as np
@@ -22,10 +25,11 @@ import torch
 
 from pyapes_tpu_torch.mesh.tools import boundary_slicer
 from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np
+from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg.build import (
+    _FD_CACHE,
     _MG_CACHE,
     build_solver,
-    fastdiag_factors,
     fd_separable,
 )
 from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
@@ -40,11 +44,6 @@ class ReportType(TypedDict):
 
 
 _UNPORTED_CONFIG = ("decomp", "debug", "kernel")
-# Eigen-factors by CONTENT: the coefficient vectors' bytes, the active
-# set, dtype and device are all they depend on, so a time-stepping or
-# repeated solve re-factorizes nothing. Bounded LRU.
-_FD_CACHE: OrderedDict = OrderedDict()
-_FD_CACHE_MAX = 16
 
 
 def clear_cache() -> None:
@@ -52,70 +51,102 @@ def clear_cache() -> None:
     _MG_CACHE.clear()
 
 
-def _cached_factors(tparams, slicer, x0):
-    key = (
-        str(x0.dtype),
-        str(x0.device),
-        tuple((s.start, s.stop) for s in slicer),
-        tuple((c.dtype.str, c.tobytes()) for cs in tparams[0]["axis_np"] for c in cs),
-    )
-    if key not in _FD_CACHE:
-        _FD_CACHE[key] = fastdiag_factors(tparams, slicer, x0.dtype, x0.device)
-        while len(_FD_CACHE) > _FD_CACHE_MAX:
-            _FD_CACHE.popitem(last=False)
-    _FD_CACHE.move_to_end(key)
-    return _FD_CACHE[key]
-
-
 def _term_descriptor(rec) -> tuple:
-    """Static (hashable) description of one equation term:
-    ``(kind, name, sign, has_param, surgery, form)``. ``kind`` "axis" (the
-    per-axis coefficient stencil; surgery and form None) or "diff_field"
-    (the variable-Γ Laplacian; ``surgery`` the per-axis BC kinds, ``form``
-    ``(inv_dx2, avg)``)."""
+    """Static description of one equation term: ``(kind, name, sign,
+    has_param, surgery, form, limiter)``. ``kind`` "axis" (a per-axis
+    coefficient stencil, 3- or 5-point), "diff_field" (variable-Γ
+    Laplacian; ``form`` ``(inv_dx2, avg)``), "div_field" / "conv_field"
+    (per-point advection; ``form`` "conservative" / "advective") or "ddt";
+    ``surgery`` the per-axis BC kinds of the per-point terms."""
     name = rec["name"].lower()
-    if name == "laplacian" and (rec.get("other") or {}).get("var_gamma"):
-        o = rec["other"]
-        return ("diff_field", name, float(rec["sign"]), False, o["surgery"],
-                (o["inv_dx2"], o["avg"]))
-    if name != "laplacian" or rec.get("axis_coeffs") is None:
+    sign = float(rec["sign"])
+    o = rec.get("other") or {}
+    if name == "ddt":
+        return ("ddt", name, sign, False, None, None, None)
+    if name == "conv":
+        return ("conv_field", name, sign, False, o["surgery"], "advective", rec["limiter"])
+    if rec.get("adv") is not None:
+        return ("div_field", name, sign, False, o["surgery"], o["form"], rec["limiter"])
+    if o.get("var_gamma"):
+        return ("diff_field", name, sign, False, o["surgery"], (o["inv_dx2"], o["avg"]), None)
+    if name not in ("laplacian", "div") or rec.get("axis_coeffs") is None:
         raise NotImplementedError(f"linalg: {rec['name']} terms are ported in a later slice")
-    return ("axis", name, float(rec["sign"]), rec["param"][0] is not None, None, None)
+    return ("axis", name, sign, name == "laplacian" and rec["param"][0] is not None, None, None,
+            None)
 
 
-def _term_params(rec, desc, x0: torch.Tensor) -> dict:
-    """Per-call operands of one term: Γ on the solve's device and dtype
-    (``diff_field``); else the coefficient vectors on the device
-    (``axis``), their host copies for the factorization (``axis_np``) and
-    the scalar coefficient."""
-    if desc[0] == "diff_field":
+def _periodic_axes(bcs, dim: int) -> tuple[int, ...]:
+    """Axes whose BOTH faces are periodic."""
+    count = [0] * dim
+    for bc in bcs or []:
+        if bc.bc_type == "periodic":
+            count[bc.bc_face_dim] += 1
+    return tuple(j for j in range(dim) if count[j] == 2)
+
+
+def _reduced(dim: int, paxes) -> tuple:
+    """Index of the reduced torus on a ``(vdim, *nx)`` array: the duplicate
+    seam node of each periodic axis dropped."""
+    return (slice(None),) + tuple(slice(None, -1) if j in paxes else slice(None)
+                                  for j in range(dim))
+
+
+def _reduce_vecs(vecs, paxes) -> tuple:
+    """Per-axis coefficient vectors on the reduced torus: on a periodic
+    axis the duplicate entry goes and the seam surgery is undone (the
+    vectors are constant along a periodic axis: filled with the middle
+    value; ``linalg.py:441-465``). Host numpy."""
+    out = []
+    for ax, cs in enumerate(vecs):
+        if ax in paxes:
+            n = cs[0].shape[0] - 1
+            out.append(tuple(np.full((n,), c[n // 2], dtype=c.dtype) for c in cs))
+        else:
+            out.append(tuple(cs))
+    return tuple(out)
+
+
+def _term_params(rec, desc, x0: torch.Tensor, paxes=()) -> dict:
+    """Per-call operands of one term on the solve's device and dtype, on
+    the reduced torus of ``paxes``: ``inv_dt`` (ddt: ``1/dt``, ``1.5/dt``
+    for an active BDF2); the advecting field and the base vectors
+    (div/conv); Γ (diff_field); else the coefficient vectors (``axis``),
+    their host copies for the factorization (``axis_np``) and the scalar
+    coefficient."""
+    kind = desc[0]
+    red = _reduced(x0.ndim - 1, paxes)
+    if kind == "ddt":
+        return {"inv_dt": ddt_leading_coeff(rec) / rec["dt"]}
+    if kind in ("div_field", "conv_field"):
+        adv = torch.as_tensor(rec["adv"], dtype=x0.dtype, device=x0.device)[red]
+        base = _reduce_vecs(rec["other"]["base"], paxes)
+        return {"adv": adv.contiguous(), "base": coeffs_from_numpy(base, x0.device, x0.dtype)}
+    if kind == "diff_field":
         g = torch.as_tensor(rec["param"][0], dtype=x0.dtype, device=x0.device)
-        return {"gamma": g.contiguous()}
-    p = {
-        "axis": coeffs_from_numpy(rec["axis_coeffs"], x0.device, x0.dtype),
-        "axis_np": rec["axis_coeffs"],
-    }
+        return {"gamma": g[red[1:] if g.ndim == x0.ndim - 1 else red].contiguous()}
+    axis_np = _reduce_vecs(rec["axis_coeffs"], paxes)
+    p = {"axis": coeffs_from_numpy(axis_np, x0.device, x0.dtype), "axis_np": axis_np}
     if desc[3]:
         p["param"] = float(rec["param"][0])
     return p
 
 
-def _fd_fallback_method(config, term_descs, tparams, bcs, mesh) -> str:
+def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh) -> str:
     """Resolve ``method: "fastdiag"`` + ``fd_fallback``: ``"fastdiag"`` when
-    the equation is exactly separable (cheap O(n) host probe: every axis
-    diagonally symmetrizable), else the configured fallback.
+    the equation is exactly separable (one 3-point axis term plus ddt
+    terms; cheap O(n) host probe: every axis diagonally symmetrizable),
+    else the configured fallback.
 
     The JAX package's probe (``linalg.py:694-698``) also rejects any BC
     that carries a ``bc_mask`` — which every domain BC does — so there the
     fallback is always taken; the port tests for obstacles, as intended."""
     fd_ok = not mesh.obstacle and fd_separable(term_descs, tparams)
     if fd_ok:
-        sl = boundary_slicer(mesh.dim, bcs, mesh.coord_sys)
+        i_ax = next(i for i, d in enumerate(term_descs) if d[0] == "axis")
         try:
             for j in range(mesh.dim):
-                _symmetrize_similarity(
-                    axis_matrix_np(*tparams[0]["axis_np"][j], active=sl[j], periodic=False)
-                )
+                _symmetrize_similarity(axis_matrix_np(*tparams[i_ax]["axis_np"][j],
+                                                      active=slicer[j], periodic=j in paxes))
         except ValueError:
             fd_ok = False
     return "fastdiag" if fd_ok else str(config["fd_fallback"]).lower()
@@ -128,7 +159,7 @@ def _check_config(config) -> None:
     if config.get("sync", True) is False:
         raise NotImplementedError("linalg: sync=False is ported in a later slice")
     precond = config.get("precond")
-    if precond not in (None, "mg"):
+    if precond not in (None, "mg", "fd", "fastdiag"):
         raise NotImplementedError(f"linalg: precond {precond!r} is ported in a later slice")
     fd_opts = dict(config.get("fd_opts") or {})
     if fd_opts.pop("precision", "highest") != "highest" or fd_opts:
@@ -158,37 +189,46 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     tol = float(config.get("tol", 1e-6))
     max_it = int(config.get("max_it", 1000))
 
-    x0 = var()
+    x0_full = var()
     terms = [eqs[k] for k in sorted(eqs)]
     term_descs = tuple(_term_descriptor(rec) for rec in terms)
-    tparams = tuple(_term_params(rec, d, x0) for rec, d in zip(terms, term_descs))
+    paxes = _periodic_axes(var.bcs, mesh.dim)
+    tparams = tuple(_term_params(rec, d, x0_full, paxes) for rec, d in zip(terms, term_descs))
+    red = _reduced(mesh.dim, paxes)
+    x0, rhs = x0_full[red], rhs[red]
+    bcs = [bc for bc in var.bcs if not (bc.bc_type == "periodic" and bc.bc_face_dim in paxes)]
+    slicer = list(boundary_slicer(mesh.dim, bcs, mesh.coord_sys))
+    for j in paxes:
+        slicer[j] = slice(None)  # every torus node is active
+    slicer = tuple(slicer)
+    grid = mesh.grid
+    if paxes:
+        # no seam surgery on the torus: the wrap is the periodic stencil
+        term_descs = tuple(
+            d[:4] + (tuple(("none", "none") if j in paxes else k for j, k in enumerate(d[4])),)
+            + d[5:] if d[4] is not None else d
+            for d in term_descs
+        )
+        grid = tuple(g[red[1:]] for g in grid)
 
     if method == "fastdiag" and config.get("fd_fallback"):
-        method = _fd_fallback_method(config, term_descs, tparams, var.bcs, mesh)
+        method = _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh)
 
-    slicer = tuple(boundary_slicer(mesh.dim, var.bcs, mesh.coord_sys))
-    fd = None
-    if method == "fastdiag":
-        if not fd_separable(term_descs, tparams):
-            raise ValueError(
-                "fastdiag: equation must be one 3-point axis term (laplacian) "
-                "with a scalar coefficient"
-            )
-        fd = _cached_factors(tparams, slicer, x0)
-    grid = mesh.grid
     fn, sym_vecs = build_solver(
-        config, mesh, x0, grid, term_descs, tparams, var.bcs, method,
-        config.get("criterion", "delta"), tol, max_it, slicer, fd,
+        config, mesh, x0, grid, term_descs, tparams, bcs, method,
+        config.get("criterion", "delta"), tol, max_it, slicer, paxes,
     )
     if sym_vecs is not None:
         # the operator is row-scaled to symmetric; scale b identically
         for d in sym_vecs:
             rhs = rhs * d
 
-    bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in var.bcs)
+    bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
     x_final, itr, tol_final, hist = fn(x0, rhs, tparams, bc_vals)
     if np.isnan(tol_final) or np.isinf(tol_final):
         raise RuntimeError(f"Invalid tolerance detected! tol: {tol_final}")
+    for j in paxes:  # re-append the duplicate seam node
+        x_final = torch.cat([x_final, x_final.narrow(1 + j, 0, 1)], dim=1 + j)
     var.VAR = x_final
 
     # Krylov: converged means the loop stopped before max_it (the JAX

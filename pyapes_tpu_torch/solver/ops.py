@@ -15,29 +15,47 @@ from dataclasses import dataclass
 import torch
 
 from pyapes_tpu_torch.solver import linalg
-from pyapes_tpu_torch.solver.fdm import Operators
+from pyapes_tpu_torch.solver.fdm import Operators, ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg import ReportType
 from pyapes_tpu_torch.solver.tools import SolverConfig
 from pyapes_tpu_torch.variables import Field
 
 
+def _ddt_history(rec) -> torch.Tensor:
+    """The history part of a Ddt term, times ``dt``: ``var_old``, or ``2
+    var_old - 0.5 var_oold`` for an active BDF2."""
+    tgt = rec["target"]
+    if ddt_leading_coeff(rec) > 1.0:
+        return 2.0 * tgt.VARo - 0.5 * tgt.VARoo
+    return tgt.VARo
+
+
 @dataclass(repr=False)
 class Solver:
-    """Finite-difference solver (reference ``ops.py:25-119``)."""
+    """Finite-difference solver (reference ``ops.py:25-119``).
+
+    ``config["fdm"]["picard"]``: outer Picard sweeps for a nonlinear Div
+    term (advecting field == solution field): after each solve the frozen
+    advection is refreshed from the new iterate and the system solved
+    again."""
 
     config: None | SolverConfig = None
 
     def set_eq(self, eq: Operators) -> None:
         """Capture the assembled equation: target var, term records, RHS;
-        fold per-term RHS adjustments in, each multiplied by its term's
-        sign (reference ``ops.py:47-81``)."""
+        fold the history of Ddt terms (backward Euler ``var_old / dt``,
+        active BDF2 ``(2 var_old - 0.5 var_oold) / dt``) and the per-term
+        RHS adjustments in, each multiplied by its term's sign (reference
+        ``ops.py:47-81``)."""
         self.var = eq.var
         self.eqs = dict(eq.ops)
         self.rhs = eq.rhs
 
         if self.rhs is not None:
             for rec in self.eqs.values():
-                if rec["adjust_rhs"] is not None:
+                if rec["name"] == "Ddt":
+                    self.rhs = self.rhs + rec["sign"] * _ddt_history(rec) / rec["dt"]
+                elif rec["adjust_rhs"] is not None:
                     self.rhs = self.rhs + rec["sign"] * rec["adjust_rhs"]()
 
         # Reset the shared operator state (reference ``ops.py:79-81``).
@@ -45,13 +63,19 @@ class Solver:
         eq.rhs = None
 
     def Aop(self, var: Field) -> torch.Tensor:
-        """Debug interface: apply the assembled operator to ``var``
-        (reference ``ops.py:83-90``)."""
+        """Debug interface: apply the assembled (affine) operator to ``var``
+        (reference ``ops.py:83-90``); a Ddt term includes its ``-var_old /
+        dt`` history, ``(x - var_old) / dt`` (BDF2: ``(1.5 x - 2 var_old +
+        0.5 var_oold) / dt``)."""
         assert self.eqs is not None, "Solver: equation is missing. Did you forget to set_eq?"
         x = var()
         res = torch.zeros_like(x)
         for rec in self.eqs.values():
-            res = res + rec["sign"] * rec["Aop"](rec, x)
+            if rec["name"] == "Ddt":
+                lin = ddt_leading_coeff(rec) * x - _ddt_history(rec)
+                res = res + rec["sign"] * lin / rec["dt"]
+            else:
+                res = res + rec["sign"] * rec["Aop"](rec, x)
         return res
 
     def solve(self) -> ReportType:
@@ -60,7 +84,16 @@ class Solver:
             "Solver: target variable or rhs is missing. Didn't you forget to set equation?"
         )
         assert self.config is not None, "Solver: config is missing!"
-        self.report = linalg.solve(self.var, self.rhs, self.eqs, self.config["fdm"], self.var.mesh)
+        cfg = self.config["fdm"]
+        n_picard = int(cfg.get("picard", 1))
+        nonlinear = [rec for rec in self.eqs.values()
+                     if rec.get("adv") is not None and rec["param"][0] is self.var]
+        for sweep in range(max(1, n_picard)):
+            self.report = linalg.solve(self.var, self.rhs, self.eqs, cfg, self.var.mesh)
+            if not nonlinear or sweep == n_picard - 1:
+                break
+            for rec in nonlinear:  # refresh the frozen advection from the iterate
+                rec["adv"] = self.var()
         return self.report
 
     def __repr__(self) -> str:

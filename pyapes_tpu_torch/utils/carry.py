@@ -1,8 +1,9 @@
 """State carried across from the JAX package.
 
-This system has no learned weights: its state is field values, per-axis
-coefficient vectors, variable diffusivities Γ and fast-diagonalization
-factors. These helpers turn
+This system has no learned weights: its state is field values (with
+their history levels ``VARo``/``VARoo`` for Ddt), per-axis coefficient
+vectors, variable diffusivities Γ, advecting fields and
+fast-diagonalization factors. These helpers turn
 arrays of the JAX package (handed over as numpy) into the port's tensors,
 so both packages can compute from the same state. The solver uses
 ``coeffs_from_numpy`` for its own host-built coefficient vectors too.
@@ -21,7 +22,9 @@ def _tensor(a, like: torch.Tensor | None = None, device=None, dtype=None):
 
 def field_from_numpy(field, var, varo=None, varoo=None):
     """Load ``var`` (and optionally the history levels ``varo``/``varoo``)
-    into a port ``Field`` in its own dtype and device. Returns the field."""
+    into a port ``Field`` in its own dtype and device; the levels given
+    count as saved history (``n_hist``), so a BDF2 ``Ddt`` reads both once
+    ``varoo`` is loaded. Returns the field."""
     cur = field()
     var = _tensor(var, like=cur)
     if tuple(var.shape) != tuple(cur.shape):
@@ -29,8 +32,10 @@ def field_from_numpy(field, var, varo=None, varoo=None):
     field.VAR = var
     if varo is not None:
         field.VARo = _tensor(varo, like=cur)
+        field._n_hist = max(field.n_hist, 1)
     if varoo is not None:
         field._VARoo = _tensor(varoo, like=cur)
+        field._n_hist = max(field.n_hist, 2)
     return field
 
 
@@ -45,6 +50,6 @@ def coeffs_from_numpy(coeffs, device, dtype) -> tuple:
 
 def gamma_from_numpy(g, like: torch.Tensor) -> torch.Tensor:
     """A diffusivity Γ of the JAX package (isotropic ``(*nx)`` or stacked
-    ``(dim, *nx)``, as numpy) as a contiguous tensor in ``like``'s dtype
-    and device."""
+    ``(dim, *nx)``) or an advecting field (``(1 | dim, *nx)``), as numpy,
+    as a contiguous tensor in ``like``'s dtype and device."""
     return _tensor(np.ascontiguousarray(g), like=like).contiguous()

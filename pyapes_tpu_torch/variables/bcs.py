@@ -1,10 +1,9 @@
 """Boundary conditions for the FDM method (PyTorch port of
 ``pyapes_tpu/variables/bcs.py``, domain faces).
 
-Supported: Dirichlet / Neumann / Symmetry on the domain faces
+Supported: Dirichlet / Neumann / Symmetry / Periodic on the domain faces
 ``["xl","xu","yl","yu","zl","zu"]``, with scalar, per-component list or
-callable values. ``Periodic`` and the obstacle BCs are ported in a later
-slice: constructing one raises ``NotImplementedError``.
+callable values. The obstacle BCs are ported in a later slice.
 
 ``apply`` is pure, as in the JAX package: it returns a new tensor and
 leaves its argument untouched. ``apply_`` is the in-place form; the
@@ -266,14 +265,17 @@ class Symmetry(BC):
         var[(d,) + _face_index(a, i0, 0)] = _row(var, d, a, i1)
 
 
-class Periodic:
-    """Periodic BC — the torus reduction of the implicit solve
-    (``pyapes_tpu/solver/linalg.py::_reduce_periodic``) is ported in a
-    later slice; constructing one raises rather than solving something
-    else."""
+class Periodic(BC):
+    """Periodic BC (reference ``bcs.py:291-310``): the grid stores BOTH
+    endpoints of a periodic axis, the same torus node. Row 0 is
+    authoritative (the implicit solve runs on the reduced torus and
+    restores row ``n-1`` from row 0), so applying copies row 0 onto row
+    ``n-1``; the lower face is a no-op."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("Periodic BCs are ported in a later slice")
+    def _apply_one(self, var, grid, d, val=None):
+        a = self._bc_face_dim
+        if self._bc_n_dir > 0:
+            var[(d,) + _face_index(a, -1, 0)] = _row(var, d, a, 0)
 
 
 # -- configuration helpers (reference ``bcs.py:293-467``) -------------------
@@ -351,7 +353,7 @@ class BC_HN:
         return homogeneous_bcs(dim, bc_val, "neumann")
 
 
-BC_type = Dirichlet | Neumann | Symmetry
+BC_type = Dirichlet | Neumann | Symmetry | Periodic
 
 BC_FACTORY: dict[str, type] = {
     "dirichlet": Dirichlet,

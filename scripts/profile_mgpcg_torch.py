@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU.
+"""Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
+(or one step of the 3-D Burgers model).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
+    python scripts/profile_mgpcg_torch.py --burgers [--n 256] [--out ...]
 
 The problem is ``chip_smoke.py``'s MG-PCG path (``bench.py``'s cg config:
 3-D f32 all-Dirichlet random RHS, tol 1e-6, bf16 V(2,2), FMG, fused r.z),
 or with ``--darcy`` its variable-Γ path (``bench.py``'s ``bench_darcy``:
 Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), the same cycle without the fused
-r.z, max_it 400).
-After one warm-up solve, ``torch.profiler`` records one solve; the script
+r.z, max_it 400), or with ``--burgers`` one step of ``chip_smoke.py``'s
+``BurgersND`` path ((n+1)^3 f32 periodic box, Taylor-Green start, dt 0.01:
+three BiCGSTAB solves with the FD preconditioner through the convection
+kernel).
+After one warm-up solve (step), ``torch.profiler`` records one; the script
 prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
 - kernel rows: device time by kernel name from the trace's kernel,
@@ -37,11 +42,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel",)),
     ("diff_field (Hopper)", ("diff_field_kernel",)),
+    ("advect_pair / conv_component (Hopper)", ("advect_kernel",)),
+    ("axis_stencil5 (Hopper)", ("axis_stencil5_kernel",)),
     ("jacobi3d_x2 (Hopper)", ("jacobi3d_x2_kernel",)),
     ("jacobi3d / jacobi3d_dot (Hopper)", ("jacobi3d_kernel",)),
     ("axis_stencil_dot (Hopper)", ("axis_stencil_dot_kernel",)),
     ("axis_stencil (Hopper)", ("axis_stencil_kernel",)),
-    ("transfer GEMMs (cuBLAS, tensordot)", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("GEMMs (cuBLAS: MG transfers, FD eigen-transforms)", ("gemm", "cutlass", "xmma", "nvjet")),
     ("reductions (dots, norms, partial sums)", ("reduce",)),
     ("copies (permute, cast, contiguous)", ("copy", "Memcpy", "memcpy", "cat", "Memset")),
 )
@@ -66,8 +73,10 @@ def _union_ms(intervals, lo, hi) -> float:
 
 def main() -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("--n", type=int, default=None, help="grid size (512, or 256 with --darcy)")
+    p.add_argument("--n", type=int, default=None,
+                   help="grid size (512, or 256 with --darcy / --burgers)")
     p.add_argument("--darcy", action="store_true", help="the variable-Γ path")
+    p.add_argument("--burgers", action="store_true", help="one step of the 3-D Burgers model")
     p.add_argument("--out", default="chiprun_out/profile_mgpcg")
     args = p.parse_args()
 
@@ -76,6 +85,7 @@ def main() -> None:
 
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import BurgersND
     from pyapes_tpu_torch.solver.fdm import FDM
     from pyapes_tpu_torch.solver.ops import Solver
     from pyapes_tpu_torch.variables import Field
@@ -88,32 +98,55 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    n = args.n or (256 if args.darcy else 512)
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
-    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")}, init_val=0.0)
-    rhs = torch.randn((1, n, n, n), generator=torch.Generator(device="cuda").manual_seed(0),
-                      device="cuda")
-    coeff = 1.0
-    if args.darcy:
-        coeff = torch.exp(0.8 * torch.sin(2 * torch.pi * mesh.X) * torch.sin(2 * torch.pi * mesh.Y)
-                          * torch.sin(2 * torch.pi * mesh.Z)).contiguous()
-    solver = Solver({"fdm": {
-        "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400 if args.darcy else 200,
-        "criterion": "residual",
-        "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
-                    "fmg": True, "fuse_rz": not args.darcy}}})
-    fdm = FDM()
+    n = args.n or (256 if args.darcy or args.burgers else 512)
+    if args.burgers:
+        mesh = Mesh(Box[0:2 * torch.pi, 0:2 * torch.pi, 0:2 * torch.pi], None, [n + 1] * 3,
+                    device="cuda", dtype="single")
+        X, Y, Z = mesh.X, mesh.Y, mesh.Z
+        model = BurgersND(mesh, nu=0.1, init_vals=[
+            (torch.sin(X) * torch.cos(Y) * torch.cos(Z))[None],
+            (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None], torch.zeros((1, *mesh.nx))])
+
+        def prepare():
+            pass
+
+        def run():
+            model.step(0.01)
+            return model.report
+    else:
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
+        var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")},
+                    init_val=0.0)
+        rhs = torch.randn((1, n, n, n), generator=torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda")
+        coeff = 1.0
+        if args.darcy:
+            coeff = torch.exp(0.8 * torch.sin(2 * torch.pi * mesh.X)
+                              * torch.sin(2 * torch.pi * mesh.Y)
+                              * torch.sin(2 * torch.pi * mesh.Z)).contiguous()
+        solver = Solver({"fdm": {
+            "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400 if args.darcy else 200,
+            "criterion": "residual",
+            "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
+                        "fmg": True, "fuse_rz": not args.darcy}}})
+        fdm = FDM()
+
+        def prepare():
+            var.set_var_tensor(torch.zeros_like(var()))
+            solver.set_eq(fdm.laplacian(coeff, var) == rhs)
+
+        def run():
+            return solver.solve()
 
     def one_solve(annotate=False):
-        var.set_var_tensor(torch.zeros_like(var()))
-        solver.set_eq(fdm.laplacian(coeff, var) == rhs)
+        prepare()
         torch.cuda.synchronize()
         tic = time.perf_counter()
         if annotate:
             with record_function("mgpcg_solve"):
-                rep = solver.solve()
+                rep = run()
         else:
-            rep = solver.solve()
+            rep = run()
         torch.cuda.synchronize()
         return rep, time.perf_counter() - tic
 
@@ -145,7 +178,8 @@ def main() -> None:
         g[0] += cnt
         g[1] += ms
     summary = {
-        "card": smi, "case": "darcy" if args.darcy else "poisson", "n": n, "itr": rep["itr"],
+        "card": smi, "case": "burgers" if args.burgers else "darcy" if args.darcy else "poisson",
+        "n": n, "itr": rep["itr"],
         "tol": rep["tol"],
         "wall_unprofiled_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,
         "range_ms": range_ms, "device_busy_union_ms": busy_ms,

@@ -16,14 +16,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot  # noqa: E402
+from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
+from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
+from pyapes_tpu_torch.ops.advect import advect_pair, conv_component  # noqa: E402
+from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil5, axis_stencil_dot  # noqa: E402
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi  # noqa: E402
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2  # noqa: E402
 from pyapes_tpu_torch.ops.stencil import (  # noqa: E402
     apply_axis_stencil,
     apply_axis_stencil_dot,
+    apply_conv_field,
     apply_diff_field,
     apply_diff_jacobi,
+    apply_div_field,
     apply_jacobi3d,
     apply_jacobi3d_dot,
     apply_jacobi3d_x2,
@@ -41,6 +46,18 @@ SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17)]
 VG_SHAPES = SHAPES + [(1, 65, 130), (2, 17, 9)]
 VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
              (True, "arithmetic", True), (True, "harmonic", False)]
+# the advection kernels: chip_smoke.py's shapes, (3, 3, 9, 11) with a
+# 3-node axis 0 that the "neumann" kind gives Neumann faces on both sides,
+# a 2-D and a 1-D grid; its surgery kinds and Div variants
+ADV_SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17), (3, 3, 9, 11),
+              (1, 65, 130), (2, 300)]
+ADV_SURGERY = {
+    "none": (("none", "none"),) * 3,
+    "neumann": (("neumann", "neumann"),) * 3,
+    "mixed": (("periodic", "neumann"), ("none", "periodic"), ("neumann", "none")),
+}
+DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "conservative"),
+                ("quick", "conservative")]
 
 
 @pytest.fixture
@@ -273,3 +290,123 @@ def test_cuda_var_gamma_solve_matches_cpu(cuda, case):
         out.append((rep["itr"], var()[0].cpu().numpy()))
     assert out[0][0] == out[1][0]
     assert np.abs(out[0][1] - out[1][1]).max() <= 1e-10 * np.abs(out[0][1]).max()
+
+
+def _adv_inputs(shape, dtype, device, seed):
+    """Target, Div advector (one per target component), Conv advector (one
+    per axis), unit-box base vectors, and 5-point coefficients (axes 0 and
+    2 of 5 vectors, axis 1 of 3)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    nd = len(shape) - 1
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, dtype=torch.float64).to(device, dtype)
+
+    base = tuple(tuple(torch.full((n,), v, dtype=torch.float64).to(device, dtype)
+                       for v in (0.5 * (n - 1), 0.0, -0.5 * (n - 1))) for n in shape[1:])
+    c5 = tuple(tuple(rnd(n) for _ in range(3 if j == 1 else 5)) for j, n in enumerate(shape[1:]))
+    return rnd(*shape), rnd(*shape), rnd(nd, *shape[1:]), base, c5
+
+
+@pytest.mark.parametrize("kind", sorted(ADV_SURGERY))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ADV_SHAPES)
+def test_advect_kernels_match_plain(cuda, shape, dtype, kind):
+    """``advect_pair`` (every limiter, both forms, vector and scalar
+    targets) and ``conv_component`` (every limiter) against their plain
+    versions on every row, one launch each."""
+    x, adv, adv_conv, base, _ = _adv_inputs(shape, dtype, cuda, 8)
+    surg = ADV_SURGERY[kind][: len(shape) - 1]
+    for limiter, form in DIV_VARIANTS:
+        for xs, av in ((x, adv), (x[:1], adv[:1])):
+            before = advect_pair.launches
+            out = advect_pair(xs, av, base, limiter, surg, form)
+            assert advect_pair.launches == before + 1
+            _close(out, apply_div_field(xs, av, base, limiter, surg, form), dtype)
+    for limiter in ("none", "upwind", "quick"):
+        before = conv_component.launches
+        out = conv_component(x, adv_conv, base, limiter, surg)
+        assert conv_component.launches == before + 1
+        _close(out, apply_conv_field(x, adv_conv, base, limiter, surg), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ADV_SHAPES)
+def test_axis_stencil5_matches_plain(cuda, shape, dtype):
+    """Mixed 5- and 3-point axes, torus wrap at the +-2 reach; ``axis_stencil``
+    hands the equation to the 5-point kernel."""
+    x, _, _, _, c5 = _adv_inputs(shape, dtype, cuda, 9)
+    before = (axis_stencil.launches, axis_stencil5.launches)
+    ref = apply_axis_stencil(c5, x)
+    _close(axis_stencil5(c5, x), ref, dtype)
+    _close(axis_stencil(c5, x), ref, dtype)
+    torch.cuda.synchronize()
+    assert (axis_stencil.launches, axis_stencil5.launches) == (before[0], before[1] + 2)
+
+
+@pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5"])
+def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
+    """With the plain versions patched to raise, the wrappers still answer
+    a CUDA tensor: from the kernel."""
+    def plain(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    x, adv, adv_conv, base, c5 = _adv_inputs((1, 9, 10, 11), torch.float32, cuda, 10)
+    surg = ADV_SURGERY["mixed"]
+    ref = {"advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
+           "conv_component": lambda: apply_conv_field(x, adv_conv, base, "none", surg),
+           "axis_stencil5": lambda: apply_axis_stencil(c5, x)}[name]()
+    monkeypatch.setattr(advect_mod, "apply_div_field", plain)
+    monkeypatch.setattr(advect_mod, "apply_conv_field", plain)
+    monkeypatch.setattr(axis_mod, "apply_axis_stencil", plain)
+    fn = {"advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
+          "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
+          "axis_stencil5": lambda: axis_stencil5(c5, x)}[name]
+    _close(fn(), ref, torch.float32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["burgers_nd", "field_upwind", "const_quick"])
+def test_cuda_advection_steps_match_cpu(cuda, case):
+    """The implicit-advection models stepped on the card (f64) equal the
+    CPU run: same iterations per solve, and the path's kernel launched."""
+    from math import pi
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import AdvectionDiffusion, BurgersND
+    from pyapes_tpu_torch.variables.bcs import mixed_bcs
+
+    nx = [17, 12, 20]
+    rng = np.random.default_rng(11)
+    init = [rng.standard_normal((1, *nx)) for _ in range(3)]
+    vel = 1.0 + 0.5 * rng.standard_normal((1, *nx))
+    bcs = mixed_bcs([0.3, 0.0, 1.0, 0.0, 0.0, -0.2],
+                    ["neumann", "dirichlet", "dirichlet", "neumann", "dirichlet", "neumann"])
+    kernel = {"burgers_nd": conv_component, "field_upwind": advect_pair,
+              "const_quick": axis_stencil5}[case]
+    out = []
+    for dev in ("cpu", "cuda"):
+        if case == "burgers_nd":
+            mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, nx, device=dev, dtype="double")
+            model = BurgersND(mesh, nu=0.1, init_vals=init)
+            fields = model.vel
+        else:
+            mesh = Mesh(Box[0:1, 0:1, 0:1], None, nx, device=dev, dtype="double")
+            model = AdvectionDiffusion(mesh, bcs, velocity=vel if case == "field_upwind" else 1.0,
+                                       epsilon=0.05,
+                                       limiter="upwind" if case == "field_upwind" else "quick",
+                                       init_val=init[0])
+            fields = [model.var]
+        before = kernel.launches
+        itrs = []
+        for _ in range(2):
+            model.step(0.01)
+            assert model.report["converge"]
+            itrs.append(model.report["itr"])
+        assert (kernel.launches > before) == (dev == "cuda")
+        out.append((itrs, [f()[0].cpu().numpy() for f in fields]))
+    assert out[0][0] == out[1][0]
+    for a, b in zip(out[0][1], out[1][1]):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(a).max()

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from pyapes_tpu_torch.backend import Device  # noqa: E402
 from pyapes_tpu_torch.geometry import Box, Cylinder  # noqa: E402
 from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
+from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
 from pyapes_tpu_torch.ops import diff_field as diff_mod  # noqa: E402
 from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
@@ -82,14 +83,22 @@ def _solve(cfg):
 )
 def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError):
-        if case == "periodic":
-            _field("periodic")
-        elif case == "cg":  # the FD preconditioner of the Krylov methods
-            _solve({"method": "cg", "precond": "fd"})
-        elif case == "bicgstab":  # a Krylov solve on a periodic problem
+        if case == "periodic":  # the multigrid hierarchy of a periodic axis
             var = _field("periodic")
-            Solver({"fdm": {"method": "bicgstab", "precond": "mg"}}).set_eq(
-                FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-8, "max_it": 10}})
+            s.set_eq(FDM().laplacian(torch.ones(6, 6, 6, dtype=torch.float64), var)
+                     == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s.solve()
+        elif case == "cg":  # a Krylov solve of a custom operator
+            var = _field()
+            Solver({"fdm": {"method": "cg", "precond": "fd"}}).set_eq(
+                FDM().custom(lambda x: x, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+        elif case == "bicgstab":  # a multigrid-preconditioned Krylov solve on a periodic problem
+            var = _field("periodic")
+            s = Solver({"fdm": {"method": "bicgstab", "precond": "mg", "tol": 1e-8,
+                                "max_it": 10}})
+            s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s.solve()
         elif case == "decomp":
             _solve({"decomp": {"axes": (0,)}})
         elif case == "kernel":
@@ -107,8 +116,15 @@ def test_unported_features_raise(case):
             var = Field("p", 1, mesh, {"domain": mixed_bcs(
                 [1.0, 0.0, 0.0, 0.0], ["neumann", "dirichlet", "dirichlet", "dirichlet"])})
             FDM().laplacian(torch.ones(6, 6, dtype=torch.float64), var)
-        elif case == "ddt":
-            FDM().ddt(_field())
+        elif case == "ddt":  # a transient solve with the in-loop NaN check
+            var = _field()
+            var.set_time(0.1, 0.0)
+            var.save_old()
+            s = Solver({"fdm": {"method": "bicgstab", "tol": 1e-8, "max_it": 10,
+                                "debug": "nan"}})
+            s.set_eq(FDM().ddt(var) - FDM().laplacian(1.0, var)
+                     == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s.solve()
         elif case == "grad":
             FDM().grad(_field())
         elif case == "fdc_div":
@@ -129,6 +145,11 @@ _WRAPPERS = {
     "axis_stencil": (axis_mod, "axis_stencil", "apply_axis_stencil", lambda f, t: f((), t)),
     "axis_stencil_dot": (axis_mod, "axis_stencil_dot", "apply_axis_stencil_dot",
                          lambda f, t: f((), t)),
+    "axis_stencil5": (axis_mod, "axis_stencil5", "apply_axis_stencil", lambda f, t: f((), t)),
+    "advect_pair": (advect_mod, "advect_pair", "apply_div_field",
+                    lambda f, t: f(t, t, (), "upwind", (("none", "none"),) * 3)),
+    "conv_component": (advect_mod, "conv_component", "apply_conv_field",
+                       lambda f, t: f(t, t, (), "none", (("none", "none"),) * 3)),
     "jacobi3d": (jacobi_mod, "jacobi3d", "apply_jacobi3d",
                  lambda f, t: f(t, t, (1.0,) * 3, 1.0, 0.1, (0, 1, 2))),
     "jacobi3d_dot": (jacobi_mod, "jacobi3d_dot", "apply_jacobi3d_dot",

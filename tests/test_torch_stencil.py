@@ -101,8 +101,11 @@ def _bad_inputs(case):
 )
 def test_check_inputs_rejects(case, exc):
     coeffs, x = _bad_inputs(case)
+    # a 5-point axis is rejected where the kernel takes 3-point axes only
+    # (the CG alpha-dot); the apply takes it (axis_stencil5)
+    points = (3,) if case == "five_point" else (3, 5)
     with pytest.raises(exc):
-        check_inputs(coeffs, x)
+        check_inputs(coeffs, x, points)
 
 
 def test_check_inputs_accepts_main_path_shapes():
