@@ -15,16 +15,29 @@ Phases, report lines before the last:
    five shapes x f32/bf16/f64 x their variants, dots included; the
    variable-Γ diffusion apply and Jacobi pass: the same shapes plus a 2-D
    grid x f32/bf16/f64 x isotropic/stacked Γ x arithmetic/harmonic faces x
-   no/Neumann surgery x the three Jacobi modes), and kernel vs plain timed
-   at 512^3 (CUDA events).
+   no/Neumann surgery x the three Jacobi modes; the halo-extended stencil:
+   four blocks, odd sizes and single-row axes among them, x the three ext
+   flags x f32/bf16/f64 x vdim 1/3 x a new or a strided output, and in
+   bf16 on the (4, 2, 1) blocks of every 512^3 MG level the decomposed
+   cycle applies block-wise), and kernel vs plain timed at 512^3 (CUDA
+   events; the halo-extended kernel on the eight blocks of 512^3 in
+   (4, 2, 1), and the whole block-wise apply against the global kernel),
+   beside a CSR product (``torch.mv``) of the same linear operator (the
+   variable-Γ apply at its fixed Γ), the library yardstick.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
    launches per solve, and the true residual recomputed independently.
+   Then the same solve with ``DomainDecomposition((4, 2, 1))``: the
+   halo-extended kernel in every solve, the same passes, the solution
+   equal to the undecomposed one within ``FD_DECOMP_AGREE``, the true
+   residual recomputed in f64.
 5. MG-PCG path — the same problem through ``bench.py``'s cg config (bf16
-   V(2,2), FMG, fused r.z) at 512^3, and a V(1,1) fused-r.z config at
-   256^3 (where the Jacobi + dot kernel runs): the same checks, each
-   kernel's launches per solve, the true residual in f32 and f64.
+   V(2,2), FMG, fused r.z) at 512^3, the same decomposed in (4, 2, 1)
+   (the halo-extended kernel in every solve, within 2 iterations of the
+   undecomposed solve), and a V(1,1) fused-r.z config at 256^3 (where the
+   Jacobi + dot kernel runs): the same checks, each kernel's launches per
+   solve, the true residual in f32 and f64.
 6. Darcy variable-Γ MG-PCG path — ``bench.py``'s ``bench_darcy`` problem
    (256^3 f32, Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), bf16 V(2,2) FMG)
    through ``Solver.solve``: the same checks, the true residual
@@ -39,7 +52,8 @@ Phases, report lines before the last:
    1-D grid, a 3-node axis with Neumann faces on both sides, mixed 3/5-point
    axes; f32/bf16/f64; every limiter, both Div forms, the surgery kinds
    none/neumann/periodic, scalar and vector targets), timed against the
-   plain versions at 256^3 and 512^3 f32.
+   plain versions at 256^3 and 512^3 f32, and at 256^3 against a CSR
+   product of the same operator at its fixed advector.
 9. implicit-advection paths, f32 on one card, through the models' ``step``:
    ``BurgersND`` at 257^3 on the periodic box (Taylor-Green start, 3 steps
    of dt 0.01: 9 BiCGSTAB + FD-preconditioner solves through the convection
@@ -56,7 +70,9 @@ Phases, report lines before the last:
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
 9) and read just after; a kernel of a path that launched no time there
-fails the run. Then one JSON line of per-kernel numbers, and as the LAST line
+fails the run. Then one JSON line of per-kernel numbers (time, plain
+version's time, the bound from ``BOUND_WORK``, the library call's time
+or null), and as the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
 a non-zero exit, with no result line.
 """
@@ -112,7 +128,39 @@ KERNELS = [
      "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:357"),
     ("axis_stencil5", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
+    ("axis_stencil_ext", "pyapes_tpu_torch.ops.axis_stencil",
+     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:573"),
 ]
+# the decomposed paths' block layout: 512^3 in 8 blocks of 128 x 256 x 512
+# (the last, contiguous, axis is never cut)
+N_DECOMP = (4, 2, 1)
+# the halo-extended kernel's check cases: unextended blocks (vdim, n0, n1,
+# n2), odd sizes and single-row axes among them, x the three ext flags
+EXT_BLOCKS = [(1, 5, 7, 33), (3, 16, 9, 130), (1, 3, 5, 257), (3, 1, 2, 64)]
+EXT_FLAGS = [(1, 0, 0), (0, 1, 0), (1, 1, 0)]
+# The least time of each timed call (bound_ms): the larger of its
+# compulsory bytes (each input grid read once, each output grid written
+# once; the coefficient vectors, < 0.01% of them, left out) over the
+# card's 3.35 TB/s and its operations over the 67 TFLOP/s of float32
+# outside the tensor cores (every kernel computes in f32, bf16 storage
+# included), from NVIDIA's H100 SXM data sheet at 700 W. Per kernel at
+# its timed shape: (grids moved, bytes per element, grid edge, f32
+# operations per point, counted from the plain version: a multiply or an
+# add is one).
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BOUND_WORK = {
+    "axis_stencil": (2, 4, 512, 17),  # read x, write out; 9 products, 8 sums
+    "axis_stencil_dot": (2, 4, 512, 19),  # + x * Ax and its sum
+    "jacobi3d": (3, 2, 512, 16),  # x, b -> out; Laplacian 11, update 5
+    "jacobi3d_dot": (3, 2, 512, 18),
+    "jacobi3d_x2": (3, 2, 512, 32),  # two sweeps
+    "diff_field": (3, 4, 512, 32),  # x, Γ -> out; per axis 2 face means, 2 fluxes
+    "diff_jacobi": (4, 2, 512, 45),  # x, b, Γ -> out; + diagonal and update
+    "conv_component": (5, 4, 256, 12),  # x, 3 advectors -> out; 4 per axis
+    "advect_pair": (3, 4, 256, 24),  # x, advector -> out; upwind 8 per axis
+    "axis_stencil5": (2, 4, 256, 25),  # 13 products, 12 sums
+}
 # the variable-Γ kernels: the 3-D shapes plus a 2-D grid; per shape and
 # dtype four (stacked Γ, face rule, Neumann surgery) combinations that
 # cover each option
@@ -216,6 +264,112 @@ def _time_ms(fn, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time of a call that moves ``nbytes``
+    and computes ``ops`` f32 operations on one H100."""
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _stencil_csr(coeffs, ext, in_shape):
+    """The axis stencil of a ``(1, *in_shape)`` input as one CSR matrix
+    (int32 indices, columns sorted per row): one row per output point, the
+    summed central coefficient and the +-1 (+-2 on a 5-point axis)
+    neighbours, wrapped on an axis with ``ext[a] == 0`` and read from the
+    ghost rows of an extended one. A coefficient is a vector along its
+    axis, or one value per output point (the variable-Γ and per-point
+    advection operators at a fixed Γ or advector). The library yardstick of
+    the stencil kernels (``torch.mv`` on it is one cuSPARSE product); the
+    port never builds it."""
+    import numpy as np
+    import torch
+
+    dev = coeffs[0][0].device
+    nd = len(in_shape)
+    n = [s - 2 * e for s, e in zip(in_shape, ext)]
+    stride = [int(np.prod(in_shape[a + 1:])) for a in range(nd)]
+
+    def bshape(a):
+        return [-1 if b == a else 1 for b in range(nd)]
+
+    def field(c, a):  # a coefficient of axis a at every output point
+        return (c.reshape(bshape(a)) if c.ndim == 1 else c.reshape(n)).expand(n)
+
+    pos = [torch.arange(m, device=dev) for m in n]
+    base = sum(((pos[a] + ext[a]) * stride[a]).reshape(bshape(a)) for a in range(nd))
+    cols = [base.expand(n)]
+    vals = [sum(field(cs[len(cs) // 2], a) for a, cs in enumerate(coeffs))]
+    for a, cs in enumerate(coeffs):
+        for off, c in zip((2, 1, 0, -1, -2) if len(cs) == 5 else (1, 0, -1), cs):
+            if off:
+                tgt = pos[a] + ext[a] + off if ext[a] else (pos[a] + off) % n[a] + ext[a]
+                cols.append(base + ((tgt - pos[a] - ext[a]) * stride[a]).reshape(bshape(a)))
+                vals.append(field(c, a))
+    k = len(cols)
+    col = torch.stack([c.expand(n).reshape(-1).to(torch.int32) for c in cols])
+    del cols, base
+    col, order = col.sort(dim=0)
+    val = torch.stack([v.reshape(-1) for v in vals]).gather(0, order)
+    del order
+    rows = col.shape[1]
+    crow = torch.arange(0, k * rows + 1, k, device=dev, dtype=torch.int32)
+    return torch.sparse_csr_tensor(crow, col.t().reshape(-1), val.t().reshape(-1),
+                                   size=(rows, int(np.prod(in_shape))), check_invariants=False)
+
+
+def _diff_field_csr_coeffs(g, inv):
+    """Per axis ``(cp, cc, cm)`` at every point of the variable-Γ operator
+    at a fixed isotropic ``g`` ``(*nx)`` (arithmetic faces, no surgery,
+    torus wrap): the CSR yardstick's coefficients of ``diff_field``."""
+    import torch
+
+    out = []
+    for j in range(g.ndim):
+        cp = 0.5 * (g + torch.roll(g, -1, j)) * inv[j]
+        cm = 0.5 * (g + torch.roll(g, 1, j)) * inv[j]
+        out.append((cp, -(cp + cm), cm))
+    return tuple(out)
+
+
+def _advect_csr_coeffs(advs, base, limiter):
+    """Per axis ``(cp, cc, cm)`` at every point of the per-point advection
+    operator with axis j's advector ``advs[j]`` fixed (central advective
+    form, or upwind; no surgery): the CSR yardstick's coefficients of
+    ``conv_component`` and ``advect_pair``."""
+    out = []
+    for j, (a, cs) in enumerate(zip(advs, base)):
+        ap0, ac0, am0 = (c.reshape([-1 if k == j else 1 for k in range(a.ndim)]) for c in cs)
+        if limiter == "upwind":
+            lo, hi = a.clamp(max=0.0), a.clamp(min=0.0)
+            s = 2.0 * ap0.abs()  # 1 / dx
+            out.append((s * lo, s * (hi - lo) + ac0 * a, -s * hi))
+        else:
+            out.append((ap0 * a, ac0 * a, am0 * a))
+    return tuple(out)
+
+
+def _library_stencil_ms(coeffs, x, ref, ext=None, blocks=None) -> float:
+    """Time of the CSR yardstick (``torch.mv``) on the inputs of a timed
+    stencil call, after checking it computes what the plain version does;
+    with ``blocks``, one product per block (``[(x_ext, block coeffs,
+    ref block)]``)."""
+    import torch
+
+    calls = []
+    for xb, cb, rb in blocks or [(x, coeffs, ref)]:
+        e = ext or (0,) * (xb.ndim - 1)
+        A = _stencil_csr(cb, e, tuple(xb.shape[1:]))
+        v = xb.reshape(-1)
+        got = torch.mv(A, v).reshape(rb.shape)
+        err = (got - rb).abs().max().item()
+        if not err <= REL_TOL["float32"] * rb.abs().max().item():
+            raise RuntimeError(f"chip_smoke: the CSR yardstick disagrees with the plain version "
+                               f"({err:.3e})")
+        calls.append((A, v))
+        del got
+    return _time_ms(lambda: [torch.mv(A, v) for A, v in calls])
+
+
 def phase_kernel(dev):
     """The axis-stencil kernel (slice 1) against its plain version."""
     import torch
@@ -250,12 +404,14 @@ def phase_kernel(dev):
         if shape == (1, N_MAIN, N_MAIN, N_MAIN):
             ms = _time_ms(lambda: axis_stencil(coeffs, x))
             plain_ms = _time_ms(lambda: apply_axis_stencil(coeffs, x))
+            lib_ms = _library_stencil_ms(coeffs, x, ref)
             gbs = 2 * x.numel() * x.element_size() / (ms * 1e-3) / 1e9
-            timing = (ms, plain_ms)
+            timing = (ms, plain_ms, lib_ms)
             print(
                 f"[3 kernel] axis_stencil {N_MAIN}^3 f32 time: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel moves >= "
-                f"{gbs:.1f} GB/s (2 grids of compulsory traffic)",
+                f"{plain_ms:.4f} ms, CSR product (torch.mv) {lib_ms:.4f} ms (median of 15 "
+                f"CUDA-event timings); kernel moves >= {gbs:.1f} GB/s (2 grids of compulsory "
+                "traffic)",
                 flush=True,
             )
         del out, ref, x
@@ -427,17 +583,22 @@ def phase_kernel_vargamma(dev):
                     worst[name] = max(worst.get(name, 0.0), err)
                     if (shape[1] == N_MAIN and not aniso and avg == "arithmetic"
                             and (name, variant, dtname) in timed):
-                        timing[name] = (_time_ms(kern), _time_ms(plain))
+                        # the apply at a fixed Γ is one sparse product; the
+                        # Jacobi pass (an update with a division) is none
+                        lib_ms = (_library_stencil_ms(_diff_field_csr_coeffs(g, inv), x, ref)
+                                  if name == "diff_field" else None)
+                        timing[name] = (_time_ms(kern), _time_ms(plain), lib_ms)
                     del got, ref
             print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: " + "; ".join(parts), flush=True)
             del x, b, gstack
-    for name, (ms, plain_ms) in timing.items():
+    for name, (ms, plain_ms, lib_ms) in timing.items():
         grids = 3 if name == "diff_field" else 4
         size = 4 if name == "diff_field" else 2
         gbs = grids * N_MAIN**3 * size / (ms * 1e-3) / 1e9
+        lib = "" if lib_ms is None else f", CSR product (torch.mv) {lib_ms:.4f} ms"
         print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'} time: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel "
-              f"moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms{lib} (median of 15 CUDA-event timings); "
+              f"kernel moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
     return worst, timing
 
 
@@ -492,7 +653,7 @@ def phase_kernel_advect(dev):
     """The Div and Conv kernels and the 5-point axis stencil against their
     plain versions at every shape x dtype x case; kernel vs plain timed at
     256^3 and 512^3 f32 on the paths' cases (Div upwind, Conv central,
-    QUICK's 5-point axes)."""
+    QUICK's 5-point axes), and at 256^3 the CSR yardstick."""
     import torch
 
     from pyapes_tpu_torch.ops import stencil as P
@@ -545,15 +706,153 @@ def phase_kernel_advect(dev):
             if not err <= limit:
                 raise RuntimeError(f"chip_smoke: {name} disagrees at {n}^3: {err} > {limit}")
             worst[name] = max(worst[name], err)
-            del got, ref
             ms, plain_ms = _time_ms(kern), _time_ms(plain)
-            timing.setdefault(name, {})[n] = (ms, plain_ms)
+            lib_ms = None
+            if n == N_PATH:  # at a fixed advector each is one sparse product
+                lib_ms = _library_stencil_ms({
+                    "advect_pair": lambda: _advect_csr_coeffs([adv[0]] * 3, base, "upwind"),
+                    "conv_component": lambda: _advect_csr_coeffs(list(adv_conv), base, "none"),
+                    "axis_stencil5": lambda: c5,
+                }[name](), x, ref)
+            del got, ref
+            timing.setdefault(name, {})[n] = (ms, plain_ms, lib_ms)
             gbs = grids * n**3 * 4 / (ms * 1e-3) / 1e9
+            lib = "" if lib_ms is None else f", CSR product (torch.mv) {lib_ms:.4f} ms"
             print(f"[8 advection kernels] {name} {n}^3 f32 time: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel moves >= "
+                  f"{plain_ms:.4f} ms{lib} (median of 15 CUDA-event timings); kernel moves >= "
                   f"{gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
         del x, adv, adv_conv, c5
     return worst, {name: t[N_PATH] for name, t in timing.items()}
+
+
+def phase_kernel_ext(dev):
+    """The halo-extended kernel against its plain version on every block x
+    ext flag x dtype, written into a new tensor and into a strided view of
+    a larger one, and in bf16 on the blocks of the decomposed MG levels;
+    then timed at the decomposed paths' blocks (512^3 f32 in
+    ``N_DECOMP``: eight launches, one per block, each writing its view of
+    the global result) against the plain version, the CSR yardstick and
+    the bound, and the whole block-wise apply (exchange + kernels) against
+    the global axis-stencil kernel."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, apply_axis_stencil_ext
+    from pyapes_tpu_torch.parallel import DomainDecomposition, halo
+    from pyapes_tpu_torch.solver.multigrid import MGSpec
+
+    worst, ratios = 0.0, []
+    for seed, block in enumerate(EXT_BLOCKS):
+        for ext in EXT_FLAGS:
+            for dtname in DTYPES:
+                dtype = getattr(torch, dtname)
+                g = torch.Generator(device=dev).manual_seed(600 + seed)
+                gen = torch.float64 if dtype == torch.float64 else torch.float32
+                coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev, dtype=gen).to(dtype)
+                                     for _ in range(3)) for n in block[1:])
+                xe = torch.randn((block[0], *(n + 2 * e for n, e in zip(block[1:], ext))),
+                                 generator=g, device=dev, dtype=gen).to(dtype)
+                ref = apply_axis_stencil_ext(coeffs, xe, ext)
+                big = torch.zeros((block[0] + 1, block[1] + 2, block[2] + 3, block[3]),
+                                  dtype=dtype, device=dev)
+                view = big[1:, 1:1 + block[1], 3:]
+                for out in (None, view):
+                    got = axis_stencil_ext(coeffs, xe, ext, out=out)
+                    torch.cuda.synchronize()
+                    err = (got.double() - ref.double()).abs().max().item()
+                    limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                    if not (err <= limit and got.shape == ref.shape and got.dtype == ref.dtype):
+                        raise RuntimeError(f"chip_smoke: axis_stencil_ext disagrees at {block} "
+                                           f"ext {ext} {dtname}: {err:.3e} > {limit:.3e}")
+                    worst = max(worst, err)
+                    ratios.append(err / limit if limit > 0 else 0.0)
+                if big[0].any() or big[:, 0].any() or big[:, :, :3].any():
+                    raise RuntimeError(f"chip_smoke: axis_stencil_ext wrote outside its view at "
+                                       f"{block} ext {ext} {dtname}")
+    print(f"[3 kernel] axis_stencil_ext: {len(ratios)} cases ({len(EXT_BLOCKS)} blocks x "
+          f"{len(EXT_FLAGS)} ext flags x {len(DTYPES)} dtypes x new/strided output), worst "
+          f"err/limit {max(ratios):.3f}", flush=True)
+
+    # the decomposed MG-PCG's own launches: every level of its 512^3
+    # hierarchy that the gate applies block-wise, with the level's bf16
+    # Laplacian vectors as MGSpec builds them, each block exchanged as the
+    # cycle exchanges it, into the block's view of the level's result
+    n = N_MAIN
+    dd = DomainDecomposition(N_DECOMP)
+    ext = tuple(int(m > 1) for m in N_DECOMP)
+    spec = MGSpec((n,) * 3, (1.0,) * 3, dtype=torch.float32, cycle_dtype=BENCH_MG["dtype"],
+                  decomp=dd, device=dev)
+    levels = {}
+    for lvl, shape in enumerate(spec.shapes):
+        if not halo.sharded_supported(dd, shape):
+            continue
+        coeffs = spec._level_coeffs(shape)
+        g = torch.Generator(device=dev).manual_seed(650 + lvl)
+        x = torch.randn((1, *shape), generator=g, device=dev).to(spec.cdtype)
+        out = torch.empty_like(x)
+        err = limit = 0.0
+        for _, sl in dd.blocks(shape):
+            xe, cs = halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl)
+            ob = axis_stencil_ext(cs, xe, ext, out=out[(slice(None), *sl)])
+            ref = apply_axis_stencil_ext(cs, xe, ext)
+            torch.cuda.synchronize()
+            err = max(err, (ob.double() - ref.double()).abs().max().item())
+            limit = max(limit, REL_TOL["bfloat16"] * ref.double().abs().max().item())
+        if not err <= limit:
+            raise RuntimeError(f"chip_smoke: axis_stencil_ext disagrees on the bf16 MG level "
+                               f"{shape} blocks: {err:.3e} > {limit:.3e}")
+        glob = apply_axis_stencil(coeffs, x)
+        gerr = (out.double() - glob.double()).abs().max().item()
+        if not gerr <= REL_TOL["bfloat16"] * glob.double().abs().max().item():
+            raise RuntimeError(f"chip_smoke: the bf16 MG level {shape} blocks differ from the "
+                               f"global stencil: {gerr:.3e}")
+        worst = max(worst, err)
+        levels[shape] = f"{shape} blocks {tuple(xe.shape[1:])} err/limit {err / limit:.3f}"
+        del x, out, glob
+    if (n,) * 3 not in levels:
+        raise RuntimeError(f"chip_smoke: the {n}^3 MG fine level is not applied block-wise")
+    print(f"[3 kernel] axis_stencil_ext bf16 on the {N_DECOMP} blocks of the {n}^3 MG levels "
+          f"(MGSpec's Laplacian vectors): " + "; ".join(levels.values()), flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(700)
+    coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev) for _ in range(3))
+                   for _ in range(3))
+    x = torch.randn((1, n, n, n), generator=g, device=dev)
+    blocks = [(sl, halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl))
+              for _, sl in dd.blocks((n, n, n))]
+    out = torch.empty_like(x)
+
+    def kern():
+        for sl, xe, cs in blocks:
+            axis_stencil_ext(cs, xe, ext, out=out[(slice(None), *sl)])
+
+    def plain():
+        for sl, xe, cs in blocks:
+            out[(slice(None), *sl)] = apply_axis_stencil_ext(cs, xe, ext)
+
+    kern()
+    glob = apply_axis_stencil(coeffs, x)
+    err = (out - glob).abs().max().item()
+    if not err <= REL_TOL["float32"] * glob.abs().max().item():
+        raise RuntimeError(f"chip_smoke: the {N_DECOMP} blocks of axis_stencil_ext differ from the "
+                           f"global stencil at {n}^3: {err:.3e}")
+    worst = max(worst, err)
+    ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    lib_ms = _library_stencil_ms(None, None, None, ext, [
+        (xe, cs, glob[(slice(None), *sl)]) for sl, xe, cs in blocks])
+    nbytes = sum(xe.numel() for _, xe, _ in blocks) * 4 + x.numel() * 4
+    bound = _bound(nbytes, BOUND_WORK["axis_stencil"][3] * x.numel())
+    apply = halo.make_sharded_apply(dd, 3)
+    sharded_ms, global_ms = _time_ms(lambda: apply(coeffs, x)), _time_ms(
+        lambda: axis_stencil(coeffs, x))
+    print(f"[3 kernel] axis_stencil_ext {n}^3 f32 in {N_DECOMP} blocks of "
+          f"{tuple(blocks[0][1].shape[1:])} extended (8 launches): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, CSR products {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({nbytes / 1e9:.3f} GB), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; block-wise apply (exchange + kernels) "
+          f"{sharded_ms:.4f} ms vs global axis_stencil {global_ms:.4f} ms (median of 15 "
+          "CUDA-event timings)", flush=True)
+    del blocks, out, glob, x
+    return worst, (ms, plain_ms, lib_ms, bound)
 
 
 def _true_residual(solver) -> float:
@@ -798,8 +1097,8 @@ def phase_burgers_xonly(dev, n: int = N_PATH) -> None:
     print(f"[9 Burgers x-only check] {n + 1}^3 f64 nu={nu}: {json.dumps(out)}", flush=True)
 
 
-def _solve_path(dev, n, cfg, label, darcy=False):
-    """One warm-up and three timed solves of the 3-D f32 all-Dirichlet
+def _solve_path(dev, n, cfg, label, darcy=False, solves=3):
+    """One warm-up and ``solves`` timed solves of the 3-D f32 all-Dirichlet
     random-RHS Poisson problem through the public API (with ``darcy``:
     ``bench_darcy``'s variable-Γ problem); returns its stats (launches per
     timed solve included) and the solution."""
@@ -840,16 +1139,17 @@ def _solve_path(dev, n, cfg, label, darcy=False):
     first = time.perf_counter() - tic
 
     torch.cuda.reset_peak_memory_stats()
-    walls, reports, per_solve = [], [], []
-    for _ in range(3):
+    walls, cpus, reports, per_solve = [], [], [], []
+    for _ in range(solves):
         var.set_var_tensor(torch.zeros_like(var()))
         solver.set_eq(fdm.laplacian(coeff, var) == rhs)
         torch.cuda.synchronize()
         before = _counts()
-        tic = time.perf_counter()
+        tic, ctic = time.perf_counter(), time.process_time()
         rep = solver.solve()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - tic)
+        cpus.append(time.process_time() - ctic)
         after = _counts()
         per_solve.append({k: after[k] - before[k] for k in after})
         reports.append(rep)
@@ -880,6 +1180,9 @@ def _solve_path(dev, n, cfg, label, darcy=False):
         "path": label, "n": n, "itr": [r["itr"] for r in reports],
         "tol": [r["tol"] for r in reports], "converge": [r["converge"] for r in reports],
         "first_call_s": first, "wall_s": walls, "wall_s_median": med,
+        # the process's CPU time per solve: near the wall where the host
+        # binds; a wall that grows without it is time the host was not ours
+        "cpu_s": cpus,
         "dof_per_s": n**3 / med, "peak_mem_gib": peak / 2**30,
         "true_rel_residual_f32": res32, "true_rel_residual_f64": res64,
         "launches_per_solve": per_solve,
@@ -887,41 +1190,100 @@ def _solve_path(dev, n, cfg, label, darcy=False):
     return stats, x
 
 
+FD_TOL = 1e-6
+# A decomposed fastdiag solve against the undecomposed one: the block
+# kernel sums the same f32 products in the same order as the global one,
+# so the two residuals differ by rounding only (below the 1e-6 tolerance
+# of |b|), and the fastdiag inverse keeps a white residual's share of a
+# white RHS's solution: max|dx| <= 1e-5 max|x|.
+FD_DECOMP_AGREE = 1e-5
+
+
+def fd_cfg(decomp=None) -> dict:
+    """The fastdiag cells' solver config (``bench.py``'s Poisson problem)."""
+    cfg = {"method": "fastdiag", "tol": FD_TOL, "max_it": 4000, "criterion": "residual"}
+    return cfg if decomp is None else {**cfg, "decomp": decomp}
+
+
+def mg_cfg(mg_opts: dict, decomp=None) -> dict:
+    """The MG-PCG cells' solver config (``bench.py``'s cg method) with the
+    cycle options ``mg_opts``."""
+    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 200,
+           "criterion": "residual", "donate": True, "mg_opts": mg_opts}
+    return cfg if decomp is None else {**cfg, "decomp": decomp}
+
+
 def phase_fastdiag(dev, n: int = N_MAIN):
-    """The slice-1 main path: 512^3 fastdiag."""
-    tol = 1e-6
+    """The slice-1 main path: 512^3 fastdiag. Returns its launches, stats
+    and solution."""
     _reset_counts()
-    stats, _ = _solve_path(dev, n, {"method": "fastdiag", "tol": tol, "max_it": 4000,
-                                    "criterion": "residual"}, "fastdiag")
+    stats, x = _solve_path(dev, n, fd_cfg(), "fastdiag")
     counts = _counts()
     for rep_itr, ls in zip(stats["itr"], stats["launches_per_solve"]):
         if ls["axis_stencil"] < rep_itr + 1:
             raise RuntimeError("chip_smoke: the solve did not go through the stencil kernel")
-    if not stats["true_rel_residual_f32"] <= tol:
+    if not stats["true_rel_residual_f32"] <= FD_TOL:
         raise RuntimeError(f"chip_smoke: recomputed true residual "
-                           f"{stats['true_rel_residual_f32']:.3e} > {tol}")
+                           f"{stats['true_rel_residual_f32']:.3e} > {FD_TOL}")
     print(f"[4 fastdiag path] {json.dumps(stats)}", flush=True)
-    return {"axis_stencil": counts["axis_stencil"]}
+    return {"axis_stencil": counts["axis_stencil"]}, stats, x.clone()
 
 
-def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str):
-    """MG-PCG through ``Solver.solve`` with ``bench.py``'s cg settings;
-    every kernel in ``required`` must launch in every timed solve."""
+def phase_fastdiag_decomp(dev, ref_stats, ref_x, n: int = N_MAIN):
+    """The slice-8 path: the same 512^3 fastdiag solve with a
+    ``DomainDecomposition(N_DECOMP)``: the halo-extended kernel in every
+    timed solve (once per block and residual), the undecomposed solve's
+    passes, its solution to ``FD_DECOMP_AGREE``, the true residual
+    recomputed in f64 within the tolerance; then the block-wise apply of
+    the block-wise apply timed against the global kernel on the solution."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
+    from pyapes_tpu_torch.parallel import DomainDecomposition, halo
+
+    dd = DomainDecomposition(N_DECOMP)
+    label = f"fastdiag {N_DECOMP}"
     _reset_counts()
-    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 200,
-           "criterion": "residual", "donate": True, "mg_opts": mg_opts}
-    stats, _ = _solve_path(dev, n, cfg, label)
+    stats, x = _solve_path(dev, n, fd_cfg(dd), label)
+    counts = _counts()
+    for rep_itr, ls in zip(stats["itr"], stats["launches_per_solve"]):
+        if ls["axis_stencil_ext"] < dd.n_devices * rep_itr:
+            raise RuntimeError(f"chip_smoke: {label} did not go through the block kernel: {ls}")
+    if stats["itr"] != ref_stats["itr"]:
+        raise RuntimeError(f"chip_smoke: {label} took {stats['itr']} passes, the undecomposed "
+                           f"solve {ref_stats['itr']}")
+    agree = ((x - ref_x).abs().max() / ref_x.abs().max()).item()
+    if not (agree <= FD_DECOMP_AGREE and stats["true_rel_residual_f64"] <= FD_TOL):
+        raise RuntimeError(f"chip_smoke: {label}: max|dx|/max|x| = {agree:.3e} (limit "
+                           f"{FD_DECOMP_AGREE}), true residual (f64) "
+                           f"{stats['true_rel_residual_f64']:.3e} (limit {FD_TOL})")
+    coeffs = tuple(tuple(torch.randn(n, device=dev) for _ in range(3)) for _ in range(3))
+    apply = halo.make_sharded_apply(dd, 3)
+    stats["max_rel_diff_vs_undecomposed"] = agree
+    stats["blockwise_apply_ms"] = _time_ms(lambda: apply(coeffs, x))
+    stats["global_apply_ms"] = _time_ms(lambda: axis_stencil(coeffs, x))
+    print(f"[4b decomposed fastdiag path] {json.dumps(stats)}", flush=True)
+    return {"axis_stencil_ext": counts["axis_stencil_ext"]}
+
+
+def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str, decomp=None):
+    """MG-PCG through ``Solver.solve`` with ``bench.py``'s cg settings (and
+    ``decomp``); every kernel in ``required`` must launch in every timed
+    solve. Returns its launches and stats."""
+    _reset_counts()
+    stats, _ = _solve_path(dev, n, mg_cfg(mg_opts, decomp), label)
     counts = _counts()
     for ls in stats["launches_per_solve"]:
         missing = [k for k in required if ls[k] == 0]
         if missing:
             raise RuntimeError(f"chip_smoke: {label} did not launch {missing}: {ls}")
     # the criterion is the RECURSIVE residual: hold the true one to 1e-5
-    if not stats["true_rel_residual_f32"] <= 1e-5:
+    if not (stats["true_rel_residual_f32"] <= 1e-5 and stats["true_rel_residual_f64"] <= 1e-5):
         raise RuntimeError(f"chip_smoke: {label} true residual "
-                           f"{stats['true_rel_residual_f32']:.3e} > 1e-5")
+                           f"{stats['true_rel_residual_f32']:.3e} / "
+                           f"{stats['true_rel_residual_f64']:.3e} > 1e-5")
     print(f"[5 MG-PCG path] {json.dumps(stats)}", flush=True)
-    return counts
+    return counts, stats
 
 
 def phase_darcy(dev, n: int = N_DARCY):
@@ -1031,16 +1393,33 @@ def main() -> None:
     worst2, timing2 = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
     worst4, timing4 = phase_kernel_advect(dev)
-    worst = {"axis_stencil": worst1, **worst2, **worst3, **worst4}
-    timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4}
+    worst5, timing5 = phase_kernel_ext(dev)
+    worst = {"axis_stencil": worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
+    timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4,
+              "axis_stencil_ext": timing5}
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
 
     launches = {name: 0 for name, _, _, _ in KERNELS}
+    fd_counts, fd_stats, fd_x = phase_fastdiag(dev)
+    fd_decomp_counts = phase_fastdiag_decomp(dev, fd_stats, fd_x)
+    del fd_x
+    mg_counts, mg_stats = phase_mgpcg(
+        dev, N_MAIN, BENCH_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_x2"),
+        f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG fuse_rz")
+    # under a decomposition the fused alpha-dot, Jacobi, double-sweep and
+    # r.z kernels are off: the block kernel applies every fine level
+    mg_decomp_counts, mg_decomp_stats = phase_mgpcg(
+        dev, N_MAIN, BENCH_MG, ("axis_stencil_ext",),
+        f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG {N_DECOMP}", DomainDecomposition(N_DECOMP))
+    d_itr = [abs(a - b) for a, b in zip(mg_decomp_stats["itr"], mg_stats["itr"])]
+    if max(d_itr) > 2:
+        raise RuntimeError(f"chip_smoke: the decomposed MG-PCG took {mg_decomp_stats['itr']} "
+                           f"iterations, the undecomposed {mg_stats['itr']} (|d itr| > 2)")
     path_counts = [
-        phase_fastdiag(dev),
-        phase_mgpcg(dev, N_MAIN, BENCH_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_x2"),
-                    f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG fuse_rz"),
+        fd_counts, fd_decomp_counts, mg_counts, mg_decomp_counts,
         phase_mgpcg(dev, N_V11, V11_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_dot"),
-                    f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz"),
+                    f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz")[0],
         phase_darcy(dev),
         phase_model(),
         phase_burgers(dev),
@@ -1054,8 +1433,17 @@ def main() -> None:
     if never:
         raise RuntimeError(f"chip_smoke: the main paths never launched {never}")
 
-    print(f"[10 kernels] ms/plain_ms: the advection kernels at {N_PATH}^3 f32 (their paths' "
-          f"grid), the others at {N_MAIN}^3 (512^3 bf16 for the Jacobi family)", flush=True)
+    def bound(name):
+        if name == "axis_stencil_ext":
+            return timing[name][3]
+        grids, size, n, ops = BOUND_WORK[name]
+        return _bound(grids * size * n**3, ops * n**3)
+
+    print(f"[10 kernels] ms/plain_ms/library_ms/bound_ms: the advection kernels at {N_PATH}^3 "
+          f"f32 (their paths' grid), the others at {N_MAIN}^3 (512^3 bf16 for the Jacobi family, "
+          f"the halo-extended kernel on the {N_DECOMP} blocks of 512^3); library_ms: one CSR "
+          "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
+          "and Conv at their advectors), none for the fused ones", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1065,6 +1453,9 @@ def main() -> None:
         "max_abs_err": worst[name],
         "ms": timing[name][0],
         "plain_ms": timing[name][1],
+        "bound_ms": bound(name)[0],
+        "bound_by": bound(name)[1],
+        "library_ms": timing[name][2] if len(timing[name]) > 2 else None,
     } for name, _, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

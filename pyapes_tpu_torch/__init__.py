@@ -28,4 +28,8 @@ def __getattr__(name):
         from pyapes_tpu_torch import solver
 
         return getattr(solver, name)
+    if name == "DomainDecomposition":
+        from pyapes_tpu_torch.parallel import DomainDecomposition
+
+        return DomainDecomposition
     raise AttributeError(name)

@@ -103,11 +103,12 @@ class Device:
     """Compute device handle (reference ``TorchDevice``, ``backend.py:70-94``).
 
     Resolves ``"cpu"`` / ``"cuda"`` / ``"gpu"`` (optionally with an index,
-    ``"cuda:1"``) to a ``torch.device``. Raises ``RuntimeError`` when CUDA
-    is requested but unavailable.
+    ``"cuda:1"``) to a ``torch.device``; the default is the card. Raises
+    ``RuntimeError`` when CUDA is requested but unavailable: the CPU is
+    used only when the caller asks for it.
     """
 
-    device_type: str = "cpu"
+    device_type: str = "cuda"
 
     def __post_init__(self):
         alias = str(self.device_type).lower()

@@ -20,6 +20,14 @@
 // axes: app_a x(+2) + ... + amm_a x(-2), a 3-point axis passed with null
 // app/amm; replaces pallas_stencil_v3.py::pallas_axis_stencil_v5.
 //
+// axis_stencil_ext_kernel (3-D) is the apply on one block of a domain
+// decomposition, extended by one ghost row on each side of axis 0 and/or 1
+// (e0, e1 in {0, 1}; the last axis is never extended): on an extended axis
+// the neighbour is the next row of the extended block (no wrap), on an
+// unextended axis it wraps; the output (the unextended block) is written
+// through strides, so a block lands straight in its view of the global
+// result. Replaces pallas_stencil_v3.py::pallas_axis_stencil_ext.
+//
 // The Python wrapper and the design note are in ops/axis_stencil.py.
 // Plain C interface, loaded with ctypes.
 
@@ -159,6 +167,41 @@ axis_stencil5_kernel(const T* __restrict__ x, T* __restrict__ out,
   store(&out[p], acc);
 }
 
+// The 3-point apply on a halo-extended block: x is (vdim, N0 + 2 e0,
+// N1 + 2 e1, N2), C-contiguous; out element (d, i, j, k) sits at
+// d * os_v + i * os0 + j * os1 + k. One thread per output point, the last
+// axis along threadIdx.x; summed in the order of axis_stencil_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+axis_stencil_ext_kernel(const T* __restrict__ x, T* __restrict__ out, AxisCoeffs<T> c,
+                        int N0, int N1, int N2, int e0, int e1,
+                        int64_t os_v, int64_t os0, int64_t os1) {
+  using C = typename Compute<T>::type;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= N2) return;
+  const int j = blockIdx.y;
+  const int d = blockIdx.z / N0;
+  const int i = blockIdx.z - d * N0;
+  const int E0 = N0 + 2 * e0, E1 = N1 + 2 * e1;
+  const int64_t plane = (int64_t)E1 * N2;
+  const int64_t p = ((int64_t)(d * E0 + i + e0) * E1 + j + e1) * N2 + k;
+  const C xc = to_c(x[p]);
+  // axis 0: the rows above and below in extended coordinates, or the wrap
+  const int64_t up0 = (e0 || i + 1 < N0) ? plane : -(int64_t)(N0 - 1) * plane;
+  const int64_t dn0 = (e0 || i > 0) ? -plane : (int64_t)(N0 - 1) * plane;
+  C acc = to_c(c.ap[0][i]) * to_c(x[p + up0]) + to_c(c.ac[0][i]) * xc +
+          to_c(c.am[0][i]) * to_c(x[p + dn0]);
+  const int64_t up1 = (e1 || j + 1 < N1) ? N2 : -(int64_t)(N1 - 1) * N2;
+  const int64_t dn1 = (e1 || j > 0) ? -(int64_t)N2 : (int64_t)(N1 - 1) * N2;
+  acc += to_c(c.ap[1][j]) * to_c(x[p + up1]) + to_c(c.ac[1][j]) * xc +
+         to_c(c.am[1][j]) * to_c(x[p + dn1]);
+  const int kp = (k + 1 == N2) ? 0 : k + 1;
+  const int km = (k == 0) ? N2 - 1 : k - 1;
+  acc += to_c(c.ap[2][k]) * to_c(x[p + (kp - k)]) + to_c(c.ac[2][k]) * xc +
+         to_c(c.am[2][k]) * to_c(x[p + (km - k)]);
+  store(&out[d * os_v + i * os0 + (int64_t)j * os1 + k], acc);
+}
+
 template <typename T>
 AxisCoeffs<T> make_coeffs(const void* const* coeffs) {
   AxisCoeffs<T> c;
@@ -245,6 +288,17 @@ cudaError_t dispatch5(int ndim, const void* x, void* out, const void* const* coe
   }
 }
 
+template <typename T>
+cudaError_t launch_ext(const void* x, void* out, const void* const* coeffs, int vdim,
+                       const int* n, int e0, int e1, int64_t os_v, int64_t os0, int64_t os1,
+                       cudaStream_t stream) {
+  const dim3 grid((n[2] + kThreads - 1) / kThreads, n[1], vdim * n[0]);
+  axis_stencil_ext_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), make_coeffs<T>(coeffs), n[0], n[1], n[2],
+      e0, e1, os_v, os0, os1);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,6 +336,23 @@ int pyapes_axis_stencil5(int dtype, int ndim, int vdim, int n0, int n1, int n2,
   if (dtype == 0) return dispatch5<float>(ndim, x, out, coeffs, vdim, n, s);
   if (dtype == 1) return dispatch5<double>(ndim, x, out, coeffs, vdim, n, s);
   if (dtype == 2) return dispatch5<__nv_bfloat16>(ndim, x, out, coeffs, vdim, n, s);
+  return cudaErrorInvalidValue;
+}
+
+// 3-D halo-extended block. n0..n2: the UNEXTENDED block extents; e0, e1:
+// 0/1 ghost rows per side on axes 0 and 1; x: (vdim, n0 + 2 e0, n1 + 2 e1,
+// n2), C-contiguous; out: element strides os_v, os0, os1 of the
+// (vdim, n0, n1, n2) output, last-axis stride 1; coeffs: 9 device pointers
+// (ap, ac, am) per axis, sized to the unextended extents.
+int pyapes_axis_stencil_ext(int dtype, int vdim, int n0, int n1, int n2, int e0, int e1,
+                            const void* x, void* out, long long os_v, long long os0,
+                            long long os1, const void* const* coeffs, void* stream) {
+  const int n[3] = {n0, n1, n2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_ext<float>(x, out, coeffs, vdim, n, e0, e1, os_v, os0, os1, s);
+  if (dtype == 1) return launch_ext<double>(x, out, coeffs, vdim, n, e0, e1, os_v, os0, os1, s);
+  if (dtype == 2)
+    return launch_ext<__nv_bfloat16>(x, out, coeffs, vdim, n, e0, e1, os_v, os0, os1, s);
   return cudaErrorInvalidValue;
 }
 

@@ -34,7 +34,8 @@ class Mesh:
         obstacle: Inner obstacles — not ported yet (must be ``None``).
         spacing: list of ints (node counts) or floats (cell sizes)
             (``_mesh.py:67-80``).
-        device: "cpu" | "cuda" | "gpu" (raises if CUDA is unavailable).
+        device: "cuda" (the default) | "gpu" | "cpu"; CUDA raises where it
+            is unavailable (there is no fallback to the CPU).
         dtype: "single" | "double" | "half".
     """
 
@@ -43,7 +44,7 @@ class Mesh:
         domain: Geometry,
         obstacle: Optional[list[Geometry]] = None,
         spacing: list[int] | list[float] | None = None,
-        device: str = "cpu",
+        device: str = "cuda",
         dtype: str | int = "double",
     ):
         spacing = [] if spacing is None else spacing

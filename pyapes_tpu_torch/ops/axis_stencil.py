@@ -16,7 +16,12 @@ apply plus ``sum(x * A x)`` per component, so CG never re-reads ``d`` and
 ``pallas_stencil_v3.py::pallas_axis_stencil_v5``: the apply with 5-point
 (QUICK, offsets +-2) axes mixed with 3-point ones, 1-3-D, on the same
 design (a 3-point axis skips the +-2 loads); ``axis_stencil`` hands a
-5-point equation to it.
+5-point equation to it. ``axis_stencil_ext`` replaces
+``pallas_stencil_v3.py::pallas_axis_stencil_ext``: the 3-D apply on one
+block of a domain decomposition, extended by one ghost row per side of
+each cut axis (``parallel/halo.py`` fills the ghosts), with no wrap on
+an extended axis, writing through output strides into the block's view
+of the global result (no stitching pass).
 
 What bounds them: the apply does ~7 multiply-adds per point against 2-4
 bytes each way (bf16/f32) of compulsory traffic (read x, write out), far
@@ -47,7 +52,11 @@ import functools
 import torch
 
 from pyapes_tpu_torch.ops import cuda_build
-from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, apply_axis_stencil_dot
+from pyapes_tpu_torch.ops.stencil import (
+    apply_axis_stencil,
+    apply_axis_stencil_dot,
+    apply_axis_stencil_ext,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
@@ -64,6 +73,9 @@ def _lib() -> ctypes.CDLL:
     lib.pyapes_axis_stencil_dot.restype = ctypes.c_int
     lib.pyapes_axis_stencil5.argtypes = [ctypes.c_int] * 6 + [P, P, ctypes.POINTER(P), P]
     lib.pyapes_axis_stencil5.restype = ctypes.c_int
+    I, L = ctypes.c_int, ctypes.c_longlong
+    lib.pyapes_axis_stencil_ext.argtypes = [I] * 7 + [P, P, L, L, L, ctypes.POINTER(P), P]
+    lib.pyapes_axis_stencil_ext.restype = ctypes.c_int
     return lib
 
 
@@ -201,6 +213,82 @@ def axis_stencil5(coeffs, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_ext_inputs(coeffs, x_ext: torch.Tensor, ext, out=None) -> tuple:
+    """Raise on what the halo-extended kernel does not take: a dtype other
+    than bf16/f32/f64; ``x_ext`` not ``(vdim, n0 + 2 e0, n1 + 2 e1, n2)``
+    (3-D) or not contiguous; ``ext`` not three 0/1 flags with ``ext[2] ==
+    0``; coefficients not three contiguous 1-D vectors per axis of the
+    unextended length in ``x_ext``'s dtype and device; an ``out`` of
+    another shape, dtype or device, or with a last-axis stride other than
+    1; a grid beyond the launch limits. Returns the unextended shape."""
+    if x_ext.dtype not in _DTYPE_CODE:
+        raise TypeError(f"axis_stencil_ext: dtype {x_ext.dtype} not supported (bf16, f32, f64)")
+    if x_ext.ndim != 4:
+        raise ValueError(f"axis_stencil_ext: x_ext must be (vdim, nx, ny, nz), got "
+                         f"{tuple(x_ext.shape)}")
+    ext = tuple(ext)
+    if len(ext) != 3 or any(e not in (0, 1) for e in ext) or ext[2] != 0:
+        raise ValueError(f"axis_stencil_ext: ext must be three 0/1 flags with ext[2] == 0, "
+                         f"got {ext}")
+    if not x_ext.is_contiguous():
+        raise ValueError("axis_stencil_ext: x_ext must be contiguous")
+    n = tuple(s - 2 * e for s, e in zip(x_ext.shape[1:], ext))
+    if min(n) < 1:
+        raise ValueError(f"axis_stencil_ext: empty block {n}")
+    if len(coeffs) != 3:
+        raise ValueError(f"axis_stencil_ext: {len(coeffs)} coefficient axes for 3 mesh axes")
+    for a, cs in enumerate(coeffs):
+        if len(cs) != 3:
+            raise ValueError(f"axis_stencil_ext: axis {a} needs (ap, ac, am)")
+        for c in cs:
+            if (c.ndim != 1 or c.shape[0] != n[a] or c.dtype != x_ext.dtype
+                    or c.device != x_ext.device or not c.is_contiguous()):
+                raise ValueError(f"axis_stencil_ext: axis {a} coefficients must be contiguous "
+                                 f"1-D {x_ext.dtype} of length {n[a]} on {x_ext.device}")
+    if out is not None:
+        if (tuple(out.shape) != (x_ext.shape[0], *n) or out.dtype != x_ext.dtype
+                or out.device != x_ext.device or out.stride(-1) != 1):
+            raise ValueError(f"axis_stencil_ext: out must be {(x_ext.shape[0], *n)} "
+                             f"{x_ext.dtype} on {x_ext.device} with last-axis stride 1")
+    if n[1] > _MAX_GRID_YZ or x_ext.shape[0] * n[0] > _MAX_GRID_YZ:
+        raise ValueError(f"axis_stencil_ext: block {n} exceeds the launch limits")
+    return n
+
+
+def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None = None):
+    """The 3-point axis stencil of a 3-D block extended by one ghost row
+    per side of each axis with ``ext[a] == 1`` (``ext[2] == 0``): on an
+    extended axis the neighbour is the next row of ``x_ext``, on the others
+    it wraps. ``coeffs`` are sized to the unextended block; the result has
+    the unextended shape and is written into ``out`` when given (any
+    strides with last-axis stride 1, e.g. the block's view of a global
+    tensor), else into a new tensor.
+
+    A CPU tensor goes to the plain ``apply_axis_stencil_ext``; a CUDA
+    tensor launches the kernel on the current stream, or raises."""
+    if x_ext.device.type == "cpu":
+        check_ext_inputs(coeffs, x_ext, ext, out)
+        r = apply_axis_stencil_ext(coeffs, x_ext, ext)
+        return r if out is None else out.copy_(r)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"axis_stencil_ext: unsupported device {x_ext.device}")
+    lib = _lib()  # loaded first: a CUDA tensor never falls back to the plain version
+    n = check_ext_inputs(coeffs, x_ext, ext, out)
+    if out is None:
+        out = torch.empty((x_ext.shape[0], *n), dtype=x_ext.dtype, device=x_ext.device)
+    cptrs = (ctypes.c_void_p * 9)(*(c.data_ptr() for cs in coeffs for c in cs))
+    with torch.cuda.device(x_ext.device):
+        err = lib.pyapes_axis_stencil_ext(
+            _DTYPE_CODE[x_ext.dtype], x_ext.shape[0], *n, int(ext[0]), int(ext[1]),
+            x_ext.data_ptr(), out.data_ptr(), *out.stride()[:3], cptrs,
+            torch.cuda.current_stream(x_ext.device).cuda_stream,
+        )
+    cuda_build.check(lib, err, "axis_stencil_ext")
+    axis_stencil_ext.launches += 1
+    return out
+
+
 axis_stencil.launches = 0
 axis_stencil_dot.launches = 0
 axis_stencil5.launches = 0
+axis_stencil_ext.launches = 0

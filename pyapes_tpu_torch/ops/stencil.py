@@ -84,6 +84,41 @@ def apply_axis_stencil_dot(coeffs, x: torch.Tensor):
     return out.to(x.dtype), _vdot(x.to(out.dtype), out)
 
 
+def apply_axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext) -> torch.Tensor:
+    """The 3-point axis stencil of a block extended by one ghost row on
+    each side of every axis with ``ext[a] == 1`` (plain version of
+    ``pallas_stencil_v3.py::pallas_axis_stencil_ext``).
+
+    Args:
+        coeffs: per mesh axis ``(ap, ac, am)``, sized to the UNEXTENDED
+            extents.
+        x_ext: ``(vdim, n_0 + 2 ext_0, ...)``.
+        ext: per-axis 0/1 extension flags.
+
+    On an extended axis the neighbours are static slices of the extended
+    extent (no wrap); on an unextended axis the torus roll. The output has
+    the unextended shape; the ghost corners are never read. Computes in
+    ``promote(dtype, f32)`` and rounds once, summing in
+    ``apply_axis_stencil``'s order."""
+    cdt = _cdt(x_ext.dtype)
+    xe = x_ext.to(cdt)
+    n = [s - 2 * e for s, e in zip(x_ext.shape[1:], ext)]
+    inner = [slice(None)] + [slice(e, e + m) for e, m in zip(ext, n)]
+    xc = xe[tuple(inner)]
+    out = torch.zeros_like(xc)
+    for j, (ap, ac, am) in enumerate(coeffs):
+        shape = _bshape(x_ext.ndim, j)
+        if ext[j]:
+            xp = xe[tuple(inner[:1 + j] + [slice(2, n[j] + 2)] + inner[2 + j:])]
+            xm = xe[tuple(inner[:1 + j] + [slice(0, n[j])] + inner[2 + j:])]
+        else:
+            xp, xm = torch.roll(xc, -1, 1 + j), torch.roll(xc, 1, 1 + j)
+        out = out + ap.to(cdt).reshape(shape) * xp
+        out = out + ac.to(cdt).reshape(shape) * xc
+        out = out + am.to(cdt).reshape(shape) * xm
+    return out.to(x_ext.dtype)
+
+
 def _lap3d(x: torch.Tensor, inv_dx2) -> torch.Tensor:
     """Central Laplacian ``sum_j inv_dx2[j] (x[+1] + x[-1] - 2 x)`` with
     torus wrap on every mesh axis, in ``x``'s dtype."""

@@ -1,0 +1,5 @@
+"""Spatial domain decomposition: blocks of the grid, their halo exchange
+and the block-wise stencil and advection applies (``halo``)."""
+from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
+
+__all__ = ["DomainDecomposition"]

@@ -1,0 +1,331 @@
+"""Halo exchange and the block-wise applies of a domain decomposition
+(PyTorch port of ``pyapes_tpu/parallel/halo.py``).
+
+Each block of ``DomainDecomposition.blocks`` owns a contiguous part of the
+grid; the +-1 neighbours a block's face rows need come from its ring
+neighbours along each cut axis (``halo_exchange``; the ring wraps, and
+the solver masks the rows of a non-periodic global face, as in the JAX
+package). All blocks live on the solve's device, so the exchange is a
+device copy. It stays its own step: the kernels read a block and its
+received ghosts, never the neighbour block.
+
+* ``make_sharded_stencil`` — the plain reference of the block-wise apply
+  (ghost rows spliced in with ``torch.cat``), used by the tests.
+* ``make_sharded_apply`` — the solver's block-wise apply (the
+  counterpart of ``make_sharded_pallas_apply``). 3-D: "extended mode" for
+  every block: the block and its ghost faces are copied into one
+  halo-extended buffer per shape and dtype, kept by the apply
+  (``exchange``), and ``ops.axis_stencil_ext`` writes the block's output
+  straight into its view of the global result; one launch per block and
+  no patch pass. (The JAX package prefers "overlap
+  mode" and reaches its extended kernel only where the TPU's tiling
+  rejects a block; on the card every block shape fits, so that rule
+  would never run the kernel, and in one process there is no
+  communication to overlap.) 2-D: overlap mode, as the JAX package: the
+  torus kernel ``ops.axis_stencil`` on the block, then the face rows
+  patched with ``coeff * (ghost - wrap)`` (``_patch_face_rows``).
+* ``make_sharded_advect_apply`` — the per-point Div/Conv (``advect_pair``
+  / ``conv_component`` kernels on each block with no surgery on cut axes,
+  then the O(surface) ghost patches and the Neumann/periodic surgery at
+  global rows 1 / -2 on the edge blocks, in the JAX package's order).
+"""
+from __future__ import annotations
+
+import torch
+
+from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
+from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
+
+
+def halo_exchange(x: torch.Tensor, sl, axis: int) -> tuple:
+    """``(lo_ghost, hi_ghost)`` of the block at ``sl`` (its index ranges
+    per grid axis) along grid ``axis`` of ``x`` ``(vdim, *nx)``: the lower
+    ring neighbour's last row and the upper one's first row, over the
+    block's extent on the other axes (views of ``x``; the ring wraps, so
+    the first block's lower ghost is the last block's last row)."""
+    n = x.shape[1 + axis]
+    idx = [slice(None), *sl]
+    lo = (sl[axis].start - 1) % n
+    hi = sl[axis].stop % n
+    idx[1 + axis] = slice(lo, lo + 1)
+    lo_ghost = x[tuple(idx)]
+    idx[1 + axis] = slice(hi, hi + 1)
+    return lo_ghost, x[tuple(idx)]
+
+
+def _shifted(x, ghost_lo, ghost_hi, axis: int):
+    """Block-local ``roll(x, +1)`` / ``roll(x, -1)`` along ``axis`` with the
+    ghosts in place of the wrap."""
+    n = x.shape[axis]
+    xm = torch.cat([ghost_lo, x.narrow(axis, 0, n - 1)], dim=axis)  # x[i-1]
+    xp = torch.cat([x.narrow(axis, 1, n - 1), ghost_hi], dim=axis)  # x[i+1]
+    return xm, xp
+
+
+def _cut(decomp) -> tuple:
+    return tuple(m > 1 for m in decomp.mesh_shape)
+
+
+def _block_coeffs(coeffs, sl) -> tuple:
+    """Per-axis vectors cut to a block (1-D slices stay contiguous)."""
+    return tuple(tuple(c[s] for c in cs) for cs, s in zip(coeffs, sl))
+
+
+def make_sharded_stencil(decomp, coeffs, vdim_ndim: int):
+    """Plain reference of the block-wise axis stencil: ``apply(x) -> out``
+    equal to ``ops.stencil.apply_axis_stencil`` (in ``x``'s dtype), built
+    block by block with ``halo_exchange`` ghosts on cut axes and the torus
+    roll on the others.
+
+    Args:
+        decomp: ``DomainDecomposition``.
+        coeffs: per-axis global ``(ap, ac, am)`` vectors.
+        vdim_ndim: rank of the data ``(vdim, *nx)``.
+    """
+    cut = _cut(decomp)
+
+    def apply(x):
+        out = torch.empty_like(x)
+        for _, sl in decomp.blocks(x.shape[1:]):
+            xb = x[(slice(None), *sl)]
+            acc = torch.zeros_like(xb)
+            for j, (ap, ac, am) in enumerate(_block_coeffs(coeffs, sl)):
+                axis = 1 + j
+                shape = [1] * vdim_ndim
+                shape[axis] = -1
+                if cut[j]:
+                    xm, xp = _shifted(xb, *halo_exchange(x, sl, j), axis)
+                else:
+                    xm, xp = torch.roll(xb, 1, axis), torch.roll(xb, -1, axis)
+                acc = acc + ap.reshape(shape) * xp + ac.reshape(shape) * xb \
+                    + am.reshape(shape) * xm
+            out[(slice(None), *sl)] = acc
+        return out
+
+    return apply
+
+
+def sharded_supported(decomp, global_shape) -> bool:
+    """Whether ``make_sharded_apply`` runs this decomposition (the rules
+    of ``sharded_pallas_supported``, without its TPU tiling and VMEM
+    clauses): a 2-D or 3-D grid with one block axis per grid axis, the
+    last (contiguous) axis uncut, every axis divisible into its blocks, at
+    least 2 nodes per block on a cut axis — and, in 2-D, at least 3 nodes
+    per block on every axis (the torus kernel's minimum)."""
+    nd = len(global_shape)
+    ms = decomp.mesh_shape
+    if nd not in (2, 3) or len(ms) != nd:
+        return False
+    if ms[-1] != 1:
+        return False  # ghost rows of the contiguous axis would be strided
+    if any(s % m for s, m in zip(global_shape, ms)):
+        return False
+    local = tuple(s // m for s, m in zip(global_shape, ms))
+    if any(n < 2 for n, m in zip(local, ms) if m > 1):
+        return False  # the face patches need distinct first and last rows
+    return nd == 3 or min(local) >= 3
+
+
+def _patch_face_rows(out, x, cs, ghosts) -> None:
+    """Replace the wrapped face-row neighbour terms of a torus apply on the
+    block ``x`` (``out``, edited in place) with the true ghosts: ``am[0] *
+    (lo - wrap_lo)`` on the first row, ``ap[-1] * (hi - wrap_hi)`` on the
+    last, per cut axis in ``ghosts`` = ``[(axis, lo, hi), ...]``."""
+    for j, lo, hi in ghosts:
+        ax = 1 + j
+        n = x.shape[ax]
+        ap, _ac, am = cs[j]
+        out.narrow(ax, 0, 1).add_(am[0] * (lo - x.narrow(ax, n - 1, 1)))
+        out.narrow(ax, n - 1, 1).add_(ap[-1] * (hi - x.narrow(ax, 0, 1)))
+
+
+def exchange(x: torch.Tensor, sl, ext, buffers: dict) -> torch.Tensor:
+    """The communication step of extended mode: copy the block at ``sl``
+    and, per axis with ``ext[j] == 1``, its two ghost faces
+    (``halo_exchange``) into the halo-extended buffer of its shape and
+    dtype in ``buffers`` (made at first use, then reused: blocks run in
+    stream order); returns the buffer ``(vdim, n_0 + 2 ext_0, ...)``."""
+    shape = (x.shape[0],) + tuple(s.stop - s.start + 2 * e for s, e in zip(sl, ext))
+    key = (shape, x.dtype, x.device)
+    if key not in buffers:
+        # zeros: the ghost corners are never read, but stay defined
+        buffers[key] = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    buf = buffers[key]
+    inner = [slice(None)] + [slice(e, e + s.stop - s.start) for s, e in zip(sl, ext)]
+    buf[tuple(inner)] = x[(slice(None), *sl)]
+    for j, e in enumerate(ext):
+        if e:
+            lo, hi = halo_exchange(x, sl, j)
+            buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = lo
+            buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = hi
+    return buf
+
+
+def make_sharded_apply(decomp, ndim_mesh: int):
+    """The block-wise axis stencil of the solver: ``apply(coeffs, x) -> A
+    x`` on the global ``x`` ``(vdim, *nx)`` (port of
+    ``make_sharded_pallas_apply``; ``sharded_supported`` must hold). 3-D:
+    per block, ``exchange`` then one ``axis_stencil_ext`` launch writing
+    into the block's view of the result. 2-D: per block, the torus kernel
+    on the block and the face-row patch. Surgery rows of the global
+    coefficient vectors land on the edge blocks with the vectors' slices;
+    the wrapped ghosts of a non-periodic global face give rows the
+    solver's mask discards, as the single-device torus kernel does."""
+    ext = tuple(int(c) for c in _cut(decomp))
+    buffers: dict = {}  # the apply's halo-extended buffers, one per shape and dtype
+
+    def apply(coeffs, x):
+        out = torch.empty_like(x)
+        for _, sl in decomp.blocks(x.shape[1:]):
+            cs = _block_coeffs(coeffs, sl)
+            if ndim_mesh == 3:
+                axis_stencil_ext(cs, exchange(x, sl, ext, buffers), ext,
+                                 out=out[(slice(None), *sl)])
+                continue
+            xb = x[(slice(None), *sl)].contiguous()
+            ob = axis_stencil(cs, xb)
+            _patch_face_rows(ob, xb, cs, [(j, *halo_exchange(x, sl, j))
+                                          for j in range(ndim_mesh) if ext[j]])
+            out[(slice(None), *sl)] = ob
+        return out
+
+    return apply
+
+
+# -- block-wise per-point advection (Div / Conv) -----------------------------
+
+
+def sharded_advect_supported(decomp, global_shape, limiter: str) -> bool:
+    """Whether ``make_sharded_advect_apply`` runs this decomposition (the
+    JAX package's ``sharded_advect_supported``): a 2-D or 3-D grid with one
+    block axis per grid axis, a central or upwind limiter (QUICK's +-2
+    reach needs two ghost rows and stays on the global kernel), the last
+    axis uncut, divisible blocks, and at least 3 nodes per block on a cut
+    axis (the global surgery rows 1 / -2 sit inside the edge blocks)."""
+    nd = len(global_shape)
+    ms = decomp.mesh_shape
+    if nd not in (2, 3) or len(ms) != nd or limiter not in ("none", "upwind"):
+        return False
+    if ms[-1] != 1 or any(s % m for s, m in zip(global_shape, ms)):
+        return False
+    return all(s // m >= 3 for s, m in zip(global_shape, ms) if m > 1)
+
+
+def _row(a, axis: int, idx: int):
+    """Row ``idx`` (negative counts from the end) of ``a`` along ``axis``,
+    kept as a length-1 axis."""
+    return a.narrow(axis, idx % a.shape[axis], 1)
+
+
+def make_sharded_advect_apply(decomp, kind: str, vdim: int, limiter: str, surgery, form: str):
+    """Block-wise per-point advection (port of
+    ``make_sharded_advect_apply``): ``apply(x, adv, base) -> out`` on the
+    global arrays (``sharded_advect_supported`` must hold).
+
+    Per block: the bulk through the ``advect_pair`` (``kind`` "div") or
+    ``conv_component`` ("conv") kernel on the block with torus-wrap
+    neighbours and no surgery on cut axes; then per cut axis and coupled
+    component, the face rows exchange the wrapped neighbour term for the
+    ghost's (``coeff * (ghost - wrap)``; in conservative-central form the
+    neighbour's advection is part of the coefficient, so the advecting
+    field's ghosts are read too), and the edge blocks add the Neumann /
+    periodic boundary-node elimination at global rows 1 / -2 with the
+    runtime coefficient — in the JAX package's order.
+
+    Args:
+        kind: "div" (scalar output) or "conv" (per component).
+        vdim: target component count.
+        limiter: "none" | "upwind".
+        surgery: global per-axis ``(lower, upper)`` kinds.
+        form: "conservative" | "advective" (div only).
+    """
+    assert kind in ("div", "conv")
+    nd = len(decomp.mesh_shape)
+    ms = decomp.mesh_shape
+    cut = _cut(decomp)
+    surgery_local = tuple(("none", "none") if cut[j] else tuple(surgery[j]) for j in range(nd))
+    conservative = kind == "div" and limiter == "none" and form == "conservative"
+    if kind == "conv":
+        def pairs(j, ncomp):  # (target, advecting, output) component
+            return [(i, j, i) for i in range(vdim)]
+    elif vdim > 1:
+        def pairs(j, ncomp):
+            return [(j, j if ncomp > 1 else 0, 0)]
+    else:
+        def pairs(j, ncomp):
+            return [(0, 0, 0)]
+
+    def block_fixes(o, x, a, xb, ab, bs, sl, coord, j):
+        apb, _acb, amb = bs[j]
+        inv2dx = apb.abs()
+        lo_x, hi_x = halo_exchange(x, sl, j)
+        if conservative:
+            lo_a, hi_a = halo_exchange(a, sl, j)
+        n = xb.shape[1 + j]
+        for ci, ai, oc in pairs(j, ab.shape[0]):
+            xi, av = xb[ci], ab[ai]
+
+            def eff_am(row):
+                """Coefficient coupling x_{row-1} at ``row``."""
+                a_c = _row(av, j, row)
+                if limiter == "upwind":
+                    return -2.0 * inv2dx[row] * torch.clamp(a_c, min=0.0)
+                if conservative:
+                    return amb[row] * _row(av, j, row - 1)
+                return amb[row] * a_c
+
+            def eff_ap(row):
+                """Coefficient coupling x_{row+1} at ``row``."""
+                a_c = _row(av, j, row)
+                if limiter == "upwind":
+                    return 2.0 * inv2dx[row] * torch.clamp(a_c, max=0.0)
+                if conservative:
+                    return apb[row] * _row(av, j, (row + 1) % n)
+                return apb[row] * a_c
+
+            def add_row(row, delta):
+                _row(o[oc], j, row).add_(delta)
+
+            # ghost patches at the block faces
+            if conservative:
+                d_lo = amb[0] * (lo_a[ai] * lo_x[ci] - _row(av, j, -1) * _row(xi, j, -1))
+                d_hi = apb[n - 1] * (hi_a[ai] * hi_x[ci] - _row(av, j, 0) * _row(xi, j, 0))
+            else:
+                d_lo = eff_am(0) * (lo_x[ci] - _row(xi, j, -1))
+                d_hi = eff_ap(n - 1) * (hi_x[ci] - _row(xi, j, 0))
+            add_row(0, d_lo)
+            add_row(n - 1, d_hi)
+            # the global faces' surgery, on the edge blocks only
+            lo_kind, up_kind = surgery[j]
+            if coord[j] == 0:
+                if lo_kind == "neumann":
+                    add_row(1, eff_am(1) * ((4.0 / 3.0) * _row(xi, j, 1)
+                                            - (1.0 / 3.0) * _row(xi, j, 2) - _row(xi, j, 0)))
+                elif lo_kind == "periodic":
+                    add_row(1, -eff_am(1) * _row(xi, j, 0))
+            if coord[j] == ms[j] - 1:
+                if up_kind == "neumann":
+                    add_row(n - 2, eff_ap(n - 2) * ((4.0 / 3.0) * _row(xi, j, n - 2)
+                                                    - (1.0 / 3.0) * _row(xi, j, n - 3)
+                                                    - _row(xi, j, n - 1)))
+                elif up_kind == "periodic":
+                    add_row(n - 2, -eff_ap(n - 2) * _row(xi, j, n - 1))
+
+    def apply(x, adv, base):
+        out = torch.empty((vdim if kind == "conv" else 1, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        for coord, sl in decomp.blocks(x.shape[1:]):
+            idx = (slice(None), *sl)
+            xb, ab = x[idx].contiguous(), adv[idx].contiguous()
+            bs = _block_coeffs(base, sl)
+            if kind == "div":
+                o = advect_pair(xb, ab, bs, limiter, surgery_local, form)
+            else:
+                o = conv_component(xb, ab, bs, limiter, surgery_local)
+            for j in range(nd):
+                if cut[j]:
+                    block_fixes(o, x, adv, xb, ab, bs, sl, coord, j)
+            out[idx] = o
+        return out
+
+    return apply

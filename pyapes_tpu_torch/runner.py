@@ -1,10 +1,13 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
 ``poisson``, ``darcy`` and ``burgers`` subcommands).
 
-    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --device cuda
-    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg --device cuda
-    python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic --device cuda
-    python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100 --device cuda
+    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512
+    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg
+    python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic
+    python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100
+    python -m pyapes_tpu_torch.runner poisson --dim 3 --n 17 --device cpu
+
+Every case runs on the card unless ``--device cpu`` asks for the CPU.
 
 ``--mg`` asks for MG-preconditioned CG explicitly (``method: "cg",
 precond: "mg"``); without it the separable problem takes the fastdiag
@@ -128,8 +131,8 @@ def run(argv=None) -> dict:
     common.add_argument("--tol", type=float, default=1e-6)
     common.add_argument("--max-it", type=int, default=2000)
     common.add_argument(
-        "--device", default="cpu", choices=["cpu", "cuda", "gpu"],
-        help="torch device (cuda raises when no CUDA device is present)",
+        "--device", default="cuda", choices=["cpu", "cuda", "gpu"],
+        help="torch device (default cuda; raises when no CUDA device is present)",
     )
 
     sp = sub.add_parser("poisson", parents=[common])

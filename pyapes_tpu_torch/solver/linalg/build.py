@@ -5,7 +5,16 @@ and the CG/BiCGSTAB loops with the multigrid preconditioner (Γ-aware for
 variable-Γ terms, streamed in by ``precond_setup``) or the
 fast-diagonalization preconditioner (its equation scalars streamed the
 same way), the symmetrizing row scale of Neumann faces and the fused
-operator/preconditioner dots."""
+operator/preconditioner dots.
+
+Under a domain decomposition (the JAX package's ``_select_kernel_tiers``
+without its TPU-only clauses) the 3-point axis terms apply block by block
+wherever ``sharded_supported`` holds, the central/upwind Div and Conv
+terms where ``sharded_advect_supported`` holds, and the fused alpha-dot is
+off; everything else (5-point axes, the variable-Γ apply, ddt, the
+fastdiag transforms and the FD preconditioner) runs on the whole tensor,
+which is what GSPMD computes for it. The fastdiag residual uses the same
+operator, so a decomposed fastdiag solve applies it block-wise too."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -19,6 +28,12 @@ from pyapes_tpu_torch.mesh.tools import interior_mask_device
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot
 from pyapes_tpu_torch.ops.diff_field import diff_field
+from pyapes_tpu_torch.parallel.halo import (
+    make_sharded_advect_apply,
+    make_sharded_apply,
+    sharded_advect_supported,
+    sharded_supported,
+)
 from pyapes_tpu_torch.solver.fastdiag import FastDiag, FDPrecond, axis_matrix_np
 from pyapes_tpu_torch.solver.linalg.bicgstab_loop import build_bicgstab
 from pyapes_tpu_torch.solver.linalg.cg_loop import build_cg
@@ -50,24 +65,29 @@ class _MaskSpec:
         return interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
 
 
-def _make_Aop(term_descs, stencil_fn=axis_stencil) -> Callable:
+def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
     """``Aop(x, tparams) = sum_terms sign * term(x)``: an axis term is
     ``param * stencil_fn(x)`` (a 5-point axis goes to the 5-point kernel),
     a variable-Γ term ``diff_field``, a per-point advection term
-    ``advect_pair`` (Div) or ``conv_component`` (Conv), a ddt term ``x *
-    inv_dt`` — the Hopper kernels on a CUDA tensor, for every grid shape
-    (the JAX package's "auto" gate used its kernels only for TPU-aligned
-    shapes). A Div's ``(1, *nx)`` contribution broadcasts over the
-    components, as in the JAX package."""
+    ``advect_pair`` (Div) or ``conv_component`` (Conv) — or
+    ``advect_fns[i]`` for term ``i`` where given (the block-wise apply) —
+    and a ddt term ``x * inv_dt``: the Hopper kernels on a CUDA tensor, for
+    every grid shape (the JAX package's "auto" gate used its kernels only
+    for TPU-aligned shapes). A Div's ``(1, *nx)`` contribution broadcasts
+    over the components, as in the JAX package."""
+    advect_fns = advect_fns or {}
 
     def Aop(x, tparams):
         out = None
-        for (kind, _, sign, has_param, surgery, form, limiter), tp in zip(term_descs, tparams):
+        for i, ((kind, _, sign, has_param, surgery, form, limiter), tp) in enumerate(
+                zip(term_descs, tparams)):
             scale = sign
             if kind == "ddt":
                 r, scale = x, sign * tp["inv_dt"]
             elif kind == "diff_field":
                 r = diff_field(x, tp["gamma"], form[0], surgery, form[1])
+            elif i in advect_fns:
+                r = advect_fns[i](x, tp["adv"], tp["base"])
             elif kind == "div_field":
                 r = advect_pair(x, tp["adv"], tp["base"], limiter, surgery, form)
             elif kind == "conv_field":
@@ -82,6 +102,33 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil) -> Callable:
         return out if out.shape == x.shape else out.expand(x.shape).contiguous()
 
     return Aop
+
+
+def _decomp_fns(decomp, x0, term_descs) -> dict:
+    """The block-wise applies of a decomposed solve, as ``_make_Aop``
+    keywords: ``stencil_fn`` where the gate holds (5-point axes stay on the
+    global kernel) and ``advect_fns`` for the Div/Conv terms whose limiter
+    and blocks the advection gate takes."""
+    if decomp is None:
+        return {}
+    shape = tuple(x0.shape[1:])
+    fns = {}
+    if sharded_supported(decomp, shape):
+        blockwise = make_sharded_apply(decomp, len(shape))
+
+        def stencil_fn(coeffs, x):
+            if any(len(cs) == 5 for cs in coeffs):
+                return axis_stencil(coeffs, x)
+            return blockwise(coeffs, x)
+
+        fns["stencil_fn"] = stencil_fn
+    fns["advect_fns"] = {
+        i: make_sharded_advect_apply(decomp, "div" if d[0] == "div_field" else "conv",
+                                     x0.shape[0], d[6], d[4], d[5])
+        for i, d in enumerate(term_descs)
+        if d[0] in ("div_field", "conv_field") and sharded_advect_supported(decomp, shape, d[6])
+    }
+    return fns
 
 
 def _neumann_row_scale_vecs(nx, bcs) -> tuple[list[np.ndarray], bool]:
@@ -229,11 +276,12 @@ def _axis_fields(vecs, dim: int, dtype):
     )
 
 
-def make_mg_spec(config, x0, bcs, mesh, term_descs, paxes=()) -> MGSpec:
+def make_mg_spec(config, x0, bcs, mesh, term_descs, paxes=(), decomp=None) -> MGSpec:
     """The multigrid spec of ``precond: "mg"`` (``_make_mg_spec`` of the JAX
     package): per-axis face kinds for the level surgery, the Γ-aware
     hierarchy for variable-Γ equations (face rule of the first such term),
-    the cycle dtype and the ``mg_opts`` knobs; cached by its key."""
+    the cycle dtype, the decomposition and the ``mg_opts`` knobs; cached by
+    its key."""
     mg_opts = dict(config.get("mg_opts") or {})
     cycle_dtype = mg_opts.pop("dtype", None)
     fk = [["dirichlet", "dirichlet"] for _ in range(mesh.dim)]
@@ -250,6 +298,7 @@ def make_mg_spec(config, x0, bcs, mesh, term_descs, paxes=()) -> MGSpec:
         face_kinds=tuple(tuple(p) for p in fk),
         var_gamma=bool(vg),
         vg_avg=vg[0][5][1] if vg else "arithmetic",
+        decomp=decomp,
         device=x0.device,
         **mg_opts,
     )
@@ -286,7 +335,7 @@ def _make_Aop_dot(term_descs, tparams, dim: int):
 
 
 def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, criterion,
-                 tol, max_it, slicer, paxes=()):
+                 tol, max_it, slicer, paxes=(), decomp=None):
     """Assemble the solve of ``method`` on the (periodic-reduced) grid of
     ``x0``; returns ``fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol,
     hist)`` and the row-scale fields ``sym_vecs`` the RHS must be
@@ -296,7 +345,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     matrices)."""
     M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device)
     apply_bcs = apply_bcs_fn(bcs, grid)
-    Aop = _make_Aop(term_descs)
+    Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs))
     project_mean = config.get("nullspace") == "mean"
     act_sel = (slice(None),) + tuple(slicer)
     dvs, any_scale = _neumann_row_scale_vecs(x0.shape[1:], bcs)
@@ -351,7 +400,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
         precond, precond_setup = _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0,
                                                   pre_scale)
     elif precond_kind == "mg":
-        mg = make_mg_spec(config, x0, bcs, mesh, term_descs, paxes)
+        mg = make_mg_spec(config, x0, bcs, mesh, term_descs, paxes, decomp)
         precond = mg.preconditioner()
         if mg.var_gamma:
             i_vg = _ids(term_descs, "diff_field")[0]
@@ -364,7 +413,9 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
                             fmg_init=fmg_init, precond_setup=precond_setup)
         return fn, None
 
-    Aop_dot = _make_Aop_dot(term_descs, tparams, mesh.dim) if sym_vecs is None else None
+    # the fused alpha-dot is off under a decomposition (linalg.py:1040-1049)
+    Aop_dot = (_make_Aop_dot(term_descs, tparams, mesh.dim)
+               if sym_vecs is None and decomp is None else None)
     # fused dot(r, z): the interior mask is exactly the MG mask here
     precond_dot = mg.preconditioner_dot() if mg is not None and mg.can_fuse_rz() else None
     null_shift = None

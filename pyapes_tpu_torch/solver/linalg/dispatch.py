@@ -11,10 +11,12 @@ both faces periodic is solved on the reduced torus: the duplicate seam
 node is dropped, every node is active, the stencil wraps, and the seam is
 re-appended after the solve), for the term kinds ``axis`` (constant
 coefficients, 3- or 5-point), ``diff_field`` (variable-Γ Laplacian),
-``div_field`` / ``conv_field`` (per-point advection) and ``ddt``. MG on a
-periodic axis, obstacles and domain decomposition are ported in later
-slices and raise ``NotImplementedError`` — never a silent detour to
-another path.
+``div_field`` / ``conv_field`` (per-point advection) and ``ddt``; with a
+domain decomposition (``decomp``: a ``DomainDecomposition`` whose blocks
+all live on the solve's device) the axis and advection terms apply block
+by block (``build.py``). MG on a periodic axis, obstacles and blocks on
+several devices are ported in later slices and raise
+``NotImplementedError`` — never a silent detour to another path.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from pyapes_tpu_torch.mesh.tools import boundary_slicer
+from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
 from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np
 from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg.build import (
@@ -43,7 +46,7 @@ class ReportType(TypedDict):
     converge: bool
 
 
-_UNPORTED_CONFIG = ("decomp", "debug", "kernel")
+_UNPORTED_CONFIG = ("debug", "kernel")
 
 
 def clear_cache() -> None:
@@ -152,6 +155,25 @@ def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh) -> str
     return "fastdiag" if fd_ok else str(config["fd_fallback"]).lower()
 
 
+def _check_decomp(decomp, x0) -> None:
+    """A decomposition must be a ``DomainDecomposition`` with its blocks on
+    the solve's device, and each cut axis of the (torus-reduced) grid must
+    divide into its blocks (``linalg.py::_commit_to_decomp``)."""
+    if not isinstance(decomp, DomainDecomposition):
+        raise TypeError(f"linalg: config 'decomp' must be a DomainDecomposition, got {decomp!r}")
+    decomp.check_device(x0.device)
+    if len(decomp.mesh_shape) > x0.ndim - 1:
+        raise ValueError(f"DomainDecomposition: {len(decomp.mesh_shape)} block axes for a "
+                         f"{x0.ndim - 1}-D grid")
+    for j, nd in enumerate(decomp.mesh_shape):
+        if nd > 1 and x0.shape[1 + j] % nd != 0:
+            raise ValueError(
+                f"DomainDecomposition: grid axis {j} has {x0.shape[1 + j]} active nodes (after "
+                f"periodic de-duplication), not divisible by {nd} devices. Choose node counts "
+                "divisible by the device count (periodic axes: 2^k + 1 nodes reduce to 2^k)."
+            )
+
+
 def _check_config(config) -> None:
     for k in _UNPORTED_CONFIG:
         if config.get(k) not in (None, "auto"):
@@ -196,6 +218,9 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     tparams = tuple(_term_params(rec, d, x0_full, paxes) for rec, d in zip(terms, term_descs))
     red = _reduced(mesh.dim, paxes)
     x0, rhs = x0_full[red], rhs[red]
+    decomp = config.get("decomp")
+    if decomp is not None:
+        _check_decomp(decomp, x0)
     bcs = [bc for bc in var.bcs if not (bc.bc_type == "periodic" and bc.bc_face_dim in paxes)]
     slicer = list(boundary_slicer(mesh.dim, bcs, mesh.coord_sys))
     for j in paxes:
@@ -216,7 +241,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
 
     fn, sym_vecs = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
-        config.get("criterion", "delta"), tol, max_it, slicer, paxes,
+        config.get("criterion", "delta"), tol, max_it, slicer, paxes, decomp,
     )
     if sym_vecs is not None:
         # the operator is row-scaled to symmetric; scale b identically

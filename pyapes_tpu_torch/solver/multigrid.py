@@ -44,12 +44,19 @@ smoothers read it (XLA drops it unread in the JAX package). The fixed
 Γ-dependent), and neither do the constant-coefficient Jacobi kernels nor
 the fused ``dot(r, z)``.
 
+Under a domain decomposition (``decomp``, the JAX package's rules) the
+fused Jacobi kernels, the double sweep and the fused ``dot(r, z)`` are
+off: every smooth and residual applies the level operator, and a level
+whose blocks pass ``parallel.halo.sharded_supported`` applies it block by
+block through the halo-extended kernel (``make_sharded_apply``); coarser
+levels take the global axis-stencil kernel. Variable-Γ hierarchies drop
+the decomposition.
+
 All device constants of the hierarchy (masks, coefficient vectors,
 diagonals, transfer matrices) are built once per spec and cached, so a
 V-cycle makes no host-to-device copy — the PCG loop's only host sync
-stays its tolerance read. Periodic axes, rz meshes and domain
-decomposition are ported in later slices and raise
-``NotImplementedError``.
+stays its tolerance read. Periodic axes and rz meshes are ported in later
+slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -63,6 +70,8 @@ from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2
 from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node, diff_diag
+from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
+from pyapes_tpu_torch.parallel.halo import make_sharded_apply, sharded_supported
 
 
 @lru_cache(maxsize=None)
@@ -109,7 +118,10 @@ class MGSpec:
         dtype: the outer (Krylov) dtype.
         cycle_dtype: V-cycle dtype (default: ``dtype``), e.g. "bfloat16".
         face_kinds: per axis ``(lower, upper)`` of "dirichlet"/"neumann".
-        device: where the cycle runs.
+        device: where the cycle runs: the device of the solve's vectors
+            (required; there is no default device).
+        decomp: a ``DomainDecomposition`` (all blocks on ``device``), or
+            None.
         var_gamma: variable-Γ level operators (``set_gamma`` before the
             cycle), with ``vg_avg`` ("arithmetic"/"harmonic") face values.
         The other knobs are the JAX package's (``n_pre``, ``n_post``,
@@ -138,13 +150,17 @@ class MGSpec:
         var_gamma: bool = False,
         vg_avg: str = "arithmetic",
         transfers: str = "strided",
-        device="cpu",
+        *,
+        device,
     ):
-        if paxes or rz or decomp is not None:
+        if paxes or rz:
             raise NotImplementedError(
-                "MGSpec: periodic axes, rz meshes and domain decomposition are "
-                "ported in later slices"
+                "MGSpec: periodic axes and rz meshes are ported in later slices"
             )
+        if decomp is not None:
+            if not isinstance(decomp, DomainDecomposition):
+                raise TypeError(f"MGSpec: decomp must be a DomainDecomposition, got {decomp!r}")
+            decomp.check_device(device)
         assert transfers in ("matrix", "strided")
         assert smoother in ("jacobi", "rbgs", "chebyshev")
         assert vg_avg in ("arithmetic", "harmonic")
@@ -152,6 +168,9 @@ class MGSpec:
         self.vg_avg = vg_avg
         if self.var_gamma:
             fuse_rz = False  # the dot kernels hard-code the constant stencil
+            decomp = None  # the Γ levels apply on the whole tensor
+        self.decomp = decomp
+        self._sharded_applies: dict = {}
         self._g_levels = None
         self._gd_levels = None
         self.shape = tuple(shape)
@@ -186,7 +205,7 @@ class MGSpec:
             self.shape, self.lengths, str(self.dtype), str(self.cdtype), self.n_pre,
             self.n_post, self.n_coarse, self.omega, self.smoother, self.fmg_init,
             self.fmg_cycles, self.fuse_rz, self.face_kinds, self.transfers, str(self.device),
-            self.var_gamma, self.vg_avg,
+            self.var_gamma, self.vg_avg, self.decomp,
         )
 
     # -- host hierarchy (numpy, bit-equal to the JAX package) -------------
@@ -399,8 +418,21 @@ class MGSpec:
     # -- level operator and smoothers --------------------------------------
     def _kernels(self, shape) -> bool:
         """Whether the fused Jacobi kernels serve this level: they hard-code
-        the plain 3-D central Laplacian."""
-        return len(shape) == 3 and not self._surgery and not self.var_gamma
+        the plain 3-D central Laplacian, and a decomposed cycle applies the
+        operator block-wise instead."""
+        return (len(shape) == 3 and not self._surgery and not self.var_gamma
+                and self.decomp is None)
+
+    def _sharded_apply(self, shape):
+        """The block-wise apply of this level, or None (no decomposition,
+        or blocks the gate rejects)."""
+        if self.decomp is None:
+            return None
+        if shape not in self._sharded_applies:
+            self._sharded_applies[shape] = (
+                make_sharded_apply(self.decomp, len(shape))
+                if sharded_supported(self.decomp, shape) else None)
+        return self._sharded_applies[shape]
 
     def _apply_A(self, x, shape):
         """Scaled level operator ``D A`` (``D = 1`` without surgery),
@@ -409,7 +441,9 @@ class MGSpec:
         if self.var_gamma:
             return diff_field(x, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
                               self.vg_avg)
-        out = axis_stencil(self._level_coeffs(shape), x)
+        sharded = self._sharded_apply(tuple(shape))
+        coeffs = self._level_coeffs(shape)
+        out = sharded(coeffs, x) if sharded is not None else axis_stencil(coeffs, x)
         if self._surgery:
             out = out * self._dfield(shape)
         return out

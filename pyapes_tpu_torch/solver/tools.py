@@ -11,6 +11,7 @@ from typing import TypedDict
 
 import torch
 
+from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
 from pyapes_tpu_torch.variables import Field
 
 
@@ -49,6 +50,12 @@ class FDMSolverConfig(TypedDict, total=False):
     quotient space (compatibility-projected RHS)."""
     history: bool
     """Record the per-iteration convergence measure in the report."""
+    decomp: DomainDecomposition
+    """Domain decomposition (``pyapes_tpu_torch.parallel``): the axis and
+    advection operators apply block by block with a halo exchange, the MG
+    levels too; every block on the solve's device. Anything else (e.g. a
+    dict) raises ``TypeError``; a block on another device raises
+    ``NotImplementedError``."""
 
 
 class SolverConfig(TypedDict, total=False):

@@ -5,6 +5,7 @@
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --burgers [--n 256] [--out ...]
+    python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
 
 The problem is ``chip_smoke.py``'s MG-PCG path (``bench.py``'s cg config:
 3-D f32 all-Dirichlet random RHS, tol 1e-6, bf16 V(2,2), FMG, fused r.z),
@@ -13,7 +14,10 @@ or with ``--darcy`` its variable-Γ path (``bench.py``'s ``bench_darcy``:
 r.z, max_it 400), or with ``--burgers`` one step of ``chip_smoke.py``'s
 ``BurgersND`` path ((n+1)^3 f32 periodic box, Taylor-Green start, dt 0.01:
 three BiCGSTAB solves with the FD preconditioner through the convection
-kernel).
+kernel). ``--decomp 4,2,1`` solves the Poisson problem with that
+``DomainDecomposition`` (the block-wise applies through the halo-extended
+kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s fastdiag path
+instead of MG-PCG.
 After one warm-up solve (step), ``torch.profiler`` records one; the script
 prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
@@ -40,6 +44,7 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel",)),
     ("diff_field (Hopper)", ("diff_field_kernel",)),
     ("advect_pair / conv_component (Hopper)", ("advect_kernel",)),
@@ -77,6 +82,9 @@ def main() -> None:
                    help="grid size (512, or 256 with --darcy / --burgers)")
     p.add_argument("--darcy", action="store_true", help="the variable-Γ path")
     p.add_argument("--burgers", action="store_true", help="one step of the 3-D Burgers model")
+    p.add_argument("--decomp", default=None,
+                   help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
+    p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
     p.add_argument("--out", default="chiprun_out/profile_mgpcg")
     args = p.parse_args()
 
@@ -86,6 +94,7 @@ def main() -> None:
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
     from pyapes_tpu_torch.models import BurgersND
+    from pyapes_tpu_torch.parallel import DomainDecomposition
     from pyapes_tpu_torch.solver.fdm import FDM
     from pyapes_tpu_torch.solver.ops import Solver
     from pyapes_tpu_torch.variables import Field
@@ -124,11 +133,15 @@ def main() -> None:
             coeff = torch.exp(0.8 * torch.sin(2 * torch.pi * mesh.X)
                               * torch.sin(2 * torch.pi * mesh.Y)
                               * torch.sin(2 * torch.pi * mesh.Z)).contiguous()
-        solver = Solver({"fdm": {
-            "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400 if args.darcy else 200,
-            "criterion": "residual",
-            "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
-                        "fmg": True, "fuse_rz": not args.darcy}}})
+        cfg = {"method": "cg", "precond": "mg", "tol": 1e-6,
+               "max_it": 400 if args.darcy else 200, "criterion": "residual",
+               "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
+                           "fmg": True, "fuse_rz": not args.darcy}}
+        if args.fastdiag:
+            cfg = {"method": "fastdiag", "tol": 1e-6, "max_it": 4000, "criterion": "residual"}
+        if args.decomp:
+            cfg["decomp"] = DomainDecomposition(tuple(int(m) for m in args.decomp.split(",")))
+        solver = Solver({"fdm": cfg})
         fdm = FDM()
 
         def prepare():
@@ -179,6 +192,7 @@ def main() -> None:
         g[1] += ms
     summary = {
         "card": smi, "case": "burgers" if args.burgers else "darcy" if args.darcy else "poisson",
+        "method": "fastdiag" if args.fastdiag else "mg-pcg", "decomp": args.decomp,
         "n": n, "itr": rep["itr"],
         "tol": rep["tol"],
         "wall_unprofiled_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,

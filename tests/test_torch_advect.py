@@ -71,7 +71,7 @@ def _meshes(shape, lengths=(1.0, 2.0, 0.5)):
     jbox = JBox[tuple(slice(0, l) for l in lx)]
     pbox = Box[tuple(slice(0, l) for l in lx)]
     return (JMesh(jbox, None, list(shape), dtype="double"),
-            Mesh(pbox, None, list(shape), dtype="double"))
+            Mesh(pbox, None, list(shape), device="cpu", dtype="double"))
 
 
 def _bases(shape):

@@ -60,7 +60,7 @@ def _bcs(kinds, vals):
 
 def _meshes(box, nx):
     return (JMesh(JBox[box], None, list(nx), dtype="double"),
-            Mesh(Box[box], None, list(nx), dtype="double"))
+            Mesh(Box[box], None, list(nx), device="cpu", dtype="double"))
 
 
 UNIT3 = (slice(0, 1), slice(0, 1), slice(0, 1))
@@ -160,7 +160,8 @@ def test_runner_burgers_vs_jax(monkeypatch):
     time; in process, the model it stepped against the JAX model."""
     out = subprocess.run(
         [sys.executable, "-m", "pyapes_tpu_torch.runner", "burgers", "--n", "33", "--steps",
-         "4", "--dtype", "double"], cwd=REPO, capture_output=True, text=True, timeout=120,
+         "4", "--dtype", "double", "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
@@ -172,7 +173,7 @@ def test_runner_burgers_vs_jax(monkeypatch):
     real = pmodels.Burgers1D
     monkeypatch.setattr(pmodels, "Burgers1D", lambda *a, **k: made.append(real(*a, **k))
                         or made[-1])
-    prunner.run(["burgers", "--n", "33", "--steps", "4", "--dtype", "double"])
+    prunner.run(["burgers", "--n", "33", "--steps", "4", "--dtype", "double", "--device", "cpu"])
     jm = JMesh(JBox[0:2 * pi], None, [33], dtype="double")
     jb = jmodels.Burgers1D(jm, nu=0.1)
     for _ in range(4):
@@ -364,7 +365,7 @@ def test_cpu_steps_count_no_launch():
     """On the CPU the advection path runs the plain versions: no kernel
     launch is counted."""
     nx = (6, 7, 8)
-    pm = Mesh(Box[TORUS3], None, list(nx), dtype="double")
+    pm = Mesh(Box[TORUS3], None, list(nx), device="cpu", dtype="double")
     rng = np.random.default_rng(13)
     model = pmodels.BurgersND(pm, nu=0.1, init_vals=[rng.standard_normal((1, *nx))
                                                      for _ in range(3)])

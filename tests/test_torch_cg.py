@@ -49,7 +49,7 @@ def _bcs(kinds, vals=None):
 
 def _solve_both(box, nx, kinds, rhs, cfg, jax_cfg=None, vals=None):
     jm = JMesh(JBox[box], None, nx, dtype="double")
-    pm = Mesh(Box[box], None, nx, dtype="double")
+    pm = Mesh(Box[box], None, nx, device="cpu", dtype="double")
     jf = JField("p", 1, jm, {"domain": _bcs(kinds, vals), "obstacle": None}, init_val=0.0)
     pf = Field("p", 1, pm, {"domain": _bcs(kinds, vals), "obstacle": None}, init_val=0.0)
     js = JSolver({"fdm": {**cfg, **(jax_cfg or {})}})
@@ -135,7 +135,7 @@ def test_runner_poisson_mg():
     JAX model asked for the same method."""
     out = subprocess.run(
         [sys.executable, "-m", "pyapes_tpu_torch.runner", "poisson",
-         "--dim", "3", "--n", "17", "--mg", "--dtype", "double"],
+         "--dim", "3", "--n", "17", "--mg", "--dtype", "double", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -156,7 +156,7 @@ def test_cg_fused_paths_equal_unfused():
     rhs = torch.from_numpy(np.random.default_rng(3).standard_normal((1, *nx)))
     sols = []
     for fuse in (False, True):
-        pm = Mesh(Box[BOX3], None, nx, dtype="double")
+        pm = Mesh(Box[BOX3], None, nx, device="cpu", dtype="double")
         pf = Field("p", 1, pm, {"domain": _bcs(["dirichlet"] * 6)}, init_val=0.0)
         s = Solver({"fdm": {**MG, "mg_opts": {"n_post": 1, "fuse_rz": fuse}}})
         s.set_eq(FDM().laplacian(1.0, pf) == rhs)

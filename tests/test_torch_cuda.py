@@ -19,12 +19,18 @@ torch = pytest.importorskip("torch")
 from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component  # noqa: E402
-from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil5, axis_stencil_dot  # noqa: E402
+from pyapes_tpu_torch.ops.axis_stencil import (  # noqa: E402
+    axis_stencil,
+    axis_stencil5,
+    axis_stencil_dot,
+    axis_stencil_ext,
+)
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi  # noqa: E402
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2  # noqa: E402
 from pyapes_tpu_torch.ops.stencil import (  # noqa: E402
     apply_axis_stencil,
     apply_axis_stencil_dot,
+    apply_axis_stencil_ext,
     apply_conv_field,
     apply_diff_field,
     apply_diff_jacobi,
@@ -345,7 +351,8 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
     assert (axis_stencil.launches, axis_stencil5.launches) == (before[0], before[1] + 2)
 
 
-@pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5"])
+@pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5",
+                                  "axis_stencil_ext"])
 def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     """With the plain versions patched to raise, the wrappers still answer
     a CUDA tensor: from the kernel."""
@@ -353,18 +360,91 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     x, adv, adv_conv, base, c5 = _adv_inputs((1, 9, 10, 11), torch.float32, cuda, 10)
+    c3 = tuple(tuple(c[:n - 2] for c in cs[:3]) if j == 0 else cs[:3]
+               for j, (cs, n) in enumerate(zip(c5, x.shape[1:])))
     surg = ADV_SURGERY["mixed"]
     ref = {"advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
            "conv_component": lambda: apply_conv_field(x, adv_conv, base, "none", surg),
-           "axis_stencil5": lambda: apply_axis_stencil(c5, x)}[name]()
+           "axis_stencil5": lambda: apply_axis_stencil(c5, x),
+           "axis_stencil_ext": lambda: apply_axis_stencil_ext(c3, x, (1, 0, 0))}[name]()
     monkeypatch.setattr(advect_mod, "apply_div_field", plain)
     monkeypatch.setattr(advect_mod, "apply_conv_field", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil", plain)
+    monkeypatch.setattr(axis_mod, "apply_axis_stencil_ext", plain)
     fn = {"advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
           "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
-          "axis_stencil5": lambda: axis_stencil5(c5, x)}[name]
+          "axis_stencil5": lambda: axis_stencil5(c5, x),
+          "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0))}[name]
     _close(fn(), ref, torch.float32)
     torch.cuda.synchronize()
+
+
+# the halo-extended kernel: (vdim, unextended block) x ext flags, odd sizes
+# among them; chip_smoke.py times the 512^3 (4, 2, 1) block
+EXT_CASES = [((1, 8, 16, 128), (1, 0, 0)), ((3, 8, 8, 128), (1, 1, 0)),
+             ((1, 8, 16, 128), (0, 1, 0)), ((3, 5, 7, 33), (1, 1, 0)),
+             ((1, 1, 9, 17), (1, 0, 0)), ((2, 6, 1, 3), (0, 1, 0)), ((1, 4, 4, 4), (0, 0, 0))]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(len(EXT_CASES)))
+def test_axis_stencil_ext_matches_plain(cuda, case, dtype, strided):
+    """The halo-extended kernel against its plain version on every row,
+    written into a new tensor or into a strided view of a larger one (the
+    block's view of a global result); one launch each."""
+    shape, ext = EXT_CASES[case]
+    coeffs, _ = _inputs(shape[1:], 1, dtype, cuda, seed=12)
+    g = torch.Generator(device="cpu").manual_seed(13)
+    xe = torch.randn((shape[0], *(n + 2 * e for n, e in zip(shape[1:], ext))), generator=g,
+                     dtype=torch.float64).to(cuda, dtype)
+    out = None
+    if strided:
+        big = torch.zeros((shape[0] + 1, shape[1] + 3, shape[2] + 2, shape[3]), dtype=dtype,
+                          device=cuda)
+        out = big[1:, 2:2 + shape[1], 1:1 + shape[2]]
+    before = axis_stencil_ext.launches
+    got = axis_stencil_ext(coeffs, xe, ext, out=out)
+    torch.cuda.synchronize()
+    assert axis_stencil_ext.launches == before + 1
+    assert out is None or got is out
+    _close(got, apply_axis_stencil_ext(coeffs, xe, ext), dtype)
+    if strided:
+        assert not big[0].any() and not big[:, :2].any() and not big[:, :, 0].any()
+
+
+@pytest.mark.parametrize("method", ["cg", "mg", "fastdiag"])
+def test_cuda_decomposed_solve_matches_cpu(cuda, method):
+    """A (4, 2, 1) decomposed solve on the card (f64) equals the CPU run:
+    same iterations, and the halo-extended kernel launched on the card."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    nx = [32, 16, 40]
+    rhs = np.random.default_rng(14).standard_normal((1, *nx))
+    cfg = {"cg": {"method": "cg", "tol": 1e-10, "max_it": 600},
+           "mg": {"method": "cg", "precond": "mg", "tol": 1e-10, "max_it": 100,
+                  "mg_opts": {"n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True,
+                              "fuse_rz": True}},
+           "fastdiag": {"method": "fastdiag", "tol": 1e-10, "max_it": 50}}[method]
+    out = []
+    for dev in ("cpu", "cuda"):
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, nx, device=dev, dtype="double")
+        var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")}, init_val=0.0)
+        s = Solver({"fdm": {**cfg, "criterion": "residual",
+                            "decomp": DomainDecomposition((4, 2, 1))}})
+        s.set_eq(FDM().laplacian(1.0, var) == torch.from_numpy(rhs).to(dev))
+        before = axis_stencil_ext.launches
+        rep = s.solve()
+        assert rep["converge"]
+        assert (axis_stencil_ext.launches > before) == (dev == "cuda")
+        out.append((rep["itr"], var()[0].cpu().numpy()))
+    assert out[0][0] == out[1][0]
+    assert np.abs(out[0][1] - out[1][1]).max() <= 1e-10 * np.abs(out[0][1]).max()
 
 
 @pytest.mark.parametrize("case", ["burgers_nd", "field_upwind", "const_quick"])

@@ -70,7 +70,7 @@ def _spec_pair(case, **opts):
     j = jmg.MGSpec(shape, lengths, dtype=jnp.float64, face_kinds=fk, var_gamma=True,
                    vg_avg=avg, **opts)
     p = pmg.MGSpec(shape, lengths, dtype=torch.float64, face_kinds=fk, var_gamma=True,
-                   vg_avg=avg, **opts)
+                   vg_avg=avg, device="cpu", **opts)
     j.set_gamma(jnp.asarray(g))
     p.set_gamma(torch.from_numpy(g))
     return j, p, rng.standard_normal((1,) + shape)
@@ -122,7 +122,7 @@ def test_var_gamma_3d_dirichlet_levels_take_no_constant_jacobi(monkeypatch):
 def _solve_both(nx, kinds, g, rhs, cfg, avg="arithmetic", box=None):
     box = box or tuple(slice(0, 1) for _ in nx)
     jm = JMesh(JBox[box], None, list(nx), dtype="double")
-    pm = Mesh(Box[box], None, list(nx), dtype="double")
+    pm = Mesh(Box[box], None, list(nx), device="cpu", dtype="double")
     jf = JField("p", 1, jm, {"domain": _bcs(kinds), "obstacle": None}, init_val=0.0)
     pf = Field("p", 1, pm, {"domain": _bcs(kinds), "obstacle": None}, init_val=0.0)
     js, ps = JSolver({"fdm": dict(cfg)}), Solver({"fdm": dict(cfg)})
@@ -169,7 +169,7 @@ def test_var_gamma_3d_mms_vs_jax():
     """JAX ``test_var_gamma.py::test_var_gamma_3d_mms``: Γ = 1+x+y+z, φ =
     sin(πx)sin(πy)sin(πz), all-Dirichlet, Γ-aware MG-PCG."""
     n = 33
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, dtype="double")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cpu", dtype="double")
     X, Y, Z = (np.asarray(g) for g in mesh._grid_np)
     g = 1.0 + X + Y + Z
     sx, sy, sz = np.sin(np.pi * X), np.sin(np.pi * Y), np.sin(np.pi * Z)
@@ -188,7 +188,7 @@ def test_new_gamma_on_cached_spec_is_used():
     same cached spec equals a fresh solve with that Γ (the JAX
     ``test_var_gamma_mg_gamma_streams_no_recompile`` case)."""
     n = 33
-    mesh = Mesh(Box[0:1, 0:1], None, [n, n], dtype="double")
+    mesh = Mesh(Box[0:1, 0:1], None, [n, n], device="cpu", dtype="double")
     X, Y = (np.asarray(g) for g in mesh._grid_np)
     g1 = 1.0 + X + 2.0 * Y
     g2 = 1.0 + 99.0 * (((X - 0.5) ** 2 + (Y - 0.5) ** 2) < 0.04)
@@ -231,7 +231,7 @@ def test_neumann_cg_var_gamma_gets_no_row_scale(monkeypatch):
     monkeypatch.setattr(dispatch, "build_solver", spy)
     nx = (9, 10, 11)
     kinds = ["neumann", "dirichlet", "dirichlet", "dirichlet", "dirichlet", "neumann"]
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, list(nx), dtype="double")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, list(nx), device="cpu", dtype="double")
     rhs = torch.from_numpy(np.random.default_rng(8).standard_normal((1, *nx)))
     for coeff in (1.0, torch.from_numpy(1.0 + np.random.default_rng(9).random(nx))):
         var = Field("p", 1, mesh, {"domain": _bcs(kinds)}, init_val=0.0)
@@ -247,7 +247,7 @@ def test_diff_field_term_dispatch():
     it gets no fused α-dot and ``fd_fallback`` resolves to the Krylov
     method."""
     nx = (9, 10)
-    mesh = Mesh(Box[0:1, 0:2], None, list(nx), dtype="single")
+    mesh = Mesh(Box[0:1, 0:2], None, list(nx), device="cpu", dtype="single")
     var = Field("p", 1, mesh, {"domain": _bcs(["neumann", "dirichlet", "dirichlet",
                                                "symmetry"])}, init_val=0.0)
     g = 1.0 + np.random.default_rng(2).random(nx)
@@ -269,7 +269,7 @@ def test_diff_field_term_dispatch():
 
 def test_var_gamma_solve_on_cpu_counts_no_launch():
     nx = (9, 10, 11)
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, list(nx), dtype="double")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, list(nx), device="cpu", dtype="double")
     var = Field("p", 1, mesh, {"domain": _bcs(["dirichlet"] * 6)}, init_val=0.0)
     s = Solver({"fdm": {**MG, "mg_opts": {"fmg": True, "fuse_rz": True}}})
     s.set_eq(FDM().laplacian(np.full(nx, 2.0), var) == torch.ones((1, *nx), dtype=torch.float64))
@@ -285,7 +285,8 @@ def test_runner_darcy_vs_jax(avg):
     numbers on the same 2-D case."""
     out = subprocess.run(
         [sys.executable, "-m", "pyapes_tpu_torch.runner", "darcy", "--n", "33", "--dtype",
-         "double", "--avg", avg], cwd=REPO, capture_output=True, text=True, timeout=120,
+         "double", "--avg", avg, "--device", "cpu"], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
     )
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])

@@ -52,7 +52,7 @@ def _bcs(kinds):
 def _pair(case, dtype):
     box, nx, kinds = CASES[case]
     jm = JMesh(JBox[box], None, nx, dtype=dtype)
-    pm = Mesh(Box[box], None, nx, dtype=dtype)
+    pm = Mesh(Box[box], None, nx, device="cpu", dtype=dtype)
     jf = JField("p", 1, jm, {"domain": _bcs(kinds)})
     pf = Field("p", 1, pm, {"domain": _bcs(kinds)})
     return jm, jf, pm, pf

@@ -20,6 +20,8 @@ from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
 from pyapes_tpu_torch.ops import diff_field as diff_mod  # noqa: E402
 from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil  # noqa: E402
+from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
+from pyapes_tpu_torch.solver.multigrid import MGSpec  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, FDC, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
@@ -64,8 +66,27 @@ def test_cuda_device_raises_without_cuda():
     assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 
 
+def test_entry_points_default_to_cuda():
+    """``Device()``, ``Mesh(...)`` and the runner ask for the card unless
+    the caller names the CPU, and raise where there is none; ``MGSpec``
+    has no default device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from pyapes_tpu_torch import runner
+
+    with pytest.raises(RuntimeError):
+        Device()
+    with pytest.raises(RuntimeError):
+        Mesh(Box[0:1, 0:1], None, [5, 5])
+    with pytest.raises(RuntimeError):
+        runner.run(["poisson", "--n", "5"])
+    with pytest.raises(TypeError):
+        MGSpec((5, 5, 5), (1.0, 1.0, 1.0))
+    assert Mesh(Box[0:1, 0:1], None, [5, 5], device="cpu").device == torch.device("cpu")
+
+
 def _field(bc_type="dirichlet"):
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [6, 6, 6], dtype="double")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [6, 6, 6], device="cpu", dtype="double")
     return Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, bc_type)})
 
 
@@ -99,8 +120,8 @@ def test_unported_features_raise(case):
                                 "max_it": 10}})
             s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        elif case == "decomp":
-            _solve({"decomp": {"axes": (0,)}})
+        elif case == "decomp":  # blocks on a second device
+            _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "meta"))})
         elif case == "kernel":
             _solve({"kernel": "jnp"})
         elif case == "sync":
@@ -108,11 +129,11 @@ def test_unported_features_raise(case):
         elif case == "fd_opts":
             _solve({"fd_opts": {"precision": "default"}})
         elif case == "obstacle":
-            Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9])
+            Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9], device="cpu")
         elif case == "rz":
-            Mesh(Cylinder[0:1, 0:1], None, [9, 9])
+            Mesh(Cylinder[0:1, 0:1], None, [9, 9], device="cpu")
         elif case == "var_gamma":  # a nonzero Neumann flux of a variable-Γ Laplacian
-            mesh = Mesh(Box[0:1, 0:1], None, [6, 6], dtype="double")
+            mesh = Mesh(Box[0:1, 0:1], None, [6, 6], device="cpu", dtype="double")
             var = Field("p", 1, mesh, {"domain": mixed_bcs(
                 [1.0, 0.0, 0.0, 0.0], ["neumann", "dirichlet", "dirichlet", "dirichlet"])})
             FDM().laplacian(torch.ones(6, 6, dtype=torch.float64), var)
@@ -133,6 +154,14 @@ def test_unported_features_raise(case):
             FDC({"laplacian": {"edge": False}}).laplacian(_field())
 
 
+def test_decomp_must_be_a_domain_decomposition():
+    """The dict form that the JAX package's config type documents (and its
+    solver never reads) raises, as does any other type."""
+    for bad in ({"axes": (0,)}, (2, 1, 1)):
+        with pytest.raises(TypeError, match="DomainDecomposition"):
+            _solve({"decomp": bad})
+
+
 def test_solve_on_cpu_counts_no_launch():
     before = axis_stencil.launches
     rep = _solve({})
@@ -146,6 +175,8 @@ _WRAPPERS = {
     "axis_stencil_dot": (axis_mod, "axis_stencil_dot", "apply_axis_stencil_dot",
                          lambda f, t: f((), t)),
     "axis_stencil5": (axis_mod, "axis_stencil5", "apply_axis_stencil", lambda f, t: f((), t)),
+    "axis_stencil_ext": (axis_mod, "axis_stencil_ext", "apply_axis_stencil_ext",
+                         lambda f, t: f((), t, (1, 0, 0))),
     "advect_pair": (advect_mod, "advect_pair", "apply_div_field",
                     lambda f, t: f(t, t, (), "upwind", (("none", "none"),) * 3)),
     "conv_component": (advect_mod, "conv_component", "apply_conv_field",

@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pyapes_tpu.solver import multigrid as jmg  # noqa: E402
+from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
 from pyapes_tpu_torch.solver import multigrid as pmg  # noqa: E402
 
 N = ("neumann", "neumann")
@@ -36,7 +37,7 @@ def _pair(case, transfers="strided", use_pallas=False, **opts):
     j = jmg.MGSpec(shape, lengths, dtype=jnp.float64, face_kinds=fk, transfers=transfers,
                    use_pallas=use_pallas, **opts)
     p = pmg.MGSpec(shape, lengths, dtype=torch.float64, face_kinds=fk, transfers=transfers,
-                   **opts)
+                   device="cpu", **opts)
     return j, p
 
 
@@ -132,6 +133,11 @@ def test_bf16_cycle_dtype_and_cast_shell():
 
 
 def test_unported_options_raise():
-    for kw in ({"paxes": (0,)}, {"rz": True}, {"decomp": object()}):
+    """Periodic axes, rz and blocks on a second device raise; a decomp of
+    another type than ``DomainDecomposition`` is refused too."""
+    blocks_elsewhere = DomainDecomposition((3, 1, 1), devices=("cpu", "meta", "cpu"))
+    for kw in ({"paxes": (0,)}, {"rz": True}, {"decomp": blocks_elsewhere}):
         with pytest.raises(NotImplementedError):
-            pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), **kw)
+            pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), device="cpu", **kw)
+    with pytest.raises(TypeError):
+        pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), device="cpu", decomp=object())

@@ -35,7 +35,7 @@ FACES = ["xl", "xu", "yl", "yu", "zl", "zu"]
 
 def _solve_both(box, nx, bcs_j, bcs_p, rhs, cfg, jax_cfg=None):
     jm = JMesh(JBox[box], None, nx, dtype="double")
-    pm = Mesh(Box[box], None, nx, dtype="double")
+    pm = Mesh(Box[box], None, nx, device="cpu", dtype="double")
     jf = JField("p", 1, jm, {"domain": bcs_j, "obstacle": None}, init_val=0.0)
     pf = Field("p", 1, pm, {"domain": bcs_p, "obstacle": None}, init_val=0.0)
     js = JSolver({"fdm": {**cfg, **(jax_cfg or {})}})
@@ -98,7 +98,7 @@ def test_poisson_solver_parity_and_order():
     exact solution is the predicted discretization error (pi h)^2 / 12."""
     n = 17
     jm = JMesh(JBox[0:1, 0:1, 0:1], None, [n] * 3, dtype="double")
-    pm = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, dtype="double")
+    pm = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cpu", dtype="double")
     jps = JPoissonSolver(jm, jpoisson.poisson_bcs(3), config={"fd_fallback": None})
     pps = PoissonSolver(pm, ppoisson.poisson_bcs(3))
     jx = np.asarray(jps.solve(jpoisson.poisson_rhs_nd(jm, jps.var))()[0])
@@ -115,7 +115,7 @@ def test_poisson_solver_parity_and_order():
 
 
 def test_field_carry_and_non_mutating_arithmetic():
-    pm = Mesh(Box[0:1, 0:1], None, [5, 6], dtype="double")
+    pm = Mesh(Box[0:1, 0:1], None, [5, 6], device="cpu", dtype="double")
     f = Field("u", 2, pm, None)
     vals = np.random.default_rng(3).standard_normal((2, 5, 6))
     field_from_numpy(f, vals, varo=2 * vals)
@@ -131,7 +131,7 @@ def test_field_carry_and_non_mutating_arithmetic():
 def test_runner_poisson_3d():
     out = subprocess.run(
         [sys.executable, "-m", "pyapes_tpu_torch.runner", "poisson",
-         "--dim", "3", "--n", "17", "--dtype", "double"],
+         "--dim", "3", "--n", "17", "--dtype", "double", "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
