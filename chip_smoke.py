@@ -19,11 +19,15 @@ Phases, report lines before the last:
    four blocks, odd sizes and single-row axes among them, x the three ext
    flags x f32/bf16/f64 x vdim 1/3 x a new or a strided output, and in
    bf16 on the (4, 2, 1) blocks of every 512^3 MG level the decomposed
-   cycle applies block-wise), and kernel vs plain timed at 512^3 (CUDA
-   events; the halo-extended kernel on the eight blocks of 512^3 in
-   (4, 2, 1), and the whole block-wise apply against the global kernel),
-   beside a CSR product (``torch.mv``) of the same linear operator (the
-   variable-Γ apply at its fixed Γ), the library yardstick.
+   cycle applies block-wise; the double sweep also at its own edge
+   shapes, with explicit plane chunks, and the worst err/limit of all its
+   cases), and kernel vs plain timed at 512^3 (CUDA events; the
+   halo-extended kernel on the eight blocks of 512^3 in (4, 2, 1), and
+   the whole block-wise apply against the global kernel; the double sweep
+   also at every level of the 512^3 V-cycle), beside a CSR product
+   (``torch.mv``) of the same linear operator (the variable-Γ apply at
+   its fixed Γ), the library yardstick, with GB/s and the share of the
+   bound.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -98,6 +102,11 @@ KERNEL_SHAPES = [  # (shape incl. vdim, dtype name) of the axis stencil
 # MG levels, in the three storage dtypes
 KERNEL3D_SHAPES = [(1, 512, 512, 512), (3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4),
                    (1, 5, 9, 17)]
+# the double sweep's own edges besides: more planes than a chunk and not a
+# multiple of it, odd n2 with n1 not a multiple of its 16-row tile, 3-node
+# axes; each shape also with explicit plane chunks (the most, a ragged few)
+X2_EDGE_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
+X2_CHUNKS = (64, 3)
 DTYPES = ["float32", "bfloat16", "float64"]
 # kernel and plain sum the same products in another order (the kernel may
 # fuse multiply-adds) in promote(dtype, f32): f32 1e-5 of the output's
@@ -262,6 +271,26 @@ def _time_ms(fn, reps: int = 15) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(fn, calls: int = 30) -> float:
+    """Device time per call of ``calls`` calls queued back to back behind a
+    device sleep (~6 ms, longer than their launches take on the host), so
+    that the host's cost per launch, which a per-call timing of a small
+    kernel measures, does not show."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -436,23 +465,14 @@ def _level_inputs(shape, dtype, dev, seed):
     return inv, beta, x, b, coeffs
 
 
-def _slice2_cases(inv, beta, x, b, coeffs):
+def _x2_cases(inv, beta, x, b):
     """(kernel name, variant, kernel call, plain call, dot-terms operand)
-    for every variant of the four slice-2 kernels at one input."""
+    for the four variants of the double sweep at one input."""
     from pyapes_tpu_torch.ops import stencil as P
-    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
-    from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2
+    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
 
     ax = (0, 1, 2)
     return [
-        ("axis_stencil_dot", "", lambda: axis_stencil_dot(coeffs, x),
-         lambda: P.apply_axis_stencil_dot(coeffs, x), x),
-        ("jacobi3d", "smooth", lambda: jacobi3d(x, b, inv, 1.0, beta, ax),
-         lambda: P.apply_jacobi3d(x, b, inv, 1.0, beta, ax), None),
-        ("jacobi3d", "residual(alpha=0,beta=1)", lambda: jacobi3d(x, b, inv, 0.0, 1.0, ax),
-         lambda: P.apply_jacobi3d(x, b, inv, 0.0, 1.0, ax), None),
-        ("jacobi3d_dot", "", lambda: jacobi3d_dot(x, b, inv, 1.0, beta, ax),
-         lambda: P.apply_jacobi3d_dot(x, b, inv, 1.0, beta, ax), b),
         ("jacobi3d_x2", "", lambda: jacobi3d_x2(x, b, inv, beta, ax),
          lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax), None),
         ("jacobi3d_x2", "from_zero", lambda: jacobi3d_x2(None, b, inv, beta, ax, from_zero=True),
@@ -465,39 +485,153 @@ def _slice2_cases(inv, beta, x, b, coeffs):
     ]
 
 
+def _x2_chunk_cases(inv, beta, x, b):
+    """The double sweep with each of ``X2_CHUNKS`` planes per block
+    (``emit_dot``; ``from_zero`` too), beside the launch geometry's own."""
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
+
+    ax = (0, 1, 2)
+    cases = []
+    for ci in X2_CHUNKS:
+        cases += [
+            ("jacobi3d_x2", f"emit_dot,chunk={ci}",
+             lambda ci=ci: jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True, chunk=ci),
+             lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True), b),
+            ("jacobi3d_x2", f"from_zero,chunk={ci}",
+             lambda ci=ci: jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, chunk=ci),
+             lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True), None),
+        ]
+    return cases
+
+
+def _slice2_cases(inv, beta, x, b, coeffs):
+    """(kernel name, variant, kernel call, plain call, dot-terms operand)
+    for every variant of the slice-2 kernels but the double sweep
+    (``check_x2``) at one input."""
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
+    from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot
+
+    ax = (0, 1, 2)
+    return [
+        ("axis_stencil_dot", "", lambda: axis_stencil_dot(coeffs, x),
+         lambda: P.apply_axis_stencil_dot(coeffs, x), x),
+        ("jacobi3d", "smooth", lambda: jacobi3d(x, b, inv, 1.0, beta, ax),
+         lambda: P.apply_jacobi3d(x, b, inv, 1.0, beta, ax), None),
+        ("jacobi3d", "residual(alpha=0,beta=1)", lambda: jacobi3d(x, b, inv, 0.0, 1.0, ax),
+         lambda: P.apply_jacobi3d(x, b, inv, 0.0, 1.0, ax), None),
+        ("jacobi3d_dot", "", lambda: jacobi3d_dot(x, b, inv, 1.0, beta, ax),
+         lambda: P.apply_jacobi3d_dot(x, b, inv, 1.0, beta, ax), b),
+    ]
+
+
+def _check_case(name, variant, kern, plain, dot_op, dtname):
+    """Run one case on the card against its plain version: (err, limit,
+    ok, tag), the dot held to ``DOT_TOL`` of sum|products|."""
+    import torch
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    out, rout = (got[0], ref[0]) if dot_op is not None else (got, ref)
+    if out.dtype != rout.dtype or out.shape != rout.shape:
+        raise RuntimeError(f"chip_smoke: {name} returned {out.dtype} {tuple(out.shape)}")
+    err = (out.double() - rout.double()).abs().max().item()
+    limit = REL_TOL[dtname] * rout.double().abs().max().item()
+    ok = err <= limit
+    tag = f"{name}{'[' + variant + ']' if variant else ''}"
+    if dot_op is not None:
+        terms = (dot_op.double() * rout.double()).abs().sum(dim=(1, 2, 3))
+        derr = (got[1].double() - ref[1].double()).abs().flatten()
+        dlim = DOT_TOL[dtname] * terms
+        ok = ok and bool((derr <= dlim).all())
+        tag += f" dot_err={derr.max().item():.2e}/{dlim.min().item():.2e}"
+    return err, limit, ok, tag
+
+
+def check_x2(dev, shapes=KERNEL3D_SHAPES + X2_EDGE_SHAPES, chunks=True):
+    """The double sweep against its plain version at ``shapes`` x
+    ``DTYPES`` x its four variants (with ``chunks``, also with explicit
+    plane chunks); returns (worst err/limit, worst abs error), raises on a
+    failure."""
+    import torch
+
+    worst = worst_abs = 0.0
+    n = 0
+    for seed, shape in enumerate(shapes):
+        for dtname in DTYPES:
+            inv, beta, x, b, _ = _level_inputs(shape, getattr(torch, dtname), dev, 800 + seed)
+            cases = _x2_cases(inv, beta, x, b) + (_x2_chunk_cases(inv, beta, x, b)
+                                                  if chunks else [])
+            for case in cases:
+                err, limit, ok, tag = _check_case(*case, dtname)
+                if not ok:
+                    raise RuntimeError(f"chip_smoke: {tag} disagrees with its plain version at "
+                                       f"{shape} {dtname}: {err:.3e} > {limit:.3e}")
+                worst = max(worst, err / limit if limit > 0 else float(err > 0))
+                worst_abs = max(worst_abs, err)
+                n += 1
+            del x, b
+    print(f"[3 kernel] jacobi3d_x2: {n} cases ({len(shapes)} shapes x {len(DTYPES)} dtypes x "
+          f"the variants{' and plane chunks ' + str(X2_CHUNKS) if chunks else ''}), worst "
+          f"err/limit {worst:.3f}", flush=True)
+    return worst, worst_abs
+
+
+def x2_level_times(dev, n: int = N_MAIN) -> list:
+    """The double sweep (bf16, the cycle's dtype; the smooth variant) timed
+    at every level shape of the n^3 V-cycle: per level the per-call time
+    (``_time_ms``), the device time per call back to back
+    (``_device_ms``), GB/s of its 3 grids of compulsory traffic, the bound
+    and the share of it (both from the per-call time)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    rows = []
+    grids, size, _, ops = BOUND_WORK["jacobi3d_x2"]
+    for lvl, shape in enumerate(_level_shapes((n,) * 3)):
+        inv, beta, x, b, _ = _level_inputs((1, *shape), torch.bfloat16, dev, 900 + lvl)
+        call = lambda: jacobi3d_x2(x, b, inv, beta, (0, 1, 2))  # noqa: E731
+        ms, dev_ms = _time_ms(call), _device_ms(call)
+        pts = x.numel()
+        bound = _bound(grids * size * pts, ops * pts)[0]
+        rows.append({"shape": shape, "ms": ms, "device_ms": dev_ms,
+                     "gb_per_s": grids * size * pts / (ms * 1e-3) / 1e9, "bound_ms": bound,
+                     "share_of_bound": bound / ms})
+        del x, b
+    print(f"[3 kernel] jacobi3d_x2 bf16 at the {n}^3 V-cycle's levels (per call: median of 15 "
+          "CUDA-event timings; device: 30 calls back to back; share = bound / per-call time): "
+          + "; ".join(f"{r['shape'][0]}^3 {r['ms']:.4f} ms (device {r['device_ms']:.4f}) "
+                      f"{r['gb_per_s']:.1f} GB/s {100 * r['share_of_bound']:.1f}%" for r in rows),
+          flush=True)
+    return rows
+
+
 def phase_kernel_slice2(dev):
     """The stencil alpha-dot and the Jacobi family against their plain
-    versions at every shape x dtype x variant, dots included; kernel vs
-    plain timed at 512^3 (bf16 for the Jacobi family, the cycle dtype;
-    f32 for the alpha-dot, the CG dtype). Returns per-kernel worst abs
-    error and (ms, plain_ms)."""
+    versions at every shape x dtype x variant, dots included (the double
+    sweep also at its edge shapes and plane chunks); kernel vs plain timed
+    at 512^3 (bf16 for the Jacobi family, the cycle dtype; f32 for the
+    alpha-dot, the CG dtype), the double sweep at every 512^3 MG level.
+    Returns per-kernel worst abs error, (ms, plain_ms) and the double
+    sweep's per-level times."""
     import torch
+
+    from pyapes_tpu_torch.ops import stencil as P
 
     worst = {}
     timing = {}
     timed = {("axis_stencil_dot", "", "float32"), ("jacobi3d", "smooth", "bfloat16"),
-             ("jacobi3d_dot", "", "bfloat16"), ("jacobi3d_x2", "", "bfloat16")}
+             ("jacobi3d_dot", "", "bfloat16")}
     for seed, shape in enumerate(KERNEL3D_SHAPES):
         for dtname in DTYPES:
             dtype = getattr(torch, dtname)
             inv, beta, x, b, coeffs = _level_inputs(shape, dtype, dev, 100 + seed)
             parts = []
             for name, variant, kern, plain, dot_op in _slice2_cases(inv, beta, x, b, coeffs):
-                got, ref = kern(), plain()
-                torch.cuda.synchronize()
-                out, rout = (got[0], ref[0]) if dot_op is not None else (got, ref)
-                if out.dtype != rout.dtype or out.shape != rout.shape:
-                    raise RuntimeError(f"chip_smoke: {name} returned {out.dtype} {tuple(out.shape)}")
-                err = (out.double() - rout.double()).abs().max().item()
-                limit = REL_TOL[dtname] * rout.double().abs().max().item()
-                ok = err <= limit
-                tag = f"{name}{'[' + variant + ']' if variant else ''}"
-                if dot_op is not None:
-                    terms = (dot_op.double() * rout.double()).abs().sum(dim=(1, 2, 3))
-                    derr = (got[1].double() - ref[1].double()).abs().flatten()
-                    dlim = DOT_TOL[dtname] * terms
-                    ok = ok and bool((derr <= dlim).all())
-                    tag += f" dot_err={derr.max().item():.2e}/{dlim.min().item():.2e}"
+                err, limit, ok, tag = _check_case(name, variant, kern, plain, dot_op, dtname)
                 parts.append(f"{tag} {err:.2e}/{limit:.2e}{'' if ok else ' FAIL'}")
                 if not ok:
                     print(f"[3 kernel] {tuple(shape)} {dtname}: " + "; ".join(parts), flush=True)
@@ -506,17 +640,24 @@ def phase_kernel_slice2(dev):
                 worst[name] = max(worst.get(name, 0.0), err)
                 if shape[1] == N_MAIN and (name, variant, dtname) in timed:
                     timing[name] = (_time_ms(kern), _time_ms(plain))
-                del got, ref, out, rout
             print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: " + "; ".join(parts), flush=True)
             del x, b
+    _, worst["jacobi3d_x2"] = check_x2(dev)
+    levels = x2_level_times(dev, N_MAIN)  # the 512^3 level first: the kernel's time
+    inv, beta, x, b, _ = _level_inputs((1, N_MAIN, N_MAIN, N_MAIN), torch.bfloat16, dev, 900)
+    timing["jacobi3d_x2"] = (levels[0]["ms"], _time_ms(
+        lambda: P.apply_jacobi3d_x2(x, b, inv, beta, (0, 1, 2))))
+    del x, b
     for name, (ms, plain_ms) in timing.items():
         grids = 2 if name == "axis_stencil_dot" else 3
         size = 4 if name == "axis_stencil_dot" else 2
         gbs = grids * N_MAIN**3 * size / (ms * 1e-3) / 1e9
+        bound = _bound(grids * size * N_MAIN**3, BOUND_WORK[name][3] * N_MAIN**3)[0]
         print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'} time: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel "
-              f"moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
-    return worst, timing
+              f"moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic), "
+              f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound", flush=True)
+    return worst, timing, levels
 
 
 def _vg_cases(shape, inv, beta, x, b, g, avg, neumann):
@@ -1286,15 +1427,19 @@ def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str, decomp=
     return counts, stats
 
 
+def darcy_cfg() -> dict:
+    """The Darcy cell's solver config (``bench.py``'s ``bench_darcy``)."""
+    return {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400,
+            "criterion": "residual", "mg_opts": DARCY_MG}
+
+
 def phase_darcy(dev, n: int = N_DARCY):
     """The variable-Γ path: ``bench_darcy``'s problem through
     ``Solver.solve`` (CG, Γ-aware MG, bf16 V(2,2), FMG); both variable-Γ
     kernels must launch in every timed solve."""
     _reset_counts()
-    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 400,
-           "criterion": "residual", "mg_opts": DARCY_MG}
     label = f"Darcy variable-Γ MG-PCG {n}^3 bf16 V(2,2) FMG"
-    stats, x = _solve_path(dev, n, cfg, label, darcy=True)
+    stats, x = _solve_path(dev, n, darcy_cfg(), label, darcy=True)
     counts = _counts()
     for ls in stats["launches_per_solve"]:
         missing = [k for k in ("diff_field", "diff_jacobi") if ls[k] == 0]
@@ -1390,7 +1535,7 @@ def main() -> None:
     dev, _ = phase_device()
     phase_build()
     worst1, timing1 = phase_kernel(dev)
-    worst2, timing2 = phase_kernel_slice2(dev)
+    worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
     worst4, timing4 = phase_kernel_advect(dev)
     worst5, timing5 = phase_kernel_ext(dev)

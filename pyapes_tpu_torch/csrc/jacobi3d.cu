@@ -19,8 +19,14 @@
 //                        [+ one partial sum(b * z) per block]
 //     replaces pallas_stencil_v3.py::pallas_jacobi3d_x2.
 //
-// The Python wrappers and the design note are in ops/jacobi.py. Plain C
-// interface, loaded with ctypes.
+// Both are bound by memory: ~16 (x2: ~32) flops per point against 3 grids
+// of compulsory traffic (read x and b, write out). The double sweep is a
+// 2.5-D plane march (design note above the kernel): x and b are staged
+// plane by plane into shared memory with 16-byte cp.async copies two
+// planes ahead, y lives in a two-plane ring in shared memory, each thread
+// keeps its points' axis-0 neighbours in registers, and the wrap and mask
+// are resolved once per block. The Python wrappers are in ops/jacobi.py.
+// Plain C interface, loaded with ctypes.
 
 #include "common.cuh"
 
@@ -29,15 +35,8 @@ namespace {
 using pyapes::Compute;
 using pyapes::store;
 using pyapes::to_c;
-using pyapes::wrap;
 
 constexpr int kThreads = 128;  // single sweep: one thread per point
-
-// x2 tile: TI x TJ x TK outputs per block; y lives on the tile plus a +-1
-// halo in shared memory (in the compute dtype: y is never rounded).
-constexpr int TI = 8, TJ = 8, TK = 32;
-constexpr int YI = TI + 2, YJ = TJ + 2, YK = TK + 2;
-constexpr int kX2Threads = 256;
 
 template <typename C>
 struct Params {
@@ -103,68 +102,396 @@ jacobi3d_kernel(const T* __restrict__ x, const T* __restrict__ b,
   }
 }
 
-// Two sweeps per memory pass. Each block owns a TI x TJ x TK output tile.
-// Sweep 1 computes y on the tile plus a +-1 halo in ALL three axes (global
-// indices wrapped) into shared memory, reading x on a +-2 halo through
-// L1/L2; sweep 2 computes z on the tile from shared y. The wrap and the mask
-// hold on each sweep, so this equals two jacobi3d_kernel calls except that y
-// is not rounded to the storage dtype.
-template <typename T, bool FROM_ZERO, bool DOT>
-__global__ void __launch_bounds__(kX2Threads)
-jacobi3d_x2_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                   T* __restrict__ out, typename Compute<T>::type* __restrict__ partial,
-                   Params<typename Compute<T>::type> q) {
+// ---------------------------------------------------------------------------
+// Double sweep: a 2.5-D plane march along axis 0 (the outermost, stride
+// n1 n2; k is contiguous).
+//
+// Each block owns a TJ x TK column tile of outputs in (j, k) and a chunk of
+// `ci` consecutive planes i0 .. i1-1 along i; its loop step p computes
+//
+//   y(p)    on the tile plus a +-1 ring in (j, k)   (needs x(p-1..p+1), b(p))
+//   z(p-1)  on the tile                            (needs y(p-2..p), b(p-1))
+//
+// for p = i0-1 .. i1. x and b planes are staged in shared memory on a
+// window of rows j0-2 .. j0+TJ+1 (b: j0-1 .. j0+TJ) and columns k0-HK ..
+// k0+TK+HK-1, HK = 8 elements so every row segment starts on a 16-byte
+// boundary: cp.async copies of 16 bytes where the rows allow (8 or 4
+// where they do not, as on the 4^3 MG level in bf16; element loads, all
+// issued before the first is stored, for bf16 rows of odd length). They land
+// in 4-slot rings (slot = plane & 3), issued two steps ahead of use, so
+// the loads of planes p+2, p+3 overlap the arithmetic of step p. y(p)
+// goes into a 2-slot ring (slot = p & 1) for its in-plane neighbours.
+//
+// A thread owns two adjacent columns of R consecutive y rows: it reads
+// and writes them as pairs (bf16x2, float2, double2) and keeps their x, y
+// and b values in registers along the march (x(p-1), x(p), y(p-2),
+// y(p-1), b(p-1)), so the i neighbours, the j neighbours inside its R
+// rows and the k neighbour inside its pair come from registers. The y
+// rows of a block are TJ + 2 (the tile and its ring rows); the ring's two
+// columns are one point per thread of the last warp. The window's wrapped
+// row offsets and columns are one table per block; the plane wrap and the
+// axis-0 mask are one uniform scalar per step; the j/k mask bits are a
+// register per thread: no % and no 64-bit index product in the per-point
+// loop.
+//
+// A chunk recomputes y on the two planes before it (i0-1 and, as the
+// neighbour chunk does, i0); y at a point is the same expression of the
+// same operands wherever it is computed (sweep(), with explicit fma), so
+// the seams and the ring repeat the neighbours' bits.
+constexpr int X2_THREADS = 128;
+constexpr int X2_R = 4;                              // y rows per thread
+constexpr int X2_YJ = X2_THREADS / 32 * X2_R;        // y rows of a block (16)
+constexpr int X2_TJ = X2_YJ - 2, X2_TK = 64;         // output tile (14 x 64)
+constexpr int X2_HK = 8;                             // k halo of the x/b window
+constexpr int X2_W = X2_TK + 2 * X2_HK;              // x/b window row (80)
+constexpr int X2_XJ = X2_YJ + 2, X2_BJ = X2_YJ;      // x/b window rows
+constexpr int X2_YP = X2_TK + 4;                     // y row pitch: y(k0-1+yk) at yk+1
+constexpr int X2_NS = 2 * X2_YJ;                     // ring columns' points (32)
+constexpr int X2_SLOTS = 4;
+static_assert(X2_TK == 64 && X2_NS <= X2_THREADS, "a warp's pairs span the tile");
+
+template <typename T>
+constexpr size_t x2_smem_bytes() {
   using C = typename Compute<T>::type;
-  __shared__ C ys[YI * YJ * YK];
-  const int gi_tiles = (q.N0 + TI - 1) / TI;
-  const int d = blockIdx.z / gi_tiles;
-  const int i0 = (blockIdx.z % gi_tiles) * TI, j0 = blockIdx.y * TJ, k0 = blockIdx.x * TK;
-  const int64_t plane = (int64_t)q.N1 * q.N2;
-  const int64_t vol = (int64_t)q.N0 * plane;
+  return 2 * X2_YJ * X2_YP * sizeof(C) + X2_SLOTS * (X2_XJ + X2_BJ) * X2_W * sizeof(T) +
+         (X2_XJ + X2_W) * sizeof(int);
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(BYTES));
+  }
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int imod(int i, int n) {  // i mod n, any i
+  i %= n;
+  return i < 0 ? i + n : i;
+}
+
+// Two adjacent values as one load / store (p aligned to the pair).
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(v);
+  b = __high2float(v);
+}
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const double* p, double& a, double& b) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(double* p, double a, double b) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+}
+
+// Stage `rows` window rows (from window row r0) of one plane (`src`: its
+// first element) into dst, from the copy with index `from` on in steps of
+// the block: BYTES per cp.async, or (BYTES == 0) element loads, every one
+// issued before the first store.
+template <int BYTES, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, const int* rowoff,
+                                           const int* kcol, int rows, int r0, int from) {
+  constexpr int V = BYTES ? BYTES / int(sizeof(T)) : 1, NCH = X2_W / V;
+  const int n = rows * NCH;
+  if constexpr (BYTES > 0) {
+    for (int c = from; c < n; c += X2_THREADS) {
+      const int r = c / NCH, h = c - r * NCH;
+      cp_async<BYTES>(dst + r * X2_W + h * V, src + rowoff[r0 + r] + kcol[h * V]);
+    }
+  } else {
+    constexpr int NMAX = (X2_XJ * X2_W + X2_THREADS - 1) / X2_THREADS;
+    T v[NMAX];
+#pragma unroll
+    for (int u = 0; u < NMAX; ++u) {
+      const int e = from + u * X2_THREADS;
+      if (e < n) {
+        const int r = e / X2_W;
+        v[u] = src[rowoff[r0 + r] + kcol[e - r * X2_W]];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NMAX; ++u) {
+      if (from + u * X2_THREADS < n) dst[from + u * X2_THREADS] = v[u];
+    }
+  }
+}
+
+// One damped-Jacobi update at a point from its centre value and the sums of
+// its two neighbours along each axis: c + beta (b - A c), or c on a masked
+// point. Explicit fma, so every caller rounds alike.
+template <typename C>
+__device__ __forceinline__ C sweep(const Params<C>& q, C c, C s0, C s1, C s2, C bv, bool masked) {
+  C ax = q.inv0 * fma(C(-2), c, s0);
+  ax = fma(q.inv1, fma(C(-2), c, s1), ax);
+  ax = fma(q.inv2, fma(C(-2), c, s2), ax);
+  return masked ? c : fma(q.beta, bv - ax, c);
+}
+
+template <typename T, bool FROM_ZERO, bool DOT>
+__global__ void __launch_bounds__(X2_THREADS)
+jacobi3d_x2_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ out,
+                   typename Compute<T>::type* __restrict__ partial,
+                   Params<typename Compute<T>::type> q, int ci, int cw) {
+  using C = typename Compute<T>::type;
+  constexpr int YPL = X2_YJ * X2_YP, XPL = X2_XJ * X2_W, BPL = X2_BJ * X2_W;
+  constexpr int R2 = 2 * X2_R;  // a thread's y points (pairs of R rows)
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* ys = reinterpret_cast<C*>(smem);
+  T* xs = reinterpret_cast<T*>(ys + 2 * YPL);
+  T* bs = xs + X2_SLOTS * XPL;
+  int* rowoff = reinterpret_cast<int*>(bs + X2_SLOTS * BPL);  // window row -> j * n2
+  int* kcol = rowoff + X2_XJ;                                  // window column -> k
+
+  const int t = threadIdx.x;
+  const int nch = (q.N0 + ci - 1) / ci;
+  const int d = blockIdx.z / nch;
+  const int i0 = (blockIdx.z - d * nch) * ci, i1 = min(i0 + ci, q.N0);
+  const int j0 = blockIdx.y * X2_TJ, k0 = blockIdx.x * X2_TK;
+  const int64_t plane = (int64_t)q.N1 * q.N2, vol = q.N0 * plane;
   const T* xd = FROM_ZERO ? nullptr : x + d * vol;
   const T* bd = b + d * vol;
+  T* od = out + d * vol;
 
-  // sweep 1: y at global (i0 - 1 + li, j0 - 1 + lj, k0 - 1 + lk), wrapped
-  for (int t = threadIdx.x; t < YI * YJ * YK; t += kX2Threads) {
-    const int li = t / (YJ * YK), lj = (t / YK) % YJ, lk = t % YK;
-    const int gi = wrap(i0 - 1 + li, q.N0), gj = wrap(j0 - 1 + lj, q.N1),
-              gk = wrap(k0 - 1 + lk, q.N2);
-    const int64_t p = (int64_t)gi * plane + (int64_t)gj * q.N2 + gk;
-    const bool m = on_mask(q, gi, gj, gk);
-    const C bv = to_c(bd[p]);
-    C y;
-    if constexpr (FROM_ZERO) {
-      y = q.beta * (m ? C(0) : bv);
-    } else {
-      const C xc = to_c(xd[p]);
-      const C upd = m ? C(0) : bv - lap_at<T, C>(xd, q, gi, gj, gk, xc);
-      y = xc + q.beta * upd;
-    }
-    ys[t] = y;
+  for (int e = t; e < X2_XJ + X2_W; e += X2_THREADS) {
+    if (e < X2_XJ) rowoff[e] = imod(j0 - 2 + e, q.N1) * q.N2;
+    else kcol[e - X2_XJ] = imod(k0 - X2_HK + e - X2_XJ, q.N2);
   }
   __syncthreads();
 
-  // sweep 2: z on the tile from the shared y
+  auto wrap_i = [&](int p) { return p < 0 ? p + q.N0 : (p >= q.N0 ? p - q.N0 : p); };
+  // 16-byte copies (the aligned grids): this thread's first two copies of
+  // an x and of a b plane, resolved once
+  constexpr int V16 = 16 / int(sizeof(T)), N16 = X2_W / V16;
+  int s16[2], gx16[2], gb16[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = t + u * X2_THREADS, r = c / N16, hh = c - r * N16;
+    s16[u] = r * X2_W + hh * V16;
+    gx16[u] = r < X2_XJ ? rowoff[r] + kcol[hh * V16] : 0;
+    gb16[u] = r < X2_BJ ? rowoff[1 + r] + kcol[hh * V16] : 0;
+  }
+  // stage plane p of src (window rows r0 .. r0+rows-1) into dst, cw bytes
+  // per copy (16, 8, 4; 0: element loads)
+  auto stage = [&](T* dst, const T* src, int p, int rows, int r0, const int (&g16)[2]) {
+    src += wrap_i(p) * plane;
+    if (cw == 16) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (t + u * X2_THREADS < rows * N16) cp_async<16>(dst + s16[u], src + g16[u]);
+      }
+      stage_rows<16>(dst, src, rowoff, kcol, rows, r0, t + 2 * X2_THREADS);
+    } else if (cw == 8) {
+      stage_rows<8>(dst, src, rowoff, kcol, rows, r0, t);
+    } else if (cw == 4) {
+      if constexpr (sizeof(T) <= 4) stage_rows<4>(dst, src, rowoff, kcol, rows, r0, t);
+    } else {
+      stage_rows<0>(dst, src, rowoff, kcol, rows, r0, t);
+    }
+  };
+  auto stage_x = [&](int p) {
+    if constexpr (!FROM_ZERO) stage(xs + (p & 3) * XPL, xd, p, X2_XJ, 0, gx16);
+  };
+  auto stage_b = [&](int p) { stage(bs + (p & 3) * BPL, bd, p, X2_BJ, 1, gb16); };
+
+  // this thread's y points: rows yj0 .. yj0+R-1, columns k0+kk, k0+kk+1
+  // (y-plane columns kk+1, kk+2); point 2r+c is row r, column c
+  const int kk = 2 * (t & 31), yj0 = (t >> 5) * X2_R;
+  const int xo = (yj0 + 1) * X2_W + kk + X2_HK;  // its first pair in an x slot
+  const int bo = yj0 * X2_W + kk + X2_HK;        // ... in a b slot
+  const int yo = yj0 * X2_YP + kk + 2;           // ... in a y slot
+  // the y rows next to its rows (clamped inside the y plane where unused)
+  const int ya = yj0 > 0 ? yo - X2_YP : yo, yb = yj0 + X2_R < X2_YJ ? yo + X2_R * X2_YP : yo;
+  unsigned mjk = 0, live = 0, zrow = 0;  // bit 2r+c: masked in (j, k); z stored. bit r: z row
+#pragma unroll
+  for (int r = 0; r < X2_R; ++r) {
+    const int yj = yj0 + r, gj = j0 - 1 + yj, gjw = imod(gj, q.N1);
+    const bool mj = (q.mask & 2) && (gjw == 0 || gjw == q.N1 - 1);
+    if (yj >= 1 && yj <= X2_YJ - 2) zrow |= 1u << r;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int gk = k0 + kk + c, gkw = imod(gk, q.N2);
+      if (mj || ((q.mask & 4) && (gkw == 0 || gkw == q.N2 - 1))) mjk |= 1u << (2 * r + c);
+      if ((zrow >> r & 1u) && gj < q.N1 && gk < q.N2) live |= 1u << (2 * r + c);
+    }
+  }
+  const bool pair_store = (q.N2 & 1) == 0;
+  const int64_t orow = (int64_t)(j0 - 1 + yj0) * q.N2 + k0 + kk;  // its first point in a plane
+  // one point of the ring columns (y-plane columns 0 and TK+1) per thread
+  // of the last X2_NS, at y-plane coordinates (sj, sk)
+  const int sn = t - (X2_THREADS - X2_NS);
+  const bool ring = sn >= 0;
+  const int sj = (sn + X2_YJ) % X2_YJ, sk = sn >= X2_YJ ? X2_TK + 1 : 0;
+  const int hxo = (sj + 1) * X2_W + sk + X2_HK - 1, hbo = sj * X2_W + sk + X2_HK - 1;
+  const int hyo = sj * X2_YP + sk + 1;
+  bool mh;
+  {
+    const int gj = imod(j0 - 1 + sj, q.N1), gk = imod(k0 - 1 + sk, q.N2);
+    mh = ((q.mask & 2) && (gj == 0 || gj == q.N1 - 1)) ||
+         ((q.mask & 4) && (gk == 0 || gk == q.N2 - 1));
+  }
+
+  // prologue: x(i0-2), x(i0-1) now; then the groups G(p) = {x(p+3), b(p+2)}
+  // for p = i0-3, i0-2, so that step p waits only for G(p-2)
+  stage_x(i0 - 2);
+  stage_x(i0 - 1);
+  cp_async_commit();
+  stage_x(i0);
+  stage_b(i0 - 1);
+  cp_async_commit();
+  stage_x(i0 + 1);
+  stage_b(i0);
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();
+
+  C xm[R2], xc[R2], ym[R2], yc[R2], bc[R2];  // x(p-1), x(p), y(p-2), y(p-1), b(p-1)
+  C hxm = C(0), hxc = C(0);                  // x(p-1), x(p) at the ring point
+#pragma unroll
+  for (int u = 0; u < R2; ++u) {
+    xm[u] = xc[u] = ym[u] = yc[u] = bc[u] = C(0);
+  }
+  if constexpr (!FROM_ZERO) {
+    const T* s0 = xs + ((i0 - 2) & 3) * XPL;
+    const T* s1 = xs + ((i0 - 1) & 3) * XPL;
+#pragma unroll
+    for (int r = 0; r < X2_R; ++r) {
+      load2(s0 + xo + r * X2_W, xm[2 * r], xm[2 * r + 1]);
+      load2(s1 + xo + r * X2_W, xc[2 * r], xc[2 * r + 1]);
+    }
+    if (ring) {
+      hxm = to_c(s0[hxo]);
+      hxc = to_c(s1[hxo]);
+    }
+  }
+
   C prod = C(0);
-  for (int t = threadIdx.x; t < TI * TJ * TK; t += kX2Threads) {
-    const int li = t / (TJ * TK), lj = (t / TK) % TJ, lk = t % TK;
-    const int gi = i0 + li, gj = j0 + lj, gk = k0 + lk;
-    if (gi >= q.N0 || gj >= q.N1 || gk >= q.N2) continue;
-    const int s = ((li + 1) * YJ + (lj + 1)) * YK + (lk + 1);
-    const C yc = ys[s];
-    C ay = q.inv0 * (ys[s + YJ * YK] + ys[s - YJ * YK] - C(2) * yc);
-    ay += q.inv1 * (ys[s + YK] + ys[s - YK] - C(2) * yc);
-    ay += q.inv2 * (ys[s + 1] + ys[s - 1] - C(2) * yc);
-    const int64_t p = (int64_t)gi * plane + (int64_t)gj * q.N2 + gk;
-    const C bv = to_c(bd[p]);
-    const C upd = on_mask(q, gi, gj, gk) ? C(0) : bv - ay;
-    const C z = yc + q.beta * upd;
-    store(&out[d * vol + p], z);
-    prod += bv * z;
+  bool mprev = false;  // axis-0 mask of plane p-1
+  for (int p = i0 - 1; p <= i1; ++p) {
+    cp_async_wait<1>();  // G(p-2): x(p+1), b(p)
+    __syncthreads();     // ... from every thread; step p-1 done with the slots
+                         // refilled below and with y slot p & 1 (one barrier a step)
+    if (p + 3 <= i1 + 1) stage_x(p + 3);
+    if (p + 2 <= i1) stage_b(p + 2);
+    cp_async_commit();
+
+    const int gi = wrap_i(p);
+    const bool mi = (q.mask & 1) && (gi == 0 || gi == q.N0 - 1);
+    const T* xsc = xs + (p & 3) * XPL;        // x(p)
+    const T* xsn = xs + ((p + 1) & 3) * XPL;  // x(p+1)
+    const T* bsc = bs + (p & 3) * BPL;        // b(p)
+    C* ysp = ys + (p & 1) * YPL;              // y(p)
+    C yn[R2], bn[R2];
+#pragma unroll
+    for (int r = 0; r < X2_R; ++r) load2(bsc + bo + r * X2_W, bn[2 * r], bn[2 * r + 1]);
+    if constexpr (FROM_ZERO) {
+#pragma unroll
+      for (int u = 0; u < R2; ++u) yn[u] = (mi || (mjk >> u & 1u)) ? C(0) : q.beta * bn[u];
+    } else {
+      C xp[R2], above[2], below[2];
+#pragma unroll
+      for (int r = 0; r < X2_R; ++r) load2(xsn + xo + r * X2_W, xp[2 * r], xp[2 * r + 1]);
+      load2(xsc + xo - X2_W, above[0], above[1]);
+      load2(xsc + xo + X2_R * X2_W, below[0], below[1]);
+#pragma unroll
+      for (int r = 0; r < X2_R; ++r) {
+        const int o = xo + r * X2_W;
+        const C kl = to_c(xsc[o - 1]), kr = to_c(xsc[o + 2]);  // beside the pair
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int u = 2 * r + c;
+          const C jm = r == 0 ? above[c] : xc[u - 2], jp = r == X2_R - 1 ? below[c] : xc[u + 2];
+          const C ks = c == 0 ? xc[u + 1] + kl : kr + xc[u - 1];
+          yn[u] = sweep(q, xc[u], xp[u] + xm[u], jp + jm, ks, bn[u], mi || (mjk >> u & 1u));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < R2; ++u) {
+        xm[u] = xc[u];
+        xc[u] = xp[u];
+      }
+    }
+    if (p >= i0) {  // y(i0-1) is needed only at this thread's own points
+#pragma unroll
+      for (int r = 0; r < X2_R; ++r) store2(ysp + yo + r * X2_YP, yn[2 * r], yn[2 * r + 1]);
+    }
+    if (ring) {
+      if constexpr (FROM_ZERO) {
+        if (p >= i0) ysp[hyo] = (mi || mh) ? C(0) : q.beta * to_c(bsc[hbo]);
+      } else {
+        const C hxp = to_c(xsn[hxo]);
+        if (p >= i0) {
+          ysp[hyo] = sweep(q, hxc, hxp + hxm, to_c(xsc[hxo + X2_W]) + to_c(xsc[hxo - X2_W]),
+                           to_c(xsc[hxo + 1]) + to_c(xsc[hxo - 1]), to_c(bsc[hbo]), mi || mh);
+        }
+        hxm = hxc;
+        hxc = hxp;
+      }
+    }
+    // z(p-1) from y(p-2..p): y(p-1) in the other slot (visible since the
+    // barrier above), y(p-2), y(p) at this thread's points in registers
+    if (p > i0) {
+      const C* ysc = ys + ((p - 1) & 1) * YPL;
+      C above[2], below[2];
+      load2(ysc + ya, above[0], above[1]);
+      load2(ysc + yb, below[0], below[1]);
+      const int64_t pb = wrap_i(p - 1) * plane + orow;
+#pragma unroll
+      for (int r = 0; r < X2_R; ++r) {
+        if (!(zrow >> r & 1u)) continue;  // a ring row (uniform across the warp)
+        const int o = yo + r * X2_YP;
+        const C kl = ysc[o - 1], kr = ysc[o + 2];
+        C z[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int u = 2 * r + c;
+          const C jm = r == 0 ? above[c] : yc[u - 2], jp = r == X2_R - 1 ? below[c] : yc[u + 2];
+          const C ks = c == 0 ? yc[u + 1] + kl : kr + yc[u - 1];
+          z[c] = sweep(q, yc[u], yn[u] + ym[u], jp + jm, ks, bc[u], mprev || (mjk >> u & 1u));
+        }
+        T* dst = od + pb + r * q.N2;
+        const unsigned lv = live >> (2 * r) & 3u;
+        if (lv == 3u && pair_store) {
+          store2(dst, z[0], z[1]);
+        } else {
+          if (lv & 1u) store(dst, z[0]);
+          if (lv & 2u) store(dst + 1, z[1]);
+        }
+        if constexpr (DOT) {
+          if (lv & 1u) prod = fma(bc[2 * r], z[0], prod);
+          if (lv & 2u) prod = fma(bc[2 * r + 1], z[1], prod);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < R2; ++u) {
+      ym[u] = yc[u];
+      yc[u] = yn[u];
+      bc[u] = bn[u];
+    }
+    mprev = mi;
   }
   if constexpr (DOT) {
-    const C s = pyapes::block_sum<kX2Threads>(prod);
-    if (threadIdx.x == 0) {
+    const C s = pyapes::block_sum<X2_THREADS>(prod);
+    if (t == 0) {
       partial[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
     }
   }
@@ -196,26 +523,75 @@ cudaError_t launch_jacobi(int vdim, const int* n, const void* x, const void* b,
   return cudaGetLastError();
 }
 
+// Opt the double-sweep kernel of (T, FROM_ZERO, DOT) in to its dynamic
+// shared memory where that exceeds 48 KB (f32, f64), once per device.
+template <typename T, bool FROM_ZERO, bool DOT>
+cudaError_t x2_prepare() {
+  constexpr size_t smem = x2_smem_bytes<T>();
+  if constexpr (smem > 48 * 1024) {
+    static unsigned done = 0;  // bit per device: attribute set
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev >= 32 || !(done >> dev & 1u)) {
+      e = cudaFuncSetAttribute(jacobi3d_x2_kernel<T, FROM_ZERO, DOT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      if (dev < 32) done |= 1u << dev;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool FROM_ZERO, bool DOT>
+cudaError_t launch_x2_kernel(dim3 grid, cudaStream_t s, const T* x, const T* b, T* out,
+                             typename Compute<T>::type* partial,
+                             const Params<typename Compute<T>::type>& q, int ci, int cw) {
+  const cudaError_t e = x2_prepare<T, FROM_ZERO, DOT>();
+  if (e != cudaSuccess) return e;
+  jacobi3d_x2_kernel<T, FROM_ZERO, DOT><<<grid, X2_THREADS, x2_smem_bytes<T>(), s>>>(
+      x, b, out, partial, q, ci, cw);
+  return cudaGetLastError();
+}
+
+template <typename T, bool FROM_ZERO, bool DOT>
+cudaError_t x2_occupancy(int* blocks) {
+  const cudaError_t e = x2_prepare<T, FROM_ZERO, DOT>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, jacobi3d_x2_kernel<T, FROM_ZERO, DOT>, X2_THREADS, x2_smem_bytes<T>());
+}
+
+template <typename T>
+cudaError_t x2_occupancy(int from_zero, int dot, int* blocks) {
+  if (from_zero) {
+    return dot ? x2_occupancy<T, true, true>(blocks) : x2_occupancy<T, true, false>(blocks);
+  }
+  return dot ? x2_occupancy<T, false, true>(blocks) : x2_occupancy<T, false, false>(blocks);
+}
+
 template <typename T>
 cudaError_t launch_x2(int vdim, const int* n, const void* x, const void* b,
                       void* out, void* partial, const double* inv, double beta,
-                      int mask, int from_zero, cudaStream_t s) {
+                      int mask, int from_zero, int ci, int cw, cudaStream_t s) {
   using C = typename Compute<T>::type;
+  if (ci < 1 || (int64_t)n[1] * n[2] > INT32_MAX || (cw != 0 && cw != 4 && cw != 8 && cw != 16) ||
+      (cw != 0 && cw < (int)sizeof(T))) {
+    return cudaErrorInvalidValue;
+  }
   const auto q = make_params<T>(n, inv, 1.0, beta, mask);
-  const dim3 grid((n[2] + TK - 1) / TK, (n[1] + TJ - 1) / TJ, vdim * ((n[0] + TI - 1) / TI));
+  const dim3 grid((n[2] + X2_TK - 1) / X2_TK, (n[1] + X2_TJ - 1) / X2_TJ,
+                  vdim * ((n[0] + ci - 1) / ci));
   const T* xp = static_cast<const T*>(x);
   const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
   C* pp = static_cast<C*>(partial);
-  const bool dot = partial != nullptr;
   if (from_zero) {
-    if (dot) jacobi3d_x2_kernel<T, true, true><<<grid, kX2Threads, 0, s>>>(xp, bp, op, pp, q);
-    else jacobi3d_x2_kernel<T, true, false><<<grid, kX2Threads, 0, s>>>(xp, bp, op, pp, q);
-  } else {
-    if (dot) jacobi3d_x2_kernel<T, false, true><<<grid, kX2Threads, 0, s>>>(xp, bp, op, pp, q);
-    else jacobi3d_x2_kernel<T, false, false><<<grid, kX2Threads, 0, s>>>(xp, bp, op, pp, q);
+    if (pp) return launch_x2_kernel<T, true, true>(grid, s, xp, bp, op, pp, q, ci, cw);
+    return launch_x2_kernel<T, true, false>(grid, s, xp, bp, op, pp, q, ci, cw);
   }
-  return cudaGetLastError();
+  if (pp) return launch_x2_kernel<T, false, true>(grid, s, xp, bp, op, pp, q, ci, cw);
+  return launch_x2_kernel<T, false, false>(grid, s, xp, bp, op, pp, q, ci, cw);
 }
 
 }  // namespace
@@ -242,18 +618,31 @@ int pyapes_jacobi3d(int dtype, int vdim, int n0, int n1, int n2, const void* x,
 }
 
 // As pyapes_jacobi3d for the double sweep; x is not read (may be NULL) when
-// from_zero. partial: NULL, or vdim * ceil(n0/8) * ceil(n1/8) * ceil(n2/32)
-// values, component-major.
+// from_zero. ci: planes per block along axis 0. cw: bytes per staging copy,
+// 16, 8 or 4 (at least the dtype's size; n2 * sizeof(dtype) and the base
+// pointers of x and b multiples of it), or 0 for element loads. n1 * n2
+// must fit an int. partial: NULL, or vdim * ceil(n0/ci) * ceil(n1/14) *
+// ceil(n2/64) values (one per block), component-major.
 int pyapes_jacobi3d_x2(int dtype, int vdim, int n0, int n1, int n2, const void* x,
                        const void* b, void* out, void* partial, double inv0,
                        double inv1, double inv2, double beta, int mask,
-                       int from_zero, void* stream) {
+                       int from_zero, int ci, int cw, void* stream) {
   const int n[3] = {n0, n1, n2};
   const double inv[3] = {inv0, inv1, inv2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_x2<float>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, s);
-  if (dtype == 1) return launch_x2<double>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, s);
-  if (dtype == 2) return launch_x2<__nv_bfloat16>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, s);
+  if (dtype == 0) return launch_x2<float>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, ci, cw, s);
+  if (dtype == 1) return launch_x2<double>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, ci, cw, s);
+  if (dtype == 2) return launch_x2<__nv_bfloat16>(vdim, n, x, b, out, partial, inv, beta, mask, from_zero, ci, cw, s);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of the double sweep (dtype, from_zero, dot as above; dot: a
+// partial is written) that one SM of the current device holds at once,
+// into *blocks. Returns a CUDA error code (0 on success).
+int pyapes_jacobi3d_x2_blocks_per_sm(int dtype, int from_zero, int dot, int* blocks) {
+  if (dtype == 0) return x2_occupancy<float>(from_zero, dot, blocks);
+  if (dtype == 1) return x2_occupancy<double>(from_zero, dot, blocks);
+  if (dtype == 2) return x2_occupancy<__nv_bfloat16>(from_zero, dot, blocks);
   return cudaErrorInvalidValue;
 }
 

@@ -47,6 +47,11 @@ DOT_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5}
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
 # chip_smoke.py's kernel shapes (vdim, nx, ny, nz) minus the 512^3 one
 SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17)]
+# the double sweep's own edges: more planes than a chunk and not a multiple
+# of it, odd n2 with n1 not a multiple of the 16-row tile, 3-node axes
+X2_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
+# planes per block: the launch geometry's choice, the most, a ragged few
+X2_CHUNKS = [None, 64, 3]
 # the variable-Γ kernels: those plus 2-D grids; chip_smoke.py's (stacked Γ,
 # face rule, Neumann surgery) combinations
 VG_SHAPES = SHAPES + [(1, 65, 130), (2, 17, 9)]
@@ -136,10 +141,14 @@ def _level(shape, dtype, device, seed):
     return inv, beta, x, b
 
 
+JACOBI_VARIANTS = ["smooth", "residual", "dot"]
+X2_VARIANTS = ["x2", "x2_zero", "x2_dot", "x2_zero_dot"]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("variant", ["smooth", "residual", "dot", "x2", "x2_zero", "x2_dot",
-                                     "x2_zero_dot"])
+@pytest.mark.parametrize("shape, variant",
+                         [(s, v) for v in JACOBI_VARIANTS + X2_VARIANTS for s in SHAPES]
+                         + [(s, v) for v in X2_VARIANTS for s in X2_SHAPES])
 def test_jacobi_kernels_match_plain(cuda, shape, dtype, variant):
     inv, beta, x, b = _level(shape, dtype, cuda, seed=2)
     axes = (0, 1, 2) if variant != "x2_dot" else (0, 2)
@@ -158,15 +167,17 @@ def test_jacobi_kernels_match_plain(cuda, shape, dtype, variant):
         _dot_close(dot, ref_dot, b.double() * ref.double(), dtype)
     else:
         zero, emit = "zero" in variant, variant.endswith("dot")
-        before = jacobi3d_x2.launches
-        got = jacobi3d_x2(None if zero else x, b, inv, beta, axes, from_zero=zero, emit_dot=emit)
-        assert jacobi3d_x2.launches == before + 1
         ref = apply_jacobi3d_x2(x, b, inv, beta, axes, from_zero=zero, emit_dot=emit)
-        if emit:
-            _close(got[0], ref[0], dtype)
-            _dot_close(got[1], ref[1], b.double() * ref[0].double(), dtype)
-        else:
-            _close(got, ref, dtype)
+        for chunk in X2_CHUNKS:
+            before = jacobi3d_x2.launches
+            got = jacobi3d_x2(None if zero else x, b, inv, beta, axes, from_zero=zero,
+                              emit_dot=emit, chunk=chunk)
+            assert jacobi3d_x2.launches == before + 1
+            if emit:
+                _close(got[0], ref[0], dtype)
+                _dot_close(got[1], ref[1], b.double() * ref[0].double(), dtype)
+            else:
+                _close(got, ref, dtype)
     torch.cuda.synchronize()
 
 
@@ -195,11 +206,25 @@ def test_diff_kernels_match_plain(cuda, shape, dtype, combo):
     assert (diff_field.launches, diff_jacobi.launches) == (before[0] + 1, before[1] + 3)
 
 
-def test_x2_equals_two_single_sweeps_f64(cuda):
-    inv, beta, x, b = _level((2, 17, 9, 33), torch.float64, cuda, seed=3)
+@pytest.mark.parametrize("shape, chunk", [((2, 17, 9, 33), None), ((1, 130, 16, 64), 64),
+                                          ((2, 70, 19, 131), 16)])
+def test_x2_equals_two_single_sweeps_f64(cuda, shape, chunk):
+    """In f64 the double sweep is two single sweeps, across the seams of
+    several plane chunks too."""
+    inv, beta, x, b = _level(shape, torch.float64, cuda, seed=3)
     axes = (0, 1, 2)
     two = jacobi3d(jacobi3d(x, b, inv, 1.0, beta, axes), b, inv, 1.0, beta, axes)
-    _close(jacobi3d_x2(x, b, inv, beta, axes), two, torch.float64)
+    _close(jacobi3d_x2(x, b, inv, beta, axes, chunk=chunk), two, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_x2_dot_same_bits_every_call(cuda, dtype):
+    """The fused r.z is summed in a fixed order (one partial per block, no
+    atomics): two calls give the same bits, output and dot."""
+    inv, beta, x, b = _level((1, 130, 70, 131), dtype, cuda, seed=4)
+    z1, d1 = jacobi3d_x2(x, b, inv, beta, (0, 1, 2), emit_dot=True)
+    z2, d2 = jacobi3d_x2(x, b, inv, beta, (0, 1, 2), emit_dot=True)
+    assert torch.equal(z1, z2) and torch.equal(d1, d2)
 
 
 def test_kernel_rejects_noncontiguous(cuda):

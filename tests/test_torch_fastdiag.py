@@ -123,3 +123,49 @@ def test_fastdiag_solve_inverts_the_operator():
     fd = FastDiag(mats, dtype=torch.float64, device="cpu")
     got = fd.solve(torch.from_numpy(b), 1.0).numpy().ravel()
     assert np.abs(got - x).max() <= 1e-10 * np.abs(x).max()
+
+
+def _fastdiag_itr_both(n):
+    """``itr`` and the final relative residual of the 3-D all-Dirichlet f32
+    random-RHS fastdiag solve (``bench.py``'s Poisson problem, tol 1e-6,
+    residual criterion) through both packages' ``Solver.solve``, on the
+    same numpy RHS."""
+    from pyapes_tpu.solver.fdm import FDM as JFDM
+    from pyapes_tpu.solver.ops import Solver as JSolver
+    from pyapes_tpu_torch.solver import FDM, Solver
+
+    cfg = {"method": "fastdiag", "tol": 1e-6, "max_it": 4000, "criterion": "residual"}
+    rhs = np.random.default_rng(0).standard_normal((1, n, n, n)).astype(np.float32)
+    box = (slice(0, 1),) * 3
+    bcs = [{"bc_face": f, "bc_type": "dirichlet", "bc_val": 0.0} for f in FACES]
+    jf = JField("p", 1, JMesh(JBox[box], None, [n] * 3, dtype="single"),
+                {"domain": bcs, "obstacle": None}, init_val=0.0)
+    js = JSolver({"fdm": dict(cfg)})
+    js.set_eq(JFDM().laplacian(1.0, jf) == jnp.asarray(rhs))
+    jrep = js.solve()
+    del js, jf
+    pf = Field("p", 1, Mesh(Box[box], None, [n] * 3, device="cpu", dtype="single"),
+               {"domain": bcs, "obstacle": None}, init_val=0.0)
+    ps = Solver({"fdm": dict(cfg)})
+    ps.set_eq(FDM().laplacian(1.0, pf) == torch.from_numpy(rhs))
+    prep = ps.solve()
+    return jrep, prep
+
+
+def test_f32_fastdiag_passes_match_the_reference_256():
+    """ROADMAP C's closed fault: f32 fastdiag at 256^3 takes one pass in
+    both packages (the port took 2 at 512^3 on the card while the JAX
+    package took 1 on its TPU; on the CPU both take 2 there, see the slow
+    case below, so the gap was the TPU's matmul)."""
+    jrep, prep = _fastdiag_itr_both(256)
+    assert prep["itr"] == jrep["itr"] == 1, (prep, jrep)
+    assert prep["converge"] and jrep["converge"]
+    assert prep["tol"] <= 1e-6 and jrep["tol"] <= 1e-6
+
+
+@pytest.mark.slow
+def test_f32_fastdiag_passes_match_the_reference_512():
+    """The same at 512^3 (a few GB, ~40 s): both packages take 2 passes."""
+    jrep, prep = _fastdiag_itr_both(512)
+    assert prep["itr"] == jrep["itr"] == 2, (prep, jrep)
+    assert prep["converge"] and jrep["converge"]

@@ -180,3 +180,56 @@ def test_bf16_computes_in_f32_and_rounds_once():
     z2, dot = apply_jacobi3d_x2(xb, bb, inv, beta, (0, 1, 2), emit_dot=True)
     assert dot.dtype == torch.float32 and torch.equal(z2, z)
     assert torch.allclose(dot, (bb.float() * z32).sum(dim=(1, 2, 3), keepdim=True), rtol=1e-6)
+
+
+def _mg_level_shapes(n):
+    """The V-cycle's level shapes of an n^3 grid (``MGSpec``'s rule)."""
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    return [(1, *s) for s in _level_shapes((n,) * 3)]
+
+
+@pytest.mark.parametrize("shape", _mg_level_shapes(512) + _mg_level_shapes(256) + [
+    (1, 4, 4, 4), (1, 5, 9, 17), (1, 65, 33, 129), (3, 64, 64, 64), (1, 130, 16, 64),
+    (2, 70, 19, 131), (1, 3, 3, 3)])
+@pytest.mark.parametrize("chunk, resident", [(None, 396), (None, 660), (None, 1), (64, 396),
+                                             (5, 396), (1, 396)])
+def test_x2_geometry_covers_each_point_once(shape, chunk, resident):
+    """The double sweep's launch geometry: the blocks' column tiles and
+    plane chunks, as the kernel reads them off its block index, cover
+    every output point of every component exactly once, and there is one
+    dot partial per block."""
+    (gx, gy, gz), ci, n_partial = jacobi.x2_geometry(shape, resident, chunk)
+    vdim, n0, n1, n2 = shape
+    tj, tk = jacobi._X2_TILE
+    nch = -(-n0 // ci)
+    assert gz == vdim * nch and n_partial * vdim == gx * gy * gz
+    assert 1 <= ci <= n0 and (chunk is None or ci == min(chunk, n0))
+    assert max(gy, gz) <= jacobi._MAX_GRID_YZ
+
+    def cover(n_blocks, size, n):  # points of one axis each block index covers
+        count = np.zeros(n, np.int64)
+        for blk in range(n_blocks):
+            lo = blk * size
+            assert lo < n, "a block with no output"
+            count[lo:min(lo + size, n)] += 1
+        return count
+
+    per_comp = np.zeros((vdim, n0), np.int64)
+    for bz in range(gz):
+        d, c = divmod(bz, nch)
+        i0 = c * ci
+        per_comp[d, i0:min(i0 + ci, n0)] += 1
+    assert (per_comp == 1).all()
+    assert (cover(gy, tj, n1) == 1).all() and (cover(gx, tk, n2) == 1).all()
+
+
+@pytest.mark.parametrize("n, resident, chunk", [(512, 396, 128), (256, 396, 52), (128, 396, 7),
+                                                (64, 396, 1), (512, 1, 512)])
+def test_x2_chunk_fills_the_card(n, resident, chunk):
+    """The chunk choice on the 512^3 cycle's levels for a card that holds
+    396 blocks at once (3 per SM of 132): the fewest plane-steps, (waves
+    of blocks) x (planes + the block's fixed cost); one long chunk where a
+    single block at a time runs."""
+    _, ci, _ = jacobi.x2_geometry((1, n, n, n), resident)
+    assert ci == chunk
