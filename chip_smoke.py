@@ -9,7 +9,8 @@ Phases, report lines before the last:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them; check TF32 is off for float32 matmuls.
 2. build  — compile every Hopper kernel source of ``pyapes_tpu_torch/csrc``
-   (one ``nvcc`` each, started together); print ptxas registers/spills.
+   (one ``nvcc`` each, started together); print ptxas registers/spills,
+   and each plane-march kernel's registers by name.
 3. kernel — each kernel against its plain PyTorch version on the card
    (axis stencil: five shapes; stencil alpha-dot and the Jacobi family:
    five shapes x f32/bf16/f64 x their variants, dots included; the
@@ -21,10 +22,11 @@ Phases, report lines before the last:
    bf16 on the (4, 2, 1) blocks of every 512^3 MG level the decomposed
    cycle applies block-wise; the double sweep also at its own edge
    shapes, with explicit plane chunks, and the worst err/limit of all its
-   cases), and kernel vs plain timed at 512^3 (CUDA events; the
-   halo-extended kernel on the eight blocks of 512^3 in (4, 2, 1), and
-   the whole block-wise apply against the global kernel; the double sweep
-   also at every level of the 512^3 V-cycle), beside a CSR product
+   cases, as is the single sweep with its dot), and kernel vs plain timed
+   at 512^3 (CUDA events; the halo-extended kernel on the eight blocks of
+   512^3 in (4, 2, 1), and the whole block-wise apply against the global
+   kernel; the single and double sweeps also at every level of the 512^3
+   V-cycle, per call and back to back on the device), beside a CSR product
    (``torch.mv``) of the same linear operator (the variable-Γ apply at
    its fixed Γ), the library yardstick, with GB/s and the share of the
    bound.
@@ -102,11 +104,13 @@ KERNEL_SHAPES = [  # (shape incl. vdim, dtype name) of the axis stencil
 # MG levels, in the three storage dtypes
 KERNEL3D_SHAPES = [(1, 512, 512, 512), (3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4),
                    (1, 5, 9, 17)]
-# the double sweep's own edges besides: more planes than a chunk and not a
-# multiple of it, odd n2 with n1 not a multiple of its 16-row tile, 3-node
-# axes; each shape also with explicit plane chunks (the most, a ragged few)
-X2_EDGE_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
-X2_CHUNKS = (64, 3)
+# the plane marches' (single and double sweep) own edges besides: more
+# planes than a chunk and not a multiple of it, odd n2 with n1 not a
+# multiple of a tile's rows, 3-node axes; each shape also with explicit
+# plane chunks (the most, a ragged few)
+EDGE_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
+MARCH_CHUNKS = (64, 3)
+MARCHES = ("jacobi3d", "jacobi3d_x2")  # the plane-march kernels, by wrapper
 DTYPES = ["float32", "bfloat16", "float64"]
 # kernel and plain sum the same products in another order (the kernel may
 # fuse multiply-adds) in promote(dtype, f32): f32 1e-5 of the output's
@@ -240,6 +244,31 @@ def phase_device():
     return dev, smi
 
 
+def _entry_registers(log: str) -> list:
+    """(kernel, registers, spill stores) of each plane-march entry that
+    ptxas compiled, from its ``-v`` log; the kernel as ``name<dtype,
+    flags>`` (the template's bool parameters as 0/1)."""
+    import re
+
+    dtypes = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
+    out, cur, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            cur = re.search(r"(jacobi3d(?:_x2)?_kernel)I(13__nv_bfloat16|f|d)((?:Lb[01]E)+)",
+                            m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            flags = ",".join(re.findall(r"Lb([01])E", cur.group(3)))
+            out.append((f"{cur.group(1)}<{dtypes[cur.group(2)]},{flags}>", int(m.group(1)), spill))
+            cur = None
+    return out
+
+
 def phase_build():
     from pyapes_tpu_torch.ops import cuda_build
 
@@ -251,6 +280,10 @@ def phase_build():
                  if "registers" in ln or "spill" in ln]
         print(f"[2 build] {b.path.name} built in {b.seconds:.2f} s; ptxas: {' | '.join(ptxas)}",
               flush=True)
+    regs = _entry_registers(builds["jacobi3d"].log)
+    print("[2 build] plane-march registers (ptxas; single sweep <dtype,dot,full>, double sweep "
+          "<dtype,from_zero,dot>): " + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs),
+          flush=True)
     print(f"[2 build] {len(builds)} sources built in parallel in {wall:.2f} s", flush=True)
     return builds
 
@@ -465,64 +498,44 @@ def _level_inputs(shape, dtype, dev, seed):
     return inv, beta, x, b, coeffs
 
 
-def _x2_cases(inv, beta, x, b):
+def _march_cases(kernel, inv, beta, x, b, chunk=None):
     """(kernel name, variant, kernel call, plain call, dot-terms operand)
-    for the four variants of the double sweep at one input."""
+    for every variant of a plane march at one input: ``jacobi3d`` the
+    single sweep (smooth, residual, residual on a subset of the masked
+    axes) and its dot, ``jacobi3d_x2`` the double sweep's four variants;
+    with ``chunk`` planes per block where given (only then is the keyword
+    passed, so an older wrapper takes the rest)."""
+    from pyapes_tpu_torch.ops import jacobi as K
     from pyapes_tpu_torch.ops import stencil as P
-    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
 
+    kw = {} if chunk is None else {"chunk": chunk}
+    at = "" if chunk is None else f",chunk={chunk}"
     ax = (0, 1, 2)
-    return [
-        ("jacobi3d_x2", "", lambda: jacobi3d_x2(x, b, inv, beta, ax),
-         lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax), None),
-        ("jacobi3d_x2", "from_zero", lambda: jacobi3d_x2(None, b, inv, beta, ax, from_zero=True),
-         lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True), None),
-        ("jacobi3d_x2", "emit_dot", lambda: jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True),
-         lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True), b),
-        ("jacobi3d_x2", "from_zero+emit_dot",
-         lambda: jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, emit_dot=True),
-         lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, emit_dot=True), b),
-    ]
-
-
-def _x2_chunk_cases(inv, beta, x, b):
-    """The double sweep with each of ``X2_CHUNKS`` planes per block
-    (``emit_dot``; ``from_zero`` too), beside the launch geometry's own."""
-    from pyapes_tpu_torch.ops import stencil as P
-    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
-
-    ax = (0, 1, 2)
-    cases = []
-    for ci in X2_CHUNKS:
-        cases += [
-            ("jacobi3d_x2", f"emit_dot,chunk={ci}",
-             lambda ci=ci: jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True, chunk=ci),
-             lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True), b),
-            ("jacobi3d_x2", f"from_zero,chunk={ci}",
-             lambda ci=ci: jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, chunk=ci),
-             lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True), None),
+    if kernel == "jacobi3d":
+        return [
+            ("jacobi3d", "smooth" + at, lambda: K.jacobi3d(x, b, inv, 1.0, beta, ax, **kw),
+             lambda: P.apply_jacobi3d(x, b, inv, 1.0, beta, ax), None),
+            ("jacobi3d", "residual(alpha=0,beta=1)" + at,
+             lambda: K.jacobi3d(x, b, inv, 0.0, 1.0, ax, **kw),
+             lambda: P.apply_jacobi3d(x, b, inv, 0.0, 1.0, ax), None),
+            ("jacobi3d", "residual,mask_axes=(0,2)" + at,
+             lambda: K.jacobi3d(x, b, inv, 0.0, 1.0, (0, 2), **kw),
+             lambda: P.apply_jacobi3d(x, b, inv, 0.0, 1.0, (0, 2)), None),
+            ("jacobi3d_dot", at[1:], lambda: K.jacobi3d_dot(x, b, inv, 1.0, beta, ax, **kw),
+             lambda: P.apply_jacobi3d_dot(x, b, inv, 1.0, beta, ax), b),
         ]
-    return cases
-
-
-def _slice2_cases(inv, beta, x, b, coeffs):
-    """(kernel name, variant, kernel call, plain call, dot-terms operand)
-    for every variant of the slice-2 kernels but the double sweep
-    (``check_x2``) at one input."""
-    from pyapes_tpu_torch.ops import stencil as P
-    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
-    from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot
-
-    ax = (0, 1, 2)
     return [
-        ("axis_stencil_dot", "", lambda: axis_stencil_dot(coeffs, x),
-         lambda: P.apply_axis_stencil_dot(coeffs, x), x),
-        ("jacobi3d", "smooth", lambda: jacobi3d(x, b, inv, 1.0, beta, ax),
-         lambda: P.apply_jacobi3d(x, b, inv, 1.0, beta, ax), None),
-        ("jacobi3d", "residual(alpha=0,beta=1)", lambda: jacobi3d(x, b, inv, 0.0, 1.0, ax),
-         lambda: P.apply_jacobi3d(x, b, inv, 0.0, 1.0, ax), None),
-        ("jacobi3d_dot", "", lambda: jacobi3d_dot(x, b, inv, 1.0, beta, ax),
-         lambda: P.apply_jacobi3d_dot(x, b, inv, 1.0, beta, ax), b),
+        ("jacobi3d_x2", at[1:], lambda: K.jacobi3d_x2(x, b, inv, beta, ax, **kw),
+         lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax), None),
+        ("jacobi3d_x2", "from_zero" + at,
+         lambda: K.jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, **kw),
+         lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True), None),
+        ("jacobi3d_x2", "emit_dot" + at,
+         lambda: K.jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True, **kw),
+         lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax, emit_dot=True), b),
+        ("jacobi3d_x2", "from_zero+emit_dot" + at,
+         lambda: K.jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, emit_dot=True, **kw),
+         lambda: P.apply_jacobi3d_x2(None, b, inv, beta, ax, from_zero=True, emit_dot=True), b),
     ]
 
 
@@ -549,113 +562,131 @@ def _check_case(name, variant, kern, plain, dot_op, dtname):
     return err, limit, ok, tag
 
 
-def check_x2(dev, shapes=KERNEL3D_SHAPES + X2_EDGE_SHAPES, chunks=True):
-    """The double sweep against its plain version at ``shapes`` x
-    ``DTYPES`` x its four variants (with ``chunks``, also with explicit
-    plane chunks); returns (worst err/limit, worst abs error), raises on a
-    failure."""
+def check_march(dev, kernel, shapes=KERNEL3D_SHAPES + EDGE_SHAPES, chunks=True):
+    """A plane march (``kernel`` in ``MARCHES``) against its plain version
+    at ``shapes`` x ``DTYPES`` x its variants (with ``chunks``, also with
+    each of ``MARCH_CHUNKS`` planes per block); returns (worst err/limit,
+    worst abs error per kernel name), raises on a failure."""
     import torch
 
-    worst = worst_abs = 0.0
+    worst = 0.0
+    worst_abs = {}
     n = 0
     for seed, shape in enumerate(shapes):
         for dtname in DTYPES:
             inv, beta, x, b, _ = _level_inputs(shape, getattr(torch, dtname), dev, 800 + seed)
-            cases = _x2_cases(inv, beta, x, b) + (_x2_chunk_cases(inv, beta, x, b)
-                                                  if chunks else [])
+            cases = _march_cases(kernel, inv, beta, x, b)
+            for ci in MARCH_CHUNKS if chunks else ():
+                cases += _march_cases(kernel, inv, beta, x, b, ci)
             for case in cases:
                 err, limit, ok, tag = _check_case(*case, dtname)
                 if not ok:
                     raise RuntimeError(f"chip_smoke: {tag} disagrees with its plain version at "
                                        f"{shape} {dtname}: {err:.3e} > {limit:.3e}")
                 worst = max(worst, err / limit if limit > 0 else float(err > 0))
-                worst_abs = max(worst_abs, err)
+                worst_abs[case[0]] = max(worst_abs.get(case[0], 0.0), err)
                 n += 1
             del x, b
-    print(f"[3 kernel] jacobi3d_x2: {n} cases ({len(shapes)} shapes x {len(DTYPES)} dtypes x "
-          f"the variants{' and plane chunks ' + str(X2_CHUNKS) if chunks else ''}), worst "
-          f"err/limit {worst:.3f}", flush=True)
+    print(f"[3 kernel] {kernel}: {n} cases ({len(shapes)} shapes x {len(DTYPES)} dtypes x the "
+          f"variants{' x plane chunks (auto, ' + str(MARCH_CHUNKS)[1:] if chunks else ''}), "
+          f"worst err/limit {worst:.3f}", flush=True)
     return worst, worst_abs
 
 
-def x2_level_times(dev, n: int = N_MAIN) -> list:
-    """The double sweep (bf16, the cycle's dtype; the smooth variant) timed
-    at every level shape of the n^3 V-cycle: per level the per-call time
-    (``_time_ms``), the device time per call back to back
+def level_times(dev, kernel, n: int = N_MAIN) -> list:
+    """A plane march (bf16, the cycle's dtype) timed at every level shape
+    of the n^3 V-cycle: ``jacobi3d`` as the masked residual (alpha 0, beta
+    1: the cycle's call at every level above the coarsest) and as a
+    smooth, ``jacobi3d_x2`` as a smooth pair. Per level and variant the
+    per-call time (``_time_ms``), the device time per call back to back
     (``_device_ms``), GB/s of its 3 grids of compulsory traffic, the bound
     and the share of it (both from the per-call time)."""
     import torch
 
-    from pyapes_tpu_torch.ops.jacobi import jacobi3d_x2
+    from pyapes_tpu_torch.ops import jacobi as K
     from pyapes_tpu_torch.solver.multigrid import _level_shapes
 
     rows = []
-    grids, size, _, ops = BOUND_WORK["jacobi3d_x2"]
+    grids, size, _, ops = BOUND_WORK[kernel]
     for lvl, shape in enumerate(_level_shapes((n,) * 3)):
         inv, beta, x, b, _ = _level_inputs((1, *shape), torch.bfloat16, dev, 900 + lvl)
-        call = lambda: jacobi3d_x2(x, b, inv, beta, (0, 1, 2))  # noqa: E731
-        ms, dev_ms = _time_ms(call), _device_ms(call)
+        calls = {"": lambda: K.jacobi3d_x2(x, b, inv, beta, (0, 1, 2))}
+        if kernel == "jacobi3d":
+            calls = {"residual": lambda: K.jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
+                     "smooth": lambda: K.jacobi3d(x, b, inv, 1.0, beta, (0, 1, 2))}
         pts = x.numel()
         bound = _bound(grids * size * pts, ops * pts)[0]
-        rows.append({"shape": shape, "ms": ms, "device_ms": dev_ms,
-                     "gb_per_s": grids * size * pts / (ms * 1e-3) / 1e9, "bound_ms": bound,
-                     "share_of_bound": bound / ms})
+        for variant, call in calls.items():
+            ms, dev_ms = _time_ms(call), _device_ms(call)
+            rows.append({"shape": shape, "variant": variant, "ms": ms, "device_ms": dev_ms,
+                         "gb_per_s": grids * size * pts / (ms * 1e-3) / 1e9, "bound_ms": bound,
+                         "share_of_bound": bound / ms})
         del x, b
-    print(f"[3 kernel] jacobi3d_x2 bf16 at the {n}^3 V-cycle's levels (per call: median of 15 "
+    print(f"[3 kernel] {kernel} bf16 at the {n}^3 V-cycle's levels (per call: median of 15 "
           "CUDA-event timings; device: 30 calls back to back; share = bound / per-call time): "
-          + "; ".join(f"{r['shape'][0]}^3 {r['ms']:.4f} ms (device {r['device_ms']:.4f}) "
-                      f"{r['gb_per_s']:.1f} GB/s {100 * r['share_of_bound']:.1f}%" for r in rows),
-          flush=True)
+          + "; ".join(f"{r['shape'][0]}^3{' ' + r['variant'] if r['variant'] else ''} "
+                      f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}) {r['gb_per_s']:.1f} GB/s "
+                      f"{100 * r['share_of_bound']:.1f}%" for r in rows), flush=True)
     return rows
 
 
 def phase_kernel_slice2(dev):
-    """The stencil alpha-dot and the Jacobi family against their plain
-    versions at every shape x dtype x variant, dots included (the double
-    sweep also at its edge shapes and plane chunks); kernel vs plain timed
-    at 512^3 (bf16 for the Jacobi family, the cycle dtype; f32 for the
-    alpha-dot, the CG dtype), the double sweep at every 512^3 MG level.
-    Returns per-kernel worst abs error, (ms, plain_ms) and the double
-    sweep's per-level times."""
+    """The stencil alpha-dot against its plain version at every shape x
+    dtype, dot included; the plane marches (the single sweep and its dot,
+    the double sweep) at every shape x dtype x variant and at their edge
+    shapes and plane chunks; kernel vs plain timed at 512^3 (bf16 for the
+    Jacobi family, the cycle dtype; f32 for the alpha-dot, the CG dtype),
+    the plane marches at every 512^3 MG level. Returns per-kernel worst abs
+    error, (ms, plain_ms) and the plane marches' per-level times."""
     import torch
 
+    from pyapes_tpu_torch.ops import jacobi as K
     from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
 
     worst = {}
     timing = {}
-    timed = {("axis_stencil_dot", "", "float32"), ("jacobi3d", "smooth", "bfloat16"),
-             ("jacobi3d_dot", "", "bfloat16")}
     for seed, shape in enumerate(KERNEL3D_SHAPES):
         for dtname in DTYPES:
             dtype = getattr(torch, dtname)
-            inv, beta, x, b, coeffs = _level_inputs(shape, dtype, dev, 100 + seed)
-            parts = []
-            for name, variant, kern, plain, dot_op in _slice2_cases(inv, beta, x, b, coeffs):
-                err, limit, ok, tag = _check_case(name, variant, kern, plain, dot_op, dtname)
-                parts.append(f"{tag} {err:.2e}/{limit:.2e}{'' if ok else ' FAIL'}")
-                if not ok:
-                    print(f"[3 kernel] {tuple(shape)} {dtname}: " + "; ".join(parts), flush=True)
-                    raise RuntimeError(f"chip_smoke: {name} {variant} disagrees with its plain "
-                                       f"version at {shape} {dtname}")
-                worst[name] = max(worst.get(name, 0.0), err)
-                if shape[1] == N_MAIN and (name, variant, dtname) in timed:
-                    timing[name] = (_time_ms(kern), _time_ms(plain))
-            print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: " + "; ".join(parts), flush=True)
-            del x, b
-    _, worst["jacobi3d_x2"] = check_x2(dev)
-    levels = x2_level_times(dev, N_MAIN)  # the 512^3 level first: the kernel's time
+            _, _, x, _, coeffs = _level_inputs(shape, dtype, dev, 100 + seed)
+            kern = lambda: axis_stencil_dot(coeffs, x)  # noqa: E731
+            plain = lambda: P.apply_axis_stencil_dot(coeffs, x)  # noqa: E731
+            err, limit, ok, tag = _check_case("axis_stencil_dot", "", kern, plain, x, dtname)
+            print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: {tag} {err:.2e}/{limit:.2e}"
+                  f"{'' if ok else ' FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"chip_smoke: axis_stencil_dot disagrees with its plain version "
+                                   f"at {shape} {dtname}")
+            worst["axis_stencil_dot"] = max(worst.get("axis_stencil_dot", 0.0), err)
+            if shape[1] == N_MAIN and dtname == "float32":
+                timing["axis_stencil_dot"] = (_time_ms(kern), _time_ms(plain))
+            del x
+    for kernel in MARCHES:
+        worst.update(check_march(dev, kernel)[1])
+    # the 512^3 level first: the kernels' times
+    levels = {kernel: level_times(dev, kernel, N_MAIN) for kernel in MARCHES}
     inv, beta, x, b, _ = _level_inputs((1, N_MAIN, N_MAIN, N_MAIN), torch.bfloat16, dev, 900)
-    timing["jacobi3d_x2"] = (levels[0]["ms"], _time_ms(
-        lambda: P.apply_jacobi3d_x2(x, b, inv, beta, (0, 1, 2))))
+    ax = (0, 1, 2)
+    smooth = [r for r in levels["jacobi3d"] if r["variant"] == "smooth"][0]
+    timing["jacobi3d"] = (smooth["ms"], _time_ms(lambda: P.apply_jacobi3d(x, b, inv, 1.0, beta,
+                                                                          ax)))
+    dot = lambda: K.jacobi3d_dot(x, b, inv, 1.0, beta, ax)  # noqa: E731
+    timing["jacobi3d_dot"] = (_time_ms(dot), _time_ms(
+        lambda: P.apply_jacobi3d_dot(x, b, inv, 1.0, beta, ax)))
+    dot_device = _device_ms(dot)
+    timing["jacobi3d_x2"] = (levels["jacobi3d_x2"][0]["ms"], _time_ms(
+        lambda: P.apply_jacobi3d_x2(x, b, inv, beta, ax)))
     del x, b
     for name, (ms, plain_ms) in timing.items():
         grids = 2 if name == "axis_stencil_dot" else 3
         size = 4 if name == "axis_stencil_dot" else 2
         gbs = grids * N_MAIN**3 * size / (ms * 1e-3) / 1e9
         bound = _bound(grids * size * N_MAIN**3, BOUND_WORK[name][3] * N_MAIN**3)[0]
+        extra = f"; device {dot_device:.4f} ms back to back" if name == "jacobi3d_dot" else ""
         print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'} time: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 15 CUDA-event timings); kernel "
-              f"moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic), "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 15 CUDA-event timings{extra}); "
+              f"kernel moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic), "
               f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound", flush=True)
     return worst, timing, levels
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's solve cells and its double-sweep kernel from
-one checkout, for A/B runs of two versions on one card in one call.
+"""Time the PyTorch port's solve cells and its plane-march Jacobi kernels
+from one checkout, for A/B runs of two versions on one card in one call.
 
     python scripts/ab_cells_torch.py [--root DIR] [--solves 5] [--cells NAME ...]
-    python scripts/ab_cells_torch.py --cells jacobi3d_x2   # the kernel alone
+    python scripts/ab_cells_torch.py --cells jacobi3d jacobi3d_x2   # the kernels alone
 
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
@@ -14,11 +14,14 @@ RHS, tol 1e-6) through ``fd_cfg`` / ``mg_cfg`` and ``_solve_path``. Per
 cell: one warm-up, then ``--solves`` timed solves (host clock ending in a
 synchronize). Prints one JSON line with the root, the card, and per cell
 the walls, their median, the process's CPU time per solve (``cpu_s``: a
-host-bound cell's wall follows it) and ``itr``. The kernel cell
-``jacobi3d_x2`` checks the double sweep against its plain version at
-``chip_smoke.py``'s check shapes (every dtype and variant; ``check_x2``)
-and times it in bf16 at every level shape of the 512^3 V-cycle
-(``x2_level_times``: ms, GB/s, share of the bound).
+host-bound cell's wall follows it) and ``itr``. The kernel cells
+``jacobi3d`` (the single sweep and its dot) and ``jacobi3d_x2`` (the
+double sweep) check the kernel against its plain version at
+``chip_smoke.py``'s check shapes (every dtype and variant; ``check_march``)
+and time it in bf16 at every level shape of the 512^3 V-cycle
+(``level_times``: per call and on the device, GB/s, share of the bound),
+through the wrappers' common signature only, so that an older ``--root``
+runs them too.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ CELLS = {
     "MG-PCG 256^3 V(1,1)": lambda cs: (cs.N_V11, cs.mg_cfg(cs.V11_MG)),
     "Darcy 256^3": lambda cs: (cs.N_DARCY, cs.darcy_cfg()),
 }
-KERNEL_CELL = "jacobi3d_x2"
+KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2")
 
 
 def _decomp(cs):
@@ -52,8 +55,8 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
     p.add_argument("--solves", type=int, default=5)
-    p.add_argument("--cells", nargs="+", choices=[*CELLS, KERNEL_CELL],
-                   default=[*CELLS, KERNEL_CELL])
+    p.add_argument("--cells", nargs="+", choices=[*CELLS, *KERNEL_CELLS],
+                   default=[*CELLS, *KERNEL_CELLS])
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -73,9 +76,10 @@ def main() -> None:
     dev = torch.device("cuda")
     for label in args.cells:
         clear_cache()
-        if label == KERNEL_CELL:  # only the wrapper's common signature: --root may be older
-            worst, _ = cs.check_x2(dev, chunks=False)
-            out["cells"][label] = {"worst_err_over_limit": worst, "levels": cs.x2_level_times(dev)}
+        if label in KERNEL_CELLS:  # only the wrapper's common signature: --root may be older
+            worst, _ = cs.check_march(dev, label, chunks=False)
+            out["cells"][label] = {"worst_err_over_limit": worst,
+                                   "levels": cs.level_times(dev, label)}
             continue
         n, cfg = CELLS[label](cs)
         stats, _ = cs._solve_path(dev, n, cfg, label, darcy=label.startswith("Darcy"),

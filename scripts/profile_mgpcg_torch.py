@@ -23,7 +23,8 @@ prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
 - kernel rows: device time by kernel name from the trace's kernel,
   memcpy and memset events, and grouped (the port's Hopper kernels,
-  transfer GEMMs, elementwise, reductions, copies);
+  transfer GEMMs, elementwise, reductions, copies); each Hopper kernel
+  also by its launch grid, which names the MG level it ran on;
 - the device's busy time as the UNION of the kernel/memcpy/memset
   intervals of the trace inside the host range of ``Solver.solve``, and
   the idle share ``1 - busy / range``;
@@ -185,6 +186,12 @@ def main() -> None:
     for e in dev:
         rows[e["name"]][0] += 1
         rows[e["name"]][1] += e["dur"] / 1e3
+    by_grid = defaultdict(lambda: [0, 0.0])  # (Hopper group, grid) -> [calls, device ms]
+    for e in dev:
+        if "(Hopper)" in _group(e["name"]):
+            g = by_grid[(_group(e["name"]), str(e.get("args", {}).get("grid")))]
+            g[0] += 1
+            g[1] += e["dur"] / 1e3
     groups = defaultdict(lambda: [0, 0.0])
     for name, (cnt, ms) in rows.items():
         g = groups[_group(name)]
@@ -206,6 +213,9 @@ def main() -> None:
         "kernel_launches": sum(n.startswith("cudaLaunchKernel") for n in runtime),
         "groups": {k: {"calls": c, "device_ms": ms, "share_of_range": ms / range_ms}
                    for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
+        "hopper_kernels_by_grid": [
+            {"group": k[0], "grid": k[1], "calls": c, "device_ms": ms}
+            for k, (c, ms) in sorted(by_grid.items(), key=lambda kv: -kv[1][1])],
         "top_kernels": [{"name": k[:120], "calls": c, "device_ms": ms}
                         for k, (c, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:25]],
     }

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
+from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import (  # noqa: E402
     axis_stencil,
@@ -47,11 +48,12 @@ DOT_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5}
 DTYPES = [torch.float32, torch.bfloat16, torch.float64]
 # chip_smoke.py's kernel shapes (vdim, nx, ny, nz) minus the 512^3 one
 SHAPES = [(3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17)]
-# the double sweep's own edges: more planes than a chunk and not a multiple
-# of it, odd n2 with n1 not a multiple of the 16-row tile, 3-node axes
+# the plane marches' (single and double sweep) own edges: more planes than
+# a chunk and not a multiple of it, odd n2 with n1 not a multiple of a
+# tile's rows, 3-node axes
 X2_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
 # planes per block: the launch geometry's choice, the most, a ragged few
-X2_CHUNKS = [None, 64, 3]
+CHUNKS = [None, 64, 3]
 # the variable-Γ kernels: those plus 2-D grids; chip_smoke.py's (stacked Γ,
 # face rule, Neumann surgery) combinations
 VG_SHAPES = SHAPES + [(1, 65, 130), (2, 17, 9)]
@@ -142,33 +144,44 @@ def _level(shape, dtype, device, seed):
 
 
 JACOBI_VARIANTS = ["smooth", "residual", "dot"]
+# the single sweep on a subset of the masked axes
+JACOBI_SUB_VARIANTS = ["residual_axes02", "dot_axes12"]
 X2_VARIANTS = ["x2", "x2_zero", "x2_dot", "x2_zero_dot"]
+AXES = {"x2_dot": (0, 2), "residual_axes02": (0, 2), "dot_axes12": (1, 2)}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape, variant",
                          [(s, v) for v in JACOBI_VARIANTS + X2_VARIANTS for s in SHAPES]
-                         + [(s, v) for v in X2_VARIANTS for s in X2_SHAPES])
+                         + [(s, v) for v in X2_VARIANTS for s in X2_SHAPES]
+                         + [(s, v) for v in JACOBI_VARIANTS + JACOBI_SUB_VARIANTS for s in X2_SHAPES]
+                         + [(s, v) for v in JACOBI_SUB_VARIANTS for s in SHAPES])
 def test_jacobi_kernels_match_plain(cuda, shape, dtype, variant):
+    """Every kernel of the Jacobi family against its plain version, with
+    the launch geometry's plane chunk and with explicit ones (the seams)."""
     inv, beta, x, b = _level(shape, dtype, cuda, seed=2)
-    axes = (0, 1, 2) if variant != "x2_dot" else (0, 2)
-    if variant in ("smooth", "residual"):
-        alpha, bt = (1.0, beta) if variant == "smooth" else (0.0, 1.0)
-        before = jacobi3d.launches
-        out = jacobi3d(x, b, inv, alpha, bt, axes)
-        assert jacobi3d.launches == before + 1
-        _close(out, apply_jacobi3d(x, b, inv, alpha, bt, axes), dtype)
-    elif variant == "dot":
-        before = jacobi3d_dot.launches
-        out, dot = jacobi3d_dot(x, b, inv, 1.0, beta, axes)
-        assert jacobi3d_dot.launches == before + 1
+    axes = AXES.get(variant, (0, 1, 2))
+    kind = variant.split("_axes")[0]
+    if kind in ("smooth", "residual"):
+        alpha, bt = (1.0, beta) if kind == "smooth" else (0.0, 1.0)
+        ref = apply_jacobi3d(x, b, inv, alpha, bt, axes)
+        for chunk in CHUNKS:
+            before = jacobi3d.launches
+            out = jacobi3d(x, b, inv, alpha, bt, axes, chunk=chunk)
+            assert jacobi3d.launches == before + 1
+            _close(out, ref, dtype)
+    elif kind == "dot":
         ref, ref_dot = apply_jacobi3d_dot(x, b, inv, 1.0, beta, axes)
-        _close(out, ref, dtype)
-        _dot_close(dot, ref_dot, b.double() * ref.double(), dtype)
+        for chunk in CHUNKS:
+            before = jacobi3d_dot.launches
+            out, dot = jacobi3d_dot(x, b, inv, 1.0, beta, axes, chunk=chunk)
+            assert jacobi3d_dot.launches == before + 1
+            _close(out, ref, dtype)
+            _dot_close(dot, ref_dot, b.double() * ref.double(), dtype)
     else:
         zero, emit = "zero" in variant, variant.endswith("dot")
         ref = apply_jacobi3d_x2(x, b, inv, beta, axes, from_zero=zero, emit_dot=emit)
-        for chunk in X2_CHUNKS:
+        for chunk in CHUNKS:
             before = jacobi3d_x2.launches
             got = jacobi3d_x2(None if zero else x, b, inv, beta, axes, from_zero=zero,
                               emit_dot=emit, chunk=chunk)
@@ -224,6 +237,16 @@ def test_x2_dot_same_bits_every_call(cuda, dtype):
     inv, beta, x, b = _level((1, 130, 70, 131), dtype, cuda, seed=4)
     z1, d1 = jacobi3d_x2(x, b, inv, beta, (0, 1, 2), emit_dot=True)
     z2, d2 = jacobi3d_x2(x, b, inv, beta, (0, 1, 2), emit_dot=True)
+    assert torch.equal(z1, z2) and torch.equal(d1, d2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jacobi3d_dot_same_bits_every_call(cuda, dtype):
+    """The single sweep's fused r.z is summed in a fixed order too (one
+    partial per block, no atomics): two calls give the same bits."""
+    inv, beta, x, b = _level((1, 130, 70, 131), dtype, cuda, seed=4)
+    z1, d1 = jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))
+    z2, d2 = jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))
     assert torch.equal(z1, z2) and torch.equal(d1, d2)
 
 
@@ -377,7 +400,7 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5",
-                                  "axis_stencil_ext"])
+                                  "axis_stencil_ext", "jacobi3d", "jacobi3d_dot"])
 def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     """With the plain versions patched to raise, the wrappers still answer
     a CUDA tensor: from the kernel."""
@@ -388,7 +411,10 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     c3 = tuple(tuple(c[:n - 2] for c in cs[:3]) if j == 0 else cs[:3]
                for j, (cs, n) in enumerate(zip(c5, x.shape[1:])))
     surg = ADV_SURGERY["mixed"]
-    ref = {"advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
+    inv, beta, _, b = _level(tuple(x.shape), torch.float32, cuda, seed=11)
+    ref = {"jacobi3d": lambda: apply_jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
+           "jacobi3d_dot": lambda: apply_jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
+           "advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
            "conv_component": lambda: apply_conv_field(x, adv_conv, base, "none", surg),
            "axis_stencil5": lambda: apply_axis_stencil(c5, x),
            "axis_stencil_ext": lambda: apply_axis_stencil_ext(c3, x, (1, 0, 0))}[name]()
@@ -396,7 +422,11 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     monkeypatch.setattr(advect_mod, "apply_conv_field", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil_ext", plain)
-    fn = {"advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
+    monkeypatch.setattr(jacobi_mod, "apply_jacobi3d", plain)
+    monkeypatch.setattr(jacobi_mod, "apply_jacobi3d_dot", plain)
+    fn = {"jacobi3d": lambda: jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
+          "jacobi3d_dot": lambda: jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
+          "advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
           "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
           "axis_stencil5": lambda: axis_stencil5(c5, x),
           "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0))}[name]

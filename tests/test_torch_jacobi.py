@@ -189,19 +189,20 @@ def _mg_level_shapes(n):
     return [(1, *s) for s in _level_shapes((n,) * 3)]
 
 
-@pytest.mark.parametrize("shape", _mg_level_shapes(512) + _mg_level_shapes(256) + [
+GEOMETRY_SHAPES = _mg_level_shapes(512) + _mg_level_shapes(256) + [
     (1, 4, 4, 4), (1, 5, 9, 17), (1, 65, 33, 129), (3, 64, 64, 64), (1, 130, 16, 64),
-    (2, 70, 19, 131), (1, 3, 3, 3)])
-@pytest.mark.parametrize("chunk, resident", [(None, 396), (None, 660), (None, 1), (64, 396),
-                                             (5, 396), (1, 396)])
-def test_x2_geometry_covers_each_point_once(shape, chunk, resident):
-    """The double sweep's launch geometry: the blocks' column tiles and
-    plane chunks, as the kernel reads them off its block index, cover
-    every output point of every component exactly once, and there is one
-    dot partial per block."""
-    (gx, gy, gz), ci, n_partial = jacobi.x2_geometry(shape, resident, chunk)
+    (2, 70, 19, 131), (1, 3, 3, 3)]
+GEOMETRY_CASES = [(None, 396), (None, 660), (None, 1), (64, 396), (5, 396), (1, 396)]
+
+
+def _covers_each_point_once(shape, chunk, resident, tile, setup):
+    """A plane march's launch geometry: the blocks' column tiles and plane
+    chunks, as the kernel reads them off its block index, cover every
+    output point of every component exactly once, and there is one dot
+    partial per block."""
+    (gx, gy, gz), ci, n_partial = jacobi.march_geometry(shape, resident, chunk, tile, setup)
     vdim, n0, n1, n2 = shape
-    tj, tk = jacobi._X2_TILE
+    tj, tk = tile
     nch = -(-n0 // ci)
     assert gz == vdim * nch and n_partial * vdim == gx * gy * gz
     assert 1 <= ci <= n0 and (chunk is None or ci == min(chunk, n0))
@@ -224,6 +225,20 @@ def test_x2_geometry_covers_each_point_once(shape, chunk, resident):
     assert (cover(gy, tj, n1) == 1).all() and (cover(gx, tk, n2) == 1).all()
 
 
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("chunk, resident", GEOMETRY_CASES)
+def test_x2_geometry_covers_each_point_once(shape, chunk, resident):
+    """The double sweep's launch geometry (14 x 64 tiles)."""
+    _covers_each_point_once(shape, chunk, resident, jacobi._X2_TILE, jacobi._X2_SETUP_PLANES)
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("chunk, resident", GEOMETRY_CASES)
+def test_jacobi3d_geometry_covers_each_point_once(shape, chunk, resident):
+    """The single sweep's launch geometry (16 x 128 tiles)."""
+    _covers_each_point_once(shape, chunk, resident, jacobi._J1_TILE, jacobi._J1_SETUP_PLANES)
+
+
 @pytest.mark.parametrize("n, resident, chunk", [(512, 396, 128), (256, 396, 52), (128, 396, 7),
                                                 (64, 396, 1), (512, 1, 512)])
 def test_x2_chunk_fills_the_card(n, resident, chunk):
@@ -231,5 +246,23 @@ def test_x2_chunk_fills_the_card(n, resident, chunk):
     396 blocks at once (3 per SM of 132): the fewest plane-steps, (waves
     of blocks) x (planes + the block's fixed cost); one long chunk where a
     single block at a time runs."""
-    _, ci, _ = jacobi.x2_geometry((1, n, n, n), resident)
+    _, ci, _ = jacobi.march_geometry((1, n, n, n), resident, None, jacobi._X2_TILE,
+                                     jacobi._X2_SETUP_PLANES)
     assert ci == chunk
+
+
+@pytest.mark.parametrize("n, resident, chunk", [(512, 528, 128), (256, 528, 16), (128, 528, 2),
+                                                (64, 528, 1), (4, 528, 1), (512, 396, 171),
+                                                (256, 396, 22), (512, 1, 512)])
+def test_jacobi3d_chunk_fills_the_card(n, resident, chunk):
+    """The single sweep's chunk on the 512^3 cycle's levels (16 x 128
+    tiles: 128 at 512^3, 32 at 256^3) for a card that holds 528 (4 per SM)
+    or 396 blocks at once: the fewest plane-steps, (waves of blocks) x
+    (planes + 2), so at least nine tenths of the blocks the card holds are
+    in flight wherever the grid has that many (one per column tile and
+    plane), and short chunks come only where the column tiles alone do not
+    fill it."""
+    (gx, gy, gz), ci, _ = jacobi.march_geometry((1, n, n, n), resident, None, jacobi._J1_TILE,
+                                                 jacobi._J1_SETUP_PLANES)
+    assert ci == chunk
+    assert gx * gy * gz >= 0.9 * min(resident, gx * gy * n)
