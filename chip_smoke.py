@@ -8,15 +8,20 @@ Phases, report lines before the last:
 1. device — require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them; check TF32 is off for float32 matmuls.
-2. build  — compile every Hopper kernel source of ``pyapes_tpu_torch/csrc``
-   (one ``nvcc`` each, started together); print ptxas registers/spills,
-   and each plane-march kernel's registers by name.
+2. build  — compile every Hopper kernel library of ``pyapes_tpu_torch/csrc``
+   (one ``nvcc`` per translation unit, all started together); print ptxas
+   registers/spills, and each plane-march kernel's registers by name.
 3. kernel — each kernel against its plain PyTorch version on the card
    (axis stencil: five shapes; stencil alpha-dot and the Jacobi family:
    five shapes x f32/bf16/f64 x their variants, dots included; the
-   variable-Γ diffusion apply and Jacobi pass: the same shapes plus a 2-D
-   grid x f32/bf16/f64 x isotropic/stacked Γ x arithmetic/harmonic faces x
-   no/Neumann surgery x the three Jacobi modes; the halo-extended stencil:
+   variable-Γ diffusion apply and Jacobi pass, the plane march and the
+   per-point kernel each forced: the same shapes plus a 2-D grid and the
+   plane marches' edge shapes x f32/bf16/f64 x isotropic/stacked Γ x
+   arithmetic/harmonic faces x no/Neumann surgery x the apply and the
+   three Jacobi modes, the march at several plane chunks with the same
+   bits at each and on another call, and both timed at every level of the
+   Darcy 256^3 and 512^3 V-cycles beside the shape's choice; the
+   halo-extended stencil:
    four blocks, odd sizes and single-row axes among them, x the three ext
    flags x f32/bf16/f64 x vdim 1/3 x a new or a strided output, and in
    bf16 on the (4, 2, 1) blocks of every 512^3 MG level the decomposed
@@ -47,7 +52,8 @@ Phases, report lines before the last:
 6. Darcy variable-Γ MG-PCG path — ``bench.py``'s ``bench_darcy`` problem
    (256^3 f32, Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), bf16 V(2,2) FMG)
    through ``Solver.solve``: the same checks, the true residual
-   recomputed with the plain variable-Γ operator.
+   recomputed with the plain variable-Γ operator, and exactly
+   ``DARCY_LAUNCHES`` variable-Γ launches per solve.
 7. model — ``PoissonSolver`` on the runner's 3-D problem at 65^3 and 129^3
    (f64): convergence, and the error against the exact solution equal to
    the predicted discretization error; the runner's ``darcy`` case (2-D,
@@ -119,7 +125,10 @@ DTYPES = ["float32", "bfloat16", "float64"]
 # (f64) sums held to 1e-5 (1e-12) of sum|products|.
 REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float64": 1e-12}
 DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
-# (name, module, source, the TPU function it replaces)
+# (name, module, source of the kernel timed as its ms, the TPU function it
+# replaces); diff_field and diff_jacobi: the plane march (csrc/diff_march.cu),
+# the 512^3 grid's choice, while their per-point kernel (csrc/diff_field.cu)
+# takes 2-D grids and the levels below the march's threshold
 KERNELS = [
     ("axis_stencil", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil.py:323"),
@@ -132,9 +141,9 @@ KERNELS = [
     ("jacobi3d_x2", "pyapes_tpu_torch.ops.jacobi",
      "pyapes_tpu_torch/csrc/jacobi3d.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:881"),
     ("diff_field", "pyapes_tpu_torch.ops.diff_field",
-     "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:519"),
+     "pyapes_tpu_torch/csrc/diff_march.cu", "pyapes_tpu/ops/pallas_advect.py:519"),
     ("diff_jacobi", "pyapes_tpu_torch.ops.diff_field",
-     "pyapes_tpu_torch/csrc/diff_field.cu", "pyapes_tpu/ops/pallas_advect.py:694"),
+     "pyapes_tpu_torch/csrc/diff_march.cu", "pyapes_tpu/ops/pallas_advect.py:694"),
     ("conv_component", "pyapes_tpu_torch.ops.advect",
      "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:296"),
     ("advect_pair", "pyapes_tpu_torch.ops.advect",
@@ -174,13 +183,22 @@ BOUND_WORK = {
     "advect_pair": (3, 4, 256, 24),  # x, advector -> out; upwind 8 per axis
     "axis_stencil5": (2, 4, 256, 25),  # 13 products, 12 sums
 }
-# the variable-Γ kernels: the 3-D shapes plus a 2-D grid; per shape and
-# dtype four (stacked Γ, face rule, Neumann surgery) combinations that
-# cover each option
-VG_SHAPES = KERNEL3D_SHAPES + [(1, 1025, 1025)]
+N_DARCY = 256
+# the variable-Γ kernels: the 3-D shapes, the Darcy cycle's levels that take
+# the plane march (256^3, 128^3: its FULL instance), a 2-D grid, and the
+# plane marches' edge shapes; per shape and dtype four (stacked Γ, face
+# rule, Neumann surgery) combinations that cover each option, in the four
+# modes (the apply and the three Jacobi passes); each of the two kernels
+# forced, the plane march also at MARCH_CHUNKS planes per block
+VG_SHAPES = KERNEL3D_SHAPES + [(1, N_DARCY, N_DARCY, N_DARCY), (1, 128, 128, 128),
+                               (1, 1025, 1025)]
 VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
              (True, "arithmetic", True), (True, "harmonic", False)]
-N_DARCY = 256
+VG_KERNELS = (("march", True), ("point", False))  # name, the wrappers' march=
+# kernel launches per Darcy 256^3 solve (bench_darcy's 5 CG iterations:
+# the FMG start and 6 preconditioner cycles, 5 passes per level, 24 on
+# the coarsest; the operator on the finest level)
+DARCY_LAUNCHES = {"diff_jacobi": 603, "diff_field": 7}
 # bench.py's bench_darcy configuration
 DARCY_MG = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True}
 # the JAX package's `runner darcy --n 65 --dtype double` (avg arithmetic) and
@@ -247,7 +265,7 @@ def phase_device():
 def _entry_registers(log: str) -> list:
     """(kernel, registers, spill stores) of each plane-march entry that
     ptxas compiled, from its ``-v`` log; the kernel as ``name<dtype,
-    flags>`` (the template's bool parameters as 0/1)."""
+    flags>`` (the template's int and bool parameters, bools as 0/1)."""
     import re
 
     dtypes = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
@@ -255,15 +273,15 @@ def _entry_registers(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
-            cur = re.search(r"(jacobi3d(?:_x2)?_kernel)I(13__nv_bfloat16|f|d)((?:Lb[01]E)+)",
-                            m.group(1))
+            cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march)_kernel)"
+                            r"I(13__nv_bfloat16|f|d)((?:L[bi]\d+E)+)", m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur:
-            flags = ",".join(re.findall(r"Lb([01])E", cur.group(3)))
+            flags = ",".join(re.findall(r"L[bi](\d+)E", cur.group(3)))
             out.append((f"{cur.group(1)}<{dtypes[cur.group(2)]},{flags}>", int(m.group(1)), spill))
             cur = None
     return out
@@ -284,6 +302,10 @@ def phase_build():
     print("[2 build] plane-march registers (ptxas; single sweep <dtype,dot,full>, double sweep "
           "<dtype,from_zero,dot>): " + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs),
           flush=True)
+    regs = _entry_registers(builds["diff_field"].log)
+    print("[2 build] variable-Γ plane-march registers (ptxas; diff_jacobi <dtype,mode,iso,full,"
+          "harmonic>, mode 0 smooth, 1 smooth0, 2 resid; diff_field <dtype,iso,full,harmonic>): "
+          + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs), flush=True)
     print(f"[2 build] {len(builds)} sources built in parallel in {wall:.2f} s", flush=True)
     return builds
 
@@ -691,9 +713,12 @@ def phase_kernel_slice2(dev):
     return worst, timing, levels
 
 
-def _vg_cases(shape, inv, beta, x, b, g, avg, neumann):
-    """(kernel name, variant, kernel call, plain call) for the variable-Γ
-    apply and the three Jacobi modes at one input."""
+def _vg_cases(shape, inv, x, b, g, avg, neumann):
+    """(kernel name, variant, call) for the variable-Γ apply and the three
+    Jacobi modes at one input: ``call(None)`` the plain version,
+    ``call(kw)`` the wrapper with the keywords ``kw`` (``march``,
+    ``chunk``; only those given are passed, so an older wrapper takes
+    ``{}``)."""
     from pyapes_tpu_torch.ops import stencil as P
     from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
 
@@ -702,76 +727,206 @@ def _vg_cases(shape, inv, beta, x, b, g, avg, neumann):
     surg = mixed[:nd] if neumann else (("none", "none"),) * nd
     axes = tuple(range(nd))
     omega = 0.857
-    cases = [("diff_field", "", lambda: diff_field(x, g, inv, surg, avg),
-              lambda: P.apply_diff_field(x, g, inv, surg, avg))]
+
+    def apply(kw):
+        if kw is None:
+            return P.apply_diff_field(x, g, inv, surg, avg)
+        return diff_field(x, g, inv, surg, avg, **kw)
+
+    cases = [("diff_field", "", apply)]
     for mode in ("smooth", "smooth0", "resid"):
-        xm = None if mode == "smooth0" else x
-        cases.append((
-            "diff_jacobi", mode,
-            lambda xm=xm, mode=mode: diff_jacobi(xm, b, g, inv, surg, avg, omega, axes, mode),
-            lambda xm=xm, mode=mode: P.apply_diff_jacobi(xm, b, g, inv, surg, avg, omega, axes,
-                                                         mode),
-        ))
+        def jac(kw, mode=mode, xm=None if mode == "smooth0" else x):
+            if kw is None:
+                return P.apply_diff_jacobi(xm, b, g, inv, surg, avg, omega, axes, mode)
+            return diff_jacobi(xm, b, g, inv, surg, avg, omega, axes, mode, **kw)
+        cases.append(("diff_jacobi", mode, jac))
     return cases
 
 
-def phase_kernel_vargamma(dev):
-    """The variable-Γ diffusion apply and Jacobi pass against their plain
-    versions at every shape x dtype x (Γ layout, face rule, surgery) x
-    mode; kernel vs plain timed at 512^3 (f32 for the apply, the outer
-    operator's dtype; bf16 for the Jacobi pass, the cycle dtype)."""
+def _vg_inputs(shape, dtname, dev, seed):
+    """inv_dx2, x, b (``_level_inputs``) and a stacked Γ in [1, 2) of a
+    variable-Γ case (its first slice: the isotropic Γ)."""
     import torch
 
-    worst, timing = {}, {}
-    timed = {("diff_field", "", "float32"), ("diff_jacobi", "smooth", "bfloat16")}
-    for seed, shape in enumerate(VG_SHAPES):
+    dtype = getattr(torch, dtname)
+    inv, _, x, b, _ = _level_inputs(shape, dtype, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(100 + seed)
+    gstack = 1.0 + torch.rand((len(shape) - 1, *shape[1:]), generator=gen, device=dev)
+    return inv, x, b, gstack.to(dtype)
+
+
+def check_vg(dev, shapes=VG_SHAPES + EDGE_SHAPES, forced=True) -> tuple:
+    """The variable-Γ apply and the three Jacobi modes against their plain
+    versions at ``shapes`` x dtype x (Γ layout, face rule, surgery) x mode:
+    with ``forced`` the plane march (also at ``MARCH_CHUNKS`` planes per
+    block) and the per-point kernel each forced, else the shape's choice
+    through the wrappers' common signature only (an older version under
+    ``ab_cells_torch.py --root``). Every result within ``REL_TOL``, the
+    same bits at every chunk and on another call, or raises. Returns the
+    worst abs error per wrapper and the worst err/limit per kernel."""
+    import torch
+
+    kernels = VG_KERNELS if forced else (("choice", None),)
+    worst, worst_rel, n_cases = {}, {k: 0.0 for k, _ in kernels}, 0
+    for seed, shape in enumerate(shapes):
         for dtname in DTYPES:
-            dtype = getattr(torch, dtname)
-            inv, beta, x, b, _ = _level_inputs(shape, dtype, dev, 200 + seed)
-            gen = torch.Generator(device=dev).manual_seed(300 + seed)
-            nd = len(shape) - 1
-            gstack = (1.0 + torch.rand((nd, *shape[1:]), generator=gen, device=dev)).to(dtype)
-            parts = []
+            inv, x, b, gstack = _vg_inputs(shape, dtname, dev, 200 + seed)
+            here = {k: 0.0 for k, _ in kernels}
             for aniso, avg, neumann in VG_COMBOS:
                 g = gstack if aniso else gstack[0]
-                for name, variant, kern, plain in _vg_cases(shape, inv, beta, x, b, g, avg,
-                                                             neumann):
-                    got, ref = kern(), plain()
-                    torch.cuda.synchronize()
-                    if got.dtype != ref.dtype or got.shape != ref.shape:
-                        raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
-                                           f"{tuple(got.shape)}")
-                    err = (got.double() - ref.double()).abs().max().item()
+                for name, variant, call in _vg_cases(shape, inv, x, b, g, avg, neumann):
+                    ref = call(None)
                     limit = REL_TOL[dtname] * ref.double().abs().max().item()
                     tag = (f"{name}{'[' + variant + ']' if variant else ''}"
                            f"({'stacked' if aniso else 'iso'},{avg[:4]},"
                            f"{'neu' if neumann else 'none'})")
-                    parts.append(f"{tag} {err:.2e}/{limit:.2e}{'' if err <= limit else ' FAIL'}")
-                    if not err <= limit:
-                        print(f"[3 kernel] {tuple(shape)} {dtname}: " + "; ".join(parts),
-                              flush=True)
-                        raise RuntimeError(f"chip_smoke: {name} {variant} disagrees with its "
-                                           f"plain version at {shape} {dtname}")
-                    worst[name] = max(worst.get(name, 0.0), err)
-                    if (shape[1] == N_MAIN and not aniso and avg == "arithmetic"
-                            and (name, variant, dtname) in timed):
-                        # the apply at a fixed Γ is one sparse product; the
-                        # Jacobi pass (an update with a division) is none
-                        lib_ms = (_library_stencil_ms(_diff_field_csr_coeffs(g, inv), x, ref)
-                                  if name == "diff_field" else None)
-                        timing[name] = (_time_ms(kern), _time_ms(plain), lib_ms)
-                    del got, ref
-            print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: " + "; ".join(parts), flush=True)
+                    for kern, march in kernels:
+                        kw = {} if march is None else {"march": march}
+                        outs = []
+                        for ci in (None, *MARCH_CHUNKS) if march else (None,):
+                            got = call({**kw, "chunk": ci} if forced else kw)
+                            torch.cuda.synchronize()
+                            if got.dtype != ref.dtype or got.shape != ref.shape:
+                                raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
+                                                   f"{tuple(got.shape)}")
+                            err = (got.double() - ref.double()).abs().max().item()
+                            if not err <= limit:
+                                raise RuntimeError(
+                                    f"chip_smoke: {tag} ({kern} kernel, chunk {ci}) disagrees "
+                                    f"with its plain version at {shape} {dtname}: {err:.3e} > "
+                                    f"{limit:.3e}")
+                            worst[name] = max(worst.get(name, 0.0), err)
+                            here[kern] = max(here[kern], err / limit if limit > 0 else 0.0)
+                            outs.append(got)
+                            n_cases += 1
+                        outs.append(call(kw))  # the same bits on another call
+                        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                            raise RuntimeError(f"chip_smoke: {tag} ({kern} kernel) gave other "
+                                               f"bits at another plane chunk or call at {shape} "
+                                               f"{dtname}")
+                        del outs
+                    del ref
+            for kern in here:
+                worst_rel[kern] = max(worst_rel[kern], here[kern])
+            print(f"[3 kernel] variable-Γ {tuple(shape)} {dtname}: worst err/limit "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in here.items())
+                  + f" ({len(VG_COMBOS)} Γ/face/surgery combinations x 4 modes"
+                  + (f"; the march at chunks auto, {', '.join(map(str, MARCH_CHUNKS))}"
+                     if forced else "") + ": same bits, and on another call)", flush=True)
             del x, b, gstack
-    for name, (ms, plain_ms, lib_ms) in timing.items():
-        grids = 3 if name == "diff_field" else 4
-        size = 4 if name == "diff_field" else 2
+    print(f"[3 kernel] variable-Γ: {n_cases} cases hold ({len(shapes)} shapes x {len(DTYPES)} "
+          f"dtypes x {len(VG_COMBOS)} combinations x 4 modes"
+          + (f" x the per-point kernel and the march at {1 + len(MARCH_CHUNKS)} chunks"
+             if forced else ", the shape's choice of kernel")
+          + "), worst err/limit " + ", ".join(f"{k} {v:.3f}" for k, v in worst_rel.items()),
+          flush=True)
+    return worst, worst_rel
+
+
+def phase_kernel_vargamma(dev):
+    """The variable-Γ kernels, the plane march and the per-point kernel
+    each forced, against their plain versions (``check_vg``). Then kernel
+    (the shape's choice, the march at 512^3) vs plain timed at 512^3 (f32
+    for the apply, the outer operator's dtype; bf16 for the Jacobi pass,
+    the cycle dtype), the per-point kernel beside it. Returns per-kernel
+    worst abs error and (ms, plain_ms, library_ms)."""
+    worst, _ = check_vg(dev)
+    timing = {}
+    for name, dtname, variant in (("diff_field", "float32", ""),
+                                  ("diff_jacobi", "bfloat16", "smooth")):
+        shape = (1, N_MAIN, N_MAIN, N_MAIN)
+        inv, x, b, gstack = _vg_inputs(shape, dtname, dev, 900)
+        g = gstack[0].contiguous()
+        del gstack
+        call = [c for n, v, c in _vg_cases(shape, inv, x, b, g, "arithmetic", False)
+                if (n, v) == (name, variant)][0]
+        ref = call(None)
+        # the apply at a fixed Γ is one sparse product; the Jacobi pass (an
+        # update with a division) is none
+        lib_ms = (_library_stencil_ms(_diff_field_csr_coeffs(g, inv), x, ref)
+                  if name == "diff_field" else None)
+        del ref
+        ms, plain_ms = _time_ms(lambda: call({})), _time_ms(lambda: call(None))
+        point_ms = _time_ms(lambda: call({"march": False}))
+        dev_ms = _device_ms(lambda: call({}))
+        point_dev = _device_ms(lambda: call({"march": False}))
+        timing[name] = (ms, plain_ms, lib_ms)
+        grids, size, _, ops = BOUND_WORK[name]
+        bound = _bound(grids * size * N_MAIN**3, ops * N_MAIN**3)[0]
         gbs = grids * N_MAIN**3 * size / (ms * 1e-3) / 1e9
         lib = "" if lib_ms is None else f", CSR product (torch.mv) {lib_ms:.4f} ms"
-        print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'} time: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms{lib} (median of 15 CUDA-event timings); "
-              f"kernel moves >= {gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
+        print(f"[3 kernel] {name} {N_MAIN}^3 {'f32' if size == 4 else 'bf16'}"
+              f"{' ' + variant if variant else ''} (isotropic Γ, arithmetic faces) time: kernel "
+              f"(the plane march) {ms:.4f} ms (device {dev_ms:.4f} back to back), the per-point "
+              f"kernel {point_ms:.4f} ms (device {point_dev:.4f}), plain {plain_ms:.4f} ms{lib} "
+              f"(median of 15 CUDA-event timings); the march moves >= {gbs:.1f} GB/s ({grids} "
+              f"grids of compulsory traffic), {100 * bound / ms:.1f}% of its {bound:.4f} ms "
+              f"bound ({100 * bound / dev_ms:.1f}% on the device)", flush=True)
+        del x, b, g
     return worst, timing
+
+
+def vg_level_times(dev, sizes=(N_DARCY, N_MAIN), forced=True) -> list:
+    """``diff_jacobi`` (bf16, isotropic Γ, arithmetic faces: the Darcy
+    cycle's call) at every level of the n^3 V-cycle for n in ``sizes``
+    (each level once), as smooth and residual: the device time per call
+    back to back (``_device_ms``) of the shape's choice and, with
+    ``forced``, of the plane march and the per-point kernel each forced;
+    then the wrapper's threshold beside the smallest level from which up
+    the march is at or below the per-point kernel. Without ``forced`` only
+    the wrappers' common signature is used (an older version under
+    ``ab_cells_torch.py --root``)."""
+    from pyapes_tpu_torch.ops import diff_field as D
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    shapes = sorted({s for n in sizes for s in _level_shapes((n,) * 3)}, reverse=True)
+    rows = []
+    for lvl, shape in enumerate(shapes):
+        inv, x, b, gstack = _vg_inputs((1, *shape), "bfloat16", dev, 950 + lvl)
+        g = gstack[0].contiguous()
+        del gstack
+        surg = (("none", "none"),) * 3
+        pts = x.numel()
+        bound = _bound(4 * 2 * pts, BOUND_WORK["diff_jacobi"][3] * pts)[0]
+        for mode in ("smooth", "resid"):
+            def call(mode=mode, **kw):
+                return D.diff_jacobi(x, b, g, inv, surg, "arithmetic", 0.857, (0, 1, 2), mode,
+                                     **kw)
+            row = {"shape": shape, "mode": mode, "bound_ms": bound,
+                   "device_ms": _device_ms(call)}
+            if forced:
+                row["march_device_ms"] = _device_ms(lambda: call(march=True))
+                row["point_device_ms"] = _device_ms(lambda: call(march=False))
+                row["march"] = D.uses_march((1, *shape))
+            rows.append(row)
+        del x, b, g
+    text = "; ".join(
+        f"{r['shape'][0]}^3 {r['mode']} {1e3 * r['device_ms']:.2f}"
+        + (f" (march {1e3 * r['march_device_ms']:.2f}, per-point {1e3 * r['point_device_ms']:.2f})"
+           if forced else "") for r in rows)
+    print(f"[3 kernel] diff_jacobi bf16 at the {'/'.join(map(str, sizes))}^3 V-cycles' levels, "
+          f"device µs per call back to back (the shape's choice"
+          f"{'; the march and the per-point kernel forced' if forced else ''}): {text}",
+          flush=True)
+    if forced:
+        wins = {}
+        for r in rows:
+            wins[r["shape"]] = wins.get(r["shape"], True) and (r["march_device_ms"]
+                                                               <= r["point_device_ms"])
+        edge = None
+        for shape in sorted(wins, reverse=True):  # the run of wins from the largest level down
+            if not wins[shape]:
+                break
+            edge = shape
+        other = [f"{r['shape'][0]}^3 {r['mode']}" for r in rows
+                 if (r["march_device_ms"] > r["point_device_ms"] if r["march"]
+                     else r["point_device_ms"] > r["march_device_ms"])]
+        print(f"[3 kernel] diff_jacobi kernel choice: the march from {D.MARCH_MIN_POINTS} points "
+              f"per component (the wrapper's threshold, set inside the Darcy solve: PERF.md); "
+              f"back to back here, the march at or below the per-point kernel from "
+              f"{edge[0] if edge else '-'}^3 up, and the kernel not chosen faster at: "
+              f"{', '.join(other) or 'no level'}", flush=True)
+    return rows
 
 
 def _adv_inputs(shape, dtype, dev, seed):
@@ -1473,9 +1628,10 @@ def phase_darcy(dev, n: int = N_DARCY):
     stats, x = _solve_path(dev, n, darcy_cfg(), label, darcy=True)
     counts = _counts()
     for ls in stats["launches_per_solve"]:
-        missing = [k for k in ("diff_field", "diff_jacobi") if ls[k] == 0]
-        if missing:
-            raise RuntimeError(f"chip_smoke: {label} did not launch {missing}: {ls}")
+        wrong = {k: ls[k] for k, n in DARCY_LAUNCHES.items() if ls[k] != n}
+        if wrong:
+            raise RuntimeError(f"chip_smoke: {label} launched {wrong} per solve, not "
+                               f"{DARCY_LAUNCHES}: {ls}")
     if not (stats["true_rel_residual_f32"] <= 1e-5 and stats["true_rel_residual_f64"] <= 1e-5):
         raise RuntimeError(f"chip_smoke: {label} true residual {stats['true_rel_residual_f32']:.3e}"
                            f" / {stats['true_rel_residual_f64']:.3e} > 1e-5")
@@ -1568,6 +1724,7 @@ def main() -> None:
     worst1, timing1 = phase_kernel(dev)
     worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
+    vg_level_times(dev)
     worst4, timing4 = phase_kernel_advect(dev)
     worst5, timing5 = phase_kernel_ext(dev)
     worst = {"axis_stencil": worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
@@ -1615,9 +1772,12 @@ def main() -> None:
         grids, size, n, ops = BOUND_WORK[name]
         return _bound(grids * size * n**3, ops * n**3)
 
-    print(f"[10 kernels] ms/plain_ms/library_ms/bound_ms: the advection kernels at {N_PATH}^3 "
-          f"f32 (their paths' grid), the others at {N_MAIN}^3 (512^3 bf16 for the Jacobi family, "
-          f"the halo-extended kernel on the {N_DECOMP} blocks of 512^3); library_ms: one CSR "
+    print(f"[{len(KERNELS)} kernels] ms/plain_ms/library_ms/bound_ms: the advection kernels at "
+          f"{N_PATH}^3 f32 (their paths' grid), the others at {N_MAIN}^3 (512^3 bf16 for the "
+          f"Jacobi family, the halo-extended kernel on the {N_DECOMP} blocks of 512^3); "
+          "diff_field and diff_jacobi: ms of the plane march (diff_*_march_kernel in "
+          "csrc/diff_march.cu, the source named), their launches of both kernels (the per-point "
+          "diff_*_kernel in csrc/diff_field.cu below the march's threshold); library_ms: one CSR "
           "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
           "and Conv at their advectors), none for the fused ones", flush=True)
     print(json.dumps({"kernels": [{

@@ -22,7 +22,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(double* p, double v) { *p = v; }
 
-// i mod n for any i >= -n (torus wrap of a halo index).
+// i mod n for any i (torus wrap of a halo or window index).
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
@@ -47,6 +47,8 @@ __device__ __forceinline__ C block_sum(C v) {
 
 }  // namespace pyapes
 
-extern "C" const char* pyapes_cuda_error_string(int code) {
+// Weak: a library linked from several units, each including this header,
+// keeps one.
+extern "C" __attribute__((weak)) const char* pyapes_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,57 +1,61 @@
 // Variable-coefficient (heterogeneous-diffusivity) diffusion on Hopper
-// (sm_90a): the conservative Laplacian in coefficient form,
+// (sm_90a): the conservative Laplacian in flux form,
 //
-//   A(G) x = sum_a [cp x(+1) + cc x + cm x(-1)]   along each mesh axis a,
-//   cp = face(G, G(+1)) inv_dx2[a],  cm = face(G, G(-1)) inv_dx2[a],
-//   cc = -(cp + cm),
+//   A(G) x = sum_a inv_dx2[a] (F(+1/2) - F(-1/2))   along each mesh axis a,
+//   F(+1/2) = face(G, G(+1)) (x(+1) - x),  F(-1/2) = face(G(-1), G) (x - x(-1)),
 //
 // with face() the arithmetic (G_i + G_j) / 2 or the harmonic
 // 2 G_i G_j / (G_i + G_j) mean, the Neumann boundary-node elimination on
 // row 1 (lower face) or row n-2 (upper face) of a surgered axis as ADDITIVE
-// edits from the pre-surgery coefficients (cc += 4/3 c0, the far neighbour
-// gets -1/3 c0, the boundary neighbour 0), and every neighbour index of x
-// and G wrapped (torus), as torch.roll in the plain versions, so kernel and
-// plain version agree on every row. G is one pointer per axis: an
-// isotropic G passes one field three times, a stacked (dim, *nx) G its
-// slices. bf16 storage computes in f32, f32 in f32, f64 in f64; one
-// rounding, on store.
+// edits from the pre-surgery coefficient c0 (the row gains
+// c0 (4/3 x - 1/3 x(far) - x(boundary)), its diagonal 4/3 c0), and every
+// neighbour index of x and G wrapped (torus), as torch.roll in the plain
+// versions, so kernel and plain version agree on every row. G is one
+// pointer per axis: an isotropic G passes one field three times, a
+// stacked (dim, *nx) G its slices. bf16 storage computes in f32, f32 in
+// f32, f64 in f64; one rounding, on store.
 //
-//   diff_field_kernel         out = A(G) x
+//   diff_field           out = A(G) x
 //     replaces pallas_advect.py::pallas_diff_field (_diff_kernel).
-//   diff_jacobi_kernel<MODE>  SMOOTH:  out = x + omega mask (b - A x) / diag
-//                             SMOOTH0: out = omega mask b / diag  (x unread)
-//                             RESID:   out = mask (b - A x)
-//     diag = sum_a cc, rebuilt in registers from the same face values, so
-//     no diagonal field is read; replaces pallas_advect.py::
+//   diff_jacobi (MODE)   SMOOTH:  out = x + omega mask (b - A x) / diag
+//                        SMOOTH0: out = omega mask b / diag  (x unread)
+//                        RESID:   out = mask (b - A x)
+//     diag = sum_a -(inv_dx2[a] (face(-1/2) + face(+1/2))) (+ 4/3 c0 on a
+//     surgered row), rebuilt in registers from the same face values, so no
+//     diagonal field is read; replaces pallas_advect.py::
 //     pallas_diff_jacobi (_diff_jac_kernel).
 //
-// A 2-D grid (nx, ny) runs as (1, nx, ny) with first = 1 (axis 0 skipped).
-// The Python wrappers and the design note are in ops/diff_field.py. Plain
-// C interface, loaded with ctypes.
+// Both are bound by memory: ~35 flops per point (harmonic faces add ~4
+// divisions) against 3 grids of compulsory traffic for diff_field (read x
+// and G, write out) and 4 for diff_jacobi (x, G, b, out). Two kernels
+// compute them, chosen by the wrapper (ops/diff_field.py) from the shape
+// alone:
+//
+//   * the plane march of csrc/diff_march.cu (diff_jacobi_march_kernel,
+//     diff_field_march_kernel; design note there): jacobi3d.cu's
+//     single-sweep design with G staged beside x, for 3-D grids from the
+//     wrapper's threshold up;
+//   * diff_field_kernel / diff_jacobi_kernel<MODE> here: one thread per
+//     point, neighbours re-read through L1/L2; small grids (a launch there
+//     is latency, which this kernel has least of) and 2-D grids, run as
+//     (1, nx, ny) with first = 1 (axis 0 skipped).
+//
+// Plain C interface, loaded with ctypes.
 
-#include "common.cuh"
+#include "diff_field.cuh"
 
 namespace {
 
+using pyapes::APPLY;
 using pyapes::Compute;
+using pyapes::DiffParams;
+using pyapes::RESID;
+using pyapes::SMOOTH;
+using pyapes::SMOOTH0;
 using pyapes::store;
 using pyapes::to_c;
 
-constexpr int kThreads = 128;  // one thread per point, along the last axis
-enum Mode { SMOOTH = 0, SMOOTH0 = 1, RESID = 2 };
-
-template <typename T>
-struct DiffParams {
-  using C = typename Compute<T>::type;
-  const T* g[3];  // G of each axis
-  C inv[3];       // 1 / dx^2 per axis
-  C omega;
-  int n[3];       // (n0, n1, n2)
-  int first;      // first active axis: 0 (3-D) or 1 (2-D, n0 == 1)
-  int lo, up;     // bit a: Neumann elimination at the lower / upper face of axis a
-  int mask;       // bit a: zero the update on rows 0 and n-1 of axis a
-  int harmonic;   // face rule: 0 arithmetic, 1 harmonic
-};
+constexpr int kThreads = 128;  // per-point kernel: one thread per point, along the last axis
 
 template <typename C>
 __device__ __forceinline__ C face(C a, C b, int harmonic) {
@@ -154,6 +158,9 @@ diff_jacobi_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restri
   store(&out[d * vol + p], o);
 }
 
+// ---------------------------------------------------------------------------
+// Launches.
+
 template <typename T>
 DiffParams<T> make_params(const int* n, int first, const void* const* g, const double* inv,
                           double omega, int lo, int up, int mask, int harmonic) {
@@ -173,13 +180,11 @@ DiffParams<T> make_params(const int* n, int first, const void* const* g, const d
   return q;
 }
 
-// mode < 0: diff_field; else diff_jacobi in that mode.
+// The per-point kernels. mode < 0: diff_field; else diff_jacobi in that mode.
 template <typename T>
-cudaError_t launch(int mode, int vdim, const int* n, int first, const void* x, const void* b,
-                   const void* const* g, void* out, const double* inv, double omega, int lo,
-                   int up, int mask, int harmonic, cudaStream_t s) {
-  const auto q = make_params<T>(n, first, g, inv, omega, lo, up, mask, harmonic);
-  const dim3 grid((n[2] + kThreads - 1) / kThreads, n[1], vdim * n[0]);
+cudaError_t launch_point(int mode, int vdim, const DiffParams<T>& q, const void* x,
+                         const void* b, void* out, cudaStream_t s) {
+  const dim3 grid((q.n[2] + kThreads - 1) / kThreads, q.n[1], vdim * q.n[0]);
   const T* xp = static_cast<const T*>(x);
   const T* bp = static_cast<const T*>(b);
   T* op = static_cast<T*>(out);
@@ -197,18 +202,45 @@ cudaError_t launch(int mode, int vdim, const int* n, int first, const void* x, c
   return cudaGetLastError();
 }
 
+// mode: SMOOTH, SMOOTH0, RESID or APPLY (diff_field). ci: planes per block
+// of the march, 0 for the per-point kernel.
+template <typename T>
+cudaError_t launch(int mode, int vdim, const int* n, int first, const void* x, const void* b,
+                   const void* const* g, void* out, const double* inv, double omega, int lo,
+                   int up, int mask, int harmonic, int ci, int cw, cudaStream_t s) {
+  if (ci == 0) {
+    const auto q = make_params<T>(n, first, g, inv, omega, lo, up, mask, harmonic);
+    return launch_point<T>(mode == APPLY ? -1 : mode, vdim, q, x, b, out, s);
+  }
+  const double inv_m[3] = {first ? 0.0 : inv[0], inv[1], inv[2]};  // 2-D: axis 0 adds nothing
+  const auto q = make_params<T>(n, first, g, inv_m, omega, lo, up, mask, harmonic);
+  if (g[0] == g[1] && g[1] == g[2]) {  // isotropic
+    return pyapes::march_launch<T, true>(mode, vdim, q, x, b, out, ci, cw, s);
+  }
+  return pyapes::march_launch<T, false>(mode, vdim, q, x, b, out, ci, cw, s);
+}
+
 cudaError_t dispatch(int dtype, int mode, int vdim, const int* n, int first, const void* x,
                      const void* b, const void* const* g, void* out, const double* inv,
-                     double omega, int lo, int up, int mask, int harmonic, void* stream) {
+                     double omega, int lo, int up, int mask, int harmonic, int ci, int cw,
+                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask, harmonic, s);
+    return launch<float>(mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask, harmonic,
+                         ci, cw, s);
   if (dtype == 1)
-    return launch<double>(mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask, harmonic, s);
+    return launch<double>(mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask, harmonic,
+                          ci, cw, s);
   if (dtype == 2)
     return launch<__nv_bfloat16>(mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask,
-                                 harmonic, s);
+                                 harmonic, ci, cw, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t occupancy(int mode, int iso, int full, int harmonic, int* blocks) {
+  if (iso) return pyapes::march_occupancy<T, true>(mode, full != 0, harmonic != 0, blocks);
+  return pyapes::march_occupancy<T, false>(mode, full != 0, harmonic != 0, blocks);
 }
 
 }  // namespace
@@ -217,18 +249,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float64, 2 = bfloat16. x, out: (vdim, n0, n1, n2)
 // C-contiguous on the device; g0, g1, g2: (n0, n1, n2) C-contiguous, G of
-// axes 0, 1, 2 (a 2-D grid: n0 = 1, first = 1, g0 unread). lo, up: bit a
-// set = Neumann elimination at that face of axis a. harmonic: 0/1 face rule.
-// Returns cudaGetLastError() after the launch (0 on success); launches on
-// `stream`, does not synchronise and allocates nothing.
+// axes 0, 1, 2 (one pointer three times: isotropic; a 2-D grid: n0 = 1,
+// first = 1, axis 0 adds nothing). lo, up: bit a set = Neumann elimination
+// at that face of axis a. harmonic: 0/1 face rule. ci: planes per block of
+// the plane march, or 0 for the per-point kernel. cw (the march): bytes per
+// staging copy, 16, 8 or 4 (at least the dtype's size; n2 * sizeof(dtype)
+// and the base pointers of x, b and each G multiples of it), or 0 for
+// element loads; n1 * n2 must fit an int. Returns cudaGetLastError() after
+// the launch (0 on success); launches on `stream`, does not synchronise and
+// allocates nothing.
 int pyapes_diff_field(int dtype, int vdim, int n0, int n1, int n2, int first, const void* x,
                       const void* g0, const void* g1, const void* g2, void* out, double inv0,
-                      double inv1, double inv2, int lo, int up, int harmonic, void* stream) {
+                      double inv1, double inv2, int lo, int up, int harmonic, int ci, int cw,
+                      void* stream) {
   const int n[3] = {n0, n1, n2};
   const double inv[3] = {inv0, inv1, inv2};
   const void* g[3] = {g0, g1, g2};
-  return dispatch(dtype, -1, vdim, n, first, x, nullptr, g, out, inv, 0.0, lo, up, 0, harmonic,
-                  stream);
+  return dispatch(dtype, APPLY, vdim, n, first, x, nullptr, g, out, inv, 0.0, lo, up, 0,
+                  harmonic, ci, cw, stream);
 }
 
 // As pyapes_diff_field for the Jacobi pass; mode: 0 smooth, 1 smooth0 (x
@@ -237,13 +275,27 @@ int pyapes_diff_field(int dtype, int vdim, int n0, int n1, int n2, int first, co
 int pyapes_diff_jacobi(int dtype, int mode, int vdim, int n0, int n1, int n2, int first,
                        const void* x, const void* b, const void* g0, const void* g1,
                        const void* g2, void* out, double inv0, double inv1, double inv2,
-                       double omega, int lo, int up, int mask, int harmonic, void* stream) {
-  if (mode < 0) return cudaErrorInvalidValue;
+                       double omega, int lo, int up, int mask, int harmonic, int ci, int cw,
+                       void* stream) {
+  if (mode < 0 || mode > RESID) return cudaErrorInvalidValue;
   const int n[3] = {n0, n1, n2};
   const double inv[3] = {inv0, inv1, inv2};
   const void* g[3] = {g0, g1, g2};
   return dispatch(dtype, mode, vdim, n, first, x, b, g, out, inv, omega, lo, up, mask, harmonic,
-                  stream);
+                  ci, cw, stream);
+}
+
+// Blocks of the plane march (dtype as above; mode 0-2 the Jacobi pass, 3
+// diff_field; iso: one G for all axes; full: the instance of grids whose
+// every tile lies inside, n1 % tile rows == 0 and n2 % 128 == 0; harmonic
+// faces) that one SM of the current device holds at once, into *blocks.
+// Returns a CUDA error code (0 on success).
+int pyapes_diff_jacobi_blocks_per_sm(int dtype, int mode, int iso, int full, int harmonic,
+                                     int* blocks) {
+  if (dtype == 0) return occupancy<float>(mode, iso, full, harmonic, blocks);
+  if (dtype == 1) return occupancy<double>(mode, iso, full, harmonic, blocks);
+  if (dtype == 2) return occupancy<__nv_bfloat16>(mode, iso, full, harmonic, blocks);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -28,13 +28,22 @@
 // registers; the wrap and the mask are resolved once per block. The Python
 // wrappers are in ops/jacobi.py. Plain C interface, loaded with ctypes.
 
-#include "common.cuh"
+#include "march.cuh"
 
 namespace {
 
 using pyapes::Compute;
+using pyapes::cp_async;
+using pyapes::cp_async_commit;
+using pyapes::cp_async_wait;
+using pyapes::load2;
+using pyapes::march_args_ok;
+using pyapes::opt_in_smem;
+using pyapes::stage_window;
 using pyapes::store;
+using pyapes::store2;
 using pyapes::to_c;
+using pyapes::wrap;
 
 template <typename C>
 struct Params {
@@ -42,77 +51,6 @@ struct Params {
   int mask;  // bit a set: zero the update on the first/last row of axis a
   int N0, N1, N2;
 };
-
-// ---------------------------------------------------------------------------
-// Plane-march helpers of both kernels.
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(BYTES));
-  }
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ int imod(int i, int n) {  // i mod n, any i
-  i %= n;
-  return i < 0 ? i + n : i;
-}
-
-// Two adjacent values as one load / store (p aligned to the pair).
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
-}
-__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load2(const double* p, double& a, double& b) {
-  const double2 v = *reinterpret_cast<const double2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(double* p, double a, double b) {
-  *reinterpret_cast<double2*>(p) = make_double2(a, b);
-}
-
-// Stage `rows` x `nch` copies of V elements (window row r0 + r, window
-// columns from 0 in steps of V) of one plane (`src`: its first element)
-// into dst, a window of W columns whose column h is global column kcol[h],
-// in steps of the NT threads of a block: cp.async copies of V elements, or
-// element loads where an element is less than the 4 bytes a copy takes
-// (bf16 rows of odd length).
-template <int V, int W, int NT, typename T>
-__device__ __forceinline__ void stage_window(T* dst, const T* src, const int* rowoff,
-                                             const int* kcol, int rows, int nch, int r0, int t) {
-  const int n = rows * nch;
-  for (int c = t; c < n; c += NT) {
-    const int r = c / nch, h = c - r * nch;
-    const T* s = src + rowoff[r0 + r] + kcol[h * V];
-    T* d = dst + r * W + h * V;
-    if constexpr (V * sizeof(T) >= 4) {
-      cp_async<V * int(sizeof(T))>(d, s);
-    } else {
-      *d = *s;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Single sweep: a 2.5-D plane march along axis 0 (the outermost, stride
@@ -211,8 +149,8 @@ jacobi3d_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restrict_
   T* od = out + d * vol;
 
   for (int e = t; e < J1_XJ + W; e += NT) {
-    if (e < J1_XJ) rowoff[e] = imod(j0 - 1 + e, q.N1) * q.N2;
-    else kcol[e - J1_XJ] = imod(k0 - HK + e - J1_XJ, q.N2);
+    if (e < J1_XJ) rowoff[e] = wrap(j0 - 1 + e, q.N1) * q.N2;
+    else kcol[e - J1_XJ] = wrap(k0 - HK + e - J1_XJ, q.N2);
   }
   __syncthreads();
 
@@ -522,8 +460,8 @@ jacobi3d_x2_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restri
   T* od = out + d * vol;
 
   for (int e = t; e < X2_XJ + X2_W; e += X2_THREADS) {
-    if (e < X2_XJ) rowoff[e] = imod(j0 - 2 + e, q.N1) * q.N2;
-    else kcol[e - X2_XJ] = imod(k0 - X2_HK + e - X2_XJ, q.N2);
+    if (e < X2_XJ) rowoff[e] = wrap(j0 - 2 + e, q.N1) * q.N2;
+    else kcol[e - X2_XJ] = wrap(k0 - X2_HK + e - X2_XJ, q.N2);
   }
   __syncthreads();
 
@@ -573,12 +511,12 @@ jacobi3d_x2_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restri
   unsigned mjk = 0, live = 0, zrow = 0;  // bit 2r+c: masked in (j, k); z stored. bit r: z row
 #pragma unroll
   for (int r = 0; r < X2_R; ++r) {
-    const int yj = yj0 + r, gj = j0 - 1 + yj, gjw = imod(gj, q.N1);
+    const int yj = yj0 + r, gj = j0 - 1 + yj, gjw = wrap(gj, q.N1);
     const bool mj = (q.mask & 2) && (gjw == 0 || gjw == q.N1 - 1);
     if (yj >= 1 && yj <= X2_YJ - 2) zrow |= 1u << r;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      const int gk = k0 + kk + c, gkw = imod(gk, q.N2);
+      const int gk = k0 + kk + c, gkw = wrap(gk, q.N2);
       if (mj || ((q.mask & 4) && (gkw == 0 || gkw == q.N2 - 1))) mjk |= 1u << (2 * r + c);
       if ((zrow >> r & 1u) && gj < q.N1 && gk < q.N2) live |= 1u << (2 * r + c);
     }
@@ -594,7 +532,7 @@ jacobi3d_x2_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restri
   const int hyo = sj * X2_YP + sk + 1;
   bool mh;
   {
-    const int gj = imod(j0 - 1 + sj, q.N1), gk = imod(k0 - 1 + sk, q.N2);
+    const int gj = wrap(j0 - 1 + sj, q.N1), gk = wrap(k0 - 1 + sk, q.N2);
     mh = ((q.mask & 2) && (gj == 0 || gj == q.N1 - 1)) ||
          ((q.mask & 4) && (gk == 0 || gk == q.N2 - 1));
   }
@@ -752,28 +690,6 @@ Params<typename Compute<T>::type> make_params(const int* n, const double* inv,
                                               double alpha, double beta, int mask) {
   using C = typename Compute<T>::type;
   return Params<C>{C(inv[0]), C(inv[1]), C(inv[2]), C(alpha), C(beta), mask, n[0], n[1], n[2]};
-}
-
-// Opt `kernel` in to `smem` bytes of dynamic shared memory where that
-// exceeds 48 KB (f32, f64), once per device (`done`: its bit per device).
-template <typename K>
-cudaError_t opt_in_smem(K* kernel, size_t smem, unsigned& done) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 32 && (done >> dev & 1u)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess && dev < 32) done |= 1u << dev;
-  return e;
-}
-
-// The plane-march launches' common argument checks: ci planes per block,
-// a plane's offsets in an int, cw bytes per staging copy.
-template <typename T>
-bool march_args_ok(const int* n, int ci, int cw) {
-  return ci >= 1 && (int64_t)n[1] * n[2] <= INT32_MAX &&
-         (cw == 0 || ((cw == 4 || cw == 8 || cw == 16) && cw >= (int)sizeof(T)));
 }
 
 template <typename T, bool DOT, bool FULL>

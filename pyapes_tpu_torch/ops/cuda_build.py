@@ -1,11 +1,15 @@
 """Build and load the port's hand-written Hopper kernels.
 
-Every ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh``) is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. A build
-is keyed by the hash of its source and flags, written atomically into the
-gitignored ``build/`` directory, and made at first use, so a fresh
-checkout needs nothing but ``nvcc``. ``build_all()`` starts one ``nvcc``
-per source at once (``chip_smoke.py`` builds everything that way).
+Every library ``<name>`` is built from its translation units (``UNITS``:
+by default ``csrc/<name>.cu`` alone; the variable-Γ library also from
+``csrc/diff_march.cu`` once per storage dtype and Γ layout), each with the
+shared ``csrc/*.cuh``, compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per unit, all started together) and linked into a shared library with a
+plain C interface, loaded with ``ctypes``. A build is keyed by the hash of
+its sources, headers and flags, written atomically into the gitignored
+``build/`` directory, and made at first use, so a fresh checkout needs
+nothing but ``nvcc``. ``build_all()`` starts every unit of every library
+at once (``chip_smoke.py`` builds everything that way).
 """
 from __future__ import annotations
 
@@ -22,9 +26,15 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect")
+# the libraries of more than one unit: (source stem, its own nvcc flags)
+UNITS = {
+    "diff_field": (("diff_field", ()),) + tuple(
+        ("diff_march", (f"-DVG_DTYPE={dtype}", f"-DVG_ISO={iso}"))
+        for dtype in (2, 0, 1) for iso in (1, 0)),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -44,55 +54,71 @@ def _nvcc() -> str:
     raise RuntimeError("cuda_build: nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def _target(name: str) -> tuple[Path, Path]:
+def _units(name: str) -> tuple:
+    return UNITS.get(name, ((name, ()),))
+
+
+def _target(name: str) -> Path:
     if name not in SOURCES:
         raise ValueError(f"cuda_build: unknown kernel source {name!r}")
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC.glob("*.cuh")):  # the shared helpers it includes
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for stem, flags in _units(name):
+        key.update((CSRC / f"{stem}.cu").read_bytes() + " ".join(flags).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared helpers they include
         key.update(header.read_bytes())
-    return src, BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start ``nvcc`` for ``name`` unless its library exists; returns
-    ``(lib, proc_or_None, tmp, tic)``."""
-    src, lib = _target(name)
+    """Start one ``nvcc -c`` per unit of ``name`` unless its library
+    exists; returns ``(lib, [(stem, object, proc)], tic)``."""
+    lib = _target(name)
     if lib.exists():
-        return lib, None, None, 0.0
+        return lib, [], 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    return lib, proc, tmp, time.perf_counter()
+    procs = []
+    for u, (stem, flags) in enumerate(_units(name)):
+        obj = lib.with_name(f"{lib.stem}.{u}.{os.getpid()}.o")
+        procs.append((stem, obj, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    return lib, procs, time.perf_counter()
 
 
-def _finish(name: str, lib: Path, proc, tmp: Path, tic: float) -> Build:
-    if proc is None:
+def _finish(name: str, lib: Path, procs, tic: float) -> Build:
+    if not procs:
         return Build(lib, 0.0, "")
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"cuda_build: nvcc failed on {name}.cu:\n{log}")
+    logs = [(stem, *p.communicate(), p.returncode) for stem, _, p in procs]
+    for stem, log, _, rc in logs:
+        if rc != 0:
+            raise RuntimeError(f"cuda_build: nvcc failed on {stem}.cu:\n{log}")
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+                          capture_output=True, text=True)
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"cuda_build: linking {name} failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return Build(lib, time.perf_counter() - tic, log)
+    return Build(lib, time.perf_counter() - tic, "".join(log for _, log, _, _ in logs))
 
 
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless its keyed library is built."""
+    """Compile and link the units of ``name`` unless its keyed library is
+    built."""
     return _finish(name, *_start(name))
 
 
 def build_all() -> dict[str, Build]:
-    """Build every source, one ``nvcc`` each, all started together."""
+    """Build every library, one ``nvcc`` per unit, all started together."""
     started = {name: _start(name) for name in SOURCES}
     return {name: _finish(name, *s) for name, s in started.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (built at first use), with
+    """The built library ``name`` (built at first use), with
     the shared ``pyapes_cuda_error_string`` entry point typed."""
     lib = ctypes.CDLL(str(build(name).path))
     lib.pyapes_cuda_error_string.argtypes = [ctypes.c_int]

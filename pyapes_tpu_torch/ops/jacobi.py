@@ -184,11 +184,11 @@ def march_geometry(shape, resident: int, chunk, tile, setup):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident(device: int, entry: str, dtype: torch.dtype, *flags: int) -> int:
+def _resident(lib: ctypes.CDLL, device: int, entry: str, dtype: torch.dtype, *flags: int) -> int:
     """Blocks of a plane march the card holds at once: its SMs times the
     blocks per SM that the kernel's registers and shared memory allow
-    (from the C entry ``entry`` with the kernel's template ``flags``)."""
-    lib = _lib()
+    (from the C entry ``entry`` of ``lib`` with the kernel's template
+    ``flags``)."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = getattr(lib, entry)(_DTYPE_CODE[dtype], *flags, ctypes.byref(blocks))
@@ -215,7 +215,7 @@ def _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, dot: bool, chunk):
         raise ValueError(f"{name}: x is required")
     vdim, n0, n1, n2 = b.shape
     full = n1 % _J1_TILE[0] == 0 and n2 % _J1_TILE[1] == 0  # the kernel the launch takes
-    resident = _resident(b.device.index, "pyapes_jacobi3d_blocks_per_sm", b.dtype, int(dot),
+    resident = _resident(lib, b.device.index, "pyapes_jacobi3d_blocks_per_sm", b.dtype, int(dot),
                          int(full))
     grid, chunk, n_partial = march_geometry(b.shape, resident, chunk, _J1_TILE, _J1_SETUP_PLANES)
     check_inputs(x, b, inv_dx2, mask_axes, grid[1:])
@@ -269,7 +269,7 @@ def jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero=False, emit_dot=False,
         return apply_jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero, emit_dot)
     lib = _cuda_lib("jacobi3d_x2", b)
     vdim, n0, n1, n2 = b.shape
-    resident = _resident(b.device.index, "pyapes_jacobi3d_x2_blocks_per_sm", b.dtype,
+    resident = _resident(lib, b.device.index, "pyapes_jacobi3d_x2_blocks_per_sm", b.dtype,
                          int(bool(from_zero)), int(bool(emit_dot)))
     grid, chunk, n_partial = march_geometry(b.shape, resident, chunk, _X2_TILE, _X2_SETUP_PLANES)
     check_inputs(None if from_zero else x, b, inv_dx2, mask_axes, grid[1:])

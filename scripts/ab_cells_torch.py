@@ -4,6 +4,7 @@ from one checkout, for A/B runs of two versions on one card in one call.
 
     python scripts/ab_cells_torch.py [--root DIR] [--solves 5] [--cells NAME ...]
     python scripts/ab_cells_torch.py --cells jacobi3d jacobi3d_x2   # the kernels alone
+    python scripts/ab_cells_torch.py --cells diff_jacobi             # the variable-Γ pass
 
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
@@ -21,7 +22,13 @@ double sweep) check the kernel against its plain version at
 and time it in bf16 at every level shape of the 512^3 V-cycle
 (``level_times``: per call and on the device, GB/s, share of the bound),
 through the wrappers' common signature only, so that an older ``--root``
-runs them too.
+runs them too. The kernel cell ``diff_jacobi`` (the variable-Γ Jacobi
+pass) checks it against its plain version at a few shapes (every dtype,
+Γ layout, face rule, surgery and mode, the apply too; ``check_vg``) and
+times it in bf16 at every level of the Darcy 256^3 and the 512^3
+V-cycle (``vg_level_times``: device time per call back to back, the
+shape's choice of kernel; where the version has both kernels, each forced
+as well).
 """
 from __future__ import annotations
 
@@ -42,7 +49,8 @@ CELLS = {
     "MG-PCG 256^3 V(1,1)": lambda cs: (cs.N_V11, cs.mg_cfg(cs.V11_MG)),
     "Darcy 256^3": lambda cs: (cs.N_DARCY, cs.darcy_cfg()),
 }
-KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2")
+KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi")
+VG_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (1, 4, 4, 4), (1, 65, 130)]
 
 
 def _decomp(cs):
@@ -76,6 +84,14 @@ def main() -> None:
     dev = torch.device("cuda")
     for label in args.cells:
         clear_cache()
+        if label == "diff_jacobi":
+            from pyapes_tpu_torch.ops import diff_field
+
+            _, worst = cs.check_vg(dev, VG_CHECK_SHAPES, forced=False)
+            out["cells"][label] = {"worst_err_over_limit": worst["choice"],
+                                   "levels": cs.vg_level_times(
+                                       dev, forced=hasattr(diff_field, "uses_march"))}
+            continue
         if label in KERNEL_CELLS:  # only the wrapper's common signature: --root may be older
             worst, _ = cs.check_march(dev, label, chunks=False)
             out["cells"][label] = {"worst_err_over_limit": worst,

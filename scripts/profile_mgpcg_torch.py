@@ -24,7 +24,8 @@ prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 - kernel rows: device time by kernel name from the trace's kernel,
   memcpy and memset events, and grouped (the port's Hopper kernels,
   transfer GEMMs, elementwise, reductions, copies); each Hopper kernel
-  also by its launch grid, which names the MG level it ran on;
+  also by its launch grid, which names the MG level it ran on, and
+  kernel (the variable-Γ plane march or per-point kernel);
 - the device's busy time as the UNION of the kernel/memcpy/memset
   intervals of the trace inside the host range of ``Solver.solve``, and
   the idle share ``1 - busy / range``;
@@ -37,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,8 +48,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
-    ("diff_jacobi (Hopper)", ("diff_jacobi_kernel",)),
-    ("diff_field (Hopper)", ("diff_field_kernel",)),
+    ("diff_jacobi (Hopper)", ("diff_jacobi_kernel", "diff_jacobi_march_kernel")),
+    ("diff_field (Hopper)", ("diff_field_kernel", "diff_field_march_kernel")),
     ("advect_pair / conv_component (Hopper)", ("advect_kernel",)),
     ("axis_stencil5 (Hopper)", ("axis_stencil5_kernel",)),
     ("jacobi3d_x2 (Hopper)", ("jacobi3d_x2_kernel",)),
@@ -186,10 +188,12 @@ def main() -> None:
     for e in dev:
         rows[e["name"]][0] += 1
         rows[e["name"]][1] += e["dur"] / 1e3
-    by_grid = defaultdict(lambda: [0, 0.0])  # (Hopper group, grid) -> [calls, device ms]
+    by_grid = defaultdict(lambda: [0, 0.0])  # (Hopper group, grid, kernel) -> [calls, device ms]
     for e in dev:
         if "(Hopper)" in _group(e["name"]):
-            g = by_grid[(_group(e["name"]), str(e.get("args", {}).get("grid")))]
+            kernel = re.search(r"(\w+_kernel)", e["name"])
+            g = by_grid[(_group(e["name"]), str(e.get("args", {}).get("grid")),
+                         kernel.group(1) if kernel else e["name"][:60])]
             g[0] += 1
             g[1] += e["dur"] / 1e3
     groups = defaultdict(lambda: [0, 0.0])
@@ -214,7 +218,7 @@ def main() -> None:
         "groups": {k: {"calls": c, "device_ms": ms, "share_of_range": ms / range_ms}
                    for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
         "hopper_kernels_by_grid": [
-            {"group": k[0], "grid": k[1], "calls": c, "device_ms": ms}
+            {"group": k[0], "grid": k[1], "kernel": k[2], "calls": c, "device_ms": ms}
             for k, (c, ms) in sorted(by_grid.items(), key=lambda kv: -kv[1][1])],
         "top_kernels": [{"name": k[:120], "calls": c, "device_ms": ms}
                         for k, (c, ms) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:25]],

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
+from pyapes_tpu_torch.ops import diff_field as diff_mod  # noqa: E402
 from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import (  # noqa: E402
@@ -57,6 +58,10 @@ CHUNKS = [None, 64, 3]
 # the variable-Γ kernels: those plus 2-D grids; chip_smoke.py's (stacked Γ,
 # face rule, Neumann surgery) combinations
 VG_SHAPES = SHAPES + [(1, 65, 130), (2, 17, 9)]
+# grids whose every plane-march tile lies inside them (n1 % 16 == 0, n1 % 8
+# in f64; n2 % 128 == 0): the march's FULL instance, the one the Darcy
+# cycle's large levels take, on isotropic Γ
+VG_FULL_SHAPES = [(1, 20, 32, 256), (2, 9, 16, 128)]
 VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
              (True, "arithmetic", True), (True, "harmonic", False)]
 # the advection kernels: chip_smoke.py's shapes, (3, 3, 9, 11) with a
@@ -217,6 +222,67 @@ def test_diff_kernels_match_plain(cuda, shape, dtype, combo):
                apply_diff_jacobi(xm, b, g, inv, surg, avg, 0.857, axes, mode), dtype)
     torch.cuda.synchronize()
     assert (diff_field.launches, diff_jacobi.launches) == (before[0] + 1, before[1] + 3)
+
+
+def _vg_operands(shape, dtype, device, aniso, seed):
+    """x, b (``_level``), a Γ in [1, 2) (stacked ``(dim, *nx)`` or
+    isotropic) and inv_dx2 of a variable-Γ case."""
+    inv, _, x, b = _level(shape, dtype, device, seed)
+    nd = len(shape) - 1
+    gen = torch.Generator(device="cpu").manual_seed(seed + 1)
+    g = (1.0 + torch.rand(((nd,) if aniso else ()) + shape[1:], generator=gen,
+                          dtype=torch.float64)).to(device, dtype)
+    return inv, x, b, g
+
+
+def _vg_call(mode, x, b, g, inv, surg, avg, plain=False, **kw):
+    """``diff_field`` (mode "apply") or a ``diff_jacobi`` mode: the wrapper
+    with the kernel keywords ``kw``, or with ``plain`` the plain version."""
+    nd = len(inv)
+    if mode == "apply":
+        if plain:
+            return apply_diff_field(x, g, inv, surg, avg)
+        return diff_field(x, g, inv, surg, avg, **kw)
+    xm = None if mode == "smooth0" else x
+    if plain:
+        return apply_diff_jacobi(xm, b, g, inv, surg, avg, 0.857, tuple(range(nd)), mode)
+    return diff_jacobi(xm, b, g, inv, surg, avg, 0.857, tuple(range(nd)), mode, **kw)
+
+
+@pytest.mark.parametrize("combo", range(len(VG_COMBOS)))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", X2_SHAPES + VG_SHAPES + VG_FULL_SHAPES)
+def test_diff_march_and_point_kernels_match_plain(cuda, shape, dtype, combo):
+    """Both variable-Γ kernels, each forced at every shape (2-D grids,
+    3-node axes and the march's FULL grids too), against the plain versions
+    in the four modes; the plane march also at explicit plane chunks, with
+    the same bits at every chunk."""
+    aniso, avg, neumann = VG_COMBOS[combo]
+    inv, x, b, g = _vg_operands(shape, dtype, cuda, aniso, seed=7)
+    nd = len(shape) - 1
+    mixed = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
+    surg = mixed[:nd] if neumann else (("none", "none"),) * nd
+    for mode in ("apply", "smooth", "smooth0", "resid"):
+        ref = _vg_call(mode, x, b, g, inv, surg, avg, plain=True)
+        _close(_vg_call(mode, x, b, g, inv, surg, avg, march=False), ref, dtype)
+        outs = [_vg_call(mode, x, b, g, inv, surg, avg, march=True, chunk=c) for c in CHUNKS]
+        for out in outs:
+            _close(out, ref, dtype)
+            assert torch.equal(out, outs[0]), mode
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("march", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_diff_kernels_same_bits_every_call(cuda, dtype, march):
+    """A variable-Γ kernel gives the same bits on every call (stacked Γ,
+    harmonic faces, Neumann surgery: every code path of a point)."""
+    inv, x, b, g = _vg_operands((1, 130, 70, 131), dtype, cuda, True, seed=8)
+    surg = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
+    for mode in ("apply", "smooth", "smooth0", "resid"):
+        one = _vg_call(mode, x, b, g, inv, surg, "harmonic", march=march)
+        two = _vg_call(mode, x, b, g, inv, surg, "harmonic", march=march)
+        assert torch.equal(one, two), mode
 
 
 @pytest.mark.parametrize("shape, chunk", [((2, 17, 9, 33), None), ((1, 130, 16, 64), 64),
@@ -400,7 +466,9 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5",
-                                  "axis_stencil_ext", "jacobi3d", "jacobi3d_dot"])
+                                  "axis_stencil_ext", "jacobi3d", "jacobi3d_dot",
+                                  "diff_field_march", "diff_field_point", "diff_jacobi_march",
+                                  "diff_jacobi_point"])
 def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     """With the plain versions patched to raise, the wrappers still answer
     a CUDA tensor: from the kernel."""
@@ -411,25 +479,38 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     c3 = tuple(tuple(c[:n - 2] for c in cs[:3]) if j == 0 else cs[:3]
                for j, (cs, n) in enumerate(zip(c5, x.shape[1:])))
     surg = ADV_SURGERY["mixed"]
+    surg3 = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
     inv, beta, _, b = _level(tuple(x.shape), torch.float32, cuda, seed=11)
+    gv = (b.abs() + 1.0)[0]  # a variable Γ
     ref = {"jacobi3d": lambda: apply_jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
            "jacobi3d_dot": lambda: apply_jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
            "advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
            "conv_component": lambda: apply_conv_field(x, adv_conv, base, "none", surg),
            "axis_stencil5": lambda: apply_axis_stencil(c5, x),
-           "axis_stencil_ext": lambda: apply_axis_stencil_ext(c3, x, (1, 0, 0))}[name]()
+           "axis_stencil_ext": lambda: apply_axis_stencil_ext(c3, x, (1, 0, 0)),
+           "diff_field": lambda: apply_diff_field(x, gv, inv, surg3, "harmonic"),
+           "diff_jacobi": lambda: apply_diff_jacobi(x, b, gv, inv, surg3, "harmonic", 0.857,
+                                                    (0, 1, 2), "smooth"),
+           }[name.replace("_march", "").replace("_point", "")]()
     monkeypatch.setattr(advect_mod, "apply_div_field", plain)
     monkeypatch.setattr(advect_mod, "apply_conv_field", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil_ext", plain)
     monkeypatch.setattr(jacobi_mod, "apply_jacobi3d", plain)
     monkeypatch.setattr(jacobi_mod, "apply_jacobi3d_dot", plain)
+    monkeypatch.setattr(diff_mod, "apply_diff_field", plain)
+    monkeypatch.setattr(diff_mod, "apply_diff_jacobi", plain)
+    march = name.endswith("_march")
     fn = {"jacobi3d": lambda: jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
           "jacobi3d_dot": lambda: jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
           "advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
           "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
           "axis_stencil5": lambda: axis_stencil5(c5, x),
-          "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0))}[name]
+          "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0)),
+          "diff_field": lambda: diff_field(x, gv, inv, surg3, "harmonic", march=march),
+          "diff_jacobi": lambda: diff_jacobi(x, b, gv, inv, surg3, "harmonic", 0.857, (0, 1, 2),
+                                             "smooth", march=march),
+          }[name.replace("_march", "").replace("_point", "")]
     _close(fn(), ref, torch.float32)
     torch.cuda.synchronize()
 

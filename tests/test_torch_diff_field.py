@@ -13,6 +13,11 @@ JAX package (CPU, float64).
   another order).
 * ``apply_diff_jacobi`` against the JAX V-cycle composition ``x + ω (b -
   A x) mask / diag`` with the JAX ``MGSpec._vg_diag`` diagonal, every row.
+* The plane march's launch geometry (its ``(tj, 128)`` tiles per dtype)
+  covers every point once over the single sweep's sweep of shapes and
+  chunks, and the kernel a shape takes (march or per-point) follows from
+  the shape alone (the kernels themselves run on the card:
+  ``tests/test_torch_cuda.py``).
 
 Γ reaches the port through ``gamma_from_numpy``. On the CPU the wrappers
 ``diff_field`` / ``diff_jacobi`` are the plain versions and count no
@@ -27,9 +32,16 @@ torch = pytest.importorskip("torch")
 from pyapes_tpu.ops import stencil as jst  # noqa: E402
 from pyapes_tpu.ops.pallas_advect import pallas_diff_field, pallas_diff_jacobi  # noqa: E402
 from pyapes_tpu.solver.multigrid import MGSpec as JMGSpec  # noqa: E402
+from pyapes_tpu_torch.ops import diff_field as dmod  # noqa: E402
 from pyapes_tpu_torch.ops import stencil as pst  # noqa: E402
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi  # noqa: E402
+from pyapes_tpu_torch.solver.multigrid import _level_shapes  # noqa: E402
 from pyapes_tpu_torch.utils.carry import gamma_from_numpy  # noqa: E402
+from test_torch_jacobi import (  # noqa: E402
+    GEOMETRY_CASES,
+    GEOMETRY_SHAPES,
+    _covers_each_point_once,
+)
 
 NONE3 = (("none", "none"),) * 3
 MIXED3 = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
@@ -137,3 +149,78 @@ def test_gamma_from_numpy_carries_dtype_device_layout():
         t = gamma_from_numpy(g, like)
         assert t.dtype == torch.float32 and t.device == like.device and t.is_contiguous()
         assert np.array_equal(t.numpy(), g.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+@pytest.mark.parametrize("chunk, resident", GEOMETRY_CASES)
+def test_vg_march_geometry_covers_each_point_once(shape, chunk, resident):
+    """The variable-Γ march's launch geometry: 16 x 128 tiles (bf16, f32)
+    and 8 x 128 (f64), chunks of planes, each point once."""
+    for tile in sorted(set(dmod._VG_TILE.values())):
+        _covers_each_point_once(shape, chunk, resident, tile, dmod._VG_SETUP_PLANES)
+
+
+@pytest.mark.parametrize("shape, march", [
+    ((1, 1025, 1025), False), ((1, 4097, 4097), False), ((2, 65, 130), False),  # 2-D
+    ((1, 32, 32, 32), False), ((1, 4, 4, 4), False), ((1, 64, 64, 64), False),  # below
+    ((3, 40, 50, 60), False), ((1, 127, 128, 128), False), ((4, 65, 33, 129), False),
+    ((1, 128, 128, 128), True), ((1, 256, 256, 256), True), ((1, 512, 512, 512), True),
+    ((1, 129, 129, 129), True), ((2, 70, 190, 200), True), ((1, 4096, 8, 64), True)])
+def test_kernel_choice_follows_the_shape_alone(shape, march):
+    """2-D grids and grids below ``MARCH_MIN_POINTS`` points per component
+    take the per-point kernel, the rest the plane march; nothing else
+    (dtype, Γ layout, a failure) enters the choice."""
+    assert dmod.uses_march(shape) is march
+    assert dmod.uses_march(shape) == (len(shape) == 4
+                                      and np.prod(shape[1:]) >= dmod.MARCH_MIN_POINTS)
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_darcy_levels_take_the_kernel_of_their_size(n):
+    """On the Darcy cycle's levels the march takes 128^3 and up, the
+    per-point kernel 64^3 and below; the march's levels, every tile inside
+    the grid, take its ``FULL`` instance in every dtype."""
+    for shape in _level_shapes((n,) * 3):
+        assert dmod.uses_march((1, *shape)) is (shape[0] >= 128), shape
+        if shape[0] >= 128:
+            assert all(dmod.march_full((1, *shape), dt) for dt in dmod._VG_TILE), shape
+    assert not dmod.march_full((1, 64, 64, 64), torch.bfloat16)  # 64 columns < one tile
+
+
+@pytest.mark.parametrize("dtype, shape, full", [
+    (torch.bfloat16, (1, 8, 16, 128), True), (torch.float32, (2, 3, 32, 256), True),
+    (torch.float64, (1, 5, 8, 128), True), (torch.float32, (1, 5, 8, 128), False),
+    (torch.bfloat16, (1, 9, 16, 129), False), (torch.float64, (1, 9, 12, 128), False),
+    # the card tests' FULL grids, in every dtype
+    *[(dt, shape, True) for shape in ((1, 20, 32, 256), (2, 9, 16, 128))
+      for dt in (torch.bfloat16, torch.float32, torch.float64)]])
+def test_march_full_needs_every_tile_inside(dtype, shape, full):
+    assert dmod.march_full(shape, dtype) is full
+
+
+@pytest.mark.parametrize("shape, grid", [((1, 5, 9, 17), (1, 9, 5)), ((3, 64, 64, 64), (1, 64, 192)),
+                                         ((1, 1025, 1025), (9, 1025, 1)), ((2, 7, 10), (1, 7, 2)),
+                                         ((1, 3, 300, 257), (3, 300, 3))])
+def test_point_grid(shape, grid):
+    """The per-point kernel's grid: 128 threads along the last axis, one
+    block row per middle index, one z per (component, plane)."""
+    assert dmod.point_grid(shape) == grid
+
+
+@pytest.mark.parametrize("march", [None, True, False])
+def test_cpu_tensor_takes_the_plain_version_whatever_the_kernel(march):
+    """``march`` and ``chunk`` choose among the kernels of a CUDA tensor;
+    a CPU tensor always takes the plain version and counts no launch."""
+    x, b, g = _inputs((9, 12, 11), 3)
+    xt, bt, gt = _t(x), _t(b), _t(g)
+    surg = MIXED3
+    before = (diff_field.launches, diff_jacobi.launches)
+    assert torch.equal(diff_field(xt, gt, INV, surg, "harmonic", march=march, chunk=2),
+                       pst.apply_diff_field(xt, gt, INV, surg, "harmonic"))
+    for mode in ("smooth", "smooth0", "resid"):
+        xm = None if mode == "smooth0" else xt
+        got = diff_jacobi(xm, bt, gt, INV, surg, "arithmetic", 0.8, (0, 1, 2), mode,
+                          march=march, chunk=3)
+        assert torch.equal(got, pst.apply_diff_jacobi(xm, bt, gt, INV, surg, "arithmetic", 0.8,
+                                                      (0, 1, 2), mode))
+    assert (diff_field.launches, diff_jacobi.launches) == before
