@@ -12,7 +12,15 @@ Phases, report lines before the last:
    (one ``nvcc`` per translation unit, all started together); print ptxas
    registers/spills, and each plane-march kernel's registers by name.
 3. kernel — each kernel against its plain PyTorch version on the card
-   (axis stencil: five shapes; stencil alpha-dot and the Jacobi family:
+   (axis stencil, radius 1 and 2 (mixed 3/5-point axes), the plane march
+   and the per-point kernel each forced: the 3-D kernel, edge and
+   advection shapes x f32/bf16/f64, the march at several plane chunks with
+   the same bits at each and on another call; the shape's choice at five
+   shapes, a 2-D grid among them; both kernels of both radii timed per
+   call and back to back at 512^3, 256^3, 129^3, 128^3 and 64^3 f32, the
+   Poisson model's 65^3 and 129^3 f64 and every level of the 512^3 V-cycle
+   in bf16, beside the shape's choice and a device copy; stencil alpha-dot
+   and the Jacobi family:
    five shapes x f32/bf16/f64 x their variants, dots included; the
    variable-Γ diffusion apply and Jacobi pass, the plane march and the
    per-point kernel each forced: the same shapes plus a 2-D grid and the
@@ -116,6 +124,14 @@ KERNEL3D_SHAPES = [(1, 512, 512, 512), (3, 64, 64, 64), (1, 65, 33, 129), (1, 4,
 # plane chunks (the most, a ragged few)
 EDGE_SHAPES = [(1, 130, 16, 64), (2, 70, 19, 131), (1, 3, 3, 3)]
 MARCH_CHUNKS = (64, 3)
+# the kernels a plane-march wrapper can be forced to: (name, its march=)
+FORCED_KERNELS = (("march", True), ("point", False))
+# the axis stencil's two kernels (plane march, per-point), each forced, at
+# both radii: the 3-D shapes of KERNEL_SHAPES, the marches' edges, the
+# 3-D advection shapes (vdim 1, 2 and 3; a 3-node axis 0) and the
+# advection paths' grid (AXIS_SHAPES, below), every dtype;
+# per radius the points per axis of its equations (3/5 mixed at radius 2)
+AXIS_POINTS = {1: ((3, 3, 3),), 2: ((5, 3, 5), (5, 5, 5), (3, 5, 3))}
 MARCHES = ("jacobi3d", "jacobi3d_x2")  # the plane-march kernels, by wrapper
 DTYPES = ["float32", "bfloat16", "float64"]
 # kernel and plain sum the same products in another order (the kernel may
@@ -128,10 +144,12 @@ DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 # (name, module, source of the kernel timed as its ms, the TPU function it
 # replaces); diff_field and diff_jacobi: the plane march (csrc/diff_march.cu),
 # the 512^3 grid's choice, while their per-point kernel (csrc/diff_field.cu)
-# takes 2-D grids and the levels below the march's threshold
+# takes 2-D grids and the levels below the march's threshold; axis_stencil
+# and axis_stencil5 likewise: the plane march (csrc/axis_march.cu) at the
+# timed 512^3 / 256^3, the per-point kernels (csrc/axis_stencil.cu) below
 KERNELS = [
     ("axis_stencil", "pyapes_tpu_torch.ops.axis_stencil",
-     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil.py:323"),
+     "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil.py:323"),
     ("axis_stencil_dot", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_db.py:248"),
     ("jacobi3d", "pyapes_tpu_torch.ops.jacobi",
@@ -149,7 +167,7 @@ KERNELS = [
     ("advect_pair", "pyapes_tpu_torch.ops.advect",
      "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:357"),
     ("axis_stencil5", "pyapes_tpu_torch.ops.axis_stencil",
-     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
+     "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
     ("axis_stencil_ext", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:573"),
 ]
@@ -181,7 +199,7 @@ BOUND_WORK = {
     "diff_jacobi": (4, 2, 512, 45),  # x, b, Γ -> out; + diagonal and update
     "conv_component": (5, 4, 256, 12),  # x, 3 advectors -> out; 4 per axis
     "advect_pair": (3, 4, 256, 24),  # x, advector -> out; upwind 8 per axis
-    "axis_stencil5": (2, 4, 256, 25),  # 13 products, 12 sums
+    "axis_stencil5": (2, 4, 256, 29),  # 5-point on all three axes: 15 products, 14 sums
 }
 N_DARCY = 256
 # the variable-Γ kernels: the 3-D shapes, the Darcy cycle's levels that take
@@ -194,7 +212,6 @@ VG_SHAPES = KERNEL3D_SHAPES + [(1, N_DARCY, N_DARCY, N_DARCY), (1, 128, 128, 128
                                (1, 1025, 1025)]
 VG_COMBOS = [(False, "arithmetic", False), (False, "harmonic", True),
              (True, "arithmetic", True), (True, "harmonic", False)]
-VG_KERNELS = (("march", True), ("point", False))  # name, the wrappers' march=
 # kernel launches per Darcy 256^3 solve (bench_darcy's 5 CG iterations:
 # the FMG start and 6 preconditioner cycles, 5 passes per level, 24 on
 # the coarsest; the operator on the finest level)
@@ -222,6 +239,12 @@ DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "con
                 ("quick", "conservative")]
 N_ADV = (256, 512)  # timed sizes (f32)
 N_PATH = 256  # the implicit-advection paths' grid (Burgers: 257 nodes, 256 on the torus)
+# (the paths' 256^3 grid among them: Burgers, upwind and QUICK launch the
+# march there)
+AXIS_SHAPES = list(dict.fromkeys([s for s, _ in KERNEL_SHAPES if len(s) == 4] + EDGE_SHAPES
+                                 + [s for s in ADV_SHAPES if len(s) == 4]
+                                 + [(1, N_PATH, N_PATH, N_PATH)]))
+MODEL_SIZES = (65, 129)  # the Poisson model path's grids (f64)
 
 
 def _wrappers() -> dict:
@@ -263,9 +286,10 @@ def phase_device():
 
 
 def _entry_registers(log: str) -> list:
-    """(kernel, registers, spill stores) of each plane-march entry that
-    ptxas compiled, from its ``-v`` log; the kernel as ``name<dtype,
-    flags>`` (the template's int and bool parameters, bools as 0/1)."""
+    """(kernel, registers, spill stores) of each plane-march entry and
+    each per-point axis-stencil entry that ptxas compiled, from its ``-v``
+    log; the kernel as ``name<dtype,flags>`` (the template's int and bool
+    parameters, bools as 0/1)."""
     import re
 
     dtypes = {"13__nv_bfloat16": "bf16", "f": "f32", "d": "f64"}
@@ -273,16 +297,17 @@ def _entry_registers(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
-            cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march)_kernel)"
-                            r"I(13__nv_bfloat16|f|d)((?:L[bi]\d+E)+)", m.group(1))
+            cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march|axis_march"
+                            r"|axis_stencil(?:_dot|_ext|5)?)_kernel)"
+                            r"I(13__nv_bfloat16|f|d)((?:L[bi]\d+E)*)", m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and cur:
-            flags = ",".join(re.findall(r"L[bi](\d+)E", cur.group(3)))
-            out.append((f"{cur.group(1)}<{dtypes[cur.group(2)]},{flags}>", int(m.group(1)), spill))
+            args = [dtypes[cur.group(2)], *re.findall(r"L[bi](\d+)E", cur.group(3))]
+            out.append((f"{cur.group(1)}<{','.join(args)}>", int(m.group(1)), spill))
             cur = None
     return out
 
@@ -302,6 +327,10 @@ def phase_build():
     print("[2 build] plane-march registers (ptxas; single sweep <dtype,dot,full>, double sweep "
           "<dtype,from_zero,dot>): " + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs),
           flush=True)
+    regs = _entry_registers(builds["axis_stencil"].log)
+    print("[2 build] axis-stencil registers (ptxas; the plane march axis_march_kernel <dtype,"
+          "radius,full>; the per-point kernels <dtype[,ndim]>): "
+          + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs), flush=True)
     regs = _entry_registers(builds["diff_field"].log)
     print("[2 build] variable-Γ plane-march registers (ptxas; diff_jacobi <dtype,mode,iso,full,"
           "harmonic>, mode 0 smooth, 1 smooth0, 2 resid; diff_field <dtype,iso,full,harmonic>): "
@@ -454,23 +483,115 @@ def _library_stencil_ms(coeffs, x, ref, ext=None, blocks=None) -> float:
     return _time_ms(lambda: [torch.mv(A, v) for A, v in calls])
 
 
+def _axis_inputs(shape, points, dtype, dev, seed):
+    """x of ``shape`` (vdim first) and per axis ``points`` coefficient
+    vectors (made in f32, f64 for f64)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.float64 if dtype == torch.float64 else torch.float32
+    coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev, dtype=gen).to(dtype)
+                         for _ in range(p)) for n, p in zip(shape[1:], points))
+    return coeffs, torch.randn(shape, generator=g, device=dev, dtype=gen).to(dtype)
+
+
+def check_axis(dev, shapes=AXIS_SHAPES, forced=True, radii=(1, 2)) -> tuple:
+    """``axis_stencil`` (radius 1) and ``axis_stencil5`` (radius 2, the
+    points per axis of ``AXIS_POINTS``), the radii in ``radii``, against
+    ``apply_axis_stencil`` at ``shapes`` x ``DTYPES``: with ``forced`` the
+    plane march (also at ``MARCH_CHUNKS`` planes per block) and the
+    per-point kernel each forced, else the shape's choice through the
+    wrappers' common signature only (an older version under
+    ``ab_cells_torch.py --root``). Every
+    result within ``REL_TOL``, the same bits at every chunk and on another
+    call, and (forced) the march the same bits as the per-point kernel, or
+    raises. Returns the worst abs error per wrapper and the worst
+    err/limit per kernel."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil5
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+
+    kernels = FORCED_KERNELS if forced else (("choice", None),)
+    worst, worst_rel, n_cases = {}, {k: 0.0 for k, _ in kernels}, 0
+    for seed, shape in enumerate(shapes):
+        for dtname in DTYPES:
+            here = {k: 0.0 for k, _ in kernels}
+            for radius, fn in ((1, axis_stencil), (2, axis_stencil5)):
+                if radius not in radii:
+                    continue
+                name = fn.__name__
+                for points in AXIS_POINTS[radius]:
+                    coeffs, x = _axis_inputs(shape, points, getattr(torch, dtname), dev,
+                                             700 + seed)
+                    ref = apply_axis_stencil(coeffs, x)
+                    limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                    first = {}  # each kernel's output at the auto chunk
+                    for kern, march in kernels:
+                        kw = {} if march is None else {"march": march}
+                        outs = []
+                        for ci in (None, *MARCH_CHUNKS) if march else (None,):
+                            got = fn(coeffs, x, **({**kw, "chunk": ci} if forced else kw))
+                            torch.cuda.synchronize()
+                            if got.dtype != ref.dtype or got.shape != ref.shape:
+                                raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
+                                                   f"{tuple(got.shape)}")
+                            err = (got.double() - ref.double()).abs().max().item()
+                            if not err <= limit:
+                                raise RuntimeError(
+                                    f"chip_smoke: {name} {points} ({kern} kernel, chunk {ci}) "
+                                    f"disagrees with its plain version at {shape} {dtname}: "
+                                    f"{err:.3e} > {limit:.3e}")
+                            worst[name] = max(worst.get(name, 0.0), err)
+                            here[kern] = max(here[kern], err / limit if limit > 0 else 0.0)
+                            outs.append(got)
+                            n_cases += 1
+                        outs.append(fn(coeffs, x, **kw))  # the same bits on another call
+                        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                            raise RuntimeError(f"chip_smoke: {name} {points} ({kern} kernel) "
+                                               f"gave other bits at another plane chunk or "
+                                               f"call at {shape} {dtname}")
+                        first[kern] = outs[0]
+                        del outs
+                    if forced and not torch.equal(first["march"], first["point"]):
+                        raise RuntimeError(f"chip_smoke: {name} {points}: the march and the "
+                                           f"per-point kernel gave other bits at {shape} {dtname}")
+                    del ref, x, coeffs, first
+            for kern in here:
+                worst_rel[kern] = max(worst_rel[kern], here[kern])
+            print(f"[3 kernel] axis stencil {tuple(shape)} {dtname}: worst err/limit "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in here.items())
+                  + " (radius 1; radius 2 with 5-point axes (0, 2), all, 1"
+                  + (f"; the march at chunks auto, {', '.join(map(str, MARCH_CHUNKS))}"
+                     if forced else "") + ": same bits, and on another call"
+                  + ("; the march's bits equal the per-point kernel's" if forced else "") + ")",
+                  flush=True)
+    print(f"[3 kernel] axis stencil: {n_cases} cases hold ({len(shapes)} shapes x "
+          f"{len(DTYPES)} dtypes x {sum(len(AXIS_POINTS[r]) for r in radii)} equations"
+          + (f" x the per-point kernel and the march at {1 + len(MARCH_CHUNKS)} chunks"
+             if forced else ", the shape's choice of kernel")
+          + "), worst err/limit " + ", ".join(f"{k} {v:.3f}" for k, v in worst_rel.items()),
+          flush=True)
+    return worst, worst_rel
+
+
 def phase_kernel(dev):
-    """The axis-stencil kernel (slice 1) against its plain version."""
+    """The axis stencil of both radii, the plane march and the per-point
+    kernel each forced, against its plain version (``check_axis``); the
+    shape's choice at every ``KERNEL_SHAPES`` shape (a 2-D grid among
+    them); the 512^3 f32 apply timed (the shape's choice, the march)
+    beside the per-point kernel, the plain version and the CSR yardstick.
+    Returns the worst abs error per wrapper and (ms, plain_ms, lib_ms)."""
     import torch
 
     from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
     from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
 
-    worst = 0.0
+    worst, _ = check_axis(dev)
     timing = None
     for seed, (shape, dtname) in enumerate(KERNEL_SHAPES):
         dtype = getattr(torch, dtname)
-        g = torch.Generator(device=dev).manual_seed(seed)
-        coeffs = tuple(
-            tuple(torch.randn(n, generator=g, device=dev, dtype=dtype) for _ in range(3))
-            for n in shape[1:]
-        )
-        x = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+        coeffs, x = _axis_inputs(shape, (3,) * (len(shape) - 1), dtype, dev, seed)
         out = axis_stencil(coeffs, x)
         ref = apply_axis_stencil(coeffs, x)
         torch.cuda.synchronize()
@@ -478,28 +599,125 @@ def phase_kernel(dev):
         scale = ref.abs().max().item()
         ok = err <= REL_TOL[dtname] * scale
         print(
-            f"[3 kernel] axis_stencil {tuple(shape)} {dtname}: max_abs_err={err:.3e} "
-            f"(limit {REL_TOL[dtname]:.0e} x max|out| {scale:.3e}) {'ok' if ok else 'FAIL'}",
+            f"[3 kernel] axis_stencil {tuple(shape)} {dtname} (the shape's choice): "
+            f"max_abs_err={err:.3e} (limit {REL_TOL[dtname]:.0e} x max|out| {scale:.3e}) "
+            f"{'ok' if ok else 'FAIL'}",
             flush=True,
         )
         if not ok:
             raise RuntimeError(f"chip_smoke: kernel disagrees with plain version at {shape}")
-        worst = max(worst, err)
+        worst["axis_stencil"] = max(worst["axis_stencil"], err)
         if shape == (1, N_MAIN, N_MAIN, N_MAIN):
             ms = _time_ms(lambda: axis_stencil(coeffs, x))
+            point_ms = _time_ms(lambda: axis_stencil(coeffs, x, march=False))
             plain_ms = _time_ms(lambda: apply_axis_stencil(coeffs, x))
             lib_ms = _library_stencil_ms(coeffs, x, ref)
             gbs = 2 * x.numel() * x.element_size() / (ms * 1e-3) / 1e9
             timing = (ms, plain_ms, lib_ms)
             print(
-                f"[3 kernel] axis_stencil {N_MAIN}^3 f32 time: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, CSR product (torch.mv) {lib_ms:.4f} ms (median of 15 "
-                f"CUDA-event timings); kernel moves >= {gbs:.1f} GB/s (2 grids of compulsory "
-                "traffic)",
+                f"[3 kernel] axis_stencil {N_MAIN}^3 f32 time: kernel (the plane march) {ms:.4f} "
+                f"ms, the per-point kernel {point_ms:.4f} ms, plain {plain_ms:.4f} ms, CSR "
+                f"product (torch.mv) {lib_ms:.4f} ms (median of 15 CUDA-event timings); the "
+                f"march moves >= {gbs:.1f} GB/s (2 grids of compulsory traffic)",
                 flush=True,
             )
         del out, ref, x
     return worst, timing
+
+
+def axis_level_times(dev, n: int = N_MAIN, forced=True, radii=(1, 2)) -> list:
+    """``axis_stencil`` (radius 1) and ``axis_stencil5`` (radius 2,
+    5-point on all three axes), the radii in ``radii``, at n^3 f32 (the
+    fastdiag and MG-PCG Krylov loops), (n/2)^3 f32 (the advection paths'
+    grid), 129^3, 128^3 and 64^3 f32 (the threshold's neighbourhood, and a
+    grid that tiles overhang), ``MODEL_SIZES`` f64 (the Poisson model path) and every
+    level of the n^3 V-cycle in bf16 (the cycle's dtype; a cycle with
+    surgery applies the axis stencil there): per call (``_time_ms``) and on
+    the device back to back (``_device_ms``), the shape's choice and, with
+    ``forced``, the plane march and the per-point kernel each forced; the
+    share of the bound of the choice on the device; a device copy of x
+    beside it. Each row's shape-chosen output is first held against
+    ``apply_axis_stencil`` within ``REL_TOL`` (raises otherwise). Then the
+    wrapper's rule beside the smallest grid from which up the march is at
+    or below the per-point kernel on the device at every dtype and radius,
+    among grids whose every tile lies inside them (``march_full``). Without
+    ``forced`` only the wrappers' common signature is used (an older
+    version under ``ab_cells_torch.py --root``)."""
+    import torch
+
+    from pyapes_tpu_torch.ops import axis_stencil as A
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    cases = [((m,) * 3, "float32") for m in (n, n // 2, 129, 128, 64)]
+    cases += [((m,) * 3, "float64") for m in MODEL_SIZES]
+    cases += [(shape, "bfloat16") for shape in _level_shapes((n,) * 3)]
+    rows = []
+    for lvl, (shape, dtname) in enumerate(cases):
+        for radius, fn in ((1, A.axis_stencil), (2, A.axis_stencil5)):
+            if radius not in radii:
+                continue
+            coeffs, x = _axis_inputs((1, *shape), (2 * radius + 1,) * 3, getattr(torch, dtname),
+                                     dev, 960 + lvl)
+            ref = apply_axis_stencil(coeffs, x)
+            err = (fn(coeffs, x).double() - ref.double()).abs().max().item()
+            limit = REL_TOL[dtname] * ref.double().abs().max().item()
+            if not err <= limit:
+                raise RuntimeError(f"chip_smoke: {fn.__name__} (the shape's choice) disagrees "
+                                   f"with its plain version at {shape} {dtname}: {err:.3e} > "
+                                   f"{limit:.3e}")
+            del ref
+            pts = x.numel()
+            bound = _bound(2 * x.element_size() * pts, (17 if radius == 1 else 29) * pts)[0]
+            copy = torch.empty_like(x)  # a device copy of x: the traffic's yardstick
+            row = {"shape": shape, "dtype": dtname, "kernel": fn.__name__, "bound_ms": bound,
+                   "ms": _time_ms(lambda: fn(coeffs, x)),
+                   "device_ms": _device_ms(lambda: fn(coeffs, x)),
+                   "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
+                   "err_over_limit": err / limit if limit > 0 else 0.0}
+            if forced:
+                for kern, march in FORCED_KERNELS:
+                    row[f"{kern}_ms"] = _time_ms(lambda: fn(coeffs, x, march=march))
+                    row[f"{kern}_device_ms"] = _device_ms(lambda: fn(coeffs, x, march=march))
+                row["march"] = A.uses_march((1, *shape))
+            rows.append(row)
+            del coeffs, x, copy
+    print(f"[3 kernel] axis stencil at {n}^3, {n // 2}^3, 129^3, 128^3 and 64^3 f32, "
+          f"{' and '.join(map(str, MODEL_SIZES))}^3 f64 and the {n}^3 V-cycle's levels in bf16 "
+          "(5-point on every axis at radius 2), ms per call (median of 15 CUDA-event timings) / "
+          "device µs per call (30 back to back), the shape's choice (each within REL_TOL of "
+          f"the plain version, worst err/limit {max(r['err_over_limit'] for r in rows):.3f})"
+          + ("; the march and the per-point kernel forced" if forced else "")
+          + "; a device copy of x (read and write x once: the traffic's yardstick): "
+          + "; ".join(
+              f"{r['kernel']} {r['shape'][0]}^3 {r['dtype']} {r['ms']:.4f} / "
+              f"{1e3 * r['device_ms']:.2f} ({100 * r['bound_ms'] / r['device_ms']:.1f}% of "
+              f"{1e3 * r['bound_ms']:.2f}; copy {1e3 * r['copy_device_ms']:.2f})"
+              + (f" [march {r['march_ms']:.4f} / {1e3 * r['march_device_ms']:.2f}, per-point "
+                 f"{r['point_ms']:.4f} / {1e3 * r['point_device_ms']:.2f}]" if forced else "")
+              for r in rows), flush=True)
+    if forced:
+        wins = {}
+        for r in rows:
+            if not A.march_full((1, *r["shape"])):
+                continue
+            pts = r["shape"][0] * r["shape"][1] * r["shape"][2]
+            wins[pts] = wins.get(pts, True) and r["march_device_ms"] <= r["point_device_ms"]
+        edge = None
+        for pts in sorted(wins, reverse=True):  # the run of wins from the largest level down
+            if not wins[pts]:
+                break
+            edge = pts
+        other = [f"{r['kernel']} {r['shape'][0]}^3 {r['dtype']}" for r in rows
+                 if (r["march_device_ms"] > r["point_device_ms"] if r["march"]
+                     else r["point_device_ms"] > r["march_device_ms"])]
+        print(f"[3 kernel] axis stencil kernel choice: the march from {A.MARCH_MIN_POINTS} points "
+              f"per component on grids whose every tile lies inside them (the wrapper's rule); on "
+              f"the device back to back here, among such grids, the march at or below "
+              f"the per-point kernel at radius {radii} from "
+              f"{round(edge ** (1 / 3)) if edge else '-'}^3 up, and the kernel not chosen faster "
+              f"at: {', '.join(other) or 'no level'}", flush=True)
+    return rows
 
 
 def _level_inputs(shape, dtype, dev, seed):
@@ -766,7 +984,7 @@ def check_vg(dev, shapes=VG_SHAPES + EDGE_SHAPES, forced=True) -> tuple:
     worst abs error per wrapper and the worst err/limit per kernel."""
     import torch
 
-    kernels = VG_KERNELS if forced else (("choice", None),)
+    kernels = FORCED_KERNELS if forced else (("choice", None),)
     worst, worst_rel, n_cases = {}, {k: 0.0 for k, _ in kernels}, 0
     for seed, shape in enumerate(shapes):
         for dtname in DTYPES:
@@ -1301,10 +1519,21 @@ def _check_path(stats) -> None:
                            f"{TRUE_RES_F32}")
 
 
-def phase_burgers(dev, n: int = N_PATH) -> dict:
+class _Stepper:
+    """``step()`` of a model at a fixed dt."""
+
+    def __init__(self, model, dt):
+        self.model, self.dt = model, dt
+
+    def step(self):
+        self.model.step(self.dt)
+
+
+def burgers_model(dev, n: int = N_PATH):
     """``BurgersND`` at (n+1)^3 f32 on the periodic box, Taylor-Green start,
-    3 steps of dt 0.01 (BiCGSTAB + the frozen diffusion+dt FD
-    preconditioner, tol 1e-8, the model's defaults)."""
+    nu 0.1 (BiCGSTAB + the frozen diffusion+dt FD preconditioner, tol 1e-8,
+    the model's defaults): ``(stepper at dt 0.01, steps, kernels every step
+    launches, label)``."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -1318,11 +1547,18 @@ def phase_burgers(dev, n: int = N_PATH) -> dict:
     init = [(torch.sin(X) * torch.cos(Y) * torch.cos(Z))[None],
             (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None], torch.zeros((1, *mesh.nx))]
     clear_cache()  # the earlier phases' cached hierarchies and factors
-    model = BurgersND(mesh, nu=0.1, init_vals=init)
+    return (_Stepper(BurgersND(mesh, nu=0.1, init_vals=init), 0.01), 3,
+            ("conv_component", "axis_stencil"), f"BurgersND {n + 1}^3 f32 Taylor-Green")
+
+
+def phase_burgers(dev, n: int = N_PATH) -> dict:
+    """``burgers_model``'s 3 steps of dt 0.01."""
+    import torch
+
+    stepper, steps, required, label = burgers_model(dev, n)
+    model = stepper.model
     _reset_counts()
-    stats = _drive_steps(_Stepper(model, 0.01), model.solver, 3,
-                         f"BurgersND {n + 1}^3 f32 Taylor-Green",
-                         ("conv_component", "axis_stencil"))
+    stats = _drive_steps(stepper, model.solver, steps, label, required)
     counts = _counts()
     _check_path(stats)
     u = torch.cat([v() for v in model.vel])
@@ -1332,21 +1568,12 @@ def phase_burgers(dev, n: int = N_PATH) -> dict:
     return counts
 
 
-class _Stepper:
-    """``step()`` of a model at a fixed dt."""
-
-    def __init__(self, model, dt):
-        self.model, self.dt = model, dt
-
-    def step(self):
-        self.model.step(self.dt)
-
-
-def phase_advdiff(dev, n: int = N_PATH) -> dict:
+def advdiff_model(dev, limiter: str, n: int = N_PATH):
     """``AdvectionDiffusion`` at n^3 f32 on the unit box with homogeneous
-    Dirichlet faces, eps = 0.01, a Gaussian blob: (a) the velocity field
-    1 + 0.5 sin 2πx sin 2πy sin 2πz, upwind, 5 steps of dt 1e-3; (b) the
-    constant velocity 1 with QUICK, 3 steps."""
+    Dirichlet faces, eps = 0.01, a Gaussian blob: ``limiter`` "upwind"
+    with the velocity field 1 + 0.5 sin 2πx sin 2πy sin 2πz (5 steps),
+    "quick" with the constant velocity 1 (3 steps); ``(stepper at dt 1e-3,
+    steps, kernels every step launches, label)``."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -1358,21 +1585,27 @@ def phase_advdiff(dev, n: int = N_PATH) -> dict:
     mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
     X, Y, Z = mesh.X, mesh.Y, mesh.Z
     blob = torch.exp(-((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2) / (2 * 0.1**2))[None]
-    vel = (1.0 + 0.5 * torch.sin(2 * pi * X) * torch.sin(2 * pi * Y)
-           * torch.sin(2 * pi * Z))[None].contiguous()
+    if limiter == "upwind":
+        velocity = (1.0 + 0.5 * torch.sin(2 * pi * X) * torch.sin(2 * pi * Y)
+                    * torch.sin(2 * pi * Z))[None].contiguous()
+        steps, required, what = 5, ("advect_pair", "axis_stencil"), "velocity field, upwind"
+    else:
+        velocity, steps, what = 1.0, 3, "constant velocity, QUICK"
+        required = ("axis_stencil5", "axis_stencil")
+    clear_cache()
+    model = AdvectionDiffusion(mesh, homogeneous_bcs(3, 0.0, "dirichlet"), velocity=velocity,
+                               epsilon=0.01, limiter=limiter, init_val=blob)
+    return _Stepper(model, 1e-3), steps, required, f"AdvectionDiffusion {n}^3 f32 {what}"
+
+
+def phase_advdiff(dev, n: int = N_PATH) -> dict:
+    """``advdiff_model``'s upwind (5 steps) and QUICK (3 steps) cases."""
     counts = {}
-    for velocity, limiter, steps, required, label in (
-        (vel, "upwind", 5, ("advect_pair", "axis_stencil"),
-         f"AdvectionDiffusion {n}^3 f32 velocity field, upwind"),
-        (1.0, "quick", 3, ("axis_stencil5", "axis_stencil"),
-         f"AdvectionDiffusion {n}^3 f32 constant velocity, QUICK"),
-    ):
-        model = None
-        clear_cache()
-        model = AdvectionDiffusion(mesh, homogeneous_bcs(3, 0.0, "dirichlet"), velocity=velocity,
-                                   epsilon=0.01, limiter=limiter, init_val=blob)
+    for limiter in ("upwind", "quick"):
+        stepper, steps, required, label = advdiff_model(dev, limiter, n)
+        model = stepper.model
         _reset_counts()
-        stats = _drive_steps(_Stepper(model, 1e-3), model.solver, steps, label, required)
+        stats = _drive_steps(stepper, model.solver, steps, label, required)
         for name, c in _counts().items():
             counts[name] = counts.get(name, 0) + c
         _check_path(stats)
@@ -1380,6 +1613,7 @@ def phase_advdiff(dev, n: int = N_PATH) -> dict:
         if not bool(phi.isfinite().all()) or tuple(phi.shape) != (1, n, n, n):
             raise RuntimeError(f"chip_smoke: {label}: phi is not finite of shape (1, n^3)")
         print(f"[9 advection-diffusion path] {json.dumps(stats)}", flush=True)
+        del stepper, model, phi
     return counts
 
 
@@ -1679,7 +1913,7 @@ def _darcy_model(n: int, avg: str) -> dict:
 def phase_model():
     _reset_counts()
     out = {}
-    for n in (65, 129):
+    for n in MODEL_SIZES:
         rel, predicted, rep = _poisson_model_error(n)
         if abs(rel / predicted - 1.0) > 0.05:
             raise RuntimeError(
@@ -1722,12 +1956,14 @@ def main() -> None:
     dev, _ = phase_device()
     phase_build()
     worst1, timing1 = phase_kernel(dev)
+    axis_level_times(dev)
     worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
     vg_level_times(dev)
     worst4, timing4 = phase_kernel_advect(dev)
     worst5, timing5 = phase_kernel_ext(dev)
-    worst = {"axis_stencil": worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
+    worst = {**worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
+    worst["axis_stencil5"] = max(worst1["axis_stencil5"], worst4["axis_stencil5"])
     timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4,
               "axis_stencil_ext": timing5}
 
@@ -1777,7 +2013,9 @@ def main() -> None:
           f"Jacobi family, the halo-extended kernel on the {N_DECOMP} blocks of 512^3); "
           "diff_field and diff_jacobi: ms of the plane march (diff_*_march_kernel in "
           "csrc/diff_march.cu, the source named), their launches of both kernels (the per-point "
-          "diff_*_kernel in csrc/diff_field.cu below the march's threshold); library_ms: one CSR "
+          "diff_*_kernel in csrc/diff_field.cu below the march's threshold); axis_stencil and "
+          "axis_stencil5 likewise (axis_march_kernel in csrc/axis_march.cu, the per-point "
+          "kernels in csrc/axis_stencil.cu); library_ms: one CSR "
           "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
           "and Conv at their advectors), none for the fused ones", flush=True)
     print(json.dumps({"kernels": [{

@@ -1,4 +1,6 @@
-// Per-axis 3-point stencil apply for Hopper (sm_90a), summed over mesh axes:
+// Per-axis 3-point stencil apply for Hopper (sm_90a), summed over mesh axes
+// (this file: the per-point kernels and the C entries; the plane march that
+// takes 3-D grids from the wrapper's threshold up is csrc/axis_march.cu):
 //
 //   out[d, i, j, k] = sum_a  ap_a[i_a] * x[.., i_a + 1 mod n_a, ..]
 //                          + ac_a[i_a] * x[.., i_a, ..]
@@ -31,7 +33,7 @@
 // The Python wrapper and the design note are in ops/axis_stencil.py.
 // Plain C interface, loaded with ctypes.
 
-#include "common.cuh"
+#include "axis_march.cuh"
 
 namespace {
 
@@ -299,6 +301,27 @@ cudaError_t launch_ext(const void* x, void* out, const void* const* coeffs, int 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_march(int radius, int vdim, const int* n, const void* x, void* out,
+                         const void* const* coeffs, int five, int ci, int cw, cudaStream_t s) {
+  pyapes::AxisMarchParams<T> q;
+  for (int a = 0; a < 3; ++a) {
+    q.n[a] = n[a];
+    for (int t = 0; t < 5; ++t) q.c[a][t] = static_cast<const T*>(coeffs[5 * a + t]);
+  }
+  q.five = five;
+  if (radius == 1) return pyapes::axis_march_launch<T, 1>(vdim, q, x, out, ci, cw, s);
+  if (radius == 2) return pyapes::axis_march_launch<T, 2>(vdim, q, x, out, ci, cw, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t march_occupancy(int radius, int full, int* blocks) {
+  if (radius == 1) return pyapes::axis_march_occupancy<T, 1>(full != 0, blocks);
+  if (radius == 2) return pyapes::axis_march_occupancy<T, 2>(full != 0, blocks);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -336,6 +359,39 @@ int pyapes_axis_stencil5(int dtype, int ndim, int vdim, int n0, int n1, int n2,
   if (dtype == 0) return dispatch5<float>(ndim, x, out, coeffs, vdim, n, s);
   if (dtype == 1) return dispatch5<double>(ndim, x, out, coeffs, vdim, n, s);
   if (dtype == 2) return dispatch5<__nv_bfloat16>(ndim, x, out, coeffs, vdim, n, s);
+  return cudaErrorInvalidValue;
+}
+
+// The plane march (3-D): radius 1 (3-point axes, axis_stencil) or 2
+// (5-point axes mixed with 3-point ones, axis_stencil5). x, out: (vdim, n0,
+// n1, n2) C-contiguous on the device; coeffs: 15 device pointers (app, ap,
+// ac, am, amm) per axis as for pyapes_axis_stencil5 (radius 1 reads ap, ac,
+// am only); five: bit a set = axis a is 5-point (radius 2). ci: planes per
+// block along axis 0. cw: bytes per staging copy, 16, 8 or 4 (at least the
+// dtype's size; n2 * sizeof(dtype) and x's base pointer multiples of it),
+// or 0 for element loads. n1 * n2 must fit an int. Returns
+// cudaGetLastError() after the launch (0 on success); launches on `stream`,
+// does not synchronise and allocates nothing.
+int pyapes_axis_march(int dtype, int radius, int vdim, int n0, int n1, int n2, const void* x,
+                      void* out, const void* const* coeffs, int five, int ci, int cw,
+                      void* stream) {
+  const int n[3] = {n0, n1, n2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_march<float>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
+  if (dtype == 1) return launch_march<double>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
+  if (dtype == 2)
+    return launch_march<__nv_bfloat16>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of the plane march of `radius` (dtype as above; full: the kernel of
+// grids whose every tile lies inside, n1 % 16 == 0 and n2 % 128 == 0) that
+// one SM of the current device holds at once, into *blocks. Returns a CUDA
+// error code (0 on success).
+int pyapes_axis_march_blocks_per_sm(int dtype, int radius, int full, int* blocks) {
+  if (dtype == 0) return march_occupancy<float>(radius, full, blocks);
+  if (dtype == 1) return march_occupancy<double>(radius, full, blocks);
+  if (dtype == 2) return march_occupancy<__nv_bfloat16>(radius, full, blocks);
   return cudaErrorInvalidValue;
 }
 

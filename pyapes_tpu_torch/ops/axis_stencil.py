@@ -1,4 +1,4 @@
-"""Per-axis 3-point stencil apply, and the apply fused with the CG
+"""Per-axis 3- and 5-point stencil apply, and the apply fused with the CG
 alpha-dot: the hand-written Hopper kernels and their wrappers (the port's
 counterpart of the axis-stencil kernels of ``pyapes_tpu/ops/pallas_stencil*.py``).
 
@@ -6,43 +6,67 @@ counterpart of the axis-stencil kernels of ``pyapes_tpu/ops/pallas_stencil*.py``
 function — ``pallas_stencil.py::pallas_axis_stencil`` (2-D and 3-D tiled),
 ``pallas_stencil_db.py::pallas_axis_stencil_db`` (3-D, double-buffered
 ghost DMAs) and ``pallas_stencil_v3.py::pallas_axis_stencil_v3`` (3-D,
-slab-resident) — with ONE CUDA kernel, ``csrc/axis_stencil.cu``, for any
-grid of at least 3 nodes per axis: the TPU's (8, 128) tiling gates,
+slab-resident) — with the kernels below (radius 1), for any grid of at
+least 3 nodes per axis: the TPU's (8, 128) tiling gates,
 pad-and-crop and in-register row selection do not apply on the card.
 ``axis_stencil_dot`` replaces ``pallas_stencil_db.py::pallas_axis_stencil_dot``
 and ``pallas_stencil_v3.py::pallas_axis_stencil_dot_v3`` (3-D): the same
 apply plus ``sum(x * A x)`` per component, so CG never re-reads ``d`` and
 ``A d`` for its alpha-dot. ``axis_stencil5`` replaces
 ``pallas_stencil_v3.py::pallas_axis_stencil_v5``: the apply with 5-point
-(QUICK, offsets +-2) axes mixed with 3-point ones, 1-3-D, on the same
-design (a 3-point axis skips the +-2 loads); ``axis_stencil`` hands a
-5-point equation to it. ``axis_stencil_ext`` replaces
+(QUICK, offsets +-2) axes mixed with 3-point ones, 1-3-D: the same
+kernels at radius 2; ``axis_stencil`` hands a 5-point equation to it.
+``axis_stencil_ext`` replaces
 ``pallas_stencil_v3.py::pallas_axis_stencil_ext``: the 3-D apply on one
 block of a domain decomposition, extended by one ghost row per side of
 each cut axis (``parallel/halo.py`` fills the ghosts), with no wrap on
 an extended axis, writing through output strides into the block's view
 of the global result (no stitching pass).
 
-What bounds them: the apply does ~7 multiply-adds per point against 2-4
-bytes each way (bf16/f32) of compulsory traffic (read x, write out), far
-below the card's FLOP-to-byte balance — they are HBM-bound, and the floor
-is about two grids of device-memory traffic per apply. The design aims at
-that traffic without shared-memory tiling: one thread per output point
-with the last axis along ``threadIdx.x``, so the centre, +-1 last-axis and
-output accesses coalesce; the +-1 rows and planes are re-reads that
-consecutive blocks (which walk the grid in memory order) find in L1/L2
-(50 MB holds dozens of 512^2 planes), so x is fetched from HBM about once.
-The torus wrap is index arithmetic, the per-axis coefficient vectors are a
-few KB read through the cache, and the sum accumulates in
-``promote(dtype, f32)`` (bf16 is loaded, widened to f32 and rounded once
-on store). The dot kernel reduces each 128-thread block with warp shuffles
-into one partial; the wrapper sums the partials with ``torch.sum`` in a
-fixed order (no atomics, so a solve's ``itr`` is the same every run).
-``cp.async``/TMA plane tiling is later work.
+What bounds them: the apply does 2R+1 multiply-adds per axis and point
+(R = 1: 3-point, R = 2: 5-point) against 2-4 bytes each way (bf16/f32) of
+compulsory traffic (read x, write out), far below the card's FLOP-to-byte
+balance — they are HBM-bound, and the floor is two grids of device-memory
+traffic per apply. ``axis_stencil`` and ``axis_stencil5`` are one function
+at two radii, computed by two hand-written kernels chosen by the shape
+alone (``uses_march``), never by a failure:
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and calls
+* the plane march (``csrc/axis_march.cu``, 3-D grids of at least
+  ``MARCH_MIN_POINTS`` points per component whose every column tile lies
+  inside them), one template for both radii:
+  ``ops/jacobi.py``'s single-sweep design with a reach of R. A
+  block owns a 16 x 128 ``(j, k)`` column tile and a chunk of planes of
+  one component along axis 0 (``ops/march.py``); x is staged with
+  16-byte ``cp.async`` copies on a ±R-row, ±16-byte-column window into a
+  ring of 2R+2 shared-memory slots, two steps ahead; a thread keeps its
+  points' axis-0 neighbours x(p-R) .. x(p+R-1) in registers, so x is read
+  from HBM about once. Coefficients are never read per point: axis 0's
+  per plane (uniform), axis 1's per row and axis 2's per column in
+  registers. Wrap tables once per block, no ``%`` per point; a 3-point
+  axis of a 5-point equation skips its ±2 taps on a block-uniform bit; a
+  ``FULL`` instance for grids whose every tile lies inside them.
+* the per-point kernels (``csrc/axis_stencil.cu``; 1-D, 2-D and small 3-D
+  grids, where a launch is latency): one thread per output point with the
+  last axis along ``threadIdx.x``; the ±1 (±2) rows and planes are
+  re-reads that consecutive blocks find in L1/L2.
+
+Both sum axis 0, 1, 2 in the plain version's order in ``promote(dtype,
+f32)`` (bf16 is loaded, widened to f32 and rounded once on store) and wrap
+every neighbour as ``torch.roll`` does. A march point is the per-point
+kernel's expression term for term, so the two kernels give the same bits
+(a solve takes the same iterations whichever kernel its shapes take), and
+chunk seams change no bits. The alpha-dot and the halo-extended kernels
+keep one thread per point (their redesigns are queued). The dot kernel
+reduces each 128-thread block with warp shuffles into one partial; the
+wrapper sums the partials with ``torch.sum`` in a fixed order (no
+atomics, so a solve's ``itr`` is the same every run).
+
+Each wrapper launches a kernel for a CUDA tensor (or raises) and calls
 the plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
-counts kernel launches.
+counts kernel launches. ``axis_stencil`` and ``axis_stencil5`` take
+``march=True``/``False`` (force either kernel at any 3-D shape) and
+``chunk=`` (the march's planes per block); tests and ``chip_smoke.py`` pin
+both with them.
 """
 from __future__ import annotations
 
@@ -52,6 +76,7 @@ import functools
 import torch
 
 from pyapes_tpu_torch.ops import cuda_build
+from pyapes_tpu_torch.ops.march import copy_bytes, march_geometry, resident_blocks
 from pyapes_tpu_torch.ops.stencil import (
     apply_axis_stencil,
     apply_axis_stencil_dot,
@@ -60,7 +85,17 @@ from pyapes_tpu_torch.ops.stencil import (
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
-_THREADS = 128  # threads per block of both kernels (csrc/axis_stencil.cu)
+_THREADS = 128  # threads per block of the per-point kernels (csrc/axis_stencil.cu)
+# the march's (j, k) column tile (csrc/axis_march.cu AM_TJ x AM_TK), and a
+# block's fixed cost in planes by radius (its prologue's 2R planes)
+_TILE = (16, 128)
+_SETUP_PLANES = {1: 2, 2: 4}
+# the least points per component of a 3-D grid that the march takes, on
+# grids whose every tile lies inside them: else the per-point kernel. On
+# the device, back to back, the march is the faster from 128^3 up and the
+# slower at 64^3 (f32) and below, at both radii; at 129^3 (tiles 45%
+# filled) it is the slower (PERF.md §6)
+MARCH_MIN_POINTS = 128**3
 
 
 @functools.lru_cache(maxsize=1)
@@ -76,16 +111,37 @@ def _lib() -> ctypes.CDLL:
     I, L = ctypes.c_int, ctypes.c_longlong
     lib.pyapes_axis_stencil_ext.argtypes = [I] * 7 + [P, P, L, L, L, ctypes.POINTER(P), P]
     lib.pyapes_axis_stencil_ext.restype = ctypes.c_int
+    lib.pyapes_axis_march.argtypes = [I] * 6 + [P, P, ctypes.POINTER(P)] + [I] * 3 + [P]
+    lib.pyapes_axis_march.restype = I
+    lib.pyapes_axis_march_blocks_per_sm.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+    lib.pyapes_axis_march_blocks_per_sm.restype = I
     return lib
 
 
-def check_inputs(coeffs, x: torch.Tensor, points=(3, 5)) -> None:
+def uses_march(shape) -> bool:
+    """The kernel a ``(vdim, *nx)`` operand takes, from its shape alone:
+    the plane march for a 3-D grid of at least ``MARCH_MIN_POINTS`` points
+    per component whose every column tile lies inside it (``march_full``),
+    else the per-point kernel (1-D, 2-D, small grids, tiles that overhang
+    the grid)."""
+    nx = tuple(shape[1:])
+    return len(nx) == 3 and nx[0] * nx[1] * nx[2] >= MARCH_MIN_POINTS and march_full(shape)
+
+
+def march_full(shape) -> bool:
+    """Every march tile lies inside the grid of a ``(vdim, n0, n1, n2)``
+    operand (the march's ``FULL`` instance, compile-time window bounds)."""
+    return shape[-2] % _TILE[0] == 0 and shape[-1] % _TILE[1] == 0
+
+
+def check_inputs(coeffs, x: torch.Tensor, points=(3, 5), march=False) -> None:
     """Raise on what the kernels do not take: dtype other than
     bf16/f32/f64, 1-3 mesh axes, a non-contiguous ``x``, an axis entry of
     other than 3 or 5 vectors, a 5-point axis where ``points`` is ``(3,)``
     (the alpha-dot kernel: CG operators are 3-point), coefficient vectors
     of the wrong length, dtype, device or layout, an axis with fewer than 3
-    nodes, or a grid beyond the launch limits."""
+    nodes, or a grid beyond the per-point kernels' launch limits (with
+    ``march``: the plane march's, which ``_launch`` checks on its grid)."""
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"axis_stencil: dtype {x.dtype} not supported (bf16, f32, f64)")
     ndim = x.ndim - 1
@@ -112,13 +168,15 @@ def check_inputs(coeffs, x: torch.Tensor, points=(3, 5)) -> None:
                     f"axis_stencil: axis {a} coefficients must be contiguous "
                     f"{x.dtype} on {x.device}"
                 )
+    if march:
+        return
     n_mid = x.shape[-2] if ndim >= 2 else 1
     n_slab = x.shape[0] * (x.shape[1] if ndim == 3 else 1)
     if n_mid > _MAX_GRID_YZ or n_slab > _MAX_GRID_YZ:
         raise ValueError(f"axis_stencil: grid {tuple(x.shape)} exceeds the launch limits")
 
 
-def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,)):
+def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,), march=False):
     """The library (loading it first: a CUDA tensor never falls back to the
     plain version), then the checked coefficient pointers and stream:
     ``(ap, ac, am)`` per axis, or with ``points=(3, 5)`` ``(app, ap, ac,
@@ -126,7 +184,7 @@ def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,)):
     if x.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
     lib = _lib()
-    check_inputs(coeffs, x, points)
+    check_inputs(coeffs, x, points, march)
     width = max(points)
     ptrs = []
     for cs in coeffs:
@@ -137,30 +195,61 @@ def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,)):
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def axis_stencil(coeffs, x: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, coeffs, x: torch.Tensor, radius: int, march, chunk) -> torch.Tensor:
+    """Launch the apply of ``radius`` (1: ``axis_stencil``, 2:
+    ``axis_stencil5``) on a CUDA tensor: the plane march or the per-point
+    kernel (``march`` None: ``uses_march``, the shape alone; True on a 1-D
+    or 2-D grid raises), ``chunk`` the march's planes per block."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _lib()  # loaded first: a CUDA tensor never falls back to the plain version
+    march = uses_march(x.shape) if march is None else bool(march)
+    if march and x.ndim != 4:
+        raise ValueError(f"{name}: the plane march takes 3-D grids, got {tuple(x.shape)}")
+    points = (3,) if radius == 1 and not march else (3, 5)
+    lib, cptrs, stream = _cuda_launch_args(name, coeffs, x, points, march)
+    out = torch.empty_like(x)
+    dtype = _DTYPE_CODE[x.dtype]
+    with torch.cuda.device(x.device):
+        if march:
+            vdim, n0, n1, n2 = x.shape
+            resident = resident_blocks(lib, x.device.index, "pyapes_axis_march_blocks_per_sm",
+                                       x.dtype, radius, int(march_full(x.shape)))
+            grid, ci, _ = march_geometry(x.shape, resident, chunk, _TILE, _SETUP_PLANES[radius])
+            if max(grid[1:]) > _MAX_GRID_YZ or n1 * n2 >= 2**31:
+                raise ValueError(f"{name}: grid {tuple(x.shape)} exceeds the march's launch limits")
+            five = sum(1 << a for a, cs in enumerate(coeffs) if len(cs) == 5)
+            err = lib.pyapes_axis_march(dtype, radius, vdim, n0, n1, n2, x.data_ptr(),
+                                        out.data_ptr(), cptrs, five, ci, copy_bytes(x, n2, [x]),
+                                        stream)
+        else:
+            ndim = x.ndim - 1
+            n = list(x.shape[1:]) + [1] * (3 - ndim)
+            entry = lib.pyapes_axis_stencil if radius == 1 else lib.pyapes_axis_stencil5
+            err = entry(dtype, ndim, x.shape[0], *n, x.data_ptr(), out.data_ptr(), cptrs, stream)
+    cuda_build.check(lib, err, name)
+    return out
+
+
+def axis_stencil(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.Tensor:
     """``sum_a ap_a x[+1] + ac_a x + am_a x[-1]`` over mesh axes, torus wrap.
 
     Args:
         coeffs: per mesh axis, a 3-tuple of 1-D tensors ``(ap, ac, am)``.
         x: field values ``(vdim, *nx)``.
+        march: the kernel of a CUDA tensor: None the shape's choice
+            (``uses_march``), True the plane march (3-D), False the
+            per-point kernel.
+        chunk: the march's planes per block (None: ``march_geometry``'s).
 
     A CPU tensor goes to the plain ``apply_axis_stencil``; a CUDA tensor
-    launches the kernel on the current stream, or raises. An equation with
+    launches a kernel on the current stream, or raises. An equation with
     a 5-point axis goes to ``axis_stencil5``."""
     if any(len(cs) == 5 for cs in coeffs):
-        return axis_stencil5(coeffs, x)
+        return axis_stencil5(coeffs, x, march=march, chunk=chunk)
     if x.device.type == "cpu":
         return apply_axis_stencil(coeffs, x)
-    lib, cptrs, stream = _cuda_launch_args("axis_stencil", coeffs, x)
-    ndim = x.ndim - 1
-    n = list(x.shape[1:]) + [1] * (3 - ndim)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.pyapes_axis_stencil(
-            _DTYPE_CODE[x.dtype], ndim, x.shape[0], *n,
-            x.data_ptr(), out.data_ptr(), cptrs, stream,
-        )
-    cuda_build.check(lib, err, "axis_stencil")
+    out = _launch("axis_stencil", coeffs, x, 1, march, chunk)
     axis_stencil.launches += 1
     return out
 
@@ -191,24 +280,16 @@ def axis_stencil_dot(coeffs, x: torch.Tensor):
     return out, partial.sum(dim=1).reshape(vdim, 1, 1, 1)
 
 
-def axis_stencil5(coeffs, x: torch.Tensor) -> torch.Tensor:
+def axis_stencil5(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.Tensor:
     """``sum_a`` of each axis' 5-point ``app x[+2] + ap x[+1] + ac x + am
     x[-1] + amm x[-2]`` (or 3-point ``(ap, ac, am)``) terms, torus wrap.
 
     A CPU tensor goes to the plain ``apply_axis_stencil``; a CUDA tensor
-    launches the 5-point kernel on the current stream, or raises."""
+    launches a radius-2 kernel on the current stream (``march``, ``chunk``
+    as in ``axis_stencil``), or raises."""
     if x.device.type == "cpu":
         return apply_axis_stencil(coeffs, x)
-    lib, cptrs, stream = _cuda_launch_args("axis_stencil5", coeffs, x, points=(3, 5))
-    ndim = x.ndim - 1
-    n = list(x.shape[1:]) + [1] * (3 - ndim)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.pyapes_axis_stencil5(
-            _DTYPE_CODE[x.dtype], ndim, x.shape[0], *n,
-            x.data_ptr(), out.data_ptr(), cptrs, stream,
-        )
-    cuda_build.check(lib, err, "axis_stencil5")
+    out = _launch("axis_stencil5", coeffs, x, 2, march, chunk)
     axis_stencil5.launches += 1
     return out
 

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written Hopper kernels.
 
 Every library ``<name>`` is built from its translation units (``UNITS``:
-by default ``csrc/<name>.cu`` alone; the variable-Γ library also from
-``csrc/diff_march.cu`` once per storage dtype and Γ layout), each with the
-shared ``csrc/*.cuh``, compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
-per unit, all started together) and linked into a shared library with a
-plain C interface, loaded with ``ctypes``. A build is keyed by the hash of
+by default ``csrc/<name>.cu`` alone; the axis-stencil library also from
+``csrc/axis_march.cu`` once per storage dtype and radius, the variable-Γ
+library from ``csrc/diff_march.cu`` once per storage dtype and Γ layout),
+each with the shared ``csrc/*.cuh``, compiled by ``nvcc`` for ``sm_90a``
+(one ``nvcc`` per unit, all started together) and linked into a shared
+library with a plain C interface, loaded with ``ctypes``. A build is keyed by the hash of
 its sources, headers and flags, written atomically into the gitignored
 ``build/`` directory, and made at first use, so a fresh checkout needs
 nothing but ``nvcc``. ``build_all()`` starts every unit of every library
@@ -28,6 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect")
 # the libraries of more than one unit: (source stem, its own nvcc flags)
 UNITS = {
+    "axis_stencil": (("axis_stencil", ()),) + tuple(
+        ("axis_march", (f"-DAM_DTYPE={dtype}", f"-DAM_R={radius}"))
+        for dtype in (2, 0, 1) for radius in (1, 2)),
     "diff_field": (("diff_field", ()),) + tuple(
         ("diff_march", (f"-DVG_DTYPE={dtype}", f"-DVG_ISO={iso}"))
         for dtype in (2, 0, 1) for iso in (1, 0)),

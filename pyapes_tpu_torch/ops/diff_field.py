@@ -26,7 +26,7 @@ hand-written kernels compute both, chosen by the shape alone
   planes ahead of use; a thread keeps x, Γ_0 and the axis-0 face of its
   points along the march, so every face is computed once; wrap, surgery
   and mask are resolved once per block or plane. The chunk follows
-  ``jacobi.march_geometry``.
+  ``ops/march.py``'s ``march_geometry``.
 * the per-point kernel (smaller grids, where a launch is latency, and 2-D
   grids): one thread per point, the last axis along ``threadIdx.x``,
   neighbour rows and planes of x and Γ re-read through L1/L2.
@@ -52,7 +52,7 @@ import functools
 import torch
 
 from pyapes_tpu_torch.ops import cuda_build
-from pyapes_tpu_torch.ops.jacobi import _copy_bytes, _resident, march_geometry
+from pyapes_tpu_torch.ops.march import copy_bytes, march_geometry, resident_blocks
 from pyapes_tpu_torch.ops.stencil import apply_diff_field, apply_diff_jacobi
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
@@ -185,13 +185,14 @@ def _launch(lib, name, mode, x, b, g, inv_dx2, surgery, avg, omega, mask_axes, m
     march = uses_march(op.shape) if march is None else bool(march)
     if march:
         iso = g.ndim == op.ndim - 1
-        resident = _resident(lib, op.device.index, "pyapes_diff_jacobi_blocks_per_sm", op.dtype,
-                             mode, int(iso), int(march_full(op.shape, op.dtype)), _AVG[avg])
+        resident = resident_blocks(lib, op.device.index, "pyapes_diff_jacobi_blocks_per_sm",
+                                   op.dtype, mode, int(iso), int(march_full(op.shape, op.dtype)),
+                                   _AVG[avg])
         grid, ci, _ = march_geometry((vdim, *n), resident, chunk, _VG_TILE[op.dtype],
                                      _VG_SETUP_PLANES)
         if n[1] * n[2] >= 2**31:
             raise ValueError(f"{name}: a plane of {tuple(op.shape)} exceeds 2^31 points")
-        cw = _copy_bytes(op, n[2], [t for t in (x, b) if t is not None] + gs)
+        cw = copy_bytes(op, n[2], [t for t in (x, b) if t is not None] + gs)
     else:
         grid, ci, cw = point_grid(op.shape), 0, 0
     if max(grid[1:]) > _MAX_GRID_YZ:

@@ -44,9 +44,10 @@ the wrap and the mask are resolved once per block; math in
   six faces re-read x 2.5x and computed y on 1.66x.
 
 The chunk length adapts to the grid and to the blocks the card holds at
-once (``march_geometry``): long chunks where the column tiles alone fill
-the card, short ones where they do not. A point's value is one expression
-with explicit fma wherever it is computed, so chunk seams change no bits.
+once (``ops/march.py``'s ``march_geometry``): long chunks where the
+column tiles alone fill the card, short ones where they do not. A point's
+value is one expression with explicit fma wherever it is computed, so
+chunk seams change no bits.
 Dots are one partial per block (warp-shuffle tree), summed by the wrapper
 with ``torch.sum`` in a fixed order: no atomics, so ``itr`` does not
 change from run to run.
@@ -63,6 +64,7 @@ import functools
 import torch
 
 from pyapes_tpu_torch.ops import cuda_build
+from pyapes_tpu_torch.ops.march import copy_bytes, march_geometry, resident_blocks
 from pyapes_tpu_torch.ops.stencil import (
     apply_jacobi3d,
     apply_jacobi3d_dot,
@@ -144,70 +146,6 @@ def _cuda_lib(name: str, t: torch.Tensor) -> ctypes.CDLL:
     return _lib()
 
 
-@functools.lru_cache(maxsize=256)
-def _chunk(n0: int, columns: int, resident: int, setup: int) -> int:
-    """Planes per block along axis 0 for ``columns`` column tiles (all
-    components) when the card holds ``resident`` blocks at once: the chunk
-    whose launch takes the fewest plane-steps, (waves of blocks) x (planes
-    a block marches + ``setup``); the longest among equals."""
-    best = None
-    for nch in range(1, n0 + 1):
-        ci = -(-n0 // nch)
-        if -(-n0 // ci) != nch:
-            continue
-        cost = -(-columns * nch // resident) * (ci + setup)
-        if best is None or cost < best[0]:
-            best = (cost, ci)
-    return best[1]
-
-
-def march_geometry(shape, resident: int, chunk, tile, setup):
-    """Launch geometry of a plane march on a ``(vdim, n0, n1, n2)`` grid
-    in ``tile`` = ``(tj, tk)`` column tiles (``_J1_TILE``, ``_X2_TILE``):
-    ``(grid, chunk, partials)``. ``grid`` is ``(ceil(n2 / tk), ceil(n1 /
-    tj), vdim * ceil(n0 / chunk))`` blocks; block ``(bx, by, bz)`` writes
-    component ``bz // ceil(n0 / chunk)``, planes ``chunk * (bz % ceil(n0 /
-    chunk))`` on (at most ``chunk`` of them), rows ``tj by`` on and columns
-    ``tk bx`` on. ``chunk`` (planes per block): when None, ``_chunk``'s
-    choice for a card that holds ``resident`` blocks at once, each with a
-    fixed cost of ``setup`` planes (``_J1_SETUP_PLANES``,
-    ``_X2_SETUP_PLANES``); given, it is taken as is. ``partials``: the dot
-    partials per component, one per block."""
-    vdim, n0, n1, n2 = shape
-    tj, tk = tile
-    gx, gy = -(-n2 // tk), -(-n1 // tj)
-    if chunk is None:
-        chunk = _chunk(n0, gx * gy * vdim, resident, setup)
-    chunk = max(1, min(int(chunk), n0))
-    nch = -(-n0 // chunk)
-    return (gx, gy, vdim * nch), chunk, gx * gy * nch
-
-
-@functools.lru_cache(maxsize=None)
-def _resident(lib: ctypes.CDLL, device: int, entry: str, dtype: torch.dtype, *flags: int) -> int:
-    """Blocks of a plane march the card holds at once: its SMs times the
-    blocks per SM that the kernel's registers and shared memory allow
-    (from the C entry ``entry`` of ``lib`` with the kernel's template
-    ``flags``)."""
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = getattr(lib, entry)(_DTYPE_CODE[dtype], *flags, ctypes.byref(blocks))
-    cuda_build.check(lib, err, entry)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, blocks.value) * sms
-
-
-def _copy_bytes(b, n2, operands) -> int:
-    """Bytes per staging copy of a plane march: the widest of 16, 8, 4 (at
-    least an element) that divides a row and every operand's address; 0
-    (element loads) when none does (bf16 rows of odd length)."""
-    size = b.element_size()
-    for cw in (16, 8, 4):
-        if cw >= size and n2 * size % cw == 0 and all(t.data_ptr() % cw == 0 for t in operands):
-            return cw
-    return 0
-
-
 def _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, dot: bool, chunk):
     name = "jacobi3d_dot" if dot else "jacobi3d"
     lib = _cuda_lib(name, b)
@@ -215,8 +153,8 @@ def _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, dot: bool, chunk):
         raise ValueError(f"{name}: x is required")
     vdim, n0, n1, n2 = b.shape
     full = n1 % _J1_TILE[0] == 0 and n2 % _J1_TILE[1] == 0  # the kernel the launch takes
-    resident = _resident(lib, b.device.index, "pyapes_jacobi3d_blocks_per_sm", b.dtype, int(dot),
-                         int(full))
+    resident = resident_blocks(lib, b.device.index, "pyapes_jacobi3d_blocks_per_sm", b.dtype,
+                               int(dot), int(full))
     grid, chunk, n_partial = march_geometry(b.shape, resident, chunk, _J1_TILE, _J1_SETUP_PLANES)
     check_inputs(x, b, inv_dx2, mask_axes, grid[1:])
     out = torch.empty_like(b)
@@ -227,7 +165,7 @@ def _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, dot: bool, chunk):
             x.data_ptr(), b.data_ptr(), out.data_ptr(),
             partial.data_ptr() if dot else None,
             *(float(v) for v in inv_dx2), float(alpha), float(beta),
-            _mask_bits(mask_axes), chunk, _copy_bytes(b, n2, [x, b]),
+            _mask_bits(mask_axes), chunk, copy_bytes(b, n2, [x, b]),
             torch.cuda.current_stream(b.device).cuda_stream,
         )
     cuda_build.check(lib, err, name)
@@ -269,11 +207,11 @@ def jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero=False, emit_dot=False,
         return apply_jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero, emit_dot)
     lib = _cuda_lib("jacobi3d_x2", b)
     vdim, n0, n1, n2 = b.shape
-    resident = _resident(lib, b.device.index, "pyapes_jacobi3d_x2_blocks_per_sm", b.dtype,
-                         int(bool(from_zero)), int(bool(emit_dot)))
+    resident = resident_blocks(lib, b.device.index, "pyapes_jacobi3d_x2_blocks_per_sm", b.dtype,
+                               int(bool(from_zero)), int(bool(emit_dot)))
     grid, chunk, n_partial = march_geometry(b.shape, resident, chunk, _X2_TILE, _X2_SETUP_PLANES)
     check_inputs(None if from_zero else x, b, inv_dx2, mask_axes, grid[1:])
-    cw = _copy_bytes(b, n2, [b] if from_zero else [x, b])
+    cw = copy_bytes(b, n2, [b] if from_zero else [x, b])
     out = torch.empty_like(b)
     partial = _partial(b, n_partial) if emit_dot else None
     with torch.cuda.device(b.device):

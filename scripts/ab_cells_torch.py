@@ -5,6 +5,8 @@ from one checkout, for A/B runs of two versions on one card in one call.
     python scripts/ab_cells_torch.py [--root DIR] [--solves 5] [--cells NAME ...]
     python scripts/ab_cells_torch.py --cells jacobi3d jacobi3d_x2   # the kernels alone
     python scripts/ab_cells_torch.py --cells diff_jacobi             # the variable-Γ pass
+    python scripts/ab_cells_torch.py --cells axis_stencil axis_stencil5 "QUICK 256^3"
+    python scripts/ab_cells_torch.py --cells "dot/ext 512^3"        # the queued axis kernels
 
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
@@ -28,7 +30,20 @@ pass) checks it against its plain version at a few shapes (every dtype,
 times it in bf16 at every level of the Darcy 256^3 and the 512^3
 V-cycle (``vg_level_times``: device time per call back to back, the
 shape's choice of kernel; where the version has both kernels, each forced
-as well).
+as well). The kernel cells ``axis_stencil`` and ``axis_stencil5`` (the
+apply at radius 1 and 2) check it at a few shapes (every dtype, the
+radius's equations; ``check_axis``) and time it per call and on the
+device at ``axis_level_times``' grids (512^3 down to 64^3 f32, the model's
+f64 grids, every 512^3 V-cycle level in bf16; the plane march and the
+per-point kernel each forced where the version has both). The step cells ``QUICK 256^3`` and
+``Burgers 257^3`` step ``chip_smoke.py``'s models (``advdiff_model``,
+``burgers_model``) ``--steps`` times through ``_drive_steps`` and report
+the wall per step after the first (warm-up) step and ``itr`` per solve.
+The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot kernel on
+512^3 f32 and its halo-extended kernel on the 8 blocks of 512^3 f32 in
+``N_DECOMP`` (8 launches), per call and on the device, and reports the
+ptxas registers of the root's axis-stencil entries when this process
+built its library (a fresh ``build/``; else an empty list).
 """
 from __future__ import annotations
 
@@ -49,8 +64,47 @@ CELLS = {
     "MG-PCG 256^3 V(1,1)": lambda cs: (cs.N_V11, cs.mg_cfg(cs.V11_MG)),
     "Darcy 256^3": lambda cs: (cs.N_DARCY, cs.darcy_cfg()),
 }
-KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi")
+KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi", "axis_stencil", "axis_stencil5")
 VG_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (1, 4, 4, 4), (1, 65, 130)]
+AXIS_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (3, 3, 9, 11), (1, 128, 128, 128)]
+# name -> chip_smoke's model set-up: (stepper, steps, kernels, label)
+STEP_CELLS = {
+    "QUICK 256^3": lambda cs, dev: cs.advdiff_model(dev, "quick"),
+    "Burgers 257^3": lambda cs, dev: cs.burgers_model(dev),
+}
+
+
+def _dot_ext_times(cs, dev) -> dict:
+    """``axis_stencil_dot`` on 512^3 f32 and ``axis_stencil_ext`` on the
+    (4, 2, 1) blocks of 512^3 f32 (one launch per block into its view of
+    the result): per call (median of 15) and on the device (30 back to
+    back), ms; the ptxas registers of the root's axis-stencil entries."""
+    import torch
+
+    from pyapes_tpu_torch.ops import cuda_build
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot, axis_stencil_ext
+    from pyapes_tpu_torch.parallel import halo
+
+    n = cs.N_MAIN
+    g = torch.Generator(device=dev).manual_seed(700)
+    coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev) for _ in range(3))
+                   for _ in range(3))
+    x = torch.randn((1, n, n, n), generator=g, device=dev)
+    ext = tuple(int(m > 1) for m in cs.N_DECOMP)
+    blocks = [(sl, halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl))
+              for _, sl in _decomp(cs).blocks((n, n, n))]
+    out = torch.empty_like(x)
+
+    def ext_apply():
+        for sl, xe, cs_ in blocks:
+            axis_stencil_ext(cs_, xe, ext, out=out[(slice(None), *sl)])
+
+    dot = lambda: axis_stencil_dot(coeffs, x)  # noqa: E731
+    regs = cs._entry_registers(cuda_build.build("axis_stencil").log)
+    return {"axis_stencil_dot": {"ms": cs._time_ms(dot), "device_ms": cs._device_ms(dot)},
+            "axis_stencil_ext": {"ms": cs._time_ms(ext_apply),
+                                 "device_ms": cs._device_ms(ext_apply)},
+            "registers": [[k, r, sp] for k, r, sp in regs if not k.startswith("axis_march")]}
 
 
 def _decomp(cs):
@@ -63,8 +117,10 @@ def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
     p.add_argument("--solves", type=int, default=5)
-    p.add_argument("--cells", nargs="+", choices=[*CELLS, *KERNEL_CELLS],
-                   default=[*CELLS, *KERNEL_CELLS])
+    p.add_argument("--steps", type=int, default=4, help="steps of a step cell (the first warms up)")
+    p.add_argument("--cells", nargs="+",
+                   choices=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, "dot/ext 512^3"],
+                   default=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, "dot/ext 512^3"])
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -91,6 +147,27 @@ def main() -> None:
             out["cells"][label] = {"worst_err_over_limit": worst["choice"],
                                    "levels": cs.vg_level_times(
                                        dev, forced=hasattr(diff_field, "uses_march"))}
+            continue
+        if label in ("axis_stencil", "axis_stencil5"):
+            from pyapes_tpu_torch.ops import axis_stencil
+
+            radii = (1,) if label == "axis_stencil" else (2,)
+            _, worst = cs.check_axis(dev, AXIS_CHECK_SHAPES, forced=False, radii=radii)
+            out["cells"][label] = {"worst_err_over_limit": worst["choice"],
+                                   "levels": cs.axis_level_times(
+                                       dev, forced=hasattr(axis_stencil, "uses_march"),
+                                       radii=radii)}
+            continue
+        if label == "dot/ext 512^3":
+            out["cells"][label] = _dot_ext_times(cs, dev)
+            continue
+        if label in STEP_CELLS:
+            stepper, _, _, name = STEP_CELLS[label](cs, dev)
+            stats = cs._drive_steps(stepper, stepper.model.solver, args.steps, name, ())
+            out["cells"][label] = {"wall_s": stats["wall_s"][1:],
+                                   "wall_s_median": stats["wall_s_per_step_median"],
+                                   "itr": stats["itr"]}
+            del stepper
             continue
         if label in KERNEL_CELLS:  # only the wrapper's common signature: --root may be older
             worst, _ = cs.check_march(dev, label, chunks=False)

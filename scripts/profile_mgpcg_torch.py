@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
-(or one step of the 3-D Burgers model).
+(or one step of the 3-D Burgers or the QUICK advection-diffusion model).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --burgers [--n 256] [--out ...]
+    python scripts/profile_mgpcg_torch.py --quick [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
+    python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
 The problem is ``chip_smoke.py``'s MG-PCG path (``bench.py``'s cg config:
 3-D f32 all-Dirichlet random RHS, tol 1e-6, bf16 V(2,2), FMG, fused r.z),
 or with ``--darcy`` its variable-Γ path (``bench.py``'s ``bench_darcy``:
 Γ = exp(0.8 sin 2πx sin 2πy sin 2πz), the same cycle without the fused
 r.z, max_it 400), or with ``--burgers`` one step of ``chip_smoke.py``'s
-``BurgersND`` path ((n+1)^3 f32 periodic box, Taylor-Green start, dt 0.01:
-three BiCGSTAB solves with the FD preconditioner through the convection
-kernel). ``--decomp 4,2,1`` solves the Poisson problem with that
-``DomainDecomposition`` (the block-wise applies through the halo-extended
-kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s fastdiag path
-instead of MG-PCG.
+``BurgersND`` path (``burgers_model``: (n+1)^3 f32 periodic box,
+Taylor-Green start, dt 0.01: three BiCGSTAB solves with the FD
+preconditioner through the convection kernel), or with ``--quick`` one
+step of its QUICK ``AdvectionDiffusion`` path (``advdiff_model``: n^3 f32,
+constant velocity, dt 1e-3: one unpreconditioned BiCGSTAB solve through
+the 5-point axis stencil). ``--decomp 4,2,1`` solves the Poisson problem
+with that ``DomainDecomposition`` (the block-wise applies through the
+halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
+fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
+is profiled (default: this one; e.g. a parent commit unpacked under
+``build/``, for a profile of both versions in one call); the problems are
+this checkout's.
 After one warm-up solve (step), ``torch.profiler`` records one; the script
 prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
@@ -25,7 +33,8 @@ prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
   memcpy and memset events, and grouped (the port's Hopper kernels,
   transfer GEMMs, elementwise, reductions, copies); each Hopper kernel
   also by its launch grid, which names the MG level it ran on, and
-  kernel (the variable-Γ plane march or per-point kernel);
+  kernel with its template arguments (the plane march or the per-point
+  kernel; dtype, radius or mode);
 - the device's busy time as the UNION of the kernel/memcpy/memset
   intervals of the trace inside the host range of ``Solver.solve``, and
   the idle share ``1 - busy / range``;
@@ -36,6 +45,7 @@ prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -44,9 +54,11 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("axis_stencil / axis_stencil5 plane march (Hopper)", ("axis_march_kernel",)),
     ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel", "diff_jacobi_march_kernel")),
     ("diff_field (Hopper)", ("diff_field_kernel", "diff_field_march_kernel")),
@@ -82,21 +94,24 @@ def _union_ms(intervals, lo, hi) -> float:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--n", type=int, default=None,
-                   help="grid size (512, or 256 with --darcy / --burgers)")
+                   help="grid size (512, or 256 with --darcy / --burgers / --quick)")
     p.add_argument("--darcy", action="store_true", help="the variable-Γ path")
     p.add_argument("--burgers", action="store_true", help="one step of the 3-D Burgers model")
+    p.add_argument("--quick", action="store_true",
+                   help="one step of the QUICK advection-diffusion model")
     p.add_argument("--decomp", default=None,
                    help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
     p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
     p.add_argument("--out", default="chiprun_out/profile_mgpcg")
+    p.add_argument("--root", default=HERE, help="the checkout whose package is profiled")
     args = p.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
-    from pyapes_tpu_torch.models import BurgersND
     from pyapes_tpu_torch.parallel import DomainDecomposition
     from pyapes_tpu_torch.solver.fdm import FDM
     from pyapes_tpu_torch.solver.ops import Solver
@@ -110,21 +125,22 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    n = args.n or (256 if args.darcy or args.burgers else 512)
-    if args.burgers:
-        mesh = Mesh(Box[0:2 * torch.pi, 0:2 * torch.pi, 0:2 * torch.pi], None, [n + 1] * 3,
-                    device="cuda", dtype="single")
-        X, Y, Z = mesh.X, mesh.Y, mesh.Z
-        model = BurgersND(mesh, nu=0.1, init_vals=[
-            (torch.sin(X) * torch.cos(Y) * torch.cos(Z))[None],
-            (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None], torch.zeros((1, *mesh.nx))])
+    n = args.n or (256 if args.darcy or args.burgers or args.quick else 512)
+    if args.burgers or args.quick:
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      os.path.join(HERE, "chip_smoke.py"))
+        chip_smoke = importlib.util.module_from_spec(spec)  # this checkout's, whatever --root
+        spec.loader.exec_module(chip_smoke)
+        dev = torch.device("cuda")
+        stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
+                   else chip_smoke.advdiff_model(dev, "quick", n))[0]
 
         def prepare():
             pass
 
         def run():
-            model.step(0.01)
-            return model.report
+            stepper.step()
+            return stepper.model.report
     else:
         mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
         var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")},
@@ -191,7 +207,7 @@ def main() -> None:
     by_grid = defaultdict(lambda: [0, 0.0])  # (Hopper group, grid, kernel) -> [calls, device ms]
     for e in dev:
         if "(Hopper)" in _group(e["name"]):
-            kernel = re.search(r"(\w+_kernel)", e["name"])
+            kernel = re.search(r"(\w+_kernel(?:<[^>]*>)?)", e["name"])
             g = by_grid[(_group(e["name"]), str(e.get("args", {}).get("grid")),
                          kernel.group(1) if kernel else e["name"][:60])]
             g[0] += 1
@@ -202,8 +218,10 @@ def main() -> None:
         g[0] += cnt
         g[1] += ms
     summary = {
-        "card": smi, "case": "burgers" if args.burgers else "darcy" if args.darcy else "poisson",
-        "method": "fastdiag" if args.fastdiag else "mg-pcg", "decomp": args.decomp,
+        "card": smi, "root": args.root, "case": ("burgers" if args.burgers else "quick" if args.quick
+                              else "darcy" if args.darcy else "poisson"),
+        "method": ("model step" if args.burgers or args.quick
+                   else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,
         "n": n, "itr": rep["itr"],
         "tol": rep["tol"],
         "wall_unprofiled_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,

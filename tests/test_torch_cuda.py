@@ -76,6 +76,13 @@ ADV_SURGERY = {
 }
 DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "conservative"),
                 ("quick", "conservative")]
+# the axis stencil's plane march and per-point kernel, each forced:
+# chip_smoke.py's 3-D kernel and advection shapes (vdim 3, a 3-node axis
+# 0), the plane marches' edges and two grids of the march's FULL instance;
+# per radius the equations' points per axis (3/5 mixed at radius 2)
+AXIS_SHAPES = [(1, 33, 34, 35), (3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17),
+               (3, 3, 9, 11)] + X2_SHAPES + [(1, 20, 32, 256), (3, 9, 16, 128)]
+AXIS_POINTS = {1: [(3, 3, 3)], 2: [(5, 3, 5), (5, 5, 5), (3, 5, 3)]}
 
 
 @pytest.fixture
@@ -92,6 +99,16 @@ def _inputs(shape, vdim, dtype, device, seed=0):
         for n in shape
     )
     x = torch.randn((vdim, *shape), generator=g, dtype=torch.float64).to(device, dtype)
+    return coeffs, x
+
+
+def _axis_inputs(shape, points, dtype, device, seed):
+    """x of ``shape`` (vdim first) and per axis ``points`` coefficient
+    vectors, made in f64 on the host."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    coeffs = tuple(tuple(torch.randn(n, generator=g, dtype=torch.float64).to(device, dtype)
+                         for _ in range(p)) for n, p in zip(shape[1:], points))
+    x = torch.randn(shape, generator=g, dtype=torch.float64).to(device, dtype)
     return coeffs, x
 
 
@@ -123,6 +140,47 @@ def test_kernel_matches_plain(cuda, shape, vdim, dtype):
     torch.cuda.synchronize()
     assert axis_stencil.launches == before + 1
     _close(out, apply_axis_stencil(coeffs, x), dtype)
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", AXIS_SHAPES)
+def test_axis_march_and_point_kernels_match_plain(cuda, shape, dtype, radius):
+    """``axis_stencil`` (radius 1) and ``axis_stencil5`` (radius 2, mixed
+    3/5-point axes): the per-point kernel and the plane march, each forced,
+    against the plain version; the march also at explicit plane chunks,
+    with the per-point kernel's bits at every chunk; one launch per call."""
+    fn = axis_stencil if radius == 1 else axis_stencil5
+    for seed, points in enumerate(AXIS_POINTS[radius]):
+        coeffs, x = _axis_inputs(shape, points, dtype, cuda, 20 + seed)
+        ref = apply_axis_stencil(coeffs, x)
+        before = fn.launches
+        point = fn(coeffs, x, march=False)
+        _close(point, ref, dtype)
+        outs = [fn(coeffs, x, march=True, chunk=c) for c in CHUNKS]
+        for out in outs:
+            _close(out, ref, dtype)
+            assert torch.equal(out, point), points  # the per-point kernel's expression
+        assert fn.launches == before + 1 + len(CHUNKS)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("march", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_axis_kernels_same_bits_every_call(cuda, dtype, march, radius):
+    """Either kernel of either radius gives the same bits on every call."""
+    points = (3, 3, 3) if radius == 1 else (5, 3, 5)
+    coeffs, x = _axis_inputs((2, 130, 70, 131), points, dtype, cuda, 30)
+    fn = axis_stencil if radius == 1 else axis_stencil5
+    assert torch.equal(fn(coeffs, x, march=march), fn(coeffs, x, march=march))
+
+
+def test_axis_march_takes_3d_grids_only(cuda):
+    """Forcing the march on a 2-D grid raises; it never falls back."""
+    coeffs, x = _axis_inputs((1, 65, 130), (3, 3), torch.float32, cuda, 31)
+    with pytest.raises(ValueError):
+        axis_stencil(coeffs, x, march=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -468,7 +526,9 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5",
                                   "axis_stencil_ext", "jacobi3d", "jacobi3d_dot",
                                   "diff_field_march", "diff_field_point", "diff_jacobi_march",
-                                  "diff_jacobi_point"])
+                                  "diff_jacobi_point", "axis_stencil_march", "axis_stencil_point",
+                                  "axis_stencil5_march", "axis_stencil5_point",
+                                  "axis_stencil_dot", "jacobi3d_x2"])
 def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     """With the plain versions patched to raise, the wrappers still answer
     a CUDA tensor: from the kernel."""
@@ -478,6 +538,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     x, adv, adv_conv, base, c5 = _adv_inputs((1, 9, 10, 11), torch.float32, cuda, 10)
     c3 = tuple(tuple(c[:n - 2] for c in cs[:3]) if j == 0 else cs[:3]
                for j, (cs, n) in enumerate(zip(c5, x.shape[1:])))
+    c3x = tuple(cs[1:4] if len(cs) == 5 else cs for cs in c5)  # 3-point, x's shape
     surg = ADV_SURGERY["mixed"]
     surg3 = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))
     inv, beta, _, b = _level(tuple(x.shape), torch.float32, cuda, seed=11)
@@ -487,6 +548,9 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
            "advect_pair": lambda: apply_div_field(x, adv, base, "upwind", surg),
            "conv_component": lambda: apply_conv_field(x, adv_conv, base, "none", surg),
            "axis_stencil5": lambda: apply_axis_stencil(c5, x),
+           "axis_stencil": lambda: apply_axis_stencil(c3x, x),
+           "axis_stencil_dot": lambda: apply_axis_stencil_dot(c3x, x)[0],
+           "jacobi3d_x2": lambda: apply_jacobi3d_x2(x, b, inv, beta, (0, 1, 2)),
            "axis_stencil_ext": lambda: apply_axis_stencil_ext(c3, x, (1, 0, 0)),
            "diff_field": lambda: apply_diff_field(x, gv, inv, surg3, "harmonic"),
            "diff_jacobi": lambda: apply_diff_jacobi(x, b, gv, inv, surg3, "harmonic", 0.857,
@@ -496,16 +560,22 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     monkeypatch.setattr(advect_mod, "apply_conv_field", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil", plain)
     monkeypatch.setattr(axis_mod, "apply_axis_stencil_ext", plain)
+    monkeypatch.setattr(axis_mod, "apply_axis_stencil_dot", plain)
     monkeypatch.setattr(jacobi_mod, "apply_jacobi3d", plain)
     monkeypatch.setattr(jacobi_mod, "apply_jacobi3d_dot", plain)
+    monkeypatch.setattr(jacobi_mod, "apply_jacobi3d_x2", plain)
     monkeypatch.setattr(diff_mod, "apply_diff_field", plain)
     monkeypatch.setattr(diff_mod, "apply_diff_jacobi", plain)
-    march = name.endswith("_march")
+    # the kernel forced by the name's suffix; a bare name: the shape's choice
+    march = {"_march": True, "_point": False}.get(name[name.rfind("_"):])
     fn = {"jacobi3d": lambda: jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
           "jacobi3d_dot": lambda: jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
           "advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
           "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
-          "axis_stencil5": lambda: axis_stencil5(c5, x),
+          "axis_stencil5": lambda: axis_stencil5(c5, x, march=march),
+          "axis_stencil": lambda: axis_stencil(c3x, x, march=march),
+          "axis_stencil_dot": lambda: axis_stencil_dot(c3x, x)[0],
+          "jacobi3d_x2": lambda: jacobi3d_x2(x, b, inv, beta, (0, 1, 2)),
           "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0)),
           "diff_field": lambda: diff_field(x, gv, inv, surg3, "harmonic", march=march),
           "diff_jacobi": lambda: diff_jacobi(x, b, gv, inv, surg3, "harmonic", 0.857, (0, 1, 2),

@@ -28,7 +28,7 @@ from pyapes_tpu.ops.pallas_stencil_v3 import (  # noqa: E402
 )
 from pyapes_tpu.ops.stencil import apply_axis_stencil as jax_apply  # noqa: E402
 from pyapes_tpu.solver.multigrid import MGSpec as JMGSpec  # noqa: E402
-from pyapes_tpu_torch.ops import jacobi  # noqa: E402
+from pyapes_tpu_torch.ops import jacobi, march  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot  # noqa: E402
 from pyapes_tpu_torch.ops.stencil import (  # noqa: E402
     apply_axis_stencil_dot,
@@ -200,7 +200,7 @@ def _covers_each_point_once(shape, chunk, resident, tile, setup):
     chunks, as the kernel reads them off its block index, cover every
     output point of every component exactly once, and there is one dot
     partial per block."""
-    (gx, gy, gz), ci, n_partial = jacobi.march_geometry(shape, resident, chunk, tile, setup)
+    (gx, gy, gz), ci, n_partial = march.march_geometry(shape, resident, chunk, tile, setup)
     vdim, n0, n1, n2 = shape
     tj, tk = tile
     nch = -(-n0 // ci)
@@ -246,8 +246,8 @@ def test_x2_chunk_fills_the_card(n, resident, chunk):
     396 blocks at once (3 per SM of 132): the fewest plane-steps, (waves
     of blocks) x (planes + the block's fixed cost); one long chunk where a
     single block at a time runs."""
-    _, ci, _ = jacobi.march_geometry((1, n, n, n), resident, None, jacobi._X2_TILE,
-                                     jacobi._X2_SETUP_PLANES)
+    _, ci, _ = march.march_geometry((1, n, n, n), resident, None, jacobi._X2_TILE,
+                                    jacobi._X2_SETUP_PLANES)
     assert ci == chunk
 
 
@@ -262,7 +262,7 @@ def test_jacobi3d_chunk_fills_the_card(n, resident, chunk):
     in flight wherever the grid has that many (one per column tile and
     plane), and short chunks come only where the column tiles alone do not
     fill it."""
-    (gx, gy, gz), ci, _ = jacobi.march_geometry((1, n, n, n), resident, None, jacobi._J1_TILE,
-                                                 jacobi._J1_SETUP_PLANES)
+    (gx, gy, gz), ci, _ = march.march_geometry((1, n, n, n), resident, None, jacobi._J1_TILE,
+                                                jacobi._J1_SETUP_PLANES)
     assert ci == chunk
     assert gx * gy * gz >= 0.9 * min(resident, gx * gy * n)
