@@ -67,13 +67,22 @@ Phases, report lines before the last:
    the predicted discretization error; the runner's ``darcy`` case (2-D,
    harmonic faces, MG-BiCGSTAB, f64) at 65^2 against the JAX package's
    numbers and at 1025^2: flux balance and the Wiener bounds.
-8. advection kernels — the per-point Div and Conv kernels and the 5-point
-   axis stencil against their plain versions (the 3-D shapes, a 2-D and a
-   1-D grid, a 3-node axis with Neumann faces on both sides, mixed 3/5-point
-   axes; f32/bf16/f64; every limiter, both Div forms, the surgery kinds
-   none/neumann/periodic, scalar and vector targets), timed against the
-   plain versions at 256^3 and 512^3 f32, and at 256^3 against a CSR
-   product of the same operator at its fixed advector.
+8. advection kernels — the Div and Conv kernels (the shape's choice) and
+   the 5-point axis stencil against their plain versions (the 3-D shapes,
+   a 2-D and a 1-D grid, a 3-node axis with Neumann faces on both sides,
+   mixed 3/5-point axes; f32/bf16/f64; every limiter, both Div forms, the
+   surgery kinds none/neumann/periodic, scalar and vector targets); the
+   Div and Conv plane march and per-point kernel each forced on the
+   march's variants (Div central in both forms and upwind, vector and
+   scalar targets; Conv central and upwind) at the 3-D shapes, two grids
+   of the march's FULL instance and the paths' 256^3, every dtype and
+   surgery kind, the march at several plane chunks with the same bits at
+   each, on another call and as the per-point kernel; timed against the
+   plain versions at 256^3 and 512^3 f32 (per call and on the device, the
+   per-point kernel beside the march), at 256^3 against a CSR product of
+   the same operator at its fixed advector, and both kernels on both path
+   calls at 512^3, 256^3, 129^3, 128^3 and 64^3 f32 and 256^3 bf16 and
+   f64 beside a device copy and the bound (``adv_level_times``).
 9. implicit-advection paths, f32 on one card, through the models' ``step``:
    ``BurgersND`` at 257^3 on the periodic box (Taylor-Green start, 3 steps
    of dt 0.01: 9 BiCGSTAB + FD-preconditioner solves through the convection
@@ -163,9 +172,9 @@ KERNELS = [
     ("diff_jacobi", "pyapes_tpu_torch.ops.diff_field",
      "pyapes_tpu_torch/csrc/diff_march.cu", "pyapes_tpu/ops/pallas_advect.py:694"),
     ("conv_component", "pyapes_tpu_torch.ops.advect",
-     "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:296"),
+     "pyapes_tpu_torch/csrc/advect_march.cu", "pyapes_tpu/ops/pallas_advect.py:296"),
     ("advect_pair", "pyapes_tpu_torch.ops.advect",
-     "pyapes_tpu_torch/csrc/advect.cu", "pyapes_tpu/ops/pallas_advect.py:357"),
+     "pyapes_tpu_torch/csrc/advect_march.cu", "pyapes_tpu/ops/pallas_advect.py:357"),
     ("axis_stencil5", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
     ("axis_stencil_ext", "pyapes_tpu_torch.ops.axis_stencil",
@@ -238,6 +247,13 @@ ADV_SURGERY = {  # per kind, the (lower, upper) faces of axes 0, 1, 2
 DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "conservative"),
                 ("quick", "conservative")]
 N_ADV = (256, 512)  # timed sizes (f32)
+# the advection kernels' plane march and per-point kernel, each forced, on
+# the march's variants (Div central in both forms and upwind, vector and
+# scalar targets; Conv central and upwind): the 3-D ADV_SHAPES (a 3-node
+# axis 0 among them), two grids of the march's FULL instance and the
+# paths' grid (below, with N_PATH)
+ADV_MARCH_DIV = [("none", "conservative"), ("none", "advective"), ("upwind", "conservative")]
+ADV_MARCH_CONV = ("none", "upwind")
 N_PATH = 256  # the implicit-advection paths' grid (Burgers: 257 nodes, 256 on the torus)
 # (the paths' 256^3 grid among them: Burgers, upwind and QUICK launch the
 # march there)
@@ -245,6 +261,8 @@ AXIS_SHAPES = list(dict.fromkeys([s for s, _ in KERNEL_SHAPES if len(s) == 4] + 
                                  + [s for s in ADV_SHAPES if len(s) == 4]
                                  + [(1, N_PATH, N_PATH, N_PATH)]))
 MODEL_SIZES = (65, 129)  # the Poisson model path's grids (f64)
+ADV_MARCH_SHAPES = ([s for s in ADV_SHAPES if len(s) == 4] + [(1, 20, 32, 256), (3, 9, 16, 128)]
+                    + [(1, N_PATH, N_PATH, N_PATH)])
 
 
 def _wrappers() -> dict:
@@ -298,7 +316,7 @@ def _entry_registers(log: str) -> list:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
             cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march|axis_march"
-                            r"|axis_stencil(?:_dot|_ext|5)?)_kernel)"
+                            r"|axis_stencil(?:_dot|_ext|5)?|advect(?:_march)?)_kernel)"
                             r"I(13__nv_bfloat16|f|d)((?:L[bi]\d+E)*)", m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores", ln)
@@ -335,6 +353,11 @@ def phase_build():
     print("[2 build] variable-Γ plane-march registers (ptxas; diff_jacobi <dtype,mode,iso,full,"
           "harmonic>, mode 0 smooth, 1 smooth0, 2 resid; diff_field <dtype,iso,full,harmonic>): "
           + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs), flush=True)
+    regs = _entry_registers(builds["advect"].log)
+    print("[2 build] advection registers (ptxas; the plane march advect_march_kernel <dtype,"
+          "kind,form,full>, kind 0 Conv, 1 scalar Div, 2 vector Div, form 0 central advective, 1 "
+          "upwind, 2 central conservative; the per-point advect_kernel <dtype>): "
+          + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs), flush=True)
     print(f"[2 build] {len(builds)} sources built in parallel in {wall:.2f} s", flush=True)
     return builds
 
@@ -359,7 +382,8 @@ def _time_ms(fn, reps: int = 15) -> float:
 
 def _device_ms(fn, calls: int = 30) -> float:
     """Device time per call of ``calls`` calls queued back to back behind a
-    device sleep (~6 ms, longer than their launches take on the host), so
+    device sleep (~25 ms, longer than their launches take on the host: the
+    advection wrappers spend up to ~0.4 ms of host time per call), so
     that the host's cost per launch, which a per-call timing of a small
     kernel measures, does not show."""
     import torch
@@ -368,7 +392,7 @@ def _device_ms(fn, calls: int = 30) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(10_000_000)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(calls):
         fn()
@@ -1194,11 +1218,211 @@ def _adv_cases(shape, x, adv, adv_conv, base, c5):
     return cases
 
 
+def _adv_march_cases(x, adv, adv_conv, base, surg):
+    """(kernel name, variant, call) of the advection march's variants at
+    one input: ``call(plain, **kw)`` is the plain version with ``plain``,
+    else the wrapper with ``kw`` (``march``, ``chunk``)."""
+    from pyapes_tpu_torch.ops import stencil as P
+    from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
+
+    cases = []
+    for lim, form in ADV_MARCH_DIV:
+        for xs, av, tag in ((x, adv, f"vdim{x.shape[0]}"), (x[:1], adv[:1], "scalar")):
+            def call(plain, xs=xs, av=av, lim=lim, form=form, **kw):
+                if plain:
+                    return P.apply_div_field(xs, av, base, lim, surg, form)
+                return advect_pair(xs, av, base, lim, surg, form, **kw)
+            cases.append(("advect_pair", f"{lim},{form[:4]},{tag}", call))
+    for lim in ADV_MARCH_CONV:
+        def call(plain, lim=lim, **kw):
+            if plain:
+                return P.apply_conv_field(x, adv_conv, base, lim, surg)
+            return conv_component(x, adv_conv, base, lim, surg, **kw)
+        cases.append(("conv_component", lim, call))
+    return cases
+
+
+def check_adv(dev, shapes=ADV_MARCH_SHAPES, forced=True,
+              names=("advect_pair", "conv_component")) -> tuple:
+    """``advect_pair`` and ``conv_component`` on the march's variants
+    (``_adv_march_cases``) against their plain versions at ``shapes`` x
+    ``DTYPES`` x ``ADV_SURGERY``: with ``forced`` the plane march (also at
+    ``MARCH_CHUNKS`` planes per block) and the per-point kernel each
+    forced, else the shape's choice through the wrappers' common signature
+    only (an older version under ``ab_cells_torch.py --root``); the
+    wrappers in ``names``. Every result within ``REL_TOL``, the same bits
+    at every chunk and on another call, and (forced) the march the same
+    bits as the per-point kernel, or raises. Returns the worst abs error
+    per wrapper and the worst err/limit per kernel."""
+    import torch
+
+    kernels = FORCED_KERNELS if forced else (("choice", None),)
+    worst, worst_rel, n_cases = {}, {k: 0.0 for k, _ in kernels}, 0
+    for seed, shape in enumerate(shapes):
+        for dtname in DTYPES:
+            x, adv, adv_conv, base, _ = _adv_inputs(shape, getattr(torch, dtname), dev, 600 + seed)
+            here = {k: 0.0 for k, _ in kernels}
+            for kind, surg in ADV_SURGERY.items():
+                for name, variant, call in _adv_march_cases(x, adv, adv_conv, base, surg):
+                    if name not in names:
+                        continue
+                    ref = call(True)
+                    limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                    first = {}
+                    for kern, march in kernels:
+                        kw = {} if march is None else {"march": march}
+                        outs = []
+                        for ci in (None, *MARCH_CHUNKS) if march else (None,):
+                            got = call(False, **({**kw, "chunk": ci} if forced else kw))
+                            torch.cuda.synchronize()
+                            if got.dtype != ref.dtype or got.shape != ref.shape:
+                                raise RuntimeError(f"chip_smoke: {name} returned {got.dtype} "
+                                                   f"{tuple(got.shape)}")
+                            err = (got.double() - ref.double()).abs().max().item()
+                            if not err <= limit:
+                                raise RuntimeError(
+                                    f"chip_smoke: {name}[{variant},{kind}] ({kern} kernel, chunk "
+                                    f"{ci}) disagrees with its plain version at {shape} {dtname}: "
+                                    f"{err:.3e} > {limit:.3e}")
+                            worst[name] = max(worst.get(name, 0.0), err)
+                            here[kern] = max(here[kern], err / limit if limit > 0 else 0.0)
+                            outs.append(got)
+                            n_cases += 1
+                        outs.append(call(False, **kw))  # the same bits on another call
+                        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+                            raise RuntimeError(f"chip_smoke: {name}[{variant},{kind}] ({kern} "
+                                               f"kernel) gave other bits at another plane chunk "
+                                               f"or call at {shape} {dtname}")
+                        first[kern] = outs[0]
+                        del outs
+                    if forced and not torch.equal(first["march"], first["point"]):
+                        raise RuntimeError(f"chip_smoke: {name}[{variant},{kind}]: the march and "
+                                           f"the per-point kernel gave other bits at {shape} "
+                                           f"{dtname}")
+                    del ref, first
+            for kern in here:
+                worst_rel[kern] = max(worst_rel[kern], here[kern])
+            print(f"[8 advection kernels] march variants {tuple(shape)} {dtname}: worst err/limit "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in here.items())
+                  + f" (surgery {', '.join(ADV_SURGERY)}; Div central both forms and upwind, "
+                  "vector and scalar targets; Conv central and upwind"
+                  + (f"; the march at chunks auto, {', '.join(map(str, MARCH_CHUNKS))}"
+                     if forced else "") + ": same bits, and on another call"
+                  + ("; the march's bits equal the per-point kernel's" if forced else "") + ")",
+                  flush=True)
+            del x, adv, adv_conv, base
+    print(f"[8 advection kernels] march variants of {', '.join(names)}: {n_cases} cases hold "
+          f"({len(shapes)} shapes x {len(DTYPES)} dtypes x {len(ADV_SURGERY)} surgery kinds x "
+          f"their variants (Div {2 * len(ADV_MARCH_DIV)}, Conv {len(ADV_MARCH_CONV)})"
+          + (f" x the per-point kernel and the march at {1 + len(MARCH_CHUNKS)} chunks"
+             if forced else ", the shape's choice of kernel")
+          + "), worst err/limit " + ", ".join(f"{k} {v:.3f}" for k, v in worst_rel.items()),
+          flush=True)
+    return worst, worst_rel
+
+
+def adv_level_times(dev, forced=True, names=("conv_component", "advect_pair")) -> list:
+    """``conv_component`` (one target component, central: the Burgers
+    path's call) and ``advect_pair`` (scalar, upwind: the upwind
+    advection-diffusion path's call) at 512^3, 256^3 (the paths' grid),
+    129^3, 128^3 and 64^3 f32 and at 256^3 bf16 and f64: per call
+    (``_time_ms``) and on the device back to back (``_device_ms``), the
+    shape's choice and, with ``forced``, the plane march and the per-point
+    kernel each forced; a device copy of x and the bound beside them. Each
+    row's shape-chosen output is first held against its plain version
+    within ``REL_TOL`` (raises otherwise). Then the wrappers' rule beside
+    the smallest grid from which up the march is at or below the per-point
+    kernel on the device in every row, among grids whose every tile lies
+    inside them (``march_full``). Without ``forced`` only the wrappers'
+    common signature is used (an older version under ``ab_cells_torch.py
+    --root``); the wrappers in ``names``."""
+    import torch
+
+    from pyapes_tpu_torch.ops import advect as A
+    from pyapes_tpu_torch.ops import stencil as P
+
+    surg = ADV_SURGERY["none"]
+    cases = [(m, "float32") for m in (2 * N_PATH, N_PATH, 129, 128, 64)]
+    cases += [(N_PATH, "bfloat16"), (N_PATH, "float64")]
+    rows = []
+    for lvl, (m, dtname) in enumerate(cases):
+        shape = (1, m, m, m)
+        x, adv, adv_conv, base, _ = _adv_inputs(shape, getattr(torch, dtname), dev, 980 + lvl)
+        calls = {
+            "conv_component": (lambda **kw: A.conv_component(x, adv_conv, base, "none", surg, **kw),
+                               lambda: P.apply_conv_field(x, adv_conv, base, "none", surg), "none"),
+            "advect_pair": (lambda **kw: A.advect_pair(x, adv, base, "upwind", surg, **kw),
+                            lambda: P.apply_div_field(x, adv, base, "upwind", surg), "upwind"),
+        }
+        copy = torch.empty_like(x)  # a device copy of x: the traffic's yardstick
+        copy_ms = _device_ms(lambda: copy.copy_(x))
+        for name, (fn, plain, lim) in calls.items():
+            if name not in names:
+                continue
+            ref = plain()
+            err = (fn().double() - ref.double()).abs().max().item()
+            limit = REL_TOL[dtname] * ref.double().abs().max().item()
+            if not err <= limit:
+                raise RuntimeError(f"chip_smoke: {name} (the shape's choice) disagrees with its "
+                                   f"plain version at {shape} {dtname}: {err:.3e} > {limit:.3e}")
+            del ref
+            grids, _, _, ops = BOUND_WORK[name]
+            pts = x.numel()
+            row = {"n": m, "dtype": dtname, "kernel": name, "copy_device_ms": copy_ms,
+                   "bound_ms": _bound(grids * x.element_size() * pts, ops * pts)[0],
+                   "ms": _time_ms(fn), "device_ms": _device_ms(fn),
+                   "err_over_limit": err / limit if limit > 0 else 0.0}
+            if forced:
+                for kern, march in FORCED_KERNELS:
+                    row[f"{kern}_ms"] = _time_ms(lambda: fn(march=march))
+                    row[f"{kern}_device_ms"] = _device_ms(lambda: fn(march=march))
+                row["march"] = A.uses_march(shape, lim)
+            rows.append(row)
+        del x, adv, adv_conv, base, copy
+    print(f"[8 advection kernels] conv_component (central, one target component) and advect_pair "
+          f"(scalar, upwind) at {2 * N_PATH}^3, {N_PATH}^3, 129^3, 128^3 and 64^3 f32 and "
+          f"{N_PATH}^3 bf16 and f64, ms per call (median of 15 CUDA-event timings) / device µs "
+          "per call (30 back to back), the shape's choice (each within REL_TOL of the plain "
+          f"version, worst err/limit {max(r['err_over_limit'] for r in rows):.3f})"
+          + ("; the march and the per-point kernel forced" if forced else "")
+          + "; a device copy of x (the traffic's yardstick) and the bound: "
+          + "; ".join(
+              f"{r['kernel']} {r['n']}^3 {r['dtype']} {r['ms']:.4f} / "
+              f"{1e3 * r['device_ms']:.2f} ({100 * r['bound_ms'] / r['device_ms']:.1f}% of "
+              f"{1e3 * r['bound_ms']:.2f}; copy {1e3 * r['copy_device_ms']:.2f})"
+              + (f" [march {r['march_ms']:.4f} / {1e3 * r['march_device_ms']:.2f}, per-point "
+                 f"{r['point_ms']:.4f} / {1e3 * r['point_device_ms']:.2f}]" if forced else "")
+              for r in rows), flush=True)
+    if forced:
+        wins = {}
+        for r in rows:
+            if A.march_full((1, r["n"], r["n"], r["n"])):
+                wins[r["n"]] = wins.get(r["n"], True) and (r["march_device_ms"]
+                                                           <= r["point_device_ms"])
+        edge = None
+        for m in sorted(wins, reverse=True):  # the run of wins from the largest grid down
+            if not wins[m]:
+                break
+            edge = m
+        other = [f"{r['kernel']} {r['n']}^3 {r['dtype']}" for r in rows
+                 if (r["march_device_ms"] > r["point_device_ms"] if r["march"]
+                     else r["point_device_ms"] > r["march_device_ms"])]
+        print(f"[8 advection kernels] kernel choice: the march from {A.MARCH_MIN_POINTS} points "
+              f"per component on grids whose every 16 x 128 tile lies inside them, QUICK never "
+              f"(the wrappers' rule); on the device back to back here, among such grids, the "
+              f"march at or below the per-point kernel from {edge if edge else '-'}^3 up, and "
+              f"the kernel not chosen faster at: {', '.join(other) or 'no row'}", flush=True)
+    return rows
+
+
 def phase_kernel_advect(dev):
-    """The Div and Conv kernels and the 5-point axis stencil against their
-    plain versions at every shape x dtype x case; kernel vs plain timed at
-    256^3 and 512^3 f32 on the paths' cases (Div upwind, Conv central,
-    QUICK's 5-point axes), and at 256^3 the CSR yardstick."""
+    """The Div and Conv kernels (the shape's choice) and the 5-point axis
+    stencil against their plain versions at every shape x dtype x case;
+    the Div and Conv march and per-point kernel each forced on the march's
+    variants (``check_adv``); kernel vs plain timed at 256^3 and 512^3 f32
+    on the paths' cases (Div upwind, Conv central, QUICK's 5-point axes),
+    per call and on the device, the per-point kernel beside the march, and
+    at 256^3 the CSR yardstick; then ``adv_level_times``."""
     import torch
 
     from pyapes_tpu_torch.ops import stencil as P
@@ -1230,6 +1454,9 @@ def phase_kernel_advect(dev):
                 raise RuntimeError(f"chip_smoke: advection kernels disagree with their plain "
                                    f"versions at {shape} {dtname}: {fails}")
             del x, adv, adv_conv
+    worst_m, _ = check_adv(dev)
+    for name, err in worst_m.items():
+        worst[name] = max(worst[name], err)
     timing = {}
     for n in N_ADV:
         shape = (1, n, n, n)
@@ -1251,7 +1478,14 @@ def phase_kernel_advect(dev):
             if not err <= limit:
                 raise RuntimeError(f"chip_smoke: {name} disagrees at {n}^3: {err} > {limit}")
             worst[name] = max(worst[name], err)
-            ms, plain_ms = _time_ms(kern), _time_ms(plain)
+            ms, plain_ms, dev_ms = _time_ms(kern), _time_ms(plain), _device_ms(kern)
+            point = ""
+            if name != "axis_stencil5":  # the per-point kernel of the same call
+                args = {"advect_pair": (x, adv, base, "upwind", surg),
+                        "conv_component": (x, adv_conv, base, "none", surg)}[name]
+                fn = advect_pair if name == "advect_pair" else conv_component
+                point = (f", the per-point kernel {_time_ms(lambda: fn(*args, march=False)):.4f} "
+                         f"ms (device {_device_ms(lambda: fn(*args, march=False)):.4f})")
             lib_ms = None
             if n == N_PATH:  # at a fixed advector each is one sparse product
                 lib_ms = _library_stencil_ms({
@@ -1263,10 +1497,12 @@ def phase_kernel_advect(dev):
             timing.setdefault(name, {})[n] = (ms, plain_ms, lib_ms)
             gbs = grids * n**3 * 4 / (ms * 1e-3) / 1e9
             lib = "" if lib_ms is None else f", CSR product (torch.mv) {lib_ms:.4f} ms"
-            print(f"[8 advection kernels] {name} {n}^3 f32 time: kernel {ms:.4f} ms, plain "
+            print(f"[8 advection kernels] {name} {n}^3 f32 time: kernel (the shape's choice, the "
+                  f"plane march) {ms:.4f} ms (device {dev_ms:.4f} back to back){point}, plain "
                   f"{plain_ms:.4f} ms{lib} (median of 15 CUDA-event timings); kernel moves >= "
                   f"{gbs:.1f} GB/s ({grids} grids of compulsory traffic)", flush=True)
         del x, adv, adv_conv, c5
+    adv_level_times(dev)
     return worst, {name: t[N_PATH] for name, t in timing.items()}
 
 

@@ -37,8 +37,11 @@
 //
 // A 1-D or 2-D grid runs as (1, 1, n) / (1, nx, ny) with the leading axes
 // left out of `axes`. The Python wrappers and the design note are in
-// ops/advect.py. Plain C interface, loaded with ctypes.
+// ops/advect.py. Plain C interface, loaded with ctypes. The plane march of
+// 3-D grids (central and upwind) is csrc/advect_march.cu; its C entries
+// are here.
 
+#include "advect_march.cuh"
 #include "common.cuh"
 
 namespace {
@@ -174,6 +177,22 @@ cudaError_t launch(int ncomp, const void* const* ptrs, const int* ints, long lon
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_march(int kind, int form, int ncomp, const void* const* ptrs, const int* ints,
+                         int pairs, int ci, int cw, void* out, cudaStream_t s) {
+  pyapes::AdvMarchParams<T> q;
+  for (int a = 0; a < 3; ++a) {
+    q.x[a] = static_cast<const T*>(ptrs[a]);
+    q.u[a] = static_cast<const T*>(ptrs[3 + a]);
+    for (int m = 0; m < 3; ++m) q.b[a][m] = static_cast<const T*>(ptrs[6 + 3 * m + a]);
+    q.n[a] = ints[a];
+    q.lo[a] = ints[4 + a];
+    q.up[a] = ints[7 + a];
+  }
+  q.pairs = pairs;
+  return pyapes::advect_march_launch<T>(kind, form, ncomp, q, out, ci, cw, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,6 +213,36 @@ int pyapes_advect(int dtype, int ncomp, const void* const* ptrs, const int* ints
   if (dtype == 0) return launch<float>(ncomp, ptrs, ints, xstride, out, s);
   if (dtype == 1) return launch<double>(ncomp, ptrs, ints, xstride, out, s);
   if (dtype == 2) return launch<__nv_bfloat16>(ncomp, ptrs, ints, xstride, out, s);
+  return cudaErrorInvalidValue;
+}
+
+// The plane march of a 3-D grid (all three axes), ptrs and ints as above
+// (limiter and conservative ignored): kind 0 Conv (ncomp output
+// components, the target component d at x[0] + d * n0 n1 n2), 1 the Div of
+// a scalar target, 2 of a vector target (ncomp 1); form 0 central
+// advective, 1 upwind, 2 central conservative (Div only); pairs: 1 when n2
+// is even and every target and advector pointer is aligned to two
+// elements; ci planes per block, cw bytes per staging copy (16, 8, 4; 0:
+// element loads). Returns cudaGetLastError() after the launch.
+int pyapes_advect_march(int dtype, int kind, int form, int ncomp, const void* const* ptrs,
+                        const int* ints, int pairs, int ci, int cw, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_march<float>(kind, form, ncomp, ptrs, ints, pairs, ci, cw, out, s);
+  if (dtype == 1)
+    return launch_march<double>(kind, form, ncomp, ptrs, ints, pairs, ci, cw, out, s);
+  if (dtype == 2)
+    return launch_march<__nv_bfloat16>(kind, form, ncomp, ptrs, ints, pairs, ci, cw, out, s);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of the march of (kind, form) (dtype as above; full: the instance
+// of grids whose every tile lies inside) that one SM of the current device
+// holds at once, into *blocks. Returns a CUDA error code (0 on success).
+int pyapes_advect_march_blocks_per_sm(int dtype, int kind, int form, int full, int* blocks) {
+  if (dtype == 0) return pyapes::advect_march_occupancy<float>(kind, form, full != 0, blocks);
+  if (dtype == 1) return pyapes::advect_march_occupancy<double>(kind, form, full != 0, blocks);
+  if (dtype == 2)
+    return pyapes::advect_march_occupancy<__nv_bfloat16>(kind, form, full != 0, blocks);
   return cudaErrorInvalidValue;
 }
 

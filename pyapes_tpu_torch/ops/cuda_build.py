@@ -3,7 +3,8 @@
 Every library ``<name>`` is built from its translation units (``UNITS``:
 by default ``csrc/<name>.cu`` alone; the axis-stencil library also from
 ``csrc/axis_march.cu`` once per storage dtype and radius, the variable-Γ
-library from ``csrc/diff_march.cu`` once per storage dtype and Γ layout),
+library from ``csrc/diff_march.cu`` once per storage dtype and Γ layout,
+the advection library from ``csrc/advect_march.cu`` once per storage dtype),
 each with the shared ``csrc/*.cuh``, compiled by ``nvcc`` for ``sm_90a``
 (one ``nvcc`` per unit, all started together) and linked into a shared
 library with a plain C interface, loaded with ``ctypes``. A build is keyed by the hash of
@@ -35,6 +36,8 @@ UNITS = {
     "diff_field": (("diff_field", ()),) + tuple(
         ("diff_march", (f"-DVG_DTYPE={dtype}", f"-DVG_ISO={iso}"))
         for dtype in (2, 0, 1) for iso in (1, 0)),
+    "advect": (("advect", ()),) + tuple(
+        ("advect_march", (f"-DAV_DTYPE={dtype}",)) for dtype in (2, 0, 1)),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -7,6 +7,8 @@ from one checkout, for A/B runs of two versions on one card in one call.
     python scripts/ab_cells_torch.py --cells diff_jacobi             # the variable-Γ pass
     python scripts/ab_cells_torch.py --cells axis_stencil axis_stencil5 "QUICK 256^3"
     python scripts/ab_cells_torch.py --cells "dot/ext 512^3"        # the queued axis kernels
+    python scripts/ab_cells_torch.py --cells conv_component advect_pair "Burgers 257^3" \
+        "Upwind 256^3"                                                # the advection kernels
 
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
@@ -35,10 +37,17 @@ apply at radius 1 and 2) check it at a few shapes (every dtype, the
 radius's equations; ``check_axis``) and time it per call and on the
 device at ``axis_level_times``' grids (512^3 down to 64^3 f32, the model's
 f64 grids, every 512^3 V-cycle level in bf16; the plane march and the
-per-point kernel each forced where the version has both). The step cells ``QUICK 256^3`` and
-``Burgers 257^3`` step ``chip_smoke.py``'s models (``advdiff_model``,
-``burgers_model``) ``--steps`` times through ``_drive_steps`` and report
-the wall per step after the first (warm-up) step and ``itr`` per solve.
+per-point kernel each forced where the version has both). The kernel
+cells ``conv_component`` and ``advect_pair`` (the advection kernels)
+check the wrapper at a few shapes (every dtype, surgery kind and the
+march's variants; ``check_adv``) and time its path call (Conv central,
+Div upwind) per call and on the device at ``adv_level_times``' grids
+(512^3 down to 64^3 f32, 256^3 bf16 and f64; the plane march and the
+per-point kernel each forced where the version has both). The step cells
+``QUICK 256^3``, ``Upwind 256^3`` and ``Burgers 257^3`` step
+``chip_smoke.py``'s models (``advdiff_model``, ``burgers_model``)
+``--steps`` times through ``_drive_steps`` and report the wall per step
+after the first (warm-up) step and ``itr`` per solve.
 The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot kernel on
 512^3 f32 and its halo-extended kernel on the 8 blocks of 512^3 f32 in
 ``N_DECOMP`` (8 launches), per call and on the device, and reports the
@@ -64,12 +73,15 @@ CELLS = {
     "MG-PCG 256^3 V(1,1)": lambda cs: (cs.N_V11, cs.mg_cfg(cs.V11_MG)),
     "Darcy 256^3": lambda cs: (cs.N_DARCY, cs.darcy_cfg()),
 }
-KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi", "axis_stencil", "axis_stencil5")
+KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi", "axis_stencil", "axis_stencil5",
+                "conv_component", "advect_pair")
 VG_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (1, 4, 4, 4), (1, 65, 130)]
 AXIS_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (3, 3, 9, 11), (1, 128, 128, 128)]
+ADV_CHECK_SHAPES = [(1, 65, 33, 129), (3, 3, 9, 11), (3, 9, 16, 128), (1, 128, 128, 128)]
 # name -> chip_smoke's model set-up: (stepper, steps, kernels, label)
 STEP_CELLS = {
     "QUICK 256^3": lambda cs, dev: cs.advdiff_model(dev, "quick"),
+    "Upwind 256^3": lambda cs, dev: cs.advdiff_model(dev, "upwind"),
     "Burgers 257^3": lambda cs, dev: cs.burgers_model(dev),
 }
 
@@ -157,6 +169,14 @@ def main() -> None:
                                    "levels": cs.axis_level_times(
                                        dev, forced=hasattr(axis_stencil, "uses_march"),
                                        radii=radii)}
+            continue
+        if label in ("conv_component", "advect_pair"):
+            from pyapes_tpu_torch.ops import advect
+
+            _, worst = cs.check_adv(dev, ADV_CHECK_SHAPES, forced=False, names=(label,))
+            out["cells"][label] = {"worst_err_over_limit": worst["choice"],
+                                   "levels": cs.adv_level_times(
+                                       dev, forced=hasattr(advect, "uses_march"), names=(label,))}
             continue
         if label == "dot/ext 512^3":
             out["cells"][label] = _dot_ext_times(cs, dev)

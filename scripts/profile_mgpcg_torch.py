@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
-(or one step of the 3-D Burgers or the QUICK advection-diffusion model).
+(or one step of the 3-D Burgers or the QUICK or upwind advection-diffusion
+model).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --burgers [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --quick [--n 256] [--out ...]
+    python scripts/profile_mgpcg_torch.py --upwind [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
@@ -19,7 +21,10 @@ Taylor-Green start, dt 0.01: three BiCGSTAB solves with the FD
 preconditioner through the convection kernel), or with ``--quick`` one
 step of its QUICK ``AdvectionDiffusion`` path (``advdiff_model``: n^3 f32,
 constant velocity, dt 1e-3: one unpreconditioned BiCGSTAB solve through
-the 5-point axis stencil). ``--decomp 4,2,1`` solves the Poisson problem
+the 5-point axis stencil), or with ``--upwind`` one step of its
+upwind ``AdvectionDiffusion`` path (``advdiff_model``: n^3 f32, the
+velocity field 1 + 0.5 sin 2πx sin 2πy sin 2πz, dt 1e-3: one BiCGSTAB
+solve with the FD preconditioner through the Div kernel). ``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
 halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
 fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
@@ -62,7 +67,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel", "diff_jacobi_march_kernel")),
     ("diff_field (Hopper)", ("diff_field_kernel", "diff_field_march_kernel")),
-    ("advect_pair / conv_component (Hopper)", ("advect_kernel",)),
+    ("advect_pair / conv_component (Hopper)", ("advect_kernel", "advect_march_kernel")),
     ("axis_stencil5 (Hopper)", ("axis_stencil5_kernel",)),
     ("jacobi3d_x2 (Hopper)", ("jacobi3d_x2_kernel",)),
     ("jacobi3d / jacobi3d_dot (Hopper)", ("jacobi3d_kernel",)),
@@ -94,11 +99,13 @@ def _union_ms(intervals, lo, hi) -> float:
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--n", type=int, default=None,
-                   help="grid size (512, or 256 with --darcy / --burgers / --quick)")
+                   help="grid size (512, or 256 with --darcy / --burgers / --quick / --upwind)")
     p.add_argument("--darcy", action="store_true", help="the variable-Γ path")
     p.add_argument("--burgers", action="store_true", help="one step of the 3-D Burgers model")
     p.add_argument("--quick", action="store_true",
                    help="one step of the QUICK advection-diffusion model")
+    p.add_argument("--upwind", action="store_true",
+                   help="one step of the upwind advection-diffusion model (a velocity field)")
     p.add_argument("--decomp", default=None,
                    help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
     p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
@@ -125,15 +132,16 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    n = args.n or (256 if args.darcy or args.burgers or args.quick else 512)
-    if args.burgers or args.quick:
+    step = args.burgers or args.quick or args.upwind
+    n = args.n or (256 if args.darcy or step else 512)
+    if step:
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       os.path.join(HERE, "chip_smoke.py"))
         chip_smoke = importlib.util.module_from_spec(spec)  # this checkout's, whatever --root
         spec.loader.exec_module(chip_smoke)
         dev = torch.device("cuda")
         stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
-                   else chip_smoke.advdiff_model(dev, "quick", n))[0]
+                   else chip_smoke.advdiff_model(dev, "quick" if args.quick else "upwind", n))[0]
 
         def prepare():
             pass
@@ -218,9 +226,10 @@ def main() -> None:
         g[0] += cnt
         g[1] += ms
     summary = {
-        "card": smi, "root": args.root, "case": ("burgers" if args.burgers else "quick" if args.quick
-                              else "darcy" if args.darcy else "poisson"),
-        "method": ("model step" if args.burgers or args.quick
+        "card": smi, "root": args.root,
+        "case": ("burgers" if args.burgers else "quick" if args.quick else "upwind" if args.upwind
+                 else "darcy" if args.darcy else "poisson"),
+        "method": ("model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,
         "n": n, "itr": rep["itr"],
         "tol": rep["tol"],

@@ -83,6 +83,12 @@ DIV_VARIANTS = [("none", "conservative"), ("none", "advective"), ("upwind", "con
 AXIS_SHAPES = [(1, 33, 34, 35), (3, 64, 64, 64), (1, 65, 33, 129), (1, 4, 4, 4), (1, 5, 9, 17),
                (3, 3, 9, 11)] + X2_SHAPES + [(1, 20, 32, 256), (3, 9, 16, 128)]
 AXIS_POINTS = {1: [(3, 3, 3)], 2: [(5, 3, 5), (5, 5, 5), (3, 5, 3)]}
+# the advection kernels' plane march and per-point kernel, each forced, on
+# the march's variants (Div central in both forms and upwind; Conv central
+# and upwind): the 3-D advection shapes (a 3-node axis 0) and two grids of
+# the march's FULL instance
+ADV_MARCH_SHAPES = [s for s in ADV_SHAPES if len(s) == 4] + [(1, 20, 32, 256), (3, 9, 16, 128)]
+ADV_MARCH_DIV = DIV_VARIANTS[:3]
 
 
 @pytest.fixture
@@ -509,6 +515,62 @@ def test_advect_kernels_match_plain(cuda, shape, dtype, kind):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("kind", sorted(ADV_SURGERY))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ADV_MARCH_SHAPES)
+def test_advect_march_and_point_kernels_match_plain(cuda, shape, dtype, kind):
+    """``advect_pair`` (central in both forms and upwind, vector and scalar
+    targets) and ``conv_component`` (central and upwind): the per-point
+    kernel and the plane march, each forced, against the plain version;
+    the march also at explicit plane chunks, with the per-point kernel's
+    bits at every chunk; one launch per call."""
+    x, adv, adv_conv, base, _ = _adv_inputs(shape, dtype, cuda, 12)
+    surg = ADV_SURGERY[kind]
+    cases = [(advect_pair, (xs, av, base, limiter, surg, form),
+              lambda xs=xs, av=av, limiter=limiter, form=form:
+              apply_div_field(xs, av, base, limiter, surg, form))
+             for limiter, form in ADV_MARCH_DIV for xs, av in ((x, adv), (x[:1], adv[:1]))]
+    cases += [(conv_component, (x, adv_conv, base, limiter, surg),
+               lambda limiter=limiter: apply_conv_field(x, adv_conv, base, limiter, surg))
+              for limiter in ("none", "upwind")]
+    for fn, args, plain in cases:
+        ref = plain()
+        before = fn.launches
+        point = fn(*args, march=False)
+        _close(point, ref, dtype)
+        for c in CHUNKS:
+            out = fn(*args, march=True, chunk=c)
+            _close(out, ref, dtype)
+            assert torch.equal(out, point), (fn.__name__, args[3:])  # the per-point expression
+        assert fn.launches == before + 1 + len(CHUNKS)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("march", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_advect_kernels_same_bits_every_call(cuda, dtype, march):
+    """Either kernel gives the same bits on every call (Div upwind and
+    central conservative, Conv central)."""
+    x, adv, adv_conv, base, _ = _adv_inputs((3, 70, 32, 131), dtype, cuda, 13)
+    surg = ADV_SURGERY["mixed"]
+    for call in (lambda: advect_pair(x[:1], adv[:1], base, "upwind", surg, march=march),
+                 lambda: advect_pair(x, adv, base, "none", surg, "conservative", march=march),
+                 lambda: conv_component(x, adv_conv, base, "none", surg, march=march)):
+        assert torch.equal(call(), call())
+
+
+def test_advect_march_takes_3d_central_or_upwind_only(cuda):
+    """Forcing the march on a 2-D grid or with QUICK raises; it never falls
+    back."""
+    x, adv, adv_conv, base, _ = _adv_inputs((1, 65, 130), torch.float32, cuda, 14)
+    surg = ADV_SURGERY["none"][:2]
+    with pytest.raises(ValueError):
+        advect_pair(x, adv, base, "upwind", surg, march=True)
+    x, adv, adv_conv, base, _ = _adv_inputs((1, 9, 16, 128), torch.float32, cuda, 14)
+    with pytest.raises(ValueError):
+        conv_component(x, adv_conv, base, "quick", ADV_SURGERY["none"], march=True)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", ADV_SHAPES)
 def test_axis_stencil5_matches_plain(cuda, shape, dtype):
@@ -523,7 +585,9 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
     assert (axis_stencil.launches, axis_stencil5.launches) == (before[0], before[1] + 2)
 
 
-@pytest.mark.parametrize("name", ["advect_pair", "conv_component", "axis_stencil5",
+@pytest.mark.parametrize("name", ["advect_pair", "conv_component", "advect_pair_march",
+                                  "advect_pair_point", "conv_component_march",
+                                  "conv_component_point", "axis_stencil5",
                                   "axis_stencil_ext", "jacobi3d", "jacobi3d_dot",
                                   "diff_field_march", "diff_field_point", "diff_jacobi_march",
                                   "diff_jacobi_point", "axis_stencil_march", "axis_stencil_point",
@@ -570,8 +634,9 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     march = {"_march": True, "_point": False}.get(name[name.rfind("_"):])
     fn = {"jacobi3d": lambda: jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
           "jacobi3d_dot": lambda: jacobi3d_dot(x, b, inv, 1.0, beta, (0, 1, 2))[0],
-          "advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg),
-          "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg),
+          "advect_pair": lambda: advect_pair(x, adv, base, "upwind", surg, march=march),
+          "conv_component": lambda: conv_component(x, adv_conv, base, "none", surg,
+                                                   march=march),
           "axis_stencil5": lambda: axis_stencil5(c5, x, march=march),
           "axis_stencil": lambda: axis_stencil(c3x, x, march=march),
           "axis_stencil_dot": lambda: axis_stencil_dot(c3x, x)[0],
