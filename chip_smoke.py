@@ -19,8 +19,11 @@ Phases, report lines before the last:
    shapes, a 2-D grid among them; both kernels of both radii timed per
    call and back to back at 512^3, 256^3, 129^3, 128^3 and 64^3 f32, the
    Poisson model's 65^3 and 129^3 f64 and every level of the 512^3 V-cycle
-   in bf16, beside the shape's choice and a device copy; stencil alpha-dot
-   and the Jacobi family:
+   in bf16, beside the shape's choice and a device copy; the stencil
+   alpha-dot, its plane march (at several plane chunks) and per-point
+   kernel each forced, A x with the same bits, the dot against the plain
+   version's f64 dot, at the 3-D kernel and edge shapes and 256^3 x
+   f32/bf16/f64; the Jacobi family:
    five shapes x f32/bf16/f64 x their variants, dots included; the
    variable-Γ diffusion apply and Jacobi pass, the plane march and the
    per-point kernel each forced: the same shapes plus a 2-D grid and the
@@ -29,11 +32,16 @@ Phases, report lines before the last:
    three Jacobi modes, the march at several plane chunks with the same
    bits at each and on another call, and both timed at every level of the
    Darcy 256^3 and 512^3 V-cycles beside the shape's choice; the
-   halo-extended stencil:
+   halo-extended stencil, its plane march (at several plane chunks) and
+   per-point kernel each forced, with the same bits:
    four blocks, odd sizes and single-row axes among them, x the three ext
    flags x f32/bf16/f64 x vdim 1/3 x a new or a strided output, and in
    bf16 on the (4, 2, 1) blocks of every 512^3 MG level the decomposed
-   cycle applies block-wise; the double sweep also at its own edge
+   cycle applies block-wise; the alpha-dot at 512^3, 256^3 and 128^3 f32
+   and the halo-extended stencil on the (4, 2, 1) blocks of those grids in
+   f32 and bf16, both kernels timed per call and back to back beside the
+   shape's choice, a device copy and the bound (``dot_ext_level_times``);
+   the double sweep also at its own edge
    shapes, with explicit plane chunks, and the worst err/limit of all its
    cases, as is the single sweep with its dot), and kernel vs plain timed
    at 512^3 (CUDA events; the halo-extended kernel on the eight blocks of
@@ -155,12 +163,14 @@ DOT_TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float64": 1e-12}
 # the 512^3 grid's choice, while their per-point kernel (csrc/diff_field.cu)
 # takes 2-D grids and the levels below the march's threshold; axis_stencil
 # and axis_stencil5 likewise: the plane march (csrc/axis_march.cu) at the
-# timed 512^3 / 256^3, the per-point kernels (csrc/axis_stencil.cu) below
+# timed 512^3 / 256^3, the per-point kernels (csrc/axis_stencil.cu) below;
+# axis_stencil_dot (512^3) and axis_stencil_ext (the (4, 2, 1) blocks of
+# 512^3) likewise: instances of that march, their per-point kernels below
 KERNELS = [
     ("axis_stencil", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil.py:323"),
     ("axis_stencil_dot", "pyapes_tpu_torch.ops.axis_stencil",
-     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_db.py:248"),
+     "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_db.py:248"),
     ("jacobi3d", "pyapes_tpu_torch.ops.jacobi",
      "pyapes_tpu_torch/csrc/jacobi3d.cu", "pyapes_tpu/ops/pallas_stencil.py:551"),
     ("jacobi3d_dot", "pyapes_tpu_torch.ops.jacobi",
@@ -178,7 +188,7 @@ KERNELS = [
     ("axis_stencil5", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
     ("axis_stencil_ext", "pyapes_tpu_torch.ops.axis_stencil",
-     "pyapes_tpu_torch/csrc/axis_stencil.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:573"),
+     "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:573"),
 ]
 # the decomposed paths' block layout: 512^3 in 8 blocks of 128 x 256 x 512
 # (the last, contiguous, axis is never cut)
@@ -187,6 +197,9 @@ N_DECOMP = (4, 2, 1)
 # n2), odd sizes and single-row axes among them, x the three ext flags
 EXT_BLOCKS = [(1, 5, 7, 33), (3, 16, 9, 130), (1, 3, 5, 257), (3, 1, 2, 64)]
 EXT_FLAGS = [(1, 0, 0), (0, 1, 0), (1, 1, 0)]
+# the alpha-dot's two kernels (plane march, per-point), each forced: the
+# 3-D kernel shapes, the marches' edges and the 256^3 V(1,1) grid
+DOT_SHAPES = KERNEL3D_SHAPES + EDGE_SHAPES + [(1, N_V11, N_V11, N_V11)]
 # The least time of each timed call (bound_ms): the larger of its
 # compulsory bytes (each input grid read once, each output grid written
 # once; the coefficient vectors, < 0.01% of them, left out) over the
@@ -315,7 +328,7 @@ def _entry_registers(log: str) -> list:
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
         if m:
-            cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march|axis_march"
+            cur = re.search(r"((?:jacobi3d(?:_x2)?|diff_(?:jacobi|field)_march|axis_march(?:_dot|_ext)?"
                             r"|axis_stencil(?:_dot|_ext|5)?|advect(?:_march)?)_kernel)"
                             r"I(13__nv_bfloat16|f|d)((?:L[bi]\d+E)*)", m.group(1))
             continue
@@ -347,7 +360,8 @@ def phase_build():
           flush=True)
     regs = _entry_registers(builds["axis_stencil"].log)
     print("[2 build] axis-stencil registers (ptxas; the plane march axis_march_kernel <dtype,"
-          "radius,full>; the per-point kernels <dtype[,ndim]>): "
+          "radius,full>, its alpha-dot and halo-extended instances axis_march_dot_kernel, "
+          "axis_march_ext_kernel <dtype,full>; the per-point kernels <dtype[,ndim]>): "
           + "; ".join(f"{k} {r} (spill {sp} B)" for k, r, sp in regs), flush=True)
     regs = _entry_registers(builds["diff_field"].log)
     print("[2 build] variable-Γ plane-march registers (ptxas; diff_jacobi <dtype,mode,iso,full,"
@@ -894,38 +908,95 @@ def level_times(dev, kernel, n: int = N_MAIN) -> list:
     return rows
 
 
+def check_dot(dev, shapes=DOT_SHAPES) -> tuple:
+    """``axis_stencil_dot``'s plane march (also at ``MARCH_CHUNKS`` planes
+    per block) and per-point kernel, each forced, against
+    ``apply_axis_stencil_dot`` at ``shapes`` x ``DTYPES``: ``A x`` within
+    ``REL_TOL`` and with the per-point kernel's bits at every chunk; the
+    dot within ``DOT_TOL`` x sum|products| of the plain version's f64 dot
+    on the same inputs; both with the same bits on another call. Raises
+    otherwise; returns the worst abs error of ``A x`` and the worst
+    err/limit per kernel (``A x`` and the dot)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil_dot
+
+    worst, worst_rel, n_cases = 0.0, {k: 0.0 for k, _ in FORCED_KERNELS}, 0
+    for seed, shape in enumerate(shapes):
+        for dtname in DTYPES:
+            _, _, x, _, coeffs = _level_inputs(shape, getattr(torch, dtname), dev, 100 + seed)
+            ref = apply_axis_stencil_dot(coeffs, x)[0]
+            ref_dot = apply_axis_stencil_dot(tuple(tuple(c.double() for c in cs) for cs in coeffs),
+                                             x.double())[1]
+            limit = REL_TOL[dtname] * ref.double().abs().max().item()
+            dlim = DOT_TOL[dtname] * (x.double() * ref.double()).abs().sum(dim=(1, 2, 3))
+            point, here = None, {}
+            for kern, march in FORCED_KERNELS[::-1]:  # the per-point kernel first
+                for ci in (None, *MARCH_CHUNKS) if march else (None,):
+                    (out, dot), again = [axis_stencil_dot(coeffs, x, march=march, chunk=ci)
+                                         for _ in range(2)]
+                    torch.cuda.synchronize()
+                    if out.dtype != ref.dtype or out.shape != ref.shape:
+                        raise RuntimeError(f"chip_smoke: axis_stencil_dot returned {out.dtype} "
+                                           f"{tuple(out.shape)}")
+                    err = (out.double() - ref.double()).abs().max().item()
+                    derr = (dot.double() - ref_dot).abs().flatten()
+                    if not (err <= limit and bool((derr <= dlim).all())):
+                        raise RuntimeError(
+                            f"chip_smoke: axis_stencil_dot ({kern} kernel, chunk {ci}) disagrees "
+                            f"with its plain version at {shape} {dtname}: A x {err:.3e} > "
+                            f"{limit:.3e} or dot {derr.max().item():.3e} > {dlim.min().item():.3e}")
+                    if not (torch.equal(again[0], out) and torch.equal(again[1], dot)):
+                        raise RuntimeError(f"chip_smoke: axis_stencil_dot ({kern} kernel, chunk "
+                                           f"{ci}) gave other bits on another call at {shape} "
+                                           f"{dtname}")
+                    if point is None:
+                        point = out
+                    elif not torch.equal(out, point):
+                        raise RuntimeError(f"chip_smoke: axis_stencil_dot's march (chunk {ci}) "
+                                           f"gave other A x bits than the per-point kernel at "
+                                           f"{shape} {dtname}")
+                    rel = max(err / limit if limit > 0 else 0.0, (derr / dlim).max().item())
+                    here[kern] = max(here.get(kern, 0.0), rel)
+                    worst = max(worst, err)
+                    n_cases += 1
+                    del out, dot, again
+            for kern, v in here.items():
+                worst_rel[kern] = max(worst_rel[kern], v)
+            print(f"[3 kernel] axis_stencil_dot {tuple(shape)} {dtname}: worst err/limit "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in here.items())
+                  + f" (A x and the dot against the plain f64 dot; the march at chunks auto, "
+                  f"{', '.join(map(str, MARCH_CHUNKS))}: A x the per-point kernel's bits; "
+                  "the same bits on another call)", flush=True)
+            del x, ref, ref_dot, point
+    print(f"[3 kernel] axis_stencil_dot: {n_cases} cases hold ({len(shapes)} shapes x "
+          f"{len(DTYPES)} dtypes x the per-point kernel and the march at {1 + len(MARCH_CHUNKS)} "
+          "chunks), worst err/limit " + ", ".join(f"{k} {v:.3f}" for k, v in worst_rel.items()),
+          flush=True)
+    return worst, worst_rel
+
+
 def phase_kernel_slice2(dev):
-    """The stencil alpha-dot against its plain version at every shape x
-    dtype, dot included; the plane marches (the single sweep and its dot,
-    the double sweep) at every shape x dtype x variant and at their edge
-    shapes and plane chunks; kernel vs plain timed at 512^3 (bf16 for the
-    Jacobi family, the cycle dtype; f32 for the alpha-dot, the CG dtype),
-    the plane marches at every 512^3 MG level. Returns per-kernel worst abs
-    error, (ms, plain_ms) and the plane marches' per-level times."""
+    """The stencil alpha-dot's two kernels, each forced, against its plain
+    version (``check_dot``); the plane marches (the single sweep and its
+    dot, the double sweep) at every shape x dtype x variant and at their
+    edge shapes and plane chunks; kernel vs plain timed at 512^3 (bf16 for
+    the Jacobi family, the cycle dtype; f32 for the alpha-dot, the CG
+    dtype, the shape's choice), the plane marches at every 512^3 MG level.
+    Returns per-kernel worst abs error, (ms, plain_ms) and the plane
+    marches' per-level times."""
     import torch
 
     from pyapes_tpu_torch.ops import jacobi as K
     from pyapes_tpu_torch.ops import stencil as P
     from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot
 
-    worst = {}
-    timing = {}
-    for seed, shape in enumerate(KERNEL3D_SHAPES):
-        for dtname in DTYPES:
-            dtype = getattr(torch, dtname)
-            _, _, x, _, coeffs = _level_inputs(shape, dtype, dev, 100 + seed)
-            kern = lambda: axis_stencil_dot(coeffs, x)  # noqa: E731
-            plain = lambda: P.apply_axis_stencil_dot(coeffs, x)  # noqa: E731
-            err, limit, ok, tag = _check_case("axis_stencil_dot", "", kern, plain, x, dtname)
-            print(f"[3 kernel] {tuple(shape)} {dtname} err/limit: {tag} {err:.2e}/{limit:.2e}"
-                  f"{'' if ok else ' FAIL'}", flush=True)
-            if not ok:
-                raise RuntimeError(f"chip_smoke: axis_stencil_dot disagrees with its plain version "
-                                   f"at {shape} {dtname}")
-            worst["axis_stencil_dot"] = max(worst.get("axis_stencil_dot", 0.0), err)
-            if shape[1] == N_MAIN and dtname == "float32":
-                timing["axis_stencil_dot"] = (_time_ms(kern), _time_ms(plain))
-            del x
+    worst = {"axis_stencil_dot": check_dot(dev)[0]}
+    _, _, x, _, coeffs = _level_inputs((1, N_MAIN, N_MAIN, N_MAIN), torch.float32, dev, 100)
+    timing = {"axis_stencil_dot": (_time_ms(lambda: axis_stencil_dot(coeffs, x)),
+                                   _time_ms(lambda: P.apply_axis_stencil_dot(coeffs, x)))}
+    del x, coeffs
     for kernel in MARCHES:
         worst.update(check_march(dev, kernel)[1])
     # the 512^3 level first: the kernels' times
@@ -1507,17 +1578,21 @@ def phase_kernel_advect(dev):
 
 
 def phase_kernel_ext(dev):
-    """The halo-extended kernel against its plain version on every block x
-    ext flag x dtype, written into a new tensor and into a strided view of
-    a larger one, and in bf16 on the blocks of the decomposed MG levels;
-    then timed at the decomposed paths' blocks (512^3 f32 in
-    ``N_DECOMP``: eight launches, one per block, each writing its view of
-    the global result) against the plain version, the CSR yardstick and
-    the bound, and the whole block-wise apply (exchange + kernels) against
-    the global axis-stencil kernel."""
+    """The halo-extended apply's two kernels, the plane march (also at
+    ``MARCH_CHUNKS`` planes per block) and the per-point kernel, each
+    forced, against its plain version on every block x ext flag x dtype,
+    written into a new tensor and into a strided view of a larger one
+    (pair stores or single ones, by its strides), with the same bits; and
+    in bf16 on the blocks of the decomposed MG levels (the shape's choice
+    and both kernels forced, the same bits); then timed at the decomposed
+    paths' blocks (512^3 f32 in ``N_DECOMP``: eight launches, one per
+    block, each writing its view of the global result; the shape's choice,
+    the march) against the plain version, the CSR yardstick and the bound,
+    and the whole block-wise apply (exchange + kernels) against the global
+    axis-stencil kernel."""
     import torch
 
-    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext, uses_march_ext
     from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, apply_axis_stencil_ext
     from pyapes_tpu_torch.parallel import DomainDecomposition, halo
     from pyapes_tpu_torch.solver.multigrid import MGSpec
@@ -1537,22 +1612,37 @@ def phase_kernel_ext(dev):
                 big = torch.zeros((block[0] + 1, block[1] + 2, block[2] + 3, block[3]),
                                   dtype=dtype, device=dev)
                 view = big[1:, 1:1 + block[1], 3:]
+                limit = REL_TOL[dtname] * ref.double().abs().max().item()
+                first = None
                 for out in (None, view):
-                    got = axis_stencil_ext(coeffs, xe, ext, out=out)
-                    torch.cuda.synchronize()
-                    err = (got.double() - ref.double()).abs().max().item()
-                    limit = REL_TOL[dtname] * ref.double().abs().max().item()
-                    if not (err <= limit and got.shape == ref.shape and got.dtype == ref.dtype):
-                        raise RuntimeError(f"chip_smoke: axis_stencil_ext disagrees at {block} "
-                                           f"ext {ext} {dtname}: {err:.3e} > {limit:.3e}")
-                    worst = max(worst, err)
-                    ratios.append(err / limit if limit > 0 else 0.0)
+                    for kern, march in FORCED_KERNELS:
+                        for ci in (None, *MARCH_CHUNKS) if march else (None,):
+                            got = axis_stencil_ext(coeffs, xe, ext, out=out, march=march,
+                                                   chunk=ci)
+                            torch.cuda.synchronize()
+                            err = (got.double() - ref.double()).abs().max().item()
+                            if not (err <= limit and got.shape == ref.shape
+                                    and got.dtype == ref.dtype):
+                                raise RuntimeError(
+                                    f"chip_smoke: axis_stencil_ext ({kern} kernel, chunk {ci}) "
+                                    f"disagrees at {block} ext {ext} {dtname}: {err:.3e} > "
+                                    f"{limit:.3e}")
+                            if first is None:
+                                first = got.clone()
+                            elif not torch.equal(got, first):
+                                raise RuntimeError(
+                                    f"chip_smoke: axis_stencil_ext ({kern} kernel, chunk {ci}, "
+                                    f"{'a view' if out is not None else 'a new tensor'}) gave "
+                                    f"other bits at {block} ext {ext} {dtname}")
+                            worst = max(worst, err)
+                            ratios.append(err / limit if limit > 0 else 0.0)
                 if big[0].any() or big[:, 0].any() or big[:, :, :3].any():
                     raise RuntimeError(f"chip_smoke: axis_stencil_ext wrote outside its view at "
                                        f"{block} ext {ext} {dtname}")
     print(f"[3 kernel] axis_stencil_ext: {len(ratios)} cases ({len(EXT_BLOCKS)} blocks x "
-          f"{len(EXT_FLAGS)} ext flags x {len(DTYPES)} dtypes x new/strided output), worst "
-          f"err/limit {max(ratios):.3f}", flush=True)
+          f"{len(EXT_FLAGS)} ext flags x {len(DTYPES)} dtypes x new/strided output x the "
+          f"per-point kernel and the march at {1 + len(MARCH_CHUNKS)} chunks, all with the same "
+          f"bits), worst err/limit {max(ratios):.3f}", flush=True)
 
     # the decomposed MG-PCG's own launches: every level of its 512^3
     # hierarchy that the gate applies block-wise, with the level's bf16
@@ -1576,6 +1666,10 @@ def phase_kernel_ext(dev):
             xe, cs = halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl)
             ob = axis_stencil_ext(cs, xe, ext, out=out[(slice(None), *sl)])
             ref = apply_axis_stencil_ext(cs, xe, ext)
+            if not all(torch.equal(axis_stencil_ext(cs, xe, ext, march=march), ob)
+                       for _, march in FORCED_KERNELS):
+                raise RuntimeError(f"chip_smoke: axis_stencil_ext's two kernels gave other bits "
+                                   f"on the bf16 MG level {shape} blocks")
             torch.cuda.synchronize()
             err = max(err, (ob.double() - ref.double()).abs().max().item())
             limit = max(limit, REL_TOL["bfloat16"] * ref.double().abs().max().item())
@@ -1588,12 +1682,14 @@ def phase_kernel_ext(dev):
             raise RuntimeError(f"chip_smoke: the bf16 MG level {shape} blocks differ from the "
                                f"global stencil: {gerr:.3e}")
         worst = max(worst, err)
-        levels[shape] = f"{shape} blocks {tuple(xe.shape[1:])} err/limit {err / limit:.3f}"
+        levels[shape] = (f"{shape} blocks {tuple(xe.shape[1:])} err/limit {err / limit:.3f} "
+                         f"({'march' if uses_march_ext(ob.shape, ob) else 'per-point'})")
         del x, out, glob
     if (n,) * 3 not in levels:
         raise RuntimeError(f"chip_smoke: the {n}^3 MG fine level is not applied block-wise")
     print(f"[3 kernel] axis_stencil_ext bf16 on the {N_DECOMP} blocks of the {n}^3 MG levels "
-          f"(MGSpec's Laplacian vectors): " + "; ".join(levels.values()), flush=True)
+          f"(MGSpec's Laplacian vectors; the shape's choice, both kernels forced with its bits): "
+          + "; ".join(levels.values()), flush=True)
 
     g = torch.Generator(device=dev).manual_seed(700)
     coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev) for _ in range(3))
@@ -1634,6 +1730,105 @@ def phase_kernel_ext(dev):
           "CUDA-event timings)", flush=True)
     del blocks, out, glob, x
     return worst, (ms, plain_ms, lib_ms, bound)
+
+
+def dot_ext_level_times(dev, n: int = N_MAIN, forced=True) -> list:
+    """``axis_stencil_dot`` at n^3, (n/2)^3 f32 (the MG-PCG and V(1,1) CG
+    operators) and (n/4)^3 (the march's threshold) and ``axis_stencil_ext``
+    on the ``N_DECOMP`` blocks of the n^3, (n/2)^3 and (n/4)^3 levels (the
+    last below the threshold) in f32 and bf16 (one apply: a launch per
+    block, each into its block's view of the level's result): per call
+    (``_time_ms``) and on the device back to back (``_device_ms``), the
+    shape's choice and, with ``forced``, the plane march and the per-point
+    kernel each forced; a device copy of x and the bound beside them (the
+    dot: read x, write A x; the ext: read every extended block, write the
+    result). Each row's choice is first held to its plain version within
+    ``REL_TOL`` (raises otherwise). Then where the rule takes the march
+    and where the march is at or below the per-point kernel. Without
+    ``forced`` only the wrappers' older signature is used (an older
+    version under ``ab_cells_torch.py --root``)."""
+    import torch
+
+    from pyapes_tpu_torch.ops import axis_stencil as A
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil, apply_axis_stencil_dot
+    from pyapes_tpu_torch.parallel import DomainDecomposition, halo
+
+    dd = DomainDecomposition(N_DECOMP)
+    ext = tuple(int(m > 1) for m in N_DECOMP)
+    rows = []
+    cases = [("axis_stencil_dot", m, "float32") for m in (n, n // 2, n // 4)]
+    cases += [("axis_stencil_ext", m, dt) for m in (n, n // 2, n // 4)
+              for dt in ("float32", "bfloat16")]
+    for lvl, (name, m, dtname) in enumerate(cases):
+        coeffs, x = _axis_inputs((1, m, m, m), (3, 3, 3), getattr(torch, dtname), dev, 980 + lvl)
+        pts = x.numel()
+        if name == "axis_stencil_dot":
+            def call(march=None, coeffs=coeffs, x=x):
+                kw = {} if march is None else {"march": march}
+                return A.axis_stencil_dot(coeffs, x, **kw)[0]
+
+            ref = apply_axis_stencil_dot(coeffs, x)[0]
+            nbytes, ops = 2 * x.element_size() * pts, 19 * pts
+            march_taken = forced and A.uses_march(x.shape)
+        else:
+            blocks = [(sl, halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl))
+                      for _, sl in dd.blocks((m, m, m))]
+            res = torch.empty_like(x)
+
+            def call(march=None, blocks=blocks, res=res):
+                kw = {} if march is None else {"march": march}
+                for sl, xe, cs in blocks:
+                    A.axis_stencil_ext(cs, xe, ext, out=res[(slice(None), *sl)], **kw)
+                return res
+
+            ref = apply_axis_stencil(coeffs, x)
+            nbytes = (sum(xe.numel() for _, xe, _ in blocks) + pts) * x.element_size()
+            ops = 17 * pts
+            view = res[(slice(None), *blocks[0][0])]
+            march_taken = forced and A.uses_march_ext(tuple(view.shape), view)
+        err = (call().double() - ref.double()).abs().max().item()
+        limit = REL_TOL[dtname] * ref.double().abs().max().item()
+        if not err <= limit:
+            raise RuntimeError(f"chip_smoke: {name} (the shape's choice) disagrees with its plain "
+                               f"version at {m}^3 {dtname}: {err:.3e} > {limit:.3e}")
+        del ref
+        copy = torch.empty_like(x)
+        row = {"kernel": name, "n": m, "dtype": dtname, "bound_ms": _bound(nbytes, ops)[0],
+               "ms": _time_ms(call), "device_ms": _device_ms(call),
+               "copy_device_ms": _device_ms(lambda: copy.copy_(x)), "march": march_taken,
+               "err_over_limit": err / limit if limit > 0 else 0.0}
+        if forced:
+            for kern, march in FORCED_KERNELS:
+                row[f"{kern}_ms"] = _time_ms(lambda: call(march))
+                row[f"{kern}_device_ms"] = _device_ms(lambda: call(march))
+        rows.append(row)
+        del coeffs, x, copy, call
+    print(f"[3 kernel] alpha-dot at {n}^3, {n // 2}^3 and {n // 4}^3 f32, halo-extended apply "
+          f"on the {N_DECOMP} blocks of {n}^3, {n // 2}^3 and {n // 4}^3 in f32 and bf16 (8 "
+          "launches per apply), ms "
+          "per call (median of 15 CUDA-event timings) / device µs per call (30 back to back), "
+          "the shape's choice (each within REL_TOL of the plain version, worst err/limit "
+          f"{max(r['err_over_limit'] for r in rows):.3f})"
+          + ("; the march and the per-point kernel forced" if forced else "")
+          + "; a device copy of x: "
+          + "; ".join(
+              f"{r['kernel']} {r['n']}^3 {r['dtype']} {r['ms']:.4f} / "
+              f"{1e3 * r['device_ms']:.2f} ({100 * r['bound_ms'] / r['device_ms']:.1f}% of "
+              f"{1e3 * r['bound_ms']:.2f}; copy {1e3 * r['copy_device_ms']:.2f})"
+              + (f" [march {r['march_ms']:.4f} / {1e3 * r['march_device_ms']:.2f}, per-point "
+                 f"{r['point_ms']:.4f} / {1e3 * r['point_device_ms']:.2f}; chosen "
+                 f"{'march' if r['march'] else 'per-point'}]" if forced else "")
+              for r in rows), flush=True)
+    if forced:
+        other = [f"{r['kernel']} {r['n']}^3 {r['dtype']}" for r in rows
+                 if (r["march_device_ms"] > r["point_device_ms"] if r["march"]
+                     else r["point_device_ms"] > r["march_device_ms"])]
+        print("[3 kernel] alpha-dot and halo-extended kernel choice: the march on 3-D grids "
+              f"(blocks) of at least {A.MARCH_MIN_POINTS} points per component that no tile "
+              "overhangs (uses_march, uses_march_ext: and an output view that takes pair stores); "
+              f"on the device back to back here the kernel not chosen is faster at: "
+              f"{', '.join(other) or 'no row'}", flush=True)
+    return rows
 
 
 def _true_residual(solver) -> float:
@@ -2198,6 +2393,7 @@ def main() -> None:
     vg_level_times(dev)
     worst4, timing4 = phase_kernel_advect(dev)
     worst5, timing5 = phase_kernel_ext(dev)
+    dot_ext_level_times(dev)
     worst = {**worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
     worst["axis_stencil5"] = max(worst1["axis_stencil5"], worst4["axis_stencil5"])
     timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4,

@@ -1,7 +1,7 @@
 // The per-axis stencil apply as a 2.5-D plane march on Hopper (sm_90a),
 // for 3-D grids from the wrapper's threshold up (ops/axis_stencil.py
-// chooses by shape; the per-point kernels of small, 1-D and 2-D grids, the
-// alpha-dot and the halo-extended kernel are in csrc/axis_stencil.cu):
+// chooses by shape; the per-point kernels of small, 1-D and 2-D grids are
+// in csrc/axis_stencil.cu):
 //
 //   out[d, i, j, k] = sum_a sum_{o = -R..R} c_{a,o}[i_a] x[.., i_a + o mod n_a, ..]
 //
@@ -9,10 +9,24 @@
 // pallas_stencil.py::pallas_axis_stencil, pallas_stencil_db.py::
 // pallas_axis_stencil_db and pallas_stencil_v3.py::pallas_axis_stencil_v3)
 // or R = 2 (5-point QUICK axes mixed with 3-point ones: axis_stencil5;
-// replaces pallas_stencil_v3.py::pallas_axis_stencil_v5). This file is
-// built once per storage dtype and radius (-DAM_DTYPE=0 f32, 1 f64, 2
-// bf16; -DAM_R=1|2), the builds started together, and linked with
-// axis_stencil.cu into one library.
+// replaces pallas_stencil_v3.py::pallas_axis_stencil_v5). Two more
+// instances of the radius-1 march:
+//
+//   axis_march_dot_kernel   the apply plus one partial sum(x * A x) per
+//     block, from the unrounded A x (axis_stencil_dot, the CG alpha-dot;
+//     replaces pallas_stencil_db.py::pallas_axis_stencil_dot and
+//     pallas_stencil_v3.py::pallas_axis_stencil_dot_v3);
+//   axis_march_ext_kernel   the apply on one block of a domain
+//     decomposition, x extended by one ghost row per side of axis 0 and/or
+//     1 (no wrap on an extended axis), the output written through strides
+//     into the block's view of the global result (axis_stencil_ext;
+//     replaces pallas_stencil_v3.py::pallas_axis_stencil_ext).
+//
+// This file is built once per storage dtype and radius (-DAM_DTYPE=0 f32,
+// 1 f64, 2 bf16; -DAM_R=1|2) and once per storage dtype for each of the two
+// radius-1 instances (-DAM_R=1 -DAM_KIND=1 dot, 2 halo-extended), the
+// builds started together, and linked with axis_stencil.cu into one
+// library.
 //
 // What bounds it: 2R+1 multiply-adds per axis and point against 2 grids of
 // compulsory traffic (read x, write out): HBM. The design is jacobi3d.cu's
@@ -54,7 +68,13 @@
 #include "march.cuh"
 
 #if !defined(AM_DTYPE) || !defined(AM_R)
-#error "axis_march.cu is built with -DAM_DTYPE=0|1|2 -DAM_R=1|2 (ops/cuda_build.py)"
+#error "axis_march.cu is built with -DAM_DTYPE=0|1|2 -DAM_R=1|2 [-DAM_KIND=1|2] (ops/cuda_build.py)"
+#endif
+#ifndef AM_KIND
+#define AM_KIND 0
+#endif
+#if AM_KIND != 0 && AM_R != 1
+#error "the dot and halo-extended instances of axis_march.cu are radius 1"
 #endif
 
 namespace pyapes {
@@ -65,6 +85,7 @@ constexpr int AM_THREADS = 32 * AM_WK * AM_WJ;              // 256
 constexpr int AM_ROWS = 4;                                  // rows per thread
 constexpr int AM_TJ = AM_WJ * AM_ROWS, AM_TK = 64 * AM_WK;  // output tile (16 x 128)
 constexpr int AM_AHEAD = 2;  // planes in flight beyond the one a step waits for
+enum : int { AM_APPLY = 0, AM_DOT = 1, AM_EXT = 2 };  // the instances (-DAM_KIND)
 
 template <typename T>
 __host__ __device__ constexpr int am_hk() {  // k halo of the window: 16 bytes
@@ -109,11 +130,16 @@ __device__ __forceinline__ C am_point(const C (&cf)[3][2 * R + 1], const C (&xv)
   }
 }
 
-template <typename T, int R, bool FULL>
-__global__ void __launch_bounds__(AM_THREADS, am_min_blocks<T>())
-axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<T> q, int ci,
-                  int cw) {
+// The march of one block; KIND: AM_APPLY, AM_DOT (also the block's
+// partial of sum(x * A x) into partial), AM_EXT (x halo-extended, the
+// output through e's strides).
+template <typename T, int R, bool FULL, int KIND>
+__device__ __forceinline__ void am_body(const T* __restrict__ x, T* __restrict__ out,
+                                        typename Compute<T>::type* __restrict__ partial,
+                                        const AxisMarchParams<T>& q, const AxisMarchExt& e,
+                                        int ci, int cw) {
   using C = typename Compute<T>::type;
+  constexpr bool EXT = KIND == AM_EXT;
   constexpr int NT = AM_THREADS, RW = AM_ROWS, TJ = AM_TJ, TK = AM_TK;
   constexpr int HK = am_hk<T>(), W = am_w<T>(), XJ = TJ + 2 * R, XPL = XJ * W;
   constexpr int D = AM_AHEAD, S = 2 * R + D, M = 2 * R + 1;  // ring slots; taps per axis
@@ -131,12 +157,19 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
   const int i0 = (blockIdx.z - d * nch) * ci, i1 = min(i0 + ci, n0);
   const int j0 = blockIdx.y * TJ, k0 = blockIdx.x * TK;
   const int64_t plane = (int64_t)n1 * n2, vol = n0 * plane;
-  const T* xd = x + d * vol;
-  T* od = out + d * vol;
+  // ghost rows per side of axes 0 and 1 (EXT), x's plane stride
+  const int e0 = EXT ? e.e0 : 0, e1 = EXT ? e.e1 : 0;
+  const int64_t xplane = EXT ? (int64_t)(n1 + 2 * e1) * n2 : plane;
+  const T* xd = x + d * (EXT ? (n0 + 2 * e0) * xplane : vol);
+  // the output's plane and row strides
+  const int64_t os0 = EXT ? e.os0 : plane, os1 = EXT ? e.os1 : n2;
+  T* od = out + d * (EXT ? e.os_v : vol);
 
-  for (int e = t; e < XJ + W; e += NT) {
-    if (e < XJ) rowoff[e] = wrap(j0 - R + e, n1) * n2;
-    else kcol[e - XJ] = wrap(k0 - HK + e - XJ, n2);
+  // window row -> x row offset: the ghost rows of an extended axis 1, else
+  // the wrap
+  for (int h = t; h < XJ + W; h += NT) {
+    if (h < XJ) rowoff[h] = (e1 ? j0 - R + e1 + h : wrap(j0 - R + h, n1)) * n2;
+    else kcol[h - XJ] = wrap(k0 - HK + h - XJ, n2);
   }
   __syncthreads();
 
@@ -165,7 +198,7 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
   // element loads)
   auto stage = [&](int p) {
     T* dst = xs + slot(p) * XPL;
-    const T* src = xd + wrap_i(p) * plane;
+    const T* src = xd + (e0 ? p + e0 : wrap_i(p)) * xplane;  // EXT axis 0: the ghost planes
     if (cw == 16) {
 #pragma unroll
       for (int u = 0; u < NX16; ++u) {
@@ -214,8 +247,8 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
 #pragma unroll
     for (int m = 0; m < M; ++m) c2[c][m] = gk < n2 && on(2, m) ? coeff(2, m, gk) : C(0);
   }
-  const bool pair_store = (n2 & 1) == 0;
-  const int64_t orow = (int64_t)(j0 + tj0) * n2 + k0 + kk;  // its first point in a plane
+  const bool pair_store = EXT ? e.pair != 0 : (n2 & 1) == 0;
+  const int64_t orow = (int64_t)(j0 + tj0) * os1 + k0 + kk;  // its first point in a plane
 
   // prologue: x(i0-R) .. x(i0+R-1) now; then the groups G(p) = {x(p+R)}
   // for p = i0 .. i0+D-1, so that step p waits only for G(p)
@@ -241,6 +274,7 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
 #pragma unroll
   for (int m = 0; m < M; ++m) ca[m] = on(0, m) ? coeff(0, m, i0) : C(0);
 
+  C prod = C(0);  // DOT: sum x * A x over this thread's points
   for (int p = i0; p < i1; ++p) {
     cp_async_wait<D - 1>();  // G(p): x(p+R)
     __syncthreads();         // ... from every thread; step p-R done with the slot
@@ -262,7 +296,7 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
       load2(xsc + (h - R) * W, ab[h][0], ab[h][1]);
       load2(xsc + (RW + h) * W, ab[R + h][0], ab[R + h][1]);
     }
-    T* dst = od + p * plane + orow;
+    T* dst = od + p * os0 + orow;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       // x(p) left and right of the pair: columns -2, -1 and 2, 3
@@ -298,7 +332,11 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
         if (lv & 1u) store(dst, v[0]);
         if (lv & 2u) store(dst + 1, v[1]);
       }
-      dst += n2;
+      if constexpr (KIND == AM_DOT) {  // x(p) times the unrounded A x
+        if (lv & 1u) prod = fma(xr[R][2 * r], v[0], prod);
+        if (lv & 2u) prod = fma(xr[R][2 * r + 1], v[1], prod);
+      }
+      dst += os1;
     }
 #pragma unroll
     for (int u = 0; u < NP; ++u) {
@@ -309,54 +347,132 @@ axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<
 #pragma unroll
     for (int m = 0; m < M; ++m) ca[m] = cn[m];
   }
+  if constexpr (KIND == AM_DOT) {
+    const C s = block_sum<NT>(prod);
+    if (t == 0) {
+      partial[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = s;
+    }
+  }
 }
 
-// The instance (T, R, FULL), opted in to its dynamic shared memory once
-// per device.
 template <typename T, int R, bool FULL>
+__global__ void __launch_bounds__(AM_THREADS, am_min_blocks<T>())
+axis_march_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<T> q, int ci,
+                  int cw) {
+  am_body<T, R, FULL, AM_APPLY>(x, out, nullptr, q, AxisMarchExt{}, ci, cw);
+}
+
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(AM_THREADS, am_min_blocks<T>())
+axis_march_dot_kernel(const T* __restrict__ x, T* __restrict__ out,
+                      typename Compute<T>::type* __restrict__ partial, AxisMarchParams<T> q,
+                      int ci, int cw) {
+  am_body<T, 1, FULL, AM_DOT>(x, out, partial, q, AxisMarchExt{}, ci, cw);
+}
+
+template <typename T, bool FULL>
+__global__ void __launch_bounds__(AM_THREADS, am_min_blocks<T>())
+axis_march_ext_kernel(const T* __restrict__ x, T* __restrict__ out, AxisMarchParams<T> q,
+                      AxisMarchExt e, int ci, int cw) {
+  am_body<T, 1, FULL, AM_EXT>(x, out, nullptr, q, e, ci, cw);
+}
+
+// The instance (T, R, FULL, KIND), opted in to its dynamic shared memory
+// once per device.
+template <typename T, int R, bool FULL, int KIND>
+auto am_kernel() {
+  if constexpr (KIND == AM_DOT) return axis_march_dot_kernel<T, FULL>;
+  else if constexpr (KIND == AM_EXT) return axis_march_ext_kernel<T, FULL>;
+  else return axis_march_kernel<T, R, FULL>;
+}
+
+template <typename T, int R, bool FULL, int KIND>
 cudaError_t am_prepare() {
   static unsigned done = 0;
-  return opt_in_smem(axis_march_kernel<T, R, FULL>, am_smem_bytes<T, R>(), done);
+  return opt_in_smem(am_kernel<T, R, FULL, KIND>(), am_smem_bytes<T, R>(), done);
 }
 
-template <typename T, int R, bool FULL>
-cudaError_t am_launch(dim3 grid, cudaStream_t s, const T* x, T* out,
-                      const AxisMarchParams<T>& q, int ci, int cw) {
-  const cudaError_t e = am_prepare<T, R, FULL>();
+template <typename T, int R, bool FULL, int KIND, typename... A>
+cudaError_t am_launch(dim3 grid, cudaStream_t s, A... args) {
+  const cudaError_t e = am_prepare<T, R, FULL, KIND>();
   if (e != cudaSuccess) return e;
-  axis_march_kernel<T, R, FULL><<<grid, AM_THREADS, am_smem_bytes<T, R>(), s>>>(x, out, q, ci,
-                                                                                 cw);
+  constexpr size_t smem = am_smem_bytes<T, R>();
+  if constexpr (KIND == AM_DOT) {
+    axis_march_dot_kernel<T, FULL><<<grid, AM_THREADS, smem, s>>>(args...);
+  } else if constexpr (KIND == AM_EXT) {
+    axis_march_ext_kernel<T, FULL><<<grid, AM_THREADS, smem, s>>>(args...);
+  } else {
+    axis_march_kernel<T, R, FULL><<<grid, AM_THREADS, smem, s>>>(args...);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int R, bool FULL>
-cudaError_t am_occupancy(int* blocks) {
-  const cudaError_t e = am_prepare<T, R, FULL>();
+template <typename T, int R, int KIND>
+cudaError_t am_occupancy(bool full, int* blocks) {
+  const cudaError_t e = full ? am_prepare<T, R, true, KIND>() : am_prepare<T, R, false, KIND>();
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, axis_march_kernel<T, R, FULL>,
-                                                       AM_THREADS, am_smem_bytes<T, R>());
+  return full ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks, am_kernel<T, R, true, KIND>(), AM_THREADS, am_smem_bytes<T, R>())
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks, am_kernel<T, R, false, KIND>(), AM_THREADS, am_smem_bytes<T, R>());
+}
+
+// The launch of instance KIND on the (vdim, n0, n1, n2) output grid q.n:
+// the FULL instance where every tile lies inside it.
+template <typename T, int R, int KIND, typename... A>
+cudaError_t am_dispatch(int vdim, const AxisMarchParams<T>& q, int ci, cudaStream_t s,
+                        A... args) {
+  const dim3 grid((q.n[2] + AM_TK - 1) / AM_TK, (q.n[1] + AM_TJ - 1) / AM_TJ,
+                  vdim * ((q.n[0] + ci - 1) / ci));
+  if (q.n[1] % AM_TJ == 0 && q.n[2] % AM_TK == 0) {
+    return am_launch<T, R, true, KIND>(grid, s, args...);
+  }
+  return am_launch<T, R, false, KIND>(grid, s, args...);
 }
 
 }  // namespace
 
+#if AM_KIND == 0
 template <typename T, int R>
 cudaError_t axis_march_launch(int vdim, const AxisMarchParams<T>& q, const void* x, void* out,
                               int ci, int cw, cudaStream_t s) {
   if (!march_args_ok<T>(q.n, ci, cw)) return cudaErrorInvalidValue;
-  const dim3 grid((q.n[2] + AM_TK - 1) / AM_TK, (q.n[1] + AM_TJ - 1) / AM_TJ,
-                  vdim * ((q.n[0] + ci - 1) / ci));
-  const T* xp = static_cast<const T*>(x);
-  T* op = static_cast<T*>(out);
-  if (q.n[1] % AM_TJ == 0 && q.n[2] % AM_TK == 0) {
-    return am_launch<T, R, true>(grid, s, xp, op, q, ci, cw);
-  }
-  return am_launch<T, R, false>(grid, s, xp, op, q, ci, cw);
+  return am_dispatch<T, R, AM_APPLY>(vdim, q, ci, s, static_cast<const T*>(x),
+                                     static_cast<T*>(out), q, ci, cw);
 }
 
 template <typename T, int R>
 cudaError_t axis_march_occupancy(bool full, int* blocks) {
-  return full ? am_occupancy<T, R, true>(blocks) : am_occupancy<T, R, false>(blocks);
+  return am_occupancy<T, R, AM_APPLY>(full, blocks);
 }
+#elif AM_KIND == 1
+template <typename T>
+cudaError_t axis_march_dot_launch(int vdim, const AxisMarchParams<T>& q, const void* x,
+                                  void* out, void* partial, int ci, int cw, cudaStream_t s) {
+  if (!march_args_ok<T>(q.n, ci, cw)) return cudaErrorInvalidValue;
+  return am_dispatch<T, 1, AM_DOT>(vdim, q, ci, s, static_cast<const T*>(x), static_cast<T*>(out),
+                                   static_cast<typename Compute<T>::type*>(partial), q, ci, cw);
+}
+
+template <typename T>
+cudaError_t axis_march_dot_occupancy(bool full, int* blocks) {
+  return am_occupancy<T, 1, AM_DOT>(full, blocks);
+}
+#else
+template <typename T>
+cudaError_t axis_march_ext_launch(int vdim, const AxisMarchParams<T>& q, const AxisMarchExt& e,
+                                  const void* x, void* out, int ci, int cw, cudaStream_t s) {
+  const int nx[3] = {q.n[0] + 2 * e.e0, q.n[1] + 2 * e.e1, q.n[2]};  // x's extents
+  if (!march_args_ok<T>(nx, ci, cw) || ((e.e0 | e.e1) & ~1) != 0) return cudaErrorInvalidValue;
+  return am_dispatch<T, 1, AM_EXT>(vdim, q, ci, s, static_cast<const T*>(x), static_cast<T*>(out),
+                                   q, e, ci, cw);
+}
+
+template <typename T>
+cudaError_t axis_march_ext_occupancy(bool full, int* blocks) {
+  return am_occupancy<T, 1, AM_EXT>(full, blocks);
+}
+#endif
 
 #if AM_DTYPE == 0
 using AmStorage = float;
@@ -365,9 +481,21 @@ using AmStorage = double;
 #else
 using AmStorage = __nv_bfloat16;
 #endif
+#if AM_KIND == 0
 template cudaError_t axis_march_launch<AmStorage, AM_R>(int, const AxisMarchParams<AmStorage>&,
                                                         const void*, void*, int, int,
                                                         cudaStream_t);
 template cudaError_t axis_march_occupancy<AmStorage, AM_R>(bool, int*);
+#elif AM_KIND == 1
+template cudaError_t axis_march_dot_launch<AmStorage>(int, const AxisMarchParams<AmStorage>&,
+                                                      const void*, void*, void*, int, int,
+                                                      cudaStream_t);
+template cudaError_t axis_march_dot_occupancy<AmStorage>(bool, int*);
+#else
+template cudaError_t axis_march_ext_launch<AmStorage>(int, const AxisMarchParams<AmStorage>&,
+                                                      const AxisMarchExt&, const void*, void*,
+                                                      int, int, cudaStream_t);
+template cudaError_t axis_march_ext_occupancy<AmStorage>(bool, int*);
+#endif
 
 }  // namespace pyapes

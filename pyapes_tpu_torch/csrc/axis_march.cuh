@@ -1,7 +1,8 @@
 // What csrc/axis_stencil.cu (the per-point kernels and the C entries) and
 // csrc/axis_march.cu (the plane march, built once per storage dtype and
-// radius) share: the parameters of a march launch and its launch
-// functions, instantiated in axis_march.cu.
+// radius, and once per storage dtype for its alpha-dot and its
+// halo-extended instances) share: the parameters of a march launch and its
+// launch functions, instantiated in axis_march.cu.
 #pragma once
 
 #include "common.cuh"
@@ -13,8 +14,17 @@ struct AxisMarchParams {
   // per mesh axis the coefficient vectors of the offsets +2, +1, 0, -1, -2
   // (app, ap, ac, am, amm); app = amm = null on a 3-point axis
   const T* c[3][5];
-  int n[3];  // (n0, n1, n2)
+  int n[3];  // (n0, n1, n2): the output's extents
   int five;  // bit a: axis a is 5-point (radius 2 only)
+};
+
+// The halo-extended instance's input and output layout: x is (vdim, n0 +
+// 2 e0, n1 + 2 e1, n2), C-contiguous; the output element (d, i, j, k) sits
+// at d * os_v + i * os0 + j * os1 + k.
+struct AxisMarchExt {
+  int e0, e1;                // ghost rows per side of axes 0 and 1 (0 or 1)
+  int64_t os_v, os0, os1;    // the output's element strides
+  int pair;                  // the output takes pair stores (base and strides even)
 };
 
 // The plane march of radius R (1: 3-point axes; 2: 5-point axes mixed with
@@ -24,9 +34,25 @@ template <typename T, int R>
 cudaError_t axis_march_launch(int vdim, const AxisMarchParams<T>& q, const void* x, void* out,
                               int ci, int cw, cudaStream_t s);
 
+// The radius-1 march fused with the CG alpha-dot: also one partial
+// sum(x * A x) per block (component-major, in block order) into partial.
+template <typename T>
+cudaError_t axis_march_dot_launch(int vdim, const AxisMarchParams<T>& q, const void* x,
+                                  void* out, void* partial, int ci, int cw, cudaStream_t s);
+
+// The radius-1 march on a halo-extended block (AxisMarchExt).
+template <typename T>
+cudaError_t axis_march_ext_launch(int vdim, const AxisMarchParams<T>& q, const AxisMarchExt& e,
+                                  const void* x, void* out, int ci, int cw, cudaStream_t s);
+
 // Blocks of that march (full: the instance of grids whose every tile lies
-// inside) that one SM of the current device holds at once.
+// inside) that one SM of the current device holds at once; the dot and
+// halo-extended instances likewise.
 template <typename T, int R>
 cudaError_t axis_march_occupancy(bool full, int* blocks);
+template <typename T>
+cudaError_t axis_march_dot_occupancy(bool full, int* blocks);
+template <typename T>
+cudaError_t axis_march_ext_occupancy(bool full, int* blocks);
 
 }  // namespace pyapes

@@ -1,6 +1,7 @@
 // Per-axis 3-point stencil apply for Hopper (sm_90a), summed over mesh axes
 // (this file: the per-point kernels and the C entries; the plane march that
-// takes 3-D grids from the wrapper's threshold up is csrc/axis_march.cu):
+// takes 3-D grids from the wrappers' threshold up, for the apply, the
+// alpha-dot and the halo-extended apply, is csrc/axis_march.cu):
 //
 //   out[d, i, j, k] = sum_a  ap_a[i_a] * x[.., i_a + 1 mod n_a, ..]
 //                          + ac_a[i_a] * x[.., i_a, ..]
@@ -16,7 +17,8 @@
 // axis_stencil_dot_kernel (3-D, the CG alpha-dot) also writes one partial
 // sum(x * A x) per block, from the unrounded A x; the wrapper sums the
 // partials in a fixed order. Replaces pallas_stencil_db.py::
-// pallas_axis_stencil_dot and pallas_stencil_v3.py::pallas_axis_stencil_dot_v3.
+// pallas_axis_stencil_dot and pallas_stencil_v3.py::pallas_axis_stencil_dot_v3
+// on the grids the march does not take.
 //
 // axis_stencil5_kernel (1-3-D) adds the offsets +-2 of the 5-point (QUICK)
 // axes: app_a x(+2) + ... + amm_a x(-2), a 3-point axis passed with null
@@ -28,7 +30,8 @@
 // the neighbour is the next row of the extended block (no wrap), on an
 // unextended axis it wraps; the output (the unextended block) is written
 // through strides, so a block lands straight in its view of the global
-// result. Replaces pallas_stencil_v3.py::pallas_axis_stencil_ext.
+// result. Replaces pallas_stencil_v3.py::pallas_axis_stencil_ext on the
+// blocks the march does not take.
 //
 // The Python wrapper and the design note are in ops/axis_stencil.py.
 // Plain C interface, loaded with ctypes.
@@ -302,24 +305,48 @@ cudaError_t launch_ext(const void* x, void* out, const void* const* coeffs, int 
 }
 
 template <typename T>
-cudaError_t launch_march(int radius, int vdim, const int* n, const void* x, void* out,
-                         const void* const* coeffs, int five, int ci, int cw, cudaStream_t s) {
+cudaError_t march_occupancy(int radius, int full, int kind, int* blocks) {
+  if (kind == 1 && radius == 1) return pyapes::axis_march_dot_occupancy<T>(full != 0, blocks);
+  if (kind == 2 && radius == 1) return pyapes::axis_march_ext_occupancy<T>(full != 0, blocks);
+  if (kind != 0) return cudaErrorInvalidValue;
+  if (radius == 1) return pyapes::axis_march_occupancy<T, 1>(full != 0, blocks);
+  if (radius == 2) return pyapes::axis_march_occupancy<T, 2>(full != 0, blocks);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+pyapes::AxisMarchParams<T> march_params(const int* n, const void* const* coeffs, int five) {
   pyapes::AxisMarchParams<T> q;
   for (int a = 0; a < 3; ++a) {
     q.n[a] = n[a];
     for (int t = 0; t < 5; ++t) q.c[a][t] = static_cast<const T*>(coeffs[5 * a + t]);
   }
   q.five = five;
+  return q;
+}
+
+template <typename T>
+cudaError_t launch_march(int radius, int vdim, const int* n, const void* x, void* out,
+                         const void* const* coeffs, int five, int ci, int cw, cudaStream_t s) {
+  const pyapes::AxisMarchParams<T> q = march_params<T>(n, coeffs, five);
   if (radius == 1) return pyapes::axis_march_launch<T, 1>(vdim, q, x, out, ci, cw, s);
   if (radius == 2) return pyapes::axis_march_launch<T, 2>(vdim, q, x, out, ci, cw, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t march_occupancy(int radius, int full, int* blocks) {
-  if (radius == 1) return pyapes::axis_march_occupancy<T, 1>(full != 0, blocks);
-  if (radius == 2) return pyapes::axis_march_occupancy<T, 2>(full != 0, blocks);
-  return cudaErrorInvalidValue;
+cudaError_t launch_march_dot(int vdim, const int* n, const void* x, void* out, void* partial,
+                             const void* const* coeffs, int ci, int cw, cudaStream_t s) {
+  return pyapes::axis_march_dot_launch<T>(vdim, march_params<T>(n, coeffs, 0), x, out, partial,
+                                          ci, cw, s);
+}
+
+template <typename T>
+cudaError_t launch_march_ext(int vdim, const int* n, const pyapes::AxisMarchExt& e,
+                             const void* x, void* out, const void* const* coeffs, int ci, int cw,
+                             cudaStream_t s) {
+  return pyapes::axis_march_ext_launch<T>(vdim, march_params<T>(n, coeffs, 0), e, x, out, ci,
+                                          cw, s);
 }
 
 }  // namespace
@@ -385,13 +412,48 @@ int pyapes_axis_march(int dtype, int radius, int vdim, int n0, int n1, int n2, c
 }
 
 // Blocks of the plane march of `radius` (dtype as above; full: the kernel of
-// grids whose every tile lies inside, n1 % 16 == 0 and n2 % 128 == 0) that
-// one SM of the current device holds at once, into *blocks. Returns a CUDA
-// error code (0 on success).
-int pyapes_axis_march_blocks_per_sm(int dtype, int radius, int full, int* blocks) {
-  if (dtype == 0) return march_occupancy<float>(radius, full, blocks);
-  if (dtype == 1) return march_occupancy<double>(radius, full, blocks);
-  if (dtype == 2) return march_occupancy<__nv_bfloat16>(radius, full, blocks);
+// grids whose every tile lies inside, n1 % 16 == 0 and n2 % 128 == 0; kind:
+// 0 the apply, 1 the alpha-dot, 2 the halo-extended apply, the last two of
+// radius 1) that one SM of the current device holds at once, into *blocks.
+// Returns a CUDA error code (0 on success).
+int pyapes_axis_march_blocks_per_sm(int dtype, int radius, int full, int kind, int* blocks) {
+  if (dtype == 0) return march_occupancy<float>(radius, full, kind, blocks);
+  if (dtype == 1) return march_occupancy<double>(radius, full, kind, blocks);
+  if (dtype == 2) return march_occupancy<__nv_bfloat16>(radius, full, kind, blocks);
+  return cudaErrorInvalidValue;
+}
+
+// The plane march of radius 1 fused with the CG alpha-dot (3-D): x, out,
+// coeffs, ci, cw as for pyapes_axis_march; partial: one compute-dtype value
+// (f32 for bf16/f32, f64 for f64) per block, vdim * ceil(n0 / ci) *
+// ceil(n1 / 16) * ceil(n2 / 128) of them, component-major.
+int pyapes_axis_march_dot(int dtype, int vdim, int n0, int n1, int n2, const void* x, void* out,
+                          void* partial, const void* const* coeffs, int ci, int cw,
+                          void* stream) {
+  const int n[3] = {n0, n1, n2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_march_dot<float>(vdim, n, x, out, partial, coeffs, ci, cw, s);
+  if (dtype == 1) return launch_march_dot<double>(vdim, n, x, out, partial, coeffs, ci, cw, s);
+  if (dtype == 2)
+    return launch_march_dot<__nv_bfloat16>(vdim, n, x, out, partial, coeffs, ci, cw, s);
+  return cudaErrorInvalidValue;
+}
+
+// The plane march of radius 1 on a halo-extended block: n0..n2, e0, e1, x,
+// out and its strides as for pyapes_axis_stencil_ext; coeffs: 15 pointers
+// as for pyapes_axis_march; pair: 1 when out's base and os_v, os0, os1 are
+// even in elements (pair stores), else 0; ci, cw as for pyapes_axis_march
+// (cw: x's rows and base pointer multiples of it; (n1 + 2 e1) * n2 must
+// fit an int).
+int pyapes_axis_march_ext(int dtype, int vdim, int n0, int n1, int n2, int e0, int e1,
+                          const void* x, void* out, long long os_v, long long os0, long long os1,
+                          int pair, const void* const* coeffs, int ci, int cw, void* stream) {
+  const int n[3] = {n0, n1, n2};
+  const pyapes::AxisMarchExt e{e0, e1, os_v, os0, os1, pair};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_march_ext<float>(vdim, n, e, x, out, coeffs, ci, cw, s);
+  if (dtype == 1) return launch_march_ext<double>(vdim, n, e, x, out, coeffs, ci, cw, s);
+  if (dtype == 2) return launch_march_ext<__nv_bfloat16>(vdim, n, e, x, out, coeffs, ci, cw, s);
   return cudaErrorInvalidValue;
 }
 

@@ -55,16 +55,27 @@ f32)`` (bf16 is loaded, widened to f32 and rounded once on store) and wrap
 every neighbour as ``torch.roll`` does. A march point is the per-point
 kernel's expression term for term, so the two kernels give the same bits
 (a solve takes the same iterations whichever kernel its shapes take), and
-chunk seams change no bits. The alpha-dot and the halo-extended kernels
-keep one thread per point (their redesigns are queued). The dot kernel
-reduces each 128-thread block with warp shuffles into one partial; the
-wrapper sums the partials with ``torch.sum`` in a fixed order (no
-atomics, so a solve's ``itr`` is the same every run).
+chunk seams change no bits.
+
+The alpha-dot and the halo-extended apply are two more instances of the
+radius-1 march, with the same choice between it and their per-point
+kernels (``csrc/axis_stencil.cu``). ``axis_stencil_dot``'s march adds
+``x * A x`` (``A x`` unrounded) over a thread's points and planes in a
+register and reduces the block (warp shuffles, then its warps in order)
+into one partial per block; the per-point kernel one partial per
+128-thread block. The wrapper sums the partials with ``torch.sum`` in a
+fixed order: no atomics, so a solve's ``itr`` is the same every run (the
+dot's bits follow the kernel and the chunk). ``axis_stencil_ext``'s march
+stages x from the extended block (the ghost planes of an extended axis 0
+in place of the wrap, the ghost rows of an extended axis 1 in the
+window's row table) and stores through the output's strides, in pairs;
+it takes the blocks whose unextended shape ``uses_march`` takes and whose
+output view a pair store can use (``uses_march_ext``).
 
 Each wrapper launches a kernel for a CUDA tensor (or raises) and calls
 the plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
-counts kernel launches. ``axis_stencil`` and ``axis_stencil5`` take
-``march=True``/``False`` (force either kernel at any 3-D shape) and
+counts kernel launches. Every wrapper takes ``march=True``/``False``
+(force either kernel at any 3-D shape; True on another grid raises) and
 ``chunk=`` (the march's planes per block); tests and ``chip_smoke.py`` pin
 both with them.
 """
@@ -90,6 +101,8 @@ _THREADS = 128  # threads per block of the per-point kernels (csrc/axis_stencil.
 # block's fixed cost in planes by radius (its prologue's 2R planes)
 _TILE = (16, 128)
 _SETUP_PLANES = {1: 2, 2: 4}
+# the march's instances (pyapes_axis_march_blocks_per_sm's kind)
+_APPLY, _DOT, _EXT = 0, 1, 2
 # the least points per component of a 3-D grid that the march takes, on
 # grids whose every tile lies inside them: else the per-point kernel. On
 # the device, back to back, the march is the faster from 128^3 up and the
@@ -113,8 +126,13 @@ def _lib() -> ctypes.CDLL:
     lib.pyapes_axis_stencil_ext.restype = ctypes.c_int
     lib.pyapes_axis_march.argtypes = [I] * 6 + [P, P, ctypes.POINTER(P)] + [I] * 3 + [P]
     lib.pyapes_axis_march.restype = I
-    lib.pyapes_axis_march_blocks_per_sm.argtypes = [I] * 3 + [ctypes.POINTER(I)]
+    lib.pyapes_axis_march_blocks_per_sm.argtypes = [I] * 4 + [ctypes.POINTER(I)]
     lib.pyapes_axis_march_blocks_per_sm.restype = I
+    lib.pyapes_axis_march_dot.argtypes = [I] * 5 + [P, P, P, ctypes.POINTER(P), I, I, P]
+    lib.pyapes_axis_march_dot.restype = I
+    lib.pyapes_axis_march_ext.argtypes = ([I] * 7 + [P, P, L, L, L, I, ctypes.POINTER(P)]
+                                          + [I, I, P])
+    lib.pyapes_axis_march_ext.restype = I
     return lib
 
 
@@ -126,6 +144,22 @@ def uses_march(shape) -> bool:
     the grid)."""
     nx = tuple(shape[1:])
     return len(nx) == 3 and nx[0] * nx[1] * nx[2] >= MARCH_MIN_POINTS and march_full(shape)
+
+
+def uses_march_ext(shape, out=None) -> bool:
+    """The kernel the halo-extended apply of an unextended block ``shape``
+    ``(vdim, n0, n1, n2)`` takes, from the shape and the output view
+    alone: the plane march where ``uses_march(shape)`` holds and ``out``
+    (None: a new contiguous tensor) takes pair stores (``pair_stores``),
+    else the per-point kernel."""
+    return uses_march(shape) and (out is None or pair_stores(out))
+
+
+def pair_stores(out: torch.Tensor) -> bool:
+    """Whether the march can store pairs into ``out``: its base address
+    and its three leading strides even in elements."""
+    return (out.data_ptr() % (2 * out.element_size()) == 0
+            and all(st % 2 == 0 for st in out.stride()[:3]))
 
 
 def march_full(shape) -> bool:
@@ -176,16 +210,18 @@ def check_inputs(coeffs, x: torch.Tensor, points=(3, 5), march=False) -> None:
         raise ValueError(f"axis_stencil: grid {tuple(x.shape)} exceeds the launch limits")
 
 
-def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,), march=False):
+def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,), march=False,
+                      width=None):
     """The library (loading it first: a CUDA tensor never falls back to the
     plain version), then the checked coefficient pointers and stream:
-    ``(ap, ac, am)`` per axis, or with ``points=(3, 5)`` ``(app, ap, ac,
-    am, amm)`` per axis with null ``app``/``amm`` on a 3-point axis."""
+    ``(ap, ac, am)`` per axis, or with ``width`` 5 (the default with
+    ``points=(3, 5)``: the march's layout) ``(app, ap, ac, am, amm)`` per
+    axis with null ``app``/``amm`` on a 3-point axis."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {x.device}")
     lib = _lib()
     check_inputs(coeffs, x, points, march)
-    width = max(points)
+    width = width or max(points)
     ptrs = []
     for cs in coeffs:
         p = [c.data_ptr() for c in cs]
@@ -193,6 +229,19 @@ def _cuda_launch_args(fn_name: str, coeffs, x: torch.Tensor, points=(3,), march=
     ptrs += [None] * (width * (4 - x.ndim))
     return (lib, (ctypes.c_void_p * (3 * width))(*ptrs),
             torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _march_geometry(name, lib, x, shape, kind, chunk, radius=1):
+    """Launch geometry of the march instance ``kind`` of ``radius`` on the
+    ``(vdim, n0, n1, n2)`` output ``shape`` from the input ``x``: ``(chunk,
+    partials)``, or raises beyond its launch limits (a plane of ``x`` must
+    fit an int)."""
+    resident = resident_blocks(lib, x.device.index, "pyapes_axis_march_blocks_per_sm", x.dtype,
+                               radius, int(march_full(shape)), kind)
+    grid, ci, n_partial = march_geometry(shape, resident, chunk, _TILE, _SETUP_PLANES[radius])
+    if max(grid[1:]) > _MAX_GRID_YZ or x.shape[-2] * x.shape[-1] >= 2**31:
+        raise ValueError(f"{name}: grid {tuple(shape)} exceeds the march's launch limits")
+    return ci, n_partial
 
 
 def _launch(name: str, coeffs, x: torch.Tensor, radius: int, march, chunk) -> torch.Tensor:
@@ -213,11 +262,7 @@ def _launch(name: str, coeffs, x: torch.Tensor, radius: int, march, chunk) -> to
     with torch.cuda.device(x.device):
         if march:
             vdim, n0, n1, n2 = x.shape
-            resident = resident_blocks(lib, x.device.index, "pyapes_axis_march_blocks_per_sm",
-                                       x.dtype, radius, int(march_full(x.shape)))
-            grid, ci, _ = march_geometry(x.shape, resident, chunk, _TILE, _SETUP_PLANES[radius])
-            if max(grid[1:]) > _MAX_GRID_YZ or n1 * n2 >= 2**31:
-                raise ValueError(f"{name}: grid {tuple(x.shape)} exceeds the march's launch limits")
+            ci, _ = _march_geometry(name, lib, x, x.shape, _APPLY, chunk, radius)
             five = sum(1 << a for a, cs in enumerate(coeffs) if len(cs) == 5)
             err = lib.pyapes_axis_march(dtype, radius, vdim, n0, n1, n2, x.data_ptr(),
                                         out.data_ptr(), cptrs, five, ci, copy_bytes(x, n2, [x]),
@@ -254,27 +299,45 @@ def axis_stencil(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.Te
     return out
 
 
-def axis_stencil_dot(coeffs, x: torch.Tensor):
+def axis_stencil_dot(coeffs, x: torch.Tensor, *, march=None, chunk=None):
     """``(A x, sum(x * A x))`` per component for a 3-D ``x``; the dot is
     taken in ``promote(dtype, f32)`` from the unrounded ``A x`` and comes
     back shaped ``(vdim, 1, 1, 1)``.
 
-    A CPU tensor goes to the plain ``apply_axis_stencil_dot``; a CUDA
-    tensor launches the kernel on the current stream, or raises."""
+    ``march``: the kernel of a CUDA tensor (None: ``uses_march``, the
+    shape alone; True the plane march, False the per-point kernel; True
+    on a grid other than 3-D raises); ``chunk``: the march's planes per
+    block. A CPU tensor goes to the plain ``apply_axis_stencil_dot``; a
+    CUDA tensor launches a kernel on the current stream, or raises."""
+    if march and x.ndim != 4:
+        raise ValueError(f"axis_stencil_dot: the plane march takes 3-D grids, got "
+                         f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return apply_axis_stencil_dot(coeffs, x)
-    lib, cptrs, stream = _cuda_launch_args("axis_stencil_dot", coeffs, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"axis_stencil_dot: unsupported device {x.device}")
+    _lib()  # loaded first: a CUDA tensor never falls back to the plain version
     if x.ndim != 4:
         raise ValueError(f"axis_stencil_dot: x must be (vdim, nx, ny, nz), got {tuple(x.shape)}")
+    march = uses_march(x.shape) if march is None else bool(march)
+    lib, cptrs, stream = _cuda_launch_args("axis_stencil_dot", coeffs, x, (3,), march,
+                                           5 if march else 3)
     vdim, n0, n1, n2 = x.shape
     out = torch.empty_like(x)
     cdt = torch.promote_types(x.dtype, torch.float32)
-    partial = torch.empty((vdim, n0 * n1 * -(-n2 // _THREADS)), dtype=cdt, device=x.device)
+    dtype = _DTYPE_CODE[x.dtype]
     with torch.cuda.device(x.device):
-        err = lib.pyapes_axis_stencil_dot(
-            _DTYPE_CODE[x.dtype], vdim, n0, n1, n2,
-            x.data_ptr(), out.data_ptr(), partial.data_ptr(), cptrs, stream,
-        )
+        if march:
+            ci, n_partial = _march_geometry("axis_stencil_dot", lib, x, x.shape, _DOT, chunk)
+            partial = torch.empty((vdim, n_partial), dtype=cdt, device=x.device)
+            err = lib.pyapes_axis_march_dot(dtype, vdim, n0, n1, n2, x.data_ptr(), out.data_ptr(),
+                                            partial.data_ptr(), cptrs, ci,
+                                            copy_bytes(x, n2, [x]), stream)
+        else:
+            partial = torch.empty((vdim, n0 * n1 * -(-n2 // _THREADS)), dtype=cdt,
+                                  device=x.device)
+            err = lib.pyapes_axis_stencil_dot(dtype, vdim, n0, n1, n2, x.data_ptr(),
+                                              out.data_ptr(), partial.data_ptr(), cptrs, stream)
     cuda_build.check(lib, err, "axis_stencil_dot")
     axis_stencil_dot.launches += 1
     return out, partial.sum(dim=1).reshape(vdim, 1, 1, 1)
@@ -295,13 +358,14 @@ def axis_stencil5(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.T
 
 
 def check_ext_inputs(coeffs, x_ext: torch.Tensor, ext, out=None) -> tuple:
-    """Raise on what the halo-extended kernel does not take: a dtype other
+    """Raise on what the halo-extended kernels do not take: a dtype other
     than bf16/f32/f64; ``x_ext`` not ``(vdim, n0 + 2 e0, n1 + 2 e1, n2)``
     (3-D) or not contiguous; ``ext`` not three 0/1 flags with ``ext[2] ==
     0``; coefficients not three contiguous 1-D vectors per axis of the
     unextended length in ``x_ext``'s dtype and device; an ``out`` of
     another shape, dtype or device, or with a last-axis stride other than
-    1; a grid beyond the launch limits. Returns the unextended shape."""
+    1 (the wrapper checks the launch limits of the kernel it takes).
+    Returns the unextended shape."""
     if x_ext.dtype not in _DTYPE_CODE:
         raise TypeError(f"axis_stencil_ext: dtype {x_ext.dtype} not supported (bf16, f32, f64)")
     if x_ext.ndim != 4:
@@ -331,12 +395,11 @@ def check_ext_inputs(coeffs, x_ext: torch.Tensor, ext, out=None) -> tuple:
                 or out.device != x_ext.device or out.stride(-1) != 1):
             raise ValueError(f"axis_stencil_ext: out must be {(x_ext.shape[0], *n)} "
                              f"{x_ext.dtype} on {x_ext.device} with last-axis stride 1")
-    if n[1] > _MAX_GRID_YZ or x_ext.shape[0] * n[0] > _MAX_GRID_YZ:
-        raise ValueError(f"axis_stencil_ext: block {n} exceeds the launch limits")
     return n
 
 
-def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None = None):
+def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None = None, *,
+                     march=None, chunk=None):
     """The 3-point axis stencil of a 3-D block extended by one ghost row
     per side of each axis with ``ext[a] == 1`` (``ext[2] == 0``): on an
     extended axis the neighbour is the next row of ``x_ext``, on the others
@@ -345,8 +408,11 @@ def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None 
     strides with last-axis stride 1, e.g. the block's view of a global
     tensor), else into a new tensor.
 
-    A CPU tensor goes to the plain ``apply_axis_stencil_ext``; a CUDA
-    tensor launches the kernel on the current stream, or raises."""
+    ``march``: the kernel of a CUDA tensor (None: ``uses_march_ext``, the
+    block's shape and the output view alone; True the plane march, False
+    the per-point kernel); ``chunk``: the march's planes per block. A CPU
+    tensor goes to the plain ``apply_axis_stencil_ext``; a CUDA tensor
+    launches a kernel on the current stream, or raises."""
     if x_ext.device.type == "cpu":
         check_ext_inputs(coeffs, x_ext, ext, out)
         r = apply_axis_stencil_ext(coeffs, x_ext, ext)
@@ -355,15 +421,28 @@ def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None 
         raise ValueError(f"axis_stencil_ext: unsupported device {x_ext.device}")
     lib = _lib()  # loaded first: a CUDA tensor never falls back to the plain version
     n = check_ext_inputs(coeffs, x_ext, ext, out)
+    vdim = x_ext.shape[0]
     if out is None:
-        out = torch.empty((x_ext.shape[0], *n), dtype=x_ext.dtype, device=x_ext.device)
-    cptrs = (ctypes.c_void_p * 9)(*(c.data_ptr() for cs in coeffs for c in cs))
+        out = torch.empty((vdim, *n), dtype=x_ext.dtype, device=x_ext.device)
+    shape = (vdim, *n)
+    march = uses_march_ext(shape, out) if march is None else bool(march)
+    stream = torch.cuda.current_stream(x_ext.device).cuda_stream
+    dtype = _DTYPE_CODE[x_ext.dtype]
+    e0, e1 = int(ext[0]), int(ext[1])
     with torch.cuda.device(x_ext.device):
-        err = lib.pyapes_axis_stencil_ext(
-            _DTYPE_CODE[x_ext.dtype], x_ext.shape[0], *n, int(ext[0]), int(ext[1]),
-            x_ext.data_ptr(), out.data_ptr(), *out.stride()[:3], cptrs,
-            torch.cuda.current_stream(x_ext.device).cuda_stream,
-        )
+        if march:
+            ci, _ = _march_geometry("axis_stencil_ext", lib, x_ext, shape, _EXT, chunk)
+            cptrs = (ctypes.c_void_p * 15)(*(p for cs in coeffs
+                                             for p in (None, *(c.data_ptr() for c in cs), None)))
+            err = lib.pyapes_axis_march_ext(
+                dtype, vdim, *n, e0, e1, x_ext.data_ptr(), out.data_ptr(), *out.stride()[:3],
+                int(pair_stores(out)), cptrs, ci, copy_bytes(x_ext, n[2], [x_ext]), stream)
+        else:
+            if n[1] > _MAX_GRID_YZ or vdim * n[0] > _MAX_GRID_YZ:
+                raise ValueError(f"axis_stencil_ext: block {n} exceeds the launch limits")
+            cptrs = (ctypes.c_void_p * 9)(*(c.data_ptr() for cs in coeffs for c in cs))
+            err = lib.pyapes_axis_stencil_ext(dtype, vdim, *n, e0, e1, x_ext.data_ptr(),
+                                              out.data_ptr(), *out.stride()[:3], cptrs, stream)
     cuda_build.check(lib, err, "axis_stencil_ext")
     axis_stencil_ext.launches += 1
     return out

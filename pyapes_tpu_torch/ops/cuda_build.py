@@ -2,8 +2,10 @@
 
 Every library ``<name>`` is built from its translation units (``UNITS``:
 by default ``csrc/<name>.cu`` alone; the axis-stencil library also from
-``csrc/axis_march.cu`` once per storage dtype and radius, the variable-Γ
-library from ``csrc/diff_march.cu`` once per storage dtype and Γ layout,
+``csrc/axis_march.cu`` once per storage dtype and radius and once per
+storage dtype for each of its alpha-dot and halo-extended instances,
+the variable-Γ library from ``csrc/diff_march.cu`` once per storage
+dtype and Γ layout,
 the advection library from ``csrc/advect_march.cu`` once per storage dtype),
 each with the shared ``csrc/*.cuh``, compiled by ``nvcc`` for ``sm_90a``
 (one ``nvcc`` per unit, all started together) and linked into a shared
@@ -32,7 +34,9 @@ SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect")
 UNITS = {
     "axis_stencil": (("axis_stencil", ()),) + tuple(
         ("axis_march", (f"-DAM_DTYPE={dtype}", f"-DAM_R={radius}"))
-        for dtype in (2, 0, 1) for radius in (1, 2)),
+        for dtype in (2, 0, 1) for radius in (1, 2)) + tuple(
+        ("axis_march", (f"-DAM_DTYPE={dtype}", "-DAM_R=1", f"-DAM_KIND={kind}"))
+        for dtype in (2, 0, 1) for kind in (1, 2)),
     "diff_field": (("diff_field", ()),) + tuple(
         ("diff_march", (f"-DVG_DTYPE={dtype}", f"-DVG_ISO={iso}"))
         for dtype in (2, 0, 1) for iso in (1, 0)),

@@ -6,7 +6,7 @@ from one checkout, for A/B runs of two versions on one card in one call.
     python scripts/ab_cells_torch.py --cells jacobi3d jacobi3d_x2   # the kernels alone
     python scripts/ab_cells_torch.py --cells diff_jacobi             # the variable-Γ pass
     python scripts/ab_cells_torch.py --cells axis_stencil axis_stencil5 "QUICK 256^3"
-    python scripts/ab_cells_torch.py --cells "dot/ext 512^3"        # the queued axis kernels
+    python scripts/ab_cells_torch.py --cells "dot/ext 512^3"        # the alpha-dot, halo-ext
     python scripts/ab_cells_torch.py --cells conv_component advect_pair "Burgers 257^3" \
         "Upwind 256^3"                                                # the advection kernels
 
@@ -48,11 +48,13 @@ per-point kernel each forced where the version has both). The step cells
 ``chip_smoke.py``'s models (``advdiff_model``, ``burgers_model``)
 ``--steps`` times through ``_drive_steps`` and report the wall per step
 after the first (warm-up) step and ``itr`` per solve.
-The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot kernel on
-512^3 f32 and its halo-extended kernel on the 8 blocks of 512^3 f32 in
-``N_DECOMP`` (8 launches), per call and on the device, and reports the
-ptxas registers of the root's axis-stencil entries when this process
-built its library (a fresh ``build/``; else an empty list).
+The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot at 512^3,
+256^3 and 128^3 f32 and its halo-extended apply on the 8 blocks of those
+grids in ``N_DECOMP`` (8 launches) in f32 and bf16, per call and on the
+device (``dot_ext_level_times``; the plane march and the per-point kernel
+each forced where the version has both), and reports the ptxas registers
+of the root's axis-stencil entries when this process built its library (a
+fresh ``build/``; else an empty list).
 """
 from __future__ import annotations
 
@@ -87,36 +89,18 @@ STEP_CELLS = {
 
 
 def _dot_ext_times(cs, dev) -> dict:
-    """``axis_stencil_dot`` on 512^3 f32 and ``axis_stencil_ext`` on the
-    (4, 2, 1) blocks of 512^3 f32 (one launch per block into its view of
-    the result): per call (median of 15) and on the device (30 back to
-    back), ms; the ptxas registers of the root's axis-stencil entries."""
-    import torch
+    """``chip_smoke.py``'s ``dot_ext_level_times``: ``axis_stencil_dot`` at
+    512^3, 256^3 and 128^3 f32 and ``axis_stencil_ext`` on the (4, 2, 1)
+    blocks of those grids in f32 and bf16 (one launch per block into its view
+    of the result), per call and on the device, both kernels forced where
+    the version has both; and the ptxas registers of the root's
+    axis-stencil entries."""
+    from pyapes_tpu_torch.ops import axis_stencil, cuda_build
 
-    from pyapes_tpu_torch.ops import cuda_build
-    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot, axis_stencil_ext
-    from pyapes_tpu_torch.parallel import halo
-
-    n = cs.N_MAIN
-    g = torch.Generator(device=dev).manual_seed(700)
-    coeffs = tuple(tuple(torch.randn(n, generator=g, device=dev) for _ in range(3))
-                   for _ in range(3))
-    x = torch.randn((1, n, n, n), generator=g, device=dev)
-    ext = tuple(int(m > 1) for m in cs.N_DECOMP)
-    blocks = [(sl, halo.exchange(x, sl, ext, {}), halo._block_coeffs(coeffs, sl))
-              for _, sl in _decomp(cs).blocks((n, n, n))]
-    out = torch.empty_like(x)
-
-    def ext_apply():
-        for sl, xe, cs_ in blocks:
-            axis_stencil_ext(cs_, xe, ext, out=out[(slice(None), *sl)])
-
-    dot = lambda: axis_stencil_dot(coeffs, x)  # noqa: E731
     regs = cs._entry_registers(cuda_build.build("axis_stencil").log)
-    return {"axis_stencil_dot": {"ms": cs._time_ms(dot), "device_ms": cs._device_ms(dot)},
-            "axis_stencil_ext": {"ms": cs._time_ms(ext_apply),
-                                 "device_ms": cs._device_ms(ext_apply)},
-            "registers": [[k, r, sp] for k, r, sp in regs if not k.startswith("axis_march")]}
+    return {"levels": cs.dot_ext_level_times(dev,
+                                             forced=hasattr(axis_stencil, "uses_march_ext")),
+            "registers": [[k, r, sp] for k, r, sp in regs]}
 
 
 def _decomp(cs):

@@ -64,6 +64,8 @@ sys.path.insert(0, HERE)
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("axis_stencil / axis_stencil5 plane march (Hopper)", ("axis_march_kernel",)),
+    ("axis_stencil_dot plane march (Hopper)", ("axis_march_dot_kernel",)),
+    ("axis_stencil_ext plane march (Hopper)", ("axis_march_ext_kernel",)),
     ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel", "diff_jacobi_march_kernel")),
     ("diff_field (Hopper)", ("diff_field_kernel", "diff_field_march_kernel")),

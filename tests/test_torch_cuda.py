@@ -202,6 +202,46 @@ def test_axis_stencil_dot_matches_plain(cuda, shape, dtype):
     _dot_close(dot, ref_dot, x.double() * ref.double(), dtype)
 
 
+def _f64_dot(coeffs, x):
+    """The plain version's dot in f64 on the same (rounded) inputs."""
+    return apply_axis_stencil_dot(tuple(tuple(c.double() for c in cs) for cs in coeffs),
+                                  x.double())[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", AXIS_SHAPES)
+def test_axis_stencil_dot_march_and_point_match_plain(cuda, shape, dtype):
+    """The alpha-dot's plane march and per-point kernel, each forced,
+    against the plain version: ``A x`` with the per-point kernel's bits at
+    every plane chunk; the dot within the tolerance of the plain version's
+    f64 dot, with the same bits on every call at a fixed chunk; one launch
+    per call."""
+    coeffs, x = _axis_inputs(shape, (3, 3, 3), dtype, cuda, 40)
+    ref, _ = apply_axis_stencil_dot(coeffs, x)
+    ref64 = _f64_dot(coeffs, x)
+    before = axis_stencil_dot.launches
+    point, pdot = axis_stencil_dot(coeffs, x, march=False)
+    _close(point, ref, dtype)
+    _dot_close(pdot, ref64, x.double() * ref.double(), dtype)
+    for chunk in CHUNKS:
+        out, dot = axis_stencil_dot(coeffs, x, march=True, chunk=chunk)
+        _close(out, ref, dtype)
+        assert torch.equal(out, point), chunk  # the per-point kernel's expression
+        _dot_close(dot, ref64, x.double() * ref.double(), dtype)
+        again = axis_stencil_dot(coeffs, x, march=True, chunk=chunk)
+        assert torch.equal(again[0], out) and torch.equal(again[1], dot), chunk
+    assert axis_stencil_dot.launches == before + 1 + 2 * len(CHUNKS)
+    torch.cuda.synchronize()
+
+
+def test_axis_stencil_dot_march_takes_3d_grids_only(cuda):
+    """Forcing the alpha-dot's march on a 2-D grid raises; it never falls
+    back."""
+    coeffs, x = _axis_inputs((1, 65, 130), (3, 3), torch.float32, cuda, 41)
+    with pytest.raises(ValueError):
+        axis_stencil_dot(coeffs, x, march=True)
+
+
 def _level(shape, dtype, device, seed):
     """A V-cycle level's operands: unit-box inv_dx2, omega/diag, x, b."""
     inv = [float((n - 1) ** 2) for n in shape[1:]]
@@ -592,7 +632,9 @@ def test_axis_stencil5_matches_plain(cuda, shape, dtype):
                                   "diff_field_march", "diff_field_point", "diff_jacobi_march",
                                   "diff_jacobi_point", "axis_stencil_march", "axis_stencil_point",
                                   "axis_stencil5_march", "axis_stencil5_point",
-                                  "axis_stencil_dot", "jacobi3d_x2"])
+                                  "axis_stencil_dot", "axis_stencil_dot_march",
+                                  "axis_stencil_dot_point", "axis_stencil_ext_march",
+                                  "axis_stencil_ext_point", "jacobi3d_x2"])
 def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
     """With the plain versions patched to raise, the wrappers still answer
     a CUDA tensor: from the kernel."""
@@ -639,9 +681,9 @@ def test_cuda_tensor_never_reaches_the_plain_version(cuda, name, monkeypatch):
                                                    march=march),
           "axis_stencil5": lambda: axis_stencil5(c5, x, march=march),
           "axis_stencil": lambda: axis_stencil(c3x, x, march=march),
-          "axis_stencil_dot": lambda: axis_stencil_dot(c3x, x)[0],
+          "axis_stencil_dot": lambda: axis_stencil_dot(c3x, x, march=march)[0],
           "jacobi3d_x2": lambda: jacobi3d_x2(x, b, inv, beta, (0, 1, 2)),
-          "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0)),
+          "axis_stencil_ext": lambda: axis_stencil_ext(c3, x, (1, 0, 0), march=march),
           "diff_field": lambda: diff_field(x, gv, inv, surg3, "harmonic", march=march),
           "diff_jacobi": lambda: diff_jacobi(x, b, gv, inv, surg3, "harmonic", 0.857, (0, 1, 2),
                                              "smooth", march=march),
@@ -682,6 +724,48 @@ def test_axis_stencil_ext_matches_plain(cuda, case, dtype, strided):
     _close(got, apply_axis_stencil_ext(coeffs, xe, ext), dtype)
     if strided:
         assert not big[0].any() and not big[:, :2].any() and not big[:, :, 0].any()
+
+
+# the halo-extended march's own cases: blocks whose every tile lies inside
+# them (its FULL instance) besides EXT_CASES' odd ones
+EXT_MARCH_CASES = EXT_CASES + [((2, 9, 32, 256), (1, 1, 0)), ((1, 6, 16, 128), (0, 1, 0))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(len(EXT_MARCH_CASES)))
+def test_axis_stencil_ext_march_and_point_match_plain(cuda, case, dtype):
+    """The halo-extended apply's plane march and per-point kernel, each
+    forced, against the plain version: into a new tensor, a strided view
+    that takes pair stores and one at an odd offset that does not; the
+    march with the per-point kernel's bits at every plane chunk, writing
+    nothing outside its view; one launch per call."""
+    shape, ext = EXT_MARCH_CASES[case]
+    coeffs, _ = _inputs(shape[1:], 1, dtype, cuda, seed=42)
+    g = torch.Generator(device="cpu").manual_seed(43)
+    xe = torch.randn((shape[0], *(n + 2 * e for n, e in zip(shape[1:], ext))), generator=g,
+                     dtype=torch.float64).to(cuda, dtype)
+    ref = apply_axis_stencil_ext(coeffs, xe, ext)
+    before = axis_stencil_ext.launches
+    point = axis_stencil_ext(coeffs, xe, ext, march=False)
+    _close(point, ref, dtype)
+    calls = 1
+    for off in (0, 1):  # the view's offset along the last axis: even (pairs), odd
+        big = torch.zeros((shape[0] + 1, shape[1] + 2, shape[2] + 3, shape[3] + 2), dtype=dtype,
+                          device=cuda)
+        view = big[1:, 1:1 + shape[1], 2:2 + shape[2], off:off + shape[3]]
+        assert axis_mod.pair_stores(view) is (off == 0 and shape[3] % 2 == 0)
+        for chunk in CHUNKS:
+            big.zero_()
+            got = axis_stencil_ext(coeffs, xe, ext, out=view, march=True, chunk=chunk)
+            assert got is view
+            _close(got, ref, dtype)
+            assert torch.equal(got, point), (off, chunk)
+            view.zero_()
+            assert not big.any(), (off, chunk)  # nothing written outside the view
+            calls += 1
+    assert torch.equal(axis_stencil_ext(coeffs, xe, ext, march=True), point)
+    assert axis_stencil_ext.launches == before + calls + 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("method", ["cg", "mg", "fastdiag"])
