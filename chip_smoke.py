@@ -104,9 +104,21 @@ Phases, report lines before the last:
    solution, nu = 0.25, 10 steps): v and w stay zero, u stays
    y/z-independent and matches the 1-D exact solution (the JAX package's
    gates).
+10. NS cavity, through ``LidDrivenCavity.step``: ``bench.py``'s cavity
+   cell (3-D, Re 100, regularized lid, dt 0.25/n, f32, eager, the default
+   ``sync``) at 128^3 and 256^3, 2 warm steps then 5 steps three times:
+   wall per step (the median run),
+   ``ns_cavity3d_cell_steps_per_s_chip_eager``, ``itr`` per solve, the
+   Hopper kernels' launches per step, peak memory, max|div| and the bulk
+   divergence, and no unconverged solve; the implicit-advection cavity at
+   128^3 (3 steps, the convection kernel); the card against the CPU in
+   f64 (33^3 cavity, 10 steps; 33^2 ``NaturalConvection``, Ra 1e3, 3
+   steps): the same itr solve by solve, the fields within 1e-10; and the
+   JAX model tests' physical gates on the card (the 33^2 cavity, 150
+   steps; the Ra 1e3 convection, 60 steps: Nu within 3% of 1.118).
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9) and read just after; a kernel of a path that launched no time there
+9, 10) and read just after; a kernel of a path that launched no time there
 fails the run. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
 or null), and as the LAST line
@@ -2381,6 +2393,217 @@ def phase_model():
             "diff_jacobi": dcounts["diff_jacobi"]}
 
 
+# the NS cavity: bench.py's PYAPES_BENCH_CASE=cavity cell (3-D lid-driven
+# cavity, Re = 100, regularized lid, dt = 0.25 / n, f32) at 128^3 and the
+# 256^3 scale rung, and the 128^3 cell in f64, eager (2 warm steps, then 5
+# timed steps three times). In f32 the model's tolerances (momentum 1e-8,
+# pressure 1e-5) lie below the f32 floor of a true residual (the stencil's
+# cancellation on a smooth field, ~eps n^2 / pi^2: 1.3e-5 for the pressure
+# at 64^3 on the CPU), so a fastdiag solve there ends at its stall exit
+# with converge false; in f64 every solve must converge
+CAVITY_CELLS = ((128, "single"), (256, "single"), (128, "double"))
+CAVITY_WARM, CAVITY_STEPS, CAVITY_REPS = 2, 5, 3
+N_CAVITY_CMP = 33  # the card against the CPU, f64
+CAVITY_CMP_TOL = 1e-10
+
+
+def cavity_model(dev, n: int = 128, implicit: bool = False, dtype: str = "single"):
+    """``bench.py``'s cavity cell: ``LidDrivenCavity`` on the unit cube at
+    n^3, nu 0.01, the regularized unit lid, the model's default solves
+    (fastdiag momentum and pressure; ``implicit``: BiCGSTAB with the FD
+    preconditioner through the convection kernel), the default ``sync``
+    (the port raises on ``sync: False``); ``(stepper at dt 0.25/n, kernels
+    every step launches, label)``."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import LidDrivenCavity
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    clear_cache()
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype=dtype)
+    model = LidDrivenCavity(mesh, nu=0.01, lid_velocity=1.0, lid_profile="regularized",
+                            implicit_advection=implicit)
+    required = ("conv_component", "axis_stencil") if implicit else ("axis_stencil",)
+    what = "implicit advection" if implicit else "explicit advection"
+    return _Stepper(model, 0.25 / n), required, f"NS cavity {n}^3 {dtype} {what}"
+
+
+def _record_solves(model) -> list:
+    """Every solve's report of the model, in order, appended to the list
+    returned, each with its solver's ``max_it``."""
+    reports = []
+    for solver in (model.mom_solver, model.p_solver):
+        real, max_it = solver.solve, int(solver.config["fdm"]["max_it"])
+
+        def solve(real=real, max_it=max_it):
+            rep = real()
+            reports.append({**rep, "max_it": max_it})
+            return rep
+
+        solver.solve = solve
+    return reports
+
+
+def _divergence(model) -> dict:
+    """max|div u| over the grid and the mean |div u| of the bulk (two
+    layers at every wall excluded, the JAX model test's measure)."""
+    div = model.divergence().abs()
+    bulk = div[(slice(2, -2),) * model.mesh.dim]
+    return {"max_abs_div": div.max().item(), "bulk_mean_abs_div": bulk.mean().item()}
+
+
+def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM,
+                    steps: int = CAVITY_STEPS, reps: int = CAVITY_REPS,
+                    dtype: str = "single") -> dict:
+    """``warm`` steps, then ``reps`` times ``steps`` steps, each run ended
+    by ``torch.cuda.synchronize()``: wall per step (the median run), the
+    cell-steps/s, itr and tol per solve, the solves that did not converge,
+    the Hopper kernels' launches per step, peak memory of the timed runs
+    and the divergence after them. No solve may reach its ``max_it``; in
+    f64 every solve must converge (in f32 a fastdiag solve may end at its
+    stall exit, the f32 floor, and is listed); every step must launch the
+    path's kernels."""
+    import torch
+
+    stepper, required, label = cavity_model(dev, n, implicit, dtype)
+    model = stepper.model
+    reports = _record_solves(model)
+    for _ in range(warm):
+        stepper.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_warm_solves = len(reports)
+    walls, per_step = [], []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        for _ in range(steps):
+            before = _counts()
+            stepper.step()
+            after = _counts()
+            per_step.append({k: after[k] - before[k] for k in after if after[k] > before[k]})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tic) / steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unconverged = [(k, r["itr"], r["tol"]) for k, r in enumerate(reports) if not r["converge"]]
+    bad = [r for r in reports if r["itr"] >= r["max_it"] or not r["tol"] == r["tol"]]
+    if bad or (dtype == "double" and unconverged):
+        raise RuntimeError(f"chip_smoke: {label}: solves at max_it or not converged: "
+                           f"{(bad or unconverged)[:3]}")
+    missing = [(k, name) for k, ls in enumerate(per_step) for name in required if not ls.get(name)]
+    if missing:
+        raise RuntimeError(f"chip_smoke: {label}: steps launched no {missing[:3]}")
+    u = torch.cat([v() for v in model.vel])
+    if not bool(u.isfinite().all()) or not bool(model.p().isfinite().all()):
+        raise RuntimeError(f"chip_smoke: {label}: the velocity or pressure is not finite")
+    wall = statistics.median(walls)
+    per_solve = len(model.vel) + 1
+    timed = reports[n_warm_solves:]
+    return {
+        "path": label, "n": n, "dt": stepper.dt, "warm_steps": warm, "steps": steps,
+        "wall_s_per_step_runs": walls, "wall_s_per_step_median": wall,
+        "ns_cavity3d_cell_steps_per_s_chip_eager": n**3 / wall,
+        "itr_per_step_timed": [[r["itr"] for r in timed[k:k + per_solve]]
+                               for k in range(0, len(timed), per_solve)],
+        "tol_last_step": [r["tol"] for r in reports[-per_solve:]],
+        "solves": len(reports), "unconverged_solves": len(unconverged),
+        "unconverged_max_tol": max((t for _, _, t in unconverged), default=None),
+        "unconverged_first_solve_itr_tol": unconverged[:4],
+        "hopper_launches_per_step": (per_step[0] if all(ls == per_step[0] for ls in per_step)
+                                     else per_step),
+        "peak_mem_gib_timed": peak, **_divergence(model), "t": model.t,
+        "sync": "default (the port raises on sync: False)",
+    }
+
+
+def _cavity_cmp_run(dev, kind: str, n: int, steps: int):
+    """``steps`` steps on ``dev`` in f64 of the cavity (``kind`` "cavity":
+    n^3, ``cavity_model``'s set-up) or of ``NaturalConvection`` (n^2, Ra
+    1e3, dt 0.0125): ``(itr per solve, state fields on the host)``."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import NaturalConvection
+
+    if kind == "cavity":
+        stepper = cavity_model(dev, n, dtype="double")[0]
+        model, dt = stepper.model, stepper.dt
+    else:
+        mesh = Mesh(Box[0:1, 0:1], None, [n, n], device=str(dev), dtype="double")
+        model, dt = NaturalConvection(mesh, ra=1e3, pr=0.71), 0.0125
+    reports = _record_solves(model)
+    model.run(dt, steps)
+    return [r["itr"] for r in reports], [f().cpu() for f in model.state_fields()]
+
+
+def _cavity_gates(dev) -> dict:
+    """The JAX model tests' physical gates on the card (f64, eager):
+    ``test_lid_driven_cavity`` (33^2, 150 steps of 0.02) and
+    ``test_natural_convection_davis_ra1e3`` (33^2, 60 steps of 0.0125)."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import LidDrivenCavity, NaturalConvection
+
+    mesh = Mesh(Box[0:1, 0:1], None, [33, 33], device=str(dev), dtype="double")
+    model = LidDrivenCavity(mesh, nu=0.01, lid_velocity=1.0)
+    model.run(0.02, 150)
+    u, v = model.u()[0].cpu(), model.v()[0].cpu()
+    mid = u.shape[0] // 2
+    div = model.divergence()[2:-2, 2:-2].abs().mean().item()
+    cav = {"u_mid_min": u[mid, :].min().item(), "v_mid_max": v[:, mid].max().item(),
+           "v_mid_min": v[:, mid].min().item(), "bulk_mean_abs_div": div,
+           "lid_max_err": (u[1:-1, -1] - 1.0).abs().max().item(),
+           "bottom_max_abs": u[:, 0].abs().max().item()}
+    if not (cav["u_mid_min"] < -0.05 and cav["v_mid_max"] > 0.02 and cav["v_mid_min"] < -0.02
+            and div < 0.05 and cav["lid_max_err"] <= 1e-12 and cav["bottom_max_abs"] <= 1e-12):
+        raise RuntimeError(f"chip_smoke: the 33^2 cavity failed the JAX test's gates: {cav}")
+    mesh = Mesh(Box[0:1, 0:1], None, [33, 33], device=str(dev), dtype="double")
+    nc = NaturalConvection(mesh, ra=1e3, pr=0.71)
+    nc.run(0.0125, 60)
+    T, vv = nc.T()[0].cpu(), nc.v()[0].cpu()
+    conv = {"nusselt_hot_wall": nc.nusselt_hot_wall(), "v_max": vv.max().item(),
+            "v_min": vv.min().item(), "T_max": T.max().item(), "T_min": T.min().item()}
+    if not (abs(conv["nusselt_hot_wall"] - 1.118) < 0.03 * 1.118 and conv["v_max"] > 0.5
+            and conv["v_min"] < -0.5 and conv["T_max"] <= 1.0 + 1e-8 and conv["T_min"] >= -1e-8):
+        raise RuntimeError(f"chip_smoke: the Ra 1e3 convection failed the JAX test's gates: {conv}")
+    return {"cavity_33x33_150_steps": cav, "convection_ra1e3_33x33_60_steps": conv}
+
+
+def phase_cavity(dev) -> dict:
+    """The NS cavity: bench's cell at 128^3 and 256^3 (f32) and at 128^3
+    in f64, and the implicit-advection cavity at 128^3 (3 steps), each with
+    the launch
+    counts set to 0 just before and read just after; then the card
+    against the CPU (33^3 cavity, 10 steps; 33^2 convection, 3 steps: the
+    same itr solve by solve, the fields within ``CAVITY_CMP_TOL``) and the
+    JAX model tests' gates. Returns the cells' launch counts."""
+    import torch
+
+    counts = {}
+    cells = [(n, dt, False, CAVITY_WARM, CAVITY_STEPS, CAVITY_REPS) for n, dt in CAVITY_CELLS]
+    cells.append((CAVITY_CELLS[0][0], "single", True, 0, 3, 1))
+    for n, dtype, implicit, warm, steps, reps in cells:
+        _reset_counts()
+        stats = run_cavity_cell(dev, n, implicit, warm, steps, reps, dtype)
+        for name, c in _counts().items():
+            counts[name] = counts.get(name, 0) + c
+        print(f"[10 NS cavity] {json.dumps(stats)}", flush=True)
+        torch.cuda.empty_cache()
+    cmp = {}
+    for kind, steps in (("cavity", 10), ("convection", 3)):
+        cpu_itr, cpu_f = _cavity_cmp_run(torch.device("cpu"), kind, N_CAVITY_CMP, steps)
+        card_itr, card_f = _cavity_cmp_run(dev, kind, N_CAVITY_CMP, steps)
+        rel = max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+                  for a, b in zip(cpu_f, card_f))
+        if card_itr != cpu_itr or not rel <= CAVITY_CMP_TOL:
+            raise RuntimeError(f"chip_smoke: the {kind} on the card differs from the CPU run: itr "
+                               f"{card_itr} vs {cpu_itr}, max rel diff {rel:.3e}")
+        cmp[kind] = {"n": N_CAVITY_CMP, "steps": steps, "itr": card_itr, "max_rel_diff": rel}
+    print(f"[10 NS cavity] card against CPU, f64 (tolerance {CAVITY_CMP_TOL}): "
+          f"{json.dumps(cmp)}", flush=True)
+    print(f"[10 NS cavity] the JAX model tests' gates on the card, f64: "
+          f"{json.dumps(_cavity_gates(dev))}", flush=True)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -2425,6 +2648,7 @@ def main() -> None:
         phase_model(),
         phase_burgers(dev),
         phase_advdiff(dev),
+        phase_cavity(dev),
     ]
     phase_burgers_xonly(dev)
     for counts in path_counts:

@@ -1,7 +1,11 @@
 """Ready-made problem templates built on the solver stack: Poisson,
-advection-diffusion, and the viscous Burgers systems."""
+advection-diffusion, the viscous Burgers systems, the lid-driven cavity
+and Boussinesq natural convection."""
 from pyapes_tpu_torch.models.advection_diffusion import AdvectionDiffusion
 from pyapes_tpu_torch.models.burgers import Burgers1D, BurgersND
+from pyapes_tpu_torch.models.natural_convection import NaturalConvection
+from pyapes_tpu_torch.models.navier_stokes import LidDrivenCavity
 from pyapes_tpu_torch.models.poisson import PoissonSolver
 
-__all__ = ["AdvectionDiffusion", "Burgers1D", "BurgersND", "PoissonSolver"]
+__all__ = ["AdvectionDiffusion", "Burgers1D", "BurgersND", "LidDrivenCavity",
+           "NaturalConvection", "PoissonSolver"]

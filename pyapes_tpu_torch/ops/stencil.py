@@ -346,6 +346,30 @@ def _eliminate_boundary_node(ap, ac, am, lower: bool) -> None:
         ap[-2] = 0.0
 
 
+def grad_axis_coeffs(mesh, bcs, gamma: float = 1.0, dtype=None) -> tuple:
+    """Per-axis central-gradient coefficients ``(gamma, 0, -gamma) / (2
+    dx)`` for a spatially constant ``gamma``, with the boundary-node
+    elimination on Neumann/Symmetry faces, as host numpy (the JAX
+    package's ``grad_axis_coeffs``, built in float64 by the same code, then
+    cast). Periodic faces take no surgery: the explicit apply runs the
+    exact stencil on the reduced torus, the implicit solve rebuilds the
+    vectors there."""
+    dtype = np_dtype(dtype or mesh.dtype.float)
+    out = []
+    for j in range(mesh.dim):
+        n = mesh.nx[j]
+        dxj = float(mesh.dx_np[j])
+        ap = gamma * np.ones(n)
+        ac = np.zeros(n)
+        am = -gamma * np.ones(n)
+        for bc in _aligned_bcs(bcs, j):
+            if bc.bc_type in ("neumann", "symmetry"):
+                _eliminate_boundary_node(ap, ac, am, bc.bc_n_dir < 0)
+        scale = 2.0 * dxj
+        out.append(tuple(np.asarray(c / scale, dtype=dtype) for c in (ap, ac, am)))
+    return tuple(out)
+
+
 def div_axis_coeffs(mesh, bcs, gamma: float, limiter: str = "none", dtype=None) -> tuple:
     """Per-axis divergence coefficients for a spatially constant advection
     ``gamma``, with BC surgery, as host numpy (the JAX package's

@@ -1,10 +1,13 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
-``poisson``, ``darcy`` and ``burgers`` subcommands).
+``poisson``, ``darcy``, ``burgers``, ``cavity`` and ``convection``
+subcommands).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg
     python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic
     python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100
+    python -m pyapes_tpu_torch.runner cavity --dim 3 --n 128 --re 100 --steps 5
+    python -m pyapes_tpu_torch.runner convection --n 33 --steps 60 --dt 0.0125
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 17 --device cpu
 
 Every case runs on the card unless ``--device cpu`` asks for the CPU.
@@ -23,6 +26,13 @@ effective permeability and its Wiener (harmonic/arithmetic mean) bounds.
 2π]`` (``nu = 0.1``, backward Euler, Picard-linearized advection, the FD
 preconditioner), as the JAX runner; it adds ``steps`` and the final
 time ``t``.
+
+``cavity`` steps the lid-driven cavity (``nu = 1 / re``, unit lid, eager
+steps; ``--adaptive-cfl`` integrates to ``dt * steps`` with the CFL step;
+``--fused`` raises: the whole-step capture is ported in a later slice);
+it adds ``steps``, ``t`` and the centreline minimum of u. ``convection``
+steps the de Vahl Davis cavity (2-D) and adds the hot-wall Nusselt
+number.
 
 Each prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``,
 the JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
@@ -119,6 +129,57 @@ def _run_burgers(args) -> dict:
     return {"wall_s": wall, "steps": args.steps, "t": model.var.t}
 
 
+def _run_cavity(args) -> dict:
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import LidDrivenCavity
+
+    if args.fused:
+        raise NotImplementedError("runner cavity: --fused (utils/fuse.py) is ported in a later "
+                                  "slice")
+    box = Box[tuple(slice(0, 1) for _ in range(args.dim))]
+    mesh = Mesh(box, None, [args.n] * args.dim, device=args.device, dtype=args.dtype)
+    model = LidDrivenCavity(mesh, nu=1.0 / args.re, lid_velocity=1.0,
+                            implicit_advection=args.implicit_advection)
+    tic = time.perf_counter()
+    if args.adaptive_cfl:
+        n_steps = model.run_adaptive(args.adaptive_cfl, t_end=args.dt * args.steps)
+    else:
+        n_steps = args.steps
+        model.run(dt=args.dt, n_steps=args.steps)
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+    u = model.u()[0].double().cpu().numpy()
+    mid = (u.shape[0] // 2,) * (args.dim - 1)
+    return {"wall_s": wall, "steps": n_steps, "u_centerline_min": float(np.min(u[mid])),
+            "t": model.t}
+
+
+def _run_convection(args) -> dict:
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import NaturalConvection
+
+    if args.fused:
+        raise NotImplementedError("runner convection: --fused (utils/fuse.py) is ported in a "
+                                  "later slice")
+    mesh = Mesh(Box[0:1, 0:1], None, [args.n, args.n], device=args.device, dtype=args.dtype)
+    model = NaturalConvection(mesh, ra=args.ra, pr=args.pr)
+    tic = time.perf_counter()
+    model.run(dt=args.dt, n_steps=args.steps)
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+    return {"wall_s": wall, "steps": args.steps, "t": model.t,
+            "nusselt_hot_wall": model.nusselt_hot_wall()}
+
+
 def run(argv=None) -> dict:
     """Parse the command line ``argv`` and run its case; returns the
     JSON-able result that ``main`` prints."""
@@ -150,8 +211,28 @@ def run(argv=None) -> dict:
     sb.add_argument("--dt", type=float, default=0.01)
     sb.add_argument("--steps", type=int, default=100)
 
+    sc = sub.add_parser("cavity", parents=[common])
+    sc.add_argument("--re", type=float, default=100.0)
+    sc.add_argument("--dt", type=float, default=0.01)
+    sc.add_argument("--steps", type=int, default=500)
+    sc.add_argument("--dim", type=int, default=2, choices=[2, 3])
+    sc.add_argument("--implicit-advection", action="store_true")
+    sc.add_argument("--adaptive-cfl", type=float, default=None, metavar="CFL",
+                    help="CFL-adaptive dt (integrates to t_end = dt * steps)")
+    sc.add_argument("--fused", action="store_true",
+                    help="whole-step capture (ported in a later slice: raises)")
+
+    sv = sub.add_parser("convection", parents=[common])
+    sv.add_argument("--ra", type=float, default=1e3)
+    sv.add_argument("--pr", type=float, default=0.71)
+    sv.add_argument("--dt", type=float, default=0.01)
+    sv.add_argument("--steps", type=int, default=100)
+    sv.add_argument("--fused", action="store_true",
+                    help="whole-step capture (ported in a later slice: raises)")
+
     args = p.parse_args(argv)
-    return {"poisson": _run_poisson, "darcy": _run_darcy, "burgers": _run_burgers}[args.case](args)
+    return {"poisson": _run_poisson, "darcy": _run_darcy, "burgers": _run_burgers,
+            "cavity": _run_cavity, "convection": _run_convection}[args.case](args)
 
 
 def main(argv=None) -> None:

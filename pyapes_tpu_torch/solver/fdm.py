@@ -10,9 +10,9 @@ Ported: ``Operators``, the ``Laplacian`` with a scalar coefficient or a
 spatially varying one (the conservative variable-Γ operator, isotropic or
 diagonal-tensor Γ), ``Div`` (constant advection: 3- or 5-point axis
 vectors; an advecting field: the per-point ``div_field`` term), ``Conv``
-(the vector convection ``conv_field`` term) and ``Ddt`` (backward Euler,
-BDF2). ``grad`` and ``custom`` are ported in later slices and raise
-``NotImplementedError``.
+(the vector convection ``conv_field`` term), ``Grad`` (central differences,
+a per-axis stencil term) and ``Ddt`` (backward Euler, BDF2). ``custom`` is
+ported in a later slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from pyapes_tpu_torch.ops.diff_field import diff_field
 from pyapes_tpu_torch.ops.stencil import (
     div_axis_coeffs,
     div_surgery_info,
+    grad_axis_coeffs,
     laplacian_axis_coeffs,
 )
 from pyapes_tpu_torch.solver.fdc import FDC, conv_rhs_adjust
@@ -228,6 +229,48 @@ class Laplacian(Operators):
         return out if coeff is None else out * coeff
 
 
+class Grad(Operators):
+    r"""Implicit gradient :math:`\nabla \Phi` (reference ``fdm.py:270-319``).
+    In an equation its ``(var.dim, mesh.dim, *nx)`` output is summed over
+    the mesh axes (the JAX package's rule; the original reshape holds in
+    1-D only, where the two coincide): the per-axis vectors
+    ``(1, 0, -1) / (2 dx)`` with the boundary-node elimination, times an
+    optional scalar coefficient."""
+
+    def __call__(self, *inputs: Any) -> "Grad":
+        if len(inputs) == 2:
+            coeff, var = inputs
+        elif len(inputs) == 1:
+            coeff, var = None, inputs[0]
+        else:
+            raise TypeError("FDM: invalid input type!")
+        assert isinstance(var, Field), "FDM Grad: var must be a Field!"
+        self._var = var
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop,
+                "target": var,
+                "param": (coeff,),
+                "sign": 1.0,
+                "other": None,
+                "axis_coeffs": grad_axis_coeffs(var.mesh, var.bcs),
+                "A_coeffs": None,
+                "adv": None,
+                "limiter": None,
+                "dt": None,
+                "adjust_rhs": lambda v=var: FDC({"grad": {"edge": False}}).grad.adjust_rhs(v),
+            }
+        }
+        return self
+
+    @property
+    def var(self) -> Field:
+        return self._var
+
+    Aop = staticmethod(Laplacian.Aop)
+
+
 def _adv_tensor(u, var: Field) -> torch.Tensor:
     """An advecting argument (Field, tensor or array) as a tensor in the
     target's dtype and device, frozen at equation-build time."""
@@ -415,7 +458,7 @@ class FDM:
 
     def __init__(self, config: DiscretizerConfigType | None = None) -> None:
         self.laplacian = Laplacian()
-        self.grad = _Unported("grad")
+        self.grad = Grad()
         self.div = Div()
         self.conv = Conv()
         self.custom = _Unported("custom")

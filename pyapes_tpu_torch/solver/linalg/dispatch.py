@@ -10,8 +10,9 @@ grids with Dirichlet, Neumann, Symmetry and periodic faces (an axis with
 both faces periodic is solved on the reduced torus: the duplicate seam
 node is dropped, every node is active, the stencil wraps, and the seam is
 re-appended after the solve), for the term kinds ``axis`` (constant
-coefficients, 3- or 5-point), ``diff_field`` (variable-Γ Laplacian),
-``div_field`` / ``conv_field`` (per-point advection) and ``ddt``; with a
+coefficients, 3- or 5-point: laplacian, div, grad), ``diff_field``
+(variable-Γ Laplacian), ``div_field`` / ``conv_field`` (per-point
+advection) and ``ddt``; with a
 domain decomposition (``decomp``: a ``DomainDecomposition`` whose blocks
 all live on the solve's device) the axis and advection terms apply block
 by block (``build.py``). MG on a periodic axis, obstacles and blocks on
@@ -72,10 +73,10 @@ def _term_descriptor(rec) -> tuple:
         return ("div_field", name, sign, False, o["surgery"], o["form"], rec["limiter"])
     if o.get("var_gamma"):
         return ("diff_field", name, sign, False, o["surgery"], (o["inv_dx2"], o["avg"]), None)
-    if name not in ("laplacian", "div") or rec.get("axis_coeffs") is None:
+    if name not in ("laplacian", "div", "grad") or rec.get("axis_coeffs") is None:
         raise NotImplementedError(f"linalg: {rec['name']} terms are ported in a later slice")
-    return ("axis", name, sign, name == "laplacian" and rec["param"][0] is not None, None, None,
-            None)
+    return ("axis", name, sign, name in ("laplacian", "grad") and rec["param"][0] is not None,
+            None, None, None)
 
 
 def _periodic_axes(bcs, dim: int) -> tuple[int, ...]:

@@ -17,7 +17,10 @@ import torch
 def _tensor(a, like: torch.Tensor | None = None, device=None, dtype=None):
     if like is not None:
         device, dtype = like.device, like.dtype
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    a = np.asarray(a)
+    if not a.flags.writeable:  # a JAX array's host view: own a copy
+        a = a.copy()
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def field_from_numpy(field, var, varo=None, varoo=None):
@@ -53,3 +56,21 @@ def gamma_from_numpy(g, like: torch.Tensor) -> torch.Tensor:
     ``(dim, *nx)``) or an advecting field (``(1 | dim, *nx)``), as numpy,
     as a contiguous tensor in ``like``'s dtype and device."""
     return _tensor(np.ascontiguousarray(g), like=like).contiguous()
+
+
+def model_state_from_numpy(model, states, t: float = 0.0):
+    """Load a transient model's state (``model.state_fields()``: the
+    cavity's ``u, v[, w], p[, dp]``, the convection's ``T`` after them)
+    from the JAX model's arrays as numpy, so both packages step on from
+    the same mid-run state. ``states`` holds one entry per state field, in
+    that order: the values, or ``(values, VARo[, VARoo])``. The model's
+    clock is set to ``t``; each field takes its step and time from the
+    model's clock at its next step. Returns the model."""
+    fields = model.state_fields()
+    if len(states) != len(fields):
+        raise ValueError(f"model_state_from_numpy: {len(states)} states for {len(fields)} fields "
+                         f"({[f.name for f in fields]})")
+    for f, st in zip(fields, states):
+        field_from_numpy(f, *(st if isinstance(st, (tuple, list)) else (st,)))
+    model.t = t
+    return model

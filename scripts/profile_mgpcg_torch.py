@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
-(or one step of the 3-D Burgers or the QUICK or upwind advection-diffusion
-model).
+(or one step of the 3-D Burgers, the QUICK or upwind advection-diffusion
+model, or the lid-driven cavity).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --burgers [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --quick [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --upwind [--n 256] [--out ...]
+    python scripts/profile_mgpcg_torch.py --cavity [--implicit] [--n 128] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
@@ -24,7 +25,12 @@ constant velocity, dt 1e-3: one unpreconditioned BiCGSTAB solve through
 the 5-point axis stencil), or with ``--upwind`` one step of its
 upwind ``AdvectionDiffusion`` path (``advdiff_model``: n^3 f32, the
 velocity field 1 + 0.5 sin 2πx sin 2πy sin 2πz, dt 1e-3: one BiCGSTAB
-solve with the FD preconditioner through the Div kernel). ``--decomp 4,2,1`` solves the Poisson problem
+solve with the FD preconditioner through the Div kernel), or with ``--cavity``
+one step of its NS cavity cell (``cavity_model``: ``bench.py``'s cavity,
+n^3 f32, Re 100, regularized lid, dt 0.25/n: three fastdiag momentum
+solves, the fastdiag pressure solve and the explicit FDC glue between
+them; ``--implicit``: the momentum by BiCGSTAB with the FD preconditioner
+through the convection kernel) after two warm steps. ``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
 halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
 fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
@@ -43,8 +49,8 @@ prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 - the device's busy time as the UNION of the kernel/memcpy/memset
   intervals of the trace inside the host range of ``Solver.solve``, and
   the idle share ``1 - busy / range``;
-- the host's stream synchronizations, copies and kernel launches in that
-  range;
+- the host's stream synchronizations, copies and kernel launches
+  (runtime calls) in that range, and the device kernels it ran;
 - the card's name and power limit.
 """
 from __future__ import annotations
@@ -108,6 +114,9 @@ def main() -> None:
                    help="one step of the QUICK advection-diffusion model")
     p.add_argument("--upwind", action="store_true",
                    help="one step of the upwind advection-diffusion model (a velocity field)")
+    p.add_argument("--cavity", action="store_true", help="one step of the NS cavity")
+    p.add_argument("--implicit", action="store_true",
+                   help="with --cavity: implicit advection (the convection kernel)")
     p.add_argument("--decomp", default=None,
                    help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
     p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
@@ -134,22 +143,30 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    step = args.burgers or args.quick or args.upwind
-    n = args.n or (256 if args.darcy or step else 512)
+    step = args.burgers or args.quick or args.upwind or args.cavity
+    n = args.n or (128 if args.cavity else 256 if args.darcy or step else 512)
     if step:
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       os.path.join(HERE, "chip_smoke.py"))
         chip_smoke = importlib.util.module_from_spec(spec)  # this checkout's, whatever --root
         spec.loader.exec_module(chip_smoke)
         dev = torch.device("cuda")
-        stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
-                   else chip_smoke.advdiff_model(dev, "quick" if args.quick else "upwind", n))[0]
+        if args.cavity:
+            stepper = chip_smoke.cavity_model(dev, n, args.implicit)[0]
+            for _ in range(2):  # the cell's warm steps
+                stepper.step()
+        else:
+            stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
+                       else chip_smoke.advdiff_model(dev, "quick" if args.quick else "upwind",
+                                                     n))[0]
 
         def prepare():
             pass
 
         def run():
             stepper.step()
+            if args.cavity:  # the step's last solve: the pressure
+                return stepper.model.p_solver.report
             return stepper.model.report
     else:
         mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
@@ -230,6 +247,7 @@ def main() -> None:
     summary = {
         "card": smi, "root": args.root,
         "case": ("burgers" if args.burgers else "quick" if args.quick else "upwind" if args.upwind
+                 else ("cavity implicit" if args.implicit else "cavity") if args.cavity
                  else "darcy" if args.darcy else "poisson"),
         "method": ("model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,
@@ -244,6 +262,7 @@ def main() -> None:
         "stream_syncs": sum(n == "cudaStreamSynchronize" for n in runtime),
         "memcpy_calls": sum(n.startswith("cudaMemcpy") for n in runtime),
         "kernel_launches": sum(n.startswith("cudaLaunchKernel") for n in runtime),
+        "device_kernels": sum(e.get("cat") == "kernel" for e in dev),
         "groups": {k: {"calls": c, "device_ms": ms, "share_of_range": ms / range_ms}
                    for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
         "hopper_kernels_by_grid": [

@@ -22,7 +22,7 @@ from pyapes_tpu_torch.ops import jacobi as jacobi_mod  # noqa: E402
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil  # noqa: E402
 from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
 from pyapes_tpu_torch.solver.multigrid import MGSpec  # noqa: E402
-from pyapes_tpu_torch.solver import FDM, FDC, Solver  # noqa: E402
+from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
 
@@ -90,6 +90,12 @@ def _field(bc_type="dirichlet"):
     return Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, bc_type)})
 
 
+def _cavity(**kw):
+    from pyapes_tpu_torch.models import LidDrivenCavity
+
+    return LidDrivenCavity(Mesh(Box[0:1, 0:1], None, [6, 6], device="cpu", dtype="double"), **kw)
+
+
 def _solve(cfg):
     var = _field()
     s = Solver({"fdm": {"method": "fastdiag", "tol": 1e-8, "max_it": 10, **cfg}})
@@ -100,7 +106,8 @@ def _solve(cfg):
 @pytest.mark.parametrize(
     "case",
     ["periodic", "cg", "bicgstab", "decomp", "kernel", "sync", "fd_opts",
-     "obstacle", "rz", "var_gamma", "ddt", "grad", "fdc_div", "fdc_apply"],
+     "obstacle", "rz", "var_gamma", "ddt", "ns_fused", "ns_nu_field", "nc_k_fn", "custom",
+     "ns_mu_strain"],
 )
 def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError):
@@ -146,12 +153,18 @@ def test_unported_features_raise(case):
             s.set_eq(FDM().ddt(var) - FDM().laplacian(1.0, var)
                      == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        elif case == "grad":
-            FDM().grad(_field())
-        elif case == "fdc_div":
-            FDC({"div": {"limiter": "none"}}).div(1.0, _field())
-        else:
-            FDC({"laplacian": {"edge": False}}).laplacian(_field())
+        elif case == "ns_fused":  # the whole-step capture (utils/fuse.py)
+            _cavity().run(0.01, 1, fused=True)
+        elif case == "ns_nu_field":  # a per-point viscosity: a transient variable-Γ solve
+            _cavity(nu=torch.full((6, 6), 0.01, dtype=torch.float64))
+        elif case == "nc_k_fn":  # a temperature-dependent conductivity
+            from pyapes_tpu_torch.models import NaturalConvection
+
+            NaturalConvection(_cavity().mesh, k_fn=lambda T: 1.0 + 0.0 * T)
+        elif case == "custom":  # a user operator term
+            FDM().custom(lambda x: x, _field())
+        else:  # a strain-rate viscosity law
+            _cavity(mu_strain_fn=lambda gdot: 0.01 + 0.0 * gdot)
 
 
 def test_decomp_must_be_a_domain_decomposition():
