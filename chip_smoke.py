@@ -50,7 +50,13 @@ Phases, report lines before the last:
    V-cycle, per call and back to back on the device), beside a CSR product
    (``torch.mv``) of the same linear operator (the variable-Γ apply at
    its fixed Γ), the library yardstick, with GB/s and the share of the
-   bound.
+   bound. The 2-D per-point axis stencil on the rz vectors of the
+   rz/RFP path (``check_axis_rz``): the 512 x 1024 Laplacian with the
+   potentials' faces (r = 0 symmetry surgery, Dirichlet at ru and on z)
+   and without faces (the raw r = 0 row), and every level of the rz
+   V-cycle, in f32 and f64, the same bits on another call; timed at 512 x
+   1024 f32 per call and back to back beside the plain version, a CSR
+   product and a device copy.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -116,12 +122,32 @@ Phases, report lines before the last:
    steps): the same itr solve by solve, the fields within 1e-10; and the
    JAX model tests' physical gates on the card (the 33^2 cavity, 150
    steps; the Ra 1e3 convection, 60 steps: Nu within 3% of 1.118).
+11. rz/RFP, through ``RosenbluthPotentials`` and ``RFPEvolution``:
+   ``bench.py``'s rz cell (``bench_rz``: Cylinder[0:4, -4:4] at 512 x 1024
+   f32, the potentials H and G of a Maxwellian by the default config, then
+   a new ``RFPEvolution(mesh, H, G)`` and 5 ``step_implicit`` of dt 1e-3,
+   the FD-preconditioned BiCGSTAB of ``fdm.custom``): one warm-up and
+   three timed runs: the wall, ``rfp_rz_dof_per_s_chip`` (nr nz 7 / the
+   fastest run, on a line of its own), itr / tol / converge per solve, the
+   solves at max_it (listed, not failed: bench's tolerances lie below the
+   f32 floor), the true residuals recomputed in f64 with the plain
+   operators, the axis-stencil launches per run, the host syncs of a run
+   (torch's sync debug mode), peak memory and the density drift; the
+   potentials again under ``{"method": "bicgstab", "precond": "mg"}`` (the
+   JAX package's resolution: the rz V-cycle, the kernel on every level);
+   the card against the CPU in f64 (``tests/test_models.py``'s 32 x 48
+   implicit steps; ``run_selfconsistent`` at 40 x 80): the same itr solve
+   by solve, the pdf within 1e-10; the JAX tests' gates on the card
+   (``test_rosenbluth.py``: the analytic Maxwellian H within 1%,
+   isotropization, the steady Maxwellian; ``test_muscl.py``: positivity,
+   total variation and mass).
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10) and read just after; a kernel of a path that launched no time there
+9, 10, 11) and read just after; a kernel of a path that launched no time there
 fails the run. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
-or null), and as the LAST line
+or null; a last row for the 2-D per-point kernel on the rz cell), and as
+the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
 a non-zero exit, with no result line.
 """
@@ -2604,12 +2630,481 @@ def phase_cavity(dev) -> dict:
     return counts
 
 
+# the rz / RFP path: bench.py's PYAPES_BENCH_CASE=rz cell (bench_rz): a
+# Cylinder[0:4, -4:4] velocity mesh of 512 x 1024 nodes in f32, the
+# Rosenbluth potentials H and G of f0 = exp(-(R^2 + Z^2)/2) / (2 pi)^1.5
+# (RosenbluthPotentials' default config: the port resolves it to fastdiag,
+# tol 1e-8 on the true residual), then 5 implicit RFP steps of dt 1e-3
+# (BiCGSTAB, tol 1e-9 on the recursive residual, the FD preconditioner of
+# the frozen separable diffusion surrogate); one warm-up then RZ_REPS
+# timed runs. Bench's tolerances lie below the f32 floor: a solve that
+# ends unconverged or at max_it is listed with its true residual, not
+# failed
+RZ_CELL = (512, 1024)
+RZ_BOUNDS = ((0.0, 4.0), (-4.0, 4.0))
+RZ_STEPS, RZ_DT, RZ_REPS = 5, 1e-3, 3
+RZ_POT_TOL, RZ_STEP_TOL, RZ_MAX_IT = 1e-8, 1e-9, 2000  # the models' own settings
+RZ_SHARED = {"method": "bicgstab", "precond": "mg"}  # the JAX package's resolution
+RZ_CMP_TOL = 1e-10  # the card against the CPU, f64, relative to max|field|
+
+
+def rz_mesh(dev, nr: int, nz: int, dtype: str = "single", bounds=RZ_BOUNDS):
+    from pyapes_tpu_torch.geometry import Cylinder
+    from pyapes_tpu_torch.mesh import Mesh
+
+    (r0, r1), (z0, z1) = bounds
+    return Mesh(Cylinder[r0:r1, z0:z1], None, [nr, nz], device=str(dev), dtype=dtype)
+
+
+def _rz_potential_bcs():
+    """The potentials' faces: the symmetry axis at r = 0, Dirichlet on the
+    other three (``RosenbluthPotentials``)."""
+    from pyapes_tpu_torch.variables.bcs import CylinderBoundary
+
+    return CylinderBoundary(rl={"bc_type": "symmetry", "bc_val": None},
+                            ru={"bc_type": "dirichlet", "bc_val": 0.0},
+                            zl={"bc_type": "dirichlet", "bc_val": 0.0},
+                            zu={"bc_type": "dirichlet", "bc_val": 0.0})()
+
+
+def _rz_operators(dev, dtname: str, cell=RZ_CELL) -> list:
+    """(label, coeffs, shape) of every rz operator the path applies through
+    the axis stencil, in ``dtname``: the fine Laplacian with the
+    potentials' faces (r = 0 symmetry surgery, Dirichlet at ru and on z),
+    the same with no faces (the raw r = 0 row, ``nan_to_num(dr / 2r)`` =
+    0), and every level of the rz V-cycle of the shared config."""
+    import torch
+
+    from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.multigrid import MGSpec
+    from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
+    from pyapes_tpu_torch.variables import Field
+
+    dtype = getattr(torch, dtname)
+    mesh = rz_mesh(dev, *cell, "double" if dtname == "float64" else "single")
+    var = Field("h", 1, mesh, {"domain": _rz_potential_bcs()})
+    ops = [(f"fine {cell} faces", laplacian_axis_coeffs(mesh, var.bcs), cell),
+           (f"fine {cell} no faces", laplacian_axis_coeffs(mesh, None), cell)]
+    ops = [(lbl, coeffs_from_numpy(c, dev, dtype), shp) for lbl, c, shp in ops]
+    spec = MGSpec(cell, [float(l) for l in mesh._lx_np], rz=True, r_lower=0.0,
+                  face_kinds=(("neumann", "dirichlet"), ("dirichlet", "dirichlet")),
+                  dtype=dtype, device=dev)
+    ops += [(f"MG level {shp}", spec._level_coeffs(shp), shp) for shp in spec.shapes]
+    return ops
+
+
+def check_axis_rz(dev, cell=RZ_CELL) -> tuple:
+    """The 2-D per-point ``axis_stencil`` kernel on the rz vectors
+    (``_rz_operators``) against ``apply_axis_stencil`` in f32 and f64,
+    within ``REL_TOL`` and the same bits on another call; then at the cell
+    in f32 timed per call and back to back on the device beside the plain
+    version, a CSR product of the same operator and a device copy. Returns
+    (worst abs error, timing row)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+
+    worst, n_cases = 0.0, 0
+    for dtname in ("float32", "float64"):
+        here = 0.0
+        for seed, (label, coeffs, shape) in enumerate(_rz_operators(dev, dtname, cell)):
+            g = torch.Generator(device=dev).manual_seed(1100 + seed)
+            x = torch.randn((1, *shape), generator=g, device=dev,
+                            dtype=getattr(torch, dtname))
+            ref = apply_axis_stencil(coeffs, x)
+            got, again = axis_stencil(coeffs, x), axis_stencil(coeffs, x)
+            torch.cuda.synchronize()
+            limit = REL_TOL[dtname] * ref.abs().max().item()
+            err = (got.double() - ref.double()).abs().max().item()
+            if got.dtype != ref.dtype or not err <= limit or not torch.equal(got, again):
+                raise RuntimeError(f"chip_smoke: axis_stencil on the rz {label} {dtname} "
+                                   f"disagrees with its plain version ({err:.3e} > {limit:.3e}) "
+                                   "or gave other bits on another call")
+            worst = max(worst, err)
+            here = max(here, err / limit if limit > 0 else 0.0)
+            n_cases += 1
+        print(f"[3 kernel] axis stencil 2-D rz {dtname}: worst err/limit {here:.3f} (the fine "
+              f"{cell} operator with and without faces, every rz MG level; same bits on "
+              "another call)", flush=True)
+    coeffs = _rz_operators(dev, "float32", cell)[0][1]
+    g = torch.Generator(device=dev).manual_seed(1099)
+    x = torch.randn((1, *cell), generator=g, device=dev, dtype=torch.float32)
+    ref = apply_axis_stencil(coeffs, x)
+    copy = torch.empty_like(x)
+    npts = cell[0] * cell[1]
+    bound_ms, bound_by = _bound(2 * 4 * npts, 11 * npts)  # 6 products, 5 sums per point
+    row = {
+        "shape": cell, "ms": _time_ms(lambda: axis_stencil(coeffs, x)),
+        "device_ms": _device_ms(lambda: axis_stencil(coeffs, x)),
+        "plain_ms": _time_ms(lambda: apply_axis_stencil(coeffs, x)),
+        "library_ms": _library_stencil_ms(coeffs, x, ref),
+        "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst,
+    }
+    print(f"[3 kernel] axis stencil 2-D rz: {n_cases} cases hold; {cell} f32 time: the per-point "
+          f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms back to back on the "
+          f"device, plain {row['plain_ms']:.4f} ms, CSR product (torch.mv) "
+          f"{row['library_ms']:.4f} ms, device copy {row['copy_device_ms']:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    return worst, row
+
+
+def _rz_f0(mesh):
+    import torch
+
+    return torch.exp(-(mesh.R**2 + mesh.Z**2) / 2.0) / (2 * pi) ** 1.5
+
+
+def _step_true_residual(model, f_old, f_new, dt: float) -> float:
+    """The true relative residual of one implicit RFP step, recomputed in
+    f64 with the plain operators: ``|f_old/dt - (f_new/dt + Fr f_new - Di
+    f_new)| / |f_old/dt|`` over the grid (the pdf has no faces: every node
+    is active)."""
+    import torch
+
+    from pyapes_tpu_torch.solver.rfp import diffusion_apply, friction_apply
+
+    mesh = model.mesh
+    m64 = rz_mesh(mesh.device, *mesh.nx, "double",
+                  tuple(zip(mesh._lower_np.tolist(), mesh._upper_np.tolist())))
+    d = {k: v.double() for k, v in (("hr", model.jacH.r), ("hz", model.jacH.z),
+                                   ("rr", model.hessG.rr), ("rz", model.hessG.rz),
+                                   ("zz", model.hessG.zz))}
+    x, b = f_new[0].double(), f_old[0].double() / dt
+    ax = x / dt + friction_apply(d["hr"], d["hz"], x, m64) - diffusion_apply(
+        d["rr"], d["rz"], d["zz"], x, m64)
+    return ((b - ax).norm() / b.norm()).item()
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs of ``fn()``: the synchronizing CUDA operations (reads to
+    the host, blocking copies from it) that torch's sync debug mode
+    reports."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+class RzCell:
+    """bench's rz cell (``bench_rz``) on ``dev``: ``step()`` is one run
+    (the potentials of the current pdf, a new ``RFPEvolution(mesh, H, G)``,
+    ``steps`` x ``step_implicit(pdf, RZ_DT)``, ended by ``float(sum(pdf))``);
+    ``reset()`` puts the pdf back to f0. ``model`` is the last run's
+    ``RFPEvolution``, ``reports`` its solves' reports (H, G, the steps);
+    with ``record`` a run also recomputes each solve's true residual in
+    f64 (``residuals``)."""
+
+    def __init__(self, dev, nr: int, nz: int, steps: int = RZ_STEPS):
+        from pyapes_tpu_torch.models import RosenbluthPotentials
+        from pyapes_tpu_torch.variables import Field
+
+        self.mesh = rz_mesh(dev, nr, nz)
+        self.f0 = _rz_f0(self.mesh)
+        self.pots = RosenbluthPotentials(self.mesh, self.f0)
+        self.pdf = Field("pdf", 1, self.mesh, None).set_var_tensor(self.f0[None])
+        self.steps, self.model, self.reports, self.residuals = steps, None, [], []
+
+    def reset(self) -> None:
+        self.pdf.set_var_tensor(self.f0[None])
+
+    def step(self, record: bool = False) -> float:
+        import torch
+
+        from pyapes_tpu_torch.models import RFPEvolution
+
+        H, G = self.pots.solve(self.pdf())
+        self.model = RFPEvolution(self.mesh, H, G)
+        self.reports = [dict(r) for r in self.pots.reports]
+        self.residuals = ([_true_residual(self.pots._solver_h),
+                           _true_residual(self.pots._solver_g)] if record else [])
+        for _ in range(self.steps):
+            f_old = self.pdf().clone() if record else None
+            self.model.step_implicit(self.pdf, RZ_DT)
+            self.reports.append(dict(self.model.report))
+            if record:
+                self.residuals.append(_step_true_residual(self.model, f_old, self.pdf(), RZ_DT))
+        return float(torch.sum(self.pdf()))
+
+
+def run_rz_cell(dev, cell=RZ_CELL, reps: int = RZ_REPS, steps: int = RZ_STEPS) -> dict:
+    """bench's rz cell (``bench_rz``) through the public API: the
+    potentials, a fresh ``RFPEvolution(mesh, H, G)`` and ``steps`` x
+    ``step_implicit(pdf, RZ_DT)`` per run, ended by ``float(sum(pdf))``;
+    one warm-up run (the first call), ``reps`` timed runs (the wall, the
+    process's CPU time, ``rfp_rz_dof_per_s_chip`` = nr nz (2 + steps) /
+    wall of the fastest run, as bench reports it), then one run with the
+    host syncs counted (not timed). Per run: itr, tol and converge of
+    every solve, the solves at max_it, the true residuals (the potentials'
+    recomputed with the plain rz Laplacian in f64, each step's with the
+    plain RFP operators in f64), the axis-stencil launches, and the
+    density drift (``volume_integral``)."""
+    import torch
+
+    nr, nz = cell
+    rz = RzCell(dev, nr, nz, steps)
+    den0 = rz.pdf.volume_integral()[0].item()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    rz.step()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - tic
+    torch.cuda.reset_peak_memory_stats()
+    walls, cpus, runs = [], [], []
+    for _ in range(reps):
+        rz.reset()
+        before = _counts()
+        torch.cuda.synchronize()
+        tic, ctic = time.perf_counter(), time.process_time()
+        rz.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tic)
+        cpus.append(time.process_time() - ctic)
+        after = _counts()
+        runs.append({"itr": [r["itr"] for r in rz.reports],
+                     "converge": [r["converge"] for r in rz.reports],
+                     "launches": {k: after[k] - before[k] for k in after if after[k] > before[k]}})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    drift = abs(rz.pdf.volume_integral()[0].item() - den0) / den0
+    rz.reset()
+    syncs = _count_syncs(rz.step)
+    rz.reset()
+    rz.step(record=True)  # the true residuals, after the timed runs
+    labels = ["H", "G"] + [f"step {k + 1}" for k in range(steps)]
+    tols = [RZ_POT_TOL] * 2 + [RZ_STEP_TOL] * steps
+    if not bool(rz.pdf().isfinite().all()):
+        raise RuntimeError("chip_smoke: the rz cell's pdf is not finite")
+    if any(not (r["tol"] == r["tol"]) for r in rz.reports):
+        raise RuntimeError(f"chip_smoke: a NaN tolerance in the rz cell: {rz.reports}")
+    for ls in runs:
+        if not ls["launches"].get("axis_stencil"):
+            raise RuntimeError(f"chip_smoke: an rz run launched no axis stencil: {ls}")
+    wall = min(walls)
+    return {
+        "path": f"rz/RFP {nr}x{nz} f32 (bench_rz)", "nr": nr, "nz": nz, "steps": steps,
+        "dt": RZ_DT, "first_call_s": first, "wall_s": walls, "wall_s_min": wall,
+        "wall_s_median": statistics.median(walls), "cpu_s": cpus,
+        "rfp_rz_dof_per_s_chip": nr * nz * (2 + steps) / wall,
+        "solves": labels, "runs": runs,
+        "tol_last_run": [r["tol"] for r in rz.reports],
+        "solves_at_max_it": [lbl for lbl, r in zip(labels, rz.reports) if r["itr"] >= RZ_MAX_IT],
+        "solves_above_their_tol": [lbl for lbl, r, t in zip(labels, rz.reports, tols)
+                                   if r["tol"] > t],
+        "true_rel_residual_f64": dict(zip(labels, rz.residuals)),
+        "host_syncs_per_run": syncs, "peak_mem_gib_timed": peak,
+        "density_drift_per_run": drift,
+    }
+
+
+def run_rz_potentials_shared(dev, cell=RZ_CELL) -> dict:
+    """The potentials at the cell under the config both packages resolve
+    alike (BiCGSTAB with the rz V-cycle): one warm-up, one timed solve of
+    H and G; itr, tol, converge, the true residuals in f64 and the
+    axis-stencil launches (the kernel applies every level)."""
+    import torch
+
+    from pyapes_tpu_torch.models import RosenbluthPotentials
+
+    mesh = rz_mesh(dev, *cell)
+    f0 = _rz_f0(mesh)
+    pots = RosenbluthPotentials(mesh, f0, RZ_SHARED)
+    pots.solve(f0)
+    torch.cuda.synchronize()
+    before = _counts()
+    tic = time.perf_counter()
+    pots.solve(f0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    after = _counts()
+    reps = [dict(r) for r in pots.reports]
+    launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    if not launches.get("axis_stencil") or any(r["itr"] >= RZ_MAX_IT for r in reps):
+        raise RuntimeError(f"chip_smoke: the rz MG potentials: {reps}, {launches}")
+    return {"path": f"rz potentials {cell} f32 {RZ_SHARED}", "wall_s": wall,
+            "itr": [r["itr"] for r in reps], "tol": [r["tol"] for r in reps],
+            "converge": [r["converge"] for r in reps],
+            "true_rel_residual_f64": [_true_residual(pots._solver_h),
+                                      _true_residual(pots._solver_g)],
+            "launches": launches}
+
+
+def _rz_cmp_run(dev, kind: str):
+    """f64 on ``dev``: ``"steps"`` — ``tests/test_models.py``'s 32 x 48
+    implicit RFP steps (3 of dt 2e-3, the default FD-preconditioned
+    BiCGSTAB); ``"selfconsistent"`` — ``run_selfconsistent`` at 40 x 80
+    (the runner's anisotropic Maxwellian, 20 steps of 4e-4, potentials
+    every 10). Returns (itr per solve, pdf on the host)."""
+    import torch
+
+    from pyapes_tpu_torch.models import RFPEvolution
+    from pyapes_tpu_torch.solver import ops as ops_mod
+    from pyapes_tpu_torch.variables import Field
+
+    itrs = []
+    real = ops_mod.Solver.solve
+
+    def solve(self):
+        rep = real(self)
+        itrs.append(int(rep["itr"]))
+        return rep
+
+    ops_mod.Solver.solve = solve
+    try:
+        if kind == "steps":
+            mesh = rz_mesh(dev, 32, 48, "double", ((0.0, 3.0), (-3.0, 3.0)))
+            R, Z = mesh.R, mesh.Z
+            f = Field("pdf", 1, mesh, None).set_var_tensor(torch.exp(-(R**2 + Z**2) / 1.28))
+            model = RFPEvolution(mesh, -torch.sqrt(R**2 + Z**2 + 0.5),
+                                 torch.sqrt(R**2 + Z**2 + 0.5))
+            for _ in range(3):
+                f = model.step_implicit(f, 2e-3)
+        else:
+            mesh = rz_mesh(dev, 40, 80, "double", ((0.0, 4.5), (-4.5, 4.5)))
+            R, Z = mesh.R, mesh.Z
+            f = Field("pdf", 1, mesh, None).set_var_tensor(torch.exp(-R**2 / 0.72 - Z**2 / 2.0))
+            f = RFPEvolution(mesh).run_selfconsistent(f, dt=4e-4, n_steps=20, refresh_every=10)
+    finally:
+        ops_mod.Solver.solve = real
+    return itrs, f().cpu()
+
+
+def _rz_gates(dev) -> dict:
+    """The JAX tests' physical gates on the card (f64):
+    ``test_rosenbluth.py`` (the analytic Maxwellian H within 1% and the
+    far-field G; isotropization with density conserved; the steady
+    Maxwellian) and ``test_muscl.py`` (positivity and total variation of a
+    transported box; mass of a transported Gaussian)."""
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.models import RFPEvolution, RosenbluthPotentials
+    from pyapes_tpu_torch.models.rosenbluth import maxwellian_H
+    from pyapes_tpu_torch.solver.rfp import friction_apply, friction_apply_muscl
+    from pyapes_tpu_torch.variables import Field
+
+    def maxwellian(mesh, vth):
+        return (torch.exp(-(mesh.R**2 + mesh.Z**2) / (2 * vth**2))
+                / ((2 * np.pi * vth**2) ** 1.5))
+
+    def moments(mesh, f):
+        R, Z = (torch.as_tensor(g, device=f.device) for g in mesh._grid_np)
+        dr, dz = (float(d) for d in mesh.dx_np)
+        w = 2.0 * np.pi * R * dr * dz
+        n = (f * w).sum().item()
+        return n, (f * R**2 * w).sum().item() / n / 2.0, (f * Z**2 * w).sum().item() / n
+
+    out = {}
+    mesh = rz_mesh(dev, 48, 96, "double")
+    pots = RosenbluthPotentials(mesh, maxwellian(mesh, 0.8))
+    H, G = pots.solve(maxwellian(mesh, 0.8))
+    Ha = maxwellian_H(mesh, pots.N, 0.8)
+    out["H_rel_err"] = float((np.abs(H.cpu().numpy() - Ha) / np.abs(Ha).max()).max())
+    out["G_far_rel_err"] = abs(G[-1, 48].item() - pots.N * 4.0) / (pots.N * 4.0)
+    ok = (abs(pots.N - 1.0) < 2e-3 and out["H_rel_err"] < 0.01 and out["G_far_rel_err"] < 0.01
+          and all(r["converge"] for r in pots.reports))
+
+    mesh = rz_mesh(dev, 40, 80, "double", ((0.0, 4.5), (-4.5, 4.5)))
+    f0 = torch.exp(-mesh.R**2 / 0.72 - mesh.Z**2 / 2.0) / (2 * np.pi * 0.36 * np.sqrt(2 * np.pi))
+    n0, tp0, tz0 = moments(mesh, f0)
+    f = RFPEvolution(mesh).run_selfconsistent(Field("pdf", 1, mesh, None).set_var_tensor(f0),
+                                             dt=4e-4, n_steps=300, refresh_every=50)
+    n1, tp1, tz1 = moments(mesh, f()[0])
+    out["isotropize"] = {"density_drift": abs(n1 - n0) / n0, "aniso0": abs(tz0 - tp0),
+                         "aniso1": abs(tz1 - tp1), "t_perp": tp1, "t_par": tz1}
+    ok = ok and bool(f().isfinite().all()) and abs(n1 - n0) / n0 < 5e-3 and (
+        abs(tz1 - tp1) < 0.95 * abs(tz0 - tp0) and tp0 - 1e-3 < tp1 < tz1 < tz0 + 1e-3)
+
+    mesh = rz_mesh(dev, 40, 80, "double", ((0.0, 3.2), (-3.2, 3.2)))
+    f0 = maxwellian(mesh, 0.8)
+    f = RFPEvolution(mesh).run_selfconsistent(Field("pdf", 1, mesh, None).set_var_tensor(f0),
+                                             dt=2e-4, n_steps=50, refresh_every=25)
+    out["maxwellian_drift"] = ((f()[0] - f0).abs().max() / f0.max()).item()
+    ok = ok and out["maxwellian_drift"] < 5e-3
+
+    mesh = rz_mesh(dev, 32, 128, "double", ((0.0, 2.0), (-4.0, 4.0)))
+    hr = torch.zeros(mesh.nx, dtype=torch.float64, device=dev)
+    hz = torch.full(mesh.nx, -1.0, dtype=torch.float64, device=dev)
+    dt = 0.4 * float(mesh.dx_np[1])
+
+    def advect(f, n, scheme):
+        for _ in range(n):
+            f = f + dt * -(friction_apply(hr, hz, f, mesh) if scheme == "central" else
+                           friction_apply_muscl(hr, hz, f, mesh, limiter=scheme))
+        return f
+
+    box = torch.where((mesh.Z > -0.5) & (mesh.Z < 0.5), 1.0, 0.0).to(torch.float64)
+    f_c, f_m = advect(box, int(1.5 / dt), "central"), advect(box, int(1.5 / dt), "mc")
+    tv = lambda v: v.diff(dim=1).abs().sum().item()  # noqa: E731
+    out["muscl"] = {"central_min": f_c.min().item(), "mc_min": f_m.min().item(),
+                    "mc_max": f_m.max().item(), "tv": tv(f_m), "tv0": tv(box)}
+    gauss = torch.exp(-4.0 * (mesh.R**2 + (mesh.Z + 1.0) ** 2))
+    moved = advect(gauss, int(1.0 / dt), "mc")
+    m0, m1 = (gauss * mesh.R).sum().item(), (moved * mesh.R).sum().item()
+    out["muscl"]["mass_drift"] = abs(m1 - m0) / m0
+    ok = ok and (out["muscl"]["central_min"] < -0.05 and out["muscl"]["mc_min"] > -1e-12
+                 and out["muscl"]["mc_max"] < 1.0 + 1e-12
+                 and out["muscl"]["tv"] <= out["muscl"]["tv0"] + 1e-10
+                 and out["muscl"]["mass_drift"] < 1e-6)
+    if not ok:
+        raise RuntimeError(f"chip_smoke: the rz/RFP gates of the JAX tests failed: {out}")
+    return out
+
+
+def phase_rz(dev) -> tuple:
+    """The rz/RFP path: bench's cell (``run_rz_cell``) and the potentials
+    under the shared config (``run_rz_potentials_shared``), with the launch
+    counts set to 0 just before and read just after; then the card against
+    the CPU in f64 (the same itr solve by solve, the pdf within
+    ``RZ_CMP_TOL``) and the JAX tests' gates. Returns (the path's launch
+    counts, its axis-stencil launches per run)."""
+    import torch
+
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    clear_cache()
+    _reset_counts()
+    cell = run_rz_cell(dev)
+    print(f"[11 rz] {json.dumps(cell)}", flush=True)
+    print(json.dumps({"rfp_rz_dof_per_s_chip": cell["rfp_rz_dof_per_s_chip"],
+                      "wall_s": cell["wall_s_min"], "nr": cell["nr"], "nz": cell["nz"]}),
+          flush=True)
+    shared = run_rz_potentials_shared(dev)
+    counts = _counts()
+    print(f"[11 rz] {json.dumps(shared)}", flush=True)
+    torch.cuda.empty_cache()
+    cmp = {}
+    for kind in ("steps", "selfconsistent"):
+        cpu_itr, cpu_f = _rz_cmp_run(torch.device("cpu"), kind)
+        card_itr, card_f = _rz_cmp_run(dev, kind)
+        rel = ((cpu_f - card_f).abs().max() / cpu_f.abs().max()).item()
+        if card_itr != cpu_itr or not rel <= RZ_CMP_TOL:
+            raise RuntimeError(f"chip_smoke: the rz {kind} run on the card differs from the CPU "
+                               f"run: itr {card_itr} vs {cpu_itr}, max rel diff {rel:.3e}")
+        cmp[kind] = {"itr": card_itr, "max_rel_diff": rel}
+    print(f"[11 rz] card against CPU, f64 (tolerance {RZ_CMP_TOL}): {json.dumps(cmp)}",
+          flush=True)
+    print(f"[11 rz] the JAX tests' gates on the card, f64: {json.dumps(_rz_gates(dev))}",
+          flush=True)
+    per_run = [r["launches"].get("axis_stencil", 0) for r in cell["runs"]]
+    return counts, per_run
+
+
 def main() -> None:
     import torch
 
     dev, _ = phase_device()
     phase_build()
     worst1, timing1 = phase_kernel(dev)
+    worst_rz, timing_rz = check_axis_rz(dev)
     axis_level_times(dev)
     worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
@@ -2650,6 +3145,8 @@ def main() -> None:
         phase_advdiff(dev),
         phase_cavity(dev),
     ]
+    rz_counts, rz_per_run = phase_rz(dev)
+    path_counts.append(rz_counts)
     phase_burgers_xonly(dev)
     for counts in path_counts:
         for name, c in counts.items():
@@ -2673,7 +3170,10 @@ def main() -> None:
           "axis_stencil5 likewise (axis_march_kernel in csrc/axis_march.cu, the per-point "
           "kernels in csrc/axis_stencil.cu); library_ms: one CSR "
           "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
-          "and Conv at their advectors), none for the fused ones", flush=True)
+          "and Conv at their advectors), none for the fused ones; the last row: the 2-D "
+          f"per-point axis_stencil_kernel on the rz Laplacian at {RZ_CELL} f32 (bench's rz "
+          f"cell), its launches those of phase 11 (axis stencil per run: {rz_per_run})",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2686,7 +3186,19 @@ def main() -> None:
         "bound_ms": bound(name)[0],
         "bound_by": bound(name)[1],
         "library_ms": timing[name][2] if len(timing[name]) > 2 else None,
-    } for name, _, source, replaces in KERNELS]}), flush=True)
+    } for name, _, source, replaces in KERNELS] + [{
+        "name": "axis_stencil (2-D, rz)",
+        "route": "cuda",
+        "source": "pyapes_tpu_torch/csrc/axis_stencil.cu",
+        "replaces": "pyapes_tpu/ops/pallas_stencil.py:432",
+        "launches": rz_counts["axis_stencil"],
+        "max_abs_err": worst_rz,
+        "ms": timing_rz["ms"],
+        "plain_ms": timing_rz["plain_ms"],
+        "bound_ms": timing_rz["bound_ms"],
+        "bound_by": timing_rz["bound_by"],
+        "library_ms": timing_rz["library_ms"],
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -23,14 +23,14 @@ from pyapes_tpu_torch.backend import (
     DType,
 )
 from pyapes_tpu_torch.geometry import GeoTypeIdentifier
-from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, Geometry
+from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, Geometry
 
 
 class Mesh:
     """Equidistant rectangular mesh (reference ``_mesh.py:19-318``).
 
     Args:
-        domain: Domain geometry (``Box``).
+        domain: Domain geometry (``Box`` or ``Cylinder``).
         obstacle: Inner obstacles — not ported yet (must be ``None``).
         spacing: list of ints (node counts) or floats (cell sizes)
             (``_mesh.py:67-80``).
@@ -60,9 +60,7 @@ class Mesh:
 
         self.domain = domain
         if self.coord_sys == "rz":
-            raise NotImplementedError(
-                "Mesh: axisymmetric (rz) meshes are ported in a later slice"
-            )
+            assert self.dim == 2, "Mesh: rz coordinate system only accepts 2D domain"
         self.obstacle = obstacle
 
         lower = np.asarray(domain.lower, dtype=np.float64)
@@ -143,7 +141,7 @@ class Mesh:
         raise TypeError(f"Mesh: domain type {self.domain.type} not identifiable")
 
     def d_mask_dim(self, d_face: str) -> int:
-        return DIR_TO_NUM[d_face[0]]
+        return (DIR_TO_NUM_RZ if self.coord_sys == "rz" else DIR_TO_NUM)[d_face[0]]
 
     def d_mask_dir(self, d_face: str) -> int:
         """Face normal direction: -1 lower, +1 upper."""
@@ -169,17 +167,25 @@ class Mesh:
         return self.domain.dim
 
     @property
+    def R(self) -> torch.Tensor:
+        if self.coord_sys != "rz":
+            raise KeyError("Mesh: R coordinate only available in axisymmetric case.")
+        return self.grid[0]
+
+    @property
     def X(self) -> torch.Tensor:
         return self.grid[0]
 
     @property
     def Y(self) -> torch.Tensor:
-        if self.dim > 1:
+        if self.coord_sys == "xyz" and self.dim > 1:
             return self.grid[1]
         return torch.empty(0, dtype=self.dtype.float, device=self.device)
 
     @property
     def Z(self) -> torch.Tensor:
+        if self.coord_sys == "rz":
+            return self.grid[1]
         if self.dim > 2:
             return self.grid[2]
         return torch.empty(0, dtype=self.dtype.float, device=self.device)

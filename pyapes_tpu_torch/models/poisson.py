@@ -24,17 +24,18 @@ class PoissonSolver:
         self.mesh = mesh
         self.var = Field("phi", 1, mesh, {"domain": bc_config, "obstacle": None})
         self.coeff = coeff
-        # Plain boxes are separable: the fast-diagonalization direct
-        # solve; a non-separable equation falls back to MG-PCG.
         cfg = {
-            "method": "fastdiag",
-            "fd_fallback": "cg",
-            "precond": "mg",
+            "method": "cg",
             "tol": 1e-6,
             "max_it": 2000,
             "report": False,
             "criterion": "residual",
         }
+        if mesh.coord_sys == "xyz":
+            # plain boxes are separable: the fast-diagonalization direct
+            # solve, a non-separable equation falls back to MG-PCG; an rz
+            # mesh takes CG (the JAX package's choice)
+            cfg.update({"method": "fastdiag", "fd_fallback": "cg", "precond": "mg"})
         cfg.update(config or {})
         self.solver = Solver({"fdm": cfg})
         self.fdm = FDM()

@@ -1,5 +1,5 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
-``poisson``, ``darcy``, ``burgers``, ``cavity`` and ``convection``
+``poisson``, ``darcy``, ``burgers``, ``cavity``, ``convection`` and ``rfp``
 subcommands).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512
@@ -8,6 +8,7 @@ subcommands).
     python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100
     python -m pyapes_tpu_torch.runner cavity --dim 3 --n 128 --re 100 --steps 5
     python -m pyapes_tpu_torch.runner convection --n 33 --steps 60 --dt 0.0125
+    python -m pyapes_tpu_torch.runner rfp --n 40 --steps 200 --refresh 20
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 17 --device cpu
 
 Every case runs on the card unless ``--device cpu`` asks for the CPU.
@@ -32,7 +33,10 @@ steps; ``--adaptive-cfl`` integrates to ``dt * steps`` with the CFL step;
 ``--fused`` raises: the whole-step capture is ported in a later slice);
 it adds ``steps``, ``t`` and the centreline minimum of u. ``convection``
 steps the de Vahl Davis cavity (2-D) and adds the hot-wall Nusselt
-number.
+number. ``rfp`` relaxes an anisotropic Maxwellian on an ``n x 2n``
+Cylinder velocity mesh by self-consistent RFP evolution (the potentials
+re-solved every ``--refresh`` steps, explicit steps between) and adds
+``steps`` and the relative ``density_drift``; ``--vtk`` is not ported.
 
 Each prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``,
 the JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
@@ -180,6 +184,34 @@ def _run_convection(args) -> dict:
             "nusselt_hot_wall": model.nusselt_hot_wall()}
 
 
+def _run_rfp(args) -> dict:
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.geometry import Cylinder
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import RFPEvolution
+    from pyapes_tpu_torch.variables import Field
+
+    L = args.vmax
+    mesh = Mesh(Cylinder[0:L, -L:L], None, [args.n, 2 * args.n], device=args.device,
+                dtype=args.dtype)
+    R, Z = np.asarray(mesh._grid_np[0]), np.asarray(mesh._grid_np[1])
+    f0 = np.exp(-(R**2) / (2 * args.t_perp) - Z**2 / (2 * args.t_par))
+    f = Field("pdf", 1, mesh, None)
+    f.set_var_tensor(f0)
+    den0 = float(f.volume_integral()[0])
+
+    model = RFPEvolution(mesh)
+    tic = time.perf_counter()
+    f = model.run_selfconsistent(f, dt=args.dt, n_steps=args.steps, refresh_every=args.refresh)
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+    den1 = float(f.volume_integral()[0])
+    return {"wall_s": wall, "steps": args.steps, "density_drift": abs(den1 - den0) / den0}
+
+
 def run(argv=None) -> dict:
     """Parse the command line ``argv`` and run its case; returns the
     JSON-able result that ``main`` prints."""
@@ -230,9 +262,18 @@ def run(argv=None) -> dict:
     sv.add_argument("--fused", action="store_true",
                     help="whole-step capture (ported in a later slice: raises)")
 
+    sr = sub.add_parser("rfp", parents=[common])
+    sr.add_argument("--dt", type=float, default=2e-4)
+    sr.add_argument("--steps", type=int, default=100)
+    sr.add_argument("--refresh", type=int, default=20)
+    sr.add_argument("--vmax", type=float, default=4.5)
+    sr.add_argument("--t-perp", type=float, default=0.36)
+    sr.add_argument("--t-par", type=float, default=1.0)
+
     args = p.parse_args(argv)
     return {"poisson": _run_poisson, "darcy": _run_darcy, "burgers": _run_burgers,
-            "cavity": _run_cavity, "convection": _run_convection}[args.case](args)
+            "cavity": _run_cavity, "convection": _run_convection,
+            "rfp": _run_rfp}[args.case](args)
 
 
 def main(argv=None) -> None:

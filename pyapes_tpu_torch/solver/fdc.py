@@ -16,8 +16,11 @@ the RHS (``Laplacian.adjust_rhs``, ``Grad.adjust_rhs``,
 ``Div.adjust_rhs``, ``conv_rhs_adjust``), the tensor-diffusion flux
 ``DiffFlux`` and the bank-free ``jacobian`` / ``hessian``.
 
-Cartesian meshes only (the port's ``Mesh`` raises on rz), so the JAX
-package's rz terms are left out.
+On an axisymmetric (rz) mesh the operators carry the JAX package's rz
+terms: the Laplacian's ``1 +- dr/(2r)`` radial vectors and their Neumann
+RHS rows, the Div's ``2 dr / r`` centre term and its one-sided edge rows'
+``adv phi / r``, and the ``r`` weight of ``DiffFlux``'s radial component;
+each is zero at r = 0 (``nan_to_num``).
 """
 from __future__ import annotations
 
@@ -325,6 +328,9 @@ def _treat_edge(discretized: torch.Tensor, var: Field, ops: str, dim: int, var_a
             val = sgn * (1.5 * b - 2.0 * bp + 0.5 * bpp) / float(dx[dim])
             if form != "conservative":
                 val = val * adv[sel]
+            if var.mesh.coord_sys == "rz" and dim == 0:
+                val = val + torch.nan_to_num(adv[sel] * target[sel] / var.mesh.R[sel],
+                                             nan=0.0, posinf=0.0, neginf=0.0)
             discretized[sel] = val
     else:
         raise RuntimeError(f"FDC: edge treatment of {ops=} is not supported!")
@@ -369,7 +375,15 @@ class Laplacian(Discretizer):
                         continue
                     pi = 1 if bc.bc_n_dir < 0 else -2
                     bi = 0 if bc.bc_n_dir < 0 else -1
-                    c0 = 1.0  # Cartesian: the eliminated Am (lower) / Ap (upper)
+                    if mesh.coord_sys == "rz":
+                        dr = dx[j] if j == 0 else 0.0
+                        r_row = float(mesh._x_np[j][pi])
+                        s_row = dr / (2.0 * r_row) if r_row != 0.0 else 0.0
+                    else:
+                        s_row = 0.0
+                    # the eliminated bank value: Am = 1 - s (lower) / Ap =
+                    # 1 + s (upper); s = dr/(2r) in rz
+                    c0 = 1.0 - s_row if bc.bc_n_dir < 0 else 1.0 + s_row
                     at_bc = _return_bc_val(bc, var, i, j, bi)
                     if _is_zero(at_bc):
                         continue
@@ -704,7 +718,8 @@ def _return_bc_val(bc: BC, var: Field, dim: int, axis: int, face_idx: int):
 class DiffFlux:
     r"""Tensor-diffusion flux :math:`D_{ij} \partial \Phi / \partial x_j`
     (reference ``fdc.py:820-857``) of a scalar ``Field`` and a ``Hess``:
-    a vector ``Field`` with one component per mesh axis.
+    a vector ``Field`` with one component per mesh axis; in rz the radial
+    component carries the ``r`` weight.
 
     The flux ``Field`` carries no BCs (``bc_config`` None), the JAX
     package's rule: a ``Field`` built with ``bc_config=None`` has an empty
@@ -718,7 +733,10 @@ class DiffFlux:
         for i in range(var.mesh.dim):
             diff_flux = torch.zeros_like(var()[0])
             for j in range(var.mesh.dim):
-                diff_flux = diff_flux + diff[n2d[i] + n2d[j]] * jac_var[n2d[j]]
+                d_coeff = diff[n2d[i] + n2d[j]]
+                if n2d[i] == "r":
+                    d_coeff = var.mesh.grid[0] * d_coeff
+                diff_flux = diff_flux + d_coeff * jac_var[n2d[j]]
             flux.set_var_tensor(diff_flux, i)
         return flux
 

@@ -11,8 +11,9 @@ spatially varying one (the conservative variable-Γ operator, isotropic or
 diagonal-tensor Γ), ``Div`` (constant advection: 3- or 5-point axis
 vectors; an advecting field: the per-point ``div_field`` term), ``Conv``
 (the vector convection ``conv_field`` term), ``Grad`` (central differences,
-a per-axis stencil term) and ``Ddt`` (backward Euler, BDF2). ``custom`` is
-ported in a later slice and raises ``NotImplementedError``.
+a per-axis stencil term), ``Ddt`` (backward Euler, BDF2) and ``Custom`` (a
+linear torch function, with an optional separable ``fd_hint`` for the FD
+preconditioner).
 """
 from __future__ import annotations
 
@@ -394,6 +395,60 @@ class Conv(Operators):
                               o["surgery"])
 
 
+class Custom(Operators):
+    """An arbitrary matrix-free linear operator in the equation DSL (JAX
+    ``fdm.py:471-527``).
+
+    ``fdm.custom(fn, var, params)`` adds the term ``fn(x, *params)``: a
+    torch function of the solution tensor, shape-preserving and LINEAR in
+    ``x`` (e.g. the Rosenbluth–Fokker–Planck collision operator with
+    frozen potentials, ``models/rfp_evolution.py``). ``params`` are
+    tensors passed through to every call as they are (never copied).
+
+    ``fd_hint`` (optional): a frozen SEPARABLE surrogate of ``fn`` for the
+    fast-diagonalization preconditioner (``precond: "fd"``): per mesh
+    axis, three full-length vectors ``(ap, ac, am)`` (+1/0/-1 neighbour
+    offsets) whose summed tridiagonals approximate ``fn``. It changes only
+    the preconditioner. It is normalised to a nested float tuple, so the
+    solver and eigen-factor caches key on its content: a refreshed hint
+    re-factorises, an equal one reuses the factors.
+    """
+
+    def __call__(self, fn, var: Field, params=(), fd_hint=None) -> "Custom":
+        assert isinstance(var, Field), "FDM Custom: var must be a Field!"
+        self._var = var
+        if fd_hint is not None:
+            fd_hint = tuple(
+                tuple(tuple(float(x) for x in vec) for vec in ax) for ax in fd_hint
+            )
+        self._ops = {
+            0: {
+                "name": self.__class__.__name__,
+                "Aop": self.Aop,
+                "target": var,
+                "param": (fn,),
+                "sign": 1.0,
+                "other": {"fn": fn, "fd_hint": fd_hint},
+                "axis_coeffs": None,
+                "A_coeffs": None,
+                "adv": None,
+                "limiter": None,
+                "dt": None,
+                "custom_params": tuple(params),
+                "adjust_rhs": None,
+            }
+        }
+        return self
+
+    @property
+    def var(self) -> Field:
+        return self._var
+
+    @staticmethod
+    def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
+        return rec["other"]["fn"](x, *rec.get("custom_params", ()))
+
+
 class Ddt(Operators):
     r"""Implicit time derivative (reference ``fdm.py:530-575``): backward
     Euler contributes ``x / dt`` to the operator and ``var_old / dt`` to the
@@ -441,17 +496,6 @@ def ddt_leading_coeff(rec) -> float:
     return 1.5 if rec["target"].n_hist >= 2 else 1.0
 
 
-class _Unported(Operators):
-    """An FDM operator of a later slice: calling it raises."""
-
-    def __init__(self, name: str):
-        super().__init__()
-        self._name = name
-
-    def __call__(self, *args, **kwargs):
-        raise NotImplementedError(f"FDM {self._name} is ported in a later slice")
-
-
 class FDM:
     """Facade over the implicit operators (reference ``fdm.py:356-407``);
     operators are per instance."""
@@ -461,7 +505,7 @@ class FDM:
         self.grad = Grad()
         self.div = Div()
         self.conv = Conv()
-        self.custom = _Unported("custom")
+        self.custom = Custom()
         self.ddt = Ddt()
         self.config = config
         if config is not None:

@@ -71,9 +71,9 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
     a variable-Γ term ``diff_field``, a per-point advection term
     ``advect_pair`` (Div) or ``conv_component`` (Conv) — or
     ``advect_fns[i]`` for term ``i`` where given (the block-wise apply) —
-    and a ddt term ``x * inv_dt``: the Hopper kernels on a CUDA tensor, for
-    every grid shape (the JAX package's "auto" gate used its kernels only
-    for TPU-aligned shapes). A Div's ``(1, *nx)`` contribution broadcasts
+    a custom term ``fn(x, *params)`` and a ddt term ``x * inv_dt``: the
+    Hopper kernels on a CUDA tensor, for every grid shape (the JAX
+    package's "auto" gate used its kernels only for TPU-aligned shapes). A Div's ``(1, *nx)`` contribution broadcasts
     over the components, as in the JAX package."""
     advect_fns = advect_fns or {}
 
@@ -84,6 +84,8 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
             scale = sign
             if kind == "ddt":
                 r, scale = x, sign * tp["inv_dt"]
+            elif kind == "custom":
+                r = tp["fn"](x, *tp["cparams"])
             elif kind == "diff_field":
                 r = diff_field(x, tp["gamma"], form[0], surgery, form[1])
             elif i in advect_fns:
@@ -181,27 +183,35 @@ def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fast
     """The axis terms the fast-diagonalization solve inverts and the one
     whose scalar streams (``linalg.py::_fd_setup``): the DIRECT solve needs
     one 3-point axis term plus ddt terms; the PRECONDITIONER also takes
-    other terms and leaves the non-separable ones out, and with several
-    axis terms sums their matrices with the current ``sign * param``
-    weights frozen in (``c_ax`` then pins to 1; ``c_dt`` streams). Returns
-    ``(terms, i_ax)``, ``terms`` the ``(weight, axis_np)`` pairs whose
-    weighted per-axis matrices sum to the inverted operator. Raises
-    ValueError for what it cannot take."""
+    other terms and leaves the non-separable ones out, but for a custom
+    term's separable ``fd_hint`` (descriptor slot 5), which enters as
+    frozen axis matrices. With several axis terms, or any hint, the
+    matrices are summed with the current ``sign * param`` weights frozen
+    in (``c_ax`` then pins to 1; ``c_dt`` streams). Returns ``(terms,
+    i_ax)``, ``terms`` the ``(weight, axis_np)`` pairs whose weighted
+    per-axis matrices sum to the inverted operator. Raises ValueError for
+    what it cannot take."""
     ax_ids, ddt_ids = _ids(term_descs, "axis"), _ids(term_descs, "ddt")
     exact_ax = len(ax_ids) == 1 and len(ax_ids) + len(ddt_ids) == len(term_descs)
-    ok = (ax_ids and (exact_ax or for_precond)
+    hint_ids = ([i for i in _ids(term_descs, "custom") if term_descs[i][5] is not None]
+                if for_precond else [])
+    ok = ((ax_ids or hint_ids) and (exact_ax or for_precond)
           and all(len(cs) == 3 for i in ax_ids for cs in tparams[i]["axis_np"]))
     if not ok:
         raise ValueError(
             f"{why}: equation must be one 3-point axis term (laplacian) plus ddt terms with "
             "scalar coefficients"
-            + (" (precond 'fd' also accepts extra terms, which it leaves out)" if for_precond
-               else "")
+            + (" (precond 'fd' also accepts extra terms, which it leaves out unless they "
+               "carry an fd_hint)" if for_precond else "")
         )
-    if len(ax_ids) == 1:
+    if len(ax_ids) == 1 and not hint_ids:
         return ((1.0, tparams[ax_ids[0]]["axis_np"]),), ax_ids[0]
-    return tuple((term_descs[i][2] * (tparams[i]["param"] if term_descs[i][3] else 1.0),
-                  tparams[i]["axis_np"]) for i in ax_ids), None
+    return tuple(
+        [(term_descs[i][2] * (tparams[i]["param"] if term_descs[i][3] else 1.0),
+          tparams[i]["axis_np"]) for i in ax_ids]
+        + [(term_descs[i][2], tuple(tuple(np.asarray(c, dtype=np.float64) for c in ax)
+                                    for ax in term_descs[i][5])) for i in hint_ids]
+    ), None
 
 
 def fastdiag_factors(terms, slicer, paxes, dtype, device) -> FastDiag:
@@ -298,6 +308,8 @@ def make_mg_spec(config, x0, bcs, mesh, term_descs, paxes=(), decomp=None) -> MG
         face_kinds=tuple(tuple(p) for p in fk),
         var_gamma=bool(vg),
         vg_avg=vg[0][5][1] if vg else "arithmetic",
+        rz=mesh.coord_sys == "rz",
+        r_lower=float(mesh._lower_np[0]),
         decomp=decomp,
         device=x0.device,
         **mg_opts,

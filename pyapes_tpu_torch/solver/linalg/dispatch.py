@@ -5,14 +5,16 @@ periodic axes, method resolution, and the report.
 Ported: ``method`` ``"fastdiag"``, ``"cg"`` and ``"bicgstab"`` (so the
 ``fd_fallback`` of a non-separable equation resolves to a working
 method), with ``precond`` ``"mg"`` (the multigrid V-cycle, ``mg_opts``),
-``"fd"`` (the fast-diagonalization preconditioner) or None, on Cartesian
-grids with Dirichlet, Neumann, Symmetry and periodic faces (an axis with
+``"fd"`` (the fast-diagonalization preconditioner) or None / ``"none"``,
+with Dirichlet, Neumann, Symmetry and periodic faces (an axis with
 both faces periodic is solved on the reduced torus: the duplicate seam
 node is dropped, every node is active, the stencil wraps, and the seam is
 re-appended after the solve), for the term kinds ``axis`` (constant
 coefficients, 3- or 5-point: laplacian, div, grad), ``diff_field``
 (variable-Γ Laplacian), ``div_field`` / ``conv_field`` (per-point
-advection) and ``ddt``; with a
+advection), ``custom`` (``fdm.custom``: a linear torch function; its
+``fd_hint`` feeds ``precond: "fd"``; not on periodic axes) and ``ddt``,
+on Cartesian and axisymmetric (rz) grids; with a
 domain decomposition (``decomp``: a ``DomainDecomposition`` whose blocks
 all live on the solve's device) the axis and advection terms apply block
 by block (``build.py``). MG on a periodic axis, obstacles and blocks on
@@ -60,13 +62,17 @@ def _term_descriptor(rec) -> tuple:
     has_param, surgery, form, limiter)``. ``kind`` "axis" (a per-axis
     coefficient stencil, 3- or 5-point), "diff_field" (variable-Γ
     Laplacian; ``form`` ``(inv_dx2, avg)``), "div_field" / "conv_field"
-    (per-point advection; ``form`` "conservative" / "advective") or "ddt";
-    ``surgery`` the per-axis BC kinds of the per-point terms."""
+    (per-point advection; ``form`` "conservative" / "advective"), "custom"
+    (``fdm.custom``; ``form`` its ``fd_hint`` or None) or "ddt"; ``surgery``
+    the per-axis BC kinds of the per-point terms."""
     name = rec["name"].lower()
     sign = float(rec["sign"])
     o = rec.get("other") or {}
     if name == "ddt":
         return ("ddt", name, sign, False, None, None, None)
+    if name == "custom":
+        # the separable fd_hint (a nested float tuple) rides the form slot
+        return ("custom", name, sign, False, None, o.get("fd_hint"), None)
     if name == "conv":
         return ("conv_field", name, sign, False, o["surgery"], "advective", rec["limiter"])
     if rec.get("adv") is not None:
@@ -114,13 +120,16 @@ def _term_params(rec, desc, x0: torch.Tensor, paxes=()) -> dict:
     """Per-call operands of one term on the solve's device and dtype, on
     the reduced torus of ``paxes``: ``inv_dt`` (ddt: ``1/dt``, ``1.5/dt``
     for an active BDF2); the advecting field and the base vectors
-    (div/conv); Γ (diff_field); else the coefficient vectors (``axis``),
+    (div/conv); Γ (diff_field); the function and its params (custom);
+    else the coefficient vectors (``axis``),
     their host copies for the factorization (``axis_np``) and the scalar
     coefficient."""
     kind = desc[0]
     red = _reduced(x0.ndim - 1, paxes)
     if kind == "ddt":
         return {"inv_dt": ddt_leading_coeff(rec) / rec["dt"]}
+    if kind == "custom":  # the function and its tensors, passed as they are
+        return {"fn": rec["other"]["fn"], "cparams": rec.get("custom_params", ())}
     if kind in ("div_field", "conv_field"):
         adv = torch.as_tensor(rec["adv"], dtype=x0.dtype, device=x0.device)[red]
         base = _reduce_vecs(rec["other"]["base"], paxes)
@@ -182,7 +191,7 @@ def _check_config(config) -> None:
     if config.get("sync", True) is False:
         raise NotImplementedError("linalg: sync=False is ported in a later slice")
     precond = config.get("precond")
-    if precond not in (None, "mg", "fd", "fastdiag"):
+    if precond not in (None, "none", "mg", "fd", "fastdiag"):
         raise NotImplementedError(f"linalg: precond {precond!r} is ported in a later slice")
     fd_opts = dict(config.get("fd_opts") or {})
     if fd_opts.pop("precision", "highest") != "highest" or fd_opts:
@@ -216,6 +225,11 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     terms = [eqs[k] for k in sorted(eqs)]
     term_descs = tuple(_term_descriptor(rec) for rec in terms)
     paxes = _periodic_axes(var.bcs, mesh.dim)
+    if paxes and any(d[0] == "custom" for d in term_descs):
+        raise NotImplementedError(
+            "custom operators + periodic axes: the torus reduction cannot transform an opaque "
+            "operator; use non-periodic BCs or handle wrap inside the custom fn."
+        )
     tparams = tuple(_term_params(rec, d, x0_full, paxes) for rec, d in zip(terms, term_descs))
     red = _reduced(mesh.dim, paxes)
     x0, rhs = x0_full[red], rhs[red]

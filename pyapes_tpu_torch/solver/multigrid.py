@@ -55,8 +55,17 @@ the decomposition.
 All device constants of the hierarchy (masks, coefficient vectors,
 diagonals, transfer matrices) are built once per spec and cached, so a
 V-cycle makes no host-to-device copy — the PCG loop's only host sync
-stays its tolerance read. Periodic axes and rz meshes are ported in later
-slices and raise ``NotImplementedError``.
+stays its tolerance read.
+
+Axisymmetric (rz) hierarchies (``rz``, ``r_lower``): each level's radial
+vectors carry the ``1 +- dr/(2r)`` terms rediscretized at the level's
+spacing, with the same per-level surgery (the JAX package's
+``_rz_axis_coeffs``); every level applies through the axis-stencil kernel
+(2-D: the per-point kernel), and the smoother stays the plain update
+around it, as the JAX package keeps its rz smoother off Pallas. The level
+operators are nonsymmetric, so rz hierarchies precondition BiCGSTAB.
+Periodic axes are ported in a later slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -140,6 +149,7 @@ class MGSpec:
         n_coarse: int = 24,
         omega: float = 2.0 / 3.0,
         rz: bool = False,
+        r_lower: float = 0.0,
         cycle_dtype=None,
         smoother: str = "jacobi",
         fmg: bool = False,
@@ -153,10 +163,8 @@ class MGSpec:
         *,
         device,
     ):
-        if paxes or rz:
-            raise NotImplementedError(
-                "MGSpec: periodic axes and rz meshes are ported in later slices"
-            )
+        if paxes:
+            raise NotImplementedError("MGSpec: periodic axes are ported in a later slice")
         if decomp is not None:
             if not isinstance(decomp, DomainDecomposition):
                 raise TypeError(f"MGSpec: decomp must be a DomainDecomposition, got {decomp!r}")
@@ -167,8 +175,13 @@ class MGSpec:
         self.var_gamma = bool(var_gamma)
         self.vg_avg = vg_avg
         if self.var_gamma:
+            assert not rz, "var_gamma MG: rz meshes not supported"
             fuse_rz = False  # the dot kernels hard-code the constant stencil
             decomp = None  # the Γ levels apply on the whole tensor
+        self.rz = bool(rz)
+        self.r_lower = float(r_lower)
+        if self.rz:
+            fuse_rz = False  # the dot kernels hard-code the Cartesian stencil
         self.decomp = decomp
         self._sharded_applies: dict = {}
         self._g_levels = None
@@ -205,7 +218,7 @@ class MGSpec:
             self.shape, self.lengths, str(self.dtype), str(self.cdtype), self.n_pre,
             self.n_post, self.n_coarse, self.omega, self.smoother, self.fmg_init,
             self.fmg_cycles, self.fuse_rz, self.face_kinds, self.transfers, str(self.device),
-            self.var_gamma, self.vg_avg, self.decomp,
+            self.var_gamma, self.vg_avg, self.decomp, self.rz, self.r_lower,
         )
 
     # -- host hierarchy (numpy, bit-equal to the JAX package) -------------
@@ -222,12 +235,24 @@ class MGSpec:
             _eliminate_boundary_node(ap, ac, am, False)
 
     def _level_coeffs_np(self, shape):
+        """Per-axis level vectors with the per-level surgery; on rz the
+        radial axis carries ``1 +- dr/(2r)`` at the level's spacing (the
+        JAX package's ``_rz_axis_coeffs``), zero at r = 0."""
         inv = self._inv_dx2(shape)
         out = []
         for j, n in enumerate(shape):
-            ap = inv[j] * np.ones(n)
-            ac = -2.0 * inv[j] * np.ones(n)
-            am = inv[j] * np.ones(n)
+            if self.rz and j == 0:
+                dr = 1.0 / np.sqrt(inv[0])
+                r = self.r_lower + dr * np.arange(n)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    s = np.nan_to_num(dr / (2.0 * r), nan=0.0, posinf=0.0, neginf=0.0)
+                ap = (1.0 + s) * inv[0]
+                ac = -2.0 * np.ones(n) * inv[0]
+                am = (1.0 - s) * inv[0]
+            else:
+                ap = inv[j] * np.ones(n)
+                ac = -2.0 * inv[j] * np.ones(n)
+                am = inv[j] * np.ones(n)
             self._surger(ap, ac, am, j)
             out.append((ap, ac, am))
         return tuple(out)

@@ -63,8 +63,10 @@ class SolverConfig(TypedDict, total=False):
 
 
 def default_A_ops(var: Field, ops: str) -> list[list[torch.Tensor]]:
-    """Second-order central-difference coefficient banks on a Cartesian
-    mesh (reference ``tools.py:29-112``).
+    """Second-order central-difference coefficient banks (reference
+    ``tools.py:29-112``); in rz the axis-0 banks carry the geometric terms
+    (Div: ``2 dr / r`` in the centre; Laplacian: ``1 +- dr / (2 r)``),
+    zero at r = 0.
 
     Returns five banks ``[App, Ap, Ac, Am, Amm]`` for offsets
     ``i+2, i+1, i, i-1, i-2``; each bank is a list over ``mesh.dim`` of
@@ -75,20 +77,31 @@ def default_A_ops(var: Field, ops: str) -> list[list[torch.Tensor]]:
     shape = (var.dim, *mesh.nx)
     ones = torch.ones(shape, dtype=mesh.dtype.float, device=mesh.device)
     zeros = torch.zeros_like(ones)
+    rz = mesh.coord_sys == "rz"
 
     op = ops.lower()
-    if op in ("grad", "div"):
-        App = [zeros for _ in range(md)]
+    App = [zeros for _ in range(md)]
+    Amm = [zeros for _ in range(md)]
+    if op == "grad" or (op == "div" and not rz):
         Ap = [ones for _ in range(md)]
         Ac = [zeros for _ in range(md)]
         Am = [-ones for _ in range(md)]
-        Amm = [zeros for _ in range(md)]
-    elif op == "laplacian":
-        App = [zeros for _ in range(md)]
+    elif op == "div":
+        scale = torch.nan_to_num(2 * float(mesh.dx_np[0]) / mesh.R, nan=0.0, posinf=0.0,
+                                neginf=0.0)
+        Ap = [ones for _ in range(md)]
+        Ac = [scale * ones if i == 0 else zeros for i in range(md)]
+        Am = [-ones for _ in range(md)]
+    elif op == "laplacian" and not rz:
         Ap = [ones for _ in range(md)]
         Ac = [-2.0 * ones for _ in range(md)]
         Am = [ones for _ in range(md)]
-        Amm = [zeros for _ in range(md)]
+    elif op == "laplacian":
+        scale = torch.nan_to_num(float(mesh.dx_np[0]) / (2 * mesh.R), nan=0.0, posinf=0.0,
+                                neginf=0.0)
+        Ap = [(1 + scale) * ones if i == 0 else ones for i in range(md)]
+        Ac = [-2.0 * ones for _ in range(md)]
+        Am = [(1 - scale) * ones if i == 0 else ones for i in range(md)]
     else:
         raise RuntimeError(f"Given {ops=} should be either grad, div, or laplacian.")
 

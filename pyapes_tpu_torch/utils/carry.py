@@ -2,8 +2,8 @@
 
 This system has no learned weights: its state is field values (with
 their history levels ``VARo``/``VARoo`` for Ddt), per-axis coefficient
-vectors, variable diffusivities Γ, advecting fields and
-fast-diagonalization factors. These helpers turn
+vectors, variable diffusivities Γ, advecting fields,
+fast-diagonalization factors and the RFP potentials. These helpers turn
 arrays of the JAX package (handed over as numpy) into the port's tensors,
 so both packages can compute from the same state. The solver uses
 ``coeffs_from_numpy`` for its own host-built coefficient vectors too.
@@ -74,3 +74,32 @@ def model_state_from_numpy(model, states, t: float = 0.0):
         field_from_numpy(f, *(st if isinstance(st, (tuple, list)) else (st,)))
     model.t = t
     return model
+
+
+
+def rfp_state_from_numpy(model, pdf=None, H=None, G=None, jac_h=None, hess_g=None):
+    """Load an RFP state of the JAX package, as numpy, into a port
+    ``RFPEvolution`` so both packages step the same state: the potentials
+    ``H`` and ``G`` (``(*nx)``; ``set_potentials`` derives them) and / or
+    the derivatives as the JAX model holds them (``jac_h``: ``{"r", "z"}``,
+    ``hess_g``: ``{"rr", "rz", "zz"}``), which replace the derived ones.
+    ``pdf`` (``(*nx)`` or ``(1, *nx)``) comes back as a new ``Field`` on
+    the model's mesh without BCs (the RFP operators impose their own
+    zero-flux rows), else None. Returns ``(model, pdf_field)``."""
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.container import Hess, Jac
+
+    mesh = model.mesh
+    like = torch.zeros((), dtype=mesh.dtype.float, device=mesh.device)
+    if H is not None and G is not None:
+        model.set_potentials(_tensor(H, like=like), _tensor(G, like=like))
+    if jac_h is not None:
+        model.jacH = Jac(**{k: _tensor(v, like=like) for k, v in dict(jac_h).items()})
+    if hess_g is not None:
+        model.hessG = Hess(**{k: _tensor(v, like=like) for k, v in dict(hess_g).items()})
+        model._hint = None
+    f = None
+    if pdf is not None:
+        p = _tensor(pdf, like=like)
+        f = Field("pdf", 1, mesh, None).set_var_tensor(p if p.ndim == mesh.dim + 1 else p[None])
+    return model, f

@@ -2,8 +2,9 @@
 ``pyapes_tpu/variables/bcs.py``, domain faces).
 
 Supported: Dirichlet / Neumann / Symmetry / Periodic on the domain faces
-``["xl","xu","yl","yu","zl","zu"]``, with scalar, per-component list or
-callable values. The obstacle BCs are ported in a later slice.
+``["xl","xu","yl","yu","zl","zu"]`` (``["rl","ru","zl","zu"]`` in rz),
+with scalar, per-component list or callable values. The obstacle BCs are
+ported in a later slice.
 
 ``apply`` is pure, as in the JAX package: it returns a new tensor and
 leaves its argument untouched. ``apply_`` is the in-place form; the
@@ -25,7 +26,7 @@ from typing import Any, Callable, NamedTuple, TypedDict
 import numpy as np
 import torch
 
-from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, FDIR
+from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, FDIR, FDIR_RZ
 
 BC_val_type = Any
 """int | float | list | Callable | Tensor | None."""
@@ -285,6 +286,18 @@ class BCContainer(TypedDict, total=False):
     bc_type: str
     bc_val: BC_val_type
     bc_val_opt: dict | None
+
+
+class CylinderBoundary(NamedTuple):
+    """Per-face BC setup for ``Cylinder`` domains (``bcs.py:301-328``)."""
+
+    rl: BCContainer | None = None
+    ru: BCContainer | None = None
+    zl: BCContainer | None = None
+    zu: BCContainer | None = None
+
+    def __call__(self) -> list[BCConfig]:
+        return _get_bc_dict(self, FDIR_RZ)
 
 
 class BoxBoundary(NamedTuple):

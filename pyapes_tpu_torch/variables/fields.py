@@ -11,6 +11,7 @@ changes underneath it.
 from __future__ import annotations
 
 import copy
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -262,11 +263,16 @@ class Field:
         raise TypeError("Field: you can only assign Field, Tensor, float, int, or list!")
 
     def volume_integral(self, target=None) -> torch.Tensor:
-        """Volume integral over the Cartesian mesh (reference
+        """Volume integral; 2*pi*r weight in rz (reference
         ``fields.py:339-359``)."""
         if target is None:
             target = torch.ones_like(self._VAR[0])
         dv = torch.prod(self.mesh.dx)
+        if self.mesh.coord_sys == "rz":
+            r = self.mesh.grid[0]
+            return torch.stack(
+                [torch.sum(2.0 * math.pi * self._VAR[i] * r * dv) for i in range(self.dim)]
+            )
         return torch.stack([torch.sum(target * self._VAR[i] * dv) for i in range(self.dim)])
 
     # -- boundary conditions ------------------------------------------------
@@ -295,7 +301,11 @@ class Field:
 
         for bc in d_bc_config:
             bc_face = bc["bc_face"]
-            face_dim = {"x": 0, "y": 1, "z": 2}[bc_face[0]]
+            face_dim = (
+                {"r": 0, "z": 1}[bc_face[0]]
+                if self.mesh.coord_sys == "rz"
+                else {"x": 0, "y": 1, "z": 2}[bc_face[0]]
+            )
             self.bcs.append(
                 BC_FACTORY[str(bc["bc_type"])](
                     bc_id=f"d-{bc_face}",

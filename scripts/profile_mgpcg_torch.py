@@ -9,6 +9,7 @@ model, or the lid-driven cavity).
     python scripts/profile_mgpcg_torch.py --quick [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --upwind [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --cavity [--implicit] [--n 128] [--out ...]
+    python scripts/profile_mgpcg_torch.py --rfp [--n 512] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
@@ -30,7 +31,11 @@ one step of its NS cavity cell (``cavity_model``: ``bench.py``'s cavity,
 n^3 f32, Re 100, regularized lid, dt 0.25/n: three fastdiag momentum
 solves, the fastdiag pressure solve and the explicit FDC glue between
 them; ``--implicit``: the momentum by BiCGSTAB with the FD preconditioner
-through the convection kernel) after two warm steps. ``--decomp 4,2,1`` solves the Poisson problem
+through the convection kernel) after two warm steps, or with ``--rfp``
+one run of its rz/RFP cell (``bench.py``'s ``bench_rz``: a Cylinder[0:4,
+-4:4] mesh of n x 2n f32 nodes, the Rosenbluth potentials H and G by
+fastdiag, then 5 implicit RFP steps of dt 1e-3 by the FD-preconditioned
+BiCGSTAB of ``fdm.custom``) after one warm run. ``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
 halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
 fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
@@ -115,6 +120,8 @@ def main() -> None:
     p.add_argument("--upwind", action="store_true",
                    help="one step of the upwind advection-diffusion model (a velocity field)")
     p.add_argument("--cavity", action="store_true", help="one step of the NS cavity")
+    p.add_argument("--rfp", action="store_true",
+                   help="one run of the rz/RFP cell (potentials + 5 implicit steps)")
     p.add_argument("--implicit", action="store_true",
                    help="with --cavity: implicit advection (the convection kernel)")
     p.add_argument("--decomp", default=None,
@@ -143,8 +150,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    step = args.burgers or args.quick or args.upwind or args.cavity
-    n = args.n or (128 if args.cavity else 256 if args.darcy or step else 512)
+    step = args.burgers or args.quick or args.upwind or args.cavity or args.rfp
+    n = args.n or (128 if args.cavity else 512 if args.rfp else 256 if args.darcy or step
+                   else 512)
     if step:
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       os.path.join(HERE, "chip_smoke.py"))
@@ -155,19 +163,22 @@ def main() -> None:
             stepper = chip_smoke.cavity_model(dev, n, args.implicit)[0]
             for _ in range(2):  # the cell's warm steps
                 stepper.step()
+        elif args.rfp:
+            stepper = chip_smoke.RzCell(dev, n, 2 * n)
         else:
             stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
                        else chip_smoke.advdiff_model(dev, "quick" if args.quick else "upwind",
                                                      n))[0]
 
         def prepare():
-            pass
+            if args.rfp:
+                stepper.reset()
 
         def run():
             stepper.step()
             if args.cavity:  # the step's last solve: the pressure
                 return stepper.model.p_solver.report
-            return stepper.model.report
+            return stepper.model.report  # --rfp: the last implicit step's
     else:
         mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device="cuda", dtype="single")
         var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")},
@@ -248,6 +259,7 @@ def main() -> None:
         "card": smi, "root": args.root,
         "case": ("burgers" if args.burgers else "quick" if args.quick else "upwind" if args.upwind
                  else ("cavity implicit" if args.implicit else "cavity") if args.cavity
+                 else "rfp" if args.rfp
                  else "darcy" if args.darcy else "poisson"),
         "method": ("model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,

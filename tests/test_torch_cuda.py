@@ -892,3 +892,80 @@ def test_cuda_cavity_steps_match_cpu(cuda, case):
     assert card[0] == cpu[0]
     for a, b in zip(cpu[1], card[1]):
         assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)
+
+
+def _rz_operators(device, dtype, shape=(64, 128)):
+    """The rz path's axis-stencil operators on a Cylinder[0:4, -4:4] grid:
+    the Laplacian with the potentials' faces (r = 0 symmetry surgery,
+    Dirichlet at ru and on z), without faces (the raw r = 0 row), and every
+    level of the rz V-cycle."""
+    from pyapes_tpu_torch.geometry import Cylinder
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.multigrid import MGSpec
+    from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import CylinderBoundary
+
+    mesh = Mesh(Cylinder[0:4, -4:4], None, list(shape), device="cpu", dtype="double")
+    bcs = CylinderBoundary(rl={"bc_type": "symmetry", "bc_val": None},
+                           **{f: {"bc_type": "dirichlet", "bc_val": 0.0}
+                              for f in ("ru", "zl", "zu")})()
+    var = Field("h", 1, mesh, {"domain": bcs})
+    ops = [(coeffs_from_numpy(laplacian_axis_coeffs(mesh, b), device, dtype), shape)
+           for b in (var.bcs, None)]
+    spec = MGSpec(shape, (4.0, 8.0), rz=True, dtype=dtype, device=device,
+                  face_kinds=(("neumann", "dirichlet"), ("dirichlet", "dirichlet")))
+    return ops + [(spec._level_coeffs(s), s) for s in spec.shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_axis_stencil_rz_matches_plain(cuda, dtype):
+    """The 2-D per-point kernel on the rz vectors (the fine operator with
+    and without faces, every rz MG level): within the tolerance, the same
+    bits on another call, one launch each."""
+    for seed, (coeffs, shape) in enumerate(_rz_operators(cuda, dtype)):
+        x = torch.randn((1, *shape), generator=torch.Generator().manual_seed(seed),
+                        dtype=torch.float64).to(cuda, dtype)
+        before = axis_stencil.launches
+        out = axis_stencil(coeffs, x)
+        assert axis_stencil.launches == before + 1
+        assert torch.equal(out, axis_stencil(coeffs, x))
+        _close(out, apply_axis_stencil(coeffs, x), dtype)
+
+
+@pytest.mark.parametrize("case", ["steps", "potentials_mg"])
+def test_cuda_rz_path_matches_cpu(cuda, case):
+    """The rz path in f64 on the card equals the CPU run: three implicit
+    RFP steps (``tests/test_models.py``'s 32 x 48 problem, the FD
+    preconditioner of the hint), or the Rosenbluth potentials under
+    BiCGSTAB with the rz V-cycle (the axis-stencil kernel on every level):
+    the same itr solve by solve, the fields within 1e-10 relative."""
+    from pyapes_tpu_torch.geometry import Cylinder
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import RFPEvolution, RosenbluthPotentials
+    from pyapes_tpu_torch.variables import Field
+
+    def run(device):
+        mesh = Mesh(Cylinder[0:3, -3:3], None, [32, 48], device=device, dtype="double")
+        R, Z = mesh.R, mesh.Z
+        f0 = torch.exp(-(R**2 + Z**2) / 1.28)
+        if case == "potentials_mg":
+            pots = RosenbluthPotentials(mesh, f0, {"method": "bicgstab", "precond": "mg"})
+            out = pots.solve(f0)
+            return [r["itr"] for r in pots.reports], [t.cpu().numpy() for t in out]
+        model = RFPEvolution(mesh, -torch.sqrt(R**2 + Z**2 + 0.5), torch.sqrt(R**2 + Z**2 + 0.5))
+        f, itrs = Field("pdf", 1, mesh, None).set_var_tensor(f0), []
+        for _ in range(3):
+            f = model.step_implicit(f, 2e-3)
+            itrs.append(model.report["itr"])
+        return itrs, [f().cpu().numpy()]
+
+    cpu = run("cpu")
+    before = axis_stencil.launches
+    card = run("cuda")
+    if case == "potentials_mg":
+        assert axis_stencil.launches > before
+    assert card[0] == cpu[0]
+    for a, b in zip(cpu[1], card[1]):
+        assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)

@@ -24,7 +24,7 @@ from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
 from pyapes_tpu_torch.solver.multigrid import MGSpec  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
-from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
+from pyapes_tpu_torch.variables.bcs import CylinderBoundary, homogeneous_bcs, mixed_bcs  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pyapes_tpu_torch")
@@ -67,9 +67,9 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_entry_points_default_to_cuda():
-    """``Device()``, ``Mesh(...)`` and the runner ask for the card unless
-    the caller names the CPU, and raise where there is none; ``MGSpec``
-    has no default device."""
+    """``Device()``, ``Mesh(...)`` (a Box or a Cylinder) and the runner
+    (``poisson``, ``rfp``) ask for the card unless the caller names the
+    CPU, and raise where there is none; ``MGSpec`` has no default device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from pyapes_tpu_torch import runner
@@ -80,6 +80,10 @@ def test_entry_points_default_to_cuda():
         Mesh(Box[0:1, 0:1], None, [5, 5])
     with pytest.raises(RuntimeError):
         runner.run(["poisson", "--n", "5"])
+    with pytest.raises(RuntimeError):
+        Mesh(Cylinder[0:1, 0:1], None, [5, 5])
+    with pytest.raises(RuntimeError):
+        runner.run(["rfp", "--n", "5", "--steps", "1"])
     with pytest.raises(TypeError):
         MGSpec((5, 5, 5), (1.0, 1.0, 1.0))
     assert Mesh(Box[0:1, 0:1], None, [5, 5], device="cpu").device == torch.device("cpu")
@@ -117,10 +121,12 @@ def test_unported_features_raise(case):
             s.set_eq(FDM().laplacian(torch.ones(6, 6, 6, dtype=torch.float64), var)
                      == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        elif case == "cg":  # a Krylov solve of a custom operator
+        elif case == "cg":  # a CG solve that returns device scalars (A2)
             var = _field()
-            Solver({"fdm": {"method": "cg", "precond": "fd"}}).set_eq(
-                FDM().custom(lambda x: x, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-8, "max_it": 10,
+                                "sync": False}})
+            s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s.solve()
         elif case == "bicgstab":  # a multigrid-preconditioned Krylov solve on a periodic problem
             var = _field("periodic")
             s = Solver({"fdm": {"method": "bicgstab", "precond": "mg", "tol": 1e-8,
@@ -137,8 +143,12 @@ def test_unported_features_raise(case):
             _solve({"fd_opts": {"precision": "default"}})
         elif case == "obstacle":
             Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9], device="cpu")
-        elif case == "rz":
-            Mesh(Cylinder[0:1, 0:1], None, [9, 9], device="cpu")
+        elif case == "rz":  # a variable-Γ Laplacian on rz (the JAX package raises too)
+            mesh = Mesh(Cylinder[0:1, 0:1], None, [9, 9], device="cpu", dtype="double")
+            bcs = CylinderBoundary(**{f: {"bc_type": "dirichlet", "bc_val": 0.0}
+                                      for f in ("rl", "ru", "zl", "zu")})()
+            var = Field("p", 1, mesh, {"domain": bcs})
+            FDM().laplacian(torch.ones(9, 9, dtype=torch.float64), var)
         elif case == "var_gamma":  # a nonzero Neumann flux of a variable-Γ Laplacian
             mesh = Mesh(Box[0:1, 0:1], None, [6, 6], device="cpu", dtype="double")
             var = Field("p", 1, mesh, {"domain": mixed_bcs(
@@ -161,8 +171,12 @@ def test_unported_features_raise(case):
             from pyapes_tpu_torch.models import NaturalConvection
 
             NaturalConvection(_cavity().mesh, k_fn=lambda T: 1.0 + 0.0 * T)
-        elif case == "custom":  # a user operator term
-            FDM().custom(lambda x: x, _field())
+        elif case == "custom":  # a user operator term on a periodic axis
+            var = _field("periodic")
+            s = Solver({"fdm": {"method": "bicgstab", "tol": 1e-8, "max_it": 10}})
+            s.set_eq(FDM().custom(lambda x: 2.0 * x, var)
+                     == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            s.solve()
         else:  # a strain-rate viscosity law
             _cavity(mu_strain_fn=lambda gdot: 0.01 + 0.0 * gdot)
 
@@ -283,6 +297,22 @@ def test_diff_wrappers_reject_what_the_kernels_do_not_take(case, exc):
                                  args["avg"], 0.7, args["axes"], args["mode"])
         else:
             diff_mod.diff_field(args["x"], args["g"], args["inv"], args["surg"], args["avg"])
+
+
+def test_rz_path_on_cpu_counts_no_launch():
+    """The potentials (the fastdiag and the rz MG paths) and an implicit RFP
+    step on CPU tensors take the plain versions and count no launch."""
+    from pyapes_tpu_torch.models import RFPEvolution, RosenbluthPotentials
+
+    mesh = Mesh(Cylinder[0:4, -4:4], None, [9, 17], device="cpu", dtype="double")
+    f0 = torch.exp(-(mesh.R**2 + mesh.Z**2) / 2.0)
+    before = axis_stencil.launches
+    for cfg in (None, {"method": "bicgstab", "precond": "mg"}):
+        H, G = RosenbluthPotentials(mesh, f0, cfg).solve(f0)
+    model = RFPEvolution(mesh, H, G)
+    model.step_implicit(Field("pdf", 1, mesh, None).set_var_tensor(f0), 1e-3)
+    assert model.report["converge"]
+    assert axis_stencil.launches == before == 0
 
 
 def test_mgpcg_on_cpu_counts_no_launch():
