@@ -56,7 +56,10 @@ Phases, report lines before the last:
    and without faces (the raw r = 0 row), and every level of the rz
    V-cycle, in f32 and f64, the same bits on another call; timed at 512 x
    1024 f32 per call and back to back beside the plain version, a CSR
-   product and a device copy.
+   product and a device copy. The same kernel on the channel's operators
+   (``check_axis_channel``): the 441 x 83 u, v and p Laplacians of the
+   2D-2 cell and every level of its pressure V-cycle in f64, the same
+   bits on another call; the pressure operator timed likewise.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -141,13 +144,27 @@ Phases, report lines before the last:
    (``test_rosenbluth.py``: the analytic Maxwellian H within 1%,
    isotropization, the steady Maxwellian; ``test_muscl.py``: positivity,
    total variation and mass).
+12. channel, through ``ChannelFlow.step``: the Schäfer–Turek 2D-2 cell of
+   ``demos/schafer_turek.py`` (flow past a cylinder at Re 100, 441 x 83
+   f64, the demo's grid; ``SchaferTurek``): 2 warm steps, then 200 steps
+   timed in chunks of 50, each ending in a synchronize, with the demo's
+   per-step diagnostics (staircase and control-volume forces, the
+   pressure difference) kept on the card: wall per step (the median
+   chunk), cell-steps/s, itr per solve (u, v, p), the axis-stencil
+   launches per step, the host syncs of a step (torch's sync debug mode),
+   peak memory, the flux balance and the last step's forces; no solve at
+   ``max_it``. The same at 1761 x 329 for 20 steps (the scale rung). The
+   card against the CPU in f64 on ``tests/test_obstacle.py``'s 97 x 33
+   cylinder channel for 40 steps (the same itr solve by solve, the fields
+   within 1e-10), and the JAX tests' gates on that run (flux imbalance
+   under 2%, no slip in the body, the wake, drag > 0, |lift| < 0.3 drag).
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10, 11) and read just after; a kernel of a path that launched no time there
+9, 10, 11, 12) and read just after; a kernel of a path that launched no time there
 fails the run. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
-or null; a last row for the 2-D per-point kernel on the rz cell), and as
-the LAST line
+or null; two last rows for the 2-D per-point kernel on the rz cell and on
+the channel), and as the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
 a non-zero exit, with no result line.
 """
@@ -3098,6 +3115,311 @@ def phase_rz(dev) -> tuple:
     return counts, per_run
 
 
+# the channel path: the Schäfer–Turek 2D-2 cell of demos/schafer_turek.py
+# (Schäfer & Turek 1996, flow past a cylinder at Re 100): Box[0:2.2,
+# 0:0.41] with a MaskObstacle circle of d = 0.1 at (0.2, 0.2), ny = 83 and
+# nx = round(2.2 / dy) + 1 = 441 nodes in f64 (the demo's default grid and
+# dtype, not cut), nu 1e-3, parabolic inflow of peak 1.5 (mean 1.0), dt =
+# 0.2 dy / 2.3, through ChannelFlow's default solves (plain BiCGSTAB
+# momentum; BiCGSTAB with the plain-domain V-cycle for the pressure). The
+# demo's config={"sync": False} and run_batched become plain step calls;
+# the per-step diagnostics stay on the card and are fetched once
+ST_D, ST_UM, ST_NU = 0.1, 1.5, 1e-3
+ST_U_MEAN = 2.0 / 3.0 * ST_UM
+ST_NY, ST_RUNG_NY = 83, 329  # the cell; the scale rung (1761 x 329)
+ST_WARM, ST_STEPS, ST_CHUNK, ST_RUNG_STEPS = 2, 200, 50, 20
+ST_MARGIN = 6  # the demo's CV margin
+N_CHANNEL_CMP, CHANNEL_CMP_STEPS = (97, 33), 40  # tests/test_obstacle.py's cylinder channel
+CHANNEL_CMP_TOL = 1e-10
+
+
+class SchaferTurek:
+    """The 2D-2 cell at ``ny`` on ``dev``: ``model`` (``ChannelFlow``),
+    ``dt``, and ``diag()``, the demo's per-step diagnostics as one device
+    vector: the staircase force (2), the control-volume force (2), the
+    front-rear pressure difference at the probe nodes and extrapolated to
+    the cylinder surface (``demos/schafer_turek.py``)."""
+
+    def __init__(self, dev, ny: int = ST_NY, dtype: str = "double"):
+        from pyapes_tpu_torch.geometry import Box, MaskObstacle
+        from pyapes_tpu_torch.mesh import Mesh
+        from pyapes_tpu_torch.models import ChannelFlow
+
+        dy = 0.41 / (ny - 1)
+        self.nx, self.ny = int(round(2.2 / dy)) + 1, ny
+        body = MaskObstacle(lambda X, Y: (X - 0.2) ** 2 + (Y - 0.2) ** 2 < (ST_D / 2) ** 2)
+        mesh = Mesh(Box[0:2.2, 0:0.41], [body], [self.nx, ny], device=str(dev), dtype=dtype)
+        self.model = ChannelFlow(mesh, nu=ST_NU, u_in=ST_UM)
+        self.dt = 0.2 * dy / 2.3  # peak speed ~2.3 over the cylinder
+        self.ia, self.ib, self.jc = (int(round(v / dy)) for v in (0.15, 0.25, 0.20))
+
+    def diag(self):
+        import torch
+
+        m, ia, ib, jc = self.model, self.ia, self.ib, self.jc
+        p = m.p()[0]
+        p_front = 3.0 * p[ia - 1, jc] - 3.0 * p[ia - 2, jc] + p[ia - 3, jc]
+        p_rear = 3.0 * p[ib + 1, jc] - 3.0 * p[ib + 2, jc] + p[ib + 3, jc]
+        return torch.cat([m.body_force_device(), m.body_force_cv_device(margin=ST_MARGIN),
+                          torch.stack([p[ia, jc] - p[ib, jc], p_front - p_rear])])
+
+    def run(self, steps: int, series: list | None = None) -> None:
+        """``steps`` steps; with ``series``, each step's ``diag()`` appended
+        (device tensors, no host read)."""
+        for _ in range(steps):
+            self.model.step(self.dt)
+            if series is not None:
+                series.append(self.diag())
+
+
+def st_functionals(series, dt: float, t0_steps: int) -> dict:
+    """The demo's functionals from a per-step diagnostic series (rows of
+    ``SchaferTurek.diag``, fetched to the host; the first taken after
+    ``t0_steps`` steps): the Strouhal number from the spectral peak of the
+    developed half of the CV lift, the maxima of Cd and Cl (staircase and
+    CV), the lift amplitude, and the pressure differences half a period
+    after the lift maximum (``demos/schafer_turek.py``)."""
+    import numpy as np
+
+    s = np.asarray(series, dtype=np.float64)
+    scale = 2.0 / (ST_U_MEAN**2 * ST_D)
+    cd, cl, cd_cv, cl_cv = (scale * s[:, k] for k in range(4))
+    t_arr = (np.arange(len(s)) + t0_steps + 1) * dt
+    half = len(cl) // 2
+    sig = cl_cv[half:] - cl_cv[half:].mean()
+    out = {}
+    if len(sig) > 16 and np.abs(sig).max() > 1e-6:
+        freqs = np.fft.rfftfreq(len(sig), dt)
+        amp = np.abs(np.fft.rfft(sig))
+        k = int(np.argmax(amp[1:])) + 1
+        delta = 0.0
+        if 1 <= k < len(amp) - 1:  # parabolic interpolation of the peak
+            a, b, c = amp[k - 1], amp[k], amp[k + 1]
+            delta = 0.5 * (a - c) / (a - 2 * b + c)
+        f_shed = float(freqs[k] + delta * (freqs[1] - freqs[0]))
+        i_max = half + int(np.argmax(cl_cv[half:]))
+        i_rep = int(np.argmin(np.abs(t_arr - (t_arr[i_max] + 0.5 / f_shed))))
+        out = {"St": f_shed * ST_D / ST_U_MEAN, "Cl_max": float(cl[half:].max()),
+               "Cd_max": float(cd[half:].max()), "Cl_amp": float(np.abs(sig).max()),
+               "Cd_max_cv": float(cd_cv[half:].max()), "Cl_max_cv": float(cl_cv[half:].max()),
+               "dP": float(s[i_rep, 4]), "dP_surf": float(s[i_rep, 5])}
+    return out
+
+
+def _channel_operators(dev, ny: int = ST_NY) -> list:
+    """(label, coeffs, shape) of every operator the channel path applies
+    through the 2-D axis stencil, in f64: the fine u, v (momentum) and p
+    Laplacians and every level of the pressure's V-cycle (the spec the
+    path's solve builds)."""
+    from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.linalg.build import make_mg_spec
+    from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
+
+    m = SchaferTurek(dev, ny).model
+    mesh, x = m.mesh, m.p()
+    ops = [(f"fine {f.name} {mesh.nx}",
+            coeffs_from_numpy(laplacian_axis_coeffs(mesh, f.bcs), dev, x.dtype), mesh.nx)
+           for f in (m.u, m.v, m.p)]
+    spec = make_mg_spec(m.p_solver.config["fdm"], x, m.p.bcs, mesh, ())
+    return ops + [(f"MG level {shp}", spec._level_coeffs(shp), shp) for shp in spec.shapes]
+
+
+def check_axis_channel(dev, ny: int = ST_NY) -> tuple:
+    """The 2-D per-point ``axis_stencil`` kernel on the channel's operators
+    (``_channel_operators``) against ``apply_axis_stencil`` in f64, within
+    ``REL_TOL`` and the same bits on another call; then the fine pressure
+    operator timed per call and back to back on the device beside the
+    plain version, a CSR product and a device copy. Returns (worst abs
+    error, timing row)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+
+    worst, here, ops = 0.0, 0.0, _channel_operators(dev, ny)
+    for seed, (label, coeffs, shape) in enumerate(ops):
+        g = torch.Generator(device=dev).manual_seed(1200 + seed)
+        x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
+        ref = apply_axis_stencil(coeffs, x)
+        got, again = axis_stencil(coeffs, x), axis_stencil(coeffs, x)
+        torch.cuda.synchronize()
+        limit = REL_TOL["float64"] * ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        if got.dtype != ref.dtype or not err <= limit or not torch.equal(got, again):
+            raise RuntimeError(f"chip_smoke: axis_stencil on the channel {label} disagrees with "
+                               f"its plain version ({err:.3e} > {limit:.3e}) or gave other bits "
+                               "on another call")
+        worst, here = max(worst, err), max(here, err / limit if limit > 0 else 0.0)
+    label, coeffs, shape = ops[2]
+    g = torch.Generator(device=dev).manual_seed(1199)
+    x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
+    ref = apply_axis_stencil(coeffs, x)
+    copy = torch.empty_like(x)
+    npts = shape[0] * shape[1]
+    # f64 in and out; 6 products and 5 sums per point (f64 has no row in
+    # the guide's table: the f32 rate, and the bytes bound it anyway)
+    bound_ms, bound_by = _bound(2 * 8 * npts, 11 * npts)
+    row = {
+        "shape": shape, "ms": _time_ms(lambda: axis_stencil(coeffs, x)),
+        "device_ms": _device_ms(lambda: axis_stencil(coeffs, x)),
+        "plain_ms": _time_ms(lambda: apply_axis_stencil(coeffs, x)),
+        "library_ms": _library_stencil_ms(coeffs, x, ref),
+        "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst,
+    }
+    print(f"[3 kernel] axis stencil 2-D channel f64: {len(ops)} operators hold (u, v, p at "
+          f"{shape}, every pressure MG level {[o[2] for o in ops[3:]]}), worst err/limit "
+          f"{here:.3f}, same bits on another call; {label} time: the per-point kernel "
+          f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms back to back on the device, "
+          f"plain {row['plain_ms']:.4f} ms, CSR product (torch.mv) {row['library_ms']:.4f} ms, "
+          f"device copy {row['copy_device_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
+          flush=True)
+    return worst, row
+
+
+def run_st_cell(dev, ny: int = ST_NY, warm: int = ST_WARM, steps: int = ST_STEPS,
+                chunk: int = ST_CHUNK) -> tuple:
+    """The 2D-2 cell through ``ChannelFlow.step``: ``warm`` steps, then
+    ``steps`` steps with the per-step diagnostics on the card, timed in
+    chunks of ``chunk`` steps that each end in a synchronize; then one step
+    with its host syncs counted. Wall per step (the median chunk),
+    cell-steps/s, itr per solve (u, v, p) per step, the axis-stencil
+    launches per step, peak memory, the flux balance, the last step's
+    forces. A solve at ``max_it`` or unconverged, a step without an
+    axis-stencil launch or a non-finite field fails. Returns (stats, the
+    diagnostic series on the host)."""
+    import torch
+
+    cell = SchaferTurek(dev, ny)
+    model = cell.model
+    reports = _record_solves(model)
+    cell.run(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = len(reports)
+    series, walls, per_step = [], [], []
+    for _ in range(0, steps, chunk):
+        tic = time.perf_counter()
+        for _ in range(chunk):
+            before = _counts()
+            cell.run(1, series)
+            after = _counts()
+            per_step.append({k: after[k] - before[k] for k in after if after[k] > before[k]})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tic) / chunk)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    syncs = _count_syncs(lambda: cell.run(1))
+    host = torch.stack(series).cpu().numpy()
+    timed = reports[n0:n0 + 3 * steps]
+    bad = [(k, r["itr"], r["tol"]) for k, r in enumerate(reports)
+           if r["itr"] >= r["max_it"] or not r["converge"] or not r["tol"] == r["tol"]]
+    if bad:
+        raise RuntimeError(f"chip_smoke: 2D-2 {ny}: solves at max_it or not converged: {bad[:3]}")
+    missing = [k for k, ls in enumerate(per_step) if not ls.get("axis_stencil")]
+    if missing:
+        raise RuntimeError(f"chip_smoke: 2D-2 {ny}: steps launched no axis_stencil: {missing[:3]}")
+    if not bool(torch.cat([v() for v in model.vel] + [model.p()]).isfinite().all()):
+        raise RuntimeError(f"chip_smoke: 2D-2 {ny}: a field is not finite")
+    itr = [[r["itr"] for r in timed[k:k + 3]] for k in range(0, len(timed), 3)]
+    wall = statistics.median(walls)
+    fin, fout = model.flux(1), model.flux(cell.nx - 2)
+    scale = 2.0 / (ST_U_MEAN**2 * ST_D)
+    stats = {
+        "path": f"Schäfer–Turek 2D-2 {cell.nx} x {ny} f64", "dt": cell.dt, "warm_steps": warm,
+        "steps": steps, "chunk": chunk, "wall_s_per_step_chunks": walls,
+        "wall_s_per_step_median": wall, "cell_steps_per_s": cell.nx * ny / wall,
+        "itr_uvp_min": [min(c) for c in zip(*itr)], "itr_uvp_max": [max(c) for c in zip(*itr)],
+        "itr_uvp_mean": [sum(c) / len(c) for c in zip(*itr)], "itr_uvp_last": itr[-1],
+        "axis_stencil_launches_per_step": sorted({ls["axis_stencil"] for ls in per_step}),
+        "launches_per_step_first": per_step[0], "host_syncs_per_step": syncs,
+        "peak_mem_gib": peak, "flux_in": fin, "flux_out": fout,
+        "flux_imbalance": abs(fin - fout) / abs(fin),
+        "force_staircase_last": host[-1, 0:2].tolist(), "force_cv_last": host[-1, 2:4].tolist(),
+        "cd_cl_staircase_last": (scale * host[-1, 0:2]).tolist(),
+        "cd_cl_cv_last": (scale * host[-1, 2:4]).tolist(), "solves_at_max_it": 0,
+        "t": model.t,
+    }
+    return stats, host
+
+
+def _channel_cmp_run(dev, steps: int = CHANNEL_CMP_STEPS):
+    """``tests/test_obstacle.py``'s cylinder channel (Box[0:3, 0:1], a
+    MaskObstacle circle of radius 0.12 at (0.7, 0.5), 97 x 33 f64, nu
+    0.02, dt 0.005) for ``steps`` eager steps on ``dev``: ``(itr per solve,
+    state fields on the host, the model)``."""
+    from pyapes_tpu_torch.geometry import Box, MaskObstacle
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import ChannelFlow
+
+    body = MaskObstacle(lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.12**2)
+    mesh = Mesh(Box[0:3, 0:1], [body], list(N_CHANNEL_CMP), device=str(dev), dtype="double")
+    model = ChannelFlow(mesh, nu=0.02, u_in=1.0)
+    reports = _record_solves(model)
+    model.run(0.005, steps)
+    return [r["itr"] for r in reports], [f().cpu() for f in model.state_fields()], model
+
+
+def _channel_gates(model) -> dict:
+    """The JAX tests' gates (``tests/test_obstacle.py:458``, ``:516``) on a
+    40-step cylinder channel: flux imbalance under 2%, no slip in the
+    body, the wake slower than half the free stream, drag > 0 and |lift|
+    < 0.3 drag."""
+    fin, fout = model.flux(0), model.flux(-1)
+    u = model.u()[0].cpu().numpy()
+    body = model.mesh.obstacle_body_masks[0]
+    iy = 16
+    ix_body = int(body[:, iy].nonzero()[0].max())
+    drag, lift = model.body_force()
+    gates = {"flux_imbalance": abs(fin - fout) / abs(fin),
+             "max_abs_u_in_body": float(abs(u[body]).max()),
+             "u_wake": float(u[ix_body + 2, iy]), "u_free": float(u[10, iy]),
+             "drag": float(drag), "lift": float(lift)}
+    if not (gates["flux_imbalance"] < 0.02 and gates["max_abs_u_in_body"] < 1e-6
+            and gates["u_wake"] < 0.5 * gates["u_free"] and drag > 0.0
+            and abs(lift) < 0.3 * drag):
+        raise RuntimeError(f"chip_smoke: the cylinder channel failed the JAX tests' gates: {gates}")
+    return gates
+
+
+def phase_channel(dev) -> tuple:
+    """The channel path: the 2D-2 cell at 441 x 83 (``run_st_cell``) and
+    the scale rung at 1761 x 329 (20 steps), each with the launch counts
+    set to 0 just before and read just after; the card against the CPU in
+    f64 (the cylinder channel, 40 steps: the same itr solve by solve, the
+    fields within ``CHANNEL_CMP_TOL`` relative); the JAX tests' gates on
+    the card. Returns (the path's launch counts, its axis-stencil launches
+    per step at 441 x 83)."""
+    import torch
+
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    clear_cache()
+    _reset_counts()
+    cell, _ = run_st_cell(dev)
+    counts = _counts()
+    print(f"[12 channel] {json.dumps(cell)}", flush=True)
+    torch.cuda.empty_cache()
+    _reset_counts()
+    rung, _ = run_st_cell(dev, ST_RUNG_NY, warm=1, steps=ST_RUNG_STEPS, chunk=ST_RUNG_STEPS // 2)
+    for name, c in _counts().items():
+        counts[name] += c
+    print(f"[12 channel] scale rung: {json.dumps(rung)}", flush=True)
+    torch.cuda.empty_cache()
+    cpu_itr, cpu_f, _ = _channel_cmp_run(torch.device("cpu"))
+    card_itr, card_f, card_model = _channel_cmp_run(dev)
+    rel = max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(cpu_f, card_f))
+    if card_itr != cpu_itr or not rel <= CHANNEL_CMP_TOL:
+        raise RuntimeError(f"chip_smoke: the cylinder channel on the card differs from the CPU "
+                           f"run: itr {card_itr} vs {cpu_itr}, max rel diff {rel:.3e}")
+    print(f"[12 channel] card against CPU, f64 (tolerance {CHANNEL_CMP_TOL}): "
+          f"{json.dumps({'n': N_CHANNEL_CMP, 'steps': CHANNEL_CMP_STEPS, 'solves': len(card_itr), 'itr_sum': sum(card_itr), 'max_rel_diff': rel})}",
+          flush=True)
+    print(f"[12 channel] the JAX tests' gates on the card, f64: "
+          f"{json.dumps(_channel_gates(card_model))}", flush=True)
+    return counts, cell["axis_stencil_launches_per_step"]
+
+
 def main() -> None:
     import torch
 
@@ -3105,6 +3427,7 @@ def main() -> None:
     phase_build()
     worst1, timing1 = phase_kernel(dev)
     worst_rz, timing_rz = check_axis_rz(dev)
+    worst_ch, timing_ch = check_axis_channel(dev)
     axis_level_times(dev)
     worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
@@ -3147,6 +3470,8 @@ def main() -> None:
     ]
     rz_counts, rz_per_run = phase_rz(dev)
     path_counts.append(rz_counts)
+    ch_counts, ch_per_step = phase_channel(dev)
+    path_counts.append(ch_counts)
     phase_burgers_xonly(dev)
     for counts in path_counts:
         for name, c in counts.items():
@@ -3172,8 +3497,10 @@ def main() -> None:
           "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
           "and Conv at their advectors), none for the fused ones; the last row: the 2-D "
           f"per-point axis_stencil_kernel on the rz Laplacian at {RZ_CELL} f32 (bench's rz "
-          f"cell), its launches those of phase 11 (axis stencil per run: {rz_per_run})",
-          flush=True)
+          f"cell), its launches those of phase 11 (axis stencil per run: {rz_per_run}); after "
+          f"it the same kernel on the 2D-2 channel's pressure Laplacian at "
+          f"{timing_ch['shape']} f64, its launches those of phase 12 (per step at the cell: "
+          f"{ch_per_step})", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3198,6 +3525,18 @@ def main() -> None:
         "bound_ms": timing_rz["bound_ms"],
         "bound_by": timing_rz["bound_by"],
         "library_ms": timing_rz["library_ms"],
+    }, {
+        "name": "axis_stencil (2-D, channel)",
+        "route": "cuda",
+        "source": "pyapes_tpu_torch/csrc/axis_stencil.cu",
+        "replaces": "pyapes_tpu/ops/pallas_stencil.py:432",
+        "launches": ch_counts["axis_stencil"],
+        "max_abs_err": worst_ch,
+        "ms": timing_ch["ms"],
+        "plain_ms": timing_ch["plain_ms"],
+        "bound_ms": timing_ch["bound_ms"],
+        "bound_by": timing_ch["bound_by"],
+        "library_ms": timing_ch["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -24,6 +24,7 @@ from pyapes_tpu_torch.backend import (
 )
 from pyapes_tpu_torch.geometry import GeoTypeIdentifier
 from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, Geometry
+from pyapes_tpu_torch.geometry.mask import MaskObstacle
 
 
 class Mesh:
@@ -31,7 +32,8 @@ class Mesh:
 
     Args:
         domain: Domain geometry (``Box`` or ``Cylinder``).
-        obstacle: Inner obstacles — not ported yet (must be ``None``).
+        obstacle: Optional list of inner obstacles: ``Box`` bodies or
+            ``MaskObstacle`` shapes (``_mesh.py:110-135``).
         spacing: list of ints (node counts) or floats (cell sizes)
             (``_mesh.py:67-80``).
         device: "cuda" (the default) | "gpu" | "cpu"; CUDA raises where it
@@ -48,10 +50,6 @@ class Mesh:
         dtype: str | int = "double",
     ):
         spacing = [] if spacing is None else spacing
-        if obstacle:
-            raise NotImplementedError(
-                "Mesh: obstacles are ported in a later slice"
-            )
         self.device: torch.device = Device(device).device
         assert (
             dtype in DTYPE_DOUBLE or dtype in DTYPE_SINGLE or dtype in DTYPE_HALF
@@ -91,14 +89,16 @@ class Mesh:
         self._upper_np = upper
 
         # Boundary masks (host numpy bools).
-        self.d_mask = boundary_mask(self)
-        self.o_mask: dict = {}
+        self.d_mask, self.o_mask = boundary_mask(self)
 
         t_mask = np.zeros(self.nx, dtype=bool)
         for dm in self.d_mask:
             t_mask |= self.d_mask[dm]
+        for o_idx in self.o_mask:
+            for om in self.o_mask[o_idx]:
+                t_mask |= self.o_mask[o_idx][om]
         self.t_mask: np.ndarray = t_mask
-        """Union of all domain masks (``_mesh.py:102-116``)."""
+        """Union of all domain and obstacle masks (``_mesh.py:102-116``)."""
 
     # -- identity ---------------------------------------------------------
     def __repr__(self) -> str:
@@ -109,6 +109,28 @@ class Mesh:
 
     def __eq__(self, other) -> bool:
         return self is other
+
+    @cached_property
+    def obstacle_body_masks(self) -> list[np.ndarray]:
+        """Filled (solid-body) mask per obstacle, snapped to the grid with
+        the same rule as the face masks (``get_box_mask``). The face masks
+        in ``o_mask`` cover only the surface shell; Neumann obstacle BCs
+        exclude the whole body from the solver's active set."""
+        out: list[np.ndarray] = []
+        for obj in self.obstacle or []:
+            if getattr(obj, "type", "") == "mask":
+                out.append(obj.resolve(self._grid_np))
+                continue
+            mask = np.zeros(self.nx, dtype=bool)
+            slicer = []
+            for i in range(self.dim):
+                x = self._x_np[i]
+                i0 = int(np.argmin(np.abs(x - obj.lower[i])))
+                i1 = int(np.argmin(np.abs(x - obj.upper[i])))
+                slicer.append(slice(i0, i1 + 1))
+            mask[tuple(slicer)] = True
+            out.append(mask)
+        return out
 
     @property
     def grid(self) -> "LazyGrid":
@@ -276,19 +298,36 @@ class LazyGrid:
         return (self[i] for i in range(len(self)))
 
 
-def boundary_mask(mesh: Mesh) -> dict[str, np.ndarray]:
-    """Create face masks for the domain (``_mesh.py:321-372``).
-
-    Returns host numpy bool arrays keyed by face id."""
+def boundary_mask(mesh: Mesh) -> tuple[dict, dict]:
+    """Create face masks for the domain and the obstacles
+    (``_mesh.py:321-372``): ``(domain_mask, object_mask)``, host numpy
+    bool arrays keyed by face id (per obstacle index for the second).
+    A ``Box`` obstacle's faces snap like the domain's; a ``MaskObstacle``
+    gets its surface shells by neighbour differencing of the solid mask,
+    the faces no cell of the body lies on left out."""
     x = mesh._x_np
     dx = np.asarray(mesh._dx)
     domain = mesh.domain
     domain_mask: dict[str, np.ndarray] = {}
+    object_mask: dict[int, dict[str, np.ndarray]] = {}
     for obj in domain.config:
         mask = np.zeros(mesh.nx, dtype=bool)
         mask = get_box_mask(x, dx, domain.config[obj], mask, mesh.dim)
         domain_mask[str(domain.config[obj]["face"])] = mask
-    return domain_mask
+    for i, obj in enumerate(mesh.obstacle or []):
+        if obj.type in ("box", "cylinder"):
+            obj_mask = {}
+            for o in obj.config:
+                mask = np.zeros(mesh.nx, dtype=bool)
+                mask = get_box_mask(x, dx, obj.config[o], mask, mesh.dim)
+                obj_mask[str(obj.config[o]["face"])] = mask
+            object_mask[i] = obj_mask
+        elif obj.type == "mask":
+            body = obj.resolve(mesh._grid_np)
+            object_mask[i] = {k: m for k, m in MaskObstacle.shells(body).items() if m.any()}
+        else:
+            raise NotImplementedError(f"Mask: obstacle type {obj.type!r} is not supported")
+    return domain_mask, object_mask
 
 
 def get_box_mask(
@@ -299,7 +338,11 @@ def get_box_mask(
     dim: int,
 ) -> np.ndarray:
     """Mark the face slab described by ``obj`` (``_mesh.py:375-399``): both
-    the face origin and its far end snap to their nearest grid node."""
+    the face origin and its far end snap to their nearest grid node. (The
+    original reference extends by ``ceil(e_x / dx) + 1`` nodes instead,
+    which leaves a misaligned obstacle box with faces that do not close
+    into one body; the obstacle-Neumann shells would then extrapolate from
+    inside it.)"""
     x_p = np.asarray(obj["x_p"], dtype=np.float64)
     e_x = np.asarray(obj["e_x"], dtype=np.float64)
 

@@ -15,17 +15,31 @@ form by default; ``incremental=False`` is non-incremental Chorin):
 
 Each step is eager: the solves go through ``Solver`` (fastdiag for the
 separable momentum and pressure systems; BiCGSTAB with the FD
-preconditioner for implicit advection) and the explicit glue is plain
-PyTorch. Scalar viscosity only: a per-point viscosity, ``mu_strain_fn``
-and the viscosity laws are a transient variable-Γ momentum solve, and the
-fused whole-step runner (``utils/fuse.py``) is a CUDA-graph capture; both
-are ported in later slices and raise ``NotImplementedError``.
+preconditioner for implicit advection; with immersed bodies plain
+BiCGSTAB for the momentum and BiCGSTAB with the plain-domain V-cycle for
+a non-singular pressure) and the explicit glue is plain PyTorch.
+
+Immersed obstacles on the mesh become no-slip bodies: the velocities take
+obstacle-Dirichlet 0 (shell pinned, solid interior zeroed each step), the
+pressure obstacle-Neumann (a zero-flux wall). ``ChannelFlow`` is the
+inflow/outflow channel or duct, and the force functions integrate the
+hydrodynamic force on a body: the staircase surface quadrature and the
+control-volume momentum balance, each in a host form (numpy result) and a
+device form (a device vector, no host sync).
+
+Scalar viscosity only: a per-point viscosity, ``mu_strain_fn`` and the
+viscosity laws are a transient variable-Γ momentum solve, and the fused
+whole-step runner (``utils/fuse.py``) is a CUDA-graph capture; both are
+ported in later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+
+import numpy as np
 import torch
 
-from pyapes_tpu_torch.geometry.basis import FDIR
+from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, FDIR
+from pyapes_tpu_torch.geometry.mask import MaskObstacle
 from pyapes_tpu_torch.mesh import Mesh
 from pyapes_tpu_torch.solver.fdc import FDC
 from pyapes_tpu_torch.solver.fdm import FDM
@@ -54,15 +68,205 @@ def _ddx(f: torch.Tensor, dx: float, axis: int, periodic: bool = False) -> torch
 
 
 def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"LidDrivenCavity: {what} is ported in a later slice")
+    return NotImplementedError(f"NS models: {what} is ported in a later slice")
+
+
+def _obstacle_setup(mesh: Mesh):
+    """No-slip immersed bodies (JAX ``navier_stokes.py:117-137``): the
+    obstacle BC configs of the velocities (Dirichlet 0) and the pressure
+    (zero-flux Neumann), the solid mask and a 2-cell dilation of it, both
+    bool tensors on the mesh's device (or four Nones without obstacles)."""
+    if mesh.obstacle is None:
+        return None, None, None, None
+    uv = [{"bc_type": "dirichlet", "bc_val": 0.0}] * len(mesh.obstacle)
+    p = [{"bc_type": "neumann", "bc_val": 0.0}] * len(mesh.obstacle)
+    body = np.zeros(tuple(mesh.nx), dtype=bool)
+    for m in mesh.obstacle_body_masks:
+        body |= m
+    near = body.copy()
+    for _ in range(2):
+        grown = near.copy()
+        for ax in range(near.ndim):
+            grown |= np.roll(near, 1, ax) | np.roll(near, -1, ax)
+        near = grown
+    return (uv, p, torch.as_tensor(body, device=mesh.device),
+            torch.as_tensor(near, device=mesh.device))
+
+
+def _fluid_neighbours(body: np.ndarray, device) -> list:
+    """``(axis, sign, fluid mask)`` per surface-shell face of ``body``: the
+    fluid cell one step along the outward normal of each shell cell (the
+    roll is a bijection, so the correspondence is exact), the masks bool
+    tensors on ``device``."""
+    out = []
+    for f, shell in MaskObstacle.shells(body).items():
+        if shell.any():
+            ax = DIR_TO_NUM[f[0]]
+            sgn = -1 if f[1] == "l" else +1
+            out.append((ax, sgn, torch.as_tensor(np.roll(shell, sgn, axis=ax), device=device)))
+    return out
+
+
+def staircase_body_force(p, vels, body, dx, nu, u_body=None) -> np.ndarray:
+    """Hydrodynamic force on an immersed solid (per unit density; 2-D: per
+    unit depth), ``F = ∮ (-p n + nu du/dn) dS`` over the staircase surface
+    of the boolean ``body`` mask (JAX ``navier_stokes.py:139-174``).
+
+    First-order immersed-boundary quadrature: the pressure is sampled at
+    the fluid neighbour of each surface cell and the traction uses the
+    one-sided normal derivative ``(u_fluid - u_body)/dx`` (no slip on a
+    body that may translate with ``u_body``). A constant pressure
+    integrates to zero exactly (the staircase normals close).
+
+    Returns a numpy vector of ``len(dx)`` components."""
+    return staircase_body_force_device(p, vels, body, dx, nu, u_body=u_body).cpu().numpy()
+
+
+def staircase_body_force_device(p, vels, body, dx, nu, u_body=None) -> torch.Tensor:
+    """The device form of ``staircase_body_force``: a ``(dim,)`` tensor on
+    ``p``'s device, computed without a host sync."""
+    p = torch.as_tensor(p)
+    body = np.asarray(body.cpu() if isinstance(body, torch.Tensor) else body, dtype=bool)
+    return _staircase_sum(p, vels, _fluid_neighbours(body, p.device), dx, nu, u_body)
+
+
+def _staircase_sum(p, vels, fluid_faces, dx, nu, u_body=None) -> torch.Tensor:
+    """The staircase quadrature over the fluid-neighbour masks
+    ``fluid_faces`` of ``_fluid_neighbours``."""
+    dim = len(dx)
+    ub = [0.0] * dim if u_body is None else [float(c) for c in u_body]
+    dv = 1.0
+    for d in dx:
+        dv *= float(d)
+    vels = [torch.as_tensor(v, dtype=p.dtype, device=p.device) for v in vels]
+    F = [torch.zeros((), dtype=p.dtype, device=p.device) for _ in range(dim)]
+    for ax, sgn, fluid in fluid_faces:
+        dS = dv / float(dx[ax])
+        F[ax] = F[ax] + (-sgn * torch.sum(torch.where(fluid, p, 0.0)) * dS)
+        for i, v in enumerate(vels):
+            dudn = torch.sum(torch.where(fluid, v, 0.0) - fluid.to(v.dtype) * ub[i])
+            F[i] = F[i] + nu * dudn / float(dx[ax]) * dS
+    return torch.stack(F)
+
+
+def control_volume_force(p, vels, dx, lo, hi, nu, vels_old=None, dt=None) -> np.ndarray:
+    """Momentum-balance (control-volume) force on the body enclosed by the
+    node box ``[lo, hi]`` (per unit density; 2-D: per unit depth; JAX
+    ``navier_stokes.py:205-321``)::
+
+        F_i = - d/dt ∫_CV u_i dV  -  ∮_S u_i (u·n) dS
+              + ∮_S ( -p n_i + nu (du_i/dx_n + du_n/dx_i) ) dS
+
+    Every term is evaluated on CV faces in smooth fluid away from the
+    body, with central differences and trapezoidal quadrature: second
+    order, where the staircase traction is first order.
+
+    Args:
+        p: pressure ``(*nx)``; vels: velocity components, each ``(*nx)``.
+        dx: grid spacings per axis.
+        lo/hi: inclusive node bounds of the CV box per axis; every face
+            plane needs an interior neighbour on each side.
+        nu: kinematic viscosity, a scalar or a per-point ``(*nx)`` array.
+        vels_old/dt: previous-step velocities and the step for the
+            unsteady term; omit both for a steady flow.
+
+    Returns a numpy vector of ``len(dx)`` components (host float64),
+    computed by ``control_volume_force_device`` on float64 tensors."""
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64)  # noqa: E731
+    p = f64(p)
+    nu = f64(nu).to(p.device) if getattr(nu, "ndim", 0) else nu
+    vels = [f64(v).to(p.device) for v in vels]
+    if vels_old is not None:
+        vels_old = [f64(v).to(p.device) for v in vels_old]
+    dt = None if dt is None else float(dt)
+    return control_volume_force_device(p, vels, dx, lo, hi, nu, vels_old, dt).cpu().numpy()
+
+
+def _grad_tang(arr: torch.Tensor, d: float, axis: int) -> torch.Tensor:
+    """``np.gradient(edge_order=2)`` along ``axis`` of a face plane:
+    central interior, second-order one-sided ends."""
+    g = (torch.roll(arr, -1, axis) - torch.roll(arr, 1, axis)) / (2 * d)
+
+    def sl(i):
+        return (slice(None),) * axis + (i,)
+
+    g[sl(0)] = (-3 * arr[sl(0)] + 4 * arr[sl(1)] - arr[sl(2)]) / (2 * d)
+    g[sl(-1)] = (3 * arr[sl(-1)] - 4 * arr[sl(-2)] + arr[sl(-3)]) / (2 * d)
+    return g
+
+
+def control_volume_force_device(p, vels, dx, lo, hi, nu, vels_old=None, dt=None) -> torch.Tensor:
+    """The device form of ``control_volume_force`` (JAX
+    ``navier_stokes.py:324-416``): the same quadrature on static slices of
+    the device tensors, the trapezoid weights made on the device, so a
+    per-step diagnostic makes no host sync. Returns a ``(dim,)`` tensor."""
+    dim = p.ndim
+    dx = [float(d) for d in dx]
+    lo = [int(v) for v in lo]
+    hi = [int(v) for v in hi]
+    for a in range(dim):
+        assert 1 <= lo[a] and hi[a] <= p.shape[a] - 2 and lo[a] < hi[a], (
+            f"control_volume_force: CV box {lo}..{hi} needs an interior neighbor on each side "
+            f"of every face (grid {tuple(p.shape)})"
+        )
+    nu_arr = nu if getattr(nu, "ndim", 0) else None
+
+    def trapz(n_nodes):
+        w = torch.ones(n_nodes, dtype=p.dtype, device=p.device)
+        w[0] = w[-1] = 0.5
+        return w
+
+    F = [torch.zeros((), dtype=p.dtype, device=p.device) for _ in range(dim)]
+    if vels_old is not None and dt is not None:
+        vol_sl = tuple(slice(lo[a], hi[a] + 1) for a in range(dim))
+        w_vol = None
+        for a in range(dim):
+            shape = [1] * dim
+            shape[a] = -1
+            wa = trapz(hi[a] - lo[a] + 1).reshape(shape)
+            w_vol = wa if w_vol is None else w_vol * wa
+        dv = float(np.prod(dx))
+        for i in range(dim):
+            dudt = (vels[i][vol_sl] - vels_old[i][vol_sl]) / dt
+            F[i] = F[i] - torch.sum(w_vol * dudt) * dv
+    for a in range(dim):
+        dS = float(np.prod([dx[j] for j in range(dim) if j != a]))
+        tang = [j for j in range(dim) if j != a]
+        w = None
+        for t_i, j in enumerate(tang):
+            shape = [1] * (dim - 1)
+            shape[t_i] = -1
+            wj = trapz(hi[j] - lo[j] + 1).reshape(shape)
+            w = wj if w is None else w * wj
+        for k, sgn in ((lo[a], -1.0), (hi[a], +1.0)):
+            plane, plane_p, plane_m = (
+                tuple(slice(lo[j], hi[j] + 1) if j != a else kk for j in range(dim))
+                for kk in (k, k + 1, k - 1)
+            )
+            pa = p[plane]
+            ua = vels[a][plane]
+            nu_f = nu_arr[plane] if nu_arr is not None else float(nu)
+            for i in range(dim):
+                ui = vels[i][plane]
+                F[i] = F[i] - sgn * torch.sum(w * ui * ua) * dS
+                dui_da = (vels[i][plane_p] - vels[i][plane_m]) / (2 * dx[a])
+                dua_di = dui_da if i == a else _grad_tang(ua, dx[i], tang.index(i))
+                F[i] = F[i] + sgn * torch.sum(w * nu_f * (dui_da + dua_di)) * dS
+            F[a] = F[a] - sgn * torch.sum(w * pa) * dS
+    return torch.stack(F)
 
 
 class LidDrivenCavity:
     """Lid-driven cavity in 2-D or 3-D, Re = U L / nu; the top wall (yu in
     2-D, zu in 3-D) moves along +x.
 
+    With obstacles on the mesh, they are immersed no-slip bodies: the
+    velocities take obstacle-Dirichlet 0 (the shell pinned, the solid
+    interior zeroed each step) and the pressure obstacle-Neumann (a
+    zero-flux wall).
+
     Args:
-        mesh: Box mesh (no obstacles: the port's ``Mesh`` raises on them).
+        mesh: Box mesh (optionally with obstacles).
         nu: kinematic viscosity, a scalar (a per-point field raises).
         lid_velocity: a float, or a callable ``U(t)`` evaluated at the new
             time level of each step.
@@ -140,31 +344,42 @@ class LidDrivenCavity:
                  "bc_val": None if per else 0.0, "bc_val_opt": None}
                 for f, per in zip(faces, p_periodic)]
 
-        names = ("u", "v", "w")[:dim]
-        self.vel = [Field(nm, 1, mesh, {"domain": vel_bc(j), "obstacle": None}, init_val=0.0)
-                    for j, nm in enumerate(names)]
-        self.u = self.vel[0]
-        self.v = self.vel[1]
-        if dim == 3:
-            self.w = self.vel[2]
-        self.p = Field("p", 1, mesh, {"domain": p_bc, "obstacle": None}, init_val=0.0)
-
+        self._make_fields(vel_bc, p_bc)
         # all-Neumann pressure: singular, solved on the zero-mean quotient
         self._singular_pressure = True
         self._init_solvers(config)
 
+    def _make_fields(self, vel_bc, p_bc) -> None:
+        """The velocity and pressure Fields, with the no-slip and zero-flux
+        obstacle BCs of the mesh's immersed bodies."""
+        mesh = self.mesh
+        uv_obs, p_obs, self._body, self._body_near = _obstacle_setup(mesh)
+        names = ("u", "v", "w")[:mesh.dim]
+        self.vel = [Field(nm, 1, mesh, {"domain": vel_bc(j), "obstacle": uv_obs}, init_val=0.0)
+                    for j, nm in enumerate(names)]
+        self.u = self.vel[0]
+        self.v = self.vel[1]
+        if mesh.dim == 3:
+            self.w = self.vel[2]
+        self.p = Field("p", 1, mesh, {"domain": p_bc, "obstacle": p_obs}, init_val=0.0)
+
     def _init_solvers(self, config) -> None:
-        """The JAX package's solver choice (``navier_stokes.py:569-688``):
+        """The JAX package's solver choice (``navier_stokes.py:569-690``):
         fastdiag for the separable momentum (BiCGSTAB with the frozen
-        diffusion+dt FD preconditioner under implicit advection) and for
-        the all-Neumann pressure (CG with MG as the fallback), each with
-        ``fd_fallback``; an explicit ``method``/``precond`` is taken
-        wholesale, and the pressure then runs CG on the zero-mean quotient
-        with that preconditioner."""
+        diffusion+dt FD preconditioner under implicit advection; plain
+        BiCGSTAB with immersed bodies) and for the all-Neumann pressure (CG
+        with MG as the fallback), each with ``fd_fallback``; an explicit
+        ``method``/``precond`` is taken wholesale. A pressure with bodies
+        takes BiCGSTAB with the plain-domain V-cycle when it is
+        non-singular (the Neumann shell elimination is nonsymmetric), plain
+        CG on the zero-mean quotient when it is singular."""
         config = config or {}
+        obstacle = self.mesh.obstacle is not None
         mom_cfg = {"method": "bicgstab", "tol": 1e-8, "max_it": 500, "report": False}
         if any(k in config for k in ("method", "precond")):
             pass
+        elif obstacle:
+            pass  # plain BiCGSTAB
         elif not self.implicit_advection:
             mom_cfg.update({"method": "fastdiag", "fd_fallback": "bicgstab"})
         else:
@@ -179,9 +394,13 @@ class LidDrivenCavity:
         if "precond" not in config:
             p_cfg.pop("precond", None)
             p_cfg.pop("fd_fallback", None)
-        if "method" not in config and "precond" not in config:
+        if not obstacle and "method" not in config and "precond" not in config:
             p_cfg.update({"method": "fastdiag", "fd_fallback": "cg", "precond": "mg"})
-        p_cfg.setdefault("precond", "mg")
+        if "precond" not in p_cfg:
+            if not obstacle:
+                p_cfg["precond"] = "mg"
+            elif not self._singular_pressure:
+                p_cfg.update({"precond": "mg", "method": "bicgstab"})
         self.p_solver = Solver({"fdm": p_cfg})
         self.dp = self.p.zeros_like("dp")
         if not hasattr(self, "_rc_mask"):
@@ -268,6 +487,10 @@ class LidDrivenCavity:
                 m[(slice(2, -2),) * dim] = True
                 self._rc_mask = m
             rc = torch.where(self._rc_mask, rc, 0.0)
+            if self._body_near is not None:
+                # the wide operator reaches 2 cells through a body (its
+                # solid p values are extrapolation artifacts): fluid only
+                rc = torch.where(self._body_near, 0.0, rc)
             # incremental: p accumulates p += dp, so the damped fixed point
             # needs the opposite sign
             rhs_p = rhs_p - rc if self.incremental else rhs_p + rc
@@ -287,6 +510,9 @@ class LidDrivenCavity:
         # 3. projection (incremental: with grad(dp) only) + BCs
         gp = self._grad(ptgt)
         new_vals = [self.vel[j]()[0] - dt * gp[j] for j in range(dim)]
+        if self._body is not None:
+            # no slip in the whole solid (the obstacle BC pins the shell)
+            new_vals = [torch.where(self._body, 0.0, nv) for nv in new_vals]
         for var, nv in zip(self.vel, new_vals):
             var.set_var_tensor(nv[None])
             var.apply_bcs()
@@ -349,3 +575,153 @@ class LidDrivenCavity:
         for j in range(1, self.mesh.dim):
             out = out + self._grad(self.vel[j])[j]
         return out
+
+    # -- forces on immersed bodies (JAX navier_stokes.py:1122-1233) --------
+    def _force_args(self, idx: int):
+        assert self.mesh.obstacle is not None, "body_force: no obstacles"
+        return (self.p()[0], [v()[0] for v in self.vel], self.mesh.obstacle_body_masks[idx],
+                [float(d) for d in self.mesh.dx_np], self.nu)
+
+    def body_force(self, idx: int = 0) -> np.ndarray:
+        """Hydrodynamic force on obstacle ``idx`` by the staircase
+        quadrature (``staircase_body_force``): a numpy vector of
+        ``mesh.dim`` components (drag = component 0 in the channel, lift
+        = component 1)."""
+        return staircase_body_force(*self._force_args(idx))
+
+    def body_force_device(self, idx: int = 0) -> torch.Tensor:
+        """``body_force`` as a device vector, with no host sync: a per-step
+        diagnostic gathered on the card and fetched once. The body's
+        fluid-neighbour masks are uploaded once and kept on the model."""
+        p, vels, body, dx, nu = self._force_args(idx)
+        fluid = self.__dict__.setdefault("_fluid_faces", {})
+        if idx not in fluid:
+            fluid[idx] = _fluid_neighbours(body, p.device)
+        return _staircase_sum(p, vels, fluid[idx], dx, nu)
+
+    def _cv_box(self, idx: int, margin: int):
+        """The CV node box ``(lo, hi)`` of obstacle ``idx``: its bounding
+        box grown by ``margin`` nodes, checked once (then cached) to have
+        every face plane in the fluid of every body."""
+        cache = self.__dict__.setdefault("_cv_box_cache", {})
+        if (idx, margin) in cache:
+            return cache[(idx, margin)]
+        assert self.mesh.obstacle is not None, "body_force_cv: no obstacles"
+        nx = self.mesh.nx
+        idxs = np.where(self.mesh.obstacle_body_masks[idx])
+        lo = [max(1, int(ii.min()) - margin) for ii in idxs]
+        hi = [min(int(n) - 2, int(ii.max()) + margin) for ii, n in zip(idxs, nx)]
+        solid = np.zeros(tuple(nx), dtype=bool)
+        for m in self.mesh.obstacle_body_masks:
+            solid |= m
+        for a in range(len(nx)):
+            for k in (lo[a], hi[a]):
+                plane = tuple(slice(lo[j], hi[j] + 1) if j != a else k for j in range(len(nx)))
+                assert not solid[plane].any(), (
+                    f"body_force_cv: CV face {a}@{k} intersects a body; reduce margin or check "
+                    "obstacle placement"
+                )
+        cache[(idx, margin)] = (lo, hi)
+        return lo, hi
+
+    def _cv_history(self, dt):
+        """The previous-step velocities and the step of the unsteady term,
+        or ``(None, None)`` before the first step."""
+        if dt is None or not all(v.n_hist > 0 for v in self.vel):
+            return None, None
+        return [v.VARo[0] for v in self.vel], dt
+
+    def body_force_cv(self, idx: int = 0, margin: int = 4) -> np.ndarray:
+        """Hydrodynamic force on obstacle ``idx`` by the control-volume
+        momentum balance (``control_volume_force``) over its bounding box
+        grown by ``margin`` nodes; the unsteady term uses the fields'
+        previous step (``VARo``) once a step has been taken."""
+        lo, hi = self._cv_box(idx, margin)
+        vo, dt = self._cv_history(self.vel[0]._dt)
+        return control_volume_force(self.p()[0], [v()[0] for v in self.vel],
+                                    [float(d) for d in self.mesh.dx_np], lo, hi, self.nu,
+                                    vels_old=vo, dt=None if dt is None else float(dt))
+
+    def body_force_cv_device(self, idx: int = 0, margin: int = 4, dt=None) -> torch.Tensor:
+        """``body_force_cv`` as a device vector, with no host sync; ``dt``
+        defaults to the fields' current step."""
+        lo, hi = self._cv_box(idx, margin)
+        vo, dt = self._cv_history(self.vel[0]._dt if dt is None else dt)
+        return control_volume_force_device(self.p()[0], [v()[0] for v in self.vel],
+                                           [float(d) for d in self.mesh.dx_np], lo, hi, self.nu,
+                                           vels_old=vo, dt=dt)
+
+
+class ChannelFlow(LidDrivenCavity):
+    """Pressure-projected channel or duct flow with inflow and outflow
+    (JAX ``navier_stokes.py:1268-1362``; 2-D channel or 3-D rectangular
+    duct).
+
+    Parabolic inflow at ``xl`` (2-D: ``u = 4 U s (1-s)``, ``s`` the
+    transverse coordinate over the width; 3-D: the product of two such
+    profiles), outflow at ``xu`` (zero-gradient velocity, ``p = 0``: the
+    pressure Poisson is non-singular), no-slip walls, and the mesh's
+    immersed no-slip obstacles (flow past a body).
+
+    Args:
+        mesh: Box mesh on [0, Lx] x [0, Ly] (x [0, Lz]), optionally with
+            obstacles.
+        nu: kinematic viscosity, a scalar (Re = U Ly / nu).
+        u_in: the inflow centreline scale U.
+    """
+
+    def __init__(self, mesh: Mesh, nu: float = 0.01, u_in: float = 1.0, config=None,
+                 implicit_advection: bool = False, rhie_chow: bool = True,
+                 incremental: bool = True, mu_strain_fn=None):
+        assert mesh.dim in (2, 3) and mesh.coord_sys == "xyz"
+        if getattr(nu, "ndim", 0) > 0:
+            raise _later("a per-point viscosity (a transient variable-Γ momentum solve)")
+        if mu_strain_fn is not None:
+            raise _later("a strain-rate viscosity law (mu_strain_fn)")
+        self.mesh = mesh
+        self.nu = nu
+        self.u_in = float(u_in)
+        self.lid = 0.0
+        self.implicit_advection = implicit_advection
+        self.rhie_chow = rhie_chow
+        self.incremental = incremental
+
+        dim = mesh.dim
+        lo = [float(v) for v in mesh._lower_np]
+        ln = [float(u) - l for u, l in zip(mesh._upper_np, lo)]
+        u_scale = self.u_in
+
+        def inflow(grid, mask, var, opt):
+            prof = 1.0
+            for j in range(1, dim):
+                s = (grid[j] - lo[j]) / ln[j]
+                prof = prof * 4.0 * s * (1.0 - s)
+            return u_scale * prof
+
+        self._inflow = inflow
+        faces = FDIR[: 2 * dim]
+        d0 = {"bc_type": "dirichlet", "bc_val": 0.0}
+        nm = {"bc_type": "neumann", "bc_val": 0.0}
+
+        def bc_list(xl_bc, xu_bc, wall_bc):
+            return [dict(bc_face=f, bc_val_opt=None,
+                         **(xl_bc if f == "xl" else xu_bc if f == "xu" else wall_bc))
+                    for f in faces]
+
+        u_dom = bc_list({"bc_type": "dirichlet", "bc_val": inflow}, nm, d0)
+        t_dom = bc_list(d0, nm, d0)  # the transverse components
+        self._make_fields(lambda j: u_dom if j == 0 else t_dom, bc_list(nm, d0, nm))
+        self.u.apply_bcs()
+        self._singular_pressure = False
+        self._init_solvers(config)
+
+    def flux(self, i: int) -> float:
+        """Volume flux through grid cross-section ``i`` (trapezoidal over the
+        transverse axes); one host read."""
+        u = self.u()[0][i].cpu().numpy()
+        for j in range(1, self.mesh.dim):
+            u = _trapezoid(u, dx=float(self.mesh.dx_np[j]), axis=0)
+        return float(u)
+
+
+_trapezoid = getattr(np, "trapezoid", None) or np.trapz

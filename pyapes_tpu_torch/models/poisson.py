@@ -31,10 +31,10 @@ class PoissonSolver:
             "report": False,
             "criterion": "residual",
         }
-        if mesh.coord_sys == "xyz":
+        if mesh.obstacle is None and mesh.coord_sys == "xyz":
             # plain boxes are separable: the fast-diagonalization direct
             # solve, a non-separable equation falls back to MG-PCG; an rz
-            # mesh takes CG (the JAX package's choice)
+            # mesh or one with obstacles takes CG (the JAX package's choice)
             cfg.update({"method": "fastdiag", "fd_fallback": "cg", "precond": "mg"})
         cfg.update(config or {})
         self.solver = Solver({"fdm": cfg})

@@ -1,12 +1,13 @@
 """Simulation runner / CLI (port of ``pyapes_tpu/runner.py``; the
-``poisson``, ``darcy``, ``burgers``, ``cavity``, ``convection`` and ``rfp``
-subcommands).
+``poisson``, ``darcy``, ``burgers``, ``cavity``, ``channel``, ``convection``
+and ``rfp`` subcommands: all of the JAX runner's).
 
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 512 --mg
     python -m pyapes_tpu_torch.runner darcy --n 1025 --avg harmonic
     python -m pyapes_tpu_torch.runner burgers --n 257 --steps 100
     python -m pyapes_tpu_torch.runner cavity --dim 3 --n 128 --re 100 --steps 5
+    python -m pyapes_tpu_torch.runner channel --n 49 --steps 20 --obstacle
     python -m pyapes_tpu_torch.runner convection --n 33 --steps 60 --dt 0.0125
     python -m pyapes_tpu_torch.runner rfp --n 40 --steps 200 --refresh 20
     python -m pyapes_tpu_torch.runner poisson --dim 3 --n 17 --device cpu
@@ -31,7 +32,12 @@ time ``t``.
 ``cavity`` steps the lid-driven cavity (``nu = 1 / re``, unit lid, eager
 steps; ``--adaptive-cfl`` integrates to ``dt * steps`` with the CFL step;
 ``--fused`` raises: the whole-step capture is ported in a later slice);
-it adds ``steps``, ``t`` and the centreline minimum of u. ``convection``
+it adds ``steps``, ``t`` and the centreline minimum of u. ``channel``
+steps the inflow/outflow channel ``[0, 3] x [0, 1]`` on ``n x (2n/3 + 1)``
+nodes (``--obstacle``: an immersed square body ``[0.9, 1.2] x [0.35,
+0.65]``) and adds the fluxes through the second and the last-but-one
+cross-sections, ``max|u|`` and, with the body, its staircase drag and
+lift. ``convection``
 steps the de Vahl Davis cavity (2-D) and adds the hot-wall Nusselt
 number. ``rfp`` relaxes an anisotropic Maxwellian on an ``n x 2n``
 Cylinder velocity mesh by self-consistent RFP evolution (the potentials
@@ -163,6 +169,32 @@ def _run_cavity(args) -> dict:
             "t": model.t}
 
 
+def _run_channel(args) -> dict:
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import ChannelFlow
+
+    obs = [Box[0.9:1.2, 0.35:0.65]] if args.obstacle else None
+    mesh = Mesh(Box[0:3, 0:1], obs, [args.n, (args.n * 2) // 3 + 1], device=args.device,
+                dtype=args.dtype)
+    model = ChannelFlow(mesh, nu=args.nu, u_in=1.0)
+    tic = time.perf_counter()
+    model.run(dt=args.dt, n_steps=args.steps)
+    if mesh.is_cuda:
+        torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - tic
+    n0 = mesh.nx[0]
+    out = {"wall_s": wall, "steps": args.steps, "flux_in": model.flux(1),
+           "flux_out": model.flux(n0 - 2), "u_max": float(model.u().abs().max())}
+    if args.obstacle:
+        drag, lift = model.body_force()
+        out["drag"] = float(drag)
+        out["lift"] = float(lift)
+    return out
+
+
 def _run_convection(args) -> dict:
     import torch
 
@@ -254,6 +286,13 @@ def run(argv=None) -> dict:
     sc.add_argument("--fused", action="store_true",
                     help="whole-step capture (ported in a later slice: raises)")
 
+    sch = sub.add_parser("channel", parents=[common])
+    sch.add_argument("--nu", type=float, default=0.05)
+    sch.add_argument("--dt", type=float, default=0.005)
+    sch.add_argument("--steps", type=int, default=400)
+    sch.add_argument("--obstacle", action="store_true",
+                     help="immersed square body in the channel")
+
     sv = sub.add_parser("convection", parents=[common])
     sv.add_argument("--ra", type=float, default=1e3)
     sv.add_argument("--pr", type=float, default=0.71)
@@ -272,7 +311,7 @@ def run(argv=None) -> dict:
 
     args = p.parse_args(argv)
     return {"poisson": _run_poisson, "darcy": _run_darcy, "burgers": _run_burgers,
-            "cavity": _run_cavity, "convection": _run_convection,
+            "cavity": _run_cavity, "channel": _run_channel, "convection": _run_convection,
             "rfp": _run_rfp}[args.case](args)
 
 

@@ -27,7 +27,7 @@ def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None
     def bicg_fn(x0, rhs, tparams, bc_vals=()):
         if precond_setup is not None:
             precond_setup(tparams)
-        M_ = M.build()
+        M_ = M.build(bc_vals)
 
         def apply_bcs_(v):
             return apply_bcs(v, bc_vals if bc_vals else None)

@@ -54,15 +54,29 @@ _FD_CACHE: OrderedDict = OrderedDict()
 _FD_CACHE_MAX = 16
 
 
+_OBSTACLE = ("obstacle_dirichlet", "obstacle_neumann")
+
+
 class _MaskSpec:
     """Recipe for the 0/1 active-set mask, materialized on the device per
-    solve call."""
+    solve call: the interior of ``slicer`` without the cells of the static
+    obstacle BCs ``static`` (each keeps its mask on the device) and
+    without the cells of the dynamic obstacles at ``dyn_idxs``, whose
+    masks arrive per call in ``bc_vals`` (JAX ``linalg.py:39-63``)."""
 
-    def __init__(self, nx, slicer, dtype, device):
+    def __init__(self, nx, slicer, dtype, device, static=(), dyn_idxs=()):
         self.nx, self.slicer, self.dtype, self.device = nx, slicer, dtype, device
+        self.static = tuple(static)
+        self.dyn_idxs = tuple(dyn_idxs)
 
-    def build(self) -> torch.Tensor:
-        return interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
+    def build(self, bc_vals=()) -> torch.Tensor:
+        m = interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
+        for bc in self.static:
+            m = m.masked_fill(bc.mask_on(self.device), 0.0)
+        for i in self.dyn_idxs:
+            if bc_vals and bc_vals[i] is not None:
+                m = m * (1.0 - bc_vals[i][0].to(m.dtype))
+        return m
 
 
 def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
@@ -179,7 +193,8 @@ def fd_separable(term_descs, tparams) -> bool:
     )
 
 
-def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fastdiag"):
+def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fastdiag",
+             obstacles=False):
     """The axis terms the fast-diagonalization solve inverts and the one
     whose scalar streams (``linalg.py::_fd_setup``): the DIRECT solve needs
     one 3-point axis term plus ddt terms; the PRECONDITIONER also takes
@@ -190,7 +205,10 @@ def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fast
     in (``c_ax`` then pins to 1; ``c_dt`` streams). Returns ``(terms,
     i_ax)``, ``terms`` the ``(weight, axis_np)`` pairs whose weighted
     per-axis matrices sum to the inverted operator. Raises ValueError for
-    what it cannot take."""
+    what it cannot take, obstacles among it (``linalg.py:1101-1105``)."""
+    if obstacles:
+        raise ValueError(f"{why}: obstacles break the product structure of the active set — "
+                         "use cg/bicgstab with precond 'mg'")
     ax_ids, ddt_ids = _ids(term_descs, "axis"), _ids(term_descs, "ddt")
     exact_ax = len(ax_ids) == 1 and len(ax_ids) + len(ddt_ids) == len(term_descs)
     hint_ids = ([i for i in _ids(term_descs, "custom") if term_descs[i][5] is not None]
@@ -255,13 +273,14 @@ def _fd_scalars(term_descs, i_ax):
     return scalars
 
 
-def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=None):
+def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=None,
+                     obstacles=False):
     """The FD preconditioner and its per-call scalar hook; ``(None, None)``
     when the equation has no usable separable part and ``fd_fallback`` is
     set (an unpreconditioned solve, as the JAX package)."""
     try:
         terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, for_precond=True,
-                               why="precond 'fd'")
+                               why="precond 'fd'", obstacles=obstacles)
         fd = fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device)
     except ValueError:
         if config.get("fd_fallback"):
@@ -350,14 +369,43 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
                  tol, max_it, slicer, paxes=(), decomp=None):
     """Assemble the solve of ``method`` on the (periodic-reduced) grid of
     ``x0``; returns ``fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol,
-    hist)`` and the row-scale fields ``sym_vecs`` the RHS must be
-    multiplied by (None: no scaling). Everything here is host work, redone
+    hist)``, the row-scale fields ``sym_vecs`` the RHS must be multiplied
+    by (None: no scaling) and ``rhs_shift`` (``tparams -> A e``, the
+    affine shell shift of nonzero-flux obstacle Neumann BCs that the RHS
+    sheds first; None without one). Everything here is host work, redone
     per call, so nothing cached can hold a stale BC, mask or scalar (the
     MG hierarchy is keyed by its structure, the eigen-factors by their
-    matrices)."""
-    M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device)
+    matrices; the static obstacle masks live on their BC objects).
+
+    Obstacle cells are pinned (Dirichlet) or dependent (Neumann) and leave
+    the active set; the Neumann shells' linear part folds into the
+    operator applied to search directions (``linalg.py:958-975``)."""
+    static, dyn_idxs = [], []
+    for i, bc in enumerate(bcs):
+        if bc.bc_type in _OBSTACLE:
+            if getattr(bc, "dynamic", False):
+                dyn_idxs.append(i)
+            else:
+                static.append(bc)
+    obn = tuple(bc for bc in bcs if bc.bc_type == "obstacle_neumann")
+    obstacles = bool(static or dyn_idxs)
+    M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device, static, dyn_idxs)
     apply_bcs = apply_bcs_fn(bcs, grid)
-    Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs))
+    Aop = raw_Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs))
+    if obn:
+        def Aop(v, tp):
+            for bc in obn:
+                v = bc.apply_linear(v)
+            return raw_Aop(v, tp)
+    rhs_shift = None
+    affine = tuple(bc for bc in obn if bc.bc_val != 0.0)
+    if affine:
+        def rhs_shift(tp):
+            e = None
+            for bc in affine:
+                f = bc.affine_field(x0.shape, x0.dtype, x0.device)
+                e = f if e is None else e + f
+            return raw_Aop(e, tp)
     project_mean = config.get("nullspace") == "mean"
     act_sel = (slice(None),) + tuple(slicer)
     dvs, any_scale = _neumann_row_scale_vecs(x0.shape[1:], bcs)
@@ -368,7 +416,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
                                   for d in term_descs)
 
     if method == "fastdiag":
-        terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes)
+        terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, obstacles=obstacles)
         null_shift = None
         if project_mean and any_scale:
             null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
@@ -380,7 +428,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             project_mean=project_mean,
             null_shift=null_shift,
         )
-        return fn, None
+        return fn, None, rhs_shift
 
     # Symmetrization row scaling (CG + Neumann/Symmetry faces): the
     # boundary-node elimination makes the surgered rows nonsymmetric
@@ -393,10 +441,10 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             torch.as_tensor(v, device=x0.device)[None]
             for v in _axis_fields(dvs, mesh.dim, x0.dtype)
         )
-        raw_Aop = Aop
+        obs_Aop = Aop
 
         def Aop(v, tp):
-            out = raw_Aop(v, tp)
+            out = obs_Aop(v, tp)
             for d in sym_vecs:
                 out = out * d
             return out
@@ -410,8 +458,10 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             pre_scale = 1.0 / _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype),
                                                 x0.device)()[act_sel]
         precond, precond_setup = _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0,
-                                                  pre_scale)
+                                                  pre_scale, obstacles)
     elif precond_kind == "mg":
+        # an obstacle system takes the plain-domain V-cycle: the cycle knows
+        # nothing of the excluded cells, the Krylov loop masks its output
         mg = make_mg_spec(config, x0, bcs, mesh, term_descs, paxes, decomp)
         precond = mg.preconditioner()
         if mg.var_gamma:
@@ -423,13 +473,17 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     if method == "bicgstab":
         fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,
                             fmg_init=fmg_init, precond_setup=precond_setup)
-        return fn, None
+        return fn, None, rhs_shift
 
     # the fused alpha-dot is off under a decomposition (linalg.py:1040-1049)
+    # and with Neumann obstacle shells (the operator carries their fold)
     Aop_dot = (_make_Aop_dot(term_descs, tparams, mesh.dim)
-               if sym_vecs is None and decomp is None else None)
-    # fused dot(r, z): the interior mask is exactly the MG mask here
-    precond_dot = mg.preconditioner_dot() if mg is not None and mg.can_fuse_rz() else None
+               if sym_vecs is None and decomp is None and not obn else None)
+    # fused dot(r, z): only where the interior mask is exactly the MG mask
+    # (no obstacle cells, no torus reduction; linalg.py:1315-1320)
+    precond_dot = (mg.preconditioner_dot()
+                   if mg is not None and mg.can_fuse_rz() and not obstacles and not paxes
+                   else None)
     null_shift = None
     if sym_vecs is not None:
         null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
@@ -438,4 +492,4 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
         project_mean=project_mean, Aop_dot=Aop_dot, fmg_init=fmg_init,
         precond_dot=precond_dot, null_shift=null_shift, precond_setup=precond_setup,
     )
-    return fn, sym_vecs
+    return fn, sym_vecs, rhs_shift

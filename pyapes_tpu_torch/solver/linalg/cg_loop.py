@@ -55,7 +55,7 @@ def build_cg(
     def cg_fn(x0, rhs, tparams, bc_vals=()):
         if precond_setup is not None:
             precond_setup(tparams)
-        M_ = M.build()
+        M_ = M.build(bc_vals)
         n_act = M_.sum()
 
         def apply_bcs_(v):

@@ -17,12 +17,16 @@ advection), ``custom`` (``fdm.custom``: a linear torch function; its
 on Cartesian and axisymmetric (rz) grids; with a
 domain decomposition (``decomp``: a ``DomainDecomposition`` whose blocks
 all live on the solve's device) the axis and advection terms apply block
-by block (``build.py``). MG on a periodic axis, obstacles and blocks on
+by block (``build.py``). Immersed obstacles (``ObstacleDirichlet``,
+static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
+torus reduction their masks are reduced too, every call, and a body on
+the duplicate seam plane raises. MG on a periodic axis and blocks on
 several devices are ported in later slices and raise
 ``NotImplementedError`` — never a silent detour to another path.
 """
 from __future__ import annotations
 
+import copy
 from typing import TypedDict
 
 import numpy as np
@@ -35,6 +39,7 @@ from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg.build import (
     _FD_CACHE,
     _MG_CACHE,
+    _OBSTACLE,
     build_solver,
     fd_separable,
 )
@@ -144,7 +149,7 @@ def _term_params(rec, desc, x0: torch.Tensor, paxes=()) -> dict:
     return p
 
 
-def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh) -> str:
+def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh, bcs) -> str:
     """Resolve ``method: "fastdiag"`` + ``fd_fallback``: ``"fastdiag"`` when
     the equation is exactly separable (one 3-point axis term plus ddt
     terms; cheap O(n) host probe: every axis diagonally symmetrizable),
@@ -152,8 +157,10 @@ def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh) -> str
 
     The JAX package's probe (``linalg.py:694-698``) also rejects any BC
     that carries a ``bc_mask`` — which every domain BC does — so there the
-    fallback is always taken; the port tests for obstacles, as intended."""
-    fd_ok = not mesh.obstacle and fd_separable(term_descs, tparams)
+    fallback is always taken; the port tests for obstacles (the mesh's or
+    obstacle BCs appended to the field), as intended."""
+    fd_ok = (not mesh.obstacle and not any(bc.bc_type in _OBSTACLE for bc in bcs)
+             and fd_separable(term_descs, tparams))
     if fd_ok:
         i_ax = next(i for i, d in enumerate(term_descs) if d[0] == "axis")
         try:
@@ -163,6 +170,36 @@ def _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh) -> str
         except ValueError:
             fd_ok = False
     return "fastdiag" if fd_ok else str(config["fd_fallback"]).lower()
+
+
+def _seam_check(mask, paxes, dim: int) -> None:
+    """The torus reduction drops the duplicate seam plane; a body
+    intersecting it would silently lose solid cells."""
+    for j in paxes:
+        if mask[tuple(-1 if k == j else slice(None) for k in range(dim))].any():
+            raise NotImplementedError(
+                f"obstacle touches the periodic seam plane of axis {j}; place bodies off the "
+                "duplicate endpoint plane"
+            )
+
+
+def _reduce_obstacles(bcs, paxes, dim: int) -> list:
+    """The obstacle BCs on the reduced torus (``linalg.py:551-590``,
+    ``:832-866``): per call, copies whose masks lose the seam plane, after
+    the seam check — a dynamic body moves between calls, so its current
+    mask is the one reduced."""
+    red = tuple(slice(None, -1) if j in paxes else slice(None) for j in range(dim))
+    out = []
+    for bc in bcs:
+        if bc.bc_type in _OBSTACLE:
+            _seam_check(bc.bc_mask, paxes, dim)
+            bc2 = copy.copy(bc)
+            bc2.bc_mask = bc.bc_mask[red]
+            if bc.bc_type == "obstacle_neumann":
+                bc2.faces = [(m[red], ax, sh, fdx) for (m, ax, sh, fdx) in bc.faces]
+            bc = bc2
+        out.append(bc)
+    return out
 
 
 def _check_decomp(decomp, x0) -> None:
@@ -237,6 +274,8 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     if decomp is not None:
         _check_decomp(decomp, x0)
     bcs = [bc for bc in var.bcs if not (bc.bc_type == "periodic" and bc.bc_face_dim in paxes)]
+    if paxes:
+        bcs = _reduce_obstacles(bcs, paxes, mesh.dim)
     slicer = list(boundary_slicer(mesh.dim, bcs, mesh.coord_sys))
     for j in paxes:
         slicer[j] = slice(None)  # every torus node is active
@@ -252,12 +291,14 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         grid = tuple(g[red[1:]] for g in grid)
 
     if method == "fastdiag" and config.get("fd_fallback"):
-        method = _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh)
+        method = _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh, bcs)
 
-    fn, sym_vecs = build_solver(
+    fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
         config.get("criterion", "delta"), tol, max_it, slicer, paxes, decomp,
     )
+    if rhs_shift is not None:  # the affine shells of nonzero-flux obstacles
+        rhs = rhs - rhs_shift(tparams)
     if sym_vecs is not None:
         # the operator is row-scaled to symmetric; scale b identically
         for d in sym_vecs:

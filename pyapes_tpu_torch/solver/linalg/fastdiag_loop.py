@@ -43,7 +43,7 @@ def build_fastdiag(
     """
 
     def fd_fn(x0, rhs, tparams, bc_vals=()):
-        M_ = M.build()
+        M_ = M.build(bc_vals)
         n_act = M_.sum()
 
         def apply_bcs_(v):

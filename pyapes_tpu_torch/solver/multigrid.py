@@ -405,6 +405,14 @@ class MGSpec:
 
         return self._const(("diag", shape), make)
 
+    def _om_diag(self, shape):
+        """``omega / diag``, the damped-Jacobi weight: a device constant of
+        the level where the diagonal is one (a Γ-free surgered level), the
+        scalar or a per-call tensor otherwise."""
+        if self.var_gamma or not self._surgery:
+            return self.omega / self._diag(shape)
+        return self._const(("om_diag", shape), lambda: self.omega / self._diag(shape))
+
     def _parity(self, shape):
         def make():
             ids = sum(
@@ -526,7 +534,7 @@ class MGSpec:
             for _ in range(n_iter):
                 x = self._vg_pass(x, b, shape, "smooth")
             return x
-        om_over_diag = self.omega / self._diag(shape)
+        om_over_diag = self._om_diag(shape)
         remaining = n_iter
         if remaining >= 2 and self._kernels(shape):
             while remaining >= 2:
@@ -567,10 +575,10 @@ class MGSpec:
         if n_iter == 2 and self._kernels(shape):
             # fused pre-pair: (omega/D) b then one sweep, one memory pass
             return jacobi3d_x2(
-                None, b, self._inv_dx2(shape), self.omega / self._diag(shape),
+                None, b, self._inv_dx2(shape), self._om_diag(shape),
                 _AXES3, from_zero=True,
             )
-        x = (self.omega / self._diag(shape)) * b * mask
+        x = self._om_diag(shape) * b * mask
         if n_iter > 1:
             x = self._smooth(x, b, shape, mask, n_iter - 1)
         return x
@@ -704,7 +712,7 @@ class MGSpec:
         e_c = self._vcycle(self._resize(r, self.shapes[1]), 1)
         x = torch.addcmul(x, self._resize(e_c, shape), mask)
         inv = self._inv_dx2(shape)
-        beta = self.omega / self._diag(shape)
+        beta = self._om_diag(shape)
         if self.n_post % 2 == 0:
             # final PAIR fused into one memory pass, dot included
             if self.n_post > 2:

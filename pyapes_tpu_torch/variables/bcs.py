@@ -3,8 +3,10 @@
 
 Supported: Dirichlet / Neumann / Symmetry / Periodic on the domain faces
 ``["xl","xu","yl","yu","zl","zu"]`` (``["rl","ru","zl","zu"]`` in rz),
-with scalar, per-component list or callable values. The obstacle BCs are
-ported in a later slice.
+with scalar, per-component list or callable values; and on immersed
+obstacles (``ObstacleDirichlet``, static or dynamic, and
+``ObstacleNeumann``, zero or nonzero flux), applied through masks that
+are uploaded to the field's device once per BC.
 
 ``apply`` is pure, as in the JAX package: it returns a new tensor and
 leaves its argument untouched. ``apply_`` is the in-place form; the
@@ -366,7 +368,255 @@ class BC_HN:
         return homogeneous_bcs(dim, bc_val, "neumann")
 
 
-BC_type = Dirichlet | Neumann | Symmetry | Periodic
+class ObstacleDirichlet:
+    """Dirichlet condition on an interior obstacle mask (immersed-boundary
+    style: the masked cells are pinned to the value and leave the Krylov
+    solve's active set; JAX ``bcs.py:400-465``).
+
+    ``dynamic=True`` (a moving body): the mask is read again on every
+    solve call (``stream_values``), so assigning a new ``bc_mask`` between
+    solves moves the body; a static obstacle uploads its mask once per
+    device."""
+
+    def __init__(self, bc_id: str, bc_val, bc_mask, bc_val_opt=None, dynamic: bool = False):
+        self.bc_id = bc_id
+        self.bc_val = bc_val
+        self.bc_val_opt = bc_val_opt
+        self.bc_mask = bc_mask
+        self.bc_type = "obstacle_dirichlet"
+        self.bc_face = "obstacle"
+        self.bc_face_dim = -1
+        self.bc_n_dir = 0
+        self.bc_treat = False
+        self.dynamic = bool(dynamic)
+
+    @property
+    def bc_mask(self) -> np.ndarray:
+        return self._bc_mask
+
+    @bc_mask.setter
+    def bc_mask(self, m) -> None:
+        self._bc_mask = np.asarray(m, dtype=bool)
+        self._dev: dict = {}
+
+    def mask_on(self, device) -> torch.Tensor:
+        """The mask as a bool tensor on ``device`` (uploaded once)."""
+        key = str(device)
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(self._bc_mask, device=device)
+        return self._dev[key]
+
+    @property
+    def type(self) -> str:
+        return self.bc_type
+
+    @property
+    def streamable(self) -> bool:
+        return self.dynamic
+
+    def _resolved_val(self, var, grid):
+        v = self.bc_val
+        if callable(v):
+            return torch.as_tensor(v(grid, self.bc_mask, var, self.bc_val_opt),
+                                   dtype=var.dtype, device=var.device)
+        if isinstance(v, (int, float)):
+            return float(v)
+        return torch.as_tensor(v, dtype=var.dtype, device=var.device)
+
+    def stream_values(self, var: torch.Tensor, grid, t=None):
+        """``(mask, value)`` of a dynamic obstacle, read from ``bc_mask``
+        now (``None`` for a static one)."""
+        if not self.dynamic:
+            return None
+        mask = torch.as_tensor(self._bc_mask, device=var.device)
+        return mask, self._resolved_val(var, grid)
+
+    def apply(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
+        return self.apply_(var.clone(), grid, var_dim, vals)
+
+    def apply_(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
+        """Pin the masked cells of ``var`` to the value, in place."""
+        if vals is not None:
+            mask, val = vals
+        else:
+            mask, val = self.mask_on(var.device), self._resolved_val(var, grid)
+        for d in range(var.shape[0]) if var_dim is None else [var_dim]:
+            if isinstance(val, float):
+                var[d].masked_fill_(mask, val)
+            else:
+                vd = val[d] if val.ndim > var.ndim - 1 else val
+                var[d] = torch.where(mask, vd, var[d])
+        return var
+
+
+class ObstacleNeumann:
+    """Neumann (flux) condition on an interior obstacle (JAX
+    ``bcs.py:468-598``).
+
+    The obstacle's surface-shell cells take the second-order one-sided
+    extrapolation of their fluid-side neighbours (the 4/3 rule of the
+    domain Neumann faces, outward normal from the body into the fluid):
+    ``v_shell = (4 v1 - v2)/3 + (2/3) V dx``. The whole solid body leaves
+    the Krylov active set; the linear part (``apply_linear``) is folded
+    into the operator applied to search directions, and the affine shift
+    of a nonzero flux (``affine_field``) moves to the solve's RHS. Shell
+    cells shared by two faces take the value of the face applied last
+    (faces in the mesh's ``o_mask`` order: xl, xu, yl, yu, zl, zu).
+
+    Args:
+        faces: list of ``(shell_mask, axis, shift, dx)``; ``shift`` is the
+            ``torch.roll`` amount that brings the fluid neighbour onto the
+            shell cell (+1 for a lower face, -1 for an upper face).
+        body_mask: the filled solid mask (``Mesh.obstacle_body_masks``).
+        all_body_masks: every obstacle's filled mask; when given, the
+            construction checks that each face's 1- and 2-step sources are
+            fluid cells inside the grid, and raises ``ValueError`` for a
+            shell within two cells of the domain boundary or bodies too
+            close together (``bcs.py:518-535``).
+    """
+
+    def __init__(self, bc_id: str, bc_val, faces, body_mask, all_body_masks=None):
+        self.bc_id = bc_id
+        self.bc_val = float(bc_val)
+        self.bc_val_opt = None
+        self.faces = faces
+        self.bc_mask = np.asarray(body_mask, dtype=bool)
+        if all_body_masks is not None:
+            solid = np.zeros_like(self.bc_mask)
+            for m in all_body_masks:
+                solid |= np.asarray(m, dtype=bool)
+            for mask, axis, shift, _dx in self.faces:
+                n = mask.shape[axis]
+                pos = np.nonzero(mask)[axis]
+                # apply() reads var at (shell - k * shift) for k = 1, 2
+                for k in (1, 2):
+                    src = pos - k * shift
+                    if ((src < 0) | (src >= n)).any():
+                        raise ValueError(
+                            f"obstacle neumann {bc_id}: shell cells are within {k} cells of the "
+                            f"domain boundary along axis {axis}; the one-sided extrapolation "
+                            "would wrap around the grid."
+                        )
+                    if (np.roll(mask, -k * shift, axis) & solid).any():
+                        raise ValueError(
+                            f"obstacle neumann {bc_id}: the {k}-step extrapolation source along "
+                            f"axis {axis} lies inside a solid body (bodies too thin or too close "
+                            "together for the 4/3 shell rule)."
+                        )
+        self.bc_type = "obstacle_neumann"
+        self.bc_face = "obstacle"
+        self.bc_face_dim = -1
+        self.bc_n_dir = 0
+        self.bc_treat = False
+        self.streamable = False
+
+    @property
+    def faces(self) -> list:
+        return self._faces
+
+    @faces.setter
+    def faces(self, faces) -> None:
+        self._faces = [(np.asarray(m, dtype=bool), int(ax), int(sh), float(dx))
+                       for (m, ax, sh, dx) in faces]
+        self._dev: dict = {}
+        self._plans = self._gather_plans()
+
+    @property
+    def bc_mask(self) -> np.ndarray:
+        return self._bc_mask
+
+    @bc_mask.setter
+    def bc_mask(self, m) -> None:
+        self._bc_mask = np.asarray(m, dtype=bool)
+        self._dev = {}
+
+    def mask_on(self, device) -> torch.Tensor:
+        """The body mask as a bool tensor on ``device`` (uploaded once)."""
+        key = ("mask", str(device))
+        if key not in self._dev:
+            self._dev[key] = torch.as_tensor(self._bc_mask, device=device)
+        return self._dev[key]
+
+    def _gather_plans(self) -> list:
+        """The shell update as gathers and scatters over the flattened grid:
+        per plan, the flat indices of its shell cells, of their 1- and
+        2-step sources (with ``roll``'s wrap) and each cell's affine shift
+        ``(2/3) V dx``. One merged plan (the last face's entry where faces
+        share a cell) when no source is itself a shell cell; else one plan
+        per face, applied in the faces' order."""
+        plans = []
+        for mask, axis, shift, dx in self._faces:
+            pos = np.nonzero(mask)
+            srcs = []
+            for k in (1, 2):
+                moved = list(pos)
+                moved[axis] = (pos[axis] - k * shift) % mask.shape[axis]
+                srcs.append(np.ravel_multi_index(tuple(moved), mask.shape))
+            dst = np.ravel_multi_index(pos, mask.shape)
+            plans.append((dst, *srcs, np.full(dst.shape, (2.0 / 3.0) * self.bc_val * dx)))
+        if len(plans) < 2:
+            return plans
+        dst, src1, src2, scale = (np.concatenate(a) for a in zip(*plans))
+        if np.isin(np.concatenate([src1, src2]), dst).any():
+            return plans
+        _, last = np.unique(dst[::-1], return_index=True)
+        keep = np.sort(len(dst) - 1 - last)  # the last face's entry of each cell
+        return [(dst[keep], src1[keep], src2[keep], scale[keep])]
+
+    def _plans_on(self, device) -> list:
+        key = ("plans", str(device))
+        if key not in self._dev:
+            self._dev[key] = [tuple(torch.as_tensor(a, device=device) for a in plan)
+                              for plan in self._plans]
+        return self._dev[key]
+
+    @property
+    def type(self) -> str:
+        return self.bc_type
+
+    def stream_values(self, var, grid, t=None):
+        return None
+
+    def _shells(self, var: torch.Tensor, shift_val: bool, out=None) -> torch.Tensor:
+        """``var`` with the shell cells extrapolated (into ``out`` when
+        given, else a new tensor): per cell ``(4 v1 - v2) / 3`` of its
+        fluid-side neighbours, ``+ (2/3) V dx`` with ``shift_val``."""
+        if out is None:
+            out = var.clone()
+        flat = out.view(out.shape[0], -1)
+        for dst, src1, src2, scale in self._plans_on(out.device):
+            new = (4.0 * flat[:, src1] - flat[:, src2]) / 3.0
+            if shift_val and self.bc_val != 0.0:
+                new = new + scale.to(new.dtype)
+            flat[:, dst] = new
+        return out
+
+    def apply(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
+        return self._shells(var, True)
+
+    def apply_(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
+        """The shell extrapolation written into ``var`` (every component)."""
+        return self._shells(var, True, out=var)
+
+    def apply_linear(self, var: torch.Tensor, grid=None, var_dim: int | None = None) -> torch.Tensor:
+        """The linear (zero-flux) part of ``apply``, as a new tensor: folded
+        into the operator for Krylov search directions."""
+        return self._shells(var, False)
+
+    def affine_field(self, shape, dtype, device) -> torch.Tensor:
+        """The affine shift ``e``: zeros with ``(2/3) V dx`` on each face's
+        shell (last face wins at edges, as in ``apply``). The solve
+        eliminates it by ``rhs -= A(e)``."""
+        e = torch.zeros(shape, dtype=dtype, device=device)
+        if self.bc_val == 0.0:
+            return e
+        flat = e.view(shape[0], -1)
+        for dst, _src1, _src2, scale in self._plans_on(device):
+            flat[:, dst] = scale.to(dtype)
+        return e
+
+
+BC_type = Dirichlet | Neumann | Symmetry | Periodic | ObstacleDirichlet | ObstacleNeumann
 
 BC_FACTORY: dict[str, type] = {
     "dirichlet": Dirichlet,

@@ -19,7 +19,14 @@ import numpy as np
 import torch
 
 from pyapes_tpu_torch.mesh import Mesh
-from pyapes_tpu_torch.variables.bcs import BC_FACTORY, BC_type, BCConfig
+from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ
+from pyapes_tpu_torch.variables.bcs import (
+    BC_FACTORY,
+    BC_type,
+    BCConfig,
+    ObstacleDirichlet,
+    ObstacleNeumann,
+)
 
 
 @dataclass
@@ -321,6 +328,42 @@ class Field:
                     dx_face=float(self.mesh.dx_np[face_dim]),
                 )
             )
+        if self.mesh.obstacle is not None and self.bc_config["obstacle"] is not None:
+            self._set_obstacle_bcs(self.bc_config["obstacle"])
+
+    def _set_obstacle_bcs(self, o_configs) -> None:
+        """Obstacle BCs (JAX ``fields.py:340-410``), one config dict per
+        obstacle (a single dict serves them all): "dirichlet" pins the
+        shell, "neumann" extrapolates it from the fluid side."""
+        mesh = self.mesh
+        d2n = DIR_TO_NUM if mesh.coord_sys == "xyz" else DIR_TO_NUM_RZ
+        if isinstance(o_configs, dict):
+            o_configs = [o_configs] * len(mesh.o_mask)
+        for i, oc in enumerate(o_configs):
+            if oc is None:
+                continue
+            assert oc["bc_type"] in ("dirichlet", "neumann"), (
+                "obstacle BCs: dirichlet or neumann (zero-flux)"
+            )
+            if oc["bc_type"] == "dirichlet":
+                masks = list(mesh.o_mask[i].values())
+                union = masks[0].copy()
+                for m in masks[1:]:
+                    union |= m
+                self.bcs.append(ObstacleDirichlet(
+                    bc_id=f"o{i}", bc_val=oc["bc_val"], bc_mask=union,
+                    bc_val_opt=oc.get("bc_val_opt"),
+                ))
+            else:
+                faces = []
+                for fkey, m in mesh.o_mask[i].items():
+                    axis = d2n[fkey[0]]
+                    faces.append((m, axis, 1 if fkey[1] == "l" else -1, float(mesh.dx_np[axis])))
+                self.bcs.append(ObstacleNeumann(
+                    bc_id=f"o{i}", bc_val=oc["bc_val"], faces=faces,
+                    body_mask=mesh.obstacle_body_masks[i],
+                    all_body_masks=mesh.obstacle_body_masks,
+                ))
 
     def apply_bcs(self) -> "Field":
         """Apply all BCs to the current values (returns self with a new

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
 (or one step of the 3-D Burgers, the QUICK or upwind advection-diffusion
-model, or the lid-driven cavity).
+model, the lid-driven cavity, the rz/RFP cell or the Schäfer–Turek 2D-2
+channel).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
@@ -10,6 +11,7 @@ model, or the lid-driven cavity).
     python scripts/profile_mgpcg_torch.py --upwind [--n 256] [--out ...]
     python scripts/profile_mgpcg_torch.py --cavity [--implicit] [--n 128] [--out ...]
     python scripts/profile_mgpcg_torch.py --rfp [--n 512] [--out ...]
+    python scripts/profile_mgpcg_torch.py --channel [--n 83] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
@@ -35,7 +37,12 @@ through the convection kernel) after two warm steps, or with ``--rfp``
 one run of its rz/RFP cell (``bench.py``'s ``bench_rz``: a Cylinder[0:4,
 -4:4] mesh of n x 2n f32 nodes, the Rosenbluth potentials H and G by
 fastdiag, then 5 implicit RFP steps of dt 1e-3 by the FD-preconditioned
-BiCGSTAB of ``fdm.custom``) after one warm run. ``--decomp 4,2,1`` solves the Poisson problem
+BiCGSTAB of ``fdm.custom``) after one warm run, or with ``--channel`` one
+step of its Schäfer–Turek 2D-2 cell (``SchaferTurek``: ``ChannelFlow`` past
+a cylinder at Re 100, ny = n (83: 441 x 83) f64, two plain BiCGSTAB
+momentum solves and the pressure's BiCGSTAB with the plain-domain V-cycle,
+with the per-step force diagnostics on the card) after two warm steps.
+``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
 halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
 fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
@@ -122,6 +129,8 @@ def main() -> None:
     p.add_argument("--cavity", action="store_true", help="one step of the NS cavity")
     p.add_argument("--rfp", action="store_true",
                    help="one run of the rz/RFP cell (potentials + 5 implicit steps)")
+    p.add_argument("--channel", action="store_true",
+                   help="one step of the Schäfer–Turek 2D-2 channel (ny = --n, default 83)")
     p.add_argument("--implicit", action="store_true",
                    help="with --cavity: implicit advection (the convection kernel)")
     p.add_argument("--decomp", default=None,
@@ -150,9 +159,9 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    step = args.burgers or args.quick or args.upwind or args.cavity or args.rfp
-    n = args.n or (128 if args.cavity else 512 if args.rfp else 256 if args.darcy or step
-                   else 512)
+    step = args.burgers or args.quick or args.upwind or args.cavity or args.rfp or args.channel
+    n = args.n or (128 if args.cavity else 512 if args.rfp else 83 if args.channel
+                   else 256 if args.darcy or step else 512)
     if step:
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       os.path.join(HERE, "chip_smoke.py"))
@@ -165,6 +174,12 @@ def main() -> None:
                 stepper.step()
         elif args.rfp:
             stepper = chip_smoke.RzCell(dev, n, 2 * n)
+        elif args.channel:
+            cell = chip_smoke.SchaferTurek(dev, n)
+            cell.run(2)  # the cell's warm steps
+            diags = []
+            stepper = type("ChannelStep", (), {"model": cell.model,
+                                               "step": lambda self: cell.run(1, diags)})()
         else:
             stepper = (chip_smoke.burgers_model(dev, n) if args.burgers
                        else chip_smoke.advdiff_model(dev, "quick" if args.quick else "upwind",
@@ -176,7 +191,7 @@ def main() -> None:
 
         def run():
             stepper.step()
-            if args.cavity:  # the step's last solve: the pressure
+            if args.cavity or args.channel:  # the step's last solve: the pressure
                 return stepper.model.p_solver.report
             return stepper.model.report  # --rfp: the last implicit step's
     else:
@@ -259,7 +274,7 @@ def main() -> None:
         "card": smi, "root": args.root,
         "case": ("burgers" if args.burgers else "quick" if args.quick else "upwind" if args.upwind
                  else ("cavity implicit" if args.implicit else "cavity") if args.cavity
-                 else "rfp" if args.rfp
+                 else "rfp" if args.rfp else "channel (2D-2)" if args.channel
                  else "darcy" if args.darcy else "poisson"),
         "method": ("model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,

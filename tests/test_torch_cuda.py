@@ -969,3 +969,57 @@ def test_cuda_rz_path_matches_cpu(cuda, case):
     assert card[0] == cpu[0]
     for a, b in zip(cpu[1], card[1]):
         assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)
+
+
+@pytest.mark.parametrize("case", ["cylinder_channel", "dirichlet_body_mg"])
+def test_cuda_obstacle_path_matches_cpu(cuda, case):
+    """The channel path in f64 on the card equals the CPU run: the cylinder
+    channel of ``tests/test_obstacle.py`` (97 x 33, 10 eager steps: plain
+    BiCGSTAB momentum, BiCGSTAB with the plain-domain V-cycle on the
+    obstacle pressure), or a hot square body's Laplace solve by MG-PCG:
+    the same itr solve by solve, the fields within 1e-10 relative, the
+    axis stencil launched on the card, and the device forces equal to the
+    host ones."""
+    from pyapes_tpu_torch.geometry import Box, MaskObstacle
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import ChannelFlow
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    def run(device):
+        if case == "dirichlet_body_mg":
+            mesh = Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [65, 65], device=device,
+                        dtype="double")
+            var = Field("p", 1, mesh, {"domain": homogeneous_bcs(2, 0.0, "dirichlet"),
+                                       "obstacle": [{"bc_type": "dirichlet", "bc_val": 1.0}]})
+            s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-10, "max_it": 500,
+                                "criterion": "residual"}})
+            s.set_eq(FDM().laplacian(1.0, var) == torch.zeros_like(var()))
+            return [s.solve()["itr"]], [var().cpu().numpy()], None
+        body = MaskObstacle(lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.12**2)
+        mesh = Mesh(Box[0:3, 0:1], [body], [97, 33], device=device, dtype="double")
+        model = ChannelFlow(mesh, nu=0.02, u_in=1.0)
+        itrs = []
+        for solver in (model.mom_solver, model.p_solver):
+            def solve(real=solver.solve):
+                rep = real()
+                itrs.append(rep["itr"])
+                return rep
+
+            solver.solve = solve
+        model.run(0.005, 10)
+        forces = (model.body_force(), model.body_force_device().cpu().numpy(),
+                  model.body_force_cv(), model.body_force_cv_device().cpu().numpy())
+        return itrs, [f().cpu().numpy() for f in model.state_fields()], forces
+
+    cpu = run("cpu")
+    before = axis_stencil.launches
+    card = run("cuda")
+    assert axis_stencil.launches > before
+    assert card[0] == cpu[0]
+    for a, b in zip(cpu[1], card[1]):
+        assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)
+    if card[2] is not None:
+        for a, b in zip(cpu[2], card[2]):
+            assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)

@@ -224,9 +224,9 @@ def test_neumann_cg_var_gamma_gets_no_row_scale(monkeypatch):
     real = dispatch.build_solver
 
     def spy(*args, **kwargs):
-        fn, sym_vecs = real(*args, **kwargs)
+        fn, sym_vecs, rhs_shift = real(*args, **kwargs)
         seen.append(sym_vecs)
-        return fn, sym_vecs
+        return fn, sym_vecs, rhs_shift
 
     monkeypatch.setattr(dispatch, "build_solver", spy)
     nx = (9, 10, 11)

@@ -13,8 +13,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pyapes_tpu_torch.backend import Device  # noqa: E402
-from pyapes_tpu_torch.geometry import Box, Cylinder  # noqa: E402
+from pyapes_tpu_torch.geometry import Box, Cylinder, MaskObstacle  # noqa: E402
 from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
+from pyapes_tpu_torch.models import ChannelFlow  # noqa: E402
 from pyapes_tpu_torch.ops import advect as advect_mod  # noqa: E402
 from pyapes_tpu_torch.ops import axis_stencil as axis_mod  # noqa: E402
 from pyapes_tpu_torch.ops import diff_field as diff_mod  # noqa: E402
@@ -28,6 +29,7 @@ from pyapes_tpu_torch.variables.bcs import CylinderBoundary, homogeneous_bcs, mi
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pyapes_tpu_torch")
+_CYL = lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.15**2  # noqa: E731
 
 
 def test_import_leaves_jax_out():
@@ -67,9 +69,11 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_entry_points_default_to_cuda():
-    """``Device()``, ``Mesh(...)`` (a Box or a Cylinder) and the runner
-    (``poisson``, ``rfp``) ask for the card unless the caller names the
-    CPU, and raise where there is none; ``MGSpec`` has no default device."""
+    """``Device()``, ``Mesh(...)`` (a Box, a Box with an obstacle, a
+    Cylinder), ``ChannelFlow`` on a default mesh and the runner
+    (``poisson``, ``rfp``, ``channel``) ask for the card unless the caller
+    names the CPU, and raise where there is none; ``MGSpec`` has no default
+    device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from pyapes_tpu_torch import runner
@@ -86,7 +90,15 @@ def test_entry_points_default_to_cuda():
         runner.run(["rfp", "--n", "5", "--steps", "1"])
     with pytest.raises(TypeError):
         MGSpec((5, 5, 5), (1.0, 1.0, 1.0))
+    with pytest.raises(RuntimeError):
+        Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9])
+    with pytest.raises(RuntimeError):
+        ChannelFlow(Mesh(Box[0:3, 0:1], [MaskObstacle(_CYL)], [13, 9]))
+    with pytest.raises(RuntimeError):
+        runner.run(["channel", "--n", "13", "--steps", "1", "--obstacle"])
     assert Mesh(Box[0:1, 0:1], None, [5, 5], device="cpu").device == torch.device("cpu")
+    assert Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9],
+                device="cpu").device == torch.device("cpu")
 
 
 def _field(bc_type="dirichlet"):
@@ -100,6 +112,11 @@ def _cavity(**kw):
     return LidDrivenCavity(Mesh(Box[0:1, 0:1], None, [6, 6], device="cpu", dtype="double"), **kw)
 
 
+def _channel(**kw):
+    mesh = Mesh(Box[0:3, 0:1], [MaskObstacle(_CYL)], [25, 9], device="cpu", dtype="double")
+    return ChannelFlow(mesh, nu=0.05, **kw)
+
+
 def _solve(cfg):
     var = _field()
     s = Solver({"fdm": {"method": "fastdiag", "tol": 1e-8, "max_it": 10, **cfg}})
@@ -111,7 +128,7 @@ def _solve(cfg):
     "case",
     ["periodic", "cg", "bicgstab", "decomp", "kernel", "sync", "fd_opts",
      "obstacle", "rz", "var_gamma", "ddt", "ns_fused", "ns_nu_field", "nc_k_fn", "custom",
-     "ns_mu_strain"],
+     "ns_mu_strain", "channel_fused", "channel_mu_strain"],
 )
 def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError):
@@ -141,8 +158,12 @@ def test_unported_features_raise(case):
             _solve({"sync": False})
         elif case == "fd_opts":
             _solve({"fd_opts": {"precision": "default"}})
-        elif case == "obstacle":
-            Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9], device="cpu")
+        elif case == "obstacle":  # a variable-Γ Laplacian with obstacle BCs (JAX fdm.py:207)
+            mesh = Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9], device="cpu",
+                        dtype="double")
+            var = Field("p", 1, mesh, {"domain": homogeneous_bcs(2, 0.0, "dirichlet"),
+                                       "obstacle": [{"bc_type": "dirichlet", "bc_val": 1.0}]})
+            FDM().laplacian(torch.ones(9, 9, dtype=torch.float64), var)
         elif case == "rz":  # a variable-Γ Laplacian on rz (the JAX package raises too)
             mesh = Mesh(Cylinder[0:1, 0:1], None, [9, 9], device="cpu", dtype="double")
             bcs = CylinderBoundary(**{f: {"bc_type": "dirichlet", "bc_val": 0.0}
@@ -177,8 +198,12 @@ def test_unported_features_raise(case):
             s.set_eq(FDM().custom(lambda x: 2.0 * x, var)
                      == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        else:  # a strain-rate viscosity law
+        elif case == "ns_mu_strain":  # a strain-rate viscosity law
             _cavity(mu_strain_fn=lambda gdot: 0.01 + 0.0 * gdot)
+        elif case == "channel_fused":  # the channel's whole-step capture (utils/fuse.py)
+            _channel().run(0.005, 1, fused=True)
+        else:  # the channel with a strain-rate viscosity law
+            _channel(mu_strain_fn=lambda gdot: 0.05 + 0.0 * gdot)
 
 
 def test_decomp_must_be_a_domain_decomposition():
@@ -313,6 +338,20 @@ def test_rz_path_on_cpu_counts_no_launch():
     model.step_implicit(Field("pdf", 1, mesh, None).set_var_tensor(f0), 1e-3)
     assert model.report["converge"]
     assert axis_stencil.launches == before == 0
+
+
+def test_channel_path_on_cpu_counts_no_launch():
+    """The channel path (plain BiCGSTAB momentum, BiCGSTAB with the
+    plain-domain V-cycle on the obstacle pressure) on CPU tensors takes the
+    plain versions and counts no launch."""
+    model = _channel()
+    reports = []
+    real = model.p_solver.solve
+    model.p_solver.solve = lambda: reports.append(real()) or reports[-1]
+    model.run(0.005, 2)
+    assert model.p_solver.config["fdm"]["precond"] == "mg" and reports
+    assert all(r["converge"] for r in reports)
+    assert axis_stencil.launches == 0
 
 
 def test_mgpcg_on_cpu_counts_no_launch():
