@@ -159,8 +159,25 @@ Phases, report lines before the last:
    within 1e-10), and the JAX tests' gates on that run (flux imbalance
    under 2%, no slip in the body, the wake, drag > 0, |lift| < 0.3 drag).
 
+13. periodic: the MG-PCG of ``bench.py``'s cg config on the torus (axes 0
+   and 1 periodic, 513 x 513 x 512 nodes, the reduced torus 512^3, axis 2
+   Dirichlet; the fused r.z is off on a torus) with phase 5's checks and
+   ``jacobi3d``/``jacobi3d_x2``/``axis_stencil_dot`` in every solve; the
+   Jacobi family against its plain versions with a torus level's masks
+   (``mask_axes`` (2,) and ()) at every level of that cycle x
+   f32/bf16/f64 x the variants, and timed at 512^3 and 256^3 bf16 with the
+   full and the torus masks; the TGV-3D Smagorinsky LES cell of
+   ``demos/tgv3d_les.py`` (``tgv_model``: ``PeriodicFlow`` at 64^3 nodes
+   f32, Re 1600, cs 0.17, dt 0.2 dx; 2 warm steps, 3 windows of 10): wall
+   per step, cell-steps/s, itr per solve (u, v, w / p), the Hopper
+   launches and host syncs per step, peak memory, <E>(0) within 2e-3 of
+   1/8, no solve at ``max_it``; its 257^3 rung (10 steps, the plane
+   marches of ``diff_field`` and ``axis_stencil``); the card against the
+   CPU in f64 (17^3 Beltrami flow 20 steps, Smagorinsky TGV 10 steps: the
+   same itr, 1e-10) and the 65^2 Taylor-Green test's gates on the card.
+
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10, 11, 12) and read just after; a kernel of a path that launched no time there
+9, 10, 11, 12, 13) and read just after; a kernel of a path that launched no time there
 fails the run. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
 or null; two last rows for the 2-D per-point kernel on the rz cell and on
@@ -175,7 +192,7 @@ import json
 import statistics
 import subprocess
 import time
-from math import pi, sin
+from math import exp, pi, sin
 
 N_MAIN = 512
 N_V11 = 256
@@ -831,19 +848,22 @@ def _level_inputs(shape, dtype, dev, seed):
     return inv, beta, x, b, coeffs
 
 
-def _march_cases(kernel, inv, beta, x, b, chunk=None):
+def _march_cases(kernel, inv, beta, x, b, chunk=None, axes=(0, 1, 2)):
     """(kernel name, variant, kernel call, plain call, dot-terms operand)
     for every variant of a plane march at one input: ``jacobi3d`` the
     single sweep (smooth, residual, residual on a subset of the masked
     axes) and its dot, ``jacobi3d_x2`` the double sweep's four variants;
     with ``chunk`` planes per block where given (only then is the keyword
-    passed, so an older wrapper takes the rest)."""
+    passed, so an older wrapper takes the rest); the update masked on the
+    end rows of ``axes`` (a torus level's: its non-periodic axes)."""
     from pyapes_tpu_torch.ops import jacobi as K
     from pyapes_tpu_torch.ops import stencil as P
 
     kw = {} if chunk is None else {"chunk": chunk}
     at = "" if chunk is None else f",chunk={chunk}"
-    ax = (0, 1, 2)
+    if axes != (0, 1, 2):
+        at += f",mask_axes={axes}"
+    ax = axes
     if kernel == "jacobi3d":
         return [
             ("jacobi3d", "smooth" + at, lambda: K.jacobi3d(x, b, inv, 1.0, beta, ax, **kw),
@@ -895,11 +915,13 @@ def _check_case(name, variant, kern, plain, dot_op, dtname):
     return err, limit, ok, tag
 
 
-def check_march(dev, kernel, shapes=KERNEL3D_SHAPES + EDGE_SHAPES, chunks=True):
+def check_march(dev, kernel, shapes=KERNEL3D_SHAPES + EDGE_SHAPES, chunks=True,
+                masks=((0, 1, 2),), label="[3 kernel]"):
     """A plane march (``kernel`` in ``MARCHES``) against its plain version
-    at ``shapes`` x ``DTYPES`` x its variants (with ``chunks``, also with
-    each of ``MARCH_CHUNKS`` planes per block); returns (worst err/limit,
-    worst abs error per kernel name), raises on a failure."""
+    at ``shapes`` x ``DTYPES`` x its variants masked on each of ``masks``
+    (with ``chunks``, also with each of ``MARCH_CHUNKS`` planes per block);
+    returns (worst err/limit, worst abs error per kernel name), raises on a
+    failure."""
     import torch
 
     worst = 0.0
@@ -908,7 +930,7 @@ def check_march(dev, kernel, shapes=KERNEL3D_SHAPES + EDGE_SHAPES, chunks=True):
     for seed, shape in enumerate(shapes):
         for dtname in DTYPES:
             inv, beta, x, b, _ = _level_inputs(shape, getattr(torch, dtname), dev, 800 + seed)
-            cases = _march_cases(kernel, inv, beta, x, b)
+            cases = [c for axes in masks for c in _march_cases(kernel, inv, beta, x, b, axes=axes)]
             for ci in MARCH_CHUNKS if chunks else ():
                 cases += _march_cases(kernel, inv, beta, x, b, ci)
             for case in cases:
@@ -920,18 +942,20 @@ def check_march(dev, kernel, shapes=KERNEL3D_SHAPES + EDGE_SHAPES, chunks=True):
                 worst_abs[case[0]] = max(worst_abs.get(case[0], 0.0), err)
                 n += 1
             del x, b
-    print(f"[3 kernel] {kernel}: {n} cases ({len(shapes)} shapes x {len(DTYPES)} dtypes x the "
+    masked = f" x mask_axes {masks}" if masks != ((0, 1, 2),) else ""
+    print(f"{label} {kernel}: {n} cases ({len(shapes)} shapes x {len(DTYPES)} dtypes{masked} x the "
           f"variants{' x plane chunks (auto, ' + str(MARCH_CHUNKS)[1:] if chunks else ''}), "
           f"worst err/limit {worst:.3f}", flush=True)
     return worst, worst_abs
 
 
-def level_times(dev, kernel, n: int = N_MAIN) -> list:
+def level_times(dev, kernel, n: int = N_MAIN, axes=(0, 1, 2)) -> list:
     """A plane march (bf16, the cycle's dtype) timed at every level shape
     of the n^3 V-cycle: ``jacobi3d`` as the masked residual (alpha 0, beta
     1: the cycle's call at every level above the coarsest) and as a
-    smooth, ``jacobi3d_x2`` as a smooth pair. Per level and variant the
-    per-call time (``_time_ms``), the device time per call back to back
+    smooth, ``jacobi3d_x2`` as a smooth pair, masked on ``axes`` (a torus
+    cycle's: its non-periodic axes). Per level and variant the per-call
+    time (``_time_ms``), the device time per call back to back
     (``_device_ms``), GB/s of its 3 grids of compulsory traffic, the bound
     and the share of it (both from the per-call time)."""
     import torch
@@ -943,10 +967,10 @@ def level_times(dev, kernel, n: int = N_MAIN) -> list:
     grids, size, _, ops = BOUND_WORK[kernel]
     for lvl, shape in enumerate(_level_shapes((n,) * 3)):
         inv, beta, x, b, _ = _level_inputs((1, *shape), torch.bfloat16, dev, 900 + lvl)
-        calls = {"": lambda: K.jacobi3d_x2(x, b, inv, beta, (0, 1, 2))}
+        calls = {"": lambda: K.jacobi3d_x2(x, b, inv, beta, axes)}
         if kernel == "jacobi3d":
-            calls = {"residual": lambda: K.jacobi3d(x, b, inv, 0.0, 1.0, (0, 1, 2)),
-                     "smooth": lambda: K.jacobi3d(x, b, inv, 1.0, beta, (0, 1, 2))}
+            calls = {"residual": lambda: K.jacobi3d(x, b, inv, 0.0, 1.0, axes),
+                     "smooth": lambda: K.jacobi3d(x, b, inv, 1.0, beta, axes)}
         pts = x.numel()
         bound = _bound(grids * size * pts, ops * pts)[0]
         for variant, call in calls.items():
@@ -955,7 +979,8 @@ def level_times(dev, kernel, n: int = N_MAIN) -> list:
                          "gb_per_s": grids * size * pts / (ms * 1e-3) / 1e9, "bound_ms": bound,
                          "share_of_bound": bound / ms})
         del x, b
-    print(f"[3 kernel] {kernel} bf16 at the {n}^3 V-cycle's levels (per call: median of 15 "
+    print(f"[3 kernel] {kernel} bf16 at the {n}^3 V-cycle's levels, mask_axes {axes} "
+          "(per call: median of 15 "
           "CUDA-event timings; device: 30 calls back to back; share = bound / per-call time): "
           + "; ".join(f"{r['shape'][0]}^3{' ' + r['variant'] if r['variant'] else ''} "
                       f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}) {r['gb_per_s']:.1f} GB/s "
@@ -2144,11 +2169,12 @@ def phase_burgers_xonly(dev, n: int = N_PATH) -> None:
     print(f"[9 Burgers x-only check] {n + 1}^3 f64 nu={nu}: {json.dumps(out)}", flush=True)
 
 
-def _solve_path(dev, n, cfg, label, darcy=False, solves=3):
+def _solve_path(dev, n, cfg, label, darcy=False, solves=3, paxes=()):
     """One warm-up and ``solves`` timed solves of the 3-D f32 all-Dirichlet
     random-RHS Poisson problem through the public API (with ``darcy``:
-    ``bench_darcy``'s variable-Γ problem); returns its stats (launches per
-    timed solve included) and the solution."""
+    ``bench_darcy``'s variable-Γ problem; with ``paxes``: those axes
+    periodic, n + 1 nodes each, so the reduced torus is n^3); returns its
+    stats (launches per timed solve included) and the solution."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -2160,17 +2186,21 @@ def _solve_path(dev, n, cfg, label, darcy=False, solves=3):
         laplacian_axis_coeffs,
     )
     from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.linalg.dispatch import _reduce_vecs
     from pyapes_tpu_torch.solver.ops import Solver
     from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
     from pyapes_tpu_torch.variables import Field
-    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+    from pyapes_tpu_torch.variables.bcs import mixed_bcs
 
     tol = cfg["tol"]
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n, n, n], device=str(dev), dtype="single")
-    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"), "obstacle": None},
-                init_val=0.0)
+    nodes = [n + 1 if j in paxes else n for j in range(3)]
+    kinds = [k for j in range(3) for k in ("periodic" if j in paxes else "dirichlet",) * 2]
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, nodes, device=str(dev), dtype="single")
+    var = Field("p", 1, mesh, {"domain": mixed_bcs([None if k == "periodic" else 0.0
+                                                    for k in kinds], kinds),
+                               "obstacle": None}, init_val=0.0)
     g = torch.Generator(device=mesh.device).manual_seed(0)
-    rhs = torch.randn((1, n, n, n), generator=g, device=mesh.device, dtype=torch.float32)
+    rhs = torch.randn((1, *nodes), generator=g, device=mesh.device, dtype=torch.float32)
     coeff = 1.0
     if darcy:
         coeff = torch.exp(0.8 * torch.sin(2 * pi * mesh.X) * torch.sin(2 * pi * mesh.Y)
@@ -2204,9 +2234,12 @@ def _solve_path(dev, n, cfg, label, darcy=False, solves=3):
             raise RuntimeError(f"chip_smoke: {label} {n}^3 solve did not converge: {rep}")
     peak = torch.cuda.max_memory_allocated()
 
-    # True relative residual, recomputed with the PLAIN operator.
+    # True relative residual, recomputed with the PLAIN operator (on the
+    # reduced torus: the duplicate seam planes dropped, every torus node
+    # active).
     x = var()
-    inner = (slice(None),) + (slice(1, -1),) * 3
+    red = (slice(None),) + tuple(slice(None, -1) if j in paxes else slice(None) for j in range(3))
+    inner = (slice(None),) + tuple(slice(None) if j in paxes else slice(1, -1) for j in range(3))
     if darcy:
         inv = tuple(1.0 / float(d) ** 2 for d in mesh.dx_np)
         surg = div_surgery_info(var.bcs, 3)
@@ -2214,17 +2247,20 @@ def _solve_path(dev, n, cfg, label, darcy=False, solves=3):
         def plain_A(v, dtype):
             return apply_diff_field(v.to(dtype), coeff.to(dtype), inv, surg)
     else:
-        c32 = coeffs_from_numpy(laplacian_axis_coeffs(mesh, var.bcs), mesh.device, torch.float32)
+        c32 = coeffs_from_numpy(_reduce_vecs(laplacian_axis_coeffs(mesh, var.bcs), paxes),
+                                mesh.device, torch.float32)
 
         def plain_A(v, dtype):
             return apply_axis_stencil(tuple(tuple(c.to(dtype) for c in cs) for cs in c32),
                                       v.to(dtype))
-    res32 = ((rhs - plain_A(x, torch.float32))[inner].norm() / rhs[inner].norm()).item()
-    r64 = rhs.double()
-    res64 = ((r64 - plain_A(x, torch.float64))[inner].norm() / r64[inner].norm()).item()
+    xr, rr = x[red], rhs[red]
+    res32 = ((rr - plain_A(xr, torch.float32))[inner].norm() / rr[inner].norm()).item()
+    r64 = rr.double()
+    res64 = ((r64 - plain_A(xr, torch.float64))[inner].norm() / r64[inner].norm()).item()
     med = statistics.median(walls)
     stats = {
-        "path": label, "n": n, "itr": [r["itr"] for r in reports],
+        "path": label, "n": n, "nodes": nodes, "periodic_axes": list(paxes),
+        "itr": [r["itr"] for r in reports],
         "tol": [r["tol"] for r in reports], "converge": [r["converge"] for r in reports],
         "first_call_s": first, "wall_s": walls, "wall_s_median": med,
         # the process's CPU time per solve: near the wall where the host
@@ -2313,12 +2349,14 @@ def phase_fastdiag_decomp(dev, ref_stats, ref_x, n: int = N_MAIN):
     return {"axis_stencil_ext": counts["axis_stencil_ext"]}
 
 
-def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str, decomp=None):
+def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str, decomp=None,
+                paxes=()):
     """MG-PCG through ``Solver.solve`` with ``bench.py``'s cg settings (and
-    ``decomp``); every kernel in ``required`` must launch in every timed
-    solve. Returns its launches and stats."""
+    ``decomp``; ``paxes`` periodic, the torus n^3); every kernel in
+    ``required`` must launch in every timed solve. Returns its launches and
+    stats."""
     _reset_counts()
-    stats, _ = _solve_path(dev, n, mg_cfg(mg_opts, decomp), label)
+    stats, _ = _solve_path(dev, n, mg_cfg(mg_opts, decomp), label, paxes=paxes)
     counts = _counts()
     for ls in stats["launches_per_solve"]:
         missing = [k for k in required if ls[k] == 0]
@@ -2329,7 +2367,7 @@ def phase_mgpcg(dev, n: int, mg_opts: dict, required: tuple, label: str, decomp=
         raise RuntimeError(f"chip_smoke: {label} true residual "
                            f"{stats['true_rel_residual_f32']:.3e} / "
                            f"{stats['true_rel_residual_f64']:.3e} > 1e-5")
-    print(f"[5 MG-PCG path] {json.dumps(stats)}", flush=True)
+    print(f"[{'13 periodic' if paxes else '5'} MG-PCG path] {json.dumps(stats)}", flush=True)
     return counts, stats
 
 
@@ -2495,20 +2533,18 @@ def _divergence(model) -> dict:
     return {"max_abs_div": div.max().item(), "bulk_mean_abs_div": bulk.mean().item()}
 
 
-def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM,
-                    steps: int = CAVITY_STEPS, reps: int = CAVITY_REPS,
-                    dtype: str = "single") -> dict:
-    """``warm`` steps, then ``reps`` times ``steps`` steps, each run ended
-    by ``torch.cuda.synchronize()``: wall per step (the median run), the
-    cell-steps/s, itr and tol per solve, the solves that did not converge,
-    the Hopper kernels' launches per step, peak memory of the timed runs
-    and the divergence after them. No solve may reach its ``max_it``; in
-    f64 every solve must converge (in f32 a fastdiag solve may end at its
-    stall exit, the f32 floor, and is listed); every step must launch the
-    path's kernels."""
+def _run_cell(stepper, required: tuple, label: str, warm: int, steps: int, reps: int,
+              must_converge: bool) -> dict:
+    """``warm`` steps of a flow model's ``stepper``, then ``reps`` times
+    ``steps`` steps, each run ended by ``torch.cuda.synchronize()``: wall
+    per step (the median run), itr and tol per solve, the solves that did
+    not converge, the Hopper kernels' launches per step, peak memory of the
+    timed runs and the divergence after them. No solve may reach its
+    ``max_it``; with ``must_converge`` every solve must converge (in f32 a
+    fastdiag solve may end at its stall exit, the f32 floor, and is
+    listed); every step must launch the kernels in ``required``."""
     import torch
 
-    stepper, required, label = cavity_model(dev, n, implicit, dtype)
     model = stepper.model
     reports = _record_solves(model)
     for _ in range(warm):
@@ -2529,7 +2565,7 @@ def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM
     peak = torch.cuda.max_memory_allocated() / 2**30
     unconverged = [(k, r["itr"], r["tol"]) for k, r in enumerate(reports) if not r["converge"]]
     bad = [r for r in reports if r["itr"] >= r["max_it"] or not r["tol"] == r["tol"]]
-    if bad or (dtype == "double" and unconverged):
+    if bad or (must_converge and unconverged):
         raise RuntimeError(f"chip_smoke: {label}: solves at max_it or not converged: "
                            f"{(bad or unconverged)[:3]}")
     missing = [(k, name) for k, ls in enumerate(per_step) for name in required if not ls.get(name)]
@@ -2538,13 +2574,11 @@ def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM
     u = torch.cat([v() for v in model.vel])
     if not bool(u.isfinite().all()) or not bool(model.p().isfinite().all()):
         raise RuntimeError(f"chip_smoke: {label}: the velocity or pressure is not finite")
-    wall = statistics.median(walls)
     per_solve = len(model.vel) + 1
     timed = reports[n_warm_solves:]
     return {
-        "path": label, "n": n, "dt": stepper.dt, "warm_steps": warm, "steps": steps,
-        "wall_s_per_step_runs": walls, "wall_s_per_step_median": wall,
-        "ns_cavity3d_cell_steps_per_s_chip_eager": n**3 / wall,
+        "path": label, "dt": stepper.dt, "warm_steps": warm, "steps": steps,
+        "wall_s_per_step_runs": walls, "wall_s_per_step_median": statistics.median(walls),
         "itr_per_step_timed": [[r["itr"] for r in timed[k:k + per_solve]]
                                for k in range(0, len(timed), per_solve)],
         "tol_last_step": [r["tol"] for r in reports[-per_solve:]],
@@ -2554,8 +2588,19 @@ def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM
         "hopper_launches_per_step": (per_step[0] if all(ls == per_step[0] for ls in per_step)
                                      else per_step),
         "peak_mem_gib_timed": peak, **_divergence(model), "t": model.t,
-        "sync": "default (the port raises on sync: False)",
     }
+
+
+def run_cavity_cell(dev, n: int, implicit: bool = False, warm: int = CAVITY_WARM,
+                    steps: int = CAVITY_STEPS, reps: int = CAVITY_REPS,
+                    dtype: str = "single") -> dict:
+    """The cavity cell through ``_run_cell`` (in f64 every solve must
+    converge), with bench's ``ns_cavity3d_cell_steps_per_s_chip_eager``."""
+    stepper, required, label = cavity_model(dev, n, implicit, dtype)
+    stats = _run_cell(stepper, required, label, warm, steps, reps, dtype == "double")
+    return {**stats, "n": n,
+            "ns_cavity3d_cell_steps_per_s_chip_eager": n**3 / stats["wall_s_per_step_median"],
+            "sync": "default (the port raises on sync: False)"}
 
 
 def _cavity_cmp_run(dev, kind: str, n: int, steps: int):
@@ -2575,6 +2620,23 @@ def _cavity_cmp_run(dev, kind: str, n: int, steps: int):
     reports = _record_solves(model)
     model.run(dt, steps)
     return [r["itr"] for r in reports], [f().cpu() for f in model.state_fields()]
+
+
+def _card_vs_cpu(dev, run, kind: str, tol: float) -> tuple:
+    """``run(device) -> (itr per solve, state fields on the host)`` on the
+    CPU and on the card: the same itr solve by solve and the fields within
+    ``tol`` relative to each field's max, else raise. Returns (itr, the
+    largest relative difference)."""
+    import torch
+
+    cpu_itr, cpu_f = run(torch.device("cpu"))
+    card_itr, card_f = run(dev)
+    rel = max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(cpu_f, card_f))
+    if card_itr != cpu_itr or not rel <= tol:
+        raise RuntimeError(f"chip_smoke: the {kind} on the card differs from the CPU run: itr "
+                           f"{card_itr} vs {cpu_itr}, max rel diff {rel:.3e}")
+    return card_itr, rel
 
 
 def _cavity_gates(dev) -> dict:
@@ -2632,14 +2694,9 @@ def phase_cavity(dev) -> dict:
         torch.cuda.empty_cache()
     cmp = {}
     for kind, steps in (("cavity", 10), ("convection", 3)):
-        cpu_itr, cpu_f = _cavity_cmp_run(torch.device("cpu"), kind, N_CAVITY_CMP, steps)
-        card_itr, card_f = _cavity_cmp_run(dev, kind, N_CAVITY_CMP, steps)
-        rel = max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-                  for a, b in zip(cpu_f, card_f))
-        if card_itr != cpu_itr or not rel <= CAVITY_CMP_TOL:
-            raise RuntimeError(f"chip_smoke: the {kind} on the card differs from the CPU run: itr "
-                               f"{card_itr} vs {cpu_itr}, max rel diff {rel:.3e}")
-        cmp[kind] = {"n": N_CAVITY_CMP, "steps": steps, "itr": card_itr, "max_rel_diff": rel}
+        itr, rel = _card_vs_cpu(dev, lambda d: _cavity_cmp_run(d, kind, N_CAVITY_CMP, steps),
+                                kind, CAVITY_CMP_TOL)
+        cmp[kind] = {"n": N_CAVITY_CMP, "steps": steps, "itr": itr, "max_rel_diff": rel}
     print(f"[10 NS cavity] card against CPU, f64 (tolerance {CAVITY_CMP_TOL}): "
           f"{json.dumps(cmp)}", flush=True)
     print(f"[10 NS cavity] the JAX model tests' gates on the card, f64: "
@@ -3420,6 +3477,177 @@ def phase_channel(dev) -> tuple:
     return counts, cell["axis_stencil_launches_per_step"]
 
 
+# the periodic path (phase 13): bench.py's cg problem with axes 0 and 1
+# periodic (513 x 513 x 512 nodes, the reduced torus 512^3, axis 2
+# Dirichlet); the Jacobi family checked with a torus level's masks at the
+# torus levels of that cycle; the 3-D Taylor-Green vortex at Re 1600 with
+# Smagorinsky LES (demos/tgv3d_les.py: 64^3 nodes f32, cs 0.17, dt = 0.2
+# dx), 2 warm steps then 3 timed windows of 10, and its 257^3 rung for 10
+# steps (the first grid where diff_field and axis_stencil take the plane
+# march on this path); the card against the CPU in f64 at 17^3 (the
+# Beltrami flow of tests/test_models.py 20 steps, the Smagorinsky TGV 10)
+PERIODIC_AXES = (0, 1)
+TORUS_MASKS = ((2,), ())
+TGV_N, TGV_RUNG = 64, 257
+TGV_WARM, TGV_STEPS, TGV_REPS, TGV_RUNG_STEPS = 2, 10, 3, 10
+N_PERIODIC_CMP = 17
+PERIODIC_CMP_TOL = 1e-10
+
+
+def tgv_model(dev, n: int = TGV_N, dtype: str = "single", les: bool = True, cs: float = 0.17,
+              re: float = 1600.0):
+    """``demos/tgv3d_les.py``'s cell: ``PeriodicFlow`` on [0, 2 pi]^3 at n^3
+    nodes, nu 1/re, the Smagorinsky closure (cs; without it with ``les``
+    false), the model's default solves (BiCGSTAB momentum through the
+    variable-Γ kernel, fastdiag pressure), the default ``sync``; the
+    Taylor-Green start. Returns (model, dt = 0.2 dx)."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import PeriodicFlow, smagorinsky_viscosity
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    clear_cache()
+    L, nu = 2 * pi, 1.0 / re
+    mesh = Mesh(Box[0:L, 0:L, 0:L], None, [n] * 3, device=str(dev), dtype=dtype)
+    model = PeriodicFlow(mesh, nu=nu,
+                         mu_strain_fn=smagorinsky_viscosity(nu, mesh, cs=cs) if les else None)
+    X, Y, Z = mesh.X, mesh.Y, mesh.Z
+    model.set_velocity(torch.sin(X) * torch.cos(Y) * torch.cos(Z),
+                       -torch.cos(X) * torch.sin(Y) * torch.cos(Z), torch.zeros_like(X))
+    return model, 0.2 * L / (n - 1)
+
+
+def run_tgv_cell(dev, n: int = TGV_N, warm: int = TGV_WARM, steps: int = TGV_STEPS,
+                 reps: int = TGV_REPS) -> dict:
+    """The TGV-3D LES cell through ``_run_cell`` (``diff_field``, the
+    momentum's variable-Γ apply, and ``axis_stencil``, the pressure's
+    fastdiag residual, in every step): <E>(0) held to 1/8 within 2e-3
+    first; then cell-steps/s and the host syncs of one more step (torch's
+    sync debug mode)."""
+    model, dt = tgv_model(dev, n)
+    label = f"TGV-3D Re 1600 Smagorinsky {n}^3 f32"
+    vol = (2 * pi) ** 3
+    e0 = float(model.kinetic_energy()) / vol
+    if not abs(e0 - 0.125) < 2e-3:
+        raise RuntimeError(f"chip_smoke: {label}: <E>(0) = {e0} is not 1/8")
+    stepper = _Stepper(model, dt)
+    stats = _run_cell(stepper, ("diff_field", "axis_stencil"), label, warm, steps, reps, False)
+    return {**stats, "n": n, "cell_steps_per_s": n**3 / stats["wall_s_per_step_median"],
+            "host_syncs_per_step": _count_syncs(stepper.step), "E0": e0,
+            "E_end": float(model.kinetic_energy()) / vol}
+
+
+def _periodic_cmp_run(dev, kind: str, n: int = N_PERIODIC_CMP):
+    """f64 on ``dev``: the Beltrami/ABC flow (``kind`` "beltrami": L 2 pi,
+    nu 0.2, the JAX test's dt, 20 steps) or the Smagorinsky TGV (10 steps)
+    at n^3: ``(itr per solve, state fields on the host)``."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import PeriodicFlow
+
+    if kind == "beltrami":
+        L = 2 * pi
+        mesh = Mesh(Box[0:L, 0:L, 0:L], None, [n] * 3, device=str(dev), dtype="double")
+        model = PeriodicFlow(mesh, nu=0.2)
+        X, Y, Z = mesh.X, mesh.Y, mesh.Z
+        model.set_velocity(torch.sin(Z) + torch.cos(Y), torch.sin(X) + torch.cos(Z),
+                           torch.sin(Y) + torch.cos(X))
+        steps = int(round(0.5 / (0.2 * (L / (n - 1)) / 2.0)))
+        dt, n_steps = 0.5 / steps, 20
+    else:
+        model, dt = tgv_model(dev, n, "double")
+        n_steps = 10
+    reports = _record_solves(model)
+    model.run(dt, n_steps)
+    return [r["itr"] for r in reports], [f().cpu() for f in model.state_fields()]
+
+
+def _periodic_gates(dev) -> dict:
+    """``tests/test_models.py::test_taylor_green_decay`` on the card (65^2
+    f64, nu 0.01, 50 steps of 2e-3): the velocity within 1% of the exact
+    decay, the kinetic energy within 2%, max|div| < 0.05."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import PeriodicFlow
+
+    mesh = Mesh(Box[0:1, 0:1], None, [65, 65], device=str(dev), dtype="double")
+    model = PeriodicFlow(mesh, nu=0.01)
+    k = 2 * pi
+    u0 = -torch.cos(k * mesh.X) * torch.sin(k * mesh.Y)
+    v0 = torch.sin(k * mesh.X) * torch.cos(k * mesh.Y)
+    model.set_velocity(u0, v0)
+    model.run(2e-3, 50)
+    decay = exp(-2 * k**2 * 0.01 * 2e-3 * 50)
+    rel = [((f()[0] - e * decay).norm() / (e * decay).norm()).item()
+           for f, e in ((model.u, u0), (model.v, v0))]
+    gates = {"rel_u": rel[0], "rel_v": rel[1],
+             "ke_ratio": float(model.kinetic_energy()) / (0.25 * decay**2),
+             "max_abs_div": model.divergence().abs().max().item()}
+    if not (max(rel) < 0.01 and abs(gates["ke_ratio"] - 1.0) < 0.02
+            and gates["max_abs_div"] < 0.05):
+        raise RuntimeError(f"chip_smoke: the Taylor-Green decay failed the JAX test's gates: "
+                           f"{gates}")
+    return gates
+
+
+def phase_periodic(dev) -> tuple:
+    """The periodic path: the MG-PCG on the 512^3 torus (bench's cg
+    config; ``jacobi3d``/``jacobi3d_x2`` and ``axis_stencil_dot`` must
+    launch), the Jacobi family with the torus masks at its levels, the
+    TGV-3D LES cell at 64^3 and its 257^3 rung (each path with the launch
+    counts set to 0 just before and read just after), the card against the
+    CPU in f64 (the same itr solve by solve, the fields within
+    ``PERIODIC_CMP_TOL`` relative), the Taylor-Green gates on the card.
+    Returns (the paths' launch counts, the worst abs errors of the torus
+    checks per kernel)."""
+    import torch
+
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    tic = time.perf_counter()
+    counts, _ = phase_mgpcg(
+        dev, N_MAIN, BENCH_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_x2"),
+        f"MG-PCG periodic {PERIODIC_AXES} torus {N_MAIN}^3 bf16 V(2,2) FMG", paxes=PERIODIC_AXES)
+    torch.cuda.empty_cache()
+    worst_abs = {}
+    levels = [(1, *shape) for shape in _level_shapes((N_MAIN,) * 3)]
+    for kernel in MARCHES:  # every level of the torus cycle
+        for k, v in check_march(dev, kernel, levels, chunks=False, masks=TORUS_MASKS,
+                                label="[13 periodic]")[1].items():
+            worst_abs[k] = max(worst_abs.get(k, 0.0), v)
+    torch.cuda.empty_cache()
+    for kernel in MARCHES:  # beside phase 3's full-mask rows
+        for axes in TORUS_MASKS:
+            level_times(dev, kernel, axes=axes)
+    torch.cuda.empty_cache()
+    for n, warm, steps, reps in ((TGV_N, TGV_WARM, TGV_STEPS, TGV_REPS),
+                                 (TGV_RUNG, 1, TGV_RUNG_STEPS, 1)):
+        _reset_counts()
+        cell = run_tgv_cell(dev, n, warm, steps, reps)
+        for name, c in _counts().items():
+            counts[name] = counts.get(name, 0) + c
+        print(f"[13 periodic] {json.dumps(cell)}", flush=True)
+        torch.cuda.empty_cache()
+    cmp = {}
+    for kind in ("beltrami", "tgv_les"):
+        itr, rel = _card_vs_cpu(dev, lambda d: _periodic_cmp_run(d, kind), kind,
+                                PERIODIC_CMP_TOL)
+        cmp[kind] = {"n": N_PERIODIC_CMP, "solves": len(itr), "itr_sum": sum(itr),
+                     "max_rel_diff": rel}
+    print(f"[13 periodic] card against CPU, f64 (tolerance {PERIODIC_CMP_TOL}): "
+          f"{json.dumps(cmp)}", flush=True)
+    print(f"[13 periodic] the Taylor-Green test's gates on the card, f64 (65^2, 50 steps): "
+          f"{json.dumps(_periodic_gates(dev))}", flush=True)
+    print(f"[13 periodic] phase wall {time.perf_counter() - tic:.1f} s", flush=True)
+    return counts, worst_abs
+
+
 def main() -> None:
     import torch
 
@@ -3473,6 +3701,10 @@ def main() -> None:
     ch_counts, ch_per_step = phase_channel(dev)
     path_counts.append(ch_counts)
     phase_burgers_xonly(dev)
+    per_counts, per_worst_abs = phase_periodic(dev)
+    path_counts.append(per_counts)
+    for name, err in per_worst_abs.items():
+        worst[name] = max(worst[name], err)
     for counts in path_counts:
         for name, c in counts.items():
             launches[name] += c

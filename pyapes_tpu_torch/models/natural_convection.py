@@ -9,10 +9,11 @@ Boussinesq form (length L, time L^2/alpha):
     dT/dt + (u.grad) T = lap T,   div u = 0
 
 Validation: the hot-wall Nusselt number against the benchmark (Ra = 1e3:
-1.118, Ra = 1e4: 2.243). Constant properties only: ``mu_fn`` and ``k_fn``
-(temperature-dependent viscosity and conductivity) are transient
-variable-Γ solves, ported in a later slice; they raise
-``NotImplementedError``.
+1.118, Ra = 1e4: 2.243). Temperature-dependent properties: ``mu_fn``
+(viscosity ``mu(T)``, re-evaluated each step from ``T^n``: the cavity's
+variable-viscosity momentum) and ``k_fn`` (conductivity ``k(T)``: the heat
+equation's diffusion becomes the conservative ``div(k grad T)``, a
+variable-Γ term).
 """
 from __future__ import annotations
 
@@ -35,22 +36,21 @@ class NaturalConvection(LidDrivenCavity):
         mesh: Box mesh on [0, 1]^dim.
         ra: Rayleigh number.
         pr: Prandtl number (0.71 for air, the benchmark value).
+        mu_fn: ``T -> mu`` per-point viscosity, or None (the scalar Pr).
+        k_fn: ``T -> k`` per-point conductivity, or None (k = 1).
     """
 
     def __init__(self, mesh: Mesh, ra: float = 1e3, pr: float = 0.71, config=None,
                  implicit_advection: bool = True, rhie_chow: bool = True,
                  incremental: bool = True, mu_fn=None, k_fn=None):
-        if mu_fn is not None or k_fn is not None:
-            raise NotImplementedError(
-                "NaturalConvection: temperature-dependent viscosity or conductivity (mu_fn, "
-                "k_fn) is ported in a later slice"
-            )
         # no-slip walls, no lid; viscosity = Pr in these units
         super().__init__(mesh, nu=pr, lid_velocity=0.0, config=config,
                          implicit_advection=implicit_advection, rhie_chow=rhie_chow,
                          incremental=incremental)
         self.ra = float(ra)
         self.pr = float(pr)
+        self.mu_fn = mu_fn
+        self.k_fn = k_fn
         t_bc = []
         for f in FDIR[: 2 * mesh.dim]:
             kind, val = {"xl": ("dirichlet", 1.0), "xu": ("dirichlet", 0.0)}.get(
@@ -62,6 +62,8 @@ class NaturalConvection(LidDrivenCavity):
         self.T.apply_bcs()
 
     def step(self, dt: float) -> None:
+        if self.mu_fn is not None:
+            self.update_viscosity(self.mu_fn(self.T()[0]))
         # the buoyancy source of the vertical momentum, Ra Pr T (explicit)
         self._buoyancy = self.ra * self.pr * self.T()[0]
         super().step(dt)
@@ -72,8 +74,9 @@ class NaturalConvection(LidDrivenCavity):
             T.set_time(dt, self.t - dt)
         T.save_old()
         uvec = torch.cat([v() for v in self.vel], dim=0)
+        k = 1.0 if self.k_fn is None else self._as_field(self.k_fn(T()[0]))
         self.mom_solver.set_eq(
-            self.fdm.ddt(T) + self.fdm.conv(uvec, T) - self.fdm.laplacian(1.0, T)
+            self.fdm.ddt(T) + self.fdm.conv(uvec, T) - self.fdm.laplacian(k, T)
             == torch.zeros_like(T())
         )
         self.mom_solver.solve()

@@ -1,6 +1,6 @@
-"""Incompressible Navier-Stokes: the lid-driven cavity by incremental
-pressure-correction projection (PyTorch port of the cavity of
-``pyapes_tpu/models/navier_stokes.py``).
+"""Incompressible Navier-Stokes by incremental pressure-correction
+projection: the lid-driven cavity, the channel and the periodic box
+(PyTorch port of ``pyapes_tpu/models/navier_stokes.py``).
 
 Semi-implicit scheme on the collocated grid (Goda/van Kan incremental
 form by default; ``incremental=False`` is non-incremental Chorin):
@@ -15,9 +15,10 @@ form by default; ``incremental=False`` is non-incremental Chorin):
 
 Each step is eager: the solves go through ``Solver`` (fastdiag for the
 separable momentum and pressure systems; BiCGSTAB with the FD
-preconditioner for implicit advection; with immersed bodies plain
-BiCGSTAB for the momentum and BiCGSTAB with the plain-domain V-cycle for
-a non-singular pressure) and the explicit glue is plain PyTorch.
+preconditioner for implicit advection; plain BiCGSTAB for the momentum
+with immersed bodies or a per-point viscosity; BiCGSTAB with the
+plain-domain V-cycle for a non-singular pressure with bodies) and the
+explicit glue is plain PyTorch.
 
 Immersed obstacles on the mesh become no-slip bodies: the velocities take
 obstacle-Dirichlet 0 (shell pinned, solid interior zeroed each step), the
@@ -27,10 +28,17 @@ hydrodynamic force on a body: the staircase surface quadrature and the
 control-volume momentum balance, each in a host form (numpy result) and a
 device form (a device vector, no host sync).
 
-Scalar viscosity only: a per-point viscosity, ``mu_strain_fn`` and the
-viscosity laws are a transient variable-Γ momentum solve, and the fused
-whole-step runner (``utils/fuse.py``) is a CUDA-graph capture; both are
-ported in later slices and raise ``NotImplementedError``.
+The viscosity is a scalar or a per-point field: a field (given, set by
+``update_viscosity``, or re-evaluated each step from the strain rate by
+``mu_strain_fn``, e.g. one of the laws below) makes the momentum
+diffusion the conservative ``div(mu grad u_j)`` (a variable-Γ term, the
+``diff_field`` kernel) plus the explicit transpose source
+``sum_k d_k(mu) d_j(u_k)``. ``PeriodicFlow`` is the fully periodic box
+(Taylor-Green, the 3-D TGV with Smagorinsky LES, the Beltrami flow).
+
+The fused whole-step runner (``utils/fuse.py``) is a CUDA-graph capture,
+ported in a later slice: ``run(fused=True)``, ``run_batched`` and
+``fused_runner`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,6 +77,51 @@ def _ddx(f: torch.Tensor, dx: float, axis: int, periodic: bool = False) -> torch
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"NS models: {what} is ported in a later slice")
+
+
+def power_law_viscosity(K: float, n: float, eps: float = 1e-6):
+    """Regularized Ostwald–de Waele (power-law) law ``mu(γ̇) = K (γ̇² +
+    ε²)^{(n-1)/2}``: shear-thinning for n < 1, shear-thickening for
+    n > 1, Newtonian K at n = 1 (ε bounds mu where γ̇ → 0). Returns a
+    ``gamma_dot -> mu`` callable for ``mu_strain_fn``."""
+    ex = 0.5 * (n - 1.0)
+
+    def mu(gdot):
+        return K * (gdot * gdot + eps * eps) ** ex
+
+    return mu
+
+
+def carreau_viscosity(mu0: float, mu_inf: float, lam: float, n: float):
+    """Carreau–Yasuda (a = 2) law ``mu(γ̇) = mu_inf + (mu0 - mu_inf) (1 +
+    (λ γ̇)²)^{(n-1)/2}``: bounded at zero shear (mu0) and at infinite
+    shear (mu_inf). Returns a ``gamma_dot -> mu`` callable for
+    ``mu_strain_fn``."""
+    ex = 0.5 * (n - 1.0)
+
+    def mu(gdot):
+        return mu_inf + (mu0 - mu_inf) * (1.0 + (lam * gdot) ** 2) ** ex
+
+    return mu
+
+
+def smagorinsky_viscosity(nu: float, mesh: Mesh, cs: float = 0.17, damping=None):
+    """Smagorinsky LES eddy viscosity ``nu_eff(|S|) = nu + (C_s Δ)² |S|``
+    with ``Δ = (Π dx_j)^{1/dim}`` and ``|S| = sqrt(2 S:S)`` (what
+    ``strain_rate`` returns), for ``mu_strain_fn``.
+
+    ``damping``: an optional per-point array multiplying ``(C_s Δ)²`` (e.g.
+    a Van Driest wall-damping factor), kept as a tensor on the mesh's
+    device; None: no damping."""
+    delta = float(np.prod(np.asarray(mesh.dx_np))) ** (1.0 / mesh.dim)
+    c2 = (cs * delta) ** 2
+    if damping is not None:
+        c2 = c2 * torch.as_tensor(damping, dtype=mesh.dtype.float, device=mesh.device)
+
+    def mu(gdot):
+        return nu + c2 * gdot
+
+    return mu
 
 
 def _obstacle_setup(mesh: Mesh):
@@ -267,7 +320,8 @@ class LidDrivenCavity:
 
     Args:
         mesh: Box mesh (optionally with obstacles).
-        nu: kinematic viscosity, a scalar (a per-point field raises).
+        nu: kinematic viscosity, a scalar or a per-point ``(*nx)`` field
+            (a stacked ``(dim, *nx)`` one raises ``ValueError``).
         lid_velocity: a float, or a callable ``U(t)`` evaluated at the new
             time level of each step.
         lid_profile: "uniform" (the singular classic cavity) or
@@ -277,6 +331,8 @@ class LidDrivenCavity:
             "periodic" (the spanwise-invariant quasi-2-D cavity).
         config: FDM solver config overrides; an explicit ``method`` or
             ``precond`` is taken wholesale.
+        mu_strain_fn: a ``gamma_dot -> mu`` law: the viscosity field is
+            re-evaluated from the strain rate at the start of each step.
     """
 
     def __init__(self, mesh: Mesh, nu: float = 0.01, lid_velocity=1.0, config=None,
@@ -286,12 +342,8 @@ class LidDrivenCavity:
         assert mesh.dim in (2, 3) and mesh.coord_sys == "xyz"
         assert lid_profile in ("uniform", "regularized")
         assert spanwise in ("noslip", "symmetry", "periodic")
-        if getattr(nu, "ndim", 0) > 0:
-            raise _later("a per-point viscosity (a transient variable-Γ momentum solve)")
-        if mu_strain_fn is not None:
-            raise _later("a strain-rate viscosity law (mu_strain_fn)")
         self.mesh = mesh
-        self.nu = nu
+        self.nu = self._init_viscosity(nu, mu_strain_fn)
         self.lid = lid_velocity
         self.implicit_advection = implicit_advection
         self.rhie_chow = rhie_chow
@@ -367,18 +419,20 @@ class LidDrivenCavity:
         """The JAX package's solver choice (``navier_stokes.py:569-690``):
         fastdiag for the separable momentum (BiCGSTAB with the frozen
         diffusion+dt FD preconditioner under implicit advection; plain
-        BiCGSTAB with immersed bodies) and for the all-Neumann pressure (CG
-        with MG as the fallback), each with ``fd_fallback``; an explicit
+        BiCGSTAB with immersed bodies or a per-point viscosity) and for the
+        all-Neumann pressure (CG with MG as the fallback), each with
+        ``fd_fallback``; an explicit
         ``method``/``precond`` is taken wholesale. A pressure with bodies
         takes BiCGSTAB with the plain-domain V-cycle when it is
         non-singular (the Neumann shell elimination is nonsymmetric), plain
         CG on the zero-mean quotient when it is singular."""
         config = config or {}
         obstacle = self.mesh.obstacle is not None
+        const_nu = self._nu_field is None and self.mu_strain_fn is None
         mom_cfg = {"method": "bicgstab", "tol": 1e-8, "max_it": 500, "report": False}
         if any(k in config for k in ("method", "precond")):
             pass
-        elif obstacle:
+        elif obstacle or not const_nu:
             pass  # plain BiCGSTAB
         elif not self.implicit_advection:
             mom_cfg.update({"method": "fastdiag", "fd_fallback": "bicgstab"})
@@ -425,9 +479,94 @@ class LidDrivenCavity:
         ``NaturalConvection``): a ``(*nx)`` tensor or 0.0."""
         return 0.0
 
+    # -- variable viscosity (JAX navier_stokes.py:706-798) ------------------
+    def _init_viscosity(self, nu, mu_strain_fn=None):
+        """A per-point ``(*nx)`` viscosity becomes the model's viscosity
+        field (a tensor on the mesh's device); a scalar stays as it is.
+        Returns the scalar to keep as ``nu`` (a field's mean). A stacked
+        ``(dim, *nx)`` field raises ``ValueError``: the explicit transpose
+        stress takes an isotropic viscosity."""
+        self._nu_field = None
+        self.mu_strain_fn = mu_strain_fn
+        if getattr(nu, "ndim", 0) > 0:
+            arr = self._as_field(nu)
+            if arr.ndim != self.mesh.dim:
+                raise ValueError(
+                    f"viscosity field must be per-point (shape {tuple(self.mesh.nx)}); got "
+                    f"{tuple(arr.shape)} — anisotropic (stacked) viscosity is not supported"
+                )
+            self._nu_field = arr
+            return float(torch.mean(arr.double()))
+        return nu
+
+    def _as_field(self, a) -> torch.Tensor:
+        """A tensor or array as a tensor on the mesh's device, in its
+        float dtype."""
+        return torch.as_tensor(a, dtype=self.mesh.dtype.float, device=self.mesh.device)
+
+    def strain_rate(self, gu=None) -> torch.Tensor:
+        """Shear-rate magnitude ``γ̇ = sqrt(2 S:S)`` of the current
+        velocities (S the symmetric velocity gradient). ``gu``: the
+        gradients ``[grad(u_k)]`` when the caller has them."""
+        dim = self.mesh.dim
+        if gu is None:
+            gu = [self._grad(v) for v in self.vel]  # gu[k][j] = d_j u_k
+        ss = None
+        for k in range(dim):
+            for j in range(dim):
+                s = 0.5 * (gu[k][j] + gu[j][k])
+                ss = s * s if ss is None else ss + s * s
+        return torch.sqrt(2.0 * ss)
+
+    def update_viscosity(self, mu) -> None:
+        """Replace the per-point viscosity field (e.g. mu(T) each step)."""
+        self._nu_field = self._as_field(mu)
+
+    def _nu_coeff(self):
+        """The momentum diffusion coefficient: the viscosity field when
+        there is one, else the scalar."""
+        return self.nu if self._nu_field is None else self._nu_field
+
+    def _array_grad(self, arr: torch.Tensor) -> list:
+        """Per-axis derivative of a raw tensor: second-order central in the
+        interior, first-order one-sided at the ends."""
+        out = []
+        for j in range(self.mesh.dim):
+            d = float(self.mesh.dx_np[j])
+            g = (torch.roll(arr, -1, j) - torch.roll(arr, 1, j)) / (2 * d)
+            row = lambda i: (slice(None),) * j + (i,)  # noqa: E731
+            g[row(0)] = (arr[row(1)] - arr[row(0)]) / d
+            g[row(-1)] = (arr[row(-1)] - arr[row(-2)]) / d
+            out.append(g)
+        return out
+
+    def _visc_transpose_rhs(self, gu=None) -> list:
+        """The explicit transpose-stress source ``sum_k d_k(mu) d_j(u_k)``
+        (``div(mu grad u^T)_j`` of an incompressible flow; zero for a
+        constant mu). ``gu``: the velocity gradients when at hand."""
+        dmu = self._array_grad(self._nu_field)
+        if gu is None:
+            gu = [self._grad(v) for v in self.vel]
+        return [sum(dmu[k] * gu[k][j] for k in range(self.mesh.dim))
+                for j in range(self.mesh.dim)]
+
+    def _refresh_strain_viscosity(self) -> None:
+        """Re-evaluate the strain-rate viscosity from the current
+        velocities (after a run, as the JAX package's fused run does, so a
+        reader sees the field of the state it holds)."""
+        if self.mu_strain_fn is not None:
+            self.update_viscosity(self.mu_strain_fn(self.strain_rate()))
+
     def step(self, dt: float) -> None:
         mesh = self.mesh
         dim = mesh.dim
+
+        # the time-n velocity gradients, shared by the strain-rate viscosity
+        # and the transpose-stress source
+        gu_n = None
+        if self.mu_strain_fn is not None:
+            gu_n = [self._grad(v) for v in self.vel]
+            self.update_viscosity(self.mu_strain_fn(self.strain_rate(gu_n)))
 
         # 1. momentum: implicit diffusion, advection explicit (from the
         # time-n velocities) or implicit (Picard-linearized fdm.conv)
@@ -445,12 +584,15 @@ class LidDrivenCavity:
         else:
             rhs_pg = [0.0] * dim
         rhs_pg = [rhs_pg[j] + self._extra_momentum_rhs(j) for j in range(dim)]
+        if self._nu_field is not None:
+            trans = self._visc_transpose_rhs(gu_n)
+            rhs_pg = [rhs_pg[j] + trans[j] for j in range(dim)]
         if self.implicit_advection:
             uvec = torch.cat([v() for v in self.vel], dim=0)
             for j, var in enumerate(self.vel):
                 self.mom_solver.set_eq(
                     self.fdm.ddt(var) + self.fdm.conv(uvec, var)
-                    - self.fdm.laplacian(self.nu, var)
+                    - self.fdm.laplacian(self._nu_coeff(), var)
                     == torch.zeros_like(var()) + rhs_pg[j]
                 )
                 self.mom_solver.solve()
@@ -460,7 +602,7 @@ class LidDrivenCavity:
             rhs_all = [(-self._advect(var) + rhs_pg[j])[None] for j, var in enumerate(self.vel)]
             for j, var in enumerate(self.vel):
                 self.mom_solver.set_eq(
-                    self.fdm.ddt(var) - self.fdm.laplacian(self.nu, var) == rhs_all[j]
+                    self.fdm.ddt(var) - self.fdm.laplacian(self._nu_coeff(), var) == rhs_all[j]
                 )
                 self.mom_solver.solve()
 
@@ -533,11 +675,13 @@ class LidDrivenCavity:
         raise _later("the batched runner (utils/fuse.py)")
 
     def run(self, dt: float, n_steps: int, fused: bool = False) -> None:
-        """``n_steps`` eager steps of ``dt``."""
+        """``n_steps`` eager steps of ``dt``; a strain-rate viscosity is
+        then re-evaluated from the final velocities."""
         if fused:
             raise _later("run(fused=True) (utils/fuse.py)")
         for _ in range(n_steps):
             self.step(dt)
+        self._refresh_strain_viscosity()
 
     def max_velocity(self) -> torch.Tensor:
         """``max_j max|u_j|`` as a device scalar."""
@@ -639,7 +783,7 @@ class LidDrivenCavity:
         lo, hi = self._cv_box(idx, margin)
         vo, dt = self._cv_history(self.vel[0]._dt)
         return control_volume_force(self.p()[0], [v()[0] for v in self.vel],
-                                    [float(d) for d in self.mesh.dx_np], lo, hi, self.nu,
+                                    [float(d) for d in self.mesh.dx_np], lo, hi, self._nu_coeff(),
                                     vels_old=vo, dt=None if dt is None else float(dt))
 
     def body_force_cv_device(self, idx: int = 0, margin: int = 4, dt=None) -> torch.Tensor:
@@ -648,8 +792,8 @@ class LidDrivenCavity:
         lo, hi = self._cv_box(idx, margin)
         vo, dt = self._cv_history(self.vel[0]._dt if dt is None else dt)
         return control_volume_force_device(self.p()[0], [v()[0] for v in self.vel],
-                                           [float(d) for d in self.mesh.dx_np], lo, hi, self.nu,
-                                           vels_old=vo, dt=dt)
+                                           [float(d) for d in self.mesh.dx_np], lo, hi,
+                                           self._nu_coeff(), vels_old=vo, dt=dt)
 
 
 class ChannelFlow(LidDrivenCavity):
@@ -666,20 +810,19 @@ class ChannelFlow(LidDrivenCavity):
     Args:
         mesh: Box mesh on [0, Lx] x [0, Ly] (x [0, Lz]), optionally with
             obstacles.
-        nu: kinematic viscosity, a scalar (Re = U Ly / nu).
+        nu: kinematic viscosity, a scalar (Re = U Ly / nu) or a per-point
+            field.
         u_in: the inflow centreline scale U.
+        mu_strain_fn: a ``gamma_dot -> mu`` law (e.g.
+            ``power_law_viscosity``), re-evaluated each step.
     """
 
     def __init__(self, mesh: Mesh, nu: float = 0.01, u_in: float = 1.0, config=None,
                  implicit_advection: bool = False, rhie_chow: bool = True,
                  incremental: bool = True, mu_strain_fn=None):
         assert mesh.dim in (2, 3) and mesh.coord_sys == "xyz"
-        if getattr(nu, "ndim", 0) > 0:
-            raise _later("a per-point viscosity (a transient variable-Γ momentum solve)")
-        if mu_strain_fn is not None:
-            raise _later("a strain-rate viscosity law (mu_strain_fn)")
         self.mesh = mesh
-        self.nu = nu
+        self.nu = self._init_viscosity(nu, mu_strain_fn)
         self.u_in = float(u_in)
         self.lid = 0.0
         self.implicit_advection = implicit_advection
@@ -722,6 +865,92 @@ class ChannelFlow(LidDrivenCavity):
         for j in range(1, self.mesh.dim):
             u = _trapezoid(u, dx=float(self.mesh.dx_np[j]), axis=0)
         return float(u)
+
+
+class PeriodicFlow(LidDrivenCavity):
+    """Incompressible Navier-Stokes on a fully periodic box (JAX
+    ``navier_stokes.py:1364-1497``): every velocity component and the
+    pressure are periodic on all faces, the singular pressure Poisson is
+    solved on the zero-mean quotient of the torus-reduced system.
+
+    The exact anchor is the decaying Taylor-Green vortex on ``[0, 1]^2``
+    (``u = -cos(2 pi x) sin(2 pi y) e^{-8 pi^2 nu t}``, ``v = sin(2 pi x)
+    cos(2 pi y) e^{-8 pi^2 nu t}``): the nonlinear term is a pure gradient
+    absorbed by the pressure. Immersed obstacles on the mesh are no-slip
+    bodies, as in the cavity.
+
+    Args:
+        advection_form: "skew" (the energy-conserving split ``(u.grad phi +
+            div(u phi)) / 2``: on a uniform torus with central differences
+            its quadratic aliasing errors cancel, so under-resolved
+            turbulence stays bounded), "advective", or "auto" (skew without
+            obstacles, advective with them: a body breaks the integration
+            by parts the split rests on).
+        The other arguments are the cavity's.
+    """
+
+    def __init__(self, mesh: Mesh, nu: float = 0.01, config=None,
+                 implicit_advection: bool = False, rhie_chow: bool = True,
+                 incremental: bool = True, mu_strain_fn=None, advection_form: str = "auto"):
+        assert mesh.dim in (2, 3) and mesh.coord_sys == "xyz"
+        self.mesh = mesh
+        self.nu = self._init_viscosity(nu, mu_strain_fn)
+        self.lid = 0.0
+        self.implicit_advection = implicit_advection
+        self.rhie_chow = rhie_chow
+        self.incremental = incremental
+        if advection_form == "auto":
+            advection_form = "skew" if mesh.obstacle is None else "advective"
+        assert advection_form in ("advective", "skew")
+        self.advection_form = advection_form
+
+        per = [{"bc_face": f, "bc_type": "periodic", "bc_val": None, "bc_val_opt": None}
+               for f in FDIR[: 2 * mesh.dim]]
+        self._make_fields(lambda j: per, per)
+        # no walls or corners: the Rhie-Chow mismatch is O(h^2) everywhere,
+        # so the whole torus is stabilized
+        self._rc_mask = torch.ones(tuple(mesh.nx), dtype=torch.bool, device=mesh.device)
+        self._singular_pressure = True
+        self._init_solvers(config)
+
+    def _torus_dj(self, a: torch.Tensor, j: int) -> torch.Tensor:
+        """Exact-torus central derivative along axis ``j`` of a raw tensor
+        whose end rows are duplicates: the seam row dropped, rolled, the
+        wrap row restored."""
+        r = a.narrow(j, 0, a.shape[j] - 1)
+        d = (torch.roll(r, -1, j) - torch.roll(r, 1, j)) / (2.0 * float(self.mesh.dx_np[j]))
+        return torch.cat([d, d.narrow(j, 0, 1)], dim=j)
+
+    def _advect(self, field: Field) -> torch.Tensor:
+        """Explicit advection; the skew form averages the advective and the
+        divergence forms."""
+        adv = super()._advect(field)
+        if self.advection_form != "skew":
+            return adv
+        phi = field()[0]
+        div = None
+        for j in range(self.mesh.dim):
+            t = self._torus_dj(self.vel[j]()[0] * phi, j)
+            div = t if div is None else div + t
+        return 0.5 * (adv + div)
+
+    def set_velocity(self, *components) -> None:
+        """Set the velocity (one ``(*nx)`` tensor or array per component)
+        and re-apply the periodic wraps."""
+        assert len(components) == self.mesh.dim
+        for var, arr in zip(self.vel, components):
+            var.set_var_tensor(self._as_field(arr)[None])
+            var.apply_bcs()
+
+    def kinetic_energy(self) -> torch.Tensor:
+        """Volume-integrated kinetic energy as a device scalar (the wrap row
+        of each axis left out, so nothing counts twice)."""
+        red = (slice(None, -1),) * self.mesh.dim
+        ke = sum(0.5 * v()[0][red] ** 2 for v in self.vel)
+        dv = 1.0
+        for d in self.mesh.dx_np:
+            dv = dv * float(d)
+        return torch.sum(ke) * dv
 
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz

@@ -20,8 +20,9 @@ all live on the solve's device) the axis and advection terms apply block
 by block (``build.py``). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
 torus reduction their masks are reduced too, every call, and a body on
-the duplicate seam plane raises. MG on a periodic axis and blocks on
-several devices are ported in later slices and raise
+the duplicate seam plane raises. The multigrid hierarchy of a periodic
+axis lives on the reduced torus too (``MGSpec(paxes=...)``). Blocks on
+several devices are ported in a later slice and raise
 ``NotImplementedError`` — never a silent detour to another path.
 """
 from __future__ import annotations

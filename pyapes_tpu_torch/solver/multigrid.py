@@ -64,8 +64,13 @@ spacing, with the same per-level surgery (the JAX package's
 (2-D: the per-point kernel), and the smoother stays the plain update
 around it, as the JAX package keeps its rz smoother off Pallas. The level
 operators are nonsymmetric, so rz hierarchies precondition BiCGSTAB.
-Periodic axes are ported in a later slice and raise
-``NotImplementedError``.
+
+Periodic axes (``paxes``, on the torus-reduced grid: n nodes span [0, L)
+with n cells) take no surgery and a full mask, the stencils wrap, the
+transfers are the wrap-aware interpolation pair (strided on exact 2x
+torus pairs: wrap midpoints), and the Jacobi kernels mask only the other
+axes (``_mask_axes``). A box with no Dirichlet face off its periodic axes
+is singular.
 """
 from __future__ import annotations
 
@@ -99,6 +104,21 @@ def _interp_matrix_np(n_c: int, n_f: int):
     return P
 
 
+@lru_cache(maxsize=None)
+def _interp_matrix_periodic_np(n_c: int, n_f: int):
+    """Wrap-aware 1-D linear interpolation matrix of a torus axis: the
+    active nodes ``i L/n`` span ``[0, L)``, so the sampling positions and
+    the neighbour index wrap modulo the period."""
+    P = np.zeros((n_f, n_c), np.float64)
+    for i in range(n_f):
+        t = i * n_c / n_f
+        j = int(np.floor(t))
+        w = t - j
+        P[i, j % n_c] += 1.0 - w
+        P[i, (j + 1) % n_c] += w
+    return P
+
+
 def _level_shapes(shape, min_size=4, max_levels=8):
     shapes = [tuple(shape)]
     while len(shapes) < max_levels:
@@ -107,10 +127,6 @@ def _level_shapes(shape, min_size=4, max_levels=8):
             break
         shapes.append(nxt)
     return shapes
-
-
-# the kernels' mask axes: every axis of a 3-D level (no periodic axes yet)
-_AXES3 = (0, 1, 2)
 
 
 def _as_torch_dtype(dtype) -> torch.dtype:
@@ -122,8 +138,9 @@ class MGSpec:
     """Recipe and device constants of a multigrid preconditioner.
 
     Args:
-        shape: active grid shape.
+        shape: active grid shape (after the periodic de-duplication).
         lengths: physical domain length per axis.
+        paxes: periodic axes (wrap stencils, full mask, no surgery).
         dtype: the outer (Krylov) dtype.
         cycle_dtype: V-cycle dtype (default: ``dtype``), e.g. "bfloat16".
         face_kinds: per axis ``(lower, upper)`` of "dirichlet"/"neumann".
@@ -163,8 +180,6 @@ class MGSpec:
         *,
         device,
     ):
-        if paxes:
-            raise NotImplementedError("MGSpec: periodic axes are ported in a later slice")
         if decomp is not None:
             if not isinstance(decomp, DomainDecomposition):
                 raise TypeError(f"MGSpec: decomp must be a DomainDecomposition, got {decomp!r}")
@@ -188,6 +203,7 @@ class MGSpec:
         self._gd_levels = None
         self.shape = tuple(shape)
         self.lengths = tuple(float(l) for l in lengths)
+        self.paxes = tuple(paxes or ())
         self.dtype = _as_torch_dtype(dtype)
         self.cdtype = _as_torch_dtype(cycle_dtype) if cycle_dtype else self.dtype
         self.n_pre = n_pre
@@ -203,11 +219,11 @@ class MGSpec:
         if face_kinds is None:
             face_kinds = tuple(("dirichlet", "dirichlet") for _ in self.shape)
         self.face_kinds = tuple(tuple(fk) for fk in face_kinds)
-        self._surgery = any(k != "dirichlet" for fk in self.face_kinds for k in fk)
-        # no Dirichlet face anywhere: every level operator is singular
-        self._singular = all(
-            all(k == "neumann" for k in fk) for fk in self.face_kinds
-        )
+        self._surgery = any(k != "dirichlet" for j, fk in enumerate(self.face_kinds)
+                            if j not in self.paxes for k in fk)
+        # no Dirichlet face off the periodic axes: every level is singular
+        self._singular = all(j in self.paxes or all(k == "neumann" for k in fk)
+                             for j, fk in enumerate(self.face_kinds))
         self.shapes = _level_shapes(self.shape)
         self._consts: dict = {}
 
@@ -215,7 +231,7 @@ class MGSpec:
     def key(self) -> tuple:
         """Everything the cycle depends on (the solver's cache key)."""
         return (
-            self.shape, self.lengths, str(self.dtype), str(self.cdtype), self.n_pre,
+            self.shape, self.lengths, self.paxes, str(self.dtype), str(self.cdtype), self.n_pre,
             self.n_post, self.n_coarse, self.omega, self.smoother, self.fmg_init,
             self.fmg_cycles, self.fuse_rz, self.face_kinds, self.transfers, str(self.device),
             self.var_gamma, self.vg_avg, self.decomp, self.rz, self.r_lower,
@@ -223,11 +239,22 @@ class MGSpec:
 
     # -- host hierarchy (numpy, bit-equal to the JAX package) -------------
     def _inv_dx2(self, shape):
-        return [1.0 / (self.lengths[j] / (n - 1)) ** 2 for j, n in enumerate(shape)]
+        """Per-axis ``1/dx^2``: a periodic axis spans [0, L) with n cells,
+        the others [0, L] with n - 1."""
+        return [1.0 / (self.lengths[j] / (n if j in self.paxes else n - 1)) ** 2
+                for j, n in enumerate(shape)]
+
+    def _mask_axes(self, shape) -> tuple:
+        """The axes whose end rows the Jacobi kernels mask: all but the
+        periodic ones."""
+        return tuple(j for j in range(len(shape)) if j not in self.paxes)
 
     def _surger(self, ap, ac, am, axis):
         """Boundary-node elimination on a level's numpy coefficient vectors
-        (the fine operator's rule, rediscretized at every level)."""
+        (the fine operator's rule, rediscretized at every level; none on a
+        periodic axis)."""
+        if axis in self.paxes:
+            return
         lo, up = self.face_kinds[axis]
         if lo == "neumann":
             _eliminate_boundary_node(ap, ac, am, True)
@@ -261,6 +288,8 @@ class MGSpec:
         """Per-axis symmetrization row scale: 3/2 on the surgered rows,
         which makes the eliminated Neumann level operator symmetric."""
         d = np.ones(n)
+        if axis in self.paxes:
+            return d
         lo, up = self.face_kinds[axis]
         if lo == "neumann":
             d[1] = 1.5
@@ -287,7 +316,12 @@ class MGSpec:
     def _transfer_matrix_np(self, n_s: int, n_t: int, axis: int):
         """``(n_s, n_t)`` transfer matrix: ``(P E)^T`` when upsizing, the
         scaled transpose ``c (P E)`` (``c = (n_c-1)/(n_f-1)``) when
-        downsizing — a symmetric pair, hence an SPD cycle."""
+        downsizing — a symmetric pair, hence an SPD cycle. A torus axis takes
+        the wrap-aware pair (no boundary, no ``E``)."""
+        if axis in self.paxes:
+            if n_t > n_s:
+                return _interp_matrix_periodic_np(n_s, n_t).T
+            return _interp_matrix_periodic_np(n_t, n_s) * (n_t / n_s)
         if n_t > n_s:
             return (_interp_matrix_np(n_s, n_t) @ self._bc_extend_matrix_np(n_s, axis)).T
         return (
@@ -297,9 +331,12 @@ class MGSpec:
     # -- variable-Γ levels (per solve call) -------------------------------
     def _vg_surgery(self):
         """Per-axis ``(lower, upper)`` kinds of the variable-Γ level
-        operators: the face kinds, Dirichlet read as "none"."""
+        operators: the face kinds, Dirichlet read as "none"; a periodic axis
+        is a plain wrap ("none", "none")."""
         return tuple(
-            tuple("neumann" if k == "neumann" else "none" for k in fk) for fk in self.face_kinds
+            ("none", "none") if j in self.paxes
+            else tuple("neumann" if k == "neumann" else "none" for k in fk)
+            for j, fk in enumerate(self.face_kinds)
         )
 
     def _downsample_g(self, g, shape_t):
@@ -312,14 +349,17 @@ class MGSpec:
         for j, n_t in enumerate(shape_t):
             n_s = g.shape[1 + j]
             if n_s != n_t:
-                g = self._contract(g.contiguous(), self._sample_mat(n_s, n_t), j)
+                g = self._contract(g.contiguous(), self._sample_mat(n_s, n_t, j), j)
         return g[0] if iso else g
 
-    def _sample_mat(self, n_s, n_t):
-        """``(n_s, n_t)`` endpoint-aligned sampling matrix ``P^T`` (cycle
-        dtype) of ``_downsample_g``."""
-        return self._const(("gsample", n_s, n_t),
-                           lambda: self._tensor(_interp_matrix_np(n_s, n_t).T))
+    def _sample_mat(self, n_s, n_t, j):
+        """``(n_s, n_t)`` sampling matrix ``P^T`` (cycle dtype) of
+        ``_downsample_g`` along axis j: endpoint-aligned, wrap-aware on a
+        periodic axis."""
+        per = j in self.paxes
+        interp = _interp_matrix_periodic_np if per else _interp_matrix_np
+        return self._const(("gsample", n_s, n_t, per),
+                           lambda: self._tensor(interp(n_s, n_t).T))
 
     def set_gamma(self, gamma) -> None:
         """The solver's ``precond_setup`` hook: cast the fine Γ to the
@@ -343,7 +383,7 @@ class MGSpec:
     def _vg_pass(self, x, b, shape, mode):
         """One ``diff_jacobi`` pass ("smooth", "smooth0" or "resid")."""
         return diff_jacobi(x, b, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
-                           self.vg_avg, self.omega, tuple(range(len(shape))), mode)
+                           self.vg_avg, self.omega, self._mask_axes(shape), mode)
 
     # -- device constants (built once per spec, then cached) --------------
     def _const(self, key, make):
@@ -355,11 +395,15 @@ class MGSpec:
         return torch.as_tensor(a, dtype=self.cdtype, device=self.device)
 
     def _mask(self, shape):
+        """The level's active nodes: the interior, every node of a periodic
+        axis."""
+        slicer = tuple(slice(None) if j in self.paxes else slice(1, -1)
+                       for j in range(len(shape)))
         return self._const(("mask", shape), lambda: interior_mask_device(
-            shape, (slice(1, -1),) * len(shape), self.cdtype, self.device)[None])
+            shape, slicer, self.cdtype, self.device)[None])
 
     def _n_act(self, shape) -> float:
-        return float(np.prod([n - 2 for n in shape]))
+        return float(np.prod([n if j in self.paxes else n - 2 for j, n in enumerate(shape)]))
 
     def _level_coeffs(self, shape):
         return self._const(("coeffs", shape), lambda: tuple(
@@ -443,8 +487,9 @@ class MGSpec:
             if lvl + 1 < len(self.shapes):
                 for j, (nf, nc) in enumerate(zip(shape, self.shapes[lvl + 1])):
                     if nf != nc and self.var_gamma:
-                        self._sample_mat(nf, nc)
-                    if nf != nc and not (self.transfers == "strided" and self._strided_ok(nf, nc)):
+                        self._sample_mat(nf, nc, j)
+                    if nf != nc and not (self.transfers == "strided"
+                                         and self._strided_ok(nf, nc, j)):
                         self._tmat(nf, nc, j)
                         self._tmat(nc, nf, j)
 
@@ -486,7 +531,7 @@ class MGSpec:
         kernel levels; None otherwise."""
         if not self._kernels(shape):
             return None
-        return jacobi3d(x, b, self._inv_dx2(shape), alpha, beta, _AXES3)
+        return jacobi3d(x, b, self._inv_dx2(shape), alpha, beta, self._mask_axes(shape))
 
     def _color_update(self, x, b, shape, mask, par, color):
         r = (b - self._apply_A(x, shape)) * mask
@@ -538,7 +583,8 @@ class MGSpec:
         remaining = n_iter
         if remaining >= 2 and self._kernels(shape):
             while remaining >= 2:
-                x = jacobi3d_x2(x, b, self._inv_dx2(shape), om_over_diag, _AXES3)
+                x = jacobi3d_x2(x, b, self._inv_dx2(shape), om_over_diag,
+                                self._mask_axes(shape))
                 remaining -= 2
         for _ in range(remaining):
             fused = self._fused(x, b, shape, 1.0, om_over_diag)
@@ -576,7 +622,7 @@ class MGSpec:
             # fused pre-pair: (omega/D) b then one sweep, one memory pass
             return jacobi3d_x2(
                 None, b, self._inv_dx2(shape), self._om_diag(shape),
-                _AXES3, from_zero=True,
+                self._mask_axes(shape), from_zero=True,
             )
         x = self._om_diag(shape) * b * mask
         if n_iter > 1:
@@ -584,7 +630,11 @@ class MGSpec:
         return x
 
     # -- transfers -----------------------------------------------------------
-    def _strided_ok(self, n_s: int, n_t: int) -> bool:
+    def _strided_ok(self, n_s: int, n_t: int, axis: int) -> bool:
+        """Exactly-2x pairs: vertex-aligned ``n_f = 2 n_c - 1``, on a torus
+        axis wrap-aligned ``n_f = 2 n_c``."""
+        if axis in self.paxes:
+            return n_s == 2 * n_t or n_t == 2 * n_s
         return n_s == 2 * n_t - 1 or n_t == 2 * n_s - 1
 
     @staticmethod
@@ -593,9 +643,14 @@ class MGSpec:
 
     def _prolong_axis_strided(self, x, j, n_t):
         """``P E`` along axis j as slices: rebuild the boundary rows from
-        the face BC, then interleave coarse values with midpoints."""
+        the face BC, then interleave coarse values with midpoints (a torus
+        axis: the wrap midpoint, no boundary rows)."""
         ax = 1 + j
         sel = self._ax_sel
+        if j in self.paxes:
+            mid = 0.5 * (x + torch.roll(x, -1, ax))
+            return torch.stack([x, mid], dim=ax + 1).reshape(
+                x.shape[:ax] + (n_t,) + x.shape[ax + 1:])
         lo, up = self.face_kinds[j]
         v0 = (
             (4.0 / 3.0) * sel(x, j, slice(1, 2)) - (1.0 / 3.0) * sel(x, j, slice(2, 3))
@@ -615,12 +670,15 @@ class MGSpec:
 
     def _restrict_axis_strided(self, x, j, n_t):
         """``c E^T P^T`` along axis j as slices (c = 1/2 for exactly-2x):
-        full weighting, then fold the boundary row's mass per the face BC."""
+        full weighting, then fold the boundary row's mass per the face BC
+        (a torus axis: wrapped full weighting, no fold)."""
         ax = 1 + j
         sel = self._ax_sel
         pre = (slice(None),) * ax
         even = sel(x, j, slice(0, None, 2))
         odd = sel(x, j, slice(1, None, 2))
+        if j in self.paxes:
+            return 0.5 * even + 0.25 * odd + 0.25 * torch.roll(odd, 1, ax)
         out = 0.5 * even
         out[pre + (slice(1, None),)] += 0.25 * odd
         out[pre + (slice(None, -1),)] += 0.25 * odd
@@ -646,7 +704,7 @@ class MGSpec:
             n_s = x.shape[1 + j]
             if n_s == n_t:
                 continue
-            if self.transfers == "strided" and self._strided_ok(n_s, n_t):
+            if self.transfers == "strided" and self._strided_ok(n_s, n_t, j):
                 x = (
                     self._prolong_axis_strided(x, j, n_t)
                     if n_t > n_s
@@ -717,11 +775,11 @@ class MGSpec:
             # final PAIR fused into one memory pass, dot included
             if self.n_post > 2:
                 x = self._smooth(x, b, shape, mask, self.n_post - 2, order=1)
-            return jacobi3d_x2(x, b, inv, beta, _AXES3, emit_dot=True)
+            return jacobi3d_x2(x, b, inv, beta, self._mask_axes(shape), emit_dot=True)
         if self.n_post > 1:
             # regular post-smooths first; the LAST one emits the dot
             x = self._smooth(x, b, shape, mask, self.n_post - 1, order=1)
-        return jacobi3d_dot(x, b, inv, 1.0, beta, _AXES3)
+        return jacobi3d_dot(x, b, inv, 1.0, beta, self._mask_axes(shape))
 
     def fmg(self, b, n_cycles: int = 1):
         """Full-multigrid pass: restrict b through the hierarchy, solve on

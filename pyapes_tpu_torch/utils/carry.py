@@ -1,7 +1,8 @@
 """State carried across from the JAX package.
 
 This system has no learned weights: its state is field values (with
-their history levels ``VARo``/``VARoo`` for Ddt), per-axis coefficient
+their history levels ``VARo``/``VARoo`` for Ddt), a flow's per-point
+viscosity, per-axis coefficient
 vectors, variable diffusivities Γ, advecting fields,
 fast-diagonalization factors and the RFP potentials. These helpers turn
 arrays of the JAX package (handed over as numpy) into the port's tensors,
@@ -58,23 +59,26 @@ def gamma_from_numpy(g, like: torch.Tensor) -> torch.Tensor:
     return _tensor(np.ascontiguousarray(g), like=like).contiguous()
 
 
-def model_state_from_numpy(model, states, t: float = 0.0):
+def model_state_from_numpy(model, states, t: float = 0.0, nu_field=None):
     """Load a transient model's state (``model.state_fields()``: the
-    cavity's ``u, v[, w], p[, dp]``, the convection's ``T`` after them)
-    from the JAX model's arrays as numpy, so both packages step on from
-    the same mid-run state. ``states`` holds one entry per state field, in
-    that order: the values, or ``(values, VARo[, VARoo])``. The model's
-    clock is set to ``t``; each field takes its step and time from the
-    model's clock at its next step. Returns the model."""
+    cavity's, the channel's or ``PeriodicFlow``'s ``u, v[, w], p[, dp]``,
+    the convection's ``T`` after them) from the JAX model's arrays as
+    numpy, so both packages step on from the same mid-run state. ``states``
+    holds one entry per state field, in that order: the values, or
+    ``(values, VARo[, VARoo])``. ``nu_field``: the JAX model's per-point
+    viscosity (``_nu_field``), loaded as the model's viscosity field. The
+    model's clock is set to ``t``; each field takes its step and time from
+    the model's clock at its next step. Returns the model."""
     fields = model.state_fields()
     if len(states) != len(fields):
         raise ValueError(f"model_state_from_numpy: {len(states)} states for {len(fields)} fields "
                          f"({[f.name for f in fields]})")
     for f, st in zip(fields, states):
         field_from_numpy(f, *(st if isinstance(st, (tuple, list)) else (st,)))
+    if nu_field is not None:
+        model.update_viscosity(_tensor(nu_field, like=fields[0]()[0]))
     model.t = t
     return model
-
 
 
 def rfp_state_from_numpy(model, pdf=None, H=None, G=None, jac_h=None, hess_g=None):

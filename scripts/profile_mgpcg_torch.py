@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Profile one steady MG-PCG solve of the PyTorch port on an NVIDIA GPU
 (or one step of the 3-D Burgers, the QUICK or upwind advection-diffusion
-model, the lid-driven cavity, the rz/RFP cell or the Schäfer–Turek 2D-2
-channel).
+model, the lid-driven cavity, the rz/RFP cell, the Schäfer–Turek 2D-2
+channel or the 3-D Taylor-Green LES).
 
     python scripts/profile_mgpcg_torch.py [--n 512] [--out chiprun_out/profile_mgpcg]
     python scripts/profile_mgpcg_torch.py --darcy [--n 256] [--out ...]
@@ -12,6 +12,7 @@ channel).
     python scripts/profile_mgpcg_torch.py --cavity [--implicit] [--n 128] [--out ...]
     python scripts/profile_mgpcg_torch.py --rfp [--n 512] [--out ...]
     python scripts/profile_mgpcg_torch.py --channel [--n 83] [--out ...]
+    python scripts/profile_mgpcg_torch.py --periodic [--n 64] [--out ...]
     python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
@@ -41,7 +42,12 @@ BiCGSTAB of ``fdm.custom``) after one warm run, or with ``--channel`` one
 step of its Schäfer–Turek 2D-2 cell (``SchaferTurek``: ``ChannelFlow`` past
 a cylinder at Re 100, ny = n (83: 441 x 83) f64, two plain BiCGSTAB
 momentum solves and the pressure's BiCGSTAB with the plain-domain V-cycle,
-with the per-step force diagnostics on the card) after two warm steps.
+with the per-step force diagnostics on the card) after two warm steps, or
+with ``--periodic`` one step of its TGV-3D LES cell (``tgv_model``:
+``PeriodicFlow`` at n^3 f32, Re 1600, Smagorinsky cs 0.17, dt 0.2 dx:
+three plain BiCGSTAB momentum solves through the variable-Γ kernel, the
+fastdiag pressure solve, the strain rate, the skew advection and the
+projection between them) after two warm steps.
 ``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
 halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
@@ -131,6 +137,8 @@ def main() -> None:
                    help="one run of the rz/RFP cell (potentials + 5 implicit steps)")
     p.add_argument("--channel", action="store_true",
                    help="one step of the Schäfer–Turek 2D-2 channel (ny = --n, default 83)")
+    p.add_argument("--periodic", action="store_true",
+                   help="one step of the TGV-3D Smagorinsky LES (n^3 nodes, default 64)")
     p.add_argument("--implicit", action="store_true",
                    help="with --cavity: implicit advection (the convection kernel)")
     p.add_argument("--decomp", default=None,
@@ -159,8 +167,10 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
-    step = args.burgers or args.quick or args.upwind or args.cavity or args.rfp or args.channel
+    step = (args.burgers or args.quick or args.upwind or args.cavity or args.rfp or args.channel
+            or args.periodic)
     n = args.n or (128 if args.cavity else 512 if args.rfp else 83 if args.channel
+                   else 64 if args.periodic
                    else 256 if args.darcy or step else 512)
     if step:
         spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -174,6 +184,10 @@ def main() -> None:
                 stepper.step()
         elif args.rfp:
             stepper = chip_smoke.RzCell(dev, n, 2 * n)
+        elif args.periodic:
+            stepper = chip_smoke._Stepper(*chip_smoke.tgv_model(dev, n))
+            for _ in range(2):  # the cell's warm steps
+                stepper.step()
         elif args.channel:
             cell = chip_smoke.SchaferTurek(dev, n)
             cell.run(2)  # the cell's warm steps
@@ -191,7 +205,7 @@ def main() -> None:
 
         def run():
             stepper.step()
-            if args.cavity or args.channel:  # the step's last solve: the pressure
+            if args.cavity or args.channel or args.periodic:  # the last solve: the pressure
                 return stepper.model.p_solver.report
             return stepper.model.report  # --rfp: the last implicit step's
     else:
@@ -275,6 +289,7 @@ def main() -> None:
         "case": ("burgers" if args.burgers else "quick" if args.quick else "upwind" if args.upwind
                  else ("cavity implicit" if args.implicit else "cavity") if args.cavity
                  else "rfp" if args.rfp else "channel (2D-2)" if args.channel
+                 else "TGV-3D LES" if args.periodic
                  else "darcy" if args.darcy else "poisson"),
         "method": ("model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,

@@ -1,8 +1,10 @@
 """The decomposed solves of the port against the JAX package (CPU, float64):
-each solve of ``tests/test_sharding.py`` (``PeriodicFlow`` aside) runs in
-three ways on the same numpy inputs: the port with the decomposition, the
-JAX package with it (8 virtual CPU devices, conftest) and the JAX package
-on one device.
+each solve of ``tests/test_sharding.py`` runs in three ways on the same
+numpy inputs: the port with the decomposition, the JAX package with it (8
+virtual CPU devices, conftest) and the JAX package on one device. The
+decomposed ``PeriodicFlow`` (5 Taylor-Green steps) runs through the port
+with and without the decomposition and through the JAX package on one
+device.
 
 Gates, per the JAX test: where it asks for equality with the single-device
 solve, the same ``itr`` and agreement to 1e-10 (both packages run the same
@@ -299,3 +301,46 @@ def test_indivisible_decomposition_raises():
     with pytest.raises(ValueError, match="not divisible"):
         _random_dirichlet(PORT, (3, 1, 1), (16, 16, 16), 0,
                           {"method": "cg", "tol": 1e-8, "max_it": 10})
+
+
+def _taylor_green(P, models, decomp):
+    """``test_sharding.py::test_sharded_periodic_flow_taylor_green``'s run:
+    33^2 (32^2 on the torus, (2, 4)-divisible), tol 1e-10, 5 steps of
+    2e-3; ``(u, v, p, itr per solve)``."""
+    mesh = P.Mesh(P.Box[U2], [33, 33])
+    cfg = {"tol": 1e-10}
+    if decomp is not None:
+        cfg["decomp"] = P.DD(decomp)
+    model = models.PeriodicFlow(mesh, nu=0.01, config=cfg)
+    X, Y = np.meshgrid(np.linspace(0, 1, 33), np.linspace(0, 1, 33), indexing="ij")
+    k = 2 * pi
+    model.set_velocity(P.arr(-np.cos(k * X) * np.sin(k * Y)), P.arr(np.sin(k * X) * np.cos(k * Y)))
+    itr = []
+    for solver in (model.mom_solver, model.p_solver):
+        real = solver.solve
+
+        def solve(real=real):
+            rep = real()
+            itr.append(rep["itr"])
+            return rep
+
+        solver.solve = solve
+    model.run(2e-3, 5)
+    return [P.out(f()[0]) for f in (model.u, model.v, model.p)] + [itr]
+
+
+def test_decomposed_periodic_flow_taylor_green():
+    """The decomposed torus (momentum and singular pressure fastdiag, the
+    torus reduction, the projection) reproduces the single-block run to
+    the JAX test's 1e-9 with the same passes, and the JAX package's
+    single-device run within 1e-8 with the same passes."""
+    import pyapes_tpu.models as jmodels
+    import pyapes_tpu_torch.models as pmodels
+
+    shd = _taylor_green(PORT, pmodels, (2, 4))
+    ref = _taylor_green(PORT, pmodels, None)
+    jref = _taylor_green(JAX, jmodels, None)
+    assert shd[3] == ref[3] == jref[3] and len(ref[3]) == 15
+    for a, b, c, name in zip(shd[:3], ref[:3], jref[:3], ("u", "v", "p")):
+        np.testing.assert_allclose(a, b, atol=1e-9, rtol=1e-9, err_msg=name)
+        np.testing.assert_allclose(b, c, atol=1e-8, rtol=0, err_msg=name)
