@@ -146,14 +146,14 @@ Phases, report lines before the last:
    total variation and mass).
 12. channel, through ``ChannelFlow.step``: the Schäfer–Turek 2D-2 cell of
    ``demos/schafer_turek.py`` (flow past a cylinder at Re 100, 441 x 83
-   f64, the demo's grid; ``SchaferTurek``): 2 warm steps, then 200 steps
-   timed in chunks of 50, each ending in a synchronize, with the demo's
+   f64, the demo's grid; ``SchaferTurek``): 2 warm steps, then 50 steps
+   timed in chunks of 25, each ending in a synchronize, with the demo's
    per-step diagnostics (staircase and control-volume forces, the
    pressure difference) kept on the card: wall per step (the median
    chunk), cell-steps/s, itr per solve (u, v, p), the axis-stencil
    launches per step, the host syncs of a step (torch's sync debug mode),
    peak memory, the flux balance and the last step's forces; no solve at
-   ``max_it``. The same at 1761 x 329 for 20 steps (the scale rung). The
+   ``max_it``. The same at 1761 x 329 for 10 steps (the scale rung). The
    card against the CPU in f64 on ``tests/test_obstacle.py``'s 97 x 33
    cylinder channel for 40 steps (the same itr solve by solve, the fields
    within 1e-10), and the JAX tests' gates on that run (flux imbalance
@@ -175,6 +175,24 @@ Phases, report lines before the last:
    marches of ``diff_field`` and ``axis_stencil``); the card against the
    CPU in f64 (17^3 Beltrami flow 20 steps, Smagorinsky TGV 10 steps: the
    same itr, 1e-10) and the 65^2 Taylor-Green test's gates on the card.
+
+14. fused: the cavity at 128^3 f32 (``cavity_model``), the 2D-2 cell at
+   441 x 83 f64 (``SchaferTurek``, the demo's per-step diagnostics through
+   ``run_batched``) and the TGV-3D LES at 64^3 f32 (``tgv_model``), each as
+   two models from the same start: one stepped eagerly, one fused (the
+   bootstrap through ``run(fused=True)``, then the model's runner: one
+   CUDA graph per step, its solver loops WHILE nodes), in turns, chunks of
+   ``FUSED_CHUNK[cell]`` steps, ``FUSED_REPS`` times each: wall per step,
+   cell-steps/s (``ns_cavity3d_cell_steps_per_s_chip`` for the fused
+   cavity, on a line of its own), itr per solve, host CUDA API calls and
+   graph launches per step (``torch.profiler``), the host syncs of a step
+   (torch's sync debug mode), the capture's seconds, the WHILE nodes
+   captured, the wrappers' launches in an eager step and in a replay (none:
+   a replay runs no Python), the change of allocated memory over the fused
+   bootstrap (the graphs' pools, less what eager steps held before), peak
+   memory of an eager and of a fused chunk. Checked: the fused model equals
+   the eager one (f64 1e-12 relative, f32 1e-5), the same itr solve by
+   solve, no host sync in a fused step, no fallback warning.
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
 9, 10, 11, 12, 13) and read just after; a kernel of a path that launched no time there
@@ -2493,7 +2511,7 @@ def cavity_model(dev, n: int = 128, implicit: bool = False, dtype: str = "single
     n^3, nu 0.01, the regularized unit lid, the model's default solves
     (fastdiag momentum and pressure; ``implicit``: BiCGSTAB with the FD
     preconditioner through the convection kernel), the default ``sync``
-    (the port raises on ``sync: False``); ``(stepper at dt 0.25/n, kernels
+    (phase 14 steps it fused too); ``(stepper at dt 0.25/n, kernels
     every step launches, label)``."""
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
@@ -3179,12 +3197,13 @@ def phase_rz(dev) -> tuple:
 # dtype, not cut), nu 1e-3, parabolic inflow of peak 1.5 (mean 1.0), dt =
 # 0.2 dy / 2.3, through ChannelFlow's default solves (plain BiCGSTAB
 # momentum; BiCGSTAB with the plain-domain V-cycle for the pressure). The
-# demo's config={"sync": False} and run_batched become plain step calls;
-# the per-step diagnostics stay on the card and are fetched once
+# demo's config={"sync": False} and run_batched are phase 14's (here the
+# eager steps); the per-step diagnostics stay on the card and are fetched
+# once
 ST_D, ST_UM, ST_NU = 0.1, 1.5, 1e-3
 ST_U_MEAN = 2.0 / 3.0 * ST_UM
 ST_NY, ST_RUNG_NY = 83, 329  # the cell; the scale rung (1761 x 329)
-ST_WARM, ST_STEPS, ST_CHUNK, ST_RUNG_STEPS = 2, 200, 50, 20
+ST_WARM, ST_STEPS, ST_CHUNK, ST_RUNG_STEPS = 2, 50, 25, 10
 ST_MARGIN = 6  # the demo's CV margin
 N_CHANNEL_CMP, CHANNEL_CMP_STEPS = (97, 33), 40  # tests/test_obstacle.py's cylinder channel
 CHANNEL_CMP_TOL = 1e-10
@@ -3197,7 +3216,7 @@ class SchaferTurek:
     front-rear pressure difference at the probe nodes and extrapolated to
     the cylinder surface (``demos/schafer_turek.py``)."""
 
-    def __init__(self, dev, ny: int = ST_NY, dtype: str = "double"):
+    def __init__(self, dev, ny: int = ST_NY, dtype: str = "double", config=None):
         from pyapes_tpu_torch.geometry import Box, MaskObstacle
         from pyapes_tpu_torch.mesh import Mesh
         from pyapes_tpu_torch.models import ChannelFlow
@@ -3206,7 +3225,7 @@ class SchaferTurek:
         self.nx, self.ny = int(round(2.2 / dy)) + 1, ny
         body = MaskObstacle(lambda X, Y: (X - 0.2) ** 2 + (Y - 0.2) ** 2 < (ST_D / 2) ** 2)
         mesh = Mesh(Box[0:2.2, 0:0.41], [body], [self.nx, ny], device=str(dev), dtype=dtype)
-        self.model = ChannelFlow(mesh, nu=ST_NU, u_in=ST_UM)
+        self.model = ChannelFlow(mesh, nu=ST_NU, u_in=ST_UM, config=config)
         self.dt = 0.2 * dy / 2.3  # peak speed ~2.3 over the cylinder
         self.ia, self.ib, self.jc = (int(round(v / dy)) for v in (0.15, 0.25, 0.20))
 
@@ -3440,7 +3459,7 @@ def _channel_gates(model) -> dict:
 
 def phase_channel(dev) -> tuple:
     """The channel path: the 2D-2 cell at 441 x 83 (``run_st_cell``) and
-    the scale rung at 1761 x 329 (20 steps), each with the launch counts
+    the scale rung at 1761 x 329 (10 steps), each with the launch counts
     set to 0 just before and read just after; the card against the CPU in
     f64 (the cylinder channel, 40 steps: the same itr solve by solve, the
     fields within ``CHANNEL_CMP_TOL`` relative); the JAX tests' gates on
@@ -3648,6 +3667,179 @@ def phase_periodic(dev) -> tuple:
     return counts, worst_abs
 
 
+# phase 14: eager against fused steps of the three flow cells, in turns
+FUSED_CELLS = ("cavity", "2D-2", "tgv")
+FUSED_CHUNK = {"cavity": 10, "2D-2": 25, "tgv": 10}
+FUSED_REPS = 2
+FUSED_TOL = {"double": 1e-12, "single": 1e-5}
+FUSED_N = {"cavity": 128, "2D-2": ST_NY, "tgv": TGV_N}
+
+
+def _fused_cell(dev, cell: str):
+    """Two models of ``cell`` from the same start: ``(eager, fused, dt,
+    cells, dtype, diag)``; ``diag(model)`` the per-step diagnostics (the
+    2D-2 demo's) or None."""
+    n = FUSED_N[cell]
+    if cell == "cavity":
+        a, b = cavity_model(dev, n)[0], cavity_model(dev, n)[0]
+        return a.model, b.model, a.dt, n**3, "single", None
+    if cell == "2D-2":
+        a, b = SchaferTurek(dev, n), SchaferTurek(dev, n)
+
+        def diag(model, ca=a, cb=b):
+            return (ca if model is ca.model else cb).diag()
+
+        return a.model, b.model, a.dt, a.nx * a.ny, "double", diag
+    (ma, dt), (mb, _) = tgv_model(dev, n), tgv_model(dev, n)
+    return ma, mb, dt, n**3, "single", None
+
+
+def _api_calls(fn) -> dict:
+    """The CUDA runtime/driver API calls of ``fn()`` on the host, by name
+    (``torch.profiler``), and their total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cuda", "cu")) and not e.key.startswith("cudaDeviceSync")}
+    return {"total": sum(calls.values()), "graph_launches": calls.get("cudaGraphLaunch", 0),
+            "kernel_launches": sum(v for k, v in calls.items() if "LaunchKernel" in k),
+            "memcpy": sum(v for k, v in calls.items() if "Memcpy" in k)}
+
+
+def _max_rel(ma, mb) -> float:
+    worst = 0.0
+    for a, b in zip(ma.state_fields(), mb.state_fields()):
+        scale = max(float(a().abs().max()), 1e-30)
+        worst = max(worst, float((a() - b()).abs().max()) / scale)
+    return worst
+
+
+def run_fused_cell(dev, cell: str, chunk: int | None = None, reps: int = FUSED_REPS) -> dict:
+    """Phase 14 on one cell (see the module docstring)."""
+    import warnings
+
+    import torch
+
+    from pyapes_tpu_torch.ops import graph_loop
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    chunk = chunk or FUSED_CHUNK[cell]
+    ma, mb, dt, cells, dtype, diag = _fused_cell(dev, cell)
+    label = f"fused {cell}"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ma.run(dt, 2)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        nodes0 = graph_loop.nodes
+        mb.run(dt, 2, fused=True)
+        fell_back = [str(w.message) for w in caught if "falling back" in str(w.message)]
+        if fell_back:
+            raise RuntimeError(f"chip_smoke: {label}: the fused bootstrap fell back: "
+                               f"{fell_back[0]}")
+        if diag is not None:  # the batched program (diagnostics in the graph)
+            mb.run_batched(dt, 1, diag_fn=diag)
+            ma.step(dt)
+        torch.cuda.synchronize()
+        runner = mb.fused_runner()
+        alloc_change = (torch.cuda.memory_allocated() - mem0) / 2**30
+        nodes = graph_loop.nodes - nodes0
+        walls = {"eager": [], "fused": []}
+        peaks = {"eager": 0.0, "fused": 0.0}
+        series_a, series_b, itrs = [], [], []
+        for _ in range(reps):
+            for kind in ("eager", "fused"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                tic = time.perf_counter()
+                if kind == "eager":
+                    for _ in range(chunk):
+                        with solve_log() as log:
+                            ma.step(dt)
+                        if diag is not None:
+                            series_a.append(diag(ma))
+                    itr_a = [int(r["itr"]) for r in log]
+                elif diag is not None:
+                    series_b.append(mb.run_batched(dt, chunk, diag_fn=diag))
+                else:
+                    runner.run(dt, chunk)
+                torch.cuda.synchronize()
+                walls[kind].append((time.perf_counter() - tic) / chunk)
+                peaks[kind] = max(peaks[kind], torch.cuda.max_memory_allocated() / 2**30)
+            fell_back = [str(w.message) for w in caught if "falling back" in str(w.message)
+                         or "stepping eagerly" in str(w.message)]
+            if fell_back:
+                raise RuntimeError(f"chip_smoke: {label}: the fused run fell back: "
+                                   f"{fell_back[0]}")
+            itr_b = [int(r["itr"]) for r in runner.reports]
+            itrs.append((itr_a, itr_b))
+            if itr_a != itr_b:
+                raise RuntimeError(f"chip_smoke: {label}: itr per solve eager {itr_a}, fused "
+                                   f"{itr_b}")
+        captures = runner.captures
+        syncs_b = _count_syncs(lambda: runner.step(dt))
+        syncs_a = _count_syncs(lambda: ma.step(dt))
+        api_b = _api_calls(lambda: runner.step(dt))
+        api_a = _api_calls(lambda: ma.step(dt))
+        launches = {}
+        for kind, fn in (("eager", lambda: ma.step(dt)), ("fused", lambda: runner.step(dt))):
+            c0 = _counts()
+            fn()
+            launches[kind] = {k: v - c0[k] for k, v in _counts().items() if v > c0[k]}
+        torch.cuda.synchronize()
+    fell_back = [str(w.message) for w in caught if "falling back" in str(w.message)
+                 or "stepping eagerly" in str(w.message)]
+    if fell_back:
+        raise RuntimeError(f"chip_smoke: {label}: the fused run fell back: {fell_back[0]}")
+    rel = _max_rel(ma, mb)
+    if not rel <= FUSED_TOL[dtype]:
+        raise RuntimeError(f"chip_smoke: {label}: fused against eager max rel diff {rel:.3e} > "
+                           f"{FUSED_TOL[dtype]}")
+    if syncs_b:
+        raise RuntimeError(f"chip_smoke: {label}: a fused step made {syncs_b} host syncs")
+    if api_b["graph_launches"] != 1 or nodes == 0:
+        raise RuntimeError(f"chip_smoke: {label}: {api_b['graph_launches']} graph launches per "
+                           f"step, {nodes} WHILE nodes captured")
+    if not bool(torch.cat([f() for f in mb.state_fields()]).isfinite().all()):
+        raise RuntimeError(f"chip_smoke: {label}: a field is not finite")
+    out = {"cell": cell, "dtype": dtype, "dt": dt, "chunk": chunk, "reps": reps,
+           "wall_s_per_step": walls,
+           "wall_s_per_step_median": {k: statistics.median(v) for k, v in walls.items()},
+           "cell_steps_per_s": {k: cells / statistics.median(v) for k, v in walls.items()},
+           "itr_per_solve_last_step": itrs[-1][1], "host_syncs_per_step":
+           {"eager": syncs_a, "fused": syncs_b}, "cuda_api_calls_per_step":
+           {"eager": api_a, "fused": api_b}, "captures": captures,
+           "capture_s": runner.capture_s, "while_nodes_captured": nodes,
+           "wrapper_launches_per_step": launches,
+           "allocated_change_over_fused_bootstrap_gib": alloc_change,
+           "peak_mem_gib": peaks, "max_rel_diff_fused_vs_eager": rel}
+    if diag is not None:
+        sa = torch.stack(series_a).cpu().numpy()
+        sb = torch.cat(series_b).cpu().numpy()
+        out["diag_max_abs_diff"] = float(abs(sa - sb).max())
+        if not out["diag_max_abs_diff"] <= 1e-12 * max(float(abs(sa).max()), 1e-30):
+            raise RuntimeError(f"chip_smoke: {label}: the diagnostics differ: "
+                               f"{out['diag_max_abs_diff']}")
+    return out
+
+
+def phase_fused(dev) -> dict:
+    """Phase 14: eager against fused steps, in turns (module docstring)."""
+    out = {}
+    for cell in FUSED_CELLS:
+        out[cell] = run_fused_cell(dev, cell)
+        print(f"[14 fused] {json.dumps(out[cell])}", flush=True)
+    cav = out["cavity"]["cell_steps_per_s"]
+    print(f"[14 fused] ns_cavity3d_cell_steps_per_s_chip {cav['fused']} (eager "
+          f"{cav['eager']}; {FUSED_N['cavity']}^3 f32, the median of {FUSED_REPS} chunks of "
+          f"{FUSED_CHUNK['cavity']})", flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3703,6 +3895,7 @@ def main() -> None:
     phase_burgers_xonly(dev)
     per_counts, per_worst_abs = phase_periodic(dev)
     path_counts.append(per_counts)
+    phase_fused(dev)
     for name, err in per_worst_abs.items():
         worst[name] = max(worst[name], err)
     for counts in path_counts:

@@ -36,9 +36,10 @@ diffusion the conservative ``div(mu grad u_j)`` (a variable-Γ term, the
 ``sum_k d_k(mu) d_j(u_k)``. ``PeriodicFlow`` is the fully periodic box
 (Taylor-Green, the 3-D TGV with Smagorinsky LES, the Beltrami flow).
 
-The fused whole-step runner (``utils/fuse.py``) is a CUDA-graph capture,
-ported in a later slice: ``run(fused=True)``, ``run_batched`` and
-``fused_runner`` raise ``NotImplementedError``.
+``run(fused=True)``, ``run_batched`` and ``fused_runner`` step through the
+fused whole-step runner (``utils/fuse.py``): on the card one CUDA graph per
+step, its solver loops WHILE nodes; on the CPU the same state-swap step
+with ``sync: False`` solves.
 """
 from __future__ import annotations
 
@@ -73,10 +74,6 @@ def _ddx(f: torch.Tensor, dx: float, axis: int, periodic: bool = False) -> torch
     d[row(0)] = (-1.5 * f[row(0)] + 2 * f[row(1)] - 0.5 * f[row(2)]) / dx
     d[row(-1)] = (1.5 * f[row(-1)] - 2 * f[row(-2)] + 0.5 * f[row(-3)]) / dx
     return d
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"NS models: {what} is ported in a later slice")
 
 
 def power_law_viscosity(K: float, n: float, eps: float = 1e-6):
@@ -266,7 +263,8 @@ def control_volume_force_device(p, vels, dx, lo, hi, nu, vels_old=None, dt=None)
 
     def trapz(n_nodes):
         w = torch.ones(n_nodes, dtype=p.dtype, device=p.device)
-        w[0] = w[-1] = 0.5
+        w[0].fill_(0.5)  # a fill on the device (an item assignment copies from the host)
+        w[-1].fill_(0.5)
         return w
 
     F = [torch.zeros((), dtype=p.dtype, device=p.device) for _ in range(dim)]
@@ -659,7 +657,7 @@ class LidDrivenCavity:
             var.set_var_tensor(nv[None])
             var.apply_bcs()
 
-        self.t += dt
+        self.t = self.t + dt  # rebinds: a fused step streams t as a tensor
 
     def state_fields(self) -> list:
         """The Fields whose values and history evolve across steps."""
@@ -668,20 +666,112 @@ class LidDrivenCavity:
             fields.append(self.dp)
         return fields
 
-    def fused_runner(self, donate: bool = False):
-        raise _later("the fused whole-step runner (utils/fuse.py)")
+    # device constants a step builds lazily: kept across the fused core's
+    # restore of the model's attributes (built at an eager warm-up)
+    _fused_caches = ("_rc_mask", "_fluid_faces", "_cv_box_cache")
 
-    def run_batched(self, *args, **kwargs):
-        raise _later("the batched runner (utils/fuse.py)")
+    def fused_runner(self, donate: bool = False):
+        """The whole-step runner (``utils/fuse.py``): on the card the
+        explicit glue and the implicit solves of a step are one CUDA graph,
+        replayed per step. ``donate=True`` steps the state in place in the
+        graph's buffers (see ``FusedStepRunner``)."""
+        if getattr(self, "_fused", None) is None:
+            from pyapes_tpu_torch.utils.fuse import FusedStepRunner
+
+            self._fused = FusedStepRunner(self, donate=donate)
+        return self._fused
+
+    def _bootstrap_steps(self, dt: float, n_steps: int, fused: bool) -> tuple[int, bool]:
+        """Advance through the history bootstrap (until two levels exist),
+        fused when asked (JAX ``navier_stokes.py:973-1023``). The first
+        step's state lacks ``_VARoo``, so it gets a one-shot runner of its
+        own; from the second step on the structure is the steady one, so
+        the model's runner takes it and is reused for the rest of the run.
+        Returns ``(steps_remaining, capturable)``; ``capturable`` goes
+        False when a capture failed (the rest of the bootstrap then ran
+        eagerly, with a warning)."""
+        from pyapes_tpu_torch.utils.fuse import CaptureError, FusedStepRunner
+
+        while n_steps > 0 and min(v.n_hist for v in self.vel) < 2:
+            if fused:
+                try:
+                    if min(v.n_hist for v in self.vel) == 0:
+                        FusedStepRunner(self).step(dt)
+                    else:
+                        self.fused_runner().step(dt)
+                except CaptureError as e:
+                    # state untouched (fuse.py restores it whole): eager
+                    # for the rest of the run
+                    import warnings
+
+                    warnings.warn("fused step capture failed; falling back to eager stepping: "
+                                  f"{type(e).__name__}: {e}")
+                    fused = False
+                    self._fused = None
+                    self.step(dt)
+            else:
+                self.step(dt)
+            n_steps -= 1
+        return n_steps, fused
 
     def run(self, dt: float, n_steps: int, fused: bool = False) -> None:
-        """``n_steps`` eager steps of ``dt``; a strain-rate viscosity is
-        then re-evaluated from the final velocities."""
+        """``n_steps`` steps of ``dt``, eager or fused (``fused=True``: the
+        bootstrap, then the model's fused runner; a capture that fails warns
+        and falls back to eager steps); a strain-rate viscosity is then
+        re-evaluated from the final velocities (a fused step restores the
+        model's attributes, so its viscosity field is the warm-up's)."""
         if fused:
-            raise _later("run(fused=True) (utils/fuse.py)")
+            n_steps, fused = self._bootstrap_steps(dt, n_steps, fused=True)
+            if fused and n_steps > 0:
+                from pyapes_tpu_torch.utils.fuse import CaptureError
+
+                try:
+                    self.fused_runner().run(dt, n_steps)
+                    n_steps = 0
+                except CaptureError as e:
+                    import warnings
+
+                    warnings.warn("fused step capture failed; falling back to eager stepping: "
+                                  f"{type(e).__name__}: {e}")
+                    self._fused = None
         for _ in range(n_steps):
             self.step(dt)
         self._refresh_strain_viscosity()
+
+    def run_batched(self, dt: float, n_steps: int, diag_fn=None):
+        """``n_steps`` fused steps (``FusedStepRunner.run_batched``, JAX
+        ``navier_stokes.py:1235-1265``) with optional per-step diagnostics
+        ``diag_fn: model -> pytree of tensors`` (e.g. ``body_force_device``),
+        kept on the device. The history bootstrap runs first, fused, and
+        carries no diagnostics. Returns the stacked diagnostics (leading
+        axis: the steps after the bootstrap) or None. When a capture fails
+        the steps run eagerly with a warning, and ``diag_fn`` is evaluated
+        after each of them: the same stacked series (where the JAX package
+        returns None)."""
+        import warnings
+
+        from pyapes_tpu_torch.utils.fuse import CaptureError, _stack
+
+        n_steps, fused = self._bootstrap_steps(dt, n_steps, fused=True)
+        if n_steps > 0 and fused:
+            try:
+                diags = self.fused_runner().run_batched(dt, n_steps, diag_fn)
+                self._refresh_strain_viscosity()
+                return diags
+            except CaptureError as e:
+                warnings.warn(f"run_batched: step capture failed; stepping eagerly: "
+                              f"{type(e).__name__}: {e}")
+                self._fused = None
+        elif n_steps > 0:
+            warnings.warn("run_batched: step capture failed during bootstrap; stepping eagerly")
+        eager = []
+        for _ in range(n_steps):
+            self.step(dt)
+            if diag_fn is not None:
+                eager.append(diag_fn(self))
+        diags = _stack(eager) if eager else None
+        self._refresh_strain_viscosity()
+        return diags
 
     def max_velocity(self) -> torch.Tensor:
         """``max_j max|u_j|`` as a device scalar."""

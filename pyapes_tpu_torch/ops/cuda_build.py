@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect")
+SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect", "graph_loop")
 # the libraries of more than one unit: (source stem, its own nvcc flags)
 UNITS = {
     "axis_stencil": (("axis_stencil", ()),) + tuple(

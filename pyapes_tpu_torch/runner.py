@@ -31,7 +31,7 @@ time ``t``.
 
 ``cavity`` steps the lid-driven cavity (``nu = 1 / re``, unit lid, eager
 steps; ``--adaptive-cfl`` integrates to ``dt * steps`` with the CFL step;
-``--fused`` raises: the whole-step capture is ported in a later slice);
+``--fused``: the whole-step runner, one CUDA graph per step on the card);
 it adds ``steps``, ``t`` and the centreline minimum of u. ``channel``
 steps the inflow/outflow channel ``[0, 3] x [0, 1]`` on ``n x (2n/3 + 1)``
 nodes (``--obstacle``: an immersed square body ``[0.9, 1.2] x [0.35,
@@ -147,9 +147,6 @@ def _run_cavity(args) -> dict:
     from pyapes_tpu_torch.mesh import Mesh
     from pyapes_tpu_torch.models import LidDrivenCavity
 
-    if args.fused:
-        raise NotImplementedError("runner cavity: --fused (utils/fuse.py) is ported in a later "
-                                  "slice")
     box = Box[tuple(slice(0, 1) for _ in range(args.dim))]
     mesh = Mesh(box, None, [args.n] * args.dim, device=args.device, dtype=args.dtype)
     model = LidDrivenCavity(mesh, nu=1.0 / args.re, lid_velocity=1.0,
@@ -159,7 +156,7 @@ def _run_cavity(args) -> dict:
         n_steps = model.run_adaptive(args.adaptive_cfl, t_end=args.dt * args.steps)
     else:
         n_steps = args.steps
-        model.run(dt=args.dt, n_steps=args.steps)
+        model.run(dt=args.dt, n_steps=args.steps, fused=args.fused)
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
@@ -202,13 +199,10 @@ def _run_convection(args) -> dict:
     from pyapes_tpu_torch.mesh import Mesh
     from pyapes_tpu_torch.models import NaturalConvection
 
-    if args.fused:
-        raise NotImplementedError("runner convection: --fused (utils/fuse.py) is ported in a "
-                                  "later slice")
     mesh = Mesh(Box[0:1, 0:1], None, [args.n, args.n], device=args.device, dtype=args.dtype)
     model = NaturalConvection(mesh, ra=args.ra, pr=args.pr)
     tic = time.perf_counter()
-    model.run(dt=args.dt, n_steps=args.steps)
+    model.run(dt=args.dt, n_steps=args.steps, fused=args.fused)
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
@@ -284,7 +278,7 @@ def run(argv=None) -> dict:
     sc.add_argument("--adaptive-cfl", type=float, default=None, metavar="CFL",
                     help="CFL-adaptive dt (integrates to t_end = dt * steps)")
     sc.add_argument("--fused", action="store_true",
-                    help="whole-step capture (ported in a later slice: raises)")
+                    help="whole-step runner: one CUDA graph per step on the card")
 
     sch = sub.add_parser("channel", parents=[common])
     sch.add_argument("--nu", type=float, default=0.05)
@@ -299,7 +293,7 @@ def run(argv=None) -> dict:
     sv.add_argument("--dt", type=float, default=0.01)
     sv.add_argument("--steps", type=int, default=100)
     sv.add_argument("--fused", action="store_true",
-                    help="whole-step capture (ported in a later slice: raises)")
+                    help="whole-step runner: one CUDA graph per step on the card")
 
     sr = sub.add_parser("rfp", parents=[common])
     sr.add_argument("--dt", type=float, default=2e-4)

@@ -2,27 +2,30 @@
 
 Right-preconditioned with ``precond`` (the multigrid V-cycle), for
 nonsymmetric systems where CG does not apply. The JAX ``lax.while_loop``
-becomes a Python loop over device tensors. The JAX ``lax.cond`` on the
-mid-iteration early exit needs that tolerance on the host, so an
-iteration reads one value back (the early exit) or two (the full step).
-As in the JAX package, a residual blow-up past 1e3 times the best
-tolerance seen ends the loop (BiCGSTAB breaks down once it reaches its
-attainable accuracy), and the best iterate is returned.
+becomes ``graph_loop.while_loop`` over buffers the loop owns, updated in
+place. The JAX ``lax.cond`` on the mid-iteration early exit becomes a
+select: both branches run and the early one's values are taken where its
+test holds (``torch.where``, the same bits as a branch), so an iteration
+reads nothing back to the host, eager or captured; the price is one
+preconditioner and operator apply whose result is dropped, on the last
+iteration of a solve that exits early. As in the JAX package, a residual
+blow-up past 1e3 times the best tolerance seen ends the loop (BiCGSTAB
+breaks down once it reaches its attainable accuracy), and the best iterate
+is returned. Tolerances are held in float64, as the host compared them.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
+from pyapes_tpu_torch.ops.graph_loop import loop_record, while_loop
 from pyapes_tpu_torch.solver.linalg.cg_loop import _nan0, _r0_norm
-from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum
+from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum, loop_state
 
 
 def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None, fmg_init=None,
                    precond_setup=None):
     """Build ``bicg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``;
-    arguments as ``cg_loop.build_cg``."""
+    arguments and results as ``cg_loop.build_cg``."""
 
     def bicg_fn(x0, rhs, tparams, bc_vals=()):
         if precond_setup is not None:
@@ -45,49 +48,53 @@ def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None
         r0 = (rhs - Aop(x, tparams)) * M_
         if r0n is None:
             r0n = _r0_norm(r0)
-        r = r0
+        r = r0.clone()
         p = torch.zeros_like(r)
         v = torch.zeros_like(r)
         one = torch.ones((r.shape[0],) + (1,) * (r.ndim - 1), dtype=r.dtype, device=r.device)
-        rho, alpha, omega = one, one, one
+        rho, alpha, omega = one.clone(), one.clone(), one.clone()
         rho_next = _vsum(r0 * r0)
+        tol, itr, hist, go = loop_state(x, max_it, max_it > 0)
+        tol.copy_(torch.sqrt(rho_next.max().double()))
+        best_x, best_tol = x.clone(), torch.full_like(tol, float("inf"))
+        finished = torch.zeros((), dtype=torch.bool, device=x.device)
 
         def tol_of(vec):
             t = _l2_per_dim(vec).max()
-            return (t if criterion == "delta" else t / r0n).item()
+            return (t if criterion == "delta" else t / r0n).double()
 
-        tol = math.sqrt(rho_next.max().item())
-        best_x, best_tol = x, math.inf
-        itr, hist = 0, []
-        finished = False
-        while not finished and itr < max_it:
+        def body():
             beta = _nan0(rho_next / rho * alpha / omega)
-            rho = rho_next
-            p = r + beta * (p - omega * v)
+            rho.copy_(rho_next)
+            torch.add(r, beta * (p - omega * v), out=p)
             p_hat = P(p)
-            v = Aop(p_hat, tparams) * M_
-            alpha = _nan0(rho / _vsum(r0 * v))
+            torch.mul(Aop(p_hat, tparams), M_, out=v)
+            alpha.copy_(_nan0(rho / _vsum(r0 * v)))
             s_vec = r - alpha * v
             tol1 = tol_of(s_vec)
-            if tol1 <= tolerance:
-                # early exit; BCs are applied at loop exit
-                x = x + alpha * p_hat
-                r, rho_next, tol, finished = s_vec, rho, tol1, True
-            else:
-                s_hat = P(s_vec)
-                t = Aop(s_hat, tparams) * M_
-                omega = _nan0(_vsum(t * s_vec) / _vsum(t * t))
-                rho_next = -omega * _vsum(r0 * t)
-                x = x + alpha * p_hat + omega * s_hat
-                r = s_vec - omega * t
-                tol = tol_of(r)
-                finished = tol <= tolerance or tol > 1e3 * min(best_tol, tol)
-            if tol < best_tol:
-                best_x, best_tol = x, tol
-            hist.append(tol)
-            itr += 1
-        if best_tol < tol:
-            x, tol = best_x, best_tol
-        return apply_bcs_(x), itr, tol, hist
+            early = tol1 <= tolerance  # the early exit; BCs are applied at loop exit
+            x_early = x + alpha * p_hat
+            s_hat = P(s_vec)
+            t = Aop(s_hat, tparams) * M_
+            omega_new = _nan0(_vsum(t * s_vec) / _vsum(t * t))
+            r_full = s_vec - omega_new * t
+            tol2 = tol_of(r_full)
+            done = torch.logical_or(tol2 <= tolerance,
+                                    tol2 > 1e3 * torch.minimum(best_tol, tol2))
+            torch.where(early, x_early, x_early + omega_new * s_hat, out=x)
+            torch.where(early, s_vec, r_full, out=r)
+            torch.where(early, rho, -omega_new * _vsum(r0 * t), out=rho_next)
+            torch.where(early, tol1, tol2, out=tol)
+            torch.logical_or(early, done, out=finished)
+            torch.where(early, omega, omega_new, out=omega)
+            better = tol < best_tol
+            torch.where(better, x, best_x, out=best_x)
+            torch.where(better, tol, best_tol, out=best_tol)
+            loop_record(tol, tol, itr, hist, go, max_it, stop=finished)
+
+        while_loop(lambda: go, body, x.device)
+        use_best = best_tol < tol
+        x_out = torch.where(use_best, best_x, x)
+        return apply_bcs_(x_out), itr, torch.minimum(best_tol, tol), hist
 
     return bicg_fn

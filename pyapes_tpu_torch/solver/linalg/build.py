@@ -39,6 +39,7 @@ from pyapes_tpu_torch.solver.linalg.bicgstab_loop import build_bicgstab
 from pyapes_tpu_torch.solver.linalg.cg_loop import build_cg
 from pyapes_tpu_torch.solver.linalg.fastdiag_loop import build_fastdiag
 from pyapes_tpu_torch.solver.multigrid import MGSpec
+from pyapes_tpu_torch.utils.device_cache import device_array
 from pyapes_tpu_torch.variables.bcs import apply_bcs_fn
 
 # Multigrid hierarchies by their key (shape, knobs, dtypes, device): their
@@ -166,7 +167,7 @@ def _neumann_row_scale_vecs(nx, bcs) -> tuple[list[np.ndarray], bool]:
 def _null_shift_field(vecs, device):
     """Deferred ``(1, *nx)`` row-scale field, composed per call from the
     per-axis vectors."""
-    vecs = tuple(torch.as_tensor(v, device=device) for v in vecs)
+    vecs = tuple(device_array(v, device=device) for v in vecs)
 
     def build():
         ns = None
@@ -438,7 +439,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     sym_vecs = None
     if method == "cg" and any_scale:
         sym_vecs = tuple(
-            torch.as_tensor(v, device=x0.device)[None]
+            device_array(v, device=x0.device)[None]
             for v in _axis_fields(dvs, mesh.dim, x0.dtype)
         )
         obs_Aop = Aop

@@ -1,21 +1,25 @@
 """(Preconditioned) conjugate gradient (port of
 ``pyapes_tpu/solver/linalg.py::_build_cg``).
 
-The JAX ``lax.while_loop`` becomes a Python loop whose state stays on the
-device: ``alpha``, ``beta`` and ``rz`` are device tensors (``_nan0`` is
-``torch.nan_to_num``), and each iteration makes ONE device-to-host read,
-the convergence measure, which decides whether to run another. With the
-multigrid preconditioner this is MG-PCG; ``precond_dot`` fuses ``dot(r,
-z)`` into the V-cycle's last smooth and ``Aop_dot`` fuses ``dot(d, A d)``
-into the stencil apply. BCs are applied on entry and at exit only: every
-search direction is interior-masked, so boundary values are invariant and
-unread inside the loop.
+The JAX ``lax.while_loop`` becomes ``graph_loop.while_loop`` over state
+buffers the loop owns (``x``, ``r``, ``d``, ``rz``, ``tol``, ``itr`` and
+the NaN-padded history), which the body updates in place: on the host (one
+read of the condition per iteration) or, under a graph capture, as a WHILE
+node whose exit the device decides. ``alpha``, ``beta`` and ``rz`` are
+device tensors (``_nan0`` is ``torch.nan_to_num``); the tolerance is held
+in float64, as the host compared it. With the multigrid preconditioner
+this is MG-PCG; ``precond_dot`` fuses ``dot(r, z)`` into the V-cycle's last
+smooth and ``Aop_dot`` fuses ``dot(d, A d)`` into the stencil apply. BCs
+are applied on entry and at exit only: every search direction is
+interior-masked, so boundary values are invariant and unread inside the
+loop.
 """
 from __future__ import annotations
 
 import torch
 
-from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum
+from pyapes_tpu_torch.ops.graph_loop import loop_record, while_loop
+from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum, loop_state
 
 
 def _nan0(x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +35,9 @@ def build_cg(
     project_mean=False, Aop_dot=None, fmg_init=None, precond_dot=None,
     null_shift=None, precond_setup=None,
 ):
-    """Build ``cg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``.
+    """Build ``cg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``:
+    ``itr`` (int64), ``tol`` (float64) 0-d and ``hist`` (float32, ``max_it``
+    entries, NaN past ``itr``) device tensors.
 
     Args:
         Aop: ``(x, tparams) -> A x`` (fresh tensor).
@@ -95,10 +101,13 @@ def build_cg(
             return z, _vsum(r * z)
 
         z, rz = pz(r)
-        d = z
+        d = z.clone()  # owned: z may be r itself
+        rz = rz.clone()
         aop_dot = Aop_dot(tparams) if Aop_dot is not None else None
-        tol, itr, hist = 1.0, 0, []
-        while tol > tolerance and itr < max_it:
+        tol, itr, hist, go = loop_state(x, max_it, 1.0 > tolerance and max_it > 0)
+        in_place_x = criterion != "delta" and not project_mean
+
+        def body():
             if aop_dot is not None:
                 # d is masked, so the dot over the unmasked A d equals
                 # dot(d, M A d) exactly
@@ -109,23 +118,30 @@ def build_cg(
                 dAd = _vsum(d * Ad)
             alpha = _nan0(rz / dAd)
             # the axpys as single passes (addcmul broadcasts the device
-            # scalar): x + alpha d, r - alpha Ad, z + beta d
-            x_new = torch.addcmul(x, alpha, d)
+            # scalar), in place on the loop's buffers: x + alpha d,
+            # r - alpha Ad, z + beta d
+            if in_place_x:
+                torch.addcmul(x, alpha, d, out=x)
+            else:
+                x_new = torch.addcmul(x, alpha, d)
+                if project_mean:
+                    x_new = x_new - _vsum(x_new * M_) / n_act
+            torch.addcmul(r, alpha, Ad, value=-1.0, out=r)
             if project_mean:
-                x_new = x_new - _vsum(x_new * M_) / n_act
-            r = demean(torch.addcmul(r, alpha, Ad, value=-1.0))
+                r.sub_((_vsum(r * M_) / n_act) * M_)
             if criterion == "delta":
                 tol_dev = _l2_per_dim(x_new - x).max()
             else:
                 tol_dev = _l2_per_dim(r).max() / r0n
-            x = x_new
+            if not in_place_x:
+                x.copy_(x_new)
             z, rz_new = pz(r)
             beta = _nan0(rz_new / rz)
-            d = torch.addcmul(z, beta, d)
-            rz = rz_new
-            tol = tol_dev.item()  # the one host read of the iteration
-            hist.append(tol)
-            itr += 1
+            torch.addcmul(z, beta, d, out=d)
+            rz.copy_(rz_new)
+            loop_record(tol_dev, tol, itr, hist, go, max_it, tolerance)
+
+        while_loop(lambda: go, body, x.device)
         return apply_bcs_(x), itr, tol, hist
 
     return cg_fn

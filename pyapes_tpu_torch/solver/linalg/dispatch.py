@@ -28,6 +28,7 @@ several devices are ported in a later slice and raise
 from __future__ import annotations
 
 import copy
+from collections import OrderedDict
 from typing import TypedDict
 
 import numpy as np
@@ -44,11 +45,14 @@ from pyapes_tpu_torch.solver.linalg.build import (
     build_solver,
     fd_separable,
 )
-from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
+from pyapes_tpu_torch.ops.graph_loop import GraphedCall, capturing, keep_alive, use_host_loops
+from pyapes_tpu_torch.utils import device_cache
+from pyapes_tpu_torch.utils.device_cache import device_coeffs, is_constant
 
 
 class ReportType(TypedDict):
-    """Solver report (reference ``linalg.py:22-30``)."""
+    """Solver report (reference ``linalg.py:22-30``); under ``sync: False``
+    ``itr`` and ``tol`` are 0-d device tensors."""
 
     itr: int
     tol: float
@@ -59,8 +63,12 @@ _UNPORTED_CONFIG = ("debug", "kernel")
 
 
 def clear_cache() -> None:
+    """Drop the cached eigen-factors, multigrid hierarchies, solve graphs
+    and device constants (a live graph keeps what it reads)."""
     _FD_CACHE.clear()
     _MG_CACHE.clear()
+    _GRAPH_CACHE.clear()
+    device_cache.clear()
 
 
 def _term_descriptor(rec) -> tuple:
@@ -139,12 +147,12 @@ def _term_params(rec, desc, x0: torch.Tensor, paxes=()) -> dict:
     if kind in ("div_field", "conv_field"):
         adv = torch.as_tensor(rec["adv"], dtype=x0.dtype, device=x0.device)[red]
         base = _reduce_vecs(rec["other"]["base"], paxes)
-        return {"adv": adv.contiguous(), "base": coeffs_from_numpy(base, x0.device, x0.dtype)}
+        return {"adv": adv.contiguous(), "base": device_coeffs(base, x0.device, x0.dtype)}
     if kind == "diff_field":
         g = torch.as_tensor(rec["param"][0], dtype=x0.dtype, device=x0.device)
         return {"gamma": g[red[1:] if g.ndim == x0.ndim - 1 else red].contiguous()}
     axis_np = _reduce_vecs(rec["axis_coeffs"], paxes)
-    p = {"axis": coeffs_from_numpy(axis_np, x0.device, x0.dtype), "axis_np": axis_np}
+    p = {"axis": device_coeffs(axis_np, x0.device, x0.dtype), "axis_np": axis_np}
     if desc[3]:
         p["param"] = float(rec["param"][0])
     return p
@@ -226,8 +234,6 @@ def _check_config(config) -> None:
     for k in _UNPORTED_CONFIG:
         if config.get(k) not in (None, "auto"):
             raise NotImplementedError(f"linalg: config {k!r} is ported in a later slice")
-    if config.get("sync", True) is False:
-        raise NotImplementedError("linalg: sync=False is ported in a later slice")
     precond = config.get("precond")
     if precond not in (None, "none", "mg", "fd", "fastdiag"):
         raise NotImplementedError(f"linalg: precond {precond!r} is ported in a later slice")
@@ -298,6 +304,9 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
         config.get("criterion", "delta"), tol, max_it, slicer, paxes, decomp,
     )
+    # under a capture (a fused step), the graph reads the solve's cached
+    # hierarchy and factors through ``fn``: it must not outlive them
+    keep_alive(fn, rhs_shift)
     if rhs_shift is not None:  # the affine shells of nonzero-flux obstacles
         rhs = rhs - rhs_shift(tparams)
     if sym_vecs is not None:
@@ -306,11 +315,36 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             rhs = rhs * d
 
     bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
-    x_final, itr, tol_final, hist = fn(x0, rhs, tparams, bc_vals)
+    sync = config.get("sync", True) is not False
+
+    def run(x0, rhs, tparams, bc_vals):
+        x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals)
+        for j in paxes:  # re-append the duplicate seam node
+            x = torch.cat([x, x.narrow(1 + j, 0, 1)], dim=1 + j)
+        return x, itr, tol_dev, hist
+
+    if (not sync and x0.device.type == "cuda" and not capturing(x0.device)
+            and not use_host_loops()):
+        # a sync: False solve outside a captured step: one graph of the
+        # whole solve call, captured at the first call of its key
+        x_final, itr, tol_final, hist = _graphed_solve(
+            run, (config, mesh, method, term_descs, bcs, paxes), (x0, rhs, tparams, bc_vals))
+    else:
+        x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
+
+    if not sync:
+        # no host read: itr / tol stay device scalars (NaN detection is
+        # deferred to whoever fetches them), the history a device buffer
+        var.VAR = x_final
+        out_async: ReportType = {"itr": itr, "tol": tol_final, "converge": True}
+        if config.get("history"):
+            out_async["history"] = hist
+        return out_async
+
+    itr_h, tol_h = torch.stack([itr.to(torch.float64), tol_final]).tolist()  # one read
+    itr, tol_final = int(itr_h), float(tol_h)
     if np.isnan(tol_final) or np.isinf(tol_final):
         raise RuntimeError(f"Invalid tolerance detected! tol: {tol_final}")
-    for j in paxes:  # re-append the duplicate seam node
-        x_final = torch.cat([x_final, x_final.narrow(1 + j, 0, 1)], dim=1 + j)
     var.VAR = x_final
 
     # Krylov: converged means the loop stopped before max_it (the JAX
@@ -322,5 +356,86 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         print(f"\n{method.upper()}: The solution converged after {itr} iteration.")
         print(f"\ttolerance: {tol_final}")
     if config.get("history"):
-        out["history"] = np.asarray(hist)
+        out["history"] = hist[:itr].cpu().numpy()
     return out
+
+
+# Graphs of whole sync: False solves, by key (the solve's structure, host
+# scalars and constants; ``_graph_key``). Bounded LRU.
+_GRAPH_CACHE: OrderedDict = OrderedDict()
+_GRAPH_CACHE_MAX = 16
+
+
+class _Slot(int):
+    """Position of a per-call tensor among a graphed solve's inputs."""
+
+
+def _split(tree, tensors: list):
+    """``tree`` with every tensor that is not a cached device constant
+    replaced by its ``_Slot`` in ``tensors`` (appended)."""
+    if isinstance(tree, torch.Tensor):
+        if is_constant(tree):
+            return tree
+        tensors.append(tree)
+        return _Slot(len(tensors) - 1)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_split(v, tensors) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _split(v, tensors) for k, v in tree.items()}
+    return tree
+
+
+def _fill(tree, tensors):
+    if isinstance(tree, _Slot):
+        return tensors[tree]
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_fill(v, tensors) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _fill(v, tensors) for k, v in tree.items()}
+    return tree
+
+
+def _signature(tree, tensors, refs: list):
+    """A hashable description of ``tree`` (from ``_split``): slots by shape
+    and dtype, constants and objects by identity (kept alive in ``refs``,
+    so no identity is reused while the key lives), arrays by content."""
+    if isinstance(tree, _Slot):
+        t = tensors[tree]
+        return ("slot", tuple(t.shape), str(t.dtype))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_signature(v, tensors, refs) for v in tree)
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k], tensors, refs)) for k in sorted(tree))
+    if isinstance(tree, np.ndarray):
+        return ("array", tree.dtype.str, tree.shape, tree.tobytes())
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    refs.append(tree)
+    return ("obj", id(tree))
+
+
+def _graph_key(static, template, tensors, refs):
+    config, mesh, method, term_descs, bcs, paxes = static
+    cfg = tuple((k, _signature(config[k], tensors, refs)) for k in sorted(config))
+    return (cfg, _signature(mesh, tensors, refs), method,
+            _signature(term_descs, tensors, refs), _signature(tuple(bcs), tensors, refs),
+            tuple(paxes), _signature(template, tensors, refs))
+
+
+def _graphed_solve(run, static, args):
+    """``run(*args)`` through the graph of its key: the first call warms
+    and captures it (and returns the eager result), later calls copy the
+    per-call tensors in and replay. Outputs are cloned: the next replay
+    overwrites the graph's own."""
+    tensors: list = []
+    template = _split(args, tensors)
+    refs: list = []
+    key = _graph_key(static, template, tensors, refs)
+    if key not in _GRAPH_CACHE:
+        _GRAPH_CACHE[key] = (GraphedCall(lambda *ts: run(*_fill(template, ts)), tensors[0].device),
+                             refs)
+        while len(_GRAPH_CACHE) > _GRAPH_CACHE_MAX:
+            _GRAPH_CACHE.popitem(last=False)
+    _GRAPH_CACHE.move_to_end(key)
+    out = _GRAPH_CACHE[key][0](*tensors)
+    return tuple(o.clone() for o in out)

@@ -3,15 +3,18 @@
 
 Each pass is ``x += FD(b - A x)``: one stencil apply (the same ``Aop`` the
 Krylov path uses, so the reported tolerance is the TRUE relative residual)
-plus one Kronecker eigen-solve. The JAX ``lax.while_loop`` becomes a
-Python loop with ONE device-to-host read per pass (the tolerance), which
-decides whether to run another pass. It keeps the JAX loop's three exits:
-the tolerance, ``max_it``, and the stall exit at the dtype's accuracy
-floor.
+plus one Kronecker eigen-solve. The JAX ``lax.while_loop`` becomes
+``graph_loop.while_loop`` over buffers the loop owns (``x``, ``r``, the
+float64 tolerance, ``itr``, the history, the condition), updated in place:
+on the host with one read of the condition per pass, or as a WHILE node
+under a graph capture. It keeps the JAX loop's three exits: the
+tolerance, ``max_it``, and the stall exit at the dtype's accuracy floor.
 """
 from __future__ import annotations
 
 import torch
+
+from pyapes_tpu_torch.ops.graph_loop import loop_record, while_loop
 
 
 def _l2_per_dim(x: torch.Tensor) -> torch.Tensor:
@@ -23,11 +26,24 @@ def _vsum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=tuple(range(1, x.ndim)), keepdim=True)
 
 
+def loop_state(x: torch.Tensor, max_it: int, go: bool):
+    """The scalar state of a solver loop on ``x``'s device: the tolerance
+    (float64, 1.0), the iteration count (int64, 0), the convergence history
+    (float32, ``max_it`` NaNs, as the JAX loops keep it) and the loop's
+    condition (bool, ``go``), which ``graph_loop.loop_record`` updates."""
+    dev = x.device
+    return (torch.ones((), dtype=torch.float64, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.full((max_it,), float("nan"), dtype=torch.float32, device=dev),
+            torch.full((), bool(go), dtype=torch.bool, device=dev))
+
+
 def build_fastdiag(
     Aop, apply_bcs, M, tolerance, max_it, fd, act_sel, scalars,
     project_mean=False, null_shift=None,
 ):
-    """Build ``fd_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``.
+    """Build ``fd_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``
+    (device tensors, as ``cg_loop.build_cg``).
 
     Args:
         Aop: operator ``(x, tparams) -> A x`` (fresh tensor).
@@ -54,12 +70,15 @@ def build_fastdiag(
                 return v
             return v - (_vsum(v * M_) / n_act) * M_
 
-        def residual(x):
+        def residual(x, out=None):
             # b - A x on the active set; Aop's output is a fresh tensor,
-            # so it is overwritten in place.
+            # so it is overwritten in place (or written into ``out``).
             r = Aop(x, tparams)
-            torch.sub(rhs, r, out=r)
-            return demean(r.mul_(M_))
+            r = torch.sub(rhs, r, out=r if out is None else out)
+            r.mul_(M_)
+            if project_mean:
+                r.sub_((_vsum(r * M_) / n_act) * M_)
+            return r
 
         if project_mean:
             # compatibility shift: subtract the constant that makes the
@@ -72,28 +91,26 @@ def build_fastdiag(
 
         c_ax, c_dt = scalars(tparams)
 
-        # apply_bcs_ returns a new tensor: the in-place update of ``x``
-        # below never writes the caller's ``x0``.
+        # apply_bcs_ returns a new tensor: the in-place updates of ``x``
+        # below never write the caller's ``x0``.
         x = apply_bcs_(x0)
         r = residual(x)
         r0n = torch.clamp_min(_l2_per_dim(r).max(), torch.finfo(x.dtype).tiny)
+        tol, itr, hist, go = loop_state(x, max_it, 1.0 > tolerance and max_it > 0)
 
-        tol, itr, hist = 1.0, 0, []
-        while tol > tolerance and itr < max_it:
+        def body():
             e = fd.solve(r[act_sel].contiguous(), c_ax, c_dt, pseudo=project_mean)
-            x[act_sel] += e  # in place, on this loop's own iterate
+            x[act_sel] += e
             if project_mean:
-                x = x - _vsum(x * M_) / n_act
-            r = residual(x)
-            tol_new = (_l2_per_dim(r).max() / r0n).item()  # the one host read of the pass
+                x.sub_(_vsum(x * M_) / n_act)
+            residual(x, out=r)
             # A pass contracts at the one-pass transform accuracy (>=10x
             # in practice); <2x means the dtype's accuracy floor is
             # reached — stop instead of spinning to max_it.
-            stall = tol_new > 0.5 * tol
-            hist.append(tol_new)
-            tol, itr = tol_new, itr + 1
-            if stall:
-                break
+            loop_record(_l2_per_dim(r).max() / r0n, tol, itr, hist, go, max_it, tolerance,
+                        stall_ratio=0.5)
+
+        while_loop(lambda: go, body, x.device)
         return apply_bcs_(x), itr, tol, hist
 
     return fd_fn

@@ -10,6 +10,7 @@ Usage (the JAX package's surface):
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -19,6 +20,22 @@ from pyapes_tpu_torch.solver.fdm import Operators, ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg import ReportType
 from pyapes_tpu_torch.solver.tools import SolverConfig
 from pyapes_tpu_torch.variables import Field
+
+
+_SOLVE_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def solve_log():
+    """Within: every ``Solver.solve`` appends its report to the yielded list
+    (the fused runner keeps a step's reports this way, and a caller can
+    read the ``itr`` of each solve of an eager step)."""
+    global _SOLVE_LOG
+    prev, _SOLVE_LOG = _SOLVE_LOG, []
+    try:
+        yield _SOLVE_LOG
+    finally:
+        _SOLVE_LOG = prev
 
 
 def _ddt_history(rec) -> torch.Tensor:
@@ -90,6 +107,8 @@ class Solver:
                      if rec.get("adv") is not None and rec["param"][0] is self.var]
         for sweep in range(max(1, n_picard)):
             self.report = linalg.solve(self.var, self.rhs, self.eqs, cfg, self.var.mesh)
+            if _SOLVE_LOG is not None:
+                _SOLVE_LOG.append(self.report)
             if not nonlinear or sweep == n_picard - 1:
                 break
             for rec in nonlinear:  # refresh the frozen advection from the iterate

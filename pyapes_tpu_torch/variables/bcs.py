@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, FDIR, FDIR_RZ
+from pyapes_tpu_torch.utils.device_cache import device_array, device_scalar
 
 BC_val_type = Any
 """int | float | list | Callable | Tensor | None."""
@@ -190,14 +191,14 @@ class BC(ABC):
         if not self.streamable:
             return None
         i0 = 0 if self._bc_n_dir < 0 else -1
-        return tuple(
-            torch.as_tensor(
-                self._value_row(var, grid, d, i0, t),
-                dtype=var.dtype,
-                device=var.device,
-            )
-            for d in range(var.shape[0])
-        )
+        out = []
+        for d in range(var.shape[0]):
+            v = self._value_row(var, grid, d, i0, t)
+            if isinstance(v, (int, float)):  # a fill on the device, kept
+                out.append(device_scalar(v, var.dtype, var.device))
+            else:
+                out.append(torch.as_tensor(v, dtype=var.dtype, device=var.device))
+        return tuple(out)
 
     # -- application -------------------------------------------------------
     def apply(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
@@ -425,11 +426,11 @@ class ObstacleDirichlet:
 
     def stream_values(self, var: torch.Tensor, grid, t=None):
         """``(mask, value)`` of a dynamic obstacle, read from ``bc_mask``
-        now (``None`` for a static one)."""
+        now (the device mask kept by content; ``None`` for a static
+        one)."""
         if not self.dynamic:
             return None
-        mask = torch.as_tensor(self._bc_mask, device=var.device)
-        return mask, self._resolved_val(var, grid)
+        return device_array(self._bc_mask, device=var.device), self._resolved_val(var, grid)
 
     def apply(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
         return self.apply_(var.clone(), grid, var_dim, vals)

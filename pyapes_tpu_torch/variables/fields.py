@@ -101,7 +101,9 @@ class Field:
         self._dt = dt
 
     def update_time(self, dt: float | None = None) -> None:
-        self._t += self.dt if dt is None else dt
+        # rebinds, never adds in place: under a fused step ``_t`` is the
+        # streamed clock tensor the fields share
+        self._t = self._t + (self.dt if dt is None else dt)
 
     @property
     def t(self) -> float:

@@ -7,6 +7,7 @@ from one checkout, for A/B runs of two versions on one card in one call.
     python scripts/ab_cells_torch.py --cells diff_jacobi             # the variable-Γ pass
     python scripts/ab_cells_torch.py --cells axis_stencil axis_stencil5 "QUICK 256^3"
     python scripts/ab_cells_torch.py --cells "dot/ext 512^3"        # the alpha-dot, halo-ext
+    python scripts/ab_cells_torch.py --cells "cavity 128^3" "2D-2 441x83" "TGV 64^3" [--fused]
     python scripts/ab_cells_torch.py --cells conv_component advect_pair "Burgers 257^3" \
         "Upwind 256^3"                                                # the advection kernels
 
@@ -48,6 +49,17 @@ per-point kernel each forced where the version has both). The step cells
 ``chip_smoke.py``'s models (``advdiff_model``, ``burgers_model``)
 ``--steps`` times through ``_drive_steps`` and report the wall per step
 after the first (warm-up) step and ``itr`` per solve.
+The flow cells ``cavity 128^3``, ``2D-2 441x83`` and ``TGV 64^3`` step
+``chip_smoke.py``'s cavity (``cavity_model``, f32), Schäfer–Turek 2D-2
+(``SchaferTurek``, f64) and TGV-3D LES (``tgv_model``, f32) models
+eagerly: 2 warm steps, then ``--reps`` chunks of ``--chunk`` steps (host
+clock ending in a synchronize); per cell the wall and the process's CPU
+time per step of each chunk, their medians, ``itr`` per solve, and of
+one more step the host's CUDA API calls (``_api_calls``) and host syncs
+(``_count_syncs``), which the host's load does not move. ``--fused`` steps
+them through the model's fused runner instead (the bootstrap through
+``run(fused=True)``, then one graph replay per step; a version without it
+raises), ``itr`` then the last step's.
 The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot at 512^3,
 256^3 and 128^3 f32 and its halo-extended apply on the 8 blocks of those
 grids in ``N_DECOMP`` (8 launches) in f32 and bf16, per call and on the
@@ -87,6 +99,50 @@ STEP_CELLS = {
     "Burgers 257^3": lambda cs, dev: cs.burgers_model(dev),
 }
 
+# name -> (model, dt) of chip_smoke's flow cells, stepped eagerly
+FLOW_CELLS = {
+    "cavity 128^3": lambda cs, dev: (lambda st: (st.model, st.dt))(cs.cavity_model(dev, 128)[0]),
+    "2D-2 441x83": lambda cs, dev: (lambda c: (c.model, c.dt))(cs.SchaferTurek(dev, cs.ST_NY)),
+    "TGV 64^3": lambda cs, dev: cs.tgv_model(dev, cs.TGV_N),
+}
+
+
+def _flow_cell(cs, label, dev, chunk: int, reps: int, fused: bool = False) -> dict:
+    """Eager or fused steps of a flow cell (module docstring)."""
+    import statistics
+    import time
+    import warnings
+
+    import torch
+
+    model, dt = FLOW_CELLS[label](cs, dev)
+    reports = cs._record_solves(model)
+    if fused:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a fallback to eager steps fails the cell
+            model.run(dt, 2, fused=True)
+        runner = model.fused_runner()
+        step = lambda: runner.step(dt)  # noqa: E731
+    else:
+        model.run(dt, 2)
+        step = lambda: model.step(dt)  # noqa: E731
+    torch.cuda.synchronize()
+    n0 = len(reports)
+    walls, cpus = [], []
+    for _ in range(reps):
+        c0, tic = time.process_time(), time.perf_counter()
+        for _ in range(chunk):
+            step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - tic) / chunk)
+        cpus.append((time.process_time() - c0) / chunk)
+    itr = ([int(r["itr"]) for r in runner.reports] if fused
+           else [int(r["itr"]) for r in reports[n0:]])
+    return {"fused": fused, "wall_s_per_step": walls, "wall_s_median": statistics.median(walls),
+            "cpu_s_per_step": cpus, "cpu_s_median": statistics.median(cpus), "itr": itr,
+            "cuda_api_calls_per_step": cs._api_calls(step),
+            "host_syncs_per_step": cs._count_syncs(step)}
+
 
 def _dot_ext_times(cs, dev) -> dict:
     """``chip_smoke.py``'s ``dot_ext_level_times``: ``axis_stencil_dot`` at
@@ -114,8 +170,11 @@ def main() -> None:
     p.add_argument("--root", default=HERE)
     p.add_argument("--solves", type=int, default=5)
     p.add_argument("--steps", type=int, default=4, help="steps of a step cell (the first warms up)")
+    p.add_argument("--chunk", type=int, default=10, help="steps per timed chunk of a flow cell")
+    p.add_argument("--reps", type=int, default=3, help="timed chunks of a flow cell")
+    p.add_argument("--fused", action="store_true", help="flow cells through the fused runner")
     p.add_argument("--cells", nargs="+",
-                   choices=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, "dot/ext 512^3"],
+                   choices=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, *FLOW_CELLS, "dot/ext 512^3"],
                    default=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, "dot/ext 512^3"])
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -164,6 +223,9 @@ def main() -> None:
             continue
         if label == "dot/ext 512^3":
             out["cells"][label] = _dot_ext_times(cs, dev)
+            continue
+        if label in FLOW_CELLS:
+            out["cells"][label] = _flow_cell(cs, label, dev, args.chunk, args.reps, args.fused)
             continue
         if label in STEP_CELLS:
             stepper, _, _, name = STEP_CELLS[label](cs, dev)

@@ -144,6 +144,10 @@ def main() -> None:
     p.add_argument("--decomp", default=None,
                    help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
     p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
+    p.add_argument("--fused", action="store_true",
+                   help="with --cavity/--channel/--periodic: the bootstrap through "
+                        "run(fused=True), then one step of the fused runner (one CUDA graph "
+                        "replay, synchronized inside the profiled range)")
     p.add_argument("--out", default="chiprun_out/profile_mgpcg")
     p.add_argument("--root", default=HERE, help="the checkout whose package is profiled")
     args = p.parse_args()
@@ -178,7 +182,19 @@ def main() -> None:
         chip_smoke = importlib.util.module_from_spec(spec)  # this checkout's, whatever --root
         spec.loader.exec_module(chip_smoke)
         dev = torch.device("cuda")
-        if args.cavity:
+        if args.fused and (args.cavity or args.channel or args.periodic):
+            if args.cavity:
+                model, dt = (lambda s: (s.model, s.dt))(chip_smoke.cavity_model(dev, n)[0])
+            elif args.periodic:
+                model, dt = chip_smoke.tgv_model(dev, n)
+            else:
+                cell = chip_smoke.SchaferTurek(dev, n)
+                model, dt = cell.model, cell.dt
+            model.run(dt, 2, fused=True)  # the bootstrap; its second step captures the graph
+            runner = model.fused_runner()
+            stepper = type("FusedStep", (), {"model": model,
+                                             "step": lambda self: runner.step(dt)})()
+        elif args.cavity:
             stepper = chip_smoke.cavity_model(dev, n, args.implicit)[0]
             for _ in range(2):  # the cell's warm steps
                 stepper.step()
@@ -205,6 +221,9 @@ def main() -> None:
 
         def run():
             stepper.step()
+            if args.fused:  # the pressure solve's device scalars, synchronized in the range
+                rep = stepper.model._fused.reports[-1]
+                return {"itr": int(rep["itr"]), "tol": float(rep["tol"])}
             if args.cavity or args.channel or args.periodic:  # the last solve: the pressure
                 return stepper.model.p_solver.report
             return stepper.model.report  # --rfp: the last implicit step's
@@ -291,7 +310,7 @@ def main() -> None:
                  else "rfp" if args.rfp else "channel (2D-2)" if args.channel
                  else "TGV-3D LES" if args.periodic
                  else "darcy" if args.darcy else "poisson"),
-        "method": ("model step" if step
+        "method": ("fused model step" if args.fused else "model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,
         "n": n, "itr": rep["itr"],
         "tol": rep["tol"],

@@ -2,17 +2,21 @@
 """The Schäfer–Turek 2D-2 benchmark (Re 100 flow past a cylinder,
 Schäfer & Turek 1996) through the PyTorch port on one NVIDIA GPU.
 
-    python scripts/schafer_turek_torch.py [--ny 83] [--t-end 8.0] [--out chiprun_out/st]
+    python scripts/schafer_turek_torch.py [--ny 83] [--t-end 8.0] [--eager] [--out chiprun_out/st]
     python scripts/schafer_turek_torch.py --ny 43 --t-end 6.0 --every 20   # the coarse case
     python scripts/schafer_turek_torch.py --series chiprun_out/st/series_partial.npy
 
 The cell is ``chip_smoke.py``'s ``SchaferTurek`` (the set-up of
 ``demos/schafer_turek.py``: Box[0:2.2, 0:0.41], a cylinder of d = 0.1 at
 (0.2, 0.2), parabolic inflow of peak 1.5, nu 1e-3, dt = 0.2 dy / 2.3,
-f64). As the demo: two warm steps, then ``every``-step batches up to
-``t_end`` (``(int(t_end / dt) - 2) // every * every`` steps) with each
-step's diagnostics (staircase and control-volume forces, the front-rear
-pressure difference) kept on the card and fetched at the end; the
+f64). As the demo: ``config={"sync": False}``, two bootstrap steps
+through ``model.run(dt, 2, fused=True)``, then ``every``-step batches of
+``model.run_batched(dt, every, diag_fn)`` up to ``t_end`` (``(int(t_end /
+dt) - 2) // every * every`` steps; on the card one CUDA graph replay per
+step, its solver loops WHILE nodes), each step's diagnostics (staircase
+and control-volume forces, the front-rear pressure difference) computed
+in the step's graph, kept on the card and fetched at the end
+(``--eager``: the same steps eagerly, with the default ``sync``); the
 functionals (``chip_smoke.st_functionals``: St from the spectral peak of
 the developed half of the CV lift, Cd/Cl maxima, dP half a period after
 the lift maximum) come from that series.
@@ -84,6 +88,7 @@ def main() -> None:
     p.add_argument("--every", type=int, default=200, help="steps per batch (the demo's)")
     p.add_argument("--out", default="chiprun_out/schafer_turek")
     p.add_argument("--series", default=None, help="post-process this saved series instead")
+    p.add_argument("--eager", action="store_true", help="eager steps instead of the fused runner")
     args = p.parse_args()
     if args.series:
         print(json.dumps(_from_series(args.series, args.ny)))
@@ -102,29 +107,38 @@ def main() -> None:
     ).stdout.strip()
     print(smi, flush=True)
     os.makedirs(args.out, exist_ok=True)
-    cell = chip_smoke.SchaferTurek(torch.device("cuda"), args.ny)
+    cell = chip_smoke.SchaferTurek(torch.device("cuda"), args.ny,
+                                   config=None if args.eager else {"sync": False})
+    model = cell.model
     n_batches = (int(args.t_end / cell.dt) - 2) // args.every
     if n_batches < 1:
         raise SystemExit(f"t_end {args.t_end} gives no batch of {args.every} steps")
     tic0 = time.perf_counter()
-    cell.run(2)
+    model.run(cell.dt, 2, fused=not args.eager)
     torch.cuda.synchronize()
     warm = time.perf_counter() - tic0
-    series = []
+    series = []  # per batch: (every, 6) device tensors
     tic = time.perf_counter()
     for i in range(n_batches):
-        cell.run(args.every, series)
+        if args.eager:
+            rows = []
+            cell.run(args.every, rows)
+            series.append(torch.stack(rows))
+        else:
+            series.append(model.run_batched(cell.dt, args.every,
+                                            diag_fn=lambda m: cell.diag()))
         if (i + 1) % max(1, n_batches // 8) == 0:
             # the series so far, kept in case the run is cut (a host read)
             np.save(os.path.join(args.out, "series_partial.npy"),
-                    torch.stack(series).cpu().numpy())
+                    torch.cat(series).cpu().numpy())
             print(f"batch {i + 1}/{n_batches} t={cell.model.t:.3f} "
                   f"(+{time.perf_counter() - tic:.1f} s)", flush=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
-    host = torch.stack(series).cpu().numpy()  # the one fetch of the run
+    host = torch.cat(series).cpu().numpy()  # the one fetch of the run
     steps = n_batches * args.every
     res = {"nx": cell.nx, "ny": cell.ny, "dt": cell.dt, "steps": steps + 2,
+           "fused": not args.eager,
            "t_end": cell.model.t, "wall_s": wall, "warm_steps_wall_s": warm,
            "wall_s_per_step": wall / steps, "cell_steps_per_s": cell.nx * cell.ny * steps / wall,
            **chip_smoke.st_functionals(host, cell.dt, 2), "card": smi,

@@ -1089,3 +1089,275 @@ def test_cuda_obstacle_path_matches_cpu(cuda, case):
     if card[2] is not None:
         for a, b in zip(cpu[2], card[2]):
             assert np.abs(a - b).max() <= 1e-10 * max(np.abs(a).max(), 1e-30)
+
+
+# -- the device loop, sync: False solves and the fused step ------------------
+
+
+class _Poisson:
+    """A 17^3 f64 Poisson problem on ``device`` (Dirichlet faces, random RHS
+    from a seed), built once: ``solve(method, sync)`` by "fastdiag", "cg"
+    (+ the MG V-cycle) or "bicgstab" (+ the FD preconditioner) from ``x0``
+    (zeros by default); returns (solution, report)."""
+
+    def __init__(self, device, n: int = 17):
+        from pyapes_tpu_torch.geometry import Box
+        from pyapes_tpu_torch.mesh import Mesh
+        from pyapes_tpu_torch.solver.fdm import FDM
+        from pyapes_tpu_torch.variables import Field
+        from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n, n, n], device=device, dtype="double")
+        self.var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")})
+        self.rhs = torch.as_tensor(np.random.default_rng(3).standard_normal((1, n, n, n)),
+                                   device=device)
+        self.zeros = torch.zeros_like(self.var())
+        self.fdm = FDM()
+
+    def solve(self, method, sync, x0=None, tol=1e-10, max_it=200):
+        from pyapes_tpu_torch.solver.ops import Solver
+
+        self.var.VAR = self.zeros if x0 is None else x0
+        cfg = {"method": method, "tol": tol, "max_it": max_it, "criterion": "residual",
+               "sync": sync, "history": True}
+        cfg.update({"cg": {"precond": "mg"}, "bicgstab": {"precond": "fd"}}.get(method, {}))
+        s = Solver({"fdm": cfg})
+        s.set_eq(self.fdm.laplacian(1.0, self.var) == self.rhs)
+        return self.var().clone(), s.solve()
+
+
+@pytest.mark.parametrize("method", ["fastdiag", "cg", "bicgstab"])
+def test_cuda_sync_false_solve_replays_eager(cuda, method):
+    """A ``sync: False`` solve is a graph of the whole call: the first call
+    runs eagerly and captures it, the next ones replay it. Both equal the
+    ``sync: True`` solve (1e-12 relative, the same itr and history), and a
+    replay makes no host sync (``set_sync_debug_mode("error")``)."""
+    from pyapes_tpu_torch.ops import graph_loop
+
+    prob = _Poisson(cuda)
+    x_ref, rep = prob.solve(method, True)
+    x1, rep1 = prob.solve(method, False)
+    nodes = graph_loop.nodes
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x2, rep2 = prob.solve(method, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert graph_loop.nodes == nodes  # replayed, not captured again
+    scale = float(x_ref.abs().max())
+    for x, r in ((x1, rep1), (x2, rep2)):
+        assert float((x - x_ref).abs().max()) <= 1e-12 * scale
+        assert int(r["itr"]) == rep["itr"]
+        assert float(r["tol"]) == pytest.approx(rep["tol"], rel=1e-12, abs=0.0)
+        hist = r["history"].cpu().numpy()
+        np.testing.assert_array_equal(hist[:rep["itr"]], rep["history"])
+        assert np.isnan(hist[rep["itr"]:]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["tol", "tol_stall", "stop"])
+def test_loop_record_matches_plain(cuda, dtype, mode):
+    """The bookkeeping kernel of a solver loop's pass equals its plain
+    version on the CPU, state for state: the history, the float64
+    tolerance, the count and the condition, through a run that contracts,
+    stalls (ratio 0.5), meets the tolerance, is stopped or reaches
+    ``max_it``."""
+    from pyapes_tpu_torch.ops.graph_loop import loop_record
+
+    max_it = 6
+    ts = [0.3, 0.04, 0.03, 2e-3, 5e-7, 4e-7, 1e-8]
+    stops = [False, False, True, False, False, True, False]
+    states = {}
+    for dev in ("cpu", cuda):
+        states[dev] = [torch.ones((), dtype=torch.float64, device=dev),
+                       torch.zeros((), dtype=torch.int64, device=dev),
+                       torch.full((max_it,), float("nan"), dtype=torch.float32, device=dev),
+                       torch.ones((), dtype=torch.bool, device=dev)]
+    for t, stop in zip(ts[:max_it], stops):
+        for dev, (tol, itr, hist, go) in states.items():
+            kw = {"tol": {"tolerance": 1e-6}, "tol_stall": {"tolerance": 1e-6, "stall_ratio": 0.5},
+                  "stop": {"stop": torch.tensor(stop, device=dev)}}[mode]
+            loop_record(torch.tensor(t, dtype=dtype, device=dev), tol, itr, hist, go, max_it, **kw)
+        for a, b in zip(states["cpu"], states[cuda]):
+            assert torch.equal(a, b.cpu()) or (a.dtype == torch.float32
+                                                and torch.equal(a.isnan(), b.cpu().isnan())
+                                                and torch.equal(a.nan_to_num(), b.cpu().nan_to_num()))
+
+
+def test_cuda_while_loop_trip_counts(cuda):
+    """The WHILE node runs zero passes on a converged start (the solution
+    itself as x0, a tolerance already met) and exactly ``max_it`` when the
+    tolerance is never met (0)."""
+    prob = _Poisson(cuda)
+    x_ref, _ = prob.solve("cg", True)
+    for x0, tol, max_it, want in ((None, 0.0, 7, 7), (x_ref, 1.0, 50, 0)):
+        for _ in range(2):  # the eager first call, then the replay
+            _, rep = prob.solve("cg", False, x0=x0, tol=tol, max_it=max_it)
+            assert int(rep["itr"]) == want
+
+
+def _fused_models(case, device):
+    """Two models of ``case`` on ``device`` (f64): the 17^3 cavity, the
+    49 x 25 channel past a cylinder, the 17^3 Smagorinsky TGV."""
+    from math import pi
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.geometry.mask import MaskObstacle
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import ChannelFlow, LidDrivenCavity, PeriodicFlow
+    from pyapes_tpu_torch.models.navier_stokes import smagorinsky_viscosity
+
+    def make():
+        if case == "cavity":
+            mesh = Mesh(Box[0:1, 0:1, 0:1], None, [17] * 3, device=device, dtype="double")
+            return LidDrivenCavity(mesh, nu=0.01, lid_profile="regularized"), 0.25 / 16
+        if case == "channel":
+            body = lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.14**2  # noqa: E731
+            mesh = Mesh(Box[0:2, 0:1], [MaskObstacle(body)], [49, 25], device=device,
+                        dtype="double")
+            return ChannelFlow(mesh, nu=0.05, u_in=1.0), 0.005
+        mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [17] * 3, device=device,
+                    dtype="double")
+        m = PeriodicFlow(mesh, nu=1 / 1600, mu_strain_fn=smagorinsky_viscosity(1 / 1600, mesh))
+        X, Y, Z = mesh.grid
+        m.set_velocity(torch.sin(X) * torch.cos(Y) * torch.cos(Z),
+                       -torch.cos(X) * torch.sin(Y) * torch.cos(Z), torch.zeros_like(X))
+        return m, 0.05
+
+    return make(), make()
+
+
+@pytest.mark.parametrize("case", ["cavity", "channel", "tgv"])
+def test_cuda_fused_step_matches_eager(cuda, case):
+    """A fused step on the card is one graph replay whose solver loops are
+    WHILE nodes; it equals the eager step (1e-12 relative) with the same
+    itr solve by solve, and its replays make no host sync."""
+    from pyapes_tpu_torch.ops import graph_loop
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    (m1, dt), (m2, _) = _fused_models(case, cuda)
+    m1.run(dt, 2)
+    nodes = graph_loop.nodes
+    m2.run(dt, 2, fused=True)  # the second step captures the steady graph
+    runner = m2.fused_runner()
+    assert runner.captures == 1 and graph_loop.nodes > nodes
+    for _ in range(3):
+        with solve_log() as log:
+            m1.step(dt)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.step(dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert [int(r["itr"]) for r in runner.reports] == [int(r["itr"]) for r in log]
+    assert runner.captures == 1
+    for a, b in zip(m1.state_fields(), m2.state_fields()):
+        scale = max(float(a().abs().max()), 1e-30)
+        assert float((a() - b()).abs().max()) <= 1e-12 * scale, a.name
+        assert a.n_hist == b.n_hist and a._dt == b._dt
+
+
+def test_cuda_fused_streams_dt_one_capture_each(cuda):
+    """``dt`` is baked into the port's step graph: each distinct ``dt`` is
+    one capture (three here), where the JAX program streams it; the states
+    stay equal to the eager sequence."""
+    (m1, _), (m2, _) = _fused_models("cavity", cuda)
+    seq = [0.01, 0.01, 0.02, 0.005, 0.01, 0.02, 0.01]
+    for dt in seq:
+        m1.step(dt)
+    m2.step(seq[0])
+    m2.step(seq[1])
+    runner = m2.fused_runner()
+    for dt in seq[2:]:
+        runner.step(dt)
+    assert runner.captures == 3
+    for a, b in zip(m1.state_fields(), m2.state_fields()):
+        assert float((a() - b()).abs().max()) <= 1e-12 * max(float(a().abs().max()), 1e-30)
+
+
+def _overwrite_freed_memory(device) -> list:
+    """NaN-filled float64 tensors of many sizes (8 B to 1.6 MB, log-uniform),
+    allocated where the caching allocator has freed blocks: a graph that
+    still reads freed memory then reads NaN. Returned to hold them."""
+    import gc
+
+    gc.collect()
+    rng = np.random.default_rng(0)
+    return [torch.full((int(n),), float("nan"), dtype=torch.float64, device=device)
+            for n in np.exp(rng.uniform(0.0, np.log(2e5), 4000))]
+
+
+def test_cuda_graphs_outlive_cache_eviction(cuda):
+    """A captured ``sync: False`` solve (CG + MG) and a captured fused
+    cavity step keep what they read alive. After 9 other multigrid
+    hierarchies and 17 other eigen-factorizations, then a cleared
+    device-constant cache, then ``clear_cache()``, each time with the freed
+    memory overwritten, the replays still equal the eager solves and steps
+    (1e-12 relative, the same itr)."""
+    from pyapes_tpu_torch.ops import graph_loop
+    from pyapes_tpu_torch.solver.linalg import build
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+    from pyapes_tpu_torch.solver.ops import solve_log
+    from pyapes_tpu_torch.utils import device_cache
+
+    clear_cache()
+    prob = _Poisson(cuda)
+    x_ref, rep = prob.solve("cg", True)
+    prob.solve("cg", False)  # warm-up and capture
+    (m1, dt), (m2, _) = _fused_models("cavity", cuda)
+    m1.run(dt, 2)
+    m2.run(dt, 2, fused=True)
+    runner = m2.fused_runner()
+
+    def check_steps():
+        for _ in range(2):
+            with solve_log() as log:
+                m1.step(dt)
+            runner.step(dt)
+            assert [int(r["itr"]) for r in runner.reports] == [int(r["itr"]) for r in log]
+        for a, b in zip(m1.state_fields(), m2.state_fields()):
+            scale = max(float(a().abs().max()), 1e-30)
+            assert float((a() - b()).abs().max()) <= 1e-12 * scale, a.name
+        assert runner.captures == 1
+
+    for n in range(5, 5 + build._FD_CACHE_MAX + 1):
+        _Poisson(cuda, n).solve("fastdiag", True)
+    for n in range(5, 5 + build._MG_CACHE_MAX + 1):
+        _Poisson(cuda, n).solve("cg", True)
+    junk = _overwrite_freed_memory(cuda)
+    nodes = graph_loop.nodes
+    x, r = prob.solve("cg", False)
+    assert graph_loop.nodes == nodes  # a replay of the first capture
+    assert float((x - x_ref).abs().max()) <= 1e-12 * float(x_ref.abs().max())
+    assert int(r["itr"]) == rep["itr"]
+    check_steps()
+    for evict in (device_cache.clear, clear_cache):
+        del junk
+        evict()
+        junk = _overwrite_freed_memory(cuda)
+        check_steps()
+
+
+def test_cuda_fused_fallback_on_host_read_bc(cuda):
+    """A lid callable that reads ``float(t)`` cannot be captured:
+    ``run(fused=True)`` warns and falls back to eager steps, the state
+    untouched (JAX ``test_fuse.py:73``)."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import LidDrivenCavity
+
+    def lid(t):
+        return float(t) * 0.0 + 1.0
+
+    def make():
+        mesh = Mesh(Box[0:1, 0:1], None, [17, 17], device=cuda, dtype="double")
+        return LidDrivenCavity(mesh, nu=0.05, lid_velocity=lid)
+
+    m1, m2 = make(), make()
+    m1.run(0.01, 8)
+    with pytest.warns(UserWarning, match="falling back to eager"):
+        m2.run(0.01, 8, fused=True)
+    for a, b in zip(m1.state_fields(), m2.state_fields()):
+        assert float((a() - b()).abs().max()) <= 1e-12 * max(float(a().abs().max()), 1e-30)

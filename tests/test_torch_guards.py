@@ -106,20 +106,6 @@ def _field(bc_type="dirichlet"):
     return Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, bc_type)})
 
 
-def _cavity(**kw):
-    from pyapes_tpu_torch.models import LidDrivenCavity
-
-    return LidDrivenCavity(Mesh(Box[0:1, 0:1], None, [6, 6], device="cpu", dtype="double"), **kw)
-
-
-def _periodic(les=False, **kw):
-    from pyapes_tpu_torch.models import PeriodicFlow, smagorinsky_viscosity
-
-    mesh = Mesh(Box[0:1, 0:1], None, [9, 9], device="cpu", dtype="double")
-    law = smagorinsky_viscosity(0.01, mesh) if les else None
-    return PeriodicFlow(mesh, nu=0.01, mu_strain_fn=law, **kw)
-
-
 def _channel(**kw):
     mesh = Mesh(Box[0:3, 0:1], [MaskObstacle(_CYL)], [25, 9], device="cpu", dtype="double")
     return ChannelFlow(mesh, nu=0.05, **kw)
@@ -134,29 +120,14 @@ def _solve(cfg):
 
 @pytest.mark.parametrize(
     "case",
-    ["periodic_fused", "cg", "periodic_batched", "decomp", "kernel", "sync", "fd_opts",
-     "obstacle", "rz", "var_gamma", "ddt", "ns_fused", "periodic_fused_runner",
-     "periodic_sync", "custom", "runner_cavity_fused", "channel_fused",
-     "runner_convection_fused"],
+    ["decomp", "kernel", "fd_opts", "obstacle", "rz", "var_gamma", "ddt", "custom"],
 )
 def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError):
-        if case == "periodic_fused":  # the periodic box's whole-step capture (utils/fuse.py)
-            _periodic().run(0.01, 1, fused=True)
-        elif case == "cg":  # a CG solve that returns device scalars (A2)
-            var = _field()
-            s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-8, "max_it": 10,
-                                "sync": False}})
-            s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 6, 6, dtype=torch.float64))
-            s.solve()
-        elif case == "periodic_batched":  # the scanned runner (utils/fuse.py)
-            _periodic().run_batched(0.01, 2)
-        elif case == "decomp":  # blocks on a second device
+        if case == "decomp":  # blocks on a second device
             _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "meta"))})
         elif case == "kernel":
             _solve({"kernel": "jnp"})
-        elif case == "sync":
-            _solve({"sync": False})
         elif case == "fd_opts":
             _solve({"fd_opts": {"precision": "default"}})
         elif case == "obstacle":  # a variable-Γ Laplacian with obstacle BCs (JAX fdm.py:207)
@@ -185,28 +156,12 @@ def test_unported_features_raise(case):
             s.set_eq(FDM().ddt(var) - FDM().laplacian(1.0, var)
                      == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        elif case == "ns_fused":  # the whole-step capture (utils/fuse.py)
-            _cavity().run(0.01, 1, fused=True)
-        elif case == "periodic_fused_runner":  # the runner object itself (utils/fuse.py)
-            _periodic().fused_runner()
-        elif case == "periodic_sync":  # an LES step whose solves return device scalars (A2)
-            _periodic(les=True, config={"sync": False}).step(0.01)
         elif case == "custom":  # a user operator term on a periodic axis
             var = _field("periodic")
             s = Solver({"fdm": {"method": "bicgstab", "tol": 1e-8, "max_it": 10}})
             s.set_eq(FDM().custom(lambda x: 2.0 * x, var)
                      == torch.ones(1, 6, 6, 6, dtype=torch.float64))
             s.solve()
-        elif case == "runner_cavity_fused":  # the cavity runner's fused steps
-            from pyapes_tpu_torch import runner
-
-            runner.run(["cavity", "--n", "9", "--steps", "1", "--fused", "--device", "cpu"])
-        elif case == "channel_fused":  # the channel's whole-step capture (utils/fuse.py)
-            _channel().run(0.005, 1, fused=True)
-        else:  # the convection runner's fused steps
-            from pyapes_tpu_torch import runner
-
-            runner.run(["convection", "--n", "9", "--steps", "1", "--fused", "--device", "cpu"])
 
 
 def test_decomp_must_be_a_domain_decomposition():

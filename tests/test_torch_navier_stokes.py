@@ -12,7 +12,7 @@ JAX model tests' physical gates against the port.
     (its probe rejects every domain BC), so the fields agree within the
     solves' tolerance, 2e-6 (the band of ``tests/test_fastdiag.py``).
 (c) The gates of ``tests/test_models.py``'s cavity and convection tests,
-    eager (the port's ``run(fused=True)`` raises).
+    eager (the fused runner: ``tests/test_torch_fuse.py``).
 (d) The ``cavity`` and ``convection`` runners with ``--device cpu``.
 """
 import argparse
@@ -311,5 +311,9 @@ def test_runner_matches_jax(case):
 
 @pytest.mark.parametrize("case", ["cavity", "convection"])
 def test_runner_fused_raises(case):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        prunner.run([case, "--n", "9", "--steps", "1", "--fused", "--device", "cpu"])
+    """``--fused`` no longer raises: the fused runner's numbers are the
+    eager runner's, bit for bit on the CPU (``tests/test_torch_fuse.py``)."""
+    argv = [case, "--n", "9", "--steps", "3", "--dtype", "double", "--device", "cpu"]
+    fused, eager = prunner.run(argv + ["--fused"]), prunner.run(argv)
+    key = "u_centerline_min" if case == "cavity" else "nusselt_hot_wall"
+    assert fused[key] == eager[key] and fused["t"] == eager["t"]

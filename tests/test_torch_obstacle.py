@@ -12,7 +12,7 @@ packages on the same numpy inputs.
   package's within 1e-10 on the same fields.
 * The flow cases (the cavity around a body, the cylinder channel) keep
   the JAX tests' gates; where a JAX test steps ``fused=True`` the port
-  steps eagerly (its fused runner is a later slice). Their step-by-step
+  steps eagerly (the fused runner's parity is ``tests/test_torch_fuse.py``'s). Their step-by-step
   parity is ``tests/test_torch_channel.py``'s and
   ``test_cavity_flow_around_immersed_body``'s first steps here.
 """

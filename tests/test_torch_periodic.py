@@ -18,7 +18,7 @@ multigrid hierarchy on the reduced torus and ``PeriodicFlow``.
   solve and the fields within 1e-8 (Taylor-Green in the default config,
   the skew and advective forms, the Beltrami flow); the gates of
   ``tests/test_models.py``'s Taylor-Green, z-invariant and Beltrami tests
-  on the port's own runs (eager: the port's ``run(fused=True)`` raises);
+  on the port's own runs (eager; the fused runner: ``tests/test_torch_fuse.py``);
   the obstacle tests of a periodic axis under MG.
 """
 from math import exp, pi

@@ -17,8 +17,9 @@ against the JAX package (CPU, float64).
   (10 steps) — the same ``itr`` solve by solve and the fields within 1e-8.
 * The gates of the five JAX viscosity tests of ``tests/test_models.py``
   on the port's own runs (eager where the JAX test steps ``fused=True``:
-  the port's fused runner is a later slice; its run ends, as the fused
-  one does, with the strain-rate viscosity of the final velocities).
+  the fused runner's parity is ``tests/test_torch_fuse.py``'s; an eager
+  run ends, as the fused one does, with the strain-rate viscosity of the
+  final velocities).
 """
 from math import pi
 
