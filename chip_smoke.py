@@ -194,8 +194,39 @@ Phases, report lines before the last:
    the eager one (f64 1e-12 relative, f32 1e-5), the same itr solve by
    solve, no host sync in a fused step, no fallback warning.
 
+15. adjoint: the differentiable solves (``solver/adjoint.py``) and the
+   checkpoints. (a) the path: a 3-D permeability-inversion gradient,
+   ``DifferentiableDiffusionSolve`` on the 256^3 f64 unit box (homogeneous
+   Dirichlet, ``symmetric=True``, tol 1e-8; Γ the inclusion of
+   ``demos/darcy_inversion.py`` lifted to 3-D, a uniform injection, the
+   pressure misfit on every 4th interior node): the gradient at Γ = 1
+   against Richardson-extrapolated central differences along a smooth
+   direction (relative error <= 1e-6), the forward wall (the check's four
+   solves) and the value-and-gradient wall (median of 3 after a warm-up),
+   itr forward and adjoint, the ``diff_field`` launches of each gradient
+   (forward itr + adjoint itr + at most 4, the kernel in every matvec),
+   peak memory, 4 Adam steps (lr 0.05, the demo's; the misfit below its
+   start after them: the first sign-sized step may overshoot), and the
+   idle share of one forward solve (``torch.profiler``'s device time
+   against the unprofiled wall) at 256^3 and 128^3; (b) the Neumann and
+   harmonic variant at 128^3 (BiCGSTAB, the hand transpose through the
+   kernel, tol 1e-10): the same directional check; (c) ``DifferentiableSolve`` on the
+   implicit advection-diffusion step of ``tests/test_adjoint.py`` at 128^3
+   (the axis stencil's plane march, the transposed coefficients, tol
+   1e-12): the check along ``rhs`` (the test's loss, quadratic) and along
+   a coefficient vector (a misfit against a perturbed one's state); (d)
+   ``DifferentiableTransient``, 4 heat steps at 128^3: the gradient with
+   ``checkpoint`` on equals it off (1e-12 relative), the peak memory of
+   each; (e) each adjoint class on the card against the CPU at 17^2 and
+   17^3 f64 (solutions 1e-10, gradients 1e-9 relative); (f) the fused
+   cavity at 128^3 f32: 10 steps straight against 5 steps, a checkpoint
+   (``save``; then ``save_orbax(block=False)`` and
+   ``wait_for_checkpoints``), a load into a fresh model and 5 more, bit
+   for bit; ``write_vtk`` of the final fields and ``read_vtk``, equal in
+   f32.
+
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10, 11, 12, 13) and read just after; a kernel of a path that launched no time there
+9, 10, 11, 12, 13, 15 (a)) and read just after; a kernel of a path that launched no time there
 fails the run. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
 or null; two last rows for the 2-D per-point kernel on the rz cell and on
@@ -3840,6 +3871,490 @@ def phase_fused(dev) -> dict:
     return out
 
 
+# -- phase 15: the adjoint tier --------------------------------------------------
+
+ADJ_N = 256  # (a): the 3-D permeability-inversion gradient, f64
+ADJ_N_VARIANT = 128  # (b)-(d) and the host-bound probe of (a)'s problem
+ADJ_TOL = 1e-8  # (a)'s solves
+ADJ_VARIANT_TOL = 1e-10  # (b)'s: the directional check's error is ~60 tol (CPU probe)
+ADJ_TRANSPORT_TOL = 1e-12  # (c)'s: its loss (the test's) is ~1e5 times its derivative
+ADJ_SENSOR_STRIDE = 4  # (a)'s sensors: every 4th interior node
+ADJ_DIR_TOL = 1e-6  # the directional check, relative
+ADJ_EPS = 1e-2  # its central differences, Richardson-extrapolated over eps and eps/2
+ADJ_ADAM = 4  # (a)'s Adam updates (the warm-up's gradient takes the first)
+ADJ_TRANSIENT_STEPS = 4
+ADJ_CMP_N = 17  # (e): the card against the CPU, 17^2 and 17^3 f64
+ADJ_CMP_TOL = (1e-10, 1e-9)  # (e): solutions, gradients, relative to the largest entry
+ADJ_CKPT_N = 128  # (f): the fused cavity, f32
+ADJ_CKPT_STEPS = 5  # (f): steps before and after the checkpoint
+
+
+def _adj_bcs(mesh, kinds):
+    """The BC objects of the face kinds ``kinds`` (xl, xu, yl, ...), all of
+    value 0."""
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import mixed_bcs
+
+    return Field("p", 1, mesh, {"domain": mixed_bcs([0.0] * len(kinds), list(kinds)),
+                                "obstacle": None}).bcs
+
+
+def _adj_mesh(dev, n: int, dims: int = 3):
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+
+    return Mesh(Box[tuple(slice(0, 1) for _ in range(dims))], None, [n] * dims, device=str(dev),
+                dtype="double")
+
+
+def _smooth(mesh, shape=None):
+    """A smooth direction of unit amplitude on the mesh's nodes."""
+    import torch
+
+    v = None
+    for j, x in enumerate(mesh.grid):
+        f = torch.sin(pi * (j + 1) * x + 0.3 * j)
+        v = f if v is None else v * f
+    return v if shape is None else v.reshape(shape)
+
+
+def _directional(loss, p, g, v, eps: float = ADJ_EPS) -> dict:
+    """``<g, v>`` against the central differences of ``loss`` along ``v``
+    at ``p`` (Richardson over eps and eps/2), and the wall of each of the
+    four loss evaluations (one forward solve each)."""
+    import torch
+
+    walls = []
+
+    def val(q):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        with torch.no_grad():
+            out = float(loss(q))
+        walls.append(time.perf_counter() - tic)
+        return out
+
+    def cd(e):
+        return (val(p + e * v) - val(p - e * v)) / (2 * e)
+
+    d1, d2 = cd(eps), cd(eps / 2)
+    fd = (4 * d2 - d1) / 3
+    ad = float(torch.sum(g * v))
+    return {"ad": ad, "fd": fd, "rel_err": abs(ad - fd) / abs(fd), "forward_walls_s": walls}
+
+
+def _value_grad(loss, p):
+    """``(loss value, gradient, wall, diff_field and axis_stencil launches)``
+    of one reverse pass, ending in a synchronize."""
+    import torch
+
+    from pyapes_tpu_torch.ops import axis_stencil as ax_mod
+    from pyapes_tpu_torch.ops import diff_field as df_mod
+
+    c0 = (df_mod.diff_field.launches, ax_mod.axis_stencil.launches)
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    q = p.detach().clone().requires_grad_(True)
+    val = loss(q)
+    (g,) = torch.autograd.grad(val, q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    return (float(val.detach()), g, wall, {"diff_field": df_mod.diff_field.launches - c0[0],
+                                  "axis_stencil": ax_mod.axis_stencil.launches - c0[1]})
+
+
+def _busy(fn) -> dict:
+    """The unprofiled wall of ``fn()`` and the device's busy time over a
+    profiled second call (the sum of its kernels, memory copies and sets:
+    one stream, so they never overlap); ``idle_share`` is ``1 - busy /
+    wall``, or None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += getattr(e, "self_device_time_total", None) or getattr(
+                e, "self_cuda_time_total", 0.0)
+    busy = busy_us / 1e6
+    return {"wall_s": wall, "device_busy_s": busy,
+            "idle_share": 1.0 - busy / wall if busy > 0 else None}
+
+
+def inversion_cell(dev, n: int = ADJ_N):
+    """(a)'s problem: ``DifferentiableDiffusionSolve`` on the n^3 f64 unit
+    box, homogeneous Dirichlet faces, ``symmetric=True``, tol 1e-8; Γ the
+    inclusion field of ``demos/darcy_inversion.py`` lifted to 3-D (a
+    sphere of Γ 0.25, radius 0.18 at (0.6, 0.45, 0.5), in a background of
+    1); a uniform injection. ``(mesh, dsolve, misfit(theta = log Γ),
+    theta0)``:
+    the misfit of the pressure on every 4th interior node against the
+    true Γ's."""
+    import torch
+
+    from pyapes_tpu_torch.solver.adjoint import DifferentiableDiffusionSolve
+
+    mesh = _adj_mesh(dev, n)
+    dsolve = DifferentiableDiffusionSolve(mesh, _adj_bcs(mesh, ["dirichlet"] * 6), tol=ADJ_TOL,
+                                          symmetric=True)
+    X, Y, Z = mesh.grid
+    k_true = torch.where((X - 0.6) ** 2 + (Y - 0.45) ** 2 + (Z - 0.5) ** 2 < 0.18**2, 0.25,
+                         1.0).to(torch.float64)
+    rhs = torch.ones((1, n, n, n), dtype=torch.float64, device=mesh.device)
+    s = ADJ_SENSOR_STRIDE
+    sensors = torch.zeros((1, n, n, n), dtype=torch.float64, device=mesh.device)
+    sensors[:, s:-s:s, s:-s:s, s:-s:s] = 1.0
+    with torch.no_grad():
+        p_obs = dsolve(k_true.contiguous(), rhs) * sensors
+
+    def misfit(theta):
+        return torch.sum((dsolve(torch.exp(theta), rhs) * sensors - p_obs) ** 2)
+
+    return mesh, dsolve, misfit, torch.zeros_like(k_true).contiguous()
+
+
+def run_inversion_cell(dev, n: int = ADJ_N) -> dict:
+    """(a): the gradient's directional check at Γ = 1, the walls (forward:
+    the check's four solves; value and gradient: the median of the 3 Adam
+    steps after the warm-up), itr forward and adjoint, the ``diff_field``
+    launches of each gradient (forward itr + adjoint itr + at most 4), peak
+    memory, ``ADJ_ADAM`` Adam steps (lr 0.05; the misfit below its start
+    after them), the Γ-gradient pass alone (CUDA events), and the device's
+    idle share over one forward solve here and at 128^3."""
+    import torch
+
+    mesh, dsolve, misfit, theta = inversion_cell(dev, n)
+    label = f"adjoint (a) {n}^3 f64 inversion gradient"
+    torch.cuda.reset_peak_memory_stats()
+    l0, g0, warm_s, warm_launch = _value_grad(misfit, theta)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    itr0 = dict(dsolve.itr)
+    check = _directional(misfit, theta, g0, _smooth(mesh))
+    if not check["rel_err"] <= ADJ_DIR_TOL:
+        raise RuntimeError(f"chip_smoke: {label}: <g, v> {check['ad']!r} against the "
+                           f"differences {check['fd']!r}: rel err {check['rel_err']:.3e}")
+    param = theta.clone().requires_grad_(True)
+    opt = torch.optim.Adam([param], lr=0.05)
+    param.grad = g0.clone()
+    opt.step()
+    losses, walls, launches, itrs = [l0], [], [warm_launch], [itr0]
+    for _ in range(ADJ_ADAM - 1):
+        val, g, wall, lc = _value_grad(misfit, param.detach())
+        losses.append(val)
+        walls.append(wall)
+        launches.append(lc)
+        itrs.append(dict(dsolve.itr))
+        param.grad = g
+        opt.step()
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"chip_smoke: {label}: the misfit did not fall: {losses}")
+    for lc, it in zip(launches, itrs):
+        extra = lc["diff_field"] - it["forward"] - it["adjoint"]
+        if lc["diff_field"] == 0 or not 0 <= extra <= 4:
+            raise RuntimeError(f"chip_smoke: {label}: {lc['diff_field']} diff_field launches "
+                               f"for itr {it}")
+    if not bool(g0.isfinite().all()) or tuple(g0.shape) != (n, n, n):
+        raise RuntimeError(f"chip_smoke: {label}: the gradient is not finite of shape {n}^3")
+    from pyapes_tpu_torch.solver.adjoint import diff_field_gamma_vjp
+
+    mu, xm = torch.randn_like(g0)[None], torch.randn_like(g0)[None]
+    gamma_grad_ms = _time_ms(lambda: diff_field_gamma_vjp(
+        mu, xm, g0, dsolve._inv_dx2, dsolve._surgery, dsolve.avg), reps=5)
+    del mu, xm
+    busy = _busy(lambda: misfit(theta).item())
+    _, dsolve_v, misfit_v, theta_v = inversion_cell(dev, ADJ_N_VARIANT)
+    busy_v = _busy(lambda: misfit_v(theta_v).item())
+    fw = check.pop("forward_walls_s")
+    return {"n": n, "dtype": "float64", "tol": ADJ_TOL, "directional": check,
+            "forward_wall_s_median": statistics.median(fw), "forward_walls_s": fw,
+            "value_and_grad_wall_s_median": statistics.median(walls),
+            "value_and_grad_walls_s": walls, "warm_up_value_and_grad_s": warm_s,
+            "itr": itrs, "launches_per_gradient": launches, "peak_mem_gib": peak,
+            "adam_misfit": losses, "gamma_gradient_pass_ms": gamma_grad_ms,
+            "forward_solve_busy": busy,
+            f"forward_solve_busy_{ADJ_N_VARIANT}": {**busy_v, "itr": dict(dsolve_v.itr)}}
+
+
+def run_adjoint_variants(dev, n: int = ADJ_N_VARIANT) -> dict:
+    """(b) the Neumann and harmonic variant of (a)'s problem (Neumann on
+    the x-lower and y-upper faces: BiCGSTAB, the hand transpose in the
+    adjoint), (c) ``DifferentiableSolve`` on the implicit
+    advection-diffusion step of ``tests/test_adjoint.py`` lifted to n^3
+    (the axis stencil's plane march, the transposed coefficients in the
+    adjoint; checks along ``rhs`` and along axis 1's ``ap``), (d)
+    ``DifferentiableTransient``: 4 heat steps, the gradient with
+    ``checkpoint`` on and off (1e-12) and the peak memory of each."""
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.ops.stencil import div_axis_coeffs, laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.adjoint import (
+        DifferentiableDiffusionSolve,
+        DifferentiableSolve,
+        DifferentiableTransient,
+    )
+
+    out = {}
+    mesh = _adj_mesh(dev, n)
+    X, Y, Z = mesh.grid
+    dev_t = mesh.device
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev_t)
+
+    # (b)
+    bcs = _adj_bcs(mesh, ["neumann", "dirichlet", "dirichlet", "neumann", "dirichlet",
+                          "dirichlet"])
+    ds = DifferentiableDiffusionSolve(mesh, bcs, tol=ADJ_VARIANT_TOL, avg="harmonic")
+    k_true = torch.where((X - 0.6) ** 2 + (Y - 0.45) ** 2 + (Z - 0.5) ** 2 < 0.18**2, 0.25,
+                         1.0).to(torch.float64)
+    rhs = torch.ones((1, n, n, n), dtype=torch.float64, device=dev_t)
+    with torch.no_grad():
+        obs = ds(k_true.contiguous(), rhs)
+
+    def misfit(theta):
+        return torch.sum((ds(torch.exp(theta), rhs) - obs) ** 2)
+
+    theta = torch.zeros((n, n, n), dtype=torch.float64, device=dev_t)
+    _, g, wall, lc = _value_grad(misfit, theta)
+    check = _directional(misfit, theta, g, _smooth(mesh))
+    out["b_neumann_harmonic"] = {"value_and_grad_wall_s": wall, "itr": dict(ds.itr),
+                                 "launches_per_gradient": lc, **check}
+    # (c)
+    dbcs = _adj_bcs(mesh, ["dirichlet"] * 6)
+    nu, u, dt = 0.05, 1.0, 0.1
+    lap = laplacian_axis_coeffs(mesh, dbcs)
+    div = div_axis_coeffs(mesh, dbcs, u, "none")
+    coeffs = [[t(div[j][k] - nu * lap[j][k] + (1.0 / dt if (j, k) == (0, 1) else 0.0))
+               for k in range(3)] for j in range(3)]
+    dsolve = DifferentiableSolve(mesh, dbcs, tol=ADJ_TRANSPORT_TOL)
+    c0 = t(np.random.default_rng(8).standard_normal((1, n, n, n)))
+
+    def step_loss(c, cs=coeffs):
+        return torch.sum((dsolve(cs, c / dt) - 0.3) ** 2)
+
+    _, g, wall, lc = _value_grad(step_loss, c0)
+    # the loss is quadratic in c: the differences are exact at any step,
+    # and a long one keeps the solves' tolerance out of the derivative
+    chk_rhs = _directional(step_loss, c0, g, _smooth(mesh, (1, n, n, n)), eps=0.5)
+    ap1 = coeffs[1][0]
+    v_ap = torch.sin(pi * mesh.x[1]) * ap1.abs().max()
+
+    def with_ap(a):
+        return [coeffs[0], [a, coeffs[1][1], coeffs[1][2]], coeffs[2]]
+
+    # the coefficient: a misfit against the state of a perturbed ap (the
+    # JAX test's loss would drown it likewise)
+    with torch.no_grad():
+        c_obs = dsolve(with_ap(ap1 + 0.1 * v_ap), c0 / dt)
+
+    def coeff_loss(a):
+        return torch.sum((dsolve(with_ap(a), c0 / dt) - c_obs) ** 2)
+
+    _, g_ap, _, lc_ap = _value_grad(coeff_loss, ap1)
+    chk_ap = _directional(coeff_loss, ap1, g_ap, v_ap, eps=1e-4)
+    out["c_transport_step"] = {"value_and_grad_wall_s": wall, "itr": dict(dsolve.itr),
+                               "launches_per_gradient": lc, "along_rhs": chk_rhs,
+                               "along_ap_axis1": chk_ap, "launches_ap_gradient": lc_ap}
+    # (d)
+    lap_t = [[t(c) for c in cs] for cs in lap]
+    x0 = t(np.random.default_rng(3).standard_normal((1, n, n, n)))
+    target = (torch.sin(pi * X) * torch.sin(pi * Y) * torch.sin(pi * Z))[None]
+    grads, peaks = {}, {}
+    for ck in (False, True):
+        roll = DifferentiableTransient(
+            mesh, dbcs, lambda v: tuple((-v * ap, -v * ac, -v * am) for ap, ac, am in lap_t),
+            dt=0.02, checkpoint=ck)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, g, wall, _ = _value_grad(
+            lambda v: torch.sum((roll(v, x0, ADJ_TRANSIENT_STEPS) - target) ** 2),
+            torch.tensor(0.05, dtype=torch.float64, device=dev_t))
+        peaks["on" if ck else "off"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        grads["on" if ck else "off"] = float(g)
+    rel = abs(grads["on"] - grads["off"]) / abs(grads["off"])
+    out["d_transient"] = {"steps": ADJ_TRANSIENT_STEPS, "grad": grads, "rel_diff": rel,
+                          "peak_above_start_gib": peaks,
+                          "peak_on_below_off": peaks["on"] < peaks["off"]}
+    for name, chk in (("b", out["b_neumann_harmonic"]), ("c rhs", chk_rhs), ("c ap", chk_ap)):
+        chk.pop("forward_walls_s", None)
+        if not chk["rel_err"] <= ADJ_DIR_TOL:
+            raise RuntimeError(f"chip_smoke: adjoint ({name}) {n}^3: <g, v> {chk['ad']!r} "
+                               f"against {chk['fd']!r}: rel err {chk['rel_err']:.3e}")
+    if lc["axis_stencil"] == 0 or out["b_neumann_harmonic"]["launches_per_gradient"][
+            "diff_field"] == 0:
+        raise RuntimeError(f"chip_smoke: adjoint variants: a gradient launched no kernel: {out}")
+    if not rel <= 1e-12:
+        raise RuntimeError(f"chip_smoke: adjoint (d): checkpoint on {grads['on']!r} off "
+                           f"{grads['off']!r} (rel {rel:.3e})")
+    return out
+
+
+def _adj_cmp_case(kind: str, dev, dims: int, n: int = ADJ_CMP_N):
+    """``(forward(param) -> solution, param0, weight)`` of one adjoint class
+    on an n^dims f64 box; the same seeded inputs on every device."""
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.adjoint import (
+        DifferentiableDiffusionSolve,
+        DifferentiableSolve,
+        DifferentiableTransient,
+        DifferentiableTransientDiffusion,
+    )
+
+    mesh = _adj_mesh(dev, n, dims)
+    rng = np.random.default_rng(11 + dims)
+    shape = (1,) + (n,) * dims
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=mesh.device)
+
+    rhs, weight = t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    gamma = t(1.0 + 0.5 * rng.random(shape[1:]))
+    dirichlet = _adj_bcs(mesh, ["dirichlet"] * 2 * dims)
+    lap = [[t(c) for c in cs] for cs in laplacian_axis_coeffs(mesh, dirichlet)]
+    if kind == "solve":
+        ds = DifferentiableSolve(mesh, dirichlet, tol=1e-12)
+        cs = [(ap, ac + (20.0 if j == 0 else 0.0), am - 3.0 * ap) for j, (ap, ac, am) in
+              enumerate(lap)]
+        return (lambda b: ds(cs, b)), rhs, weight
+    if kind == "diffusion":
+        ds = DifferentiableDiffusionSolve(mesh, dirichlet, tol=1e-12, symmetric=True)
+        return (lambda g: ds(g, rhs)), gamma, weight
+    if kind == "diffusion_neumann":
+        kinds = ["neumann", "dirichlet", "dirichlet", "neumann", "dirichlet", "dirichlet"]
+        ds = DifferentiableDiffusionSolve(mesh, _adj_bcs(mesh, kinds[:2 * dims]), tol=1e-12,
+                                          avg="harmonic")
+        return (lambda g: ds(g, rhs)), gamma, weight
+    if kind == "transient":
+        roll = DifferentiableTransient(
+            mesh, dirichlet, lambda v: tuple((-v * ap, -v * ac, -v * am) for ap, ac, am in lap),
+            dt=0.02, tol=1e-12)
+        return (lambda v: roll(v, rhs, 3)), t(0.05), weight
+    roll = DifferentiableTransientDiffusion(mesh, dirichlet, dt=0.02, tol=1e-12)
+    return (lambda g: roll(g, rhs, 3)), gamma, weight
+
+
+ADJ_CMP_KINDS = ("solve", "diffusion", "diffusion_neumann", "transient", "transient_diffusion")
+
+
+def adjoint_card_vs_cpu(dev) -> dict:
+    """(e): each adjoint class on the card against the CPU at 17^2 and
+    17^3 f64: the solution within 1e-10 and the gradient of ``sum(w x) +
+    sum(x^2)`` within 1e-9, relative to the largest entry."""
+    import torch
+
+    def run(kind, d, dims):
+        forward, p0, w = _adj_cmp_case(kind, d, dims)
+        p = p0.detach().clone().requires_grad_(True)
+        x = forward(p)
+        (g,) = torch.autograd.grad(torch.sum(w * x) + torch.sum(x * x), p)
+        return x.detach().cpu(), g.cpu()
+
+    worst = {}
+    for dims in (2, 3):
+        for kind in ADJ_CMP_KINDS:
+            xc, gc = run(kind, torch.device("cpu"), dims)
+            xg, gg = run(kind, dev, dims)
+            rx = float((xg - xc).abs().max() / xc.abs().max())
+            rg = float((gg - gc).abs().max() / gc.abs().max())
+            worst[f"{kind} {dims}-D"] = (rx, rg)
+            if not (rx <= ADJ_CMP_TOL[0] and rg <= ADJ_CMP_TOL[1]):
+                raise RuntimeError(f"chip_smoke: adjoint (e) {kind} {dims}-D: the card differs "
+                                   f"from the CPU: solution {rx:.3e}, gradient {rg:.3e}")
+    return worst
+
+
+def run_checkpoint_cell(dev, tmp: str, n: int = ADJ_CKPT_N, k: int = ADJ_CKPT_STEPS) -> dict:
+    """(f): the cavity at n^3 f32, fused: 2k steps straight against k
+    steps, a checkpoint, a load into a fresh model and k more steps, bit
+    for bit, through ``save``/``load`` and through ``save_orbax(block=
+    False)``/``wait_for_checkpoints``/``load_orbax``; then ``write_vtk``
+    of the final fields and ``read_vtk``, equal in f32."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pyapes_tpu_torch.utils import checkpoint
+    from pyapes_tpu_torch.utils.io import read_vtk, write_vtk
+
+    def model():
+        return cavity_model(dev, n)[0]
+
+    ref = model()
+    ref.model.run(ref.dt, 2 * k, fused=True)
+    want = [f().clone() for f in ref.model.state_fields()]
+    out = {}
+    for how in ("npz", "orbax"):
+        a = model()
+        a.model.run(a.dt, k, fused=True)
+        fields = a.model.vel + [a.model.p]
+        path = os.path.join(tmp, f"cavity_{how}")
+        tic = time.perf_counter()
+        if how == "npz":
+            checkpoint.save(path, fields)
+        else:
+            checkpoint.save_orbax(path, fields, block=False)
+        save_s = time.perf_counter() - tic
+        a.model.run(a.dt, 1, fused=True)  # writes the live state after the save
+        checkpoint.wait_for_checkpoints()
+        b = model()
+        fields_b = b.model.vel + [b.model.p]
+        (checkpoint.load if how == "npz" else checkpoint.load_orbax)(path, fields_b)
+        b.model.t = max(float(f._t) for f in fields_b)
+        b.model.run(b.dt, k, fused=True)
+        same = all(torch.equal(w, f()) for w, f in zip(want, b.model.state_fields()))
+        out[how] = {"save_call_s": save_s, "bit_equal": same,
+                    "captures_after_load": b.model.fused_runner().captures}
+        if not same:
+            raise RuntimeError(f"chip_smoke: adjoint (f) {how}: the resumed fused cavity "
+                               "differs from the straight run")
+    fields = {f.name: f()[0] for f in ref.model.vel}
+    fields["p"] = ref.model.p()[0]
+    tic = time.perf_counter()
+    vtk = write_vtk(os.path.join(tmp, "cavity"), ref.model.mesh, fields)
+    out["write_vtk_s"] = time.perf_counter() - tic
+    back = read_vtk(vtk)["fields"]
+    for name, f in fields.items():
+        if not np.array_equal(back[name], f.float().cpu().numpy()):
+            raise RuntimeError(f"chip_smoke: adjoint (f): VTK field {name} differs")
+    return out
+
+
+def phase_adjoint(dev) -> dict:
+    """Phase 15 (module docstring): (a) is the path whose launches count;
+    (b)-(f) follow it; (f)'s files go to a temporary directory under the
+    checkout's ``build/``."""
+    import tempfile
+
+    from pyapes_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    _reset_counts()
+    cell = run_inversion_cell(dev)
+    counts = _counts()
+    print(f"[15 adjoint] (a) {json.dumps(cell)}", flush=True)
+    variants = run_adjoint_variants(dev)
+    print(f"[15 adjoint] (b)-(d) {json.dumps(variants)}", flush=True)
+    print(f"[15 adjoint] (e) card against CPU (solution, gradient rel): "
+          f"{json.dumps(adjoint_card_vs_cpu(dev))}", flush=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        print(f"[15 adjoint] (f) {json.dumps(run_checkpoint_cell(dev, tmp))}", flush=True)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -3896,6 +4411,7 @@ def main() -> None:
     per_counts, per_worst_abs = phase_periodic(dev)
     path_counts.append(per_counts)
     phase_fused(dev)
+    path_counts.append(phase_adjoint(dev))
     for name, err in per_worst_abs.items():
         worst[name] = max(worst[name], err)
     for counts in path_counts:

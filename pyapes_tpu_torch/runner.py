@@ -42,7 +42,15 @@ steps the de Vahl Davis cavity (2-D) and adds the hot-wall Nusselt
 number. ``rfp`` relaxes an anisotropic Maxwellian on an ``n x 2n``
 Cylinder velocity mesh by self-consistent RFP evolution (the potentials
 re-solved every ``--refresh`` steps, explicit steps between) and adds
-``steps`` and the relative ``density_drift``; ``--vtk`` is not ported.
+``steps`` and the relative ``density_drift``.
+
+``--vtk PREFIX`` writes the final fields as a legacy-VTK file
+(``utils/io.py``) for ParaView and adds its path as ``vtk``; ``--save
+PATH`` checkpoints the final state of ``cavity``, ``channel``,
+``convection`` and ``darcy`` to ``PATH.npz`` and ``--resume PATH``
+restores ``cavity``, ``channel`` and ``convection`` from one before
+stepping (``utils/checkpoint.py``; with ``--fused`` the state is loaded
+before the first capture), as the JAX runner does.
 
 Each prints one JSON line ``{"report": {...}, "wall_s": ..., "n": ...}``,
 the JAX runner's shape. ``wall_s`` is the host wall time of the solve, ending
@@ -54,6 +62,30 @@ from __future__ import annotations
 import argparse
 import json
 import time
+
+
+def _maybe_resume(args, model, fields) -> None:
+    if args.resume:
+        from pyapes_tpu_torch.utils.checkpoint import load
+
+        load(args.resume, fields)
+        # continue from the checkpointed simulation time
+        model.t = max(float(f._t) for f in fields)
+
+
+def _maybe_save(args, fields) -> None:
+    if args.save:
+        from pyapes_tpu_torch.utils.checkpoint import save
+
+        save(args.save, fields)
+
+
+def _maybe_vtk(args, mesh, fields: dict) -> dict:
+    if not args.vtk:
+        return {}
+    from pyapes_tpu_torch.utils.io import write_vtk
+
+    return {"vtk": write_vtk(args.vtk, mesh, fields)}
 
 
 def _run_poisson(args) -> dict:
@@ -76,7 +108,9 @@ def _run_poisson(args) -> dict:
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
-    return {"report": dict(model.report), "wall_s": wall, "n": args.n}
+    out = {"report": dict(model.report), "wall_s": wall, "n": args.n}
+    out.update(_maybe_vtk(args, mesh, {"p": model.var()[0]}))
+    return out
 
 
 def _run_darcy(args) -> dict:
@@ -107,7 +141,7 @@ def _run_darcy(args) -> dict:
 
     ph = pf()[0].double().cpu().numpy()
     q_in, q_out = inlet_outlet_flux(K, ph, mesh)
-    return {
+    out = {
         "report": dict(rep),
         "wall_s": wall,
         "n": n,
@@ -117,6 +151,9 @@ def _run_darcy(args) -> dict:
         "k_harmonic": float(1.0 / np.mean(1.0 / K)),
         "k_arithmetic": float(np.mean(K)),
     }
+    out.update(_maybe_vtk(args, mesh, {"p": ph, "K": K}))
+    _maybe_save(args, [pf])
+    return out
 
 
 def _run_burgers(args) -> dict:
@@ -136,7 +173,9 @@ def _run_burgers(args) -> dict:
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
-    return {"wall_s": wall, "steps": args.steps, "t": model.var.t}
+    out = {"wall_s": wall, "steps": args.steps, "t": model.var.t}
+    out.update(_maybe_vtk(args, mesh, {"u": model.var()[0]}))
+    return out
 
 
 def _run_cavity(args) -> dict:
@@ -151,6 +190,7 @@ def _run_cavity(args) -> dict:
     mesh = Mesh(box, None, [args.n] * args.dim, device=args.device, dtype=args.dtype)
     model = LidDrivenCavity(mesh, nu=1.0 / args.re, lid_velocity=1.0,
                             implicit_advection=args.implicit_advection)
+    _maybe_resume(args, model, model.vel + [model.p])
     tic = time.perf_counter()
     if args.adaptive_cfl:
         n_steps = model.run_adaptive(args.adaptive_cfl, t_end=args.dt * args.steps)
@@ -160,10 +200,15 @@ def _run_cavity(args) -> dict:
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
+    _maybe_save(args, model.vel + [model.p])
     u = model.u()[0].double().cpu().numpy()
     mid = (u.shape[0] // 2,) * (args.dim - 1)
-    return {"wall_s": wall, "steps": n_steps, "u_centerline_min": float(np.min(u[mid])),
-            "t": model.t}
+    out = {"wall_s": wall, "steps": n_steps, "u_centerline_min": float(np.min(u[mid])),
+           "t": float(model.t)}
+    fields = {v.name: v()[0] for v in model.vel}
+    fields["p"] = model.p()[0]
+    out.update(_maybe_vtk(args, mesh, fields))
+    return out
 
 
 def _run_channel(args) -> dict:
@@ -177,11 +222,13 @@ def _run_channel(args) -> dict:
     mesh = Mesh(Box[0:3, 0:1], obs, [args.n, (args.n * 2) // 3 + 1], device=args.device,
                 dtype=args.dtype)
     model = ChannelFlow(mesh, nu=args.nu, u_in=1.0)
+    _maybe_resume(args, model, model.vel + [model.p])
     tic = time.perf_counter()
     model.run(dt=args.dt, n_steps=args.steps)
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
+    _maybe_save(args, model.vel + [model.p])
     n0 = mesh.nx[0]
     out = {"wall_s": wall, "steps": args.steps, "flux_in": model.flux(1),
            "flux_out": model.flux(n0 - 2), "u_max": float(model.u().abs().max())}
@@ -189,6 +236,8 @@ def _run_channel(args) -> dict:
         drag, lift = model.body_force()
         out["drag"] = float(drag)
         out["lift"] = float(lift)
+    out.update(_maybe_vtk(args, mesh, {"u": model.u()[0], "v": model.v()[0],
+                                       "p": model.p()[0]}))
     return out
 
 
@@ -201,13 +250,20 @@ def _run_convection(args) -> dict:
 
     mesh = Mesh(Box[0:1, 0:1], None, [args.n, args.n], device=args.device, dtype=args.dtype)
     model = NaturalConvection(mesh, ra=args.ra, pr=args.pr)
+    _maybe_resume(args, model, model.vel + [model.p, model.T])
     tic = time.perf_counter()
     model.run(dt=args.dt, n_steps=args.steps, fused=args.fused)
     if mesh.is_cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
-    return {"wall_s": wall, "steps": args.steps, "t": model.t,
-            "nusselt_hot_wall": model.nusselt_hot_wall()}
+    _maybe_save(args, model.vel + [model.p, model.T])
+    out = {"wall_s": wall, "steps": args.steps, "t": float(model.t),
+           "nusselt_hot_wall": model.nusselt_hot_wall()}
+    fields = {v.name: v()[0] for v in model.vel}
+    fields["p"] = model.p()[0]
+    fields["T"] = model.T()[0]
+    out.update(_maybe_vtk(args, mesh, fields))
+    return out
 
 
 def _run_rfp(args) -> dict:
@@ -235,7 +291,9 @@ def _run_rfp(args) -> dict:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - tic
     den1 = float(f.volume_integral()[0])
-    return {"wall_s": wall, "steps": args.steps, "density_drift": abs(den1 - den0) / den0}
+    out = {"wall_s": wall, "steps": args.steps, "density_drift": abs(den1 - den0) / den0}
+    out.update(_maybe_vtk(args, mesh, {"pdf": f()[0]}))
+    return out
 
 
 def run(argv=None) -> dict:
@@ -253,6 +311,12 @@ def run(argv=None) -> dict:
         "--device", default="cuda", choices=["cpu", "cuda", "gpu"],
         help="torch device (default cuda; raises when no CUDA device is present)",
     )
+    common.add_argument("--vtk", default=None, metavar="PREFIX",
+                        help="write final fields as legacy VTK (ParaView)")
+    common.add_argument("--save", default=None, metavar="PATH",
+                        help="checkpoint final field state to PATH.npz")
+    common.add_argument("--resume", default=None, metavar="PATH",
+                        help="restore field state from PATH.npz before stepping")
 
     sp = sub.add_parser("poisson", parents=[common])
     sp.add_argument("--dim", type=int, default=2, choices=[1, 2, 3])

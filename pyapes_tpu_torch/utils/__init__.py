@@ -1,1 +1,1 @@
-"""Utilities."""
+"""Utilities: checkpointing, VTK export."""

@@ -1361,3 +1361,170 @@ def test_cuda_fused_fallback_on_host_read_bc(cuda):
         m2.run(0.01, 8, fused=True)
     for a, b in zip(m1.state_fields(), m2.state_fields()):
         assert float((a() - b()).abs().max()) <= 1e-12 * max(float(a().abs().max()), 1e-30)
+
+
+# -- the adjoint tier and checkpoints ------------------------------------------
+
+def _adjoint_case(kind, device, n=17):
+    """``(forward(param) -> solution, param0, loss weight)`` of one adjoint
+    class on a 3-D ``n^3`` f64 box on ``device``; the same seeded inputs
+    on every device."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs
+    from pyapes_tpu_torch.solver.adjoint import (
+        DifferentiableDiffusionSolve,
+        DifferentiableSolve,
+        DifferentiableTransient,
+        DifferentiableTransientDiffusion,
+    )
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=device, dtype="double")
+    rng = np.random.default_rng(11)
+
+    def bcs_of(cfg):
+        return Field("p", 1, mesh, {"domain": cfg, "obstacle": None}).bcs
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    rhs = t(rng.standard_normal((1, n, n, n)))
+    weight = t(rng.standard_normal((1, n, n, n)))
+    gamma = t(1.0 + 0.5 * rng.random((n, n, n)))
+    dirichlet = bcs_of(homogeneous_bcs(3, 0.0, "dirichlet"))
+    lap = tuple(tuple(t(c) for c in cs) for cs in laplacian_axis_coeffs(mesh, dirichlet))
+    if kind == "solve":
+        ds = DifferentiableSolve(mesh, dirichlet, tol=1e-12)
+        coeffs = tuple((ap, ac + (20.0 if j == 0 else 0.0), am - 3.0 * ap)
+                       for j, (ap, ac, am) in enumerate(lap))
+        return (lambda b: ds(coeffs, b)), rhs, weight
+    if kind in ("diffusion", "diffusion_neumann"):
+        if kind == "diffusion":
+            ds = DifferentiableDiffusionSolve(mesh, dirichlet, tol=1e-12, symmetric=True)
+        else:
+            bcs = bcs_of(mixed_bcs([0.0] * 6, ["neumann", "dirichlet", "dirichlet", "neumann",
+                                               "dirichlet", "dirichlet"]))
+            ds = DifferentiableDiffusionSolve(mesh, bcs, tol=1e-12, avg="harmonic")
+        return (lambda g: ds(g, rhs)), gamma, weight
+    if kind == "transient":
+        roll = DifferentiableTransient(
+            mesh, dirichlet, lambda nu: tuple((-nu * ap, -nu * ac, -nu * am)
+                                              for ap, ac, am in lap), dt=0.02, tol=1e-12)
+        return (lambda nu: roll(nu, rhs, 3)), t(0.05), weight
+    roll = DifferentiableTransientDiffusion(mesh, dirichlet, dt=0.02, tol=1e-12)
+    return (lambda g: roll(g, rhs, 3)), gamma, weight
+
+
+def _value_and_grad(forward, p0, weight):
+    """The solution and the gradient of ``sum(w x) + sum(x^2)``."""
+    p = p0.detach().clone().requires_grad_(True)
+    x = forward(p)
+    (g,) = torch.autograd.grad(torch.sum(weight * x) + torch.sum(x * x), p)
+    return x.detach().cpu(), g.cpu()
+
+
+@pytest.mark.parametrize("kind", ["solve", "diffusion", "diffusion_neumann", "transient",
+                                  "transient_diffusion"])
+def test_cuda_adjoint_gradients_match_cpu(cuda, kind):
+    """Each adjoint class on the card (the kernels in every forward and
+    adjoint matvec) against the CPU at 17^3 f64: values within 1e-10 and
+    gradients within 1e-9 relative."""
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil as ax
+    from pyapes_tpu_torch.ops.diff_field import diff_field as df
+
+    v_cpu, g_cpu = _value_and_grad(*_adjoint_case(kind, torch.device("cpu")))
+    before = ax.launches + df.launches
+    v_gpu, g_gpu = _value_and_grad(*_adjoint_case(kind, cuda))
+    assert ax.launches + df.launches > before
+    assert float((v_gpu - v_cpu).abs().max()) <= 1e-10 * float(v_cpu.abs().max())
+    assert float((g_gpu - g_cpu).abs().max()) <= 1e-9 * float(g_cpu.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1, 17, 9, 11), (2, 33, 16, 130), (1, 128, 128, 128),
+                                   (1, 65, 130)])
+@pytest.mark.parametrize("aniso,avg", [(False, "arithmetic"), (True, "harmonic")])
+def test_cuda_diff_field_transpose_matches_plain(cuda, shape, aniso, avg):
+    """The hand transpose through the variable-Γ kernel (the march at
+    128^3, the per-point kernel below it and on a 2-D grid) equals its
+    plain form on the same inputs (f64, 1e-12), with Neumann faces on
+    every axis; so does the Γ-gradient."""
+    from pyapes_tpu_torch.ops.diff_field import diff_field as df
+    from pyapes_tpu_torch.solver.adjoint import diff_field_gamma_vjp, diff_field_transpose
+
+    nd = len(shape) - 1
+    nx = shape[1:]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    gamma = 1.0 + torch.rand((nd, *nx) if aniso else nx, generator=g, dtype=torch.float64)
+    y = torch.randn(shape, generator=g, dtype=torch.float64)
+    x = torch.randn(shape, generator=g, dtype=torch.float64)
+    inv = tuple(float(n - 1) ** 2 for n in nx)
+    surgery = (("neumann", "none"), ("none", "neumann"), ("neumann", "neumann"))[:nd]
+    ref = diff_field_transpose(y, gamma, inv, surgery, avg)
+    before = df.launches
+    got = diff_field_transpose(y.to(cuda), gamma.to(cuda), inv, surgery, avg).cpu()
+    assert df.launches == before + 1
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    gv = diff_field_gamma_vjp(y.to(cuda), x.to(cuda), gamma.to(cuda), inv, surgery, avg).cpu()
+    gr = diff_field_gamma_vjp(y, x, gamma, inv, surgery, avg)
+    assert float((gv - gr).abs().max()) <= 1e-12 * float(gr.abs().max())
+
+
+def _cavity17(device):
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import LidDrivenCavity
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [17] * 3, device=device, dtype="double")
+    return LidDrivenCavity(mesh, nu=0.01, lid_profile="regularized"), 0.25 / 16
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_cuda_fused_runner_steps_from_loaded_state(cuda, donate, tmp_path):
+    """A fused runner that captured before a ``load`` steps from the loaded
+    state: the 3 replays after the load repeat the 3 replays after the
+    save bit for bit, with the same itr."""
+    from pyapes_tpu_torch.utils import checkpoint
+
+    model, dt = _cavity17(cuda)
+    if donate:
+        model.fused_runner(donate=True)
+    model.run(dt, 2, fused=True)
+    runner = model.fused_runner()
+    fields = model.vel + [model.p]
+    checkpoint.save(str(tmp_path / "ck"), fields)
+    t_saved = model.t
+    runner.run(dt, 3)
+    first = [f().clone() for f in model.state_fields()]
+    itr_first = [int(r["itr"]) for r in runner.reports]
+    runner.run(dt, 2)  # move on, then go back
+    checkpoint.load(str(tmp_path / "ck"), fields)
+    model.t = t_saved
+    runner.run(dt, 3)
+    assert runner.captures == 1
+    assert [int(r["itr"]) for r in runner.reports] == itr_first
+    for a, f in zip(first, model.state_fields()):
+        assert torch.equal(a, f()), f.name
+
+
+def test_cuda_async_save_snapshot_ignores_later_writes(cuda, tmp_path):
+    """``save_orbax(block=False)`` snapshots the device state at the call:
+    in-place writes on the current stream right after it never reach the
+    file."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.utils import checkpoint
+    from pyapes_tpu_torch.variables import Field
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [256] * 3, device=cuda, dtype="single")
+    f = Field("u", 1, mesh, None, init_val="random")
+    f.set_time(0.1, 0.7)
+    snap = f().clone()
+    checkpoint.save_orbax(str(tmp_path / "ck"), [f], block=False)
+    for _ in range(20):
+        f().mul_(-3.0).add_(1.0)  # in place, queued behind the snapshot
+    checkpoint.wait_for_checkpoints()
+    g = Field("u", 1, mesh, None, init_val=0.0)
+    checkpoint.load_orbax(str(tmp_path / "ck"), [g])
+    assert g().device.type == "cuda" and torch.equal(g(), snap) and g._t == 0.7

@@ -70,9 +70,10 @@ def test_cuda_device_raises_without_cuda():
 
 def test_entry_points_default_to_cuda():
     """``Device()``, ``Mesh(...)`` (a Box, a Box with an obstacle, a
-    Cylinder), ``ChannelFlow`` on a default mesh and the runner
-    (``poisson``, ``rfp``, ``channel``) ask for the card unless the caller
-    names the CPU, and raise where there is none; ``MGSpec`` has no default
+    Cylinder), ``ChannelFlow`` and the adjoint classes on a default mesh
+    and the runner (``poisson``, ``rfp``, ``channel``, ``cavity --save``,
+    ``convection --resume``) ask for the card unless the caller names the
+    CPU, and raise where there is none; ``MGSpec`` has no default
     device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -99,6 +100,25 @@ def test_entry_points_default_to_cuda():
     assert Mesh(Box[0:1, 0:1], None, [5, 5], device="cpu").device == torch.device("cpu")
     assert Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9],
                 device="cpu").device == torch.device("cpu")
+    # the adjoint tier on a default mesh, and the runner's checkpoint flags
+    from pyapes_tpu_torch.solver.adjoint import (
+        DifferentiableDiffusionSolve,
+        DifferentiableSolve,
+        DifferentiableTransient,
+        DifferentiableTransientDiffusion,
+    )
+
+    bcs = homogeneous_bcs(2, 0.0, "dirichlet")
+    for make in (lambda m: DifferentiableSolve(m, bcs),
+                 lambda m: DifferentiableDiffusionSolve(m, bcs),
+                 lambda m: DifferentiableTransient(m, bcs, lambda t: t, dt=0.1),
+                 lambda m: DifferentiableTransientDiffusion(m, bcs, dt=0.1)):
+        with pytest.raises(RuntimeError):
+            make(Mesh(Box[0:1, 0:1], None, [5, 5]))
+    with pytest.raises(RuntimeError):
+        runner.run(["cavity", "--n", "5", "--steps", "1", "--save", os.devnull])
+    with pytest.raises(RuntimeError):
+        runner.run(["convection", "--n", "5", "--steps", "1", "--resume", os.devnull])
 
 
 def _field(bc_type="dirichlet"):
