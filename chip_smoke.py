@@ -225,9 +225,48 @@ Phases, report lines before the last:
    for bit; ``write_vtk`` of the final fields and ``read_vtk``, equal in
    f32.
 
+16. utilities and solver options, at full size (the kernels of the path
+   solves above, no new one). (a) ``fd_opts``: the 512^3 f32 fastdiag
+   Poisson (``fd_cfg()``, phase 4's problem) with ``precision: "highest"``,
+   ``"default"`` (TF32 transforms) and ``dtype: "bfloat16"`` (bf16
+   factors): the passes, their residual history, the wall per solve (CUDA
+   events, median of 5), the GEMM kernels and their device time from one
+   profiled solve; "highest" meets the tolerance by the true residual
+   (plain operator, f32) on FFMA GEMMs; the narrow transforms' refinement
+   stops at their accuracy floor (the stall exit, as in the JAX package):
+   each direct narrow solve is held to ``FD_NARROW_LIMITS`` (first pass,
+   floor, passes) and to its GEMM class (TF32 or bf16 tensor-op kernels),
+   and to the same arithmetic written out in plain PyTorch with each GEMM
+   operand rounded explicitly: each transform stage of its first
+   eigen-solve must lie within ``EMUL_MODEL`` of its narrow error from one
+   rounding model (TF32 to nearest even, ties away or by truncation; bf16;
+   ``_stage_errors``), and the refinement with ``_emulated_fd_solve`` under
+   that model (``_emulated_refinement``) must stop after as many passes at
+   residuals within ``EMUL_FLOOR``x the port's, so the floor is the
+   arithmetic's, not the port's; each also runs as CG's FD
+   preconditioner (``precond: "fd"``), which must meet the tolerance with
+   a true residual (f64) within the Krylov gate 1e-5; "default" must
+   differ from "highest" in its bits (TF32 ran); phase 1's TF32 check
+   again afterwards. (b) ``debug: "nan"``: the 256^3 V(1,1) MG-PCG (phase 5's
+   ``N_V11`` problem) with one NaN in the RHS raises ``NaNError`` naming an
+   operation, not the end-of-solve check; the 256^3 Darcy solve (phase 6's)
+   with one NaN in Γ raises it naming the hand kernel's wrapper
+   (``diff_field`` or ``diff_jacobi``); the clean checked MG-PCG gives the
+   unchecked bits and itr, and the ratio of its wall to the unchecked one.
+   (c) ``utils/profile.py``: ``measure_achievable_bw()`` beside the card's
+   3350 GB/s; ``trace()`` of one fastdiag solve writes a Chrome trace
+   naming the ``axis_march`` kernel; ``SolveTimer``'s elapsed of a solve
+   at least its CUDA-event time; ``bandwidth_report`` of the 512^3 f32
+   ``axis_stencil`` apply. (d) ``donate``: ``max_memory_allocated`` of
+   the 512^3 fastdiag solve with and without it, the same bits. (e)
+   ``kernel``: "pallas" gives "auto"'s bits and launches on the 256^3
+   MG-PCG; "jnp" raises ``NotImplementedError``.
+
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10, 11, 12, 13, 15 (a)) and read just after; a kernel of a path that launched no time there
-fails the run. Then one JSON line of per-kernel numbers (time, plain
+9, 10, 11, 12, 13, 15 (a), 16) and read just after; a kernel of a path that launched no time there
+fails the run. Phase 16 counts the launches of its solves alone: its
+``axis_stencil`` apply timed for ``bandwidth_report`` is set apart, and the
+phase's counts must equal the solves' plus that apply's. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
 or null; two last rows for the 2-D per-point kernel on the rz cell and on
 the channel), and as the LAST line
@@ -236,6 +275,7 @@ a non-zero exit, with no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import statistics
@@ -412,6 +452,16 @@ def _counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def _check_full_precision() -> None:
+    """Phase 1's check: TF32 off and float32 matmuls at "highest"."""
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("chip_smoke: TF32 is on")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError("chip_smoke: float32 matmul precision is not 'highest'")
+
+
 def phase_device():
     import torch
 
@@ -424,10 +474,7 @@ def phase_device():
     from pyapes_tpu_torch.backend import Device
 
     dev = Device("cuda").device
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("chip_smoke: TF32 is on")
-    if torch.get_float32_matmul_precision() != "highest":
-        raise RuntimeError("chip_smoke: float32 matmul precision is not 'highest'")
+    _check_full_precision()
     print(smi, flush=True)
     print(
         f"[1 device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
@@ -2218,30 +2265,17 @@ def phase_burgers_xonly(dev, n: int = N_PATH) -> None:
     print(f"[9 Burgers x-only check] {n + 1}^3 f64 nu={nu}: {json.dumps(out)}", flush=True)
 
 
-def _solve_path(dev, n, cfg, label, darcy=False, solves=3, paxes=()):
-    """One warm-up and ``solves`` timed solves of the 3-D f32 all-Dirichlet
-    random-RHS Poisson problem through the public API (with ``darcy``:
-    ``bench_darcy``'s variable-Γ problem; with ``paxes``: those axes
-    periodic, n + 1 nodes each, so the reduced torus is n^3); returns its
-    stats (launches per timed solve included) and the solution."""
+def _path_problem(dev, n, darcy=False, paxes=()):
+    """The path cells' 3-D f32 Poisson problem: the mesh, the all-Dirichlet
+    field (``paxes`` periodic, n + 1 nodes each), the seeded random RHS and
+    the coefficient (1, or with ``darcy`` ``bench_darcy``'s Γ field)."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
     from pyapes_tpu_torch.mesh import Mesh
-    from pyapes_tpu_torch.ops.stencil import (
-        apply_axis_stencil,
-        apply_diff_field,
-        div_surgery_info,
-        laplacian_axis_coeffs,
-    )
-    from pyapes_tpu_torch.solver.fdm import FDM
-    from pyapes_tpu_torch.solver.linalg.dispatch import _reduce_vecs
-    from pyapes_tpu_torch.solver.ops import Solver
-    from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
     from pyapes_tpu_torch.variables import Field
     from pyapes_tpu_torch.variables.bcs import mixed_bcs
 
-    tol = cfg["tol"]
     nodes = [n + 1 if j in paxes else n for j in range(3)]
     kinds = [k for j in range(3) for k in ("periodic" if j in paxes else "dirichlet",) * 2]
     mesh = Mesh(Box[0:1, 0:1, 0:1], None, nodes, device=str(dev), dtype="single")
@@ -2254,6 +2288,69 @@ def _solve_path(dev, n, cfg, label, darcy=False, solves=3, paxes=()):
     if darcy:
         coeff = torch.exp(0.8 * torch.sin(2 * pi * mesh.X) * torch.sin(2 * pi * mesh.Y)
                           * torch.sin(2 * pi * mesh.Z)).contiguous()
+    return mesh, var, rhs, coeff
+
+
+def _plain_operator(mesh, var, coeff, darcy=False, paxes=()):
+    """``plain_A(v, dtype)``: the path problem's operator, the PLAIN version,
+    in ``dtype`` (on the reduced torus when ``paxes``)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.stencil import (
+        apply_axis_stencil,
+        apply_diff_field,
+        div_surgery_info,
+        laplacian_axis_coeffs,
+    )
+    from pyapes_tpu_torch.solver.linalg.dispatch import _reduce_vecs
+    from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
+
+    if darcy:
+        inv = tuple(1.0 / float(d) ** 2 for d in mesh.dx_np)
+        surg = div_surgery_info(var.bcs, 3)
+
+        def plain_A(v, dtype):
+            return apply_diff_field(v.to(dtype), coeff.to(dtype), inv, surg)
+    else:
+        c32 = coeffs_from_numpy(_reduce_vecs(laplacian_axis_coeffs(mesh, var.bcs), paxes),
+                                mesh.device, torch.float32)
+
+        def plain_A(v, dtype):
+            return apply_axis_stencil(tuple(tuple(c.to(dtype) for c in cs) for cs in c32),
+                                      v.to(dtype))
+    return plain_A
+
+
+def _true_residuals(mesh, var, rhs, coeff, x, darcy=False, paxes=()) -> tuple[float, float]:
+    """The true relative residual of ``x``, recomputed with the PLAIN
+    operator in f32 and in f64 (on the reduced torus: the duplicate seam
+    planes dropped, every torus node active)."""
+    import torch
+
+    plain_A = _plain_operator(mesh, var, coeff, darcy, paxes)
+    red = (slice(None),) + tuple(slice(None, -1) if j in paxes else slice(None) for j in range(3))
+    inner = (slice(None),) + tuple(slice(None) if j in paxes else slice(1, -1) for j in range(3))
+    xr, rr = x[red], rhs[red]
+    res32 = ((rr - plain_A(xr, torch.float32))[inner].norm() / rr[inner].norm()).item()
+    r64 = rr.double()
+    res64 = ((r64 - plain_A(xr, torch.float64))[inner].norm() / r64[inner].norm()).item()
+    return res32, res64
+
+
+def _solve_path(dev, n, cfg, label, darcy=False, solves=3, paxes=()):
+    """One warm-up and ``solves`` timed solves of the 3-D f32 all-Dirichlet
+    random-RHS Poisson problem through the public API (with ``darcy``:
+    ``bench_darcy``'s variable-Γ problem; with ``paxes``: those axes
+    periodic, n + 1 nodes each, so the reduced torus is n^3); returns its
+    stats (launches per timed solve included) and the solution."""
+    import torch
+
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    tol = cfg["tol"]
+    mesh, var, rhs, coeff = _path_problem(dev, n, darcy, paxes)
+    nodes = list(mesh.nx)
     solver = Solver({"fdm": cfg})
     fdm = FDM()
 
@@ -2283,29 +2380,8 @@ def _solve_path(dev, n, cfg, label, darcy=False, solves=3, paxes=()):
             raise RuntimeError(f"chip_smoke: {label} {n}^3 solve did not converge: {rep}")
     peak = torch.cuda.max_memory_allocated()
 
-    # True relative residual, recomputed with the PLAIN operator (on the
-    # reduced torus: the duplicate seam planes dropped, every torus node
-    # active).
     x = var()
-    red = (slice(None),) + tuple(slice(None, -1) if j in paxes else slice(None) for j in range(3))
-    inner = (slice(None),) + tuple(slice(None) if j in paxes else slice(1, -1) for j in range(3))
-    if darcy:
-        inv = tuple(1.0 / float(d) ** 2 for d in mesh.dx_np)
-        surg = div_surgery_info(var.bcs, 3)
-
-        def plain_A(v, dtype):
-            return apply_diff_field(v.to(dtype), coeff.to(dtype), inv, surg)
-    else:
-        c32 = coeffs_from_numpy(_reduce_vecs(laplacian_axis_coeffs(mesh, var.bcs), paxes),
-                                mesh.device, torch.float32)
-
-        def plain_A(v, dtype):
-            return apply_axis_stencil(tuple(tuple(c.to(dtype) for c in cs) for cs in c32),
-                                      v.to(dtype))
-    xr, rr = x[red], rhs[red]
-    res32 = ((rr - plain_A(xr, torch.float32))[inner].norm() / rr[inner].norm()).item()
-    r64 = rr.double()
-    res64 = ((r64 - plain_A(xr, torch.float64))[inner].norm() / r64[inner].norm()).item()
+    res32, res64 = _true_residuals(mesh, var, rhs, coeff, x, darcy, paxes)
     med = statistics.median(walls)
     stats = {
         "path": label, "n": n, "nodes": nodes, "periodic_axes": list(paxes),
@@ -4355,6 +4431,428 @@ def phase_adjoint(dev) -> dict:
     return counts
 
 
+FD_OPTS_CELLS = (("highest", None), ("default", {"precision": "default"}),
+                 ("bf16 factors", {"dtype": "bfloat16"}))
+TRACE_KERNEL = "axis_march"  # (c): a trace of a fastdiag solve must name it
+# The direct narrow-precision fastdiag solves at 512^3 stop at their
+# refinement's floor above FD_TOL (the stall exit). Limits (first pass,
+# floor) from the card's readings with a ~3x margin (NVIDIA H100 80GB HBM3,
+# 700 W: TF32 2.99e-3 then 2.70e-6, bf16 factors 3.36e-2 then 1.79e-3, 3
+# passes each), and at most FD_NARROW_PASSES passes.
+FD_NARROW_LIMITS = {"default": (1e-2, 1e-5), "bf16 factors": (0.1, 6e-3)}
+FD_NARROW_PASSES = 5
+# The rounding models of each cell's GEMMs (``_round``), and the class of
+# its GEMM kernels by name: FFMA for "highest", tensor-op TF32 (s1688) or
+# bf16 for the narrow ones.
+FD_MODELS = {"highest": ("f32",), "default": ("tf32_rne", "tf32_rna", "tf32_rz"),
+             "bf16 factors": ("bf16",)}
+FD_GEMM_CLASS = {"highest": r"^(?!.*(tensorop|tf32|bf16)).*(ffma|simt|sgemm)",
+                 "default": r"^(?!.*bf16).*(tensorop_s1688|tf32)",
+                 "bf16 factors": r"bf16.*(tensorop|s16816)"}
+# Each transform stage of the port (one axis' GEMM, identities on the
+# others) against its rounding model: within 0.25 of its distance from the
+# unrounded ("f32") stage for a narrow cell; "highest" within 1e-4 of the
+# stage's norm (f32 sums in another order). The tensor cores add their
+# products in their own order and rounding, so on the card the
+# round-to-nearest models read 0.08-0.10 (TF32) and 0.03 (bf16); a model
+# that is not the card's reads ~1 or more (truncation 3.6; no rounding 1
+# by definition) (NVIDIA H100 80GB HBM3, 700 W). A whole solve is not
+# compared element by element: its intermediate sums, added in another
+# order, round to other narrow values wherever they cancel. The
+# refinement is held to the emulated one instead: as many passes, each
+# pass's residual within 1.25x.
+EMUL_MODEL = 0.25
+EMUL_F32 = 1e-4
+EMUL_FLOOR = 1.25
+
+
+class _PathSolver:
+    """``_path_problem``'s problem with a solve from a given (zero) guess:
+    ``solve(cfg, rhs=, coeff=, x0=)`` returns the report; the solution is
+    ``self.var()``. The kernel launches of every solve, a raising one
+    included, add into ``tally`` (a Counter)."""
+
+    def __init__(self, dev, n: int, tally, darcy: bool = False):
+        self.mesh, self.var, self.rhs, self.coeff = _path_problem(dev, n, darcy)
+        self.tally = tally
+
+    def solve(self, cfg, rhs=None, coeff=None, x0=None):
+        import torch
+
+        from pyapes_tpu_torch.solver.fdm import FDM
+        from pyapes_tpu_torch.solver.ops import Solver
+
+        s = Solver({"fdm": cfg})
+        self.var.set_var_tensor(torch.zeros_like(self.var()) if x0 is None else x0)
+        s.set_eq(FDM().laplacian(self.coeff if coeff is None else coeff, self.var)
+                 == (self.rhs if rhs is None else rhs))
+        before = _counts()
+        try:
+            return s.solve()
+        finally:
+            after = _counts()
+            self.tally.update({k: after[k] - before[k] for k in after})
+
+
+@contextlib.contextmanager
+def _first_fd_solve():
+    """Within: the first ``FastDiag.solve`` call is recorded in the dict
+    yielded: its factors' object (``fd``), ``r``, ``c_ax``, ``c_dt`` and
+    ``pseudo``."""
+    from pyapes_tpu_torch.solver.fastdiag import FastDiag
+
+    real, seen = FastDiag.solve, {}
+
+    def solve(self, r, c_ax, c_dt=0.0, pseudo=False):
+        out = real(self, r, c_ax, c_dt, pseudo)
+        if not seen:
+            seen.update(fd=self, r=r.clone(), c_ax=c_ax, c_dt=c_dt, pseudo=pseudo)
+        return out
+
+    FastDiag.solve = solve
+    try:
+        yield seen
+    finally:
+        FastDiag.solve = real
+
+
+def _round(t, model: str):
+    """``t`` (float32) as a GEMM operand under ``model``: "f32" as it is,
+    "tf32_rne" / "tf32_rna" / "tf32_rz" cut to TF32's 10-bit mantissa to
+    nearest with ties to even / ties away / by truncation, "bf16" rounded
+    to bfloat16 (to nearest even)."""
+    import torch
+
+    if model == "f32":
+        return t
+    if model == "bf16":
+        return t.bfloat16().float()
+    i = t.contiguous().view(torch.int32)
+    if model == "tf32_rne":
+        i = i + (0xFFF + ((i >> 13) & 1))
+    elif model == "tf32_rna":
+        i = i + 0x1000
+    return (i & ~0x1FFF).view(torch.float32)
+
+
+def _emulated_transform(mats, x, model: str):
+    """``FastDiag._transform``'s contraction of mesh axis j of ``x``
+    (``(1, *shape)``) with ``mats[j]``, written as f32 ``tensordot``s (TF32
+    off: FFMA) on operands rounded by ``model``; with "bf16" each stage's
+    output is rounded to bf16 too (the JAX package's ``_transform``)."""
+    import torch
+
+    for j, F in enumerate(mats):
+        x = torch.tensordot(_round(F.float(), model), _round(x, model), dims=([1], [j + 1]))
+        x = torch.movedim(x, 0, j + 1)
+        if model == "bf16":
+            x = _round(x, model)
+    return x.contiguous()
+
+
+def _emulated_fd_solve(fd, r, c_ax, c_dt, model: str):
+    """``FastDiag.solve`` (nonsingular) in plain PyTorch under the rounding
+    ``model``: forward transforms, the f32 symbol divide, inverse
+    transforms; f32 out."""
+    y = _emulated_transform(fd.fwd, r.float(), model)
+    lam = fd.lams[0].reshape(-1, 1, 1) + fd.lams[1].reshape(1, -1, 1)
+    lam = lam + fd.lams[2].reshape(1, 1, -1)
+    y = y / (c_ax * lam + c_dt)[None]
+    return _emulated_transform(fd.inv, y, model)
+
+
+def _emulated_refinement(seen, plain_A, rhs, model: str, tol: float, max_it: int) -> list:
+    """The fastdiag refinement (``x += FD(b - A x)`` from zero on the
+    all-Dirichlet interior, the plain f32 operator) with
+    ``_emulated_fd_solve`` under ``model`` and the loop's exits (the
+    tolerance, ``max_it``, a pass contracting less than 2x); returns the
+    relative residual after each pass."""
+    import torch
+
+    inner = (slice(None), slice(1, -1), slice(1, -1), slice(1, -1))
+    x = torch.zeros_like(rhs)
+    r0 = rhs[inner].norm()
+    r, hist, prev = rhs[inner], [], 1.0
+    while len(hist) < max_it:
+        x[inner] += _emulated_fd_solve(seen["fd"], r.contiguous(), seen["c_ax"], seen["c_dt"],
+                                       model)
+        r = (rhs - plain_A(x, torch.float32))[inner]
+        t = (r.norm() / r0).item()
+        hist.append(t)
+        if t <= tol or t > 0.5 * prev:
+            break
+        prev = t
+    return hist
+
+
+def _stage_errors(fd, r, models) -> dict:
+    """Per model, the largest over the mesh axes j of the port's
+    ``FastDiag._transform`` of ``r`` through ``fd.fwd[j]`` alone (exact
+    identities on the other axes) against ``_emulated_transform`` under the
+    model, relative to the port's distance from the unrounded stage (for
+    the "f32" model: to the stage's norm)."""
+    import torch
+
+    worst = dict.fromkeys(models, 0.0)
+    x = r.to(fd.fwd[0].dtype)
+    for j in range(fd.ndim):
+        mats = [F if k == j else torch.eye(F.shape[0], dtype=F.dtype, device=F.device)
+                for k, F in enumerate(fd.fwd)]
+        port = fd._transform(mats, x).float()
+        exact = _emulated_transform(mats, x.float(), "f32")
+        for m in models:
+            d = (port - _emulated_transform(mats, x.float(), m)).norm()
+            ref = exact.norm() if m == "f32" else (port - exact).norm()
+            worst[m] = max(worst[m], (d / ref).item())
+    return worst
+
+
+def _check_fd_cell(label, rep, seen, gemm_names, fd, cfg) -> dict:
+    """(a)'s checks of one ``fd_opts`` cell beyond the tolerance: its GEMM
+    kernels' class; for a narrow cell ``FD_NARROW_LIMITS``; each transform
+    stage against the rounding models (``_stage_errors``) and, for a narrow
+    cell, its refinement against the emulated one under the closest model.
+    Returns the readings."""
+    import re
+
+    if not gemm_names or not all(re.search(FD_GEMM_CLASS[label], k, re.I) for k in gemm_names):
+        raise RuntimeError(f"chip_smoke: fastdiag {label}: GEMM kernels {gemm_names} are not "
+                           f"all of the class {FD_GEMM_CLASS[label]!r}")
+    hist = [float(h) for h in rep["history"]]
+    if label in FD_NARROW_LIMITS:
+        first, floor = FD_NARROW_LIMITS[label]
+        if not (hist[0] <= first and rep["tol"] <= floor and rep["itr"] <= FD_NARROW_PASSES):
+            raise RuntimeError(f"chip_smoke: direct fastdiag {label}: history {hist} outside "
+                               f"(first pass <= {first}, floor <= {floor}, passes <= "
+                               f"{FD_NARROW_PASSES})")
+    if seen.get("pseudo") or seen["fd"].ndim != 3:
+        raise RuntimeError(f"chip_smoke: fastdiag {label}: not the 3-D nonsingular eigen-solve")
+    stage = _stage_errors(seen["fd"], seen["r"], FD_MODELS[label])
+    best = min(stage, key=stage.get)
+    limit = EMUL_F32 if label == "highest" else EMUL_MODEL
+    row = {"stage_model_err": stage, "model": best}
+    if not stage[best] <= limit:
+        raise RuntimeError(f"chip_smoke: fastdiag {label}: a transform stage is off every "
+                           f"rounding model: {stage}, limit {limit}")
+    if label in FD_NARROW_LIMITS:
+        emul = _emulated_refinement(seen, _plain_operator(fd.mesh, fd.var, fd.coeff), fd.rhs,
+                                    best, cfg["tol"], cfg["max_it"])
+        row["emulated_history"] = emul
+        if not (len(emul) == len(hist) and all(
+                a / EMUL_FLOOR <= b <= a * EMUL_FLOOR for a, b in zip(emul, hist))):
+            raise RuntimeError(f"chip_smoke: fastdiag {label}: the refinement {hist} is not the "
+                               f"emulated one {emul} (within {EMUL_FLOOR}x, as many passes)")
+    return row
+
+
+def _gemm_device_ms(prof) -> tuple[float, list]:
+    """Device ms of a profile's GEMM kernels (cuBLAS / CUTLASS names) and
+    their names."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    total, names = 0.0, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and re.search(r"gemm|xmma|cutlass", e.key, re.I):
+            total += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            names.append(e.key)
+    return total / 1e3, names
+
+
+def _expect_nan_error(fn, label: str):
+    """Run ``fn``; it must raise ``NaNError`` (not the end-of-solve check).
+    Returns the operation it names."""
+    from pyapes_tpu_torch.utils.debug import NaNError
+
+    try:
+        fn()
+    except NaNError as e:
+        return e.op
+    raise RuntimeError(f"chip_smoke: {label}: the checked solve did not raise NaNError")
+
+
+def phase_utilities(dev) -> dict:
+    """Phase 16 (module docstring). Returns the launches of its solves."""
+    import collections
+    import os
+    import tempfile
+
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
+    from pyapes_tpu_torch.ops.cuda_build import BUILD_DIR
+    from pyapes_tpu_torch.utils import profile
+
+    _reset_counts()
+    solves = collections.Counter()
+    out = {}
+    # (a) fd_opts, and (c)'s trace on the "highest" solve
+    fd = _PathSolver(dev, N_MAIN, solves)
+    sols = {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for label, opts in FD_OPTS_CELLS:
+            cfg = {**fd_cfg(), "history": True, **({"fd_opts": opts} if opts else {})}
+            with _first_fd_solve() as seen:
+                fd.solve(cfg)  # the factors, built once
+            ms = _time_ms(lambda: fd.solve(cfg), reps=5)
+            rep = fd.solve(cfg)
+            sols[label] = fd.var().clone()
+            res32, res64 = _true_residuals(fd.mesh, fd.var, fd.rhs, fd.coeff, sols[label])
+            logdir = os.path.join(tmp, label.replace(" ", "_"))
+            with profile.trace(logdir) as prof:
+                fd.solve(cfg)
+            gemm_ms, gemm_names = _gemm_device_ms(prof)
+            row = {"itr": rep["itr"], "tol": rep["tol"], "converge": rep["converge"],
+                   "history": [float(h) for h in rep["history"]],
+                   "true_rel_residual_f32": res32, "true_rel_residual_f64": res64,
+                   "wall_ms": ms, "gemm_device_ms": gemm_ms,
+                   "gemm_kernels": sorted(set(gemm_names))}
+            row.update(_check_fd_cell(label, rep, seen, sorted(set(gemm_names)), fd, cfg))
+            del seen
+            if opts:
+                # the same eigen-solve as CG's preconditioner (the JAX package's
+                # remedy for the refinement's stall at a narrow transform's floor)
+                kcfg = {**mg_cfg({}), "precond": "fd", "fd_opts": opts}
+                del kcfg["mg_opts"]
+                fd.solve(kcfg)
+                kms = _time_ms(lambda: fd.solve(kcfg), reps=3)
+                krep = fd.solve(kcfg)
+                k32, k64 = _true_residuals(fd.mesh, fd.var, fd.rhs, fd.coeff, fd.var())
+                row["cg_fd"] = {"itr": krep["itr"], "tol": krep["tol"], "wall_ms": kms,
+                                "true_rel_residual_f32": k32, "true_rel_residual_f64": k64}
+            out[f"fd {label}"] = row
+            print(f"[16 fd_opts {label}] {json.dumps(row)}", flush=True)
+            if not opts and not (rep["converge"] and res32 <= FD_TOL):
+                raise RuntimeError(f"chip_smoke: fastdiag {label}: {rep}, true residual "
+                                   f"{res32:.3e} > {FD_TOL}")
+            if opts and not (krep["converge"] and k64 <= 1e-5):
+                raise RuntimeError(f"chip_smoke: CG + FD preconditioner, {label}: {krep}, true "
+                                   f"residual (f64) {k64:.3e} > 1e-5")
+            if label == "highest":
+                files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+                with open(files[0]) as fh:
+                    in_file = TRACE_KERNEL in fh.read()
+                in_prof = any(TRACE_KERNEL in e.key for e in prof.key_averages())
+                if not (len(files) == 1 and in_file and in_prof):
+                    raise RuntimeError(f"chip_smoke: trace() of a fastdiag solve: {files}, "
+                                       f"{TRACE_KERNEL} in the file {in_file}, in the profile "
+                                       f"{in_prof}")
+                out["trace"] = {"file_bytes": os.path.getsize(files[0]), TRACE_KERNEL: True}
+    if torch.equal(sols["default"], sols["highest"]):
+        raise RuntimeError("chip_smoke: fd_opts precision 'default' gave 'highest''s bits: "
+                           "no TF32 transform ran")
+    _check_full_precision()
+
+    # (c) the other profile utilities, on the same problem
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile.SolveTimer() as st:
+        start.record()
+        fd.solve(fd_cfg())
+        end.record()
+    ev_ms = start.elapsed_time(end)
+    if not st.elapsed * 1e3 >= ev_ms:
+        raise RuntimeError(f"chip_smoke: SolveTimer {st.elapsed * 1e3:.3f} ms < its CUDA-event "
+                           f"time {ev_ms:.3f} ms")
+    bw = profile.measure_achievable_bw()
+    x = fd.var()
+    coeffs = tuple(tuple(torch.randn(N_MAIN, device=dev) for _ in range(3)) for _ in range(3))
+    before = _counts()
+    apply_ms = _time_ms(lambda: axis_stencil(coeffs, x))
+    after = _counts()
+    apart = {k: after[k] - before[k] for k in after}  # the apply's launches: not a path's
+    out["profile"] = {"solve_timer_ms": st.elapsed * 1e3, "solve_event_ms": ev_ms,
+                      "achievable_gbps": bw, "nominal_gbps": profile.H100_HBM_GBPS,
+                      "axis_stencil_512_ms": apply_ms,
+                      "axis_stencil_512_report": profile.bandwidth_report(
+                          (N_MAIN,) * 3, apply_ms / 1e3, achievable_gbps=bw)}
+    print(f"[16 profile] {json.dumps(out['profile'])}", flush=True)
+
+    # (d) donate: the peak of one 512^3 solve, with and without
+    peaks, don = {}, {}
+    for donate in (False, True):
+        cfg = {**fd_cfg(), "donate": donate}
+        x0 = torch.zeros_like(fd.var())
+        fd.var.set_var_tensor(x0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fd.solve(cfg, x0=x0)
+        torch.cuda.synchronize()
+        peaks[donate] = (torch.cuda.max_memory_allocated(), base)
+        don[donate] = (fd.var().clone(), fd.var().data_ptr() == x0.data_ptr())
+        del x0
+    if not (torch.equal(don[False][0], don[True][0]) and don[True][1] and not don[False][1]):
+        raise RuntimeError("chip_smoke: donate changed the bits or did not use the guess")
+    out["donate"] = {f"peak_gib_{k}": peaks[v][0] / 2**30
+                     for k, v in (("off", False), ("on", True))}
+    out["donate"].update({f"above_base_gib_{k}": (peaks[v][0] - peaks[v][1]) / 2**30
+                          for k, v in (("off", False), ("on", True))})
+    # the base (live tensors before the solve) differs by the clone kept
+    out["donate"]["saved_gib"] = ((peaks[False][0] - peaks[False][1])
+                                  - (peaks[True][0] - peaks[True][1])) / 2**30
+    print(f"[16 donate] {json.dumps(out['donate'])}", flush=True)
+    del fd, sols, don, x
+    torch.cuda.empty_cache()
+
+    # (b) debug: "nan" and (e) kernel, on the 256^3 V(1,1) MG-PCG
+    mg = _PathSolver(dev, N_V11, solves)
+    cfg = mg_cfg(V11_MG)
+    mg.solve(cfg)
+    plain_ms = _time_ms(lambda: mg.solve(cfg), reps=3)
+    rep_u = mg.solve(cfg)
+    x_u = mg.var().clone()
+    chk = {**cfg, "debug": "nan"}
+    checked_ms = _time_ms(lambda: mg.solve(chk), reps=3)
+    rep_c = mg.solve(chk)
+    if not (torch.equal(mg.var(), x_u) and rep_c == rep_u):
+        raise RuntimeError(f"chip_smoke: the checked MG-PCG solve differs: {rep_c} vs {rep_u}")
+    bad = mg.rhs.clone()
+    n = N_V11
+    bad[0, n // 2, n // 3, n // 4] = float("nan")
+    op_rhs = _expect_nan_error(lambda: mg.solve(chk, rhs=bad), "MG-PCG with a NaN in rhs")
+    reps = {}
+    for kernel in ("auto", "pallas"):
+        before = _counts()
+        rep_k = mg.solve({**cfg, "kernel": kernel})
+        after = _counts()
+        reps[kernel] = (rep_k, mg.var().clone(), {k: after[k] - before[k] for k in after})
+    if not (reps["auto"][0] == reps["pallas"][0] and torch.equal(reps["auto"][1], reps["pallas"][1])
+            and reps["auto"][2] == reps["pallas"][2]):
+        raise RuntimeError(f"chip_smoke: kernel 'pallas' differs from 'auto': {reps['auto'][2]} "
+                           f"vs {reps['pallas'][2]}")
+    try:
+        mg.solve({**cfg, "kernel": "jnp"})
+        raise RuntimeError("chip_smoke: kernel 'jnp' did not raise")
+    except NotImplementedError:
+        pass
+    out["kernel"] = {"pallas_equals_auto": True, "jnp": "NotImplementedError",
+                     "launches_per_solve": {k: c for k, c in reps["pallas"][2].items() if c}}
+    del mg, x_u, bad, reps
+    dy = _PathSolver(dev, N_DARCY, solves, darcy=True)
+    g = dy.coeff.clone()
+    g[N_DARCY // 2, N_DARCY // 3, N_DARCY // 4] = float("nan")
+    op_gamma = _expect_nan_error(lambda: dy.solve({**darcy_cfg(), "debug": "nan"}, coeff=g),
+                                 "Darcy with a NaN in Γ")
+    if op_gamma not in ("diff_field", "diff_jacobi"):
+        raise RuntimeError(f"chip_smoke: a NaN in Γ was first seen in {op_gamma}, not in a "
+                           "variable-Γ kernel's wrapper")
+    out["debug"] = {"itr": rep_c["itr"], "unchecked_ms": plain_ms, "checked_ms": checked_ms,
+                    "checked_over_unchecked": checked_ms / plain_ms, "nan_rhs_op": op_rhs,
+                    "nan_gamma_op": op_gamma}
+    print(f"[16 debug] {json.dumps(out['debug'])}", flush=True)
+    print(f"[16 kernel] {json.dumps(out['kernel'])}", flush=True)
+    _check_full_precision()
+    total = _counts()
+    if any(total[k] != solves[k] + apart[k] for k in total):
+        raise RuntimeError(f"chip_smoke: phase 16 launched {total}, its solves {dict(solves)} "
+                           f"and the timed apply {apart}")
+    print(f"[16 launches] solves {json.dumps({k: solves[k] for k in total})}, the timed "
+          f"apply apart {json.dumps(apart)}", flush=True)
+    return {k: solves[k] for k in total}
+
+
 def main() -> None:
     import torch
 
@@ -4412,6 +4910,7 @@ def main() -> None:
     path_counts.append(per_counts)
     phase_fused(dev)
     path_counts.append(phase_adjoint(dev))
+    path_counts.append(phase_utilities(dev))
     for name, err in per_worst_abs.items():
         worst[name] = max(worst[name], err)
     for counts in path_counts:

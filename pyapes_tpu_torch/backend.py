@@ -9,6 +9,7 @@ was meant for the GPU must never quietly run on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +36,42 @@ def set_full_precision_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def transform_matmul(tf32: bool = False, bf16_f32_accumulate: bool = False):
+    """Within: float32 matrix products may run in TF32 (``tf32``) and bf16
+    ones accumulate in float32 with no reduced-precision split-K reduction
+    (``bf16_f32_accumulate``); on exit, an exception included, every flag
+    this sets is back as it was (``set_full_precision_matmul``'s pins
+    among them). For the fast-diagonalization transforms of ``fd_opts``
+    (``solver/fastdiag.py``). cuBLAS takes the math mode at each call (at
+    capture time inside a CUDA graph, which replays it); on the CPU the
+    flags change nothing."""
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision(),
+             m.allow_bf16_reduced_precision_reduction)
+    try:
+        if tf32:
+            m.allow_tf32 = True
+        if bf16_f32_accumulate:
+            m.allow_bf16_reduced_precision_reduction = False
+        yield
+    finally:
+        m.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
+        m.allow_bf16_reduced_precision_reduction = saved[3]
+
+
+def local_device_count() -> int:
+    """CUDA devices this process sees (the JAX package's local devices)."""
+    return torch.cuda.device_count()
+
+
+def default_backend() -> str:
+    """``"gpu"`` where CUDA is available, else ``"cpu"``."""
+    return "gpu" if torch.cuda.is_available() else "cpu"
 
 
 def np_dtype(dtype) -> np.dtype:

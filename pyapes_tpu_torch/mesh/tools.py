@@ -1,6 +1,7 @@
 """Mesh slicing helpers (reference ``pyapes/mesh/tools.py:7-32``)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ, SIDE_TO_NUM
@@ -26,6 +27,14 @@ def inner_slicer(dim: int, pad: int | None = 1) -> tuple[slice, ...]:
     return tuple(
         slice(pad, -pad if isinstance(pad, int) else None) for _ in range(dim)
     )
+
+
+def interior_mask(nx: tuple[int, ...], slicer: tuple[slice, ...]) -> np.ndarray:
+    """0/1 float64 host mask selecting the slicer region (JAX
+    ``mesh/tools.py:31``)."""
+    m = np.zeros(nx, dtype=np.float64)
+    m[slicer] = 1.0
+    return m
 
 
 def interior_mask_device(

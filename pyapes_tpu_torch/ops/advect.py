@@ -64,6 +64,7 @@ import torch
 from pyapes_tpu_torch.ops import cuda_build
 from pyapes_tpu_torch.ops.march import copy_bytes, march_geometry, resident_blocks
 from pyapes_tpu_torch.ops.stencil import apply_conv_field, apply_div_field
+from pyapes_tpu_torch.utils.debug import record_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _LIMITER = {"none": 0, "upwind": 1, "quick": 2}
@@ -265,6 +266,7 @@ def advect_pair(x, adv, base, limiter: str, surgery, form: str = "conservative",
         return apply_div_field(x, adv, base, limiter, surgery, form)
     out = _launch("advect_pair", x, adv, base, limiter, surgery, form, False, march, chunk)
     advect_pair.launches += 1
+    record_kernel("advect_pair", out)
     return out
 
 
@@ -281,6 +283,7 @@ def conv_component(x, adv, base, limiter: str, surgery, *, march=None,
     out = _launch("conv_component", x, adv, base, limiter, surgery, "advective", True, march,
                   chunk)
     conv_component.launches += 1
+    record_kernel("conv_component", out)
     return out
 
 

@@ -93,6 +93,7 @@ from pyapes_tpu_torch.ops.stencil import (
     apply_axis_stencil_dot,
     apply_axis_stencil_ext,
 )
+from pyapes_tpu_torch.utils.debug import record_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MAX_GRID_YZ = 65535  # CUDA limit on gridDim.y / gridDim.z
@@ -296,6 +297,7 @@ def axis_stencil(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.Te
         return apply_axis_stencil(coeffs, x)
     out = _launch("axis_stencil", coeffs, x, 1, march, chunk)
     axis_stencil.launches += 1
+    record_kernel("axis_stencil", out)
     return out
 
 
@@ -340,6 +342,7 @@ def axis_stencil_dot(coeffs, x: torch.Tensor, *, march=None, chunk=None):
                                               out.data_ptr(), partial.data_ptr(), cptrs, stream)
     cuda_build.check(lib, err, "axis_stencil_dot")
     axis_stencil_dot.launches += 1
+    record_kernel("axis_stencil_dot", out, partial)
     return out, partial.sum(dim=1).reshape(vdim, 1, 1, 1)
 
 
@@ -354,6 +357,7 @@ def axis_stencil5(coeffs, x: torch.Tensor, *, march=None, chunk=None) -> torch.T
         return apply_axis_stencil(coeffs, x)
     out = _launch("axis_stencil5", coeffs, x, 2, march, chunk)
     axis_stencil5.launches += 1
+    record_kernel("axis_stencil5", out)
     return out
 
 
@@ -445,6 +449,7 @@ def axis_stencil_ext(coeffs, x_ext: torch.Tensor, ext, out: torch.Tensor | None 
                                               out.data_ptr(), *out.stride()[:3], cptrs, stream)
     cuda_build.check(lib, err, "axis_stencil_ext")
     axis_stencil_ext.launches += 1
+    record_kernel("axis_stencil_ext", out)
     return out
 
 

@@ -54,6 +54,7 @@ import torch
 from pyapes_tpu_torch.ops import cuda_build
 from pyapes_tpu_torch.ops.march import copy_bytes, march_geometry, resident_blocks
 from pyapes_tpu_torch.ops.stencil import apply_diff_field, apply_diff_jacobi
+from pyapes_tpu_torch.utils.debug import record_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MODES = {"smooth": 0, "smooth0": 1, "resid": 2}
@@ -230,6 +231,7 @@ def diff_field(x, g, inv_dx2, surgery, avg: str = "arithmetic", *, march=None,
     out = _launch(lib, "diff_field", _APPLY, x, None, g, inv_dx2, surgery, avg, 0.0, (),
                   march, chunk)
     diff_field.launches += 1
+    record_kernel("diff_field", out)
     return out
 
 
@@ -251,6 +253,7 @@ def diff_jacobi(x, b, g, inv_dx2, surgery, avg="arithmetic", omega=2.0 / 3.0,
     out = _launch(lib, "diff_jacobi", _MODES[mode], x, b, g, inv_dx2, surgery, avg, omega,
                   mask_axes, march, chunk)
     diff_jacobi.launches += 1
+    record_kernel("diff_jacobi", out)
     return out
 
 

@@ -45,6 +45,8 @@ import traceback
 
 import torch
 
+from pyapes_tpu_torch.utils.debug import record_kernel
+
 nodes = 0
 """WHILE nodes added to captured graphs (a counter, like the kernels'
 ``launches``)."""
@@ -103,6 +105,22 @@ def host_loops():
 
 def use_host_loops() -> bool:
     return getattr(_local, "host_loops", False)
+
+
+@contextlib.contextmanager
+def whole_step():
+    """Within: the core of a fused whole step (``utils/fuse.py``), on the
+    card (its warm-up and capture) or on the CPU."""
+    prev = getattr(_local, "whole_step", False)
+    _local.whole_step = True
+    try:
+        yield
+    finally:
+        _local.whole_step = prev
+
+
+def in_whole_step() -> bool:
+    return getattr(_local, "whole_step", False)
 
 
 def capturing(device) -> bool:
@@ -231,6 +249,7 @@ def loop_record(t, tol, itr, hist, go, max_it: int, tolerance: float | None = No
         hist.data_ptr(), go.data_ptr(), stop.data_ptr() if stop is not None else None,
         int(max_it), float(tolerance) if tolerance is not None else 0.0,
         float(stall_ratio) if stall_ratio is not None else 0.0, flags), "the loop record launch")
+    record_kernel("loop_record", tol)
 
 
 def _abandon(graph, pool, device) -> None:

@@ -70,6 +70,7 @@ from pyapes_tpu_torch.ops.stencil import (
     apply_jacobi3d_dot,
     apply_jacobi3d_x2,
 )
+from pyapes_tpu_torch.utils.debug import record_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _MAX_GRID_YZ = 65535
@@ -182,6 +183,7 @@ def jacobi3d(x, b, inv_dx2, alpha, beta, mask_axes, chunk=None) -> torch.Tensor:
         return apply_jacobi3d(x, b, inv_dx2, alpha, beta, mask_axes)
     out, _ = _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, False, chunk)
     jacobi3d.launches += 1
+    record_kernel("jacobi3d", out)
     return out
 
 
@@ -193,6 +195,7 @@ def jacobi3d_dot(x, b, inv_dx2, alpha, beta, mask_axes, chunk=None):
         return apply_jacobi3d_dot(x, b, inv_dx2, alpha, beta, mask_axes)
     out, partial = _launch_jacobi(x, b, inv_dx2, alpha, beta, mask_axes, True, chunk)
     jacobi3d_dot.launches += 1
+    record_kernel("jacobi3d_dot", out, partial)
     return out, _dots(partial)
 
 
@@ -225,6 +228,7 @@ def jacobi3d_x2(x, b, inv_dx2, beta, mask_axes, from_zero=False, emit_dot=False,
         )
     cuda_build.check(lib, err, "jacobi3d_x2")
     jacobi3d_x2.launches += 1
+    record_kernel("jacobi3d_x2", out, partial)
     if emit_dot:
         return out, _dots(partial)
     return out

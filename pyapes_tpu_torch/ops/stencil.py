@@ -19,6 +19,7 @@ the output to the storage dtype (bf16 storage: f32 arithmetic).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -203,6 +204,12 @@ def div_surgery_info(bcs, mesh_dim: int) -> tuple:
         elif bc.bc_type == "periodic":
             info[bc.bc_face_dim][side] = "periodic"
     return tuple(tuple(p) for p in info)
+
+
+def estimate_stencil_bytes(nx: tuple[int, ...], dtype_bytes: int = 4) -> int:
+    """Bytes moved by one fused stencil apply (read x + write out)."""
+    n = math.prod(nx)
+    return 2 * n * dtype_bytes
 
 
 def _face(a: torch.Tensor, b: torch.Tensor, avg: str) -> torch.Tensor:

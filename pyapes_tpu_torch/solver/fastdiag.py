@@ -17,11 +17,16 @@ orthogonal basis and real eigenvalues; the similarity folds into the
 factors (``F = Q^T D``, ``G = D^{-1} Q``). Singular (all-Neumann) systems
 zero the null mode in eigenspace (pseudo-inverse).
 
-Accuracy: the transforms must run in true float32 — a TF32 (or, on the
-TPU, bf16-pass) product loses about four orders of one-pass accuracy.
+Accuracy: by default the transforms run in true float32 — a TF32 (or, on
+the TPU, bf16-pass) product loses about four orders of one-pass accuracy.
 ``backend.set_full_precision_matmul`` pins that for the process whenever a
-device is resolved. The factors and eigenvalues are computed with exactly
-the JAX package's numpy code, so both packages hold bit-equal factors.
+device is resolved. ``fd_opts`` trades it for speed: ``precision:
+"default"`` runs the transforms' GEMMs in TF32 on the card (the flags set
+only around them and restored afterwards), ``dtype`` stores the factors in
+a narrower type (e.g. bf16); the refinement loop around the solve then
+takes more passes to the same tolerance. The factors and eigenvalues are
+computed with exactly the JAX package's numpy code, so both packages hold
+bit-equal factors.
 """
 from __future__ import annotations
 
@@ -90,20 +95,64 @@ def _symmetrize_similarity(A: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return d, (S + S.T) / 2.0
 
 
+FD_PRECISIONS = ("highest", "default")
+_FD_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def fd_options(fd_opts) -> tuple[str, torch.dtype | None]:
+    """``(precision, transform dtype)`` of a config's ``fd_opts``:
+    ``precision`` "highest" (true-f32 transforms, the default) or
+    "default" (TF32 transforms on the card), ``dtype`` the factors' dtype
+    ("bfloat16" or "float32", as a name or a ``torch.dtype``; None: the
+    solve's). Raises ValueError on anything else."""
+    opts = dict(fd_opts or {})
+    precision = opts.pop("precision", "highest")
+    tdt = opts.pop("dtype", None)
+    if opts:
+        raise ValueError(f"fd_opts: unknown keys {sorted(opts)}; accepted: 'precision', 'dtype'")
+    if precision not in FD_PRECISIONS:
+        raise ValueError(f"fd_opts: precision must be 'highest' or 'default', got {precision!r}")
+    if tdt is not None:
+        name = str(tdt).removeprefix("torch.")
+        if name not in _FD_DTYPES:
+            raise ValueError(f"fd_opts: dtype must be one of {sorted(_FD_DTYPES)}, got {tdt!r}")
+        tdt = _FD_DTYPES[name]
+    return precision, tdt
+
+
 class FastDiag:
     """Per-axis eigenfactors + the Kronecker solve.
 
     Args:
         axis_mats: per mesh axis, the dense float64 active-set operator
             (``axis_matrix_np``).
-        dtype: solution dtype (torch); factors, eigenvalues and the
-            symbol divide run in it.
+        dtype: solution dtype (torch); eigenvalues and the symbol divide
+            run in it.
         device: where the factors live.
+        transform_dtype: dtype of the dense transform factors (None: the
+            solution's). With narrower factors (e.g. bf16) each transform
+            stage is a product in that dtype accumulated in float32
+            (float64 for a float64 solve) and rounded to it between stages;
+            the symbol divide and the result are in the solution dtype (the
+            JAX package's ``_transform``).
+        precision: "highest" (true-f32 products, ~1e-6 per pass) or
+            "default": TF32 products on the card (10-bit mantissa inputs,
+            f32 accumulation: ~1e-3 per pass at the tensor cores' rate),
+            scoped to the transforms; the CPU has no TF32, so there it
+            computes the bits of "highest" (as the JAX package's CPU backend
+            ignores the precision of an f32 dot).
     """
 
-    def __init__(self, axis_mats, dtype: torch.dtype, device):
+    def __init__(self, axis_mats, dtype: torch.dtype, device, transform_dtype=None,
+                 precision: str = "highest"):
         from pyapes_tpu_torch.backend import np_dtype
 
+        if precision not in FD_PRECISIONS:
+            raise ValueError(f"fd_opts: precision must be 'highest' or 'default', got "
+                             f"{precision!r}")
+        tdt = transform_dtype or dtype
+        self.precision = precision
+        self.acc = torch.float64 if dtype == torch.float64 else torch.float32
         ndt = np_dtype(dtype)
         self.fwd = []   # F_j = Q^T diag(d)
         self.inv = []   # G_j = diag(1/d) Q
@@ -112,8 +161,10 @@ class FastDiag:
         for A in axis_mats:
             d, S = _symmetrize_similarity(A)
             lam, Q = np.linalg.eigh(S)
-            self.fwd.append(self._dev(np.asarray(Q.T * d[None, :], dtype=ndt), dtype, device))
-            self.inv.append(self._dev(np.asarray(Q / d[:, None], dtype=ndt), dtype, device))
+            self.fwd.append(self._dev(np.asarray(Q.T * d[None, :], dtype=np_dtype(tdt)), tdt,
+                                      device))
+            self.inv.append(self._dev(np.asarray(Q / d[:, None], dtype=np_dtype(tdt)), tdt,
+                                      device))
             self.lams.append(self._dev(np.asarray(lam, dtype=ndt), dtype, device))
             lam_np.append(lam)
         # scale of the symbol, for the singular-mode cut
@@ -124,23 +175,44 @@ class FastDiag:
     def _dev(a: np.ndarray, dtype, device) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=device).contiguous()
 
+    def _mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``a @ b`` in the factors' dtype. A float32/float64 product is a
+        plain GEMM. A narrower one accumulates in float32 (float64 for a
+        float64 solve) and is rounded to the factors' dtype once: on the
+        card for a float32 solve the bf16 GEMM itself (cuBLAS
+        accumulates in f32; ``transform_matmul`` turns off its
+        reduced-precision split-K); else the operands are widened and
+        multiplied in the wide type — bf16 products are exact in f32, so on
+        the CPU this is the card's arithmetic up to the order of the sums
+        (torch's own bf16 CPU matmul would round in its own way)."""
+        if a.dtype in (torch.float32, torch.float64) or (
+                b.device.type == "cuda" and self.acc == torch.float32):
+            return torch.matmul(a, b)
+        return torch.matmul(a.to(self.acc), b.to(self.acc)).to(a.dtype)
+
     def _transform(self, mats, x: torch.Tensor) -> torch.Tensor:
-        """Contract mesh axis j of ``x`` (``(vdim, *shape)``, contiguous)
-        with ``mats[j]``: plain GEMMs over views, no transpose copies.
+        """Contract mesh axis j of ``x`` (``(vdim, *shape)``, contiguous, in
+        the factors' dtype) with ``mats[j]``: plain GEMMs over views, no
+        transpose copies.
 
         * first axis: ``F @ x.view(vdim, n0, -1)`` (F broadcast over vdim);
         * middle axis: batched ``F @ x.view(-1, n1, n2)``;
         * last axis: ``x.view(-1, n_last) @ F.T``.
         """
+        from pyapes_tpu_torch.backend import transform_matmul
+
         shape = x.shape
         nd = self.ndim
-        for j, F in enumerate(mats):
-            if j == nd - 1:
-                x = (x.reshape(-1, shape[-1]) @ F.T).view(shape)
-            elif j == 0:
-                x = torch.matmul(F, x.view(shape[0], shape[1], -1)).view(shape)
-            else:  # middle axis of a 3-D grid
-                x = torch.matmul(F, x.view(-1, shape[2], shape[3])).view(shape)
+        narrow = mats[0].dtype not in (torch.float32, torch.float64)
+        with transform_matmul(tf32=self.precision == "default" and x.device.type == "cuda",
+                              bf16_f32_accumulate=narrow and x.device.type == "cuda"):
+            for j, F in enumerate(mats):
+                if j == nd - 1:
+                    x = self._mm(x.reshape(-1, shape[-1]), F.T).view(shape)
+                elif j == 0:
+                    x = self._mm(F, x.view(shape[0], shape[1], -1)).view(shape)
+                else:  # middle axis of a 3-D grid
+                    x = self._mm(F, x.view(-1, shape[2], shape[3])).view(shape)
         return x
 
     def solve(self, r: torch.Tensor, c_ax, c_dt=0.0, pseudo: bool = False) -> torch.Tensor:
@@ -148,9 +220,11 @@ class FastDiag:
 
         ``r``: ``(vdim, *active_shape)``, contiguous. ``pseudo=True`` zeroes
         (near-)null modes of the symbol — the quotient-space solve for
-        singular all-Neumann systems.
+        singular all-Neumann systems. The result is in ``r``'s dtype.
         """
-        y = self._transform(self.fwd, r)
+        dt_in = r.dtype
+        tdt = self.fwd[0].dtype
+        y = self._transform(self.fwd, r.to(tdt)).to(dt_in)
         # Eigen-symbol formed at run time from the per-axis vectors.
         lam = self.lams[0].reshape((-1,) + (1,) * (self.ndim - 1))
         for j in range(1, self.ndim):
@@ -165,7 +239,7 @@ class FastDiag:
             y = y * inv[None]
         else:
             y = y / sym[None]
-        return self._transform(self.inv, y)
+        return self._transform(self.inv, y.to(tdt)).to(dt_in)
 
 
 class FDPrecond:

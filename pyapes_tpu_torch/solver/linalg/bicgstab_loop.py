@@ -24,30 +24,28 @@ from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum, loo
 
 def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None, fmg_init=None,
                    precond_setup=None):
-    """Build ``bicg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``;
-    arguments and results as ``cg_loop.build_cg``."""
+    """Build ``bicg_fn(x0, rhs, tparams, bc_vals, donate=False) -> (x, itr,
+    tol, hist)``; arguments and results as ``cg_loop.build_cg``."""
 
-    def bicg_fn(x0, rhs, tparams, bc_vals=()):
-        if precond_setup is not None:
-            precond_setup(tparams)
+    def bicg_fn(x0, rhs, tparams, bc_vals=(), donate=False):
         M_ = M.build(bc_vals)
 
-        def apply_bcs_(v):
-            return apply_bcs(v, bc_vals if bc_vals else None)
+        def apply_bcs_(v, inplace=False):
+            return apply_bcs(v, bc_vals if bc_vals else None, inplace=inplace)
 
         def P(v):
             return precond(v) * M_ if precond is not None else v
 
-        x = apply_bcs_(x0)
-        r0n = None
+        x = apply_bcs_(x0, inplace=donate)
+        r0 = (rhs - Aop(x, tparams)) * M_
+        r0n = _r0_norm(r0)
+        if precond_setup is not None:  # after the operator's first apply, as in CG
+            precond_setup(tparams)
         if fmg_init is not None:
             # the normalization keeps the PRE-FMG scale (as in CG)
-            r_pre = (rhs - Aop(x, tparams)) * M_
-            r0n = _r0_norm(r_pre)
-            x = apply_bcs_(x + fmg_init(r_pre) * M_)
-        r0 = (rhs - Aop(x, tparams)) * M_
-        if r0n is None:
-            r0n = _r0_norm(r0)
+            dx = fmg_init(r0) * M_
+            x = apply_bcs_(x.add_(dx) if donate else x + dx, inplace=donate)
+            r0 = (rhs - Aop(x, tparams)) * M_
         r = r0.clone()
         p = torch.zeros_like(r)
         v = torch.zeros_like(r)
@@ -94,7 +92,7 @@ def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None
 
         while_loop(lambda: go, body, x.device)
         use_best = best_tol < tol
-        x_out = torch.where(use_best, best_x, x)
-        return apply_bcs_(x_out), itr, torch.minimum(best_tol, tol), hist
+        x_out = torch.where(use_best, best_x, x, out=x if donate else None)
+        return apply_bcs_(x_out, inplace=donate), itr, torch.minimum(best_tol, tol), hist
 
     return bicg_fn

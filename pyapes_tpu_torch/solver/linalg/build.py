@@ -34,7 +34,7 @@ from pyapes_tpu_torch.parallel.halo import (
     sharded_advect_supported,
     sharded_supported,
 )
-from pyapes_tpu_torch.solver.fastdiag import FastDiag, FDPrecond, axis_matrix_np
+from pyapes_tpu_torch.solver.fastdiag import FastDiag, FDPrecond, axis_matrix_np, fd_options
 from pyapes_tpu_torch.solver.linalg.bicgstab_loop import build_bicgstab
 from pyapes_tpu_torch.solver.linalg.cg_loop import build_cg
 from pyapes_tpu_torch.solver.linalg.fastdiag_loop import build_fastdiag
@@ -233,14 +233,17 @@ def fd_setup(term_descs, tparams, slicer, paxes=(), for_precond=False, why="fast
     ), None
 
 
-def fastdiag_factors(terms, slicer, paxes, dtype, device) -> FastDiag:
+def fastdiag_factors(terms, slicer, paxes, dtype, device, fd_opts=None) -> FastDiag:
     """Eigen-factors of the summed, weighted per-axis active-set matrices
     of ``terms`` (host ``eigh``, uploaded to ``device``), cached by the
-    coefficient vectors, weights, active set, periodic axes, dtype and
-    device — all they depend on; a new ``dt`` streams through the symbol
-    and re-factorizes nothing. Raises ValueError when an axis is not
-    diagonally symmetrizable."""
-    key = (str(dtype), str(device), tuple((s.start, s.stop) for s in slicer), tuple(paxes),
+    coefficient vectors, weights, active set, periodic axes, dtype, device
+    and ``fd_opts`` (the transforms' precision and the factors' dtype) —
+    all they depend on; a new ``dt`` streams through the symbol and
+    re-factorizes nothing. Raises ValueError when an axis is not diagonally
+    symmetrizable, or on an ``fd_opts`` the port does not take."""
+    precision, tdt = fd_options(fd_opts)
+    key = (str(dtype), str(device), precision, str(tdt),
+           tuple((s.start, s.stop) for s in slicer), tuple(paxes),
            tuple((w, tuple((c.dtype.str, c.tobytes()) for cs in axis_np for c in cs))
                  for w, axis_np in terms))
     if key not in _FD_CACHE:
@@ -249,7 +252,8 @@ def fastdiag_factors(terms, slicer, paxes, dtype, device) -> FastDiag:
             mi = [w * axis_matrix_np(*cs, active=sl, periodic=j in paxes)
                   for j, (cs, sl) in enumerate(zip(axis_np, slicer))]
             mats = mi if mats is None else [a + m for a, m in zip(mats, mi)]
-        _FD_CACHE[key] = FastDiag(mats, dtype=dtype, device=device)
+        _FD_CACHE[key] = FastDiag(mats, dtype=dtype, device=device, transform_dtype=tdt,
+                                  precision=precision)
         while len(_FD_CACHE) > _FD_CACHE_MAX:
             _FD_CACHE.popitem(last=False)
     _FD_CACHE.move_to_end(key)
@@ -282,7 +286,8 @@ def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=N
     try:
         terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, for_precond=True,
                                why="precond 'fd'", obstacles=obstacles)
-        fd = fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device)
+        fd = fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device,
+                              config.get("fd_opts"))
     except ValueError:
         if config.get("fd_fallback"):
             return None, None
@@ -423,7 +428,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
         fn = build_fastdiag(
             Aop, apply_bcs, M, tol, max_it,
-            fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device),
+            fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device, config.get("fd_opts")),
             act_sel=act_sel,
             scalars=_fd_scalars(term_descs, i_ax),
             project_mean=project_mean,

@@ -35,9 +35,11 @@ def build_cg(
     project_mean=False, Aop_dot=None, fmg_init=None, precond_dot=None,
     null_shift=None, precond_setup=None,
 ):
-    """Build ``cg_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``:
-    ``itr`` (int64), ``tol`` (float64) 0-d and ``hist`` (float32, ``max_it``
-    entries, NaN past ``itr``) device tensors.
+    """Build ``cg_fn(x0, rhs, tparams, bc_vals, donate=False) -> (x, itr,
+    tol, hist)``: ``itr`` (int64), ``tol`` (float64) 0-d and ``hist``
+    (float32, ``max_it`` entries, NaN past ``itr``) device tensors;
+    ``donate``: the iterate lives in ``x0``'s storage, which holds the
+    solution at the end.
 
     Args:
         Aop: ``(x, tparams) -> A x`` (fresh tensor).
@@ -53,19 +55,18 @@ def build_cg(
         precond_dot: ``r -> (P(r), sum(r * P(r)))``, or None.
         null_shift: deferred left-null-vector row-scale field for the
             row-scaled eliminated-Neumann system (None: constant).
-        precond_setup: ``tparams -> None``, run once per call before the
-            FMG start and the loop (streams a variable-Γ term's Γ into the
-            V-cycle hierarchy; device work only), or None.
+        precond_setup: ``tparams -> None``, run once per call after the
+            initial residual, before the FMG start and the loop (streams a
+            variable-Γ term's Γ into the V-cycle hierarchy; device work
+            only, which the operator never reads), or None.
     """
 
-    def cg_fn(x0, rhs, tparams, bc_vals=()):
-        if precond_setup is not None:
-            precond_setup(tparams)
+    def cg_fn(x0, rhs, tparams, bc_vals=(), donate=False):
         M_ = M.build(bc_vals)
         n_act = M_.sum()
 
-        def apply_bcs_(v):
-            return apply_bcs(v, bc_vals if bc_vals else None)
+        def apply_bcs_(v, inplace=False):
+            return apply_bcs(v, bc_vals if bc_vals else None, inplace=inplace)
 
         def demean(v):
             if not project_mean:
@@ -81,16 +82,19 @@ def build_cg(
             else:
                 rhs = demean(rhs * M_)
 
-        x = apply_bcs_(x0)
+        x = apply_bcs_(x0, inplace=donate)
+        r_pre = (rhs - Aop(x, tparams)) * M_
+        if precond_setup is not None:
+            precond_setup(tparams)
         if fmg_init is not None:
             # the relative-residual normalization keeps the PRE-FMG scale,
             # so the FMG reduction counts toward the tolerance
-            r_pre = (rhs - Aop(x, tparams)) * M_
             r0n = _r0_norm(r_pre)
-            x = apply_bcs_(x + fmg_init(r_pre) * M_)
+            dx = fmg_init(r_pre) * M_
+            x = apply_bcs_(x.add_(dx) if donate else x + dx, inplace=donate)
             r = demean((rhs - Aop(x, tparams)) * M_)
         else:
-            r = demean((rhs - Aop(x, tparams)) * M_)
+            r = demean(r_pre)
             r0n = _r0_norm(r)
 
         def pz(r):
@@ -142,6 +146,6 @@ def build_cg(
             loop_record(tol_dev, tol, itr, hist, go, max_it, tolerance)
 
         while_loop(lambda: go, body, x.device)
-        return apply_bcs_(x), itr, tol, hist
+        return apply_bcs_(x, inplace=donate), itr, tol, hist
 
     return cg_fn

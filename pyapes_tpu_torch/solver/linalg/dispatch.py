@@ -21,9 +21,17 @@ by block (``build.py``). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
 torus reduction their masks are reduced too, every call, and a body on
 the duplicate seam plane raises. The multigrid hierarchy of a periodic
-axis lives on the reduced torus too (``MGSpec(paxes=...)``). Blocks on
-several devices are ported in a later slice and raise
-``NotImplementedError`` — never a silent detour to another path.
+axis lives on the reduced torus too (``MGSpec(paxes=...)``).
+
+The options: ``fd_opts`` (``precision`` "highest" / "default", the
+latter TF32 transforms on the card; the factors' ``dtype``), ``kernel``
+("auto" / "pallas", one path; "jnp" raises ``NotImplementedError``: no
+plain tier on the card), ``debug: "nan"`` (the loop on the host under
+``utils.debug``'s NaN check, ``NaNError`` naming the first operation or
+hand kernel whose output holds a NaN; a ValueError inside a fused whole
+step, as the JAX package) and ``donate`` (the solution in the initial
+guess's storage, an eager solve off the torus). Blocks on several devices
+raise ``NotImplementedError`` — never a silent detour to another path.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 
 from pyapes_tpu_torch.mesh.tools import boundary_slicer
 from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
-from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np
+from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np, fd_options
 from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg.build import (
     _FD_CACHE,
@@ -45,8 +53,16 @@ from pyapes_tpu_torch.solver.linalg.build import (
     build_solver,
     fd_separable,
 )
-from pyapes_tpu_torch.ops.graph_loop import GraphedCall, capturing, keep_alive, use_host_loops
+from pyapes_tpu_torch.ops.graph_loop import (
+    GraphedCall,
+    capturing,
+    host_loops,
+    in_whole_step,
+    keep_alive,
+    use_host_loops,
+)
 from pyapes_tpu_torch.utils import device_cache
+from pyapes_tpu_torch.utils.debug import nan_check
 from pyapes_tpu_torch.utils.device_cache import device_coeffs, is_constant
 
 
@@ -57,9 +73,6 @@ class ReportType(TypedDict):
     itr: int
     tol: float
     converge: bool
-
-
-_UNPORTED_CONFIG = ("debug", "kernel")
 
 
 def clear_cache() -> None:
@@ -231,17 +244,26 @@ def _check_decomp(decomp, x0) -> None:
 
 
 def _check_config(config) -> None:
-    for k in _UNPORTED_CONFIG:
-        if config.get(k) not in (None, "auto"):
-            raise NotImplementedError(f"linalg: config {k!r} is ported in a later slice")
+    """Raise on an option the port does not take: ``debug`` other than
+    "nan"/None, ``kernel`` "jnp" (``NotImplementedError``) or another value
+    than "auto"/"pallas"/None, an unported ``precond`` and an ``fd_opts``
+    other than ``precision`` "highest"/"default" and a ``dtype``."""
+    debug = config.get("debug")
+    if debug not in (None, False, "nan"):
+        raise ValueError(f"linalg: config 'debug' must be 'nan' or None, got {debug!r}")
+    kernel = config.get("kernel")
+    if kernel == "jnp":
+        raise NotImplementedError(
+            "linalg: kernel 'jnp' (the JAX package's plain-jnp tier) is not ported: the port has "
+            "no plain tier on the card, where every operator runs its hand-written kernel; use "
+            "'auto' or 'pallas' (the kernels on a CUDA tensor, their plain versions on a CPU one)"
+        )
+    if kernel not in (None, "auto", "pallas"):
+        raise ValueError(f"linalg: config 'kernel' must be 'auto' or 'pallas', got {kernel!r}")
     precond = config.get("precond")
     if precond not in (None, "none", "mg", "fd", "fastdiag"):
         raise NotImplementedError(f"linalg: precond {precond!r} is ported in a later slice")
-    fd_opts = dict(config.get("fd_opts") or {})
-    if fd_opts.pop("precision", "highest") != "highest" or fd_opts:
-        raise NotImplementedError(
-            "linalg: fd_opts other than precision='highest' are ported in a later slice"
-        )
+    fd_options(config.get("fd_opts"))
 
 
 def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
@@ -316,15 +338,31 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
 
     bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
     sync = config.get("sync", True) is not False
+    debug = config.get("debug") == "nan"
+    graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
+               and not use_host_loops() and not debug)
+    # donate: the loop works in the initial guess's storage (an eager solve
+    # of a contiguous x0; the torus reduction's x0 is a strided view whose
+    # solution is re-assembled, and a graph works in its own buffers)
+    donate = bool(config.get("donate")) and not (
+        paxes or graphed or capturing(x0.device) or in_whole_step() or not x0.is_contiguous())
 
     def run(x0, rhs, tparams, bc_vals):
-        x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals)
+        x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)
         for j in paxes:  # re-append the duplicate seam node
             x = torch.cat([x, x.narrow(1 + j, 0, 1)], dim=1 + j)
         return x, itr, tol_dev, hist
 
-    if (not sync and x0.device.type == "cuda" and not capturing(x0.device)
-            and not use_host_loops()):
+    if debug:
+        if capturing(x0.device) or in_whole_step():
+            # as the JAX package: checkify's check cannot be staged into the
+            # fused step's program (FusedStepRunner's capture raises)
+            raise ValueError("linalg: debug 'nan' cannot run inside a fused whole step; step "
+                             "eagerly (model.run(fused=False)) to check the solves")
+        # the loop on the host, every operation and hand kernel checked
+        with host_loops(), nan_check():
+            x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
+    elif graphed:
         # a sync: False solve outside a captured step: one graph of the
         # whole solve call, captured at the first call of its key
         x_final, itr, tol_final, hist = _graphed_solve(

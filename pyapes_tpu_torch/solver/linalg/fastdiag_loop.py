@@ -42,8 +42,9 @@ def build_fastdiag(
     Aop, apply_bcs, M, tolerance, max_it, fd, act_sel, scalars,
     project_mean=False, null_shift=None,
 ):
-    """Build ``fd_fn(x0, rhs, tparams, bc_vals) -> (x, itr, tol, hist)``
-    (device tensors, as ``cg_loop.build_cg``).
+    """Build ``fd_fn(x0, rhs, tparams, bc_vals, donate=False) -> (x, itr,
+    tol, hist)`` (device tensors, as ``cg_loop.build_cg``; ``donate``: the
+    loop works in ``x0``'s storage, which holds the solution at the end).
 
     Args:
         Aop: operator ``(x, tparams) -> A x`` (fresh tensor).
@@ -58,12 +59,12 @@ def build_fastdiag(
             field for eliminated-Neumann systems (``None``: constant).
     """
 
-    def fd_fn(x0, rhs, tparams, bc_vals=()):
+    def fd_fn(x0, rhs, tparams, bc_vals=(), donate=False):
         M_ = M.build(bc_vals)
         n_act = M_.sum()
 
-        def apply_bcs_(v):
-            return apply_bcs(v, bc_vals if bc_vals else None)
+        def apply_bcs_(v, inplace=False):
+            return apply_bcs(v, bc_vals if bc_vals else None, inplace=inplace)
 
         def demean(v):
             if not project_mean:
@@ -92,8 +93,8 @@ def build_fastdiag(
         c_ax, c_dt = scalars(tparams)
 
         # apply_bcs_ returns a new tensor: the in-place updates of ``x``
-        # below never write the caller's ``x0``.
-        x = apply_bcs_(x0)
+        # below never write the caller's ``x0`` — unless it was donated
+        x = apply_bcs_(x0, inplace=donate)
         r = residual(x)
         r0n = torch.clamp_min(_l2_per_dim(r).max(), torch.finfo(x.dtype).tiny)
         tol, itr, hist, go = loop_state(x, max_it, 1.0 > tolerance and max_it > 0)
@@ -111,6 +112,6 @@ def build_fastdiag(
                         stall_ratio=0.5)
 
         while_loop(lambda: go, body, x.device)
-        return apply_bcs_(x), itr, tol, hist
+        return apply_bcs_(x, inplace=donate), itr, tol, hist
 
     return fd_fn

@@ -27,12 +27,32 @@ class FDMSolverConfig(TypedDict, total=False):
     """"delta" or "residual"; fastdiag always reports the true relative
     residual."""
     precond: str
-    """"mg" (geometric multigrid V-cycle, ``solver/multigrid.py``) or None,
-    for cg/bicgstab; ignored by fastdiag (a direct solver), as in the JAX
-    package. "fd" is ported in a later slice and raises."""
+    """"mg" (geometric multigrid V-cycle, ``solver/multigrid.py``), "fd"
+    (the fast-diagonalization preconditioner, ``solver/fastdiag.py``) or
+    None, for cg/bicgstab; ignored by fastdiag (a direct solver), as in the
+    JAX package."""
     fd_opts: dict
-    """Fast-diagonalization options: {"precision": "highest"} (true-f32
-    transforms, the only setting ported)."""
+    """Fast-diagonalization options, for method "fastdiag" and precond "fd":
+    {"precision": "highest" (true-f32 transforms, the default) or "default"
+    (the transforms' GEMMs in TF32 on the card, the TF32 flags set only
+    around them and restored after, an exception included; on the CPU the
+    bits of "highest"), "dtype": the factors' dtype, e.g. "bfloat16" (each
+    transform stage a product in it accumulated in f32, the result in the
+    solve's dtype)}. Both enter the factors' cache key. Anything else
+    raises ValueError."""
+    kernel: str
+    """"auto" (default) or "pallas": the same path, the hand-written
+    kernels on a CUDA tensor, their plain versions on a CPU one (the
+    counterpart of Pallas interpret mode). "jnp" (the JAX package's
+    plain-jnp tier) raises NotImplementedError: the port has no plain tier
+    on the card."""
+    debug: str
+    """"nan": the solve's loop runs on the host under ``utils.debug``'s NaN
+    check (every PyTorch operator and every hand kernel's output) and
+    raises ``NaNError`` naming the first operation whose output holds a
+    NaN, before the end-of-solve "Invalid tolerance" check; a clean solve
+    gives the unchecked bits and ``itr``. Inside a fused whole step it
+    raises ValueError, as the JAX package's fused capture does."""
     fd_fallback: str
     """With method "fastdiag": the Krylov method to use when the equation
     is NOT separable."""
@@ -43,8 +63,17 @@ class FDMSolverConfig(TypedDict, total=False):
     initial guess), "fmg_cycles", "fuse_rz" (PCG dot(r, z) inside the last
     smooth), "transfers" ("strided" | "matrix")}. Ignored by fastdiag."""
     donate: bool
-    """Accepted for the JAX package's configs: the port's loops never write
-    the caller's initial guess, so there is nothing to donate."""
+    """True: the solve writes its solution into the storage of the initial
+    guess ``var()`` (the loop's iterate lives there), so the peak holds one
+    grid fewer (0.5 GiB at 512^3 f32); opt-in, as in the JAX package. The
+    caller must not donate where the field's old-time history
+    (``save_old``: ``VARo`` is the pre-solve ``VAR``) or a constructed
+    field's ``VARo`` still aliases that tensor and is read later: it then
+    holds the solution. No grid is saved, and the guess is left as it was,
+    on periodic axes (the loop runs on the reduced torus, a strided view,
+    and the seam is re-appended into a new tensor), for a ``sync: False``
+    solve replayed from a graph (it works in the graph's buffers) and
+    inside a fused whole step; a decomposition saves it as any solve."""
     nullspace: str
     """"mean" solves singular all-Neumann systems on the zero-mean
     quotient space (compatibility-projected RHS)."""

@@ -46,7 +46,7 @@ from collections import OrderedDict
 
 import torch
 
-from pyapes_tpu_torch.ops.graph_loop import CaptureError, GraphedCall, capturing
+from pyapes_tpu_torch.ops.graph_loop import CaptureError, GraphedCall, capturing, whole_step
 from pyapes_tpu_torch.solver.ops import Solver, solve_log
 
 __all__ = ["CaptureError", "FusedStepRunner"]
@@ -204,7 +204,7 @@ class FusedStepRunner:
             model.t = t
             for f in self.fields:
                 f._t = t
-            with solve_log() as reports:
+            with solve_log() as reports, whole_step():
                 model.step(dt)
             self._hist_advanced = [f.n_hist > nh for f, nh in zip(self.fields, n_hist0)]
             self._t_advanced = [f._t is not t for f in self.fields]

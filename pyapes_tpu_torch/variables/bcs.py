@@ -630,10 +630,12 @@ BC_FACTORY: dict[str, type] = {
 def apply_bcs_fn(bcs: list[BC_type], grid) -> Callable[[torch.Tensor], torch.Tensor]:
     """Build a pure ``x -> x`` function applying all BCs in order (reference
     ``_apply_bc_otf``, ``linalg.py:282-299``). One clone per call; the BCs
-    then write face rows of the clone in place."""
+    then write face rows of the clone in place (``inplace=True``: of ``x``
+    itself, no clone)."""
 
-    def apply_all(x: torch.Tensor, bc_vals=None) -> torch.Tensor:
-        x = x.clone()
+    def apply_all(x: torch.Tensor, bc_vals=None, inplace: bool = False) -> torch.Tensor:
+        if not inplace:
+            x = x.clone()
         for i, bc in enumerate(bcs):
             bc.apply_(x, grid, vals=None if bc_vals is None else bc_vals[i])
         return x

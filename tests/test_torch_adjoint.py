@@ -44,6 +44,7 @@ from pyapes_tpu_torch.solver.adjoint import (  # noqa: E402
 )
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import mixed_bcs  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 F64 = torch.float64
 X_TOL = 1e-10  # forward solutions, relative to the largest entry

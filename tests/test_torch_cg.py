@@ -33,6 +33,7 @@ from pyapes_tpu_torch.ops.axis_stencil import axis_stencil_dot  # noqa: E402
 from pyapes_tpu_torch.ops.jacobi import jacobi3d_dot, jacobi3d_x2  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FACES = ["xl", "xu", "yl", "yu", "zl", "zu"]

@@ -34,6 +34,7 @@ from pyapes_tpu_torch.geometry import Box, MaskObstacle  # noqa: E402
 from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
 from pyapes_tpu_torch.models import ChannelFlow  # noqa: E402
 from pyapes_tpu_torch.utils.carry import model_state_from_numpy  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -1528,3 +1528,187 @@ def test_cuda_async_save_snapshot_ignores_later_writes(cuda, tmp_path):
     g = Field("u", 1, mesh, None, init_val=0.0)
     checkpoint.load_orbax(str(tmp_path / "ck"), [g])
     assert g().device.type == "cuda" and torch.equal(g(), snap) and g._t == 0.7
+
+
+# -- the solver options and utilities ported last ------------------------------
+class _F32Poisson:
+    """A 3-D f32 homogeneous-Dirichlet Poisson problem on the card with a
+    seeded RHS: ``solve(cfg, x0=None)`` returns (solution, report)."""
+
+    def __init__(self, device, n: int = 65, gamma=False):
+        from pyapes_tpu_torch.geometry import Box
+        from pyapes_tpu_torch.mesh import Mesh
+        from pyapes_tpu_torch.variables import Field
+        from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=device, dtype="single")
+        self.var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")})
+        self.rhs = torch.as_tensor(np.random.default_rng(11).standard_normal((1, n, n, n)),
+                                   dtype=torch.float32, device=device)
+        self.coeff = 1.0
+        if gamma:
+            self.coeff = torch.exp(0.5 * torch.sin(6.0 * mesh.X) * torch.cos(5.0 * mesh.Y)
+                                   * torch.sin(4.0 * mesh.Z)).contiguous()
+
+    def solve(self, cfg, x0=None, rhs=None, coeff=None):
+        from pyapes_tpu_torch.solver.fdm import FDM
+        from pyapes_tpu_torch.solver.ops import Solver
+
+        self.var.VAR = torch.zeros_like(self.var()) if x0 is None else x0
+        s = Solver({"fdm": cfg})
+        s.set_eq(FDM().laplacian(self.coeff if coeff is None else coeff, self.var)
+                 == (self.rhs if rhs is None else rhs))
+        rep = s.solve()
+        return self.var(), rep
+
+
+def _precision_flags():
+    m = torch.backends.cuda.matmul
+    return (m.allow_tf32, torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision(),
+            m.allow_bf16_reduced_precision_reduction)
+
+
+FD_CFG = {"method": "fastdiag", "tol": 1e-6, "max_it": 100, "criterion": "residual"}
+
+
+# 130^3 nodes: a 128^3 active set, whose GEMMs cuBLAS runs on the tensor
+# cores in TF32 (at 65^3 it keeps its FFMA kernels: "default" = "highest")
+N_TF32 = 130
+
+
+def test_cuda_fd_opts_tf32_scoped_and_converging(cuda, monkeypatch):
+    """``precision: "default"`` runs the transforms in TF32 (other bits than
+    "highest"), bf16 factors too; the direct solve takes more passes and may
+    stop at the narrow transform's floor (the stall exit), so each also
+    preconditions CG, which meets the tolerance; every flag is back
+    afterwards, also when a transform raises."""
+    from pyapes_tpu_torch.solver import fastdiag as fd_mod
+
+    prob = _F32Poisson(cuda, n=N_TF32)
+    flags = _precision_flags()
+    assert not flags[0] and not flags[1] and flags[2] == "highest"
+    sols = {}
+    for label, opts in (("highest", None), ("default", {"precision": "default"}),
+                        ("bf16", {"dtype": "bfloat16"})):
+        cfg = {"fd_opts": opts} if opts else {}
+        x, rep = prob.solve({**FD_CFG, **cfg})
+        assert rep["itr"] >= 1 and np.isfinite(rep["tol"]), (label, rep)
+        assert rep["converge"] or label != "highest", rep
+        sols[label] = x.clone()
+        _, krep = prob.solve({"method": "cg", "precond": "fd", "tol": 1e-6, "max_it": 100,
+                              "criterion": "residual", **cfg})
+        assert krep["converge"] and krep["tol"] <= 1e-6, (label, krep)
+        assert _precision_flags() == flags
+    assert not torch.equal(sols["default"], sols["highest"])
+
+    def boom(self, a, b):
+        assert torch.backends.cuda.matmul.allow_tf32
+        raise KeyError("inside a transform")
+
+    monkeypatch.setattr(fd_mod.FastDiag, "_mm", boom)
+    with pytest.raises(KeyError):
+        prob.solve({**FD_CFG, "fd_opts": {"precision": "default"}})
+    assert _precision_flags() == flags
+
+
+def test_cuda_fd_default_tf32_in_a_captured_replay(cuda):
+    """cuBLAS fixes its math mode at capture: a ``sync: False`` fastdiag
+    solve with ``precision: "default"`` replays the eager TF32 solve's bits
+    (not "highest"'s), and the flags stay off around the replay."""
+    prob = _F32Poisson(cuda, n=N_TF32)
+    flags = _precision_flags()
+    cfg = {**FD_CFG, "fd_opts": {"precision": "default"}}
+    x_eager, rep = prob.solve(cfg)
+    x_eager = x_eager.clone()
+    x_hi, _ = prob.solve(FD_CFG)
+    x_hi = x_hi.clone()
+    for _ in range(3):  # the warm-up and capture, then replays
+        x, r = prob.solve({**cfg, "sync": False})
+        assert torch.equal(x, x_eager) and int(r["itr"]) == rep["itr"]
+        assert _precision_flags() == flags
+    assert not torch.equal(x_eager, x_hi)
+
+
+def test_cuda_debug_names_the_hand_kernel(cuda):
+    """A NaN first produced by a hand kernel is named by its wrapper: the
+    axis stencil on a NaN input, and a variable-Γ MG-PCG solve with a NaN
+    in Γ (``diff_field`` / ``diff_jacobi``, before the end-of-solve check);
+    a NaN in the RHS names an operator."""
+    from pyapes_tpu_torch.utils.debug import NaNError, nan_check
+
+    x = torch.ones((1, 33, 34, 35), device=cuda)
+    x[0, 3, 4, 5] = float("nan")
+    coeffs = tuple(tuple(torch.full((n,), 0.5, device=cuda) for _ in range(3))
+                   for n in x.shape[1:])
+    with pytest.raises(NaNError) as info:
+        with nan_check():
+            axis_stencil(coeffs, x)
+    assert info.value.op == "axis_stencil"
+    prob = _F32Poisson(cuda, n=129, gamma=True)
+    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 100, "criterion": "residual",
+           "debug": "nan", "mg_opts": {"dtype": "bfloat16", "fmg": True}}
+    g = prob.coeff.clone()
+    g[60, 50, 40] = float("nan")
+    with pytest.raises(NaNError) as info:
+        prob.solve(cfg, coeff=g)
+    assert info.value.op in ("diff_field", "diff_jacobi")
+    b = prob.rhs.clone()
+    b[0, 60, 50, 40] = float("nan")
+    with pytest.raises(NaNError, match="aten"):
+        prob.solve(cfg, rhs=b)
+
+
+@pytest.mark.parametrize("method", ["fastdiag", "mgpcg", "darcy"])
+def test_cuda_debug_clean_solve_same_bits(cuda, method):
+    """A clean checked solve gives the unchecked bits and itr on the card,
+    the hand kernels checked."""
+    prob = _F32Poisson(cuda, n=129, gamma=method == "darcy")
+    cfg = dict(FD_CFG) if method == "fastdiag" else {
+        "method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 100, "criterion": "residual",
+        "mg_opts": {"dtype": "bfloat16", "fmg": True}}
+    x, rep = prob.solve(cfg)
+    x = x.clone()
+    xc, repc = prob.solve({**cfg, "debug": "nan"})
+    assert torch.equal(x, xc) and rep == repc
+
+
+def test_cuda_donate_lowers_the_peak(cuda):
+    """``donate: True`` solves in the guess's storage: the same bits, and
+    ``max_memory_allocated`` above the live tensors lower by about one grid
+    (at least 0.9 of it)."""
+    prob = _F32Poisson(cuda, n=256)
+    grid = 256**3 * 4
+    prob.solve(FD_CFG)  # the factors
+    above, sols = {}, {}
+    for donate in (False, True):
+        x0 = torch.zeros_like(prob.var())
+        prob.var.VAR = x0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        x, _ = prob.solve({**FD_CFG, "donate": donate}, x0=x0)
+        torch.cuda.synchronize()
+        above[donate] = torch.cuda.max_memory_allocated() - base
+        assert (x.data_ptr() == x0.data_ptr()) is donate
+        sols[donate] = x
+        del x0, x
+    assert torch.equal(sols[False], sols[True])
+    assert above[False] - above[True] >= 0.9 * grid, above
+
+
+def test_cuda_kernel_pallas_equals_auto(cuda):
+    """``kernel: "pallas"`` is "auto"'s path on the card: the same bits and
+    the same launches of every wrapper; "jnp" raises."""
+    fns = [axis_stencil, axis_stencil_dot, jacobi3d, jacobi3d_dot, jacobi3d_x2]
+    prob = _F32Poisson(cuda, n=129)
+    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 100, "criterion": "residual",
+           "mg_opts": {"dtype": "bfloat16", "fmg": True, "fuse_rz": True, "n_post": 1}}
+    got = {}
+    for kernel in ("auto", "pallas"):
+        before = [f.launches for f in fns]
+        x, rep = prob.solve({**cfg, "kernel": kernel})
+        got[kernel] = (x.clone(), rep, [f.launches - b for f, b in zip(fns, before)])
+    assert torch.equal(got["auto"][0], got["pallas"][0])
+    assert got["auto"][1:] == got["pallas"][1:] and sum(got["auto"][2]) > 0
+    with pytest.raises(NotImplementedError):
+        prob.solve({**cfg, "kernel": "jnp"})

@@ -37,6 +37,7 @@ from pyapes_tpu_torch.solver import multigrid as pmg  # noqa: E402
 from pyapes_tpu_torch.solver.linalg import build as build_mod  # noqa: E402
 from pyapes_tpu_torch.solver.linalg import dispatch  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FACES = ["xl", "xu", "yl", "yu", "zl", "zu"]

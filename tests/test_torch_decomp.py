@@ -43,6 +43,7 @@ from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
 from pyapes_tpu_torch.testing import poisson as ppoisson  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables import bcs as pbcs  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 JAX = SimpleNamespace(Box=JBox, Mesh=lambda b, nx: JMesh(b, None, nx, dtype="double"),
                       Field=JField, FDM=JFDM, Solver=JSolver, DD=JDD, arr=jnp.asarray,

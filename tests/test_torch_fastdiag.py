@@ -25,6 +25,7 @@ from pyapes_tpu_torch.mesh.tools import boundary_slicer  # noqa: E402
 from pyapes_tpu_torch.ops.stencil import laplacian_axis_coeffs  # noqa: E402
 from pyapes_tpu_torch.solver.fastdiag import FastDiag, axis_matrix_np  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 CASES = {
     "2d": (

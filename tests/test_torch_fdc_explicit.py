@@ -34,6 +34,7 @@ from pyapes_tpu_torch.solver.fdc import FDC, AxisCoeffs, DiffFlux, hessian, jaco
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import homogeneous_bcs  # noqa: E402
 from pyapes_tpu_torch.variables.container import Hess, Jac  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FACES = ["xl", "xu", "yl", "yu", "zl", "zu"]

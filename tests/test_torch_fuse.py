@@ -45,6 +45,7 @@ import pyapes_tpu_torch.models as pmodels  # noqa: E402
 from pyapes_tpu_torch.models.navier_stokes import smagorinsky_viscosity  # noqa: E402
 from pyapes_tpu_torch.solver.ops import Solver, solve_log  # noqa: E402
 from pyapes_tpu_torch.utils.fuse import FusedStepRunner  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 KRYLOV = {"method": "bicgstab", "precond": None}
 CYL = lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.14**2  # noqa: E731

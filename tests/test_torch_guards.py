@@ -1,4 +1,5 @@
-"""Guards on the port's boundaries: it never imports JAX, CUDA is never
+"""Guards on the port's boundaries: it never imports JAX (every module,
+``utils/debug.py`` and ``utils/profile.py`` among them), CUDA is never
 silently replaced by the CPU (a kernel wrapper given a CUDA tensor
 launches or raises), the unported features raise instead of taking
 another path, and the CPU path never counts a kernel launch."""
@@ -24,6 +25,7 @@ from pyapes_tpu_torch.ops.axis_stencil import axis_stencil  # noqa: E402
 from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
 from pyapes_tpu_torch.solver.multigrid import MGSpec  # noqa: E402
 from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
+from pyapes_tpu_torch.utils.debug import NaNError  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import CylinderBoundary, homogeneous_bcs, mixed_bcs  # noqa: E402
 
@@ -54,6 +56,23 @@ def test_no_jax_import_in_sources():
                 with open(path) as fh:
                     if pat.search(fh.read()):
                         offenders.append(path)
+    assert not offenders
+
+
+def test_no_jax_import_in_port_scripts():
+    """The port's scripts (``scripts/*_torch.py``, the demo ports among them)
+    and ``chip_smoke.py`` import neither JAX nor the JAX package."""
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+pyapes_tpu\b|from\s+pyapes_tpu[\s.])",
+                     re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")] + sorted(
+        os.path.join(REPO, "scripts", f) for f in os.listdir(os.path.join(REPO, "scripts"))
+        if f.endswith("_torch.py"))
+    assert len(paths) >= 19
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                offenders.append(path)
     assert not offenders
 
 
@@ -138,18 +157,25 @@ def _solve(cfg):
     return s.solve()
 
 
+# what each case raises: NotImplementedError for what the port does not
+# take; the fd_opts and ddt cases hold the guards of options ported since
+# (an fd_opts precision outside the two accepted; a NaN met by a checked
+# transient solve), their positive cases in test_torch_solver_options.py
+_RAISES = {"fd_opts": ValueError, "ddt": NaNError}
+
+
 @pytest.mark.parametrize(
     "case",
     ["decomp", "kernel", "fd_opts", "obstacle", "rz", "var_gamma", "ddt", "custom"],
 )
 def test_unported_features_raise(case):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_RAISES.get(case, NotImplementedError)):
         if case == "decomp":  # blocks on a second device
             _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "meta"))})
-        elif case == "kernel":
+        elif case == "kernel":  # the JAX package's plain-jnp tier: none on the card
             _solve({"kernel": "jnp"})
-        elif case == "fd_opts":
-            _solve({"fd_opts": {"precision": "default"}})
+        elif case == "fd_opts":  # a precision other than "highest" / "default"
+            _solve({"fd_opts": {"precision": "bf16_3x"}})
         elif case == "obstacle":  # a variable-Γ Laplacian with obstacle BCs (JAX fdm.py:207)
             mesh = Mesh(Box[0:1, 0:1], [Box[0.4:0.6, 0.4:0.6]], [9, 9], device="cpu",
                         dtype="double")
@@ -167,14 +193,15 @@ def test_unported_features_raise(case):
             var = Field("p", 1, mesh, {"domain": mixed_bcs(
                 [1.0, 0.0, 0.0, 0.0], ["neumann", "dirichlet", "dirichlet", "dirichlet"])})
             FDM().laplacian(torch.ones(6, 6, dtype=torch.float64), var)
-        elif case == "ddt":  # a transient solve with the in-loop NaN check
+        elif case == "ddt":  # a transient solve with the in-loop NaN check meets a NaN
             var = _field()
             var.set_time(0.1, 0.0)
             var.save_old()
             s = Solver({"fdm": {"method": "bicgstab", "tol": 1e-8, "max_it": 10,
                                 "debug": "nan"}})
-            s.set_eq(FDM().ddt(var) - FDM().laplacian(1.0, var)
-                     == torch.ones(1, 6, 6, 6, dtype=torch.float64))
+            rhs = torch.ones(1, 6, 6, 6, dtype=torch.float64)
+            rhs[0, 2, 3, 3] = float("nan")
+            s.set_eq(FDM().ddt(var) - FDM().laplacian(1.0, var) == rhs)
             s.solve()
         elif case == "custom":  # a user operator term on a periodic axis
             var = _field("periodic")

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from pyapes_tpu.solver import multigrid as jmg  # noqa: E402
 from pyapes_tpu_torch.parallel import DomainDecomposition  # noqa: E402
 from pyapes_tpu_torch.solver import multigrid as pmg  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 N = ("neumann", "neumann")
 D = ("dirichlet", "dirichlet")

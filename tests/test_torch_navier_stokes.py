@@ -33,6 +33,7 @@ from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
 from pyapes_tpu_torch.models.navier_stokes import _ddx  # noqa: E402
 from pyapes_tpu_torch.solver.linalg import build as build_mod  # noqa: E402
 from pyapes_tpu_torch.utils.carry import model_state_from_numpy  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 KRYLOV = {"method": "bicgstab", "precond": None}
 

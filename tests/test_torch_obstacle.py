@@ -44,6 +44,7 @@ from pyapes_tpu_torch.solver.linalg import dispatch as dispatch_mod  # noqa: E40
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import ObstacleDirichlet, ObstacleNeumann  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 SQUARE = (slice(0.4, 0.6), slice(0.4, 0.6))
 CYL = lambda X, Y: (X - 0.7) ** 2 + (Y - 0.5) ** 2 < 0.12**2  # noqa: E731

@@ -52,6 +52,7 @@ from pyapes_tpu_torch.solver.linalg import dispatch as dispatch_mod  # noqa: E40
 from pyapes_tpu_torch.utils.carry import model_state_from_numpy  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import ObstacleDirichlet, mixed_bcs  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 D = ("dirichlet", "dirichlet")
 N = ("neumann", "neumann")

@@ -48,6 +48,7 @@ from pyapes_tpu_torch.solver.linalg import build as build_mod  # noqa: E402
 from pyapes_tpu_torch.utils.carry import rfp_state_from_numpy  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import homogeneous_bcs  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 TOL = 1e-12
 SOLVE_TOL = 1e-10

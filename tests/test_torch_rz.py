@@ -39,6 +39,7 @@ from pyapes_tpu_torch.utils.carry import coeffs_from_numpy  # noqa: E402
 from pyapes_tpu_torch.variables import Field  # noqa: E402
 from pyapes_tpu_torch.variables.bcs import CylinderBoundary  # noqa: E402
 from pyapes_tpu_torch.variables.container import Hess, Jac  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 TOL = 1e-12  # relative, float64: operators and vectors
 

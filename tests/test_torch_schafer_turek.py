@@ -23,6 +23,7 @@ from pyapes_tpu.models import ChannelFlow as JChannelFlow  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
+from jax_solver_cache import leave_the_jax_solver_cache_empty  # noqa: E402,F401
 
 
 def _jax_smoke_series(ny: int, steps: int):
