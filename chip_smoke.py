@@ -50,16 +50,17 @@ Phases, report lines before the last:
    V-cycle, per call and back to back on the device), beside a CSR product
    (``torch.mv``) of the same linear operator (the variable-Γ apply at
    its fixed Γ), the library yardstick, with GB/s and the share of the
-   bound. The 2-D per-point axis stencil on the rz vectors of the
+   bound. The 2-D axis stencil's row march on the rz vectors of the
    rz/RFP path (``check_axis_rz``): the 512 x 1024 Laplacian with the
    potentials' faces (r = 0 symmetry surgery, Dirichlet at ru and on z)
    and without faces (the raw r = 0 row), and every level of the rz
-   V-cycle, in f32 and f64, the same bits on another call; timed at 512 x
-   1024 f32 per call and back to back beside the plain version, a CSR
-   product and a device copy. The same kernel on the channel's operators
-   (``check_axis_channel``): the 441 x 83 u, v and p Laplacians of the
-   2D-2 cell and every level of its pressure V-cycle in f64, the same
-   bits on another call; the pressure operator timed likewise.
+   V-cycle, in bf16, f32 and f64, the per-point kernel's bits at several
+   row chunks and on another call; timed at 512 x 1024 f32 per call and
+   back to back beside the per-point kernel, the plain version, a CSR
+   product, a device copy and the bound. The same on the channel's
+   operators (``check_axis_channel``): the 441 x 83 u, v and p Laplacians
+   of the 2D-2 cell and every level of its pressure V-cycle in f64 (and
+   f32, bf16); the pressure operator timed likewise.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -268,8 +269,9 @@ fails the run. Phase 16 counts the launches of its solves alone: its
 ``axis_stencil`` apply timed for ``bandwidth_report`` is set apart, and the
 phase's counts must equal the solves' plus that apply's. Then one JSON line of per-kernel numbers (time, plain
 version's time, the bound from ``BOUND_WORK``, the library call's time
-or null; two last rows for the 2-D per-point kernel on the rz cell and on
-the channel), and as the LAST line
+or null; two last rows for the 2-D apply: the row march on the rz cell,
+its launches the row march's, and the per-point kernel on the channel,
+the shape's choice there), and as the LAST line
 ``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
 a non-zero exit, with no result line.
 """
@@ -2845,6 +2847,9 @@ RZ_STEPS, RZ_DT, RZ_REPS = 5, 1e-3, 3
 RZ_POT_TOL, RZ_STEP_TOL, RZ_MAX_IT = 1e-8, 1e-9, 2000  # the models' own settings
 RZ_SHARED = {"method": "bicgstab", "precond": "mg"}  # the JAX package's resolution
 RZ_CMP_TOL = 1e-10  # the card against the CPU, f64, relative to max|field|
+# the row march's rows per thread forced in the 2-D checks (with the
+# shape's choice): the longest of 1, 2, 4, 8 not above each
+ROW_CHUNKS = (1, 2, 4, 8)
 
 
 def rz_mesh(dev, nr: int, nz: int, dtype: str = "single", bounds=RZ_BOUNDS):
@@ -2892,60 +2897,96 @@ def _rz_operators(dev, dtname: str, cell=RZ_CELL) -> list:
     return ops
 
 
-def check_axis_rz(dev, cell=RZ_CELL) -> tuple:
-    """The 2-D per-point ``axis_stencil`` kernel on the rz vectors
-    (``_rz_operators``) against ``apply_axis_stencil`` in f32 and f64,
-    within ``REL_TOL`` and the same bits on another call; then at the cell
-    in f32 timed per call and back to back on the device beside the plain
-    version, a CSR product of the same operator and a device copy. Returns
-    (worst abs error, timing row)."""
+def _check_2d(label: str, coeffs, x) -> float:
+    """The 2-D apply of one operator: the shape's choice (twice), the
+    per-point kernel and the row march at ``ROW_CHUNKS`` rows per thread,
+    each forced, all the same bits and within ``REL_TOL`` of
+    ``apply_axis_stencil``, or raises. Returns the worst abs error."""
     import torch
 
     from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
     from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
 
+    dtname = str(x.dtype).split(".")[1]
+    ref = apply_axis_stencil(coeffs, x)
+    got = axis_stencil(coeffs, x)
+    same = [axis_stencil(coeffs, x), axis_stencil(coeffs, x, march=False)]
+    same += [axis_stencil(coeffs, x, march=True, chunk=c) for c in ROW_CHUNKS]
+    torch.cuda.synchronize()
+    limit = REL_TOL[dtname] * ref.double().abs().max().item()
+    err = (got.double() - ref.double()).abs().max().item()
+    if got.dtype != ref.dtype or not err <= limit or not all(torch.equal(got, o) for o in same):
+        raise RuntimeError(f"chip_smoke: axis_stencil on the {label} {dtname} disagrees with its "
+                           f"plain version ({err:.3e} > {limit:.3e}) or the row march gave other "
+                           "bits than the per-point kernel, another chunk or another call")
+    return err
+
+
+def _time_2d(coeffs, x) -> dict:
+    """One 2-D operator timed per call (``_time_ms``) and back to back on
+    the device (``_device_ms``): the shape's choice (``ms``, ``device_ms``;
+    ``kernel``: which), the row march and the per-point kernel each forced,
+    the plain version, the CSR product of the same operator (``torch.mv``)
+    and a device copy of x, beside the bound (x read and out written once;
+    6 products and 5 sums per point at the f32 rate: f64 has no row in the
+    guide's table, and the bytes bound it anyway)."""
+    import torch
+
+    from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, uses_row_march
+    from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
+
+    ref = apply_axis_stencil(coeffs, x)
+    copy = torch.empty_like(x)
+    bound_ms, bound_by = _bound(2 * x.element_size() * x.numel(), 11 * x.numel())
+    row = {"shape": tuple(x.shape[1:]), "dtype": str(x.dtype).split(".")[1],
+           "kernel": "row march" if uses_row_march(x.shape) else "per-point"}
+    for key, march in (("", None), ("row_", True), ("point_", False)):
+        row[f"{key}ms"] = _time_ms(lambda: axis_stencil(coeffs, x, march=march))
+        row[f"{key}device_ms"] = _device_ms(lambda: axis_stencil(coeffs, x, march=march))
+    return {**row, "plain_ms": _time_ms(lambda: apply_axis_stencil(coeffs, x)),
+            "library_ms": _library_stencil_ms(coeffs, x, ref),
+            "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _print_2d(label: str, row: dict) -> None:
+    print(f"[3 kernel] axis stencil 2-D {label} {row['shape']} {row['dtype']} time, ms per call / "
+          f"back to back on the device: the shape's choice ({row['kernel']}) {row['ms']:.4f} / "
+          f"{row['device_ms']:.4f}; the row march {row['row_ms']:.4f} / "
+          f"{row['row_device_ms']:.4f}; the per-point kernel {row['point_ms']:.4f} / "
+          f"{row['point_device_ms']:.4f}; plain {row['plain_ms']:.4f}, CSR product (torch.mv) "
+          f"{row['library_ms']:.4f}, device copy {row['copy_device_ms']:.4f}, bound "
+          f"{row['bound_ms']:.5f} ({row['bound_by']}); per call the shape's choice "
+          f"{'beats' if row['ms'] < row['library_ms'] else 'does not beat'} the CSR product",
+          flush=True)
+
+
+def check_axis_rz(dev, cell=RZ_CELL) -> tuple:
+    """The 2-D ``axis_stencil`` on the rz vectors (``_rz_operators``) in
+    bf16, f32 and f64: the row march the same bits as the per-point kernel
+    and within ``REL_TOL`` of ``apply_axis_stencil`` (``_check_2d``); then
+    the fine operator at the cell in f32 timed (``_time_2d``). Returns
+    (worst abs error, timing row)."""
+    import torch
+
     worst, n_cases = 0.0, 0
-    for dtname in ("float32", "float64"):
-        here = 0.0
+    for dtname in ("bfloat16", "float32", "float64"):
         for seed, (label, coeffs, shape) in enumerate(_rz_operators(dev, dtname, cell)):
             g = torch.Generator(device=dev).manual_seed(1100 + seed)
             x = torch.randn((1, *shape), generator=g, device=dev,
-                            dtype=getattr(torch, dtname))
-            ref = apply_axis_stencil(coeffs, x)
-            got, again = axis_stencil(coeffs, x), axis_stencil(coeffs, x)
-            torch.cuda.synchronize()
-            limit = REL_TOL[dtname] * ref.abs().max().item()
-            err = (got.double() - ref.double()).abs().max().item()
-            if got.dtype != ref.dtype or not err <= limit or not torch.equal(got, again):
-                raise RuntimeError(f"chip_smoke: axis_stencil on the rz {label} {dtname} "
-                                   f"disagrees with its plain version ({err:.3e} > {limit:.3e}) "
-                                   "or gave other bits on another call")
-            worst = max(worst, err)
-            here = max(here, err / limit if limit > 0 else 0.0)
+                            dtype=torch.float64 if dtname == "float64" else torch.float32)
+            x = x.to(getattr(torch, dtname))
+            worst = max(worst, _check_2d(f"rz {label}", coeffs, x))
             n_cases += 1
-        print(f"[3 kernel] axis stencil 2-D rz {dtname}: worst err/limit {here:.3f} (the fine "
-              f"{cell} operator with and without faces, every rz MG level; same bits on "
-              "another call)", flush=True)
+    print(f"[3 kernel] axis stencil 2-D rz: {n_cases} cases hold (the fine {cell} operator with "
+          "and without faces, every rz MG level, bf16/f32/f64; the row march the per-point "
+          f"kernel's bits at chunks {ROW_CHUNKS} and the shape's, on another call too)",
+          flush=True)
     coeffs = _rz_operators(dev, "float32", cell)[0][1]
     g = torch.Generator(device=dev).manual_seed(1099)
     x = torch.randn((1, *cell), generator=g, device=dev, dtype=torch.float32)
-    ref = apply_axis_stencil(coeffs, x)
-    copy = torch.empty_like(x)
-    npts = cell[0] * cell[1]
-    bound_ms, bound_by = _bound(2 * 4 * npts, 11 * npts)  # 6 products, 5 sums per point
-    row = {
-        "shape": cell, "ms": _time_ms(lambda: axis_stencil(coeffs, x)),
-        "device_ms": _device_ms(lambda: axis_stencil(coeffs, x)),
-        "plain_ms": _time_ms(lambda: apply_axis_stencil(coeffs, x)),
-        "library_ms": _library_stencil_ms(coeffs, x, ref),
-        "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst,
-    }
-    print(f"[3 kernel] axis stencil 2-D rz: {n_cases} cases hold; {cell} f32 time: the per-point "
-          f"kernel {row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms back to back on the "
-          f"device, plain {row['plain_ms']:.4f} ms, CSR product (torch.mv) "
-          f"{row['library_ms']:.4f} ms, device copy {row['copy_device_ms']:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+    row = {**_time_2d(coeffs, x), "max_abs_err": worst}
+    _print_2d("rz", row)
     return worst, row
 
 
@@ -3264,20 +3305,25 @@ def phase_rz(dev) -> tuple:
     counts set to 0 just before and read just after; then the card against
     the CPU in f64 (the same itr solve by solve, the pdf within
     ``RZ_CMP_TOL``) and the JAX tests' gates. Returns (the path's launch
-    counts, its axis-stencil launches per run)."""
+    counts, its axis-stencil launches per run, the row march's launches
+    among the path's, which must be some)."""
     import torch
 
+    from pyapes_tpu_torch.ops import axis_stencil as A
     from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
 
     clear_cache()
     _reset_counts()
+    A.axis_stencil.row_launches = 0
     cell = run_rz_cell(dev)
     print(f"[11 rz] {json.dumps(cell)}", flush=True)
     print(json.dumps({"rfp_rz_dof_per_s_chip": cell["rfp_rz_dof_per_s_chip"],
                       "wall_s": cell["wall_s_min"], "nr": cell["nr"], "nz": cell["nz"]}),
           flush=True)
     shared = run_rz_potentials_shared(dev)
-    counts = _counts()
+    counts, row = _counts(), A.axis_stencil.row_launches
+    if not row:
+        raise RuntimeError("chip_smoke: the rz path never launched the 2-D row march")
     print(f"[11 rz] {json.dumps(shared)}", flush=True)
     torch.cuda.empty_cache()
     cmp = {}
@@ -3294,7 +3340,7 @@ def phase_rz(dev) -> tuple:
     print(f"[11 rz] the JAX tests' gates on the card, f64: {json.dumps(_rz_gates(dev))}",
           flush=True)
     per_run = [r["launches"].get("axis_stencil", 0) for r in cell["runs"]]
-    return counts, per_run
+    return counts, per_run, row
 
 
 # the channel path: the Schäfer–Turek 2D-2 cell of demos/schafer_turek.py
@@ -3408,56 +3454,107 @@ def _channel_operators(dev, ny: int = ST_NY) -> list:
 
 
 def check_axis_channel(dev, ny: int = ST_NY) -> tuple:
-    """The 2-D per-point ``axis_stencil`` kernel on the channel's operators
-    (``_channel_operators``) against ``apply_axis_stencil`` in f64, within
-    ``REL_TOL`` and the same bits on another call; then the fine pressure
-    operator timed per call and back to back on the device beside the
-    plain version, a CSR product and a device copy. Returns (worst abs
-    error, timing row)."""
+    """The 2-D ``axis_stencil`` on the channel's operators
+    (``_channel_operators``) in f64, and in bf16 and f32 on the same
+    vectors rounded: the row march the same bits as the per-point kernel
+    and within ``REL_TOL`` of ``apply_axis_stencil`` (``_check_2d``); then
+    the fine pressure operator in f64 timed (``_time_2d``). Returns (worst
+    abs error, timing row)."""
+    import torch
+
+    worst, ops = 0.0, _channel_operators(dev, ny)
+    for dtname in ("float64", "float32", "bfloat16"):
+        dtype = getattr(torch, dtname)
+        for seed, (label, coeffs, shape) in enumerate(ops):
+            g = torch.Generator(device=dev).manual_seed(1200 + seed)
+            x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
+            c = tuple(tuple(v.to(dtype) for v in cs) for cs in coeffs)
+            worst = max(worst, _check_2d(f"channel {label}", c, x.to(dtype)))
+    label, coeffs, shape = ops[2]
+    print(f"[3 kernel] axis stencil 2-D channel: {len(ops)} operators hold in f64/f32/bf16 (u, "
+          f"v, p at {shape}, every pressure MG level {[o[2] for o in ops[3:]]}; the row march "
+          f"the per-point kernel's bits at chunks {ROW_CHUNKS} and the shape's, on another call "
+          "too)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(1199)
+    x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
+    row = {**_time_2d(coeffs, x), "max_abs_err": worst}
+    _print_2d("channel pressure", row)
+    return worst, row
+
+
+# the 2-D grids of the row march's choice (``row_level_times``): the rz
+# cell and its MG levels (f32), the 2D-2 grid, its pressure levels and its
+# 1761 x 329 rung (f64), and square grids around them
+ROW_LEVELS = ([((512 >> s, 1024 >> s), "float32") for s in range(6)]
+              + [((n, n), "float32") for n in (2049, 1025, 257)]
+              + [((441, 83), "float64"), ((221, 42), "float64"), ((111, 21), "float64"),
+                 ((56, 11), "float64"), ((28, 6), "float64"), ((1761, 329), "float64"),
+                 ((881, 165), "float64")])
+
+
+def row_level_times(dev, levels=ROW_LEVELS) -> list:
+    """The 2-D apply's two kernels, each forced, on the device back to back
+    (``_device_ms``) at ``levels``, the row march the per-point kernel's
+    bits; prints each beside the shape's choice (``uses_row_march``)."""
+    import torch
+
+    from pyapes_tpu_torch.ops import axis_stencil as A
+
+    rows = []
+    for seed, (shape, dtname) in enumerate(levels):
+        coeffs, x = _axis_inputs((1, *shape), (3, 3), getattr(torch, dtname), dev, 1400 + seed)
+        if not torch.equal(A.axis_stencil(coeffs, x, march=True),
+                           A.axis_stencil(coeffs, x, march=False)):
+            raise RuntimeError(f"chip_smoke: the row march gave other bits than the per-point "
+                               f"kernel at {shape} {dtname}")
+        rows.append({"shape": shape, "dtype": dtname, "row": A.uses_row_march((1, *shape)),
+                     "row_device_ms": _device_ms(lambda: A.axis_stencil(coeffs, x, march=True)),
+                     "point_device_ms": _device_ms(
+                         lambda: A.axis_stencil(coeffs, x, march=False))})
+    print("[3 kernel] axis stencil 2-D, device µs back to back, row march / per-point (the "
+          "shape's choice marked *): " + "; ".join(
+              f"{r['shape'][0]}x{r['shape'][1]} {r['dtype']} "
+              f"{'*' if r['row'] else ''}{1e3 * r['row_device_ms']:.2f} / "
+              f"{'' if r['row'] else '*'}{1e3 * r['point_device_ms']:.2f}" for r in rows),
+          flush=True)
+    return rows
+
+
+def axis_2d_times(dev, chunks=(None, 1, 2, 4, 8), forced=True) -> list:
+    """The 2-D apply at the rz cell (512 x 1024 f32, the potentials' fine
+    operator) and the 2D-2 grid (441 x 83 f64, the pressure operator), per
+    call and back to back on the device (``_time_2d``); with ``forced``
+    the row march also at each of ``chunks`` rows per thread (device
+    only). Without ``forced`` only the wrapper's common signature is used
+    (an older version under ``ab_cells_torch.py --root``)."""
     import torch
 
     from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
     from pyapes_tpu_torch.ops.stencil import apply_axis_stencil
 
-    worst, here, ops = 0.0, 0.0, _channel_operators(dev, ny)
-    for seed, (label, coeffs, shape) in enumerate(ops):
-        g = torch.Generator(device=dev).manual_seed(1200 + seed)
-        x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
+    rows = []
+    for label, (_, coeffs, shape), dtype in (
+            ("rz", _rz_operators(dev, "float32")[0], torch.float32),
+            ("channel", _channel_operators(dev)[2], torch.float64)):
+        g = torch.Generator(device=dev).manual_seed(1300)
+        x = torch.randn((1, *shape), generator=g, device=dev, dtype=dtype)
         ref = apply_axis_stencil(coeffs, x)
-        got, again = axis_stencil(coeffs, x), axis_stencil(coeffs, x)
-        torch.cuda.synchronize()
-        limit = REL_TOL["float64"] * ref.abs().max().item()
-        err = (got - ref).abs().max().item()
-        if got.dtype != ref.dtype or not err <= limit or not torch.equal(got, again):
-            raise RuntimeError(f"chip_smoke: axis_stencil on the channel {label} disagrees with "
-                               f"its plain version ({err:.3e} > {limit:.3e}) or gave other bits "
-                               "on another call")
-        worst, here = max(worst, err), max(here, err / limit if limit > 0 else 0.0)
-    label, coeffs, shape = ops[2]
-    g = torch.Generator(device=dev).manual_seed(1199)
-    x = torch.randn((1, *shape), generator=g, device=dev, dtype=torch.float64)
-    ref = apply_axis_stencil(coeffs, x)
-    copy = torch.empty_like(x)
-    npts = shape[0] * shape[1]
-    # f64 in and out; 6 products and 5 sums per point (f64 has no row in
-    # the guide's table: the f32 rate, and the bytes bound it anyway)
-    bound_ms, bound_by = _bound(2 * 8 * npts, 11 * npts)
-    row = {
-        "shape": shape, "ms": _time_ms(lambda: axis_stencil(coeffs, x)),
-        "device_ms": _device_ms(lambda: axis_stencil(coeffs, x)),
-        "plain_ms": _time_ms(lambda: apply_axis_stencil(coeffs, x)),
-        "library_ms": _library_stencil_ms(coeffs, x, ref),
-        "copy_device_ms": _device_ms(lambda: copy.copy_(x)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": worst,
-    }
-    print(f"[3 kernel] axis stencil 2-D channel f64: {len(ops)} operators hold (u, v, p at "
-          f"{shape}, every pressure MG level {[o[2] for o in ops[3:]]}), worst err/limit "
-          f"{here:.3f}, same bits on another call; {label} time: the per-point kernel "
-          f"{row['ms']:.4f} ms per call, {row['device_ms']:.4f} ms back to back on the device, "
-          f"plain {row['plain_ms']:.4f} ms, CSR product (torch.mv) {row['library_ms']:.4f} ms, "
-          f"device copy {row['copy_device_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})",
-          flush=True)
-    return worst, row
+        err = (axis_stencil(coeffs, x) - ref).abs().max().item()
+        if not err <= REL_TOL[str(dtype).split(".")[1]] * ref.abs().max().item():
+            raise RuntimeError(f"chip_smoke: axis_stencil on the {label} grid disagrees with its "
+                               f"plain version ({err:.3e})")
+        if forced:
+            row = _time_2d(coeffs, x)
+            row["chunks"] = {str(c): _device_ms(lambda: axis_stencil(coeffs, x, march=True,
+                                                                     chunk=c))
+                             for c in chunks}
+        else:
+            copy = torch.empty_like(x)
+            row = {"shape": shape, "ms": _time_ms(lambda: axis_stencil(coeffs, x)),
+                   "device_ms": _device_ms(lambda: axis_stencil(coeffs, x)),
+                   "copy_device_ms": _device_ms(lambda: copy.copy_(x))}
+        rows.append({"label": label, **row})
+    return rows
 
 
 def run_st_cell(dev, ny: int = ST_NY, warm: int = ST_WARM, steps: int = ST_STEPS,
@@ -4861,6 +4958,7 @@ def main() -> None:
     worst1, timing1 = phase_kernel(dev)
     worst_rz, timing_rz = check_axis_rz(dev)
     worst_ch, timing_ch = check_axis_channel(dev)
+    row_level_times(dev)
     axis_level_times(dev)
     worst2, timing2, _ = phase_kernel_slice2(dev)
     worst3, timing3 = phase_kernel_vargamma(dev)
@@ -4901,7 +4999,7 @@ def main() -> None:
         phase_advdiff(dev),
         phase_cavity(dev),
     ]
-    rz_counts, rz_per_run = phase_rz(dev)
+    rz_counts, rz_per_run, rz_row = phase_rz(dev)
     path_counts.append(rz_counts)
     ch_counts, ch_per_step = phase_channel(dev)
     path_counts.append(ch_counts)
@@ -4935,12 +5033,14 @@ def main() -> None:
           "axis_stencil5 likewise (axis_march_kernel in csrc/axis_march.cu, the per-point "
           "kernels in csrc/axis_stencil.cu); library_ms: one CSR "
           "product (torch.mv) of the same linear operator (the variable-Γ apply at its Γ, Div "
-          "and Conv at their advectors), none for the fused ones; the last row: the 2-D "
-          f"per-point axis_stencil_kernel on the rz Laplacian at {RZ_CELL} f32 (bench's rz "
-          f"cell), its launches those of phase 11 (axis stencil per run: {rz_per_run}); after "
-          f"it the same kernel on the 2D-2 channel's pressure Laplacian at "
-          f"{timing_ch['shape']} f64, its launches those of phase 12 (per step at the cell: "
-          f"{ch_per_step})", flush=True)
+          "and Conv at their advectors), none for the fused ones; the last two rows: the 2-D "
+          "apply, the kernel of the shape's choice: the row march (axis_row_march_kernel in "
+          f"csrc/axis_march2d.cu) on the rz Laplacian at {RZ_CELL} f32 (bench's rz cell), its "
+          f"launches the row march's in phase 11 ({rz_row}; axis stencil per run: "
+          f"{rz_per_run}), and the per-point kernel (axis_stencil_kernel in "
+          f"csrc/axis_stencil.cu, below ROW_MIN_POINTS) on the 2D-2 channel's pressure "
+          f"Laplacian at {timing_ch['shape']} f64, its launches those of phase 12 (per step at "
+          f"the cell: {ch_per_step})", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -4956,9 +5056,9 @@ def main() -> None:
     } for name, _, source, replaces in KERNELS] + [{
         "name": "axis_stencil (2-D, rz)",
         "route": "cuda",
-        "source": "pyapes_tpu_torch/csrc/axis_stencil.cu",
+        "source": "pyapes_tpu_torch/csrc/axis_march2d.cu",
         "replaces": "pyapes_tpu/ops/pallas_stencil.py:432",
-        "launches": rz_counts["axis_stencil"],
+        "launches": rz_row,
         "max_abs_err": worst_rz,
         "ms": timing_rz["ms"],
         "plain_ms": timing_rz["plain_ms"],

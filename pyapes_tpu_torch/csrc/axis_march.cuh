@@ -1,8 +1,9 @@
-// What csrc/axis_stencil.cu (the per-point kernels and the C entries) and
+// What csrc/axis_stencil.cu (the per-point kernels and the C entries),
 // csrc/axis_march.cu (the plane march, built once per storage dtype and
 // radius, and once per storage dtype for its alpha-dot and its
-// halo-extended instances) share: the parameters of a march launch and its
-// launch functions, instantiated in axis_march.cu.
+// halo-extended instances) and csrc/axis_march2d.cu (the row march of 2-D
+// grids) share: the parameters of a march launch and its launch functions,
+// instantiated in axis_march.cu and axis_march2d.cu.
 #pragma once
 
 #include "common.cuh"
@@ -54,5 +55,19 @@ template <typename T>
 cudaError_t axis_march_dot_occupancy(bool full, int* blocks);
 template <typename T>
 cudaError_t axis_march_ext_occupancy(bool full, int* blocks);
+
+template <typename T>
+struct RowMarchParams {
+  const T* c[2][3];  // per mesh axis (ap, ac, am)
+  int vdim, n0, n1;  // x and out are (vdim, n0, n1)
+  int ci;            // rows per thread: 1, 2, 4 or 8
+  int v16;           // x and out take 16-byte loads and stores (rows and bases aligned)
+  int vc;            // so do the axis-1 coefficient vectors (their bases aligned)
+};
+
+// The row march of a 2-D grid (csrc/axis_march2d.cu).
+template <typename T>
+cudaError_t axis_row_march_launch(const RowMarchParams<T>& q, const void* x, void* out,
+                                  cudaStream_t s);
 
 }  // namespace pyapes

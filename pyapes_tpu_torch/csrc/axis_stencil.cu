@@ -1,7 +1,8 @@
 // Per-axis 3-point stencil apply for Hopper (sm_90a), summed over mesh axes
 // (this file: the per-point kernels and the C entries; the plane march that
 // takes 3-D grids from the wrappers' threshold up, for the apply, the
-// alpha-dot and the halo-extended apply, is csrc/axis_march.cu):
+// alpha-dot and the halo-extended apply, is csrc/axis_march.cu, the row
+// march of the 2-D apply csrc/axis_march2d.cu):
 //
 //   out[d, i, j, k] = sum_a  ap_a[i_a] * x[.., i_a + 1 mod n_a, ..]
 //                          + ac_a[i_a] * x[.., i_a, ..]
@@ -32,6 +33,11 @@
 // through strides, so a block lands straight in its view of the global
 // result. Replaces pallas_stencil_v3.py::pallas_axis_stencil_ext on the
 // blocks the march does not take.
+//
+// The apply, the 5-point apply and the alpha-dot launch through one entry,
+// pyapes_axis_plan_launch, from a launch plan (AxisPlan) that the wrapper
+// builds and checks once per operator: per call only x, out, the dot's
+// partials and the stream cross the C interface.
 //
 // The Python wrapper and the design note are in ops/axis_stencil.py.
 // Plain C interface, loaded with ctypes.
@@ -249,24 +255,14 @@ cudaError_t launch(const void* x, void* out, void* partial,
 }
 
 template <typename T>
-cudaError_t dispatch(int ndim, const void* x, void* out, void* partial,
-                     const void* const* coeffs, int vdim, const int* n,
-                     cudaStream_t stream) {
+cudaError_t dispatch(int ndim, const void* x, void* out, const void* const* coeffs, int vdim,
+                     const int* n, cudaStream_t stream) {
   switch (ndim) {
-    case 1: return launch<T, 1>(x, out, partial, coeffs, vdim, n, stream);
-    case 2: return launch<T, 2>(x, out, partial, coeffs, vdim, n, stream);
-    case 3: return launch<T, 3>(x, out, partial, coeffs, vdim, n, stream);
+    case 1: return launch<T, 1>(x, out, nullptr, coeffs, vdim, n, stream);
+    case 2: return launch<T, 2>(x, out, nullptr, coeffs, vdim, n, stream);
+    case 3: return launch<T, 3>(x, out, nullptr, coeffs, vdim, n, stream);
     default: return cudaErrorInvalidValue;
   }
-}
-
-cudaError_t run(int dtype, int ndim, int vdim, const int* n, const void* x,
-                void* out, void* partial, const void* const* coeffs,
-                cudaStream_t s) {
-  if (dtype == 0) return dispatch<float>(ndim, x, out, partial, coeffs, vdim, n, s);
-  if (dtype == 1) return dispatch<double>(ndim, x, out, partial, coeffs, vdim, n, s);
-  if (dtype == 2) return dispatch<__nv_bfloat16>(ndim, x, out, partial, coeffs, vdim, n, s);
-  return cudaErrorInvalidValue;
 }
 
 template <typename T, int NDIM>
@@ -349,69 +345,99 @@ cudaError_t launch_march_ext(int vdim, const int* n, const pyapes::AxisMarchExt&
                                           cw, s);
 }
 
+// A launch plan, field for field ops/axis_stencil.py's _PlanArgs: built and
+// checked by the wrapper once per operator (coefficient tuple), shape, dtype
+// and device; a call passes only x, out, the dot's partials and the stream.
+struct AxisPlan {
+  // the kind's coefficient layout: 9 pointers (ap, ac, am) per mesh axis for
+  // PLAN_POINT, PLAN_POINT_DOT and PLAN_ROW; 15 (app, ap, ac, am, amm), null
+  // app/amm on a 3-point axis, for PLAN_POINT5, PLAN_MARCH, PLAN_MARCH_DOT
+  const void* coeffs[15];
+  int kind;     // PLAN_* below
+  int dtype;    // 0 float32, 1 float64, 2 bfloat16
+  int ndim;     // mesh axes, 1-3
+  int vdim;     // components
+  int n[3];     // mesh extents (1 past ndim)
+  int radius;   // the plane march's radius, 1 or 2
+  int five;     // the plane march's 5-point axes (bit a: axis a)
+  int ci;       // planes per block of the plane march; rows per thread of the row march
+  int cw;       // bytes per copy that the row length allows (16, 8, 4; 0)
+};
+
+// the per-point apply (1-3-D), its 5-point form, the per-point alpha-dot
+// (3-D), the plane march (3-D, radius 1 or 2), its alpha-dot, the row march
+// (2-D)
+enum : int { PLAN_POINT, PLAN_POINT5, PLAN_POINT_DOT, PLAN_MARCH, PLAN_MARCH_DOT, PLAN_ROW };
+
+// The widest staging copy of at most cw bytes, at least 4 and an element,
+// that x's base address allows; 0 (element loads) where none does.
+int copy_width(int cw, const void* x, int size) {
+  while (cw >= 4 && cw >= size && reinterpret_cast<uintptr_t>(x) % cw != 0) cw /= 2;
+  return cw >= 4 && cw >= size ? cw : 0;
+}
+
+template <typename T>
+cudaError_t plan_launch(const AxisPlan& p, const void* x, void* out, void* partial,
+                        cudaStream_t s) {
+  const int cw = copy_width(p.cw, x, int(sizeof(T)));
+  switch (p.kind) {
+    case PLAN_POINT:
+      return dispatch<T>(p.ndim, x, out, p.coeffs, p.vdim, p.n, s);
+    case PLAN_POINT5:
+      return dispatch5<T>(p.ndim, x, out, p.coeffs, p.vdim, p.n, s);
+    case PLAN_POINT_DOT:
+      if (p.ndim != 3 || partial == nullptr) return cudaErrorInvalidValue;
+      return launch<T, 3>(x, out, partial, p.coeffs, p.vdim, p.n, s);
+    case PLAN_MARCH:
+      if (p.ndim != 3) return cudaErrorInvalidValue;
+      return launch_march<T>(p.radius, p.vdim, p.n, x, out, p.coeffs, p.five, p.ci, cw, s);
+    case PLAN_MARCH_DOT:
+      if (p.ndim != 3 || partial == nullptr) return cudaErrorInvalidValue;
+      return launch_march_dot<T>(p.vdim, p.n, x, out, partial, p.coeffs, p.ci, cw, s);
+    case PLAN_ROW: {
+      if (p.ndim != 2) return cudaErrorInvalidValue;
+      pyapes::RowMarchParams<T> q;
+      for (int a = 0; a < 2; ++a)
+        for (int t = 0; t < 3; ++t) q.c[a][t] = static_cast<const T*>(p.coeffs[3 * a + t]);
+      q.vdim = p.vdim;
+      q.n0 = p.n[0];
+      q.n1 = p.n[1];
+      q.ci = p.ci;
+      q.v16 = cw == 16 && copy_width(p.cw, out, int(sizeof(T))) == 16;
+      q.vc = 1;
+      for (int t = 0; t < 3; ++t) q.vc &= reinterpret_cast<uintptr_t>(q.c[1][t]) % 16 == 0;
+      return pyapes::axis_row_march_launch<T>(q, x, out, s);
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64, 2 = bfloat16. n0..n2: mesh extents
-// (unused trailing ones ignored). coeffs: 9 device pointers (ap, ac, am)
-// per mesh axis, in x's dtype. Returns cudaGetLastError() after the launch
-// (0 on success). Launches on `stream`; does not synchronise and
-// allocates nothing.
-int pyapes_axis_stencil(int dtype, int ndim, int vdim, int n0, int n1, int n2,
-                        const void* x, void* out, const void* const* coeffs,
-                        void* stream) {
-  const int n[3] = {n0, n1, n2};
-  return run(dtype, ndim, vdim, n, x, out, nullptr, coeffs,
-             static_cast<cudaStream_t>(stream));
-}
-
-// 3-D only. partial: one compute-dtype value (f32 for bf16/f32, f64 for
-// f64) per block, (vdim * n0 * n1 * ceil(n2 / 128)) of them, component-major.
-int pyapes_axis_stencil_dot(int dtype, int vdim, int n0, int n1, int n2,
-                            const void* x, void* out, void* partial,
-                            const void* const* coeffs, void* stream) {
-  const int n[3] = {n0, n1, n2};
-  return run(dtype, 3, vdim, n, x, out, partial, coeffs,
-             static_cast<cudaStream_t>(stream));
-}
-
-// As pyapes_axis_stencil with 5-point axes. coeffs: 15 device pointers
-// (app, ap, ac, am, amm) per mesh axis, app = amm = NULL on a 3-point axis.
-int pyapes_axis_stencil5(int dtype, int ndim, int vdim, int n0, int n1, int n2,
-                         const void* x, void* out, const void* const* coeffs,
-                         void* stream) {
-  const int n[3] = {n0, n1, n2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch5<float>(ndim, x, out, coeffs, vdim, n, s);
-  if (dtype == 1) return dispatch5<double>(ndim, x, out, coeffs, vdim, n, s);
-  if (dtype == 2) return dispatch5<__nv_bfloat16>(ndim, x, out, coeffs, vdim, n, s);
-  return cudaErrorInvalidValue;
-}
-
-// The plane march (3-D): radius 1 (3-point axes, axis_stencil) or 2
-// (5-point axes mixed with 3-point ones, axis_stencil5). x, out: (vdim, n0,
-// n1, n2) C-contiguous on the device; coeffs: 15 device pointers (app, ap,
-// ac, am, amm) per axis as for pyapes_axis_stencil5 (radius 1 reads ap, ac,
-// am only); five: bit a set = axis a is 5-point (radius 2). ci: planes per
-// block along axis 0. cw: bytes per staging copy, 16, 8 or 4 (at least the
-// dtype's size; n2 * sizeof(dtype) and x's base pointer multiples of it),
-// or 0 for element loads. n1 * n2 must fit an int. Returns
+// Launch the plan at `plan` (an AxisPlan) on x -> out, (vdim, *n)
+// C-contiguous on the device; partial: the alpha-dot's one compute-dtype
+// value (f32 for bf16/f32, f64 for f64) per block, component-major (the
+// per-point kernel's vdim * n0 * n1 * ceil(n2 / 128), the plane march's
+// vdim * ceil(n0 / ci) * ceil(n1 / 16) * ceil(n2 / 128)), else ignored.
+// A march's staging copies (the row march's loads and stores) narrow to
+// x's (out's) alignment. Returns
 // cudaGetLastError() after the launch (0 on success); launches on `stream`,
 // does not synchronise and allocates nothing.
-int pyapes_axis_march(int dtype, int radius, int vdim, int n0, int n1, int n2, const void* x,
-                      void* out, const void* const* coeffs, int five, int ci, int cw,
-                      void* stream) {
-  const int n[3] = {n0, n1, n2};
+int pyapes_axis_plan_launch(const void* plan, const void* x, void* out, void* partial,
+                            void* stream) {
+  const AxisPlan& p = *static_cast<const AxisPlan*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_march<float>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
-  if (dtype == 1) return launch_march<double>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
-  if (dtype == 2)
-    return launch_march<__nv_bfloat16>(radius, vdim, n, x, out, coeffs, five, ci, cw, s);
+  if (p.dtype == 0) return plan_launch<float>(p, x, out, partial, s);
+  if (p.dtype == 1) return plan_launch<double>(p, x, out, partial, s);
+  if (p.dtype == 2) return plan_launch<__nv_bfloat16>(p, x, out, partial, s);
   return cudaErrorInvalidValue;
 }
 
-// Blocks of the plane march of `radius` (dtype as above; full: the kernel of
+// Blocks of the plane march of `radius` (dtype: 0 float32, 1 float64, 2
+// bfloat16; full: the kernel of
 // grids whose every tile lies inside, n1 % 16 == 0 and n2 % 128 == 0; kind:
 // 0 the apply, 1 the alpha-dot, 2 the halo-extended apply, the last two of
 // radius 1) that one SM of the current device holds at once, into *blocks.
@@ -423,28 +449,13 @@ int pyapes_axis_march_blocks_per_sm(int dtype, int radius, int full, int kind, i
   return cudaErrorInvalidValue;
 }
 
-// The plane march of radius 1 fused with the CG alpha-dot (3-D): x, out,
-// coeffs, ci, cw as for pyapes_axis_march; partial: one compute-dtype value
-// (f32 for bf16/f32, f64 for f64) per block, vdim * ceil(n0 / ci) *
-// ceil(n1 / 16) * ceil(n2 / 128) of them, component-major.
-int pyapes_axis_march_dot(int dtype, int vdim, int n0, int n1, int n2, const void* x, void* out,
-                          void* partial, const void* const* coeffs, int ci, int cw,
-                          void* stream) {
-  const int n[3] = {n0, n1, n2};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_march_dot<float>(vdim, n, x, out, partial, coeffs, ci, cw, s);
-  if (dtype == 1) return launch_march_dot<double>(vdim, n, x, out, partial, coeffs, ci, cw, s);
-  if (dtype == 2)
-    return launch_march_dot<__nv_bfloat16>(vdim, n, x, out, partial, coeffs, ci, cw, s);
-  return cudaErrorInvalidValue;
-}
-
 // The plane march of radius 1 on a halo-extended block: n0..n2, e0, e1, x,
 // out and its strides as for pyapes_axis_stencil_ext; coeffs: 15 pointers
-// as for pyapes_axis_march; pair: 1 when out's base and os_v, os0, os1 are
-// even in elements (pair stores), else 0; ci, cw as for pyapes_axis_march
-// (cw: x's rows and base pointer multiples of it; (n1 + 2 e1) * n2 must
-// fit an int).
+// (app, ap, ac, am, amm) per axis, app = amm = NULL; pair: 1 when out's base
+// and os_v, os0, os1 are even in elements (pair stores), else 0; ci: planes
+// per block along axis 0; cw: bytes per staging copy, 16, 8 or 4 (at least
+// the dtype's size; x's rows and base pointer multiples of it), or 0 for
+// element loads ((n1 + 2 e1) * n2 must fit an int).
 int pyapes_axis_march_ext(int dtype, int vdim, int n0, int n1, int n2, int e0, int e1,
                           const void* x, void* out, long long os_v, long long os0, long long os1,
                           int pair, const void* const* coeffs, int ci, int cw, void* stream) {

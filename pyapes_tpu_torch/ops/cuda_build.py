@@ -2,6 +2,7 @@
 
 Every library ``<name>`` is built from its translation units (``UNITS``:
 by default ``csrc/<name>.cu`` alone; the axis-stencil library also from
+``csrc/axis_march2d.cu`` (the row march of 2-D grids) and from
 ``csrc/axis_march.cu`` once per storage dtype and radius and once per
 storage dtype for each of its alpha-dot and halo-extended instances,
 the variable-Γ library from ``csrc/diff_march.cu`` once per storage
@@ -32,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect", "graph_loop")
 # the libraries of more than one unit: (source stem, its own nvcc flags)
 UNITS = {
-    "axis_stencil": (("axis_stencil", ()),) + tuple(
+    "axis_stencil": (("axis_stencil", ()), ("axis_march2d", ())) + tuple(
         ("axis_march", (f"-DAM_DTYPE={dtype}", f"-DAM_R={radius}"))
         for dtype in (2, 0, 1) for radius in (1, 2)) + tuple(
         ("axis_march", (f"-DAM_DTYPE={dtype}", "-DAM_R=1", f"-DAM_KIND={kind}"))

@@ -366,6 +366,7 @@ def _make_Aop_dot(term_descs, tparams, dim: int):
         c_dt = shift(tp)[1]
         if c_dt:
             coeffs[0][1] = coeffs[0][1] + c_dt
+        coeffs = tuple(map(tuple, coeffs))  # frozen: the kernel's launch plan is kept
         return lambda d: axis_stencil_dot(coeffs, d)
 
     return Aop_dot

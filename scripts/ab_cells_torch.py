@@ -10,6 +10,8 @@ from one checkout, for A/B runs of two versions on one card in one call.
     python scripts/ab_cells_torch.py --cells "cavity 128^3" "2D-2 441x83" "TGV 64^3" [--fused]
     python scripts/ab_cells_torch.py --cells conv_component advect_pair "Burgers 257^3" \
         "Upwind 256^3"                                                # the advection kernels
+    python scripts/ab_cells_torch.py --cells "axis_stencil 2-D" "rz 512x1024" \
+        "rz potentials MG" "2D-2 441x83"                              # the 2-D apply's cells
 
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
@@ -60,6 +62,16 @@ one more step the host's CUDA API calls (``_api_calls``) and host syncs
 them through the model's fused runner instead (the bootstrap through
 ``run(fused=True)``, then one graph replay per step; a version without it
 raises), ``itr`` then the last step's.
+The kernel cell ``axis_stencil 2-D`` times the 2-D apply at the rz cell
+(512 x 1024 f32) and the 2D-2 grid (441 x 83 f64), per call and on the
+device, beside the CSR product and a device copy (``axis_2d_times``; where
+the version has the row march, the per-point kernel forced and the row
+march at several row chunks too, and both kernels on the device at
+``ROW_LEVELS``' 2-D grids: ``row_level_times``). The cell ``rz 512x1024`` runs bench's rz
+cell (``RzCell``: the potentials, then 5 implicit RFP steps): one warm run,
+then ``--reps`` timed runs, wall and CPU time per run and ``itr``; ``rz
+potentials MG`` solves its potentials under ``RZ_SHARED`` (BiCGSTAB with
+the rz V-cycle, 4,266 ``axis_stencil`` launches) as many times.
 The cell ``dot/ext 512^3`` times the axis stencil's alpha-dot at 512^3,
 256^3 and 128^3 f32 and its halo-extended apply on the 8 blocks of those
 grids in ``N_DECOMP`` (8 launches) in f32 and bf16, per call and on the
@@ -89,6 +101,7 @@ CELLS = {
 }
 KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi", "axis_stencil", "axis_stencil5",
                 "conv_component", "advect_pair")
+RZ_CELLS = ("rz 512x1024", "rz potentials MG")
 VG_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (1, 4, 4, 4), (1, 65, 130)]
 AXIS_CHECK_SHAPES = [(1, 65, 33, 129), (2, 70, 19, 131), (3, 3, 9, 11), (1, 128, 128, 128)]
 ADV_CHECK_SHAPES = [(1, 65, 33, 129), (3, 3, 9, 11), (3, 9, 16, 128), (1, 128, 128, 128)]
@@ -144,6 +157,44 @@ def _flow_cell(cs, label, dev, chunk: int, reps: int, fused: bool = False) -> di
             "host_syncs_per_step": cs._count_syncs(step)}
 
 
+def _rz_cell(cs, label, dev, reps: int) -> dict:
+    """Runs of bench's rz cell or solves of its potentials under
+    ``RZ_SHARED`` (module docstring)."""
+    import statistics
+    import time
+
+    import torch
+
+    if label == "rz 512x1024":
+        rz = cs.RzCell(dev, *cs.RZ_CELL)
+
+        def run():
+            rz.reset()
+            rz.step()
+            return [int(r["itr"]) for r in rz.reports]
+    else:
+        from pyapes_tpu_torch.models import RosenbluthPotentials
+
+        mesh = cs.rz_mesh(dev, *cs.RZ_CELL)
+        f0 = cs._rz_f0(mesh)
+        pots = RosenbluthPotentials(mesh, f0, cs.RZ_SHARED)
+
+        def run():
+            pots.solve(f0)
+            return [int(r["itr"]) for r in pots.reports]
+    run()  # warm-up
+    walls, cpus, itr = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        c0, tic = time.process_time(), time.perf_counter()
+        itr.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - tic)
+        cpus.append(time.process_time() - c0)
+    return {"wall_s": walls, "wall_s_median": statistics.median(walls), "cpu_s": cpus,
+            "cpu_s_median": statistics.median(cpus), "itr": itr}
+
+
 def _dot_ext_times(cs, dev) -> dict:
     """``chip_smoke.py``'s ``dot_ext_level_times``: ``axis_stencil_dot`` at
     512^3, 256^3 and 128^3 f32 and ``axis_stencil_ext`` on the (4, 2, 1)
@@ -171,10 +222,11 @@ def main() -> None:
     p.add_argument("--solves", type=int, default=5)
     p.add_argument("--steps", type=int, default=4, help="steps of a step cell (the first warms up)")
     p.add_argument("--chunk", type=int, default=10, help="steps per timed chunk of a flow cell")
-    p.add_argument("--reps", type=int, default=3, help="timed chunks of a flow cell")
+    p.add_argument("--reps", type=int, default=3, help="timed chunks of a flow cell, runs of an rz cell")
     p.add_argument("--fused", action="store_true", help="flow cells through the fused runner")
     p.add_argument("--cells", nargs="+",
-                   choices=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, *FLOW_CELLS, "dot/ext 512^3"],
+                   choices=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, *FLOW_CELLS, *RZ_CELLS,
+                            "dot/ext 512^3", "axis_stencil 2-D"],
                    default=[*CELLS, *KERNEL_CELLS, *STEP_CELLS, "dot/ext 512^3"])
     args = p.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -220,6 +272,16 @@ def main() -> None:
             out["cells"][label] = {"worst_err_over_limit": worst["choice"],
                                    "levels": cs.adv_level_times(
                                        dev, forced=hasattr(advect, "uses_march"), names=(label,))}
+            continue
+        if label == "axis_stencil 2-D":
+            from pyapes_tpu_torch.ops import axis_stencil
+
+            forced = hasattr(axis_stencil, "uses_row_march")
+            out["cells"][label] = {"rows": cs.axis_2d_times(dev, forced=forced),
+                                   "levels": cs.row_level_times(dev) if forced else []}
+            continue
+        if label in RZ_CELLS:
+            out["cells"][label] = _rz_cell(cs, label, dev, args.reps)
             continue
         if label == "dot/ext 512^3":
             out["cells"][label] = _dot_ext_times(cs, dev)

@@ -91,6 +91,7 @@ GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("axis_stencil_dot plane march (Hopper)", ("axis_march_dot_kernel",)),
     ("axis_stencil_ext plane march (Hopper)", ("axis_march_ext_kernel",)),
     ("axis_stencil_ext (Hopper)", ("axis_stencil_ext_kernel",)),
+    ("axis_stencil 2-D row march (Hopper)", ("axis_row_march_kernel",)),
     ("diff_jacobi (Hopper)", ("diff_jacobi_kernel", "diff_jacobi_march_kernel")),
     ("diff_field (Hopper)", ("diff_field_kernel", "diff_field_march_kernel")),
     ("advect_pair / conv_component (Hopper)", ("advect_kernel", "advect_march_kernel")),

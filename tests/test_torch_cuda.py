@@ -183,10 +183,96 @@ def test_axis_kernels_same_bits_every_call(cuda, dtype, march, radius):
 
 
 def test_axis_march_takes_3d_grids_only(cuda):
-    """Forcing the march on a 2-D grid raises; it never falls back."""
+    """The plane march takes 3-D grids only: forcing a march on a 1-D grid,
+    or at radius 2 on a 2-D grid, raises (it never falls back); on a 2-D
+    grid ``axis_stencil``'s ``march=True`` is the row march."""
     coeffs, x = _axis_inputs((1, 65, 130), (3, 3), torch.float32, cuda, 31)
+    assert torch.equal(axis_stencil(coeffs, x, march=True), axis_stencil(coeffs, x, march=False))
+    with pytest.raises(ValueError):
+        axis_stencil5(coeffs, x, march=True)
+    coeffs, x = _axis_inputs((2, 300), (3,), torch.float32, cuda, 32)
     with pytest.raises(ValueError):
         axis_stencil(coeffs, x, march=True)
+
+
+def _path_2d_operators(device, dtype):
+    """(label, coeffs, shape) of every 2-D operator of ``chip_smoke.py``'s
+    phases 11 and 12 at their cells, in ``dtype``: the rz cell's fine
+    Laplacian with and without faces and every rz MG level (512 x 1024),
+    the 2D-2 channel's u, v, p Laplacians and every pressure MG level
+    (441 x 83)."""
+    import chip_smoke as cs
+
+    dtname = str(dtype).split(".")[1]
+    ops = [(f"rz {lbl}", c, shp) for lbl, c, shp in cs._rz_operators(device, dtname)]
+    ops += [(f"channel {lbl}", tuple(tuple(v.to(dtype) for v in cs_) for cs_ in c), shp)
+            for lbl, c, shp in cs._channel_operators(device)]
+    return ops
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_row_march_equals_point_kernel_on_path_operators(cuda, dtype):
+    """On every 2-D operator of the rz and channel paths the row march (the
+    shape's choice, and forced at explicit row chunks) gives the per-point
+    kernel's bits and holds to the plain version; one launch per call."""
+    for seed, (label, coeffs, shape) in enumerate(_path_2d_operators(cuda, dtype)):
+        g = torch.Generator().manual_seed(40 + seed)
+        x = torch.randn((1, *shape), generator=g, dtype=torch.float64).to(cuda, dtype)
+        point = axis_stencil(coeffs, x, march=False)
+        _close(point, apply_axis_stencil(coeffs, x), dtype)
+        before = axis_stencil.launches
+        outs = [axis_stencil(coeffs, x)] + [axis_stencil(coeffs, x, march=True, chunk=c)
+                                            for c in (1, 3, 64)]
+        assert axis_stencil.launches == before + len(outs)
+        for out in outs:
+            assert torch.equal(out, point), label
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n1", [83, 129, 1023, 3, 1024])
+def test_row_march_ragged_widths(cuda, dtype, n1):
+    """Rows of no whole 16 bytes, and ``x`` and the axis-1 coefficients at
+    an odd element offset (the loads narrow to their alignment): the
+    per-point kernel's bits, within the tolerance of the plain version, at
+    every chunk, and for an aligned copy of ``x``."""
+    coeffs, base = _axis_inputs((2, 37, n1 + 1), (3, 3), dtype, cuda, 50 + n1)
+    coeffs = (coeffs[0], tuple(c[1:] for c in coeffs[1]))  # views at an odd offset too
+    x = base.reshape(-1)[1:1 + 2 * 37 * n1].view(2, 37, n1)
+    ref = apply_axis_stencil(coeffs, x)
+    point = axis_stencil(coeffs, x, march=False)
+    for chunk in (None, 1, 4, 37):
+        out = axis_stencil(coeffs, x, march=True, chunk=chunk)
+        _close(out, ref, dtype)
+        assert torch.equal(out, point), chunk
+    xc = x.clone()
+    assert torch.equal(axis_stencil(coeffs, xc), point)
+
+
+def test_axis_plans_launch_on_the_capture_stream(cuda):
+    """Plans built eagerly launch on a CUDA graph's capture stream (a plan
+    keeps no stream), and a replay on new data gives the eager bits: the
+    row march, the plane march and the alpha-dot."""
+    c2, x2 = _axis_inputs((1, 65, 130), (3, 3), torch.float64, cuda, 60)
+    c3, x3 = _axis_inputs((1, 20, 32, 256), (3, 3, 3), torch.float32, cuda, 61)
+    calls = (lambda: axis_stencil(c2, x2, march=True), lambda: axis_stencil(c3, x3, march=True),
+             lambda: axis_stencil_dot(c3, x3, march=True))
+    for fn in calls:  # builds the plans
+        fn()
+    torch.cuda.synchronize()
+    before = (axis_stencil.launches, axis_stencil_dot.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in calls]
+    assert (axis_stencil.launches, axis_stencil_dot.launches) == (before[0] + 2, before[1] + 1)
+    x2.copy_(torch.randn_like(x2))
+    x3.copy_(torch.randn_like(x3))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = [fn() for fn in calls]
+    assert torch.equal(outs[0], eager[0]) and torch.equal(outs[1], eager[1])
+    assert torch.equal(outs[2][0], eager[2][0]) and torch.equal(outs[2][1], eager[2][1])
+    assert (axis_stencil.launches, axis_stencil_dot.launches) == (before[0] + 4, before[1] + 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -987,9 +1073,9 @@ def _rz_operators(device, dtype, shape=(64, 128)):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_axis_stencil_rz_matches_plain(cuda, dtype):
-    """The 2-D per-point kernel on the rz vectors (the fine operator with
-    and without faces, every rz MG level): within the tolerance, the same
-    bits on another call, one launch each."""
+    """The 2-D kernel of the shape's choice (the row march) on the rz
+    vectors (the fine operator with and without faces, every rz MG level):
+    within the tolerance, the same bits on another call, one launch each."""
     for seed, (coeffs, shape) in enumerate(_rz_operators(cuda, dtype)):
         x = torch.randn((1, *shape), generator=torch.Generator().manual_seed(seed),
                         dtype=torch.float64).to(cuda, dtype)
