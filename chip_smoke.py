@@ -263,8 +263,30 @@ Phases, report lines before the last:
    ``kernel``: "pallas" gives "auto"'s bits and launches on the 256^3
    MG-PCG; "jnp" raises ``NotImplementedError``.
 
+17. placed: a ``DomainDecomposition`` with ``devices`` (each block of the
+   loop vectors its own allocation on its device, ``parallel/blocks.py``),
+   the blocks round robin over every card the machine shows
+   (``phase_placed``). (a) bench's MG-PCG at 512^3 f32 (bf16 V(2,2) FMG)
+   in (4, 2, 1) blocks against the view-based decomposed solve of the same
+   problem: ``itr`` within ``PLACED_GATE``, solutions within
+   ``PLACED_AGREE``, the true residual (f64) within 1e-5; the cards used,
+   the wall (median of 3), ``axis_stencil_ext`` launches per solve equal
+   to card blocks x placed applies, ``blocks.gathers`` per solve and per
+   V-cycle, the bytes exchanged per apply (one fine f32 apply: exactly
+   its ghost faces), the peak memory per card and the largest cube one
+   card holds at that peak per point. (b) unpreconditioned CG at 512^3
+   f32 (4, 2, 1), ``PLACED_CG_MAX_IT`` iterations in both layouts (time):
+   no gather, the ghost faces' bytes per apply, solutions within
+   ``PLACED_CG_AGREE``. (c) the mixed placement ``("cuda:0", "cpu") * 4``
+   at 64^3 f64 (2, 2, 2), CG and MG-PCG, and a 2-D (4, 1) CG on
+   ``("cuda:0", "cpu") * 2`` at 256^2 f64: the view-based ``itr`` and
+   solution within ``PLACED_CMP_TOL`` (the card blocks launch the kernels,
+   the CPU blocks run the plain versions; every block operation takes its
+   own device's operands). Peer copies between two cards run only where
+   the machine shows two.
+
 Every kernel launch count is set to 0 just before each path (phases 4-7,
-9, 10, 11, 12, 13, 15 (a), 16) and read just after; a kernel of a path that launched no time there
+9, 10, 11, 12, 13, 15 (a), 16, and each placed drive of 17) and read just after; a kernel of a path that launched no time there
 fails the run. Phase 16 counts the launches of its solves alone: its
 ``axis_stencil`` apply timed for ``bandwidth_report`` is set apart, and the
 phase's counts must equal the solves' plus that apply's. Then one JSON line of per-kernel numbers (time, plain
@@ -283,7 +305,7 @@ import json
 import statistics
 import subprocess
 import time
-from math import exp, pi, sin
+from math import exp, pi, prod, sin
 
 N_MAIN = 512
 N_V11 = 256
@@ -4950,6 +4972,287 @@ def phase_utilities(dev) -> dict:
     return {k: solves[k] for k in total}
 
 
+# -- phase 17: placed decompositions (blocks on their own devices) ------------
+
+PLACED_GATE = 2  # |d itr| of (a)'s placed MG-PCG against the view-based solve
+# (a): two MG-PCG solves to a 1e-6 recursive residual in f32 (bf16 cycle)
+# whose dots sum in another order: max|dx| / max|x| within 1e-4
+PLACED_AGREE = 1e-4
+PLACED_CG_MAX_IT = 200  # (b)'s cap: both layouts stop at it (time)
+# (b): the same 200 f32 CG iterations in two summation orders of the dots:
+# max|dx| / max|x| within 1e-4
+PLACED_CG_AGREE = 1e-4
+PLACED_CMP_N = 64  # (c): 64^3 f64 (2, 2, 2) and 256^2 f64 (4, 1)
+PLACED_CMP_N2 = 256
+PLACED_CMP_TOL = 1e-10  # (c): the same itr, max|dx| / max|x|
+PLACED_CMP_CG = {"method": "cg", "tol": 1e-8, "max_it": 2000, "criterion": "residual"}
+MIXED_PAIR = ("cuda:0", "cpu")  # (c)'s placement, repeated
+
+
+def placed_devices(n_blocks: int) -> tuple:
+    """Round robin over every card the machine shows."""
+    import torch
+
+    k = torch.cuda.device_count()
+    return tuple(f"cuda:{i % k}" for i in range(n_blocks))
+
+
+def placed_problem(dev, nodes, dtype: str = "single", seed: int = 0):
+    """A Dirichlet Poisson problem on the unit box of ``nodes`` (2-D or 3-D)
+    with a seeded random RHS on the card: ``(mesh, var, rhs)``."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[(slice(0, 1),) * len(nodes)], None, list(nodes), device=str(dev),
+                dtype=dtype)
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(len(nodes), 0.0, "dirichlet"),
+                               "obstacle": None}, init_val=0.0)
+    g = torch.Generator(device=mesh.device).manual_seed(seed)
+    rhs = torch.randn((1, *nodes), generator=g, device=mesh.device, dtype=mesh.dtype.float)
+    return mesh, var, rhs
+
+
+def _sync_all() -> None:
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _placed_counters() -> dict:
+    from pyapes_tpu_torch.parallel import blocks, halo
+    from pyapes_tpu_torch.solver import multigrid
+
+    return {**_counts(), "gathers": blocks.gathers, "exchange_bytes": halo.exchange_bytes,
+            "placed_applies": halo.placed_applies, "vcycles": multigrid.vcycles,
+            "cycle_gathers": multigrid.cycle_gathers}
+
+
+def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True) -> dict:
+    """A warm-up (``warm``) and ``solves`` timed solves of ``-lap = rhs``
+    through ``Solver.solve`` with ``cfg``: per timed solve its report, wall
+    and counter deltas (launches, ``blocks.gathers``, ``exchange_bytes``,
+    placed applies, V-cycles and their gathers); the last solution; the
+    peak memory of each card over the timed solves."""
+    import torch
+
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    solver = Solver({"fdm": {"report": False, **cfg}})
+    fdm = FDM()
+    if warm:
+        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        solver.solve()
+    _sync_all()
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    rows = []
+    for _ in range(solves):
+        var.set_var_tensor(torch.zeros_like(var()))
+        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        _sync_all()
+        c0 = _placed_counters()
+        tic = time.perf_counter()
+        rep = solver.solve()
+        _sync_all()
+        wall = time.perf_counter() - tic
+        c1 = _placed_counters()
+        rows.append({"itr": rep["itr"], "tol": rep["tol"], "converge": rep["converge"],
+                     "wall_s": wall, **{k: c1[k] - c0[k] for k in c1}})
+    return {"rows": rows, "x": var().clone(),
+            "peak_gib": [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards]}
+
+
+def _ghost_bytes(ms, shape, itemsize: int) -> int:
+    """Bytes of every block's ghost faces: two per cut axis, each the
+    block's extent on the other axes."""
+    local = [n // m for n, m in zip(shape[1:], ms)]
+    per = sum(2 * shape[0] * (prod(local) // local[j]) * itemsize
+              for j, m in enumerate(ms) if m > 1)
+    return prod(ms) * per
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _placed_summary(label, run, n_cuda_blocks: int, ghost=None) -> dict:
+    """The phase's numbers of one placed layout, checked: every timed
+    solve launched ``axis_stencil_ext`` once per card block and placed
+    apply (3-D) and, with ``ghost`` (one apply's ghost bytes, a one-level
+    solve), moved exactly the ghost faces per apply."""
+    rows = run["rows"]
+    for r in rows:
+        if r["placed_applies"] == 0:
+            raise RuntimeError(f"chip_smoke: {label} ran no placed apply: {r}")
+        if r["axis_stencil_ext"] != n_cuda_blocks * r["placed_applies"]:
+            raise RuntimeError(f"chip_smoke: {label}: {r['axis_stencil_ext']} axis_stencil_ext "
+                               f"launches, not {n_cuda_blocks} card blocks x "
+                               f"{r['placed_applies']} applies")
+        if ghost is not None and r["exchange_bytes"] != ghost * r["placed_applies"]:
+            raise RuntimeError(f"chip_smoke: {label}: {r['exchange_bytes']} bytes exchanged, "
+                               f"not {ghost} per apply x {r['placed_applies']}")
+    last = rows[-1]
+    return {
+        "itr": [r["itr"] for r in rows], "tol": [r["tol"] for r in rows],
+        "wall_s": [r["wall_s"] for r in rows],
+        "wall_s_median": statistics.median(r["wall_s"] for r in rows),
+        "axis_stencil_ext_per_solve": last["axis_stencil_ext"],
+        "axis_stencil_per_solve": last["axis_stencil"],
+        "placed_applies_per_solve": last["placed_applies"],
+        "gathers_per_solve": last["gathers"],
+        "gathers_per_vcycle": (last["cycle_gathers"] / last["vcycles"]) if last["vcycles"]
+        else None,
+        "vcycles_per_solve": last["vcycles"],
+        "exchange_bytes_per_solve": last["exchange_bytes"],
+        "exchange_bytes_per_apply": last["exchange_bytes"] / last["placed_applies"],
+        "peak_mem_gib_per_card": run["peak_gib"],
+    }
+
+
+def phase_placed(dev) -> dict:
+    """Phase 17: a placed ``DomainDecomposition`` (each block of every loop
+    vector its own allocation on its card, round robin over the cards the
+    machine shows) through ``Solver.solve``: (a) bench's MG-PCG at 512^3
+    f32 (bf16 V(2,2) FMG) in (4, 2, 1) blocks against the view-based
+    decomposed solve of the same problem, 3 timed solves each; (b)
+    unpreconditioned CG at 512^3 f32 (4, 2, 1), ``PLACED_CG_MAX_IT``
+    iterations in both layouts, zero gathers; (c) the mixed placement
+    ``("cuda:0", "cpu") * 4`` at 64^3 f64 (2, 2, 2), CG and MG-PCG, and a
+    2-D (4, 1) CG on ``("cuda:0", "cpu") * 2`` at 256^2 f64, each equal to
+    the view-based solve (the same itr, ``PLACED_CMP_TOL``). Returns the
+    launches of the placed drives (each counted from 0)."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
+
+    tic0 = time.perf_counter()
+    launches = {name: 0 for name in _counts()}
+
+    def drive(var, rhs, cfg, solves, warm=True):
+        _reset_counts()
+        run = run_layout(var, rhs, cfg, solves, warm)
+        for k, c in _counts().items():
+            launches[k] += c
+        return run
+
+    devs = placed_devices(prod(N_DECOMP))
+    n_cards = len(set(devs))
+    n_cuda = sum(1 for d in devs if d.startswith("cuda"))
+    out = {"cards_used": n_cards, "devices": list(devs), "decomp": list(N_DECOMP)}
+    placed_dd = DomainDecomposition(N_DECOMP, devices=devs)
+    mesh, var, rhs = placed_problem(dev, (N_MAIN,) * 3)
+
+    # (a) MG-PCG: the view-based decomposed solve, then the placed one
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+    view = run_layout(var, rhs, {**mg, "decomp": DomainDecomposition(N_DECOMP)}, 3)
+    placed = drive(var, rhs, {**mg, "decomp": placed_dd}, 3)
+    a = _placed_summary("(a) placed MG-PCG", placed, n_cuda)
+    d_itr = [abs(p["itr"] - v["itr"]) for p, v in zip(placed["rows"], view["rows"])]
+    agree = _rel(placed["x"], view["x"])
+    res32, res64 = _true_residuals(mesh, var, rhs, 1.0, placed["x"])
+    if not (all(r["converge"] and r["tol"] <= 1e-6 for r in placed["rows"])
+            and max(d_itr) <= PLACED_GATE and agree <= PLACED_AGREE and res64 <= 1e-5):
+        raise RuntimeError(f"chip_smoke: (a) placed MG-PCG: itr {a['itr']} against "
+                           f"{[r['itr'] for r in view['rows']]}, max|dx|/max|x| {agree:.3e} "
+                           f"(limit {PLACED_AGREE}), true residual f64 {res64:.3e}")
+    # one apply of the fine operator in f32, its exchange alone
+    lay = blocks.layout(placed_dd, (N_MAIN,) * 3, dev)
+    xb = blocks.scatter(placed["x"], lay)
+    coeffs = tuple(tuple(torch.ones(N_MAIN, device=dev) for _ in range(3)) for _ in range(3))
+    b0 = halo.exchange_bytes
+    halo.make_sharded_apply(placed_dd, 3)(coeffs, xb)
+    _sync_all()
+    ghost32 = _ghost_bytes(N_DECOMP, (1,) + (N_MAIN,) * 3, 4)
+    if halo.exchange_bytes - b0 != ghost32:
+        raise RuntimeError(f"chip_smoke: one placed apply moved {halo.exchange_bytes - b0} bytes, "
+                           f"its ghost faces {ghost32}")
+    del xb
+    a.update({"view_itr": [r["itr"] for r in view["rows"]],
+              "view_wall_s": [r["wall_s"] for r in view["rows"]],
+              "view_wall_s_median": statistics.median(r["wall_s"] for r in view["rows"]),
+              "view_axis_stencil_ext_per_solve": view["rows"][-1]["axis_stencil_ext"],
+              "view_peak_mem_gib_per_card": view["peak_gib"],
+              "max_rel_diff_vs_view": agree, "true_rel_residual_f32": res32,
+              "true_rel_residual_f64": res64, "fine_apply_exchange_bytes_f32": ghost32})
+    # the memory reckoning: the peak per grid point, and the largest cube
+    # whose solve one card of this memory holds at that rate
+    per_point = max(placed["peak_gib"]) * 2**30 / N_MAIN**3
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    a.update({"peak_bytes_per_point": per_point, "card_bytes": card_bytes,
+              "largest_cube_one_card": int((card_bytes / per_point) ** (1 / 3))})
+    out["a_mgpcg"] = a
+    print(f"[17 placed] (a) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG {N_DECOMP} on {n_cards} "
+          f"card(s): {json.dumps(a)}", flush=True)
+    del view, placed
+
+    # (b) CG, capped: both layouts at the same itr, no gather
+    cg = {"method": "cg", "tol": 1e-6, "max_it": PLACED_CG_MAX_IT, "criterion": "residual"}
+    view = run_layout(var, rhs, {**cg, "decomp": DomainDecomposition(N_DECOMP)}, 1)
+    placed = drive(var, rhs, {**cg, "decomp": placed_dd}, 1)
+    b = _placed_summary("(b) placed CG", placed, n_cuda, ghost32)
+    agree = _rel(placed["x"], view["x"])
+    if not (b["itr"] == [r["itr"] for r in view["rows"]] == [PLACED_CG_MAX_IT]
+            and b["gathers_per_solve"] == 0 and agree <= PLACED_CG_AGREE):
+        raise RuntimeError(f"chip_smoke: (b) placed CG: itr {b['itr']}, gathers "
+                           f"{b['gathers_per_solve']}, max|dx|/max|x| {agree:.3e} (limit "
+                           f"{PLACED_CG_AGREE})")
+    b.update({"max_it_cap": PLACED_CG_MAX_IT, "gathers_per_iteration": 0.0,
+              "view_wall_s": view["rows"][-1]["wall_s"], "max_rel_diff_vs_view": agree,
+              "view_peak_mem_gib_per_card": view["peak_gib"]})
+    out["b_cg"] = b
+    print(f"[17 placed] (b) CG {N_MAIN}^3 f32 {N_DECOMP}, capped at {PLACED_CG_MAX_IT} "
+          f"iterations (time): {json.dumps(b)}", flush=True)
+    del view, placed, var, rhs, mesh
+
+    # (c) the mixed placement: card and CPU blocks, against the view-based solve
+    mixed = {}
+    n3, n2 = PLACED_CMP_N, PLACED_CMP_N2
+    cases = [(f"CG {n3}^3 (2, 2, 2)", (n3,) * 3, (2, 2, 2), PLACED_CMP_CG),
+             (f"MG-PCG {n3}^3 (2, 2, 2)", (n3,) * 3, (2, 2, 2),
+              {**PLACED_CMP_CG, "precond": "mg"}),
+             (f"CG {n2}^2 (4, 1)", (n2,) * 2, (4, 1), PLACED_CMP_CG)]
+    for label, nodes, ms, cfg in cases:
+        mdevs = MIXED_PAIR * (prod(ms) // 2)
+        n_card = sum(1 for d in mdevs if d.startswith("cuda"))
+        _, var, rhs = placed_problem(dev, nodes, "double", seed=1)
+        view = run_layout(var, rhs, {**cfg, "decomp": DomainDecomposition(ms)}, 1)
+        placed = drive(var, rhs, {**cfg, "decomp": DomainDecomposition(ms, devices=mdevs)}, 1)
+        rp, rv = placed["rows"][-1], view["rows"][-1]
+        agree = _rel(placed["x"], view["x"])
+        if len(nodes) == 3 and rp["axis_stencil_ext"] != n_card * rp["placed_applies"]:
+            raise RuntimeError(f"chip_smoke: (c) {label}: {rp['axis_stencil_ext']} "
+                               "axis_stencil_ext launches for the card blocks' "
+                               f"{rp['placed_applies']} applies")
+        if len(nodes) == 2 and rp["axis_stencil"] < n_card * rp["placed_applies"]:
+            raise RuntimeError(f"chip_smoke: (c) {label}: {rp['axis_stencil']} axis_stencil "
+                               f"launches for the card blocks' {rp['placed_applies']} applies")
+        if not (rp["converge"] and rp["itr"] == rv["itr"] and agree <= PLACED_CMP_TOL):
+            raise RuntimeError(f"chip_smoke: (c) {label} on {mdevs}: itr {rp['itr']} against "
+                               f"{rv['itr']}, max|dx|/max|x| {agree:.3e} (limit "
+                               f"{PLACED_CMP_TOL})")
+        mixed[label] = {"devices": list(mdevs), "itr": rp["itr"], "view_itr": rv["itr"],
+                        "max_rel_diff_vs_view": agree, "wall_s": rp["wall_s"],
+                        "view_wall_s": rv["wall_s"], "gathers": rp["gathers"],
+                        "axis_stencil_ext": rp["axis_stencil_ext"],
+                        "axis_stencil": rp["axis_stencil"],
+                        "exchange_bytes": rp["exchange_bytes"]}
+        del view, placed, var, rhs
+    out["c_mixed"] = mixed
+    print(f"[17 placed] (c) mixed card/CPU placements, f64 (tolerance {PLACED_CMP_TOL}): "
+          f"{json.dumps(mixed)}", flush=True)
+    print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
+          f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
+          f"wall {time.perf_counter() - tic0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -5009,6 +5312,7 @@ def main() -> None:
     phase_fused(dev)
     path_counts.append(phase_adjoint(dev))
     path_counts.append(phase_utilities(dev))
+    path_counts.append(phase_placed(dev))
     for name, err in per_worst_abs.items():
         worst[name] = max(worst[name], err)
     for counts in path_counts:

@@ -1,0 +1,410 @@
+"""Block-resident vectors of a placed domain decomposition (the port's
+counterpart of an array committed to a ``NamedSharding``).
+
+A ``Layout`` is where the blocks of one grid live: per block (row-major
+block order, ``DomainDecomposition.placement``) its coordinate, its index
+ranges and its device, and the lead device (the solve's, where the
+Field's value stays). A ``BlockTensor`` is a wrapper subclass of
+``torch.Tensor`` (the idiom of PyTorch's DTensor): it has the global shape
+and dtype and reports the lead device, but holds no storage of its own;
+``parts`` holds one tensor per block, each its own allocation on its
+block's device. Its ``__torch_dispatch__`` runs
+
+* every pointwise operation, and clone, copy, fills, ``*_like`` and dtype
+  casts, block by block on each block's device: a plain operand is cut to
+  the block where a dimension has the grid's length and broadcast where it
+  has length 1, and copied to the block's device once per use (a 0-d
+  operand on the lead device among them);
+* sums and the max over every grid axis as per-block partials, moved to
+  the lead device and combined there in block order (a fixed order: the
+  same bits on every run);
+* anything else as GSPMD would insert an all-gather: the block vectors
+  gathered on the lead device (``gathers`` counts each such gather), the
+  operation run there, and a result of the grid's shape scattered back. A
+  view of a block vector raises: writes through it would be lost.
+
+A block vector may have length 1 along grid axes (a broadcast operand such
+as a per-axis row scale); its blocks then repeat along the cut ones, and
+reductions and gathers read each value once.
+
+``scatter`` / ``gather`` move between a global tensor on the lead device
+and a block vector; ``interior_mask`` builds the active-set mask block by
+block; ``apply_bcs_fn`` writes each BC's face rows into the blocks on that
+face.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._pytree import tree_map
+
+from pyapes_tpu_torch.parallel.decomp import _resolve
+
+aten = torch.ops.aten
+
+gathers = 0
+"""Block vectors gathered on the lead device by an operation that does not
+run block by block (a counter, like the kernels' ``launches``). The
+entry's scatter and the exit's gather of a solve do not count."""
+
+
+class Layout:
+    """The blocks of a placed decomposition on one grid: ``blocks`` lists
+    ``(coord, slices, device)`` per block, ``lead`` is the solve's
+    device, ``ms`` the blocks per grid axis and ``cut`` the axes with more
+    than one block. Made once per decomposition, grid and lead device
+    (``layout``), so identity compares two."""
+
+    def __init__(self, decomp, grid, lead):
+        self.decomp = decomp
+        self.grid = tuple(int(n) for n in grid)
+        self.lead = torch.device(lead)
+        self.blocks = tuple(decomp.placement(self.grid))
+        self.ms = decomp.mesh_shape + (1,) * (len(self.grid) - len(decomp.mesh_shape))
+        self.cut = tuple(m > 1 for m in self.ms)
+        self.devices = tuple(d for _, _, d in self.blocks)
+        self._index = {c: i for i, (c, _, _) in enumerate(self.blocks)}
+
+    def neighbour(self, b: int, j: int, step: int) -> int:
+        """The block ``step`` blocks from block ``b`` along grid axis ``j``
+        (the ring wraps)."""
+        c = list(self.blocks[b][0])
+        c[j] = (c[j] + step) % self.ms[j]
+        return self._index[tuple(c)]
+
+    def fits(self, shape) -> bool:
+        """Whether a tensor of ``shape`` broadcasts against the grid
+        ``(vdim, *grid)`` block by block: right-aligned, every grid axis of
+        the grid's length or 1."""
+        off = 1 + len(self.grid) - len(shape)
+        return off >= 0 and all(n in (1, self.grid[p + off - 1])
+                                for p, n in enumerate(shape) if p + off >= 1)
+
+    def index(self, shape, b: int) -> tuple:
+        """Block ``b``'s index into a tensor of ``shape`` (``fits``): its
+        range on every cut grid axis of the grid's length, the whole axis
+        elsewhere."""
+        sl = self.blocks[b][1]
+        off = 1 + len(self.grid) - len(shape)
+        idx = []
+        for p, n in enumerate(shape):
+            j = p + off - 1
+            idx.append(sl[j] if j >= 0 and self.cut[j] and n == self.grid[j] else slice(None))
+        return tuple(idx)
+
+    def owners(self, shape) -> list[int]:
+        """The blocks that hold each value of a block vector of ``shape``
+        once: all of them, but along a cut axis where the vector has length
+        1 only the first block."""
+        off = 1 + len(self.grid) - len(shape)
+        bcast = [j for j in range(len(self.grid))
+                 if self.cut[j] and (j + 1 - off < 0 or shape[j + 1 - off] == 1)]
+        return [b for b, (c, _, _) in enumerate(self.blocks) if all(c[j] == 0 for j in bcast)]
+
+
+_LAYOUTS: dict = {}
+
+
+def layout(decomp, grid, lead) -> Layout:
+    """The ``Layout`` of ``decomp`` (placed) on ``grid`` with the lead
+    device ``lead`` (made at first use, then the same object)."""
+    key = (decomp, tuple(int(n) for n in grid), _resolve(lead))
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = Layout(decomp, key[1], key[2])
+    return _LAYOUTS[key]
+
+
+class BlockTensor(torch.Tensor):
+    """A vector of the global ``shape`` held as one tensor per block of
+    ``placement`` (``parts``, each on its block's device); see the module
+    docstring."""
+
+    parts: tuple
+    placement: Layout
+
+    @staticmethod
+    def __new__(cls, parts, placement: Layout, shape):
+        t = torch.Tensor._make_wrapper_subclass(cls, tuple(shape), dtype=parts[0].dtype,
+                                                device=placement.lead, requires_grad=False)
+        t.parts = tuple(parts)
+        t.placement = placement
+        return t
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __repr__(self, *, tensor_contents=None):
+        devs = sorted({str(d) for d in self.placement.devices})
+        return (f"BlockTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"blocks={self.placement.ms}, devices={devs})")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        vecs = [t for t in _leaves(args, kwargs) if isinstance(t, BlockTensor)]
+        lay = vecs[0].placement
+        if any(v.placement is not lay for v in vecs):
+            raise ValueError("blocks: block vectors of two placements in one operation")
+        if func in _REDUCE:
+            out = _reduce(func, args, kwargs, lay)
+            if out is not NotImplemented:
+                return out
+        if (func in _BLOCKWISE or torch.Tag.pointwise in func.tags) \
+                and _mappable(func, args, kwargs, lay):
+            return _map(func, args, kwargs, lay)
+        return _fallback(func, args, kwargs, lay)
+
+
+# operations without the pointwise tag that run block by block all the same
+_BLOCKWISE = {
+    aten.clone.default, aten.detach.default, aten.copy_.default, aten.fill_.Scalar,
+    aten.fill_.Tensor, aten.zero_.default, aten.zeros_like.default, aten.ones_like.default,
+    aten.empty_like.default, aten.full_like.default, aten._to_copy.default,
+    aten.where.self_out,
+}
+_REDUCE = {aten.sum.default: torch.add, aten.sum.dim_IntList: torch.add,
+           aten.max.default: torch.maximum}
+
+
+def _leaves(args, kwargs):
+    """The arguments of an aten operation, lists opened (one level: the
+    schemas nest no deeper)."""
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, (list, tuple)):
+            yield from a
+        else:
+            yield a
+
+
+def _mutated(func, args, kwargs) -> list:
+    """The arguments ``func`` writes (an in-place operation's self, an
+    ``out=``)."""
+    out = []
+    for i, a in enumerate(func._schema.arguments):
+        if a.alias_info is not None and a.alias_info.is_write:
+            out.append(kwargs[a.name] if a.name in kwargs else args[i])
+    return out
+
+
+def _mappable(func, args, kwargs, lay: Layout) -> bool:
+    if func is aten._to_copy.default and kwargs.get("device") not in (None, lay.lead):
+        return False
+    if not all(isinstance(m, BlockTensor) for m in _mutated(func, args, kwargs)):
+        return False
+    return all(lay.fits(t.shape) for t in _leaves(args, kwargs)
+               if isinstance(t, torch.Tensor) and not isinstance(t, BlockTensor))
+
+
+def _map(func, args, kwargs, lay: Layout):
+    moved: dict = {}
+    parts = []
+    for b, (_, _, dev) in enumerate(lay.blocks):
+        def local(t, b=b, dev=dev):
+            if isinstance(t, BlockTensor):
+                return t.parts[b]
+            if not isinstance(t, torch.Tensor):
+                return t
+            idx = lay.index(t.shape, b)
+            key = (id(t), tuple((s.start, s.stop) for s in idx), dev)
+            if key not in moved:  # once per use and device
+                moved[key] = t[idx].to(dev)
+            return moved[key]
+
+        kw = {k: local(v) for k, v in kwargs.items()}
+        if "device" in kw:
+            kw["device"] = dev
+        parts.append(func(*[local(a) for a in args], **kw))
+    mutated = _mutated(func, args, kwargs)
+    if mutated:
+        return mutated[0] if len(mutated) == 1 else tuple(mutated)
+    tensors = [t for t in _leaves(args, {}) if isinstance(t, torch.Tensor)]
+    shape = tensors[0].shape
+    if torch.Tag.pointwise in func.tags and any(t.shape != shape for t in tensors):
+        shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    return BlockTensor(parts, lay, shape)
+
+
+def _reduce(func, args, kwargs, lay: Layout):
+    """A reduction over every grid axis: per-block partials combined on the
+    lead device in block order; NotImplemented for another one."""
+    x = args[0]
+    if not isinstance(x, BlockTensor) or any(
+            isinstance(t, torch.Tensor) for t in _leaves(args[1:], kwargs)):
+        return NotImplemented
+    if func is aten.sum.dim_IntList:
+        dims = args[1] if len(args) > 1 else kwargs.get("dim")
+        dims = {d % x.dim() for d in dims} if dims else set(range(x.dim()))
+        if not set(range(1, x.dim())) <= dims:
+            return NotImplemented
+    combine = _REDUCE[func]
+    acc = None
+    for b in lay.owners(x.shape):
+        p = func(x.parts[b], *args[1:], **kwargs).to(lay.lead)
+        acc = p if acc is None else combine(acc, p)
+    return acc
+
+
+def _fallback(func, args, kwargs, lay: Layout):
+    """Gather on the lead device, run there, scatter a grid-shaped result
+    back (and write back the block vectors the operation writes)."""
+    mutated = _mutated(func, args, kwargs)
+    if not mutated and any(r.alias_info is not None for r in func._schema.returns):
+        raise NotImplementedError(f"blocks: {func} would be a view of a block vector; gather it "
+                                  "first (blocks.gather)")
+    full: dict = {}
+
+    def gat(t):
+        if isinstance(t, BlockTensor):
+            if id(t) not in full:
+                full[id(t)] = gather(t)
+            return full[id(t)]
+        return t
+
+    out = func(*tree_map(gat, args), **tree_map(gat, kwargs))
+    for m in mutated:
+        if isinstance(m, BlockTensor):
+            for b, part in enumerate(m.parts):
+                part.copy_(full[id(m)][lay.index(m.shape, b)])
+    if mutated:
+        return mutated[0] if len(mutated) == 1 else tuple(mutated)
+    if func is aten._to_copy.default:
+        return out  # to another device: a plain tensor there
+
+    def back(t):
+        if (isinstance(t, torch.Tensor) and t.dim() == 1 + len(lay.grid) and t.device == lay.lead
+                and lay.fits(t.shape) and any(n > 1 for n in t.shape[1:])):
+            return scatter(t, lay)
+        return t
+
+    return tree_map(back, out)
+
+
+def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
+    """``t`` (a tensor on any device whose shape ``lay.fits``, of rank 1 +
+    the grid's) as a block vector of ``lay``: each block copied into its
+    own allocation on its device. A block vector of ``lay`` comes back as
+    it is."""
+    if isinstance(t, BlockTensor):
+        if t.placement is lay:
+            return t
+        t = gather(t)
+    shape = tuple(t.shape)
+    if len(shape) != 1 + len(lay.grid) or not lay.fits(shape):
+        raise ValueError(f"blocks: a {shape} tensor does not scatter over the grid {lay.grid}")
+    parts = []
+    for b, (_, _, dev) in enumerate(lay.blocks):
+        src = t[lay.index(shape, b)]
+        parts.append(torch.empty(src.shape, dtype=t.dtype, device=dev).copy_(src))
+    return BlockTensor(parts, lay, shape)
+
+
+def gather(x, count: bool = True) -> torch.Tensor:
+    """A block vector as one tensor on its lead device (anything else comes
+    back as it is); ``count``: add one to ``gathers`` (a solve's exit
+    gather does not count)."""
+    global gathers
+    if not isinstance(x, BlockTensor):
+        return x
+    if count:
+        gathers += 1
+    lay = x.placement
+    out = torch.empty(x.shape, dtype=x.dtype, device=lay.lead)
+    for b in lay.owners(x.shape):
+        out[lay.index(x.shape, b)].copy_(x.parts[b])
+    return out
+
+
+def via_lead(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` of a block vector computed on the lead device (one counted
+    gather) and scattered back; ``fn(x)`` of anything else."""
+    if not isinstance(x, BlockTensor):
+        return fn(x)
+    return scatter(fn(gather(x)), x.placement)
+
+
+def l2_per_dim(x: BlockTensor) -> torch.Tensor:
+    """Per-component 2-norm over the grid: per-block norms, their squares
+    summed on the lead device in block order, the root taken there."""
+    lay = x.placement
+    acc = None
+    for b in lay.owners(x.shape):
+        p = x.parts[b]
+        n = torch.linalg.vector_norm(p.reshape(p.shape[0], -1), dim=1)
+        sq = (n * n).to(lay.lead)
+        acc = sq if acc is None else acc + sq
+    return torch.sqrt(acc)
+
+
+def interior_mask(lay: Layout, slicer, dtype) -> BlockTensor:
+    """The 0/1 mask ``(1, *grid)`` of the index ranges ``slicer`` (one
+    slice of step 1 per grid axis), built block by block on each block's
+    device as the outer product of per-axis vectors (the values of
+    ``mesh.tools.interior_mask_device``; no global tensor is made)."""
+    parts = []
+    for _, sl, dev in lay.blocks:
+        m = None
+        for j, (s, bs) in enumerate(zip(slicer, sl)):
+            a0, a1, step = s.indices(lay.grid[j])
+            assert step == 1, "blocks.interior_mask: slices of step 1"
+            v = torch.zeros(bs.stop - bs.start, dtype=dtype, device=dev)
+            lo, hi = max(a0, bs.start), min(a1, bs.stop)
+            if hi > lo:
+                v[lo - bs.start:hi - bs.start] = 1.0
+            v = v.reshape([-1 if k == j else 1 for k in range(len(sl))])
+            m = v if m is None else m * v
+        parts.append(m.expand(tuple(s.stop - s.start for s in sl)).contiguous()[None])
+    return BlockTensor(parts, lay, (1, *lay.grid))
+
+
+def _face_part(v, sl, a: int, dev, lay: Layout):
+    """A BC value (a number, a 0-d tensor or a face tensor over the grid
+    axes other than ``a``) cut to the block at ``sl`` and on ``dev``."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    others = [j for j in range(len(lay.grid)) if j != a]
+    off = len(others) - v.dim()
+    idx = tuple(sl[others[p + off]] if lay.cut[others[p + off]]
+                and n == lay.grid[others[p + off]] else slice(None)
+                for p, n in enumerate(v.shape))
+    return v[idx].to(dev)
+
+
+def apply_bcs_fn(bcs, grid, lay: Layout, plain):
+    """``plain`` (``variables.bcs.apply_bcs_fn(bcs, grid)``) on a plain
+    tensor; on a block vector of ``lay``, each BC writes the face rows of
+    the blocks on its face, with its streamed values cut to the block and
+    moved to its device (one clone of the vector per call, none with
+    ``inplace``). Raises ``NotImplementedError`` for a BC whose value is
+    resolved per application (``per_iteration``) or a periodic face left
+    on a grid (the torus reduction takes periodic axes away), and
+    ``ValueError`` where a face's blocks are thinner than the rows its BC
+    reads and writes (Neumann 3, Symmetry 2, Dirichlet 1)."""
+    for bc in bcs:
+        a = bc.bc_face_dim
+        if bc.bc_type == "periodic":
+            raise NotImplementedError("blocks: a periodic face left on a placed grid (the "
+                                      "torus reduction takes periodic axes away)")
+        if not bc.streamable and bc.bc_type != "symmetry":
+            raise NotImplementedError("blocks: a BC value resolved per application "
+                                      "(per_iteration) on a placed decomposition is ported "
+                                      "in a later slice (ROADMAP.md A11h)")
+        rows = {"neumann": 3, "symmetry": 2}.get(bc.bc_type, 1)  # the rows a BC reads/writes
+        if lay.cut[a] and lay.grid[a] // lay.ms[a] < rows:
+            raise ValueError(f"blocks: the blocks along axis {a} are too thin for its "
+                             f"{bc.bc_type} rows")
+
+    def apply_all(x, bc_vals=None, inplace: bool = False):
+        if not isinstance(x, BlockTensor):
+            return plain(x, bc_vals, inplace)
+        if not inplace:
+            x = x.clone()
+        for i, bc in enumerate(bcs):
+            vals = None if bc_vals is None else bc_vals[i]
+            a = bc.bc_face_dim
+            edge = 0 if bc.bc_n_dir < 0 else lay.ms[a] - 1
+            for b, (coord, sl, dev) in enumerate(lay.blocks):
+                if coord[a] == edge:
+                    bvals = None if vals is None else tuple(_face_part(v, sl, a, dev, lay)
+                                                            for v in vals)
+                    bc.apply_(x.parts[b], grid, vals=bvals)
+        return x
+
+    return apply_all

@@ -4,12 +4,19 @@
 The JAX package is single-controller: one process drives every device,
 each device owns one contiguous block of the grid, and the stencil's
 neighbour reads become halo exchanges (``parallel/halo.py``). The port
-keeps that design in one process with one block per sub-domain. In this
-version every block lives on the solve's device: the blocks are views of
-the one global tensor, the halo exchange is a device copy, and each
-block's stencil is its own kernel launch on a halo-extended copy. Blocks
-on several cards are later work: a ``devices`` tuple that names another
-device raises ``NotImplementedError``.
+keeps that design in one process with one block per sub-domain, in two
+forms:
+
+* ``devices=None``: every block is a view of the one global tensor on the
+  solve's device; the halo exchange is a device copy and each block's
+  stencil is its own kernel launch on a halo-extended copy.
+* ``devices=(d0, d1, ...)`` (one per block, row-major block order, entries
+  may repeat): the decomposition is *placed*. Each block of every loop
+  vector of a solve is its own allocation on its device
+  (``parallel/blocks.py``, the counterpart of a ``NamedSharding``-committed
+  array): only the ghost faces move between blocks, reductions are summed
+  from per-block partials on the solve's device in block order, and each
+  block's kernel launches on its block's device.
 """
 from __future__ import annotations
 
@@ -18,6 +25,23 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+
+def _resolve(d) -> torch.device:
+    """``d`` as a device this machine has, with its index; raises
+    ``ValueError`` for one it lacks (nothing falls back to another
+    device)."""
+    d = torch.device(d)
+    if d.type == "cpu":
+        return torch.device("cpu")
+    if d.type != "cuda":
+        raise ValueError(f"DomainDecomposition: device {d} is not a CPU or CUDA device")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    idx = d.index if d.index is not None else (torch.cuda.current_device() if n else 0)
+    if idx >= n:
+        raise ValueError(f"DomainDecomposition: device cuda:{idx} does not exist (this machine "
+                         f"shows {n} CUDA device{'s' if n != 1 else ''})")
+    return torch.device("cuda", idx)
 
 
 @dataclass(frozen=True)
@@ -29,13 +53,18 @@ class DomainDecomposition:
             grid axis into 4 and the second into 2 blocks; ``1`` keeps an
             axis whole.
         axis_names: names of the block axes (default ``sx, sy, sz``).
-        devices: None, or one device per block; every entry must be the
-            solve's device (blocks on several devices are not ported yet).
+        devices: None (every block a view on the solve's device), or one
+            device per block in row-major block order (``blocks()``): the
+            placed decomposition. More entries than blocks take the first
+            ``n_devices`` (as the JAX package); fewer raise ``ValueError``,
+            and so does a device the machine lacks.
 
     Example:
         >>> dd = DomainDecomposition((4, 2, 1))
         >>> [sl for _, sl in dd.blocks((16, 16, 128))][1]
         (slice(0, 4, None), slice(8, 16, None), slice(0, 128, None))
+        >>> DomainDecomposition((2, 1), devices=("cpu", "cpu")).placed
+        True
     """
 
     mesh_shape: tuple[int, ...]
@@ -51,24 +80,29 @@ class DomainDecomposition:
             raise ValueError(f"DomainDecomposition: bad mesh_shape {self.mesh_shape} / "
                              f"axis_names {self.axis_names}")
         if self.devices is not None:
-            object.__setattr__(self, "devices", tuple(torch.device(d) for d in self.devices))
+            devs = tuple(self.devices)
+            if len(devs) < self.n_devices:  # JAX decomp.py:69-72
+                raise ValueError(f"DomainDecomposition: needs {self.n_devices} devices, "
+                                 f"have {len(devs)}")
+            object.__setattr__(self, "devices",
+                               tuple(_resolve(d) for d in devs[: self.n_devices]))
 
     @property
     def n_devices(self) -> int:
         return int(np.prod(self.mesh_shape))
 
+    @property
+    def placed(self) -> bool:
+        """Whether each block lives in its own allocation on its device."""
+        return self.devices is not None
+
     def check_device(self, device) -> None:
-        """Accept ``devices=None`` or devices that are all ``device`` (the
-        solve's); raise ``NotImplementedError`` for any other device."""
-        device = torch.device(device)
+        """The placement check of a solve on ``device`` (the lead device):
+        it and every block's device must exist on this machine (raises
+        ``ValueError`` otherwise). A placed block may sit on any device."""
+        _resolve(device)
         for d in self.devices or ():
-            same = d.type == device.type and (d.index is None or device.index is None
-                                              or d.index == device.index)
-            if not same:
-                raise NotImplementedError(
-                    f"DomainDecomposition: a block on {d} while the solve runs on {device}; "
-                    "blocks on several devices are ported in a later slice"
-                )
+            _resolve(d)
 
     def blocks(self, global_shape):
         """Yield ``(coord, slices)`` per block in row-major block order:
@@ -87,3 +121,10 @@ class DomainDecomposition:
         size = [n // m for n, m in zip(global_shape, ms)]
         for coord in itertools.product(*(range(m) for m in ms)):
             yield coord, tuple(slice(c * b, (c + 1) * b) for c, b in zip(coord, size))
+
+    def placement(self, global_shape) -> list:
+        """``[(coord, slices, device), ...]`` in row-major block order:
+        ``blocks()`` with each block's device (None where the
+        decomposition is not placed)."""
+        devs = self.devices or (None,) * self.n_devices
+        return [(c, sl, d) for (c, sl), d in zip(self.blocks(global_shape), devs)]

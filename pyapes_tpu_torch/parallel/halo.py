@@ -28,6 +28,17 @@ received ghosts, never the neighbour block.
   / ``conv_component`` kernels on each block with no surgery on cut axes,
   then the O(surface) ghost patches and the Neumann/periodic surgery at
   global rows 1 / -2 on the edge blocks, in the JAX package's order).
+
+On a placed decomposition (``devices`` given) the vector is a
+``blocks.BlockTensor`` and ``make_sharded_apply``'s apply works on its
+blocks, each on its own device (``placed_supported``): a block keeps its
+halo-extended buffer on its device and takes only the ghost faces of its
+ring neighbours (``exchange_block``; ``exchange_bytes`` counts the bytes
+moved between blocks, the counterpart of ``ppermute``'s traffic). 3-D: one
+``axis_stencil_ext`` launch per block into the block's own output, with
+the cut axes among the first two extended; a cut last axis wraps inside
+the block and is patched (``_patch_face_rows``). 2-D: the torus
+``axis_stencil`` per block and the patch, as above.
 """
 from __future__ import annotations
 
@@ -35,6 +46,14 @@ import torch
 
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
+from pyapes_tpu_torch.parallel.blocks import BlockTensor
+from pyapes_tpu_torch.utils.device_cache import block_coeffs
+
+exchange_bytes = 0
+"""Bytes of ghost faces copied from one block to another by the placed
+applies (a counter, like the kernels' ``launches``)."""
+placed_applies = 0
+"""Placed applies run (each launches one kernel per block)."""
 
 
 def halo_exchange(x: torch.Tensor, sl, axis: int) -> tuple:
@@ -175,6 +194,8 @@ def make_sharded_apply(decomp, ndim_mesh: int):
     buffers: dict = {}  # the apply's halo-extended buffers, one per shape and dtype
 
     def apply(coeffs, x):
+        if isinstance(x, BlockTensor):
+            return _apply_placed(coeffs, x, ndim_mesh, buffers)
         out = torch.empty_like(x)
         for _, sl in decomp.blocks(x.shape[1:]):
             cs = _block_coeffs(coeffs, sl)
@@ -190,6 +211,96 @@ def make_sharded_apply(decomp, ndim_mesh: int):
         return out
 
     return apply
+
+
+# -- placed decompositions: blocks on their own devices ------------------------
+
+
+def placed_supported(decomp, global_shape) -> bool:
+    """Whether the placed apply runs this decomposition: a 2-D or 3-D grid,
+    every axis divisible into its blocks, at least 2 nodes per block on a
+    cut axis (distinct first and last rows for the patch) and, in 2-D, at
+    least 3 on every axis (the torus kernel's minimum). A cut last axis is
+    taken (its ghost faces are strided columns): the blocks hold their own
+    memory, so nothing constrains the cut as the JAX package's TPU tiling
+    does."""
+    nd = len(global_shape)
+    ms = tuple(decomp.mesh_shape) + (1,) * (nd - len(decomp.mesh_shape))
+    if nd not in (2, 3) or len(ms) != nd or any(s % m for s, m in zip(global_shape, ms)):
+        return False
+    local = tuple(s // m for s, m in zip(global_shape, ms))
+    if any(n < 2 for n, m in zip(local, ms) if m > 1):
+        return False
+    return nd == 3 or min(local) >= 3
+
+
+def _ghost_faces(x: BlockTensor, b: int, j: int) -> tuple:
+    """``(lo, hi)`` ghost faces of block ``b`` along grid axis ``j``: the
+    lower ring neighbour's last row and the upper one's first row (views
+    on the neighbours' devices)."""
+    lay = x.placement
+    lo = x.parts[lay.neighbour(b, j, -1)]
+    hi = x.parts[lay.neighbour(b, j, 1)]
+    return lo.narrow(1 + j, lo.shape[1 + j] - 1, 1), hi.narrow(1 + j, 0, 1)
+
+
+def _count(*faces) -> None:
+    global exchange_bytes
+    exchange_bytes += sum(f.numel() * f.element_size() for f in faces)
+
+
+def exchange_block(x: BlockTensor, b: int, ext, buffers: dict) -> torch.Tensor:
+    """The placed counterpart of ``exchange``: block ``b`` of the block
+    vector ``x`` copied into the halo-extended buffer of its shape, dtype
+    and device in ``buffers`` (on the block's device; made at first use),
+    and per axis with ``ext[j] == 1`` the two ghost faces of its ring
+    neighbours copied in from their devices (``exchange_bytes``); returns
+    the buffer."""
+    xb = x.parts[b]
+    shape = (xb.shape[0],) + tuple(n + 2 * e for n, e in zip(xb.shape[1:], ext))
+    key = (shape, xb.dtype, xb.device)
+    if key not in buffers:
+        buffers[key] = torch.zeros(shape, dtype=xb.dtype, device=xb.device)
+    buf = buffers[key]
+    inner = [slice(None)] + [slice(e, e + n) for n, e in zip(xb.shape[1:], ext)]
+    buf[tuple(inner)] = xb
+    for j, e in enumerate(ext):
+        if e:
+            lo, hi = _ghost_faces(x, b, j)
+            buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = lo
+            buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = hi
+            _count(lo, hi)
+    return buf
+
+
+def _apply_placed(coeffs, x: BlockTensor, ndim_mesh: int, buffers: dict) -> BlockTensor:
+    """``A x`` of a block vector, block by block on each block's device,
+    into the blocks' own outputs (see the module docstring); the
+    coefficient vectors cut to each block and on its device come from
+    ``device_cache.block_coeffs``."""
+    global placed_applies
+    lay = x.placement
+    per_block = block_coeffs(coeffs, lay)
+    cut = lay.cut
+    outs = []
+    for b, (_, _, dev) in enumerate(lay.blocks):
+        cs, xb = per_block[b], x.parts[b]
+        if ndim_mesh == 3:
+            ext = (int(cut[0]), int(cut[1]), 0)
+            ob = axis_stencil_ext(cs, exchange_block(x, b, ext, buffers), ext)
+            patch = [2] if cut[2] else []
+        else:
+            ob = axis_stencil(cs, xb)
+            patch = [j for j in range(2) if cut[j]]
+        ghosts = []
+        for j in patch:
+            lo, hi = _ghost_faces(x, b, j)
+            _count(lo, hi)
+            ghosts.append((j, lo.to(dev), hi.to(dev)))
+        _patch_face_rows(ob, xb, cs, ghosts)
+        outs.append(ob)
+    placed_applies += 1
+    return BlockTensor(outs, lay, x.shape)
 
 
 # -- block-wise per-point advection (Div / Conv) -----------------------------

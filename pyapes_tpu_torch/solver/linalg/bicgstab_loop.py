@@ -12,6 +12,8 @@ iteration of a solve that exits early. As in the JAX package, a residual
 blow-up past 1e3 times the best tolerance seen ends the loop (BiCGSTAB
 breaks down once it reaches its attainable accuracy), and the best iterate
 is returned. Tolerances are held in float64, as the host compared them.
+Under a placed decomposition the same loop runs on block vectors, as CG's
+(``cg_loop.py``).
 """
 from __future__ import annotations
 

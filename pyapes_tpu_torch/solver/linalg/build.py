@@ -14,7 +14,16 @@ terms where ``sharded_advect_supported`` holds, and the fused alpha-dot is
 off; everything else (5-point axes, the variable-Γ apply, ddt, the
 fastdiag transforms and the FD preconditioner) runs on the whole tensor,
 which is what GSPMD computes for it. The fastdiag residual uses the same
-operator, so a decomposed fastdiag solve applies it block-wise too."""
+operator, so a decomposed fastdiag solve applies it block-wise too.
+
+Under a placed decomposition (``decomp.placed``: blocks on their own
+devices, the loop vectors ``parallel.blocks.BlockTensor``) the 3-point
+axis terms apply block by block wherever ``placed_supported`` holds, and
+through one counted gather on the lead device elsewhere; the active-set
+mask is built block by block, the BCs write the face rows of the blocks on
+their faces, and the symmetrizing row scale and the null vector of a
+singular system are block vectors too. ``dispatch.py`` raises for the
+options outside this path."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -28,9 +37,11 @@ from pyapes_tpu_torch.mesh.tools import interior_mask_device
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_dot
 from pyapes_tpu_torch.ops.diff_field import diff_field
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.halo import (
     make_sharded_advect_apply,
     make_sharded_apply,
+    placed_supported,
     sharded_advect_supported,
     sharded_supported,
 )
@@ -63,14 +74,19 @@ class _MaskSpec:
     solve call: the interior of ``slicer`` without the cells of the static
     obstacle BCs ``static`` (each keeps its mask on the device) and
     without the cells of the dynamic obstacles at ``dyn_idxs``, whose
-    masks arrive per call in ``bc_vals`` (JAX ``linalg.py:39-63``)."""
+    masks arrive per call in ``bc_vals`` (JAX ``linalg.py:39-63``). With
+    ``layout`` (a placed decomposition, no obstacles): a block vector
+    ``(1, *nx)`` built block by block."""
 
-    def __init__(self, nx, slicer, dtype, device, static=(), dyn_idxs=()):
+    def __init__(self, nx, slicer, dtype, device, static=(), dyn_idxs=(), layout=None):
         self.nx, self.slicer, self.dtype, self.device = nx, slicer, dtype, device
         self.static = tuple(static)
         self.dyn_idxs = tuple(dyn_idxs)
+        self.layout = layout
 
     def build(self, bc_vals=()) -> torch.Tensor:
+        if self.layout is not None:
+            return blocks.interior_mask(self.layout, self.slicer, self.dtype)
         m = interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
         for bc in self.static:
             m = m.masked_fill(bc.mask_on(self.device), 0.0)
@@ -129,6 +145,18 @@ def _decomp_fns(decomp, x0, term_descs) -> dict:
     if decomp is None:
         return {}
     shape = tuple(x0.shape[1:])
+    if decomp.placed:
+        # block by block where the placed apply takes the grid (and the
+        # axes are 3-point), else through the lead device (counted gathers)
+        blockwise = (make_sharded_apply(decomp, len(shape))
+                     if placed_supported(decomp, shape) else None)
+
+        def placed_fn(coeffs, x):
+            if blockwise is None or any(len(cs) == 5 for cs in coeffs):
+                return blocks.via_lead(lambda v: axis_stencil(coeffs, v), x)
+            return blockwise(coeffs, x)
+
+        return {"stencil_fn": placed_fn}
     fns = {}
     if sharded_supported(decomp, shape):
         blockwise = make_sharded_apply(decomp, len(shape))
@@ -164,15 +192,17 @@ def _neumann_row_scale_vecs(nx, bcs) -> tuple[list[np.ndarray], bool]:
     return dvs, any_scale
 
 
-def _null_shift_field(vecs, device):
+def _null_shift_field(vecs, device, layout=None):
     """Deferred ``(1, *nx)`` row-scale field, composed per call from the
-    per-axis vectors."""
-    vecs = tuple(device_array(v, device=device) for v in vecs)
+    per-axis vectors (block vectors of ``layout`` when given)."""
+    vecs = tuple(device_array(v, device=device)[None] for v in vecs)
+    if layout is not None:
+        vecs = tuple(blocks.scatter(v, layout) for v in vecs)
 
     def build():
         ns = None
         for v in vecs:
-            ns = v[None] if ns is None else ns * v[None]
+            ns = v if ns is None else ns * v
         return ns
 
     return build
@@ -396,8 +426,12 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
                 static.append(bc)
     obn = tuple(bc for bc in bcs if bc.bc_type == "obstacle_neumann")
     obstacles = bool(static or dyn_idxs)
-    M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device, static, dyn_idxs)
+    lay = (blocks.layout(decomp, x0.shape[1:], x0.device)
+           if decomp is not None and decomp.placed else None)
+    M = _MaskSpec(tuple(x0.shape[1:]), slicer, x0.dtype, x0.device, static, dyn_idxs, lay)
     apply_bcs = apply_bcs_fn(bcs, grid)
+    if lay is not None:
+        apply_bcs = blocks.apply_bcs_fn(bcs, grid, lay, apply_bcs)
     Aop = raw_Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs))
     if obn:
         def Aop(v, tp):
@@ -449,10 +483,14 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             for v in _axis_fields(dvs, mesh.dim, x0.dtype)
         )
         obs_Aop = Aop
+        # the dispatch scales the global RHS; the operator, the vectors of
+        # its input's placement
+        row_scale = (sym_vecs if lay is None
+                     else tuple(blocks.scatter(d, lay) for d in sym_vecs))
 
         def Aop(v, tp):
             out = obs_Aop(v, tp)
-            for d in sym_vecs:
+            for d in row_scale:
                 out = out * d
             return out
 
@@ -493,7 +531,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
                    else None)
     null_shift = None
     if sym_vecs is not None:
-        null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
+        null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device, lay)
     fn = build_cg(
         Aop, apply_bcs, M, tol, max_it, criterion, precond,
         project_mean=project_mean, Aop_dot=Aop_dot, fmg_init=fmg_init,

@@ -12,7 +12,11 @@ this is MG-PCG; ``precond_dot`` fuses ``dot(r, z)`` into the V-cycle's last
 smooth and ``Aop_dot`` fuses ``dot(d, A d)`` into the stencil apply. BCs
 are applied on entry and at exit only: every search direction is
 interior-masked, so boundary values are invariant and unread inside the
-loop.
+loop. Under a placed decomposition the vectors are block vectors
+(``parallel/blocks.py``) and the same loop runs on them: each operation
+block by block on each block's device, the dots summed from per-block
+partials on the lead device (where ``loop_state`` lives and the stop
+test's one read per iteration happens).
 """
 from __future__ import annotations
 

@@ -15,9 +15,15 @@ coefficients, 3- or 5-point: laplacian, div, grad), ``diff_field``
 advection), ``custom`` (``fdm.custom``: a linear torch function; its
 ``fd_hint`` feeds ``precond: "fd"``; not on periodic axes) and ``ddt``,
 on Cartesian and axisymmetric (rz) grids; with a
-domain decomposition (``decomp``: a ``DomainDecomposition`` whose blocks
-all live on the solve's device) the axis and advection terms apply block
-by block (``build.py``). Immersed obstacles (``ObstacleDirichlet``,
+domain decomposition (``decomp``: a ``DomainDecomposition``) the axis and
+advection terms apply block by block (``build.py``). A placed
+decomposition (``devices`` given: each block on its own device) runs CG
+and BiCGSTAB, unpreconditioned or with ``precond: "mg"``, on block vectors
+(``parallel/blocks.py``): ``x0`` and the RHS are scattered to the blocks
+at entry (the JAX package's ``_commit_to_decomp``) and the solution is
+gathered back into the Field at exit; every other option raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item
+(``_check_placed``). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
 torus reduction their masks are reduced too, every call, and a body on
 the duplicate seam plane raises. The multigrid hierarchy of a periodic
@@ -30,8 +36,9 @@ plain tier on the card), ``debug: "nan"`` (the loop on the host under
 ``utils.debug``'s NaN check, ``NaNError`` naming the first operation or
 hand kernel whose output holds a NaN; a ValueError inside a fused whole
 step, as the JAX package) and ``donate`` (the solution in the initial
-guess's storage, an eager solve off the torus). Blocks on several devices
-raise ``NotImplementedError`` — never a silent detour to another path.
+guess's storage, an eager solve off the torus). An option a placed
+decomposition does not take raises ``NotImplementedError`` — never a
+silent detour to another path.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from pyapes_tpu_torch.mesh.tools import boundary_slicer
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
 from pyapes_tpu_torch.solver.fastdiag import _symmetrize_similarity, axis_matrix_np, fd_options
 from pyapes_tpu_torch.solver.fdm import ddt_leading_coeff
@@ -225,9 +233,10 @@ def _reduce_obstacles(bcs, paxes, dim: int) -> list:
 
 
 def _check_decomp(decomp, x0) -> None:
-    """A decomposition must be a ``DomainDecomposition`` with its blocks on
-    the solve's device, and each cut axis of the (torus-reduced) grid must
-    divide into its blocks (``linalg.py::_commit_to_decomp``)."""
+    """A decomposition must be a ``DomainDecomposition`` whose devices exist
+    (``check_device``, the placement check), and each cut axis of the
+    (torus-reduced) grid must divide into its blocks
+    (``linalg.py::_commit_to_decomp``)."""
     if not isinstance(decomp, DomainDecomposition):
         raise TypeError(f"linalg: config 'decomp' must be a DomainDecomposition, got {decomp!r}")
     decomp.check_device(x0.device)
@@ -241,6 +250,34 @@ def _check_decomp(decomp, x0) -> None:
                 f"periodic de-duplication), not divisible by {nd} devices. Choose node counts "
                 "divisible by the device count (periodic axes: 2^k + 1 nodes reduce to 2^k)."
             )
+
+
+def _check_placed(config, method, term_descs, bcs, x0, sync, debug) -> None:
+    """Raise ``NotImplementedError`` for what a placed decomposition does not
+    take yet, each naming its ``ROADMAP.md`` item."""
+    def later(what, item):
+        raise NotImplementedError(f"linalg: {what} on a placed decomposition (blocks on their "
+                                  f"own devices) is ported in a later slice (ROADMAP.md {item})")
+
+    kinds = {d[0] for d in term_descs}
+    if method == "fastdiag":
+        later("method 'fastdiag'", "A11c")
+    if config.get("precond") in ("fd", "fastdiag"):
+        later("precond 'fd'", "A11c")
+    if "diff_field" in kinds:
+        later("a variable-Γ term", "A11d")
+    if kinds & {"div_field", "conv_field"}:
+        later("a Div/Conv term", "A11d")
+    if not sync or capturing(x0.device) or in_whole_step():
+        later("sync: False or a fused step", "A11f")
+    if "custom" in kinds:
+        later("an fdm.custom term", "A11h")
+    if any(bc.bc_type in ("obstacle_dirichlet", "obstacle_neumann") for bc in bcs):
+        later("an immersed obstacle", "A11h")
+    if config.get("donate"):
+        later("donate", "A11h")
+    if debug:
+        later("debug 'nan'", "A11h")
 
 
 def _check_config(config) -> None:
@@ -322,6 +359,12 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     if method == "fastdiag" and config.get("fd_fallback"):
         method = _fd_fallback_method(config, term_descs, tparams, slicer, paxes, mesh, bcs)
 
+    sync = config.get("sync", True) is not False
+    debug = config.get("debug") == "nan"
+    placed = decomp is not None and decomp.placed
+    if placed:
+        _check_placed(config, method, term_descs, bcs, x0, sync, debug)
+
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
         config.get("criterion", "delta"), tol, max_it, slicer, paxes, decomp,
@@ -337,8 +380,6 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             rhs = rhs * d
 
     bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
-    sync = config.get("sync", True) is not False
-    debug = config.get("debug") == "nan"
     graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
                and not use_host_loops() and not debug)
     # donate: the loop works in the initial guess's storage (an eager solve
@@ -348,7 +389,15 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         paxes or graphed or capturing(x0.device) or in_whole_step() or not x0.is_contiguous())
 
     def run(x0, rhs, tparams, bc_vals):
-        x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)
+        if placed:
+            # x0 and the RHS committed to the blocks, the solution gathered
+            # back on the lead device (neither counts among blocks.gathers)
+            lay = blocks.layout(decomp, x0.shape[1:], x0.device)
+            xb, itr, tol_dev, hist = fn(blocks.scatter(x0, lay), blocks.scatter(rhs, lay),
+                                        tparams, bc_vals)
+            x = blocks.gather(xb, count=False)
+        else:
+            x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)
         for j in paxes:  # re-append the duplicate seam node
             x = torch.cat([x, x.narrow(1 + j, 0, 1)], dim=1 + j)
         return x, itr, tol_dev, hist

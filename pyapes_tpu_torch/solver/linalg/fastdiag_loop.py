@@ -15,9 +15,12 @@ from __future__ import annotations
 import torch
 
 from pyapes_tpu_torch.ops.graph_loop import loop_record, while_loop
+from pyapes_tpu_torch.parallel.blocks import BlockTensor, l2_per_dim
 
 
 def _l2_per_dim(x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, BlockTensor):  # per-block norms, combined on the lead device
+        return l2_per_dim(x)
     return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
 
 

@@ -52,6 +52,17 @@ block through the halo-extended kernel (``make_sharded_apply``); coarser
 levels take the global axis-stencil kernel. Variable-Γ hierarchies drop
 the decomposition.
 
+Under a placed decomposition (blocks on their own devices) a level where
+``parallel.halo.placed_supported`` holds keeps its vectors as block
+vectors (``parallel.blocks.BlockTensor``): its mask, row scales, diagonal
+and parity are block vectors, its operator applies block by block on each
+block's device, and the smoothers' elementwise work runs per block. The
+transfers gather the fine or coarse vector on the solve's device (counted
+in ``blocks.gathers``), resize it there and scatter it to the next level
+when that level is placed; the levels the gate rejects run on the solve's
+device. ``vcycles`` and ``cycle_gathers`` count the preconditioner's
+V-cycles and the gathers inside them.
+
 All device constants of the hierarchy (masks, coefficient vectors,
 diagonals, transfer matrices) are built once per spec and cached, so a
 V-cycle makes no host-to-device copy — the PCG loop's only host sync
@@ -84,8 +95,14 @@ from pyapes_tpu_torch.ops.axis_stencil import axis_stencil
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
 from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2
 from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node, diff_diag
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
-from pyapes_tpu_torch.parallel.halo import make_sharded_apply, sharded_supported
+from pyapes_tpu_torch.parallel.halo import make_sharded_apply, placed_supported, sharded_supported
+
+vcycles = 0
+"""V-cycles run as a preconditioner (a counter)."""
+cycle_gathers = 0
+"""``blocks.gathers`` made inside those V-cycles (a counter)."""
 
 
 @lru_cache(maxsize=None)
@@ -145,9 +162,10 @@ class MGSpec:
         cycle_dtype: V-cycle dtype (default: ``dtype``), e.g. "bfloat16".
         face_kinds: per axis ``(lower, upper)`` of "dirichlet"/"neumann".
         device: where the cycle runs: the device of the solve's vectors
-            (required; there is no default device).
-        decomp: a ``DomainDecomposition`` (all blocks on ``device``), or
-            None.
+            (required; there is no default device); under a placed
+            decomposition, the lead device of its blocks.
+        decomp: a ``DomainDecomposition`` (blocks as views on ``device``,
+            or placed on their own devices), or None.
         var_gamma: variable-Γ level operators (``set_gamma`` before the
             cycle), with ``vg_avg`` ("arithmetic"/"harmonic") face values.
         The other knobs are the JAX package's (``n_pre``, ``n_post``,
@@ -199,6 +217,7 @@ class MGSpec:
             fuse_rz = False  # the dot kernels hard-code the Cartesian stencil
         self.decomp = decomp
         self._sharded_applies: dict = {}
+        self._layouts: dict = {}
         self._g_levels = None
         self._gd_levels = None
         self.shape = tuple(shape)
@@ -394,11 +413,35 @@ class MGSpec:
     def _tensor(self, a):
         return torch.as_tensor(a, dtype=self.cdtype, device=self.device)
 
+    def _placement(self, shape):
+        """The ``blocks.Layout`` of a placed level (a placed decomposition
+        whose block-wise apply takes the level), else None."""
+        shape = tuple(shape)
+        if self.decomp is None or not self.decomp.placed:
+            return None
+        if shape not in self._layouts:
+            self._layouts[shape] = (blocks.layout(self.decomp, shape, self.device)
+                                    if placed_supported(self.decomp, shape) else None)
+        return self._layouts[shape]
+
+    def _on_level(self, v, shape):
+        """``v`` in the level's form: scattered to a placed level, gathered
+        (counted) for a level on the solve's device (a plain ``v`` there
+        comes back as it is)."""
+        lay = self._placement(shape)
+        if lay is not None:
+            return blocks.scatter(v, lay)
+        return blocks.gather(v)
+
     def _mask(self, shape):
         """The level's active nodes: the interior, every node of a periodic
         axis."""
         slicer = tuple(slice(None) if j in self.paxes else slice(1, -1)
                        for j in range(len(shape)))
+        lay = self._placement(shape)
+        if lay is not None:
+            return self._const(("mask", shape), lambda: blocks.interior_mask(
+                lay, slicer, self.cdtype))
         return self._const(("mask", shape), lambda: interior_mask_device(
             shape, slicer, self.cdtype, self.device)[None])
 
@@ -418,7 +461,7 @@ class MGSpec:
                 v = self._tensor(self._dvec_np(n, j)).reshape(
                     tuple(-1 if k == j else 1 for k in range(len(shape))))
                 out = v if out is None else out * v
-            return out[None]
+            return self._on_level(out[None], shape)
 
         return self._const(("dfield", shape), make)
 
@@ -464,7 +507,7 @@ class MGSpec:
                     (1,) + tuple(-1 if k == j else 1 for k in range(len(shape))))
                 for j, n in enumerate(shape)
             )
-            return (ids % 2).expand((1, *shape))
+            return self._on_level((ids % 2).expand((1, *shape)), shape)
 
         return self._const(("parity", shape), make)
 
@@ -507,9 +550,10 @@ class MGSpec:
         if self.decomp is None:
             return None
         if shape not in self._sharded_applies:
+            gate = placed_supported if self.decomp.placed else sharded_supported
             self._sharded_applies[shape] = (
                 make_sharded_apply(self.decomp, len(shape))
-                if sharded_supported(self.decomp, shape) else None)
+                if gate(self.decomp, shape) else None)
         return self._sharded_applies[shape]
 
     def _apply_A(self, x, shape):
@@ -699,7 +743,10 @@ class MGSpec:
     def _resize(self, x, shape):
         """Per-axis transfers to ``shape``: O(n) slices on exactly-2x
         pairs with ``transfers="strided"``, matrix products (in the cycle
-        dtype) otherwise. Returns a contiguous tensor."""
+        dtype) otherwise. Returns a contiguous tensor; under a placed
+        decomposition, gathered on the solve's device and returned in the
+        target level's form (``_on_level``)."""
+        x = blocks.gather(x)
         for j, n_t in enumerate(shape):
             n_s = x.shape[1 + j]
             if n_s == n_t:
@@ -712,7 +759,7 @@ class MGSpec:
                 )
                 continue
             x = self._contract(x, self._tmat(n_s, n_t, j), j)
-        return x.contiguous()
+        return self._on_level(x.contiguous(), shape)
 
     @staticmethod
     def _contract(x, M, j):
@@ -738,6 +785,7 @@ class MGSpec:
 
     def _vcycle(self, b, level):
         shape = self.shapes[level]
+        b = self._on_level(b, shape)
         mask = self._mask(shape)
         b = self._demean(b * mask, mask, shape)
         if level == len(self.shapes) - 1:
@@ -786,7 +834,7 @@ class MGSpec:
         the coarsest level, then prolong upward with ``n_cycles`` V-cycle
         corrections per level (an initial guess, ~1.15 V-cycles)."""
         L = len(self.shapes)
-        bs = [b]
+        bs = [self._on_level(b, self.shapes[0])]
         for lvl in range(1, L):
             bs.append(self._resize(bs[-1], self.shapes[lvl]))
         shape = self.shapes[-1]
@@ -806,7 +854,7 @@ class MGSpec:
         self._prepare()
 
         def init(r):
-            return self.fmg(r.to(self.cdtype), self.fmg_cycles).to(r.dtype)
+            return _like(self.fmg(r.to(self.cdtype), self.fmg_cycles).to(r.dtype), r)
 
         return init
 
@@ -817,7 +865,12 @@ class MGSpec:
         self._prepare()
 
         def precond(r):
-            return self._vcycle(r.to(self.cdtype), 0).to(r.dtype)
+            global vcycles, cycle_gathers
+            g0 = blocks.gathers
+            z = _like(self._vcycle(r.to(self.cdtype), 0).to(r.dtype), r)
+            vcycles += 1
+            cycle_gathers += blocks.gathers - g0
+            return z
 
         return precond
 
@@ -833,3 +886,11 @@ class MGSpec:
             return z.to(r.dtype), dots.to(r.dtype)
 
         return precond
+
+
+def _like(z, r):
+    """The cycle's output ``z`` in the form of its input ``r``: scattered
+    to ``r``'s blocks, or gathered (counted) for a plain ``r``."""
+    if isinstance(r, blocks.BlockTensor):
+        return blocks.scatter(z, r.placement)
+    return blocks.gather(z)

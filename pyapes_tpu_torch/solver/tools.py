@@ -82,9 +82,11 @@ class FDMSolverConfig(TypedDict, total=False):
     decomp: DomainDecomposition
     """Domain decomposition (``pyapes_tpu_torch.parallel``): the axis and
     advection operators apply block by block with a halo exchange, the MG
-    levels too; every block on the solve's device. Anything else (e.g. a
-    dict) raises ``TypeError``; a block on another device raises
-    ``NotImplementedError``."""
+    levels too; with ``devices`` (placed) each block of the loop vectors
+    lives on its own device, for CG and BiCGSTAB (plain or with
+    ``precond: "mg"``); other options raise ``NotImplementedError`` there.
+    Anything else than a ``DomainDecomposition`` (e.g. a dict) raises
+    ``TypeError``; a device the machine lacks raises ``ValueError``."""
 
 
 class SolverConfig(TypedDict, total=False):

@@ -23,6 +23,10 @@ from pyapes_tpu_torch.ops.graph_loop import keep_alive
 _CACHE: OrderedDict = OrderedDict()
 _CACHE_MAX = 512
 _BY_ID: dict = {}
+# per-block coefficient slices of a placed decomposition, by the vectors'
+# identities (held) and the placement
+_BLOCKS: OrderedDict = OrderedDict()
+_BLOCKS_MAX = 64
 
 
 def _capturing(device) -> bool:
@@ -48,6 +52,7 @@ def clear() -> None:
     """Drop every cached constant (a graph keeps those it reads)."""
     _CACHE.clear()
     _BY_ID.clear()
+    _BLOCKS.clear()
 
 
 def device_array(a, dtype=None, device=None) -> torch.Tensor:
@@ -76,3 +81,24 @@ def device_coeffs(coeffs, device, dtype) -> tuple:
 def is_constant(t) -> bool:
     """Whether ``t`` is one of the cached constants (the same object)."""
     return _BY_ID.get(id(t)) is t
+
+
+def block_coeffs(coeffs, layout) -> list:
+    """Per block of ``layout`` (a placed decomposition's ``blocks.Layout``),
+    the per-axis coefficient vectors ``coeffs`` (1-D, global) cut to the
+    block's index ranges and on the block's device, as frozen tuples: made
+    at the first call of these vectors (by identity; the source vectors are
+    held, so no identity is reused while the entry lives) on this
+    placement, then the same objects (each block's kernel keeps its launch
+    plan). Least recently used out beyond ``_BLOCKS_MAX``."""
+    key = (tuple(id(c) for cs in coeffs for c in cs), id(layout))
+    hit = _BLOCKS.get(key)
+    if hit is None:
+        per = [tuple(tuple(c[s].to(dev).contiguous() for c in cs) for cs, s in zip(coeffs, sl))
+               for _, sl, dev in layout.blocks]
+        hit = (coeffs, layout, per)
+        _BLOCKS[key] = hit
+        while len(_BLOCKS) > _BLOCKS_MAX:
+            _BLOCKS.popitem(last=False)
+    _BLOCKS.move_to_end(key)
+    return hit[2]

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """A domain-decomposed Poisson solve through the PyTorch port (the port of
 ``demos/sharded_poisson.py``): the same MG-PCG solve undecomposed and in
-blocks, the decomposition ONE config entry. Every block lives on the one
-device: the stencil's neighbour reads become halo copies and each block is
-its own launch of the halo-extended kernel on the card.
+blocks, the decomposition ONE config entry. Each decomposition runs twice:
+as views of one tensor on the solve's device, and placed, each block its
+own allocation on its device, round robin over every card the machine
+shows with ``--device cuda`` (as the JAX demo uses every device
+``jax.devices()`` shows; on the CPU every block on the CPU). The stencil's
+neighbour reads become halo copies (of the ghost faces alone when placed)
+and each block is its own launch of the halo-extended kernel on its card.
 
     python scripts/sharded_poisson_torch.py [--device cuda] [--json]
 
@@ -54,6 +58,19 @@ def solve(n: int, device: str, decomp=None):
     return var()[0], rep, t.elapsed
 
 
+def placed_devices(device: str, shape) -> tuple:
+    """One device per block: round robin over every card the machine shows
+    (``device`` "cuda"), else ``device`` for every block."""
+    import numpy as np
+    import torch
+
+    n = int(np.prod(shape))
+    if str(device).startswith("cuda"):
+        k = torch.cuda.device_count()
+        return tuple(f"cuda:{i % k}" for i in range(n))
+    return (device,) * n
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="decomposed Poisson (port of "
                                              "demos/sharded_poisson.py)")
@@ -70,13 +87,17 @@ def main(argv=None) -> dict:
     print(f"single        : itr={rep0['itr']} tol={rep0['tol']:.2e} wall {wall0:.3f}s")
     rows, gate = [], {}
     for shape in DECOMPS:
-        x, rep, wall = solve(args.n, args.device, DomainDecomposition(shape))
-        err = (x - ref).abs().max().item()
-        print(f"decomp {shape}: itr={rep['itr']} tol={rep['tol']:.2e} "
-              f"max|diff vs single|={err:.2e} wall {wall:.3f}s", flush=True)
-        rows.append({"decomp": list(shape), "itr": rep["itr"], "tol": rep["tol"],
-                     "max_abs_diff": err, "wall_s": wall})
-        gate[f"{shape}: max|diff vs single| < 1e-8"] = err < 1e-8
+        for layout, devs in (("views", None), ("placed", placed_devices(args.device, shape))):
+            dd = DomainDecomposition(shape, devices=devs)
+            x, rep, wall = solve(args.n, args.device, dd)
+            err = (x - ref).abs().max().item()
+            print(f"decomp {shape} {layout:6s}: itr={rep['itr']} tol={rep['tol']:.2e} "
+                  f"max|diff vs single|={err:.2e} wall {wall:.3f}s", flush=True)
+            rows.append({"decomp": list(shape), "layout": layout,
+                         "devices": None if devs is None else [str(d) for d in dd.devices],
+                         "itr": rep["itr"], "tol": rep["tol"], "max_abs_diff": err,
+                         "wall_s": wall})
+            gate[f"{shape} {layout}: max|diff vs single| < 1e-8"] = err < 1e-8
     out = {"demo": "sharded_poisson", "n": args.n, "dtype": "single",
            "single": {"itr": rep0["itr"], "tol": rep0["tol"], "wall_s": wall0},
            "decomposed": rows, "card": gpu, "gate": gate}

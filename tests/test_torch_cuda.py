@@ -1798,3 +1798,107 @@ def test_cuda_kernel_pallas_equals_auto(cuda):
     assert got["auto"][1:] == got["pallas"][1:] and sum(got["auto"][2]) > 0
     with pytest.raises(NotImplementedError):
         prob.solve({**cfg, "kernel": "jnp"})
+
+
+# -- placed decompositions: blocks on their own devices --------------------
+
+
+def _placed_solve(dev, nx, cfg, decomp=None, seed=0):
+    """``-lap x = b`` in f64 on the unit box ``nx`` (homogeneous Dirichlet,
+    seeded random RHS) with the Field on ``dev``: the solution on the CPU,
+    the report."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[(slice(0, 1),) * len(nx)], None, list(nx), device=str(dev), dtype="double")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(len(nx), 0.0, "dirichlet"),
+                               "obstacle": None}, init_val=0.0)
+    rhs = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, *nx))).to(dev)
+    if decomp is not None:
+        cfg = {**cfg, "decomp": decomp}
+    s = Solver({"fdm": {"report": False, **cfg}})
+    s.set_eq(FDM().laplacian(1.0, var) == rhs)
+    rep = s.solve()
+    return var()[0].cpu(), rep
+
+
+# tol 1e-8 in f64, well above the attainable accuracy
+PLACED_CFGS = {
+    "cg": {"method": "cg", "tol": 1e-8, "max_it": 800, "criterion": "residual"},
+    "bicgstab": {"method": "bicgstab", "tol": 1e-8, "max_it": 800, "criterion": "residual"},
+    "mg": {"method": "cg", "tol": 1e-8, "max_it": 200, "criterion": "residual",
+           "precond": "mg"},
+    "mg_bicgstab": {"method": "bicgstab", "tol": 1e-8, "max_it": 200, "criterion": "residual",
+                    "precond": "mg"},
+}
+# (|d itr|, atol) against the view-based solve. Unpreconditioned BiCGSTAB
+# on this SPD problem converges erratically: RHS perturbations of 1e-15
+# relative move its count between 108 and 118 on the CPU (view-based 111),
+# and so does the dots' summation order (per-block partials, then block
+# order): placed 118 on the CPU, 121 against 113 on the card. Its solution
+# is held at the tolerance's scale (CPU: 5.1e-10 apart, max|x| 1.4e-3).
+PLACED_GATES = {"bicgstab": (12, 1e-8)}
+
+
+@pytest.mark.parametrize("method", sorted(PLACED_CFGS))
+def test_cuda_placed_on_one_card_equals_the_view_based_solve(cuda, method):
+    """Eight blocks placed on cuda:0, each its own allocation: the view-based
+    decomposition's itr and solution (1e-12; unpreconditioned BiCGSTAB:
+    ``PLACED_GATES``), one halo-extended launch per block and placed apply,
+    no gather in CG or BiCGSTAB."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
+
+    nx = (32, 32, 64)
+    ref, rref = _placed_solve(cuda, nx, PLACED_CFGS[method], DomainDecomposition((4, 2, 1)))
+    e0, a0, g0 = axis_stencil_ext.launches, halo.placed_applies, blocks.gathers
+    out, rep = _placed_solve(cuda, nx, PLACED_CFGS[method],
+                             DomainDecomposition((4, 2, 1), devices=("cuda:0",) * 8))
+    torch.cuda.synchronize()
+    applies = halo.placed_applies - a0
+    slack, atol = PLACED_GATES.get(method, (0, 1e-12))
+    assert rep["converge"] and abs(rep["itr"] - rref["itr"]) <= slack, (rep, rref)
+    assert applies > rep["itr"] and axis_stencil_ext.launches - e0 == 8 * applies
+    if not method.startswith("mg"):
+        assert blocks.gathers == g0
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["cg3d", "mg3d", "cg2d"])
+def test_cuda_mixed_card_and_cpu_placement(cuda, case):
+    """Blocks alternating between cuda:0 and the CPU (the Field on cuda:0):
+    every operation of a block takes its own device's operands, the card
+    blocks launch the kernels and the CPU blocks run the plain versions;
+    the view-based solve's itr and solution (1e-10)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    nx, ms, cfg = {"cg3d": ((32, 32, 32), (2, 2, 2), PLACED_CFGS["cg"]),
+                   "mg3d": ((32, 32, 32), (2, 2, 2), PLACED_CFGS["mg"]),
+                   "cg2d": ((64, 64), (4, 1), PLACED_CFGS["cg"])}[case]
+    devs = ("cuda:0", "cpu") * (int(np.prod(ms)) // 2)
+    ref, rref = _placed_solve(cuda, nx, cfg, DomainDecomposition(ms), seed=1)
+    e0, s0 = axis_stencil_ext.launches, axis_stencil.launches
+    out, rep = _placed_solve(cuda, nx, cfg, DomainDecomposition(ms, devices=devs), seed=1)
+    assert rep["converge"] and rep["itr"] == rref["itr"], (rep, rref)
+    assert (axis_stencil_ext.launches - e0 if len(nx) == 3 else axis_stencil.launches - s0) > 0
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-10, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["cg", "mg"])
+def test_cuda_placed_across_two_cards(cuda, method):
+    """Blocks round robin over cuda:0 and cuda:1 (peer copies of the ghost
+    faces, partials moved to the lead card): the view-based solve on cuda:0
+    (the same itr, 1e-12)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards; this machine shows {n}")
+    nx = (32, 32, 64)
+    ref, rref = _placed_solve(cuda, nx, PLACED_CFGS[method], DomainDecomposition((4, 2, 1)))
+    out, rep = _placed_solve(cuda, nx, PLACED_CFGS[method],
+                             DomainDecomposition((4, 2, 1), devices=("cuda:0", "cuda:1") * 4))
+    assert rep["converge"] and rep["itr"] == rref["itr"], (rep, rref)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)

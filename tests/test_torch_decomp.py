@@ -1,7 +1,10 @@
 """The decomposed solves of the port against the JAX package (CPU, float64):
 each solve of ``tests/test_sharding.py`` runs in three ways on the same
 numpy inputs: the port with the decomposition, the JAX package with it (8
-virtual CPU devices, conftest) and the JAX package on one device. The
+virtual CPU devices, conftest) and the JAX package on one device; the CG,
+BiCGSTAB and MG-PCG cases also run through the port on a placed
+decomposition (``devices=("cpu",) * n``: each block its own allocation,
+``PLACED_CASES``), held to the same two JAX solves with the case's gates. The
 decomposed ``PeriodicFlow`` (5 Taylor-Green steps) runs through the port
 with and without the decomposition and through the JAX package on one
 device.
@@ -53,6 +56,8 @@ PORT = SimpleNamespace(Box=Box, Mesh=lambda b, nx: Mesh(b, None, nx, device="cpu
                        Field=Field, FDM=FDM, Solver=Solver, DD=DomainDecomposition,
                        arr=torch.from_numpy, bcs=pbcs, poisson=ppoisson,
                        out=lambda t: t.numpy())
+PLACED = SimpleNamespace(**{**vars(PORT), "DD": lambda ms: DomainDecomposition(
+    ms, devices=("cpu",) * int(np.prod(ms)))})
 U2, U3 = (slice(0, 1),) * 2, (slice(0, 1),) * 3
 
 
@@ -206,6 +211,13 @@ CASES = {
 }
 
 
+# the cases the placed decomposition takes (CG, BiCGSTAB and MG-PCG with
+# constant coefficients; the fastdiag and variable-Γ cases raise there)
+PLACED_CASES = ("cg2d_8x1", "cg2d_1x8", "cg2d_2x4", "cg2d_4x2", "periodic_2x4", "cg3d_2x2x2",
+                "mgcg2d_2x4", "mixed3d_1x1x2", "sharded_cg_4x2x1", "sharded_mg_4x2x1",
+                "sharded2d_4x1")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_decomposed_solve_vs_jax(case, monkeypatch):
     problem, dd, jax_extra, slack, atol = CASES[case]
@@ -221,6 +233,13 @@ def test_decomposed_solve_vs_jax(case, monkeypatch):
         (rep, jrep, rref)
     np.testing.assert_allclose(out, ref, atol=atol, rtol=atol)
     np.testing.assert_allclose(out, jout, atol=atol, rtol=atol)
+    if case in PLACED_CASES:
+        pout, prep = problem(PLACED, dd)
+        assert prep["converge"], prep
+        assert abs(prep["itr"] - rref["itr"]) <= slack and abs(prep["itr"] - jrep["itr"]) <= slack, \
+            (prep, jrep, rref)
+        np.testing.assert_allclose(pout, ref, atol=atol, rtol=atol)
+        np.testing.assert_allclose(pout, jout, atol=atol, rtol=atol)
 
 
 @pytest.mark.parametrize("limiter", ["none", "upwind"])

@@ -170,8 +170,8 @@ _RAISES = {"fd_opts": ValueError, "ddt": NaNError}
 )
 def test_unported_features_raise(case):
     with pytest.raises(_RAISES.get(case, NotImplementedError)):
-        if case == "decomp":  # blocks on a second device
-            _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "meta"))})
+        if case == "decomp":  # fastdiag on a placed decomposition (ROADMAP.md A11c)
+            _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "cpu"))})
         elif case == "kernel":  # the JAX package's plain-jnp tier: none on the card
             _solve({"kernel": "jnp"})
         elif case == "fd_opts":  # a precision other than "highest" / "default"

@@ -247,6 +247,9 @@ def test_domain_decomposition():
     with pytest.raises(ValueError):
         list(dd.blocks((15, 16, 128)))
     assert hash(dd) == hash(DomainDecomposition((4, 2, 1)))
-    DomainDecomposition((2, 1), devices=("cpu", "cpu")).check_device(torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DomainDecomposition((2, 1), devices=("cpu", "meta")).check_device("cpu")
+    placed = DomainDecomposition((2, 1), devices=("cpu", "cpu"))
+    placed.check_device(torch.device("cpu"))
+    assert placed.placed and not dd.placed
+    assert [d for _, _, d in placed.placement((4, 3))] == [torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):  # JAX decomp.py:69-72
+        DomainDecomposition((2, 1), devices=("cpu",))

@@ -134,14 +134,16 @@ def test_bf16_cycle_dtype_and_cast_shell():
 
 
 def test_unported_options_raise():
-    """Blocks on a second device raise; periodic axes (an rz hierarchy's
-    too) build, as in the JAX package (their numerics:
+    """A block on a device the machine lacks raises, and a placed
+    decomposition (blocks on their own devices) builds; periodic axes (an rz
+    hierarchy's too) build, as in the JAX package (their numerics:
     ``tests/test_torch_periodic.py``); an rz hierarchy takes no variable Γ
     (an assertion, as in the JAX package); a decomp of another type than
     ``DomainDecomposition`` is refused too."""
-    blocks_elsewhere = DomainDecomposition((3, 1, 1), devices=("cpu", "meta", "cpu"))
-    with pytest.raises(NotImplementedError):
-        pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), device="cpu", decomp=blocks_elsewhere)
+    with pytest.raises(ValueError, match="not a CPU or CUDA device"):
+        DomainDecomposition((3, 1, 1), devices=("cpu", "meta", "cpu"))
+    placed = DomainDecomposition((3, 1, 1), devices=("cpu",) * 3)
+    assert pmg.MGSpec((9, 9, 9), (1.0, 1.0, 1.0), device="cpu", decomp=placed).decomp is placed
     for kw in ({"paxes": (0,)}, {"paxes": (1,), "rz": True}):
         spec = pmg.MGSpec((8, 8, 9), (1.0, 1.0, 1.0), device="cpu", **kw)
         assert spec.paxes == kw["paxes"] and spec.shapes == jmg._level_shapes((8, 8, 9))

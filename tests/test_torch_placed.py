@@ -1,0 +1,304 @@
+"""Placed decompositions on the CPU: every block of a loop vector its own
+allocation (``parallel/blocks.py``), the placed halo apply and the solver
+paths that run on block vectors, against the view-based decomposition
+and the JAX package's device-count check.
+
+The blocks are placed on ``("cpu",) * n``: each block is then its own
+allocation, and the exchange and the reductions are explicit copies. The
+solves are float64 and small (at most 16 x 16 x 128).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pyapes_tpu_torch.geometry import Box  # noqa: E402
+from pyapes_tpu_torch.mesh import Mesh  # noqa: E402
+from pyapes_tpu_torch.ops.stencil import apply_axis_stencil  # noqa: E402
+from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo  # noqa: E402
+from pyapes_tpu_torch.solver import FDM, Solver  # noqa: E402
+from pyapes_tpu_torch.solver import multigrid  # noqa: E402
+from pyapes_tpu_torch.solver.linalg import build as build_mod  # noqa: E402
+from pyapes_tpu_torch.solver.linalg.fastdiag_loop import _l2_per_dim, _vsum  # noqa: E402
+from pyapes_tpu_torch.variables import Field  # noqa: E402
+from pyapes_tpu_torch.variables.bcs import homogeneous_bcs, mixed_bcs  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _placed(ms, device="cpu"):
+    return DomainDecomposition(ms, devices=(device,) * int(np.prod(ms)))
+
+
+def _problem(nx, seed=0, kinds=None):
+    """A float64 Laplacian on the unit box, homogeneous Dirichlet faces (or
+    ``kinds``, per face, value 0), with a seeded random RHS."""
+    mesh = Mesh(Box[(slice(0, 1),) * len(nx)], None, list(nx), device="cpu", dtype="double")
+    bcs = (homogeneous_bcs(len(nx), 0.0, "dirichlet") if kinds is None
+           else mixed_bcs([0.0] * len(kinds), kinds))
+    var = Field("p", 1, mesh, {"domain": bcs, "obstacle": None}, init_val=0.0)
+    rhs = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, *nx)))
+    return mesh, var, rhs
+
+
+def _solve(nx, cfg, decomp=None, seed=0, kinds=None):
+    _, var, rhs = _problem(nx, seed, kinds)
+    if decomp is not None:
+        cfg = {**cfg, "decomp": decomp}
+    s = Solver({"fdm": {"report": False, **cfg}})
+    s.set_eq(FDM().laplacian(1.0, var) == rhs)
+    rep = s.solve()
+    return var()[0].clone(), rep
+
+
+CG = {"method": "cg", "tol": 1e-10, "max_it": 600, "criterion": "residual"}
+BICG = {"method": "bicgstab", "tol": 1e-10, "max_it": 600, "criterion": "residual"}
+MG = {**CG, "precond": "mg", "mg_opts": {"n_pre": 1, "n_post": 1}}
+
+
+def test_blocks_are_separate_storages_on_their_devices():
+    dd = _placed((4, 2, 1))
+    lay = blocks.layout(dd, (8, 8, 16), CPU)
+    x = torch.randn(2, 8, 8, 16, dtype=torch.float64)
+    xb = blocks.scatter(x, lay)
+    assert isinstance(xb, blocks.BlockTensor) and xb.shape == x.shape and xb.device == CPU
+    assert len(xb.parts) == 8 and all(p.device == d for p, d in zip(xb.parts, lay.devices))
+    ptrs = {p.untyped_storage().data_ptr() for p in xb.parts}
+    assert len(ptrs) == 8 and x.untyped_storage().data_ptr() not in ptrs
+    for p, (_, sl, _) in zip(xb.parts, lay.blocks):
+        assert p.is_contiguous() and torch.equal(p, x[(slice(None), *sl)])
+    y = xb * 2.0 + xb  # the operations keep the blocks
+    assert isinstance(y, blocks.BlockTensor) and len({p.data_ptr() for p in y.parts}) == 8
+    g0 = blocks.gathers
+    assert torch.equal(blocks.gather(y, count=False), 3.0 * x) and blocks.gathers == g0
+    assert blocks.scatter(xb, lay) is xb
+
+
+def test_placement_of_the_decomposition():
+    dd = DomainDecomposition((2, 2), devices=("cpu",) * 6)  # more entries: the first four
+    assert dd.placed and dd.devices == (CPU,) * 4
+    pl = dd.placement((6, 4))
+    assert [c for c, _, _ in pl] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert pl[3][1] == (slice(3, 6), slice(2, 4)) and pl[3][2] == CPU
+    assert DomainDecomposition((2, 2)).placement((6, 4))[0][2] is None
+    assert not DomainDecomposition((2, 2)).placed
+
+
+def test_too_few_devices_raises_as_the_jax_package():
+    import jax
+
+    from pyapes_tpu.parallel import DomainDecomposition as JDD
+
+    with pytest.raises(AssertionError) as jerr:
+        JDD((4, 2, 2), devices=tuple(jax.devices())).device_mesh()
+    n = len(jax.devices())
+    with pytest.raises(ValueError) as err:
+        DomainDecomposition((4, 2, 2), devices=("cpu",) * n)
+    assert str(err.value) == str(jerr.value) == f"DomainDecomposition: needs 16 devices, have {n}"
+
+
+def test_a_device_the_machine_lacks_raises():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(ValueError, match="does not exist"):
+        DomainDecomposition((2, 1), devices=("cpu", f"cuda:{n}"))
+    with pytest.raises(ValueError, match="not a CPU or CUDA device"):
+        DomainDecomposition((2, 1), devices=("cpu", "meta"))
+
+
+def _ghost_bytes(ms, shape, itemsize):
+    """Bytes of the ghost faces of every block: two faces per cut axis,
+    each the block's extent on the other axes."""
+    local = [n // m for n, m in zip(shape[1:], ms)]
+    total = 0
+    for j, m in enumerate(ms):
+        if m > 1:
+            total += 2 * shape[0] * int(np.prod(local)) // local[j] * itemsize
+    return int(np.prod(ms)) * total
+
+
+@pytest.mark.parametrize("ms,shape", [((4, 2, 1), (1, 16, 16, 32)), ((2, 2, 2), (2, 8, 8, 8)),
+                                      ((4, 1), (1, 32, 12))])
+def test_exchange_moves_the_ghost_faces_only(ms, shape):
+    """One placed apply copies exactly the ghost faces between blocks and
+    equals the global apply."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(shape))
+    coeffs = tuple(tuple(torch.from_numpy(rng.standard_normal(n)) for _ in range(3))
+                   for n in shape[1:])
+    dd = _placed(ms)
+    assert halo.placed_supported(dd, shape[1:])
+    xb = blocks.scatter(x, blocks.layout(dd, shape[1:], CPU))
+    apply = halo.make_sharded_apply(dd, len(shape) - 1)
+    b0, a0, g0 = halo.exchange_bytes, halo.placed_applies, blocks.gathers
+    out = apply(coeffs, xb)
+    assert halo.exchange_bytes - b0 == _ghost_bytes(ms, shape, 8)
+    assert halo.placed_applies - a0 == 1 and blocks.gathers == g0
+    np.testing.assert_allclose(blocks.gather(out).numpy(), apply_axis_stencil(coeffs, x).numpy(),
+                               atol=1e-13, rtol=0)
+
+
+def test_reductions_sum_in_block_order():
+    dd = _placed((4, 2, 1))
+    lay = blocks.layout(dd, (8, 8, 16), CPU)
+    rng = np.random.default_rng(5)
+    x, y = (blocks.scatter(torch.from_numpy(rng.standard_normal((2, 8, 8, 16))), lay)
+            for _ in range(2))
+    s1, s2 = _vsum(x * y), _vsum(x * y)
+    assert not isinstance(s1, blocks.BlockTensor) and s1.shape == (2, 1, 1, 1)
+    assert torch.equal(s1, s2)
+    acc = None
+    for px, py in zip(x.parts, y.parts):  # block order
+        p = torch.sum(px * py, dim=(1, 2, 3), keepdim=True)
+        acc = p if acc is None else acc + p
+    assert torch.equal(s1, acc)
+    assert torch.equal(_l2_per_dim(x), _l2_per_dim(x))
+    np.testing.assert_allclose(_l2_per_dim(x).numpy(),
+                               torch.linalg.vector_norm(blocks.gather(x).reshape(2, -1),
+                                                        dim=1).numpy(), rtol=1e-14)
+    assert torch.equal(x.max(), blocks.gather(x).max())
+
+
+class _GlobalAllocations(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts operations that return a plain tensor of at least ``numel``
+    elements (a block vector holds no storage of its own)."""
+
+    def __init__(self, numel):
+        super().__init__()
+        self.numel, self.hits = numel, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if (isinstance(t, torch.Tensor) and not isinstance(t, blocks.BlockTensor)
+                    and t.numel() >= self.numel):
+                self.hits.append(str(func))
+        return out
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab"])
+@pytest.mark.parametrize("ms,nx", [((4, 2, 1), (16, 16, 32)), ((2, 2, 2), (12, 12, 12)),
+                                   ((4, 1), (32, 24))])
+def test_placed_loop_allocates_nothing_global_and_gathers_nothing(method, ms, nx, monkeypatch):
+    """Between the scatter and the gather, a placed CG or BiCGSTAB solve
+    allocates no tensor of the global size on any device and makes no
+    gather: zero per iteration."""
+    modes = []
+    name = {"cg": "build_cg", "bicgstab": "build_bicgstab"}[method]
+    real = getattr(build_mod, name)
+
+    def counted_build(*a, **k):
+        fn = real(*a, **k)
+
+        def run(x0, rhs, *rest, **kw):
+            assert isinstance(x0, blocks.BlockTensor) and isinstance(rhs, blocks.BlockTensor)
+            mode = _GlobalAllocations(x0.numel())
+            modes.append(mode)
+            with mode:
+                out = fn(x0, rhs, *rest, **kw)
+            assert isinstance(out[0], blocks.BlockTensor)
+            return out
+
+        return run
+
+    monkeypatch.setattr(build_mod, name, counted_build)
+    g0 = blocks.gathers
+    _, rep = _solve(nx, CG if method == "cg" else BICG, _placed(ms))
+    assert rep["converge"] and rep["itr"] > 5
+    assert len(modes) == 1 and modes[0].hits == []
+    assert blocks.gathers == g0
+
+
+@pytest.mark.parametrize("method", ["cg", "bicgstab", "mg", "mg_bicgstab"])
+def test_placed_solve_equals_the_view_based_one(method):
+    """The placed CG and MG-PCG solves take the view-based decomposition's
+    iterations and its solution to 1e-12; Neumann and Symmetry faces on
+    cut axes (the BCs written into the edge blocks, the 3/2 row scale as
+    block vectors) in those cases. The dots sum per-block partials, in
+    another order than the global sum: BiCGSTAB at tol 1e-10 ends at its
+    attainable accuracy, where that order moves its count, so it is held to
+    ``|d itr| <= 2`` and 1e-9, as ``test_torch_decomp.py`` holds the JAX
+    package's own decomposed BiCGSTAB runs."""
+    cfg = {"cg": CG, "bicgstab": BICG, "mg": MG,
+           "mg_bicgstab": {**BICG, "precond": "mg", "mg_opts": {"n_pre": 1, "n_post": 1}}}[method]
+    kinds = (["neumann", "dirichlet", "symmetry", "dirichlet", "dirichlet", "dirichlet"]
+             if method in ("cg", "mg") else None)
+    ref, rref = _solve((16, 16, 32), cfg, DomainDecomposition((4, 2, 1)), 7, kinds)
+    out, rep = _solve((16, 16, 32), cfg, _placed((4, 2, 1)), 7, kinds)
+    slack, atol = (2, 1e-9) if method.endswith("bicgstab") else (0, 1e-12)
+    assert rep["converge"] and abs(rep["itr"] - rref["itr"]) <= slack, (rep, rref)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=atol, rtol=0)
+
+
+def test_placed_mg_gathers_only_in_its_transfers():
+    """Per V-cycle, the placed MG gathers twice per placed level but the
+    coarsest placed one (one restriction each, one prolongation from each
+    placed coarser level), and CG itself gathers nothing."""
+    v0, c0, g0 = multigrid.vcycles, multigrid.cycle_gathers, blocks.gathers
+    _, rep = _solve((16, 16, 32), MG, _placed((4, 2, 1)), 2)
+    cycles, in_cycles = multigrid.vcycles - v0, multigrid.cycle_gathers - c0
+    # levels 16x16x32 and 8x8x16 take (4, 2, 1) blocks, 4x4x8 does not
+    shapes = multigrid._level_shapes((16, 16, 32))
+    placed = [halo.placed_supported(_placed((4, 2, 1)), s) for s in shapes]
+    assert placed == [True, True, False]
+    assert cycles == rep["itr"] + 1 and in_cycles == 3 * cycles
+    assert blocks.gathers - g0 == in_cycles
+
+
+def _flow():
+    from pyapes_tpu_torch.models import PeriodicFlow
+
+    mesh = Mesh(Box[0:1, 0:1], None, [17, 17], device="cpu", dtype="double")
+    PeriodicFlow(mesh, config={"decomp": _placed((2, 2))})
+
+
+def _unported(case):
+    mesh, var, rhs = _problem((16, 8, 8))
+    cfg = {**CG, "max_it": 5}
+    fdm = FDM()
+    lhs = fdm.laplacian(1.0, var)
+    if case == "fastdiag":
+        cfg = {"method": "fastdiag", "tol": 1e-8, "max_it": 5}
+    elif case == "precond_fd":
+        cfg["precond"] = "fd"
+    elif case == "var_gamma":
+        lhs = fdm.laplacian(torch.ones(16, 8, 8, dtype=torch.float64), var)
+    elif case in ("div", "conv"):
+        adv = torch.ones(3 if case == "conv" else 1, 16, 8, 8, dtype=torch.float64)
+        lhs = (fdm.conv(adv, var) if case == "conv" else fdm.div(adv, var)) - lhs
+        cfg["method"] = "bicgstab"
+    elif case == "sync_false":
+        cfg["sync"] = False
+    elif case == "fused_step":
+        from pyapes_tpu_torch.ops.graph_loop import whole_step
+
+        with whole_step():
+            return _unported_solve(var, lhs, rhs, cfg)
+    elif case == "custom":
+        lhs = fdm.custom(lambda x: 2.0 * x, var)
+    elif case == "obstacle":
+        mesh = Mesh(Box[0:1, 0:1, 0:1], [Box[0.4:0.6, 0.4:0.6, 0.4:0.6]], [16, 8, 8],
+                    device="cpu", dtype="double")
+        var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"),
+                                   "obstacle": [{"bc_type": "dirichlet", "bc_val": 1.0}]})
+        lhs = fdm.laplacian(1.0, var)
+    elif case == "donate":
+        cfg["donate"] = True
+    elif case == "debug_nan":
+        cfg["debug"] = "nan"
+    elif case == "periodic_flow":
+        return _flow()
+    return _unported_solve(var, lhs, rhs, cfg)
+
+
+def _unported_solve(var, lhs, rhs, cfg):
+    s = Solver({"fdm": {**cfg, "decomp": _placed((2, 1, 1))}})
+    s.set_eq(lhs == rhs)
+    return s.solve()
+
+
+@pytest.mark.parametrize("case", ["fastdiag", "precond_fd", "var_gamma", "div", "conv",
+                                  "sync_false", "fused_step", "custom", "obstacle", "donate",
+                                  "debug_nan", "periodic_flow"])
+def test_options_outside_the_placed_path_raise(case):
+    with pytest.raises(NotImplementedError, match=r"placed decomposition .*A11[c-h]"):
+        _unported(case)
