@@ -4987,6 +4987,8 @@ PLACED_CMP_N2 = 256
 PLACED_CMP_TOL = 1e-10  # (c): the same itr, max|dx| / max|x|
 PLACED_CMP_CG = {"method": "cg", "tol": 1e-8, "max_it": 2000, "criterion": "residual"}
 MIXED_PAIR = ("cuda:0", "cpu")  # (c)'s placement, repeated
+PLACED_FD_TURNS = 3  # (d): view-based and placed fastdiag solves in turns, one each per turn
+PLACED_FD_CG_N = 256  # (e): CG with precond "fd", f32
 
 
 def placed_devices(n_blocks: int) -> tuple:
@@ -5029,15 +5031,18 @@ def _placed_counters() -> dict:
 
     return {**_counts(), "gathers": blocks.gathers, "exchange_bytes": halo.exchange_bytes,
             "placed_applies": halo.placed_applies, "vcycles": multigrid.vcycles,
-            "cycle_gathers": multigrid.cycle_gathers}
+            "cycle_gathers": multigrid.cycle_gathers, "repartitions": blocks.repartitions,
+            "repartition_bytes_across": blocks.repartition_bytes_across,
+            "repartition_bytes_within": blocks.repartition_bytes_within}
 
 
 def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True) -> dict:
     """A warm-up (``warm``) and ``solves`` timed solves of ``-lap = rhs``
     through ``Solver.solve`` with ``cfg``: per timed solve its report, wall
     and counter deltas (launches, ``blocks.gathers``, ``exchange_bytes``,
-    placed applies, V-cycles and their gathers); the last solution; the
-    peak memory of each card over the timed solves."""
+    placed applies, V-cycles and their gathers, repartitions and their
+    bytes); the last solution; the peak memory of each card over the timed
+    solves."""
     import torch
 
     from pyapes_tpu_torch.solver.fdm import FDM
@@ -5112,8 +5117,130 @@ def _placed_summary(label, run, n_cuda_blocks: int, ghost=None) -> dict:
         "vcycles_per_solve": last["vcycles"],
         "exchange_bytes_per_solve": last["exchange_bytes"],
         "exchange_bytes_per_apply": last["exchange_bytes"] / last["placed_applies"],
+        "repartitions_per_solve": last["repartitions"],
+        "repartition_bytes_across_per_solve": last["repartition_bytes_across"],
+        "repartition_bytes_within_per_solve": last["repartition_bytes_within"],
         "peak_mem_gib_per_card": run["peak_gib"],
     }
+
+
+def _repartitions_per_apply(decomp, grid, dev) -> int:
+    """Block vectors an FD apply moves between pencils on ``decomp``'s
+    blocks of ``grid``: each change of layout along ``Layout.pencils`` on
+    the way there, and as many back."""
+    from pyapes_tpu_torch.parallel import blocks
+
+    lay = blocks.layout(decomp, grid, dev)
+    pens = [p for _, p in lay.pencils()]
+    return 2 * sum(a is not b for a, b in zip([lay] + pens, pens))
+
+
+def _driver(launches: dict):
+    """``drive(var, rhs, cfg, solves, warm=True)``: ``run_layout`` with the
+    kernels' counts set to 0 just before and added to ``launches`` just
+    after."""
+    def drive(var, rhs, cfg, solves, warm=True):
+        _reset_counts()
+        run = run_layout(var, rhs, cfg, solves, warm)
+        for k, c in _counts().items():
+            launches[k] = launches.get(k, 0) + c
+        return run
+
+    return drive
+
+
+def placed_fastdiag(dev, drive) -> dict:
+    """Phase 17 (d) and (e) (``phase_placed``): the placed fastdiag and the
+    placed CG with the FD preconditioner, blocks round robin over the cards
+    the machine shows, each solve through ``drive`` (``_driver``); returns
+    their numbers, checked."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    devs = placed_devices(prod(N_DECOMP))
+    n_cards = len(set(devs))
+    n_cuda = sum(1 for d in devs if d.startswith("cuda"))
+    placed_dd = DomainDecomposition(N_DECOMP, devices=devs)
+    out = {}
+
+    # (d) bench's fastdiag: the undecomposed solve (its passes and solution),
+    # then the view-based and the placed solves in turns
+    mesh, var, rhs = placed_problem(dev, (N_MAIN,) * 3)
+    undec = run_layout(var, rhs, fd_cfg(), 1)
+    ref_x, ref_itr = undec["x"], undec["rows"][0]["itr"]
+    del undec
+    view_rows, view_peaks, rows, peaks = [], [], [], []
+    for turn in range(PLACED_FD_TURNS):
+        view = run_layout(var, rhs, fd_cfg(DomainDecomposition(N_DECOMP)), 1, warm=turn == 0)
+        view_rows += view["rows"]
+        view_peaks.append(view["peak_gib"])
+        del view
+        placed = drive(var, rhs, fd_cfg(placed_dd), 1, warm=turn == 0)
+        rows += placed["rows"]
+        peaks.append(placed["peak_gib"])
+        x = placed["x"]
+        del placed
+    d = _placed_summary("(d) placed fastdiag", {"rows": rows, "x": x,
+                                                "peak_gib": [max(p) for p in zip(*peaks)]}, n_cuda)
+    agree = _rel(x, ref_x)
+    res32, res64 = _true_residuals(mesh, var, rhs, 1.0, x)
+    per_apply = _repartitions_per_apply(placed_dd, (N_MAIN,) * 3, dev)
+    vec_bytes = N_MAIN**3 * 4
+    moved = [r["repartition_bytes_across"] + r["repartition_bytes_within"] for r in rows]
+    if not (all(r["converge"] and r["itr"] == ref_itr and r["gathers"] == 0
+                and r["axis_stencil_ext"] >= n_cuda * (r["itr"] + 1)
+                and r["repartitions"] == per_apply * r["itr"] for r in rows)
+            and all(m == r["repartitions"] * vec_bytes for m, r in zip(moved, rows))
+            and agree <= FD_DECOMP_AGREE and res64 <= FD_TOL):
+        raise RuntimeError(f"chip_smoke: (d) placed fastdiag: {json.dumps(rows)}; the undecomposed "
+                           f"solve's passes {ref_itr}, max|dx|/max|x| {agree:.3e} (limit "
+                           f"{FD_DECOMP_AGREE}), true residual f64 {res64:.3e} (limit {FD_TOL}), "
+                           f"{per_apply} repartitions per apply")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    peak = d["peak_mem_gib_per_card"]
+    d.update({"undecomposed_itr": ref_itr, "max_rel_diff_vs_undecomposed": agree,
+              "true_rel_residual_f32": res32, "true_rel_residual_f64": res64,
+              "repartitions_per_apply": per_apply,
+              "repartition_bytes_per_apply": moved[-1] / rows[-1]["itr"],
+              "view_itr": [r["itr"] for r in view_rows],
+              "view_wall_s": [r["wall_s"] for r in view_rows],
+              "view_wall_s_median": statistics.median(r["wall_s"] for r in view_rows),
+              "view_axis_stencil_ext_per_solve": view_rows[-1]["axis_stencil_ext"],
+              "view_peak_mem_gib_per_card": [max(p) for p in zip(*view_peaks)],
+              "placed_over_view": d["wall_s_median"] / statistics.median(
+                  r["wall_s"] for r in view_rows),
+              "dof_per_s": N_MAIN**3 / d["wall_s_median"],
+              "peak_bytes_per_point": max(peak) * 2**30 / N_MAIN**3,
+              "largest_cube_these_cards": int(N_MAIN * (card_bytes / (max(peak) * 2**30))
+                                              ** (1 / 3)),
+              "lead_minus_other_gib": peak[0] - max(peak[1:]) if len(peak) > 1 else None})
+    out["d_fastdiag"] = d
+    print(f"[17 placed] (d) fastdiag {N_MAIN}^3 f32 {N_DECOMP} on {n_cards} card(s), in turns "
+          f"with the view-based solve: {json.dumps(d)}", flush=True)
+    del x, ref_x, var, rhs, mesh
+
+    # (e) CG with the FD preconditioner, against the view-based solve
+    n = PLACED_FD_CG_N
+    _, var, rhs = placed_problem(dev, (n,) * 3)
+    cfg = {"method": "cg", "precond": "fd", "tol": 1e-6, "max_it": 200, "criterion": "residual"}
+    view = run_layout(var, rhs, {**cfg, "decomp": DomainDecomposition(N_DECOMP)}, 1)
+    placed = drive(var, rhs, {**cfg, "decomp": placed_dd}, 1)
+    e = _placed_summary("(e) placed CG + FD", placed, n_cuda)
+    rp, rv = placed["rows"][-1], view["rows"][-1]
+    agree = _rel(placed["x"], view["x"])
+    per_apply = _repartitions_per_apply(placed_dd, (n,) * 3, dev)
+    if not (rp["converge"] and rp["itr"] == rv["itr"] and rp["gathers"] == 0
+            and rp["repartitions"] == per_apply * (rp["itr"] + 1) and agree <= PLACED_CG_AGREE):
+        raise RuntimeError(f"chip_smoke: (e) placed CG + FD: {json.dumps(rp)} against the "
+                           f"view-based itr {rv['itr']}, max|dx|/max|x| {agree:.3e} (limit "
+                           f"{PLACED_CG_AGREE}), {per_apply} repartitions per FD apply")
+    e.update({"view_itr": rv["itr"], "view_wall_s": rv["wall_s"], "max_rel_diff_vs_view": agree,
+              "view_peak_mem_gib_per_card": view["peak_gib"]})
+    out["e_cg_fd"] = e
+    print(f"[17 placed] (e) CG + precond fd {n}^3 f32 {N_DECOMP}: {json.dumps(e)}", flush=True)
+    del view, placed, var, rhs
+    return out
 
 
 def phase_placed(dev) -> dict:
@@ -5126,22 +5253,22 @@ def phase_placed(dev) -> dict:
     iterations in both layouts, zero gathers; (c) the mixed placement
     ``("cuda:0", "cpu") * 4`` at 64^3 f64 (2, 2, 2), CG and MG-PCG, and a
     2-D (4, 1) CG on ``("cuda:0", "cpu") * 2`` at 256^2 f64, each equal to
-    the view-based solve (the same itr, ``PLACED_CMP_TOL``). Returns the
-    launches of the placed drives (each counted from 0)."""
+    the view-based solve (the same itr, ``PLACED_CMP_TOL``); (d) bench's
+    fastdiag at 512^3 f32 in (4, 2, 1) placed blocks, ``PLACED_FD_TURNS``
+    solves in turns with the view-based one: the undecomposed solve's
+    passes and solution (``FD_DECOMP_AGREE``), the f64 true residual
+    within ``FD_TOL``, no gather, the halo-extended kernel once per block
+    and residual, the pencil repartitions of every FD apply (each moving
+    the whole vector); (e) CG with ``precond: "fd"`` at 256^3 f32 placed:
+    the view-based itr. Returns the launches of the placed drives (each
+    counted from 0)."""
     import torch
 
     from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
 
     tic0 = time.perf_counter()
     launches = {name: 0 for name in _counts()}
-
-    def drive(var, rhs, cfg, solves, warm=True):
-        _reset_counts()
-        run = run_layout(var, rhs, cfg, solves, warm)
-        for k, c in _counts().items():
-            launches[k] += c
-        return run
-
+    drive = _driver(launches)
     devs = placed_devices(prod(N_DECOMP))
     n_cards = len(set(devs))
     n_cuda = sum(1 for d in devs if d.startswith("cuda"))
@@ -5247,6 +5374,8 @@ def phase_placed(dev) -> dict:
     out["c_mixed"] = mixed
     print(f"[17 placed] (c) mixed card/CPU placements, f64 (tolerance {PLACED_CMP_TOL}): "
           f"{json.dumps(mixed)}", flush=True)
+
+    out.update(placed_fastdiag(dev, drive))
     print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
           f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
           f"wall {time.perf_counter() - tic0:.1f} s", flush=True)

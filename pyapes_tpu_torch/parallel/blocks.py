@@ -27,17 +27,22 @@ A block vector may have length 1 along grid axes (a broadcast operand such
 as a per-axis row scale); its blocks then repeat along the cut ones, and
 reductions and gathers read each value once.
 
-``scatter`` / ``gather`` move between a global tensor on the lead device
-and a block vector; ``interior_mask`` builds the active-set mask block by
-block; ``apply_bcs_fn`` writes each BC's face rows into the blocks on that
-face.
+``repartition`` moves a block vector to another cut of the same grid on
+the same devices (a pencil layout, ``Layout.pencils``): each destination
+block is built from slices of the source blocks, each copied straight
+from its source block's device to its destination block's device (the
+all-to-all GSPMD inserts for a contraction along a cut axis; nothing
+passes through the lead device). ``scatter`` / ``gather`` move between a
+global tensor on the lead device and a block vector; ``interior_mask``
+builds the active-set mask block by block; ``apply_bcs_fn`` writes each
+BC's face rows into the blocks on that face.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._pytree import tree_map
 
-from pyapes_tpu_torch.parallel.decomp import _resolve
+from pyapes_tpu_torch.parallel.decomp import _resolve, pencil_plan
 
 aten = torch.ops.aten
 
@@ -45,6 +50,13 @@ gathers = 0
 """Block vectors gathered on the lead device by an operation that does not
 run block by block (a counter, like the kernels' ``launches``). The
 entry's scatter and the exit's gather of a solve do not count."""
+repartitions = 0
+"""Block vectors moved to another cut of their grid (``repartition``)."""
+repartition_bytes_across = 0
+"""Bytes ``repartition`` copied from a block on one device to a block on
+another."""
+repartition_bytes_within = 0
+"""Bytes ``repartition`` copied between two blocks on one device."""
 
 
 class Layout:
@@ -63,6 +75,17 @@ class Layout:
         self.cut = tuple(m > 1 for m in self.ms)
         self.devices = tuple(d for _, _, d in self.blocks)
         self._index = {c: i for i, (c, _, _) in enumerate(self.blocks)}
+        self._pencils = None
+
+    def pencils(self) -> tuple:
+        """``((axis, Layout), ...)``: the layouts of ``decomp.pencil_plan``
+        on this grid and lead device, in the order of the transforms (made
+        at first use; ``NotImplementedError`` where a pencil cannot
+        divide)."""
+        if self._pencils is None:
+            self._pencils = tuple((a, layout(self.decomp.pencil(ms), self.grid, self.lead))
+                                  for a, ms in pencil_plan(self.ms, self.grid))
+        return self._pencils
 
     def neighbour(self, b: int, j: int, step: int) -> int:
         """The block ``step`` blocks from block ``b`` along grid axis ``j``
@@ -294,6 +317,64 @@ def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
         src = t[lay.index(shape, b)]
         parts.append(torch.empty(src.shape, dtype=t.dtype, device=dev).copy_(src))
     return BlockTensor(parts, lay, shape)
+
+
+def move_parts(parts: list, src: Layout, to: Layout, shape) -> list:
+    """The blocks of a block vector of ``shape`` (every grid axis whole
+    length) held in ``parts`` (in ``src``'s block order) cut as ``to``'s:
+    per destination block one allocation on its device, filled with the
+    slices of the source blocks it overlaps, each copied straight from the
+    source block's device (``repartition_bytes_across`` /
+    ``_within``). An entry of ``parts`` is set to None after its last
+    use, so a list the caller owns frees each source block as soon as it
+    is copied out."""
+    global repartitions, repartition_bytes_across, repartition_bytes_within
+    if tuple(shape[1:]) != src.grid or to.grid != src.grid:
+        raise ValueError(f"blocks: a {tuple(shape)} block vector does not repartition from the "
+                         f"grid {src.grid} to {to.grid}")
+
+    def overlap(a, b):
+        box = tuple((max(s.start, t.start), min(s.stop, t.stop)) for s, t in zip(a, b))
+        return box if all(lo < hi for lo, hi in box) else None
+
+    def local(box, sl):
+        return (slice(None),) + tuple(slice(lo - s.start, hi - s.start)
+                                      for (lo, hi), s in zip(box, sl))
+
+    last = {}
+    for d, (_, dsl, _) in enumerate(to.blocks):
+        for b, (_, ssl, _) in enumerate(src.blocks):
+            if overlap(dsl, ssl):
+                last[b] = d
+    dtype, out = parts[0].dtype, []
+    for d, (_, dsl, ddev) in enumerate(to.blocks):
+        part = torch.empty((shape[0], *(s.stop - s.start for s in dsl)), dtype=dtype, device=ddev)
+        for b, (_, ssl, sdev) in enumerate(src.blocks):
+            box = overlap(dsl, ssl)
+            if box is None:
+                continue
+            piece = parts[b][local(box, ssl)]
+            part[local(box, dsl)].copy_(piece)
+            n = piece.numel() * piece.element_size()
+            if sdev == ddev:
+                repartition_bytes_within += n
+            else:
+                repartition_bytes_across += n
+            if last[b] == d:
+                parts[b] = None
+        out.append(part)
+    repartitions += 1
+    return out
+
+
+def repartition(x: BlockTensor, to: Layout) -> BlockTensor:
+    """The block vector ``x`` (every grid axis whole length) on ``to``, a
+    layout of the same grid (a pencil of ``x.placement``, or any other
+    cut): ``move_parts``. ``x`` itself is left as it is; ``x`` comes back
+    when it is already on ``to``."""
+    if x.placement is to:
+        return x
+    return BlockTensor(move_parts(list(x.parts), x.placement, to, x.shape), to, x.shape)
 
 
 def gather(x, count: bool = True) -> torch.Tensor:

@@ -17,6 +17,13 @@ forms:
   array): only the ghost faces move between blocks, reductions are summed
   from per-block partials on the solve's device in block order, and each
   block's kernel launches on its block's device.
+
+A per-axis transform along a cut axis (the fast-diagonalization solve)
+runs in a *pencil* layout: the same devices in the same block order, cut
+another way so that the transformed axis is whole (``pencil_plan``,
+``DomainDecomposition.pencil``); ``blocks.repartition`` moves a block
+vector between two such cuts (the all-to-all GSPMD inserts for the JAX
+package's sharded contraction).
 """
 from __future__ import annotations
 
@@ -122,9 +129,49 @@ class DomainDecomposition:
         for coord in itertools.product(*(range(m) for m in ms)):
             yield coord, tuple(slice(c * b, (c + 1) * b) for c, b in zip(coord, size))
 
+    def pencil(self, mesh_shape) -> "DomainDecomposition":
+        """The same devices, in the same block order, with the grid cut into
+        ``mesh_shape`` blocks instead (a pencil layout of ``pencil_plan``);
+        raises ``ValueError`` for another number of blocks."""
+        mesh_shape = tuple(int(m) for m in mesh_shape)
+        if int(np.prod(mesh_shape)) != self.n_devices:
+            raise ValueError(f"DomainDecomposition: a pencil cut {mesh_shape} of {self.n_devices} "
+                             "blocks")
+        return DomainDecomposition(mesh_shape, devices=self.devices)
+
     def placement(self, global_shape) -> list:
         """``[(coord, slices, device), ...]`` in row-major block order:
         ``blocks()`` with each block's device (None where the
         decomposition is not placed)."""
         devs = self.devices or (None,) * self.n_devices
         return [(c, sl, d) for (c, sl), d in zip(self.blocks(global_shape), devs)]
+
+
+def pencil_plan(mesh_shape, global_shape) -> tuple:
+    """The pencil cuts a per-axis transform of a grid of ``global_shape``
+    cut into ``mesh_shape`` blocks runs in: ``((axis, cut), ...)``, one per
+    grid axis in the order of the transforms (the axes whole in
+    ``mesh_shape`` first, then the cut ones, each in index order), ``cut``
+    a cut of the same number of blocks in which ``axis`` is whole. Each
+    step hands the blocks of the next axis to one other axis (a whole one
+    where one takes them, else the last that does): at (4, 2, 1) axis 2
+    is transformed in place, then (1, 2, 4) makes axis 0 whole and (2, 1,
+    4) axis 1. Raises ``NotImplementedError`` where no other axis divides
+    into the blocks it would take (the pencil cannot divide; a placed
+    solve never gathers instead)."""
+    shape = tuple(int(n) for n in global_shape)
+    cur = list(mesh_shape) + [1] * (len(shape) - len(mesh_shape))
+    plan = []
+    for a in [j for j, m in enumerate(cur) if m == 1] + [j for j, m in enumerate(cur) if m > 1]:
+        if cur[a] > 1:
+            takers = [w for w in range(len(shape)) if w != a and shape[w] % (cur[w] * cur[a]) == 0]
+            if not takers:
+                raise NotImplementedError(
+                    f"DomainDecomposition: no pencil makes axis {a} of the grid {shape} whole from "
+                    f"the cut {tuple(cur)}: no other axis divides into {cur[a]} times its blocks. "
+                    "Choose node counts divisible by the device count on every axis.")
+            w = min(takers, key=lambda w: (cur[w] != 1, -w))
+            cur[w] *= cur[a]
+            cur[a] = 1
+        plan.append((a, tuple(cur)))
+    return tuple(plan)

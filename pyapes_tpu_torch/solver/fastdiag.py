@@ -170,6 +170,7 @@ class FastDiag:
         # scale of the symbol, for the singular-mode cut
         self.lam_scale = float(sum(np.abs(l).max() for l in lam_np))
         self.ndim = len(axis_mats)
+        self._embedded: dict = {}
 
     @staticmethod
     def _dev(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -190,30 +191,59 @@ class FastDiag:
             return torch.matmul(a, b)
         return torch.matmul(a.to(self.acc), b.to(self.acc)).to(a.dtype)
 
-    def _transform(self, mats, x: torch.Tensor) -> torch.Tensor:
+    def _along(self, F: torch.Tensor, x: torch.Tensor, j: int) -> torch.Tensor:
         """Contract mesh axis j of ``x`` (``(vdim, *shape)``, contiguous, in
-        the factors' dtype) with ``mats[j]``: plain GEMMs over views, no
-        transpose copies.
+        the factors' dtype; axis j whole) with ``F``: one plain GEMM over a
+        view, no transpose copy.
 
         * first axis: ``F @ x.view(vdim, n0, -1)`` (F broadcast over vdim);
         * middle axis: batched ``F @ x.view(-1, n1, n2)``;
         * last axis: ``x.view(-1, n_last) @ F.T``.
         """
+        shape = x.shape
+        if j == x.dim() - 2:
+            return self._mm(x.reshape(-1, shape[-1]), F.T).view(shape)
+        if j == 0:
+            return self._mm(F, x.view(shape[0], shape[1], -1)).view(shape)
+        return self._mm(F, x.view(-1, shape[2], shape[3])).view(shape)  # middle of 3-D
+
+    def _scope(self, devices, mats):
+        """The transforms' matmul flags (``backend.transform_matmul``):
+        TF32 for ``precision`` "default" and f32-accumulated bf16 for
+        narrow factors, where a block lies on the card."""
         from pyapes_tpu_torch.backend import transform_matmul
 
-        shape = x.shape
-        nd = self.ndim
+        cuda = any(torch.device(d).type == "cuda" for d in devices)
         narrow = mats[0].dtype not in (torch.float32, torch.float64)
-        with transform_matmul(tf32=self.precision == "default" and x.device.type == "cuda",
-                              bf16_f32_accumulate=narrow and x.device.type == "cuda"):
+        return transform_matmul(tf32=self.precision == "default" and cuda,
+                                bf16_f32_accumulate=narrow and cuda)
+
+    def _transform(self, mats, x: torch.Tensor) -> torch.Tensor:
+        """Contract every mesh axis j of ``x`` (``(vdim, *shape)``,
+        contiguous, in the factors' dtype) with ``mats[j]`` (``_along``)."""
+        with self._scope((x.device,), mats):
             for j, F in enumerate(mats):
-                if j == nd - 1:
-                    x = self._mm(x.reshape(-1, shape[-1]), F.T).view(shape)
-                elif j == 0:
-                    x = self._mm(F, x.view(shape[0], shape[1], -1)).view(shape)
-                else:  # middle axis of a 3-D grid
-                    x = self._mm(F, x.view(-1, shape[2], shape[3])).view(shape)
+                x = self._along(F, x, j)
         return x
+
+    def _symbol(self, lams, c_ax, c_dt):
+        """``c_ax * sum_j lams[j] + c_dt`` broadcast over the axes, formed
+        at run time from the per-axis vectors."""
+        lam = lams[0].reshape((-1,) + (1,) * (self.ndim - 1))
+        for j in range(1, self.ndim):
+            shape = [1] * self.ndim
+            shape[j] = -1
+            lam = lam + lams[j].reshape(shape)
+        return c_ax * lam + c_dt
+
+    def _divide(self, y, sym, c_ax, pseudo: bool):
+        """``y / sym``; ``pseudo``: the (near-)null modes zeroed instead."""
+        if pseudo:
+            cut = 1e-10 * self.lam_scale * abs(float(c_ax))
+            safe = torch.where(sym == 0, torch.ones_like(sym), sym)
+            inv = torch.where(sym.abs() <= cut, torch.zeros_like(sym), 1.0 / safe)
+            return y * inv[None]
+        return y / sym[None]
 
     def solve(self, r: torch.Tensor, c_ax, c_dt=0.0, pseudo: bool = False) -> torch.Tensor:
         """``(c_ax * sum_j T_j + c_dt I)^{-1} r`` on the active set.
@@ -225,21 +255,93 @@ class FastDiag:
         dt_in = r.dtype
         tdt = self.fwd[0].dtype
         y = self._transform(self.fwd, r.to(tdt)).to(dt_in)
-        # Eigen-symbol formed at run time from the per-axis vectors.
-        lam = self.lams[0].reshape((-1,) + (1,) * (self.ndim - 1))
-        for j in range(1, self.ndim):
-            shape = [1] * self.ndim
-            shape[j] = -1
-            lam = lam + self.lams[j].reshape(shape)
-        sym = c_ax * lam + c_dt
-        if pseudo:
-            cut = 1e-10 * self.lam_scale * abs(float(c_ax))
-            safe = torch.where(sym == 0, torch.ones_like(sym), sym)
-            inv = torch.where(sym.abs() <= cut, torch.zeros_like(sym), 1.0 / safe)
-            y = y * inv[None]
-        else:
-            y = y / sym[None]
+        y = self._divide(y, self._symbol(self.lams, c_ax, c_dt), c_ax, pseudo)
         return self._transform(self.inv, y.to(tdt)).to(dt_in)
+
+    def embedded(self, slicer, nodes) -> tuple:
+        """``(fwd, inv, lams, active)``, per mesh axis, on the whole node
+        axis of ``nodes`` nodes: the factors in the rows and columns of the
+        active range ``slicer[j]`` and the identity elsewhere, the
+        eigenvalues there and 0 elsewhere, and the active range as a bool
+        vector. A residual that is 0 off the active set transforms to the
+        active-set solve's values there and to 0 elsewhere, so every block
+        of a placed solve has the whole axis and a pencil divides on node
+        counts. Made once per active set, on the factors' device."""
+        key = tuple(s.indices(n) for s, n in zip(slicer, nodes))
+        if key not in self._embedded:
+            out = ([], [], [], [])
+            for j, (s, n) in enumerate(zip(slicer, nodes)):
+                act = slice(*s.indices(n)[:2])
+                for dst, src in ((out[0], self.fwd[j]), (out[1], self.inv[j])):
+                    m = torch.eye(n, dtype=src.dtype, device=src.device)
+                    m[act, act] = src
+                    dst.append(m)
+                lam = torch.zeros(n, dtype=self.lams[j].dtype, device=self.lams[j].device)
+                lam[act] = self.lams[j]
+                out[2].append(lam)
+                on = torch.zeros(n, dtype=torch.bool, device=lam.device)
+                on[act] = True
+                out[3].append(on)
+            self._embedded[key] = tuple(tuple(v) for v in out)
+        return self._embedded[key]
+
+    def place(self, slicer, lay) -> dict:
+        """``{device: embedded fwd + inv + lams + active}`` for the devices
+        of the placed layout ``lay`` (``device_cache.device_copies``: made
+        once, then the same tensors), its pencils checked
+        (``NotImplementedError`` where one cannot divide). The solve's
+        build calls it, so no loop makes them."""
+        from pyapes_tpu_torch.utils.device_cache import device_copies
+
+        lay.pencils()
+        fwd, inv, lams, act = self.embedded(slicer, lay.grid)
+        return device_copies(fwd + inv + lams + act, lay.devices)
+
+    def solve_blocks(self, r, slicer, c_ax, c_dt=0.0, pseudo: bool = False):
+        """``solve`` of a block vector ``r`` (``blocks.BlockTensor``, 0 off
+        the active set ``slicer``) on its blocks' devices, with the
+        ``embedded`` factors on each block's device (``place``): per mesh
+        axis, in the order of ``Layout.pencils``, the blocks moved to the
+        pencil in which that axis is whole (``blocks.move_parts``) and each
+        block's GEMM run on its device (the forms of ``_along``); the
+        symbol divide per block from its slices of the per-axis eigenvalues
+        (1 off the active set; the global symbol is never formed); the
+        inverse transforms in the reverse order, back to ``r``'s layout.
+        Returns the block vector of the solution on the active set and 0
+        elsewhere."""
+        from pyapes_tpu_torch.parallel.blocks import BlockTensor, move_parts
+
+        lay, nd = r.placement, self.ndim
+        per = self.place(slicer, lay)
+        dt_in, tdt = r.dtype, self.fwd[0].dtype
+        plan, cur = lay.pencils(), lay
+        parts = [p.to(tdt).contiguous() for p in r.parts]
+
+        def run(steps, k):
+            nonlocal parts, cur
+            with self._scope(lay.devices, self.fwd):
+                for a, pen in steps:
+                    if pen is not cur:
+                        parts = move_parts(parts, cur, pen, r.shape)
+                        cur = pen
+                    for b, (_, _, dev) in enumerate(cur.blocks):
+                        parts[b] = self._along(per[dev][k * nd + a], parts[b], a)
+
+        run(plan, 0)
+        for b, (_, sl, dev) in enumerate(cur.blocks):
+            c = per[dev]
+            sym = self._symbol([c[2 * nd + j][sl[j]] for j in range(nd)], c_ax, c_dt)
+            if not pseudo:  # 0 / 1 off the active set
+                on = c[3 * nd][sl[0]].reshape((-1,) + (1,) * (nd - 1))
+                for j in range(1, nd):
+                    on = on & c[3 * nd + j][sl[j]].reshape([-1 if k == j else 1
+                                                             for k in range(nd)])
+                sym = torch.where(on, sym, 1.0)
+            parts[b] = self._divide(parts[b].to(dt_in), sym, c_ax, pseudo).to(tdt)
+        run(plan[::-1], 1)
+        if cur is not lay:
+            parts = move_parts(parts, cur, lay, r.shape)
+        return BlockTensor([p.to(dt_in) for p in parts], lay, r.shape)
 
 
 class FDPrecond:
@@ -252,8 +354,10 @@ class FDPrecond:
     and never re-factorizes.
 
     ``pre_scale``: the CG row scale's inverse ``1/D`` on the active set
-    (``(1, *active)``), or None: the CG loop solves ``D A x = D b``, whose
-    inverse is ``A^{-1} D^{-1}``."""
+    (``(1, *active)``; on a placed solve a block vector ``(1, *grid)``), or
+    None: the CG loop solves ``D A x = D b``, whose inverse is ``A^{-1}
+    D^{-1}``. A block vector ``r`` (a placed solve) goes whole to
+    ``FastDiag.solve_blocks``, no view taken."""
 
     def __init__(self, fd: FastDiag, act_sel, pseudo: bool = False, pre_scale=None):
         self.fd = fd
@@ -268,6 +372,12 @@ class FDPrecond:
         self.c_dt = c_dt
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        from pyapes_tpu_torch.parallel.blocks import BlockTensor
+
+        if isinstance(r, BlockTensor):  # a placed solve: whole blocks, 0 off the active set
+            ra = r if self.pre_scale is None else r * self.pre_scale
+            return self.fd.solve_blocks(ra, self.act_sel[1:], self.c_ax, self.c_dt,
+                                        pseudo=self.pseudo)
         ra = r[self.act_sel]
         if self.pre_scale is not None:
             ra = ra * self.pre_scale

@@ -22,8 +22,10 @@ axis terms apply block by block wherever ``placed_supported`` holds, and
 through one counted gather on the lead device elsewhere; the active-set
 mask is built block by block, the BCs write the face rows of the blocks on
 their faces, and the symmetrizing row scale and the null vector of a
-singular system are block vectors too. ``dispatch.py`` raises for the
-options outside this path."""
+singular system are block vectors too; the fastdiag solve and the FD
+preconditioner transform the block vectors in pencil layouts
+(``FastDiag.solve_blocks``). ``dispatch.py`` raises for the options
+outside this path."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -309,10 +311,11 @@ def _fd_scalars(term_descs, i_ax):
 
 
 def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=None,
-                     obstacles=False):
+                     obstacles=False, lay=None):
     """The FD preconditioner and its per-call scalar hook; ``(None, None)``
     when the equation has no usable separable part and ``fd_fallback`` is
-    set (an unpreconditioned solve, as the JAX package)."""
+    set (an unpreconditioned solve, as the JAX package). ``lay``: the
+    placed layout, whose pencils must divide (``NotImplementedError``)."""
     try:
         terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, for_precond=True,
                                why="precond 'fd'", obstacles=obstacles)
@@ -322,6 +325,8 @@ def _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0, pre_scale=N
         if config.get("fd_fallback"):
             return None, None
         raise
+    if lay is not None:
+        fd.place(slicer, lay)  # factors on the blocks' devices; a pencil that cannot divide raises
     p = FDPrecond(fd, (slice(None),) + tuple(slicer), pseudo=config.get("nullspace") == "mean",
                   pre_scale=pre_scale)
     scalars = _fd_scalars(term_descs, i_ax)
@@ -458,12 +463,14 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
 
     if method == "fastdiag":
         terms, i_ax = fd_setup(term_descs, tparams, slicer, paxes, obstacles=obstacles)
+        fd = fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device, config.get("fd_opts"))
+        if lay is not None:
+            fd.place(slicer, lay)  # as in _make_fd_precond
         null_shift = None
         if project_mean and any_scale:
-            null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device)
+            null_shift = _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype), x0.device, lay)
         fn = build_fastdiag(
-            Aop, apply_bcs, M, tol, max_it,
-            fastdiag_factors(terms, slicer, paxes, x0.dtype, x0.device, config.get("fd_opts")),
+            Aop, apply_bcs, M, tol, max_it, fd,
             act_sel=act_sel,
             scalars=_fd_scalars(term_descs, i_ax),
             project_mean=project_mean,
@@ -500,10 +507,13 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
         pre_scale = None
         if sym_vecs is not None:
             # the eigen-solve inverts A, so it sees D^-1 r: (D A)^-1 exactly
+            # (placed: over the whole blocks, no view)
             pre_scale = 1.0 / _null_shift_field(_axis_fields(dvs, mesh.dim, x0.dtype),
-                                                x0.device)()[act_sel]
+                                                x0.device, lay)()
+            if lay is None:
+                pre_scale = pre_scale[act_sel]
         precond, precond_setup = _make_fd_precond(config, term_descs, tparams, slicer, paxes, x0,
-                                                  pre_scale, obstacles)
+                                                  pre_scale, obstacles, lay)
     elif precond_kind == "mg":
         # an obstacle system takes the plain-domain V-cycle: the cycle knows
         # nothing of the excluded cells, the Krylov loop masks its output

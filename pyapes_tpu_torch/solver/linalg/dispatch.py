@@ -17,9 +17,11 @@ advection), ``custom`` (``fdm.custom``: a linear torch function; its
 on Cartesian and axisymmetric (rz) grids; with a
 domain decomposition (``decomp``: a ``DomainDecomposition``) the axis and
 advection terms apply block by block (``build.py``). A placed
-decomposition (``devices`` given: each block on its own device) runs CG
-and BiCGSTAB, unpreconditioned or with ``precond: "mg"``, on block vectors
-(``parallel/blocks.py``): ``x0`` and the RHS are scattered to the blocks
+decomposition (``devices`` given: each block on its own device) runs
+``"fastdiag"``, and CG and BiCGSTAB unpreconditioned or with ``precond``
+``"mg"`` or ``"fd"``, on block vectors (``parallel/blocks.py``; the
+eigen-transforms in pencil layouts, the blocks moved between them by an
+all-to-all of peer copies): ``x0`` and the RHS are scattered to the blocks
 at entry (the JAX package's ``_commit_to_decomp``) and the solution is
 gathered back into the Field at exit; every other option raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item
@@ -252,18 +254,16 @@ def _check_decomp(decomp, x0) -> None:
             )
 
 
-def _check_placed(config, method, term_descs, bcs, x0, sync, debug) -> None:
+def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
     """Raise ``NotImplementedError`` for what a placed decomposition does not
-    take yet, each naming its ``ROADMAP.md`` item."""
+    take yet, each naming its ``ROADMAP.md`` item (it takes fastdiag, CG
+    and BiCGSTAB, plain or with ``precond`` "mg" or "fd", at constant
+    coefficients)."""
     def later(what, item):
         raise NotImplementedError(f"linalg: {what} on a placed decomposition (blocks on their "
                                   f"own devices) is ported in a later slice (ROADMAP.md {item})")
 
     kinds = {d[0] for d in term_descs}
-    if method == "fastdiag":
-        later("method 'fastdiag'", "A11c")
-    if config.get("precond") in ("fd", "fastdiag"):
-        later("precond 'fd'", "A11c")
     if "diff_field" in kinds:
         later("a variable-Γ term", "A11d")
     if kinds & {"div_field", "conv_field"}:
@@ -363,7 +363,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     debug = config.get("debug") == "nan"
     placed = decomp is not None and decomp.placed
     if placed:
-        _check_placed(config, method, term_descs, bcs, x0, sync, debug)
+        _check_placed(config, term_descs, bcs, x0, sync, debug)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,

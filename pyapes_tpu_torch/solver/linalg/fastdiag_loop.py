@@ -9,6 +9,11 @@ float64 tolerance, ``itr``, the history, the condition), updated in place:
 on the host with one read of the condition per pass, or as a WHILE node
 under a graph capture. It keeps the JAX loop's three exits: the
 tolerance, ``max_it``, and the stall exit at the dtype's accuracy floor.
+On a placed decomposition the vectors are block vectors
+(``parallel/blocks.py``): the residual is the placed apply, the
+eigen-solve ``FastDiag.solve_blocks`` (pencil repartitions between the
+blocks' devices), the update a masked whole-block one, and the mean
+projection sums per-block partials in block order.
 """
 from __future__ import annotations
 
@@ -103,8 +108,10 @@ def build_fastdiag(
         tol, itr, hist, go = loop_state(x, max_it, 1.0 > tolerance and max_it > 0)
 
         def body():
-            e = fd.solve(r[act_sel].contiguous(), c_ax, c_dt, pseudo=project_mean)
-            x[act_sel] += e
+            if isinstance(r, BlockTensor):  # 0 off the active set: a masked whole-block update
+                x.addcmul_(fd.solve_blocks(r, act_sel[1:], c_ax, c_dt, pseudo=project_mean), M_)
+            else:
+                x[act_sel] += fd.solve(r[act_sel].contiguous(), c_ax, c_dt, pseudo=project_mean)
             if project_mean:
                 x.sub_(_vsum(x * M_) / n_act)
             residual(x, out=r)

@@ -27,6 +27,10 @@ _BY_ID: dict = {}
 # identities (held) and the placement
 _BLOCKS: OrderedDict = OrderedDict()
 _BLOCKS_MAX = 64
+# copies of tensors on other devices (the eigen-factors of a placed
+# fastdiag), by the tensors' identities (held) and the device
+_COPIES: OrderedDict = OrderedDict()
+_COPIES_MAX = 64
 
 
 def _capturing(device) -> bool:
@@ -53,6 +57,7 @@ def clear() -> None:
     _CACHE.clear()
     _BY_ID.clear()
     _BLOCKS.clear()
+    _COPIES.clear()
 
 
 def device_array(a, dtype=None, device=None) -> torch.Tensor:
@@ -102,3 +107,27 @@ def block_coeffs(coeffs, layout) -> list:
             _BLOCKS.popitem(last=False)
     _BLOCKS.move_to_end(key)
     return hit[2]
+
+
+def device_copies(tensors, devices) -> dict:
+    """``{device: tensors on it}`` for each of ``devices``: the tuple
+    ``tensors`` itself on its own device, a contiguous copy on another,
+    made at the first call of these tensors (by identity; they are held,
+    so no identity is reused while the entry lives) and device, then the
+    same objects. Least recently used out beyond ``_COPIES_MAX``."""
+    tensors = tuple(tensors)
+    out = {}
+    for dev in dict.fromkeys(torch.device(d) for d in devices):
+        if all(t.device == dev for t in tensors):
+            out[dev] = tensors
+            continue
+        key = (tuple(id(t) for t in tensors), str(dev))
+        hit = _COPIES.get(key)
+        if hit is None:
+            hit = (tensors, tuple(t.to(dev).contiguous() for t in tensors))
+            _COPIES[key] = hit
+            while len(_COPIES) > _COPIES_MAX:
+                _COPIES.popitem(last=False)
+        _COPIES.move_to_end(key)
+        out[dev] = hit[1]
+    return out

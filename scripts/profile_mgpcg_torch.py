@@ -13,7 +13,7 @@ channel or the 3-D Taylor-Green LES).
     python scripts/profile_mgpcg_torch.py --rfp [--n 512] [--out ...]
     python scripts/profile_mgpcg_torch.py --channel [--n 83] [--out ...]
     python scripts/profile_mgpcg_torch.py --periodic [--n 64] [--out ...]
-    python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--fastdiag] [--out ...]
+    python scripts/profile_mgpcg_torch.py --decomp 4,2,1 [--placed] [--fastdiag] [--out ...]
     python scripts/profile_mgpcg_torch.py --root build/parent --quick [--out ...]
 
 The problem is ``chip_smoke.py``'s MG-PCG path (``bench.py``'s cg config:
@@ -50,11 +50,12 @@ fastdiag pressure solve, the strain rate, the skew advection and the
 projection between them) after two warm steps.
 ``--decomp 4,2,1`` solves the Poisson problem
 with that ``DomainDecomposition`` (the block-wise applies through the
-halo-extended kernel), and ``--fastdiag`` takes ``chip_smoke.py``'s
-fastdiag path instead of MG-PCG. ``--root`` is the checkout whose ``pyapes_tpu_torch``
-is profiled (default: this one; e.g. a parent commit unpacked under
-``build/``, for a profile of both versions in one call); the problems are
-this checkout's.
+halo-extended kernel; ``--placed``: each block its own allocation, round
+robin over the cards the machine shows), and ``--fastdiag`` takes
+``chip_smoke.py``'s fastdiag path instead of MG-PCG. ``--root`` is the
+checkout whose ``pyapes_tpu_torch`` is profiled (default: this one; e.g. a
+parent commit unpacked under ``build/``, for a profile of both versions in
+one call); the problems are this checkout's.
 After one warm-up solve (step), ``torch.profiler`` records one; the script
 prints (and writes to ``<out>/summary.json``, next to the Chrome trace):
 
@@ -76,6 +77,7 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import re
 import subprocess
@@ -145,6 +147,8 @@ def main() -> None:
     p.add_argument("--decomp", default=None,
                    help="blocks per axis, e.g. 4,2,1: a decomposed Poisson solve")
     p.add_argument("--fastdiag", action="store_true", help="the fastdiag Poisson solve")
+    p.add_argument("--placed", action="store_true",
+                   help="with --decomp: the blocks placed round robin over the cards")
     p.add_argument("--fused", action="store_true",
                    help="with --cavity/--channel/--periodic: the bootstrap through "
                         "run(fused=True), then one step of the fused runner (one CUDA graph "
@@ -246,7 +250,11 @@ def main() -> None:
         if args.fastdiag:
             cfg = {"method": "fastdiag", "tol": 1e-6, "max_it": 4000, "criterion": "residual"}
         if args.decomp:
-            cfg["decomp"] = DomainDecomposition(tuple(int(m) for m in args.decomp.split(",")))
+            ms = tuple(int(m) for m in args.decomp.split(","))
+            k = torch.cuda.device_count()
+            devs = (tuple(f"cuda:{i % k}" for i in range(math.prod(ms))) if args.placed
+                    else None)
+            cfg["decomp"] = DomainDecomposition(ms, devices=devs)
         solver = Solver({"fdm": cfg})
         fdm = FDM()
 
@@ -313,6 +321,7 @@ def main() -> None:
                  else "darcy" if args.darcy else "poisson"),
         "method": ("fused model step" if args.fused else "model step" if step
                    else "fastdiag" if args.fastdiag else "mg-pcg"), "decomp": args.decomp,
+        "placed": args.placed,
         "n": n, "itr": rep["itr"],
         "tol": rep["tol"],
         "wall_unprofiled_ms": wall * 1e3, "wall_profiled_ms": wall_prof * 1e3,

@@ -1833,6 +1833,11 @@ PLACED_CFGS = {
            "precond": "mg"},
     "mg_bicgstab": {"method": "bicgstab", "tol": 1e-8, "max_it": 200, "criterion": "residual",
                     "precond": "mg"},
+    "fastdiag": {"method": "fastdiag", "tol": 1e-8, "max_it": 50, "criterion": "residual"},
+    "cg_fd": {"method": "cg", "tol": 1e-8, "max_it": 200, "criterion": "residual",
+              "precond": "fd"},
+    "bicgstab_fd": {"method": "bicgstab", "tol": 1e-8, "max_it": 200, "criterion": "residual",
+                    "precond": "fd"},
 }
 # (|d itr|, atol) against the view-based solve. Unpreconditioned BiCGSTAB
 # on this SPD problem converges erratically: RHS perturbations of 1e-15
@@ -1848,12 +1853,15 @@ def test_cuda_placed_on_one_card_equals_the_view_based_solve(cuda, method):
     """Eight blocks placed on cuda:0, each its own allocation: the view-based
     decomposition's itr and solution (1e-12; unpreconditioned BiCGSTAB:
     ``PLACED_GATES``), one halo-extended launch per block and placed apply,
-    no gather in CG or BiCGSTAB."""
+    no gather in CG, BiCGSTAB or fastdiag; the FD paths move whole vectors
+    between pencils, every byte within the one card."""
     from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
 
     nx = (32, 32, 64)
     ref, rref = _placed_solve(cuda, nx, PLACED_CFGS[method], DomainDecomposition((4, 2, 1)))
     e0, a0, g0 = axis_stencil_ext.launches, halo.placed_applies, blocks.gathers
+    r0, w0, x0 = (blocks.repartitions, blocks.repartition_bytes_within,
+                  blocks.repartition_bytes_across)
     out, rep = _placed_solve(cuda, nx, PLACED_CFGS[method],
                              DomainDecomposition((4, 2, 1), devices=("cuda:0",) * 8))
     torch.cuda.synchronize()
@@ -1863,20 +1871,27 @@ def test_cuda_placed_on_one_card_equals_the_view_based_solve(cuda, method):
     assert applies > rep["itr"] and axis_stencil_ext.launches - e0 == 8 * applies
     if not method.startswith("mg"):
         assert blocks.gathers == g0
+    moves = blocks.repartitions - r0
+    assert (moves > 0) == (method in ("fastdiag", "cg_fd", "bicgstab_fd"))
+    assert blocks.repartition_bytes_within - w0 == moves * int(np.prod(nx)) * 8
+    assert blocks.repartition_bytes_across == x0
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["cg3d", "mg3d", "cg2d"])
+@pytest.mark.parametrize("case", ["cg3d", "mg3d", "cg2d", "fd3d", "fd2d"])
 def test_cuda_mixed_card_and_cpu_placement(cuda, case):
     """Blocks alternating between cuda:0 and the CPU (the Field on cuda:0):
     every operation of a block takes its own device's operands, the card
-    blocks launch the kernels and the CPU blocks run the plain versions;
-    the view-based solve's itr and solution (1e-10)."""
+    blocks launch the kernels and the CPU blocks run the plain versions
+    (the fastdiag repartitions copy between the card and the CPU); the
+    view-based solve's itr and solution (1e-10)."""
     from pyapes_tpu_torch.parallel import DomainDecomposition
 
     nx, ms, cfg = {"cg3d": ((32, 32, 32), (2, 2, 2), PLACED_CFGS["cg"]),
                    "mg3d": ((32, 32, 32), (2, 2, 2), PLACED_CFGS["mg"]),
-                   "cg2d": ((64, 64), (4, 1), PLACED_CFGS["cg"])}[case]
+                   "cg2d": ((64, 64), (4, 1), PLACED_CFGS["cg"]),
+                   "fd3d": ((32, 32, 32), (2, 2, 2), PLACED_CFGS["fastdiag"]),
+                   "fd2d": ((64, 64), (4, 1), PLACED_CFGS["fastdiag"])}[case]
     devs = ("cuda:0", "cpu") * (int(np.prod(ms)) // 2)
     ref, rref = _placed_solve(cuda, nx, cfg, DomainDecomposition(ms), seed=1)
     e0, s0 = axis_stencil_ext.launches, axis_stencil.launches
@@ -1886,19 +1901,22 @@ def test_cuda_mixed_card_and_cpu_placement(cuda, case):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-10, rtol=0)
 
 
-@pytest.mark.parametrize("method", ["cg", "mg"])
+@pytest.mark.parametrize("method", ["cg", "mg", "fastdiag", "cg_fd"])
 def test_cuda_placed_across_two_cards(cuda, method):
     """Blocks round robin over cuda:0 and cuda:1 (peer copies of the ghost
-    faces, partials moved to the lead card): the view-based solve on cuda:0
-    (the same itr, 1e-12)."""
-    from pyapes_tpu_torch.parallel import DomainDecomposition
+    faces and, on the FD paths, of the pencil repartitions' slices;
+    partials moved to the lead card): the view-based solve on cuda:0 (the
+    same itr, 1e-12)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
 
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip(f"needs two cards; this machine shows {n}")
     nx = (32, 32, 64)
     ref, rref = _placed_solve(cuda, nx, PLACED_CFGS[method], DomainDecomposition((4, 2, 1)))
+    x0 = blocks.repartition_bytes_across
     out, rep = _placed_solve(cuda, nx, PLACED_CFGS[method],
                              DomainDecomposition((4, 2, 1), devices=("cuda:0", "cuda:1") * 4))
     assert rep["converge"] and rep["itr"] == rref["itr"], (rep, rref)
+    assert (blocks.repartition_bytes_across > x0) == (method in ("fastdiag", "cg_fd"))
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)

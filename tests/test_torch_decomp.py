@@ -138,6 +138,46 @@ def sharded_fastdiag(P, decomp):
                              {"method": "fastdiag", "tol": 1e-10, "max_it": 50})
 
 
+def neumann_fastdiag(P, decomp):
+    """All-Neumann 2-D fastdiag on the zero-mean quotient space (the
+    pseudo-inverse eigen-solve, the 3/2 row scale's null vector)."""
+    mesh = P.Mesh(P.Box[U2], [32, 32])
+    var = P.Field("p", 1, mesh, {"domain": P.bcs.homogeneous_bcs(2, 0.0, "neumann"),
+                                 "obstacle": None}, init_val=0.0)
+    r = np.random.default_rng(8).standard_normal((1, 32, 32))
+    cfg = {"method": "fastdiag", "tol": 1e-10, "max_it": 50, "nullspace": "mean"}
+    return _solve(P, decomp, mesh, var, P.FDM().laplacian(1.0, var), P.arr(r - r.mean()), cfg)
+
+
+def periodic_fastdiag(P, decomp):
+    """``periodic2d``'s torus (axis 0 periodic) through fastdiag: a
+    circulant axis, every torus node active."""
+    mesh = P.Mesh(P.Box[U2], [33, 32])
+    bc = P.bcs.mixed_bcs([None, None, 0, 0], ["periodic", "periodic", "dirichlet", "dirichlet"])
+    var = P.Field("p", 1, mesh, {"domain": bc, "obstacle": None}, init_val=0.0)
+    X, Y = np.meshgrid(np.linspace(0, 1, 33), np.linspace(0, 1, 32), indexing="ij")
+    rhs = P.arr((np.sin(2 * pi * X) * np.sin(pi * Y) + 0.1 * X * Y)[None])
+    cfg = {"method": "fastdiag", "tol": 1e-10, "max_it": 50}
+    return _solve(P, decomp, mesh, var, -P.FDM().laplacian(var), rhs, cfg)
+
+
+def fd_precond(P, decomp, method, nx, seed, kinds=None):
+    """CG or BiCGSTAB preconditioned by the fast-diagonalization solve on a
+    seeded random RHS (``kinds``: the faces, value 0; Neumann and Symmetry
+    faces put CG's 3/2 row scale in front of the eigen-solve)."""
+    mesh = P.Mesh(P.Box[(slice(0, 1),) * len(nx)], list(nx))
+    bc = (P.bcs.homogeneous_bcs(len(nx), 0.0, "dirichlet") if kinds is None
+          else P.bcs.mixed_bcs([0.0] * len(kinds), kinds))
+    var = P.Field("p", 1, mesh, {"domain": bc, "obstacle": None}, init_val=0.0)
+    rhs = P.arr(np.random.default_rng(seed).standard_normal((1, *nx)))
+    cfg = {"method": method, "tol": 1e-10, "max_it": 100, "criterion": "residual",
+           "precond": "fd"}
+    return _solve(P, decomp, mesh, var, P.FDM().laplacian(1.0, var), rhs, cfg)
+
+
+MIXED_FACES = ["neumann", "dirichlet", "symmetry", "dirichlet", "dirichlet", "neumann"]
+
+
 def sharded2d(P, decomp):
     return _random_dirichlet(P, decomp, (32, 128), 12,
                              {"method": "cg", "tol": 1e-10, "max_it": 900})
@@ -208,14 +248,27 @@ CASES = {
     "stacked_gamma_2x4": (stacked_gamma, (2, 4), {}, 0, 1e-8),
     "fastdiag_8x1": (lambda P, d: poisson2d(P, d, "fastdiag"), (8, 1), {}, 0, 1e-10),
     "fastdiag_2x4": (lambda P, d: poisson2d(P, d, "fastdiag"), (2, 4), {}, 0, 1e-10),
+    "sharded_fastdiag_4x2x1": (sharded_fastdiag, (4, 2, 1), {}, 0, 1e-10),
+    "neumann_fastdiag_2x4": (neumann_fastdiag, (2, 4), {}, 0, 1e-10),
+    "periodic_fastdiag_2x4": (periodic_fastdiag, (2, 4), {}, 0, 1e-10),
+    "fd_cg3d_4x2x1": (lambda P, d: fd_precond(P, d, "cg", (16, 16, 32), 5, MIXED_FACES),
+                      (4, 2, 1), {}, 0, 1e-10),
+    "fd_bicgstab3d_2x2x2": (lambda P, d: fd_precond(P, d, "bicgstab", (16, 16, 16), 6),
+                            (2, 2, 2), {}, 0, 1e-10),
+    "fd_cg2d_2x4": (lambda P, d: fd_precond(P, d, "cg", (32, 64), 4), (2, 4), {}, 0, 1e-10),
+    "fd_bicgstab2d_8x1": (lambda P, d: fd_precond(P, d, "bicgstab", (64, 32), 2), (8, 1), {},
+                          0, 1e-10),
 }
 
 
-# the cases the placed decomposition takes (CG, BiCGSTAB and MG-PCG with
-# constant coefficients; the fastdiag and variable-Γ cases raise there)
+# the cases the placed decomposition takes (fastdiag, and CG, BiCGSTAB,
+# MG-PCG and FD-preconditioned Krylov with constant coefficients; the
+# variable-Γ cases raise there)
 PLACED_CASES = ("cg2d_8x1", "cg2d_1x8", "cg2d_2x4", "cg2d_4x2", "periodic_2x4", "cg3d_2x2x2",
                 "mgcg2d_2x4", "mixed3d_1x1x2", "sharded_cg_4x2x1", "sharded_mg_4x2x1",
-                "sharded2d_4x1")
+                "sharded2d_4x1", "fastdiag_8x1", "fastdiag_2x4", "sharded_fastdiag_4x2x1",
+                "neumann_fastdiag_2x4", "periodic_fastdiag_2x4", "fd_cg3d_4x2x1",
+                "fd_bicgstab3d_2x2x2", "fd_cg2d_2x4", "fd_bicgstab2d_8x1")
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -170,8 +170,13 @@ _RAISES = {"fd_opts": ValueError, "ddt": NaNError}
 )
 def test_unported_features_raise(case):
     with pytest.raises(_RAISES.get(case, NotImplementedError)):
-        if case == "decomp":  # fastdiag on a placed decomposition (ROADMAP.md A11c)
-            _solve({"decomp": DomainDecomposition((2, 1, 1), devices=("cpu", "cpu"))})
+        if case == "decomp":  # a placed fastdiag whose pencils cannot divide (5 nodes, 2 blocks)
+            mesh = Mesh(Box[0:1, 0:1, 0:1], None, [6, 5, 5], device="cpu", dtype="double")
+            var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")})
+            s = Solver({"fdm": {"method": "fastdiag", "tol": 1e-8, "max_it": 10, "decomp":
+                                DomainDecomposition((2, 1, 1), devices=("cpu", "cpu"))}})
+            s.set_eq(FDM().laplacian(1.0, var) == torch.ones(1, 6, 5, 5, dtype=torch.float64))
+            s.solve()
         elif case == "kernel":  # the JAX package's plain-jnp tier: none on the card
             _solve({"kernel": "jnp"})
         elif case == "fd_opts":  # a precision other than "highest" / "default"
