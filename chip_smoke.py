@@ -2160,11 +2160,11 @@ class _Stepper:
         self.model.step(self.dt)
 
 
-def burgers_model(dev, n: int = N_PATH):
+def burgers_model(dev, n: int = N_PATH, dtype: str = "single", config=None):
     """``BurgersND`` at (n+1)^3 f32 on the periodic box, Taylor-Green start,
     nu 0.1 (BiCGSTAB + the frozen diffusion+dt FD preconditioner, tol 1e-8,
-    the model's defaults): ``(stepper at dt 0.01, steps, kernels every step
-    launches, label)``."""
+    the model's defaults, ``config`` added: a decomposition): ``(stepper at
+    dt 0.01, steps, kernels every step launches, label)``."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -2173,13 +2173,15 @@ def burgers_model(dev, n: int = N_PATH):
     from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
 
     mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [n + 1] * 3, device=str(dev),
-                dtype="single")
+                dtype=dtype)
     X, Y, Z = mesh.X, mesh.Y, mesh.Z
     init = [(torch.sin(X) * torch.cos(Y) * torch.cos(Z))[None],
-            (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None], torch.zeros((1, *mesh.nx))]
+            (-torch.cos(X) * torch.sin(Y) * torch.cos(Z))[None],
+            torch.zeros((1, *mesh.nx), dtype=mesh.dtype.float, device=mesh.device)]
     clear_cache()  # the earlier phases' cached hierarchies and factors
-    return (_Stepper(BurgersND(mesh, nu=0.1, init_vals=init), 0.01), 3,
-            ("conv_component", "axis_stencil"), f"BurgersND {n + 1}^3 f32 Taylor-Green")
+    return (_Stepper(BurgersND(mesh, nu=0.1, init_vals=init, config=config), 0.01), 3,
+            ("conv_component", "axis_stencil"),
+            f"BurgersND {n + 1}^3 {'f32' if dtype == 'single' else 'f64'} Taylor-Green")
 
 
 def phase_burgers(dev, n: int = N_PATH) -> dict:
@@ -2199,12 +2201,13 @@ def phase_burgers(dev, n: int = N_PATH) -> dict:
     return counts
 
 
-def advdiff_model(dev, limiter: str, n: int = N_PATH):
+def advdiff_model(dev, limiter: str, n: int = N_PATH, dtype: str = "single", config=None):
     """``AdvectionDiffusion`` at n^3 f32 on the unit box with homogeneous
     Dirichlet faces, eps = 0.01, a Gaussian blob: ``limiter`` "upwind"
     with the velocity field 1 + 0.5 sin 2πx sin 2πy sin 2πz (5 steps),
-    "quick" with the constant velocity 1 (3 steps); ``(stepper at dt 1e-3,
-    steps, kernels every step launches, label)``."""
+    "quick" with the constant velocity 1 (3 steps), ``config`` added to the
+    model's solver (a decomposition); ``(stepper at dt 1e-3, steps, kernels
+    every step launches, label)``."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -2213,7 +2216,7 @@ def advdiff_model(dev, limiter: str, n: int = N_PATH):
     from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
     from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
 
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype=dtype)
     X, Y, Z = mesh.X, mesh.Y, mesh.Z
     blob = torch.exp(-((X - 0.5) ** 2 + (Y - 0.5) ** 2 + (Z - 0.5) ** 2) / (2 * 0.1**2))[None]
     if limiter == "upwind":
@@ -2225,8 +2228,9 @@ def advdiff_model(dev, limiter: str, n: int = N_PATH):
         required = ("axis_stencil5", "axis_stencil")
     clear_cache()
     model = AdvectionDiffusion(mesh, homogeneous_bcs(3, 0.0, "dirichlet"), velocity=velocity,
-                               epsilon=0.01, limiter=limiter, init_val=blob)
-    return _Stepper(model, 1e-3), steps, required, f"AdvectionDiffusion {n}^3 f32 {what}"
+                               epsilon=0.01, limiter=limiter, init_val=blob, config=config)
+    return (_Stepper(model, 1e-3), steps, required,
+            f"AdvectionDiffusion {n}^3 {'f32' if dtype == 'single' else 'f64'} {what}")
 
 
 def phase_advdiff(dev, n: int = N_PATH) -> dict:
@@ -2289,10 +2293,11 @@ def phase_burgers_xonly(dev, n: int = N_PATH) -> None:
     print(f"[9 Burgers x-only check] {n + 1}^3 f64 nu={nu}: {json.dumps(out)}", flush=True)
 
 
-def _path_problem(dev, n, darcy=False, paxes=()):
-    """The path cells' 3-D f32 Poisson problem: the mesh, the all-Dirichlet
-    field (``paxes`` periodic, n + 1 nodes each), the seeded random RHS and
-    the coefficient (1, or with ``darcy`` ``bench_darcy``'s Γ field)."""
+def _path_problem(dev, n, darcy=False, paxes=(), dtype: str = "single"):
+    """The path cells' 3-D f32 (``dtype``) Poisson problem: the mesh, the
+    all-Dirichlet field (``paxes`` periodic, n + 1 nodes each), the seeded
+    random RHS and the coefficient (1, or with ``darcy`` ``bench_darcy``'s
+    Γ field)."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -2302,12 +2307,12 @@ def _path_problem(dev, n, darcy=False, paxes=()):
 
     nodes = [n + 1 if j in paxes else n for j in range(3)]
     kinds = [k for j in range(3) for k in ("periodic" if j in paxes else "dirichlet",) * 2]
-    mesh = Mesh(Box[0:1, 0:1, 0:1], None, nodes, device=str(dev), dtype="single")
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, nodes, device=str(dev), dtype=dtype)
     var = Field("p", 1, mesh, {"domain": mixed_bcs([None if k == "periodic" else 0.0
                                                     for k in kinds], kinds),
                                "obstacle": None}, init_val=0.0)
     g = torch.Generator(device=mesh.device).manual_seed(0)
-    rhs = torch.randn((1, *nodes), generator=g, device=mesh.device, dtype=torch.float32)
+    rhs = torch.randn((1, *nodes), generator=g, device=mesh.device, dtype=mesh.dtype.float)
     coeff = 1.0
     if darcy:
         coeff = torch.exp(0.8 * torch.sin(2 * pi * mesh.X) * torch.sin(2 * pi * mesh.Y)
@@ -3740,12 +3745,13 @@ PERIODIC_CMP_TOL = 1e-10
 
 
 def tgv_model(dev, n: int = TGV_N, dtype: str = "single", les: bool = True, cs: float = 0.17,
-              re: float = 1600.0):
+              re: float = 1600.0, config=None):
     """``demos/tgv3d_les.py``'s cell: ``PeriodicFlow`` on [0, 2 pi]^3 at n^3
     nodes, nu 1/re, the Smagorinsky closure (cs; without it with ``les``
     false), the model's default solves (BiCGSTAB momentum through the
-    variable-Γ kernel, fastdiag pressure), the default ``sync``; the
-    Taylor-Green start. Returns (model, dt = 0.2 dx)."""
+    variable-Γ kernel, fastdiag pressure), the default ``sync``, ``config``
+    added to them (a decomposition); the Taylor-Green start. Returns
+    (model, dt = 0.2 dx)."""
     import torch
 
     from pyapes_tpu_torch.geometry import Box
@@ -3756,7 +3762,7 @@ def tgv_model(dev, n: int = TGV_N, dtype: str = "single", les: bool = True, cs: 
     clear_cache()
     L, nu = 2 * pi, 1.0 / re
     mesh = Mesh(Box[0:L, 0:L, 0:L], None, [n] * 3, device=str(dev), dtype=dtype)
-    model = PeriodicFlow(mesh, nu=nu,
+    model = PeriodicFlow(mesh, nu=nu, config=config,
                          mu_strain_fn=smagorinsky_viscosity(nu, mesh, cs=cs) if les else None)
     X, Y, Z = mesh.X, mesh.Y, mesh.Z
     model.set_velocity(torch.sin(X) * torch.cos(Y) * torch.cos(Z),
@@ -5030,15 +5036,27 @@ def _placed_counters() -> dict:
     from pyapes_tpu_torch.solver import multigrid
 
     return {**_counts(), "gathers": blocks.gathers, "exchange_bytes": halo.exchange_bytes,
+            "exchange_bytes_across": halo.exchange_bytes_across,
             "placed_applies": halo.placed_applies, "vcycles": multigrid.vcycles,
-            "cycle_gathers": multigrid.cycle_gathers, "repartitions": blocks.repartitions,
+            "cycle_gathers": multigrid.cycle_gathers, "fmg_gathers": multigrid.fmg_gathers,
+            "operand_scatters": blocks.operand_scatters, "repartitions": blocks.repartitions,
             "repartition_bytes_across": blocks.repartition_bytes_across,
             "repartition_bytes_within": blocks.repartition_bytes_within}
 
 
-def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True) -> dict:
-    """A warm-up (``warm``) and ``solves`` timed solves of ``-lap = rhs``
-    through ``Solver.solve`` with ``cfg``: per timed solve its report, wall
+def _counted_drive(launches: dict, fn):
+    """``fn()`` with the kernels' counts set to 0 just before and added to
+    ``launches`` just after (a placed drive)."""
+    _reset_counts()
+    out = fn()
+    for k, c in _counts().items():
+        launches[k] = launches.get(k, 0) + c
+    return out
+
+
+def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True, coeff=1.0) -> dict:
+    """A warm-up (``warm``) and ``solves`` timed solves of ``lap(coeff) =
+    rhs`` through ``Solver.solve`` with ``cfg``: per timed solve its report, wall
     and counter deltas (launches, ``blocks.gathers``, ``exchange_bytes``,
     placed applies, V-cycles and their gathers, repartitions and their
     bytes); the last solution; the peak memory of each card over the timed
@@ -5051,7 +5069,7 @@ def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True) -> dict:
     solver = Solver({"fdm": {"report": False, **cfg}})
     fdm = FDM()
     if warm:
-        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        solver.set_eq(fdm.laplacian(coeff, var) == rhs)
         solver.solve()
     _sync_all()
     cards = range(torch.cuda.device_count())
@@ -5060,7 +5078,7 @@ def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True) -> dict:
     rows = []
     for _ in range(solves):
         var.set_var_tensor(torch.zeros_like(var()))
-        solver.set_eq(fdm.laplacian(1.0, var) == rhs)
+        solver.set_eq(fdm.laplacian(coeff, var) == rhs)
         _sync_all()
         c0 = _placed_counters()
         tic = time.perf_counter()
@@ -5117,6 +5135,7 @@ def _placed_summary(label, run, n_cuda_blocks: int, ghost=None) -> dict:
         "vcycles_per_solve": last["vcycles"],
         "exchange_bytes_per_solve": last["exchange_bytes"],
         "exchange_bytes_per_apply": last["exchange_bytes"] / last["placed_applies"],
+        "exchange_bytes_across_per_solve": last["exchange_bytes_across"],
         "repartitions_per_solve": last["repartitions"],
         "repartition_bytes_across_per_solve": last["repartition_bytes_across"],
         "repartition_bytes_within_per_solve": last["repartition_bytes_within"],
@@ -5140,11 +5159,7 @@ def _driver(launches: dict):
     kernels' counts set to 0 just before and added to ``launches`` just
     after."""
     def drive(var, rhs, cfg, solves, warm=True):
-        _reset_counts()
-        run = run_layout(var, rhs, cfg, solves, warm)
-        for k, c in _counts().items():
-            launches[k] = launches.get(k, 0) + c
-        return run
+        return _counted_drive(launches, lambda: run_layout(var, rhs, cfg, solves, warm))
 
     return drive
 
@@ -5243,6 +5258,351 @@ def placed_fastdiag(dev, drive) -> dict:
     return out
 
 
+PLACED_E_TOL = 1e-5  # (i): <E> of the placed LES against the view-based run, relative (f32)
+# (g)-(i): f32 BiCGSTAB solves, whose count follows the dots' rounding (the
+# placed dots sum per block; one solve may end at the f32 floor a few passes
+# before or after the view-based one): the total itr of the run within this
+# slack per step of the view-based total
+PLACED_BICG_SLACK = 5
+PLACED_TGV_WARM, PLACED_TGV_STEPS = 2, 10  # (i): steps of the 257^3 rung
+# (i): the f32 LES's momentum solves end at the f32 floor (tol 1e-8), a
+# pass sooner or later in the two layouts; 12 steps spread the fields to
+# ~3e-3 of their largest value (2.6e-3 on an H100 80GB HBM3 at 700 W),
+# while <E> stays within PLACED_E_TOL
+PLACED_LES_AGREE = 1e-2
+PLACED_TERMS_CMP = {"darcy": 32, "burgers": 16, "tgv": 17}  # the card/CPU mixes, f64
+
+
+def _model_solvers(model) -> list:
+    return [getattr(model, k) for k in ("mom_solver", "p_solver", "solver") if hasattr(model, k)]
+
+
+def run_steps(stepper, steps: int, warm: int = 0) -> dict:
+    """``warm`` steps, then ``steps`` timed steps of a model: every solve's
+    report of the timed steps (``itr``, ``tol``; ``converge``: every Krylov
+    solve converged), the wall of
+    each step, the counters' deltas over the timed steps, the peak memory
+    of each card over them, and the state fields (and a flow's kinetic
+    energy) after them."""
+    import torch
+
+    reports = []
+    for solver in _model_solvers(stepper.model):
+        real = solver.solve
+
+        def solve(real=real, method=solver.config["fdm"]["method"]):
+            rep = real()
+            reports.append({**rep, "method": method})
+            return rep
+
+        solver.solve = solve
+    for _ in range(warm):
+        stepper.step()
+    _sync_all()
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    del reports[:]
+    c0, walls = _placed_counters(), []
+    for _ in range(steps):
+        tic = time.perf_counter()
+        stepper.step()
+        _sync_all()
+        walls.append(time.perf_counter() - tic)
+    c1 = _placed_counters()
+    model = stepper.model
+    fields = (model.state_fields() if hasattr(model, "state_fields")
+              else getattr(model, "vel", None) or [model.var])
+    energy = float(model.kinetic_energy()) if hasattr(model, "kinetic_energy") else None
+    return {"itr": [r["itr"] for r in reports], "tol": [r["tol"] for r in reports],
+            # an f32 fastdiag solve may end at its stall exit (the f32 floor)
+            "converge": all(r["converge"] or r["method"] == "fastdiag" for r in reports),
+            "wall_s": walls, "energy": energy,
+            "wall_s_per_step_median": statistics.median(walls),
+            "counts": {k: c1[k] - c0[k] for k in c1},
+            "peak_gib": [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards],
+            "fields": [f().clone() for f in fields]}
+
+
+def _fields_rel(a: list, b: list) -> float:
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def _apply_bytes(fn) -> int:
+    """``halo.exchange_bytes`` moved by one call of ``fn``."""
+    from pyapes_tpu_torch.parallel import halo
+
+    b0 = halo.exchange_bytes
+    fn()
+    _sync_all()
+    return halo.exchange_bytes - b0
+
+
+def _placed_model_case(label, make, placed_dd, launches, steps, required, n_cuda, warm=0,
+                       agree=PLACED_AGREE) -> tuple:
+    """A model stepped ``warm`` + ``steps`` times with the view-based
+    decomposition, then on the placed blocks (the kernels counted from 0
+    into ``launches``): each of ``required`` launched a multiple of the card
+    blocks, no gather, every solve converged, the timed steps' total ``itr``
+    within ``PLACED_BICG_SLACK`` per step of the view-based total, the
+    fields within ``agree`` relative. Returns
+    (the numbers, the placed model)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    view_stepper = make({"decomp": DomainDecomposition(N_DECOMP)})
+    view = run_steps(view_stepper, steps, warm)
+    del view_stepper
+    stepper = make({"decomp": placed_dd})
+    run = _counted_drive(launches, lambda: run_steps(stepper, steps, warm))
+    c = run["counts"]
+    d_itr = abs(sum(run["itr"]) - sum(view["itr"]))
+    rel = _fields_rel(run["fields"], view["fields"])
+    bad = [k for k in required if c[k] == 0 or c[k] % max(n_cuda, 1)]
+    if not (run["converge"] and len(run["itr"]) == len(view["itr"])
+            and d_itr <= PLACED_BICG_SLACK * steps and rel <= agree and c["gathers"] == 0
+            and not bad):
+        raise RuntimeError(f"chip_smoke: {label}: itr {run['itr']} against the view-based "
+                           f"{view['itr']}, fields max|dx|/max|x| {rel:.3e} (limit {agree}), "
+                           f"gathers {c['gathers']}, launches not per card block {bad}: {c}")
+    out = {"steps": steps, "warm": warm, "itr": run["itr"], "view_itr": view["itr"],
+           "tol": run["tol"], "max_rel_diff_vs_view": rel,
+           "wall_s_per_step": run["wall_s"],
+           "wall_s_per_step_median": run["wall_s_per_step_median"],
+           "view_wall_s_per_step_median": view["wall_s_per_step_median"],
+           "placed_over_view": run["wall_s_per_step_median"] / view["wall_s_per_step_median"],
+           "gathers": c["gathers"], "operand_scatters": c["operand_scatters"],
+           "repartitions": c["repartitions"],
+           "launches_per_card_block": {k: c[k] / max(n_cuda, 1) for k in required},
+           "launches": {k: c[k] for k in _counts() if c[k]},
+           "exchange_bytes": c["exchange_bytes"],
+           "exchange_bytes_across_cards": c["exchange_bytes_across"],
+           "repartition_bytes_across_cards": c["repartition_bytes_across"],
+           "placed_applies": c["placed_applies"],
+           "peak_mem_gib_per_card": run["peak_gib"], "view_peak_mem_gib_per_card": view["peak_gib"]}
+    if run["energy"] is not None:
+        out.update({"energy": run["energy"], "view_energy": view["energy"]})
+    return out, stepper.model
+
+
+def _mixed_case(dev, label, run_fn, placed_devs) -> dict:
+    """``run_fn(decomp) -> (itr per solve, fields)`` with the view-based
+    decomposition on the card and on the mixed placement ``placed_devs``:
+    the same itr solve by solve and the fields within ``PLACED_CMP_TOL``."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+
+    v_itr, v_f = run_fn(DomainDecomposition(N_DECOMP))
+    g0, tic = blocks.gathers, time.perf_counter()
+    p_itr, p_f = run_fn(DomainDecomposition(N_DECOMP, devices=placed_devs))
+    wall = time.perf_counter() - tic
+    rel = _fields_rel(p_f, v_f)
+    if p_itr != v_itr or not rel <= PLACED_CMP_TOL:
+        raise RuntimeError(f"chip_smoke: (mixed) {label} on {placed_devs}: itr {p_itr} against "
+                           f"{v_itr}, max|dx|/max|x| {rel:.3e} (limit {PLACED_CMP_TOL})")
+    return {"devices": list(placed_devs), "solves": len(p_itr), "itr": p_itr,
+            "max_rel_diff_vs_view": rel, "gathers": blocks.gathers - g0, "wall_s": wall}
+
+
+def placed_terms(dev, launches: dict) -> dict:
+    """Phase 17 (f)-(i) (``phase_placed``): the variable-Γ and Div/Conv terms
+    and ``PeriodicFlow`` on ``N_DECOMP`` placed blocks (round robin over the
+    cards), each against the view-based decomposition of the same problem,
+    and a card/CPU mix of (f), (g) and (i) at a small f64 size; the placed
+    drives' kernels counted into ``launches``. Returns the numbers,
+    checked."""
+    import torch
+
+    from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
+    from pyapes_tpu_torch.ops.diff_field import diff_field
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    devs = placed_devices(prod(N_DECOMP))
+    n_cuda = sum(1 for d in devs if d.startswith("cuda"))
+    placed_dd = DomainDecomposition(N_DECOMP, devices=devs)
+    out = {}
+
+    # (f) bench_darcy's problem: CG + the bf16 Γ-aware V(2,2) FMG
+    n = N_DARCY
+    mesh, var, rhs, coeff = _path_problem(dev, n, darcy=True)
+    view = run_layout(var, rhs, {**darcy_cfg(), "decomp": DomainDecomposition(N_DECOMP)}, 2,
+                      coeff=coeff)
+    placed = _counted_drive(launches, lambda: run_layout(
+        var, rhs, {**darcy_cfg(), "decomp": placed_dd}, 2, coeff=coeff))
+    rows, x = placed["rows"], placed["x"]
+    agree = _rel(x, view["x"])
+    res32, res64 = _true_residuals(mesh, var, rhs, coeff, x, darcy=True)
+    n_levels = sum(halo.placed_field_supported(placed_dd, s) for s in _level_shapes((n,) * 3))
+    lay = blocks.layout(placed_dd, (n,) * 3, dev)
+    ghost = halo.field_ghost_bytes(lay, 1, 4)
+    gb = blocks.scatter_operand(coeff, lay)
+    xb = blocks.scatter(x, lay)
+    inv = [float(n - 1) ** 2] * 3
+    fine = _apply_bytes(lambda: halo.placed_diff_field(xb, gb, inv, (("none", "none"),) * 3,
+                                                       "arithmetic", (), {}))
+    del xb, gb
+    ok = all(r["converge"] and r["tol"] <= 1e-6 and r["gathers"] == r["cycle_gathers"]
+             + r["fmg_gathers"] and r["operand_scatters"] == 1 + n_levels
+             and r["diff_jacobi"] > 0 and r["diff_field"] > 0 for r in rows)
+    d_itr = max(abs(p["itr"] - v["itr"]) for p, v in zip(rows, view["rows"]))
+    if not (ok and d_itr <= PLACED_GATE and agree <= PLACED_AGREE and res64 <= 1e-5
+            and fine == ghost):
+        raise RuntimeError(f"chip_smoke: (f) placed Darcy: {json.dumps(rows)} against the "
+                           f"view-based {json.dumps(view['rows'])}, max|dx|/max|x| {agree:.3e}, "
+                           f"true residual f64 {res64:.3e}, one fine apply moved {fine} bytes "
+                           f"(its x faces {ghost}), {n_levels} placed levels")
+    last = rows[-1]
+    out["f_darcy"] = {
+        "n": n, "itr": [r["itr"] for r in rows], "view_itr": [r["itr"] for r in view["rows"]],
+        "tol": [r["tol"] for r in rows], "wall_s": [r["wall_s"] for r in rows],
+        "wall_s_median": statistics.median(r["wall_s"] for r in rows),
+        "view_wall_s_median": statistics.median(r["wall_s"] for r in view["rows"]),
+        "max_rel_diff_vs_view": agree, "true_rel_residual_f32": res32,
+        "true_rel_residual_f64": res64, "placed_levels": n_levels,
+        "gathers_per_solve": last["gathers"], "cycle_gathers_per_solve": last["cycle_gathers"],
+        "fmg_gathers_per_solve": last["fmg_gathers"],
+        "gathers_in_krylov_loop": last["gathers"] - last["cycle_gathers"] - last["fmg_gathers"],
+        "gathers_per_vcycle": last["cycle_gathers"] / max(last["vcycles"], 1),
+        "vcycles_per_solve": last["vcycles"], "operand_scatters_per_solve":
+        last["operand_scatters"], "diff_jacobi_per_solve": last["diff_jacobi"],
+        "diff_field_per_solve": last["diff_field"],
+        "diff_jacobi_per_card_block": last["diff_jacobi"] / max(n_cuda, 1),
+        "diff_field_per_card_block": last["diff_field"] / max(n_cuda, 1),
+        "fine_apply_exchange_bytes_f32": fine,
+        "ring_ghost_bytes_f32": _ghost_bytes(N_DECOMP, (1,) + (n,) * 3, 4),
+        "exchange_bytes_per_solve": last["exchange_bytes"],
+        "exchange_bytes_across_cards_per_solve": last["exchange_bytes_across"],
+        "peak_mem_gib_per_card": placed["peak_gib"],
+        "view_peak_mem_gib_per_card": view["peak_gib"]}
+    print(f"[17 placed] (f) Darcy {n}^3 f32 CG + bf16 Γ-aware V(2,2) FMG {N_DECOMP}: "
+          f"{json.dumps(out['f_darcy'])}", flush=True)
+    del view, placed, var, rhs, coeff, mesh, x
+    torch.cuda.empty_cache()
+
+    # (g) BurgersND on the torus: the placed Conv and the placed FD preconditioner
+    g, model = _placed_model_case(
+        "(g) placed BurgersND", lambda c: burgers_model(dev, N_PATH, config=c)[0], placed_dd,
+        launches, 3, ("conv_component",), n_cuda)
+    lay = blocks.layout(placed_dd, (N_PATH,) * 3, dev)
+    u = torch.cat([v()[(slice(None),) + (slice(0, -1),) * 3] for v in model.vel]).contiguous()
+    base = next(r for r in model.solver.eqs.values() if r["name"] == "Conv")["other"]["base"]
+    base_t = tuple(tuple(torch.as_tensor(c[:-1], device=dev) for c in cs) for cs in base)
+    conv = halo.make_sharded_advect_apply(placed_dd, "conv", 1, "none", (("none",) * 2,) * 3,
+                                          "advective")
+    ub, xb = blocks.scatter_operand(u, lay), blocks.scatter(u[:1].contiguous(), lay)
+    g["fine_apply_exchange_bytes_f32"] = _apply_bytes(lambda: conv(xb, ub, base_t))
+    g["ring_ghost_bytes_f32"] = _ghost_bytes(N_DECOMP, (1,) + (N_PATH,) * 3, 4)
+    if g["fine_apply_exchange_bytes_f32"] != g["ring_ghost_bytes_f32"] or g["repartitions"] == 0:
+        raise RuntimeError(f"chip_smoke: (g) placed BurgersND: one Conv apply moved "
+                           f"{g['fine_apply_exchange_bytes_f32']} bytes, x's faces "
+                           f"{g['ring_ghost_bytes_f32']}; repartitions {g['repartitions']}")
+    out["g_burgers"] = g
+    print(f"[17 placed] (g) BurgersND {N_PATH + 1}^3 f32 torus {N_DECOMP}: {json.dumps(g)}",
+          flush=True)
+    del model, u, ub, xb
+    torch.cuda.empty_cache()
+
+    # (h) AdvectionDiffusion, upwind, a velocity field: the placed Div
+    h, model = _placed_model_case(
+        "(h) placed AdvectionDiffusion upwind",
+        lambda c: advdiff_model(dev, "upwind", N_PATH, config=c)[0], placed_dd, launches, 5,
+        ("advect_pair",), n_cuda)
+    lay = blocks.layout(placed_dd, (N_PATH,) * 3, dev)
+    rec = next(r for r in model.solver.eqs.values() if r.get("adv") is not None)
+    base_t = tuple(tuple(torch.as_tensor(c, device=dev) for c in cs)
+                   for cs in rec["other"]["base"])
+    div = halo.make_sharded_advect_apply(placed_dd, "div", 1, "upwind",
+                                         rec["other"]["surgery"], rec["other"]["form"])
+    ab = blocks.scatter_operand(torch.as_tensor(rec["adv"], device=dev).contiguous(), lay)
+    xb = blocks.scatter(model.var(), lay)
+    h["fine_apply_exchange_bytes_f32"] = _apply_bytes(lambda: div(xb, ab, base_t))
+    h["ring_ghost_bytes_f32"] = _ghost_bytes(N_DECOMP, (1,) + (N_PATH,) * 3, 4)
+    if h["fine_apply_exchange_bytes_f32"] != h["ring_ghost_bytes_f32"]:
+        raise RuntimeError(f"chip_smoke: (h): one Div apply moved "
+                           f"{h['fine_apply_exchange_bytes_f32']} bytes, x's faces "
+                           f"{h['ring_ghost_bytes_f32']}")
+    out["h_upwind"] = h
+    print(f"[17 placed] (h) AdvectionDiffusion upwind {N_PATH}^3 f32 {N_DECOMP}: "
+          f"{json.dumps(h)}", flush=True)
+    del model, ab, xb
+    torch.cuda.empty_cache()
+
+    # (i) the TGV-3D Smagorinsky LES at the 257^3 rung: the momentum's
+    # variable-Γ apply per block, the pressure's placed fastdiag
+    vol = (2 * pi) ** 3
+
+    def tgv(c):
+        model, dt = tgv_model(dev, TGV_RUNG, config=c)
+        return _Stepper(model, dt)
+
+    i, model = _placed_model_case(
+        "(i) placed TGV-3D LES", tgv, placed_dd, launches, PLACED_TGV_STEPS,
+        ("diff_field",), n_cuda, warm=PLACED_TGV_WARM, agree=PLACED_LES_AGREE)
+    e_placed, e_view = i.pop("energy") / vol, i.pop("view_energy") / vol
+    lay = blocks.layout(placed_dd, (TGV_RUNG - 1,) * 3, dev)
+    nu = model._nu_coeff()
+    nu = nu if torch.is_tensor(nu) else torch.full((TGV_RUNG,) * 3, float(nu), device=dev)
+    red = (slice(0, -1),) * 3
+    gb = blocks.scatter_operand(nu[red].contiguous(), lay)
+    xb = blocks.scatter(model.u()[(slice(None),) + red].contiguous(), lay)
+    inv = [(1.0 / float(d)) ** 2 for d in model.mesh.dx_np]
+    i["fine_apply_exchange_bytes_f32"] = _apply_bytes(lambda: halo.placed_diff_field(
+        xb, gb, inv, (("none", "none"),) * 3, "arithmetic", (0, 1, 2), {}))
+    i["ring_ghost_bytes_f32"] = _ghost_bytes(N_DECOMP, (1,) + (TGV_RUNG - 1,) * 3, 4)
+    i.update({"E_mean": e_placed, "view_E_mean": e_view,
+              "E_rel_diff": abs(e_placed - e_view) / e_view})
+    if not (i["E_rel_diff"] <= PLACED_E_TOL and i["repartitions"] > 0
+            and i["fine_apply_exchange_bytes_f32"] == i["ring_ghost_bytes_f32"]):
+        raise RuntimeError(f"chip_smoke: (i) placed TGV-3D LES: <E> {e_placed} against "
+                           f"{e_view} (limit {PLACED_E_TOL} relative), repartitions "
+                           f"{i['repartitions']}, one apply moved "
+                           f"{i['fine_apply_exchange_bytes_f32']} bytes (x's faces "
+                           f"{i['ring_ghost_bytes_f32']})")
+    out["i_tgv_les"] = i
+    print(f"[17 placed] (i) TGV-3D LES {TGV_RUNG}^3 f32 torus {N_DECOMP}, {PLACED_TGV_WARM} "
+          f"warm + {PLACED_TGV_STEPS} steps: {json.dumps(i)}", flush=True)
+    del model, gb, xb, nu
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: (f), (g) and (i) on a mixed placement, f64
+    mdevs = MIXED_PAIR * (prod(N_DECOMP) // 2)
+
+    def darcy64(decomp):
+        from pyapes_tpu_torch.solver.fdm import FDM
+        from pyapes_tpu_torch.solver.ops import Solver
+
+        _, var, rhs, coeff = _path_problem(dev, PLACED_TERMS_CMP["darcy"], darcy=True,
+                                           dtype="double")
+        s = Solver({"fdm": {**PLACED_CMP_CG, "precond": "mg", "report": False,
+                            "decomp": decomp}})
+        s.set_eq(FDM().laplacian(coeff, var) == rhs)
+        return [s.solve()["itr"]], [var().clone()]
+
+    def burgers64(decomp):
+        run = run_steps(burgers_model(dev, PLACED_TERMS_CMP["burgers"], "double",
+                                      {"decomp": decomp})[0], 2)
+        return run["itr"], run["fields"]
+
+    def tgv64(decomp):
+        model, dt = tgv_model(dev, PLACED_TERMS_CMP["tgv"], "double", config={"decomp": decomp})
+        run = run_steps(_Stepper(model, dt), 3)
+        return run["itr"], run["fields"]
+
+    mixed = {}
+    for label, fn in ((f"(f) Darcy {PLACED_TERMS_CMP['darcy']}^3 f64", darcy64),
+                      (f"(g) BurgersND {PLACED_TERMS_CMP['burgers'] + 1}^3 f64", burgers64),
+                      (f"(i) TGV-3D LES {PLACED_TERMS_CMP['tgv']}^3 f64", tgv64)):
+        mixed[label] = _counted_drive(launches, lambda fn=fn, label=label: _mixed_case(
+            dev, label, fn, mdevs))
+    out["mixed"] = mixed
+    print(f"[17 placed] mixed card/CPU placements of (f), (g), (i), f64 (tolerance "
+          f"{PLACED_CMP_TOL}): {json.dumps(mixed)}", flush=True)
+    for name, fn in (("conv_component", conv_component), ("advect_pair", advect_pair),
+                     ("diff_field", diff_field)):
+        if launches.get(name, 0) == 0:
+            raise RuntimeError(f"chip_smoke: the placed drives launched no {name} ({fn})")
+    return out
+
+
 def phase_placed(dev) -> dict:
     """Phase 17: a placed ``DomainDecomposition`` (each block of every loop
     vector its own allocation on its card, round robin over the cards the
@@ -5260,7 +5620,11 @@ def phase_placed(dev) -> dict:
     within ``FD_TOL``, no gather, the halo-extended kernel once per block
     and residual, the pencil repartitions of every FD apply (each moving
     the whole vector); (e) CG with ``precond: "fd"`` at 256^3 f32 placed:
-    the view-based itr. Returns the launches of the placed drives (each
+    the view-based itr; (f)-(i) the variable-Γ and Div/Conv terms and
+    ``PeriodicFlow`` (``placed_terms``): bench_darcy's 256^3 solve,
+    ``BurgersND`` 257^3, the upwind advection-diffusion 256^3 and the
+    TGV-3D LES 257^3 rung, each against the view-based run, and their
+    card/CPU mixes in f64. Returns the launches of the placed drives (each
     counted from 0)."""
     import torch
 
@@ -5376,6 +5740,7 @@ def phase_placed(dev) -> dict:
           f"{json.dumps(mixed)}", flush=True)
 
     out.update(placed_fastdiag(dev, drive))
+    out.update(placed_terms(dev, launches))
     print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
           f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
           f"wall {time.perf_counter() - tic0:.1f} s", flush=True)

@@ -983,9 +983,6 @@ class PeriodicFlow(LidDrivenCavity):
                  implicit_advection: bool = False, rhie_chow: bool = True,
                  incremental: bool = True, mu_strain_fn=None, advection_form: str = "auto"):
         assert mesh.dim in (2, 3) and mesh.coord_sys == "xyz"
-        if getattr((config or {}).get("decomp"), "placed", False):
-            raise NotImplementedError("PeriodicFlow on a placed decomposition (blocks on their own "
-                                      "devices) is ported in a later slice (ROADMAP.md A11e)")
         self.mesh = mesh
         self.nu = self._init_viscosity(nu, mu_strain_fn)
         self.lid = 0.0

@@ -50,6 +50,10 @@ gathers = 0
 """Block vectors gathered on the lead device by an operation that does not
 run block by block (a counter, like the kernels' ``launches``). The
 entry's scatter and the exit's gather of a solve do not count."""
+operand_scatters = 0
+"""Operands of a placed solve scattered to its blocks (``scatter_operand``:
+Γ, an advector, a V-cycle level's Γ): once each per solve, at its entry
+or in its preconditioner's setup, never inside the Krylov loop."""
 repartitions = 0
 """Block vectors moved to another cut of their grid (``repartition``)."""
 repartition_bytes_across = 0
@@ -317,6 +321,29 @@ def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
         src = t[lay.index(shape, b)]
         parts.append(torch.empty(src.shape, dtype=t.dtype, device=dev).copy_(src))
     return BlockTensor(parts, lay, shape)
+
+
+def scatter_operand(t: torch.Tensor, lay: Layout) -> BlockTensor:
+    """An operand of a placed solve (Γ, isotropic ``nx`` or stacked ``(dim,
+    *nx)``, or an advector ``(c, *nx)``) scattered to the blocks of ``lay``
+    (``scatter``; an isotropic Γ as ``(1, *nx)``), counted in
+    ``operand_scatters``. The block vector keeps ``t`` (``lead_copy``): an
+    operand is never written, so the lead device's copy stays its value."""
+    global operand_scatters
+    out = scatter(t[None] if t.dim() == len(lay.grid) else t, lay)
+    operand_scatters += 1
+    out.__dict__.setdefault("_per_solve", {})["lead"] = t
+    return out
+
+
+def lead_copy(t):
+    """The tensor on the lead device that the operand block vector ``t`` was
+    scattered from (``scatter_operand``; no copy), a counted ``gather`` of
+    another block vector, anything else as it is."""
+    if not isinstance(t, BlockTensor):
+        return t
+    kept = t.__dict__.get("_per_solve", {}).get("lead")
+    return gather(t) if kept is None else kept
 
 
 def move_parts(parts: list, src: Layout, to: Layout, shape) -> list:

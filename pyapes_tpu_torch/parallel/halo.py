@@ -27,31 +27,58 @@ received ghosts, never the neighbour block.
 * ``make_sharded_advect_apply`` — the per-point Div/Conv (``advect_pair``
   / ``conv_component`` kernels on each block with no surgery on cut axes,
   then the O(surface) ghost patches and the Neumann/periodic surgery at
-  global rows 1 / -2 on the edge blocks, in the JAX package's order).
+  global rows 1 / -2 on the edge blocks, in the JAX package's order). The
+  view-based variable-Γ terms run on the whole tensor (GSPMD's choice for
+  the JAX package's jnp apply).
 
 On a placed decomposition (``devices`` given) the vector is a
-``blocks.BlockTensor`` and ``make_sharded_apply``'s apply works on its
-blocks, each on its own device (``placed_supported``): a block keeps its
-halo-extended buffer on its device and takes only the ghost faces of its
-ring neighbours (``exchange_block``; ``exchange_bytes`` counts the bytes
-moved between blocks, the counterpart of ``ppermute``'s traffic). 3-D: one
-``axis_stencil_ext`` launch per block into the block's own output, with
-the cut axes among the first two extended; a cut last axis wraps inside
-the block and is patched (``_patch_face_rows``). 2-D: the torus
-``axis_stencil`` per block and the patch, as above.
+``blocks.BlockTensor`` and the applies work on its blocks, each on its own
+device; a block takes only the ghost faces of its ring neighbours
+(``exchange_bytes`` counts the bytes moved between blocks, the
+counterpart of ``ppermute``'s traffic):
+
+* the axis stencil (``make_sharded_apply``, ``placed_supported``): a
+  block keeps its halo-extended buffer on its device (``exchange_block``).
+  3-D: one ``axis_stencil_ext`` launch per block into the block's own
+  output, with the cut axes among the first two extended; a cut last axis
+  wraps inside the block and is patched (``_patch_face_rows``). 2-D: the
+  torus ``axis_stencil`` per block and the patch, as above.
+* Div and Conv (``make_sharded_advect_apply``, ``_advect_placed``): the
+  view-based design per block on its device, ``x``'s ghost faces taken
+  from the neighbour blocks; the advector's neighbour faces (read by the
+  conservative central Div) are copied once per solve
+  (``_operand_faces``).
+* the variable-Γ apply and the Γ-aware level pass (``placed_diff_field``,
+  ``placed_diff_jacobi``, ``placed_field_supported``): the kernels run on a
+  halo-extended buffer of the block (``field_sides``: one ghost row of
+  ``x`` on each side that faces another block, and on both global faces
+  of a periodic axis) and the interior of their output is kept, a view.
+  Γ's halo-extended blocks are built once per solve
+  (``_gamma_blocks``). Running the kernel on the extended block, rather
+  than on the block with its face rows patched after, is what keeps the
+  pass whole: the Jacobi diagonal of a face row depends on the Γ across
+  the cut, so a patch would redo the whole row update. A global face
+  takes no ghost row, so the kernels' Neumann surgery (rows 1 / -2) and
+  end-row mask (rows 0 / -1) land on the global rows of the edge blocks,
+  where the surgery is passed; the other sides take "none".
 """
 from __future__ import annotations
+
+from math import prod
 
 import torch
 
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
+from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
 from pyapes_tpu_torch.parallel.blocks import BlockTensor
-from pyapes_tpu_torch.utils.device_cache import block_coeffs
+from pyapes_tpu_torch.utils.device_cache import block_coeffs, per_solve
 
 exchange_bytes = 0
 """Bytes of ghost faces copied from one block to another by the placed
 applies (a counter, like the kernels' ``launches``)."""
+exchange_bytes_across = 0
+"""The part of ``exchange_bytes`` copied between blocks on two devices."""
 placed_applies = 0
 """Placed applies run (each launches one kernel per block)."""
 
@@ -244,9 +271,15 @@ def _ghost_faces(x: BlockTensor, b: int, j: int) -> tuple:
     return lo.narrow(1 + j, lo.shape[1 + j] - 1, 1), hi.narrow(1 + j, 0, 1)
 
 
-def _count(*faces) -> None:
-    global exchange_bytes
-    exchange_bytes += sum(f.numel() * f.element_size() for f in faces)
+def _count(dev, *faces) -> None:
+    """Count ``faces`` copied to a block on ``dev`` (``exchange_bytes``; those
+    from another device also in ``exchange_bytes_across``)."""
+    global exchange_bytes, exchange_bytes_across
+    for f in faces:
+        n = f.numel() * f.element_size()
+        exchange_bytes += n
+        if f.device != torch.device(dev):
+            exchange_bytes_across += n
 
 
 def exchange_block(x: BlockTensor, b: int, ext, buffers: dict) -> torch.Tensor:
@@ -269,7 +302,7 @@ def exchange_block(x: BlockTensor, b: int, ext, buffers: dict) -> torch.Tensor:
             lo, hi = _ghost_faces(x, b, j)
             buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = lo
             buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = hi
-            _count(lo, hi)
+            _count(xb.device, lo, hi)
     return buf
 
 
@@ -295,7 +328,7 @@ def _apply_placed(coeffs, x: BlockTensor, ndim_mesh: int, buffers: dict) -> Bloc
         ghosts = []
         for j in patch:
             lo, hi = _ghost_faces(x, b, j)
-            _count(lo, hi)
+            _count(dev, lo, hi)
             ghosts.append((j, lo.to(dev), hi.to(dev)))
         _patch_face_rows(ob, xb, cs, ghosts)
         outs.append(ob)
@@ -331,7 +364,9 @@ def _row(a, axis: int, idx: int):
 def make_sharded_advect_apply(decomp, kind: str, vdim: int, limiter: str, surgery, form: str):
     """Block-wise per-point advection (port of
     ``make_sharded_advect_apply``): ``apply(x, adv, base) -> out`` on the
-    global arrays (``sharded_advect_supported`` must hold).
+    global arrays (``sharded_advect_supported`` must hold), or on a block
+    vector ``x`` of a placed decomposition with ``adv`` a block vector of
+    the same placement (``_advect_placed``).
 
     Per block: the bulk through the ``advect_pair`` (``kind`` "div") or
     ``conv_component`` ("conv") kernel on the block with torus-wrap
@@ -366,12 +401,15 @@ def make_sharded_advect_apply(decomp, kind: str, vdim: int, limiter: str, surger
         def pairs(j, ncomp):
             return [(0, 0, 0)]
 
-    def block_fixes(o, x, a, xb, ab, bs, sl, coord, j):
+    def block_fixes(o, xb, ab, bs, coord, j, ghosts_x, ghosts_a):
+        """The face-row patches and the edge blocks' surgery of axis ``j`` on
+        the block output ``o``; ``ghosts_x`` / ``ghosts_a``: the ``(lo,
+        hi)`` ghost faces of the target and (conservative central) of the
+        advector, on the block's device."""
         apb, _acb, amb = bs[j]
         inv2dx = apb.abs()
-        lo_x, hi_x = halo_exchange(x, sl, j)
-        if conservative:
-            lo_a, hi_a = halo_exchange(a, sl, j)
+        lo_x, hi_x = ghosts_x
+        lo_a, hi_a = ghosts_a if conservative else (None, None)
         n = xb.shape[1 + j]
         for ci, ai, oc in pairs(j, ab.shape[0]):
             xi, av = xb[ci], ab[ai]
@@ -422,21 +460,220 @@ def make_sharded_advect_apply(decomp, kind: str, vdim: int, limiter: str, surger
                 elif up_kind == "periodic":
                     add_row(n - 2, -eff_ap(n - 2) * _row(xi, j, n - 1))
 
+    def kernel(xb, ab, bs):
+        if kind == "div":
+            return advect_pair(xb, ab, bs, limiter, surgery_local, form)
+        return conv_component(xb, ab, bs, limiter, surgery_local)
+
     def apply(x, adv, base):
+        if isinstance(x, BlockTensor):
+            return _advect_placed(x, adv, base, kernel, block_fixes, conservative)
         out = torch.empty((vdim if kind == "conv" else 1, *x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         for coord, sl in decomp.blocks(x.shape[1:]):
             idx = (slice(None), *sl)
             xb, ab = x[idx].contiguous(), adv[idx].contiguous()
             bs = _block_coeffs(base, sl)
-            if kind == "div":
-                o = advect_pair(xb, ab, bs, limiter, surgery_local, form)
-            else:
-                o = conv_component(xb, ab, bs, limiter, surgery_local)
+            o = kernel(xb, ab, bs)
             for j in range(nd):
                 if cut[j]:
-                    block_fixes(o, x, adv, xb, ab, bs, sl, coord, j)
+                    block_fixes(o, xb, ab, bs, coord, j, halo_exchange(x, sl, j),
+                                halo_exchange(adv, sl, j) if conservative else None)
             out[idx] = o
         return out
 
     return apply
+
+
+def _operand_faces(a: BlockTensor) -> list:
+    """Per block of the operand block vector ``a`` (an advector or Γ, fixed
+    for a solve), per grid axis, its ring neighbours' ``(lo, hi)`` faces
+    copied to the block's device: made at the first call of ``a`` and kept
+    on it (``device_cache.per_solve``), so an apply moves none of them."""
+    def make():
+        lay = a.placement
+        return [[tuple(f.to(dev).contiguous() for f in _ghost_faces(a, b, j))
+                 if lay.cut[j] else None for j in range(len(lay.grid))]
+                for b, (_, _, dev) in enumerate(lay.blocks)]
+
+    return per_solve(a, "faces", make)
+
+
+def _advect_placed(x: BlockTensor, adv: BlockTensor, base, kernel, block_fixes,
+                   conservative: bool) -> BlockTensor:
+    """The placed Div/Conv apply: per block on its device, the kernel on the
+    block (surgery "none" on cut axes), then the face-row patches with
+    ``x``'s ghost faces from the ring neighbours (``exchange_bytes``) and,
+    in conservative-central form, the advector's (made once per solve,
+    ``_operand_faces``), and the global faces' surgery on the edge
+    blocks."""
+    global placed_applies
+    lay = x.placement
+    if not isinstance(adv, BlockTensor) or adv.placement is not lay:
+        raise ValueError("halo: a placed Div/Conv apply needs the advector scattered to the "
+                         "blocks of its target")
+    per_block = block_coeffs(base, lay)
+    a_faces = _operand_faces(adv) if conservative else None
+    outs = []
+    for b, (coord, _, dev) in enumerate(lay.blocks):
+        xb, ab, bs = x.parts[b], adv.parts[b], per_block[b]
+        o = kernel(xb, ab, bs)
+        for j in range(len(lay.grid)):
+            if lay.cut[j]:
+                lo, hi = _ghost_faces(x, b, j)
+                _count(dev, lo, hi)
+                block_fixes(o, xb, ab, bs, coord, j, (lo.to(dev), hi.to(dev)),
+                            a_faces[b][j] if conservative else None)
+        outs.append(o)
+    placed_applies += 1
+    return BlockTensor(outs, lay, (outs[0].shape[0], *x.shape[1:]))
+
+
+# -- placed variable-Γ apply and Γ-aware level pass ------------------------------
+
+
+def field_sides(lay, b: int, wrap=()) -> tuple:
+    """Per grid axis ``(lo, hi)``: whether block ``b``'s halo-extended buffer
+    of the variable-Γ kernels takes a ghost row on that side: on a cut
+    axis, every side that faces another block, and the global faces of a
+    periodic (``wrap``) axis; never the global face of another axis, so
+    that the kernels' Neumann surgery (rows 1 / -2) and end-row mask (rows
+    0 / -1) land on the global rows there."""
+    coord = lay.blocks[b][0]
+    return tuple((int(lay.cut[j] and (coord[j] > 0 or j in wrap)),
+                  int(lay.cut[j] and (coord[j] < lay.ms[j] - 1 or j in wrap)))
+                 for j in range(len(lay.grid)))
+
+
+def placed_field_supported(decomp, global_shape, wrap=()) -> bool:
+    """Whether the placed variable-Γ apply and pass run this decomposition:
+    a 2-D or 3-D grid, every axis divisible into its blocks, and every
+    block's halo-extended buffer (``field_sides``) at least 3 nodes long
+    on every axis (the kernels' minimum, ``ops.diff_field.check_inputs``).
+    A level it rejects runs on the lead device (a counted gather)."""
+    nd = len(global_shape)
+    ms = tuple(decomp.mesh_shape) + (1,) * (nd - len(decomp.mesh_shape))
+    if nd not in (2, 3) or len(ms) != nd or any(s % m for s, m in zip(global_shape, ms)):
+        return False
+    for j, (s, m) in enumerate(zip(global_shape, ms)):
+        least = s // m + (0 if m == 1 else 2 if j in wrap else 1)
+        if least < 3:
+            return False
+    return True
+
+
+def field_ghost_bytes(lay, vdim: int, itemsize: int, wrap=()) -> int:
+    """Bytes of ``x``'s ghost faces one placed variable-Γ apply moves: one
+    face per extended side (``field_sides``) of every block."""
+    total = 0
+    for b, (_, sl, _) in enumerate(lay.blocks):
+        ext = [s.stop - s.start for s in sl]
+        for j, (lo, hi) in enumerate(field_sides(lay, b, wrap)):
+            total += (lo + hi) * vdim * (prod(ext) // ext[j]) * itemsize
+    return total
+
+
+def _interior(sides, shape) -> tuple:
+    return (slice(None),) + tuple(slice(lo, lo + n) for (lo, _), n in zip(sides, shape[1:]))
+
+
+def _halo_block(x: BlockTensor, b: int, sides, buffers: dict, role: str, faces: bool = True,
+                count: bool = True) -> torch.Tensor:
+    """Block ``b`` of ``x`` in the halo-extended buffer of its shape, dtype
+    and device for ``role`` in ``buffers`` (made at first use, then
+    reused: blocks run in stream order), with (``faces``) one ghost row per
+    side in ``sides`` copied from its ring neighbours (counted in
+    ``exchange_bytes`` with ``count``)."""
+    xb = x.parts[b]
+    shape = (xb.shape[0],) + tuple(n + lo + hi for n, (lo, hi) in zip(xb.shape[1:], sides))
+    key = (role, shape, xb.dtype, xb.device)
+    if key not in buffers:
+        # ones: a ghost corner is never read, but a Γ there stays positive
+        buffers[key] = torch.ones(shape, dtype=xb.dtype, device=xb.device)
+    buf = buffers[key]
+    inner = list(_interior(sides, xb.shape))
+    buf[tuple(inner)] = xb
+    for j, (lo, hi) in enumerate(sides if faces else ()):
+        if not (lo or hi):
+            continue
+        glo, ghi = _ghost_faces(x, b, j)
+        if lo:
+            buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = glo
+            if count:
+                _count(xb.device, glo)
+        if hi:
+            buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = ghi
+            if count:
+                _count(xb.device, ghi)
+    return buf
+
+
+def _block_surgery(surgery, lay, coord) -> tuple:
+    """A block's surgery kinds: the global face's kind on the sides that lie
+    on a global face, "none" on the sides that face another block."""
+    return tuple((lo if not lay.cut[j] or coord[j] == 0 else "none",
+                  up if not lay.cut[j] or coord[j] == lay.ms[j] - 1 else "none")
+                 for j, (lo, up) in enumerate(surgery))
+
+
+def _gamma_blocks(g: BlockTensor, wrap) -> list:
+    """Per block of the Γ block vector ``g`` (``(1, *nx)`` isotropic or
+    ``(dim, *nx)`` stacked), its halo-extended copy for the variable-Γ
+    kernels (``field_sides``): isotropic as ``n``, stacked as ``(dim,
+    *n)``; made once per Γ and periodic axes (``device_cache.per_solve``,
+    kept on ``g``), so an apply moves only ``x``'s ghost faces."""
+    def make():
+        lay, out = g.placement, []
+        for b in range(len(lay.blocks)):
+            buf = _halo_block(g, b, field_sides(lay, b, wrap), {}, "gamma", count=False)
+            out.append(buf[0] if g.shape[0] == 1 else buf)
+        return out
+
+    return per_solve(g, ("gamma", tuple(wrap)), make)
+
+
+def placed_diff_field(x: BlockTensor, g: BlockTensor, inv_dx2, surgery, avg: str, wrap,
+                      buffers: dict) -> BlockTensor:
+    """``∂_j (Γ ∂_j x)`` of a block vector, block by block on each block's
+    device: the ``diff_field`` kernel on the block's halo-extended buffer
+    (``field_sides``; surgery on the sides that lie on a global face only)
+    and the interior of its output kept (a view). ``g``: Γ scattered to the
+    same blocks; ``wrap``: the periodic axes of the (torus-reduced) grid.
+    The rows of a non-periodic global face hold what the solver's mask
+    discards."""
+    global placed_applies
+    lay = x.placement
+    gext = _gamma_blocks(g, wrap)
+    outs = []
+    for b, (coord, _, _) in enumerate(lay.blocks):
+        sides = field_sides(lay, b, wrap)
+        xe = _halo_block(x, b, sides, buffers, "x")
+        oe = diff_field(xe, gext[b], inv_dx2, _block_surgery(surgery, lay, coord), avg)
+        outs.append(oe[_interior(sides, x.parts[b].shape)])
+    placed_applies += 1
+    return BlockTensor(outs, lay, x.shape)
+
+
+def placed_diff_jacobi(x, b: BlockTensor, g: BlockTensor, inv_dx2, surgery, avg: str,
+                       omega: float, mask_axes, mode: str, buffers: dict) -> BlockTensor:
+    """One variable-Γ V-cycle pass (``ops.diff_field.diff_jacobi``, ``mode``
+    "smooth", "smooth0" — ``x`` None — or "resid") of block vectors, block
+    by block: the kernel on the halo-extended buffers of ``x`` and ``b``
+    (``b``'s ghost rows are never read by a kept point), the interior of
+    its output kept. The periodic axes are those outside ``mask_axes``:
+    the kernel masks the end rows of the buffer, which are the global
+    faces' rows or ghost rows that are dropped."""
+    global placed_applies
+    lay = b.placement
+    wrap = tuple(j for j in range(len(lay.grid)) if j not in mask_axes)
+    gext = _gamma_blocks(g, wrap)
+    outs = []
+    for k, (coord, _, _) in enumerate(lay.blocks):
+        sides = field_sides(lay, k, wrap)
+        be = _halo_block(b, k, sides, buffers, "b", faces=False)
+        xe = None if x is None else _halo_block(x, k, sides, buffers, "x")
+        oe = diff_jacobi(xe, be, gext[k], inv_dx2, _block_surgery(surgery, lay, coord), avg,
+                         omega, mask_axes, mode)
+        outs.append(oe[_interior(sides, b.parts[k].shape)])
+    placed_applies += 1
+    return BlockTensor(outs, lay, b.shape)

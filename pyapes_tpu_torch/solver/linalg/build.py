@@ -18,8 +18,13 @@ operator, so a decomposed fastdiag solve applies it block-wise too.
 
 Under a placed decomposition (``decomp.placed``: blocks on their own
 devices, the loop vectors ``parallel.blocks.BlockTensor``) the 3-point
-axis terms apply block by block wherever ``placed_supported`` holds, and
-through one counted gather on the lead device elsewhere; the active-set
+axis terms apply block by block wherever ``placed_supported`` holds, the
+central/upwind Div and Conv where ``sharded_advect_supported`` holds, the
+variable-Γ term where ``placed_field_supported`` holds (Γ and the
+advector arrive scattered to the blocks, ``dispatch._place_operands``),
+each through one counted gather on the lead device elsewhere (QUICK, 5-point
+axes); the Γ-aware V-cycle samples Γ down on the lead device and scatters
+each placed level's; the active-set
 mask is built block by block, the BCs write the face rows of the blocks on
 their faces, and the symmetrizing row scale and the null vector of a
 singular system are block vectors too; the fastdiag solve and the FD
@@ -43,6 +48,8 @@ from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.halo import (
     make_sharded_advect_apply,
     make_sharded_apply,
+    placed_diff_field,
+    placed_field_supported,
     placed_supported,
     sharded_advect_supported,
     sharded_supported,
@@ -98,11 +105,12 @@ class _MaskSpec:
         return m
 
 
-def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
+def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None,
+              field_fn=diff_field) -> Callable:
     """``Aop(x, tparams) = sum_terms sign * term(x)``: an axis term is
     ``param * stencil_fn(x)`` (a 5-point axis goes to the 5-point kernel),
-    a variable-Γ term ``diff_field``, a per-point advection term
-    ``advect_pair`` (Div) or ``conv_component`` (Conv) — or
+    a variable-Γ term ``field_fn`` (``diff_field``), a per-point advection
+    term ``advect_pair`` (Div) or ``conv_component`` (Conv) — or
     ``advect_fns[i]`` for term ``i`` where given (the block-wise apply) —
     a custom term ``fn(x, *params)`` and a ddt term ``x * inv_dt``: the
     Hopper kernels on a CUDA tensor, for every grid shape (the JAX
@@ -120,7 +128,7 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
             elif kind == "custom":
                 r = tp["fn"](x, *tp["cparams"])
             elif kind == "diff_field":
-                r = diff_field(x, tp["gamma"], form[0], surgery, form[1])
+                r = field_fn(x, tp["gamma"], form[0], surgery, form[1])
             elif i in advect_fns:
                 r = advect_fns[i](x, tp["adv"], tp["base"])
             elif kind == "div_field":
@@ -134,31 +142,70 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None) -> Callable:
             if scale != 1.0:
                 r = r * scale
             out = r if out is None else out + r
-        return out if out.shape == x.shape else out.expand(x.shape).contiguous()
+        if out.shape == x.shape:
+            return out
+        if isinstance(x, blocks.BlockTensor):  # broadcast block by block
+            return torch.zeros_like(x) + out
+        return out.expand(x.shape).contiguous()
 
     return Aop
 
 
-def _decomp_fns(decomp, x0, term_descs) -> dict:
+def _placed_fns(decomp, x0, term_descs, paxes) -> dict:
+    """The placed applies of a solve on block vectors, as ``_make_Aop``
+    keywords: the axis stencil block by block where ``placed_supported``
+    holds (and the axes are 3-point), the central/upwind Div and Conv
+    where ``sharded_advect_supported`` holds, the variable-Γ apply where
+    ``placed_field_supported`` holds (``paxes``: the torus' periodic
+    axes); each of the others through one counted gather on the lead
+    device, the operands' lead copies beside it (``blocks.lead_copy``)."""
+    shape = tuple(x0.shape[1:])
+    blockwise = (make_sharded_apply(decomp, len(shape))
+                 if placed_supported(decomp, shape) else None)
+
+    def stencil_fn(coeffs, x):
+        if blockwise is None or any(len(cs) == 5 for cs in coeffs):
+            return blocks.via_lead(lambda v: axis_stencil(coeffs, v), x)
+        return blockwise(coeffs, x)
+
+    def via_lead_advect(d):
+        kernel = advect_pair if d[0] == "div_field" else conv_component
+        args = (d[6], d[4], d[5]) if d[0] == "div_field" else (d[6], d[4])
+
+        def apply(x, adv, base):
+            return blocks.via_lead(lambda v: kernel(v, blocks.lead_copy(adv), base, *args), x)
+
+        return apply
+
+    advect_fns = {}
+    for i, d in enumerate(term_descs):
+        if d[0] in ("div_field", "conv_field"):
+            advect_fns[i] = (make_sharded_advect_apply(
+                decomp, "div" if d[0] == "div_field" else "conv", x0.shape[0], d[6], d[4], d[5])
+                if sharded_advect_supported(decomp, shape, d[6]) else via_lead_advect(d))
+    field_ok = placed_field_supported(decomp, shape, paxes)
+    buffers: dict = {}  # the field apply's halo-extended buffers, one per shape and dtype
+
+    def field_fn(x, g, inv_dx2, surgery, avg):
+        if field_ok:
+            return placed_diff_field(x, g, inv_dx2, surgery, avg, paxes, buffers)
+        return blocks.via_lead(
+            lambda v: diff_field(v, blocks.lead_copy(g), inv_dx2, surgery, avg), x)
+
+    return {"stencil_fn": stencil_fn, "advect_fns": advect_fns, "field_fn": field_fn}
+
+
+def _decomp_fns(decomp, x0, term_descs, paxes=()) -> dict:
     """The block-wise applies of a decomposed solve, as ``_make_Aop``
     keywords: ``stencil_fn`` where the gate holds (5-point axes stay on the
     global kernel) and ``advect_fns`` for the Div/Conv terms whose limiter
-    and blocks the advection gate takes."""
+    and blocks the advection gate takes; a placed decomposition's
+    (``_placed_fns``)."""
     if decomp is None:
         return {}
     shape = tuple(x0.shape[1:])
     if decomp.placed:
-        # block by block where the placed apply takes the grid (and the
-        # axes are 3-point), else through the lead device (counted gathers)
-        blockwise = (make_sharded_apply(decomp, len(shape))
-                     if placed_supported(decomp, shape) else None)
-
-        def placed_fn(coeffs, x):
-            if blockwise is None or any(len(cs) == 5 for cs in coeffs):
-                return blocks.via_lead(lambda v: axis_stencil(coeffs, v), x)
-            return blockwise(coeffs, x)
-
-        return {"stencil_fn": placed_fn}
+        return _placed_fns(decomp, x0, term_descs, paxes)
     fns = {}
     if sharded_supported(decomp, shape):
         blockwise = make_sharded_apply(decomp, len(shape))
@@ -437,7 +484,7 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     apply_bcs = apply_bcs_fn(bcs, grid)
     if lay is not None:
         apply_bcs = blocks.apply_bcs_fn(bcs, grid, lay, apply_bcs)
-    Aop = raw_Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs))
+    Aop = raw_Aop = _make_Aop(term_descs, **_decomp_fns(decomp, x0, term_descs, paxes))
     if obn:
         def Aop(v, tp):
             for bc in obn:
@@ -523,7 +570,9 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             i_vg = _ids(term_descs, "diff_field")[0]
 
             def precond_setup(tp):
-                mg.set_gamma(tp[i_vg]["gamma"])
+                # placed: the Γ the operand was scattered from, on the lead
+                # device, where the hierarchy samples it down
+                mg.set_gamma(blocks.lead_copy(tp[i_vg]["gamma"]))
     fmg_init = mg.fmg_initializer() if mg is not None and mg.fmg_init else None
     if method == "bicgstab":
         fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,

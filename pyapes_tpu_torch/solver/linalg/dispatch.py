@@ -19,11 +19,13 @@ domain decomposition (``decomp``: a ``DomainDecomposition``) the axis and
 advection terms apply block by block (``build.py``). A placed
 decomposition (``devices`` given: each block on its own device) runs
 ``"fastdiag"``, and CG and BiCGSTAB unpreconditioned or with ``precond``
-``"mg"`` or ``"fd"``, on block vectors (``parallel/blocks.py``; the
-eigen-transforms in pencil layouts, the blocks moved between them by an
-all-to-all of peer copies): ``x0`` and the RHS are scattered to the blocks
-at entry (the JAX package's ``_commit_to_decomp``) and the solution is
-gathered back into the Field at exit; every other option raises
+``"mg"`` (Γ-aware for a variable-Γ term) or ``"fd"``, on block vectors
+(``parallel/blocks.py``; the eigen-transforms in pencil layouts, the
+blocks moved between them by an all-to-all of peer copies), with axis,
+variable-Γ, Div/Conv and ddt terms: ``x0``, the RHS, Γ and the advector
+are scattered to the blocks at entry (the JAX package's
+``_commit_to_decomp``) and the solution is gathered back into the Field
+at exit; every other option raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item
 (``_check_placed``). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
@@ -257,17 +259,13 @@ def _check_decomp(decomp, x0) -> None:
 def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
     """Raise ``NotImplementedError`` for what a placed decomposition does not
     take yet, each naming its ``ROADMAP.md`` item (it takes fastdiag, CG
-    and BiCGSTAB, plain or with ``precond`` "mg" or "fd", at constant
-    coefficients)."""
+    and BiCGSTAB, plain or with ``precond`` "mg" or "fd", with axis,
+    variable-Γ, Div/Conv and ddt terms)."""
     def later(what, item):
         raise NotImplementedError(f"linalg: {what} on a placed decomposition (blocks on their "
                                   f"own devices) is ported in a later slice (ROADMAP.md {item})")
 
     kinds = {d[0] for d in term_descs}
-    if "diff_field" in kinds:
-        later("a variable-Γ term", "A11d")
-    if kinds & {"div_field", "conv_field"}:
-        later("a Div/Conv term", "A11d")
     if not sync or capturing(x0.device) or in_whole_step():
         later("sync: False or a fused step", "A11f")
     if "custom" in kinds:
@@ -278,6 +276,21 @@ def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
         later("donate", "A11h")
     if debug:
         later("debug 'nan'", "A11h")
+
+
+def _place_operands(tparams, lay) -> tuple:
+    """The per-call operands of a placed solve: Γ and the advector scattered
+    to the blocks (``blocks.scatter_operand``, once per solve, as the JAX
+    package's ``_commit_to_decomp`` shards exactly these two); the others
+    as they are."""
+    out = []
+    for tp in tparams:
+        tp = dict(tp)
+        for k in ("gamma", "adv"):
+            if k in tp:
+                tp[k] = blocks.scatter_operand(tp[k], lay)
+        out.append(tp)
+    return tuple(out)
 
 
 def _check_config(config) -> None:
@@ -394,7 +407,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             # back on the lead device (neither counts among blocks.gathers)
             lay = blocks.layout(decomp, x0.shape[1:], x0.device)
             xb, itr, tol_dev, hist = fn(blocks.scatter(x0, lay), blocks.scatter(rhs, lay),
-                                        tparams, bc_vals)
+                                        _place_operands(tparams, lay), bc_vals)
             x = blocks.gather(xb, count=False)
         else:
             x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)

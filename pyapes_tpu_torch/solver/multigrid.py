@@ -50,7 +50,7 @@ off: every smooth and residual applies the level operator, and a level
 whose blocks pass ``parallel.halo.sharded_supported`` applies it block by
 block through the halo-extended kernel (``make_sharded_apply``); coarser
 levels take the global axis-stencil kernel. Variable-Γ hierarchies drop
-the decomposition.
+a view-based decomposition (their levels apply on the whole tensor).
 
 Under a placed decomposition (blocks on their own devices) a level where
 ``parallel.halo.placed_supported`` holds keeps its vectors as block
@@ -60,8 +60,13 @@ block's device, and the smoothers' elementwise work runs per block. The
 transfers gather the fine or coarse vector on the solve's device (counted
 in ``blocks.gathers``), resize it there and scatter it to the next level
 when that level is placed; the levels the gate rejects run on the solve's
-device. ``vcycles`` and ``cycle_gathers`` count the preconditioner's
-V-cycles and the gathers inside them.
+device. A variable-Γ hierarchy keeps a placed decomposition: ``set_gamma``
+samples Γ down on the solve's device and scatters each placed level's Γ
+(``blocks.operand_scatters``), and a level that ``placed_field_supported``
+takes applies and smooths block by block (``halo.placed_diff_field``,
+``placed_diff_jacobi``). ``vcycles``, ``cycle_gathers`` and
+``fmg_gathers`` count the preconditioner's V-cycles and the gathers inside
+them and inside the FMG starts.
 
 All device constants of the hierarchy (masks, coefficient vectors,
 diagonals, transfer matrices) are built once per spec and cached, so a
@@ -97,12 +102,21 @@ from pyapes_tpu_torch.ops.jacobi import jacobi3d, jacobi3d_dot, jacobi3d_x2
 from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node, diff_diag
 from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
-from pyapes_tpu_torch.parallel.halo import make_sharded_apply, placed_supported, sharded_supported
+from pyapes_tpu_torch.parallel.halo import (
+    make_sharded_apply,
+    placed_diff_field,
+    placed_diff_jacobi,
+    placed_field_supported,
+    placed_supported,
+    sharded_supported,
+)
 
 vcycles = 0
 """V-cycles run as a preconditioner (a counter)."""
 cycle_gathers = 0
 """``blocks.gathers`` made inside those V-cycles (a counter)."""
+fmg_gathers = 0
+"""``blocks.gathers`` made inside full-multigrid starts (a counter)."""
 
 
 @lru_cache(maxsize=None)
@@ -210,7 +224,8 @@ class MGSpec:
         if self.var_gamma:
             assert not rz, "var_gamma MG: rz meshes not supported"
             fuse_rz = False  # the dot kernels hard-code the constant stencil
-            decomp = None  # the Γ levels apply on the whole tensor
+            if decomp is not None and not decomp.placed:
+                decomp = None  # the Γ levels apply on the whole tensor
         self.rz = bool(rz)
         self.r_lower = float(r_lower)
         if self.rz:
@@ -220,6 +235,8 @@ class MGSpec:
         self._layouts: dict = {}
         self._g_levels = None
         self._gd_levels = None
+        self._gb_levels = None
+        self._field_buffers: dict = {}
         self.shape = tuple(shape)
         self.lengths = tuple(float(l) for l in lengths)
         self.paxes = tuple(paxes or ())
@@ -393,16 +410,30 @@ class MGSpec:
             levels.append(self._downsample_g(levels[-1], shape))
         self._g_levels = levels
         self._gd_levels = [None] * len(levels)
+        # a placed level's Γ scattered to its blocks (counted), once per call
+        self._gb_levels = [None if self._placement(shape) is None
+                           else blocks.scatter_operand(gl, self._placement(shape))
+                           for gl, shape in zip(levels, self.shapes)]
 
     def _gamma(self, shape):
         if self._g_levels is None:
             raise RuntimeError("MGSpec: set_gamma was not called before the cycle")
         return self._g_levels[self.shapes.index(tuple(shape))]
 
+    def _gamma_blocks(self, shape):
+        """A placed level's Γ block vector (``set_gamma``), else None."""
+        self._gamma(shape)
+        return self._gb_levels[self.shapes.index(tuple(shape))]
+
     def _vg_pass(self, x, b, shape, mode):
-        """One ``diff_jacobi`` pass ("smooth", "smooth0" or "resid")."""
-        return diff_jacobi(x, b, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
-                           self.vg_avg, self.omega, self._mask_axes(shape), mode)
+        """One ``diff_jacobi`` pass ("smooth", "smooth0" or "resid"); on a
+        placed level block by block (``halo.placed_diff_jacobi``)."""
+        args = (self._inv_dx2(shape), self._vg_surgery(), self.vg_avg, self.omega,
+                self._mask_axes(shape), mode)
+        gb = self._gamma_blocks(shape)
+        if gb is not None:
+            return placed_diff_jacobi(x, b, gb, *args, self._field_buffers)
+        return diff_jacobi(x, b, self._gamma(shape), *args)
 
     # -- device constants (built once per spec, then cached) --------------
     def _const(self, key, make):
@@ -415,13 +446,15 @@ class MGSpec:
 
     def _placement(self, shape):
         """The ``blocks.Layout`` of a placed level (a placed decomposition
-        whose block-wise apply takes the level), else None."""
+        whose block-wise apply takes the level: ``placed_supported``, or
+        ``placed_field_supported`` for the variable-Γ levels), else None."""
         shape = tuple(shape)
         if self.decomp is None or not self.decomp.placed:
             return None
         if shape not in self._layouts:
-            self._layouts[shape] = (blocks.layout(self.decomp, shape, self.device)
-                                    if placed_supported(self.decomp, shape) else None)
+            ok = (placed_field_supported(self.decomp, shape, self.paxes) if self.var_gamma
+                  else placed_supported(self.decomp, shape))
+            self._layouts[shape] = blocks.layout(self.decomp, shape, self.device) if ok else None
         return self._layouts[shape]
 
     def _on_level(self, v, shape):
@@ -475,8 +508,9 @@ class MGSpec:
             g = self._gamma(shape)
             lvl = self.shapes.index(tuple(shape))
             if self._gd_levels[lvl] is None:
-                self._gd_levels[lvl] = diff_diag(
-                    g, self._inv_dx2(shape), self._vg_surgery(), self.vg_avg).to(self.cdtype)
+                self._gd_levels[lvl] = self._on_level(diff_diag(
+                    g, self._inv_dx2(shape), self._vg_surgery(), self.vg_avg).to(self.cdtype),
+                    shape)
             return self._gd_levels[lvl]
         if not self._surgery:
             return -2.0 * sum(self._inv_dx2(shape))
@@ -561,8 +595,11 @@ class MGSpec:
         through the axis-stencil kernel; the variable-Γ operator (unscaled)
         through the diff-field kernel."""
         if self.var_gamma:
-            return diff_field(x, self._gamma(shape), self._inv_dx2(shape), self._vg_surgery(),
-                              self.vg_avg)
+            args = (self._inv_dx2(shape), self._vg_surgery(), self.vg_avg)
+            gb = self._gamma_blocks(shape)
+            if gb is not None:
+                return placed_diff_field(x, gb, *args, self.paxes, self._field_buffers)
+            return diff_field(x, self._gamma(shape), *args)
         sharded = self._sharded_apply(tuple(shape))
         coeffs = self._level_coeffs(shape)
         out = sharded(coeffs, x) if sharded is not None else axis_stencil(coeffs, x)
@@ -854,7 +891,11 @@ class MGSpec:
         self._prepare()
 
         def init(r):
-            return _like(self.fmg(r.to(self.cdtype), self.fmg_cycles).to(r.dtype), r)
+            global fmg_gathers
+            g0 = blocks.gathers
+            x = _like(self.fmg(r.to(self.cdtype), self.fmg_cycles).to(r.dtype), r)
+            fmg_gathers += blocks.gathers - g0
+            return x
 
         return init
 

@@ -109,6 +109,18 @@ def block_coeffs(coeffs, layout) -> list:
     return hit[2]
 
 
+def per_solve(t, key, make):
+    """``make()`` kept on the operand ``t`` under ``key``: the per-block
+    copies a placed solve derives from an operand it scattered at entry (Γ,
+    the advector: their halo-extended blocks, their neighbours' faces) are
+    made at the first use and live as long as the operand, which is the
+    solve's; nothing grid-sized is made inside its Krylov loop."""
+    cache = t.__dict__.setdefault("_per_solve", {})
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
 def device_copies(tensors, devices) -> dict:
     """``{device: tensors on it}`` for each of ``devices``: the tuple
     ``tensors`` itself on its own device, a contiguous copy on another,

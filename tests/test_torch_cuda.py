@@ -1920,3 +1920,169 @@ def test_cuda_placed_across_two_cards(cuda, method):
     assert rep["converge"] and rep["itr"] == rref["itr"], (rep, rref)
     assert (blocks.repartition_bytes_across > x0) == (method in ("fastdiag", "cg_fd"))
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)
+
+
+# -- placed variable-Γ and Div/Conv terms, placed PeriodicFlow --------------
+
+
+def _placed_term_apply(kind, devices, dtype, seed=0):
+    """One placed apply of ``kind`` ("diff_field", "diff_jacobi_<mode>",
+    "advect_pair_<limiter>_<form>", "conv_component_<limiter>") on (4, 2, 1)
+    blocks of a 32 x 48 x 160 grid on ``devices``, from seeded operands:
+    the gathered output on the CPU."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
+
+    nx = (32, 48, 160)
+    rng = np.random.default_rng(seed)
+    dd = DomainDecomposition((4, 2, 1), devices=devices)
+    lay = blocks.layout(dd, nx, torch.device(devices[0]))
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+
+    x, b = blocks.scatter(arr(2, *nx), lay), blocks.scatter(arr(2, *nx), lay)
+    surgery = (("neumann", "none"), ("none", "neumann"), ("none", "none"))
+    if kind.startswith("diff"):
+        g = blocks.scatter_operand((0.5 + torch.from_numpy(rng.random((3, *nx)))).to(dtype), lay)
+        inv = [float(n - 1) ** 2 for n in nx]
+        if kind == "diff_field":
+            out = halo.placed_diff_field(x, g, inv, surgery, "harmonic", (), {})
+        else:
+            mode = kind.split("_")[-1]
+            out = halo.placed_diff_jacobi(None if mode == "smooth0" else x, b, g, inv, surgery,
+                                          "arithmetic", 0.8, (0, 1, 2), mode, {})
+    else:
+        from pyapes_tpu_torch.geometry import Box
+        from pyapes_tpu_torch.mesh import Mesh
+        from pyapes_tpu_torch.ops.stencil import div_axis_coeffs
+
+        parts = kind.split("_")
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, list(nx), device="cpu", dtype="double")
+        base = tuple(tuple(torch.as_tensor(c).to(dtype).to(devices[0]) for c in cs)
+                     for cs in div_axis_coeffs(mesh, None, 1.0, "none"))
+        conv = parts[0] == "conv"
+        form = "advective" if conv else parts[3]
+        fn = halo.make_sharded_advect_apply(dd, "conv" if conv else "div", 3, parts[2], surgery,
+                                            form)
+        out = fn(blocks.scatter(arr(3, *nx), lay), blocks.scatter_operand(arr(3, *nx), lay), base)
+    return blocks.gather(out, count=False).cpu()
+
+
+PLACED_TERM_KINDS = ["diff_field", "diff_jacobi_smooth", "diff_jacobi_smooth0",
+                     "diff_jacobi_resid", "advect_pair_none_conservative",
+                     "advect_pair_none_advective", "advect_pair_upwind_conservative",
+                     "conv_component_none", "conv_component_upwind"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", PLACED_TERM_KINDS)
+def test_cuda_placed_term_kernels_equal_their_plain_versions(cuda, kind, dtype):
+    """Each of the four kernels on eight card blocks (``("cuda:0",) * 8``):
+    one launch per block and apply, the output equal to the same apply on
+    CPU blocks (the plain versions) within ``TOL`` of its largest value."""
+    from pyapes_tpu_torch.ops.advect import advect_pair as ap, conv_component as cc
+    from pyapes_tpu_torch.ops.diff_field import diff_field as dfn, diff_jacobi as djn
+
+    wrapper = {"diff_field": dfn, "diff_jacobi": djn, "advect_pair": ap,
+               "conv_component": cc}[next(k for k in ("diff_field", "diff_jacobi",
+                                                      "advect_pair", "conv_component")
+                                          if kind.startswith(k))]
+    l0 = wrapper.launches
+    got = _placed_term_apply(kind, ("cuda:0",) * 8, dtype)
+    torch.cuda.synchronize()
+    assert wrapper.launches - l0 == 8
+    want = _placed_term_apply(kind, ("cpu",) * 8, dtype)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= TOL[dtype] * scale
+
+
+def _placed_model_run(kind, dev, decomp):
+    """f64 runs of the placed slice's models on ``dev`` with ``decomp``:
+    "darcy" (a 32^3 variable-Γ CG + Γ-aware MG solve), "burgers" (2
+    ``BurgersND`` steps, 17^3, the torus 16^3), "tgv" (3 steps of the
+    Smagorinsky TGV-3D LES, 17^3): ``(itr per solve, fields on the CPU)``."""
+    from math import pi
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import BurgersND, PeriodicFlow, smagorinsky_viscosity
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    if kind == "darcy":
+        n = 32
+        mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="double")
+        var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"),
+                                   "obstacle": None}, init_val=0.0)
+        g = torch.exp(0.8 * torch.sin(2 * pi * mesh.X) * torch.sin(2 * pi * mesh.Y)
+                      * torch.sin(2 * pi * mesh.Z)).contiguous()
+        rhs = torch.from_numpy(np.random.default_rng(2).standard_normal((1, n, n, n))).to(dev)
+        s = Solver({"fdm": {"method": "cg", "precond": "mg", "tol": 1e-8, "max_it": 200,
+                            "criterion": "residual", "report": False, "decomp": decomp}})
+        s.set_eq(FDM().laplacian(g, var) == rhs)
+        return [s.solve()["itr"]], [var().cpu()]
+    L = 2 * pi
+    mesh = Mesh(Box[0:L, 0:L, 0:L], None, [17] * 3, device=str(dev), dtype="double")
+    X, Y, Z = mesh.X, mesh.Y, mesh.Z
+    u0 = torch.sin(X) * torch.cos(Y) * torch.cos(Z)
+    v0 = -torch.cos(X) * torch.sin(Y) * torch.cos(Z)
+    itr = []
+    if kind == "burgers":
+        model = BurgersND(mesh, nu=0.1, init_vals=[u0[None], v0[None], torch.zeros_like(u0)[None]],
+                          config={"decomp": decomp})
+        solvers, fields = [model.solver], model.vel
+    else:
+        model = PeriodicFlow(mesh, nu=1 / 1600, config={"decomp": decomp},
+                             mu_strain_fn=smagorinsky_viscosity(1 / 1600, mesh, cs=0.17))
+        model.set_velocity(u0, v0, torch.zeros_like(u0))
+        solvers, fields = [model.mom_solver, model.p_solver], model.state_fields()
+    for solver in solvers:
+        real = solver.solve
+
+        def solve(real=real):
+            rep = real()
+            itr.append(rep["itr"])
+            return rep
+
+        solver.solve = solve
+    if kind == "burgers":
+        model.run(0.01, 2)
+    else:
+        model.run(0.2 * L / 16, 3)
+    return itr, [f().cpu() for f in fields]
+
+
+@pytest.mark.parametrize("kind", ["darcy", "burgers", "tgv"])
+def test_cuda_mixed_placed_terms(cuda, kind):
+    """(4, 2, 1) blocks alternating between cuda:0 and the CPU: the
+    variable-Γ CG with the Γ-aware MG, ``BurgersND`` (the placed Conv) and
+    the Smagorinsky LES (the placed variable-Γ momentum, the placed
+    fastdiag pressure) take the view-based runs' itr on the card, solve by
+    solve, and their fields (1e-10 of each field's largest value)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    ref_itr, ref = _placed_model_run(kind, cuda, DomainDecomposition((4, 2, 1)))
+    itr, out = _placed_model_run(kind, cuda, DomainDecomposition((4, 2, 1),
+                                                                  devices=("cuda:0", "cpu") * 4))
+    assert itr == ref_itr
+    for a, b in zip(out, ref):
+        assert (a - b).abs().max().item() <= 1e-10 * b.abs().max().clamp_min(1e-30).item()
+
+
+@pytest.mark.parametrize("kind", ["darcy", "burgers", "tgv"])
+def test_cuda_placed_terms_across_two_cards(cuda, kind):
+    """The same runs with the blocks round robin over cuda:0 and cuda:1
+    (peer copies of the ghost faces and Γ's and the advector's faces): the
+    view-based runs' itr and fields (1e-12 relative)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards; this machine shows {n}")
+    ref_itr, ref = _placed_model_run(kind, cuda, DomainDecomposition((4, 2, 1)))
+    itr, out = _placed_model_run(kind, cuda, DomainDecomposition(
+        (4, 2, 1), devices=("cuda:0", "cuda:1") * 4))
+    assert itr == ref_itr
+    for a, b in zip(out, ref):
+        assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().clamp_min(1e-30).item()

@@ -342,14 +342,27 @@ def test_placed_mg_gathers_only_in_its_transfers():
     assert blocks.gathers - g0 == in_cycles
 
 
-def _flow():
+def _flow(decomp):
+    """Two Taylor-Green steps of ``PeriodicFlow`` at 17^2 (16^2 on the
+    torus): ``(u, the last momentum solve's report)``."""
+    from math import pi
+
     from pyapes_tpu_torch.models import PeriodicFlow
 
     mesh = Mesh(Box[0:1, 0:1], None, [17, 17], device="cpu", dtype="double")
-    PeriodicFlow(mesh, config={"decomp": _placed((2, 2))})
+    model = PeriodicFlow(mesh, config={"decomp": decomp})
+    k = 2 * pi
+    model.set_velocity(-torch.cos(k * mesh.X) * torch.sin(k * mesh.Y),
+                       torch.sin(k * mesh.X) * torch.cos(k * mesh.Y))
+    model.run(2e-3, 2)
+    return model.u()[0].clone(), model.mom_solver.report
 
 
-def _unported(case):
+def _unported(case, decomp=None):
+    """The case's solve on ``decomp`` (default: placed (2, 1, 1) blocks, or
+    (2, 2) for the flow): ``(solution, report)``."""
+    if case == "periodic_flow":
+        return _flow(decomp or _placed((2, 2)))
     mesh, var, rhs = _problem((16, 8, 8))
     cfg = {**CG, "max_it": 5}
     fdm = FDM()
@@ -366,7 +379,7 @@ def _unported(case):
         from pyapes_tpu_torch.ops.graph_loop import whole_step
 
         with whole_step():
-            return _unported_solve(var, lhs, rhs, cfg)
+            return _unported_solve(var, lhs, rhs, cfg, decomp)
     elif case == "custom":
         lhs = fdm.custom(lambda x: 2.0 * x, var)
     elif case == "obstacle":
@@ -379,19 +392,30 @@ def _unported(case):
         cfg["donate"] = True
     elif case == "debug_nan":
         cfg["debug"] = "nan"
-    elif case == "periodic_flow":
-        return _flow()
-    return _unported_solve(var, lhs, rhs, cfg)
+    return _unported_solve(var, lhs, rhs, cfg, decomp)
 
 
-def _unported_solve(var, lhs, rhs, cfg):
-    s = Solver({"fdm": {**cfg, "decomp": _placed((2, 1, 1))}})
+def _unported_solve(var, lhs, rhs, cfg, decomp=None):
+    s = Solver({"fdm": {**cfg, "decomp": decomp or _placed((2, 1, 1))}})
     s.set_eq(lhs == rhs)
-    return s.solve()
+    rep = s.solve()
+    return var()[0].clone(), rep
 
 
-@pytest.mark.parametrize("case", ["var_gamma", "div", "conv", "sync_false", "fused_step",
-                                  "custom", "obstacle", "donate", "debug_nan", "periodic_flow"])
+@pytest.mark.parametrize("case", ["sync_false", "fused_step", "custom", "obstacle", "donate",
+                                  "debug_nan"])
 def test_options_outside_the_placed_path_raise(case):
-    with pytest.raises(NotImplementedError, match=r"placed decomposition .*A11[d-h]"):
+    with pytest.raises(NotImplementedError, match=r"placed decomposition .*A11[f-h]"):
         _unported(case)
+
+
+@pytest.mark.parametrize("case", ["var_gamma", "div", "conv", "periodic_flow"])
+def test_formerly_unported_cases_solve_placed(case):
+    """The variable-Γ, Div and Conv terms and ``PeriodicFlow``, which raised
+    on a placed decomposition before, solve there and equal the view-based
+    run: the same ``itr`` and 1e-12."""
+    out, rep = _unported(case)
+    ref, rref = _unported(case, DomainDecomposition((2, 2) if case == "periodic_flow"
+                                                    else (2, 1, 1)))
+    assert rep["itr"] == rref["itr"] and rep["itr"] >= 1
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)
