@@ -283,7 +283,21 @@ Phases, report lines before the last:
    solution within ``PLACED_CMP_TOL`` (the card blocks launch the kernels,
    the CPU blocks run the plain versions; every block operation takes its
    own device's operands). Peer copies between two cards run only where
-   the machine shows two.
+   the machine shows two. (a) and (f) hold the exact gathers: one per
+   V-cycle (the hand-over from the coarsest placed level to the levels on
+   the lead card; the transfers between placed levels run block by
+   block), ``hand-overs * (1 + placed levels)`` per FMG start, and (f) one
+   for Γ's sampling. (j)-(l) (``placed_fields``): the Field, its RHS and
+   (l) Γ on the blocks (``blocks.put``): (j) fastdiag 512^3, (k) bench's
+   MG-PCG 512^3 (and in turns with (a)'s whole-Field solve), (l) Darcy
+   256^3, each against (d), (a), (f)'s references: the same passes / ``itr``
+   (within ``PLACED_GATE``), no scatter of x0 or the RHS at entry and no
+   gather at exit, the exact gathers, the peak memory beside the whole
+   Field's. (m) (``placed_large``): fastdiag and MG-PCG at 1536^3 f32 on
+   four cards with no whole grid anywhere (a manufactured discrete
+   solution built block by block): ``itr``, the error against it, the
+   wall, every card's peak (the lead within ``LARGE_LEAD_SPREAD``); on one
+   card a line says it needs four.
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
 9, 10, 11, 12, 13, 15 (a), 16, and each placed drive of 17) and read just after; a kernel of a path that launched no time there
@@ -5034,6 +5048,7 @@ def _sync_all() -> None:
 def _placed_counters() -> dict:
     from pyapes_tpu_torch.parallel import blocks, halo
     from pyapes_tpu_torch.solver import multigrid
+    from pyapes_tpu_torch.solver.linalg import dispatch
 
     return {**_counts(), "gathers": blocks.gathers, "exchange_bytes": halo.exchange_bytes,
             "exchange_bytes_across": halo.exchange_bytes_across,
@@ -5041,7 +5056,19 @@ def _placed_counters() -> dict:
             "cycle_gathers": multigrid.cycle_gathers, "fmg_gathers": multigrid.fmg_gathers,
             "operand_scatters": blocks.operand_scatters, "repartitions": blocks.repartitions,
             "repartition_bytes_across": blocks.repartition_bytes_across,
-            "repartition_bytes_within": blocks.repartition_bytes_within}
+            "repartition_bytes_within": blocks.repartition_bytes_within,
+            "gamma_gathers": multigrid.gamma_gathers, "host_gathers": blocks.host_gathers,
+            "transfer_ghost_bytes": halo.transfer_ghost_bytes,
+            "entry_scatters": dispatch.entry_scatters, "exit_gathers": dispatch.exit_gathers}
+
+
+def _no_host_gathers(counts: dict) -> dict:
+    """A timed drive's counter deltas, checked: it read no block vector on
+    the host (``blocks.host_gathers``)."""
+    if counts["host_gathers"]:
+        raise RuntimeError(f"chip_smoke: {counts['host_gathers']} host gathers of a block vector "
+                           f"in a timed drive: {json.dumps(counts)}")
+    return counts
 
 
 def _counted_drive(launches: dict, fn):
@@ -5087,7 +5114,7 @@ def run_layout(var, rhs, cfg: dict, solves: int, warm: bool = True, coeff=1.0) -
         wall = time.perf_counter() - tic
         c1 = _placed_counters()
         rows.append({"itr": rep["itr"], "tol": rep["tol"], "converge": rep["converge"],
-                     "wall_s": wall, **{k: c1[k] - c0[k] for k in c1}})
+                     "wall_s": wall, **_no_host_gathers({k: c1[k] - c0[k] for k in c1})})
     return {"rows": rows, "x": var().clone(),
             "peak_gib": [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards]}
 
@@ -5103,6 +5130,23 @@ def _ghost_bytes(ms, shape, itemsize: int) -> int:
 
 def _rel(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _handover(decomp, grid, var_gamma: bool = False) -> tuple[int, int]:
+    """``(placed levels, hand-overs)`` of the multigrid hierarchy of ``grid``
+    on the placed ``decomp``: the levels the placed gate takes (the
+    variable-Γ one with ``var_gamma``), and 1 where a level below them runs
+    on the lead device (the one gather of a V-cycle, and of Γ's sampling
+    per solve), else 0. An FMG start gathers ``hand-overs * (1 + placed
+    levels)``: its restriction chain's and one per V-cycle of a placed
+    level."""
+    from pyapes_tpu_torch.parallel import halo
+    from pyapes_tpu_torch.solver.multigrid import _level_shapes
+
+    gate = halo.placed_field_supported if var_gamma else halo.placed_supported
+    shapes = _level_shapes(grid)
+    n = sum(bool(gate(decomp, s)) for s in shapes)
+    return n, int(n < len(shapes))
 
 
 def _placed_summary(label, run, n_cuda_blocks: int, ghost=None) -> dict:
@@ -5164,7 +5208,7 @@ def _driver(launches: dict):
     return drive
 
 
-def placed_fastdiag(dev, drive) -> dict:
+def placed_fastdiag(dev, drive, refs: dict) -> dict:
     """Phase 17 (d) and (e) (``phase_placed``): the placed fastdiag and the
     placed CG with the FD preconditioner, blocks round robin over the cards
     the machine shows, each solve through ``drive`` (``_driver``); returns
@@ -5231,6 +5275,8 @@ def placed_fastdiag(dev, drive) -> dict:
                                               ** (1 / 3)),
               "lead_minus_other_gib": peak[0] - max(peak[1:]) if len(peak) > 1 else None})
     out["d_fastdiag"] = d
+    refs["d"] = {"itr": ref_itr, "x": ref_x.cpu(), "placed_x": x.cpu(), "agree": agree,
+                 "peak_gib": peak}
     print(f"[17 placed] (d) fastdiag {N_MAIN}^3 f32 {N_DECOMP} on {n_cards} card(s), in turns "
           f"with the view-based solve: {json.dumps(d)}", flush=True)
     del x, ref_x, var, rhs, mesh
@@ -5319,7 +5365,7 @@ def run_steps(stepper, steps: int, warm: int = 0) -> dict:
             "converge": all(r["converge"] or r["method"] == "fastdiag" for r in reports),
             "wall_s": walls, "energy": energy,
             "wall_s_per_step_median": statistics.median(walls),
-            "counts": {k: c1[k] - c0[k] for k in c1},
+            "counts": _no_host_gathers({k: c1[k] - c0[k] for k in c1}),
             "peak_gib": [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards],
             "fields": [f().clone() for f in fields]}
 
@@ -5402,7 +5448,7 @@ def _mixed_case(dev, label, run_fn, placed_devs) -> dict:
             "max_rel_diff_vs_view": rel, "gathers": blocks.gathers - g0, "wall_s": wall}
 
 
-def placed_terms(dev, launches: dict) -> dict:
+def placed_terms(dev, launches: dict, refs: dict) -> dict:
     """Phase 17 (f)-(i) (``phase_placed``): the variable-Γ and Div/Conv terms
     and ``PeriodicFlow`` on ``N_DECOMP`` placed blocks (round robin over the
     cards), each against the view-based decomposition of the same problem,
@@ -5440,8 +5486,14 @@ def placed_terms(dev, launches: dict) -> dict:
     fine = _apply_bytes(lambda: halo.placed_diff_field(xb, gb, inv, (("none", "none"),) * 3,
                                                        "arithmetic", (), {}))
     del xb, gb
-    ok = all(r["converge"] and r["tol"] <= 1e-6 and r["gathers"] == r["cycle_gathers"]
-             + r["fmg_gathers"] and r["operand_scatters"] == 1 + n_levels
+    _, hand = _handover(placed_dd, (n,) * 3, var_gamma=True)
+    # Γ scattered once and sampled down block by block (its hand-over level
+    # gathered once per solve); a V-cycle gathers at its hand-over only
+    ok = all(r["converge"] and r["tol"] <= 1e-6
+             and r["gathers"] == r["cycle_gathers"] + r["fmg_gathers"] + r["gamma_gathers"]
+             and r["cycle_gathers"] == hand * r["vcycles"]
+             and r["fmg_gathers"] == hand * (1 + n_levels) and r["gamma_gathers"] == hand
+             and r["operand_scatters"] == 1
              and r["diff_jacobi"] > 0 and r["diff_field"] > 0 for r in rows)
     d_itr = max(abs(p["itr"] - v["itr"]) for p, v in zip(rows, view["rows"]))
     if not (ok and d_itr <= PLACED_GATE and agree <= PLACED_AGREE and res64 <= 1e-5
@@ -5460,7 +5512,8 @@ def placed_terms(dev, launches: dict) -> dict:
         "true_rel_residual_f64": res64, "placed_levels": n_levels,
         "gathers_per_solve": last["gathers"], "cycle_gathers_per_solve": last["cycle_gathers"],
         "fmg_gathers_per_solve": last["fmg_gathers"],
-        "gathers_in_krylov_loop": last["gathers"] - last["cycle_gathers"] - last["fmg_gathers"],
+        "gathers_in_krylov_loop": last["gathers"] - last["cycle_gathers"] - last["fmg_gathers"]
+        - last["gamma_gathers"],
         "gathers_per_vcycle": last["cycle_gathers"] / max(last["vcycles"], 1),
         "vcycles_per_solve": last["vcycles"], "operand_scatters_per_solve":
         last["operand_scatters"], "diff_jacobi_per_solve": last["diff_jacobi"],
@@ -5471,8 +5524,12 @@ def placed_terms(dev, launches: dict) -> dict:
         "ring_ghost_bytes_f32": _ghost_bytes(N_DECOMP, (1,) + (n,) * 3, 4),
         "exchange_bytes_per_solve": last["exchange_bytes"],
         "exchange_bytes_across_cards_per_solve": last["exchange_bytes_across"],
+        "gamma_gathers_per_solve": last["gamma_gathers"],
+        "transfer_ghost_bytes_per_solve": last["transfer_ghost_bytes"],
         "peak_mem_gib_per_card": placed["peak_gib"],
         "view_peak_mem_gib_per_card": view["peak_gib"]}
+    refs["f"] = {"itr": [r["itr"] for r in view["rows"]], "x": view["x"].cpu(),
+                 "peak_gib": placed["peak_gib"]}
     print(f"[17 placed] (f) Darcy {n}^3 f32 CG + bf16 Γ-aware V(2,2) FMG {N_DECOMP}: "
           f"{json.dumps(out['f_darcy'])}", flush=True)
     del view, placed, var, rhs, coeff, mesh, x
@@ -5603,6 +5660,313 @@ def placed_terms(dev, launches: dict) -> dict:
     return out
 
 
+PLACED_FIELD_SOLVES = 2  # (j), (k): timed solves of a Field on blocks (after a warm-up)
+PLACED_FIELD_DARCY_SOLVES = 1  # (l)
+N_LARGE = 1536  # (m): the grid only four cards hold, f32 (4, 2, 1)
+LARGE_CARDS = 4
+# (m): the lead card's peak against the others' (the whole-grid tensors
+# gone from it, it holds what they hold: the loop state and the reductions'
+# partials beside its blocks)
+LARGE_LEAD_SPREAD = 0.10
+LARGE_TOL = 1e-6  # (m): the solves' tolerance (relative residual)
+# (m): the largest error against the manufactured u in [0, 1) (a wrong
+# apply, transfer or exchange leaves errors of order 1; measured on four
+# H100s: 3.2e-6 and 7.1e-4, the MG-PCG's f32 solve to a 1e-6 residual
+# keeping more of the smooth error)
+LARGE_ERR = {"fastdiag": 1e-4, "mgpcg": 5e-3}
+
+
+def _block_problem(dev, placed_dd, nodes, darcy=False):
+    """The path cells' problem (``_path_problem``: the seeded RHS, Darcy's Γ)
+    with the Field, the RHS and Γ block vectors of ``placed_dd``: made whole
+    on the card as the whole-Field cases make them, put on the blocks, the
+    whole ones dropped (and the card's cache emptied) before anything is
+    measured. ``(mesh, var, rhs, coeff)``."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.variables import Field
+
+    mesh, var, rhs, coeff = (_path_problem(dev, nodes[0], darcy=True) if darcy
+                             else (*placed_problem(dev, nodes), 1.0))
+    rb = blocks.put(rhs, placed_dd)
+    gb = blocks.put(coeff[None], placed_dd) if darcy else 1.0
+    zeros = blocks.build(rb.placement, lambda sl, d: torch.zeros(
+        (1, *(x.stop - x.start for x in sl)), dtype=rhs.dtype, device=d))
+    vb = Field(var.name, 1, mesh, var.bc_config, init_val=zeros)
+    del var, rhs, coeff
+    torch.cuda.empty_cache()
+    return mesh, vb, rb, gb
+
+
+def _field_rows_ok(rows) -> bool:
+    """Every timed solve of a Field on blocks took its x0 and RHS as they
+    are and left the solution on its blocks: no scatter at the entry, no
+    gather at the exit."""
+    return all(r["entry_scatters"] == 0 and r["exit_gathers"] == 0 for r in rows)
+
+
+def placed_fields(dev, launches: dict, refs: dict) -> dict:
+    """Phase 17 (j)-(l) (``phase_placed``): the Field's value on its
+    ``N_DECOMP`` blocks (round robin over the cards; ``blocks.put``), its
+    RHS and Γ too, through ``Solver.solve``, against (a), (d) and (f)'s
+    view-based solves of the same problems (``refs``): (j) fastdiag 512^3,
+    (k) bench's MG-PCG 512^3 (bf16 V(2,2) FMG), (l) Darcy 256^3 with Γ on
+    blocks; each with its peak memory beside the whole Field's. Returns the
+    numbers, checked."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+
+    devs = placed_devices(prod(N_DECOMP))
+    n_cuda = sum(1 for d in devs if d.startswith("cuda"))
+    placed_dd = DomainDecomposition(N_DECOMP, devices=devs)
+    out = {}
+
+    def drive(var, rhs, cfg, solves, coeff=1.0, warm=True):
+        return _counted_drive(launches, lambda: run_layout(var, rhs, cfg, solves, warm,
+                                                           coeff=coeff))
+
+    def host(x):
+        return x.cpu() if isinstance(x, blocks.BlockTensor) else x.detach().cpu()
+
+    # (j) fastdiag 512^3, against (d)'s view-based solve
+    mesh, var, rhs, _ = _block_problem(dev, placed_dd, (N_MAIN,) * 3)
+    run = drive(var, rhs, fd_cfg(placed_dd), PLACED_FIELD_SOLVES)
+    j = _placed_summary("(j) fastdiag, the Field on blocks", run, n_cuda)
+    rows, x = run["rows"], host(run["x"])
+    agree = _rel(x, refs["d"]["x"])
+    # the same blocks, kernels and order as (d)'s placed solve of the whole
+    # Field: its bits
+    same_bits = torch.equal(x, refs["d"]["placed_x"])
+    on_blocks = isinstance(var(), blocks.BlockTensor)
+    if not (on_blocks and same_bits and _field_rows_ok(rows)
+            and all(r["converge"] and r["itr"] == refs["d"]["itr"] and r["gathers"] == 0
+                    for r in rows)):
+        raise RuntimeError(f"chip_smoke: (j) fastdiag on blocks: {json.dumps(rows)} against "
+                           f"(d)'s {refs['d']['itr']} passes, (d)'s placed bits {same_bits} "
+                           f"(max|dx| {(x - refs['d']['placed_x']).abs().max().item():.3e}), "
+                           f"max|dx|/max|x| against the undecomposed solve {agree:.3e} ((d) "
+                           f"{refs['d']['agree']:.3e}), on blocks {on_blocks}")
+    j.update({"undecomposed_itr": refs["d"]["itr"], "max_rel_diff_vs_undecomposed": agree,
+              "bits_of_d_placed": same_bits,
+              "d_max_rel_diff_vs_undecomposed": refs["d"]["agree"],
+              "d_peak_mem_gib_per_card": refs["d"]["peak_gib"],
+              "entry_scatters_per_solve": rows[-1]["entry_scatters"],
+              "exit_gathers_per_solve": rows[-1]["exit_gathers"]})
+    out["j_fastdiag_field"] = j
+    print(f"[17 placed] (j) fastdiag {N_MAIN}^3 f32 {N_DECOMP}, the Field on blocks: "
+          f"{json.dumps(j)}", flush=True)
+    del var, rhs, run, x, mesh
+    torch.cuda.empty_cache()
+
+    # (k) bench's MG-PCG 512^3, against (a)'s view-based solve
+    mesh, var, rhs, _ = _block_problem(dev, placed_dd, (N_MAIN,) * 3)
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+    run = drive(var, rhs, {**mg, "decomp": placed_dd}, PLACED_FIELD_SOLVES)
+    k = _placed_summary("(k) MG-PCG, the Field on blocks", run, n_cuda)
+    rows, x = run["rows"], host(run["x"])
+    n_lv, hand = _handover(placed_dd, (N_MAIN,) * 3)
+    agree = _rel(x, refs["a"]["x"])
+    d_itr = max(abs(r["itr"] - v) for r, v in zip(rows, refs["a"]["itr"]))
+    if not (_field_rows_ok(rows) and d_itr <= PLACED_GATE and agree <= PLACED_AGREE
+            and all(r["converge"] and r["tol"] <= 1e-6
+                    and r["cycle_gathers"] == hand * r["vcycles"]
+                    and r["fmg_gathers"] == hand * (1 + n_lv)
+                    and r["gathers"] == r["cycle_gathers"] + r["fmg_gathers"] for r in rows)):
+        raise RuntimeError(f"chip_smoke: (k) MG-PCG on blocks: {json.dumps(rows)} against "
+                           f"(a)'s view-based itr {refs['a']['itr']}, max|dx|/max|x| "
+                           f"{agree:.3e}; {n_lv} placed levels, hand-over {hand}")
+    # in turns with the whole Field's placed solve (a)'s problem: whole,
+    # blocks, blocks, whole (the same hierarchy, warm)
+    _, wvar, wrhs = placed_problem(dev, (N_MAIN,) * 3)
+    turns = {"whole": [], "blocks": []}
+    for kind in ("whole", "blocks", "blocks", "whole"):
+        v, b = (wvar, wrhs) if kind == "whole" else (var, rhs)
+        r = drive(v, b, {**mg, "decomp": placed_dd}, 1, warm=False)["rows"][-1]
+        turns[kind].append(r["wall_s"])
+    del v, b, wvar, wrhs
+    k.update({"view_itr": refs["a"]["itr"], "max_rel_diff_vs_view": agree,
+              "placed_levels": n_lv, "handover_gathers_per_vcycle": hand,
+              "fmg_gathers_per_solve": rows[-1]["fmg_gathers"],
+              "transfer_ghost_bytes_per_solve": rows[-1]["transfer_ghost_bytes"],
+              "a_peak_mem_gib_per_card": refs["a"]["peak_gib"],
+              "in_turns_whole_field_wall_s": turns["whole"],
+              "in_turns_block_field_wall_s": turns["blocks"]})
+    out["k_mgpcg_field"] = k
+    print(f"[17 placed] (k) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG {N_DECOMP}, the Field on "
+          f"blocks: {json.dumps(k)}", flush=True)
+    del var, rhs, run, x, mesh
+    torch.cuda.empty_cache()
+
+    # (l) Darcy 256^3 with Γ on blocks, against (f)'s view-based solve
+    n = N_DARCY
+    mesh, var, rhs, gb = _block_problem(dev, placed_dd, (n,) * 3, darcy=True)
+    run = drive(var, rhs, {**darcy_cfg(), "decomp": placed_dd}, PLACED_FIELD_DARCY_SOLVES,
+                coeff=gb)
+    rows, x = run["rows"], host(run["x"])
+    n_lv, hand = _handover(placed_dd, (n,) * 3, var_gamma=True)
+    agree = _rel(x, refs["f"]["x"])
+    d_itr = max(abs(r["itr"] - v) for r, v in zip(rows, refs["f"]["itr"]))
+    if not (_field_rows_ok(rows) and d_itr <= PLACED_GATE and agree <= PLACED_AGREE
+            and all(r["converge"] and r["tol"] <= 1e-6 and r["operand_scatters"] == 0
+                    and r["gamma_gathers"] == hand and r["cycle_gathers"] == hand * r["vcycles"]
+                    and r["gathers"] == r["cycle_gathers"] + r["fmg_gathers"]
+                    + r["gamma_gathers"] and r["diff_jacobi"] > 0 for r in rows)):
+        raise RuntimeError(f"chip_smoke: (l) Darcy with Γ on blocks: {json.dumps(rows)} "
+                           f"against (f)'s view-based itr {refs['f']['itr']}, max|dx|/max|x| "
+                           f"{agree:.3e}; {n_lv} placed levels, hand-over {hand}")
+    last = rows[-1]
+    out["l_darcy_field"] = {
+        "n": n, "itr": [r["itr"] for r in rows], "view_itr": refs["f"]["itr"],
+        "tol": [r["tol"] for r in rows], "wall_s": [r["wall_s"] for r in rows],
+        "wall_s_median": statistics.median(r["wall_s"] for r in rows),
+        "max_rel_diff_vs_view": agree, "placed_levels": n_lv,
+        # the fine Γ is never gathered: Γ's one gather is its hand-over level's
+        "fine_gamma_gathers": 0, "gamma_gathers_per_solve": last["gamma_gathers"],
+        "operand_scatters_per_solve": last["operand_scatters"],
+        "gathers_per_solve": last["gathers"], "cycle_gathers_per_solve": last["cycle_gathers"],
+        "fmg_gathers_per_solve": last["fmg_gathers"], "vcycles_per_solve": last["vcycles"],
+        "transfer_ghost_bytes_per_solve": last["transfer_ghost_bytes"],
+        "diff_jacobi_per_solve": last["diff_jacobi"], "diff_field_per_solve": last["diff_field"],
+        "peak_mem_gib_per_card": run["peak_gib"], "f_peak_mem_gib_per_card": refs["f"]["peak_gib"]}
+    print(f"[17 placed] (l) Darcy {n}^3 f32 CG + bf16 Γ-aware V(2,2) FMG {N_DECOMP}, Γ and "
+          f"the Field on blocks: {json.dumps(out['l_darcy_field'])}", flush=True)
+    del var, rhs, gb, run, x, mesh
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_field(dev, placed_dd, n: int):
+    """(m)'s problem at ``n^3`` f32: ``lap u = f`` with homogeneous Dirichlet
+    faces and a manufactured discrete solution ``u``: uniform random values
+    in the interior (each block's from its own seeded generator on its
+    card), 0 on the faces, and ``f`` the plain 7-point Laplacian of ``u``
+    per block, the neighbours' rows next to the block remade by ``exact``
+    (0 past the faces): none of the solver's placed code makes it, so the
+    solve's answer is ``u`` to its tolerance only if the placed apply,
+    transfers and exchanges are right. (A smooth ``u`` would not do in f32
+    at this spacing: its ``A u`` cancels ~1/h^2 terms, a residual floor
+    near 1e-2.) The Field's zeros, ``u`` and ``f`` are made block by block
+    on each block's card: no whole tensor on the host or on a card.
+    ``(mesh, var, f, exact)``, ``exact(sl, device)`` remaking a block of
+    ``u``."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
+    lay = blocks.layout(placed_dd, (n,) * 3, dev)
+
+    def exact(sl, d):
+        seed = 1 + sum(s.start * 7919**j for j, s in enumerate(sl))
+        g = torch.Generator(device=d).manual_seed(seed)
+        u = torch.rand((1, *(s.stop - s.start for s in sl)), generator=g, device=d)
+        for j, s in enumerate(sl):  # 0 on the Dirichlet faces
+            m = torch.ones(s.stop - s.start, device=d)
+            if s.start == 0:
+                m[0] = 0.0
+            if s.stop == n:
+                m[-1] = 0.0
+            u = u * m.reshape([-1 if k == j else 1 for k in range(3)])
+        return u
+
+    zeros = blocks.build(lay, lambda sl, d: torch.zeros(
+        (1, *(s.stop - s.start for s in sl)), dtype=torch.float32, device=d))
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"), "obstacle": None},
+                init_val=zeros)
+    inv_h2 = [1.0 / float(h) ** 2 for h in mesh.dx_np]
+    slices = [sl for _, sl, _ in lay.blocks]
+
+    def lap_u(sl, d):
+        """The block ``sl`` of ``f = lap u``: ``u`` padded by one row per
+        side, each filled from the neighbouring block's ``exact`` along
+        that axis (0 past a face: ``u`` is 0 there)."""
+        u = exact(sl, d)
+        ue = torch.nn.functional.pad(u, (1, 1, 1, 1, 1, 1))
+        inner = [slice(None)] + [slice(1, 1 + s.stop - s.start) for s in sl]
+        for j in range(3):
+            for side, at in ((-1, 0), (1, sl[j].stop - sl[j].start + 1)):
+                nb = next((o for o in slices if all(
+                    (o[k] == sl[k]) if k != j else
+                    (o[k].stop == sl[k].start if side < 0 else o[k].start == sl[k].stop)
+                    for k in range(3))), None)
+                if nb is None:
+                    continue
+                row = exact(nb, d).narrow(1 + j, 0 if side > 0 else nb[j].stop - nb[j].start - 1,
+                                          1)
+                ue[tuple(inner[:1 + j] + [slice(at, at + 1)] + inner[2 + j:])] = row
+        f = torch.zeros_like(u)
+        for j in range(3):
+            lo = inner[:1 + j] + [slice(0, sl[j].stop - sl[j].start)] + inner[2 + j:]
+            hi = inner[:1 + j] + [slice(2, sl[j].stop - sl[j].start + 2)] + inner[2 + j:]
+            f += (ue[tuple(lo)] + ue[tuple(hi)] - 2.0 * u) * inv_h2[j]
+        return f
+
+    return mesh, var, blocks.build(lay, lap_u), exact
+
+
+def placed_large(dev, launches: dict) -> dict:
+    """Phase 17 (m): fastdiag and bench's MG-PCG at ``N_LARGE``^3 f32 in
+    ``N_DECOMP`` blocks round robin over ``LARGE_CARDS`` cards, a grid no one
+    card holds: the Field, its RHS and the solution on the blocks, no whole
+    grid on any card. Per solve: ``itr``, the largest error against the
+    manufactured solution (per block, combined in block order; ``_large_field``),
+    the wall, and every card's peak (the lead within ``LARGE_LEAD_SPREAD`` of the others).
+    On fewer cards, one line says it needs four (not a failure)."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < LARGE_CARDS:
+        print(f"[17 placed] (m) fastdiag and MG-PCG {N_LARGE}^3 f32 {N_DECOMP}: needs "
+              f"{LARGE_CARDS} cards; this machine shows {n_cards} (run it on a host with "
+              f"{LARGE_CARDS})", flush=True)
+        return {"skipped": f"needs {LARGE_CARDS} cards, has {n_cards}"}
+    devs = tuple(f"cuda:{i % LARGE_CARDS}" for i in range(prod(N_DECOMP)))
+    placed_dd = DomainDecomposition(N_DECOMP, devices=devs)
+    tic0 = time.perf_counter()
+    mesh, var, f, exact = _large_field(dev, placed_dd, N_LARGE)
+    setup_s = time.perf_counter() - tic0
+    out = {"n": N_LARGE, "devices": list(devs), "setup_s": setup_s}
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+    for label, cfg in (("fastdiag", {**fd_cfg(placed_dd), "tol": LARGE_TOL}),
+                       ("mgpcg", {**mg, "decomp": placed_dd, "tol": LARGE_TOL})):
+        run = _counted_drive(launches, lambda cfg=cfg: run_layout(var, f, cfg, 1))
+        r, x = run["rows"][-1], run["x"]
+        lay = x.placement
+        err = None
+        for b, (_, sl, d) in enumerate(lay.blocks):
+            e = (x.parts[b] - exact(sl, d)).abs().max().to(dev)
+            err = e if err is None else torch.maximum(err, e)
+        peak = run["peak_gib"][:LARGE_CARDS]
+        spread = (peak[0] - max(peak[1:])) / max(peak[1:])
+        row = {"itr": r["itr"], "tol": r["tol"], "converge": r["converge"],
+               "wall_s": r["wall_s"], "max_abs_err_vs_manufactured": err.item(),
+               "max_abs_err_limit": LARGE_ERR[label],
+               "peak_mem_gib_per_card": peak, "lead_over_others": spread,
+               "gathers": r["gathers"], "entry_scatters": r["entry_scatters"],
+               "exit_gathers": r["exit_gathers"],
+               "repartition_bytes_across": r["repartition_bytes_across"],
+               "exchange_bytes_across": r["exchange_bytes_across"],
+               "transfer_ghost_bytes": r["transfer_ghost_bytes"]}
+        out[label] = row
+        print(f"[17 placed] (m) {label} {N_LARGE}^3 f32 {N_DECOMP} on {LARGE_CARDS} cards, the "
+              f"Field on blocks: {json.dumps(row)}", flush=True)
+        if not (r["converge"] and r["tol"] <= LARGE_TOL and r["entry_scatters"] == 0
+                and r["exit_gathers"] == 0 and spread <= LARGE_LEAD_SPREAD
+                and row["max_abs_err_vs_manufactured"] <= LARGE_ERR[label]):
+            raise RuntimeError(f"chip_smoke: (m) {label} {N_LARGE}^3: {json.dumps(row)}")
+        del run, x
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_placed(dev) -> dict:
     """Phase 17: a placed ``DomainDecomposition`` (each block of every loop
     vector its own allocation on its card, round robin over the cards the
@@ -5624,14 +5988,17 @@ def phase_placed(dev) -> dict:
     ``PeriodicFlow`` (``placed_terms``): bench_darcy's 256^3 solve,
     ``BurgersND`` 257^3, the upwind advection-diffusion 256^3 and the
     TGV-3D LES 257^3 rung, each against the view-based run, and their
-    card/CPU mixes in f64. Returns the launches of the placed drives (each
-    counted from 0)."""
+    card/CPU mixes in f64; (j)-(l) the Field on blocks (``placed_fields``):
+    fastdiag and MG-PCG 512^3, Darcy 256^3 with Γ on blocks; (m) 1536^3
+    f32 on four cards (``placed_large``). Returns the launches of the placed
+    drives (each counted from 0)."""
     import torch
 
     from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
 
     tic0 = time.perf_counter()
     launches = {name: 0 for name in _counts()}
+    refs: dict = {}  # (a), (d) and (f)'s view-based solutions and peaks, for (j)-(l)
     drive = _driver(launches)
     devs = placed_devices(prod(N_DECOMP))
     n_cards = len(set(devs))
@@ -5648,11 +6015,25 @@ def phase_placed(dev) -> dict:
     d_itr = [abs(p["itr"] - v["itr"]) for p, v in zip(placed["rows"], view["rows"])]
     agree = _rel(placed["x"], view["x"])
     res32, res64 = _true_residuals(mesh, var, rhs, 1.0, placed["x"])
+    n_lv, hand = _handover(placed_dd, (N_MAIN,) * 3)
+    # the transfers between placed levels run block by block: a V-cycle
+    # gathers at its hand-over only, an FMG start there once per V-cycle and
+    # its restriction chain
+    counts_ok = all(r["cycle_gathers"] == hand * r["vcycles"]
+                    and r["fmg_gathers"] == hand * (1 + n_lv)
+                    and r["gathers"] == r["cycle_gathers"] + r["fmg_gathers"]
+                    and r["entry_scatters"] == 2 and r["exit_gathers"] == 1
+                    for r in placed["rows"])
     if not (all(r["converge"] and r["tol"] <= 1e-6 for r in placed["rows"])
-            and max(d_itr) <= PLACED_GATE and agree <= PLACED_AGREE and res64 <= 1e-5):
+            and max(d_itr) <= PLACED_GATE and agree <= PLACED_AGREE and res64 <= 1e-5
+            and counts_ok):
         raise RuntimeError(f"chip_smoke: (a) placed MG-PCG: itr {a['itr']} against "
                            f"{[r['itr'] for r in view['rows']]}, max|dx|/max|x| {agree:.3e} "
-                           f"(limit {PLACED_AGREE}), true residual f64 {res64:.3e}")
+                           f"(limit {PLACED_AGREE}), true residual f64 {res64:.3e}, gathers "
+                           f"{json.dumps(placed['rows'])} ({n_lv} placed levels, hand-over "
+                           f"{hand})")
+    refs["a"] = {"itr": [r["itr"] for r in view["rows"]], "x": view["x"].cpu(),
+                 "peak_gib": placed["peak_gib"]}
     # one apply of the fine operator in f32, its exchange alone
     lay = blocks.layout(placed_dd, (N_MAIN,) * 3, dev)
     xb = blocks.scatter(placed["x"], lay)
@@ -5739,8 +6120,10 @@ def phase_placed(dev) -> dict:
     print(f"[17 placed] (c) mixed card/CPU placements, f64 (tolerance {PLACED_CMP_TOL}): "
           f"{json.dumps(mixed)}", flush=True)
 
-    out.update(placed_fastdiag(dev, drive))
-    out.update(placed_terms(dev, launches))
+    out.update(placed_fastdiag(dev, drive, refs))
+    out.update(placed_terms(dev, launches, refs))
+    out.update(placed_fields(dev, launches, refs))
+    out["m_large"] = placed_large(dev, launches)
     print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
           f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
           f"wall {time.perf_counter() - tic0:.1f} s", flush=True)

@@ -18,10 +18,18 @@ block's device. Its ``__torch_dispatch__`` runs
 * sums and the max over every grid axis as per-block partials, moved to
   the lead device and combined there in block order (a fixed order: the
   same bits on every run);
+* the views that keep every grid axis whole (an alias, a full slice, a
+  select or slice of the leading component axis, a leading ``unsqueeze``)
+  block by block: each block of the result is that view of the block, so
+  writes through it reach the blocks (``x[0] = v``, ``x[0:1]``);
+* a copy to another device (``.to``) and ``.cpu()`` / ``.numpy()`` /
+  ``np.asarray`` / ``.item()`` assembled there from per-block copies
+  (``host_gathers`` counts those that land on the host);
 * anything else as GSPMD would insert an all-gather: the block vectors
   gathered on the lead device (``gathers`` counts each such gather), the
-  operation run there, and a result of the grid's shape scattered back. A
-  view of a block vector raises: writes through it would be lost.
+  operation run there, and a result of the grid's shape scattered back.
+  Any other view of a block vector (a row of a grid axis) raises: writes
+  through it would be lost; ``add_at`` writes such rows block by block.
 
 A block vector may have length 1 along grid axes (a broadcast operand such
 as a per-axis row scale); its blocks then repeat along the cut ones, and
@@ -33,9 +41,12 @@ block is built from slices of the source blocks, each copied straight
 from its source block's device to its destination block's device (the
 all-to-all GSPMD inserts for a contraction along a cut axis; nothing
 passes through the lead device). ``scatter`` / ``gather`` move between a
-global tensor on the lead device and a block vector; ``interior_mask``
-builds the active-set mask block by block; ``apply_bcs_fn`` writes each
-BC's face rows into the blocks on that face.
+tensor on any device (a host tensor among them: each block's slice is
+copied straight to its device) and a block vector; ``put`` is the
+counterpart of ``jax.device_put(x, dd.sharding(...))``, ``build`` makes
+each block on its device from its index ranges (no whole tensor
+anywhere); ``interior_mask`` builds the active-set mask block by block;
+``apply_bcs_fn`` writes each BC's face rows into the blocks on that face.
 """
 from __future__ import annotations
 
@@ -51,9 +62,10 @@ gathers = 0
 run block by block (a counter, like the kernels' ``launches``). The
 entry's scatter and the exit's gather of a solve do not count."""
 operand_scatters = 0
-"""Operands of a placed solve scattered to its blocks (``scatter_operand``:
-Γ, an advector, a V-cycle level's Γ): once each per solve, at its entry
-or in its preconditioner's setup, never inside the Krylov loop."""
+"""Whole operands of a placed solve scattered to its blocks
+(``scatter_operand``: Γ, an advector): once each per solve, at its entry
+or in its preconditioner's setup, never inside the Krylov loop (an
+operand that is a block vector already is not scattered)."""
 repartitions = 0
 """Block vectors moved to another cut of their grid (``repartition``)."""
 repartition_bytes_across = 0
@@ -61,6 +73,9 @@ repartition_bytes_across = 0
 another."""
 repartition_bytes_within = 0
 """Bytes ``repartition`` copied between two blocks on one device."""
+host_gathers = 0
+"""Block vectors assembled on the host from per-block copies (``.cpu()``,
+``.numpy()``, ``np.asarray``, ``.item()``, ``host_gather``)."""
 
 
 class Layout:
@@ -163,6 +178,20 @@ class BlockTensor(torch.Tensor):
         return (f"BlockTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
                 f"blocks={self.placement.ms}, devices={devs})")
 
+    # the host's view of a block vector: assembled there from per-block copies
+    def cpu(self, memory_format=torch.preserve_format) -> torch.Tensor:
+        return host_gather(self)
+
+    def numpy(self, *, force: bool = False):
+        return host_gather(self).numpy()
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def item(self):
+        return host_gather(self).item()
+
     @classmethod
     def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -174,6 +203,16 @@ class BlockTensor(torch.Tensor):
             out = _reduce(func, args, kwargs, lay)
             if out is not NotImplemented:
                 return out
+        if func in _VIEWS:
+            out = _view(func, args, kwargs, lay)
+            if out is not NotImplemented:
+                return out
+        if func is aten._to_copy.default and kwargs.get("device") is not None \
+                and _resolve(kwargs["device"]) != lay.lead:
+            return _assemble(args[0], _resolve(kwargs["device"]),
+                             kwargs.get("dtype") or args[0].dtype)
+        if func is aten._local_scalar_dense.default:
+            return host_gather(args[0]).item()
         if (func in _BLOCKWISE or torch.Tag.pointwise in func.tags) \
                 and _mappable(func, args, kwargs, lay):
             return _map(func, args, kwargs, lay)
@@ -189,6 +228,63 @@ _BLOCKWISE = {
 }
 _REDUCE = {aten.sum.default: torch.add, aten.sum.dim_IntList: torch.add,
            aten.max.default: torch.maximum}
+_VIEWS = {aten.alias.default, aten.slice.Tensor, aten.select.int, aten.unsqueeze.default}
+
+
+def _view(func, args, kwargs, lay: Layout):
+    """A view that keeps every grid axis whole, block by block (the module
+    docstring); NotImplemented for another one."""
+    x, rest = args[0], list(args[1:])
+    if kwargs or not isinstance(x, BlockTensor) or any(isinstance(a, torch.Tensor)
+                                                       for a in rest):
+        return NotImplemented
+    lead = x.dim() - len(lay.grid)  # the leading (component) axes: 0 or 1
+    shape = tuple(x.shape)
+    if func is aten.alias.default:
+        return BlockTensor([func(p) for p in x.parts], lay, shape)
+    dim = rest[0] % (x.dim() + (func is aten.unsqueeze.default)) if rest else 0
+    if func is aten.unsqueeze.default:
+        if dim != 0 or lead != 0:
+            return NotImplemented
+        return BlockTensor([func(p, 0) for p in x.parts], lay, (1, *shape))
+    if func is aten.select.int:
+        if dim >= lead:
+            return NotImplemented
+        return BlockTensor([func(p, dim, rest[1]) for p in x.parts], lay,
+                           shape[:dim] + shape[dim + 1:])
+    # aten.slice.Tensor(x, dim, start, end, step)
+    start, end, step = (rest[1:] + [None, None, 1][len(rest) - 1:])[:3]
+    if dim >= lead:  # a grid axis: only its whole range
+        if (start or 0) == 0 and (end is None or end >= shape[dim]) and step == 1:
+            return BlockTensor([aten.alias.default(p) for p in x.parts], lay, shape)
+        return NotImplemented
+    parts = [func(p, dim, start, end, step) for p in x.parts]
+    return BlockTensor(parts, lay, shape[:dim] + (parts[0].shape[dim],) + shape[dim + 1:])
+
+
+def _assemble(x, device: torch.device, dtype) -> torch.Tensor:
+    """The block vector ``x`` as one tensor on ``device`` (not its lead
+    device), in ``dtype``: each block copied there once, nothing through
+    the lead device; counted in ``host_gathers`` for the host, in
+    ``gathers`` for another device."""
+    global host_gathers, gathers
+    lay = x.placement
+    out = torch.empty(x.shape, dtype=dtype, device=device)
+    for b in lay.owners(x.shape):
+        out[lay.index(x.shape, b)].copy_(x.parts[b])
+    if device.type == "cpu":
+        host_gathers += 1
+    else:
+        gathers += 1
+    return out
+
+
+def host_gather(x) -> torch.Tensor:
+    """A block vector as one tensor on the host (``_assemble``; counted in
+    ``host_gathers``); a plain tensor's ``.cpu()``."""
+    if not isinstance(x, BlockTensor):
+        return x.cpu()
+    return _assemble(x, torch.device("cpu"), x.dtype)
 
 
 def _leaves(args, kwargs):
@@ -212,8 +308,6 @@ def _mutated(func, args, kwargs) -> list:
 
 
 def _mappable(func, args, kwargs, lay: Layout) -> bool:
-    if func is aten._to_copy.default and kwargs.get("device") not in (None, lay.lead):
-        return False
     if not all(isinstance(m, BlockTensor) for m in _mutated(func, args, kwargs)):
         return False
     return all(lay.fits(t.shape) for t in _leaves(args, kwargs)
@@ -306,12 +400,16 @@ def _fallback(func, args, kwargs, lay: Layout):
 
 def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
     """``t`` (a tensor on any device whose shape ``lay.fits``, of rank 1 +
-    the grid's) as a block vector of ``lay``: each block copied into its
-    own allocation on its device. A block vector of ``lay`` comes back as
-    it is."""
+    the grid's) as a block vector of ``lay``: each block's slice copied
+    straight into its own allocation on its device (from a host tensor,
+    no whole tensor lands on a card). A block vector of ``lay`` comes back
+    as it is; one on another layout of the same grid is moved there
+    (``repartition``, counted), one of another grid gathered (counted)."""
     if isinstance(t, BlockTensor):
         if t.placement is lay:
             return t
+        if t.placement.grid == lay.grid and tuple(t.shape[1:]) == lay.grid:
+            return repartition(t, lay)
         t = gather(t)
     shape = tuple(t.shape)
     if len(shape) != 1 + len(lay.grid) or not lay.fits(shape):
@@ -321,6 +419,94 @@ def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
         src = t[lay.index(shape, b)]
         parts.append(torch.empty(src.shape, dtype=t.dtype, device=dev).copy_(src))
     return BlockTensor(parts, lay, shape)
+
+
+def put(t, decomp) -> BlockTensor:
+    """``t`` (a tensor or array ``(vdim, *grid)``, on any device) as a block
+    vector of the placed ``decomp`` on its grid, the counterpart of the JAX
+    package's ``jax.device_put(t, decomp.sharding(t.ndim))``: ``scatter``
+    to ``layout(decomp, grid, lead)`` with the first block's device as the
+    lead (where the block vector reports itself)."""
+    if not isinstance(t, torch.Tensor):
+        t = torch.as_tensor(t)
+    if not decomp.placed:
+        raise ValueError("blocks.put: the decomposition is not placed (give it devices)")
+    return scatter(t, layout(decomp, t.shape[1:], decomp.devices[0]))
+
+
+def build(lay: Layout, make) -> BlockTensor:
+    """A block vector of ``lay`` made block by block: ``make(slices,
+    device)`` returns the block at the index ranges ``slices`` (one slice per
+    grid axis), ``(vdim, *block shape)``, on ``device``. No whole tensor is
+    made anywhere (a manufactured right-hand side from the mesh's 1-D
+    coordinates, the initial zeros of a Field too large for one card)."""
+    parts = [make(sl, dev) for _, sl, dev in lay.blocks]
+    return BlockTensor(parts, lay, (parts[0].shape[0], *lay.grid))
+
+
+def _local(lay: Layout, shape, idx, b: int):
+    """Block ``b``'s part of the basic index ``idx`` (ints and slices of step
+    1, one per leading axis of a tensor of ``shape``) into a block vector of
+    ``shape``: ``(index into the block, index into the selected values)``,
+    or None where the block holds none of it."""
+    off = len(shape) - len(lay.grid)
+    idx = tuple(idx) + (slice(None),) * (len(shape) - len(idx))
+    sl = lay.blocks[b][1]
+    loc, val = [], []
+    for p, (i, n) in enumerate(zip(idx, shape)):
+        j = p - off
+        lo, hi = (sl[j].start, sl[j].stop) if j >= 0 and lay.cut[j] and n == lay.grid[j] \
+            else (0, n)
+        if isinstance(i, slice):
+            a, e, step = i.indices(n)
+            assert step == 1, "blocks: slices of step 1"
+            a0, e0 = max(a, lo), min(e, hi)
+            if a0 >= e0:
+                return None
+            loc.append(slice(a0 - lo, e0 - lo))
+            val.append(slice(a0 - a, e0 - a))
+        else:
+            i = int(i) % n
+            if not lo <= i < hi:
+                return None
+            loc.append(i - lo)
+    return tuple(loc), tuple(val)
+
+
+def add_at(x, idx, value) -> None:
+    """``x[idx] += value`` in place: on a block vector block by block, each
+    block adding its part of ``value`` (broadcast to the selection, e.g. a
+    number, a 0-d tensor or a face; moved to the block's device) at its
+    rows of the basic index ``idx`` (ints and slices of step 1); on a plain
+    tensor as written."""
+    if not isinstance(x, BlockTensor):
+        x[idx] += value
+        return
+    lay = x.placement
+    sel = torch.empty(x.shape, device="meta")[idx].shape
+    v = torch.as_tensor(value, dtype=x.dtype)
+    v = v.expand(sel) if v.dim() else v
+    for b, (_, _, dev) in enumerate(lay.blocks):
+        loc = _local(lay, x.shape, idx, b)
+        if loc is not None:
+            x.parts[b][loc[0]] += (v[loc[1]] if v.dim() else v).to(dev)
+
+
+def take(x, idx) -> torch.Tensor:
+    """``x[idx]`` (a basic index, ints and slices of step 1) as a plain tensor
+    on the lead device, assembled from the blocks' pieces of the selection
+    (a face or a row: no whole tensor; not a view); of a plain tensor, the
+    view ``x[idx]``."""
+    if not isinstance(x, BlockTensor):
+        return x[idx]
+    lay = x.placement
+    out = torch.empty(torch.empty(x.shape, device="meta")[idx].shape, dtype=x.dtype,
+                      device=lay.lead)
+    for b in lay.owners(x.shape):
+        loc = _local(lay, x.shape, idx, b)
+        if loc is not None:
+            out[loc[1]] = x.parts[b][loc[0]]
+    return out
 
 
 def scatter_operand(t: torch.Tensor, lay: Layout) -> BlockTensor:

@@ -61,6 +61,9 @@ counterpart of ``ppermute``'s traffic):
   takes no ghost row, so the kernels' Neumann surgery (rows 1 / -2) and
   end-row mask (rows 0 / -1) land on the global rows of the edge blocks,
   where the surgery is passed; the other sides take "none".
+* the multigrid transfers between placed levels (``line_rows``): a block
+  reads its own rows and the ghost rows of its line's neighbours that the
+  transfer's band reaches (``transfer_ghost_bytes``).
 """
 from __future__ import annotations
 
@@ -81,6 +84,9 @@ exchange_bytes_across = 0
 """The part of ``exchange_bytes`` copied between blocks on two devices."""
 placed_applies = 0
 """Placed applies run (each launches one kernel per block)."""
+transfer_ghost_bytes = 0
+"""Bytes of the rows a block-wise multigrid transfer (``line_rows``) read
+from the other blocks of its line along a cut axis."""
 
 
 def halo_exchange(x: torch.Tensor, sl, axis: int) -> tuple:
@@ -269,6 +275,53 @@ def _ghost_faces(x: BlockTensor, b: int, j: int) -> tuple:
     lo = x.parts[lay.neighbour(b, j, -1)]
     hi = x.parts[lay.neighbour(b, j, 1)]
     return lo.narrow(1 + j, lo.shape[1 + j] - 1, 1), hi.narrow(1 + j, 0, 1)
+
+
+def line_rows(x: BlockTensor, b: int, j: int, ranges) -> torch.Tensor:
+    """The rows of the ``(lo, hi)`` runs ``ranges`` (global indices along grid
+    axis ``j``, in the order given, taken modulo the axis' length) of the
+    line of blocks along ``j`` through block ``b``, on block ``b``'s device:
+    each run cut from the blocks that hold it (a view of block ``b``'s own
+    rows; the others' ghost rows copied, counted in
+    ``transfer_ghost_bytes``), the pieces concatenated along the axis. The
+    rows a block-wise multigrid transfer reads along a cut axis: its own
+    and, at the edges of its band, its neighbours'."""
+    global transfer_ghost_bytes
+    lay = x.placement
+    n = lay.grid[j]
+    size, cj, dev = n // lay.ms[j], lay.blocks[b][0][j], lay.blocks[b][2]
+    pieces = []
+    for lo, hi in ranges:
+        r = lo
+        while r < hi:
+            rm = r % n
+            c = rm // size
+            cnt = min(hi - r, (c + 1) * size - rm)
+            k = lay.neighbour(b, j, c - cj)
+            piece = x.parts[k].narrow(1 + j, rm - c * size, cnt)
+            if k != b:
+                transfer_ghost_bytes += piece.numel() * piece.element_size()
+                piece = piece.to(dev)
+            pieces.append(piece)
+            r += cnt
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1 + j)
+
+
+def placed_diff_diag(g: BlockTensor, inv_dx2, surgery, avg: str, wrap=()) -> BlockTensor:
+    """The variable-Γ operator's per-point diagonal (``ops.stencil.diff_diag``)
+    of the Γ block vector ``g``, block by block on each block's device from
+    its halo-extended Γ (``field_sides``; surgery on the sides that lie on
+    a global face), the interior kept: no whole-level tensor is made."""
+    from pyapes_tpu_torch.ops.stencil import diff_diag
+
+    lay = g.placement
+    gext = _gamma_blocks(g, wrap)
+    outs = []
+    for b, (coord, _, _) in enumerate(lay.blocks):
+        sides = field_sides(lay, b, wrap)
+        de = diff_diag(gext[b], inv_dx2, _block_surgery(surgery, lay, coord), avg)
+        outs.append(de[_interior(sides, g.parts[b].shape)].contiguous())
+    return BlockTensor(outs, lay, (1, *lay.grid))
 
 
 def _count(dev, *faces) -> None:

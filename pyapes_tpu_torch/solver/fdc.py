@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import torch
 
 from pyapes_tpu_torch.geometry.basis import n2d_coord
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.solver.tools import default_A_ops
 from pyapes_tpu_torch.solver.types import DiscretizerConfigType
 from pyapes_tpu_torch.variables import Field
@@ -387,9 +388,9 @@ class Laplacian(Discretizer):
                     at_bc = _return_bc_val(bc, var, i, j, bi)
                     if _is_zero(at_bc):
                         continue
-                    rhs_adj[(i,) + _row_sel(j, pi)] += torch.as_tensor(
+                    blocks.add_at(rhs_adj, (i,) + _row_sel(j, pi), torch.as_tensor(
                         -(2.0 / 3.0) * c0 * at_bc / dx[j], dtype=rhs_adj.dtype, device=rhs_adj.device
-                    )
+                    ))
         return rhs_adj
 
 
@@ -449,11 +450,13 @@ def _grad_rhs_adjust(var: Field, rhs_adj: torch.Tensor, dim: int, gamma=None,
                 term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir
             elif len(gamma) == 1:
                 g_i = bi if form == "conservative" else pi
-                term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir * gamma[0][(dim,) + _row_sel(j, g_i)]
+                term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir * blocks.take(
+                    gamma[0], (dim,) + _row_sel(j, g_i))
             else:
                 g = gamma_max if bc.bc_n_dir < 0 else gamma_min
-                term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir * g[(dim,) + _row_sel(j, pi)]
-            rhs_adj[(dim,) + _row_sel(j, pi)] += term
+                term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir * blocks.take(
+                    g, (dim,) + _row_sel(j, pi))
+            blocks.add_at(rhs_adj, (dim,) + _row_sel(j, pi), term)
     return rhs_adj
 
 
@@ -475,14 +478,14 @@ def conv_rhs_adjust(adv: torch.Tensor, var: Field, limiter: str = "none") -> tor
                 at_bc = _return_bc_val(bc, var, i, j, bi)
                 if _is_zero(at_bc):
                     continue
-                a_row = adv[(j,) + _row_sel(j, pi)]
+                a_row = blocks.take(adv, (j,) + _row_sel(j, pi))
                 if limiter == "none":
                     term = -(1.0 / 3.0) * at_bc * bc.bc_n_dir * a_row
                 else:
                     g = (torch.clamp(a_row, min=0.0) if bc.bc_n_dir < 0
                          else torch.clamp(a_row, max=0.0))
                     term = -(2.0 / 3.0) * at_bc * bc.bc_n_dir * g
-                rhs_adj[(i,) + _row_sel(j, pi)] += term
+                blocks.add_at(rhs_adj, (i,) + _row_sel(j, pi), term)
     return rhs_adj
 
 

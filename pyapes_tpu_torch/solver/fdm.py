@@ -32,6 +32,8 @@ from pyapes_tpu_torch.ops.stencil import (
     grad_axis_coeffs,
     laplacian_axis_coeffs,
 )
+from pyapes_tpu_torch.parallel import blocks
+from pyapes_tpu_torch.parallel.blocks import BlockTensor
 from pyapes_tpu_torch.solver.fdc import FDC, conv_rhs_adjust
 from pyapes_tpu_torch.solver.types import DiscretizerConfigType, OPStype
 from pyapes_tpu_torch.utils.carry import coeffs_from_numpy
@@ -87,6 +89,11 @@ class Operators:
             self._rhs = other()
         elif isinstance(other, (int, float)):
             self._rhs = torch.zeros_like(x) + other
+        elif isinstance(x, BlockTensor):
+            # a target on blocks: the RHS on its blocks, each block's slice
+            # copied straight to its device (a block RHS stays as it is)
+            rhs = other if isinstance(other, torch.Tensor) else torch.as_tensor(other)
+            self._rhs = blocks.scatter(rhs.to(x.dtype), x.placement)
         else:
             self._rhs = torch.as_tensor(other, dtype=x.dtype, device=x.device)
         assert self._rhs.shape == x.shape, (
@@ -214,7 +221,7 @@ class Laplacian(Operators):
 
     @staticmethod
     def Aop_var_gamma(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
-        g = rec["param"][0].to(device=x.device, dtype=x.dtype).contiguous()
+        g = blocks.lead_copy(rec["param"][0]).to(device=x.device, dtype=x.dtype).contiguous()
         o = rec["other"]
         return diff_field(x, g, o["inv_dx2"], o["surgery"], o["avg"])
 
@@ -224,8 +231,7 @@ class Laplacian(Operators):
 
     @staticmethod
     def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
-        coeffs = coeffs_from_numpy(rec["axis_coeffs"], x.device, x.dtype)
-        out = axis_stencil(coeffs, x)
+        out = axis_stencil(coeffs_from_numpy(rec["axis_coeffs"], x.device, x.dtype), x)
         coeff = rec["param"][0]
         return out if coeff is None else out * coeff
 
@@ -343,7 +349,7 @@ class Div(Operators):
         if rec["adv"] is None:
             return axis_stencil(coeffs_from_numpy(rec["axis_coeffs"], x.device, x.dtype), x)
         o = rec["other"]
-        return advect_pair(x, rec["adv"].to(x.dtype).contiguous(),
+        return advect_pair(x, blocks.lead_copy(rec["adv"]).to(x.dtype).contiguous(),
                            coeffs_from_numpy(o["base"], x.device, x.dtype), rec["limiter"],
                            o["surgery"], o["form"])
 
@@ -390,7 +396,7 @@ class Conv(Operators):
     @staticmethod
     def Aop(rec: OPStype, x: torch.Tensor) -> torch.Tensor:
         o = rec["other"]
-        return conv_component(x, rec["adv"].to(x.dtype).contiguous(),
+        return conv_component(x, blocks.lead_copy(rec["adv"]).to(x.dtype).contiguous(),
                               coeffs_from_numpy(o["base"], x.device, x.dtype), rec["limiter"],
                               o["surgery"])
 

@@ -23,8 +23,7 @@ central/upwind Div and Conv where ``sharded_advect_supported`` holds, the
 variable-Γ term where ``placed_field_supported`` holds (Γ and the
 advector arrive scattered to the blocks, ``dispatch._place_operands``),
 each through one counted gather on the lead device elsewhere (QUICK, 5-point
-axes); the Γ-aware V-cycle samples Γ down on the lead device and scatters
-each placed level's; the active-set
+axes); the Γ-aware V-cycle samples Γ down block by block; the active-set
 mask is built block by block, the BCs write the face rows of the blocks on
 their faces, and the symmetrizing row scale and the null vector of a
 singular system are block vectors too; the fastdiag solve and the FD
@@ -570,9 +569,8 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
             i_vg = _ids(term_descs, "diff_field")[0]
 
             def precond_setup(tp):
-                # placed: the Γ the operand was scattered from, on the lead
-                # device, where the hierarchy samples it down
-                mg.set_gamma(blocks.lead_copy(tp[i_vg]["gamma"]))
+                # placed: Γ's block vector, sampled down block by block
+                mg.set_gamma(tp[i_vg]["gamma"])
     fmg_init = mg.fmg_initializer() if mg is not None and mg.fmg_init else None
     if method == "bicgstab":
         fn = build_bicgstab(Aop, apply_bcs, M, tol, max_it, criterion, precond,

@@ -25,9 +25,15 @@ blocks moved between them by an all-to-all of peer copies), with axis,
 variable-Γ, Div/Conv and ddt terms: ``x0``, the RHS, Γ and the advector
 are scattered to the blocks at entry (the JAX package's
 ``_commit_to_decomp``) and the solution is gathered back into the Field
-at exit; every other option raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item
-(``_check_placed``). Immersed obstacles (``ObstacleDirichlet``,
+at exit — unless they are block vectors already (``blocks.BlockTensor``,
+the counterpart of an array committed to a ``NamedSharding``): a Field
+whose value is on blocks is solved on them and keeps the solution there
+(the decomposition its own when the config names none; a block vector
+on another cut of the grid is moved with ``blocks.repartition``, as JAX
+re-shards a committed array), a block RHS, Γ or advector is taken as it
+is; every other option raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (``_check_placed``; a block-valued Field on a
+periodic axis: A11i). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
 torus reduction their masks are reduced too, every call, and a body on
 the duplicate seam plane raises. The multigrid hierarchy of a periodic
@@ -76,6 +82,14 @@ from pyapes_tpu_torch.ops.graph_loop import (
 from pyapes_tpu_torch.utils import device_cache
 from pyapes_tpu_torch.utils.debug import nan_check
 from pyapes_tpu_torch.utils.device_cache import device_coeffs, is_constant
+
+
+entry_scatters = 0
+"""Whole ``x0`` / RHS tensors scattered to the blocks at a placed solve's
+entry (a counter; a block vector of the solve is taken as it is)."""
+exit_gathers = 0
+"""Placed solutions gathered back on the lead device into a whole Field at
+a solve's exit (a counter; a Field on blocks keeps its solution there)."""
 
 
 class ReportType(TypedDict):
@@ -281,14 +295,20 @@ def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
 def _place_operands(tparams, lay) -> tuple:
     """The per-call operands of a placed solve: Γ and the advector scattered
     to the blocks (``blocks.scatter_operand``, once per solve, as the JAX
-    package's ``_commit_to_decomp`` shards exactly these two); the others
-    as they are."""
+    package's ``_commit_to_decomp`` shards exactly these two), or taken as
+    they are where they are block vectors already (moved where they lie on
+    another cut, an isotropic Γ viewed as ``(1, *nx)``); the others as they
+    are."""
     out = []
     for tp in tparams:
         tp = dict(tp)
         for k in ("gamma", "adv"):
             if k in tp:
-                tp[k] = blocks.scatter_operand(tp[k], lay)
+                t = tp[k]
+                if isinstance(t, blocks.BlockTensor):
+                    tp[k] = blocks.scatter(t[None] if t.dim() == len(lay.grid) else t, lay)
+                else:
+                    tp[k] = blocks.scatter_operand(t, lay)
         out.append(tp)
     return tuple(out)
 
@@ -341,6 +361,19 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     terms = [eqs[k] for k in sorted(eqs)]
     term_descs = tuple(_term_descriptor(rec) for rec in terms)
     paxes = _periodic_axes(var.bcs, mesh.dim)
+    # a Field on blocks is solved on them and keeps the solution there
+    on_blocks = isinstance(x0_full, blocks.BlockTensor)
+    if on_blocks:
+        if paxes:
+            raise NotImplementedError(
+                "linalg: a Field whose value is on blocks, on a periodic axis, is ported in a "
+                "later slice (ROADMAP.md A11i): the torus reduction drops the seam node, so the "
+                "blocks of the Field's grid and of the torus differ")
+        if config.get("decomp") is None:
+            config = {**config, "decomp": x0_full.placement.decomp}
+        elif not config["decomp"].placed:
+            raise ValueError("linalg: a Field whose value is on blocks solves on a placed "
+                             "decomposition (blocks on their own devices), not on views")
     if paxes and any(d[0] == "custom" for d in term_descs):
         raise NotImplementedError(
             "custom operators + periodic axes: the torus reduction cannot transform an opaque "
@@ -348,7 +381,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         )
     tparams = tuple(_term_params(rec, d, x0_full, paxes) for rec, d in zip(terms, term_descs))
     red = _reduced(mesh.dim, paxes)
-    x0, rhs = x0_full[red], rhs[red]
+    x0, rhs = (x0_full, rhs) if not paxes else (x0_full[red], rhs[red])
     decomp = config.get("decomp")
     if decomp is not None:
         _check_decomp(decomp, x0)
@@ -403,12 +436,17 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
 
     def run(x0, rhs, tparams, bc_vals):
         if placed:
-            # x0 and the RHS committed to the blocks, the solution gathered
-            # back on the lead device (neither counts among blocks.gathers)
+            # x0 and the RHS committed to the blocks (taken as they are where
+            # they are block vectors of the solve, moved from another cut),
+            # the solution gathered back on the lead device unless the
+            # Field's value is on blocks (neither counts among blocks.gathers)
+            global entry_scatters, exit_gathers
             lay = blocks.layout(decomp, x0.shape[1:], x0.device)
+            entry_scatters += sum(not isinstance(t, blocks.BlockTensor) for t in (x0, rhs))
+            exit_gathers += not on_blocks
             xb, itr, tol_dev, hist = fn(blocks.scatter(x0, lay), blocks.scatter(rhs, lay),
                                         _place_operands(tparams, lay), bc_vals)
-            x = blocks.gather(xb, count=False)
+            x = xb if on_blocks else blocks.gather(xb, count=False)
         else:
             x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)
         for j in paxes:  # re-append the duplicate seam node

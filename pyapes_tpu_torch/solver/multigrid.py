@@ -55,14 +55,21 @@ a view-based decomposition (their levels apply on the whole tensor).
 Under a placed decomposition (blocks on their own devices) a level where
 ``parallel.halo.placed_supported`` holds keeps its vectors as block
 vectors (``parallel.blocks.BlockTensor``): its mask, row scales, diagonal
-and parity are block vectors, its operator applies block by block on each
-block's device, and the smoothers' elementwise work runs per block. The
-transfers gather the fine or coarse vector on the solve's device (counted
-in ``blocks.gathers``), resize it there and scatter it to the next level
-when that level is placed; the levels the gate rejects run on the solve's
-device. A variable-Γ hierarchy keeps a placed decomposition: ``set_gamma``
-samples Γ down on the solve's device and scatters each placed level's Γ
-(``blocks.operand_scatters``), and a level that ``placed_field_supported``
+and parity are built block by block on each block's device (never from a
+whole-level tensor), its operator applies block by block, and the
+smoothers' elementwise work runs per block. A transfer between two placed
+levels runs block by block too (``_transfer_axis``): along an uncut axis
+each block resizes its own rows; along a cut axis each block's output
+rows come from its own rows and the few ghost rows of its neighbours that
+the transfer's band reaches (``halo.line_rows``, ``transfer_ghost_bytes``)
+— a slice of the banded transfer matrix per block, or the strided wrap
+midpoints of a torus pair. The levels the gate rejects run on the solve's
+device: the hand-over from the coarsest placed level to them is the one
+gather of a V-cycle (counted in ``blocks.gathers``), the way back a
+scatter. A variable-Γ hierarchy keeps a placed decomposition: ``set_gamma``
+samples Γ down the placed levels block by block (the fine Γ is never
+gathered; the coarsest placed level's is, once per call, for the levels
+below it: ``gamma_gathers``), and a level that ``placed_field_supported``
 takes applies and smooths block by block (``halo.placed_diff_field``,
 ``placed_diff_jacobi``). ``vcycles``, ``cycle_gathers`` and
 ``fmg_gathers`` count the preconditioner's V-cycles and the gathers inside
@@ -91,6 +98,7 @@ is singular.
 from __future__ import annotations
 
 from functools import lru_cache
+from math import prod
 
 import numpy as np
 import torch
@@ -103,7 +111,9 @@ from pyapes_tpu_torch.ops.stencil import _eliminate_boundary_node, diff_diag
 from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.parallel.decomp import DomainDecomposition
 from pyapes_tpu_torch.parallel.halo import (
+    line_rows,
     make_sharded_apply,
+    placed_diff_diag,
     placed_diff_field,
     placed_diff_jacobi,
     placed_field_supported,
@@ -117,6 +127,9 @@ cycle_gathers = 0
 """``blocks.gathers`` made inside those V-cycles (a counter)."""
 fmg_gathers = 0
 """``blocks.gathers`` made inside full-multigrid starts (a counter)."""
+gamma_gathers = 0
+"""``blocks.gathers`` made by ``set_gamma``: the coarsest placed level's Γ
+handed to the levels on the solve's device (a counter)."""
 
 
 @lru_cache(maxsize=None)
@@ -388,32 +401,58 @@ class MGSpec:
                 g = self._contract(g.contiguous(), self._sample_mat(n_s, n_t, j), j)
         return g[0] if iso else g
 
-    def _sample_mat(self, n_s, n_t, j):
-        """``(n_s, n_t)`` sampling matrix ``P^T`` (cycle dtype) of
+    def _sample_np(self, n_s, n_t, j):
+        """``(n_s, n_t)`` sampling matrix ``P^T`` (host, float64) of
         ``_downsample_g`` along axis j: endpoint-aligned, wrap-aware on a
         periodic axis."""
-        per = j in self.paxes
-        interp = _interp_matrix_periodic_np if per else _interp_matrix_np
-        return self._const(("gsample", n_s, n_t, per),
-                           lambda: self._tensor(interp(n_s, n_t).T))
+        interp = _interp_matrix_periodic_np if j in self.paxes else _interp_matrix_np
+        return interp(n_s, n_t).T
+
+    def _sample_mat(self, n_s, n_t, j):
+        """``_sample_np`` in the cycle dtype on the solve's device."""
+        return self._const(("gsample", n_s, n_t, j in self.paxes),
+                           lambda: self._tensor(self._sample_np(n_s, n_t, j)))
 
     def set_gamma(self, gamma) -> None:
         """The solver's ``precond_setup`` hook: cast the fine Γ to the
         cycle dtype, sample it down the hierarchy and keep every level's Γ
         (each level's diagonal is built at its first use, ``_diag``).
         Device work only, once per solve call before the Krylov loop, so a
-        new Γ on a cached spec is used at once."""
+        new Γ on a cached spec is used at once. On placed levels Γ is a
+        block vector ``(1 | dim, *shape)`` sampled down block by block
+        (``_transfer_axis``); the coarsest placed level's is gathered once
+        (``gamma_gathers``) for the levels below it."""
         assert self.var_gamma
-        g = torch.as_tensor(gamma, device=self.device).to(self.cdtype).contiguous()
-        levels = [g]
+        lay0 = self._placement(self.shape)
+        if lay0 is not None and not isinstance(gamma, blocks.BlockTensor):
+            raise ValueError("MGSpec.set_gamma: a placed hierarchy takes Γ on its blocks")
+        iso = False
+        if isinstance(gamma, blocks.BlockTensor):
+            iso = gamma.shape[0] == 1 and gamma.dim() == len(self.shape) + 1
+            g = gamma.to(self.cdtype)
+        else:
+            g = torch.as_tensor(gamma, device=self.device).to(self.cdtype).contiguous()
+
+        def on_lead(gl):
+            """A level's Γ block vector handed to the levels on the lead
+            device (counted), an isotropic one as ``(*shape)``."""
+            global gamma_gathers
+            g0 = blocks.gathers
+            gl = blocks.gather(gl)
+            gamma_gathers += blocks.gathers - g0
+            return gl[0] if iso else gl
+
+        levels = [on_lead(g) if lay0 is None and isinstance(g, blocks.BlockTensor) else g]
         for shape in self.shapes[1:]:
-            levels.append(self._downsample_g(levels[-1], shape))
+            prev = levels[-1]
+            if isinstance(prev, blocks.BlockTensor) and self._placement(shape) is not None:
+                levels.append(self._resize_blocks(prev, shape, self._sample_np))
+            else:
+                levels.append(self._downsample_g(
+                    on_lead(prev) if isinstance(prev, blocks.BlockTensor) else prev, shape))
         self._g_levels = levels
         self._gd_levels = [None] * len(levels)
-        # a placed level's Γ scattered to its blocks (counted), once per call
-        self._gb_levels = [None if self._placement(shape) is None
-                           else blocks.scatter_operand(gl, self._placement(shape))
-                           for gl, shape in zip(levels, self.shapes)]
+        self._gb_levels = [gl if isinstance(gl, blocks.BlockTensor) else None for gl in levels]
 
     def _gamma(self, shape):
         if self._g_levels is None:
@@ -486,17 +525,31 @@ class MGSpec:
             tuple(self._tensor(c).contiguous() for c in cs)
             for cs in self._level_coeffs_np(shape)))
 
+    def _per_block(self, shape, make):
+        """``make(sl, device)`` (``sl`` the index ranges, one slice per axis)
+        on the solve's device over the whole level, or block by block on a
+        placed level (``blocks.build``: no whole-level tensor)."""
+        lay = self._placement(shape)
+        if lay is None:
+            return make(tuple(slice(0, n) for n in shape), self.device)
+        return blocks.build(lay, make)
+
+    def _axis_vec(self, a, j, sl, dev, ndim):
+        """The per-axis vector ``a`` (host) cut to ``sl[j]``, in the cycle
+        dtype on ``dev``, broadcastable along axis j of an ``ndim`` grid."""
+        return self._tensor(a)[sl[j]].to(dev).reshape(
+            tuple(-1 if k == j else 1 for k in range(ndim)))
+
     def _dfield(self, shape):
         """Broadcast product ``(1, *shape)`` of the per-axis scales."""
-        def make():
+        def make(sl, dev):
             out = None
             for j, n in enumerate(shape):
-                v = self._tensor(self._dvec_np(n, j)).reshape(
-                    tuple(-1 if k == j else 1 for k in range(len(shape))))
+                v = self._axis_vec(self._dvec_np(n, j), j, sl, dev, len(shape))
                 out = v if out is None else out * v
-            return self._on_level(out[None], shape)
+            return out.expand(tuple(s.stop - s.start for s in sl))[None].contiguous()
 
-        return self._const(("dfield", shape), make)
+        return self._const(("dfield", shape), lambda: self._per_block(shape, make))
 
     def _diag(self, shape):
         """Jacobi diagonal: the interior scalar on unsurgered levels; the
@@ -508,23 +561,25 @@ class MGSpec:
             g = self._gamma(shape)
             lvl = self.shapes.index(tuple(shape))
             if self._gd_levels[lvl] is None:
-                self._gd_levels[lvl] = self._on_level(diff_diag(
-                    g, self._inv_dx2(shape), self._vg_surgery(), self.vg_avg).to(self.cdtype),
-                    shape)
+                args = (self._inv_dx2(shape), self._vg_surgery(), self.vg_avg)
+                self._gd_levels[lvl] = (
+                    placed_diff_diag(g, *args, self.paxes)
+                    if isinstance(g, blocks.BlockTensor) else diff_diag(g, *args)
+                ).to(self.cdtype)
             return self._gd_levels[lvl]
         if not self._surgery:
             return -2.0 * sum(self._inv_dx2(shape))
 
-        def make():
-            coeffs = self._level_coeffs(shape)
+        def make(sl, dev):
             acc = None
             for j, n in enumerate(shape):
-                ac = coeffs[j][1] / self._tensor(self._dvec_np(n, j))
-                ac = ac.reshape(tuple(-1 if k == j else 1 for k in range(len(shape))))
+                ac = (self._axis_vec(self._level_coeffs_np(shape)[j][1], j, sl, dev, len(shape))
+                      / self._axis_vec(self._dvec_np(n, j), j, sl, dev, len(shape)))
                 acc = ac if acc is None else acc + ac
-            return self._dfield(shape) * acc[None]
+            return acc[None]
 
-        return self._const(("diag", shape), make)
+        return self._const(("diag", shape),
+                           lambda: self._dfield(shape) * self._per_block(shape, make))
 
     def _om_diag(self, shape):
         """``omega / diag``, the damped-Jacobi weight: a device constant of
@@ -535,15 +590,15 @@ class MGSpec:
         return self._const(("om_diag", shape), lambda: self.omega / self._diag(shape))
 
     def _parity(self, shape):
-        def make():
+        def make(sl, dev):
             ids = sum(
-                torch.arange(n, device=self.device).reshape(
+                torch.arange(s.start, s.stop, device=dev).reshape(
                     (1,) + tuple(-1 if k == j else 1 for k in range(len(shape))))
-                for j, n in enumerate(shape)
+                for j, s in enumerate(sl)
             )
-            return self._on_level((ids % 2).expand((1, *shape)), shape)
+            return (ids % 2).expand((1, *(s.stop - s.start for s in sl))).contiguous()
 
-        return self._const(("parity", shape), make)
+        return self._const(("parity", shape), lambda: self._per_block(shape, make))
 
     def _tmat(self, n_s, n_t, j):
         return self._const(("tmat", n_s, n_t, j),
@@ -569,6 +624,22 @@ class MGSpec:
                                          and self._strided_ok(nf, nc, j)):
                         self._tmat(nf, nc, j)
                         self._tmat(nc, nf, j)
+                if self._placement(self.shapes[lvl + 1]) is not None \
+                        and self._placement(shape) is not None:
+                    self._prepare_transfers(shape, self.shapes[lvl + 1])
+
+    def _prepare_transfers(self, fine, coarse) -> None:
+        """Build the block-wise transfers' plans and device constants between
+        two placed levels (both directions; Γ's sampling down too), so no
+        cycle copies one from the host."""
+        mats = [(None, fine, coarse), (None, coarse, fine)]
+        if self.var_gamma:
+            mats.append((self._sample_np, fine, coarse))
+        for mat, src, dst in mats:
+            lay = self._placement(src)
+            for j, n_t in enumerate(dst):
+                if lay.grid[j] != n_t:
+                    lay = self._transfer_plan(lay, j, n_t, mat)[0]
 
     # -- level operator and smoothers --------------------------------------
     def _kernels(self, shape) -> bool:
@@ -780,9 +851,13 @@ class MGSpec:
     def _resize(self, x, shape):
         """Per-axis transfers to ``shape``: O(n) slices on exactly-2x
         pairs with ``transfers="strided"``, matrix products (in the cycle
-        dtype) otherwise. Returns a contiguous tensor; under a placed
-        decomposition, gathered on the solve's device and returned in the
-        target level's form (``_on_level``)."""
+        dtype) otherwise. Returns a contiguous tensor in the target level's
+        form: between two placed levels block by block
+        (``_resize_blocks``); from a placed level to one on the solve's
+        device through one counted gather (the hand-over), back through a
+        scatter (``_on_level``)."""
+        if isinstance(x, blocks.BlockTensor) and self._placement(shape) is not None:
+            return self._resize_blocks(x, shape)
         x = blocks.gather(x)
         for j, n_t in enumerate(shape):
             n_s = x.shape[1 + j]
@@ -798,6 +873,109 @@ class MGSpec:
             x = self._contract(x, self._tmat(n_s, n_t, j), j)
         return self._on_level(x.contiguous(), shape)
 
+    def _resize_blocks(self, x, shape, mat=None):
+        """``_resize`` (``mat`` None) or ``_downsample_g`` (``mat`` the
+        sampling matrices, ``_sample_np``) of a block vector of a placed
+        level to the placed level ``shape``, axis by axis
+        (``_transfer_axis``); the result is a block vector of that level."""
+        for j, n_t in enumerate(shape):
+            if x.shape[1 + j] != n_t:
+                x = self._transfer_axis(x, j, n_t, mat)
+        return x
+
+    def _transfer_axis(self, x, j, n_t, mat=None):
+        """The transfer of the block vector ``x`` along grid axis ``j`` to
+        ``n_t`` nodes, block by block on each block's device (the grid's
+        other axes keep their extents, so every intermediate is a block
+        vector of the same decomposition), as ``_transfer_plan`` says."""
+        to, grid, steps = self._transfer_plan(x.placement, j, n_t, mat)
+        parts = []
+        for b, (kind, data) in enumerate(steps):
+            xb = x.parts[b]
+            if kind == "strided":
+                ob = (self._prolong_axis_strided(xb, j, n_t) if n_t > xb.shape[1 + j]
+                      else self._restrict_axis_strided(xb, j, n_t))
+            elif kind == "matrix":
+                ob = self._contract(xb.contiguous(), data, j)
+            elif kind == "torus":
+                ob = self._strided_rows(x, b, j, n_t, *data)
+            else:  # "band"
+                ranges, M = data
+                ob = self._contract(line_rows(x, b, j, ranges).contiguous(), M, j)
+            parts.append(ob.contiguous())
+        return blocks.BlockTensor(parts, to, (x.shape[0], *grid))
+
+    def _transfer_plan(self, lay, j, n_t, mat=None):
+        """``(target layout, its grid, per block (kind, data))`` of the
+        transfer of a block vector of ``lay`` along grid axis ``j`` to
+        ``n_t`` nodes (``mat``: the sampling matrices of Γ, else the
+        transfers'), made once: along an uncut axis each block's whole-axis
+        transfer ("strided" slices, or its "matrix" product); along a cut
+        axis a torus pair's strided wrap midpoints ("torus", the block's
+        output rows; ``_strided_rows``), else the block's slice of the
+        banded matrix against the rows its band reaches ("band", ``_band``,
+        ``halo.line_rows``). A strided pair that is not a torus pair never
+        has both levels placed (its fine axis has an odd node count), so
+        the matrix of the same map serves it there."""
+        def make():
+            n_s = lay.grid[j]
+            grid = lay.grid[:j] + (n_t,) + lay.grid[j + 1:]
+            to = blocks.layout(self.decomp, grid, self.device)
+            mat_np = mat or self._transfer_matrix_np
+            strided = mat is None and self.transfers == "strided" and self._strided_ok(n_s, n_t, j)
+            steps = []
+            for b, (_, _, dev) in enumerate(lay.blocks):
+                sl = to.blocks[b][1][j]
+                if not lay.cut[j]:
+                    steps.append(("strided", None) if strided
+                                 else ("matrix", self._dev_mat(mat_np, n_s, n_t, j, dev)))
+                elif strided and j in self.paxes:
+                    steps.append(("torus", (sl.start, sl.stop)))
+                else:
+                    steps.append(("band", self._band(mat_np, n_s, n_t, j, sl.start, sl.stop,
+                                                     dev)))
+            return to, grid, tuple(steps)
+
+        return self._const(("transfer", lay, j, n_t, mat is None), make)
+
+    def _dev_mat(self, mat_np, n_s, n_t, j, dev):
+        """A whole transfer (or sampling) matrix in the cycle dtype on
+        ``dev`` (the values of ``_tmat`` / ``_sample_mat``)."""
+        return torch.as_tensor(mat_np(n_s, n_t, j), dtype=self.cdtype, device=dev)
+
+    def _band(self, mat_np, n_s, n_t, j, t0, t1, dev):
+        """``(ranges, M)``: the source rows the columns ``t0:t1`` of the
+        ``(n_s, n_t)`` matrix read, as ascending ``(lo, hi)`` runs, and those
+        rows of those columns in the cycle dtype on ``dev`` (the same
+        entries as the whole matrix, so a block's product adds the same
+        terms in the same order)."""
+        sub = np.asarray(mat_np(n_s, n_t, j))[:, t0:t1]
+        rows = np.nonzero(np.any(sub != 0.0, axis=1))[0]
+        cuts = np.nonzero(np.diff(rows) != 1)[0] + 1
+        ranges = tuple((int(r[0]), int(r[-1]) + 1) for r in np.split(rows, cuts) if len(r))
+        return ranges, torch.as_tensor(sub[rows], dtype=self.cdtype, device=dev)
+
+    def _strided_rows(self, x, b, j, n_t, t0, t1):
+        """Rows ``t0:t1`` of the strided transfer of a torus axis ``j`` for
+        block ``b`` of ``x``, from the rows they read (``halo.line_rows``,
+        wrapping), with the whole-axis forms' operations in their order:
+        the prolongation ``x[k]`` and ``0.5 (x[k] + x[k+1])``, the
+        restriction ``0.5 x[2t] + 0.25 x[2t+1] + 0.25 x[2t-1]``."""
+        ax = 1 + j
+        if n_t > x.shape[ax]:  # prolong: n_t = 2 n_s
+            k0, k1 = t0 // 2, (t1 - 1) // 2
+            v = line_rows(x, b, j, ((k0, k1 + 2),))
+            a = v.narrow(ax, 0, k1 - k0 + 1)
+            mid = 0.5 * (a + v.narrow(ax, 1, k1 - k0 + 1))
+            out = torch.stack([a, mid], dim=ax + 1).reshape(
+                a.shape[:ax] + (2 * (k1 - k0 + 1),) + a.shape[ax + 1:])
+            return out.narrow(ax, t0 - 2 * k0, t1 - t0)
+        v = line_rows(x, b, j, ((2 * t0 - 1, 2 * t1),))
+        sel = self._ax_sel
+        even = sel(v, j, slice(1, None, 2))
+        return 0.5 * even + 0.25 * sel(v, j, slice(2, None, 2)) \
+            + 0.25 * sel(v, j, slice(0, -1, 2))
+
     @staticmethod
     def _contract(x, M, j):
         """Contract axis ``1 + j`` of a contiguous ``x`` with ``M`` (n_s,
@@ -806,9 +984,15 @@ class MGSpec:
         the grid to make the axis last, and back)."""
         n_s, n_t = M.shape
         if j + 2 == x.ndim:
-            out = x.reshape(-1, n_s) @ M
+            out = torch.mm(x.reshape(-1, n_s), M)
         else:
-            out = torch.matmul(M.t(), x.reshape(int(np.prod(x.shape[:1 + j])), n_s, -1))
+            # mm / bmm called directly: matmul's broadcasting adds a handful
+            # of host-side ops per call, and a placed level makes one call
+            # per block and axis
+            lead = prod(x.shape[:1 + j])
+            xr = x.reshape(lead, n_s, -1)
+            out = (torch.mm(M.t(), xr[0]) if lead == 1
+                   else torch.bmm(M.t().expand(lead, n_t, n_s), xr))
         return out.reshape(x.shape[:1 + j] + (n_t,) + x.shape[2 + j:])
 
     # -- cycles ----------------------------------------------------------------

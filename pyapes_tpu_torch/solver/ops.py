@@ -15,6 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.solver import linalg
 from pyapes_tpu_torch.solver.fdm import Operators, ddt_leading_coeff
 from pyapes_tpu_torch.solver.linalg import ReportType
@@ -83,17 +84,22 @@ class Solver:
         """Debug interface: apply the assembled (affine) operator to ``var``
         (reference ``ops.py:83-90``); a Ddt term includes its ``-var_old /
         dt`` history, ``(x - var_old) / dt`` (BDF2: ``(1.5 x - 2 var_old +
-        0.5 var_oold) / dt``)."""
+        0.5 var_oold) / dt``). A value on blocks is applied on the lead
+        device (one counted gather; a block Γ, advector or history one
+        each) and comes back on its blocks."""
         assert self.eqs is not None, "Solver: equation is missing. Did you forget to set_eq?"
-        x = var()
-        res = torch.zeros_like(x)
-        for rec in self.eqs.values():
-            if rec["name"] == "Ddt":
-                lin = ddt_leading_coeff(rec) * x - _ddt_history(rec)
-                res = res + rec["sign"] * lin / rec["dt"]
-            else:
-                res = res + rec["sign"] * rec["Aop"](rec, x)
-        return res
+
+        def apply(x):
+            res = torch.zeros_like(x)
+            for rec in self.eqs.values():
+                if rec["name"] == "Ddt":
+                    lin = ddt_leading_coeff(rec) * x - blocks.lead_copy(_ddt_history(rec))
+                    res = res + rec["sign"] * lin / rec["dt"]
+                else:
+                    res = res + rec["sign"] * rec["Aop"](rec, x)
+            return res
+
+        return blocks.via_lead(apply, var())
 
     def solve(self) -> ReportType:
         """Solve the captured linear system (reference ``ops.py:92-111``)."""

@@ -16,17 +16,25 @@ import torch
 
 
 def _tensor(a, like: torch.Tensor | None = None, device=None, dtype=None):
+    """``a`` as a tensor on ``like``'s device in its dtype (or ``device`` /
+    ``dtype``); on ``like``'s blocks when ``like`` is a block vector, each
+    block's slice copied from the host straight to its device."""
+    from pyapes_tpu_torch.parallel import blocks
+
     if like is not None:
         device, dtype = like.device, like.dtype
     a = np.asarray(a)
     if not a.flags.writeable:  # a JAX array's host view: own a copy
         a = a.copy()
+    if isinstance(like, blocks.BlockTensor):
+        return blocks.scatter(torch.as_tensor(a, dtype=dtype), like.placement)
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def field_from_numpy(field, var, varo=None, varoo=None):
     """Load ``var`` (and optionally the history levels ``varo``/``varoo``)
-    into a port ``Field`` in its own dtype and device; the levels given
+    into a port ``Field`` in its own dtype and device (into its blocks,
+    when its value is a block vector); the levels given
     count as saved history (``n_hist``), so a BDF2 ``Ddt`` reads both once
     ``varoo`` is loaded. Returns the field."""
     cur = field()

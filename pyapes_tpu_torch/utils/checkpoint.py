@@ -19,6 +19,13 @@ the two packages both ways.
   the compute that follows. ``wait_for_checkpoints()`` (or the next
   ``save_orbax``) makes the write durable; ``load_orbax`` reads that file.
 
+A Field whose value is a block vector of a placed decomposition
+(``parallel.blocks.BlockTensor``) is written through the host gather (each
+block copied to the host once, ``blocks.host_gathers``); loading into it
+restores each level into its blocks, each block's slice copied from the
+host straight to its device, as Orbax restores into the template's
+sharding.
+
 bfloat16 payloads are written as numpy writes the JAX package's
 ``ml_dtypes`` bfloat16, a raw 2-byte ``|V2`` array of the same bits, and
 read back from it.
@@ -30,6 +37,8 @@ import threading
 
 import numpy as np
 import torch
+
+from pyapes_tpu_torch.parallel import blocks
 
 _META = "__pyapes_meta__"
 _LEVELS = ("VAR", "VARo", "VARoo")
@@ -61,14 +70,17 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _from_numpy(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A stored array on ``like``'s device in ``like``'s dtype; a ``|V2``
-    array is read as bfloat16 bits."""
+    """A stored array on ``like``'s device in ``like``'s dtype (on
+    ``like``'s blocks for a block vector); a ``|V2`` array is read as
+    bfloat16 bits."""
     if a.dtype.kind == "V":
         if a.dtype.itemsize != 2:
             raise TypeError(f"checkpoint: cannot read a stored {a.dtype} array")
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a))
+    if isinstance(like, blocks.BlockTensor):
+        return blocks.scatter(t.to(like.dtype), like.placement)
     return t.to(device=like.device, dtype=like.dtype)
 
 
@@ -156,15 +168,21 @@ def _snapshot(tensors: dict):
     or None)``. CUDA tensors: a device copy on the current stream, then a
     copy into pinned host memory on a side stream, the event recorded
     after it."""
+    # block vectors through the host gather, now (their blocks may lie on
+    # several devices)
+    gathered = {k: blocks.host_gather(t) for k, t in tensors.items()
+                if isinstance(t, blocks.BlockTensor)}
+    tensors = {k: t for k, t in tensors.items() if k not in gathered}
     cuda = [t for t in tensors.values() if t.is_cuda]
     if not cuda:
-        return {k: t.detach().clone() for k, t in tensors.items()}, None
+        return {**{k: t.detach().clone() for k, t in tensors.items()}, **gathered}, None
     device = cuda[0].device
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     dev_copies = {k: t.detach().clone() for k, t in tensors.items() if t.is_cuda}
     side.wait_stream(current)
     host = {k: t.detach().clone() for k, t in tensors.items() if not t.is_cuda}
+    host.update(gathered)
     with torch.cuda.stream(side):
         for k, t in dev_copies.items():
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

@@ -76,19 +76,15 @@ class BC(ABC):
 
         m = np.asarray(self.bc_mask, dtype=bool)
         self.bc_mask = m
-        self._bc_mask_prev = np.roll(m, -self._bc_n_dir, self._bc_face_dim)
-        self._bc_mask_prev2 = np.roll(m, -self._bc_n_dir * 2, self._bc_face_dim)
-        self._bc_mask_forward = np.roll(m, self._bc_n_dir, self._bc_face_dim)
-        self._bc_mask_forward2 = np.roll(m, self._bc_n_dir * 2, self._bc_face_dim)
 
         self._bc_n_vec = np.zeros(3)
         self._bc_n_vec[self._bc_face_dim] = self._bc_n_dir
 
         # Domain BC masks are always the full boundary slab of their face
-        # (``mesh/_mesh.py`` snaps faces to the grid).
-        slab = np.zeros_like(m)
-        slab[_face_index(self._bc_face_dim, 0 if self._bc_n_dir < 0 else -1, 0)] = True
-        self._is_slab = bool(np.array_equal(m, slab))
+        # (``mesh/_mesh.py`` snaps faces to the grid): every node of the face
+        # row and nothing else (counted, so no second grid-sized mask is made)
+        face = m[_face_index(self._bc_face_dim, 0 if self._bc_n_dir < 0 else -1, 0)]
+        self._is_slab = bool(face.all()) and int(np.count_nonzero(m)) == face.size
 
     # -- mask views (parity with ``bcs.py:97-155``) -----------------------
     def bc_mask_shift(self, shift: int) -> np.ndarray:
@@ -100,19 +96,19 @@ class BC(ABC):
 
     @property
     def bc_mask_prev(self) -> np.ndarray:
-        return self._bc_mask_prev
+        return self.bc_mask_shift(-self._bc_n_dir)
 
     @property
     def bc_mask_prev2(self) -> np.ndarray:
-        return self._bc_mask_prev2
+        return self.bc_mask_shift(-self._bc_n_dir * 2)
 
     @property
     def bc_mask_forward(self) -> np.ndarray:
-        return self._bc_mask_forward
+        return self.bc_mask_shift(self._bc_n_dir)
 
     @property
     def bc_mask_forward2(self) -> np.ndarray:
-        return self._bc_mask_forward2
+        return self.bc_mask_shift(self._bc_n_dir * 2)
 
     @property
     def bc_treat(self) -> bool:

@@ -7,6 +7,14 @@ aliasing hazard, SURVEY §2 quirk 1.) Component writes (``set_var_tensor``,
 ``__setitem__``) replace the payload with an updated copy, so a tensor
 another holder still references (``VARo`` after ``save_old``) never
 changes underneath it.
+
+A Field's value may be a block vector of a placed decomposition
+(``parallel.blocks.BlockTensor``, e.g. ``var.VAR = blocks.put(var(),
+decomp)``, the counterpart of committing the JAX package's value with
+``jax.device_put``): the setters, component reads and writes, the
+arithmetic, the history levels and ``apply_bcs`` keep it on its blocks,
+and a solve returns the solution on them. ``init_val`` may be one too:
+then no whole array is made.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ import numpy as np
 import torch
 
 from pyapes_tpu_torch.mesh import Mesh
+from pyapes_tpu_torch.parallel import blocks
+from pyapes_tpu_torch.parallel.blocks import BlockTensor
 from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, DIR_TO_NUM_RZ
 from pyapes_tpu_torch.variables.bcs import (
     BC_FACTORY,
@@ -49,13 +59,13 @@ class Field:
     object_interp: bool = False
 
     def __post_init__(self):
-        self._VAR = self._zeros()
+        iv = self.init_val
+        self._VAR = self._as_tensor(iv) if isinstance(iv, BlockTensor) else self._zeros()
         self._VARo = self._VAR
         self._t = 0.0
         self._dt: float | None = None
 
-        iv = self.init_val
-        if iv is not None:
+        if iv is not None and not isinstance(iv, BlockTensor):
             if isinstance(iv, float):
                 self._VAR = self._VAR + iv
             elif isinstance(iv, list):
@@ -89,6 +99,10 @@ class Field:
         )
 
     def _as_tensor(self, val) -> torch.Tensor:
+        """``val`` in the mesh's dtype on its device; a block vector stays on
+        its blocks (cast block by block)."""
+        if isinstance(val, BlockTensor):
+            return val if val.dtype == self.mesh.dtype.float else val.to(self.mesh.dtype.float)
         return torch.as_tensor(val, dtype=self.mesh.dtype.float, device=self.mesh.device)
 
     # -- time state (reference ``fields.py:109-145``) ---------------------
@@ -372,7 +386,11 @@ class Field:
         payload); values resolve against the field's current time."""
         var = self._VAR.clone()
         grid = self.mesh.grid
-        for bc in self.bcs:
-            bc.apply_(var, grid, vals=bc.stream_values(var, grid, t=self.t))
+        vals = [bc.stream_values(var, grid, t=self.t) for bc in self.bcs]
+        if isinstance(var, BlockTensor):  # each face's rows in the blocks on it
+            blocks.apply_bcs_fn(self.bcs, grid, var.placement, None)(var, vals, inplace=True)
+        else:
+            for bc, v in zip(self.bcs, vals):
+                bc.apply_(var, grid, vals=v)
         self._VAR = var
         return self

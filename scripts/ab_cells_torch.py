@@ -16,7 +16,8 @@ from one checkout, for A/B runs of two versions on one card in one call.
 ``--root`` is the checkout whose ``pyapes_tpu_torch`` is imported (default:
 this one), e.g. a parent commit unpacked with ``git archive`` under
 ``build/``. Run the versions in turns (parent, change, change, parent) in
-one call. The cells are ``chip_smoke.py``'s (this checkout's file, so both
+one call. The ``placed`` cells place the (4, 2, 1) blocks round robin over
+the cards (phase 17's ``placed_devices``; one card: ``("cuda:0",) * 8``). The cells are ``chip_smoke.py``'s (this checkout's file, so both
 versions get the same traffic): its problem (3-D f32 all-Dirichlet random
 RHS, tol 1e-6) through ``fd_cfg`` / ``mg_cfg`` and ``_solve_path``. Per
 cell: one warm-up, then ``--solves`` timed solves (host clock ending in a
@@ -98,6 +99,12 @@ CELLS = {
     "MG-PCG 512^3 (4, 2, 1)": lambda cs: (cs.N_MAIN, cs.mg_cfg(cs.BENCH_MG, _decomp(cs))),
     "MG-PCG 256^3 V(1,1)": lambda cs: (cs.N_V11, cs.mg_cfg(cs.V11_MG)),
     "Darcy 256^3": lambda cs: (cs.N_DARCY, cs.darcy_cfg()),
+    # placed round robin over the cards (phase 17 (a) and (f)'s configurations)
+    "MG-PCG 512^3 (4, 2, 1) placed": lambda cs: (cs.N_MAIN, {**{
+        k: v for k, v in cs.mg_cfg(cs.BENCH_MG).items() if k != "donate"},
+        "decomp": _decomp(cs, placed=True)}),
+    "Darcy 256^3 (4, 2, 1) placed": lambda cs: (cs.N_DARCY, {**cs.darcy_cfg(),
+                                                             "decomp": _decomp(cs, placed=True)}),
 }
 KERNEL_CELLS = ("jacobi3d", "jacobi3d_x2", "diff_jacobi", "axis_stencil", "axis_stencil5",
                 "conv_component", "advect_pair")
@@ -210,10 +217,13 @@ def _dot_ext_times(cs, dev) -> dict:
             "registers": [[k, r, sp] for k, r, sp in regs]}
 
 
-def _decomp(cs):
+def _decomp(cs, placed: bool = False):
+    from math import prod
+
     from pyapes_tpu_torch.parallel import DomainDecomposition
 
-    return DomainDecomposition(cs.N_DECOMP)
+    devices = cs.placed_devices(prod(cs.N_DECOMP)) if placed else None
+    return DomainDecomposition(cs.N_DECOMP, devices=devices)
 
 
 def main() -> None:

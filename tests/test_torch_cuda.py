@@ -1922,6 +1922,95 @@ def test_cuda_placed_across_two_cards(cuda, method):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)
 
 
+# -- Fields whose value stays on its blocks ----------------------------------
+
+
+def _block_field_solve(dev, nx, cfg, devices, gamma=False, seed=0):
+    """``_placed_solve``'s problem (``gamma``: the variable-Γ Laplacian of Γ
+    = 1 + x) with the Field, the RHS and Γ block vectors of ``(4, 2, 1)`` on
+    ``devices`` (``blocks.put`` from the host: no whole tensor on a card):
+    the solution gathered on the host, the report, and the counters' deltas
+    (gathers, V-cycles and their gathers, Γ's hand-over)."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver import FDM, Solver, multigrid
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    dd = DomainDecomposition((4, 2, 1), devices=devices)
+    mesh = Mesh(Box[(slice(0, 1),) * len(nx)], None, list(nx), device=str(dev), dtype="double")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(len(nx), 0.0, "dirichlet"),
+                               "obstacle": None},
+                init_val=blocks.put(torch.zeros((1, *nx), dtype=torch.float64), dd))
+    rhs = blocks.put(torch.from_numpy(np.random.default_rng(seed).standard_normal((1, *nx))), dd)
+    coeff = 1.0
+    if gamma:
+        x = np.linspace(0, 1, nx[0]).reshape(-1, 1, 1)
+        coeff = blocks.put(torch.from_numpy(1.0 + x + np.zeros(nx))[None], dd)
+    keys = lambda: (blocks.gathers, multigrid.vcycles, multigrid.cycle_gathers,  # noqa: E731
+                    multigrid.fmg_gathers, multigrid.gamma_gathers)
+    c0 = keys()
+    s = Solver({"fdm": {"report": False, **cfg}})
+    s.set_eq(FDM().laplacian(coeff, var) == rhs)
+    rep = s.solve()
+    assert isinstance(var(), blocks.BlockTensor)
+    assert var().placement is blocks.layout(dd, nx, devices[0])
+    return var().cpu()[0], rep, [a - b for a, b in zip(keys(), c0)]
+
+
+def _view_reference(dev, nx, cfg, gamma=False, seed=0):
+    """The same problem with a whole Field on ``dev``, view-based (4, 2, 1)."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    if not gamma:
+        return _placed_solve(dev, nx, cfg, DomainDecomposition((4, 2, 1)), seed)
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[(slice(0, 1),) * len(nx)], None, list(nx), device=str(dev), dtype="double")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"), "obstacle": None},
+                init_val=0.0)
+    rhs = torch.from_numpy(np.random.default_rng(seed).standard_normal((1, *nx))).to(dev)
+    x = np.linspace(0, 1, nx[0]).reshape(-1, 1, 1)
+    g = torch.from_numpy(1.0 + x + np.zeros(nx)).to(dev)
+    s = Solver({"fdm": {"report": False, **cfg, "decomp": DomainDecomposition((4, 2, 1))}})
+    s.set_eq(FDM().laplacian(g, var) == rhs)
+    rep = s.solve()
+    return var()[0].cpu(), rep
+
+
+BLOCK_FIELD_CFGS = {k: PLACED_CFGS[k] for k in ("cg", "mg", "fastdiag", "cg_fd")}
+BLOCK_FIELD_CFGS["darcy"] = PLACED_CFGS["mg"]
+
+
+@pytest.mark.parametrize("placement", ["one_card", "mixed", "two_cards"])
+@pytest.mark.parametrize("method", sorted(BLOCK_FIELD_CFGS))
+def test_cuda_block_field_solves(cuda, method, placement):
+    """A Field whose value stays on ``(4, 2, 1)`` blocks (the RHS and, for
+    Darcy, Γ too) on ``("cuda:0",) * 8``, on card and CPU blocks in turn, or
+    round robin over two cards (skips on one): the view-based solve's
+    ``itr`` and solution (1e-12), the solution still on the blocks; the
+    V-cycle gathers only at its hand-over (Γ's once), CG and fastdiag
+    nothing."""
+    devices = {"one_card": ("cuda:0",) * 8, "mixed": ("cuda:0", "cpu") * 4,
+               "two_cards": ("cuda:0", "cuda:1") * 4}[placement]
+    if placement == "two_cards" and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards; this machine shows {torch.cuda.device_count()}")
+    nx = (32, 32, 64)
+    cfg, darcy = BLOCK_FIELD_CFGS[method], method == "darcy"
+    ref, rref = _view_reference(cuda, nx, cfg, darcy)
+    out, rep, (gathers, cycles, in_cycles, fmg, gam) = _block_field_solve(cuda, nx, cfg, devices,
+                                                                           darcy)
+    assert rep["converge"] and rep["itr"] == rref["itr"], (rep, rref)
+    assert in_cycles == cycles and gam == int(darcy)
+    assert gathers == in_cycles + fmg + gam
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-12, rtol=0)
+
+
 # -- placed variable-Γ and Div/Conv terms, placed PeriodicFlow --------------
 
 

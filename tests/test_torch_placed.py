@@ -328,9 +328,10 @@ def test_placed_solve_equals_the_view_based_one(method):
 
 
 def test_placed_mg_gathers_only_in_its_transfers():
-    """Per V-cycle, the placed MG gathers twice per placed level but the
-    coarsest placed one (one restriction each, one prolongation from each
-    placed coarser level), and CG itself gathers nothing."""
+    """Per V-cycle, the placed MG gathers once: the hand-over from the
+    coarsest placed level to the first level on the lead device (the
+    transfers between placed levels run block by block; the way back is a
+    scatter), and CG itself gathers nothing."""
     v0, c0, g0 = multigrid.vcycles, multigrid.cycle_gathers, blocks.gathers
     _, rep = _solve((16, 16, 32), MG, _placed((4, 2, 1)), 2)
     cycles, in_cycles = multigrid.vcycles - v0, multigrid.cycle_gathers - c0
@@ -338,7 +339,7 @@ def test_placed_mg_gathers_only_in_its_transfers():
     shapes = multigrid._level_shapes((16, 16, 32))
     placed = [halo.placed_supported(_placed((4, 2, 1)), s) for s in shapes]
     assert placed == [True, True, False]
-    assert cycles == rep["itr"] + 1 and in_cycles == 3 * cycles
+    assert cycles == rep["itr"] + 1 and in_cycles == cycles
     assert blocks.gathers - g0 == in_cycles
 
 
