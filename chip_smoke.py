@@ -297,7 +297,20 @@ Phases, report lines before the last:
    four cards with no whole grid anywhere (a manufactured discrete
    solution built block by block): ``itr``, the error against it, the
    wall, every card's peak (the lead within ``LARGE_LEAD_SPREAD``); on one
-   card a line says it needs four.
+   card a line says it needs four. (n)-(p) (``placed_graphs``): CUDA graphs
+   whose loops the device ends, on ``("cuda:0",) * 8``: (n) fastdiag and
+   bench's MG-PCG at 512^3 and Darcy at 256^3 with the Field on blocks,
+   and (a)'s whole-Field MG-PCG, each at ``sync: False`` (one graph per
+   solve) in turns with ``sync: True``: the same bits and ``itr``, per
+   replay one graph launch, no host sync and no counter moved, the
+   capture's seconds, the walls, the card's peak and what it holds with the
+   graph alive; (o) the TGV-3D LES 257^3 fused on the placed blocks in
+   turns with its eager placed steps and the fused view-based run: the
+   eager bits, ``itr`` and ⟨E⟩, one capture, no fallback, per step one graph
+   launch and no host sync; (p) on four cards the probe of a WHILE body
+   across cards, and the ``NotImplementedError`` naming "A11f (across
+   cards)" of (n)'s MG-PCG and (o)'s run there (on one card a line says it
+   needs four). Every row prints the cards' names and power limits.
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
 9, 10, 11, 12, 13, 15 (a), 16, and each placed drive of 17) and read just after; a kernel of a path that launched no time there
@@ -5967,6 +5980,316 @@ def placed_large(dev, launches: dict) -> dict:
     return out
 
 
+# (n)-(p): placed sync: False solves and fused steps as CUDA graphs
+GRAPH_PAIRS = 3  # (n): sync: True and sync: False solves in turns, one each per pair
+GRAPH_WARM, GRAPH_STEPS, GRAPH_CHUNK = 2, 10, 5  # (o): eager steps, then chunks in turns
+GRAPH_CARDS = 4  # (p): the cards of the round robin
+
+
+def _card_line() -> str:
+    """Every card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them, joined by "; "."""
+    return "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines())
+
+
+def _one_card_dd():
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    return DomainDecomposition(N_DECOMP, devices=("cuda:0",) * prod(N_DECOMP))
+
+
+def _delta(c1: dict, c0: dict) -> dict:
+    return {k: c1[k] - c0[k] for k in c1}
+
+
+def graph_solve_case(label, var, rhs, cfg, coeff=1.0) -> dict:
+    """(n)'s gates on one placed problem: a ``sync: True`` solve (the warm
+    caches and the reference), the first ``sync: False`` solve (its eager
+    warm-up and its capture), then ``GRAPH_PAIRS`` pairs in turns, each
+    ``sync: False`` replay held to the reference's bits (``torch.equal``
+    per block, or of the whole Field) and ``itr`` (a 0-d tensor); one more
+    replay moves no counter, and one each is counted for API calls (1
+    graph launch) and host syncs (0). Returns the numbers: the walls, the
+    capture's seconds, the counters of an eager solve and of the first
+    ``sync: False`` call (warm-up + capture: a replay's work is the
+    capture's), the card's peak per kind."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.linalg import dispatch
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    fdm = FDM()
+    solvers = {sync: Solver({"fdm": {"report": False, **cfg, "sync": sync}})
+               for sync in (True, False)}
+
+    def solve(sync):
+        var.set_var_tensor(torch.zeros_like(var()))
+        solvers[sync].set_eq(fdm.laplacian(coeff, var) == rhs)
+        return solvers[sync].solve()
+
+    def bits():
+        x = var()
+        return [p.clone() for p in x.parts] if isinstance(x, blocks.BlockTensor) else [x.clone()]
+
+    rep_t = solve(True)
+    ref = bits()
+    _sync_all()
+    c0 = _placed_counters()
+    tic = time.perf_counter()
+    solve(False)
+    _sync_all()
+    first_s = time.perf_counter() - tic
+    first = _delta(_placed_counters(), c0)
+    call = next(reversed(dispatch._GRAPH_CACHE.values()))[0]
+    walls = {"sync_true": [], "sync_false": []}
+    peaks = {"sync_true": 0.0, "sync_false": 0.0}
+    same, itrs, eager = [], [], None
+    c_timed = _placed_counters()
+    for i in range(GRAPH_PAIRS):
+        for sync in ((True, False) if i % 2 == 0 else (False, True)):
+            kind = "sync_true" if sync else "sync_false"
+            _sync_all()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = _placed_counters()
+            tic = time.perf_counter()
+            rep = solve(sync)
+            _sync_all()
+            walls[kind].append(time.perf_counter() - tic)
+            peaks[kind] = max(peaks[kind], torch.cuda.max_memory_allocated() / 2**30)
+            if sync:
+                eager = _delta(_placed_counters(), c0)
+                continue
+            if not (isinstance(rep["itr"], torch.Tensor) and rep["itr"].dim() == 0):
+                raise RuntimeError(f"chip_smoke: {label}: sync: False reported {rep['itr']!r}")
+            out = bits()
+            same.append(len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref)))
+            itrs.append(int(rep["itr"]))
+    timed = _no_host_gathers(_delta(_placed_counters(), c_timed))
+    # what the card holds with the graph alive: its static inputs and its
+    # pools' blocks are reserved, not allocated, between replays
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() / 2**30
+    c0 = _placed_counters()
+    solve(False)
+    _sync_all()
+    replay = {k: v for k, v in _delta(_placed_counters(), c0).items() if v}
+    api = _api_calls(lambda: solve(False))
+    syncs = _count_syncs(lambda: solve(False))
+    out = {"itr": rep_t["itr"], "sync_false_itr": itrs, "same_bits": same,
+           "wall_s": walls, "wall_s_median": {k: statistics.median(v) for k, v in walls.items()},
+           "first_sync_false_call_s": first_s, "capture_s": call.capture_s,
+           "graph_launches_per_replay": api["graph_launches"],
+           "cuda_api_calls_per_replay": api["total"], "host_syncs_per_replay": syncs,
+           "counters_moved_by_a_replay": replay,
+           "counts_eager_solve": {k: v for k, v in eager.items() if v},
+           "counts_warm_up_and_capture": {k: v for k, v in first.items() if v},
+           "host_gathers_timed": timed["host_gathers"], "peak_gib_card0": peaks,
+           "reserved_gib_card0_graph_alive": reserved}
+    if not (all(same) and itrs == [rep_t["itr"]] * GRAPH_PAIRS and api["graph_launches"] == 1
+            and syncs == 0 and not replay):
+        raise RuntimeError(f"chip_smoke: {label}: sync: False against sync: True: "
+                           f"{json.dumps(out)}")
+    return out
+
+
+def graph_les_case(dev, label, dd) -> dict:
+    """(o)'s gates: the TGV-3D LES at ``TGV_RUNG``^3 f32 with its solves on
+    the placed ``dd``, ``GRAPH_WARM`` steps then ``GRAPH_STEPS`` in chunks of
+    ``GRAPH_CHUNK``, kinds in turns: eager placed, fused placed and fused
+    view-based (``DomainDecomposition(N_DECOMP)``). The fused placed run
+    equals the eager one bit for bit after every chunk, with the same
+    ``itr`` per solve of its last step and the same ⟨E⟩; its runner
+    captured once, no fallback (the warning is an error here); one more
+    step each counted for host syncs (0) and API calls (1 graph launch).
+    Returns the numbers."""
+    import warnings
+
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    vol = (2 * pi) ** 3
+    (m_e, dt), (m_f, _), (m_v, _) = (tgv_model(dev, TGV_RUNG, config={"decomp": d})
+                                     for d in (dd, dd, DomainDecomposition(N_DECOMP)))
+
+    def itr_eager():
+        with solve_log() as log:
+            m_e.step(dt)
+        return [int(r["itr"]) for r in log]
+
+    def bits_equal():
+        return all(torch.equal(a(), b()) for a, b in zip(m_e.state_fields(), m_f.state_fields()))
+
+    walls = {"eager_placed": [], "fused_placed": [], "fused_view": []}
+    peaks = {k: 0.0 for k in walls}
+    same, itr_same = [], []
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*(falling back|stepping eagerly).*")
+        m_e.run(dt, GRAPH_WARM)
+        tic = time.perf_counter()
+        m_f.run(dt, GRAPH_WARM, fused=True)
+        _sync_all()
+        boot_s = time.perf_counter() - tic
+        m_v.run(dt, GRAPH_WARM, fused=True)
+        r_f, r_v = m_f.fused_runner(), m_v.fused_runner()
+        c0 = _placed_counters()
+        order = (("eager_placed", "fused_placed", "fused_view"),
+                 ("fused_view", "fused_placed", "eager_placed"))
+        for i in range(GRAPH_STEPS // GRAPH_CHUNK):
+            for kind in order[i % 2]:
+                _sync_all()
+                torch.cuda.reset_peak_memory_stats()
+                tic = time.perf_counter()
+                if kind == "eager_placed":
+                    for _ in range(GRAPH_CHUNK - 1):
+                        m_e.step(dt)
+                    itr_e = itr_eager()
+                else:
+                    (r_f if kind == "fused_placed" else r_v).run(dt, GRAPH_CHUNK)
+                _sync_all()
+                walls[kind].append((time.perf_counter() - tic) / GRAPH_CHUNK)
+                peaks[kind] = max(peaks[kind], torch.cuda.max_memory_allocated() / 2**30)
+            same.append(bits_equal())
+            itr_same.append(itr_e == [int(r["itr"]) for r in r_f.reports])
+        timed = _no_host_gathers(_delta(_placed_counters(), c0))
+        syncs = _count_syncs(lambda: r_f.step(dt))
+        api = _api_calls(lambda: r_f.step(dt))
+        r_v.step(dt)
+        r_v.step(dt)
+        itr_e = [itr_eager(), itr_eager()][-1]
+    same.append(bits_equal())
+    itr_same.append(itr_e == [int(r["itr"]) for r in r_f.reports])
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() / 2**30
+    e_e, e_f, e_v = (float(m.kinetic_energy()) / vol for m in (m_e, m_f, m_v))
+    rel_v = _fields_rel([f() for f in m_f.state_fields()], [f() for f in m_v.state_fields()])
+    out = {"dt": dt, "warm": GRAPH_WARM, "steps": GRAPH_STEPS, "chunk": GRAPH_CHUNK,
+           "wall_s_per_step": walls,
+           "wall_s_per_step_median": {k: statistics.median(v) for k, v in walls.items()},
+           "same_bits_per_chunk": same, "same_itr_last_step": itr_same,
+           "itr_per_solve_last_step": itr_e, "captures": r_f.captures,
+           "bootstrap_s_fused_placed": boot_s, "capture_s": r_f.capture_s,
+           "host_syncs_per_step": syncs, "graph_launches_per_step": api["graph_launches"],
+           "cuda_api_calls_per_step": api["total"], "E_mean": {"eager_placed": e_e,
+           "fused_placed": e_f, "fused_view": e_v}, "max_rel_diff_vs_fused_view": rel_v,
+           "gathers_timed": timed["gathers"], "peak_gib_card0": peaks,
+           "reserved_gib_card0_three_models_two_graphs": reserved}
+    if not (all(same) and all(itr_same) and e_e == e_f and r_f.captures == 1 and syncs == 0
+            and api["graph_launches"] == 1 and rel_v <= PLACED_LES_AGREE
+            and abs(e_f - e_v) <= PLACED_E_TOL * e_v):
+        raise RuntimeError(f"chip_smoke: {label}: {json.dumps(out)}")
+    return out
+
+
+def placed_graphs(dev, launches: dict) -> dict:
+    """Phase 17 (n)-(p): placed ``sync: False`` solves and fused steps as CUDA
+    graphs whose loops the device ends. (n) on one card, ``("cuda:0",) *
+    8`` in ``N_DECOMP`` blocks, the Field, RHS and Γ on the blocks:
+    fastdiag 512^3, bench's MG-PCG 512^3 (bf16 V(2,2) FMG) and Darcy 256^3,
+    and (a)'s whole-Field MG-PCG 512^3 (the entry's scatter and the exit's
+    gather inside the graph), each ``graph_solve_case``; (o) the TGV-3D LES
+    257^3 (``graph_les_case``); (p) on ``GRAPH_CARDS`` cards
+    (``placed_graphs_across``). Every drive's kernels counted from 0 into
+    ``launches``. Returns the numbers, checked."""
+    import torch
+
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
+
+    dd = _one_card_dd()
+    card = _card_line()
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+    out = {}
+    cases = (("n_fastdiag", f"(n) fastdiag {N_MAIN}^3 f32, the Field on blocks", N_MAIN, False,
+              fd_cfg(dd)),
+             ("n_mgpcg", f"(n) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG, the Field on blocks",
+              N_MAIN, False, {**mg, "decomp": dd}),
+             ("n_darcy", f"(n) Darcy {N_DARCY}^3 f32, Γ and the Field on blocks", N_DARCY, True,
+              {**darcy_cfg(), "decomp": dd}),
+             ("n_mgpcg_whole", f"(n) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG, (a)'s whole Field",
+              N_MAIN, None, {**mg, "decomp": dd}))
+    for key, label, n, darcy, cfg in cases:
+        if darcy is None:
+            _, var, rhs = placed_problem(dev, (n,) * 3)
+            coeff = 1.0
+        else:
+            _, var, rhs, coeff = _block_problem(dev, dd, (n,) * 3, darcy=darcy)
+        out[key] = _counted_drive(launches, lambda: graph_solve_case(label, var, rhs, cfg,
+                                                                       coeff))
+        print(f"[17 placed] {label}, {N_DECOMP} on ('cuda:0',) * {prod(N_DECOMP)}, sync: False "
+              f"(one graph per solve) against sync: True; card {card}: {json.dumps(out[key])}",
+              flush=True)
+        del var, rhs, coeff
+        clear_cache()
+        torch.cuda.empty_cache()
+    label = f"(o) TGV-3D LES {TGV_RUNG}^3 f32 torus {N_DECOMP}, fused"
+    out["o_tgv_les"] = _counted_drive(launches, lambda: graph_les_case(dev, label, dd))
+    print(f"[17 placed] {label} on ('cuda:0',) * {prod(N_DECOMP)} against eager placed and "
+          f"fused view-based steps; card {card}: {json.dumps(out['o_tgv_les'])}", flush=True)
+    clear_cache()
+    torch.cuda.empty_cache()
+    out["p_across"] = placed_graphs_across(dev)
+    return out
+
+
+def placed_graphs_across(dev) -> dict:
+    """Phase 17 (p): the blocks round robin over ``GRAPH_CARDS`` cards. The
+    probe (``scripts/probe_loop_across_cards_torch.py``, a process of its
+    own) asks the runtime for a WHILE body that spans two cards; where it
+    refuses, (n)'s MG-PCG 512^3 at ``sync: False`` and (o)'s fused LES must
+    raise ``NotImplementedError`` naming "A11f (across cards)" (never a host
+    loop or eager steps). On fewer cards one line says it needs them."""
+    import os
+    import sys
+
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < GRAPH_CARDS:
+        print(f"[17 placed] (p) graphs across cards: needs {GRAPH_CARDS} cards; this machine "
+              f"shows {n_cards} (run it on a host with {GRAPH_CARDS})", flush=True)
+        return {"skipped": f"needs {GRAPH_CARDS} cards, has {n_cards}"}
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "probe_loop_across_cards_torch.py")
+    run = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=300)
+    probe = json.loads(run.stdout.strip().splitlines()[-1])
+    out = {"probe": probe, "cards": probe.get("cards")}
+    if probe["kernel_on_both_cards"].get("ok"):
+        raise RuntimeError("chip_smoke: (p) the runtime takes a WHILE body across cards now: "
+                           f"the A11f (across cards) raise is stale: {json.dumps(probe)}")
+    dd = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % GRAPH_CARDS}"
+                                                     for i in range(prod(N_DECOMP))))
+    raised = {}
+    _, var, rhs, _ = _block_problem(dev, dd, (N_MAIN,) * 3)
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+
+    def expect(key, fn):
+        try:
+            fn()
+        except NotImplementedError as e:
+            if "A11f (across cards)" not in str(e):
+                raise
+            raised[key] = str(e)
+            return
+        raise RuntimeError(f"chip_smoke: (p) {key} on {dd.devices} did not raise")
+
+    expect("mgpcg_sync_false", lambda: run_layout(var, rhs, {**mg, "decomp": dd,
+                                                               "sync": False}, 1, warm=False))
+    del var, rhs
+    model, dt = tgv_model(dev, TGV_RUNG, config={"decomp": dd})
+    expect("tgv_les_fused", lambda: model.run(dt, GRAPH_WARM, fused=True))
+    out["raised"] = raised
+    print(f"[17 placed] (p) {N_DECOMP} round robin over {GRAPH_CARDS} cards: the probe "
+          f"{json.dumps(probe)}; raised {json.dumps(raised)}", flush=True)
+    return out
+
+
 def phase_placed(dev) -> dict:
     """Phase 17: a placed ``DomainDecomposition`` (each block of every loop
     vector its own allocation on its card, round robin over the cards the
@@ -6124,6 +6447,7 @@ def phase_placed(dev) -> dict:
     out.update(placed_terms(dev, launches, refs))
     out.update(placed_fields(dev, launches, refs))
     out["m_large"] = placed_large(dev, launches)
+    out.update(placed_graphs(dev, launches))
     print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
           f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
           f"wall {time.perf_counter() - tic0:.1f} s", flush=True)

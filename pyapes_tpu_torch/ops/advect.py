@@ -52,7 +52,9 @@ run.
 
 Each wrapper launches a kernel for a CUDA tensor (or raises) and calls
 the plain version of ``ops.stencil`` for a CPU tensor, whatever ``march``
-and ``chunk`` say; ``<fn>.launches`` counts kernel launches.
+and ``chunk`` say; ``<fn>.launches`` counts kernel launches (a Python
+count: a launch captured into a CUDA graph counts at the warm-up and at
+the capture, not at a replay).
 """
 from __future__ import annotations
 

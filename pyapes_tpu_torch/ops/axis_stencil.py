@@ -86,7 +86,8 @@ output view a pair store can use (``uses_march_ext``).
 Each wrapper launches a kernel for a CUDA tensor (or raises) and calls
 the plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
 counts kernel launches (``axis_stencil.row_launches`` those of the row
-march among them). ``axis_stencil``, ``axis_stencil5`` and
+march among them; a Python count: a launch captured into a CUDA graph
+counts at the warm-up and at the capture, not at a replay). ``axis_stencil``, ``axis_stencil5`` and
 ``axis_stencil_dot`` launch through a launch plan (``_plan``, ``_Plan``):
 built and checked once per coefficient tuple (by identity, the tuple held
 by its plan), shape, dtype and device, kept in an LRU of ``_PLANS_MAX``,

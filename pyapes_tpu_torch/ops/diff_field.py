@@ -40,7 +40,9 @@ point is one expression with explicit fma, so chunk seams change no bits.
 
 Each wrapper launches a kernel for a CUDA tensor (or raises) and calls the
 plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
-counts kernel launches. ``march=True``/``False`` forces either kernel at
+counts kernel launches (a Python count: a launch captured into a CUDA
+graph counts at the warm-up and at the capture, not at a replay).
+``march=True``/``False`` forces either kernel at
 any shape and ``chunk=`` the march's planes per block (tests and
 ``chip_smoke.py`` pin both with them).
 """

@@ -72,7 +72,6 @@ class GraphLoopError(RuntimeError):
 _UNCAPTURABLE = re.compile(r"captur", re.IGNORECASE)
 
 _local = threading.local()
-_FAILED: list = []
 
 
 def _stack() -> list:
@@ -256,15 +255,17 @@ def _abandon(graph, pool, device) -> None:
     """Leave the allocator as it was before a capture that failed: the
     routing of allocations to the graph's pool ended (a failed
     ``capture_end`` may not have reached it, and a routing left behind
-    aborts the process at its next cache flush) and the pool's reference
-    released. The graph object is kept, not destroyed."""
+    aborts the process at its next cache flush). The graph object and its
+    pool are kept for the life of the process, never destroyed: whether its
+    destructor would release the pool depends on how far ``capture_end``
+    got (a capture ended but not instantiated releases it there; a second
+    release aborts the process at its exit)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     try:
         torch._C._cuda_endAllocateToPool(idx, pool)
     except RuntimeError:
         pass  # capture_end had ended it
-    torch._C._cuda_releasePool(idx, pool)
-    _FAILED.append(graph)
+    ctypes.pythonapi.Py_IncRef(ctypes.py_object(graph))  # not even at the interpreter's exit
 
 
 class GraphedCall:
@@ -337,7 +338,8 @@ class GraphedCall:
         except BaseException as e:
             self.static_inputs = None
             _abandon(g, pool, self.device)
-            if (not isinstance(e, RuntimeError) or isinstance(e, (CaptureError, GraphLoopError))
+            if (not isinstance(e, RuntimeError) or isinstance(
+                    e, (CaptureError, GraphLoopError, NotImplementedError))
                     or not _UNCAPTURABLE.search(str(e))):
                 raise
             where = traceback.extract_tb(e.__traceback__)[-1]

@@ -54,7 +54,8 @@ change from run to run.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and calls
 the plain version of ``ops.stencil`` for a CPU tensor; ``<fn>.launches``
-counts kernel launches.
+counts kernel launches (a Python count: a launch captured into a CUDA
+graph counts at the warm-up and at the capture, not at a replay).
 """
 from __future__ import annotations
 

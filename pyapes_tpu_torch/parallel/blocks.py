@@ -60,7 +60,9 @@ aten = torch.ops.aten
 gathers = 0
 """Block vectors gathered on the lead device by an operation that does not
 run block by block (a counter, like the kernels' ``launches``). The
-entry's scatter and the exit's gather of a solve do not count."""
+entry's scatter and the exit's gather of a solve do not count. Like every
+counter of this module it counts in Python: work captured into a CUDA
+graph counts at the warm-up and at the capture, not at a replay."""
 operand_scatters = 0
 """Whole operands of a placed solve scattered to its blocks
 (``scatter_operand``: Γ, an advector): once each per solve, at its entry

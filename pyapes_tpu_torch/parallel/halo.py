@@ -79,7 +79,9 @@ from pyapes_tpu_torch.utils.device_cache import block_coeffs, per_solve
 
 exchange_bytes = 0
 """Bytes of ghost faces copied from one block to another by the placed
-applies (a counter, like the kernels' ``launches``)."""
+applies (a counter, like the kernels' ``launches``; like every counter of
+this module, a copy captured into a CUDA graph counts at the warm-up and
+at the capture, not at a replay)."""
 exchange_bytes_across = 0
 """The part of ``exchange_bytes`` copied between blocks on two devices."""
 placed_applies = 0

@@ -31,7 +31,13 @@ whose value is on blocks is solved on them and keeps the solution there
 (the decomposition its own when the config names none; a block vector
 on another cut of the grid is moved with ``blocks.repartition``, as JAX
 re-shards a committed array), a block RHS, Γ or advector is taken as it
-is; every other option raises ``NotImplementedError`` naming its
+is. A placed ``sync: False`` solve on the card is one CUDA graph of the
+solve call (the entry's scatter and the exit's gather inside it), and a
+placed solve runs inside a capture or a fused whole step, all with every
+block on the lead card: blocks on another card raise, naming A11f (across
+cards: the runtime refuses a WHILE body that spans cards); blocks on the
+host run a ``sync: False`` solve as the host loop and raise in a graph.
+Every other option raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item (``_check_placed``; a block-valued Field on a
 periodic axis: A11i). Immersed obstacles (``ObstacleDirichlet``,
 static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
@@ -89,7 +95,9 @@ entry_scatters = 0
 entry (a counter; a block vector of the solve is taken as it is)."""
 exit_gathers = 0
 """Placed solutions gathered back on the lead device into a whole Field at
-a solve's exit (a counter; a Field on blocks keeps its solution there)."""
+a solve's exit (a counter; a Field on blocks keeps its solution there).
+Both count in Python: a graphed ``sync: False`` solve or a fused step counts
+at its warm-up and at its capture, not at a replay."""
 
 
 class ReportType(TypedDict):
@@ -270,18 +278,29 @@ def _check_decomp(decomp, x0) -> None:
             )
 
 
-def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
+# the CUDA runtime's answer to a device-ended loop whose body launches a
+# kernel on a second card: the graph's instantiation at the capture's end
+# fails (``scripts/probe_loop_across_cards_torch.py`` on four H100s, torch
+# 2.11 / CUDA 12.8; a body whose only work there is peer copies instantiates
+# and its replay fails with "CUDA error: unspecified launch failure")
+_ACROSS_CARDS = "CUDA error: invalid argument"
+
+
+def _check_placed(config, term_descs, bcs, x0, sync, debug, decomp) -> None:
     """Raise ``NotImplementedError`` for what a placed decomposition does not
     take yet, each naming its ``ROADMAP.md`` item (it takes fastdiag, CG
     and BiCGSTAB, plain or with ``precond`` "mg" or "fd", with axis,
-    variable-Γ, Div/Conv and ddt terms)."""
+    variable-Γ, Div/Conv and ddt terms, at ``sync: False``, under a capture
+    and in a fused whole step too). A graph on the card holds the solve's
+    loops as WHILE nodes of the lead card: every block on that card, none
+    on another card (the runtime refuses a loop body that spans cards) and,
+    under a capture or in a whole step, none on the host (a host block's
+    work cannot join a graph)."""
     def later(what, item):
         raise NotImplementedError(f"linalg: {what} on a placed decomposition (blocks on their "
                                   f"own devices) is ported in a later slice (ROADMAP.md {item})")
 
     kinds = {d[0] for d in term_descs}
-    if not sync or capturing(x0.device) or in_whole_step():
-        later("sync: False or a fused step", "A11f")
     if "custom" in kinds:
         later("an fdm.custom term", "A11h")
     if any(bc.bc_type in ("obstacle_dirichlet", "obstacle_neumann") for bc in bcs):
@@ -290,6 +309,23 @@ def _check_placed(config, term_descs, bcs, x0, sync, debug) -> None:
         later("donate", "A11h")
     if debug:
         later("debug 'nan'", "A11h")
+    graph = capturing(x0.device) or in_whole_step()
+    if sync and not graph:
+        return
+    cards = {d for d in (x0.device, *decomp.devices) if d.type == "cuda"}
+    if len(cards) > 1:
+        raise NotImplementedError(
+            "linalg: sync: False, a CUDA graph or a fused whole step on a placed decomposition "
+            f"whose blocks lie on more than one card ({sorted(map(str, cards))}) is not ported "
+            "(ROADMAP.md A11f (across cards)): the solve's loops end on the device as WHILE "
+            "nodes of one card, and the CUDA runtime refuses a WHILE body that launches work "
+            f"on another card ({_ACROSS_CARDS!r} at the graph's instantiation); place the "
+            "blocks on one card, or solve with sync: True")
+    if graph and x0.device.type == "cuda" and any(d.type != "cuda" for d in decomp.devices):
+        raise NotImplementedError(
+            "linalg: a CUDA graph or a fused whole step on a placed decomposition with blocks "
+            "on the host is not ported (ROADMAP.md A11f): a host block's work cannot join a "
+            "graph of the card; step eagerly (model.run(fused=False))")
 
 
 def _place_operands(tparams, lay) -> tuple:
@@ -409,7 +445,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     debug = config.get("debug") == "nan"
     placed = decomp is not None and decomp.placed
     if placed:
-        _check_placed(config, term_descs, bcs, x0, sync, debug)
+        _check_placed(config, term_descs, bcs, x0, sync, debug, decomp)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
@@ -426,8 +462,12 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             rhs = rhs * d
 
     bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
+    # a placement with blocks on the host runs its sync: False solve as the
+    # host loop (its host blocks' work cannot join a graph; each of their
+    # copies from the card waits for it all the same)
     graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
-               and not use_host_loops() and not debug)
+               and not use_host_loops() and not debug
+               and not (placed and any(d.type != "cuda" for d in decomp.devices)))
     # donate: the loop works in the initial guess's storage (an eager solve
     # of a contiguous x0; the torus reduction's x0 is a strided view whose
     # solution is re-assembled, and a graph works in its own buffers)
@@ -535,10 +575,15 @@ def _fill(tree, tensors):
 
 def _signature(tree, tensors, refs: list):
     """A hashable description of ``tree`` (from ``_split``): slots by shape
-    and dtype, constants and objects by identity (kept alive in ``refs``,
-    so no identity is reused while the key lives), arrays by content."""
+    and dtype (a block vector's also by its layout: one slot, which the
+    graph's static copy and its ``copy_`` take block by block), constants
+    and objects by identity (kept alive in ``refs``, so no identity is
+    reused while the key lives), arrays by content."""
     if isinstance(tree, _Slot):
         t = tensors[tree]
+        if isinstance(t, blocks.BlockTensor):
+            refs.append(t.placement)
+            return ("slot", tuple(t.shape), str(t.dtype), "blocks", id(t.placement))
         return ("slot", tuple(t.shape), str(t.dtype))
     if isinstance(tree, (tuple, list)):
         return tuple(_signature(v, tensors, refs) for v in tree)

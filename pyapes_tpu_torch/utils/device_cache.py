@@ -106,6 +106,7 @@ def block_coeffs(coeffs, layout) -> list:
         while len(_BLOCKS) > _BLOCKS_MAX:
             _BLOCKS.popitem(last=False)
     _BLOCKS.move_to_end(key)
+    keep_alive(hit)  # a graph that reads them outlives an eviction
     return hit[2]
 
 

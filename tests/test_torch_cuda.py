@@ -2175,3 +2175,176 @@ def test_cuda_placed_terms_across_two_cards(cuda, kind):
     assert itr == ref_itr
     for a, b in zip(out, ref):
         assert (a - b).abs().max().item() <= 1e-12 * b.abs().max().clamp_min(1e-30).item()
+
+
+# -- placed sync: False solves and fused steps: graphs on one card ---------
+
+
+def _placed_graph_problem(dev, kind, field, devices=("cuda:0",) * 8, nx=(32, 32, 64)):
+    """``_block_field_solve``'s problem on ``(4, 2, 1)`` blocks on
+    ``devices``: fastdiag, CG + MG, or Darcy (the variable-Γ Laplacian of Γ
+    = 1 + x, CG + the Γ-aware MG); ``field`` "blocks": the Field, the RHS
+    and Γ block vectors, "whole": tensors on ``dev``. Returns ``solve(sync)
+    -> (the solution's blocks, or the whole solution, cloned; the report)``,
+    each call from zeros through a new ``Solver``."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    dd = DomainDecomposition((4, 2, 1), devices=devices)
+
+    def put(t):
+        return blocks.put(t, dd) if field == "blocks" else t.to(dev)
+
+    mesh = Mesh(Box[(slice(0, 1),) * 3], None, list(nx), device=str(dev), dtype="double")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"),
+                               "obstacle": None}, init_val=0.0)
+    rhs = put(torch.from_numpy(np.random.default_rng(0).standard_normal((1, *nx))))
+    zeros = put(torch.zeros((1, *nx), dtype=torch.float64))
+    coeff = 1.0
+    if kind == "darcy":
+        g = torch.from_numpy(1.0 + np.linspace(0, 1, nx[0]).reshape(-1, 1, 1) + np.zeros(nx))
+        coeff = put(g[None]) if field == "blocks" else g.to(dev)
+    cfg = {**BLOCK_FIELD_CFGS[kind], "decomp": dd, "report": False}
+
+    def solve(sync):
+        var.VAR = zeros.clone()
+        s = Solver({"fdm": {**cfg, "sync": sync}})
+        s.set_eq(FDM().laplacian(coeff, var) == rhs)
+        rep = s.solve()
+        x = var()
+        return [p.clone() for p in x.parts] if isinstance(x, blocks.BlockTensor) else [
+            x.clone()], rep
+
+    return solve
+
+
+@pytest.mark.parametrize("field", ["blocks", "whole"])
+@pytest.mark.parametrize("kind", ["fastdiag", "mg", "darcy"])
+def test_cuda_placed_sync_false_replays_equal_eager(cuda, kind, field):
+    """A ``sync: False`` solve on eight blocks on cuda:0 (a Field on the
+    blocks, or a whole Field scattered and gathered inside the graph) is one
+    graph of the solve, captured at the first call: 20 replays in a row each
+    give the ``sync: True`` solve's bits and ``itr`` (a 0-d tensor), make no
+    host sync (``set_sync_debug_mode("error")``) and read no block vector on
+    the host."""
+    from pyapes_tpu_torch.ops import graph_loop
+    from pyapes_tpu_torch.parallel import blocks
+
+    solve = _placed_graph_problem(cuda, kind, field)
+    ref, rref = solve(True)
+    solve(False)  # the warm-up and the capture
+    nodes, h0 = graph_loop.nodes, blocks.host_gathers
+    for _ in range(20):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, rep = solve(False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert isinstance(rep["itr"], torch.Tensor) and rep["itr"].dim() == 0
+        assert int(rep["itr"]) == rref["itr"]
+        assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert graph_loop.nodes == nodes  # replays, not captures
+    assert blocks.host_gathers == h0
+
+
+def _fused_placed_models(dev, devices, n=33):
+    """Two Smagorinsky TGV-3D LES models (f64, ``n``^3 nodes, the torus
+    ``(n - 1)``^3) whose solves run on ``(4, 2, 1)`` blocks on ``devices``,
+    and ``dt``."""
+    from math import pi
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import PeriodicFlow
+    from pyapes_tpu_torch.models.navier_stokes import smagorinsky_viscosity
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    dd = DomainDecomposition((4, 2, 1), devices=devices)
+
+    def make():
+        mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [n] * 3, device=dev,
+                    dtype="double")
+        m = PeriodicFlow(mesh, nu=1 / 1600, config={"decomp": dd},
+                         mu_strain_fn=smagorinsky_viscosity(1 / 1600, mesh))
+        X, Y, Z = mesh.grid
+        m.set_velocity(torch.sin(X) * torch.cos(Y) * torch.cos(Z),
+                       -torch.cos(X) * torch.sin(Y) * torch.cos(Z), torch.zeros_like(X))
+        return m
+
+    return make(), make(), 0.2 * 2 * pi / (n - 1)
+
+
+def test_cuda_fused_placed_periodic_flow_equals_eager(cuda):
+    """The fused runner over a ``PeriodicFlow`` LES whose momentum and
+    pressure solves run on eight blocks on cuda:0: one capture, no fallback
+    (the warning is an error here), replays without a host sync, the eager
+    placed steps' ``itr`` solve by solve and their bits."""
+    import warnings
+
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    m1, m2, dt = _fused_placed_models(cuda, ("cuda:0",) * 8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        m1.run(dt, 2)
+        m2.run(dt, 2, fused=True)
+        runner = m2.fused_runner()
+        for _ in range(3):
+            with solve_log() as log:
+                m1.step(dt)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                runner.step(dt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert [int(r["itr"]) for r in runner.reports] == [int(r["itr"]) for r in log]
+    assert runner.captures == 1
+    for a, b in zip(m1.state_fields(), m2.state_fields()):
+        assert torch.equal(a(), b()), a.name
+
+
+def test_cuda_placed_graphs_on_card_and_cpu_blocks(cuda):
+    """Blocks alternating between cuda:0 and the CPU: a ``sync: False``
+    solve runs the host loop (a host block's work cannot join a graph) and
+    gives the ``sync: True`` bits and ``itr``; a fused step raises
+    ``NotImplementedError`` naming A11f, never a fallback to eager steps."""
+    from pyapes_tpu_torch.ops import graph_loop
+
+    devs = ("cuda:0", "cpu") * 4
+    solve = _placed_graph_problem(cuda, "mg", "whole", devs)
+    ref, rref = solve(True)
+    nodes = graph_loop.nodes
+    for _ in range(2):
+        out, rep = solve(False)
+        assert int(rep["itr"]) == rref["itr"] and torch.equal(out[0], ref[0])
+    assert graph_loop.nodes == nodes
+    _, m2, dt = _fused_placed_models(cuda, devs, n=17)
+    with pytest.raises(NotImplementedError, match="A11f"):
+        m2.run(dt, 2, fused=True)
+
+
+def test_cuda_placed_graphs_across_two_cards(cuda):
+    """Blocks round robin over cuda:0 and cuda:1 (skips on one card): the
+    runtime refuses a WHILE body that spans cards (the probe of
+    ``scripts/probe_loop_across_cards_torch.py``), so a ``sync: False``
+    solve and a fused step raise ``NotImplementedError`` naming "A11f
+    (across cards)" rather than run a host loop or eager steps; ``sync:
+    True`` solves there still run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards; this machine shows {n}")
+    devs = ("cuda:0", "cuda:1") * 4
+    solve = _placed_graph_problem(cuda, "mg", "blocks", devs)
+    _, rref = solve(True)
+    assert rref["converge"]
+    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
+        solve(False)
+    _, m2, dt = _fused_placed_models(cuda, devs, n=17)
+    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
+        m2.run(dt, 2, fused=True)

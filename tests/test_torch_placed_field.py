@@ -556,15 +556,14 @@ def test_block_field_on_a_view_based_decomposition_raises():
     assert blocks.gathers == g0
 
 
-@pytest.mark.parametrize("case", ["sync_false", "donate", "debug_nan"])
+@pytest.mark.parametrize("case", ["donate", "debug_nan"])
 def test_block_field_with_a_later_option_raises(case):
-    """A block Field with an A11f / A11h option raises, naming its item."""
+    """A block Field with an A11h option raises, naming its item."""
     _, var, rhs, _, dd = _block_problem((16, 8, 8), (2, 1, 1))
-    cfg = {**CG, "max_it": 5, **{"sync_false": {"sync": False}, "donate": {"donate": True},
-                                  "debug_nan": {"debug": "nan"}}[case]}
+    cfg = {**CG, "max_it": 5, **{"donate": {"donate": True}, "debug_nan": {"debug": "nan"}}[case]}
     s = Solver({"fdm": cfg})
     s.set_eq(FDM().laplacian(1.0, var) == rhs)
-    with pytest.raises(NotImplementedError, match=r"A11[fh]"):
+    with pytest.raises(NotImplementedError, match=r"A11h"):
         s.solve()
 
 
