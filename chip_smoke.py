@@ -310,7 +310,24 @@ Phases, report lines before the last:
    launch and no host sync; (p) on four cards the probe of a WHILE body
    across cards, and the ``NotImplementedError`` naming "A11f (across
    cards)" of (n)'s MG-PCG and (o)'s run there (on one card a line says it
-   needs four). Every row prints the cards' names and power limits.
+   needs four). (q) (``placed_options``): the last options on
+   ``("cuda:0",) * 8`` blocks, f32, each with the Field on blocks against
+   the same problem with the whole Field (the same ``itr``, ``OPT_AGREE``,
+   the gathers as designed, walls and peaks): obstacle solves (MG-PCG with
+   a static Dirichlet body at 256^3; MG-BiCGSTAB with it and a Neumann
+   body with nonzero flux at 128^3), an ``fdm.custom`` term with ``fd_hint`` and
+   ``precond: "fd"`` at 256^3 (one gather per custom apply), a
+   ``per_iteration`` BC at 128^3 (one gather per application), ``debug:
+   "nan"`` (the unchecked bits; a NaN in the last block raises naming the
+   whole Field's operation) and ``donate`` (each block's storage kept, the
+   peak no higher) on the 256^3 Poisson. (r) (``placed_torus``): the
+   TGV-3D LES 257^3 with its state on the blocks (``put_state``; the seam
+   planes in the last blocks), eager and fused, as many steps as (o): ⟨E⟩
+   within ``TORUS_E_TOL`` of (o)'s whole-state runs, no gather in a step,
+   one capture, the card's peak beside (o)'s. On four cards (p) also runs
+   (q) and (r)'s eager run with the blocks round robin over them
+   (``options_across``). Every row prints the cards' names and power
+   limits.
 
 Every kernel launch count is set to 0 just before each path (phases 4-7,
 9, 10, 11, 12, 13, 15 (a), 16, and each placed drive of 17) and read just after; a kernel of a path that launched no time there
@@ -3969,6 +3986,26 @@ def _api_calls(fn) -> dict:
             "memcpy": sum(v for k, v in calls.items() if "Memcpy" in k)}
 
 
+def _graph_replays(fn) -> int:
+    """The CUDA graph launches of ``fn()``: its calls of
+    ``torch.cuda.CUDAGraph.replay``, counted on the host (no profiler)."""
+    import torch
+
+    real = torch.cuda.CUDAGraph.replay
+    count = [0]
+
+    def counted(graph):
+        count[0] += 1
+        return real(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        fn()
+    finally:
+        torch.cuda.CUDAGraph.replay = real
+    return count[0]
+
+
 def _max_rel(ma, mb) -> float:
     worst = 0.0
     for a, b in zip(ma.state_fields(), mb.state_fields()):
@@ -6104,7 +6141,10 @@ def graph_les_case(dev, label, dd) -> dict:
     equals the eager one bit for bit after every chunk, with the same
     ``itr`` per solve of its last step and the same ⟨E⟩; its runner
     captured once, no fallback (the warning is an error here); one more
-    step each counted for host syncs (0) and API calls (1 graph launch).
+    step each counted for host syncs (0) and graph launches (1: the replays
+    of ``torch.cuda.CUDAGraph``, ``_graph_replays``; the profiler's CUPTI
+    tracing of this step's replay crashed the process in a whole-script
+    run, ``graph.replay`` under ``_api_calls``).
     Returns the numbers."""
     import warnings
 
@@ -6158,7 +6198,7 @@ def graph_les_case(dev, label, dd) -> dict:
             itr_same.append(itr_e == [int(r["itr"]) for r in r_f.reports])
         timed = _no_host_gathers(_delta(_placed_counters(), c0))
         syncs = _count_syncs(lambda: r_f.step(dt))
-        api = _api_calls(lambda: r_f.step(dt))
+        replays = _graph_replays(lambda: r_f.step(dt))
         r_v.step(dt)
         r_v.step(dt)
         itr_e = [itr_eager(), itr_eager()][-1]
@@ -6174,13 +6214,13 @@ def graph_les_case(dev, label, dd) -> dict:
            "same_bits_per_chunk": same, "same_itr_last_step": itr_same,
            "itr_per_solve_last_step": itr_e, "captures": r_f.captures,
            "bootstrap_s_fused_placed": boot_s, "capture_s": r_f.capture_s,
-           "host_syncs_per_step": syncs, "graph_launches_per_step": api["graph_launches"],
-           "cuda_api_calls_per_step": api["total"], "E_mean": {"eager_placed": e_e,
+           "host_syncs_per_step": syncs, "graph_launches_per_step": replays,
+           "E_mean": {"eager_placed": e_e,
            "fused_placed": e_f, "fused_view": e_v}, "max_rel_diff_vs_fused_view": rel_v,
            "gathers_timed": timed["gathers"], "peak_gib_card0": peaks,
            "reserved_gib_card0_three_models_two_graphs": reserved}
     if not (all(same) and all(itr_same) and e_e == e_f and r_f.captures == 1 and syncs == 0
-            and api["graph_launches"] == 1 and rel_v <= PLACED_LES_AGREE
+            and replays == 1 and rel_v <= PLACED_LES_AGREE
             and abs(e_f - e_v) <= PLACED_E_TOL * e_v):
         raise RuntimeError(f"chip_smoke: {label}: {json.dumps(out)}")
     return out
@@ -6290,6 +6330,380 @@ def placed_graphs_across(dev) -> dict:
     return out
 
 
+# (q)-(r): the last options on placed blocks, block Fields on periodic axes
+OPT_N, OPT_PI_N = 256, 128  # (q): the obstacle, custom, debug and donate grid; per_iteration
+OPT_NEUMANN_N = 128  # (q): the Neumann body's MG-BiCGSTAB (163 iterations at 256^3 f32, 36 s)
+OPT_MG = {"method": "cg", "tol": 1e-5, "max_it": 300, "criterion": "residual", "precond": "mg"}
+OPT_AGREE = 1e-5  # (q): the block Field's solution against the whole Field's, relative (f32)
+OPT_CUSTOM_W = 0.9  # (q): the custom operator's neighbour weight
+TORUS_STEPS = GRAPH_WARM + GRAPH_STEPS + 2  # (r): (o)'s steps, so <E> compares step for step
+TORUS_E_TOL = 1e-6  # (r): <E> against (o)'s whole-state run, relative
+
+
+def _opt_obstacle(dev, n, dd, on_blocks, neumann: bool):
+    """(q)'s obstacle problem: the unit cube at ``n``^3 f32, Dirichlet
+    walls, a Dirichlet body at 1 and (``neumann``) a Neumann body with flux 2
+    (its shells cut by block faces), a seeded RHS; the Field and RHS on
+    ``dd``'s blocks with ``on_blocks``. ``(var, lhs, rhs)``, ``lhs`` making the
+    equation's left-hand side."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    bodies = [Box[0.2:0.35, 0.3:0.6, 0.3:0.6], Box[0.6:0.8, 0.35:0.65, 0.4:0.7]]
+    kinds = [{"bc_type": "dirichlet", "bc_val": 1.0}, {"bc_type": "neumann", "bc_val": 2.0}]
+    k = 2 if neumann else 1
+    mesh = Mesh(Box[0:1, 0:1, 0:1], bodies[:k], [n] * 3, device=str(dev), dtype="single")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"),
+                               "obstacle": kinds[:k]}, init_val=0.0)
+    g = torch.Generator(device=mesh.device).manual_seed(0)
+    rhs = torch.randn((1, n, n, n), generator=g, device=mesh.device, dtype=mesh.dtype.float)
+    if on_blocks:
+        var.VAR = blocks.put(var(), dd)
+        rhs = blocks.put(rhs, dd)
+    return var, lambda: FDM().laplacian(1.0, var), rhs
+
+
+def _opt_custom(dev, n, dd, on_blocks, calls: list):
+    """(q)'s custom problem: ``fdm.custom`` of a weighted diagonal minus the
+    six neighbours (``OPT_CUSTOM_W``; an opaque torch function of the
+    whole tensor) with a separable ``fd_hint``, Dirichlet walls, a seeded
+    RHS; each apply appended to ``calls``."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
+    var = Field("u", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet")}, init_val=0.0)
+    g = torch.Generator(device=mesh.device).manual_seed(1)
+    w = 1.0 + 0.2 * torch.rand((n,) * 3, generator=g, device=mesh.device)
+    rhs = torch.randn((1, n, n, n), generator=g, device=mesh.device)
+
+    def op(x, c):
+        calls.append(1)
+        nb = sum(torch.roll(x, s, a) for a in (1, 2, 3) for s in (1, -1))
+        return 6.0 * c * x - OPT_CUSTOM_W * nb
+
+    hint = tuple(tuple([v] * n for v in (-OPT_CUSTOM_W, 6.0 * 1.1 / 3, -OPT_CUSTOM_W))
+                 for _ in range(3))
+    if on_blocks:
+        var.VAR = blocks.put(var(), dd)
+        rhs = blocks.put(rhs, dd)
+    return var, lambda: FDM().custom(op, var, params=(w,), fd_hint=hint), rhs
+
+
+def _opt_per_iteration(dev, n, dd, on_blocks):
+    """(q)'s per_iteration problem: the upper x face chases half the
+    iterate's mean, resolved at every application, the other faces 0, a
+    seeded RHS."""
+    import torch
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.variables import Field
+
+    def follower(grid, mask, var, opt):
+        return 0.5 * torch.mean(var)
+
+    faces = ("xl", "xu", "yl", "yu", "zl", "zu")
+    bcs = [{"bc_face": f, "bc_type": "dirichlet", "bc_val": follower if f == "xu" else 0.0,
+            "bc_val_opt": {"per_iteration": True} if f == "xu" else None} for f in faces]
+    mesh = Mesh(Box[0:1, 0:1, 0:1], None, [n] * 3, device=str(dev), dtype="single")
+    var = Field("u", 1, mesh, {"domain": bcs}, init_val=0.0)
+    g = torch.Generator(device=mesh.device).manual_seed(2)
+    rhs = torch.randn((1, n, n, n), generator=g, device=mesh.device)
+    if on_blocks:
+        var.VAR = blocks.put(var(), dd)
+        rhs = blocks.put(rhs, dd)
+    return var, lambda: FDM().laplacian(1.0, var), rhs
+
+
+def _opt_poisson(dev, n, dd, on_blocks, nan_at=None):
+    """(q)'s 256^3 Poisson (``placed_problem``'s), the Field and RHS on
+    ``dd``'s blocks with ``on_blocks``; ``nan_at``: a NaN planted in the
+    RHS at that node."""
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+
+    _, var, rhs = placed_problem(dev, (n,) * 3)
+    if nan_at is not None:
+        rhs[(0, *nan_at)] = float("nan")
+    if on_blocks:
+        var.VAR = blocks.put(var(), dd)
+        rhs = blocks.put(rhs, dd)
+    return var, lambda: FDM().laplacian(1.0, var), rhs
+
+
+def _opt_solve(var, lhs, rhs, cfg) -> dict:
+    """One solve through ``Solver.solve``: its report, wall, the counter
+    deltas, the first card's peak and the solution (on the host)."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    s = Solver({"fdm": {"report": False, **cfg}})
+    s.set_eq(lhs() == rhs)
+    _sync_all()
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    c0 = {**_placed_counters(), "per_iteration_gathers": blocks.per_iteration_gathers}
+    tic = time.perf_counter()
+    rep = s.solve()
+    _sync_all()
+    wall = time.perf_counter() - tic
+    c1 = {**_placed_counters(), "per_iteration_gathers": blocks.per_iteration_gathers}
+    peaks = [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards]
+    counts = {k: v for k, v in _delta(c1, c0).items() if v}
+    return {"itr": rep["itr"], "tol": rep["tol"], "converge": rep["converge"], "wall_s": wall,
+            "peak_gib_card0": peaks[0], "peak_gib_per_card": peaks, "counts": counts,
+            "x": var().cpu()}
+
+
+def _opt_pair(label, make, cfg, gathers_ok, launches, calls=None) -> dict:
+    """A (q) case: a warm-up solve of the whole Field (its hierarchy and
+    factors are the block Field's too), then the whole Field (placed, the
+    entry's scatter and the exit's gather) and the Field on blocks: the
+    same ``itr``, the solutions within ``OPT_AGREE``, ``gathers_ok(counts)``
+    on the block Field's counts (``calls``: the list a custom operator
+    appends to at each apply, counted as ``custom_applies``). Returns the
+    numbers."""
+    import torch
+
+    runs = {}
+    for kind in ("whole_field", "block_field"):
+        var, lhs, rhs = make(kind == "block_field")
+        if kind == "whole_field":
+            _counted_drive(launches, lambda: _opt_solve(var, lhs, rhs, cfg))  # warm
+            var.set_var_tensor(torch.zeros_like(var()))
+        n0 = len(calls) if calls is not None else 0
+        runs[kind] = _counted_drive(launches, lambda: _opt_solve(var, lhs, rhs, cfg))
+        if calls is not None:
+            runs[kind]["counts"]["custom_applies"] = len(calls) - n0
+        del var, rhs
+        torch.cuda.empty_cache()
+    w, b = runs["whole_field"], runs["block_field"]
+    agree = _rel(b.pop("x"), w.pop("x"))
+    out = {"itr": b["itr"], "whole_itr": w["itr"], "max_rel_diff_vs_whole": agree,
+           "wall_s": b["wall_s"], "whole_wall_s": w["wall_s"],
+           "peak_gib_per_card": b["peak_gib_per_card"],
+           "whole_peak_gib_per_card": w["peak_gib_per_card"],
+           "counts": b["counts"], "whole_counts": w["counts"]}
+    if not (b["converge"] and b["itr"] == w["itr"] and agree <= OPT_AGREE
+            and gathers_ok(b["counts"]) and not b["counts"].get("host_gathers")):
+        raise RuntimeError(f"chip_smoke: {label}: {json.dumps(out)}")
+    return out
+
+
+def _opt_debug_donate(dev, dd, launches) -> dict:
+    """(q)'s ``debug: "nan"`` and ``donate`` on the ``OPT_N``^3 Poisson, the
+    Field on blocks: the checked solve gives the unchecked one's ``itr``
+    and bits, a NaN planted in the last block (at ``OPT_PI_N``^3) raises
+    ``NaNError`` naming the whole Field's first operation, no gather; the donated solve gives
+    the undonated bits in the Field's own blocks (each ``data_ptr`` kept)
+    with a peak no higher than the undonated one's."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.utils.debug import NaNError
+
+    out = {}
+    cfg = {**OPT_MG, "decomp": dd}
+    runs = {}
+    for key, extra in (("plain", {}), ("debug_nan", {"debug": "nan"}),
+                       ("donate", {"donate": True})):
+        var, lhs, rhs = _opt_poisson(dev, OPT_N, dd, True)
+        ptrs = [p.data_ptr() for p in var().parts]
+        runs[key] = _counted_drive(launches, lambda: _opt_solve(var, lhs, rhs, {**cfg, **extra}))
+        runs[key]["same_storage"] = [p.data_ptr() for p in var().parts] == ptrs
+        del var, rhs
+        torch.cuda.empty_cache()
+    x0 = runs["plain"]["x"]
+    for key in ("debug_nan", "donate"):
+        r = runs[key]
+        out[key] = {"itr": r["itr"], "plain_itr": runs["plain"]["itr"],
+                    "same_bits": bool(torch.equal(r["x"], x0)), "wall_s": r["wall_s"],
+                    "plain_wall_s": runs["plain"]["wall_s"], "counts": r["counts"],
+                    "peak_gib_card0": r["peak_gib_card0"],
+                    "peak_gib_per_card": r["peak_gib_per_card"], "same_storage": r["same_storage"]}
+    out["donate"]["plain_peak_gib_card0"] = runs["plain"]["peak_gib_card0"]
+    # the NaN's detection at the per_iteration grid: no scale is at stake
+    names = {}
+    last = tuple(s.start + 3 for s in blocks.layout(dd, (OPT_PI_N,) * 3, dev).blocks[-1][1])
+    for kind in ("block_field", "whole_field"):
+        var, lhs, rhs = _opt_poisson(dev, OPT_PI_N, dd, kind == "block_field", nan_at=last)
+        c0 = _placed_counters()
+        try:
+            _counted_drive(launches, lambda: _opt_solve(var, lhs, rhs, {**cfg, "debug": "nan"}))
+        except NaNError as e:
+            names[kind] = e.op
+        else:
+            raise RuntimeError(f"chip_smoke: (q) debug 'nan' missed the NaN at {last} ({kind})")
+        c = _delta(_placed_counters(), c0)
+        if kind == "block_field" and c["gathers"] != c["cycle_gathers"]:
+            raise RuntimeError("chip_smoke: (q) the NaN check of a block Field gathered: "
+                               f"{json.dumps(c)}")
+        del var, rhs
+        torch.cuda.empty_cache()
+    out["debug_nan"].update({"nan_at": list(last), "nan_op": names})
+    d, n = out["donate"], out["debug_nan"]
+    if not (n["same_bits"] and n["itr"] == n["plain_itr"] and names["block_field"]
+            == names["whole_field"] and d["same_bits"] and d["same_storage"]
+            and d["itr"] == d["plain_itr"]
+            and d["peak_gib_card0"] <= d["plain_peak_gib_card0"] + 1e-3):
+        raise RuntimeError(f"chip_smoke: (q) debug / donate on blocks: {json.dumps(out)}")
+    return out
+
+
+def placed_options(dev, launches: dict, dd=None, prefix: str = "(q)") -> dict:
+    """Phase 17 (q): the last options on placed blocks (``("cuda:0",) * 8``
+    in ``N_DECOMP`` unless ``dd``), f32, each held to the same problem with
+    the whole Field (the same ``itr``, ``OPT_AGREE``, the gathers as
+    designed): obstacle solves, MG-PCG with a static Dirichlet body at
+    ``OPT_N``^3 and MG-BiCGSTAB with it and a Neumann body with nonzero
+    flux at ``OPT_NEUMANN_N``^3 (no gather but the V-cycle's hand-over), a
+    custom term with ``fd_hint`` and ``precond: "fd"`` at
+    ``OPT_N``^3 (one gather per custom apply), a ``per_iteration`` BC at
+    ``OPT_PI_N``^3 (one gather per application: two per CG solve), and
+    ``debug: "nan"`` and ``donate`` on the ``OPT_N``^3 Poisson. Returns the
+    numbers, checked."""
+    dd = dd or _one_card_dd()
+    card = _card_line()
+    tic = time.perf_counter()
+    out = {}
+    hand = lambda c: c.get("gathers", 0) == c.get("cycle_gathers", 0)  # noqa: E731
+    out["obstacle_mgpcg"] = _opt_pair(
+        f"{prefix} Dirichlet body, MG-PCG {OPT_N}^3",
+        lambda b: _opt_obstacle(dev, OPT_N, dd, b, False), {**OPT_MG, "decomp": dd}, hand,
+        launches)
+    # a Neumann body makes the system nonsymmetric: MG-BiCGSTAB, as the JAX
+    # package's test_mg_bicgstab_obstacle_poisson and the models choose (CG
+    # + MG stalls near the tolerance from 128^3 on)
+    out["obstacle_mgbicgstab"] = _opt_pair(
+        f"{prefix} Dirichlet and Neumann bodies, MG-BiCGSTAB {OPT_NEUMANN_N}^3",
+        lambda b: _opt_obstacle(dev, OPT_NEUMANN_N, dd, b, True),
+        {**OPT_MG, "method": "bicgstab", "decomp": dd}, hand, launches)
+    calls: list = []
+    out["custom_fd"] = _opt_pair(
+        f"{prefix} custom + fd_hint {OPT_N}^3", lambda b: _opt_custom(dev, OPT_N, dd, b, calls),
+        {"method": "bicgstab", "tol": 1e-5, "max_it": 200, "criterion": "residual",
+         "precond": "fd", "decomp": dd},
+        lambda c: c["custom_applies"] > 0 and c.get("gathers", 0) == c["custom_applies"],
+        launches, calls)
+    out["per_iteration"] = _opt_pair(
+        f"{prefix} per_iteration {OPT_PI_N}^3",
+        lambda b: _opt_per_iteration(dev, OPT_PI_N, dd, b), {**OPT_MG, "decomp": dd},
+        lambda c: c.get("per_iteration_gathers") == 2
+        and c.get("gathers", 0) == 2 + c.get("cycle_gathers", 0), launches)
+    out.update(_opt_debug_donate(dev, dd, launches))
+    out["phase_s"] = time.perf_counter() - tic
+    print(f"[17 placed] {prefix} the last options on {N_DECOMP} blocks on {dd.devices[:2]}..., "
+          f"f32, the Field on blocks against the whole Field; card {card}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def _torus_run(dev, dd, fused: bool, steps: int) -> dict:
+    """The TGV-3D LES at ``TGV_RUNG``^3 f32 with its solves on ``dd`` and its
+    state on the blocks (``put_state``), ``steps`` steps eager or fused
+    (the first ``GRAPH_WARM`` through ``run``): wall per step, counter
+    deltas, the cards' peaks, <E>, the captures."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+
+    model, dt = tgv_model(dev, TGV_RUNG, config={"decomp": dd})
+    model.put_state(dd)
+    torch.cuda.empty_cache()
+    _sync_all()
+    cards = range(torch.cuda.device_count())
+    for i in cards:
+        torch.cuda.reset_peak_memory_stats(i)
+    model.run(dt, GRAPH_WARM, fused=fused)
+    _sync_all()
+    c0 = _placed_counters()
+    tic = time.perf_counter()
+    if fused:
+        model.fused_runner().run(dt, steps - GRAPH_WARM)
+    else:
+        for _ in range(steps - GRAPH_WARM):
+            model.step(dt)
+    _sync_all()
+    wall = (time.perf_counter() - tic) / (steps - GRAPH_WARM)
+    counts = _no_host_gathers(_delta(_placed_counters(), c0))
+    on_blocks = all(isinstance(f(), blocks.BlockTensor) for f in model.state_fields())
+    out = {"wall_s_per_step": wall, "gathers": counts["gathers"],
+           "state_on_blocks": on_blocks,
+           "E_mean": float(model.kinetic_energy()) / (2 * pi) ** 3,
+           "peak_gib_per_card": [torch.cuda.max_memory_allocated(i) / 2**30 for i in cards],
+           "captures": model.fused_runner().captures if fused else None}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def placed_torus(dev, launches: dict, o_ref: dict, dd=None, prefix: str = "(r)",
+                 kinds=("eager", "fused")) -> dict:
+    """Phase 17 (r): the TGV-3D LES at ``TGV_RUNG``^3 f32 with its state on
+    the blocks (``("cuda:0",) * 8`` unless ``dd``), eager and fused,
+    ``TORUS_STEPS`` steps (as many as (o)'s), against (o)'s runs with the
+    whole state: <E> within ``TORUS_E_TOL`` relative, no gather in a step,
+    the state still on the blocks, one capture; the lead card's peak beside
+    (o)'s. Returns the numbers, checked."""
+    dd = dd or _one_card_dd()
+    tic = time.perf_counter()
+    out = {}
+    for kind in kinds:
+        r = _counted_drive(launches, lambda: _torus_run(dev, dd, kind == "fused", TORUS_STEPS))
+        ref = o_ref["E_mean"][f"{kind}_placed"]
+        r.update({"o_E_mean": ref, "E_rel_diff": abs(r["E_mean"] - ref) / ref,
+                  "o_peak_gib_card0": o_ref["peak_gib_card0"][f"{kind}_placed"],
+                  "o_wall_s_per_step_median":
+                  o_ref["wall_s_per_step_median"][f"{kind}_placed"]})
+        if not (r["E_rel_diff"] <= TORUS_E_TOL and r["gathers"] == 0 and r["state_on_blocks"]
+                and r["captures"] in (None, 1)):
+            raise RuntimeError(f"chip_smoke: {prefix} {kind}: {json.dumps(r)}")
+        out[kind] = r
+    out["phase_s"] = time.perf_counter() - tic
+    print(f"[17 placed] {prefix} TGV-3D LES {TGV_RUNG}^3 f32, the state on {N_DECOMP} blocks "
+          f"on {dd.devices[:2]}..., {TORUS_STEPS} steps, against (o)'s whole state; card "
+          f"{_card_line()}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def options_across(dev, launches: dict, o_ref: dict) -> dict:
+    """Phase 17 (p), continued: (q)'s cases and (r)'s eager LES with the
+    blocks round robin over ``GRAPH_CARDS`` cards (``sync: True``: graphs
+    across cards stay refused); on fewer cards one line says it needs
+    them."""
+    import torch
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < GRAPH_CARDS:
+        print(f"[17 placed] (p) (q) and (r) across cards: needs {GRAPH_CARDS} cards; this "
+              f"machine shows {n_cards}", flush=True)
+        return {"skipped": f"needs {GRAPH_CARDS} cards, has {n_cards}"}
+    dd = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % GRAPH_CARDS}"
+                                                     for i in range(prod(N_DECOMP))))
+    return {"q": placed_options(dev, launches, dd, "(p) (q) across cards"),
+            "r": placed_torus(dev, launches, o_ref, dd, "(p) (r) across cards", ("eager",))}
+
+
 def phase_placed(dev) -> dict:
     """Phase 17: a placed ``DomainDecomposition`` (each block of every loop
     vector its own allocation on its card, round robin over the cards the
@@ -6318,6 +6732,7 @@ def phase_placed(dev) -> dict:
     import torch
 
     from pyapes_tpu_torch.parallel import DomainDecomposition, blocks, halo
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
 
     tic0 = time.perf_counter()
     launches = {name: 0 for name in _counts()}
@@ -6448,6 +6863,11 @@ def phase_placed(dev) -> dict:
     out.update(placed_fields(dev, launches, refs))
     out["m_large"] = placed_large(dev, launches)
     out.update(placed_graphs(dev, launches))
+    out["q_options"] = placed_options(dev, launches)
+    clear_cache()
+    torch.cuda.empty_cache()
+    out["r_torus"] = placed_torus(dev, launches, out["o_tgv_les"])
+    out["p_options_across"] = options_across(dev, launches, out["o_tgv_les"])
     print(f"[17 placed] launches of the placed drives {json.dumps(launches)}; peer copies "
           f"between two cards {'ran' if n_cards > 1 else 'not exercised (one card)'}; phase "
           f"wall {time.perf_counter() - tic0:.1f} s", flush=True)
@@ -6455,8 +6875,11 @@ def phase_placed(dev) -> dict:
 
 
 def main() -> None:
+    import faulthandler
+
     import torch
 
+    faulthandler.enable()  # a fatal signal prints the Python stack of every thread
     dev, _ = phase_device()
     phase_build()
     worst1, timing1 = phase_kernel(dev)

@@ -50,6 +50,7 @@ import torch
 from pyapes_tpu_torch.geometry.basis import DIR_TO_NUM, FDIR
 from pyapes_tpu_torch.geometry.mask import MaskObstacle
 from pyapes_tpu_torch.mesh import Mesh
+from pyapes_tpu_torch.parallel import blocks
 from pyapes_tpu_torch.solver.fdc import FDC
 from pyapes_tpu_torch.solver.fdm import FDM
 from pyapes_tpu_torch.solver.ops import Solver
@@ -69,7 +70,7 @@ def _ddx(f: torch.Tensor, dx: float, axis: int, periodic: bool = False) -> torch
     if periodic:
         fr = f[row(slice(None, -1))]
         d = (torch.roll(fr, -1, axis) - torch.roll(fr, 1, axis)) / (2 * dx)
-        return torch.cat([d, d[row(slice(0, 1))]], dim=axis)
+        return blocks.append_seam(d, axis)
     d = (torch.roll(f, -1, axis) - torch.roll(f, 1, axis)) / (2 * dx)
     d[row(0)] = (-1.5 * f[row(0)] + 2 * f[row(1)] - 0.5 * f[row(2)]) / dx
     d[row(-1)] = (1.5 * f[row(-1)] - 2 * f[row(-2)] + 0.5 * f[row(-3)]) / dx
@@ -533,8 +534,10 @@ class LidDrivenCavity:
             d = float(self.mesh.dx_np[j])
             g = (torch.roll(arr, -1, j) - torch.roll(arr, 1, j)) / (2 * d)
             row = lambda i: (slice(None),) * j + (i,)  # noqa: E731
-            g[row(0)] = (arr[row(1)] - arr[row(0)]) / d
-            g[row(-1)] = (arr[row(-1)] - arr[row(-2)]) / d
+            # the end rows (of a block vector: in the blocks that hold them)
+            take = lambda i: blocks.take(arr, row(i))  # noqa: E731
+            blocks.set_at(g, row(0), (take(1) - take(0)) / d)
+            blocks.set_at(g, row(-1), (take(-1) - take(-2)) / d)
             out.append(g)
         return out
 
@@ -1009,7 +1012,7 @@ class PeriodicFlow(LidDrivenCavity):
         wrap row restored."""
         r = a.narrow(j, 0, a.shape[j] - 1)
         d = (torch.roll(r, -1, j) - torch.roll(r, 1, j)) / (2.0 * float(self.mesh.dx_np[j]))
-        return torch.cat([d, d.narrow(j, 0, 1)], dim=j)
+        return blocks.append_seam(d, j)
 
     def _advect(self, field: Field) -> torch.Tensor:
         """Explicit advection; the skew form averages the advective and the
@@ -1031,6 +1034,27 @@ class PeriodicFlow(LidDrivenCavity):
         for var, arr in zip(self.vel, components):
             var.set_var_tensor(self._as_field(arr)[None])
             var.apply_bcs()
+
+    def put_state(self, decomp) -> None:
+        """Put the model's state on the blocks of the placed ``decomp`` (the
+        counterpart of the JAX package's fields once GSPMD has sharded
+        them): each state Field's value and history (``blocks.put``: an
+        axis of ``2^k + 1`` nodes cut as its torus, the seam plane in the
+        last block), the viscosity field and the Rhie-Chow mask. The steps
+        then run block by block (the strain rate, the viscosity law, the
+        skew split, the projection), and the solves take the Fields'
+        blocks and keep their solutions there."""
+        for f in self.state_fields():
+            put = {}
+            for level in ("_VAR", "_VARo", "_VARoo"):
+                v = getattr(f, level, None)
+                if isinstance(v, torch.Tensor) and not isinstance(v, blocks.BlockTensor):
+                    if id(v) not in put:  # the levels that share a tensor keep sharing it
+                        put[id(v)] = blocks.put(v, decomp)
+                    setattr(f, level, put[id(v)])
+        if self._nu_field is not None:
+            self._nu_field = blocks.put(self._nu_field[None], decomp)[0]
+        self._rc_mask = blocks.put(self._rc_mask[None], decomp)[0]
 
     def kinetic_energy(self) -> torch.Tensor:
         """Volume-integrated kinetic energy as a device scalar (the wrap row

@@ -15,13 +15,20 @@ block's device. Its ``__torch_dispatch__`` runs
   the block where a dimension has the grid's length and broadcast where it
   has length 1, and copied to the block's device once per use (a 0-d
   operand on the lead device among them);
-* sums and the max over every grid axis as per-block partials, moved to
-  the lead device and combined there in block order (a fixed order: the
-  same bits on every run);
-* the views that keep every grid axis whole (an alias, a full slice, a
-  select or slice of the leading component axis, a leading ``unsqueeze``)
-  block by block: each block of the result is that view of the block, so
-  writes through it reach the blocks (``x[0] = v``, ``x[0:1]``);
+* sums, the mean and the max over every grid axis as per-block partials,
+  moved to the lead device and combined there in block order (a fixed
+  order: the same bits on every run);
+* the views that keep every cut grid axis whole (an alias, a full slice,
+  a slice of a grid axis every block holds whole, a select or slice of the
+  leading component axis, a leading ``unsqueeze``) and the torus reduction
+  of a seam layout (below) block by block: each block of the result is
+  that view of the block, so writes through it reach the blocks (``x[0] =
+  v``, ``x[0:1]``);
+* ``torch.roll`` along a grid axis: each block's rows are its own and
+  those of its ring neighbours the shift brings in (copied from their
+  devices: ``|shift|`` rows per block face of a cut axis), and
+  ``torch.stack`` / ``torch.cat`` of block vectors of one layout along a
+  leading axis, block by block;
 * a copy to another device (``.to``) and ``.cpu()`` / ``.numpy()`` /
   ``np.asarray`` / ``.item()`` assembled there from per-block copies
   (``host_gathers`` counts those that land on the host);
@@ -29,11 +36,21 @@ block's device. Its ``__torch_dispatch__`` runs
   gathered on the lead device (``gathers`` counts each such gather), the
   operation run there, and a result of the grid's shape scattered back.
   Any other view of a block vector (a row of a grid axis) raises: writes
-  through it would be lost; ``add_at`` writes such rows block by block.
+  through it would be lost; ``add_at`` / ``set_at`` write such rows block
+  by block.
 
 A block vector may have length 1 along grid axes (a broadcast operand such
 as a per-axis row scale); its blocks then repeat along the cut ones, and
 reductions and gathers read each value once.
+
+A periodic axis of ``2^k + 1`` nodes (the duplicate seam node stored at
+both ends) does not divide into its blocks, but its torus of ``2^k`` does:
+the layout of such a grid is the torus' with the seam plane held by the
+last block along that axis (``Layout.seam``). The torus reduction
+``x[..., :-1, ...]`` of such a block vector is a view, block by block (the
+last blocks' seam planes left out), on the torus' layout, and
+``append_seam`` puts the seam back (one face copied from the first block to
+the last along the axis).
 
 ``repartition`` moves a block vector to another cut of the same grid on
 the same devices (a pencil layout, ``Layout.pencils``): each destination
@@ -84,15 +101,25 @@ class Layout:
     """The blocks of a placed decomposition on one grid: ``blocks`` lists
     ``(coord, slices, device)`` per block, ``lead`` is the solve's
     device, ``ms`` the blocks per grid axis and ``cut`` the axes with more
-    than one block. Made once per decomposition, grid and lead device
-    (``layout``), so identity compares two."""
+    than one block. ``seam``: the cut axes whose ``n`` nodes do not divide
+    into their blocks but whose torus of ``n - 1`` does; there the blocks
+    are the torus', the last one along the axis one row longer (it holds
+    the seam plane). Made once per decomposition, grid and lead device
+    (``layout``), so identity compares two. Raises ``ValueError`` where an
+    axis divides neither way."""
 
     def __init__(self, decomp, grid, lead):
         self.decomp = decomp
         self.grid = tuple(int(n) for n in grid)
         self.lead = torch.device(lead)
-        self.blocks = tuple(decomp.placement(self.grid))
         self.ms = decomp.mesh_shape + (1,) * (len(self.grid) - len(decomp.mesh_shape))
+        self.seam = tuple(j for j, (n, m) in enumerate(zip(self.grid, self.ms))
+                          if m > 1 and n % m and (n - 1) % m == 0)
+        torus = tuple(n - (j in self.seam) for j, n in enumerate(self.grid))
+        self.blocks = tuple(
+            (c, tuple(slice(s.start, s.stop + 1) if j in self.seam and c[j] == self.ms[j] - 1
+                      else s for j, s in enumerate(sl)), d)
+            for c, sl, d in decomp.placement(torus))
         self.cut = tuple(m > 1 for m in self.ms)
         self.devices = tuple(d for _, _, d in self.blocks)
         self._index = {c: i for i, (c, _, _) in enumerate(self.blocks)}
@@ -113,6 +140,13 @@ class Layout:
         (the ring wraps)."""
         c = list(self.blocks[b][0])
         c[j] = (c[j] + step) % self.ms[j]
+        return self._index[tuple(c)]
+
+    def along(self, b: int, j: int, k: int) -> int:
+        """The block at coordinate ``k`` along grid axis ``j`` in block
+        ``b``'s row of blocks."""
+        c = list(self.blocks[b][0])
+        c[j] = k
         return self._index[tuple(c)]
 
     def fits(self, shape) -> bool:
@@ -209,6 +243,10 @@ class BlockTensor(torch.Tensor):
             out = _view(func, args, kwargs, lay)
             if out is not NotImplemented:
                 return out
+        if func in _LAYOUT_OPS:
+            out = _LAYOUT_OPS[func](args, kwargs, lay)
+            if out is not NotImplemented:
+                return out
         if func is aten._to_copy.default and kwargs.get("device") is not None \
                 and _resolve(kwargs["device"]) != lay.lead:
             return _assemble(args[0], _resolve(kwargs["device"]),
@@ -256,12 +294,146 @@ def _view(func, args, kwargs, lay: Layout):
                            shape[:dim] + shape[dim + 1:])
     # aten.slice.Tensor(x, dim, start, end, step)
     start, end, step = (rest[1:] + [None, None, 1][len(rest) - 1:])[:3]
-    if dim >= lead:  # a grid axis: only its whole range
-        if (start or 0) == 0 and (end is None or end >= shape[dim]) and step == 1:
+    if dim >= lead:  # a grid axis: its whole range, or its torus (the seam left out)
+        n = shape[dim]
+        end = n if end is None else (end + n if end < 0 else min(end, n))
+        start = start or 0
+        start = start + n if start < 0 else start
+        j = dim - lead
+        if step != 1:
+            return NotImplemented
+        if start == 0 and end == n:
             return BlockTensor([aten.alias.default(p) for p in x.parts], lay, shape)
+        if not lay.cut[j] and n == lay.grid[j]:  # an axis every block holds whole
+            grid = lay.grid[:j] + (end - start,) + lay.grid[j + 1:]
+            return BlockTensor([func(p, dim, start, end) for p in x.parts],
+                               layout(lay.decomp, grid, lay.lead),
+                               shape[:dim] + (end - start,) + shape[dim + 1:])
+        if start == 0 and end == n - 1 and j in lay.seam:
+            grid = lay.grid[:j] + (n - 1,) + lay.grid[j + 1:]
+            parts = [p.narrow(dim, 0, p.shape[dim] - 1) if c[j] == lay.ms[j] - 1
+                     else aten.alias.default(p) for p, (c, _, _) in zip(x.parts, lay.blocks)]
+            return BlockTensor(parts, layout(lay.decomp, grid, lay.lead),
+                               shape[:dim] + (n - 1,) + shape[dim + 1:])
         return NotImplemented
     parts = [func(p, dim, start, end, step) for p in x.parts]
     return BlockTensor(parts, lay, shape[:dim] + (parts[0].shape[dim],) + shape[dim + 1:])
+
+
+def _same_layout(ts, lay: Layout) -> bool:
+    return all(isinstance(t, BlockTensor) and t.placement is lay for t in ts)
+
+
+def _stack(args, kwargs, lay: Layout):
+    """``torch.stack`` of block vectors of one layout and shape along a
+    leading axis, block by block."""
+    ts = list(args[0])
+    dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+    if not _same_layout(ts, lay) or any(t.shape != ts[0].shape for t in ts):
+        return NotImplemented
+    nd = ts[0].dim()
+    dim %= nd + 1
+    if dim > nd - len(lay.grid):
+        return NotImplemented
+    parts = [torch.stack([t.parts[b] for t in ts], dim) for b in range(len(lay.blocks))]
+    shape = tuple(ts[0].shape)
+    return BlockTensor(parts, lay, shape[:dim] + (len(ts),) + shape[dim:])
+
+
+def _cat(args, kwargs, lay: Layout):
+    """``torch.cat`` of block vectors of one layout along a leading axis,
+    block by block."""
+    ts = list(args[0])
+    dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+    if not _same_layout(ts, lay):
+        return NotImplemented
+    nd = ts[0].dim()
+    dim %= nd
+    if dim >= nd - len(lay.grid):
+        return NotImplemented
+    parts = [torch.cat([t.parts[b] for t in ts], dim) for b in range(len(lay.blocks))]
+    shape = tuple(ts[0].shape)
+    return BlockTensor(parts, lay, shape[:dim] + (sum(t.shape[dim] for t in ts),)
+                       + shape[dim + 1:])
+
+
+def _mean(args, kwargs, lay: Layout):
+    """The mean over every value: the sum of per-block partials (in block
+    order) over the count."""
+    x = args[0]
+    if len(args) > 1 or set(kwargs) - {"dtype"}:
+        return NotImplemented
+    total = _reduce(aten.sum.default, (x,), kwargs, lay)
+    if total is NotImplemented:
+        return total
+    return total / x.numel()
+
+
+def _roll(args, kwargs, lay: Layout):
+    """``torch.roll`` along grid or leading axes: along a cut grid axis each
+    block is assembled from the rows of the blocks the shift brings in (its
+    own and its ring neighbours', copied from their devices), along
+    another axis each block is rolled as it is."""
+    x = args[0]
+    shifts = args[1] if len(args) > 1 else kwargs["shifts"]
+    dims = args[2] if len(args) > 2 else kwargs.get("dims", ())
+    shifts = [shifts] if isinstance(shifts, int) else list(shifts)
+    dims = [dims] if isinstance(dims, int) else list(dims)
+    if not isinstance(x, BlockTensor) or not dims or len(dims) != len(shifts):
+        return NotImplemented
+    lead = x.dim() - len(lay.grid)
+    for s, dim in zip(shifts, dims):
+        dim %= x.dim()
+        j = dim - lead
+        if j < 0 or not lay.cut[j] or x.shape[dim] == 1:
+            x = BlockTensor([torch.roll(p, s, dim) for p in x.parts], lay, x.shape)
+            continue
+        n = x.shape[dim]
+        parts = []
+        for b, (_, sl, dev) in enumerate(lay.blocks):
+            pieces, i = [], sl[j].start
+            while i < sl[j].stop:
+                src = (i - s) % n
+                k = next(k for k in range(lay.ms[j])
+                         if lay.blocks[lay.along(b, j, k)][1][j].stop > src)
+                o = lay.along(b, j, k)
+                o_sl = lay.blocks[o][1][j]
+                m = min(sl[j].stop - i, o_sl.stop - src)
+                pieces.append(x.parts[o].narrow(dim, src - o_sl.start, m).to(dev))
+                i += m
+            parts.append(torch.cat(pieces, dim))
+        x = BlockTensor(parts, lay, x.shape)
+    return x
+
+
+_LAYOUT_OPS = {aten.stack.default: _stack, aten.cat.default: _cat, aten.mean.default: _mean,
+               aten.roll.default: _roll}
+
+
+def append_seam(x, axis: int):
+    """``torch.cat([x, x.narrow(axis, 0, 1)], dim=axis)``: a torus-reduced
+    vector with its duplicate seam plane put back at the end of ``axis``.
+    Of a block vector, block by block onto the layout of the grid one node
+    longer (``Layout.seam``): the last block along the axis takes the first
+    block's first plane (one face copied from its device), the others are
+    copied as they are."""
+    if not isinstance(x, BlockTensor):
+        return torch.cat([x, x.narrow(axis, 0, 1)], dim=axis)
+    lay = x.placement
+    j = axis % x.dim() - (x.dim() - len(lay.grid))
+    grid = lay.grid[:j] + (lay.grid[j] + 1,) + lay.grid[j + 1:]
+    to = layout(lay.decomp, grid, lay.lead)
+    parts = []
+    for b, (c, _, dev) in enumerate(lay.blocks):
+        p = x.parts[b]
+        if c[j] == lay.ms[j] - 1:
+            first = x.parts[lay.along(b, j, 0)].narrow(axis, 0, 1).to(dev)
+            parts.append(torch.cat([p, first], dim=axis))
+        else:
+            parts.append(p.clone())
+    shape = list(x.shape)
+    shape[axis] += 1
+    return BlockTensor(parts, to, tuple(shape))
 
 
 def _assemble(x, device: torch.device, dtype) -> torch.Tensor:
@@ -475,23 +647,50 @@ def _local(lay: Layout, shape, idx, b: int):
     return tuple(loc), tuple(val)
 
 
+def _selection(shape, idx) -> tuple:
+    """The shape of ``x[idx]`` for a tensor of ``shape`` and a basic index
+    (ints and slices), computed without a tensor."""
+    out = []
+    idx = tuple(idx) + (slice(None),) * (len(shape) - len(idx))
+    for i, n in zip(idx, shape):
+        if isinstance(i, slice):
+            out.append(len(range(*i.indices(n))))
+    return tuple(out)
+
+
 def add_at(x, idx, value) -> None:
     """``x[idx] += value`` in place: on a block vector block by block, each
     block adding its part of ``value`` (broadcast to the selection, e.g. a
     number, a 0-d tensor or a face; moved to the block's device) at its
     rows of the basic index ``idx`` (ints and slices of step 1); on a plain
     tensor as written."""
+    _write_at(x, idx, value, add=True)
+
+
+def set_at(x, idx, value) -> None:
+    """``x[idx] = value`` in place, as ``add_at`` writes."""
+    _write_at(x, idx, value, add=False)
+
+
+def _write_at(x, idx, value, add: bool) -> None:
     if not isinstance(x, BlockTensor):
-        x[idx] += value
+        if add:
+            x[idx] += value
+        else:
+            x[idx] = value
         return
     lay = x.placement
-    sel = torch.empty(x.shape, device="meta")[idx].shape
+    sel = _selection(x.shape, idx)
     v = torch.as_tensor(value, dtype=x.dtype)
     v = v.expand(sel) if v.dim() else v
     for b, (_, _, dev) in enumerate(lay.blocks):
         loc = _local(lay, x.shape, idx, b)
         if loc is not None:
-            x.parts[b][loc[0]] += (v[loc[1]] if v.dim() else v).to(dev)
+            part = (v[loc[1]] if v.dim() else v).to(dev)
+            if add:
+                x.parts[b][loc[0]] += part
+            else:
+                x.parts[b][loc[0]] = part
 
 
 def take(x, idx) -> torch.Tensor:
@@ -502,8 +701,7 @@ def take(x, idx) -> torch.Tensor:
     if not isinstance(x, BlockTensor):
         return x[idx]
     lay = x.placement
-    out = torch.empty(torch.empty(x.shape, device="meta")[idx].shape, dtype=x.dtype,
-                      device=lay.lead)
+    out = torch.empty(_selection(x.shape, idx), dtype=x.dtype, device=lay.lead)
     for b in lay.owners(x.shape):
         loc = _local(lay, x.shape, idx, b)
         if loc is not None:
@@ -592,17 +790,19 @@ def repartition(x: BlockTensor, to: Layout) -> BlockTensor:
     return BlockTensor(move_parts(list(x.parts), x.placement, to, x.shape), to, x.shape)
 
 
-def gather(x, count: bool = True) -> torch.Tensor:
+def gather(x, count: bool = True, out=None) -> torch.Tensor:
     """A block vector as one tensor on its lead device (anything else comes
     back as it is); ``count``: add one to ``gathers`` (a solve's exit
-    gather does not count)."""
+    gather does not count); ``out``: a tensor of ``x``'s shape on the lead
+    device to write into (a donated initial guess's storage)."""
     global gathers
     if not isinstance(x, BlockTensor):
         return x
     if count:
         gathers += 1
     lay = x.placement
-    out = torch.empty(x.shape, dtype=x.dtype, device=lay.lead)
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=lay.lead)
     for b in lay.owners(x.shape):
         out[lay.index(x.shape, b)].copy_(x.parts[b])
     return out
@@ -663,37 +863,63 @@ def _face_part(v, sl, a: int, dev, lay: Layout):
     return v[idx].to(dev)
 
 
+_OBSTACLES = ("obstacle_dirichlet", "obstacle_neumann")
+
+per_iteration_gathers = 0
+"""Block vectors gathered on the lead device for a BC whose value is
+resolved per application (``per_iteration``; also counted in
+``gathers``)."""
+
+
 def apply_bcs_fn(bcs, grid, lay: Layout, plain):
     """``plain`` (``variables.bcs.apply_bcs_fn(bcs, grid)``) on a plain
     tensor; on a block vector of ``lay``, each BC writes the face rows of
     the blocks on its face, with its streamed values cut to the block and
     moved to its device (one clone of the vector per call, none with
-    ``inplace``). Raises ``NotImplementedError`` for a BC whose value is
-    resolved per application (``per_iteration``) or a periodic face left
-    on a grid (the torus reduction takes periodic axes away), and
-    ``ValueError`` where a face's blocks are thinner than the rows its BC
-    reads and writes (Neumann 3, Symmetry 2, Dirichlet 1)."""
+    ``inplace``); an immersed obstacle applies block by block (its own
+    ``apply_``). A BC whose value is resolved per application
+    (``per_iteration``: a callable that reads the iterate) gets the
+    iterate through one counted gather on the lead device per application
+    (``per_iteration_gathers``, ``gathers``): the callable may read any of
+    it, so nothing less is enough; only the face rows its value yields
+    are then cut to the blocks. Raises ``ValueError`` where a face's blocks are thinner than the
+    rows its BC reads and writes (Neumann 3, Symmetry 2, Dirichlet 1). A
+    periodic upper face copies the first block's first plane along its
+    axis onto the last block's last plane (the seam), the lower face is a
+    no-op, as ``variables.bcs.Periodic``."""
     for bc in bcs:
         a = bc.bc_face_dim
-        if bc.bc_type == "periodic":
-            raise NotImplementedError("blocks: a periodic face left on a placed grid (the "
-                                      "torus reduction takes periodic axes away)")
-        if not bc.streamable and bc.bc_type != "symmetry":
-            raise NotImplementedError("blocks: a BC value resolved per application "
-                                      "(per_iteration) on a placed decomposition is ported "
-                                      "in a later slice (ROADMAP.md A11h)")
+        if bc.bc_type in _OBSTACLES:
+            continue
         rows = {"neumann": 3, "symmetry": 2}.get(bc.bc_type, 1)  # the rows a BC reads/writes
         if lay.cut[a] and lay.grid[a] // lay.ms[a] < rows:
             raise ValueError(f"blocks: the blocks along axis {a} are too thin for its "
                              f"{bc.bc_type} rows")
 
     def apply_all(x, bc_vals=None, inplace: bool = False):
+        global per_iteration_gathers
         if not isinstance(x, BlockTensor):
             return plain(x, bc_vals, inplace)
         if not inplace:
             x = x.clone()
         for i, bc in enumerate(bcs):
             vals = None if bc_vals is None else bc_vals[i]
+            if bc.bc_type in _OBSTACLES:
+                bc.apply_(x, grid, vals=vals)
+                continue
+            if bc.bc_type == "periodic":
+                a = bc.bc_face_dim
+                for b, (coord, _, dev) in enumerate(lay.blocks):
+                    if bc.bc_n_dir > 0 and coord[a] == lay.ms[a] - 1:
+                        src = x.parts[lay.along(b, a, 0)].select(1 + a, 0)
+                        x.parts[b].select(1 + a, -1).copy_(src.to(dev))
+                continue
+            if vals is None and not bc.streamable and bc.bc_type != "symmetry":
+                # per_iteration: the value of the iterate as it is now
+                full = gather(x)
+                per_iteration_gathers += 1
+                i0 = 0 if bc.bc_n_dir < 0 else -1
+                vals = tuple(bc._value_row(full, grid, d, i0) for d in range(x.shape[0]))
             a = bc.bc_face_dim
             edge = 0 if bc.bc_n_dir < 0 else lay.ms[a] - 1
             for b, (coord, sl, dev) in enumerate(lay.blocks):

@@ -235,7 +235,7 @@ def _A_coeff_var_sum(A_coeffs, v: torch.Tensor, idx: int, dim: int, vdim: int,
     periodic = dim in paxes
     red = _row_sel(dim, slice(None, -1))
     if periodic:
-        vv = vv[red]
+        vv = vv[red]  # of a block vector: a view on the torus' blocks
     summed = torch.zeros_like(vv)
     if isinstance(A_coeffs, AxisCoeffs):
         cs = A_coeffs.vecs[dim]
@@ -255,8 +255,8 @@ def _A_coeff_var_sum(A_coeffs, v: torch.Tensor, idx: int, dim: int, vdim: int,
             if periodic:
                 coeff = coeff[red]
             summed = summed + coeff * torch.roll(vv, -2 + i, dim)
-    if periodic:
-        summed = torch.cat([summed, summed[_row_sel(dim, slice(0, 1))]], dim=dim)
+    if periodic:  # the duplicate row restored (of a block vector: block by block)
+        summed = blocks.append_seam(summed, dim)
     return summed
 
 

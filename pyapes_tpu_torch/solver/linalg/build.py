@@ -23,13 +23,16 @@ central/upwind Div and Conv where ``sharded_advect_supported`` holds, the
 variable-Γ term where ``placed_field_supported`` holds (Γ and the
 advector arrive scattered to the blocks, ``dispatch._place_operands``),
 each through one counted gather on the lead device elsewhere (QUICK, 5-point
-axes); the Γ-aware V-cycle samples Γ down block by block; the active-set
-mask is built block by block, the BCs write the face rows of the blocks on
-their faces, and the symmetrizing row scale and the null vector of a
-singular system are block vectors too; the fastdiag solve and the FD
-preconditioner transform the block vectors in pencil layouts
-(``FastDiag.solve_blocks``). ``dispatch.py`` raises for the options
-outside this path."""
+axes, an ``fdm.custom`` term); the Γ-aware V-cycle samples Γ down block by
+block; the active-set mask is built block by block (an obstacle's cells
+cut from its mask per block), the BCs write the face rows of the blocks on
+their faces (an obstacle its cells, a Neumann body's shells from sources
+the neighbouring blocks send), and the symmetrizing row scale, the null
+vector of a singular system and a Neumann body's affine shift are block
+vectors too; the fastdiag solve and the FD preconditioner transform the
+block vectors in pencil layouts (``FastDiag.solve_blocks``). An obstacle
+system's V-cycle is the plain domain's, placed or not: the Krylov loop
+masks its output."""
 from __future__ import annotations
 
 from collections import OrderedDict
@@ -83,8 +86,9 @@ class _MaskSpec:
     obstacle BCs ``static`` (each keeps its mask on the device) and
     without the cells of the dynamic obstacles at ``dyn_idxs``, whose
     masks arrive per call in ``bc_vals`` (JAX ``linalg.py:39-63``). With
-    ``layout`` (a placed decomposition, no obstacles): a block vector
-    ``(1, *nx)`` built block by block."""
+    ``layout`` (a placed decomposition): a block vector ``(1, *nx)`` built
+    block by block, each static body's cut kept on its block's device, a
+    dynamic body's mask a block vector of the call (``dispatch``)."""
 
     def __init__(self, nx, slicer, dtype, device, static=(), dyn_idxs=(), layout=None):
         self.nx, self.slicer, self.dtype, self.device = nx, slicer, dtype, device
@@ -94,24 +98,33 @@ class _MaskSpec:
 
     def build(self, bc_vals=()) -> torch.Tensor:
         if self.layout is not None:
-            return blocks.interior_mask(self.layout, self.slicer, self.dtype)
-        m = interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
-        for bc in self.static:
-            m = m.masked_fill(bc.mask_on(self.device), 0.0)
+            m = blocks.interior_mask(self.layout, self.slicer, self.dtype)
+            for bc in self.static:
+                for p, bm in zip(m.parts, bc.block_mask(self.layout).parts):
+                    p.masked_fill_(bm, 0.0)
+        else:
+            m = interior_mask_device(self.nx, self.slicer, self.dtype, self.device)
+            for bc in self.static:
+                m = m.masked_fill(bc.mask_on(self.device), 0.0)
         for i in self.dyn_idxs:
             if bc_vals and bc_vals[i] is not None:
                 m = m * (1.0 - bc_vals[i][0].to(m.dtype))
         return m
 
 
+def _custom(fn, x, params):
+    return fn(x, *params)
+
+
 def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None,
-              field_fn=diff_field) -> Callable:
+              field_fn=diff_field, custom_fn=_custom) -> Callable:
     """``Aop(x, tparams) = sum_terms sign * term(x)``: an axis term is
     ``param * stencil_fn(x)`` (a 5-point axis goes to the 5-point kernel),
     a variable-Γ term ``field_fn`` (``diff_field``), a per-point advection
     term ``advect_pair`` (Div) or ``conv_component`` (Conv) — or
     ``advect_fns[i]`` for term ``i`` where given (the block-wise apply) —
-    a custom term ``fn(x, *params)`` and a ddt term ``x * inv_dt``: the
+    a custom term ``custom_fn(fn, x, params)`` (``fn(x, *params)``) and a
+    ddt term ``x * inv_dt``: the
     Hopper kernels on a CUDA tensor, for every grid shape (the JAX
     package's "auto" gate used its kernels only for TPU-aligned shapes). A Div's ``(1, *nx)`` contribution broadcasts
     over the components, as in the JAX package."""
@@ -125,7 +138,7 @@ def _make_Aop(term_descs, stencil_fn=axis_stencil, advect_fns=None,
             if kind == "ddt":
                 r, scale = x, sign * tp["inv_dt"]
             elif kind == "custom":
-                r = tp["fn"](x, *tp["cparams"])
+                r = custom_fn(tp["fn"], x, tp["cparams"])
             elif kind == "diff_field":
                 r = field_fn(x, tp["gamma"], form[0], surgery, form[1])
             elif i in advect_fns:
@@ -156,8 +169,9 @@ def _placed_fns(decomp, x0, term_descs, paxes) -> dict:
     holds (and the axes are 3-point), the central/upwind Div and Conv
     where ``sharded_advect_supported`` holds, the variable-Γ apply where
     ``placed_field_supported`` holds (``paxes``: the torus' periodic
-    axes); each of the others through one counted gather on the lead
-    device, the operands' lead copies beside it (``blocks.lead_copy``)."""
+    axes); each of the others, and an ``fdm.custom`` term (an opaque
+    function), through one counted gather on the lead device, the
+    operands' lead copies beside it (``blocks.lead_copy``)."""
     shape = tuple(x0.shape[1:])
     blockwise = (make_sharded_apply(decomp, len(shape))
                  if placed_supported(decomp, shape) else None)
@@ -191,7 +205,12 @@ def _placed_fns(decomp, x0, term_descs, paxes) -> dict:
         return blocks.via_lead(
             lambda v: diff_field(v, blocks.lead_copy(g), inv_dx2, surgery, avg), x)
 
-    return {"stencil_fn": stencil_fn, "advect_fns": advect_fns, "field_fn": field_fn}
+    def custom_fn(fn, x, params):
+        # an opaque operator: one counted gather on the lead device per apply
+        return blocks.via_lead(lambda v: fn(v, *params), x)
+
+    return {"stencil_fn": stencil_fn, "advect_fns": advect_fns, "field_fn": field_fn,
+            "custom_fn": custom_fn}
 
 
 def _decomp_fns(decomp, x0, term_descs, paxes=()) -> dict:
@@ -494,8 +513,8 @@ def build_solver(config, mesh, x0, grid, term_descs, tparams, bcs, method, crite
     if affine:
         def rhs_shift(tp):
             e = None
-            for bc in affine:
-                f = bc.affine_field(x0.shape, x0.dtype, x0.device)
+            for bc in affine:  # placed: made block by block
+                f = bc.affine_field(x0.shape, x0.dtype, x0.device if lay is None else lay)
                 e = f if e is None else e + f
             return raw_Aop(e, tp)
     project_mean = config.get("nullspace") == "mean"

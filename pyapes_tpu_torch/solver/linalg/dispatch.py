@@ -21,29 +21,39 @@ decomposition (``devices`` given: each block on its own device) runs
 ``"fastdiag"``, and CG and BiCGSTAB unpreconditioned or with ``precond``
 ``"mg"`` (Γ-aware for a variable-Γ term) or ``"fd"``, on block vectors
 (``parallel/blocks.py``; the eigen-transforms in pencil layouts, the
-blocks moved between them by an all-to-all of peer copies), with axis,
-variable-Γ, Div/Conv and ddt terms: ``x0``, the RHS, Γ and the advector
-are scattered to the blocks at entry (the JAX package's
+blocks moved between them by an all-to-all of peer copies), with every
+term kind and option of the whole-tensor path: ``x0``, the RHS, Γ and the
+advector are scattered to the blocks at entry (the JAX package's
 ``_commit_to_decomp``) and the solution is gathered back into the Field
 at exit — unless they are block vectors already (``blocks.BlockTensor``,
 the counterpart of an array committed to a ``NamedSharding``): a Field
 whose value is on blocks is solved on them and keeps the solution there
 (the decomposition its own when the config names none; a block vector
 on another cut of the grid is moved with ``blocks.repartition``, as JAX
-re-shards a committed array), a block RHS, Γ or advector is taken as it
-is. A placed ``sync: False`` solve on the card is one CUDA graph of the
-solve call (the entry's scatter and the exit's gather inside it), and a
-placed solve runs inside a capture or a fused whole step, all with every
-block on the lead card: blocks on another card raise, naming A11f (across
-cards: the runtime refuses a WHILE body that spans cards); blocks on the
-host run a ``sync: False`` solve as the host loop and raise in a graph.
-Every other option raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (``_check_placed``; a block-valued Field on a
-periodic axis: A11i). Immersed obstacles (``ObstacleDirichlet``,
-static or dynamic, and ``ObstacleNeumann``) leave the active set; under a
-torus reduction their masks are reduced too, every call, and a body on
-the duplicate seam plane raises. The multigrid hierarchy of a periodic
-axis lives on the reduced torus too (``MGSpec(paxes=...)``).
+re-shards a committed array; on a periodic axis of ``2^k + 1`` nodes the
+Field's blocks are the torus' with the seam plane in the last one, so
+the torus reduction is a per-block view and the seam's re-append one
+face copy), a block RHS, Γ or advector is taken as it is. An
+``fdm.custom`` term (an opaque function) applies through one counted
+gather on the lead device per apply; an immersed obstacle's mask is cut
+per block (a dynamic body's mask of the call scattered once, counted
+with the operands) and a Neumann body's shells read their sources from
+the neighbouring blocks that hold them; a BC value resolved per
+application (``per_iteration``) reads the iterate through one counted
+gather per application; ``debug: "nan"`` checks each block on its own
+device; ``donate`` works in the blocks it is given (a block Field's own),
+or gathers a whole Field's solution into its ``x0``. A placed ``sync:
+False`` solve on the card is one CUDA graph of the solve call (the
+entry's scatter and the exit's gather inside it), and a placed solve runs
+inside a capture or a fused whole step, all with every block on the lead
+card: blocks on another card raise, naming A11f (across cards: the
+runtime refuses a WHILE body that spans cards); blocks on the host run a
+``sync: False`` solve as the host loop and raise in a graph
+(``_check_placed``). Immersed obstacles (``ObstacleDirichlet``, static or
+dynamic, and ``ObstacleNeumann``) leave the active set; under a torus
+reduction their masks are reduced too, every call, and a body on the
+duplicate seam plane raises. The multigrid hierarchy of a periodic axis
+lives on the reduced torus too (``MGSpec(paxes=...)``).
 
 The options: ``fd_opts`` (``precision`` "highest" / "default", the
 latter TF32 transforms on the card; the factors' ``dtype``), ``kernel``
@@ -52,9 +62,9 @@ plain tier on the card), ``debug: "nan"`` (the loop on the host under
 ``utils.debug``'s NaN check, ``NaNError`` naming the first operation or
 hand kernel whose output holds a NaN; a ValueError inside a fused whole
 step, as the JAX package) and ``donate`` (the solution in the initial
-guess's storage, an eager solve off the torus). An option a placed
-decomposition does not take raises ``NotImplementedError`` — never a
-silent detour to another path.
+guess's storage, an eager solve off the torus). What a placed
+decomposition does not take (a graph across cards or with host blocks)
+raises ``NotImplementedError`` — never a silent detour to another path.
 """
 from __future__ import annotations
 
@@ -286,29 +296,15 @@ def _check_decomp(decomp, x0) -> None:
 _ACROSS_CARDS = "CUDA error: invalid argument"
 
 
-def _check_placed(config, term_descs, bcs, x0, sync, debug, decomp) -> None:
-    """Raise ``NotImplementedError`` for what a placed decomposition does not
-    take yet, each naming its ``ROADMAP.md`` item (it takes fastdiag, CG
-    and BiCGSTAB, plain or with ``precond`` "mg" or "fd", with axis,
-    variable-Γ, Div/Conv and ddt terms, at ``sync: False``, under a capture
-    and in a fused whole step too). A graph on the card holds the solve's
-    loops as WHILE nodes of the lead card: every block on that card, none
-    on another card (the runtime refuses a loop body that spans cards) and,
-    under a capture or in a whole step, none on the host (a host block's
-    work cannot join a graph)."""
-    def later(what, item):
-        raise NotImplementedError(f"linalg: {what} on a placed decomposition (blocks on their "
-                                  f"own devices) is ported in a later slice (ROADMAP.md {item})")
-
-    kinds = {d[0] for d in term_descs}
-    if "custom" in kinds:
-        later("an fdm.custom term", "A11h")
-    if any(bc.bc_type in ("obstacle_dirichlet", "obstacle_neumann") for bc in bcs):
-        later("an immersed obstacle", "A11h")
-    if config.get("donate"):
-        later("donate", "A11h")
-    if debug:
-        later("debug 'nan'", "A11h")
+def _check_placed(x0, sync, decomp) -> None:
+    """Raise ``NotImplementedError`` for the graphs a placed decomposition
+    does not take, naming ``ROADMAP.md`` A11f: every method, term and option
+    runs eagerly (``sync: True``), and a graph on the card (``sync: False``,
+    a capture, a fused whole step) holds the solve's loops as WHILE nodes of
+    the lead card: every block on that card, none on another card (the
+    runtime refuses a loop body that spans cards) and, under a capture or in
+    a whole step, none on the host (a host block's work cannot join a
+    graph)."""
     graph = capturing(x0.device) or in_whole_step()
     if sync and not graph:
         return
@@ -400,11 +396,6 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     # a Field on blocks is solved on them and keeps the solution there
     on_blocks = isinstance(x0_full, blocks.BlockTensor)
     if on_blocks:
-        if paxes:
-            raise NotImplementedError(
-                "linalg: a Field whose value is on blocks, on a periodic axis, is ported in a "
-                "later slice (ROADMAP.md A11i): the torus reduction drops the seam node, so the "
-                "blocks of the Field's grid and of the torus differ")
         if config.get("decomp") is None:
             config = {**config, "decomp": x0_full.placement.decomp}
         elif not config["decomp"].placed:
@@ -445,7 +436,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     debug = config.get("debug") == "nan"
     placed = decomp is not None and decomp.placed
     if placed:
-        _check_placed(config, term_descs, bcs, x0, sync, debug, decomp)
+        _check_placed(x0, sync, decomp)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
@@ -461,7 +452,15 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         for d in sym_vecs:
             rhs = rhs * d
 
-    bc_vals = tuple(bc.stream_values(x0, grid, t=var.t) for bc in bcs)
+    lay = blocks.layout(decomp, x0.shape[1:], x0.device) if placed else None
+    # placed: a dynamic obstacle's mask of this call goes to the blocks by
+    # content, no whole mask on the lead device (counted with the operands)
+    bc_vals = tuple(bc.stream_blocks(x0, grid, lay)
+                    if placed and bc.bc_type == "obstacle_dirichlet"
+                    else bc.stream_values(x0, grid, t=var.t) for bc in bcs)
+    if placed:
+        blocks.operand_scatters += sum(v is not None and bc.bc_type == "obstacle_dirichlet"
+                                       for bc, v in zip(bcs, bc_vals))
     # a placement with blocks on the host runs its sync: False solve as the
     # host loop (its host blocks' work cannot join a graph; each of their
     # copies from the card waits for it all the same)
@@ -481,16 +480,19 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             # the solution gathered back on the lead device unless the
             # Field's value is on blocks (neither counts among blocks.gathers)
             global entry_scatters, exit_gathers
-            lay = blocks.layout(decomp, x0.shape[1:], x0.device)
             entry_scatters += sum(not isinstance(t, blocks.BlockTensor) for t in (x0, rhs))
             exit_gathers += not on_blocks
+            # donate: the loop works in the blocks it is given (a block
+            # Field's own parts), and a whole Field's exit gather writes
+            # into x0's storage
             xb, itr, tol_dev, hist = fn(blocks.scatter(x0, lay), blocks.scatter(rhs, lay),
-                                        _place_operands(tparams, lay), bc_vals)
-            x = xb if on_blocks else blocks.gather(xb, count=False)
+                                        _place_operands(tparams, lay), bc_vals, donate=donate)
+            x = xb if on_blocks else blocks.gather(xb, count=False,
+                                                   out=x0 if donate else None)
         else:
             x, itr, tol_dev, hist = fn(x0, rhs, tparams, bc_vals, donate=donate)
-        for j in paxes:  # re-append the duplicate seam node
-            x = torch.cat([x, x.narrow(1 + j, 0, 1)], dim=1 + j)
+        for j in paxes:  # re-append the duplicate seam node (a face copy on blocks)
+            x = blocks.append_seam(x, 1 + j)
         return x, itr, tol_dev, hist
 
     if debug:

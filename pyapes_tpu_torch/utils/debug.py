@@ -21,9 +21,12 @@ Two sources of operations are checked:
 
 The check stays on the device: per checked output, one ``isnan``/``any``
 pair writes a flag into a device buffer; the flags are read once, when the
-checked region ends. A checked run therefore computes the same bits as an
-unchecked one; it costs one extra read of every checked output and the
-launches of those reductions. A checked region cannot run inside a CUDA
+checked region ends. A block vector of a placed decomposition
+(``parallel.blocks.BlockTensor``) is checked block by block, each block's
+flag on its own device (nothing is gathered); the block-level operators are
+what gets named, as the whole tensor's would be. A checked run therefore
+computes the same bits as an unchecked one; it costs one extra read of
+every checked output and the launches of those reductions. A checked region cannot run inside a CUDA
 graph capture (its end reads the flags back).
 """
 from __future__ import annotations
@@ -91,12 +94,14 @@ class _NaNCheck(TorchDispatchMode):
         for t in outs:
             if not (isinstance(t, torch.Tensor) and t.is_floating_point()):
                 continue
-            bufs, index = self.flags.setdefault(t.device, ([], []))
-            pos = len(index)
-            if pos % _CHUNK == 0:
-                bufs.append(torch.zeros(_CHUNK, dtype=torch.bool, device=t.device))
-            torch.any(torch.isnan(t), out=bufs[-1][pos % _CHUNK])
-            index.append(op)
+            # a block vector: one flag per block, on the block's device
+            for p in getattr(t, "parts", (t,)):
+                bufs, index = self.flags.setdefault(p.device, ([], []))
+                pos = len(index)
+                if pos % _CHUNK == 0:
+                    bufs.append(torch.zeros(_CHUNK, dtype=torch.bool, device=p.device))
+                torch.any(torch.isnan(p), out=bufs[-1][pos % _CHUNK])
+                index.append(op)
 
     def first(self):
         """``(name, index)`` of the first operation that generated a NaN, or

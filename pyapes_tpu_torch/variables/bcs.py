@@ -6,7 +6,11 @@ Supported: Dirichlet / Neumann / Symmetry / Periodic on the domain faces
 with scalar, per-component list or callable values; and on immersed
 obstacles (``ObstacleDirichlet``, static or dynamic, and
 ``ObstacleNeumann``, zero or nonzero flux), applied through masks that
-are uploaded to the field's device once per BC.
+are uploaded to the field's device once per BC. On a block vector of a
+placed decomposition (``parallel.blocks.BlockTensor``) an obstacle applies
+block by block: each block's cut of a static mask is kept on its device,
+and a Neumann shell reads the sources it lacks from the neighbouring blocks
+that hold them (``ObstacleNeumann._block_plans``: only those cells move).
 
 ``apply`` is pure, as in the JAX package: it returns a new tensor and
 leaves its argument untouched. ``apply_`` is the in-place form; the
@@ -227,6 +231,30 @@ def _row(var: torch.Tensor, d: int, axis: int, i: int) -> torch.Tensor:
     return var[(d,) + _face_index(axis, i, 0)]
 
 
+def _blocks_mod():
+    from pyapes_tpu_torch.parallel import blocks  # parallel.blocks imports nothing of variables
+
+    return blocks
+
+
+def _block_mask(mask, lay, cache: dict | None):
+    """The bool mask ``mask`` (host, the grid's shape) as a block vector
+    ``(1, *grid)`` of ``lay``: each block's cut uploaded to its device, kept
+    in ``cache`` per layout (a static body) or looked up by content in the
+    device cache (``cache`` None: a dynamic body's mask of this call; no
+    whole mask lands on a card)."""
+    blocks = _blocks_mod()
+    key = ("blocks", id(lay))
+    if cache is not None and key in cache:
+        return cache[key][1]
+    parts = [device_array(np.ascontiguousarray(mask[sl])[None], device=dev)
+             for _, sl, dev in lay.blocks]
+    out = blocks.BlockTensor(parts, lay, (1, *lay.grid))
+    if cache is not None:
+        cache[key] = (lay, out)
+    return out
+
+
 class Dirichlet(BC):
     """Dirichlet BC (reference ``bcs.py:197-213``)."""
 
@@ -403,6 +431,20 @@ class ObstacleDirichlet:
             self._dev[key] = torch.as_tensor(self._bc_mask, device=device)
         return self._dev[key]
 
+    def block_mask(self, lay):
+        """The mask as a block vector ``(1, *grid)`` of ``lay`` (each block's
+        cut on its device; kept per layout for a static body, looked up by
+        content for a dynamic one, whose mask changes between calls)."""
+        return _block_mask(self._bc_mask, lay, None if self.dynamic else self._dev)
+
+    def stream_blocks(self, var, grid, lay):
+        """``stream_values`` for a solve on the blocks of ``lay``: the
+        dynamic body's mask of this call as a block vector (``block_mask``)
+        and its value; ``None`` for a static one."""
+        if not self.dynamic:
+            return None
+        return self.block_mask(lay), self._resolved_val(var, grid)
+
     @property
     def type(self) -> str:
         return self.bc_type
@@ -432,11 +474,27 @@ class ObstacleDirichlet:
         return self.apply_(var.clone(), grid, var_dim, vals)
 
     def apply_(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
-        """Pin the masked cells of ``var`` to the value, in place."""
+        """Pin the masked cells of ``var`` to the value, in place (a block
+        vector block by block, the mask a block vector too)."""
+        blocks = _blocks_mod()
+        if isinstance(var, blocks.BlockTensor):
+            lay = var.placement
+            mask, val = vals if vals is not None else (self.block_mask(lay),
+                                                       self._resolved_val(var, grid))
+            for b, part in enumerate(var.parts):
+                v = val
+                if isinstance(val, torch.Tensor):  # cut to the block, on its device
+                    v = (val[lay.index(val.shape, b)] if val.dim() else val).to(part.device)
+                self._pin(part, mask.parts[b][0], v, var_dim)
+            return var
         if vals is not None:
             mask, val = vals
         else:
             mask, val = self.mask_on(var.device), self._resolved_val(var, grid)
+        return self._pin(var, mask, val, var_dim)
+
+    @staticmethod
+    def _pin(var, mask, val, var_dim):
         for d in range(var.shape[0]) if var_dim is None else [var_dim]:
             if isinstance(val, float):
                 var[d].masked_fill_(mask, val)
@@ -534,6 +592,78 @@ class ObstacleNeumann:
             self._dev[key] = torch.as_tensor(self._bc_mask, device=device)
         return self._dev[key]
 
+    def block_mask(self, lay):
+        """The body mask as a block vector of ``lay`` (kept per layout)."""
+        return _block_mask(self._bc_mask, lay, self._dev)
+
+    def _block_plans(self, lay) -> list:
+        """``_plans`` cut to the blocks of ``lay`` (kept per layout): per plan,
+        per block, None where the block holds no shell cell of it, else
+        ``(dst, pos1, pos2, scale, fetch)``. ``dst`` are the flat indices of
+        the block's shell cells, ``fetch`` lists ``(block, flat indices)``
+        of the source cells to read, the block's own first and then each
+        neighbour's that holds some (on that block's device: only those
+        cells are copied), and ``pos1`` / ``pos2`` index each cell's 1- and
+        2-step source into their concatenation."""
+        key = ("plans", id(lay))
+        if key in self._dev:
+            return self._dev[key][1]
+        grid = lay.grid
+        bshape = [tuple(s.stop - s.start for s in sl) for _, sl, _ in lay.blocks]
+        # the block coordinate of each node along every axis
+        own = []
+        for j, n in enumerate(grid):
+            starts = sorted({sl[j].start for _, sl, _ in lay.blocks})
+            own.append(np.searchsorted(starts, np.arange(n), side="right") - 1)
+        coord_to_b = {c: b for b, (c, _, _) in enumerate(lay.blocks)}
+
+        def locate(flat):
+            idx = np.unravel_index(flat, grid)
+            coords = np.stack([own[j][i] for j, i in enumerate(idx)], axis=1)
+            b = np.array([coord_to_b[tuple(c)] for c in coords.tolist()], dtype=np.int64)
+            loc = np.empty(flat.shape, dtype=np.int64)
+            for k in np.unique(b):
+                sel = b == k
+                sl = lay.blocks[k][1]
+                loc[sel] = np.ravel_multi_index(
+                    tuple(i[sel] - s.start for i, s in zip(idx, sl)), bshape[k])
+            return b, loc
+
+        out = []
+        for dst, src1, src2, scale in self._plans:
+            bd, ld = locate(dst)
+            (b1, l1), (b2, l2) = locate(src1), locate(src2)
+            per = []
+            for b, (_, _, dev) in enumerate(lay.blocks):
+                sel = bd == b
+                if not sel.any():
+                    per.append(None)
+                    continue
+                srcs = np.concatenate([np.stack([b1[sel], l1[sel]], 1),
+                                       np.stack([b2[sel], l2[sel]], 1)])
+                owners = [b] + sorted(set(srcs[:, 0].tolist()) - {b})
+                fetch, base, where = [], 0, {}
+                for o in owners:
+                    cells = np.unique(srcs[srcs[:, 0] == o, 1])
+                    if cells.size:
+                        fetch.append((o, torch.as_tensor(cells, device=lay.blocks[o][2])))
+                        where[o] = (cells, base)
+                        base += cells.size
+
+                def pos(bs, ls, where=where, dev=dev):
+                    p = np.empty(bs.shape, dtype=np.int64)
+                    for o, (cells, off) in where.items():
+                        m = bs == o
+                        p[m] = off + np.searchsorted(cells, ls[m])
+                    return torch.as_tensor(p, device=dev)
+
+                per.append((torch.as_tensor(ld[sel], device=dev), pos(b1[sel], l1[sel]),
+                            pos(b2[sel], l2[sel]), torch.as_tensor(scale[sel], device=dev),
+                            fetch))
+            out.append(per)
+        self._dev[key] = (lay, out)
+        return out
+
     def _gather_plans(self) -> list:
         """The shell update as gathers and scatters over the flattened grid:
         per plan, the flat indices of its shell cells, of their 1- and
@@ -580,12 +710,37 @@ class ObstacleNeumann:
         fluid-side neighbours, ``+ (2/3) V dx`` with ``shift_val``."""
         if out is None:
             out = var.clone()
+        if isinstance(out, _blocks_mod().BlockTensor):
+            return self._shells_blocks(out, shift_val)
         flat = out.view(out.shape[0], -1)
         for dst, src1, src2, scale in self._plans_on(out.device):
             new = (4.0 * flat[:, src1] - flat[:, src2]) / 3.0
             if shift_val and self.bc_val != 0.0:
                 new = new + scale.to(new.dtype)
             flat[:, dst] = new
+        return out
+
+    def _shells_blocks(self, out, shift_val: bool):
+        """``_shells`` on a block vector, in place, plan by plan: every
+        block reads its plan's sources (its own cells and the few its
+        neighbours hold, copied from their devices) before any block
+        writes, as the whole tensor's gather precedes its scatter."""
+        c = out.shape[0]
+        for plan in self._block_plans(out.placement):
+            news = []
+            for b, bp in enumerate(plan):
+                if bp is None:
+                    continue
+                dst, pos1, pos2, scale, fetch = bp
+                dev = out.parts[b].device
+                pool = torch.cat([out.parts[o].view(c, -1)[:, cells].to(dev)
+                                  for o, cells in fetch], dim=1)
+                new = (4.0 * pool[:, pos1] - pool[:, pos2]) / 3.0
+                if shift_val and self.bc_val != 0.0:
+                    new = new + scale.to(new.dtype)
+                news.append((b, dst, new))
+            for b, dst, new in news:
+                out.parts[b].view(c, -1)[:, dst] = new
         return out
 
     def apply(self, var: torch.Tensor, grid, var_dim: int | None = None, vals=None) -> torch.Tensor:
@@ -603,7 +758,19 @@ class ObstacleNeumann:
     def affine_field(self, shape, dtype, device) -> torch.Tensor:
         """The affine shift ``e``: zeros with ``(2/3) V dx`` on each face's
         shell (last face wins at edges, as in ``apply``). The solve
-        eliminates it by ``rhs -= A(e)``."""
+        eliminates it by ``rhs -= A(e)``. ``device`` a ``blocks.Layout``:
+        a block vector of it, made block by block."""
+        blocks = _blocks_mod()
+        if isinstance(device, blocks.Layout):
+            lay = device
+            parts = [torch.zeros((shape[0], *(s.stop - s.start for s in sl)), dtype=dtype,
+                                 device=dev) for _, sl, dev in lay.blocks]
+            if self.bc_val != 0.0:
+                for plan in self._block_plans(lay):
+                    for b, bp in enumerate(plan):
+                        if bp is not None:
+                            parts[b].view(shape[0], -1)[:, bp[0]] = bp[3].to(dtype)
+            return blocks.BlockTensor(parts, lay, tuple(shape))
         e = torch.zeros(shape, dtype=dtype, device=device)
         if self.bc_val == 0.0:
             return e

@@ -2348,3 +2348,174 @@ def test_cuda_placed_graphs_across_two_cards(cuda):
     _, m2, dt = _fused_placed_models(cuda, devs, n=17)
     with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
         m2.run(dt, 2, fused=True)
+
+
+# -- the last options on placed blocks; block Fields on periodic axes -------
+
+OPT_CASES = ["obstacle_mg", "obstacle_bicgstab", "custom_fd", "per_iteration", "donate",
+             "debug_nan"]
+
+
+def _opt_devices(placement):
+    if placement == "two_cards" and torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards; this machine shows {torch.cuda.device_count()}")
+    return {"one_card": ("cuda:0",) * 8, "two_cards": ("cuda:0", "cuda:1") * 4}[placement]
+
+
+def _opt_problem(dev, case, dd, on_blocks, calls):
+    """A (4, 2, 1)-cut 32 x 32 x 64 f64 problem of ``case`` (the options of
+    ``tests/test_torch_placed_options.py``): ``(var, lhs, rhs, cfg)``, the
+    Field and RHS on ``dd``'s blocks with ``on_blocks``."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver import FDM
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    nx = (32, 32, 64)
+    obstacles = {"obstacle_mg": [Box[0.2:0.45, 0.3:0.6, 0.3:0.6], Box[0.6:0.8, 0.35:0.65,
+                                                                    0.4:0.7]],
+                 "obstacle_bicgstab": [Box[0.3:0.55, 0.2:0.45, 0.35:0.6]]}.get(case)
+    mesh = Mesh(Box[0:1, 0:1, 0:1], obstacles, list(nx), device=str(dev), dtype="double")
+    bcs = homogeneous_bcs(3, 0.0, "dirichlet")
+    if case == "per_iteration":
+        bcs[1] = {"bc_face": "xu", "bc_type": "dirichlet", "bc_val_opt": {"per_iteration": True},
+                  "bc_val": lambda grid, mask, var, opt: 0.5 * torch.mean(var)}
+    obs = {"obstacle_mg": [{"bc_type": "dirichlet", "bc_val": 1.0},
+                           {"bc_type": "neumann", "bc_val": 2.0}],
+           "obstacle_bicgstab": [{"bc_type": "neumann", "bc_val": 0.0}]}.get(case)
+    var = Field("p", 1, mesh, {"domain": bcs, "obstacle": obs}, init_val=0.0)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    rhs = torch.randn((1, *nx), generator=g, dtype=torch.float64).to(dev)
+    cfg = {"method": "cg", "tol": 1e-10, "max_it": 400, "criterion": "residual",
+           "precond": "mg", "report": False}
+    fdm = FDM()
+    lhs = lambda: fdm.laplacian(1.0, var)  # noqa: E731
+    if case == "obstacle_bicgstab":
+        cfg["method"] = "bicgstab"
+    elif case == "custom_fd":
+        w = (1.0 + 0.2 * torch.rand(nx, generator=g, dtype=torch.float64)).to(dev)
+
+        def op(x, c):
+            calls.append(1)
+            return 6.0 * c * x - 0.9 * sum(torch.roll(x, s, a) for a in (1, 2, 3)
+                                           for s in (1, -1))
+
+        hint = tuple(tuple([v] * n for v in (-0.9, 2.2, -0.9)) for n in nx)
+        lhs = lambda: fdm.custom(op, var, params=(w,), fd_hint=hint)  # noqa: E731
+        cfg.update({"method": "bicgstab", "precond": "fd"})
+    elif case == "donate":
+        cfg["donate"] = True
+    elif case == "debug_nan":
+        cfg["debug"] = "nan"
+    if on_blocks:
+        var.VAR = blocks.put(var(), dd)
+        rhs = blocks.put(rhs, dd)
+    return var, lhs, rhs, cfg
+
+
+@pytest.mark.parametrize("placement", ["one_card", "two_cards"])
+@pytest.mark.parametrize("case", OPT_CASES)
+def test_cuda_placed_options_on_block_fields(cuda, case, placement):
+    """Each last option with the Field on (4, 2, 1) blocks on the card (or
+    round robin over two, skips on one) against the view-based solve of the
+    whole Field on the card: the same ``itr`` (BiCGSTAB: the solution, its
+    count moves with the dots' order), 1e-12, the solution on the blocks
+    (``donate``: in their storage); gathers only the V-cycle's hand-over,
+    one per custom apply, two ``per_iteration`` ones per CG solve; a NaN
+    in a block off the lead raises ``NaNError`` without a gather."""
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver import Solver, multigrid
+    from pyapes_tpu_torch.utils.debug import NaNError
+
+    devices = _opt_devices(placement)
+    dd = DomainDecomposition((4, 2, 1), devices=devices)
+    out = {}
+    for kind in ("view", "blocks"):
+        calls = []
+        var, lhs, rhs, cfg = _opt_problem(cuda, case, dd, kind == "blocks", calls)
+        ptrs = [p.data_ptr() for p in var().parts] if kind == "blocks" else None
+        s = Solver({"fdm": {**cfg, "decomp": dd if kind == "blocks"
+                            else DomainDecomposition((4, 2, 1))}})
+        s.set_eq(lhs() == rhs)
+        g0, c0, p0 = blocks.gathers, multigrid.cycle_gathers, blocks.per_iteration_gathers
+        rep = s.solve()
+        gathers = blocks.gathers - g0 - (multigrid.cycle_gathers - c0)
+        out[kind] = (var().cpu(), rep)
+    if case == "donate":
+        assert [p.data_ptr() for p in var().parts] == ptrs
+    assert isinstance(var(), blocks.BlockTensor)
+    (x, rep), (ref, rref) = out["blocks"], out["view"]
+    assert rep["converge"] and rref["converge"]
+    if rep["itr"] != rref["itr"]:
+        assert "bicgstab" in case or case == "custom_fd", (rep, rref)
+        np.testing.assert_allclose(x.numpy(), ref.numpy(), atol=1e-9, rtol=0)
+    else:
+        np.testing.assert_allclose(x.numpy(), ref.numpy(), atol=1e-12, rtol=0)
+    if case == "custom_fd":
+        assert calls and gathers == len(calls)
+    elif case == "per_iteration":
+        assert blocks.per_iteration_gathers - p0 == 2 and gathers == 2
+    else:
+        assert gathers == 0
+    if case == "debug_nan":
+        var, lhs, rhs, cfg = _opt_problem(cuda, case, dd, False, [])
+        rhs[0, 27, 20, 50] = float("nan")
+        var.VAR = blocks.put(var(), dd)
+        s = Solver({"fdm": {**cfg, "decomp": dd}})
+        s.set_eq(lhs() == blocks.put(rhs, dd))
+        g0, c0 = blocks.gathers, multigrid.cycle_gathers
+        with pytest.raises(NaNError):
+            s.solve()
+        assert blocks.gathers - g0 == multigrid.cycle_gathers - c0
+
+
+def _les_state(dev, devices, on_blocks, fused, n=17, steps=3):
+    """The Smagorinsky TGV-3D LES (f64, ``n``^3) with its solves on (2, 2, 1)
+    blocks on ``devices``, the state whole or on the blocks, ``steps``
+    steps: ``(itr per solve, the state on the host)``."""
+    from math import pi
+
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.models import PeriodicFlow
+    from pyapes_tpu_torch.models.navier_stokes import smagorinsky_viscosity
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    dd = DomainDecomposition((2, 2, 1), devices=devices)
+    mesh = Mesh(Box[0:2 * pi, 0:2 * pi, 0:2 * pi], None, [n] * 3, device=str(dev),
+                dtype="double")
+    m = PeriodicFlow(mesh, nu=1 / 1600, config={"decomp": dd},
+                     mu_strain_fn=smagorinsky_viscosity(1 / 1600, mesh))
+    X, Y, Z = mesh.grid
+    m.set_velocity(torch.sin(X) * torch.cos(Y) * torch.cos(Z),
+                   -torch.cos(X) * torch.sin(Y) * torch.cos(Z), torch.zeros_like(X))
+    if on_blocks:
+        m.put_state(dd)
+    dt = 0.2 * 2 * pi / (n - 1)
+    g0 = blocks.gathers
+    with solve_log() as log:
+        m.run(dt, steps, fused=fused)
+    assert blocks.gathers == g0
+    if on_blocks:
+        assert all(isinstance(f(), blocks.BlockTensor) for f in m.state_fields())
+    return [int(r["itr"]) for r in log], [f().cpu() for f in m.state_fields()]
+
+
+@pytest.mark.parametrize("placement", ["one_card", "two_cards"])
+def test_cuda_placed_les_with_its_state_on_blocks(cuda, placement):
+    """The LES with its state on (2, 2, 1) blocks (the seam planes in the
+    last blocks, the glue's rolls across the blocks' faces) against its
+    whole-state placed run: the same ``itr`` per solve, 1e-12, no gather;
+    on one card the fused run (one graph per step) too."""
+    devices = _opt_devices(placement)[:4]
+    blk, whole = (_les_state(cuda, devices, b, False) for b in (True, False))
+    assert blk[0] == whole[0]
+    for a, b in zip(blk[1], whole[1]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12, rtol=0)
+    if placement == "one_card":
+        fused = _les_state(cuda, devices, True, True)
+        for a, b in zip(fused[1], blk[1]):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12, rtol=0)

@@ -396,17 +396,13 @@ def _unported_solve(var, lhs, rhs, cfg, decomp=None):
     return var()[0].clone(), rep
 
 
-@pytest.mark.parametrize("case", ["custom", "obstacle", "donate", "debug_nan"])
-def test_options_outside_the_placed_path_raise(case):
-    with pytest.raises(NotImplementedError, match=r"placed decomposition .*A11h"):
-        _unported(case)
-
-
-@pytest.mark.parametrize("case", ["var_gamma", "div", "conv", "periodic_flow"])
+@pytest.mark.parametrize("case", ["var_gamma", "div", "conv", "periodic_flow", "custom",
+                                  "obstacle", "donate", "debug_nan"])
 def test_formerly_unported_cases_solve_placed(case):
-    """The variable-Γ, Div and Conv terms and ``PeriodicFlow``, which raised
-    on a placed decomposition before, solve there and equal the view-based
-    run: the same ``itr`` and 1e-12."""
+    """The variable-Γ, Div and Conv terms, ``PeriodicFlow``, an
+    ``fdm.custom`` term, an immersed obstacle, ``donate`` and ``debug:
+    "nan"``, which raised on a placed decomposition before, solve there and
+    equal the view-based run: the same ``itr`` and 1e-12."""
     out, rep = _unported(case)
     ref, rref = _unported(case, DomainDecomposition((2, 2) if case == "periodic_flow"
                                                     else (2, 1, 1)))

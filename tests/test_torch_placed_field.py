@@ -15,7 +15,8 @@ CPU (float64): the port's counterpart of a JAX array committed to a
   a block's part, and ``blocks.gathers`` only at the V-cycle's hand-over.
 * The Field's value through ``.numpy()``, ``x[0]``, ``apply_bcs``, the
   RHS folds and the debug ``Aop``; checkpoints, VTK and ``field_from_numpy``
-  into and out of blocks; the A11i raise on a periodic axis.
+  into and out of blocks; a block Field on a periodic axis, and with
+  ``donate`` / ``debug``, against the view-based solve.
 """
 from math import pi
 
@@ -526,21 +527,28 @@ def test_field_from_numpy_into_blocks():
     assert var.n_hist == 1
 
 
-def test_block_field_on_a_periodic_axis_raises():
-    """A Field on blocks with a periodic axis raises, naming A11i (the torus
-    reduction drops the seam node: the Field's blocks and the torus' differ);
-    nothing falls back to the lead device."""
-    mesh = Mesh(Box[0:1, 0:1], None, [17, 16], device="cpu", dtype="double")
+def test_block_field_on_a_periodic_axis_solves():
+    """A Field on blocks with a periodic axis (which raised before) solves
+    on the torus of its blocks (the reduction a per-block slice, the seam
+    re-appended), keeps the solution there and equals the view-based run:
+    the same ``itr`` and 1e-12; nothing falls back to the lead device."""
     bc = pbcs.mixed_bcs([None, None, 0, 0], ["periodic", "periodic", "dirichlet", "dirichlet"])
-    var = Field("p", 1, mesh, {"domain": bc, "obstacle": None}, init_val=0.0)
-    dd = _dd((1, 2))
-    var.VAR = blocks.put(var(), dd)
-    s = Solver({"fdm": {**CG, "decomp": dd}})
-    s.set_eq(FDM().laplacian(1.0, var) == 0.0)
-    g0 = blocks.gathers
-    with pytest.raises(NotImplementedError, match="A11i"):
-        s.solve()
-    assert blocks.gathers == g0
+    rhs = np.random.default_rng(4).standard_normal((1, 17, 16))
+    out = []
+    for dd in (_dd((1, 2)), DomainDecomposition((1, 2))):
+        mesh = Mesh(Box[0:1, 0:1], None, [17, 16], device="cpu", dtype="double")
+        var = Field("p", 1, mesh, {"domain": bc, "obstacle": None}, init_val=0.0)
+        if dd.placed:
+            var.VAR = blocks.put(var(), dd)
+        s = Solver({"fdm": {**CG, "decomp": dd}})
+        s.set_eq(FDM().laplacian(1.0, var) == torch.from_numpy(rhs))
+        g0 = blocks.gathers
+        rep = s.solve()
+        assert blocks.gathers == g0 and isinstance(var(), blocks.BlockTensor) == dd.placed
+        out.append((var().cpu().numpy(), rep))
+    (x, rep), (ref, rref) = out
+    assert rep["converge"] and rep["itr"] == rref["itr"]
+    np.testing.assert_allclose(x, ref, atol=1e-12, rtol=0)
 
 
 def test_block_field_on_a_view_based_decomposition_raises():
@@ -557,14 +565,27 @@ def test_block_field_on_a_view_based_decomposition_raises():
 
 
 @pytest.mark.parametrize("case", ["donate", "debug_nan"])
-def test_block_field_with_a_later_option_raises(case):
-    """A block Field with an A11h option raises, naming its item."""
+def test_block_field_with_a_later_option_solves(case):
+    """A block Field with ``donate`` or ``debug: "nan"`` (options that raised
+    on blocks before) solves on its blocks, keeps the solution there (with
+    ``donate`` in its own blocks' storage) and equals the view-based run of
+    the same problem: the same ``itr`` and 1e-12; nothing is gathered."""
+    opt = {"donate": {"donate": True}, "debug_nan": {"debug": "nan"}}[case]
     _, var, rhs, _, dd = _block_problem((16, 8, 8), (2, 1, 1))
-    cfg = {**CG, "max_it": 5, **{"donate": {"donate": True}, "debug_nan": {"debug": "nan"}}[case]}
-    s = Solver({"fdm": cfg})
+    ptrs = [p.data_ptr() for p in var().parts]
+    s = Solver({"fdm": {**CG, **opt}})
     s.set_eq(FDM().laplacian(1.0, var) == rhs)
-    with pytest.raises(NotImplementedError, match=r"A11h"):
-        s.solve()
+    g0 = blocks.gathers
+    rep = s.solve()
+    assert blocks.gathers == g0 and isinstance(var(), blocks.BlockTensor)
+    assert ([p.data_ptr() for p in var().parts] == ptrs) == (case == "donate")
+    _, ref, rhs2, _, _ = _block_problem((16, 8, 8), (2, 1, 1))
+    ref.VAR = ref().cpu()
+    s2 = Solver({"fdm": {**CG, **opt, "decomp": DomainDecomposition((2, 1, 1))}})
+    s2.set_eq(FDM().laplacian(1.0, ref) == rhs2.cpu())
+    rref = s2.solve()
+    assert rep["converge"] and rep["itr"] == rref["itr"]
+    np.testing.assert_allclose(var().numpy(), ref().numpy(), atol=1e-12, rtol=0)
 
 
 def test_put_build_and_repartition_of_a_block_value():

@@ -177,15 +177,14 @@ def test_across_cards_raises_naming_a11f():
     a WHILE body that spans cards; at ``sync: True`` it passes the check."""
     two = SimpleNamespace(devices=(torch.device("cuda:0"), torch.device("cuda:1")))
     x0 = torch.zeros(1, 4, 4)
-    args = ({}, (), [], x0)
-    dispatch._check_placed(*args, True, False, two)
+    dispatch._check_placed(x0, True, two)
     for sync, step in ((False, False), (True, True)):
         with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)") as e:
             if step:
                 with whole_step():
-                    dispatch._check_placed(*args, sync, False, two)
+                    dispatch._check_placed(x0, sync, two)
             else:
-                dispatch._check_placed(*args, sync, False, two)
+                dispatch._check_placed(x0, sync, two)
         assert dispatch._ACROSS_CARDS in str(e.value)
 
 
