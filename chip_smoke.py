@@ -60,7 +60,17 @@ Phases, report lines before the last:
    product, a device copy and the bound. The same on the channel's
    operators (``check_axis_channel``): the 441 x 83 u, v and p Laplacians
    of the 2D-2 cell and every level of its pressure V-cycle in f64 (and
-   f32, bf16); the pressure operator timed likewise.
+   f32, bf16); the pressure operator timed likewise. The peer kernels
+   (``phase_peer``, ``csrc/peer.cu``): ``peer_put`` + ``peer_wait`` on
+   one card (the put on one stream, the wait on another) against the plain
+   ``copy_`` in f32/f64/bf16 on the halo's strided ghost faces into their
+   slots, a block into its place in a 512^3 grid and a reduction's stacked
+   partials (bits equal), each pair timed beside the plain copy and its
+   bound; the probe's ``per_card_graphs`` variant on two streams of the
+   card (two graphs, each a WHILE loop of 3 passes, joined by the peer
+   kernels: the host loop's 14 on two replays; its launches are the
+   kernels' drive); a wait with no put ends with an error within its
+   bound, in a process of its own.
 4. fastdiag path — the 512^3 f32 all-Dirichlet random-RHS Poisson solve
    through ``Solver.solve`` (fastdiag), as ``bench.py`` drives the JAX
    package: one warm-up and three timed solves; convergence, kernel
@@ -307,10 +317,19 @@ Phases, report lines before the last:
    graph alive; (o) the TGV-3D LES 257^3 fused on the placed blocks in
    turns with its eager placed steps and the fused view-based run: the
    eager bits, ``itr`` and ⟨E⟩, one capture, no fallback, per step one graph
-   launch and no host sync; (p) on four cards the probe of a WHILE body
-   across cards, and the ``NotImplementedError`` naming "A11f (across
-   cards)" of (n)'s MG-PCG and (o)'s run there (on one card a line says it
-   needs four). (q) (``placed_options``): the last options on
+   launch and no host sync; (p) on four cards the probe's three variants
+   (one graph whose WHILE body spans two cards: refused, twice; one graph
+   per card joined by the peer kernels: runs), then ``sync: False`` solves
+   on (4, 2, 1) round robin over the four cards as one graph per card
+   (``graph_across_case``: MG-PCG 512^3 and Darcy 256^3 in f32 V(2,2)
+   cycles and fastdiag 512^3 with the Field on blocks, CG + ``precond:
+   "fd"`` 256^3 with a whole Field) against ``sync: True`` on the same
+   cards: the same bits, ``itr`` and ``tol``, no host sync, one graph
+   launch per card, the cards' replicas of ``itr``, ``tol`` and ``go``
+   equal, no copy between cards and no event in a loop body; the walls,
+   each card's peak; a fused step there still raises
+   ``NotImplementedError`` naming "A11f (across cards)" (on one card a line
+   says it needs four). (q) (``placed_options``): the last options on
    ``("cuda:0",) * 8`` blocks, f32, each with the Field on blocks against
    the same problem with the whole Field (the same ``itr``, ``OPT_AGREE``,
    the gathers as designed, walls and peaks): obstacle solves (MG-PCG with
@@ -346,6 +365,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -418,7 +438,14 @@ KERNELS = [
      "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:424"),
     ("axis_stencil_ext", "pyapes_tpu_torch.ops.axis_stencil",
      "pyapes_tpu_torch/csrc/axis_march.cu", "pyapes_tpu/ops/pallas_stencil_v3.py:573"),
+    # no Pallas kernel: the counterparts of the transfers XLA inserts between
+    # the JAX package's chips (ppermute / psum of its decomposed solve)
+    ("peer_put", "pyapes_tpu_torch.ops.peer", "pyapes_tpu_torch/csrc/peer.cu",
+     "none (XLA's ppermute / psum between chips: pyapes_tpu/solver/linalg.py:587)"),
+    ("peer_wait", "pyapes_tpu_torch.ops.peer", "pyapes_tpu_torch/csrc/peer.cu",
+     "none (XLA's ppermute / psum between chips: pyapes_tpu/solver/linalg.py:587)"),
 ]
+PEER_KERNELS = ("peer_put", "peer_wait")
 # the decomposed paths' block layout: 512^3 in 8 blocks of 128 x 256 x 512
 # (the last, contiguous, axis is never cut)
 N_DECOMP = (4, 2, 1)
@@ -5109,7 +5136,9 @@ def _placed_counters() -> dict:
             "repartition_bytes_within": blocks.repartition_bytes_within,
             "gamma_gathers": multigrid.gamma_gathers, "host_gathers": blocks.host_gathers,
             "transfer_ghost_bytes": halo.transfer_ghost_bytes,
-            "entry_scatters": dispatch.entry_scatters, "exit_gathers": dispatch.exit_gathers}
+            "entry_scatters": dispatch.entry_scatters, "exit_gathers": dispatch.exit_gathers,
+            "transfers_across": blocks.transfers_across,
+            "transfer_bytes_across": blocks.transfer_bytes_across}
 
 
 def _no_host_gathers(counts: dict) -> dict:
@@ -6273,22 +6302,313 @@ def placed_graphs(dev, launches: dict) -> dict:
     clear_cache()
     torch.cuda.empty_cache()
     out["p_across"] = placed_graphs_across(dev)
+    for k, c in out["p_across"].get("counts", {}).items():
+        launches[k] = launches.get(k, 0) + c
+    return out
+
+
+# the peer kernels' check: the ghost faces of a (4, 2, 1) block of 512^3
+# (128 x 256 x 512; each cut axis' face and the uncut last axis' column,
+# strided) into the slots of its halo-extended buffer, a block of 512^3
+# into its place in a whole grid, a reduction's stacked partials (2, 3, 1,
+# 1, 1); every dtype; a copy is exact, so the error must be 0
+PEER_BLOCK = (1, 128, 256, 512)
+PEER_TIME_REPS = 200  # put/wait pairs per timing
+
+
+def _peer_cases(dev, dtype):
+    """(name, source view, destination buffer, destination view) per case."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    block = torch.randn(PEER_BLOCK, generator=g).to(dtype).to(dev)
+    out = []
+    for j in range(3):
+        ext = [0, 0, 0]
+        ext[j] = 1
+        buf = torch.zeros((1, *(n + 2 * e for n, e in zip(PEER_BLOCK[1:], ext))), dtype=dtype,
+                          device=dev)
+        face = block.narrow(1 + j, PEER_BLOCK[1 + j] - 1, 1)
+        slot = buf.narrow(1 + j, 0, 1)
+        inner = [slice(None)] + [slice(e, e + n) for n, e in zip(PEER_BLOCK[1:], ext)]
+        inner[1 + j] = slice(0, 1)
+        out.append((f"ghost face axis {j} {tuple(face.shape)}", face, buf, buf[tuple(inner)]))
+        del slot
+    whole = torch.zeros((1, 512, 512, 512), dtype=dtype, device=dev)
+    out.append(("block into a 512^3 grid", block, whole, whole[:, 128:256, 256:512, :]))
+    parts = torch.randn((2, 3, 1, 1, 1), generator=g).to(dtype).to(dev)[:, :, 0]
+    stack = torch.zeros((2, 3, 1, 1), dtype=dtype, device=dev)
+    out.append(("reduction partials (2, 3, 1, 1)", parts, stack, stack))
+    return out
+
+
+def _peer_pair_ms(src, dst, reps: int) -> float:
+    """Device time per put/wait pair on one card: the put on one stream, the
+    wait on another (on one stream the put would wait for a wait queued
+    behind it), ``reps`` pairs queued behind a device sleep on the wait's
+    stream, CUDA events there around them."""
+    import torch
+
+    from pyapes_tpu_torch.ops import peer
+
+    dev = src.device
+    sa, sb = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+    ch = peer.Channel.make(dev, dev)
+    torch.cuda.synchronize(dev)
+
+    def pairs(n):
+        for _ in range(n):
+            with torch.cuda.stream(sa):
+                peer.peer_put(src, dst, ch)
+            with torch.cuda.stream(sb):
+                peer.peer_wait(ch)
+
+    pairs(3)
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(sb):
+        torch.cuda._sleep(50_000_000)
+        start.record()
+    pairs(reps)
+    with torch.cuda.stream(sb):
+        end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end) / reps
+
+
+def _peer_timeout(seconds: float = 0.5) -> dict:
+    """A ``peer_wait`` with no put, in a process of its own with
+    ``peer.TIMEOUT_S = seconds``: it must end with an error within its bound
+    (the kernel traps), never hang. Returns the exit code, the wall and the
+    error's line."""
+    import sys
+
+    code = ("import torch; from pyapes_tpu_torch.ops import peer; "
+            f"peer.TIMEOUT_S = {seconds}; ch = peer.Channel.make('cuda:0', 'cuda:0'); "
+            "torch.cuda.synchronize(); peer.peer_wait(ch); torch.cuda.synchronize(); "
+            "print('no error')")
+    tic = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    err = [ln for ln in run.stderr.splitlines() if "Error" in ln or "error" in ln]
+    return {"exit_code": run.returncode, "wall_s": time.perf_counter() - tic,
+            "error": err[-1].strip() if err else None, "stdout": run.stdout.strip()}
+
+
+def phase_peer(dev) -> tuple[dict, dict, dict]:
+    """The peer kernels on one card: ``peer_put`` + ``peer_wait`` against
+    their plain version (``dst.copy_(src)``) on every ``_peer_cases`` case
+    and dtype (a put between two buffers of ``dev``, the wait on another
+    stream; the rest of the destination untouched), the pair timed per case
+    in f32 beside the plain copy and its bound; the probe's
+    ``per_card_graphs`` variant on two streams of ``dev`` (its launches
+    counted from 0: the kernels' drive); a wait with no put ends within its
+    bound with an error. Returns (launches, worst abs error, timing)."""
+    import importlib.util
+
+    import torch
+
+    from pyapes_tpu_torch.ops import peer
+
+    _reset_counts()
+    worst = {k: 0.0 for k in PEER_KERNELS}
+    rows = []
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for name, src, buf, view in _peer_cases(dev, dtype):
+            ref = buf.clone()
+            peer.plain_put(src, _same_view(ref, buf, view))
+            sa, sb = torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)
+            ch = peer.Channel.make(dev, dev)
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(sb):
+                peer.peer_wait(ch)
+            with torch.cuda.stream(sa):
+                peer.peer_put(src, view, ch)
+            torch.cuda.synchronize(dev)
+            err = float((buf.double() - ref.double()).abs().max())
+            worst["peer_put"] = max(worst["peer_put"], err)
+            if not torch.equal(buf, ref):
+                raise RuntimeError(f"chip_smoke: peer_put {name} {dtype}: the destination differs "
+                                   f"from the plain copy (max abs {err})")
+            if dtype == torch.float32:
+                nbytes = src.numel() * src.element_size()
+                ms = _peer_pair_ms(src, view, PEER_TIME_REPS)
+                plain = _time_ms(lambda: peer.plain_put(src, view))
+                lib = _time_ms(lambda: view.copy_(src))
+                rows.append({"case": name, "bytes": nbytes, "pair_ms": ms, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": _bound(2 * nbytes, 0)[0]})
+            del buf, view, ref
+    _counts_check = _counts()
+    if _counts_check["peer_put"] == 0 or _counts_check["peer_wait"] == 0:
+        raise RuntimeError("chip_smoke: the peer check launched no kernel")
+    spec = importlib.util.spec_from_file_location(
+        "probe_loop_across_cards_torch",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "probe_loop_across_cards_torch.py"))
+    probe_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_mod)
+    _reset_counts()
+    probe = probe_mod.probe_per_card_graphs(str(dev), str(dev))
+    counts = {k: v for k, v in _counts().items() if k in PEER_KERNELS}
+    if not probe.get("ok") or not all(counts.values()):
+        raise RuntimeError(f"chip_smoke: the per_card_graphs probe on two streams of {dev}: "
+                           f"{json.dumps(probe)}; launches {counts}")
+    timeout = _peer_timeout()
+    if timeout["exit_code"] == 0 or timeout["wall_s"] > 60 or timeout["stdout"] == "no error":
+        raise RuntimeError(f"chip_smoke: a peer_wait with no put did not end with an error "
+                           f"within its bound: {json.dumps(timeout)}")
+    big = max(rows, key=lambda r: r["bytes"])
+    small = min(rows, key=lambda r: r["bytes"])
+    timing = {
+        "peer_put": (big["pair_ms"], big["plain_ms"], big["library_ms"], big["bound_ms"],
+                     "bytes"),
+        "peer_wait": (small["pair_ms"], small["plain_ms"], small["library_ms"],
+                      _bound(3 * 8 * 2, 0)[0], "bytes"),
+    }
+    print(f"[peer] peer_put + peer_wait against dst.copy_(src) on {dev} (two streams; f32, f64, "
+          f"bf16; bits equal, worst abs {worst['peer_put']}); per case, f32, ms per put/wait "
+          f"pair (device, {PEER_TIME_REPS} pairs) beside the plain copy and the bound (bytes "
+          f"read + written at {MEM_BYTES_PER_S / 1e12} TB/s): {json.dumps(rows)}; the "
+          f"per_card_graphs probe on two streams of {dev}: {json.dumps(probe)}; a wait with no "
+          f"put (TIMEOUT_S 0.5): {json.dumps(timeout)}; card {_card_line()}", flush=True)
+    return counts, worst, timing
+
+
+def _same_view(ref, buf, view):
+    """The view of ``ref`` at ``view``'s place in ``buf`` (same shape and
+    strides, offset by the same number of elements)."""
+    return ref.as_strided(view.shape, view.stride(),
+                          ref.storage_offset() + view.storage_offset() - buf.storage_offset())
+
+
+ACROSS_CALLS = 5  # (p): sync: True and sync: False solves in turns, one each per turn
+# (p)'s cycles: bench's V(2,2) and its Darcy cycle in f32 without the FMG
+# start (a bf16 cycle or an FMG start across cards raises: ROADMAP A11f)
+ACROSS_MG = {**BENCH_MG, "dtype": "float32", "fmg": False}
+ACROSS_DARCY_MG = {**DARCY_MG, "dtype": "float32", "fmg": False}
+
+
+def graph_across_case(label, var, rhs, cfg, coeff=1.0) -> dict:
+    """(p)'s gates on one problem whose blocks lie on several cards: a
+    ``sync: True`` solve (the reference), the first ``sync: False`` solve
+    (its eager warm-up and its capture of one graph per card), then
+    ``ACROSS_CALLS`` of each kind in turns; every ``sync: False`` call gives
+    the reference's solution bits (per block, or of the whole Field),
+    ``itr`` and ``tol`` bits; one more call counts its host syncs (0) and
+    graph launches (one per card); after it the four cards' replicas of
+    ``itr``, ``tol`` and each loop's ``go`` are equal. Returns the walls
+    (median of the calls), the capture's seconds and each card's peak."""
+    import torch
+
+    from pyapes_tpu_torch.ops import peer
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.linalg import dispatch
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    fdm = FDM()
+    cards = sorted({str(d) for d in cfg["decomp"].devices})
+    solvers = {sync: Solver({"fdm": {"report": False, **cfg, "sync": sync}})
+               for sync in (True, False)}
+
+    def solve(sync):
+        x = var()
+        var.set_var_tensor(torch.zeros_like(x) if not isinstance(x, blocks.BlockTensor)
+                           else x.zero_())
+        solvers[sync].set_eq(fdm.laplacian(coeff, var) == rhs)
+        return solvers[sync].solve()
+
+    def bits():
+        x = var()
+        return [p.clone() for p in x.parts] if isinstance(x, blocks.BlockTensor) else [x.clone()]
+
+    print(f"[17 placed] {label}: the sync: True reference, then the capture", flush=True)
+    rep_t = solve(True)
+    ref = bits()
+    _sync_all()
+    c0 = _placed_counters()
+    puts0 = peer.peer_put.launches
+    tic = time.perf_counter()
+    solve(False)
+    _sync_all()
+    first_s = time.perf_counter() - tic
+    first = _delta(_placed_counters(), c0)
+    call = next(reversed(dispatch._GRAPH_CACHE.values()))[0]
+    walls = {"sync_true": [], "sync_false": []}
+    peaks = {"sync_true": {c: 0.0 for c in cards}, "sync_false": {c: 0.0 for c in cards}}
+    same, itrs, tols = [], [], []
+    for i in range(ACROSS_CALLS):
+        for sync in ((True, False) if i % 2 == 0 else (False, True)):
+            kind = "sync_true" if sync else "sync_false"
+            _sync_all()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            tic = time.perf_counter()
+            rep = solve(sync)
+            _sync_all()
+            walls[kind].append(time.perf_counter() - tic)
+            for c in cards:
+                peaks[kind][c] = max(peaks[kind][c], torch.cuda.max_memory_allocated(c) / 2**30)
+            if sync:
+                continue
+            out = bits()
+            same.append(len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref)))
+            itrs.append(int(rep["itr"]))
+            tols.append(float(rep["tol"]) == rep_t["tol"])
+    syncs = _count_syncs(lambda: solve(False))
+    launches = _graph_replays(lambda: solve(False))
+    _sync_all()
+    out_itr, out_tol = call.static_outputs[1], call.static_outputs[2]
+    replicas = {"itr": [int(p) for p in out_itr.parts], "tol": [float(p) for p in out_tol.parts],
+                "go": [[bool(f) for f in flags] for flags in call.flags]}
+    equal = all(len(set(map(str, v))) == 1 for v in (replicas["itr"], replicas["tol"])) and all(
+        len(set(f)) == 1 for f in replicas["go"])
+    # each card's loop body by node type: kernels and same-card copies, no
+    # copy between two cards, no event node
+    bodies = call.body_nodes
+    across_nodes = sum(n.get("memcpy_across_devices", 0) + n.get("wait_event", 0)
+                       + n.get("event_record", 0) for lanes in bodies for n in lanes)
+    out = {"cards": cards, "itr": rep_t["itr"], "tol": rep_t["tol"], "sync_false_itr": itrs,
+           "same_bits": same, "same_tol_bits": tols, "wall_s": walls,
+           "wall_s_median": {k: statistics.median(v) for k, v in walls.items()},
+           "first_sync_false_call_s": first_s, "capture_s": call.capture_s,
+           "graphs": len(call.graphs), "graph_launches_per_call": launches,
+           "host_syncs_per_call": syncs, "replicas": replicas, "replicas_equal": equal,
+           "body_nodes_per_card": bodies, "cross_card_copy_or_event_nodes": across_nodes,
+           "peer_put_launches_at_capture": peer.peer_put.launches - puts0,
+           "transfers_across_at_capture": first["transfers_across"],
+           "transfer_bytes_across_at_capture": first["transfer_bytes_across"],
+           "peak_gib_per_card": peaks}
+    if not (all(same) and all(tols) and itrs == [rep_t["itr"]] * ACROSS_CALLS and syncs == 0
+            and launches == len(cards) == len(call.graphs) and equal and across_nodes == 0):
+        raise RuntimeError(f"chip_smoke: {label}: sync: False across cards against sync: True: "
+                           f"{json.dumps(out)}")
     return out
 
 
 def placed_graphs_across(dev) -> dict:
     """Phase 17 (p): the blocks round robin over ``GRAPH_CARDS`` cards. The
-    probe (``scripts/probe_loop_across_cards_torch.py``, a process of its
-    own) asks the runtime for a WHILE body that spans two cards; where it
-    refuses, (n)'s MG-PCG 512^3 at ``sync: False`` and (o)'s fused LES must
-    raise ``NotImplementedError`` naming "A11f (across cards)" (never a host
-    loop or eager steps). On fewer cards one line says it needs them."""
-    import os
+    probe (``scripts/probe_loop_across_cards_torch.py``, each variant a
+    process of its own) records the runtime's refusal of one graph whose
+    WHILE body spans two cards (two variants) and must run the design the
+    port builds on, one graph per card joined by ``ops.peer``'s kernels
+    (``per_card_graphs``). Then ``sync: False`` solves at full width on
+    ``N_DECOMP`` blocks round robin, each one graph per card held to the
+    ``sync: True`` solve on the same cards (``graph_across_case``): MG-PCG
+    512^3 f32 (bench's bf16 V(2,2) FMG) and Darcy 256^3 with the Field on
+    blocks, fastdiag 512^3 on blocks, CG + ``precond: "fd"`` 256^3 with a
+    whole Field (the entry's scatter and the exit's gather outside the
+    graphs). A fused whole step across the cards (the TGV-3D LES) must
+    still raise ``NotImplementedError`` naming "A11f (across cards)". On
+    fewer cards one line says it needs them. Returns the numbers and the
+    drive's kernel launches (``counts``)."""
     import sys
 
     import torch
 
     from pyapes_tpu_torch.parallel import DomainDecomposition
+    from pyapes_tpu_torch.solver.linalg.dispatch import clear_cache
 
     n_cards = torch.cuda.device_count()
     if n_cards < GRAPH_CARDS:
@@ -6297,36 +6617,59 @@ def placed_graphs_across(dev) -> dict:
         return {"skipped": f"needs {GRAPH_CARDS} cards, has {n_cards}"}
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
                           "probe_loop_across_cards_torch.py")
-    run = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=300)
+    run = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=900)
     probe = json.loads(run.stdout.strip().splitlines()[-1])
+    card = _card_line()
     out = {"probe": probe, "cards": probe.get("cards")}
-    if probe["kernel_on_both_cards"].get("ok"):
-        raise RuntimeError("chip_smoke: (p) the runtime takes a WHILE body across cards now: "
-                           f"the A11f (across cards) raise is stale: {json.dumps(probe)}")
+    print(f"[17 placed] (p) the probe: {json.dumps(probe)}", flush=True)
+    if not (probe["per_card_graphs"].get("ok") and probe["per_card_graphs_one_card"].get("ok")):
+        raise RuntimeError("chip_smoke: (p) the runtime refuses one graph per card joined by "
+                           f"the peer kernels: {json.dumps(probe)}")
     dd = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % GRAPH_CARDS}"
                                                      for i in range(prod(N_DECOMP))))
+    mg = {k: v for k, v in mg_cfg(ACROSS_MG).items() if k != "donate"}
+    cases = (
+        ("p_mgpcg", f"(p) MG-PCG {N_MAIN}^3 f32 f32 V(2,2), the Field on blocks", N_MAIN,
+         False, {**mg, "decomp": dd}),
+        ("p_darcy", f"(p) Darcy {N_DARCY}^3 f32 f32 V(2,2), Γ and the Field on blocks", N_DARCY,
+         True, {**darcy_cfg(), "mg_opts": ACROSS_DARCY_MG, "decomp": dd}),
+        ("p_fastdiag", f"(p) fastdiag {N_MAIN}^3 f32, the Field on blocks", N_MAIN, False,
+         fd_cfg(dd)),
+        ("p_cg_fd", f"(p) CG + precond fd {PLACED_FD_CG_N}^3 f32, a whole Field",
+         PLACED_FD_CG_N, None, {"method": "cg", "precond": "fd", "tol": 1e-6, "max_it": 200,
+                                "criterion": "residual", "decomp": dd}))
+    counts = {}
+    for key, label, n, darcy, cfg in cases:
+        if darcy is None:
+            _, var, rhs = placed_problem(dev, (n,) * 3)
+            coeff = 1.0
+        else:
+            _, var, rhs, coeff = _block_problem(dev, dd, (n,) * 3, darcy=darcy)
+        out[key] = _counted_drive(counts, lambda: graph_across_case(label, var, rhs, cfg, coeff))
+        print(f"[17 placed] {label}, {N_DECOMP} round robin over {GRAPH_CARDS} cards, sync: False "
+              f"(one graph per card) against sync: True on the same cards; cards {card}: "
+              f"{json.dumps(out[key])}", flush=True)
+        del var, rhs, coeff
+        clear_cache()
+        for i in range(GRAPH_CARDS):
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
     raised = {}
-    _, var, rhs, _ = _block_problem(dev, dd, (N_MAIN,) * 3)
-    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
-
-    def expect(key, fn):
-        try:
-            fn()
-        except NotImplementedError as e:
-            if "A11f (across cards)" not in str(e):
-                raise
-            raised[key] = str(e)
-            return
-        raise RuntimeError(f"chip_smoke: (p) {key} on {dd.devices} did not raise")
-
-    expect("mgpcg_sync_false", lambda: run_layout(var, rhs, {**mg, "decomp": dd,
-                                                               "sync": False}, 1, warm=False))
-    del var, rhs
     model, dt = tgv_model(dev, TGV_RUNG, config={"decomp": dd})
-    expect("tgv_les_fused", lambda: model.run(dt, GRAPH_WARM, fused=True))
+    try:
+        model.run(dt, GRAPH_WARM, fused=True)
+    except NotImplementedError as e:
+        if "A11f (across cards)" not in str(e):
+            raise
+        raised["tgv_les_fused"] = str(e)
+    else:
+        raise RuntimeError(f"chip_smoke: (p) a fused step on {dd.devices} did not raise")
+    del model
     out["raised"] = raised
-    print(f"[17 placed] (p) {N_DECOMP} round robin over {GRAPH_CARDS} cards: the probe "
-          f"{json.dumps(probe)}; raised {json.dumps(raised)}", flush=True)
+    out["counts"] = counts
+    print(f"[17 placed] (p) a fused step across the cards raised: {json.dumps(raised)}; the "
+          f"drive's kernel launches {json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
     return out
 
 
@@ -6686,8 +7029,8 @@ def placed_torus(dev, launches: dict, o_ref: dict, dd=None, prefix: str = "(r)",
 
 def options_across(dev, launches: dict, o_ref: dict) -> dict:
     """Phase 17 (p), continued: (q)'s cases and (r)'s eager LES with the
-    blocks round robin over ``GRAPH_CARDS`` cards (``sync: True``: graphs
-    across cards stay refused); on fewer cards one line says it needs
+    blocks round robin over ``GRAPH_CARDS`` cards (``sync: True``: fused
+    steps across cards stay refused); on fewer cards one line says it needs
     them."""
     import torch
 
@@ -6893,10 +7236,11 @@ def main() -> None:
     worst4, timing4 = phase_kernel_advect(dev)
     worst5, timing5 = phase_kernel_ext(dev)
     dot_ext_level_times(dev)
-    worst = {**worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5}
+    peer_counts, worst6, timing6 = phase_peer(dev)
+    worst = {**worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5, **worst6}
     worst["axis_stencil5"] = max(worst1["axis_stencil5"], worst4["axis_stencil5"])
     timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4,
-              "axis_stencil_ext": timing5}
+              "axis_stencil_ext": timing5, **timing6}
 
     from pyapes_tpu_torch.parallel import DomainDecomposition
 
@@ -6917,7 +7261,7 @@ def main() -> None:
         raise RuntimeError(f"chip_smoke: the decomposed MG-PCG took {mg_decomp_stats['itr']} "
                            f"iterations, the undecomposed {mg_stats['itr']} (|d itr| > 2)")
     path_counts = [
-        fd_counts, fd_decomp_counts, mg_counts, mg_decomp_counts,
+        peer_counts, fd_counts, fd_decomp_counts, mg_counts, mg_decomp_counts,
         phase_mgpcg(dev, N_V11, V11_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_dot"),
                     f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz")[0],
         phase_darcy(dev),
@@ -6949,6 +7293,8 @@ def main() -> None:
     def bound(name):
         if name == "axis_stencil_ext":
             return timing[name][3]
+        if name in PEER_KERNELS:
+            return timing[name][3:5]
         grids, size, n, ops = BOUND_WORK[name]
         return _bound(grids * size * n**3, ops * n**3)
 
@@ -6968,7 +7314,13 @@ def main() -> None:
           f"{rz_per_run}), and the per-point kernel (axis_stencil_kernel in "
           f"csrc/axis_stencil.cu, below ROW_MIN_POINTS) on the 2D-2 channel's pressure "
           f"Laplacian at {timing_ch['shape']} f64, its launches those of phase 12 (per step at "
-          f"the cell: {ch_per_step})", flush=True)
+          f"the cell: {ch_per_step}); peer_put / peer_wait (csrc/peer.cu, no Pallas kernel: "
+          "the transfers between chips XLA inserts): ms per put + wait pair on one card, two "
+          "streams (peer_put at the largest checked case, a 128 x 256 block of 512^3 into its "
+          "place in the grid; peer_wait at a reduction's 24-byte partials), plain_ms the plain "
+          "copy_, library_ms torch's Tensor.copy_, bound the bytes read and written; launches "
+          "those of the per_card_graphs probe on two streams of one card (on four cards also "
+          "phase 17 (p)'s)", flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -18,6 +18,7 @@
 //   pyapes_while_end(body_stream, handle, flag)       ends it
 //   pyapes_loop_record(stream, dtype, t, tol, itr, hist, go, stop, max_it,
 //                      tolerance, stall_ratio, flags)  one pass's bookkeeping
+//   pyapes_graph_node_types(graph, counts[16])         its nodes by type
 // Every entry returns a cudaError_t code (0: success).
 
 #include "common.cuh"
@@ -126,5 +127,38 @@ extern "C" int pyapes_while_end(void* body_stream, unsigned long long handle, co
   cudaGraph_t graph;
   cudaError_t e = cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream), &graph);
   if (err != 0) return err;
+  return static_cast<int>(e);
+}
+
+// Node counts by cudaGraphNodeType (out[0..13]; out[14] any other type) of
+// a graph (what a loop's body holds), and in out[15] the memcpy nodes whose
+// source and destination lie on two devices.
+extern "C" int pyapes_graph_node_types(void* graph, unsigned long long* out) {
+  size_t n = 0;
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n > 0 ? n : 1];
+  e = cudaGraphGetNodes(g, nodes, &n);
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    if (e != cudaSuccess) break;
+    const int k = static_cast<int>(t);
+    out[k >= 0 && k < 14 ? k : 14] += 1;
+    if (t == cudaGraphNodeTypeMemcpy) {
+      cudaMemcpy3DParms p = {};
+      e = cudaGraphMemcpyNodeGetParams(nodes[i], &p);
+      if (e != cudaSuccess) break;
+      cudaPointerAttributes a = {}, b = {};
+      if (p.srcPtr.ptr && p.dstPtr.ptr &&
+          cudaPointerGetAttributes(&a, p.srcPtr.ptr) == cudaSuccess &&
+          cudaPointerGetAttributes(&b, p.dstPtr.ptr) == cudaSuccess && a.device != b.device) {
+        out[15] += 1;
+      }
+      (void)cudaGetLastError();
+    }
+  }
+  delete[] nodes;
   return static_cast<int>(e);
 }

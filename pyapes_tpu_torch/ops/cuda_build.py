@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect", "graph_loop")
+SOURCES = ("axis_stencil", "jacobi3d", "diff_field", "advect", "graph_loop", "peer")
 # the libraries of more than one unit: (source stem, its own nvcc flags)
 UNITS = {
     "axis_stencil": (("axis_stencil", ()), ("axis_march2d", ())) + tuple(

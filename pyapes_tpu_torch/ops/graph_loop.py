@@ -28,6 +28,25 @@ upload) raises ``CaptureError``; any other error, the WHILE node's own
 among them (``GraphLoopError``), propagates as it is. On a CPU tensor it
 calls ``fn``.
 
+``GraphedCall(fn, device, lanes=devices)`` captures one graph per lane
+(a card, or on one card a stream of its own) at the same time from one
+thread: each lane has its own capture stream, graph, memory pool and body
+pool, and while ``fn`` runs every lane's stream is current for its card, so
+each operation joins the graph of the card its tensors lie on. A replay
+launches every lane's graph, back to back, with no host wait between.
+Under such a capture ``while_loop`` adds a WHILE node to every lane's
+graph, each ended by its own replica of the condition (``cond()`` returns a
+``parallel.blocks.Replicated`` scalar, or one flag per lane); data crosses
+between lanes only through ``ops.peer``'s put and wait kernels (their
+counters come from the capture's pool, ``counter_slots``), and a copy
+between two devices left in ``fn`` raises ``CrossCardCopy`` naming its call
+site (``_CrossDeviceCopies``, a dispatch mode around the capture): it would
+join the captures into one graph across cards, whose WHILE bodies the
+runtime refuses. ``per_card()`` turns on the per-card form of a placed
+solve (``parallel.blocks``: replicated scalars, reductions combined on
+every card); ``per_card(blocks_as_cards=True)`` treats every block as its
+own card, so the CPU tests drive that form on ``("cpu",) * n`` placements.
+
 A graph addresses every tensor it reads by its pointer, so what a capture
 reads from outside its own memory pool (cached device constants, multigrid
 hierarchies, eigen-factors, the built solve) must live as long as the
@@ -39,11 +58,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gc
+import os
 import re
 import threading
 import traceback
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from pyapes_tpu_torch.utils.debug import record_kernel
 
@@ -64,6 +85,11 @@ class CaptureError(RuntimeError):
 class GraphLoopError(RuntimeError):
     """The WHILE node could not be added or its body not captured (a fault
     of this module or of the CUDA runtime, never converted to ``CaptureError``)."""
+
+
+class CrossCardCopy(RuntimeError):
+    """A copy between two devices inside a per-lane capture (see the module
+    docstring); the message names its call site."""
 
 
 # torch's and the CUDA runtime's messages for an operation a stream capture
@@ -107,6 +133,32 @@ def use_host_loops() -> bool:
 
 
 @contextlib.contextmanager
+def per_card(blocks_as_cards: bool = False):
+    """Within: a placed solve runs in its per-card form (``parallel.blocks``:
+    every scalar replicated on each card that holds blocks, reductions
+    combined on every card in block order, moves between cards through
+    ``blocks.copy_into``), the form a graph per card captures.
+    ``blocks_as_cards``: every block counts as a card of its own (the CPU
+    tests' stand-in for cards)."""
+    prev = getattr(_local, "per_card", None)
+    _local.per_card = "blocks" if blocks_as_cards else "cards"
+    try:
+        yield
+    finally:
+        _local.per_card = prev
+
+
+def per_card_mode():
+    """None outside ``per_card``, else "cards" or "blocks"."""
+    return getattr(_local, "per_card", None)
+
+
+def lanes_capturing() -> bool:
+    """Whether a capture of more than one lane is underway on this thread."""
+    return bool(_stack()) and len(_stack()[-1].lanes) > 1
+
+
+@contextlib.contextmanager
 def whole_step():
     """Within: the core of a fused whole step (``utils/fuse.py``), on the
     card (its warm-up and capture) or on the CPU."""
@@ -136,11 +188,12 @@ def _lib():
         lib.pyapes_while_begin.argtypes = [vp, vp, ctypes.POINTER(ull), ctypes.POINTER(vp)]
         lib.pyapes_capture_to_graph.argtypes = [vp, vp]
         lib.pyapes_while_end.argtypes = [vp, ull, vp]
+        lib.pyapes_graph_node_types.argtypes = [vp, ctypes.POINTER(ull)]
         lib.pyapes_loop_record.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp,
                                            ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
                                            ctypes.c_int]
         for f in (lib.pyapes_while_begin, lib.pyapes_capture_to_graph, lib.pyapes_while_end,
-                  lib.pyapes_loop_record):
+                  lib.pyapes_loop_record, lib.pyapes_graph_node_types):
             f.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -155,17 +208,18 @@ def _check(lib, err: int, what: str) -> None:
 _STREAMS: dict = {}
 
 
-def _stream(kind: str, device) -> torch.cuda.Stream:
+def _stream(kind: str, device, lane: int = 0) -> torch.cuda.Stream:
     """A stream of ``device`` kept for the process (``kind``: "body" for
-    loop bodies, "capture" for ``GraphedCall``), used once to run GEMMs in
-    each float dtype, so cuBLAS holds its handle and workspace for it
-    before any capture uses it."""
-    key = (kind, str(device))
+    loop bodies, "capture" for ``GraphedCall``; ``lane``: one per lane of a
+    capture), used once to run GEMMs in each float dtype (bf16 among them:
+    a multigrid cycle's transfers), so cuBLAS holds its handle and
+    workspace for it before any capture uses it."""
+    key = (kind, str(device), lane)
     if key not in _STREAMS:
         s = torch.cuda.Stream(device=device)
         s.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(s):
-            for dt in (torch.float32, torch.float64):
+            for dt in (torch.float32, torch.float64, torch.bfloat16):
                 a = torch.ones(8, 8, dtype=dt, device=device)
                 torch.matmul(a, a)
                 torch.matmul(a.view(2, 4, 8), a)
@@ -184,6 +238,9 @@ def while_loop(cond, body, device) -> None:
     if not _stack():
         raise GraphLoopError("graph_loop: a device loop needs a capture begun by GraphedCall")
     owner = _stack()[-1]
+    if len(owner.lanes) > 1:
+        _while_lanes(owner, cond, body)
+        return
     lib = _lib()
     device = torch.device(device)
     flag0 = cond().to(torch.bool).contiguous()
@@ -199,7 +256,7 @@ def while_loop(cond, body, device) -> None:
         try:
             # the body's allocations: a pool of the graph's own (the
             # capturing graph's pool serves its capture stream only)
-            with torch.cuda.use_mem_pool(owner.body_pool(), device):
+            with torch.cuda.use_mem_pool(owner.body_pool(device), device):
                 body()
                 flag = cond().to(torch.bool).contiguous()
         finally:
@@ -210,6 +267,84 @@ def while_loop(cond, body, device) -> None:
         _check(lib, err, "ending the body capture")
     owner.keep.extend((flag0, flag))
     nodes += 1
+
+
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+               "event_record", "ext_signal", "ext_wait", "mem_alloc", "mem_free",
+               "batch_mem_op", "conditional", "other", "memcpy_across_devices")
+
+
+def _node_types(lib, fn, handle) -> dict:
+    """The nodes of a graph (or of the graph a stream captures) by type."""
+    out = (ctypes.c_ulonglong * 16)()
+    _check(lib, fn(handle, out), "counting a graph's nodes")
+    return {name: n for name, n in zip(_NODE_TYPES, out) if n}
+
+
+def _lane_flags(c, owner) -> list:
+    """One 0-d bool per lane of ``owner`` from a condition: a replicated
+    scalar's replicas (``parallel.blocks.Replicated``) or a sequence of one
+    flag per lane."""
+    parts = getattr(c, "parts", c)
+    if not isinstance(parts, (list, tuple)) or len(parts) != len(owner.lanes):
+        raise GraphLoopError(f"graph_loop: a loop of {len(owner.lanes)} lanes needs one condition "
+                             f"per lane, got {type(c).__name__}")
+    out = []
+    for f, dev in zip(parts, owner.lanes):
+        if f.device != dev:
+            raise GraphLoopError(f"graph_loop: a lane on {dev} got its condition on {f.device}")
+        out.append(f.to(torch.bool).contiguous())
+    return out
+
+
+def _while_lanes(owner, cond, body) -> None:
+    """``while_loop`` under a capture of several lanes: a WHILE node on every
+    lane's graph, each lane's body stream current for its card (on one card,
+    the lanes' streams are ``owner.current``) while ``body()`` runs once."""
+    global nodes
+    lib = _lib()
+    flags0 = _lane_flags(cond(), owner)
+    outer = list(owner.current)
+    handles, graphs = [], []
+    for i, (dev, st) in enumerate(zip(owner.lanes, outer)):
+        handle, body_graph = ctypes.c_ulonglong(), ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            _check(lib, lib.pyapes_while_begin(st.cuda_stream, flags0[i].data_ptr(),
+                                               ctypes.byref(handle), ctypes.byref(body_graph)),
+                   f"adding the WHILE node of lane {i}")
+        handles.append(handle)
+        graphs.append(body_graph)
+    bodies = [_stream("body", dev, i) for i, dev in enumerate(owner.lanes)]
+    begun, flags = [], None
+    try:
+        for i, (dev, bs) in enumerate(zip(owner.lanes, bodies)):
+            with torch.cuda.device(dev):
+                _check(lib, lib.pyapes_capture_to_graph(bs.cuda_stream, graphs[i]),
+                       f"the body capture of lane {i}")
+            begun.append(i)
+        owner.current = bodies
+        with contextlib.ExitStack() as stack:
+            for dev in dict.fromkeys(owner.lanes):
+                stack.enter_context(torch.cuda.use_mem_pool(owner.body_pool(dev), dev))
+            for bs in bodies:
+                stack.enter_context(torch.cuda.stream(bs))
+            body()
+            flags = _lane_flags(cond(), owner)
+    finally:
+        owner.current = outer
+        errs = []
+        for i in begun:
+            end_flag = flags[i] if flags is not None else flags0[i]
+            with torch.cuda.device(owner.lanes[i]):
+                errs.append(lib.pyapes_while_end(bodies[i].cuda_stream, handles[i].value,
+                                                 end_flag.data_ptr()))
+    for i, err in enumerate(errs):
+        _check(lib, err, f"ending the body capture of lane {i}")
+    counts = [_node_types(lib, lib.pyapes_graph_node_types, g) for g in graphs]
+    owner.keep.extend((*flags0, *flags))
+    owner.flags.append(flags)
+    owner.body_nodes.append(counts)
+    nodes += len(owner.lanes)
 
 
 _RECORD_DTYPE = {torch.float32: 0, torch.float64: 1}
@@ -223,6 +358,12 @@ def loop_record(t, tol, itr, hist, go, max_it: int, tolerance: float | None = No
     (0-d bool, the loop's condition) becomes ``itr < max_it``, and ``t >
     tolerance`` (when given), and not ``t > stall_ratio * (the previous
     tol)`` (when given), and not ``stop`` (a 0-d bool, when given)."""
+    if isinstance(getattr(t, "parts", None), tuple):  # a replicated scalar: once per card
+        for i in range(len(t.parts)):
+            loop_record(t.parts[i], tol.parts[i], itr.parts[i], hist.parts[i], go.parts[i],
+                        max_it, tolerance, stall_ratio,
+                        None if stop is None else stop.parts[i])
+        return
     if t.device.type != "cuda":
         tn = t.double()
         hist.index_copy_(0, itr.view(1), tn.to(hist.dtype).view(1))
@@ -242,12 +383,15 @@ def loop_record(t, tol, itr, hist, go, max_it: int, tolerance: float | None = No
     flags = (1 if tolerance is not None else 0) | (2 if stall_ratio is not None else 0) | (
         4 if stop is not None else 0)
     lib = _lib()
-    stream = torch.cuda.current_stream(t.device)
-    _check(lib, lib.pyapes_loop_record(
-        stream.cuda_stream, _RECORD_DTYPE[t.dtype], t.data_ptr(), tol.data_ptr(), itr.data_ptr(),
-        hist.data_ptr(), go.data_ptr(), stop.data_ptr() if stop is not None else None,
-        int(max_it), float(tolerance) if tolerance is not None else 0.0,
-        float(stall_ratio) if stall_ratio is not None else 0.0, flags), "the loop record launch")
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device)
+        _check(lib, lib.pyapes_loop_record(
+            stream.cuda_stream, _RECORD_DTYPE[t.dtype], t.data_ptr(), tol.data_ptr(),
+            itr.data_ptr(), hist.data_ptr(), go.data_ptr(),
+            stop.data_ptr() if stop is not None else None, int(max_it),
+            float(tolerance) if tolerance is not None else 0.0,
+            float(stall_ratio) if stall_ratio is not None else 0.0, flags),
+            "the loop record launch")
     record_kernel("loop_record", tol)
 
 
@@ -268,22 +412,122 @@ def _abandon(graph, pool, device) -> None:
     ctypes.pythonapi.Py_IncRef(ctypes.py_object(graph))  # not even at the interpreter's exit
 
 
+COUNTER_CHUNK = 1 << 17
+"""Counters of ``ops.peer`` channels a lane's card holds per capture (1 MiB)."""
+
+
+def counter_slots(device, n: int) -> torch.Tensor:
+    """``n`` zeroed int64 counters on ``device`` for an ``ops.peer`` channel:
+    from the pool of the capture underway (zeroed before it began, kept as
+    long as its graphs, outside their memory pools), else fresh zeros."""
+    device = torch.device(device)
+    if not _stack() or device not in _stack()[-1].counters:
+        return torch.zeros(n, dtype=torch.int64, device=device)
+    owner = _stack()[-1]
+    pool, used = owner.counters[device]
+    if used + n > pool.numel():
+        raise GraphLoopError(f"graph_loop: the capture needs more than {pool.numel()} transfer "
+                             f"counters on {device} (graph_loop.COUNTER_CHUNK)")
+    owner.counters[device] = (pool, used + n)
+    return pool[used:used + n]
+
+
+_COPIES = ("_to_copy", "to", "copy_", "_copy_from", "_copy_from_and_resize")
+
+
+def _copy_devices(func, args, kwargs):
+    """``(source device, destination device)`` of a copy operator, else None."""
+    name = func.overloadpacket.__name__
+    if name not in _COPIES or not args or not isinstance(args[0], torch.Tensor):
+        return None
+    src = args[0].device
+    if name in ("copy_",):
+        other = args[1] if len(args) > 1 else kwargs.get("src")
+        return (other.device, src) if isinstance(other, torch.Tensor) else None
+    if name.startswith("_copy_from"):
+        dst = args[1] if len(args) > 1 else kwargs.get("dst")
+        return (src, dst.device) if isinstance(dst, torch.Tensor) else None
+    dst = kwargs.get("device")
+    for a in args[1:]:
+        if isinstance(a, torch.Tensor):
+            dst = a.device
+        elif isinstance(a, (torch.device, str)):
+            try:
+                dst = torch.device(a)
+            except RuntimeError:
+                continue
+    return (src, torch.device(dst)) if dst is not None else None
+
+
+def _site() -> str:
+    """The innermost frame of the caller's code (not torch's, not this
+    module's): ``file:line in function``."""
+    here = os.path.abspath(__file__)
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    for f in reversed(traceback.extract_stack()[:-2]):
+        fn = os.path.abspath(f.filename)
+        if fn != here and not fn.startswith(torch_dir):
+            return f"{f.filename}:{f.lineno} in {f.name}"
+    return "unknown"
+
+
+class _CrossDeviceCopies(TorchDispatchMode):
+    """Raise ``CrossCardCopy`` at a copy between two devices (a ``.to`` of
+    another device, a ``copy_`` from one): inside a capture of several
+    lanes such a copy records an event on one card and waits for it on
+    another, which would join the captures into one graph across cards.
+    Block vectors and replicated scalars are left to their own dispatch,
+    whose per-block operations this mode then sees."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(t is not torch.Tensor and issubclass(t, torch.Tensor) for t in types):
+            return NotImplemented
+        devs = _copy_devices(func, args, kwargs)
+        if devs is not None and devs[0] != devs[1]:
+            raise CrossCardCopy(
+                f"graph_loop: a copy from {devs[0]} to {devs[1]} ({func}) inside a capture of one "
+                f"graph per card, at {_site()}: move data between cards with "
+                "parallel.blocks.copy_into / transfer (the ops.peer kernels)")
+        return func(*args, **kwargs)
+
+
+def cross_device_copies():
+    """The check ``GraphedCall`` keeps on during a capture of several lanes
+    (``_CrossDeviceCopies``), as a context manager."""
+    return _CrossDeviceCopies()
+
+
 class GraphedCall:
     """``fn(*inputs) -> outputs`` (``inputs``: tensors; ``outputs``: a
     pytree of tensors) captured once into a CUDA graph and replayed.
+
+    ``lanes``: the devices of a capture of one graph per lane (see the
+    module docstring; a device may repeat: lanes on one card, each its own
+    stream); default one lane on ``device``.
 
     ``__call__`` returns ``fn``'s outputs: on the first call those of the
     eager warm-up, later the graph's static outputs, which the next replay
     overwrites (``clone`` what must outlive it)."""
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, lanes=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.lanes = tuple(torch.device(d) for d in lanes) if lanes else (self.device,)
         self.graph = None
+        self.graphs: list = []
         self.static_inputs = None
         self.static_outputs = None
         self.keep: list = []
-        self._body_pool = None
+        self._body_pools: dict = {}
+        self.counters: dict = {}
+        self.current: list = []
+        self.body_nodes: list = []
+        """Per WHILE node of a capture of several lanes, the nodes of each
+        lane's body graph by type."""
+        self.flags: list = []
+        """Per WHILE node of a capture of several lanes, each lane's
+        condition (its replica of the loop's exit, read after a replay)."""
         self.capture_s = 0.0
 
     def warm(self, *inputs):
@@ -291,12 +535,14 @@ class GraphedCall:
         with host_loops():
             return self.fn(*inputs)
 
-    def body_pool(self):
-        """The memory pool of this graph's loop bodies (made at the first
-        loop; lives as long as the graph)."""
-        if self._body_pool is None:
-            self._body_pool = torch.cuda.MemPool()
-        return self._body_pool
+    def body_pool(self, device=None):
+        """The memory pool of this graph's loop bodies on ``device`` (made at
+        the first loop; lives as long as the graph)."""
+        device = torch.device(device) if device is not None else self.device
+        if device not in self._body_pools:
+            with torch.cuda.device(device):
+                self._body_pools[device] = torch.cuda.MemPool()
+        return self._body_pools[device]
 
     def capture(self, *inputs) -> None:
         """Capture ``fn`` on static copies of ``inputs``; raises
@@ -304,6 +550,8 @@ class GraphedCall:
         and any other error as it is."""
         import time
 
+        if len(self.lanes) > 1:
+            return self._capture_lanes(*inputs)
         tic = time.perf_counter()
         _lib()  # built and loaded before the capture: its faults propagate
         self.static_inputs = [t.clone() for t in inputs]
@@ -338,25 +586,108 @@ class GraphedCall:
         except BaseException as e:
             self.static_inputs = None
             _abandon(g, pool, self.device)
-            if (not isinstance(e, RuntimeError) or isinstance(
-                    e, (CaptureError, GraphLoopError, NotImplementedError))
-                    or not _UNCAPTURABLE.search(str(e))):
-                raise
-            where = traceback.extract_tb(e.__traceback__)[-1]
-            raise CaptureError(f"{type(e).__name__} at {where.filename}:{where.lineno}: "
-                               f"{str(e).splitlines()[0]}") from e
+            _raise_capture_error(e)
         finally:
             if gc_on:
                 gc.enable()
         torch.cuda.current_stream(self.device).wait_stream(s)
         self.graph, self.static_outputs = g, out
+        self.graphs = [g]
+        self.capture_s = time.perf_counter() - tic
+
+    def _capture_lanes(self, *inputs) -> None:
+        """``capture`` of one graph per lane, all begun before ``fn`` runs
+        (relaxed capture mode: one lane's capture must not refuse the
+        calls that begin, end and instantiate another's) and ``fn`` run
+        once with every lane's stream current, under the cross-device copy
+        check."""
+        import time
+
+        from pyapes_tpu_torch.ops import peer
+
+        tic = time.perf_counter()
+        _lib()
+        peer.enable_peer_access(self.lanes)
+        self.static_inputs = [t.clone() for t in inputs]
+        streams = [_stream("capture", d, i) for i, d in enumerate(self.lanes)]
+        for i, d in enumerate(self.lanes):
+            _stream("body", d, i)
+        self.keep, self.flags, self.body_nodes = [], [], []
+        # the transfers' counters: zeroed before the capture, outside its pools
+        self.counters = {d: (torch.zeros(COUNTER_CHUNK, dtype=torch.int64, device=d), 0)
+                         for d in dict.fromkeys(self.lanes)}
+        for d in dict.fromkeys(self.lanes):
+            torch.cuda.synchronize(d)
+        for d, s in zip(self.lanes, streams):
+            s.wait_stream(torch.cuda.current_stream(d))
+        graphs = [torch.cuda.CUDAGraph() for _ in self.lanes]
+        pools = [torch.cuda.graph_pool_handle() for _ in self.lanes]
+        gc_on = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        begun = []
+        try:
+            try:
+                for g, s, p in zip(graphs, streams, pools):
+                    with torch.cuda.stream(s):
+                        g.capture_begin(pool=p, capture_error_mode="relaxed")
+                    begun.append(g)
+                _stack().append(self)
+                self.current = list(streams)
+                try:
+                    with contextlib.ExitStack() as stack:
+                        for s in streams:
+                            stack.enter_context(torch.cuda.stream(s))
+                        stack.enter_context(cross_device_copies())
+                        out = self.fn(*self.static_inputs)
+                finally:
+                    _stack().pop()
+                    self.current = []
+            except BaseException:
+                for g, s in zip(begun, streams):
+                    try:
+                        with torch.cuda.stream(s):
+                            g.capture_end()
+                    except RuntimeError:
+                        pass  # the capture was invalidated by the error
+                raise
+            for g, s in zip(graphs, streams):
+                with torch.cuda.stream(s):
+                    g.capture_end()
+        except BaseException as e:
+            self.static_inputs = None
+            for g, p, d in zip(graphs, pools, self.lanes):
+                _abandon(g, p, d)
+            _raise_capture_error(e)
+        finally:
+            if gc_on:
+                gc.enable()
+        for d, s in zip(self.lanes, streams):
+            torch.cuda.current_stream(d).wait_stream(s)
+        self.keep.append(self.counters)
+        self.graphs, self.static_outputs = graphs, out
+        self.graph = graphs[0]
         self.capture_s = time.perf_counter() - tic
 
     def replay(self, *inputs):
         for dst, src in zip(self.static_inputs, inputs):
             if src is not dst:
                 dst.copy_(src)
-        self.graph.replay()
+        if len(self.graphs) == 1:
+            self.graph.replay()
+            return self.static_outputs
+        # every lane's graph on its own stream (two lanes of one card must
+        # not share one: a put would wait for a wait queued behind it),
+        # ordered after the input copies and before what follows, back to
+        # back with no host wait
+        streams = [_stream("capture", d, i) for i, d in enumerate(self.lanes)]
+        for d, s in zip(self.lanes, streams):
+            s.wait_stream(torch.cuda.current_stream(d))
+        for g, s in zip(self.graphs, streams):
+            with torch.cuda.stream(s):
+                g.replay()
+        for d, s in zip(self.lanes, streams):
+            torch.cuda.current_stream(d).wait_stream(s)
         return self.static_outputs
 
     def __call__(self, *inputs):
@@ -367,3 +698,15 @@ class GraphedCall:
             self.capture(*inputs)
             return out
         return self.replay(*inputs)
+
+
+def _raise_capture_error(e: BaseException):
+    """Re-raise a capture's error: an operation a capture does not allow as
+    ``CaptureError``, any other as it is."""
+    if (not isinstance(e, RuntimeError) or isinstance(
+            e, (CaptureError, GraphLoopError, CrossCardCopy, NotImplementedError))
+            or not _UNCAPTURABLE.search(str(e))):
+        raise e
+    where = traceback.extract_tb(e.__traceback__)[-1]
+    raise CaptureError(f"{type(e).__name__} at {where.filename}:{where.lineno}: "
+                       f"{str(e).splitlines()[0]}") from e

@@ -64,12 +64,25 @@ counterpart of ``jax.device_put(x, dd.sharding(...))``, ``build`` makes
 each block on its device from its index ranges (no whole tensor
 anywhere); ``interior_mask`` builds the active-set mask block by block;
 ``apply_bcs_fn`` writes each BC's face rows into the blocks on that face.
+
+Per card (``graph_loop.per_card()``, the form a ``sync: False`` solve
+across cards captures as one CUDA graph per card): every scalar of a
+solver loop is a ``Replicated`` tensor, one replica on each card that
+holds blocks (``cards``), and a reduction puts each block's partial on
+every card, where it is combined in block order: the same operations in
+the same order as the lead device's combine, so every card holds the same
+bits and decides the loop's exit itself. An operation on block vectors
+takes a block's card's replica. Every copy between two devices goes
+through ``copy_into`` / ``transfer``: inside a capture of one graph per
+card, a ``ops.peer`` put on the source card and a wait on the destination
+card (``transfers_across``); elsewhere a plain copy.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils._pytree import tree_map
 
+from pyapes_tpu_torch.ops import graph_loop, peer
 from pyapes_tpu_torch.parallel.decomp import _resolve, pencil_plan
 
 aten = torch.ops.aten
@@ -95,6 +108,186 @@ repartition_bytes_within = 0
 host_gathers = 0
 """Block vectors assembled on the host from per-block copies (``.cpu()``,
 ``.numpy()``, ``np.asarray``, ``.item()``, ``host_gather``)."""
+transfers_across = 0
+"""Copies between two cards captured as an ``ops.peer`` put and wait
+(``copy_into`` inside a capture of one graph per card)."""
+transfer_bytes_across = 0
+"""Their bytes."""
+
+
+def copy_into(dst: torch.Tensor, src: torch.Tensor, across: bool | None = None) -> torch.Tensor:
+    """``dst.copy_(src)``, the one way data moves between devices here:
+    inside a capture of one graph per card (``graph_loop.lanes_capturing``)
+    a copy between two cards is ``ops.peer``'s put on the source card's
+    stream and its wait on the destination card's (counted in
+    ``transfers_across``); ``across`` (default: the devices differ) marks a
+    copy between two cards, which on the host (the CPU tests' stand-in,
+    ``per_card(blocks_as_cards=True)``) runs the plain put and wait."""
+    global transfers_across, transfer_bytes_across
+    if across is None:
+        across = src.device != dst.device
+    if not across:
+        return dst.copy_(src)
+    if graph_loop.lanes_capturing():
+        ch = peer.Channel.make(src.device, dst.device)
+        peer.peer_put(src, dst, ch)
+        peer.peer_wait(ch)
+        transfers_across += 1
+        transfer_bytes_across += src.numel() * src.element_size()
+    elif src.device.type == "cpu" and dst.device.type == "cpu":
+        peer.peer_put(src, dst)
+        peer.peer_wait(None, "cpu")
+    else:
+        dst.copy_(src)
+    return dst
+
+
+def transfer(t: torch.Tensor, device, across: bool | None = None) -> torch.Tensor:
+    """``t.to(device)`` through ``copy_into`` (``t`` itself where it lies
+    on ``device`` and ``across`` is not set)."""
+    device = torch.device(device)
+    if across is None:
+        across = t.device != device
+    if not across:
+        return t
+    if not graph_loop.lanes_capturing() and t.device != device:
+        return t.to(device)
+    return copy_into(torch.empty(t.shape, dtype=t.dtype, device=device), t, across=True)
+
+
+class Cards:
+    """The holders of a replicated scalar of a placed decomposition
+    (``cards``): ``devices`` one per replica, the lead's first; a block's
+    holder is the replica on its device, or (``by_block``, the CPU
+    stand-in) the block's own."""
+
+    def __init__(self, devices, by_block: bool):
+        self.devices = tuple(devices)
+        self.by_block = by_block
+
+    def holder(self, lay, b: int) -> int:
+        return b if self.by_block else self.devices.index(lay.blocks[b][2])
+
+
+_CARDS: dict = {}
+
+
+def cards(lay) -> Cards | None:
+    """The ``Cards`` of ``lay``'s decomposition under ``graph_loop.per_card``
+    (its lead device, then every other device of its blocks in block
+    order; per block under ``blocks_as_cards``), else None."""
+    mode = graph_loop.per_card_mode()
+    if mode is None:
+        return None
+    key = (lay.decomp, lay.lead, mode)
+    if key not in _CARDS:
+        devs = lay.devices if mode == "blocks" else tuple(dict.fromkeys((lay.lead,)
+                                                                        + lay.devices))
+        _CARDS[key] = Cards(devs, mode == "blocks")
+    return _CARDS[key]
+
+
+class Replicated(torch.Tensor):
+    """A tensor held once per card (``cards.devices``; ``parts``, the lead's
+    first), every replica computed by the same operations: a solver loop's
+    scalars under ``graph_loop.per_card``. An operation runs on every
+    replica (a plain operand moved to each card, ``transfer``); an
+    operation with block vectors takes each block's card's replica; a
+    host read reads the lead's."""
+
+    parts: tuple
+    cards: Cards
+
+    @staticmethod
+    def __new__(cls, parts, cards_: Cards):
+        p0 = parts[0]
+        t = torch.Tensor._make_wrapper_subclass(cls, tuple(p0.shape), dtype=p0.dtype,
+                                                device=p0.device, requires_grad=False)
+        t.parts = tuple(parts)
+        t.cards = cards_
+        return t
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __repr__(self, *, tensor_contents=None):
+        return (f"Replicated(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"replicas={len(self.parts)})")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        leaves = list(_leaves(args, kwargs))
+        if any(isinstance(t, BlockTensor) for t in leaves):
+            return NotImplemented
+        reps = [t for t in leaves if isinstance(t, Replicated)]
+        cs = reps[0].cards
+        if any(r.cards is not cs for r in reps):
+            raise ValueError("blocks: replicated scalars of two placements in one operation")
+        if func is aten._local_scalar_dense.default:
+            return func(args[0].parts[0])
+        outs = []
+        for h, dev in enumerate(cs.devices):
+            def local(t, h=h, dev=dev):
+                if isinstance(t, Replicated):
+                    return t.parts[h]
+                if isinstance(t, torch.Tensor):
+                    return transfer(t, dev)
+                return t
+
+            kw = {k: tree_map(local, v) for k, v in kwargs.items()}
+            if kw.get("device") is not None:
+                kw["device"] = dev
+            outs.append(func(*tree_map(local, list(args)), **kw))
+        mutated = _mutated(func, args, kwargs)
+        if mutated:
+            return mutated[0] if len(mutated) == 1 else tuple(mutated)
+        if isinstance(outs[0], torch.Tensor):
+            return Replicated(outs, cs)
+        if isinstance(outs[0], (tuple, list)):
+            return type(outs[0])(Replicated([o[i] for o in outs], cs)
+                                 if isinstance(outs[0][i], torch.Tensor) else outs[0][i]
+                                 for i in range(len(outs[0])))
+        return outs[0]
+
+
+def lead_replica(t):
+    """The lead card's replica of a ``Replicated`` tensor; anything else as
+    it is."""
+    return t.parts[0] if isinstance(t, Replicated) else t
+
+
+def replicated(make, x):
+    """``make(device)`` on every card of the block vector ``x`` under
+    ``graph_loop.per_card`` (a ``Replicated``), else ``make(x.device)``."""
+    cs = cards(x.placement) if isinstance(x, BlockTensor) else None
+    if cs is None:
+        return make(x.device)
+    return Replicated([make(d) for d in cs.devices], cs)
+
+
+def _combine_everywhere(partials, lay, cs: Cards, combine):
+    """Per-block partials ``[(b, p), ...]`` (in block order, each on its
+    block's device) combined on every card of ``cs`` in block order: each
+    card stacks the partials of its own blocks once and puts the stack on
+    every other card (``copy_into``), then every card folds them all with
+    ``combine`` in block order, as the lead's combine does: the same bits
+    on every card."""
+    own: dict = {}
+    for b, p in partials:
+        own.setdefault(cs.holder(lay, b), []).append((b, p))
+    stacks = {h: torch.stack([p for _, p in lst]) for h, lst in own.items()}
+    out = []
+    for g, dev in enumerate(cs.devices):
+        got = {}
+        for h, lst in own.items():
+            st = stacks[h] if h == g else transfer(stacks[h], dev, across=True)
+            for i, (b, _) in enumerate(lst):
+                got[b] = st[i]
+        acc = None
+        for b, _ in partials:
+            acc = got[b] if acc is None else combine(acc, got[b])
+        out.append(acc)
+    return Replicated(out, cs)
 
 
 class Layout:
@@ -399,7 +592,7 @@ def _roll(args, kwargs, lay: Layout):
                 o = lay.along(b, j, k)
                 o_sl = lay.blocks[o][1][j]
                 m = min(sl[j].stop - i, o_sl.stop - src)
-                pieces.append(x.parts[o].narrow(dim, src - o_sl.start, m).to(dev))
+                pieces.append(transfer(x.parts[o].narrow(dim, src - o_sl.start, m), dev))
                 i += m
             parts.append(torch.cat(pieces, dim))
         x = BlockTensor(parts, lay, x.shape)
@@ -427,7 +620,7 @@ def append_seam(x, axis: int):
     for b, (c, _, dev) in enumerate(lay.blocks):
         p = x.parts[b]
         if c[j] == lay.ms[j] - 1:
-            first = x.parts[lay.along(b, j, 0)].narrow(axis, 0, 1).to(dev)
+            first = transfer(x.parts[lay.along(b, j, 0)].narrow(axis, 0, 1), dev)
             parts.append(torch.cat([p, first], dim=axis))
         else:
             parts.append(p.clone())
@@ -495,12 +688,14 @@ def _map(func, args, kwargs, lay: Layout):
         def local(t, b=b, dev=dev):
             if isinstance(t, BlockTensor):
                 return t.parts[b]
+            if isinstance(t, Replicated):  # the replica on the block's card
+                return t.parts[t.cards.holder(lay, b)]
             if not isinstance(t, torch.Tensor):
                 return t
             idx = lay.index(t.shape, b)
             key = (id(t), tuple((s.start, s.stop) for s in idx), dev)
             if key not in moved:  # once per use and device
-                moved[key] = t[idx].to(dev)
+                moved[key] = transfer(t[idx], dev)
             return moved[key]
 
         kw = {k: local(v) for k, v in kwargs.items()}
@@ -530,6 +725,10 @@ def _reduce(func, args, kwargs, lay: Layout):
         if not set(range(1, x.dim())) <= dims:
             return NotImplemented
     combine = _REDUCE[func]
+    cs = cards(lay)
+    if cs is not None:  # combined on every card
+        return _combine_everywhere([(b, func(x.parts[b], *args[1:], **kwargs))
+                                    for b in lay.owners(x.shape)], lay, cs, combine)
     acc = None
     for b in lay.owners(x.shape):
         p = func(x.parts[b], *args[1:], **kwargs).to(lay.lead)
@@ -591,7 +790,7 @@ def scatter(t: torch.Tensor, lay: Layout) -> BlockTensor:
     parts = []
     for b, (_, _, dev) in enumerate(lay.blocks):
         src = t[lay.index(shape, b)]
-        parts.append(torch.empty(src.shape, dtype=t.dtype, device=dev).copy_(src))
+        parts.append(copy_into(torch.empty(src.shape, dtype=t.dtype, device=dev), src))
     return BlockTensor(parts, lay, shape)
 
 
@@ -686,7 +885,7 @@ def _write_at(x, idx, value, add: bool) -> None:
     for b, (_, _, dev) in enumerate(lay.blocks):
         loc = _local(lay, x.shape, idx, b)
         if loc is not None:
-            part = (v[loc[1]] if v.dim() else v).to(dev)
+            part = transfer(v[loc[1]] if v.dim() else v, dev)
             if add:
                 x.parts[b][loc[0]] += part
             else:
@@ -705,7 +904,7 @@ def take(x, idx) -> torch.Tensor:
     for b in lay.owners(x.shape):
         loc = _local(lay, x.shape, idx, b)
         if loc is not None:
-            out[loc[1]] = x.parts[b][loc[0]]
+            copy_into(out[loc[1]], x.parts[b][loc[0]])
     return out
 
 
@@ -767,7 +966,7 @@ def move_parts(parts: list, src: Layout, to: Layout, shape) -> list:
             if box is None:
                 continue
             piece = parts[b][local(box, ssl)]
-            part[local(box, dsl)].copy_(piece)
+            copy_into(part[local(box, dsl)], piece)
             n = piece.numel() * piece.element_size()
             if sdev == ddev:
                 repartition_bytes_within += n
@@ -804,7 +1003,7 @@ def gather(x, count: bool = True, out=None) -> torch.Tensor:
     if out is None:
         out = torch.empty(x.shape, dtype=x.dtype, device=lay.lead)
     for b in lay.owners(x.shape):
-        out[lay.index(x.shape, b)].copy_(x.parts[b])
+        copy_into(out[lay.index(x.shape, b)], x.parts[b])
     return out
 
 
@@ -820,12 +1019,19 @@ def l2_per_dim(x: BlockTensor) -> torch.Tensor:
     """Per-component 2-norm over the grid: per-block norms, their squares
     summed on the lead device in block order, the root taken there."""
     lay = x.placement
+
+    def sq(p):
+        n = torch.linalg.vector_norm(p.reshape(p.shape[0], -1), dim=1)
+        return n * n
+
+    cs = cards(lay)
+    if cs is not None:  # combined on every card
+        return torch.sqrt(_combine_everywhere([(b, sq(x.parts[b])) for b in lay.owners(x.shape)],
+                                              lay, cs, torch.add))
     acc = None
     for b in lay.owners(x.shape):
-        p = x.parts[b]
-        n = torch.linalg.vector_norm(p.reshape(p.shape[0], -1), dim=1)
-        sq = (n * n).to(lay.lead)
-        acc = sq if acc is None else acc + sq
+        s = sq(x.parts[b]).to(lay.lead)
+        acc = s if acc is None else acc + s
     return torch.sqrt(acc)
 
 
@@ -860,7 +1066,7 @@ def _face_part(v, sl, a: int, dev, lay: Layout):
     idx = tuple(sl[others[p + off]] if lay.cut[others[p + off]]
                 and n == lay.grid[others[p + off]] else slice(None)
                 for p, n in enumerate(v.shape))
-    return v[idx].to(dev)
+    return transfer(v[idx], dev)
 
 
 _OBSTACLES = ("obstacle_dirichlet", "obstacle_neumann")
@@ -912,7 +1118,7 @@ def apply_bcs_fn(bcs, grid, lay: Layout, plain):
                 for b, (coord, _, dev) in enumerate(lay.blocks):
                     if bc.bc_n_dir > 0 and coord[a] == lay.ms[a] - 1:
                         src = x.parts[lay.along(b, a, 0)].select(1 + a, 0)
-                        x.parts[b].select(1 + a, -1).copy_(src.to(dev))
+                        copy_into(x.parts[b].select(1 + a, -1), src)
                 continue
             if vals is None and not bc.streamable and bc.bc_type != "symmetry":
                 # per_iteration: the value of the iterate as it is now

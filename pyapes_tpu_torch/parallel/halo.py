@@ -74,7 +74,7 @@ import torch
 from pyapes_tpu_torch.ops.advect import advect_pair, conv_component
 from pyapes_tpu_torch.ops.axis_stencil import axis_stencil, axis_stencil_ext
 from pyapes_tpu_torch.ops.diff_field import diff_field, diff_jacobi
-from pyapes_tpu_torch.parallel.blocks import BlockTensor
+from pyapes_tpu_torch.parallel.blocks import BlockTensor, copy_into, transfer
 from pyapes_tpu_torch.utils.device_cache import block_coeffs, per_solve
 
 exchange_bytes = 0
@@ -303,7 +303,7 @@ def line_rows(x: BlockTensor, b: int, j: int, ranges) -> torch.Tensor:
             piece = x.parts[k].narrow(1 + j, rm - c * size, cnt)
             if k != b:
                 transfer_ghost_bytes += piece.numel() * piece.element_size()
-                piece = piece.to(dev)
+                piece = transfer(piece, dev)
             pieces.append(piece)
             r += cnt
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1 + j)
@@ -355,8 +355,9 @@ def exchange_block(x: BlockTensor, b: int, ext, buffers: dict) -> torch.Tensor:
     for j, e in enumerate(ext):
         if e:
             lo, hi = _ghost_faces(x, b, j)
-            buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = lo
-            buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = hi
+            copy_into(buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])], lo)
+            copy_into(buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])],
+                      hi)
             _count(xb.device, lo, hi)
     return buf
 
@@ -384,7 +385,7 @@ def _apply_placed(coeffs, x: BlockTensor, ndim_mesh: int, buffers: dict) -> Bloc
         for j in patch:
             lo, hi = _ghost_faces(x, b, j)
             _count(dev, lo, hi)
-            ghosts.append((j, lo.to(dev), hi.to(dev)))
+            ghosts.append((j, transfer(lo, dev), transfer(hi, dev)))
         _patch_face_rows(ob, xb, cs, ghosts)
         outs.append(ob)
     placed_applies += 1
@@ -547,7 +548,7 @@ def _operand_faces(a: BlockTensor) -> list:
     on it (``device_cache.per_solve``), so an apply moves none of them."""
     def make():
         lay = a.placement
-        return [[tuple(f.to(dev).contiguous() for f in _ghost_faces(a, b, j))
+        return [[tuple(transfer(f, dev).contiguous() for f in _ghost_faces(a, b, j))
                  if lay.cut[j] else None for j in range(len(lay.grid))]
                 for b, (_, _, dev) in enumerate(lay.blocks)]
 
@@ -577,7 +578,7 @@ def _advect_placed(x: BlockTensor, adv: BlockTensor, base, kernel, block_fixes,
             if lay.cut[j]:
                 lo, hi = _ghost_faces(x, b, j)
                 _count(dev, lo, hi)
-                block_fixes(o, xb, ab, bs, coord, j, (lo.to(dev), hi.to(dev)),
+                block_fixes(o, xb, ab, bs, coord, j, (transfer(lo, dev), transfer(hi, dev)),
                             a_faces[b][j] if conservative else None)
         outs.append(o)
     placed_applies += 1
@@ -653,11 +654,12 @@ def _halo_block(x: BlockTensor, b: int, sides, buffers: dict, role: str, faces: 
             continue
         glo, ghi = _ghost_faces(x, b, j)
         if lo:
-            buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])] = glo
+            copy_into(buf[tuple(inner[:1 + j] + [slice(0, 1)] + inner[2 + j:])], glo)
             if count:
                 _count(xb.device, glo)
         if hi:
-            buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])] = ghi
+            copy_into(buf[tuple(inner[:1 + j] + [slice(shape[1 + j] - 1, None)] + inner[2 + j:])],
+                      ghi)
             if count:
                 _count(xb.device, ghi)
     return buf

@@ -51,13 +51,14 @@ def build_bicgstab(Aop, apply_bcs, M, tolerance, max_it, criterion, precond=None
         r = r0.clone()
         p = torch.zeros_like(r)
         v = torch.zeros_like(r)
-        one = torch.ones((r.shape[0],) + (1,) * (r.ndim - 1), dtype=r.dtype, device=r.device)
-        rho, alpha, omega = one.clone(), one.clone(), one.clone()
         rho_next = _vsum(r0 * r0)
+        # (vdim, 1, ..., 1) ones where rho_next lives (on every card, per card)
+        one = torch.ones_like(rho_next)
+        rho, alpha, omega = one.clone(), one.clone(), one.clone()
         tol, itr, hist, go = loop_state(x, max_it, max_it > 0)
         tol.copy_(torch.sqrt(rho_next.max().double()))
         best_x, best_tol = x.clone(), torch.full_like(tol, float("inf"))
-        finished = torch.zeros((), dtype=torch.bool, device=x.device)
+        finished = torch.zeros_like(go)
 
         def tol_of(vec):
             t = _l2_per_dim(vec).max()

@@ -44,11 +44,19 @@ gather per application; ``debug: "nan"`` checks each block on its own
 device; ``donate`` works in the blocks it is given (a block Field's own),
 or gathers a whole Field's solution into its ``x0``. A placed ``sync:
 False`` solve on the card is one CUDA graph of the solve call (the
-entry's scatter and the exit's gather inside it), and a placed solve runs
-inside a capture or a fused whole step, all with every block on the lead
-card: blocks on another card raise, naming A11f (across cards: the
-runtime refuses a WHILE body that spans cards); blocks on the host run a
-``sync: False`` solve as the host loop and raise in a graph
+entry's scatter and the exit's gather inside it) where every block lies on
+the lead card; where the blocks lie on several cards it is one graph per
+card (``graph_loop.GraphedCall``'s lanes), each card's loops WHILE nodes
+of its own graph that end on its own replica of the loop's exit (the
+per-card form, ``graph_loop.per_card``: every scalar replicated, every sum
+combined on every card in block order, every move between cards an
+``ops.peer`` put and wait), the entry's scatter and the exit's gather
+ordinary copies before the launches and after them. A placed solve runs
+inside a capture or a fused whole step with every block on the lead card;
+across cards those raise, naming A11f (across cards: captures and fused
+whole steps), and so does a multigrid cycle narrower than the solve or an
+FMG start in a solve across cards (``_check_across``); blocks on the host
+run a ``sync: False`` solve as the host loop and raise in a graph
 (``_check_placed``). Immersed obstacles (``ObstacleDirichlet``, static or
 dynamic, and ``ObstacleNeumann``) leave the active set; under a torus
 reduction their masks are reduced too, every call, and a body on the
@@ -93,6 +101,7 @@ from pyapes_tpu_torch.ops.graph_loop import (
     host_loops,
     in_whole_step,
     keep_alive,
+    per_card,
     use_host_loops,
 )
 from pyapes_tpu_torch.utils import device_cache
@@ -288,40 +297,61 @@ def _check_decomp(decomp, x0) -> None:
             )
 
 
-# the CUDA runtime's answer to a device-ended loop whose body launches a
-# kernel on a second card: the graph's instantiation at the capture's end
-# fails (``scripts/probe_loop_across_cards_torch.py`` on four H100s, torch
-# 2.11 / CUDA 12.8; a body whose only work there is peer copies instantiates
-# and its replay fails with "CUDA error: unspecified launch failure")
-_ACROSS_CARDS = "CUDA error: invalid argument"
+def _cards(x0, decomp) -> set:
+    """The cards of a placed solve: its lead's and its blocks'."""
+    return {d for d in (x0.device, *decomp.devices) if d.type == "cuda"}
 
 
-def _check_placed(x0, sync, decomp) -> None:
+def _check_placed(x0, decomp) -> None:
     """Raise ``NotImplementedError`` for the graphs a placed decomposition
     does not take, naming ``ROADMAP.md`` A11f: every method, term and option
-    runs eagerly (``sync: True``), and a graph on the card (``sync: False``,
-    a capture, a fused whole step) holds the solve's loops as WHILE nodes of
-    the lead card: every block on that card, none on another card (the
-    runtime refuses a loop body that spans cards) and, under a capture or in
-    a whole step, none on the host (a host block's work cannot join a
-    graph)."""
+    runs eagerly (``sync: True``) and as a ``sync: False`` solve, across
+    cards too (one graph per card); a user's capture or a fused whole step
+    holds the solve's loops as WHILE nodes of the lead card's one graph:
+    every block on that card, none on another card (one graph per card
+    inside a user's capture or a whole step is not ported) and none on the
+    host (a host block's work cannot join a graph)."""
     graph = capturing(x0.device) or in_whole_step()
-    if sync and not graph:
+    if not graph:
         return
-    cards = {d for d in (x0.device, *decomp.devices) if d.type == "cuda"}
+    cards = _cards(x0, decomp)
     if len(cards) > 1:
         raise NotImplementedError(
-            "linalg: sync: False, a CUDA graph or a fused whole step on a placed decomposition "
-            f"whose blocks lie on more than one card ({sorted(map(str, cards))}) is not ported "
-            "(ROADMAP.md A11f (across cards)): the solve's loops end on the device as WHILE "
-            "nodes of one card, and the CUDA runtime refuses a WHILE body that launches work "
-            f"on another card ({_ACROSS_CARDS!r} at the graph's instantiation); place the "
-            "blocks on one card, or solve with sync: True")
-    if graph and x0.device.type == "cuda" and any(d.type != "cuda" for d in decomp.devices):
+            "linalg: a CUDA graph capture or a fused whole step holding a solve on a placed "
+            f"decomposition whose blocks lie on more than one card ({sorted(map(str, cards))}) "
+            "is not ported (ROADMAP.md A11f (across cards): captures and fused whole steps): a "
+            "sync: False solve across cards runs as one graph per card, but a step or a user's "
+            "capture is one graph of one card; place the blocks on one card, or step eagerly "
+            "(model.run(fused=False)) with sync: False solves")
+    if x0.device.type == "cuda" and any(d.type != "cuda" for d in decomp.devices):
         raise NotImplementedError(
             "linalg: a CUDA graph or a fused whole step on a placed decomposition with blocks "
             "on the host is not ported (ROADMAP.md A11f): a host block's work cannot join a "
             "graph of the card; step eagerly (model.run(fused=False))")
+
+
+def _check_across(config, x0) -> None:
+    """Raise ``NotImplementedError`` (naming ``ROADMAP.md`` A11f) for the one
+    option a ``sync: False`` solve across cards does not take: a multigrid
+    preconditioner whose cycle runs narrower than the solve (bf16 / f16)
+    or starts from FMG. On four H100s (torch 2.11, CUDA 12.8) the first
+    replay of the per-card graphs of bench's bf16 V(2,2) FMG MG-PCG at
+    512^3 segfaulted inside ``cudaGraphLaunch`` (at 64^3 on two cards it
+    ran); the cycle in the solve's dtype without FMG runs at 512^3."""
+    from pyapes_tpu_torch.solver.multigrid import _as_torch_dtype
+
+    if str(config.get("precond")).lower() != "mg":
+        return
+    opts = config.get("mg_opts") or {}
+    cycle = opts.get("dtype")
+    narrow = cycle is not None and _as_torch_dtype(cycle).itemsize < x0.dtype.itemsize
+    if narrow or opts.get("fmg"):
+        raise NotImplementedError(
+            "linalg: a sync: False solve across cards with a multigrid cycle narrower than the "
+            f"solve ({cycle}) or an FMG start (fmg: {bool(opts.get('fmg'))}) is not ported "
+            "(ROADMAP.md A11f (across cards)): the first replay of its graphs segfaulted inside "
+            "cudaGraphLaunch on four H100s at 512^3; solve with sync: True, or with the cycle "
+            "in the solve's dtype and fmg off")
 
 
 def _place_operands(tparams, lay) -> tuple:
@@ -436,7 +466,7 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     debug = config.get("debug") == "nan"
     placed = decomp is not None and decomp.placed
     if placed:
-        _check_placed(x0, sync, decomp)
+        _check_placed(x0, decomp)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
@@ -467,11 +497,22 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
                and not use_host_loops() and not debug
                and not (placed and any(d.type != "cuda" for d in decomp.devices)))
+    # blocks on several cards: one graph per card, the entry's scatter and
+    # the exit's gather outside them
+    across = graphed and placed and len(_cards(x0, decomp)) > 1
+    if across:
+        _check_across(config, x0)
     # donate: the loop works in the initial guess's storage (an eager solve
     # of a contiguous x0; the torus reduction's x0 is a strided view whose
     # solution is re-assembled, and a graph works in its own buffers)
     donate = bool(config.get("donate")) and not (
         paxes or graphed or capturing(x0.device) or in_whole_step() or not x0.is_contiguous())
+
+    def run_cards(xb, rb, tparams_b, bc_vals):
+        # the per-card form (replicated scalars, sums on every card, moves
+        # between cards through ops.peer) of the built loop, on blocks
+        with per_card():
+            return fn(xb, rb, tparams_b, bc_vals, donate=False)
 
     def run(x0, rhs, tparams, bc_vals):
         if placed:
@@ -504,6 +545,21 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         # the loop on the host, every operation and hand kernel checked
         with host_loops(), nan_check():
             x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
+    elif across:
+        # across cards: the entry's scatter, one graph per card (captured
+        # at the first call of its key), the exit's gather
+        global entry_scatters, exit_gathers
+        entry_scatters += sum(not isinstance(t, blocks.BlockTensor) for t in (x0, rhs))
+        exit_gathers += not on_blocks
+        with per_card():
+            lanes = blocks.cards(lay).devices
+        xb, itr, tol_final, hist = _graphed_solve(
+            run_cards, (config, mesh, method, term_descs, bcs, paxes),
+            (blocks.scatter(x0, lay), blocks.scatter(rhs, lay), _place_operands(tparams, lay),
+             bc_vals), lanes)
+        x_final = xb if on_blocks else blocks.gather(xb, count=False)
+        for j in paxes:  # re-append the duplicate seam node (a face copy on blocks)
+            x_final = blocks.append_seam(x_final, 1 + j)
     elif graphed:
         # a sync: False solve outside a captured step: one graph of the
         # whole solve call, captured at the first call of its key
@@ -511,6 +567,8 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
             run, (config, mesh, method, term_descs, bcs, paxes), (x0, rhs, tparams, bc_vals))
     else:
         x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
+    # per card, the report's scalars are the lead card's replicas
+    itr, tol_final, hist = (blocks.lead_replica(t) for t in (itr, tol_final, hist))
 
     if not sync:
         # no host read: itr / tol stay device scalars (NaN detection is
@@ -599,28 +657,30 @@ def _signature(tree, tensors, refs: list):
     return ("obj", id(tree))
 
 
-def _graph_key(static, template, tensors, refs):
+def _graph_key(static, template, tensors, refs, lanes=None):
     config, mesh, method, term_descs, bcs, paxes = static
     cfg = tuple((k, _signature(config[k], tensors, refs)) for k in sorted(config))
     return (cfg, _signature(mesh, tensors, refs), method,
             _signature(term_descs, tensors, refs), _signature(tuple(bcs), tensors, refs),
-            tuple(paxes), _signature(template, tensors, refs))
+            tuple(paxes), _signature(template, tensors, refs),
+            tuple(map(str, lanes)) if lanes else None)
 
 
-def _graphed_solve(run, static, args):
-    """``run(*args)`` through the graph of its key: the first call warms
-    and captures it (and returns the eager result), later calls copy the
-    per-call tensors in and replay. Outputs are cloned: the next replay
-    overwrites the graph's own."""
+def _graphed_solve(run, static, args, lanes=None):
+    """``run(*args)`` through the graph of its key (``lanes``: the cards of
+    one graph per card, ``GraphedCall``): the first call warms and captures
+    it (and returns the eager result), later calls copy the per-call
+    tensors in and replay. Outputs are cloned (of a replicated scalar, the
+    lead card's replica): the next replay overwrites the graph's own."""
     tensors: list = []
     template = _split(args, tensors)
     refs: list = []
-    key = _graph_key(static, template, tensors, refs)
+    key = _graph_key(static, template, tensors, refs, lanes)
     if key not in _GRAPH_CACHE:
-        _GRAPH_CACHE[key] = (GraphedCall(lambda *ts: run(*_fill(template, ts)), tensors[0].device),
-                             refs)
+        _GRAPH_CACHE[key] = (GraphedCall(lambda *ts: run(*_fill(template, ts)), tensors[0].device,
+                                         lanes=lanes), refs)
         while len(_GRAPH_CACHE) > _GRAPH_CACHE_MAX:
             _GRAPH_CACHE.popitem(last=False)
     _GRAPH_CACHE.move_to_end(key)
     out = _GRAPH_CACHE[key][0](*tensors)
-    return tuple(o.clone() for o in out)
+    return tuple(blocks.lead_replica(o).clone() for o in out)

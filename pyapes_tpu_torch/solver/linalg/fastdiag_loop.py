@@ -13,14 +13,16 @@ On a placed decomposition the vectors are block vectors
 (``parallel/blocks.py``): the residual is the placed apply, the
 eigen-solve ``FastDiag.solve_blocks`` (pencil repartitions between the
 blocks' devices), the update a masked whole-block one, and the mean
-projection sums per-block partials in block order.
+projection sums per-block partials in block order. Per card
+(``graph_loop.per_card``) the loop's scalars are replicated on every card
+and the sums combined on each (``blocks.Replicated``).
 """
 from __future__ import annotations
 
 import torch
 
 from pyapes_tpu_torch.ops.graph_loop import loop_record, while_loop
-from pyapes_tpu_torch.parallel.blocks import BlockTensor, l2_per_dim
+from pyapes_tpu_torch.parallel.blocks import BlockTensor, l2_per_dim, replicated
 
 
 def _l2_per_dim(x: torch.Tensor) -> torch.Tensor:
@@ -38,12 +40,14 @@ def loop_state(x: torch.Tensor, max_it: int, go: bool):
     """The scalar state of a solver loop on ``x``'s device: the tolerance
     (float64, 1.0), the iteration count (int64, 0), the convergence history
     (float32, ``max_it`` NaNs, as the JAX loops keep it) and the loop's
-    condition (bool, ``go``), which ``graph_loop.loop_record`` updates."""
-    dev = x.device
-    return (torch.ones((), dtype=torch.float64, device=dev),
-            torch.zeros((), dtype=torch.int64, device=dev),
-            torch.full((max_it,), float("nan"), dtype=torch.float32, device=dev),
-            torch.full((), bool(go), dtype=torch.bool, device=dev))
+    condition (bool, ``go``), which ``graph_loop.loop_record`` updates.
+    Per card (``graph_loop.per_card``), each is replicated on every card
+    of ``x``'s blocks (``blocks.replicated``)."""
+    return (replicated(lambda dev: torch.ones((), dtype=torch.float64, device=dev), x),
+            replicated(lambda dev: torch.zeros((), dtype=torch.int64, device=dev), x),
+            replicated(lambda dev: torch.full((max_it,), float("nan"), dtype=torch.float32,
+                                              device=dev), x),
+            replicated(lambda dev: torch.full((), bool(go), dtype=torch.bool, device=dev), x))
 
 
 def build_fastdiag(

@@ -484,7 +484,8 @@ class ObstacleDirichlet:
             for b, part in enumerate(var.parts):
                 v = val
                 if isinstance(val, torch.Tensor):  # cut to the block, on its device
-                    v = (val[lay.index(val.shape, b)] if val.dim() else val).to(part.device)
+                    v = blocks.transfer(val[lay.index(val.shape, b)] if val.dim() else val,
+                                        part.device)
                 self._pin(part, mask.parts[b][0], v, var_dim)
             return var
         if vals is not None:
@@ -733,7 +734,8 @@ class ObstacleNeumann:
                     continue
                 dst, pos1, pos2, scale, fetch = bp
                 dev = out.parts[b].device
-                pool = torch.cat([out.parts[o].view(c, -1)[:, cells].to(dev)
+                blocks = _blocks_mod()
+                pool = torch.cat([blocks.transfer(out.parts[o].view(c, -1)[:, cells], dev)
                                   for o, cells in fetch], dim=1)
                 new = (4.0 * pool[:, pos1] - pool[:, pos2]) / 3.0
                 if shift_val and self.bc_val != 0.0:

@@ -2329,25 +2329,110 @@ def test_cuda_placed_graphs_on_card_and_cpu_blocks(cuda):
         m2.run(dt, 2, fused=True)
 
 
-def test_cuda_placed_graphs_across_two_cards(cuda):
-    """Blocks round robin over cuda:0 and cuda:1 (skips on one card): the
-    runtime refuses a WHILE body that spans cards (the probe of
-    ``scripts/probe_loop_across_cards_torch.py``), so a ``sync: False``
-    solve and a fused step raise ``NotImplementedError`` naming "A11f
-    (across cards)" rather than run a host loop or eager steps; ``sync:
-    True`` solves there still run."""
+@pytest.mark.parametrize("kind", ["cg", "mg", "fastdiag", "cg_fd", "darcy"])
+def test_cuda_placed_graphs_across_two_cards(cuda, kind):
+    """Blocks round robin over cuda:0 and cuda:1 (skips on one card): a
+    ``sync: False`` solve is one CUDA graph per card (the loops WHILE nodes
+    of each card's graph, the blocks joined by ``ops.peer``'s put and wait
+    kernels); the first call warms and captures, then 3 replays each give
+    the ``sync: True`` solve's ``itr`` and bits on the same cards, with no
+    host sync; a fused step across the cards still raises
+    ``NotImplementedError`` naming "A11f (across cards)"."""
+    from pyapes_tpu_torch.ops import graph_loop, peer
+
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip(f"needs two cards; this machine shows {n}")
     devs = ("cuda:0", "cuda:1") * 4
-    solve = _placed_graph_problem(cuda, "mg", "blocks", devs)
-    _, rref = solve(True)
+    solve = _placed_graph_problem(cuda, kind, "blocks" if kind != "cg" else "whole", devs)
+    ref, rref = solve(True)
     assert rref["converge"]
-    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
-        solve(False)
+    puts = peer.peer_put.launches
+    solve(False)  # the warm-up and the capture
+    assert peer.peer_put.launches > puts
+    nodes = graph_loop.nodes
+    for _ in range(3):
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, rep = solve(False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert isinstance(rep["itr"], torch.Tensor) and rep["itr"].dim() == 0
+        assert int(rep["itr"]) == rref["itr"] and float(rep["tol"]) == rref["tol"]
+        assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert graph_loop.nodes == nodes  # replays, not captures
     _, m2, dt = _fused_placed_models(cuda, devs, n=17)
     with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
         m2.run(dt, 2, fused=True)
+
+
+# -- the peer put / wait kernels ---------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_peer_put_wait_equal_plain(cuda, dtype):
+    """``peer_put`` + ``peer_wait`` on one card (the put on one stream, the
+    wait on another) against the plain ``dst.copy_(src)``: every ghost face
+    of a (4, 2, 1) block of 64^3 into its slot of the halo-extended buffer,
+    a block into its place in the whole grid, stacked partials; bits equal,
+    the rest of the destination untouched; one channel reused 3 times (its
+    counters only grow)."""
+    from pyapes_tpu_torch.ops import peer
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    block = torch.randn((2, 16, 32, 64), generator=g).to(cuda, dtype)
+    cases = []
+    for j in range(3):
+        shape = [2] + [n + 2 * (k == j) for k, n in enumerate((16, 32, 64))]
+        buf = torch.zeros(shape, dtype=dtype, device=cuda)
+        idx = [slice(None)] + [slice(0, 1) if k == j else slice(int(k == j), int(k == j) + n)
+                               for k, n in enumerate((16, 32, 64))]
+        cases.append((block.narrow(1 + j, 15 if j == 0 else (31 if j == 1 else 63), 1), buf,
+                      buf[tuple(idx)]))
+    whole = torch.zeros((2, 64, 64, 64), dtype=dtype, device=cuda)
+    cases.append((block, whole, whole[:, 16:32, 32:64, :]))
+    parts = torch.randn((4, 2, 1, 1, 1), generator=g).to(cuda, dtype)
+    stack = torch.zeros_like(parts)
+    cases.append((parts, stack, stack))
+    sa, sb = torch.cuda.Stream(), torch.cuda.Stream()
+    for src, buf, view in cases:
+        ref = buf.clone()
+        ref.as_strided(view.shape, view.stride(),
+                       view.storage_offset() - buf.storage_offset()).copy_(src)
+        ch = peer.Channel.make(cuda, cuda)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with torch.cuda.stream(sb):
+                peer.peer_wait(ch)
+            with torch.cuda.stream(sa):
+                peer.peer_put(src, view, ch)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, ref)
+        assert ch.src.tolist() == [3, 3, 0] and ch.dst.tolist() == [3, 3]
+
+
+def test_cuda_peer_wait_without_put_ends_with_an_error():
+    """A ``peer_wait`` whose put never comes ends within its bound
+    (``TIMEOUT_S`` 0.5 s) with an error, in a process of its own (the trap
+    leaves the context unusable): never a hang."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    code = ("import torch; from pyapes_tpu_torch.ops import peer; peer.TIMEOUT_S = 0.5; "
+            "ch = peer.Channel.make('cuda:0', 'cuda:0'); torch.cuda.synchronize(); "
+            "peer.peer_wait(ch); torch.cuda.synchronize(); print('no error')")
+    tic = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert run.returncode != 0 and "no error" not in run.stdout
+    assert "launch failure" in run.stderr or "error" in run.stderr.lower()
+    assert time.perf_counter() - tic < 90
 
 
 # -- the last options on placed blocks; block Fields on periodic axes -------

@@ -171,21 +171,27 @@ def test_placed_sync_false_equals_sync_true(kind, field):
     assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
-def test_across_cards_raises_naming_a11f():
-    """A placement over two cards raises at ``sync: False`` or in a whole
-    step, naming "A11f (across cards)" and quoting the runtime's refusal of
-    a WHILE body that spans cards; at ``sync: True`` it passes the check."""
+def test_across_cards_raises_naming_a11f(monkeypatch):
+    """A placement over two cards passes the check outside a graph (a
+    ``sync: True`` solve, and a ``sync: False`` one: one graph per card),
+    and raises in a fused whole step (a step's one graph of one card),
+    naming "A11f (across cards)" and what is still open; blocks on the host
+    raise in a whole step, naming A11f."""
     two = SimpleNamespace(devices=(torch.device("cuda:0"), torch.device("cuda:1")))
     x0 = torch.zeros(1, 4, 4)
-    dispatch._check_placed(x0, True, two)
-    for sync, step in ((False, False), (True, True)):
-        with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)") as e:
-            if step:
-                with whole_step():
-                    dispatch._check_placed(x0, sync, two)
-            else:
-                dispatch._check_placed(x0, sync, two)
-        assert dispatch._ACROSS_CARDS in str(e.value)
+    dispatch._check_placed(x0, two)
+    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)") as e:
+        with whole_step():
+            dispatch._check_placed(x0, two)
+    assert "captures and fused whole steps" in str(e.value)
+    host = SimpleNamespace(devices=(torch.device("cuda:0"), torch.device("cpu")))
+    card_x0 = SimpleNamespace(device=torch.device("cuda:0"))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)  # no card here
+    dispatch._check_placed(card_x0, host)
+    with pytest.raises(NotImplementedError, match="A11f") as e:
+        with whole_step():
+            dispatch._check_placed(card_x0, host)
+    assert "on the host" in str(e.value)
 
 
 # -- fused PeriodicFlow LES on placed blocks ------------------------------------
