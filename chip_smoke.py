@@ -6484,9 +6484,47 @@ def _same_view(ref, buf, view):
 
 ACROSS_CALLS = 5  # (p): sync: True and sync: False solves in turns, one each per turn
 # (p)'s cycles: bench's V(2,2) and its Darcy cycle in f32 without the FMG
-# start (a bf16 cycle or an FMG start across cards raises: ROADMAP A11f)
+# start (across cards an FMG start on more than 64^3 nodes raises: ROADMAP
+# A11k; bench's own cycle is (p)'s a11k_case)
 ACROSS_MG = {**BENCH_MG, "dtype": "float32", "fmg": False}
 ACROSS_DARCY_MG = {**DARCY_MG, "dtype": "float32", "fmg": False}
+
+
+def a11k_case(label, var, rhs, cfg, coeff=1.0) -> dict:
+    """(p)'s check of ``ROADMAP.md`` A11k on one problem whose blocks lie on
+    several cards: a ``sync: True`` solve (its ``itr`` and wall), then the
+    ``sync: False`` solve raises ``NotImplementedError`` naming A11k before
+    any capture (``graph_loop.nodes`` unchanged): its graphs per card
+    segfaulted at their first launch (``scripts/mg_across_matrix_torch.py``).
+    Returns the numbers and the message."""
+    from pyapes_tpu_torch.ops import graph_loop
+    from pyapes_tpu_torch.solver.fdm import FDM
+    from pyapes_tpu_torch.solver.ops import Solver
+
+    fdm = FDM()
+
+    def solve(sync):
+        var().zero_()
+        s = Solver({"fdm": {"report": False, **cfg, "sync": sync}})
+        s.set_eq(fdm.laplacian(coeff, var) == rhs)
+        return s.solve()
+
+    _sync_all()
+    tic = time.perf_counter()
+    rep = solve(True)
+    _sync_all()
+    wall = time.perf_counter() - tic
+    nodes = graph_loop.nodes
+    try:
+        solve(False)
+    except NotImplementedError as e:
+        if "A11k" not in str(e) or graph_loop.nodes != nodes:
+            raise
+        raised = str(e)
+    else:
+        raise RuntimeError(f"chip_smoke: {label}: sync: False across cards did not raise (A11k)")
+    return {"sync_true_itr": rep["itr"], "sync_true_tol": rep["tol"],
+            "sync_true_converge": rep["converge"], "sync_true_wall_s": wall, "raised": raised}
 
 
 def graph_across_case(label, var, rhs, cfg, coeff=1.0) -> dict:
@@ -6587,6 +6625,109 @@ def graph_across_case(label, var, rhs, cfg, coeff=1.0) -> dict:
     return out
 
 
+def graph_les_across_case(dev, label, dd, on_blocks: bool) -> dict:
+    """(p)'s gates on the fused LES across cards: the TGV-3D LES at
+    ``TGV_RUNG``^3 f32 with its solves on the placed ``dd`` (blocks on
+    several cards), the state whole on the lead card or on the blocks
+    (``on_blocks``: ``put_state``), two models stepped ``GRAPH_WARM`` steps
+    then ``GRAPH_STEPS`` in chunks of ``GRAPH_CHUNK``, in turns: eager, and
+    fused (one graph per card, ``FusedStepRunner`` with
+    ``GraphedCall(lanes=...)``). After every chunk the fused state equals
+    the eager one bit for bit (each Field's value and history), with the
+    same ``itr`` per solve of the chunk's last step; the runner captured
+    once, no fallback (the warning is an error here); one more step each
+    counted for host syncs (0) and graph launches (one per card: the
+    replays of ``torch.cuda.CUDAGraph``, ``_graph_replays``); no copy between
+    cards and no event in any card's loop bodies (``GraphedCall.body_nodes``).
+    Returns the numbers: ms per step of both, each card's peak."""
+    import warnings
+
+    import torch
+
+    from pyapes_tpu_torch.parallel import blocks
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    cards = sorted({str(d) for d in dd.devices})
+    (m_e, dt), (m_f, _) = (tgv_model(dev, TGV_RUNG, config={"decomp": dd}) for _ in range(2))
+    if on_blocks:
+        m_e.put_state(dd)
+        m_f.put_state(dd)
+
+    def itr_eager():
+        with solve_log() as log:
+            m_e.step(dt)
+        return [int(r["itr"]) for r in log]
+
+    def parts(x):
+        return list(x.parts) if isinstance(x, blocks.BlockTensor) else [x]
+
+    def bits_equal():
+        return all(torch.equal(p, q) for a, b in zip(m_e.state_fields(), m_f.state_fields())
+                   for lvl in ("_VAR", "_VARo")
+                   for p, q in zip(parts(getattr(a, lvl)), parts(getattr(b, lvl))))
+
+    def peaks_reset():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    walls = {"eager": [], "fused": []}
+    peaks = {k: {c: 0.0 for c in cards} for k in walls}
+    same, itr_same = [], []
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*(falling back|stepping eagerly).*")
+        m_e.run(dt, GRAPH_WARM)
+        print(f"[17 placed] {label}: the eager warm steps ran; the fused ones (their warm-up "
+              "and capture)", flush=True)
+        tic = time.perf_counter()
+        m_f.run(dt, GRAPH_WARM, fused=True)
+        _sync_all()
+        boot_s = time.perf_counter() - tic
+        r_f = m_f.fused_runner()
+        for i in range(GRAPH_STEPS // GRAPH_CHUNK):
+            for kind in (("eager", "fused") if i % 2 == 0 else ("fused", "eager")):
+                _sync_all()
+                peaks_reset()
+                tic = time.perf_counter()
+                if kind == "eager":
+                    for _ in range(GRAPH_CHUNK - 1):
+                        m_e.step(dt)
+                    itr_e = itr_eager()
+                else:
+                    r_f.run(dt, GRAPH_CHUNK)
+                _sync_all()
+                walls[kind].append((time.perf_counter() - tic) / GRAPH_CHUNK)
+                for c in cards:
+                    peaks[kind][c] = max(peaks[kind][c], torch.cuda.max_memory_allocated(c) / 2**30)
+            same.append(bits_equal())
+            itr_same.append(itr_e == [int(r["itr"]) for r in r_f.reports])
+        syncs = _count_syncs(lambda: r_f.step(dt))
+        replays = _graph_replays(lambda: r_f.step(dt))
+        itr_e = [itr_eager(), itr_eager()][-1]
+    _sync_all()
+    same.append(bits_equal())
+    itr_same.append(itr_e == [int(r["itr"]) for r in r_f.reports])
+    call = next(iter(r_f._compiled.values())).call
+    across_nodes = sum(n.get("memcpy_across_devices", 0) + n.get("wait_event", 0)
+                       + n.get("event_record", 0) for lanes in call.body_nodes for n in lanes)
+    out = {"cards": cards, "state": "blocks" if on_blocks else "whole", "dt": dt,
+           "warm": GRAPH_WARM, "steps": GRAPH_STEPS, "chunk": GRAPH_CHUNK,
+           "ms_per_step": {k: [1e3 * w for w in v] for k, v in walls.items()},
+           "ms_per_step_median": {k: 1e3 * statistics.median(v) for k, v in walls.items()},
+           "same_bits_per_chunk": same, "same_itr_last_step": itr_same,
+           "itr_per_solve_last_step": itr_e, "captures": r_f.captures,
+           "graphs": len(call.graphs), "bootstrap_s_fused": boot_s,
+           "capture_s": r_f.capture_s, "host_syncs_per_step": syncs,
+           "graph_launches_per_step": replays, "while_nodes_per_card": len(call.body_nodes),
+           "cross_card_copy_or_event_nodes": across_nodes,
+           "E_mean": float(m_f.kinetic_energy()) / (2 * pi) ** 3,
+           "peak_gib_per_card": peaks}
+    if not (all(same) and all(itr_same) and r_f.captures == 1 and syncs == 0
+            and replays == len(cards) == len(call.graphs) and across_nodes == 0):
+        raise RuntimeError(f"chip_smoke: {label}: {json.dumps(out)}")
+    del m_e, m_f, r_f, call
+    return out
+
+
 def placed_graphs_across(dev) -> dict:
     """Phase 17 (p): the blocks round robin over ``GRAPH_CARDS`` cards. The
     probe (``scripts/probe_loop_across_cards_torch.py``, each variant a
@@ -6596,11 +6737,13 @@ def placed_graphs_across(dev) -> dict:
     (``per_card_graphs``). Then ``sync: False`` solves at full width on
     ``N_DECOMP`` blocks round robin, each one graph per card held to the
     ``sync: True`` solve on the same cards (``graph_across_case``): MG-PCG
-    512^3 f32 (bench's bf16 V(2,2) FMG) and Darcy 256^3 with the Field on
-    blocks, fastdiag 512^3 on blocks, CG + ``precond: "fd"`` 256^3 with a
-    whole Field (the entry's scatter and the exit's gather outside the
-    graphs). A fused whole step across the cards (the TGV-3D LES) must
-    still raise ``NotImplementedError`` naming "A11f (across cards)". On
+    512^3 with bench's V(2,2) in f32 without FMG (bench's own bf16 FMG
+    cycle raises naming A11k, ``a11k_case``), Darcy 256^3 with the Field
+    on blocks, fastdiag 512^3 on blocks, CG +
+    ``precond: "fd"`` 256^3 with a whole Field (the entry's scatter and the
+    exit's gather outside the graphs). Then the fused TGV-3D LES 257^3 across
+    the cards, one graph per card per step, its state whole and on the
+    blocks, each held to its eager steps (``graph_les_across_case``). On
     fewer cards one line says it needs them. Returns the numbers and the
     drive's kernel launches (``counts``)."""
     import sys
@@ -6628,6 +6771,14 @@ def placed_graphs_across(dev) -> dict:
     dd = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % GRAPH_CARDS}"
                                                      for i in range(prod(N_DECOMP))))
     mg = {k: v for k, v in mg_cfg(ACROSS_MG).items() if k != "donate"}
+    bench_mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
+    label = f"(p) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG (bench's), the Field on blocks"
+    _, var, rhs, coeff = _block_problem(dev, dd, (N_MAIN,) * 3)
+    out["p_mgpcg_bench"] = a11k_case(label, var, rhs, {**bench_mg, "decomp": dd}, coeff)
+    print(f"[17 placed] {label}, {N_DECOMP} round robin over {GRAPH_CARDS} cards: sync: True "
+          f"solves, sync: False raises naming A11k; cards {card}: "
+          f"{json.dumps(out['p_mgpcg_bench'])}", flush=True)
+    del var, rhs, coeff
     cases = (
         ("p_mgpcg", f"(p) MG-PCG {N_MAIN}^3 f32 f32 V(2,2), the Field on blocks", N_MAIN,
          False, {**mg, "decomp": dd}),
@@ -6654,22 +6805,21 @@ def placed_graphs_across(dev) -> dict:
         for i in range(GRAPH_CARDS):
             with torch.cuda.device(i):
                 torch.cuda.empty_cache()
-    raised = {}
-    model, dt = tgv_model(dev, TGV_RUNG, config={"decomp": dd})
-    try:
-        model.run(dt, GRAPH_WARM, fused=True)
-    except NotImplementedError as e:
-        if "A11f (across cards)" not in str(e):
-            raise
-        raised["tgv_les_fused"] = str(e)
-    else:
-        raise RuntimeError(f"chip_smoke: (p) a fused step on {dd.devices} did not raise")
-    del model
-    out["raised"] = raised
+    for key, on_blocks in (("p_tgv_les_fused", False), ("p_tgv_les_fused_blocks", True)):
+        label = (f"(p) TGV-3D LES {TGV_RUNG}^3 f32 torus {N_DECOMP}, fused, the state "
+                 f"{'on the blocks' if on_blocks else 'whole'}")
+        out[key] = _counted_drive(counts, lambda: graph_les_across_case(dev, label, dd,
+                                                                        on_blocks))
+        print(f"[17 placed] {label}, round robin over {GRAPH_CARDS} cards, one graph per card "
+              f"per step against eager steps on the same cards; cards {card}: "
+              f"{json.dumps(out[key])}", flush=True)
+        clear_cache()
+        for i in range(GRAPH_CARDS):
+            with torch.cuda.device(i):
+                torch.cuda.empty_cache()
     out["counts"] = counts
-    print(f"[17 placed] (p) a fused step across the cards raised: {json.dumps(raised)}; the "
-          f"drive's kernel launches {json.dumps({k: v for k, v in counts.items() if v})}",
-          flush=True)
+    print(f"[17 placed] (p) the drive's kernel launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}", flush=True)
     return out
 
 

@@ -139,9 +139,10 @@ def per_card(blocks_as_cards: bool = False):
     combined on every card in block order, moves between cards through
     ``blocks.copy_into``), the form a graph per card captures.
     ``blocks_as_cards``: every block counts as a card of its own (the CPU
-    tests' stand-in for cards)."""
+    tests' stand-in for cards; a ``per_card()`` within it keeps it)."""
     prev = getattr(_local, "per_card", None)
-    _local.per_card = "blocks" if blocks_as_cards else "cards"
+    # inside the stand-in, every block stays a card of its own
+    _local.per_card = "blocks" if blocks_as_cards or prev == "blocks" else "cards"
     try:
         yield
     finally:
@@ -156,6 +157,29 @@ def per_card_mode():
 def lanes_capturing() -> bool:
     """Whether a capture of more than one lane is underway on this thread."""
     return bool(_stack()) and len(_stack()[-1].lanes) > 1
+
+
+def graph_lanes():
+    """The lanes (a tuple of devices) of the ``GraphedCall`` underway on this
+    thread: its capture, its eager warm-up, or its plain call on the CPU;
+    None outside every ``GraphedCall``."""
+    if _stack():
+        return _stack()[-1].lanes
+    calls = getattr(_local, "calls", None)
+    return calls[-1].lanes if calls else None
+
+
+@contextlib.contextmanager
+def _eager_call(call):
+    """Within: ``call``'s eager run (its warm-up, or its call on the CPU),
+    for ``graph_lanes``."""
+    if not hasattr(_local, "calls"):
+        _local.calls = []
+    _local.calls.append(call)
+    try:
+        yield
+    finally:
+        _local.calls.pop()
 
 
 @contextlib.contextmanager
@@ -532,7 +556,7 @@ class GraphedCall:
 
     def warm(self, *inputs):
         """The eager warm-up call (host loops)."""
-        with host_loops():
+        with host_loops(), _eager_call(self):
             return self.fn(*inputs)
 
     def body_pool(self, device=None):
@@ -692,7 +716,8 @@ class GraphedCall:
 
     def __call__(self, *inputs):
         if self.device.type != "cuda":
-            return self.fn(*inputs)
+            with _eager_call(self):
+                return self.fn(*inputs)
         if self.graph is None:
             out = self.warm(*inputs)
             self.capture(*inputs)

@@ -172,6 +172,18 @@ class Cards:
 _CARDS: dict = {}
 
 
+def card_lanes(decomp, lead) -> tuple:
+    """The lanes of a capture of one graph per card (``graph_loop.GraphedCall
+    (fn, lead, lanes=...)``) that holds solves on the placed ``decomp`` led
+    from ``lead``: the lead device, then every other device of the blocks in
+    block order, the order of ``cards``' replicas; under the CPU tests'
+    stand-in (``per_card(blocks_as_cards=True)``) one lane per block."""
+    devices = tuple(torch.device(d) for d in decomp.devices)
+    if graph_loop.per_card_mode() == "blocks":
+        return devices
+    return tuple(dict.fromkeys((torch.device(lead),) + devices))
+
+
 def cards(lay) -> Cards | None:
     """The ``Cards`` of ``lay``'s decomposition under ``graph_loop.per_card``
     (its lead device, then every other device of its blocks in block
@@ -181,9 +193,7 @@ def cards(lay) -> Cards | None:
         return None
     key = (lay.decomp, lay.lead, mode)
     if key not in _CARDS:
-        devs = lay.devices if mode == "blocks" else tuple(dict.fromkeys((lay.lead,)
-                                                                        + lay.devices))
-        _CARDS[key] = Cards(devs, mode == "blocks")
+        _CARDS[key] = Cards(card_lanes(lay.decomp, lay.lead), mode == "blocks")
     return _CARDS[key]
 
 

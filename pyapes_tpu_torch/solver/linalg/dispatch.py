@@ -51,16 +51,23 @@ of its own graph that end on its own replica of the loop's exit (the
 per-card form, ``graph_loop.per_card``: every scalar replicated, every sum
 combined on every card in block order, every move between cards an
 ``ops.peer`` put and wait), the entry's scatter and the exit's gather
-ordinary copies before the launches and after them. A placed solve runs
-inside a capture or a fused whole step with every block on the lead card;
-across cards those raise, naming A11f (across cards: captures and fused
-whole steps), and so does a multigrid cycle narrower than the solve or an
-FMG start in a solve across cards (``_check_across``); blocks on the host
-run a ``sync: False`` solve as the host loop and raise in a graph
-(``_check_placed``). Immersed obstacles (``ObstacleDirichlet``, static or
-dynamic, and ``ObstacleNeumann``) leave the active set; under a torus
-reduction their masks are reduced too, every call, and a body on the
-duplicate seam plane raises. The multigrid hierarchy of a periodic axis
+ordinary copies before the launches and after them. Inside a graph the
+solve is captured where it stands: on one card into that card's graph;
+across cards inside a capture of one graph per card whose lanes are its
+cards (``GraphedCall(fn, lead, lanes=blocks.card_lanes(decomp, lead))``,
+the graphs of a fused whole step across cards among them), in the per-card
+form, its entry's scatter and exit's gather puts and waits in the lanes.
+A capture of one graph holding a solve across cards raises, and so do
+blocks on the host in any graph (``_check_placed``; a ``sync: False`` solve
+with host blocks runs the host loop). Across cards, a graphed solve
+preconditioned by the multigrid cycle raises, naming A11k, on a placement
+and size that no run showed to launch (``check_a11k``: such graphs
+segfaulted at their first launch; the cause is open; what ran is up to
+``A11K_NODES`` nodes, and past it no FMG on ``A11K_RAN``'s placement, two
+blocks on each of four cards). Immersed obstacles
+(``ObstacleDirichlet``, static or dynamic, and ``ObstacleNeumann``) leave
+the active set; under a torus reduction their masks are reduced too, every
+call, and a body on the duplicate seam plane raises. The multigrid hierarchy of a periodic axis
 lives on the reduced torus too (``MGSpec(paxes=...)``).
 
 The options: ``fd_opts`` (``precision`` "highest" / "default", the
@@ -71,8 +78,9 @@ plain tier on the card), ``debug: "nan"`` (the loop on the host under
 hand kernel whose output holds a NaN; a ValueError inside a fused whole
 step, as the JAX package) and ``donate`` (the solution in the initial
 guess's storage, an eager solve off the torus). What a placed
-decomposition does not take (a graph across cards or with host blocks)
-raises ``NotImplementedError`` — never a silent detour to another path.
+decomposition does not take (a capture of one graph across cards, a graph
+with host blocks, the graphs of A11k) raises ``NotImplementedError`` — never
+a silent detour to another path.
 """
 from __future__ import annotations
 
@@ -98,10 +106,12 @@ from pyapes_tpu_torch.solver.linalg.build import (
 from pyapes_tpu_torch.ops.graph_loop import (
     GraphedCall,
     capturing,
+    graph_lanes,
     host_loops,
     in_whole_step,
     keep_alive,
     per_card,
+    per_card_mode,
     use_host_loops,
 )
 from pyapes_tpu_torch.utils import device_cache
@@ -297,61 +307,111 @@ def _check_decomp(decomp, x0) -> None:
             )
 
 
-def _cards(x0, decomp) -> set:
-    """The cards of a placed solve: its lead's and its blocks'."""
-    return {d for d in (x0.device, *decomp.devices) if d.type == "cuda"}
+def _cards(lead, decomp) -> set:
+    """The cards of a placed solve led from ``lead``: its lead's and its
+    blocks' (under the CPU tests' stand-in, ``per_card(blocks_as_cards=
+    True)``, every block)."""
+    if per_card_mode() == "blocks":
+        return {f"block {i}" for i in range(len(decomp.devices))}
+    return {d for d in (torch.device(lead), *decomp.devices) if d.type == "cuda"}
 
 
-def _check_placed(x0, decomp) -> None:
-    """Raise ``NotImplementedError`` for the graphs a placed decomposition
-    does not take, naming ``ROADMAP.md`` A11f: every method, term and option
-    runs eagerly (``sync: True``) and as a ``sync: False`` solve, across
-    cards too (one graph per card); a user's capture or a fused whole step
-    holds the solve's loops as WHILE nodes of the lead card's one graph:
-    every block on that card, none on another card (one graph per card
-    inside a user's capture or a whole step is not ported) and none on the
-    host (a host block's work cannot join a graph)."""
-    graph = capturing(x0.device) or in_whole_step()
-    if not graph:
-        return
-    cards = _cards(x0, decomp)
-    if len(cards) > 1:
-        raise NotImplementedError(
-            "linalg: a CUDA graph capture or a fused whole step holding a solve on a placed "
-            f"decomposition whose blocks lie on more than one card ({sorted(map(str, cards))}) "
-            "is not ported (ROADMAP.md A11f (across cards): captures and fused whole steps): a "
-            "sync: False solve across cards runs as one graph per card, but a step or a user's "
-            "capture is one graph of one card; place the blocks on one card, or step eagerly "
-            "(model.run(fused=False)) with sync: False solves")
+def lanes_across(lead, decomp):
+    """The lanes of the graphs per card that a solve on the placed
+    ``decomp`` led from ``lead`` needs inside a graph
+    (``blocks.card_lanes``) where its blocks span more than one card; else
+    None (every block on the lead's card, or blocks on the host)."""
+    return blocks.card_lanes(decomp, lead) if len(_cards(lead, decomp)) > 1 else None
+
+
+def _check_placed(x0, decomp) -> bool:
+    """Whether a placed solve runs in its per-card form inside a graph
+    (``graph_loop.per_card``): inside a ``GraphedCall`` of one graph per card
+    whose lanes are its cards (``GraphedCall(fn, lead, lanes=blocks.
+    card_lanes(decomp, lead))``, a fused whole step across cards among them),
+    in its eager warm-up and in its capture alike. Raises
+    ``NotImplementedError`` naming ``ROADMAP.md`` A11f for the graphs a
+    placed decomposition does not take: blocks on several cards inside a
+    graph of one card (``torch.cuda.graph``, ``GraphedCall`` without lanes
+    or with other lanes, a whole step of one graph), since a WHILE body
+    holds one card's work; blocks on the host inside any graph, since a host
+    block's work cannot join a graph of the card. Outside a graph every
+    placement passes (a ``sync: False`` solve across cards captures its own
+    graphs, one per card)."""
+    within = graph_lanes()
+    if within is None and not (capturing(x0.device) or in_whole_step()):
+        return False
     if x0.device.type == "cuda" and any(d.type != "cuda" for d in decomp.devices):
         raise NotImplementedError(
             "linalg: a CUDA graph or a fused whole step on a placed decomposition with blocks "
             "on the host is not ported (ROADMAP.md A11f): a host block's work cannot join a "
             "graph of the card; step eagerly (model.run(fused=False))")
-
-
-def _check_across(config, x0) -> None:
-    """Raise ``NotImplementedError`` (naming ``ROADMAP.md`` A11f) for the one
-    option a ``sync: False`` solve across cards does not take: a multigrid
-    preconditioner whose cycle runs narrower than the solve (bf16 / f16)
-    or starts from FMG. On four H100s (torch 2.11, CUDA 12.8) the first
-    replay of the per-card graphs of bench's bf16 V(2,2) FMG MG-PCG at
-    512^3 segfaulted inside ``cudaGraphLaunch`` (at 64^3 on two cards it
-    ran); the cycle in the solve's dtype without FMG runs at 512^3."""
-    from pyapes_tpu_torch.solver.multigrid import _as_torch_dtype
-
-    if str(config.get("precond")).lower() != "mg":
-        return
-    opts = config.get("mg_opts") or {}
-    cycle = opts.get("dtype")
-    narrow = cycle is not None and _as_torch_dtype(cycle).itemsize < x0.dtype.itemsize
-    if narrow or opts.get("fmg"):
+    lanes = lanes_across(x0.device, decomp)
+    if lanes is None:
+        return False
+    if within != lanes:
+        cards = sorted(map(str, _cards(x0.device, decomp)))
         raise NotImplementedError(
-            "linalg: a sync: False solve across cards with a multigrid cycle narrower than the "
-            f"solve ({cycle}) or an FMG start (fmg: {bool(opts.get('fmg'))}) is not ported "
-            "(ROADMAP.md A11f (across cards)): the first replay of its graphs segfaulted inside "
-            "cudaGraphLaunch on four H100s at 512^3; solve with sync: True, or with the cycle "
-            "in the solve's dtype and fmg off")
+            f"linalg: a solve on a placed decomposition whose blocks lie on more than one card "
+            f"({cards}) inside a capture of one graph is not ported (ROADMAP.md A11f): a loop's "
+            f"WHILE body holds one card's work. Capture one graph per card instead, "
+            f"GraphedCall(fn, {str(x0.device)!r}, lanes=blocks.card_lanes(decomp, "
+            f"{str(x0.device)!r})) (the lanes {[str(d) for d in lanes]}); a fused whole step "
+            "(model.run(fused=True)) does so itself")
+    return True
+
+
+A11K_NODES = 64**3
+"""The largest grid (nodes) on which every cell of
+``scripts/mg_across_matrix_torch.py``'s matrix ran (``check_a11k``)."""
+A11K_RAN = (4, 2)
+"""The one placement past ``A11K_NODES`` on which graphs per card ran in
+that matrix and in ``chip_smoke.py`` phase 17 (p): cards, blocks on each."""
+
+
+def check_a11k(devices, nodes: int, what: str, fmg: bool = False,
+               state_on_blocks: bool = False) -> None:
+    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` A11k for graphs per
+    card on blocks on the cards ``devices`` (one per block) of a grid of
+    ``nodes`` nodes that no run showed to launch. In
+    ``scripts/mg_across_matrix_torch.py``'s matrix (the MG-PCG of
+    ``chip_smoke.py`` on (4, 2, 1) blocks round robin over two or four
+    H100s; torch 2.11, CUDA 12.8) such graphs segfaulted inside
+    ``cudaGraphLaunch`` at their first replay, with the cause not found:
+    every cell ran at 64^3; past it only the cycle without FMG with two
+    blocks on each of four cards ran (f32 and bf16), and every two-card
+    cell (four blocks per card) and every FMG cell segfaulted. A fused whole
+    step with its state on blocks segfaulted at 17^3 with four blocks per
+    card and ran at 257^3 with two on each of four. So what passes: no FMG
+    on ``A11K_RAN``'s placement, at any size; else, up to ``A11K_NODES``
+    nodes, FMG or not, unless the state lies on blocks. Blocks off the card
+    (the host, the CPU tests' stand-in) make no CUDA graph and pass."""
+    devices = tuple(devices)
+    if any(torch.device(d).type != "cuda" for d in devices):
+        return
+    per_card = [devices.count(d) for d in dict.fromkeys(devices)]
+    ran = (len(per_card), set(per_card)) == (A11K_RAN[0], {A11K_RAN[1]})
+    if (ran and not fmg) or (nodes <= A11K_NODES and not state_on_blocks):
+        return
+    raise NotImplementedError(
+        f"linalg: {what} across cards, {len(devices)} blocks on {len(per_card)} cards (at most "
+        f"{max(per_card)} on one), {nodes} nodes, fmg: {fmg}, state on blocks: "
+        f"{state_on_blocks}, is not ported (ROADMAP.md A11k): graphs per card of placements "
+        "that no run showed to launch are refused, since such graphs segfaulted inside "
+        "cudaGraphLaunch at their first replay on two and four H100s "
+        "(scripts/mg_across_matrix_torch.py). What ran: up to 64^3 nodes (a state on blocks "
+        f"excepted); past it, no FMG with {A11K_RAN[1]} blocks on each of {A11K_RAN[0]} cards. "
+        "Solve with sync: True, or step eagerly (model.run(fused=False))")
+
+
+def _check_across(config, method: str, x0, decomp) -> None:
+    """``check_a11k`` for a graphed Krylov solve preconditioned by the
+    multigrid cycle (the solves of that matrix)."""
+    if method not in ("cg", "bicgstab") or str(config.get("precond")).lower() != "mg":
+        return
+    check_a11k(decomp.devices, int(np.prod(x0.shape[1:])),
+               "a sync: False solve preconditioned by the multigrid cycle",
+               fmg=bool((config.get("mg_opts") or {}).get("fmg")))
 
 
 def _place_operands(tparams, lay) -> tuple:
@@ -465,8 +525,20 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     sync = config.get("sync", True) is not False
     debug = config.get("debug") == "nan"
     placed = decomp is not None and decomp.placed
-    if placed:
-        _check_placed(x0, decomp)
+    # inside a graph per card (a lanes capture, a whole step across cards):
+    # the per-card form, its moves between cards puts and waits in the lanes
+    in_lanes = placed and _check_placed(x0, decomp)
+    # a placement with blocks on the host runs its sync: False solve as the
+    # host loop (its host blocks' work cannot join a graph; each of their
+    # copies from the card waits for it all the same)
+    graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
+               and not use_host_loops() and not debug
+               and not (placed and any(d.type != "cuda" for d in decomp.devices)))
+    # blocks on several cards: one graph per card, the entry's scatter and
+    # the exit's gather outside them
+    across = graphed and placed and len(_cards(x0.device, decomp)) > 1
+    if in_lanes or across:
+        _check_across(config, method, x0, decomp)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,
@@ -491,17 +563,6 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     if placed:
         blocks.operand_scatters += sum(v is not None and bc.bc_type == "obstacle_dirichlet"
                                        for bc, v in zip(bcs, bc_vals))
-    # a placement with blocks on the host runs its sync: False solve as the
-    # host loop (its host blocks' work cannot join a graph; each of their
-    # copies from the card waits for it all the same)
-    graphed = (not sync and x0.device.type == "cuda" and not capturing(x0.device)
-               and not use_host_loops() and not debug
-               and not (placed and any(d.type != "cuda" for d in decomp.devices)))
-    # blocks on several cards: one graph per card, the entry's scatter and
-    # the exit's gather outside them
-    across = graphed and placed and len(_cards(x0, decomp)) > 1
-    if across:
-        _check_across(config, x0)
     # donate: the loop works in the initial guess's storage (an eager solve
     # of a contiguous x0; the torus reduction's x0 is a strided view whose
     # solution is re-assembled, and a graph works in its own buffers)
@@ -565,6 +626,9 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
         # whole solve call, captured at the first call of its key
         x_final, itr, tol_final, hist = _graphed_solve(
             run, (config, mesh, method, term_descs, bcs, paxes), (x0, rhs, tparams, bc_vals))
+    elif in_lanes:
+        with per_card():
+            x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
     else:
         x_final, itr, tol_final, hist = run(x0, rhs, tparams, bc_vals)
     # per card, the report's scalars are the lead card's replicas

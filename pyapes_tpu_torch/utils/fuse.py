@@ -1,5 +1,5 @@
-"""Whole-step fusion for transient models: ONE CUDA graph per step (port
-of ``pyapes_tpu/utils/fuse.py``).
+"""Whole-step fusion for transient models: the step as CUDA graphs,
+captured once and replayed (port of ``pyapes_tpu/utils/fuse.py``).
 
 Why: an eager step of the port is host-bound. Its kernels keep the card
 busy for a few ms of a step that takes 4-10 times as long on the host
@@ -7,6 +7,24 @@ busy for a few ms of a step that takes 4-10 times as long on the host
 fix was one XLA program per step; its CUDA counterpart is a graph: the
 step is captured once and replayed, and the solver loops inside it are
 WHILE nodes whose exit the device decides (``ops/graph_loop.py``).
+
+One graph per step where the model's state and solves lie on one card.
+Where its solves are placed over blocks on several cards (a
+``DomainDecomposition`` with ``devices`` on more than one card, the state
+whole on the lead card or on the blocks), a WHILE body cannot span two
+cards, so the step is one graph PER CARD, captured together
+(``GraphedCall(..., lanes=blocks.card_lanes(decomp, lead))``, the lead
+card first) and replayed back to back with no host wait: the core runs in
+the per-card form (``graph_loop.per_card``: every scalar of a solve and
+every reduction of a block vector replicated on each card, combined there
+in block order; every move between cards an ``ops.peer`` put and wait), so
+each card's graph holds its blocks' work and its own replica of every
+loop's exit. The lead card's graph holds the glue on a whole state and the
+solves' entry scatters and exit gathers (puts and waits too). The step's
+bits are the eager step's. A placement whose step graphs no run showed to
+launch raises ``NotImplementedError`` (``dispatch.check_a11k``,
+``ROADMAP.md`` A11k): past 64^3 nodes only two blocks on each of four
+cards, and a state on blocks only there.
 
 Mechanics, as in the JAX package (state-swap capture): the model mutates
 its ``Field`` objects, so ``FusedStepRunner``'s core (1) swaps the state
@@ -16,24 +34,28 @@ tensors into the live fields, (2) runs the model's unmodified ``step``,
 model's attributes in a ``finally``, so neither a capture nor a failed
 one changes the model. The state is what the ``Field`` history carries
 (``_VAR``/``_VARo``/``_VARoo``) plus the clocks; ``t`` streams as a 0-d
-float64 tensor the step reads, so a time-varying BC callable written with
-torch operations rides the one graph.
+float64 tensor on the lead card that the step reads (a block on another
+card reads it through a put, as any operand from the lead card), so a
+time-varying BC callable written with torch operations rides the graphs.
 
 On the card each ``(dt, diag_fn)`` gets one program (a small LRU): an
 eager warm-up of the core on the live state (kernels load, device
 constants are cached, solver loops run on the host; the state is restored
 after it), then the capture on static copies of the state, ending with
 the copies that write the new state back into those copies (the history
-shift, a pointer swap when eager, becomes copies in the graph), then a
-replay per step. ``dt`` is baked: the port builds some operands from it
-on the host (the ddt coefficient, ``div/dt``), so a new ``dt`` is one
-more capture, where the JAX program streams it. An operation that
-cannot be captured raises ``CaptureError`` (the torch ``RuntimeError``
-re-raised), the model state untouched; ``model.run(fused=True)`` then
-falls back to eager steps.
+shift, a pointer swap when eager, becomes copies in the graph; a block
+state's copies block by block, each on its own card), then a replay per
+step. ``dt`` is baked: the port builds some operands from it on the host
+(the ddt coefficient, ``div/dt``), so a new ``dt`` is one more capture,
+where the JAX program streams it. An operation that cannot be captured
+raises ``CaptureError`` (the torch ``RuntimeError`` re-raised), the model
+state untouched; ``model.run(fused=True)`` then falls back to eager steps.
 
 On a CPU tensor the runner runs the same state-swap core with the
-solvers at ``sync: False`` and no capture: the plain version.
+solvers at ``sync: False`` and no capture: the plain version (a
+``GraphedCall``'s call on the CPU, on the step's lanes: under the CPU
+tests' stand-in for cards, ``per_card(blocks_as_cards=True)``, the
+per-card form with a lane per block).
 
 The solvers' ``sync`` flags are off only for the duration of a fused call
 and restored afterwards. The host clocks after a fused step advance only
@@ -44,9 +66,19 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
-from pyapes_tpu_torch.ops.graph_loop import CaptureError, GraphedCall, capturing, whole_step
+from pyapes_tpu_torch.ops.graph_loop import (
+    CaptureError,
+    GraphedCall,
+    capturing,
+    per_card,
+    per_card_mode,
+    whole_step,
+)
+from pyapes_tpu_torch.parallel import blocks
+from pyapes_tpu_torch.solver.linalg.dispatch import check_a11k, lanes_across
 from pyapes_tpu_torch.solver.ops import Solver, solve_log
 
 __all__ = ["CaptureError", "FusedStepRunner"]
@@ -93,7 +125,8 @@ class _Program:
 
 
 class FusedStepRunner:
-    """Run ``model.step(dt)`` — glue and solves — as one graph per step.
+    """Run ``model.step(dt)`` — glue and solves — as one graph per step (one
+    per card where the solves are placed across cards).
 
     Args:
         model: a transient model exposing ``step(dt)`` and
@@ -116,8 +149,8 @@ class FusedStepRunner:
         self._hist_advanced = [True] * len(self.fields)
         self._t_advanced = [True] * len(self.fields)
         self.captures = 0
-        """Graphs captured (one per distinct ``dt`` and ``diag_fn``; 0 on
-        the CPU)."""
+        """Steps captured (one per distinct ``dt`` and ``diag_fn``, each one
+        graph, or one graph per card across cards; 0 on the CPU)."""
         self.capture_s = 0.0
         """Seconds of the last warm-up and capture."""
         self.reports: list = []
@@ -126,6 +159,46 @@ class FusedStepRunner:
 
     def _device(self):
         return self.fields[0]._VAR.device
+
+    def _lanes(self):
+        """The lanes of a step's graphs: None where the model's placed solves
+        and block state lie on one card (one graph), else
+        ``dispatch.lanes_across`` of their placement (one graph per card;
+        under the CPU tests' stand-in, ``per_card(blocks_as_cards=True)``, a
+        lane per block). Raises ``NotImplementedError`` for placements on two
+        sets of cards, and where ``dispatch.check_a11k`` refuses the
+        placement (``ROADMAP.md`` A11k: step graphs that no run showed to
+        launch)."""
+        device = self._device()
+        if device.type != "cuda" and per_card_mode() != "blocks":
+            return None
+        placed = [(s.config["fdm"].get("decomp"), False) for s in _solvers_of(self.model)
+                  if s.config is not None and "fdm" in s.config]
+        placed += [(f._VAR.placement.decomp, True) for f in self.fields
+                   if isinstance(f._VAR, blocks.BlockTensor)]
+        placed = [(d, on_blocks) for d, on_blocks in placed if d is not None and d.placed]
+        # one card, or blocks on the host (the solve's own check raises)
+        found = {lanes_across(device, d) for d, _ in placed} - {None}
+        if len(found) > 1:
+            raise NotImplementedError(
+                "FusedStepRunner: the model's solves are placed on different sets of cards "
+                f"({sorted(tuple(map(str, ls)) for ls in found)}); a step's graphs are one per "
+                "card of one placement")
+        if not found:
+            return None
+        nodes = int(np.prod(self.fields[0]._VAR.shape[1:]))
+        for d, on_blocks in placed:
+            check_a11k(d.devices, nodes, "a fused whole step", state_on_blocks=on_blocks)
+        return found.pop()
+
+    def _core_on(self, lanes, state, dt, t, diag_fn):
+        """``_core`` on the step's ``lanes`` (``_lanes``): across cards in the
+        per-card form, the diagnostics the lead card's replicas."""
+        if not lanes:
+            return self._core(state, dt, t, diag_fn)
+        with per_card():
+            new, diag, reports = self._core(state, dt, t, diag_fn)
+        return new, _map(diag, blocks.lead_replica), reports
 
     # -- solver flags ----------------------------------------------------
     def _sync_off(self):
@@ -249,12 +322,14 @@ class FusedStepRunner:
         slots = [(i, lvl) for i, st in enumerate(state) for lvl in range(3) if st[lvl] is not None]
         n = len(slots)
         runner = self
+        lanes = self._lanes()
 
         def fn(*inputs):
             st = [[None, None, None] for _ in self.fields]
             for (i, lvl), x in zip(slots, inputs[:n]):
                 st[i][lvl] = x
-            new, diag, reports = runner._core(tuple(tuple(s) for s in st), dt, inputs[n], diag_fn)
+            new, diag, reports = runner._core_on(lanes, tuple(tuple(s) for s in st), dt,
+                                                 inputs[n], diag_fn)
             if capturing(device):
                 # write the new state back into the static inputs, in an
                 # order that reads each buffer before it is overwritten
@@ -275,7 +350,7 @@ class FusedStepRunner:
 
         t0 = torch.full((), float(self.model.t), dtype=torch.float64, device=device)
         inputs = [state[i][lvl] for i, lvl in slots] + [t0]
-        call = GraphedCall(fn, device)
+        call = GraphedCall(fn, device, lanes=lanes)
         attrs = dict(vars(self.model))
         call.warm(*inputs)
         call.capture(*inputs)
@@ -329,7 +404,10 @@ class FusedStepRunner:
                 self._compiled = OrderedDict()
             self._compiled.setdefault((float(dt), id(diag_fn) if diag_fn else None), None)
             t = torch.full((), float(self.model.t), dtype=torch.float64, device=self._device())
-            new, diag, reports = self._core(self._pack(), dt, t, diag_fn)
+            lanes = self._lanes()
+            new, diag, reports = GraphedCall(
+                lambda: self._core_on(lanes, self._pack(), dt, t, diag_fn), self._device(),
+                lanes=lanes)()  # on the CPU: the core itself, on the step's lanes
             self._unpack(new)
         else:
             diag, reports = self._replay(self._program(dt, diag_fn))

@@ -1,12 +1,15 @@
 """Phase 17's placed cases across cards, alone: ``chip_smoke.py``'s (p)
-(``placed_graphs_across``: the probe of a WHILE body across cards and the
-"A11f (across cards)" raises) and then (q) and (r)'s eager run with the
-blocks round robin over four cards (``options_across``). (r) is held to
-(o)'s whole-state eager run of the same ``TORUS_STEPS`` steps, made here on
-one card first. Prints each case's line and, last, one JSON line of the
-results with every card's name and power limit.
+(``placed_graphs_across``: the probe of a WHILE body across cards, the
+``sync: False`` solves as one graph per card, bench's bf16 V(2,2) FMG
+MG-PCG among them, and the fused TGV-3D LES 257^3 as one graph per card
+per step, its state whole and on the blocks) and then (q) and (r)'s eager
+run with the blocks round robin over four cards (``options_across``). (r)
+is held to (o)'s whole-state eager run of the same ``TORUS_STEPS`` steps,
+made here on one card first. Prints each case's line and, last, one JSON
+line of the results with every card's name and power limit.
 
-    python scripts/placed_across_cards_torch.py    # needs four cards
+    python scripts/placed_across_cards_torch.py           # needs four cards
+    python scripts/placed_across_cards_torch.py --only-p  # (p) alone
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ def main() -> None:
     dev, _ = cs.phase_device()
     cs.phase_build()
     out = {"cards": cs._card_line(), "p": cs.placed_graphs_across(dev)}
+    if "--only-p" in sys.argv[1:]:
+        print(json.dumps(out), flush=True)
+        return
     out["o_ref"] = whole_state_reference(cs, dev)
     out["across"] = cs.options_across(dev, {}, out["o_ref"])
     print(json.dumps(out), flush=True)

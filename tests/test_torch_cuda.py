@@ -2336,8 +2336,11 @@ def test_cuda_placed_graphs_across_two_cards(cuda, kind):
     of each card's graph, the blocks joined by ``ops.peer``'s put and wait
     kernels); the first call warms and captures, then 3 replays each give
     the ``sync: True`` solve's ``itr`` and bits on the same cards, with no
-    host sync; a fused step across the cards still raises
-    ``NotImplementedError`` naming "A11f (across cards)"."""
+    host sync. With the CG case, the fused LES across the same cards, its
+    state whole: one graph per card per step, the eager steps' bits
+    (``_fused_les_across``); with the MG case, its state on the blocks, four
+    per card, raises ``NotImplementedError`` naming A11k before any capture
+    (such step graphs segfaulted at their first launch)."""
     from pyapes_tpu_torch.ops import graph_loop, peer
 
     n = torch.cuda.device_count()
@@ -2363,9 +2366,178 @@ def test_cuda_placed_graphs_across_two_cards(cuda, kind):
         assert int(rep["itr"]) == rref["itr"] and float(rep["tol"]) == rref["tol"]
         assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
     assert graph_loop.nodes == nodes  # replays, not captures
-    _, m2, dt = _fused_placed_models(cuda, devs, n=17)
-    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
+    if kind == "cg":
+        _fused_les_across(cuda, devs, on_blocks=False)
+    elif kind == "mg":  # the state on the blocks, four per card: A11k
+        from pyapes_tpu_torch.parallel import DomainDecomposition
+
+        _, m2, dt = _fused_placed_models(cuda, devs, n=17)
+        m2.put_state(DomainDecomposition((4, 2, 1), devices=devs))
+        nodes = graph_loop.nodes
+        with pytest.raises(NotImplementedError, match="A11k"):
+            m2.run(dt, 2, fused=True)
+        assert graph_loop.nodes == nodes
+
+
+def _fused_les_across(dev, devs, on_blocks: bool):
+    """The 17^3 f64 LES of ``_fused_placed_models`` with its solves on
+    ``devs`` (blocks on several cards) and its state whole or on the blocks:
+    eager and fused (no fallback: the warning is an error) two steps, then
+    3 steps each; every fused step one replay per card with no host sync,
+    the eager step's ``itr`` solve by solve; at the end the same bits of
+    every state Field's value and history."""
+    import warnings
+
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver.ops import solve_log
+
+    m1, m2, dt = _fused_placed_models(dev, devs, n=17)
+    if on_blocks:
+        dd = DomainDecomposition((4, 2, 1), devices=devs)
+        m1.put_state(dd)
+        m2.put_state(dd)
+    cards = sorted({str(d) for d in m2.p_solver.config["fdm"]["decomp"].devices})
+    real = torch.cuda.CUDAGraph.replay
+    replays = [0]
+
+    def counted(graph):
+        replays[0] += 1
+        return real(graph)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        m1.run(dt, 2)
         m2.run(dt, 2, fused=True)
+        runner = m2.fused_runner()
+        for _ in range(3):
+            with solve_log() as log:
+                m1.step(dt)
+            for c in cards:
+                torch.cuda.synchronize(c)
+            replays[0] = 0
+            torch.cuda.CUDAGraph.replay = counted
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                runner.step(dt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.CUDAGraph.replay = real
+            assert replays[0] == len(cards)
+            assert [int(r["itr"]) for r in runner.reports] == [int(r["itr"]) for r in log]
+    assert runner.captures == 1
+    assert len(next(iter(runner._compiled.values())).call.graphs) == len(cards)
+
+    def parts(x):
+        return list(x.parts) if isinstance(x, blocks.BlockTensor) else [x]
+
+    for a, b in zip(m1.state_fields(), m2.state_fields()):
+        assert isinstance(b(), blocks.BlockTensor) == on_blocks
+        for lvl in ("_VAR", "_VARo"):
+            assert all(torch.equal(x, y) for x, y in zip(parts(getattr(a, lvl)),
+                                                          parts(getattr(b, lvl)))), a.name
+
+
+def _bench_mg_problem(dev, n: int, devs):
+    """Bench's MG-PCG (CG, bf16 V(2,2), omega 0.857, FMG, ``fuse_rz``; tol
+    1e-6, the residual criterion) on an ``n``^3 f32 unit cube, homogeneous
+    Dirichlet faces, a seeded RHS, the Field and the RHS on ``(4, 2, 1)``
+    blocks on ``devs``. Returns ``solve(sync) -> (the solution's blocks,
+    cloned; the report)``, each call from zeros."""
+    from pyapes_tpu_torch.geometry import Box
+    from pyapes_tpu_torch.mesh import Mesh
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+    from pyapes_tpu_torch.solver import FDM, Solver
+    from pyapes_tpu_torch.variables import Field
+    from pyapes_tpu_torch.variables.bcs import homogeneous_bcs
+
+    dd = DomainDecomposition((4, 2, 1), devices=devs)
+    mesh = Mesh(Box[(slice(0, 1),) * 3], None, [n] * 3, device=str(dev), dtype="single")
+    var = Field("p", 1, mesh, {"domain": homogeneous_bcs(3, 0.0, "dirichlet"),
+                               "obstacle": None}, init_val=0.0)
+    rng = np.random.default_rng(0)
+    rhs = blocks.put(torch.from_numpy(rng.standard_normal((1, n, n, n)).astype(np.float32)), dd)
+    zeros = blocks.put(torch.zeros((1, n, n, n)), dd)
+    cfg = {"method": "cg", "precond": "mg", "tol": 1e-6, "max_it": 200, "criterion": "residual",
+           "report": False, "decomp": dd,
+           "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
+                       "fmg": True, "fuse_rz": True}}
+    solvers = {sync: Solver({"fdm": {**cfg, "sync": sync}}) for sync in (True, False)}
+
+    def solve(sync):
+        var.VAR = zeros.clone()
+        solvers[sync].set_eq(FDM().laplacian(1.0, var) == rhs)
+        rep = solvers[sync].solve()
+        return [p.clone() for p in var().parts], rep
+
+    return solve
+
+
+@pytest.mark.parametrize("n", [64, 256])
+def test_cuda_bench_mgpcg_across_two_cards(cuda, n):
+    """Bench's bf16 V(2,2) FMG MG-PCG with its blocks round robin over
+    cuda:0 and cuda:1 (skips on one card), four blocks per card. At 64^3
+    ``sync: False`` is one graph per card, captured at the first call, and 3
+    replays each give the ``sync: True`` solve's ``itr``, ``tol`` and
+    solution bits; at 256^3, where such graphs segfaulted at their first
+    launch (``scripts/mg_across_matrix_torch.py``), ``sync: False`` raises
+    ``NotImplementedError`` naming A11k before any capture, and ``sync:
+    True`` solves."""
+    from pyapes_tpu_torch.ops import graph_loop
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs two cards; this machine shows {n_cards}")
+    solve = _bench_mg_problem(cuda, n, ("cuda:0", "cuda:1") * 4)
+    ref, rref = solve(True)
+    assert rref["converge"]
+    if n > 64:
+        nodes = graph_loop.nodes
+        with pytest.raises(NotImplementedError, match="A11k"):
+            solve(False)
+        assert graph_loop.nodes == nodes
+        return
+    solve(False)  # the warm-up and the capture
+    for _ in range(3):
+        out, rep = solve(False)
+        assert int(rep["itr"]) == rref["itr"] and float(rep["tol"]) == rref["tol"]
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_cuda_lanes_capture_of_a_placed_solve(cuda):
+    """A user's capture of one graph per card holding a placed ``sync:
+    False`` solve (skips on one card): ``GraphedCall(fn, "cuda:0",
+    lanes=blocks.card_lanes(dd, "cuda:0"))`` with the Field's initial guess
+    and the RHS as its inputs, 3 replays after the capture: the ``sync:
+    True`` solve's bits, ``itr`` and ``tol``; one graph per card. A capture of
+    one graph (no lanes) of the same solve raises ``NotImplementedError``
+    naming A11f."""
+    from pyapes_tpu_torch.ops.graph_loop import GraphedCall
+    from pyapes_tpu_torch.parallel import DomainDecomposition, blocks
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip(f"needs two cards; this machine shows {n_cards}")
+    devs = ("cuda:0", "cuda:1") * 4
+    solve = _bench_mg_problem(cuda, 64, devs)
+    ref, rref = solve(True)
+    lanes = blocks.card_lanes(DomainDecomposition((4, 2, 1), devices=devs), "cuda:0")
+    assert [str(d) for d in lanes] == ["cuda:0", "cuda:1"]
+
+    def fn():
+        out, rep = solve(False)
+        return out, rep["itr"], rep["tol"]
+
+    call = GraphedCall(fn, "cuda:0", lanes=lanes)
+    call()  # the warm-up and the capture
+    assert len(call.graphs) == 2
+    for _ in range(3):
+        out, itr, tol = call()
+        for c in lanes:
+            torch.cuda.synchronize(c)
+        assert int(itr) == rref["itr"] and float(tol) == rref["tol"]
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    with pytest.raises(NotImplementedError, match="A11f"):
+        GraphedCall(fn, "cuda:0")()
 
 
 # -- the peer put / wait kernels ---------------------------------------------

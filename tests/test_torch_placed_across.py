@@ -12,9 +12,10 @@ every block standing in for a card of its own
 and wait between them):
 
 * against the lead-combine path (``sync: True``): the same ``itr``, ``tol``
-  and solution bits for CG, BiCGSTAB, MG-PCG, fastdiag, CG + FD, Darcy's
-  variable-Γ Laplacian and an upwind Div, a Field on blocks and a whole
-  Field, and CG with a Dirichlet and a Neumann (flux) immersed body;
+  and solution bits for CG, BiCGSTAB, MG-PCG (an f32 cycle and bench's bf16
+  V(2,2) FMG cycle), fastdiag, CG + FD, Darcy's variable-Γ Laplacian and an
+  upwind Div, a Field on blocks and a whole Field, and CG with a Dirichlet
+  and a Neumann (flux) immersed body;
 * a sum, a max and the per-component 2-norm combined on every holder: each
   replica bit-equal to ``_reduce``'s lead combine (f32 data, where the
   order shows);
@@ -23,8 +24,13 @@ and wait between them):
   1e-12;
 * a copy between two devices inside a capture of one graph per card
   raises, naming its call site (the dispatch-mode check, with the CPU and
-  the meta device standing in for two cards); the plain put and wait.
+  the meta device standing in for two cards); the plain put and wait;
+* graphs per card of the placements and sizes that no run on the card
+  showed to launch raise, naming A11k (``dispatch.check_a11k``: the
+  multigrid solves and fused steps across cards).
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -62,6 +68,10 @@ CASES = {
     "cg_fd": {"method": "cg", "tol": 1e-10, "max_it": 100, "precond": "fd"},
     "darcy": {"method": "cg", "tol": 1e-10, "max_it": 200, "precond": "mg"},
     "upwind": {"method": "bicgstab", "tol": 1e-10, "max_it": 400},
+    # bench's cycle: bf16 V(2,2), omega 0.857, FMG
+    "mg_bench": {"method": "cg", "tol": 1e-8, "max_it": 200, "precond": "mg",
+                 "mg_opts": {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857,
+                             "fmg": True}},
 }
 
 
@@ -249,20 +259,75 @@ def test_cross_device_copy_in_a_per_card_capture_raises_naming_its_site():
 
 
 def test_across_cards_narrow_or_fmg_cycle_raises():
-    """Across cards, a ``sync: False`` solve whose multigrid cycle runs
-    narrower than the solve or starts from FMG raises
-    ``NotImplementedError`` naming "A11f (across cards)"; the cycle in the
-    solve's dtype without FMG, and the other methods, pass."""
+    """Across cards, a graphed CG or BiCGSTAB solve preconditioned by the
+    multigrid cycle raises ``NotImplementedError`` naming A11k on every
+    placement and size that no run showed to launch
+    (``scripts/mg_across_matrix_torch.py``: its graphs per card segfaulted
+    at their first launch on two and four cards past 64^3, with FMG or four
+    blocks per card, f32 and bf16 alike). What passes: every cycle up to
+    64^3 nodes; past it, the cycle without FMG on two blocks on each of
+    four cards (bench's bf16 V(2,2) without FMG among them). Past 64^3 two
+    cards raise with two blocks on each as with four, and so do four cards
+    with one block each. fastdiag, the FD preconditioner and a fastdiag
+    solve whose config names the MG fallback pass anywhere, and so do blocks
+    off the card."""
     from pyapes_tpu_torch.solver.linalg import dispatch
 
-    x0 = torch.zeros(1, 4, 4, dtype=torch.float32)
-    for opts in ({"dtype": "bfloat16"}, {"fmg": True}, {"dtype": "bfloat16", "fmg": True}):
-        with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)"):
-            dispatch._check_across({"precond": "mg", "mg_opts": opts}, x0)
-    for cfg in ({"precond": "mg"}, {"precond": "mg", "mg_opts": {"dtype": "float32"}},
-                {"precond": "mg", "mg_opts": {"dtype": "float64"}}, {"precond": "fd"},
-                {"precond": None, "mg_opts": {"fmg": True}}):
-        dispatch._check_across(cfg, x0)
+    cards = [torch.device(f"cuda:{i}") for i in range(4)]
+
+    def dd(n_cards, n_blocks):
+        return SimpleNamespace(devices=tuple(cards[i % n_cards] for i in range(n_blocks)))
+
+    four = dd(4, 8)
+    big, small = torch.zeros(1, 128, 64, 64), torch.zeros(1, 64, 64, 64)
+    bf16 = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2}
+    for opts in ({}, bf16, {"dtype": "float32", "fmg": False}, {"fmg": True},
+                 {**bf16, "fmg": True}):
+        fmg = bool(opts.get("fmg"))
+        for method in ("cg", "bicgstab"):
+            cfg = {"precond": "mg", "mg_opts": opts}
+            for placement in (dd(2, 8), dd(2, 4), dd(4, 4), dd(3, 6)) + ((four,) if fmg else ()):
+                with pytest.raises(NotImplementedError, match="A11k") as e:
+                    dispatch._check_across(cfg, method, big, placement)
+                assert "segfaulted inside cudaGraphLaunch" in str(e.value)
+                assert f"fmg: {fmg}" in str(e.value)
+                dispatch._check_across(cfg, method, small, placement)
+            if not fmg:
+                dispatch._check_across(cfg, method, big, four)
+    for cfg, method in (({"precond": "fd"}, "cg"), ({"precond": "mg"}, "fastdiag"),
+                        ({"precond": None, "mg_opts": {"fmg": True}}, "cg")):
+        for placement in (four, dd(2, 8)):
+            dispatch._check_across(cfg, method, big, placement)
+    host = SimpleNamespace(devices=(cards[0], torch.device("cpu")) * 4)
+    dispatch._check_across({"precond": "mg", "mg_opts": {"fmg": True}}, "cg", big, host)
+
+
+def test_a11k_placements_of_a_fused_step():
+    """``dispatch.check_a11k`` for a fused whole step: a whole state passes
+    up to 64^3 nodes on any placement and past it only on two blocks on each
+    of four cards; a state on blocks passes only on that placement (its
+    17^3 step on four blocks per card segfaulted, its 257^3 step on two per
+    card ran); blocks off the card pass."""
+    from pyapes_tpu_torch.solver.linalg import dispatch
+
+    cards = [torch.device(f"cuda:{i}") for i in range(4)]
+    four, two = (tuple(cards[i % n] for i in range(8)) for n in (4, 2))
+    for nodes in (17**3, 64**3, 257**3):
+        for state_on_blocks in (False, True):
+            dispatch.check_a11k(four, nodes, "a fused whole step",
+                                state_on_blocks=state_on_blocks)
+        if nodes <= 64**3:
+            dispatch.check_a11k(two, nodes, "a fused whole step")
+        else:
+            with pytest.raises(NotImplementedError, match="A11k"):
+                dispatch.check_a11k(two, nodes, "a fused whole step")
+        with pytest.raises(NotImplementedError, match="A11k") as e:
+            dispatch.check_a11k(two, nodes, "a fused whole step", state_on_blocks=True)
+        assert "8 blocks on 2 cards (at most 4 on one)" in str(e.value)
+        with pytest.raises(NotImplementedError, match="A11k"):
+            dispatch.check_a11k(cards[:3] * 2, nodes, "a fused whole step",
+                                state_on_blocks=True)
+    dispatch.check_a11k(("cpu",) * 4, 257**3, "a fused whole step", state_on_blocks=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])

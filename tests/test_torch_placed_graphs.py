@@ -172,22 +172,54 @@ def test_placed_sync_false_equals_sync_true(kind, field):
 
 
 def test_across_cards_raises_naming_a11f(monkeypatch):
-    """A placement over two cards passes the check outside a graph (a
-    ``sync: True`` solve, and a ``sync: False`` one: one graph per card),
-    and raises in a fused whole step (a step's one graph of one card),
-    naming "A11f (across cards)" and what is still open; blocks on the host
-    raise in a whole step, naming A11f."""
-    two = SimpleNamespace(devices=(torch.device("cuda:0"), torch.device("cuda:1")))
-    x0 = torch.zeros(1, 4, 4)
-    dispatch._check_placed(x0, two)
-    with pytest.raises(NotImplementedError, match=r"A11f \(across cards\)") as e:
+    """A placement over two cards: outside a graph the check passes and the
+    solve runs as it is (``sync: True``, or ``sync: False`` as one graph per
+    card); inside a ``GraphedCall`` of one graph per card whose lanes are
+    the placement's cards (``blocks.card_lanes``; a fused whole step across
+    the cards is one), in its eager warm-up and in its capture alike, it
+    passes and the solve runs in its per-card form; inside a capture of one
+    graph (no lanes, or other lanes), a warm-up of such a call, and a whole
+    step of one graph it raises ``NotImplementedError`` naming A11f and the
+    lanes capture to use. Blocks on the host raise inside any graph, naming
+    A11f."""
+    cuda0, cuda1 = torch.device("cuda:0"), torch.device("cuda:1")
+    two = SimpleNamespace(devices=(cuda0, cuda1, cuda0, cuda1))
+    card_x0 = SimpleNamespace(device=cuda0)
+    capturing, lanes = [False], [None]
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(dispatch, "graph_lanes", lambda: lanes[0])
+    assert dispatch._check_placed(card_x0, two) is False
+    assert dispatch._check_placed(torch.zeros(1, 4, 4), two) is False
+    lanes[0] = (cuda0, cuda1)  # the warm-up of a call of one graph per card
+    assert dispatch._check_placed(card_x0, two) is True
+    with whole_step():
+        assert dispatch._check_placed(card_x0, two) is True
+    for got in ((cuda0,), (cuda1, cuda0)):  # the warm-up of a call of other lanes
+        lanes[0] = got
+        with pytest.raises(NotImplementedError, match="A11f"):
+            dispatch._check_placed(card_x0, two)
+    lanes[0] = None
+    with pytest.raises(NotImplementedError, match="A11f") as e:
         with whole_step():
-            dispatch._check_placed(x0, two)
-    assert "captures and fused whole steps" in str(e.value)
-    host = SimpleNamespace(devices=(torch.device("cuda:0"), torch.device("cpu")))
-    card_x0 = SimpleNamespace(device=torch.device("cuda:0"))
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)  # no card here
-    dispatch._check_placed(card_x0, host)
+            dispatch._check_placed(card_x0, two)
+    assert "lanes=blocks.card_lanes(decomp, 'cuda:0')" in str(e.value)
+    capturing[0] = True
+    for got in (None, (cuda0,), (cuda1, cuda0)):
+        lanes[0] = got
+        with pytest.raises(NotImplementedError, match="A11f") as e:
+            dispatch._check_placed(card_x0, two)
+        assert "capture of one graph" in str(e.value)
+        assert "(the lanes ['cuda:0', 'cuda:1'])" in str(e.value)
+    lanes[0] = (cuda0, cuda1)
+    assert dispatch._check_placed(card_x0, two) is True
+    one = SimpleNamespace(devices=(cuda0,) * 4)
+    assert dispatch._check_placed(card_x0, one) is False
+    host = SimpleNamespace(devices=(cuda0, torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match="A11f") as e:
+        dispatch._check_placed(card_x0, host)
+    assert "on the host" in str(e.value)
+    capturing[0], lanes[0] = False, None
+    assert dispatch._check_placed(card_x0, host) is False
     with pytest.raises(NotImplementedError, match="A11f") as e:
         with whole_step():
             dispatch._check_placed(card_x0, host)
