@@ -6403,8 +6403,11 @@ def phase_peer(dev) -> tuple[dict, dict, dict]:
     stream; the rest of the destination untouched), the pair timed per case
     in f32 beside the plain copy and its bound; the probe's
     ``per_card_graphs`` variant on two streams of ``dev`` (its launches
-    counted from 0: the kernels' drive); a wait with no put ends within its
-    bound with an error. Returns (launches, worst abs error, timing)."""
+    counted from 0: the kernels' drive), then again with ``LARGE_TOP``
+    kernels ahead of each loop behind a wait for the other lane (a lane
+    launched after the other from one thread would deadlock there: the
+    lanes launch side by side); a wait with no put ends within its bound
+    with an error. Returns (launches, worst abs error, timing)."""
     import importlib.util
 
     import torch
@@ -6454,6 +6457,14 @@ def phase_peer(dev) -> tuple[dict, dict, dict]:
     if not probe.get("ok") or not all(counts.values()):
         raise RuntimeError(f"chip_smoke: the per_card_graphs probe on two streams of {dev}: "
                            f"{json.dumps(probe)}; launches {counts}")
+    # the same with LARGE_TOP kernels ahead of each loop, behind a wait for
+    # the other lane: the lanes' launches side by side (graph_loop's
+    # _launch_lanes) hold; one after the other they deadlocked on cards
+    large = probe_mod.probe_per_card_graphs(str(dev), str(dev), top_nodes=probe_mod.LARGE_TOP)
+    if not large.get("ok"):
+        raise RuntimeError(f"chip_smoke: the per_card_graphs probe with {probe_mod.LARGE_TOP} "
+                           f"kernels ahead of its loop on two streams of {dev}: "
+                           f"{json.dumps(large)}")
     timeout = _peer_timeout()
     if timeout["exit_code"] == 0 or timeout["wall_s"] > 60 or timeout["stdout"] == "no error":
         raise RuntimeError(f"chip_smoke: a peer_wait with no put did not end with an error "
@@ -6470,7 +6481,8 @@ def phase_peer(dev) -> tuple[dict, dict, dict]:
           f"bf16; bits equal, worst abs {worst['peer_put']}); per case, f32, ms per put/wait "
           f"pair (device, {PEER_TIME_REPS} pairs) beside the plain copy and the bound (bytes "
           f"read + written at {MEM_BYTES_PER_S / 1e12} TB/s): {json.dumps(rows)}; the "
-          f"per_card_graphs probe on two streams of {dev}: {json.dumps(probe)}; a wait with no "
+          f"per_card_graphs probe on two streams of {dev}: {json.dumps(probe)}; with "
+          f"{probe_mod.LARGE_TOP} kernels ahead of its loop: {json.dumps(large)}; a wait with no "
           f"put (TIMEOUT_S 0.5): {json.dumps(timeout)}; card {_card_line()}", flush=True)
     return counts, worst, timing
 
@@ -6483,48 +6495,7 @@ def _same_view(ref, buf, view):
 
 
 ACROSS_CALLS = 5  # (p): sync: True and sync: False solves in turns, one each per turn
-# (p)'s cycles: bench's V(2,2) and its Darcy cycle in f32 without the FMG
-# start (across cards an FMG start on more than 64^3 nodes raises: ROADMAP
-# A11k; bench's own cycle is (p)'s a11k_case)
-ACROSS_MG = {**BENCH_MG, "dtype": "float32", "fmg": False}
-ACROSS_DARCY_MG = {**DARCY_MG, "dtype": "float32", "fmg": False}
-
-
-def a11k_case(label, var, rhs, cfg, coeff=1.0) -> dict:
-    """(p)'s check of ``ROADMAP.md`` A11k on one problem whose blocks lie on
-    several cards: a ``sync: True`` solve (its ``itr`` and wall), then the
-    ``sync: False`` solve raises ``NotImplementedError`` naming A11k before
-    any capture (``graph_loop.nodes`` unchanged): its graphs per card
-    segfaulted at their first launch (``scripts/mg_across_matrix_torch.py``).
-    Returns the numbers and the message."""
-    from pyapes_tpu_torch.ops import graph_loop
-    from pyapes_tpu_torch.solver.fdm import FDM
-    from pyapes_tpu_torch.solver.ops import Solver
-
-    fdm = FDM()
-
-    def solve(sync):
-        var().zero_()
-        s = Solver({"fdm": {"report": False, **cfg, "sync": sync}})
-        s.set_eq(fdm.laplacian(coeff, var) == rhs)
-        return s.solve()
-
-    _sync_all()
-    tic = time.perf_counter()
-    rep = solve(True)
-    _sync_all()
-    wall = time.perf_counter() - tic
-    nodes = graph_loop.nodes
-    try:
-        solve(False)
-    except NotImplementedError as e:
-        if "A11k" not in str(e) or graph_loop.nodes != nodes:
-            raise
-        raised = str(e)
-    else:
-        raise RuntimeError(f"chip_smoke: {label}: sync: False across cards did not raise (A11k)")
-    return {"sync_true_itr": rep["itr"], "sync_true_tol": rep["tol"],
-            "sync_true_converge": rep["converge"], "sync_true_wall_s": wall, "raised": raised}
+LES_TWO_CARDS = 2  # (p): the fused LES with its state on blocks, four per card
 
 
 def graph_across_case(label, var, rhs, cfg, coeff=1.0) -> dict:
@@ -6736,16 +6707,17 @@ def placed_graphs_across(dev) -> dict:
     port builds on, one graph per card joined by ``ops.peer``'s kernels
     (``per_card_graphs``). Then ``sync: False`` solves at full width on
     ``N_DECOMP`` blocks round robin, each one graph per card held to the
-    ``sync: True`` solve on the same cards (``graph_across_case``): MG-PCG
-    512^3 with bench's V(2,2) in f32 without FMG (bench's own bf16 FMG
-    cycle raises naming A11k, ``a11k_case``), Darcy 256^3 with the Field
-    on blocks, fastdiag 512^3 on blocks, CG +
-    ``precond: "fd"`` 256^3 with a whole Field (the entry's scatter and the
-    exit's gather outside the graphs). Then the fused TGV-3D LES 257^3 across
-    the cards, one graph per card per step, its state whole and on the
-    blocks, each held to its eager steps (``graph_les_across_case``). On
-    fewer cards one line says it needs them. Returns the numbers and the
-    drive's kernel launches (``counts``)."""
+    ``sync: True`` solve on the same cards (``graph_across_case``): bench's
+    MG-PCG 512^3 (bf16 V(2,2) FMG) with the Field on blocks, Darcy 256^3
+    (its bf16 FMG cycle) with Γ and the Field on blocks, fastdiag 512^3 on
+    blocks, CG + ``precond: "fd"`` 256^3 with a whole Field (the entry's
+    scatter and the exit's gather outside the graphs). Then the fused TGV-3D
+    LES 257^3 across the cards, one graph per card per step, its state whole
+    and on the blocks, and on the blocks over ``LES_TWO_CARDS`` cards (four
+    blocks on each), each held to its eager steps
+    (``graph_les_across_case``). On fewer cards one line says it needs
+    them. Returns the numbers and the drive's kernel launches
+    (``counts``)."""
     import sys
 
     import torch
@@ -6765,25 +6737,19 @@ def placed_graphs_across(dev) -> dict:
     card = _card_line()
     out = {"probe": probe, "cards": probe.get("cards")}
     print(f"[17 placed] (p) the probe: {json.dumps(probe)}", flush=True)
-    if not (probe["per_card_graphs"].get("ok") and probe["per_card_graphs_one_card"].get("ok")):
+    if not all(probe[k].get("ok") for k in ("per_card_graphs", "per_card_graphs_one_card",
+                                             "per_card_graphs_large",
+                                             "per_card_graphs_one_card_large")):
         raise RuntimeError("chip_smoke: (p) the runtime refuses one graph per card joined by "
                            f"the peer kernels: {json.dumps(probe)}")
     dd = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % GRAPH_CARDS}"
                                                      for i in range(prod(N_DECOMP))))
-    mg = {k: v for k, v in mg_cfg(ACROSS_MG).items() if k != "donate"}
-    bench_mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
-    label = f"(p) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG (bench's), the Field on blocks"
-    _, var, rhs, coeff = _block_problem(dev, dd, (N_MAIN,) * 3)
-    out["p_mgpcg_bench"] = a11k_case(label, var, rhs, {**bench_mg, "decomp": dd}, coeff)
-    print(f"[17 placed] {label}, {N_DECOMP} round robin over {GRAPH_CARDS} cards: sync: True "
-          f"solves, sync: False raises naming A11k; cards {card}: "
-          f"{json.dumps(out['p_mgpcg_bench'])}", flush=True)
-    del var, rhs, coeff
+    mg = {k: v for k, v in mg_cfg(BENCH_MG).items() if k != "donate"}
     cases = (
-        ("p_mgpcg", f"(p) MG-PCG {N_MAIN}^3 f32 f32 V(2,2), the Field on blocks", N_MAIN,
-         False, {**mg, "decomp": dd}),
-        ("p_darcy", f"(p) Darcy {N_DARCY}^3 f32 f32 V(2,2), Γ and the Field on blocks", N_DARCY,
-         True, {**darcy_cfg(), "mg_opts": ACROSS_DARCY_MG, "decomp": dd}),
+        ("p_mgpcg", f"(p) MG-PCG {N_MAIN}^3 f32 bf16 V(2,2) FMG (bench's), the Field on "
+         "blocks", N_MAIN, False, {**mg, "decomp": dd}),
+        ("p_darcy", f"(p) Darcy {N_DARCY}^3 f32 bf16 V(2,2) FMG (Darcy's), Γ and the Field on "
+         "blocks", N_DARCY, True, {**darcy_cfg(), "decomp": dd}),
         ("p_fastdiag", f"(p) fastdiag {N_MAIN}^3 f32, the Field on blocks", N_MAIN, False,
          fd_cfg(dd)),
         ("p_cg_fd", f"(p) CG + precond fd {PLACED_FD_CG_N}^3 f32, a whole Field",
@@ -6805,12 +6771,17 @@ def placed_graphs_across(dev) -> dict:
         for i in range(GRAPH_CARDS):
             with torch.cuda.device(i):
                 torch.cuda.empty_cache()
-    for key, on_blocks in (("p_tgv_les_fused", False), ("p_tgv_les_fused_blocks", True)):
+    dd2 = DomainDecomposition(N_DECOMP, devices=tuple(f"cuda:{i % LES_TWO_CARDS}"
+                                                      for i in range(prod(N_DECOMP))))
+    for key, on_blocks, d, n_cards in (("p_tgv_les_fused", False, dd, GRAPH_CARDS),
+                                       ("p_tgv_les_fused_blocks", True, dd, GRAPH_CARDS),
+                                       ("p_tgv_les_fused_blocks_two_cards", True, dd2,
+                                        LES_TWO_CARDS)):
         label = (f"(p) TGV-3D LES {TGV_RUNG}^3 f32 torus {N_DECOMP}, fused, the state "
                  f"{'on the blocks' if on_blocks else 'whole'}")
-        out[key] = _counted_drive(counts, lambda: graph_les_across_case(dev, label, dd,
+        out[key] = _counted_drive(counts, lambda: graph_les_across_case(dev, label, d,
                                                                         on_blocks))
-        print(f"[17 placed] {label}, round robin over {GRAPH_CARDS} cards, one graph per card "
+        print(f"[17 placed] {label}, round robin over {n_cards} cards, one graph per card "
               f"per step against eager steps on the same cards; cards {card}: "
               f"{json.dumps(out[key])}", flush=True)
         clear_cache()
@@ -7367,26 +7338,42 @@ def phase_placed(dev) -> dict:
     return launches
 
 
+PHASE_S: dict = {}
+"""Each phase's seconds in this run (``_timed``), printed before the
+kernels line."""
+
+
+def _timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept in ``PHASE_S[name]`` and
+    printed."""
+    tic = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - tic
+    print(f"[phase] {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import faulthandler
 
     import torch
 
     faulthandler.enable()  # a fatal signal prints the Python stack of every thread
-    dev, _ = phase_device()
-    phase_build()
-    worst1, timing1 = phase_kernel(dev)
-    worst_rz, timing_rz = check_axis_rz(dev)
-    worst_ch, timing_ch = check_axis_channel(dev)
-    row_level_times(dev)
-    axis_level_times(dev)
-    worst2, timing2, _ = phase_kernel_slice2(dev)
-    worst3, timing3 = phase_kernel_vargamma(dev)
-    vg_level_times(dev)
-    worst4, timing4 = phase_kernel_advect(dev)
-    worst5, timing5 = phase_kernel_ext(dev)
-    dot_ext_level_times(dev)
-    peer_counts, worst6, timing6 = phase_peer(dev)
+    tic = time.perf_counter()
+    dev, _ = _timed("1 device", phase_device)
+    _timed("2 build", phase_build)
+    worst1, timing1 = _timed("3 kernels", phase_kernel, dev)
+    worst_rz, timing_rz = _timed("3 kernels", check_axis_rz, dev)
+    worst_ch, timing_ch = _timed("3 kernels", check_axis_channel, dev)
+    _timed("3 kernels", row_level_times, dev)
+    _timed("3 kernels", axis_level_times, dev)
+    worst2, timing2, _ = _timed("4 kernels slice 2", phase_kernel_slice2, dev)
+    worst3, timing3 = _timed("5 kernels variable-Γ", phase_kernel_vargamma, dev)
+    _timed("5 kernels variable-Γ", vg_level_times, dev)
+    worst4, timing4 = _timed("6 kernels advection", phase_kernel_advect, dev)
+    worst5, timing5 = _timed("7 kernel halo-extended", phase_kernel_ext, dev)
+    _timed("7 kernel halo-extended", dot_ext_level_times, dev)
+    peer_counts, worst6, timing6 = _timed("7b peer", phase_peer, dev)
     worst = {**worst1, **worst2, **worst3, **worst4, "axis_stencil_ext": worst5, **worst6}
     worst["axis_stencil5"] = max(worst1["axis_stencil5"], worst4["axis_stencil5"])
     timing = {"axis_stencil": timing1, **timing2, **timing3, **timing4,
@@ -7395,15 +7382,17 @@ def main() -> None:
     from pyapes_tpu_torch.parallel import DomainDecomposition
 
     launches = {name: 0 for name, _, _, _ in KERNELS}
-    fd_counts, fd_stats, fd_x = phase_fastdiag(dev)
-    fd_decomp_counts = phase_fastdiag_decomp(dev, fd_stats, fd_x)
+    fd_counts, fd_stats, fd_x = _timed("8 fastdiag", phase_fastdiag, dev)
+    fd_decomp_counts = _timed("8 fastdiag", phase_fastdiag_decomp, dev, fd_stats, fd_x)
     del fd_x
-    mg_counts, mg_stats = phase_mgpcg(
+    mg_counts, mg_stats = _timed(
+        "9 MG-PCG", phase_mgpcg,
         dev, N_MAIN, BENCH_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_x2"),
         f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG fuse_rz")
     # under a decomposition the fused alpha-dot, Jacobi, double-sweep and
     # r.z kernels are off: the block kernel applies every fine level
-    mg_decomp_counts, mg_decomp_stats = phase_mgpcg(
+    mg_decomp_counts, mg_decomp_stats = _timed(
+        "9 MG-PCG", phase_mgpcg,
         dev, N_MAIN, BENCH_MG, ("axis_stencil_ext",),
         f"MG-PCG {N_MAIN}^3 bf16 V(2,2) FMG {N_DECOMP}", DomainDecomposition(N_DECOMP))
     d_itr = [abs(a - b) for a, b in zip(mg_decomp_stats["itr"], mg_stats["itr"])]
@@ -7412,25 +7401,26 @@ def main() -> None:
                            f"iterations, the undecomposed {mg_stats['itr']} (|d itr| > 2)")
     path_counts = [
         peer_counts, fd_counts, fd_decomp_counts, mg_counts, mg_decomp_counts,
-        phase_mgpcg(dev, N_V11, V11_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_dot"),
-                    f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz")[0],
-        phase_darcy(dev),
-        phase_model(),
-        phase_burgers(dev),
-        phase_advdiff(dev),
-        phase_cavity(dev),
+        _timed("9 MG-PCG", phase_mgpcg,
+               dev, N_V11, V11_MG, ("axis_stencil_dot", "jacobi3d", "jacobi3d_dot"),
+               f"MG-PCG {N_V11}^3 bf16 V(1,1) FMG fuse_rz")[0],
+        _timed("9 Darcy", phase_darcy, dev),
+        _timed("9 model", phase_model),
+        _timed("9 Burgers", phase_burgers, dev),
+        _timed("9 advection-diffusion", phase_advdiff, dev),
+        _timed("10 cavity", phase_cavity, dev),
     ]
-    rz_counts, rz_per_run, rz_row = phase_rz(dev)
+    rz_counts, rz_per_run, rz_row = _timed("11 rz", phase_rz, dev)
     path_counts.append(rz_counts)
-    ch_counts, ch_per_step = phase_channel(dev)
+    ch_counts, ch_per_step = _timed("12 channel", phase_channel, dev)
     path_counts.append(ch_counts)
-    phase_burgers_xonly(dev)
-    per_counts, per_worst_abs = phase_periodic(dev)
+    _timed("12 Burgers x only", phase_burgers_xonly, dev)
+    per_counts, per_worst_abs = _timed("13 periodic", phase_periodic, dev)
     path_counts.append(per_counts)
-    phase_fused(dev)
-    path_counts.append(phase_adjoint(dev))
-    path_counts.append(phase_utilities(dev))
-    path_counts.append(phase_placed(dev))
+    _timed("14 fused", phase_fused, dev)
+    path_counts.append(_timed("15 adjoint", phase_adjoint, dev))
+    path_counts.append(_timed("16 utilities", phase_utilities, dev))
+    path_counts.append(_timed("17 placed", phase_placed, dev))
     for name, err in per_worst_abs.items():
         worst[name] = max(worst[name], err)
     for counts in path_counts:
@@ -7471,6 +7461,9 @@ def main() -> None:
           "copy_, library_ms torch's Tensor.copy_, bound the bytes read and written; launches "
           "those of the per_card_graphs probe on two streams of one card (on four cards also "
           "phase 17 (p)'s)", flush=True)
+    print("[phases] seconds " + json.dumps({**{k: round(v, 1) for k, v in PHASE_S.items()},
+                                            "total": round(time.perf_counter() - tic, 1)}),
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -18,8 +18,17 @@
 //   pyapes_while_end(body_stream, handle, flag)       ends it
 //   pyapes_loop_record(stream, dtype, t, tol, itr, hist, go, stop, max_it,
 //                      tolerance, stall_ratio, flags)  one pass's bookkeeping
-//   pyapes_graph_node_types(graph, counts[16])         its nodes by type
+//   pyapes_capture_graph(stream, &graph)              the graph a stream captures
+//   pyapes_graph_census_init()                        looks up what the census reads
+//   pyapes_graph_census(graph, out[26], names, len)   what a graph holds (below)
 // Every entry returns a cudaError_t code (0: success).
+
+#include <cuda.h>
+
+#include <string>
+#include <unordered_map>
+#include <unordered_set>
+#include <vector>
 
 #include "common.cuh"
 
@@ -130,35 +139,195 @@ extern "C" int pyapes_while_end(void* body_stream, unsigned long long handle, co
   return static_cast<int>(e);
 }
 
-// Node counts by cudaGraphNodeType (out[0..13]; out[14] any other type) of
-// a graph (what a loop's body holds), and in out[15] the memcpy nodes whose
-// source and destination lie on two devices.
-extern "C" int pyapes_graph_node_types(void* graph, unsigned long long* out) {
-  size_t n = 0;
+extern "C" int pyapes_capture_graph(void* stream, void** graph_out) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaError_t e = cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, nullptr,
+                                           &graph, &deps, &n_deps);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (status != cudaStreamCaptureStatusActive) return static_cast<int>(cudaErrorStreamCaptureImplicit);
+  *graph_out = static_cast<void*>(graph);
+  return 0;
+}
+
+namespace {
+
+// driver entry points the runtime does not wrap: a kernel node's context
+// and function, and a function's name
+using KernelParamsFn = CUresult (*)(CUgraphNode, CUDA_KERNEL_NODE_PARAMS_v2*);
+using CtxCurrentFn = CUresult (*)(CUcontext*);
+using FuncNameFn = CUresult (*)(const char**, CUfunction);
+using KernelNameFn = CUresult (*)(const char**, CUkernel);
+using NodeTypeFn = CUresult (*)(CUgraphNode, CUgraphNodeType*);
+
+template <typename F>
+F entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+  // the versions of CUDA 12.8 (the names need 12.3, a node's context 12.0)
+  if (cudaGetDriverEntryPointByVersion(name, &p, 12080, cudaEnableDefault, &q) != cudaSuccess ||
+      q != cudaDriverEntryPointSuccess) {
+    (void)cudaGetLastError();
+    return nullptr;
+  }
+  return reinterpret_cast<F>(p);
+}
+
+struct Entries {
+  KernelParamsFn kernel_params = entry<KernelParamsFn>("cuGraphKernelNodeGetParams");
+  CtxCurrentFn ctx_current = entry<CtxCurrentFn>("cuCtxGetCurrent");
+  FuncNameFn func_name = entry<FuncNameFn>("cuFuncGetName");
+  KernelNameFn kernel_name = entry<KernelNameFn>("cuKernelGetName");
+  NodeTypeFn node_type = entry<NodeTypeFn>("cuGraphNodeGetType");
+};
+
+// looked up once, at the first call (census_init, before any capture)
+const Entries& entries() {
+  static const Entries e;
+  return e;
+}
+
+int device_of(const void* p) {
+  cudaPointerAttributes a = {};
+  if (p == nullptr || cudaPointerGetAttributes(&a, p) != cudaSuccess) {
+    (void)cudaGetLastError();
+    return -2;
+  }
+  return a.type == cudaMemoryTypeDevice || a.type == cudaMemoryTypeManaged ? a.device : -1;
+}
+
+}  // namespace
+
+// Looks up the census' driver entry points; returns 1 where a kernel
+// node's context can be read, else 0.
+extern "C" int pyapes_graph_census_init() { return entries().kernel_params != nullptr; }
+
+// What a graph holds, for the census of a lane's top-level graph (taken
+// from the graph its stream captures, before the capture ends) and of
+// each loop body. out[0..13]: nodes by cudaGraphNodeType; out[14]: any
+// other type; out[15]: memcpy nodes between two devices; out[16]: edges;
+// out[17]: the longest dependency chain (nodes); out[18]: kernel nodes of
+// another context than the current one (the lane's card's); out[19]:
+// kernel nodes whose context could not be read; out[20]: memcpy nodes
+// with an end on another device than the current one; out[21]: memset
+// nodes into another device; out[22]: distinct kernel functions; out[23]:
+// the most blocks of one kernel node; out[24]: root nodes; out[25]:
+// queries that failed. `names` gets "count name" lines, one per kernel
+// function (cut at names_len). Errors of the queries are cleared: a census
+// leaves no error behind for the next launch check to find.
+extern "C" int pyapes_graph_census(void* graph, unsigned long long* out, char* names,
+                                   unsigned long long names_len) {
+  const Entries& en = entries();
   cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
   cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaGraphNode_t* nodes = new cudaGraphNode_t[n > 0 ? n : 1];
-  e = cudaGraphGetNodes(g, nodes, &n);
-  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
-    cudaGraphNodeType t;
-    e = cudaGraphNodeGetType(nodes[i], &t);
-    if (e != cudaSuccess) break;
+  std::vector<cudaGraphNode_t> nodes(n > 0 ? n : 1);
+  e = cudaGraphGetNodes(g, nodes.data(), &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  CUcontext here = nullptr;
+  if (en.ctx_current) en.ctx_current(&here);
+  std::unordered_map<cudaGraphNode_t, size_t> index;
+  std::unordered_map<std::string, unsigned long long> by_name;
+  std::unordered_set<const void*> funcs;
+  for (size_t i = 0; i < n; ++i) {
+    index[nodes[i]] = i;
+    // the driver's type: the runtime's call refused a conditional node
+    CUgraphNodeType ct;
+    if (en.node_type == nullptr ||
+        en.node_type(reinterpret_cast<CUgraphNode>(nodes[i]), &ct) != CUDA_SUCCESS) {
+      out[25] += 1;
+      continue;
+    }
+    const auto t = static_cast<cudaGraphNodeType>(ct);
     const int k = static_cast<int>(t);
     out[k >= 0 && k < 14 ? k : 14] += 1;
-    if (t == cudaGraphNodeTypeMemcpy) {
-      cudaMemcpy3DParms p = {};
-      e = cudaGraphMemcpyNodeGetParams(nodes[i], &p);
-      if (e != cudaSuccess) break;
-      cudaPointerAttributes a = {}, b = {};
-      if (p.srcPtr.ptr && p.dstPtr.ptr &&
-          cudaPointerGetAttributes(&a, p.srcPtr.ptr) == cudaSuccess &&
-          cudaPointerGetAttributes(&b, p.dstPtr.ptr) == cudaSuccess && a.device != b.device) {
-        out[15] += 1;
+    if (t == cudaGraphNodeTypeKernel) {
+      CUDA_KERNEL_NODE_PARAMS_v2 p = {};
+      if (en.kernel_params == nullptr ||
+          en.kernel_params(reinterpret_cast<CUgraphNode>(nodes[i]), &p) != CUDA_SUCCESS) {
+        out[25] += 1;
+        continue;
       }
-      (void)cudaGetLastError();
+      if (p.ctx == nullptr) {
+        out[19] += 1;
+      } else if (p.ctx != here) {
+        out[18] += 1;
+      }
+      const unsigned long long grid = 1ull * p.gridDimX * p.gridDimY * p.gridDimZ;
+      if (grid > out[23]) out[23] = grid;
+      const void* f = p.func ? static_cast<const void*>(p.func) : static_cast<const void*>(p.kern);
+      funcs.insert(f);
+      const char* nm = nullptr;
+      if (p.func && en.func_name) en.func_name(&nm, p.func);
+      if (nm == nullptr && p.kern && en.kernel_name) en.kernel_name(&nm, p.kern);
+      by_name[nm ? nm : "?"] += 1;
+    } else if (t == cudaGraphNodeTypeMemcpy) {
+      cudaMemcpy3DParms p = {};
+      if (cudaGraphMemcpyNodeGetParams(nodes[i], &p) != cudaSuccess) {
+        out[25] += 1;
+        continue;
+      }
+      const int a = device_of(p.srcPtr.ptr), b = device_of(p.dstPtr.ptr);
+      if (a >= 0 && b >= 0 && a != b) out[15] += 1;
+      if ((a >= 0 && a != dev) || (b >= 0 && b != dev)) out[20] += 1;
+    } else if (t == cudaGraphNodeTypeMemset) {
+      cudaMemsetParams p = {};
+      if (cudaGraphMemsetNodeGetParams(nodes[i], &p) != cudaSuccess) {
+        out[25] += 1;
+        continue;
+      }
+      const int b = device_of(p.dst);
+      if (b >= 0 && b != dev) out[21] += 1;
     }
   }
-  delete[] nodes;
-  return static_cast<int>(e);
+  out[22] = funcs.size();
+  // the longest chain: nodes in topological order (Kahn), depth by edges
+  size_t n_edges = 0;
+  if (cudaGraphGetEdges(g, nullptr, nullptr, &n_edges) == cudaSuccess) {
+    std::vector<cudaGraphNode_t> from(n_edges > 0 ? n_edges : 1), to(n_edges > 0 ? n_edges : 1);
+    if (cudaGraphGetEdges(g, from.data(), to.data(), &n_edges) == cudaSuccess) {
+      out[16] = n_edges;
+      std::vector<std::vector<size_t>> succ(n);
+      std::vector<size_t> indeg(n, 0), depth(n, 1), ready;
+      for (size_t j = 0; j < n_edges; ++j) {
+        auto a = index.find(from[j]), b = index.find(to[j]);
+        if (a == index.end() || b == index.end()) continue;
+        succ[a->second].push_back(b->second);
+        indeg[b->second] += 1;
+      }
+      for (size_t i = 0; i < n; ++i) {
+        if (indeg[i] == 0) ready.push_back(i);
+      }
+      out[24] = ready.size();
+      unsigned long long longest = n > 0 ? 1 : 0;
+      while (!ready.empty()) {
+        const size_t i = ready.back();
+        ready.pop_back();
+        if (depth[i] > longest) longest = depth[i];
+        for (size_t j : succ[i]) {
+          if (depth[i] + 1 > depth[j]) depth[j] = depth[i] + 1;
+          if (--indeg[j] == 0) ready.push_back(j);
+        }
+      }
+      out[17] = longest;
+    } else {
+      out[25] += 1;
+    }
+  } else {
+    out[25] += 1;
+  }
+  std::string lines;
+  for (const auto& kv : by_name) lines += std::to_string(kv.second) + " " + kv.first + "\n";
+  if (names != nullptr && names_len > 0) {
+    const size_t m = lines.size() < names_len - 1 ? lines.size() : names_len - 1;
+    lines.copy(names, m);
+    names[m] = '\0';
+  }
+  (void)cudaGetLastError();  // the queries' errors, if any, are counted in out[25]
+  return 0;
 }

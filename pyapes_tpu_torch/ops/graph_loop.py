@@ -33,7 +33,8 @@ calls ``fn``.
 thread: each lane has its own capture stream, graph, memory pool and body
 pool, and while ``fn`` runs every lane's stream is current for its card, so
 each operation joins the graph of the card its tensors lie on. A replay
-launches every lane's graph, back to back, with no host wait between.
+launches every lane's graph, each from a thread of its own
+(``_launch_lanes``), with no host wait for the cards.
 Under such a capture ``while_loop`` adds a WHILE node to every lane's
 graph, each ended by its own replica of the condition (``cond()`` returns a
 ``parallel.blocks.Replicated`` scalar, or one flag per lane); data crosses
@@ -212,13 +213,16 @@ def _lib():
         lib.pyapes_while_begin.argtypes = [vp, vp, ctypes.POINTER(ull), ctypes.POINTER(vp)]
         lib.pyapes_capture_to_graph.argtypes = [vp, vp]
         lib.pyapes_while_end.argtypes = [vp, ull, vp]
-        lib.pyapes_graph_node_types.argtypes = [vp, ctypes.POINTER(ull)]
+        lib.pyapes_capture_graph.argtypes = [vp, ctypes.POINTER(vp)]
+        lib.pyapes_graph_census.argtypes = [vp, ctypes.POINTER(ull), ctypes.c_char_p, ull]
         lib.pyapes_loop_record.argtypes = [vp, ctypes.c_int, vp, vp, vp, vp, vp, vp,
                                            ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
                                            ctypes.c_int]
         for f in (lib.pyapes_while_begin, lib.pyapes_capture_to_graph, lib.pyapes_while_end,
-                  lib.pyapes_loop_record, lib.pyapes_graph_node_types):
+                  lib.pyapes_loop_record, lib.pyapes_capture_graph, lib.pyapes_graph_census,
+                  lib.pyapes_graph_census_init):
             f.restype = ctypes.c_int
+        lib.pyapes_graph_census_init()  # its driver entry points, before any capture
         lib._typed = True
     return lib
 
@@ -293,16 +297,58 @@ def while_loop(cond, body, device) -> None:
     nodes += 1
 
 
-_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
-               "event_record", "ext_signal", "ext_wait", "mem_alloc", "mem_free",
-               "batch_mem_op", "conditional", "other", "memcpy_across_devices")
+_CENSUS = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+           "event_record", "ext_signal", "ext_wait", "mem_alloc", "mem_free", "batch_mem_op",
+           "conditional", "other", "memcpy_across_devices", "edges", "longest_chain",
+           "kernel_other_context", "kernel_context_unread", "memcpy_other_device",
+           "memset_other_device", "kernel_functions", "most_blocks", "roots", "queries_failed")
+_NODE_KINDS = 16
+"""The census' entries that count nodes by type (``body_nodes``)."""
 
 
-def _node_types(lib, fn, handle) -> dict:
-    """The nodes of a graph (or of the graph a stream captures) by type."""
-    out = (ctypes.c_ulonglong * 16)()
-    _check(lib, fn(handle, out), "counting a graph's nodes")
-    return {name: n for name, n in zip(_NODE_TYPES, out) if n}
+def census(graph) -> dict:
+    """What the CUDA graph ``graph`` (a raw ``cudaGraph_t``) holds, read on
+    the current device (``csrc/graph_loop.cu`` ``pyapes_graph_census``):
+    nodes by type (``conditional``: WHILE nodes), memcpy nodes between two
+    devices or with an end on another device, memsets into another device,
+    kernel nodes of another context than the current one's, edges, roots,
+    the longest dependency chain (nodes), the distinct kernel functions and
+    the most blocks of one kernel node; ``kernels_by_name``: kernel nodes
+    by function; ``peer_puts`` / ``peer_waits``: the ``ops.peer`` kernels
+    among them. A graph the runtime cannot read gives zeros and ``error``:
+    the census observes, it never fails a capture."""
+    lib = _lib()
+    out = (ctypes.c_ulonglong * len(_CENSUS))()
+    names = ctypes.create_string_buffer(1 << 18)
+    err = lib.pyapes_graph_census(graph, out, names, len(names))
+    res = dict(zip(_CENSUS, (int(n) for n in out)))
+    if err:
+        res["error"] = lib.pyapes_cuda_error_string(err).decode()
+    by_name: dict = {}
+    for line in names.value.decode(errors="replace").splitlines():
+        count, _, name = line.partition(" ")
+        by_name[name] = by_name.get(name, 0) + int(count)
+    res["kernels_by_name"] = by_name
+    res["peer_puts"] = sum(c for k, c in by_name.items() if "peer_put_kernel" in k)
+    res["peer_waits"] = sum(c for k, c in by_name.items() if "peer_wait_kernel" in k)
+    return res
+
+
+def capture_census(stream) -> dict:
+    """``census`` of the graph that ``stream`` is capturing (before its
+    capture ends; the current device must be the stream's)."""
+    lib = _lib()
+    graph = ctypes.c_void_p()
+    err = lib.pyapes_capture_graph(stream.cuda_stream, ctypes.byref(graph))
+    if err:
+        return {**dict.fromkeys(_CENSUS, 0), "kernels_by_name": {}, "peer_puts": 0,
+                "peer_waits": 0, "error": lib.pyapes_cuda_error_string(err).decode()}
+    return census(graph)
+
+
+def _node_types(c: dict) -> dict:
+    """The nonzero node counts by type of a ``census``."""
+    return {k: c[k] for k in _CENSUS[:_NODE_KINDS] if c[k]}
 
 
 def _lane_flags(c, owner) -> list:
@@ -364,10 +410,14 @@ def _while_lanes(owner, cond, body) -> None:
                                                  end_flag.data_ptr()))
     for i, err in enumerate(errs):
         _check(lib, err, f"ending the body capture of lane {i}")
-    counts = [_node_types(lib, lib.pyapes_graph_node_types, g) for g in graphs]
+    bodies_census = []
+    for dev, g in zip(owner.lanes, graphs):
+        with torch.cuda.device(dev):
+            bodies_census.append(census(g))
     owner.keep.extend((*flags0, *flags))
     owner.flags.append(flags)
-    owner.body_nodes.append(counts)
+    owner.body_census.append(bodies_census)
+    owner.body_nodes.append([_node_types(c) for c in bodies_census])
     nodes += len(owner.lanes)
 
 
@@ -549,6 +599,13 @@ class GraphedCall:
         self.body_nodes: list = []
         """Per WHILE node of a capture of several lanes, the nodes of each
         lane's body graph by type."""
+        self.body_census: list = []
+        """Per WHILE node of a capture of several lanes, each lane's body
+        graph's ``census``."""
+        self.census: list = []
+        """Per lane of a capture of several lanes: ``{"top": the census of
+        its top-level graph (read before its capture ended), "bodies": the
+        census of each of its loop bodies}``."""
         self.flags: list = []
         """Per WHILE node of a capture of several lanes, each lane's
         condition (its replica of the loop's exit, read after a replay)."""
@@ -636,7 +693,7 @@ class GraphedCall:
         streams = [_stream("capture", d, i) for i, d in enumerate(self.lanes)]
         for i, d in enumerate(self.lanes):
             _stream("body", d, i)
-        self.keep, self.flags, self.body_nodes = [], [], []
+        self.keep, self.flags, self.body_nodes, self.body_census = [], [], [], []
         # the transfers' counters: zeroed before the capture, outside its pools
         self.counters = {d: (torch.zeros(COUNTER_CHUNK, dtype=torch.int64, device=d), 0)
                          for d in dict.fromkeys(self.lanes)}
@@ -675,6 +732,10 @@ class GraphedCall:
                     except RuntimeError:
                         pass  # the capture was invalidated by the error
                 raise
+            tops = []
+            for s in streams:  # every lane's top-level graph, before any capture ends
+                with torch.cuda.stream(s):
+                    tops.append(capture_census(s))
             for g, s in zip(graphs, streams):
                 with torch.cuda.stream(s):
                     g.capture_end()
@@ -689,6 +750,8 @@ class GraphedCall:
         for d, s in zip(self.lanes, streams):
             torch.cuda.current_stream(d).wait_stream(s)
         self.keep.append(self.counters)
+        self.census = [{"top": top, "bodies": [b[i] for b in self.body_census]}
+                       for i, top in enumerate(tops)]
         self.graphs, self.static_outputs = graphs, out
         self.graph = graphs[0]
         self.capture_s = time.perf_counter() - tic
@@ -702,14 +765,13 @@ class GraphedCall:
             return self.static_outputs
         # every lane's graph on its own stream (two lanes of one card must
         # not share one: a put would wait for a wait queued behind it),
-        # ordered after the input copies and before what follows, back to
-        # back with no host wait
+        # ordered after the input copies and before what follows, each
+        # launched from a thread of its own (_launch_lanes), no host wait
+        # for the device
         streams = [_stream("capture", d, i) for i, d in enumerate(self.lanes)]
         for d, s in zip(self.lanes, streams):
             s.wait_stream(torch.cuda.current_stream(d))
-        for g, s in zip(self.graphs, streams):
-            with torch.cuda.stream(s):
-                g.replay()
+        _launch_lanes(self.graphs, streams)
         for d, s in zip(self.lanes, streams):
             torch.cuda.current_stream(d).wait_stream(s)
         return self.static_outputs
@@ -723,6 +785,38 @@ class GraphedCall:
             self.capture(*inputs)
             return out
         return self.replay(*inputs)
+
+
+_LAUNCHERS: dict = {}
+
+
+def _launch_lanes(graphs, streams) -> None:
+    """Launch each lane's graph on its stream, every launch from a thread of
+    its own (a pool of one thread per lane, kept for the process), and
+    return once every launch has returned (the host never waits for a
+    card). Launched one after another from one thread, a graph that holds a
+    WHILE node and some thousands of nodes deadlocks: its launch returns
+    only once its card has taken most of its work, while the card waits in
+    a ``peer_wait`` for a put of a lane not launched yet; the wait traps at
+    its timeout and the runtime then faults inside ``cudaGraphLaunch``
+    (``scripts/graph_launch_repro.py``, on the CUDA runtime alone: 10,000
+    kernel nodes ahead of the WHILE node faulted one timeout after the
+    launch, and ran without the WHILE node, without the waits, or launched
+    side by side). Side by side every lane drains: each wait's put lies at
+    the same or an earlier place of the program every lane runs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(graphs)
+    if n not in _LAUNCHERS:
+        _LAUNCHERS[n] = ThreadPoolExecutor(max_workers=n, thread_name_prefix="graph-lane")
+
+    def launch(g, s):
+        with torch.cuda.stream(s):
+            g.replay()
+
+    futures = [_LAUNCHERS[n].submit(launch, g, s) for g, s in zip(graphs, streams)]
+    for f in futures:
+        f.result()
 
 
 def _raise_capture_error(e: BaseException):

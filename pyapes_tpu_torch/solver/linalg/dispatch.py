@@ -59,12 +59,7 @@ the graphs of a fused whole step across cards among them), in the per-card
 form, its entry's scatter and exit's gather puts and waits in the lanes.
 A capture of one graph holding a solve across cards raises, and so do
 blocks on the host in any graph (``_check_placed``; a ``sync: False`` solve
-with host blocks runs the host loop). Across cards, a graphed solve
-preconditioned by the multigrid cycle raises, naming A11k, on a placement
-and size that no run showed to launch (``check_a11k``: such graphs
-segfaulted at their first launch; the cause is open; what ran is up to
-``A11K_NODES`` nodes, and past it no FMG on ``A11K_RAN``'s placement, two
-blocks on each of four cards). Immersed obstacles
+with host blocks runs the host loop). Immersed obstacles
 (``ObstacleDirichlet``, static or dynamic, and ``ObstacleNeumann``) leave
 the active set; under a torus reduction their masks are reduced too, every
 call, and a body on the duplicate seam plane raises. The multigrid hierarchy of a periodic axis
@@ -79,8 +74,8 @@ hand kernel whose output holds a NaN; a ValueError inside a fused whole
 step, as the JAX package) and ``donate`` (the solution in the initial
 guess's storage, an eager solve off the torus). What a placed
 decomposition does not take (a capture of one graph across cards, a graph
-with host blocks, the graphs of A11k) raises ``NotImplementedError`` — never
-a silent detour to another path.
+with host blocks) raises ``NotImplementedError`` — never a silent detour to
+another path.
 """
 from __future__ import annotations
 
@@ -361,59 +356,6 @@ def _check_placed(x0, decomp) -> bool:
     return True
 
 
-A11K_NODES = 64**3
-"""The largest grid (nodes) on which every cell of
-``scripts/mg_across_matrix_torch.py``'s matrix ran (``check_a11k``)."""
-A11K_RAN = (4, 2)
-"""The one placement past ``A11K_NODES`` on which graphs per card ran in
-that matrix and in ``chip_smoke.py`` phase 17 (p): cards, blocks on each."""
-
-
-def check_a11k(devices, nodes: int, what: str, fmg: bool = False,
-               state_on_blocks: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming ``ROADMAP.md`` A11k for graphs per
-    card on blocks on the cards ``devices`` (one per block) of a grid of
-    ``nodes`` nodes that no run showed to launch. In
-    ``scripts/mg_across_matrix_torch.py``'s matrix (the MG-PCG of
-    ``chip_smoke.py`` on (4, 2, 1) blocks round robin over two or four
-    H100s; torch 2.11, CUDA 12.8) such graphs segfaulted inside
-    ``cudaGraphLaunch`` at their first replay, with the cause not found:
-    every cell ran at 64^3; past it only the cycle without FMG with two
-    blocks on each of four cards ran (f32 and bf16), and every two-card
-    cell (four blocks per card) and every FMG cell segfaulted. A fused whole
-    step with its state on blocks segfaulted at 17^3 with four blocks per
-    card and ran at 257^3 with two on each of four. So what passes: no FMG
-    on ``A11K_RAN``'s placement, at any size; else, up to ``A11K_NODES``
-    nodes, FMG or not, unless the state lies on blocks. Blocks off the card
-    (the host, the CPU tests' stand-in) make no CUDA graph and pass."""
-    devices = tuple(devices)
-    if any(torch.device(d).type != "cuda" for d in devices):
-        return
-    per_card = [devices.count(d) for d in dict.fromkeys(devices)]
-    ran = (len(per_card), set(per_card)) == (A11K_RAN[0], {A11K_RAN[1]})
-    if (ran and not fmg) or (nodes <= A11K_NODES and not state_on_blocks):
-        return
-    raise NotImplementedError(
-        f"linalg: {what} across cards, {len(devices)} blocks on {len(per_card)} cards (at most "
-        f"{max(per_card)} on one), {nodes} nodes, fmg: {fmg}, state on blocks: "
-        f"{state_on_blocks}, is not ported (ROADMAP.md A11k): graphs per card of placements "
-        "that no run showed to launch are refused, since such graphs segfaulted inside "
-        "cudaGraphLaunch at their first replay on two and four H100s "
-        "(scripts/mg_across_matrix_torch.py). What ran: up to 64^3 nodes (a state on blocks "
-        f"excepted); past it, no FMG with {A11K_RAN[1]} blocks on each of {A11K_RAN[0]} cards. "
-        "Solve with sync: True, or step eagerly (model.run(fused=False))")
-
-
-def _check_across(config, method: str, x0, decomp) -> None:
-    """``check_a11k`` for a graphed Krylov solve preconditioned by the
-    multigrid cycle (the solves of that matrix)."""
-    if method not in ("cg", "bicgstab") or str(config.get("precond")).lower() != "mg":
-        return
-    check_a11k(decomp.devices, int(np.prod(x0.shape[1:])),
-               "a sync: False solve preconditioned by the multigrid cycle",
-               fmg=bool((config.get("mg_opts") or {}).get("fmg")))
-
-
 def _place_operands(tparams, lay) -> tuple:
     """The per-call operands of a placed solve: Γ and the advector scattered
     to the blocks (``blocks.scatter_operand``, once per solve, as the JAX
@@ -537,8 +479,6 @@ def solve(var, rhs, eqs: dict, config, mesh) -> ReportType:
     # blocks on several cards: one graph per card, the entry's scatter and
     # the exit's gather outside them
     across = graphed and placed and len(_cards(x0.device, decomp)) > 1
-    if in_lanes or across:
-        _check_across(config, method, x0, decomp)
 
     fn, sym_vecs, rhs_shift = build_solver(
         config, mesh, x0, grid, term_descs, tparams, bcs, method,

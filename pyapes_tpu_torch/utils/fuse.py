@@ -14,17 +14,15 @@ Where its solves are placed over blocks on several cards (a
 whole on the lead card or on the blocks), a WHILE body cannot span two
 cards, so the step is one graph PER CARD, captured together
 (``GraphedCall(..., lanes=blocks.card_lanes(decomp, lead))``, the lead
-card first) and replayed back to back with no host wait: the core runs in
+card first) and replayed side by side, each lane's graph launched from a
+thread of its own, with no host wait for the cards: the core runs in
 the per-card form (``graph_loop.per_card``: every scalar of a solve and
 every reduction of a block vector replicated on each card, combined there
 in block order; every move between cards an ``ops.peer`` put and wait), so
 each card's graph holds its blocks' work and its own replica of every
 loop's exit. The lead card's graph holds the glue on a whole state and the
 solves' entry scatters and exit gathers (puts and waits too). The step's
-bits are the eager step's. A placement whose step graphs no run showed to
-launch raises ``NotImplementedError`` (``dispatch.check_a11k``,
-``ROADMAP.md`` A11k): past 64^3 nodes only two blocks on each of four
-cards, and a state on blocks only there.
+bits are the eager step's.
 
 Mechanics, as in the JAX package (state-swap capture): the model mutates
 its ``Field`` objects, so ``FusedStepRunner``'s core (1) swaps the state
@@ -66,7 +64,6 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
-import numpy as np
 import torch
 
 from pyapes_tpu_torch.ops.graph_loop import (
@@ -78,7 +75,7 @@ from pyapes_tpu_torch.ops.graph_loop import (
     whole_step,
 )
 from pyapes_tpu_torch.parallel import blocks
-from pyapes_tpu_torch.solver.linalg.dispatch import check_a11k, lanes_across
+from pyapes_tpu_torch.solver.linalg.dispatch import lanes_across
 from pyapes_tpu_torch.solver.ops import Solver, solve_log
 
 __all__ = ["CaptureError", "FusedStepRunner"]
@@ -166,19 +163,17 @@ class FusedStepRunner:
         ``dispatch.lanes_across`` of their placement (one graph per card;
         under the CPU tests' stand-in, ``per_card(blocks_as_cards=True)``, a
         lane per block). Raises ``NotImplementedError`` for placements on two
-        sets of cards, and where ``dispatch.check_a11k`` refuses the
-        placement (``ROADMAP.md`` A11k: step graphs that no run showed to
-        launch)."""
+        sets of cards."""
         device = self._device()
         if device.type != "cuda" and per_card_mode() != "blocks":
             return None
-        placed = [(s.config["fdm"].get("decomp"), False) for s in _solvers_of(self.model)
+        placed = [s.config["fdm"].get("decomp") for s in _solvers_of(self.model)
                   if s.config is not None and "fdm" in s.config]
-        placed += [(f._VAR.placement.decomp, True) for f in self.fields
+        placed += [f._VAR.placement.decomp for f in self.fields
                    if isinstance(f._VAR, blocks.BlockTensor)]
-        placed = [(d, on_blocks) for d, on_blocks in placed if d is not None and d.placed]
+        placed = [d for d in placed if d is not None and d.placed]
         # one card, or blocks on the host (the solve's own check raises)
-        found = {lanes_across(device, d) for d, _ in placed} - {None}
+        found = {lanes_across(device, d) for d in placed} - {None}
         if len(found) > 1:
             raise NotImplementedError(
                 "FusedStepRunner: the model's solves are placed on different sets of cards "
@@ -186,9 +181,6 @@ class FusedStepRunner:
                 "card of one placement")
         if not found:
             return None
-        nodes = int(np.prod(self.fields[0]._VAR.shape[1:]))
-        for d, on_blocks in placed:
-            check_a11k(d.devices, nodes, "a fused whole step", state_on_blocks=on_blocks)
         return found.pop()
 
     def _core_on(self, lanes, state, dt, t, diag_fn):

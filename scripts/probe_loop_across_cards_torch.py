@@ -18,6 +18,12 @@ the CUDA context unusable):
 
 Each must give the host loop's 14. ``per_card_graphs_one_card`` runs the
 third on two streams of ``cuda:0`` (a one-card host runs only that one).
+``per_card_graphs_large`` and ``per_card_graphs_one_card_large`` put
+``LARGE_TOP`` kernels in each graph ahead of its loop, behind a wait for
+the other lane's put: launched one after the other from one thread, such a
+graph's launch waits for its card, which waits for the other lane's
+graph (``scripts/graph_launch_repro.py``); ``GraphedCall`` launches each
+lane's graph from a thread of its own.
 Prints one JSON line: the torch and CUDA versions, the cards' names and
 power limits, and each probe's result (the runtime's error word for word,
 the line that raised it, the process's exit code and, where it aborted,
@@ -97,13 +103,19 @@ def probe_loop_across(dev_a, dev_b, kernel_on_b: bool = True) -> dict:
     return {"ok": got == [14.0] * 4, "error": None, "value": got}
 
 
-def probe_per_card_graphs(dev_a, dev_b, replays: int = 2) -> dict:
+LARGE_TOP = 20000
+"""Kernels ahead of the loop in each graph of the ``_large`` variants."""
+
+
+def probe_per_card_graphs(dev_a, dev_b, replays: int = 2, top_nodes: int = 0) -> dict:
     """One graph per card (``dev_a``, ``dev_b``; the same card twice: two
     streams of it), captured together from one thread by ``GraphedCall(...,
     lanes=(dev_a, dev_b))``: each a WHILE loop of 3 passes; per pass lane a
     adds one and puts its vector to lane b, lane b waits, doubles and puts
-    it back, lane a waits (``ops.peer``). Both graphs launched back to back,
-    ``replays`` times; ``{"ok": True, ...}`` when every replay gives the
+    it back, lane a waits (``ops.peer``); with ``top_nodes``, ahead of the
+    loop lane b puts its (zero) vector into lane a's, lane a waits for it,
+    and each lane runs ``top_nodes`` kernels that add zero. Both graphs
+    launched, ``replays`` times; ``{"ok": True, ...}`` when every replay gives the
     host loop's 14, else the runtime's error and the probe's line that
     raised it, as ``probe_loop_across``."""
     import traceback
@@ -130,6 +142,17 @@ def probe_per_card_graphs(dev_a, dev_b, replays: int = 2) -> dict:
                 x.zero_()
                 cnt[i].zero_()
                 go[i].fill_(True)
+        if top_nodes:
+            sa, sb = lanes()
+            first = peer.Channel.make(b, a)
+            with torch.cuda.stream(sb):
+                peer.peer_put(xb, xa, first)
+            with torch.cuda.stream(sa):
+                peer.peer_wait(first)
+            for x, s in zip((xa, xb), (sa, sb)):
+                with torch.cuda.stream(s):
+                    for _ in range(top_nodes):
+                        x.add_(0.0)
 
         def body():
             sa, sb = lanes()
@@ -168,7 +191,8 @@ def probe_per_card_graphs(dev_a, dev_b, replays: int = 2) -> dict:
         return {"ok": False, "error": f"{type(cause).__name__}: {str(cause).splitlines()[0]}",
                 "at": where}
     return {"ok": all(g == [14.0] * 4 for g in got), "error": None, "value": got,
-            "graphs": len(call.graphs), "while_nodes_per_graph": 1,
+            "graphs": len(call.graphs), "while_nodes_per_graph": 1, "top_nodes": top_nodes,
+            "kernels_per_top_graph": [c["top"]["kernel"] for c in call.census],
             "peer_put_launches": peer.peer_put.launches,
             "peer_wait_launches": peer.peer_wait.launches}
 
@@ -178,6 +202,10 @@ _VARIANTS = {
     "peer_copies_only": lambda: probe_loop_across("cuda:0", "cuda:1", False),
     "per_card_graphs": lambda: probe_per_card_graphs("cuda:0", "cuda:1"),
     "per_card_graphs_one_card": lambda: probe_per_card_graphs("cuda:0", "cuda:0"),
+    "per_card_graphs_large": lambda: probe_per_card_graphs("cuda:0", "cuda:1",
+                                                           top_nodes=LARGE_TOP),
+    "per_card_graphs_one_card_large": lambda: probe_per_card_graphs("cuda:0", "cuda:0",
+                                                                    top_nodes=LARGE_TOP),
 }
 
 
@@ -194,7 +222,7 @@ def main() -> None:
     out = {"torch": torch.__version__, "cuda": torch.version.cuda,
            "cards": smi.strip().splitlines()}
     variants = list(_VARIANTS) if torch.cuda.device_count() >= 2 else [
-        "per_card_graphs_one_card"]
+        "per_card_graphs_one_card", "per_card_graphs_one_card_large"]
     for variant in variants:
         run = subprocess.run([sys.executable, os.path.abspath(__file__), variant],
                              capture_output=True, text=True, timeout=600)

@@ -2338,9 +2338,8 @@ def test_cuda_placed_graphs_across_two_cards(cuda, kind):
     the ``sync: True`` solve's ``itr`` and bits on the same cards, with no
     host sync. With the CG case, the fused LES across the same cards, its
     state whole: one graph per card per step, the eager steps' bits
-    (``_fused_les_across``); with the MG case, its state on the blocks, four
-    per card, raises ``NotImplementedError`` naming A11k before any capture
-    (such step graphs segfaulted at their first launch)."""
+    (``_fused_les_across``); with the MG case, the same with its state on
+    the blocks, four per card."""
     from pyapes_tpu_torch.ops import graph_loop, peer
 
     n = torch.cuda.device_count()
@@ -2368,15 +2367,8 @@ def test_cuda_placed_graphs_across_two_cards(cuda, kind):
     assert graph_loop.nodes == nodes  # replays, not captures
     if kind == "cg":
         _fused_les_across(cuda, devs, on_blocks=False)
-    elif kind == "mg":  # the state on the blocks, four per card: A11k
-        from pyapes_tpu_torch.parallel import DomainDecomposition
-
-        _, m2, dt = _fused_placed_models(cuda, devs, n=17)
-        m2.put_state(DomainDecomposition((4, 2, 1), devices=devs))
-        nodes = graph_loop.nodes
-        with pytest.raises(NotImplementedError, match="A11k"):
-            m2.run(dt, 2, fused=True)
-        assert graph_loop.nodes == nodes
+    elif kind == "mg":  # the state on the blocks, four per card
+        _fused_les_across(cuda, devs, on_blocks=True)
 
 
 def _fused_les_across(dev, devs, on_blocks: bool):
@@ -2475,27 +2467,17 @@ def _bench_mg_problem(dev, n: int, devs):
 @pytest.mark.parametrize("n", [64, 256])
 def test_cuda_bench_mgpcg_across_two_cards(cuda, n):
     """Bench's bf16 V(2,2) FMG MG-PCG with its blocks round robin over
-    cuda:0 and cuda:1 (skips on one card), four blocks per card. At 64^3
-    ``sync: False`` is one graph per card, captured at the first call, and 3
+    cuda:0 and cuda:1 (skips on one card), four blocks per card: ``sync:
+    False`` is one graph per card, captured at the first call, and 3
     replays each give the ``sync: True`` solve's ``itr``, ``tol`` and
-    solution bits; at 256^3, where such graphs segfaulted at their first
-    launch (``scripts/mg_across_matrix_torch.py``), ``sync: False`` raises
-    ``NotImplementedError`` naming A11k before any capture, and ``sync:
-    True`` solves."""
-    from pyapes_tpu_torch.ops import graph_loop
-
+    solution bits (at 256^3 too, where such graphs once segfaulted at their
+    first launch: ``scripts/mg_across_matrix_torch.py``)."""
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         pytest.skip(f"needs two cards; this machine shows {n_cards}")
     solve = _bench_mg_problem(cuda, n, ("cuda:0", "cuda:1") * 4)
     ref, rref = solve(True)
     assert rref["converge"]
-    if n > 64:
-        nodes = graph_loop.nodes
-        with pytest.raises(NotImplementedError, match="A11k"):
-            solve(False)
-        assert graph_loop.nodes == nodes
-        return
     solve(False)  # the warm-up and the capture
     for _ in range(3):
         out, rep = solve(False)

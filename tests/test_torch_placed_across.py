@@ -25,11 +25,11 @@ and wait between them):
 * a copy between two devices inside a capture of one graph per card
   raises, naming its call site (the dispatch-mode check, with the CPU and
   the meta device standing in for two cards); the plain put and wait;
-* graphs per card of the placements and sizes that no run on the card
-  showed to launch raise, naming A11k (``dispatch.check_a11k``: the
-  multigrid solves and fused steps across cards).
+* bench's MG-PCG (bf16 V(2,2), FMG and not) on the (2, 2, 1) and (4, 2, 1)
+  placements of the card matrix, in the per-card form: the ``sync: True``
+  bits;
+* a replay's lanes launch side by side, each from a thread of its own.
 """
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -89,14 +89,15 @@ class _Combines:
         monkeypatch.setattr(blocks, "_combine_everywhere", counted)
 
 
-def _solve(kind, field, sync):
-    """``kind``'s solve on placed (2, 2, 2) blocks at ``sync``: the Laplacian
+def _solve(kind, field, sync, ms=(2, 2, 2), mg_opts=None):
+    """``kind``'s solve on placed ``ms`` blocks at ``sync``: the Laplacian
     (CG, BiCGSTAB, MG-PCG, fastdiag, CG + FD), Darcy's variable-Γ Laplacian
     (Γ = 1 + x + 2 y z) or an upwind Div minus the Laplacian (a seeded
     random velocity), homogeneous Dirichlet faces, a seeded random RHS;
     ``field`` "blocks": the Field, the RHS, Γ and the velocity on the
-    blocks. ``(the solution's blocks or whole tensor, the report)``."""
-    dd = _placed((2, 2, 2))
+    blocks; ``mg_opts`` replaces the case's multigrid options. ``(the
+    solution's blocks or whole tensor, the report)``."""
+    dd = _placed(ms)
 
     def put(t):
         return blocks.put(t, dd) if field == "blocks" else t
@@ -117,8 +118,11 @@ def _solve(kind, field, sync):
             - fdm.laplacian(1.0, var)
     else:
         lhs = fdm.laplacian(1.0, var)
+    cfg = dict(CASES[kind])
+    if mg_opts is not None:
+        cfg["mg_opts"] = mg_opts
     s = Solver({"fdm": {"criterion": "residual", "report": False, "sync": sync, "decomp": dd,
-                        **CASES[kind]}})
+                        **cfg}})
     s.set_eq(lhs == rhs)
     rep = s.solve()
     x = var()
@@ -222,7 +226,7 @@ def test_replicated_scalars_follow_their_holders():
             assert torch.equal(p, x.parts[i] * (i + 1))
 
 
-@pytest.mark.parametrize("method", ["mg", "fastdiag"])
+@pytest.mark.parametrize("method", ["mg", "mg_fmg", "fastdiag"])
 def test_per_card_sync_false_vs_jax(method, monkeypatch):
     """JAX ``sync: False`` with ``DomainDecomposition((2, 4))`` on 8 virtual
     CPU devices against the port's per-card form on ``("cpu",) * 8``
@@ -258,76 +262,59 @@ def test_cross_device_copy_in_a_per_card_capture_raises_naming_its_site():
     assert torch.equal(y, x) and float(z) == 32.0
 
 
-def test_across_cards_narrow_or_fmg_cycle_raises():
-    """Across cards, a graphed CG or BiCGSTAB solve preconditioned by the
-    multigrid cycle raises ``NotImplementedError`` naming A11k on every
-    placement and size that no run showed to launch
-    (``scripts/mg_across_matrix_torch.py``: its graphs per card segfaulted
-    at their first launch on two and four cards past 64^3, with FMG or four
-    blocks per card, f32 and bf16 alike). What passes: every cycle up to
-    64^3 nodes; past it, the cycle without FMG on two blocks on each of
-    four cards (bench's bf16 V(2,2) without FMG among them). Past 64^3 two
-    cards raise with two blocks on each as with four, and so do four cards
-    with one block each. fastdiag, the FD preconditioner and a fastdiag
-    solve whose config names the MG fallback pass anywhere, and so do blocks
-    off the card."""
-    from pyapes_tpu_torch.solver.linalg import dispatch
-
-    cards = [torch.device(f"cuda:{i}") for i in range(4)]
-
-    def dd(n_cards, n_blocks):
-        return SimpleNamespace(devices=tuple(cards[i % n_cards] for i in range(n_blocks)))
-
-    four = dd(4, 8)
-    big, small = torch.zeros(1, 128, 64, 64), torch.zeros(1, 64, 64, 64)
-    bf16 = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2}
-    for opts in ({}, bf16, {"dtype": "float32", "fmg": False}, {"fmg": True},
-                 {**bf16, "fmg": True}):
-        fmg = bool(opts.get("fmg"))
-        for method in ("cg", "bicgstab"):
-            cfg = {"precond": "mg", "mg_opts": opts}
-            for placement in (dd(2, 8), dd(2, 4), dd(4, 4), dd(3, 6)) + ((four,) if fmg else ()):
-                with pytest.raises(NotImplementedError, match="A11k") as e:
-                    dispatch._check_across(cfg, method, big, placement)
-                assert "segfaulted inside cudaGraphLaunch" in str(e.value)
-                assert f"fmg: {fmg}" in str(e.value)
-                dispatch._check_across(cfg, method, small, placement)
-            if not fmg:
-                dispatch._check_across(cfg, method, big, four)
-    for cfg, method in (({"precond": "fd"}, "cg"), ({"precond": "mg"}, "fastdiag"),
-                        ({"precond": None, "mg_opts": {"fmg": True}}, "cg")):
-        for placement in (four, dd(2, 8)):
-            dispatch._check_across(cfg, method, big, placement)
-    host = SimpleNamespace(devices=(cards[0], torch.device("cpu")) * 4)
-    dispatch._check_across({"precond": "mg", "mg_opts": {"fmg": True}}, "cg", big, host)
+# bench's cycle (bf16 V(2,2), omega 0.857) with and without its FMG start
+BENCH_CYCLE = {"dtype": "bfloat16", "n_pre": 2, "n_post": 2, "omega": 0.857}
 
 
-def test_a11k_placements_of_a_fused_step():
-    """``dispatch.check_a11k`` for a fused whole step: a whole state passes
-    up to 64^3 nodes on any placement and past it only on two blocks on each
-    of four cards; a state on blocks passes only on that placement (its
-    17^3 step on four blocks per card segfaulted, its 257^3 step on two per
-    card ran); blocks off the card pass."""
-    from pyapes_tpu_torch.solver.linalg import dispatch
+@pytest.mark.parametrize("field", ["blocks", "whole"])
+@pytest.mark.parametrize("fmg", [False, True])
+@pytest.mark.parametrize("ms", [(2, 2, 1), (4, 2, 1)])
+def test_mg_cycle_across_cards_equals_sync_true(ms, fmg, field, monkeypatch):
+    """Bench's MG-PCG across cards in its per-card form on the placements
+    of the card matrix (``scripts/mg_across_matrix_torch.py``: (2, 2, 1)
+    and (4, 2, 1), here four and eight stand-in cards, a block each), with
+    and without the FMG start, a Field on blocks and a whole one: the
+    ``sync: True`` solve's ``itr``, ``tol`` bits and solution bits. No
+    placement or size is refused any more."""
+    opts = {**BENCH_CYCLE, "fmg": fmg}
+    ref, rref = _solve("mg", field, True, ms, opts)
+    combines = _Combines(monkeypatch)
+    with per_card(blocks_as_cards=True):
+        out, rep = _solve("mg", field, False, ms, opts)
+    assert combines.n > 0 and rref["converge"] and rref["itr"] >= 1
+    assert int(rep["itr"]) == rref["itr"] and float(rep["tol"]) == rref["tol"]
+    assert len(out) == len(ref) and all(torch.equal(a, b) for a, b in zip(out, ref))
 
-    cards = [torch.device(f"cuda:{i}") for i in range(4)]
-    four, two = (tuple(cards[i % n] for i in range(8)) for n in (4, 2))
-    for nodes in (17**3, 64**3, 257**3):
-        for state_on_blocks in (False, True):
-            dispatch.check_a11k(four, nodes, "a fused whole step",
-                                state_on_blocks=state_on_blocks)
-        if nodes <= 64**3:
-            dispatch.check_a11k(two, nodes, "a fused whole step")
-        else:
-            with pytest.raises(NotImplementedError, match="A11k"):
-                dispatch.check_a11k(two, nodes, "a fused whole step")
-        with pytest.raises(NotImplementedError, match="A11k") as e:
-            dispatch.check_a11k(two, nodes, "a fused whole step", state_on_blocks=True)
-        assert "8 blocks on 2 cards (at most 4 on one)" in str(e.value)
-        with pytest.raises(NotImplementedError, match="A11k"):
-            dispatch.check_a11k(cards[:3] * 2, nodes, "a fused whole step",
-                                state_on_blocks=True)
-    dispatch.check_a11k(("cpu",) * 4, 257**3, "a fused whole step", state_on_blocks=True)
+
+@pytest.mark.parametrize("lanes", [2, 4])
+def test_lanes_launch_side_by_side(lanes):
+    """``graph_loop._launch_lanes`` launches every lane's graph from a thread
+    of its own and returns once each launch has returned: a lane's launch
+    that cannot return before every other lane's launch has begun (a
+    barrier standing in for a card that waits for a put of a lane not
+    launched yet) completes, where one thread launching the lanes one
+    after another would wait forever (the barrier's timeout breaks it).
+    A launch's error reaches the caller."""
+    import threading
+
+    barrier = threading.Barrier(lanes)
+
+    class Graph:
+        def replay(self):
+            self.thread = threading.current_thread()
+            barrier.wait(timeout=10)
+
+    graphs = [Graph() for _ in range(lanes)]
+    graph_loop._launch_lanes(graphs, [None] * lanes)
+    assert len({g.thread for g in graphs}) == lanes
+    assert threading.current_thread() not in {g.thread for g in graphs}
+
+    class Failing:
+        def replay(self):
+            raise RuntimeError("launch failed")
+
+    with pytest.raises(RuntimeError, match="launch failed"):
+        graph_loop._launch_lanes([Failing()] * lanes, [None] * lanes)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])

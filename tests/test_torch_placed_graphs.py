@@ -65,6 +65,9 @@ def _placed(ms):
 # -- the port against the JAX package: sync: False with a decomposition --------
 
 JAX_CFGS = {"mg": {"method": "cg", "tol": 1e-8, "max_it": 500, "precond": "mg"},
+            # bench's cycle in f64: V(2,2), omega 0.857, the FMG start
+            "mg_fmg": {"method": "cg", "tol": 1e-8, "max_it": 500, "precond": "mg",
+                       "mg_opts": {"n_pre": 2, "n_post": 2, "omega": 0.857, "fmg": True}},
             "fastdiag": {"method": "fastdiag", "tol": 1e-10, "max_it": 50}}
 
 

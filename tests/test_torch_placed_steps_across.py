@@ -23,9 +23,10 @@ does for the solves:
 * a user's ``GraphedCall(fn, ..., lanes=...)`` holding a placed CG and an
   MG-PCG ``sync: False`` solve: the ``sync: True`` solve's bits, ``itr`` and
   ``tol``;
+* the same on (4, 2) blocks, eight stand-in cards;
 * the runner's lanes: none for a placement on one card, the lead card then
-  the other cards of the blocks for one across cards; a state on blocks
-  with more than two blocks on a card raises, naming A11k.
+  the other cards of the blocks for one across cards, on every placement
+  and size, the state whole or on blocks.
 """
 import warnings
 from math import pi
@@ -69,16 +70,16 @@ def _spy_check_placed(mp) -> list:
     return seen
 
 
-def _les(fused: bool, state: str):
+def _les(fused: bool, state: str, ms=(2, 2)):
     """The Smagorinsky Taylor-Green ``PeriodicFlow`` at 33^2 with its solves
-    on placed (2, 2) blocks and its state ``state`` ("whole" or "blocks":
+    on placed ``ms`` blocks and its state ``state`` ("whole" or "blocks":
     ``put_state``), ``LES_STEPS`` steps: fused in the per-card form (a
     replica per block), or eager in the lead-combine form; two through
     ``run``, the rest one by one, the viscosity then refreshed as ``run``
     does. ``(model, itr per solve of the steps after the first two,
     warnings, what each solve's ``_check_placed`` returned)``."""
     L = 2 * pi
-    dd = _placed((2, 2))
+    dd = _placed(ms)
     mesh = Mesh(Box[0:L, 0:L], None, [LES_N] * 2, device="cpu", dtype="double")
     m = pmodels.PeriodicFlow(mesh, nu=LES_NU, config={"decomp": dd},
                              mu_strain_fn=smagorinsky_viscosity(LES_NU, mesh, cs=0.17))
@@ -132,6 +133,23 @@ def test_fused_per_card_les_equals_eager_steps(les_runs, state):
         assert a.n_hist == b.n_hist and a._t == b._t and a._dt == b._dt, a.name
     assert torch.equal(mf._nu_field.cpu(), me._nu_field.cpu())
     assert mf.t == me.t
+
+
+@pytest.mark.parametrize("state", ["whole", "blocks"])
+def test_fused_per_card_les_on_eight_blocks_equals_eager_steps(state):
+    """The fused LES on placed (4, 2) blocks (eight stand-in cards, the
+    block count of the card runs' (4, 2, 1) placements), its state whole or
+    on the blocks, in the per-card form against its eager placed steps: no
+    warning, ``itr`` solve by solve, the bits of every state Field's value
+    and history and of the viscosity field."""
+    (mf, itr_f, warn_f, placed_f), (me, itr_e, _, _) = (_les(True, state, (4, 2)),
+                                                        _les(False, state, (4, 2)))
+    assert warn_f == [] and placed_f and all(p is True for p in placed_f)
+    assert itr_f == itr_e and len(itr_e) == 3 * (LES_STEPS - 2)
+    for a, b in zip(mf.state_fields(), me.state_fields()):
+        assert isinstance(a(), blocks.BlockTensor) == (state == "blocks"), a.name
+        assert torch.equal(a().cpu(), b().cpu()) and torch.equal(a._VARo.cpu(), b._VARo.cpu())
+    assert torch.equal(mf._nu_field.cpu(), me._nu_field.cpu())
 
 
 @pytest.mark.parametrize("state", ["whole", "blocks"])
@@ -227,10 +245,12 @@ def test_runner_lanes_follow_the_placement(monkeypatch):
     """``FusedStepRunner._lanes``: None on the CPU and for a placement on one
     card; across cards the lead card, then the other cards of the blocks in
     block order (``blocks.card_lanes``); under the CPU stand-in a lane per
-    block. Two placements on different sets of cards raise, and so do the
-    placements ``dispatch.check_a11k`` refuses (A11k): past 64^3 nodes a
-    whole state on anything but two blocks on each of four cards, and a
-    state on blocks on anything but that placement at any size."""
+    block. Two placements on different sets of cards raise. Every other
+    placement returns its lanes, at any size, the state whole or on the
+    blocks: two, three and four cards with two, three and four blocks on
+    each, at 17^3 and 257^3 (graphs per card that segfaulted at their
+    first launch there, launched one after another from one thread, run
+    with each card's launch on a thread of its own)."""
     import pyapes_tpu_torch.utils.fuse as fuse
 
     cuda = [torch.device(f"cuda:{i}") for i in range(4)]
@@ -260,21 +280,12 @@ def test_runner_lanes_follow_the_placement(monkeypatch):
     assert blocks.card_lanes(dd(cuda[2], cuda[1]), cuda[0]) == (cuda[0], cuda[2], cuda[1])
     with pytest.raises(NotImplementedError, match="different sets of cards"):
         lanes(dd(cuda[0], cuda[1]), dd(cuda[0], cuda[2]))
-    with per_card(blocks_as_cards=True):  # the stand-in: a lane per block, no A11k
+    with per_card(blocks_as_cards=True):  # the stand-in: a lane per block
         cpu = dd(*("cpu",) * 4)
         assert lanes(cpu, device=torch.device("cpu"), state=on_blocks(cpu)) == (
             torch.device("cpu"),) * 4
-    # A11k
-    four, two = dd(*(cuda[i % 4] for i in range(8))), dd(*(cuda[i % 2] for i in range(8)))
-    for n in (17, 257):
-        assert lanes(four, n=n) == tuple(cuda)
-        assert lanes(four, state=on_blocks(four, n)) == tuple(cuda)
-        with pytest.raises(NotImplementedError, match="A11k") as e:
-            lanes(two, state=on_blocks(two, n))
-        assert "at most 4 on one" in str(e.value)
-    assert lanes(two) == (cuda[0], cuda[1])  # a whole state at 17^3
-    with pytest.raises(NotImplementedError, match="A11k"):
-        lanes(two, n=257)
-    three = dd(*(cuda[i % 3] for i in range(6)))
-    with pytest.raises(NotImplementedError, match="A11k"):
-        lanes(three, state=on_blocks(three))
+    for n_cards, n_blocks in ((4, 8), (2, 8), (2, 4), (3, 6), (4, 4)):
+        d = dd(*(cuda[i % n_cards] for i in range(n_blocks)))
+        for n in (17, 257):
+            assert lanes(d, n=n) == tuple(cuda[:n_cards])
+            assert lanes(d, state=on_blocks(d, n)) == tuple(cuda[:n_cards])
